@@ -1,0 +1,72 @@
+"""Flagship model: scaled logistic regression for fraud scoring.
+
+Bundles :class:`LogisticParams` + :class:`ScalerParams` + the frozen
+feature order behind the scaler-folded :class:`BatchScorer`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fraud_detection_tpu_torch.ckpt.checkpoint import load_artifacts, save_artifacts
+from fraud_detection_tpu_torch.models.base import FraudModelBase
+from fraud_detection_tpu_torch.ops.linear_shap import (
+    LinearShapExplainer,
+    linear_shap,
+    make_explainer,
+)
+from fraud_detection_tpu_torch.ops.logistic import LogisticParams
+from fraud_detection_tpu_torch.ops.scaler import ScalerParams
+from fraud_detection_tpu_torch.ops.scorer import BatchScorer, fold_scaler_into_linear
+
+
+class FraudLogisticModel(FraudModelBase):
+    def __init__(
+        self,
+        params: LogisticParams,
+        scaler: ScalerParams | None,
+        feature_names: list[str],
+        device: str | torch.device | None = None,
+    ):
+        self._scorer = BatchScorer(params, scaler, device=device)
+        self.device = self._scorer.device
+        self.params = params.to(self.device)
+        self.scaler = scaler.to(self.device) if scaler is not None else None
+        self.feature_names = list(feature_names)
+        if len(self.feature_names) != self._scorer.n_features:
+            raise ValueError(
+                f"{len(self.feature_names)} feature names for "
+                f"{self._scorer.n_features} coefficients"
+            )
+        self._raw_explainer = None
+
+    def raw_explainer(self) -> LinearShapExplainer:
+        """SHAP explainer taking *raw* inputs: scaler folded into the coef,
+        background mean = scaler mean. Built once and cached."""
+        if self._raw_explainer is None:
+            folded = fold_scaler_into_linear(self.params, self.scaler)
+            mu = (
+                self.scaler.mean if self.scaler is not None
+                else torch.zeros_like(folded.coef)
+            )
+            self._raw_explainer = make_explainer(
+                folded.coef, folded.intercept, background_mean=mu
+            )
+        return self._raw_explainer
+
+    def explain_batch(self, x: np.ndarray) -> tuple[np.ndarray, float]:
+        explainer = self.raw_explainer()
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        phi = linear_shap(explainer, xt).cpu().numpy()
+        return phi, float(explainer.expected_value)
+
+    def save(self, directory: str) -> str:
+        return save_artifacts(directory, self.params, self.scaler, self.feature_names)
+
+    @classmethod
+    def load(
+        cls, directory: str, device: str | torch.device | None = None
+    ) -> "FraudLogisticModel":
+        params, scaler, feature_names = load_artifacts(directory)
+        return cls(params, scaler, feature_names, device=device)
