@@ -19,6 +19,19 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    the number; eager per-call times are printed beside), against the least
    time the card could take (bytes over 3.35 TB/s, operations over the
    f32 peak).
+2b. **knn_topk against its plain version** — rows from
+   ``np.random.default_rng(seed)`` at (m, d, k) = (2, 30, 1), (6, 30, 5),
+   (126, 30, 5), (158, 30, 5), (1000, 37, 5), (4096, 30, 5),
+   (20000, 30, 5) and (100000, 30, 5), a duplicated-rows fixture and a
+   lattice fixture (integer points closed under x → −x: every distance
+   exact). Exact index equality everywhere below m = 20,000; from there
+   the plain version runs on 4,096 sampled query rows against all keys,
+   and a mismatched row must be a near-tie (the float64 distances of the
+   two selections agree within 1e-5 relative). Times the kernel at
+   m = 158 (the default training run's) and m = 100,000 (the 10M-row
+   configuration's minority set), the plain version, the operations bound,
+   and — as orientation only, since no single PyTorch call has this tie
+   rule — ``torch.topk(torch.cdist(xc, xc), k + 1, largest=False)``.
 3. **the served path** — copies ``models/``, builds the drift baseline
    from the first 20,000 rows of ``data/creditcard.csv`` with the port's
    ``build_baseline_profile``, serves the port's app over HTTP on
@@ -31,6 +44,19 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    one) served them, that ``/monitor/status`` counted the rows, and that
    every kernel of the path launched during the run (its launch count is
    zeroed just before the requests and read just after).
+4. **the trained path** — the port's trainer (``train()``, what
+   ``python -m fraud_detection_tpu_torch.train`` runs) on the card over
+   the committed CSV with its defaults (5 folds, SMOTE, L-BFGS), its
+   models and tracking store in a temporary directory; the launch counts
+   are zeroed just before and read just after, and ``knn_topk`` must have
+   launched exactly 6 times (5 folds + the final fit). The same trainer
+   with ``device="cpu"`` must agree on test AUC and CV mean within 2e-3,
+   both runs must pass the 0.95 gate and register version 1 in their own
+   registries, ``models:/fraud@prod`` must resolve to the card run's
+   artifact, and that artifact, loaded on the card, must score 1024 CSV
+   rows within 1e-5 of a float64 numpy computation from its ``model.npz``.
+   Prints the wall time of each stage (host clock, the device synchronised
+   at stage boundaries) and the L-BFGS iterations of each fit.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -65,6 +91,16 @@ CLIENTS = 64  # client threads sending them
 N_SEQUENTIAL = 64  # then one client, one request at a time
 PROFILE_ROWS = 20_000
 TIMED_LAUNCHES = 200
+KNN_SAMPLE_ROWS = 4096  # plain-version queries at m >= KNN_SAMPLED_FROM
+KNN_SAMPLED_FROM = 20_000
+KNN_NEAR_TIE_RTOL = 1e-5
+TRAIN_AUC_TOL = 2e-3  # card vs CPU training run
+TRAIN_SCORED_ROWS = 1024
+KNN_LAUNCHES_PER_RUN = 6  # 5 folds + the final fit
+
+#: the kernels each path must launch (its counts zeroed just before it)
+SERVED_KERNELS = ("fused_score",)
+TRAINED_KERNELS = ("knn_topk",)
 
 #: every ported kernel: name → (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -72,6 +108,11 @@ KERNELS = {
         "cuda",
         "fraud_detection_tpu_torch/csrc/fused_score.cu",
         "fraud_detection_tpu/ops/pallas_kernels.py:113",
+    ),
+    "knn_topk": (
+        "cuda",
+        "fraud_detection_tpu_torch/csrc/knn_topk.cu",
+        "fraud_detection_tpu/ops/pallas_kernels.py:179",
     ),
 }
 
@@ -226,6 +267,136 @@ def check_fused_score(seed: int) -> dict:
             f"host-bound): kernel {eager[0]:.6f} ms, plain {eager[1]:.6f} ms, "
             f"library {eager[2]:.6f} ms"
         )
+    return {"max_abs_err": worst, "timing": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: knn_topk against its plain version
+# ---------------------------------------------------------------------------
+
+
+def knn_fixtures(seed: int) -> list[tuple[str, object, int]]:
+    """(label, rows (m, d) float32, k) for phase 2b, all from one seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for m, d, k in [(2, 30, 1), (6, 30, 5), (126, 30, 5), (158, 30, 5),
+                    (1000, 37, 5), (4096, 30, 5), (20000, 30, 5),
+                    (100000, 30, 5)]:
+        out.append((f"m={m} d={d} k={k}", rng.standard_normal((m, d), dtype=np.float32), k))
+    base = rng.standard_normal((40, 30), dtype=np.float32)
+    out.append(("duplicated rows (109 = 40 x 2 + 29)",
+                np.concatenate([base, base, base[:29]]), 5))
+    half = rng.integers(-3, 4, (150, 30))
+    out.append(("lattice (300 integer points, closed under x -> -x)",
+                np.concatenate([half, -half]).astype(np.float32), 5))
+    return out
+
+
+def knn_inputs(x):
+    """Centred rows and their |x|^2 on the card, as ops/smote.py makes them."""
+    import torch
+
+    xt = torch.from_numpy(x).cuda()
+    xc = (xt - xt.mean(dim=0)).contiguous()
+    return xc, (xc * xc).sum(dim=1)
+
+
+def knn_selection_gap(xc, queries, got, want) -> tuple[int, float, float]:
+    """(mismatched rows, max |d64(kernel pick) − d64(plain pick)| over all
+    rows and slots, max relative gap over the mismatched rows), the
+    distances recomputed in float64 from the centred rows."""
+    import torch
+
+    x64 = xc.double()
+    q = x64[queries]
+    dg = ((x64[got.long()] - q[:, None, :]) ** 2).sum(-1)
+    dw = ((x64[want.long()] - q[:, None, :]) ** 2).sum(-1)
+    gap = (dg - dw).abs()
+    bad = (got != want).any(dim=1)
+    rel = (gap / dw.abs().clamp_min(1e-30))[bad]
+    return int(bad.sum()), float(gap.max()), float(rel.max()) if rel.numel() else 0.0
+
+
+def knn_bound(m: int, d: int, k: int) -> tuple[float, str, int, int]:
+    n_ops = 2 * m * m * d + 3 * m * m  # FMAs of the dots + combine/compare
+    n_bytes = 4 * (m * d + m + m * k)  # xc, sq read once; indices written
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), n_ops, n_bytes
+
+
+def check_knn_topk(seed: int) -> dict:
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+
+    worst = 0.0
+    inputs = {}
+    for label, x, k in knn_fixtures(seed):
+        m = x.shape[0]
+        xc, sq = knn_inputs(x)
+        got = kernels.knn_topk(xc, sq, k)
+        torch.cuda.synchronize()
+        if got.shape != (m, k) or got.dtype != torch.int32:
+            raise AssertionError(f"knn_topk {label}: bad output {got.shape} {got.dtype}")
+        if m >= KNN_SAMPLED_FROM:
+            g = torch.Generator().manual_seed(seed)
+            rows = torch.randperm(m, generator=g)[:KNN_SAMPLE_ROWS].sort().values.to(xc.device)
+        else:
+            rows = torch.arange(m, device=xc.device)
+        want = kernels.knn_topk_reference(xc, sq, k, rows=rows)
+        mism, gap, rel = knn_selection_gap(xc, rows, got[rows], want)
+        print(
+            f"phase2b: knn_topk {label}: {mism} of {rows.numel()} checked rows "
+            f"mismatched (max |d64 kernel pick - d64 plain pick| {gap:.3e}, "
+            f"max relative gap of a mismatched row {rel:.3e})"
+        )
+        if m < KNN_SAMPLED_FROM and mism:
+            raise AssertionError(f"knn_topk {label}: {mism} rows differ from the plain version")
+        if rel > KNN_NEAR_TIE_RTOL:
+            raise AssertionError(
+                f"knn_topk {label}: a mismatched row is no near-tie "
+                f"(relative gap {rel:.3e} > {KNN_NEAR_TIE_RTOL})"
+            )
+        worst = max(worst, gap)
+        if m in (158, 100000):
+            inputs[m] = (xc, sq, k)
+        else:
+            del xc, sq, got, want
+
+    rows = {}
+    for m in (158, 100000):
+        xc, sq, k = inputs[m]
+        d = xc.shape[1]
+        kernel_fn = lambda: kernels.knn_topk(xc, sq, k)  # noqa: E731
+        plain_fn = lambda: kernels.knn_topk_reference(xc, sq, k)  # noqa: E731
+        big = m > KNN_SAMPLED_FROM
+        ms = graph_ms(kernel_fn, iters=3 if big else TIMED_LAUNCHES,
+                      replays=3 if big else 5)
+        eager = eager_ms(kernel_fn, iters=3 if big else TIMED_LAUNCHES,
+                         warm=1 if big else 20)
+        plain = eager_ms(plain_fn, iters=1 if big else 50, warm=1 if big else 5)
+        torch.cuda.empty_cache()
+        orient_fn = lambda: torch.topk(  # noqa: E731
+            torch.cdist(xc, xc), k + 1, largest=False
+        )
+        orient = eager_ms(orient_fn, iters=2 if big else 50, warm=1 if big else 5)
+        torch.cuda.empty_cache()
+        bound, by, n_ops, n_bytes = knn_bound(m, d, k)
+        rows[m] = {"ms": ms, "plain_ms": plain, "orientation_ms": orient,
+                   "bound_ms": bound, "bound_by": by, "eager_ms": eager}
+        print(
+            f"phase2b: knn_topk timing m={m} d={d} k={k}: kernel {ms:.6f} ms "
+            f"(CUDA events over launches replayed from a CUDA graph; eager "
+            f"through the wrapper {eager:.6f} ms), plain {plain:.6f} ms "
+            f"(eager, CUDA events), bound {bound:.6f} ms ({by}: {n_ops} ops, "
+            f"{n_bytes} B); orientation only, two calls "
+            f"topk(cdist(xc, xc), k+1): {orient:.6f} ms"
+        )
+    del inputs
+    torch.cuda.empty_cache()
     return {"max_abs_err": worst, "timing": rows}
 
 
@@ -493,7 +664,7 @@ def served_path(work: Path) -> dict:
             f"window_rows={mon['drift']['window_rows']:.3f} "
             f"status={mon['status']}"
         )
-        for name in KERNELS:
+        for name in SERVED_KERNELS:
             if launches.get(name, 0) < 1:
                 raise AssertionError(f"kernel {name} never launched on the path")
         print(f"phase3: kernel launches on the served path {launches}")
@@ -532,6 +703,104 @@ def served_path(work: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the trained path
+# ---------------------------------------------------------------------------
+
+
+def trained_path(work: Path) -> dict:
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+    from fraud_detection_tpu_torch.train import train
+
+    csv = str(ROOT / "data" / "creditcard.csv")
+    runs = {}
+    launches = None
+    for dev in ("cuda", "cpu"):
+        uri = f"file:{work / dev / 'mlruns'}"
+        os.environ["MLFLOW_TRACKING_URI"] = uri
+        for knob in ("MLFLOW_AUC_THRESHOLD", "MLFLOW_MODEL_NAME",
+                     "MLFLOW_MODEL_STAGE", "MLFLOW_EXPERIMENT"):
+            os.environ.pop(knob, None)
+        out = str(work / dev / "models")
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            kernels.reset_launch_counts()
+        metrics = train(data_csv=csv, out_dir=out, device=dev)
+        if dev == "cuda":
+            launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        runs[dev] = (metrics, out, uri)
+        print(
+            f"phase4: train on {dev}: test AUC {metrics['test_auc']:.6f}, CV mean "
+            f"{metrics['cv_auc_mean']:.6f}, registered version "
+            f"{metrics['registered_version']}, {wall:.3f} s wall; L-BFGS "
+            f"iterations per fit {metrics['lbfgs_iters']}"
+        )
+        print(f"phase4: stages on {dev} (s): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in metrics["stages"].items()))
+    for name in TRAINED_KERNELS:
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    if launches["knn_topk"] != KNN_LAUNCHES_PER_RUN:
+        raise AssertionError(
+            f"knn_topk launched {launches['knn_topk']} times in the card's "
+            f"training run, not {KNN_LAUNCHES_PER_RUN}"
+        )
+    print(f"phase4: kernel launches on the trained path {launches}")
+    (card, card_out, card_uri), (cpu, _, cpu_uri) = runs["cuda"], runs["cpu"]
+    for key in ("test_auc", "cv_auc_mean"):
+        if not abs(card[key] - cpu[key]) <= TRAIN_AUC_TOL:
+            raise AssertionError(f"{key}: card {card[key]} vs cpu {cpu[key]}")
+    for dev, (m, _, uri) in runs.items():
+        if not m["test_auc"] >= 0.95 or m["registered_version"] != 1:
+            raise AssertionError(
+                f"{dev} run: test AUC {m['test_auc']}, version {m['registered_version']}"
+            )
+        reg = TrackingClient(uri).registry
+        if reg.get_version_by_alias("fraud", "prod") != 1:
+            raise AssertionError(f"{dev} registry: @prod is not version 1")
+    reg = TrackingClient(card_uri).registry
+    art = reg.resolve("models:/fraud@prod")
+    if art != reg.artifact_dir("fraud", 1) or not Path(art, "meta.json").exists():
+        raise AssertionError(f"models:/fraud@prod resolved to {art}")
+    run_id = json.loads(Path(art, "meta.json").read_text())["run_id"]
+    with np.load(Path(art) / "model.npz") as z, \
+            np.load(Path(card_out) / "model.npz") as o:
+        if any(not np.array_equal(z[f], o[f]) for f in z.files):
+            raise AssertionError("registered artifact differs from --out-dir's")
+    for sidecar in ("quant_calibration.npz", "monitor_profile.npz", "feature_names.json"):
+        if not Path(art, sidecar).exists():
+            raise AssertionError(f"registered artifact lacks {sidecar}")
+    print(
+        f"phase4: both runs pass the 0.95 gate as version 1; card - cpu: test "
+        f"AUC {card['test_auc'] - cpu['test_auc']:+.3e}, CV mean "
+        f"{card['cv_auc_mean'] - cpu['cv_auc_mean']:+.3e}; models:/fraud@prod "
+        f"-> {Path(art).relative_to(work)} (run {run_id})"
+    )
+
+    model = load_any_model(art, device="cuda")
+    data = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                      max_rows=TRAIN_SCORED_ROWS, dtype=np.float64)
+    x64 = data[:, :30]
+    got = model.scorer.predict_proba(x64.astype(np.float32))
+    with np.load(Path(art) / "model.npz") as z:
+        logit = ((x64 - z["scaler_mean"]) / z["scaler_scale"]) @ z["coef"] + z["intercept"]
+    want = 1.0 / (1.0 + np.exp(-logit))
+    err = float(np.abs(got - want).max())
+    if got.shape != (TRAIN_SCORED_ROWS,) or not np.isfinite(got).all() or not err <= SCORE_ATOL:
+        raise AssertionError(f"trained artifact scores off by {err:.3e}")
+    print(
+        f"phase4: the registered artifact on the card scores {TRAIN_SCORED_ROWS} "
+        f"CSV rows within {err:.3e} of float64 numpy; on {torch.cuda.get_device_name(0)}"
+    )
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -566,29 +835,39 @@ def main() -> int:
     print(f"kernels: {json.dumps(sorted(KERNELS))}")
 
     fs = check_fused_score(seed=0)
+    knn = check_knn_topk(seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        launches = served_path(Path(work))
+        served = served_path(Path(work))
+        trained = trained_path(Path(work))
+
+    def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
+        route, source, replaces = KERNELS[name]
+        return {
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": check["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": library_ms, **extra,
+        }
 
     t = fs["timing"][1024]
-    line = {"kernels": [{
-        "name": "fused_score",
-        "route": KERNELS["fused_score"][0],
-        "source": KERNELS["fused_score"][1],
-        "replaces": KERNELS["fused_score"][2],
-        "launches": launches["fused_score"],
-        "max_abs_err": fs["max_abs_err"],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-    }]}
+    k_small, k_big = knn["timing"][158], knn["timing"][100000]
+    line = {"kernels": [
+        row("fused_score", served["fused_score"], fs, t, t["library_ms"]),
+        # no single PyTorch call computes k-NN with this tie rule: the
+        # library column is null, the two-call orientation stands beside it;
+        # max_abs_err is the largest float64 distance gap between the
+        # kernel's and the plain version's picks (0 when the indices agree)
+        row("knn_topk", trained["knn_topk"], knn, k_small, None,
+            m=158, orientation_ms=k_small["orientation_ms"],
+            at_m_100000={key: k_big[key] for key in
+                         ("ms", "plain_ms", "bound_ms", "orientation_ms")}),
+    ]}
     print(json.dumps(line))
     print(card)  # exactly as nvidia-smi gives it
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,  # the cards this run used: every phase runs on one
     }}))
     return 0
 

@@ -1,6 +1,7 @@
-"""Environment-variable configuration for the port's serving slice.
+"""Environment-variable configuration for the port's serving and training
+slices.
 
-Its own copy of only the knobs this slice reads, with the defaults of
+Its own copy of only the knobs these slices read, with the defaults of
 ``fraud_detection_tpu/config.py`` — except ``DEVICE``, which defaults to
 ``cuda`` (the port's target). All lookups are lazy (read at call time), so
 tests can monkeypatch the environment.
@@ -37,6 +38,42 @@ def env_flag(name: str) -> bool | None:
 def device_backend() -> str:
     """``DEVICE`` — ``cuda`` (default) or ``cpu``."""
     return _get("DEVICE", "cuda")
+
+
+def data_csv() -> str:
+    """``DATA_CSV`` — the training CSV (Kaggle credit-card schema)."""
+    return _get("DATA_CSV", "data/creditcard.csv")
+
+
+def tracking_uri() -> str:
+    """``MLFLOW_TRACKING_URI`` — ``file:<dir>`` (or a bare path) selects the
+    file tracking store and registry."""
+    return _get("MLFLOW_TRACKING_URI", "file:./mlruns")
+
+
+def experiment_name() -> str:
+    return _get("MLFLOW_EXPERIMENT", "fraud-detection")
+
+
+def model_name() -> str:
+    return _get("MLFLOW_MODEL_NAME", "fraud")
+
+
+def auc_threshold() -> float:
+    """``MLFLOW_AUC_THRESHOLD`` — the registry's promotion gate on test AUC."""
+    return _get_float("MLFLOW_AUC_THRESHOLD", 0.95)
+
+
+def model_stage() -> str:
+    """``MLFLOW_MODEL_STAGE`` — the alias a gated model is registered under."""
+    return _get("MLFLOW_MODEL_STAGE", "prod")
+
+
+def quant_sigma_range() -> float:
+    """``QUANT_SIGMA_RANGE`` — symmetric range (in training sigmas) the int8
+    wire's per-feature lattice spans when calibration is derived from the
+    scaler profile."""
+    return _get_float("QUANT_SIGMA_RANGE", 8.0)
 
 
 def model_path() -> str:

@@ -17,6 +17,7 @@ from fraud_detection_tpu_torch.ops.linear_shap import (
     make_explainer,
 )
 from fraud_detection_tpu_torch.ops.logistic import LogisticParams
+from fraud_detection_tpu_torch.ops.quant import derive_calibration, save_calibration
 from fraud_detection_tpu_torch.ops.scaler import ScalerParams
 from fraud_detection_tpu_torch.ops.scorer import BatchScorer, fold_scaler_into_linear
 
@@ -62,7 +63,13 @@ class FraudLogisticModel(FraudModelBase):
         return phi, float(explainer.expected_value)
 
     def save(self, directory: str) -> str:
-        return save_artifacts(directory, self.params, self.scaler, self.feature_names)
+        """``model.npz`` + ``feature_names.json`` and, with a scaler, the
+        int8 wire's ``quant_calibration.npz`` derived from it, so that the
+        model serves that wire on its own training profile."""
+        save_artifacts(directory, self.params, self.scaler, self.feature_names)
+        if self.scaler is not None:
+            save_calibration(directory, derive_calibration(self.scaler))
+        return directory
 
     @classmethod
     def load(

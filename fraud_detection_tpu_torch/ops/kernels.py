@@ -15,8 +15,9 @@ module is imported.
 Wrappers check device, dtype, shape and contiguity. A tensor on the CPU
 takes the plain PyTorch version; a CUDA tensor launches the kernel or
 raises — there is no fallback. Each wrapper counts its launches in a
-module-level integer (``FUSED_SCORE_LAUNCHES``), so a run can show that
-the served path went through the kernel.
+module-level integer (``FUSED_SCORE_LAUNCHES``, ``KNN_TOPK_LAUNCHES``), so
+a run can show that the served and the trained path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -51,11 +52,21 @@ _SIGNATURES = {
         ),
         "fused_score_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "knn_topk": {
+        "knn_topk_launch": (
+            [ctypes.c_void_p] * 3
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "knn_topk_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
-#: launches of the fused_score kernel (CUDA tensors only; the CPU path and
-#: the plain version never count)
+#: launches of each kernel (CUDA tensors only; the CPU path and the plain
+#: versions never count)
 FUSED_SCORE_LAUNCHES = 0
+KNN_TOPK_LAUNCHES = 0
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -67,13 +78,14 @@ def kernel_names() -> list[str]:
 
 
 def reset_launch_counts() -> None:
-    global FUSED_SCORE_LAUNCHES
+    global FUSED_SCORE_LAUNCHES, KNN_TOPK_LAUNCHES
     with _lock:
         FUSED_SCORE_LAUNCHES = 0
+        KNN_TOPK_LAUNCHES = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"fused_score": FUSED_SCORE_LAUNCHES}
+    return {"fused_score": FUSED_SCORE_LAUNCHES, "knn_topk": KNN_TOPK_LAUNCHES}
 
 
 def _nvcc() -> str:
@@ -211,4 +223,98 @@ def fused_score(
         )
     with _lock:
         FUSED_SCORE_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# knn_topk — replaces fraud_detection_tpu/ops/pallas_kernels.py::_knn_kernel
+# ---------------------------------------------------------------------------
+# Bound on the H100: operations, ~2·m²·d + 3·m² flops in float32 outside the
+# tensor cores (67 TFLOP/s): ~9.4 ms at m = 100,000, d = 30; at the default
+# training run's m ≈ 158 the launch dominates. The design gives each query
+# row one thread (query in registers, key tiles broadcast from shared
+# memory, a sorted (d2, index) list in registers), so no (m, m) matrix
+# exists and the ragged edge is masked. See csrc/knn_topk.cu.
+
+#: the kernel's compile-time bounds (csrc/knn_topk.cu: kMaxK, kMaxD)
+KNN_MAX_K = 32
+KNN_MAX_D = 128
+
+
+def knn_topk_reference(
+    xc: torch.Tensor,
+    sq: torch.Tensor,
+    k: int,
+    block: int = 1024,
+    rows: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, after ``ops/smote._knn_indices``
+    of the JAX package: blockwise over query rows, ``d2 = (|q|² − 2 q·x) +
+    |x|²`` against every row, self set to +inf, then a *stable* ascending
+    sort so that equal distances keep the lowest index first (the rule of
+    ``lax.top_k``; ``torch.topk`` does not keep it). ``rows`` restricts the
+    queries to those row ids (all rows by default). Returns (len(rows), k)
+    int32. The CPU path and the tests use it; the card's path never does."""
+    m = xc.shape[0]
+    q_ids = torch.arange(m, device=xc.device) if rows is None else rows.to(xc.device)
+    out = []
+    for lo in range(0, q_ids.shape[0], block):
+        ids = q_ids[lo:lo + block]
+        d2 = sq[ids][:, None] - 2.0 * (xc[ids] @ xc.T) + sq[None, :]
+        d2[torch.arange(ids.shape[0], device=xc.device), ids] = float("inf")
+        order = torch.sort(d2, dim=1, stable=True).indices[:, :k]
+        out.append(order.to(torch.int32))
+    if not out:
+        return torch.empty((0, k), dtype=torch.int32, device=xc.device)
+    return torch.cat(out)
+
+
+def knn_topk(xc: torch.Tensor, sq: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (m, k) int32 of each row's k nearest other rows, ascending by
+    (squared distance, index). ``xc`` (m, d) contiguous float32, already
+    centred; ``sq`` (m,) float32, ``|x|²`` of those rows. CUDA tensors
+    launch the hand-written kernel on the current stream (k ≤
+    ``KNN_MAX_K``, d ≤ ``KNN_MAX_D``); CPU tensors take
+    :func:`knn_topk_reference`."""
+    global KNN_TOPK_LAUNCHES
+    if xc.dim() != 2 or sq.dim() != 1 or sq.shape[0] != xc.shape[0]:
+        raise ValueError(
+            f"knn_topk wants xc (m, d) and sq (m,); got {tuple(xc.shape)}, "
+            f"{tuple(sq.shape)}"
+        )
+    for t, what in ((xc, "xc"), (sq, "sq")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"knn_topk wants float32 {what}, got {t.dtype}")
+    if sq.device != xc.device:
+        raise ValueError(f"sq on {sq.device}, xc on {xc.device}")
+    m, d = xc.shape
+    k = int(k)
+    if m < 2 or d < 1:
+        raise ValueError(f"knn_topk wants m >= 2 rows and d >= 1, got ({m}, {d})")
+    if not 1 <= k < m:
+        raise ValueError(f"knn_topk wants 1 <= k < m, got k={k}, m={m}")
+    if xc.device.type == "cpu":
+        return knn_topk_reference(xc, sq, k)
+    if xc.device.type != "cuda":
+        raise ValueError(f"knn_topk runs on cuda or cpu, not {xc.device}")
+    if k > KNN_MAX_K:
+        raise ValueError(f"knn_topk's kernel takes k <= {KNN_MAX_K}, got {k}")
+    if d > KNN_MAX_D:
+        raise ValueError(f"knn_topk's kernel takes d <= {KNN_MAX_D}, got {d}")
+    if m > 2**31 - 1:
+        raise ValueError(f"knn_topk indexes rows in int32, got m={m}")
+    if not (xc.is_contiguous() and sq.is_contiguous()):
+        raise ValueError("knn_topk wants contiguous xc and sq")
+    lib = _lib("knn_topk")
+    out = torch.empty((m, k), dtype=torch.int32, device=xc.device)
+    rc = lib.knn_topk_launch(
+        xc.data_ptr(), sq.data_ptr(), out.data_ptr(), m, d, k,
+        xc.device.index, torch.cuda.current_stream(xc.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            "knn_topk launch failed: " + lib.knn_topk_error_string(rc).decode()
+        )
+    with _lock:
+        KNN_TOPK_LAUNCHES += 1
     return out

@@ -1,5 +1,6 @@
 """Card-only tests of the port (marker ``cuda``): the hand-written CUDA
-kernel against its plain version, and the served path launching it.
+kernels against their plain versions, the served path launching
+``fused_score`` and SMOTE launching ``knn_topk``.
 
 They import nothing of JAX, so they run on a machine with the card and no
 JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -95,3 +96,81 @@ def test_fused_flush_on_the_card_launches_the_kernel_and_matches_cpu():
     for (sc, (ic, _)), (sg, (ig, _)) in zip(out["cpu"], out["cuda"]):
         assert sg == pytest.approx(sc, abs=1e-6)
         assert ig == ic
+
+
+def _knn_inputs(x: np.ndarray, dev):
+    xt = torch.from_numpy(x).to(dev)
+    xc = (xt - xt.mean(dim=0)).contiguous()
+    return xc, (xc * xc).sum(dim=1)
+
+
+def _knn_fixture(name: str) -> tuple[np.ndarray, int]:
+    """The shapes of chip_smoke.py's phase 2b up to m = 4096, the
+    duplicated-rows fixture and the lattice (integer points closed under
+    x → −x: every distance exact, every tie an exact tie)."""
+    rng = np.random.default_rng(len(name))
+    if name == "duplicated":
+        base = rng.standard_normal((40, 30)).astype(np.float32)
+        return np.concatenate([base, base, base[:9]]), 5
+    if name == "lattice":
+        half = rng.integers(-3, 4, (150, 30))
+        return np.concatenate([half, -half]).astype(np.float32), 5
+    m, d, k = (int(v) for v in name.split("x"))
+    return rng.standard_normal((m, d)).astype(np.float32), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name",
+    ["2x30x1", "6x30x5", "126x30x5", "158x30x5", "1000x37x5", "4096x30x5",
+     "300x128x32", "500x64x9", "duplicated", "lattice"],
+)
+def test_knn_kernel_matches_plain_version_exactly(name):
+    """Exact index equality: at these sizes no two candidate distances of a
+    row sit within float32 rounding of each other, and the lattice's ties
+    are exact in every summation order."""
+    dev = _require_card()
+    x, k = _knn_fixture(name)
+    xc, sq = _knn_inputs(x, dev)
+    before = kernels.KNN_TOPK_LAUNCHES
+    got = kernels.knn_topk(xc, sq, k)
+    want = kernels.knn_topk_reference(xc, sq, k)
+    torch.cuda.synchronize()
+    assert kernels.KNN_TOPK_LAUNCHES == before + 1
+    assert got.dtype == torch.int32 and got.shape == (x.shape[0], k)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_knn_wrapper_raises_on_what_the_kernel_does_not_take():
+    dev = _require_card()
+    xc, sq = _knn_inputs(np.random.default_rng(0).standard_normal((40, 30)).astype(np.float32), dev)
+    with pytest.raises(ValueError, match="k < m"):
+        kernels.knn_topk(xc[:5].contiguous(), sq[:5], 5)
+    with pytest.raises(ValueError, match="k <= 32"):
+        kernels.knn_topk(xc, sq, 33)
+    wide = torch.zeros((40, 129), device=dev)
+    with pytest.raises(ValueError, match="d <= 128"):
+        kernels.knn_topk(wide, torch.zeros(40, device=dev), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.knn_topk(torch.zeros((40, 60), device=dev)[:, ::2], sq, 5)
+
+
+@pytest.mark.cuda
+def test_smote_on_the_card_launches_the_kernel_and_matches_cpu():
+    """The same seed draws the same synthetic rows on both devices (the
+    draws come from a CPU generator); the neighbour indices are equal, so
+    the rows agree to float32 rounding of the interpolation."""
+    from fraud_detection_tpu_torch.ops.smote import smote
+
+    _require_card()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3000, 30)).astype(np.float32)
+    y = np.zeros(3000, np.int32)
+    y[rng.choice(3000, 90, replace=False)] = 1
+    kernels.reset_launch_counts()
+    xg, yg = smote(torch.from_numpy(x).cuda(), y, seed=5)
+    assert kernels.KNN_TOPK_LAUNCHES == 1
+    xc, yc = smote(x, y, seed=5)
+    np.testing.assert_array_equal(yg, yc)
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=0, atol=1e-5)

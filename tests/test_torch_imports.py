@@ -1,8 +1,9 @@
 """The port stands alone: every module of ``fraud_detection_tpu_torch`` and
-``chip_smoke.py`` import in a fresh interpreter where ``jax*``, the JAX
-package (``fraud_detection_tpu`` and ``fraud_detection_tpu.*`` — the
-port's own name shares that prefix) and ``pydantic``/``prometheus_client``
-(absent on the machine with the card) all refuse to import."""
+``chip_smoke.py`` import in a fresh interpreter where ``jax*``, ``optax``,
+the JAX package (``fraud_detection_tpu`` and ``fraud_detection_tpu.*`` —
+the port's own name shares that prefix), ``pydantic``/``prometheus_client``
+and ``pandas``/``joblib``/``sklearn`` (absent on the machine with the card)
+all refuse to import."""
 
 import os
 import subprocess
@@ -28,11 +29,13 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 def jax_or_reference(name):
     return (name.startswith("jax") or name == "fraud_detection_tpu"
-            or name.startswith("fraud_detection_tpu."))
+            or name.startswith("fraud_detection_tpu.")
+            or name == "optax" or name.startswith("optax."))
 
 def service_deps(name):
     return any(name == m or name.startswith(m + ".")
-               for m in ("pydantic", "prometheus_client"))
+               for m in ("pydantic", "prometheus_client", "pandas", "joblib",
+                         "sklearn"))
 
 sys.meta_path[:0] = [Refuse(jax_or_reference), Refuse(service_deps)]
 import fraud_detection_tpu_torch as pkg
@@ -57,7 +60,20 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 25  # every module of the slice, not a stub package
+    assert n >= 37  # every module of both slices, not a stub package
+
+
+def test_training_modules_are_among_those_imported():
+    """The blocked-import probe walks the package; the training slice's
+    modules are in it."""
+    import pkgutil
+
+    import fraud_detection_tpu_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+    for mod in ("train", "data.loader", "ops.smote", "ops.metrics", "ops.quant",
+                "ckpt.train_state", "tracking.store", "tracking.registry"):
+        assert f"fraud_detection_tpu_torch.{mod}" in names
 
 
 def test_chip_smoke_refuses_without_a_card():
