@@ -32,6 +32,24 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    configuration's minority set), the plain version, the operations bound,
    and — as orientation only, since no single PyTorch call has this tie
    rule — ``torch.topk(torch.cdist(xc, xc), k + 1, largest=False)``.
+2c. **gbt_hist against its plain version** — the histogram kernel on CUDA
+   tensors at the GBT recipe's shapes (31,684 rows × 30 features × 256
+   bins, 1 to 16 nodes: every level of the final fit), an odd row count,
+   a 16-bin model and all-zero weight rows, with zero-weight rows and rows
+   outside the level mixed in: two launches bitwise equal, every cell of
+   the kernel and of the plain version within 1e-6·Σ|value| of its float64
+   sum. Times the kernel, the plain version, one ``index_put_(...,
+   accumulate=True)`` over precomputed cell ids (the library column; the
+   port never calls it) and the byte bound.
+2d. **tree_shap against its plain version** — seeded synthetic forests
+   (100 trees of depth 5 over d = 30 at n ∈ {1, 9, 1024}; depths 2 and 3;
+   every node on feature 0): within rtol 1e-4 / atol 2e-5, equal top-3
+   indices, additivity Σφ + E[f] = f(x); ``bin_features`` on the card
+   equals the host's numpy binning on a NaN/±inf fixture. Times the kernel
+   at n = 1024, the plain version, the bound of the compact form (the
+   tables' bytes this run's rows touch, or its operations), and, as
+   orientation beside a null library column, the TPU kernel's dense
+   three-product form as ``torch.matmul`` (TF32 off).
 3. **the served path** — copies ``models/``, builds the drift baseline
    from the first 20,000 rows of ``data/creditcard.csv`` with the port's
    ``build_baseline_profile``, serves the port's app over HTTP on
@@ -57,6 +75,19 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    rows within 1e-5 of a float64 numpy computation from its ``model.npz``.
    Prints the wall time of each stage (host clock, the device synchronised
    at stage boundaries) and the L-BFGS iterations of each fit.
+5. **the GBT trained path** — ``train(model_family="gbt")`` with its
+   defaults (100 trees, depth 5, 256 bins, 5 folds with SMOTE) on the card
+   and on the CPU over the committed CSV: ``gbt_hist`` launches exactly
+   3,600 times (6 fits × 100 trees × 6) and ``knn_topk`` 6 times; card −
+   CPU test AUC and CV mean within 5e-3 (a near-tie split may go the other
+   way), the same gate verdict; stage times.
+6. **the GBT served path** — the card-trained registered artifact served
+   over HTTP with ``SCORER_EXPLAIN=topk`` (256 concurrent and 64 sequential
+   ``/predict``): scores within 1e-5 of a float64 numpy walk of the forest
+   in ``model.npz``; reason codes equal the port's plain TreeSHAP on the
+   CPU except across a k-th/(k+1)-th tie within 2e-5 (counted); every
+   flush fused; ``tree_shap`` launched at least once per flush; one 1024-row
+   flush profiled and timed.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -97,10 +128,21 @@ KNN_NEAR_TIE_RTOL = 1e-5
 TRAIN_AUC_TOL = 2e-3  # card vs CPU training run
 TRAIN_SCORED_ROWS = 1024
 KNN_LAUNCHES_PER_RUN = 6  # 5 folds + the final fit
+HIST_REL_TOL = 1e-6  # |cell − float64 sum| ≤ this · Σ_rows |value|
+SHAP_RTOL, SHAP_ATOL = 1e-4, 2e-5  # tree_shap against its plain version
+SHAP_TIE = 2e-5  # a reason-code row may differ only across a tie this close
+# card vs CPU GBT training run: the card's histograms sum in another order
+# than the CPU's, so a split whose two best gains lie within float32
+# rounding of each other may go the other way and change the trees after it
+GBT_TRAIN_AUC_TOL = 5e-3
+#: 6 fits (5 folds + the final fit) x 100 trees x (5 levels + 1 leaf sum)
+GBT_HIST_LAUNCHES_PER_RUN = 6 * 100 * 6
 
 #: the kernels each path must launch (its counts zeroed just before it)
 SERVED_KERNELS = ("fused_score",)
 TRAINED_KERNELS = ("knn_topk",)
+GBT_TRAINED_KERNELS = ("gbt_hist", "knn_topk")
+GBT_SERVED_KERNELS = ("tree_shap",)
 
 #: every ported kernel: name → (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -113,6 +155,16 @@ KERNELS = {
         "cuda",
         "fraud_detection_tpu_torch/csrc/knn_topk.cu",
         "fraud_detection_tpu/ops/pallas_kernels.py:179",
+    ),
+    "gbt_hist": (
+        "cuda",
+        "fraud_detection_tpu_torch/csrc/gbt_hist.cu",
+        "fraud_detection_tpu/ops/gbt.py:275",
+    ),
+    "tree_shap": (
+        "cuda",
+        "fraud_detection_tpu_torch/csrc/tree_shap.cu",
+        "fraud_detection_tpu/ops/pallas_kernels.py:544",
     ),
 }
 
@@ -398,6 +450,307 @@ def check_knn_topk(seed: int) -> dict:
     del inputs
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, "timing": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: gbt_hist against its plain version
+# ---------------------------------------------------------------------------
+
+
+def hist_inputs(rng, n: int, d: int, n_nodes: int, n_bins: int, dev, zero_every: int = 5):
+    """Bins, node, g and h on the card as a level of the fit sees them:
+    g = p − y, h = p(1 − p) from random margins; every ``zero_every``-th row
+    has zero weight and every 11th lies outside the level (inert)."""
+    import numpy as np
+    import torch
+
+    p = 1.0 / (1.0 + np.exp(-rng.standard_normal(n)))
+    yv = (rng.random(n) < 0.5).astype(np.float64)
+    g = (p - yv).astype(np.float32)
+    h = (p * (1.0 - p)).astype(np.float32)
+    g[::zero_every] = 0.0
+    h[::zero_every] = 0.0
+    local = rng.integers(0, n_nodes, n).astype(np.int32)
+    local[::11] = -1
+    bins = rng.integers(0, n_bins, (n, d)).astype(np.uint8)
+    return tuple(torch.from_numpy(a).to(dev) for a in (bins, local, g, h))
+
+
+def hist_float64(bins, local, g, h, n_nodes: int, n_bins: int):
+    """(float64 sum, float64 Σ|value|) per cell, (d, n_nodes, n_bins, 2)."""
+    import torch
+
+    n, d = bins.shape
+    keep = (local >= 0)
+    seg = ((local.long()[:, None] * n_bins + bins.long())
+           + torch.arange(d, device=bins.device)[None, :] * (n_nodes * n_bins))[keep].reshape(-1)
+    gh = torch.stack([g, h], 1).double()[keep][:, None, :].expand(-1, d, 2).reshape(-1, 2)
+    out = torch.zeros((d * n_nodes * n_bins, 2), dtype=torch.float64, device=bins.device)
+    absum = torch.zeros_like(out)
+    out.index_add_(0, seg, gh)
+    absum.index_add_(0, seg, gh.abs())
+    shape = (d, n_nodes, n_bins, 2)
+    return out.reshape(shape), absum.reshape(shape)
+
+
+def hist_bound(n: int, d: int, n_nodes: int, n_bins: int) -> tuple[float, str, int, int]:
+    n_bytes = n * d + 12 * n + 8 * d * n_nodes * n_bins  # bins, node/g/h; out
+    n_ops = 2 * n * d  # one add of g and one of h per (row, feature)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
+
+
+def check_gbt_hist(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    # (label, n, d, n_nodes, n_bins): the final fit's 31,684 rows at every
+    # level of the recipe, a fold's odd row count, a 16-bin model, and the
+    # leaf sums (one uint8 column of leaf ids, one node, 32 bins) at the
+    # final fit's and a fold's row count
+    cases = [(f"n=31684 d=30 nodes={nn} bins=256", 31684, 30, nn, 256)
+             for nn in (1, 2, 4, 8, 16)]
+    cases += [("odd n=25351 d=30 nodes=16 bins=256", 25351, 30, 16, 256),
+              ("16 bins n=4099 d=30 nodes=1", 4099, 30, 1, 16),
+              ("leaf sums n=31684 d=1 nodes=1 bins=32", 31684, 1, 1, 32),
+              ("leaf sums n=25351 d=1 nodes=1 bins=32", 25351, 1, 1, 32)]
+    worst = 0.0
+    timed = {}
+    for label, n, d, nn, nb in cases:
+        args = hist_inputs(rng, n, d, nn, nb, dev)
+        a = kernels.gbt_hist(*args, nn, nb)
+        b = kernels.gbt_hist(*args, nn, nb)
+        plain = kernels.gbt_hist_reference(*args, nn, nb)
+        want, absum = hist_float64(*args, nn, nb)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"gbt_hist {label}: two launches differ")
+        if a.shape != (d, nn, nb, 2) or not torch.isfinite(a).all():
+            raise AssertionError(f"gbt_hist {label}: bad output {tuple(a.shape)}")
+        rel_k = float(((a.double() - want).abs() / absum.clamp_min(1e-300)).max())
+        rel_p = float(((plain.double() - want).abs() / absum.clamp_min(1e-300)).max())
+        empty = absum == 0
+        if bool((a[empty] != 0).any()):
+            raise AssertionError(f"gbt_hist {label}: an empty cell is not 0")
+        err = float((a - plain).abs().max())
+        print(f"phase2c: gbt_hist {label}: bitwise equal over two launches; max "
+              f"|cell - f64|/sum|v| kernel {rel_k:.3e}, plain {rel_p:.3e}; "
+              f"max |kernel - plain| {err:.3e}")
+        if rel_k > HIST_REL_TOL or rel_p > HIST_REL_TOL:
+            raise AssertionError(
+                f"gbt_hist {label}: off its float64 sum by more than "
+                f"{HIST_REL_TOL} of sum|v| (kernel {rel_k:.3e}, plain {rel_p:.3e})"
+            )
+        worst = max(worst, err)
+        if n == 31684 and d == 30 and nn in (1, 16):
+            timed[nn] = args
+    zero = hist_inputs(rng, 1000, 30, 4, 256, dev, zero_every=1)
+    if bool(kernels.gbt_hist(*zero, 4, 256).any()):
+        raise AssertionError("gbt_hist: all-zero weight rows gave a nonzero cell")
+    print("phase2c: gbt_hist all-zero weight rows (n=1000): every cell 0")
+
+    rows = {}
+    for nn, args in timed.items():
+        bins, local, g, h = args
+        n, d = bins.shape
+        nb = 256
+        flat = ((local.long()[:, None] * nb + bins.long())
+                + torch.arange(d, device=dev)[None, :] * (nn * nb))
+        keep = (local >= 0)[:, None].expand(-1, d)
+        idx = torch.stack([flat * 2, flat * 2 + 1], -1)[keep].reshape(-1)
+        vals = torch.stack([g, h], 1)[:, None, :].expand(-1, d, 2)[keep].reshape(-1)
+        kernel_fn = lambda: kernels.gbt_hist(bins, local, g, h, nn, nb)  # noqa: E731
+        plain_fn = lambda: kernels.gbt_hist_reference(bins, local, g, h, nn, nb)  # noqa: E731
+        library_fn = lambda: torch.zeros(  # noqa: E731
+            d * nn * nb * 2, device=dev).index_put_((idx,), vals, accumulate=True)
+        ms = graph_ms(kernel_fn)
+        eager = eager_ms(kernel_fn)
+        plain = eager_ms(plain_fn, iters=50, warm=5)
+        library = eager_ms(library_fn, iters=50, warm=5)
+        bound, by, n_bytes, n_ops = hist_bound(n, d, nn, nb)
+        rows[nn] = {"ms": ms, "plain_ms": plain, "library_ms": library,
+                    "bound_ms": bound, "bound_by": by, "eager_ms": eager}
+        print(f"phase2c: gbt_hist timing n={n} d={d} nodes={nn} bins={nb}: kernel "
+              f"{ms:.6f} ms (CUDA events over launches replayed from a CUDA graph; "
+              f"eager through the wrapper {eager:.6f} ms), plain {plain:.6f} ms "
+              f"(eager), library index_put_(accumulate=True) on precomputed cell "
+              f"ids {library:.6f} ms (eager), bound {bound:.6f} ms ({by}: "
+              f"{n_bytes} B, {n_ops} ops)")
+    return {"max_abs_err": worst, "timing": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: tree_shap against its plain version
+# ---------------------------------------------------------------------------
+
+
+def synthetic_forest(rng, trees: int, depth: int, d: int, n_bins: int, dev,
+                     one_feature: bool = False):
+    """A forest at the recipe's shapes with random splits (or every node on
+    feature 0), leaf values and sorted edges, on the card."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ops.gbt import GBTModel
+
+    nodes = 2**depth - 1
+    sf = (np.zeros((trees, nodes)) if one_feature
+          else rng.integers(0, d, (trees, nodes))).astype(np.int32)
+    return GBTModel(
+        split_feature=torch.from_numpy(sf),
+        split_bin=torch.from_numpy(rng.integers(0, n_bins - 1, (trees, nodes)).astype(np.int32)),
+        leaf_value=torch.from_numpy((0.1 * rng.standard_normal((trees, 2**depth))).astype(np.float32)),
+        bin_edges=torch.from_numpy(np.sort(rng.standard_normal((d, n_bins - 1)), axis=1).astype(np.float32)),
+        base_logit=torch.tensor(-1.0),
+    ).to(dev)
+
+
+def shap_work(tables, binned) -> tuple[int, int]:
+    """(operations, bytes) this run's data needs in compact form: per (row,
+    tree) L·D compares and L·D adds (each leaf's level values summed to
+    its nodes, the nodes to their features); the tables read once, of
+    ``leaf_sums`` only the (tree, leaf, pattern) rows this run's rows hit,
+    the bins read and φ written once."""
+    import torch
+
+    n, d = binned.shape
+    T, L, D = tables.path_feat.shape
+    dev = binned.device
+    want = (torch.arange(L, device=dev)[:, None] >> (D - 1 - torch.arange(D, device=dev))[None, :]) & 1
+    touched = 0
+    for t in range(T):
+        right = (binned.long()[:, tables.path_feat[t].long()] > tables.path_thr[t]).long()
+        viol = ((right != want).long() << torch.arange(D, device=dev)).sum(-1)  # (n, L)
+        touched += int(torch.unique(viol * L + torch.arange(L, device=dev)).numel())
+    n_ops = 2 * n * T * L * D
+    n_bytes = 4 * (touched * D + sum(int(getattr(tables, k).numel()) for k in (
+        "path_feat", "path_thr", "node_order", "node_start", "node_count"))) + 4 * n * d * 2
+    return n_ops, n_bytes
+
+
+def dense_shap_form(tables, mask_bits, coef, d: int):
+    """The TPU kernel's dense three-product form as matrices: the signed
+    one-hot gather (T, d, L·D) with its bias, the block-diagonal subset
+    matrix (T, L·D, M·L), and the dense coefficients (T, M·L, d), from the
+    Shapley coefficients ``mask_bits`` (T, M, L) and ``coef`` (T, M, D, L).
+    Used only to time torch.matmul beside the kernel."""
+    import torch
+
+    T, L, D = tables.path_feat.shape
+    M = L
+    dev = coef.device
+    sgn = (2.0 * ((torch.arange(L, device=dev)[:, None]
+                   >> (D - 1 - torch.arange(D, device=dev))[None, :]) & 1) - 1.0).reshape(-1)
+    onehot = (tables.path_feat.reshape(T, -1, 1).long()
+              == torch.arange(d, device=dev)[None, None, :]).float()  # (T, LD, d)
+    gmat = (onehot * sgn[None, :, None]).transpose(1, 2).contiguous()  # (T, d, LD)
+    bias = sgn[None, :] * (tables.path_thr.reshape(T, -1).float() + 0.5)  # (T, LD)
+    bits = ((mask_bits[:, :, :, None] >> torch.arange(D, device=dev)) & 1).float()
+    bfull = torch.zeros((T, L * D, M * L), device=dev)
+    for l in range(L):
+        bfull[:, l * D:(l + 1) * D, l::L] = bits[:, :, l, :].transpose(1, 2)
+    cmat = torch.einsum("tmkl,tlkj->tmlj", coef, onehot.reshape(T, L, D, d))
+    return gmat, bias, bfull, cmat.reshape(T, M * L, d).contiguous()
+
+
+def check_tree_shap(seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.gbt import bin_features, bin_features_host, gbt_predict_logits
+    from fraud_detection_tpu_torch.ops.linear_shap import topk_reasons
+    from fraud_detection_tpu_torch.ops.tree_shap import _shapley_coefficients, build_tree_explainer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    d = 30
+    cases = [("recipe (100 trees, depth 5)", 100, 5, False, (1, 9, 1024)),
+             ("depth 2, 16 trees", 16, 2, False, (33,)),
+             ("depth 3, 16 trees", 16, 3, False, (33,)),
+             ("duplicate feature (every node on feature 0), depth 3", 4, 3, True, (9,))]
+    worst = 0.0
+    timed = None
+    for label, trees, depth, one, sizes in cases:
+        model = synthetic_forest(rng, trees, depth, d, 256, dev, one_feature=one)
+        e = build_tree_explainer(model, rng.standard_normal((128, d)).astype(np.float32))
+        for n in sizes:
+            x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+            binned = bin_features(x, model.bin_edges)
+            got = kernels.tree_shap(binned, e.tables)
+            want = kernels.tree_shap_reference(binned, model.split_feature, model.split_bin,
+                                               model.leaf_value, e.bg_table)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            over = float(((got - want).abs() - SHAP_RTOL * want.abs()).max())
+            k = 3
+            same_topk = torch.equal(topk_reasons(got, k)[0], topk_reasons(want, k)[0])
+            add = float((got.sum(1) + e.expected_value - gbt_predict_logits(model, x)).abs().max())
+            print(f"phase2d: tree_shap {label} n={n}: max |kernel - plain| {err:.3e}, "
+                  f"top-{k} indices equal {same_topk}, additivity max |sum phi + E[f] "
+                  f"- f(x)| {add:.3e}")
+            if over > SHAP_ATOL or not same_topk or not torch.isfinite(got).all():
+                raise AssertionError(f"tree_shap {label} n={n}: off its plain version")
+            if add > 1e-4 + 1e-3 * float(want.abs().sum(1).max()):
+                raise AssertionError(f"tree_shap {label} n={n}: not additive ({add:.3e})")
+            if one and bool((got[:, 1:] != 0).any()):
+                raise AssertionError("tree_shap: attribution off feature 0")
+            worst = max(worst, err)
+            if n == 1024:
+                timed = (model, e, binned)
+
+    # NaN/±inf binning on the card against the host's numpy binning
+    edges = np.sort(rng.standard_normal((d, 255)), axis=1).astype(np.float32)
+    xb = rng.standard_normal((64, d)).astype(np.float32)
+    xb[::3, 0], xb[1::3, 1], xb[2::3, 2] = np.nan, np.inf, -np.inf
+    xb[5, 7] = edges[7, 100]
+    on_card = bin_features(torch.from_numpy(xb).to(dev), torch.from_numpy(edges).to(dev))
+    host = bin_features_host(xb, edges, 256).astype(np.int32)
+    if not np.array_equal(on_card.cpu().numpy(), host) or int(host[0, 0]) != 255:
+        raise AssertionError("bin_features on the card differs from the host on NaN/inf")
+    print("phase2d: bin_features on the card equals the host's numpy binning on a "
+          "NaN/+inf/-inf fixture (NaN -> bin 255)")
+
+    model, e, binned = timed
+    n = binned.shape[0]
+    kernel_fn = lambda: kernels.tree_shap(binned, e.tables)  # noqa: E731
+    plain_fn = lambda: kernels.tree_shap_reference(  # noqa: E731
+        binned, model.split_feature, model.split_bin, model.leaf_value, e.bg_table)
+    ms = graph_ms(kernel_fn, iters=50)
+    eager = eager_ms(kernel_fn, iters=50)
+    plain = eager_ms(plain_fn, iters=3, warm=1)
+    gmat, bias, bfull, cmat = dense_shap_form(
+        e.tables, *_shapley_coefficients(model, e.bg_table), binned.shape[1])
+    bf = binned.float()
+
+    def dense_fn():
+        notc = (torch.matmul(bf, gmat) <= bias[:, None, :]).float()  # (T, n, LD)
+        ind = (torch.matmul(notc, bfull) == 0).float()  # (T, n, ML)
+        return torch.matmul(ind, cmat).sum(dim=0)
+
+    orient = eager_ms(dense_fn, iters=5, warm=2)
+    dense_err = float((dense_fn() - kernel_fn()).abs().max())
+    del gmat, bfull, cmat
+    torch.cuda.empty_cache()
+    n_ops, n_bytes = shap_work(e.tables, binned)
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    row = {"ms": ms, "plain_ms": plain, "orientation_ms": orient, "eager_ms": eager,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    print(f"phase2d: tree_shap timing n={n} (100 trees, depth 5, d=30): kernel "
+          f"{ms:.6f} ms (CUDA events over launches replayed from a CUDA graph; "
+          f"eager through the wrapper {eager:.6f} ms), plain {plain:.6f} ms (eager), "
+          f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}: {n_ops} ops in compact "
+          f"form, {n_bytes} B of tables this run's rows touch); orientation only, the "
+          f"dense three-product form as torch.matmul (TF32 off) {orient:.6f} ms "
+          f"(max |dense - kernel| {dense_err:.3e})")
+    return {"max_abs_err": worst, "timing": row}
 
 
 # ---------------------------------------------------------------------------
@@ -801,6 +1154,261 @@ def trained_path(work: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the GBT trained path
+# ---------------------------------------------------------------------------
+
+
+def gbt_trained_path(work: Path) -> tuple[dict, str]:
+    """``train(model_family="gbt")`` with its defaults on the card and on
+    the CPU; returns the card run's launch counts and its registered
+    artifact directory."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+    from fraud_detection_tpu_torch.train import train
+
+    csv = str(ROOT / "data" / "creditcard.csv")
+    runs = {}
+    launches = None
+    for dev in ("cuda", "cpu"):
+        base = work / f"gbt_{dev}"
+        os.environ["MLFLOW_TRACKING_URI"] = f"file:{base / 'mlruns'}"
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            kernels.reset_launch_counts()
+        metrics = train(data_csv=csv, out_dir=str(base / "models"), device=dev,
+                        model_family="gbt")
+        if dev == "cuda":
+            launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        runs[dev] = (metrics, base)
+        print(f"phase5: train --model gbt on {dev}: test AUC {metrics['test_auc']:.6f}, "
+              f"CV mean {metrics['cv_auc_mean']:.6f}, registered version "
+              f"{metrics['registered_version']}, {wall:.3f} s wall")
+        print(f"phase5: stages on {dev} (s): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in metrics["stages"].items()))
+    for name in GBT_TRAINED_KERNELS:
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"kernel {name} never launched on the GBT trained path")
+    if launches["gbt_hist"] != GBT_HIST_LAUNCHES_PER_RUN or launches["knn_topk"] != KNN_LAUNCHES_PER_RUN:
+        raise AssertionError(f"GBT trained path launched {launches}, not gbt_hist "
+                             f"{GBT_HIST_LAUNCHES_PER_RUN} and knn_topk {KNN_LAUNCHES_PER_RUN}")
+    print(f"phase5: kernel launches on the GBT trained path {launches}")
+    (card, card_base), (cpu, _) = runs["cuda"], runs["cpu"]
+    gaps = {k: card[k] - cpu[k] for k in ("test_auc", "cv_auc_mean")}
+    for key, gap in gaps.items():
+        if not abs(gap) <= GBT_TRAIN_AUC_TOL:
+            raise AssertionError(f"GBT {key}: card {card[key]} vs cpu {cpu[key]}")
+    verdicts = {dev: m["registered_version"] for dev, (m, _) in runs.items()}
+    if verdicts["cuda"] != verdicts["cpu"]:
+        raise AssertionError(f"the AUC gate differs: {verdicts}")
+    print(f"phase5: card - cpu: test AUC {gaps['test_auc']:+.3e}, CV mean "
+          f"{gaps['cv_auc_mean']:+.3e} (tolerance {GBT_TRAIN_AUC_TOL}); the same gate "
+          f"verdict on both (registered version {verdicts['cuda']})")
+    out = card_base / "models"
+    if verdicts["cuda"] is not None:
+        reg = TrackingClient(f"file:{card_base / 'mlruns'}").registry
+        art = Path(reg.resolve("models:/fraud@prod"))
+        with np.load(art / "model.npz") as z, np.load(out / "model.npz") as o:
+            if any(not np.array_equal(z[f], o[f]) for f in z.files):
+                raise AssertionError("registered forest differs from --out-dir's")
+        out = art
+    profile_gbt_fit()
+    return launches, str(out)
+
+
+def profile_gbt_fit() -> None:
+    """One forest fit with the recipe at the final fit's shape (31,684 × 30
+    Gaussian rows from a seed, labels from a seeded linear model) on the
+    card: its wall time, then the same fit under ``torch.profiler`` for the
+    device's busy time by kernel. Busy share = device busy / unprofiled
+    wall. Its launches come after phase 5's counts were read."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ops.gbt import GBTConfig, gbt_fit
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((31684, 30), dtype=np.float32)).cuda()
+    y = (x.cpu().numpy() @ rng.standard_normal(30).astype(np.float32) > 1.0).astype(np.float32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gbt_fit(x, y, GBTConfig())
+    wall = time.perf_counter() - t
+    acts = profiled_kernels(lambda: gbt_fit(x, y, GBTConfig()))
+    busy_us = sum(us for _, us in acts)
+    by_name: dict[str, list[float]] = {}
+    for name, us in acts:
+        by_name.setdefault(name[:48], []).append(us)
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+    print(f"phase5: one recipe fit at 31684 x 30 on the card: {wall:.3f} s wall; under "
+          f"the profiler {len(acts)} device activities, {busy_us / 1e3:.3f} ms busy "
+          f"({100 * busy_us / 1e6 / wall:.1f}% of the unprofiled wall); top by name: "
+          + "; ".join(f"{n} x{len(v)} {sum(v) / 1e3:.3f} ms" for n, v in top))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the GBT served path
+# ---------------------------------------------------------------------------
+
+
+def forest_logits_f64(directory: Path, x32):
+    """A float64 numpy walk of the forest in ``model.npz``: bins by the
+    float32 comparisons the model makes (NaN to the last bin), leaf values
+    summed in float64."""
+    import numpy as np
+
+    with np.load(directory / "model.npz") as z:
+        sf, sb = z["gbt_split_feature"], z["gbt_split_bin"]
+        leaf, edges = z["gbt_leaf_value"].astype(np.float64), z["gbt_bin_edges"]
+        base = float(z["gbt_base_logit"])
+    n, d = x32.shape
+    bins = np.stack([np.searchsorted(edges[f], x32[:, f], side="left") for f in range(d)], 1)
+    bins[np.isnan(x32)] = edges.shape[1]
+    n_internal = sf.shape[1]
+    logit = np.full(n, base)
+    rows = np.arange(n)
+    for t in range(sf.shape[0]):
+        node = np.zeros(n, np.int64)
+        while True:
+            internal = node < n_internal
+            if not internal.any():
+                break
+            go = bins[rows, sf[t, np.minimum(node, n_internal - 1)]] > sb[t, np.minimum(node, n_internal - 1)]
+            node = np.where(internal, 2 * node + 1 + go, node)
+        logit += leaf[t, node - n_internal]
+    return logit
+
+
+def gbt_served_path(work: Path, art_dir: str) -> dict:
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.tree_shap import tree_shap
+    from fraud_detection_tpu_torch.service.app import create_app
+
+    model_dir = work / "gbt_served"
+    shutil.copytree(art_dir, model_dir)
+    for f in ("model.npz", "monitor_profile.npz", "feature_names.json"):
+        if not (model_dir / f).exists():
+            raise AssertionError(f"the trained GBT artifact lacks {f}")
+    data = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                      max_rows=N_REQUESTS + N_SEQUENTIAL, dtype=np.float64)
+    x = data[:, :30].astype(np.float32)
+    os.environ.update(DEVICE="cuda", SCORER_EXPLAIN="topk",
+                      MODEL_PATH=str(model_dir / "model.npz"))
+    for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
+                 "SCORER_RETURN_WIRE"):
+        os.environ.pop(knob, None)
+    app = create_app()
+    port = free_port()
+    server = ServerThread(app, port)
+    t0 = time.perf_counter()
+    server.start()
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"server did not start: {server.error!r}")
+    try:
+        batcher = app.state["batcher"]
+        if batcher is None or app.state["watchtower"] is None:
+            raise AssertionError("GBT app started degraded (no batcher/watchtower)")
+        print(f"phase6: GBT app started (bucket ladder warmed, explainer and its "
+              f"kernel tables built) in {time.perf_counter() - t0:.3f} s")
+        _, body = http_call(port, "GET", "/metrics")
+        before = {key: metric_value(body.decode(), key) for key in (
+            'scorer_flushes_total{path="fused",shard="0"}',
+            'scorer_flushes_total{path="split",shard="0"}',
+            "scorer_microbatch_size_count")}
+        kernels.reset_launch_counts()
+        concurrent, wall = drive_clients(port, x[:N_REQUESTS], CLIENTS, work)
+        sequential, wall_seq = drive_clients(port, x[N_REQUESTS:], 1, work)
+        launches = kernels.launch_counts()
+        results = concurrent + sequential
+        _, body = http_call(port, "GET", "/metrics")
+        text = body.decode()
+        delta = {key: metric_value(text, key) - v for key, v in before.items()}
+        flushes = delta["scorer_microbatch_size_count"]
+
+        want = 1.0 / (1.0 + np.exp(-forest_logits_f64(model_dir, x)))
+        ref = load_any_model(str(model_dir), device="cpu")
+        phi = tree_shap(ref.raw_explainer(), torch.from_numpy(x)).numpy()
+        k = batcher.explain_k
+        want_idx = topk_total_order(phi, k)
+        srt = -np.sort(-phi, axis=1)
+        names = ref.feature_names
+        worst, tie_rows = 0.0, 0
+        for i, (status, body, _) in enumerate(results):
+            if status != 200:
+                raise AssertionError(f"/predict {i}: HTTP {status} {body[:200]!r}")
+            out = json.loads(body)
+            err = abs(out["score"] - want[i])
+            worst = max(worst, err)
+            if not err <= SCORE_ATOL:
+                raise AssertionError(f"/predict {i}: score {out['score']} vs {want[i]} (f64)")
+            got = [rc["feature"] for rc in out["reason_codes"] or []]
+            if got != [names[j] for j in want_idx[i]]:
+                if not abs(srt[i, k - 1] - srt[i, k]) <= SHAP_TIE:
+                    raise AssertionError(f"/predict {i}: reason codes {got}")
+                tie_rows += 1
+            vals = np.array([rc["attribution"] for rc in out["reason_codes"]])
+            jidx = [names.index(f) for f in got]
+            if not np.allclose(vals, phi[i, jidx], rtol=SHAP_RTOL, atol=SHAP_ATOL):
+                raise AssertionError(f"/predict {i}: attributions {vals}")
+        n_total = len(results)
+        print(f"phase6: {N_REQUESTS} /predict from {CLIENTS} client threads (own "
+              f"process) in {wall:.3f} s ({N_REQUESTS / wall:.1f} req/s); latency "
+              + latency_line([r[2] for r in concurrent]) + " (client clock)")
+        print(f"phase6: {N_SEQUENTIAL} /predict one at a time in {wall_seq:.3f} s; latency "
+              + latency_line([r[2] for r in sequential]) + f" (client clock); max "
+              f"|score - f64 forest walk| over all {n_total} {worst:.3e}; reason codes "
+              f"equal the CPU plain TreeSHAP's on {n_total - tie_rows} rows, {tie_rows} "
+              f"rows differ across a k-th/(k+1)-th tie within {SHAP_TIE}")
+        if delta['scorer_flushes_total{path="fused",shard="0"}'] != flushes or \
+                delta['scorer_flushes_total{path="split",shard="0"}'] != 0 or flushes < 1:
+            raise AssertionError(f"GBT flush paths: {delta}")
+        for name in GBT_SERVED_KERNELS:
+            if launches.get(name, 0) < flushes:
+                raise AssertionError(f"{name} launched {launches.get(name)} times in "
+                                     f"{flushes:g} explained flushes")
+        print(f"phase6: {flushes:g} flushes, all fused; kernel launches on the GBT "
+              f"served path {launches}")
+        status, body = http_call(port, "GET", "/monitor/status")
+        rows_seen = json.loads(body)["drift"]["rows_seen"]
+        if rows_seen != n_total or 'scorer_served_family{family="gbt"} 1.0' not in text:
+            raise AssertionError(f"GBT monitor rows_seen {rows_seen} / served family")
+
+        scorer = batcher.scorer
+        target = batcher._fused_target(scorer)
+        rows1024 = np.concatenate([x] * 4)[:1024]
+        batch = [(rows1024[i], None) for i in range(1024)]
+        acts = profiled_kernels(lambda: batcher._flush_device(scorer, target, batch))
+        copies = sum(1 for name, _ in acts if "Memcpy" in name or "Memset" in name)
+        busy_us = sum(us for _, us in acts)
+        by_name: dict[str, list[float]] = {}
+        for name, us in acts:
+            by_name.setdefault(name[:48], []).append(us)
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+        print(f"phase6: one 1024-row GBT fused flush with explain: {len(acts) - copies} "
+              f"kernel launches + {copies} copies/memsets on the device, {busy_us:.3f} us "
+              f"of device activity (profiler); top by name: "
+              + "; ".join(f"{n} x{len(v)} {sum(v):.3f} us" for n, v in top))
+        times = []
+        for _ in range(30):
+            t = time.perf_counter()
+            res = batcher._flush_device(scorer, target, batch)
+            times.append(time.perf_counter() - t)
+            scorer.staging.release(res[-1])
+        times.sort()
+        print(f"phase6: 1024-row GBT fused flush host time p50 {times[15] * 1e3:.3f} ms, "
+              f"min {times[0] * 1e3:.3f} ms over 30 flushes")
+    finally:
+        server.stop()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -836,9 +1444,13 @@ def main() -> int:
 
     fs = check_fused_score(seed=0)
     knn = check_knn_topk(seed=0)
+    hist = check_gbt_hist(seed=0)
+    shap = check_tree_shap(seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         served = served_path(Path(work))
         trained = trained_path(Path(work))
+        gbt_trained, gbt_dir = gbt_trained_path(Path(work))
+        gbt_served = gbt_served_path(Path(work), gbt_dir)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -861,6 +1473,17 @@ def main() -> int:
             m=158, orientation_ms=k_small["orientation_ms"],
             at_m_100000={key: k_big[key] for key in
                          ("ms", "plain_ms", "bound_ms", "orientation_ms")}),
+        # at the final fit's last level (16 nodes); max_abs_err is the
+        # largest |kernel − plain| cell over every phase-2c case
+        row("gbt_hist", gbt_trained["gbt_hist"], hist, hist["timing"][16],
+            hist["timing"][16]["library_ms"], n=31684, nodes=16,
+            at_level_0={key: hist["timing"][1][key] for key in
+                        ("ms", "plain_ms", "bound_ms", "library_ms")}),
+        # no single PyTorch call computes TreeSHAP: the library column is
+        # null, the TPU kernel's dense three-product form (torch.matmul)
+        # stands beside it as orientation
+        row("tree_shap", gbt_served["tree_shap"], shap, shap["timing"], None,
+            n=1024, trees=100, depth=5, orientation_ms=shap["timing"]["orientation_ms"]),
     ]}
     print(json.dumps(line))
     print(card)  # exactly as nvidia-smi gives it

@@ -7,6 +7,7 @@ and nothing of ``fraud_detection_tpu``.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``DEVICE=cpu`` or a ``device=`` argument); see :mod:`.device`. On the card
-the serving path scores through the hand-written CUDA kernel in
-``csrc/fused_score.cu`` (:mod:`.ops.kernels`).
+the serving and training paths run through the hand-written CUDA kernels
+in ``csrc/`` (:mod:`.ops.kernels`): ``fused_score`` and ``tree_shap`` in
+the flush, ``knn_topk`` in SMOTE, ``gbt_hist`` in the forest's fit.
 """

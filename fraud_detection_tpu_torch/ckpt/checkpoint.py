@@ -3,9 +3,10 @@
 The same layout the JAX package reads and writes, so either package serves
 the other's model: ``coef``, ``intercept`` and, with a scaler,
 ``scaler_mean``/``scaler_scale``/``scaler_var``/``scaler_n`` — all float64
-on disk, float32 in memory. The GBT keys (``gbt_*``) are recognised by
-:func:`artifact_kind`; loading a forest belongs to a later slice. The
-joblib interchange is not ported.
+on disk, float32 in memory. A GBT forest uses the same two files with the
+``gbt_*`` keys (:func:`save_gbt_artifacts`, :func:`load_gbt_artifacts`);
+:func:`artifact_kind` tells the two apart. The joblib interchange is not
+ported.
 """
 
 from __future__ import annotations
@@ -98,3 +99,71 @@ def load_artifacts(
     with open(os.path.join(directory, FEATURES_FILE)) as f:
         feature_names = json.load(f)
     return params, scaler, feature_names
+
+
+def _np(t, dtype) -> np.ndarray:
+    return np.asarray(
+        t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, dtype
+    )
+
+
+def save_gbt_artifacts(
+    directory: str,
+    model,
+    feature_names: list[str],
+    background: np.ndarray | None = None,
+) -> str:
+    """Persist a :class:`~fraud_detection_tpu_torch.ops.gbt.GBTModel`
+    forest in the JAX package's layout: ``model.npz`` with the keys
+    ``gbt_split_feature``/``gbt_split_bin`` (int32), ``gbt_leaf_value``/
+    ``gbt_bin_edges``/``gbt_base_logit`` (float32) and, when given, the
+    raw-space TreeSHAP background ``gbt_background``; plus
+    ``feature_names.json``."""
+    os.makedirs(directory, exist_ok=True)
+    state = {
+        "gbt_split_feature": _np(model.split_feature, np.int32),
+        "gbt_split_bin": _np(model.split_bin, np.int32),
+        "gbt_leaf_value": _np(model.leaf_value, np.float32),
+        "gbt_bin_edges": _np(model.bin_edges, np.float32),
+        "gbt_base_logit": _np(model.base_logit, np.float32),
+    }
+    if background is not None:
+        state["gbt_background"] = np.asarray(background, np.float32)
+    atomic_savez(os.path.join(directory, NATIVE_FILE), **state)
+    with open(os.path.join(directory, FEATURES_FILE), "w") as f:
+        json.dump(list(feature_names), f)
+    return directory
+
+
+def gbt_model_from_arrays(arrays):
+    """A :class:`~fraud_detection_tpu_torch.ops.gbt.GBTModel` on the CPU
+    from the ``gbt_*`` keys (any mapping of name → array)."""
+    from fraud_detection_tpu_torch.ops.gbt import GBTModel
+
+    def t(key, dtype):
+        return torch.from_numpy(np.array(arrays[key], dtype))
+
+    return GBTModel(
+        split_feature=t("gbt_split_feature", np.int32),
+        split_bin=t("gbt_split_bin", np.int32),
+        leaf_value=t("gbt_leaf_value", np.float32),
+        bin_edges=t("gbt_bin_edges", np.float32),
+        base_logit=t("gbt_base_logit", np.float32).reshape(()),
+    )
+
+
+def load_gbt_artifacts(directory: str):
+    """Inverse of :func:`save_gbt_artifacts`: (GBTModel on the CPU, feature
+    names, background or None)."""
+    with np.load(os.path.join(directory, NATIVE_FILE)) as z:
+        if "gbt_leaf_value" not in z:
+            raise ValueError(
+                f"{directory} holds {artifact_kind(directory)} artifacts, not gbt"
+            )
+        model = gbt_model_from_arrays({k: z[k] for k in z.files})
+        background = (
+            np.asarray(z["gbt_background"], np.float32) if "gbt_background" in z else None
+        )
+    with open(os.path.join(directory, FEATURES_FILE)) as f:
+        feature_names = json.load(f)
+    return model, feature_names, background

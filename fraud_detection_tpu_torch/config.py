@@ -104,8 +104,9 @@ def scorer_return_wire() -> str:
 
 
 def scorer_explain() -> str:
-    """``SCORER_EXPLAIN`` — ``off`` | ``topk``: per-row top-k linear-SHAP
-    reason codes computed inside the fused flush. Default ``off``."""
+    """``SCORER_EXPLAIN`` — ``off`` | ``topk``: per-row top-k SHAP reason
+    codes (linear SHAP or TreeSHAP, by the served family) computed inside
+    the fused flush. Default ``off``."""
     return _get("SCORER_EXPLAIN", "off").lower()
 
 
@@ -113,6 +114,13 @@ def scorer_explain_k() -> int:
     """``SCORER_EXPLAIN_K`` — reason codes per row (clamped to the feature
     count). Default 3."""
     return _get_int("SCORER_EXPLAIN_K", 3)
+
+
+def explain_background_seed() -> int:
+    """``EXPLAIN_BG_SEED`` — numpy seed of the TreeSHAP explainer's
+    background subsample (ops/tree_shap.build_tree_explainer): the same
+    model, background and seed give the same ``bg_table``. Default 0."""
+    return _get_int("EXPLAIN_BG_SEED", 0)
 
 
 def watchtower_halflife_rows() -> float:

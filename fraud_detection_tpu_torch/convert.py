@@ -11,9 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fraud_detection_tpu_torch.ckpt.checkpoint import params_from_arrays
+from fraud_detection_tpu_torch.ckpt.checkpoint import gbt_model_from_arrays, params_from_arrays
 from fraud_detection_tpu_torch.models.logistic import FraudLogisticModel
 from fraud_detection_tpu_torch.monitor.baseline import BaselineProfile
+from fraud_detection_tpu_torch.ops.gbt import GBTModel
 from fraud_detection_tpu_torch.ops.logistic import LogisticParams
 from fraud_detection_tpu_torch.ops.quant import QuantCalibration
 from fraud_detection_tpu_torch.ops.scaler import ScalerParams
@@ -83,3 +84,27 @@ def calibration_from_arrays(arrays: dict[str, np.ndarray]) -> QuantCalibration:
         scale=np.asarray(arrays["scale"], np.float32),
         sigma_range=float(np.asarray(arrays["sigma_range"])),
     )
+
+
+def gbt_from_arrays(arrays: dict[str, np.ndarray], device=None) -> GBTModel:
+    """The port's :class:`GBTModel` from the JAX package's ``GBTModel``
+    fields (``split_feature``, ``split_bin``, ``leaf_value``, ``bin_edges``,
+    ``base_logit``) or the ``gbt_*`` keys of its ``model.npz``; on the CPU
+    unless ``device`` is given."""
+    keyed = {(k if k.startswith("gbt_") else f"gbt_{k}"): np.asarray(v)
+             for k, v in arrays.items()}
+    model = gbt_model_from_arrays(keyed)
+    return model if device is None else model.to(device)
+
+
+def tree_explainer_from_arrays(model: GBTModel, bg_table, expected_value):
+    """The port's ``TreeShapExplainer`` over ``model`` from a JAX
+    ``TreeShapExplainer``'s ``bg_table`` and ``expected_value`` (numpy),
+    with the kernel's tables where the model is on the card."""
+    from fraud_detection_tpu_torch.ops.tree_shap import TreeShapExplainer, kernel_tables
+
+    dev = model.split_feature.device
+    bg = torch.as_tensor(np.array(bg_table, np.float32), device=dev)
+    ev = torch.as_tensor(np.array(expected_value, np.float32), device=dev).reshape(())
+    return TreeShapExplainer(model=model, bg_table=bg, expected_value=ev,
+                             tables=kernel_tables(model, bg))

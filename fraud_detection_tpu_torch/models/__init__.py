@@ -2,6 +2,7 @@
 
 import os
 
+from fraud_detection_tpu_torch.models.gbt import FraudGBTModel  # noqa: F401
 from fraud_detection_tpu_torch.models.logistic import FraudLogisticModel  # noqa: F401
 
 #: sidecars of the families this slice does not serve yet → ROADMAP item
@@ -12,20 +13,16 @@ _UNPORTED_SIDECARS = {
 
 
 def load_any_model(directory: str, device=None):
-    """Load the model family the artifact directory holds. Only the plain
-    logistic family is ported; a GBT, ledger or wide artifact raises
+    """Load the model family the artifact directory holds: the logistic
+    family or a GBT forest. A ledger or wide artifact raises
     ``NotImplementedError`` naming the ROADMAP item that ports it."""
     from fraud_detection_tpu_torch.ckpt.checkpoint import artifact_kind
 
-    kind = artifact_kind(directory)
-    if kind == "gbt":
-        raise NotImplementedError(
-            f"{directory} holds a GBT forest: the GBT family is not ported "
-            "yet (ROADMAP queue 1, item 7)"
-        )
     for sidecar, family in _UNPORTED_SIDECARS.items():
         if os.path.exists(os.path.join(directory, sidecar)):
             raise NotImplementedError(
                 f"{directory} carries {sidecar}: {family} is not ported yet"
             )
+    if artifact_kind(directory) == "gbt":
+        return FraudGBTModel.load(directory, device=device)
     return FraudLogisticModel.load(directory, device=device)

@@ -2,8 +2,9 @@
 
 On the serving path the drift fold rides the flush itself:
 :func:`_fused_flush` / :func:`_fused_flush_explain` score the staged batch
-through the scorer's score body (the ``fused_score`` kernel on the card),
-optionally take the per-row top-k linear-SHAP reason codes, and fold the
+through the scorer's score body (the ``fused_score`` kernel or the forest
+on the card), optionally take the per-row top-k SHAP reason codes (linear
+SHAP, or TreeSHAP through the ``tree_shap`` kernel), and fold the
 batch into the window — all enqueued on the device stream, with no host
 sync; the caller's one device-to-host copy of the outputs is the only one.
 The JAX package runs each as one XLA program per bucket; here they are
@@ -38,6 +39,7 @@ from fraud_detection_tpu_torch.monitor.baseline import (
 )
 from fraud_detection_tpu_torch.ops.linear_shap import _raw_linear_shap, topk_reasons
 from fraud_detection_tpu_torch.ops.scorer import _bucket
+from fraud_detection_tpu_torch.ops.tree_shap import TreeShapExplainer, _raw_tree_shap
 
 PSI_EPS = 1e-4
 N_CALIB_BINS = 10
@@ -116,9 +118,19 @@ def _narrow_reasons(
 def _topk_attributions(
     xf: torch.Tensor, explain_args, explain_k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The explain leg: exact interventional linear SHAP over the values
-    the model scored, reduced to the per-row arg-top-k (shared body with
-    the standalone explainer)."""
+    """The explain leg: exact interventional SHAP over the values the model
+    scored, reduced to the per-row arg-top-k. The family follows
+    ``explain_args``: a ``TreeShapExplainer`` goes through
+    ``_raw_tree_shap`` (with the explainer's cached kernel tables), the
+    linear pair ``(coef, background_mean)`` through ``_raw_linear_shap``.
+    Each is its standalone explainer's body, so fused reason codes are
+    bitwise the standalone ones."""
+    if isinstance(explain_args, TreeShapExplainer):
+        return topk_reasons(
+            _raw_tree_shap(explain_args.model, explain_args.bg_table, xf,
+                           tables=explain_args.tables),
+            explain_k,
+        )
     coef, background_mean = explain_args
     return topk_reasons(_raw_linear_shap(coef, background_mean, xf), explain_k)
 
@@ -172,7 +184,7 @@ def _fused_flush_explain(
     feature_edges: torch.Tensor,
     score_edges: torch.Tensor,
     score_args,
-    explain_args,  # (coef (d,), background_mean (d,)) — linear-SHAP params
+    explain_args,  # linear-SHAP (coef, background_mean) or a TreeShapExplainer
     *,
     score_fn,
     explain_k: int,  # reason codes per row (pre-clamped to d)

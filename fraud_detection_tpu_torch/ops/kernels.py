@@ -15,9 +15,9 @@ module is imported.
 Wrappers check device, dtype, shape and contiguity. A tensor on the CPU
 takes the plain PyTorch version; a CUDA tensor launches the kernel or
 raises — there is no fallback. Each wrapper counts its launches in a
-module-level integer (``FUSED_SCORE_LAUNCHES``, ``KNN_TOPK_LAUNCHES``), so
-a run can show that the served and the trained path went through the
-kernels.
+module-level integer (``FUSED_SCORE_LAUNCHES``, ``KNN_TOPK_LAUNCHES``,
+``GBT_HIST_LAUNCHES``, ``TREE_SHAP_LAUNCHES``), so a run can show that the
+served and the trained paths went through the kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -61,12 +62,36 @@ _SIGNATURES = {
         ),
         "knn_topk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "gbt_hist": {
+        "gbt_hist_scratch_floats": (
+            [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+            ctypes.c_longlong,
+        ),
+        "gbt_hist_launch": (
+            [ctypes.c_void_p] * 6
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "gbt_hist_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "tree_shap": {
+        "tree_shap_launch": (
+            [ctypes.c_void_p] * 8
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "tree_shap_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
 #: launches of each kernel (CUDA tensors only; the CPU path and the plain
 #: versions never count)
 FUSED_SCORE_LAUNCHES = 0
 KNN_TOPK_LAUNCHES = 0
+GBT_HIST_LAUNCHES = 0
+TREE_SHAP_LAUNCHES = 0
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -78,14 +103,22 @@ def kernel_names() -> list[str]:
 
 
 def reset_launch_counts() -> None:
-    global FUSED_SCORE_LAUNCHES, KNN_TOPK_LAUNCHES
+    global FUSED_SCORE_LAUNCHES, KNN_TOPK_LAUNCHES, GBT_HIST_LAUNCHES
+    global TREE_SHAP_LAUNCHES
     with _lock:
         FUSED_SCORE_LAUNCHES = 0
         KNN_TOPK_LAUNCHES = 0
+        GBT_HIST_LAUNCHES = 0
+        TREE_SHAP_LAUNCHES = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"fused_score": FUSED_SCORE_LAUNCHES, "knn_topk": KNN_TOPK_LAUNCHES}
+    return {
+        "fused_score": FUSED_SCORE_LAUNCHES,
+        "knn_topk": KNN_TOPK_LAUNCHES,
+        "gbt_hist": GBT_HIST_LAUNCHES,
+        "tree_shap": TREE_SHAP_LAUNCHES,
+    }
 
 
 def _nvcc() -> str:
@@ -317,4 +350,266 @@ def knn_topk(xc: torch.Tensor, sq: torch.Tensor, k: int) -> torch.Tensor:
         )
     with _lock:
         KNN_TOPK_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gbt_hist — replaces fraud_detection_tpu/ops/gbt.py::_hist_pallas_kernel
+# ---------------------------------------------------------------------------
+# Bound on the H100: bytes, n·d (uint8 bins) + 12·n (node, g, h) read once
+# and 8·d·n_nodes·n_bins written once: ~2.3 MB, ~0.7 µs at 3.35 TB/s at the
+# GBT recipe's last level (n = 31,684, d = 30, 16 nodes, 256 bins), below
+# one launch. The design adds each (row, feature) to one cell in f32 with
+# no float atomics: per-warp shared-memory histograms whose cells each lane
+# owns by bin, summed in warp then chunk order, so two launches on the same
+# inputs give the same bits. See csrc/gbt_hist.cu.
+
+#: the kernel's bounds (csrc/gbt_hist.cu: kMaxBins, kMaxNodes)
+GBT_HIST_MAX_BINS = 256
+GBT_HIST_MAX_NODES = 65536
+
+
+def gbt_hist_reference(
+    bins: torch.Tensor,
+    local: torch.Tensor,
+    g: torch.Tensor,
+    h: torch.Tensor,
+    n_nodes: int,
+    n_bins: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, after ``_hist_segment`` of the
+    JAX package (its exact-f32 reference): one ``index_add_`` of every
+    (row, feature)'s ``(g, h)`` into the cell ``(feature, local, bin)``.
+    Rows whose node lies outside ``[0, n_nodes)`` and bins ``>= n_bins``
+    are inert, as in the kernel. Returns (d, n_nodes, n_bins, 2) float32.
+    On the CPU the rows of each cell add in ascending order, the order of
+    the JAX package's ``segment_sum`` there."""
+    n, d = bins.shape
+    b = bins.long()
+    loc = local.long()
+    seg = (loc[:, None] * n_bins + b
+           + torch.arange(d, device=b.device)[None, :] * (n_nodes * n_bins))
+    src = torch.stack([g, h], dim=1).float()[:, None, :].expand(n, d, 2)
+    keep = ((loc >= 0) & (loc < n_nodes))[:, None] & (b < n_bins)
+    if bool(keep.all()):
+        seg, src = seg.reshape(-1), src.reshape(-1, 2)
+    else:
+        seg, src = seg[keep], src[keep]
+    out = torch.zeros((d * n_nodes * n_bins, 2), dtype=torch.float32, device=b.device)
+    out.index_add_(0, seg, src)
+    return out.reshape(d, n_nodes, n_bins, 2)
+
+
+def gbt_hist(
+    bins: torch.Tensor,
+    local: torch.Tensor,
+    g: torch.Tensor,
+    h: torch.Tensor,
+    n_nodes: int,
+    n_bins: int,
+) -> torch.Tensor:
+    """Gradient/hessian histograms (d, n_nodes, n_bins, 2) float32 of one
+    tree level: ``bins`` (n, d) bin ids, ``local`` (n,) int32 node of each
+    row within the level, ``g``/``h`` (n,) float32. CUDA tensors launch the
+    hand-written kernel (uint8 bins, n_bins ≤ ``GBT_HIST_MAX_BINS``,
+    n_nodes ≤ ``GBT_HIST_MAX_NODES``, contiguous); CPU tensors take
+    :func:`gbt_hist_reference`."""
+    global GBT_HIST_LAUNCHES
+    if bins.dim() != 2 or local.dim() != 1 or g.dim() != 1 or h.dim() != 1:
+        raise ValueError(
+            f"gbt_hist wants bins (n, d), local/g/h (n,); got {tuple(bins.shape)}, "
+            f"{tuple(local.shape)}, {tuple(g.shape)}, {tuple(h.shape)}"
+        )
+    n, d = bins.shape
+    if not (local.shape[0] == g.shape[0] == h.shape[0] == n):
+        raise ValueError("gbt_hist: bins, local, g and h disagree on the row count")
+    n_nodes, n_bins = int(n_nodes), int(n_bins)
+    if n < 1 or d < 1 or n_nodes < 1 or n_bins < 1:
+        raise ValueError(f"gbt_hist wants n, d, n_nodes, n_bins >= 1, got "
+                         f"({n}, {d}, {n_nodes}, {n_bins})")
+    if local.dtype != torch.int32:
+        raise TypeError(f"gbt_hist wants int32 local, got {local.dtype}")
+    for t, what in ((g, "g"), (h, "h")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"gbt_hist wants float32 {what}, got {t.dtype}")
+    for t, what in ((local, "local"), (g, "g"), (h, "h")):
+        if t.device != bins.device:
+            raise ValueError(f"{what} on {t.device}, bins on {bins.device}")
+    if bins.device.type == "cpu":
+        return gbt_hist_reference(bins, local, g, h, n_nodes, n_bins)
+    if bins.device.type != "cuda":
+        raise ValueError(f"gbt_hist runs on cuda or cpu, not {bins.device}")
+    if bins.dtype != torch.uint8:
+        raise TypeError(f"gbt_hist's kernel reads uint8 bins, got {bins.dtype}")
+    if n_bins > GBT_HIST_MAX_BINS:
+        raise ValueError(f"gbt_hist's kernel takes n_bins <= {GBT_HIST_MAX_BINS}, got {n_bins}")
+    if n_nodes > GBT_HIST_MAX_NODES:
+        raise ValueError(
+            f"gbt_hist's kernel takes n_nodes <= {GBT_HIST_MAX_NODES}, got {n_nodes}"
+        )
+    if not all(t.is_contiguous() for t in (bins, local, g, h)):
+        raise ValueError("gbt_hist wants contiguous bins, local, g and h")
+    lib = _lib("gbt_hist")
+    scratch_n = lib.gbt_hist_scratch_floats(n, d, n_nodes, n_bins)
+    if scratch_n < 0:
+        raise ValueError(f"gbt_hist's kernel refuses shape ({n}, {d}, {n_nodes}, {n_bins})")
+    scratch = (torch.empty(scratch_n, dtype=torch.float32, device=bins.device)
+               if scratch_n else None)
+    out = torch.empty((d, n_nodes, n_bins, 2), dtype=torch.float32, device=bins.device)
+    rc = lib.gbt_hist_launch(
+        bins.data_ptr(), local.data_ptr(), g.data_ptr(), h.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
+        n, d, n_nodes, n_bins, bins.device.index,
+        torch.cuda.current_stream(bins.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            "gbt_hist launch failed: " + lib.gbt_hist_error_string(rc).decode()
+        )
+    with _lock:
+        GBT_HIST_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tree_shap — replaces fraud_detection_tpu/ops/pallas_kernels.py::_chisel_kernel
+# ---------------------------------------------------------------------------
+# Bound on the H100: bytes. The subset loop depends on the row only through
+# each leaf's D-bit pattern of failed path conditions, so it is folded into
+# a (T, L, 2^D, D) table when the explainer is built; a (row, tree) then
+# needs L·D compares, L·D table reads and the sums to the 2^D − 1 nodes:
+# ~36 M operations for 1,024 rows × 100 trees at depth 5 (~0.5 µs at the
+# f32 rate) against ~2.5 MB of tables (~0.75 µs at 3.35 TB/s). The TPU
+# kernel's dense three-matmul form would be ~0.4 MFLOP per (row, tree); the
+# port does not carry it over. The design gives each row a block, each
+# eighth of the trees a warp and each leaf a lane (depth ≤ 5), and adds in
+# an order fixed by the forest's shape. See csrc/tree_shap.cu.
+
+#: the kernel's bounds (csrc/tree_shap.cu: kMaxDepth, kMaxD)
+TREE_SHAP_MAX_DEPTH = 5
+TREE_SHAP_MAX_D = 128
+
+
+class TreeShapTables(NamedTuple):
+    """A forest and its background table, with the compact per-tree tables
+    the kernel reads (built once per explainer by
+    ``ops/tree_shap.build_tables``). The plain version reads the first
+    four fields, the kernel the rest."""
+
+    split_feature: torch.Tensor  # (T, 2^D − 1) int
+    split_bin: torch.Tensor  # (T, 2^D − 1) int
+    leaf_value: torch.Tensor  # (T, L) float32
+    bg_table: torch.Tensor  # (T, L, M) float32
+    path_feat: torch.Tensor  # (T, L, D) int32
+    path_thr: torch.Tensor  # (T, L, D) int32
+    leaf_sums: torch.Tensor  # (T, L, 2^D, D) float32, by failed-level pattern
+    node_order: torch.Tensor  # (T, 2^D − 1) int32, nodes grouped by feature
+    node_start: torch.Tensor  # (T, d) int32
+    node_count: torch.Tensor  # (T, d) int32
+
+
+def tree_shap_reference(
+    binned: torch.Tensor,
+    split_feature: torch.Tensor,
+    split_bin: torch.Tensor,
+    leaf_value: torch.Tensor,
+    bg_table: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the port of the JAX package's
+    XLA body of ``_raw_tree_shap`` (``ops/tree_shap.py``), one tree at a
+    time over all rows — the level-subset indicators times the background
+    factors, the Shapley-weighted differences over each canonical level,
+    and the scatter to features as a one-hot matmul (full f32). ``binned``
+    (n, d) bin ids → φ (n, d) float32 in margin space. The CPU path, the
+    depth above the kernel's cap and the tests use it."""
+    from fraud_detection_tpu_torch.ops.tree_shap import (
+        _dup_structure,
+        _path_conditions,
+        _shapley_weights,
+        _tree_static,
+    )
+
+    dev = binned.device
+    n, d = binned.shape
+    depth = (int(split_feature.shape[1]) + 1).bit_length() - 1
+    anc, direc, bits_np, pair_np = _tree_static(depth)
+    anc = torch.as_tensor(anc, device=dev).long()
+    direc = torch.as_tensor(direc, device=dev)
+    bits = torch.as_tensor(bits_np, device=dev)  # (masks, depth) bool
+    # the full mask (size = depth) includes no level: clamp its size into
+    # the weight table, as JAX's indexing does
+    size = bits.sum(dim=1).clamp_max(depth - 1)  # (masks,)
+    wtab = torch.as_tensor(_shapley_weights(depth), dtype=torch.float32, device=dev)
+    pair_flat = torch.as_tensor(pair_np.reshape(-1), device=dev).long()
+    masks = bits.shape[0]
+    feat_ids = torch.arange(d, device=dev)
+    binned = binned.long()
+    phi = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    for t in range(split_feature.shape[0]):
+        feat = split_feature[t].long()[anc]  # (leaves, depth)
+        thr = split_bin[t].long()[anc]
+        dup, canonical, u = _dup_structure(feat)
+        cx = _path_conditions(binned, feat, thr, direc)  # (n, leaves, depth)
+        bitdup = bits[:, dup]  # (masks, leaves, depth)
+        cxsel = torch.where(bitdup[None], cx[:, None], True).all(dim=3)
+        v = cxsel.float() * bg_table[t].T[None]  # (n, masks, leaves)
+        # a mask is a feature subset iff every non-canonical bit is 0
+        valid = (canonical[None, :, :] | ~bits[:, None, :]).all(dim=2)
+        v_pair = v[:, pair_flat].reshape(n, masks, depth, v.shape[2])
+        delta = v_pair - v[:, :, None, :]  # (n, masks, depth, leaves)
+        w = wtab[u[None, None, :], size[:, None, None]]  # (masks, 1, leaves)
+        include = valid[:, None, :] & ~bits[:, :, None] & canonical.T[None, :, :]
+        contrib = torch.where(include[None], w[None] * delta, 0.0).sum(dim=1)
+        scaled = contrib.transpose(1, 2) * leaf_value[t][None, :, None]
+        onehot = (feat.reshape(-1)[:, None] == feat_ids[None, :]).float()
+        phi = phi + scaled.reshape(n, -1) @ onehot
+    return phi
+
+
+def tree_shap(binned: torch.Tensor, tables: TreeShapTables) -> torch.Tensor:
+    """Exact interventional TreeSHAP φ (n, d) float32 in margin space of
+    the forest in ``tables`` for rows of bin ids ``binned`` (n, d). CUDA
+    tensors launch the hand-written kernel (depth ≤ ``TREE_SHAP_MAX_DEPTH``,
+    d ≤ ``TREE_SHAP_MAX_D``, int32 bins); CPU tensors take
+    :func:`tree_shap_reference`."""
+    global TREE_SHAP_LAUNCHES
+    if binned.dim() != 2:
+        raise ValueError(f"tree_shap wants binned (n, d), got {tuple(binned.shape)}")
+    n, d = binned.shape
+    if tables.node_start.shape[1] != d:
+        raise ValueError(f"tables for {tables.node_start.shape[1]} features, rows have {d}")
+    if binned.device.type == "cpu":
+        return tree_shap_reference(
+            binned, tables.split_feature, tables.split_bin, tables.leaf_value,
+            tables.bg_table,
+        )
+    if binned.device.type != "cuda":
+        raise ValueError(f"tree_shap runs on cuda or cpu, not {binned.device}")
+    n_trees, leaves, depth = tables.path_feat.shape
+    if depth > TREE_SHAP_MAX_DEPTH:
+        raise ValueError(f"tree_shap's kernel takes depth <= {TREE_SHAP_MAX_DEPTH}, got {depth}")
+    if d > TREE_SHAP_MAX_D:
+        raise ValueError(f"tree_shap's kernel takes d <= {TREE_SHAP_MAX_D}, got {d}")
+    if binned.dtype != torch.int32:
+        raise TypeError(f"tree_shap's kernel reads int32 bins, got {binned.dtype}")
+    kernel_args = (binned, tables.path_feat, tables.path_thr, tables.leaf_sums,
+                   tables.node_order, tables.node_start, tables.node_count)
+    for t in kernel_args:
+        if t.device != binned.device or not t.is_contiguous():
+            raise ValueError("tree_shap wants contiguous tables on the rows' device")
+    if n < 1:
+        return torch.zeros((0, d), dtype=torch.float32, device=binned.device)
+    lib = _lib("tree_shap")
+    out = torch.empty((n, d), dtype=torch.float32, device=binned.device)
+    rc = lib.tree_shap_launch(
+        *(t.data_ptr() for t in kernel_args), out.data_ptr(),
+        n, d, n_trees, depth, binned.device.index,
+        torch.cuda.current_stream(binned.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            "tree_shap launch failed: " + lib.tree_shap_error_string(rc).decode()
+        )
+    with _lock:
+        TREE_SHAP_LAUNCHES += 1
     return out

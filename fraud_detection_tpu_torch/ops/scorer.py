@@ -11,6 +11,10 @@ Counterpart of ``fraud_detection_tpu/ops/scorer.py``:
 - **The kernel.** On the card the linear score body is the hand-written
   ``fused_score`` CUDA kernel (:mod:`.kernels`); on the CPU its plain
   version.
+- **Two families.** :class:`BatchScorer` (linear) and
+  :class:`GBTBatchScorer` (the forest; its fused explain leg is the cached
+  TreeSHAP explainer) share the serving protocol, so the micro-batcher and
+  the fused flush do not know which family they serve.
 
 Only the float32 wire is ported; the bf16 and int8 wires raise
 ``NotImplementedError`` (ROADMAP queue 1, item 8).
@@ -51,8 +55,9 @@ def _bucket(n: int, min_bucket: int = 8) -> int:
 
 class FusedSpec(NamedTuple):
     """What a scorer hands the fused flush (monitor/drift): the score body
-    ``score_fn(score_args, x)`` and the raw-space linear-SHAP pair
-    ``explain_args = (coef, background_mean)`` for the reason-code leg."""
+    ``score_fn(score_args, x)`` and the reason-code leg's ``explain_args``
+    — the raw-space linear-SHAP pair ``(coef, background_mean)``, or the
+    GBT family's ``TreeShapExplainer``."""
 
     score_fn: Callable
     score_args: Any
@@ -96,6 +101,23 @@ def _raw_score_linear(score_args, x: torch.Tensor) -> torch.Tensor:
     on the card, its plain version on the CPU."""
     coef, intercept = score_args
     return kernels.fused_score(coef, intercept, x)
+
+
+def _raw_score_gbt(model, x: torch.Tensor) -> torch.Tensor:
+    """The forest's score body; ``score_args`` is the GBTModel."""
+    from fraud_detection_tpu_torch.ops.gbt import gbt_predict_proba
+
+    return gbt_predict_proba(model, x)
+
+
+def _check_wire(io_dtype: str) -> None:
+    if io_dtype in ("bfloat16", "int8"):
+        raise NotImplementedError(
+            f"the {io_dtype} wire is not ported yet: ROADMAP queue 8 "
+            "(queue 1, item 8 — the quantized wire); serve on float32"
+        )
+    if io_dtype != "float32":
+        raise ValueError(f"io_dtype must be float32|bfloat16|int8, got {io_dtype}")
 
 
 # --------------------------------------------------------------------------
@@ -232,6 +254,9 @@ class _BucketedScorer:
 class BatchScorer(_BucketedScorer):
     """Scaler-folded linear scorer: one ``fused_score`` launch per bucket."""
 
+    #: served model family — the ``scorer_served_family`` gauge label
+    family = "linear"
+
     def __init__(
         self,
         params: LogisticParams,
@@ -240,15 +265,7 @@ class BatchScorer(_BucketedScorer):
         io_dtype: str = "float32",
         device: str | torch.device | None = None,
     ):
-        if io_dtype in ("bfloat16", "int8"):
-            raise NotImplementedError(
-                f"the {io_dtype} wire is not ported yet: ROADMAP queue 8 "
-                "(queue 1, item 8 — the quantized wire); serve on float32"
-            )
-        if io_dtype != "float32":
-            raise ValueError(
-                f"io_dtype must be float32|bfloat16|int8, got {io_dtype}"
-            )
+        _check_wire(io_dtype)
         self.device = resolve_device(device)
         params = params.to(self.device)
         if scaler is not None:
@@ -276,3 +293,36 @@ class BatchScorer(_BucketedScorer):
 
     def _score_padded(self, x: torch.Tensor) -> torch.Tensor:
         return _raw_score_linear((self.coef, self.intercept), x)
+
+
+class GBTBatchScorer(_BucketedScorer):
+    """Forest scorer over a :class:`~fraud_detection_tpu_torch.ops.gbt.
+    GBTModel` whose bin edges are already in raw input space
+    (``fold_scaler_into_gbt``), on the model's device. ``explainer`` is the
+    family's ``TreeShapExplainer`` or a callable returning it: the first
+    :meth:`fused_spec` resolves and pins it, so constructing the scorer
+    never pays the background-table build."""
+
+    family = "gbt"
+
+    def __init__(self, model, min_bucket: int = 8, io_dtype: str = "float32",
+                 explainer=None):
+        _check_wire(io_dtype)
+        self._model = model
+        self.device = model.bin_edges.device
+        self.n_features = int(model.bin_edges.shape[0])
+        self.min_bucket = min_bucket
+        self.io_dtype = io_dtype
+        self._explainer = explainer
+
+    def _resolve_explainer(self):
+        if callable(self._explainer):
+            self._explainer = self._explainer()
+        return self._explainer
+
+    def _score_padded(self, x: torch.Tensor) -> torch.Tensor:
+        return _raw_score_gbt(self._model, x)
+
+    def fused_spec(self) -> FusedSpec:
+        return FusedSpec(_raw_score_gbt, self._model,
+                         explain_args=self._resolve_explainer())

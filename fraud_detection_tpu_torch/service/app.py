@@ -3,10 +3,14 @@
 - ``GET /status`` — liveness
 - ``GET /health`` — readiness with per-dependency status, 503 when degraded
 - ``POST /predict`` — validate → score through the micro-batcher (the fused
-  flush: ``fused_score`` kernel + drift fold + optional reason codes) →
+  flush: the family's score body + drift fold + optional reason codes) →
   respond with the JAX app's response fields
 - ``GET /monitor/status`` — watchtower drift state and recommendation
 - ``GET /metrics`` — Prometheus exposition
+
+The model directory holds either family (``load_any_model``): the logistic
+flagship (``fused_score`` kernel) or a GBT forest (TreeSHAP reason codes
+through the ``tree_shap`` kernel).
 
 The results database, the task queue and the SHAP worker are not in this
 slice. ``/health`` therefore reports ``database``/``broker`` as

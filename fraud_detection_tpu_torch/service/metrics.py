@@ -192,6 +192,12 @@ scorer_explained_rows = Counter(
     "scorer_explained_rows",
     "Scored rows whose response carried fused top-k reason codes",
 )
+scorer_served_family = Gauge(
+    "scorer_served_family",
+    "1 for the model family the micro-batcher is currently flushing "
+    "(linear or gbt), 0 for a family it flushed before",
+    ["family"],
+)
 scorer_queue_depth = Gauge(
     "scorer_queue_depth",
     "Queue items waiting in this shard's micro-batcher at the last "

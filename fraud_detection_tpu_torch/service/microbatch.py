@@ -11,8 +11,9 @@ asynchronously), then either:
 
 - **fused** (a watchtower is attached and ``SCORER_FUSED_FLUSH`` is on):
   scores, optional top-k reason codes and the drift-window fold in one
-  flush (``monitor/drift.DriftMonitor.fused_flush``) — the scores through
-  the ``fused_score`` CUDA kernel on the card; or
+  flush (``monitor/drift.DriftMonitor.fused_flush``) — on the card the
+  linear family scores through the ``fused_score`` CUDA kernel and the GBT
+  family's reason codes come from the ``tree_shap`` CUDA kernel; or
 - **split**: the score alone; the watchtower's ingest thread folds the
   window afterwards.
 
@@ -116,6 +117,7 @@ class MicroBatcher:
         # read as a demotion
         self._explain_fused: bool | None = None
         metrics.scorer_explain_fused.set(1)
+        self._family: str | None = None
         self.max_batch = max_batch or config.scorer_max_batch()
         self.max_wait = (
             max_wait_ms if max_wait_ms is not None else config.scorer_max_wait_ms()
@@ -277,6 +279,16 @@ class MicroBatcher:
                 else "without a watchtower (no monitor_profile.npz)",
             )
 
+    def _note_family(self, scorer) -> None:
+        """Latch the served family onto ``scorer_served_family``."""
+        fam = scorer.family
+        if fam == self._family:
+            return
+        prev, self._family = self._family, fam
+        metrics.scorer_served_family.labels(fam).set(1)
+        if prev is not None:
+            metrics.scorer_served_family.labels(prev).set(0)
+
     def _explain_k_for(self, scorer) -> int:
         """The fused explain leg's k: 0 when explanation is off, else
         SCORER_EXPLAIN_K clamped to the feature count."""
@@ -300,6 +312,7 @@ class MicroBatcher:
         ``explain_out`` are views into the slot's decode buffers, so the
         caller releases the slot after resolving the waiters."""
         n = len(batch)
+        self._note_family(scorer)
         staging = scorer.staging
         slot = staging.acquire(_bucket(n, scorer.min_bucket))
         explain_out = None

@@ -1,28 +1,35 @@
-"""Offline training of the logistic flagship on one device.
+"""Offline training of the logistic flagship or the GBT family on one
+device.
 
     python -m fraud_detection_tpu_torch.train --data data/creditcard.csv \\
-        [--folds 5 --seed 42 --solver auto|lbfgs|sgd --no-smote \\
-         --no-register --out-dir DIR --checkpoint-dir DIR]
+        [--model logistic|gbt --folds 5 --seed 42 --solver auto|lbfgs|sgd \\
+         --no-smote --no-register --out-dir DIR --checkpoint-dir DIR]
 
-The JAX package's ``train.py`` for ``model_family="logistic"``, on the card
-unless ``DEVICE=cpu`` (or ``device="cpu"``) is given:
+The JAX package's ``train.py`` for ``model_family="logistic"`` and
+``"gbt"``, on the card unless ``DEVICE=cpu`` (or ``device="cpu"``) is
+given:
 
 1. load the CSV and split it 80/20, stratified;
 2. fit the scaler on the train split;
 3. k-fold CV with SMOTE inside each fold (no leakage), one AUC per fold;
 4. fit once more on the SMOTE'd full train split (L-BFGS, or SGD above
    ``SGD_ROW_THRESHOLD`` rows or with ``--solver sgd``; ``--checkpoint-dir``
-   makes the SGD fit resumable per epoch);
+   makes the SGD fit resumable per epoch). The GBT family fits the
+   XGBoost recipe (``GBTConfig``: 100 trees, depth 5, 256 bins, lr 0.1)
+   through the ``gbt_hist`` kernel, with ``scale_pos_weight`` = n_neg/n_pos
+   only without SMOTE (the two are alternative imbalance corrections);
 5. the test AUC;
 6. the drift baseline in raw feature space from the test scores;
 7. ``model.npz`` + ``feature_names.json`` + ``quant_calibration.npz`` +
-   ``monitor_profile.npz`` into ``--out-dir`` and the run's artifact dir;
+   ``monitor_profile.npz`` into ``--out-dir`` and the run's artifact dir
+   (a forest stores the scaler folded into its bin edges and a 128-row
+   raw-space TreeSHAP background);
 8. the AUC gate: register the run's artifact under alias ``prod`` when the
    test AUC reaches ``MLFLOW_AUC_THRESHOLD``;
 9. return the metrics.
 
-The GBT family, the ledger-widened and wide families and the device trace
-of ``--profile-dir`` are later slices: asking for them raises, naming the
+The ledger-widened and wide families and the device trace of
+``--profile-dir`` are later slices: asking for them raises, naming the
 ROADMAP item that ports them. Besides the JAX package's metrics, the
 returned dict holds ``stages`` (seconds per stage, the device synchronised
 at each boundary) and ``lbfgs_iters`` (iterations of each L-BFGS fit).
@@ -31,6 +38,7 @@ at each boundary) and ``lbfgs_iters`` (iterations of each L-BFGS fit).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import time
 
@@ -45,8 +53,10 @@ from fraud_detection_tpu_torch.data.loader import (
     stratified_split,
 )
 from fraud_detection_tpu_torch.device import resolve_device
+from fraud_detection_tpu_torch.models.gbt import FraudGBTModel
 from fraud_detection_tpu_torch.models.logistic import FraudLogisticModel
 from fraud_detection_tpu_torch.monitor.baseline import build_baseline_profile, save_profile
+from fraud_detection_tpu_torch.ops.gbt import GBTConfig, gbt_fit, gbt_predict_proba
 from fraud_detection_tpu_torch.ops.logistic import (
     logistic_fit_lbfgs,
     logistic_fit_sgd,
@@ -65,7 +75,6 @@ SGD_ROW_THRESHOLD = 2_000_000
 
 #: families and options of the JAX trainer that later slices port
 _UNPORTED = {
-    "gbt": "the GBT family (ROADMAP queue 1, item 7)",
     "ledger": "the ledger-widened family (ROADMAP queue 1, item 9)",
     "wide": "the wide family (ROADMAP queue 1, item 10)",
     "profile_dir": "the device trace of a training run (ROADMAP queue 1, item 13)",
@@ -109,6 +118,25 @@ def _fit(x, y, *, seed: int, solver: str, class_weight, checkpointer=None,
     return params
 
 
+def _scale_pos_weight(y) -> float:
+    """n_negative / n_positive — the reference's imbalance knob for the
+    XGBoost path, computed before SMOTE."""
+    n_pos = max(int((np.asarray(y) > 0).sum()), 1)
+    return float((len(y) - n_pos) / n_pos)
+
+
+def _fit_gbt(x, y, *, gbt_config: GBTConfig | None, spw: float):
+    cfg = gbt_config or GBTConfig()
+    if cfg.scale_pos_weight == 1.0 and spw != 1.0:
+        cfg = dataclasses.replace(cfg, scale_pos_weight=spw)
+    # The JAX trainer fits sharded over its mesh (gbt_fit(sharded=True),
+    # XLA histograms + psum); the port has one device, so this is the
+    # unsharded fit through the gbt_hist kernel. The sharded fit, with its
+    # histogram allreduce over this kernel's output, is ROADMAP queue 1,
+    # item 12.
+    return gbt_fit(x, y, cfg), cfg
+
+
 def _rows(t: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
     return t[torch.as_tensor(idx, device=t.device)]
 
@@ -123,15 +151,13 @@ def train(
     register: bool = True,
     out_dir: str = "models",
     model_family: str = "logistic",
+    gbt_config: GBTConfig | None = None,
     checkpoint_dir: str | None = None,
     device: str | torch.device | None = None,
 ) -> dict:
     """Run the pipeline; returns a metrics dict."""
-    if model_family != "logistic":
-        raise NotImplementedError(
-            f"model family {model_family!r}: {_UNPORTED.get(model_family, 'unknown')}"
-            " is not ported yet"
-        )
+    if model_family not in ("logistic", "gbt"):
+        raise ValueError(f"model family must be logistic|gbt, got {model_family!r}")
     for flag, key in (("LEDGER_ENABLED", "ledger"), ("WIDE_ENABLED", "wide")):
         if config.env_flag(flag):
             raise NotImplementedError(f"{flag}: {_UNPORTED[key]} is not ported yet")
@@ -157,10 +183,14 @@ def train(
     client = TrackingClient()
     metrics: dict = {}
     lbfgs_iters: list[int] = []
+    gbt = model_family == "gbt"
     with client.start_run() as run:
+        # scale_pos_weight and SMOTE are alternative imbalance corrections:
+        # the weight applies only without SMOTE
+        spw = _scale_pos_weight(y_train) if gbt and not use_smote else 1.0
         run.log_params(
             {
-                "model_type": "logistic_regression",
+                "model_type": "gbt" if gbt else "logistic_regression",
                 "solver": solver,
                 "n_folds": n_folds,
                 "use_smote": use_smote,
@@ -185,12 +215,17 @@ def train(
                     x_tr, y_tr = smote(x_tr, y_tr, seed + fold, timings=t_smote)
                     stages.mark(f"fold{fold}_smote")
                     stages.seconds[f"fold{fold}_knn"] = t_smote["knn"]
-                params = _fit(
-                    x_tr, y_tr, seed=seed + fold, solver=solver,
-                    class_weight=class_weight, iters=lbfgs_iters,
-                )
-                stages.mark(f"fold{fold}_fit")
-                val_scores = predict_proba(params, _rows(xs_train, va))
+                if gbt:
+                    gmodel, _ = _fit_gbt(x_tr, y_tr, gbt_config=gbt_config, spw=spw)
+                    stages.mark(f"fold{fold}_fit")
+                    val_scores = gbt_predict_proba(gmodel, _rows(xs_train, va))
+                else:
+                    params = _fit(
+                        x_tr, y_tr, seed=seed + fold, solver=solver,
+                        class_weight=class_weight, iters=lbfgs_iters,
+                    )
+                    stages.mark(f"fold{fold}_fit")
+                    val_scores = predict_proba(params, _rows(xs_train, va))
                 fold_auc = float(auc_roc(val_scores, y_train[va]))
                 stages.mark(f"fold{fold}_auc")
             except ValueError as e:
@@ -215,19 +250,32 @@ def train(
             stages.seconds["final_knn"] = t_smote["knn"]
         else:
             x_fin, y_fin = xs_train, y_train
-        # a preempted SGD fit restarted with the same checkpoint_dir goes on
-        # at the next epoch
-        ck = SGDCheckpointer(checkpoint_dir) if checkpoint_dir else None
-        params = _fit(
-            x_fin, y_fin, seed=seed, solver=solver, class_weight=class_weight,
-            checkpointer=ck, iters=lbfgs_iters,
-        )
-        if ck is not None:
-            # the fit finished: leftover checkpoints must not make a later
-            # run with this directory "resume" stale params
-            ck.clear()
-        stages.mark("final_fit")
-        test_scores_t = predict_proba(params, xs_test)
+        if gbt:
+            gmodel, used_cfg = _fit_gbt(x_fin, y_fin, gbt_config=gbt_config, spw=spw)
+            run.log_params(
+                {
+                    "n_trees": used_cfg.n_trees,
+                    "max_depth": used_cfg.max_depth,
+                    "learning_rate": used_cfg.learning_rate,
+                    "scale_pos_weight": used_cfg.scale_pos_weight,
+                }
+            )
+            stages.mark("final_fit")
+            test_scores_t = gbt_predict_proba(gmodel, xs_test)
+        else:
+            # a preempted SGD fit restarted with the same checkpoint_dir
+            # goes on at the next epoch
+            ck = SGDCheckpointer(checkpoint_dir) if checkpoint_dir else None
+            params = _fit(
+                x_fin, y_fin, seed=seed, solver=solver, class_weight=class_weight,
+                checkpointer=ck, iters=lbfgs_iters,
+            )
+            if ck is not None:
+                # the fit finished: leftover checkpoints must not make a
+                # later run with this directory "resume" stale params
+                ck.clear()
+            stages.mark("final_fit")
+            test_scores_t = predict_proba(params, xs_test)
         test_auc = float(auc_roc(test_scores_t, y_test))
         test_scores = test_scores_t.cpu().numpy()
         metrics["test_auc"] = test_auc
@@ -248,7 +296,19 @@ def train(
         # run's artifact dir, so every resolution path carries its own
         # calibration and drift baseline ----
         model_artifact = run.artifact_path("model")
-        model = FraudLogisticModel(params, scaler, feature_names, device=dev)
+        if gbt:
+            # the wrapper folds the scaler into the bin edges (the forest
+            # scores raw rows), derives the int8 calibration before the fold,
+            # and stores a 128-row raw-space sample as the TreeSHAP background
+            bg_idx = np.random.default_rng(seed).choice(
+                len(x_train), min(128, len(x_train)), replace=False
+            )
+            model = FraudGBTModel(
+                gmodel, feature_names, scaler=scaler, background=x_train[bg_idx],
+                device=dev,
+            )
+        else:
+            model = FraudLogisticModel(params, scaler, feature_names, device=dev)
         for directory in (out_dir, model_artifact):
             model.save(directory)
             save_profile(directory, profile)
@@ -319,7 +379,7 @@ def main(argv=None):
     )
     args = ap.parse_args(argv)
     for key, asked in (
-        ("gbt", args.model == "gbt"), ("ledger", args.ledger),
+        ("ledger", args.ledger),
         ("wide", args.wide), ("profile_dir", args.profile_dir is not None),
     ):
         if asked:
@@ -332,6 +392,7 @@ def main(argv=None):
         use_smote=not args.no_smote,
         register=not args.no_register,
         out_dir=args.out_dir,
+        model_family=args.model,
         checkpoint_dir=args.checkpoint_dir,
     )
     print(metrics)

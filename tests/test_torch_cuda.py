@@ -1,6 +1,7 @@
 """Card-only tests of the port (marker ``cuda``): the hand-written CUDA
 kernels against their plain versions, the served path launching
-``fused_score`` and SMOTE launching ``knn_topk``.
+``fused_score``, SMOTE launching ``knn_topk``, the GBT fit launching
+``gbt_hist`` and TreeSHAP launching ``tree_shap``.
 
 They import nothing of JAX, so they run on a machine with the card and no
 JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -174,3 +175,121 @@ def test_smote_on_the_card_launches_the_kernel_and_matches_cpu():
     xc, yc = smote(x, y, seed=5)
     np.testing.assert_array_equal(yg, yc)
     np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d, n_nodes, n_bins", [
+    (31684, 30, 1, 256), (31684, 30, 16, 256), (1031, 30, 4, 16), (5, 3, 2, 256),
+    (31684, 1, 1, 32),
+])
+def test_gbt_hist_kernel_is_deterministic_and_matches_float64(n, d, n_nodes, n_bins):
+    """Two launches give the same bits; every cell within 1e-6·Σ|value| of
+    its float64 sum; inert rows (node −1, zero weight) add nothing."""
+    dev = _require_card()
+    rng = np.random.default_rng(n + n_nodes)
+    bins = rng.integers(0, n_bins, (n, d)).astype(np.uint8)
+    local = rng.integers(-1, n_nodes, n).astype(np.int32)
+    g = rng.standard_normal(n).astype(np.float32)
+    h = (rng.random(n) * 0.25).astype(np.float32)
+    g[::7] = 0.0
+    h[::7] = 0.0
+    args = [torch.from_numpy(a).to(dev) for a in (bins, local, g, h)]
+    before = kernels.GBT_HIST_LAUNCHES
+    a = kernels.gbt_hist(*args, n_nodes, n_bins)
+    b = kernels.gbt_hist(*args, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert kernels.GBT_HIST_LAUNCHES == before + 2
+    assert torch.equal(a, b)
+    seg = (local[:, None].astype(np.int64) * n_bins + bins) + np.arange(d) * (n_nodes * n_bins)
+    keep = np.broadcast_to((local >= 0)[:, None], seg.shape)
+    want = np.zeros((d * n_nodes * n_bins, 2))
+    absum = np.zeros_like(want)
+    for c, v in ((0, g), (1, h)):
+        vv = np.broadcast_to(v[:, None].astype(np.float64), seg.shape)
+        np.add.at(want[:, c], seg[keep], vv[keep])
+        np.add.at(absum[:, c], seg[keep], np.abs(vv[keep]))
+    got = a.cpu().numpy().reshape(-1, 2)
+    assert np.all(np.abs(got - want) <= 1e-6 * absum)
+
+
+@pytest.mark.cuda
+def test_gbt_fit_on_the_card_matches_the_cpu_fit():
+    """The same forest on both devices (deterministic kernel histograms;
+    no near-tie on this fixture), one launch per level and one per tree's
+    leaf sums."""
+    from fraud_detection_tpu_torch.ops import gbt
+
+    dev = _require_card()
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((3000, 30)).astype(np.float32)
+    y = (x @ rng.standard_normal(30).astype(np.float32) > 1.0).astype(np.int32)
+    cfg = gbt.GBTConfig(n_trees=10, max_depth=5, n_bins=64)
+    kernels.reset_launch_counts()
+    card = gbt.gbt_fit(torch.from_numpy(x).to(dev), y, cfg)
+    assert kernels.GBT_HIST_LAUNCHES == 10 * 6
+    cpu = gbt.gbt_fit(x, y, cfg, device="cpu")
+    assert torch.equal(card.split_feature.cpu(), cpu.split_feature)
+    assert torch.equal(card.split_bin.cpu(), cpu.split_bin)
+    np.testing.assert_allclose(card.leaf_value.cpu().numpy(), cpu.leaf_value.numpy(),
+                               rtol=0, atol=1e-6)
+    xt = torch.from_numpy(x[:500])
+    np.testing.assert_allclose(gbt.gbt_predict_proba(card, xt.to(dev)).cpu().numpy(),
+                               gbt.gbt_predict_proba(cpu, xt).numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth, trees, n", [(5, 100, 1024), (5, 100, 9), (3, 16, 33), (2, 1, 1)])
+def test_tree_shap_kernel_matches_plain_version(depth, trees, n):
+    """rtol 1e-4 / atol 2e-5 against the plain body, equal top-3 indices,
+    and additivity Σφ + E[f] = f(x)."""
+    from fraud_detection_tpu_torch.ops import gbt
+    from fraud_detection_tpu_torch.ops import tree_shap as ts
+    from fraud_detection_tpu_torch.ops.linear_shap import topk_reasons
+
+    dev = _require_card()
+    rng = np.random.default_rng(depth * 100 + trees)
+    x = rng.standard_normal((2000, 30)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] > 0.2).astype(np.int32)
+    model = gbt.gbt_fit(torch.from_numpy(x).to(dev), y,
+                        gbt.GBTConfig(n_trees=trees, max_depth=depth, n_bins=64))
+    e = ts.build_tree_explainer(model, x[:128])
+    rows = torch.from_numpy(x[500:500 + n]).to(dev)
+    binned = gbt.bin_features(rows, model.bin_edges)
+    before = kernels.TREE_SHAP_LAUNCHES
+    got = kernels.tree_shap(binned, e.tables)
+    want = kernels.tree_shap_reference(binned, model.split_feature, model.split_bin,
+                                       model.leaf_value, e.bg_table)
+    torch.cuda.synchronize()
+    assert kernels.TREE_SHAP_LAUNCHES == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5)
+    # a row's phi does not depend on the batch around it (the fused flush
+    # pads to its bucket; the standalone explainer does not)
+    assert torch.equal(kernels.tree_shap(binned[:1].contiguous(), e.tables), got[:1])
+    assert torch.equal(topk_reasons(got, 3)[0], topk_reasons(want, 3)[0])
+    recon = got.sum(dim=1) + e.expected_value
+    torch.testing.assert_close(recon, gbt.gbt_predict_logits(model, rows), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gbt_hist_and_tree_shap_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _require_card()
+    z = torch.zeros(4, device=dev)
+    loc = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="uint8"):
+        kernels.gbt_hist(torch.zeros((4, 2), dtype=torch.int32, device=dev), loc, z, z, 1, 4)
+    with pytest.raises(ValueError, match="n_bins <= 256"):
+        kernels.gbt_hist(torch.zeros((4, 2), dtype=torch.uint8, device=dev), loc, z, z, 1, 300)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gbt_hist(torch.zeros((4, 4), dtype=torch.uint8, device=dev)[:, ::2],
+                         loc, z, z, 1, 4)
+
+
+@pytest.mark.cuda
+def test_nan_binning_on_the_card_matches_the_host():
+    from fraud_detection_tpu_torch.ops import gbt
+
+    dev = _require_card()
+    edges = np.array([[0.0, 1.0, 2.0], [-1.0, 0.0, 5.0]], np.float32)
+    x = np.array([[np.nan, 0.5], [np.inf, -np.inf], [-np.inf, np.nan], [1.0, 5.0]], np.float32)
+    got = gbt.bin_features(torch.from_numpy(x).to(dev), torch.from_numpy(edges).to(dev))
+    np.testing.assert_array_equal(got.cpu().numpy(), gbt.bin_features_host(x, edges, 4))

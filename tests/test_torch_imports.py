@@ -60,19 +60,20 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 37  # every module of both slices, not a stub package
+    assert n >= 40  # every module of the three slices, not a stub package
 
 
 def test_training_modules_are_among_those_imported():
-    """The blocked-import probe walks the package; the training slice's
-    modules are in it."""
+    """The blocked-import probe walks the package; the training and GBT
+    slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
 
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
     for mod in ("train", "data.loader", "ops.smote", "ops.metrics", "ops.quant",
-                "ckpt.train_state", "tracking.store", "tracking.registry"):
+                "ckpt.train_state", "tracking.store", "tracking.registry",
+                "ops.gbt", "ops.tree_shap", "models.gbt"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 

@@ -49,7 +49,9 @@ def test_cpu_wrapper_uses_plain_version_and_does_not_count():
     xt, wt, bt = torch.from_numpy(x), torch.from_numpy(w), torch.tensor(b)
     got = kernels.fused_score(wt, bt, xt)
     assert kernels.FUSED_SCORE_LAUNCHES == 0
-    assert kernels.launch_counts() == {"fused_score": 0, "knn_topk": 0}
+    assert kernels.launch_counts() == {
+        "fused_score": 0, "knn_topk": 0, "gbt_hist": 0, "tree_shap": 0,
+    }
     assert torch.equal(got, kernels.fused_score_reference(wt, bt, xt))
 
 
@@ -76,7 +78,7 @@ def test_wrapper_rejects_bad_inputs(bad, match):
 def test_kernel_sources_and_build_tags():
     """Every csrc/*.cu is a kernel; the library name changes with the
     source, so an edited kernel never loads a stale build."""
-    assert kernels.kernel_names() == ["fused_score", "knn_topk"]
+    assert kernels.kernel_names() == ["fused_score", "gbt_hist", "knn_topk", "tree_shap"]
     path = kernels._lib_path("fused_score")
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libfused_score-") and path.suffix == ".so"

@@ -107,12 +107,15 @@ def test_artifacts_interchange(tmp_path, rows):
 
 @pytest.mark.parametrize("sidecar", [None, "ledger_state.npz", "wide_params.npz"])
 def test_unported_families_raise(tmp_path, sidecar):
+    """Ledger and wide sidecars raise beside a logistic model and (None)
+    beside a GBT forest, which itself now loads."""
     d = str(tmp_path / "m")
-    if sidecar is None:  # a GBT forest
+    if sidecar is None:  # a GBT forest carrying a ledger sidecar
         os.makedirs(d)
         np.savez(os.path.join(d, "model.npz"), gbt_leaf_value=np.zeros(3, np.float32))
         with open(os.path.join(d, "feature_names.json"), "w") as f:
             json.dump(["a"], f)
+        np.savez(os.path.join(d, "ledger_state.npz"), x=np.zeros(1))
     else:
         shutil.copytree(MODELS, d)
         np.savez(os.path.join(d, sidecar), x=np.zeros(1))
@@ -120,11 +123,74 @@ def test_unported_families_raise(tmp_path, sidecar):
         load_any_model(d, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def gbt_dirs(tmp_path_factory, rows):
+    """One forest, fitted by the JAX package on scaled rows, saved by the
+    JAX model wrapper (scaler folded, calibration stamped, background)."""
+    from fraud_detection_tpu.models.gbt import FraudGBTModel as JaxGBT
+    from fraud_detection_tpu.ops.gbt import GBTConfig, gbt_fit
+    from fraud_detection_tpu.ops.scaler import scaler_fit as jax_scaler_fit
+
+    rng = np.random.default_rng(3)
+    x = rows[:1200]
+    scaler = jax_scaler_fit(x)
+    xs = np.asarray(jax_scaler_transform(scaler, x))
+    y = (xs @ rng.standard_normal(30).astype(np.float32) > 1.5).astype(np.int32)
+    forest = gbt_fit(xs, y, GBTConfig(n_trees=12, max_depth=4, n_bins=32))
+    names = JaxModel.load(MODELS).feature_names
+    d = str(tmp_path_factory.mktemp("gbt") / "jax")
+    JaxGBT(forest, names, scaler=scaler, background=x[:64]).save(d)
+    return d
+
+
+def test_gbt_artifacts_load_across_in_both_directions(gbt_dirs, rows, tmp_path):
+    """A forest the JAX package wrote scores within 1e-6 in the port (and
+    explains within TreeSHAP's kernel tolerance); the port's re-save loads
+    in the JAX package with the same arrays and scores."""
+    from fraud_detection_tpu.models.gbt import FraudGBTModel as JaxGBT
+    from fraud_detection_tpu_torch.models import FraudGBTModel
+
+    jdir = gbt_dirs
+    port = load_any_model(jdir, device="cpu")
+    assert isinstance(port, FraudGBTModel) and artifact_kind(jdir) == "gbt"
+    jm = JaxGBT.load(jdir)
+    x = rows[1200:1500]
+    np.testing.assert_allclose(
+        port.scorer.predict_proba(x), np.asarray(jm.scorer.predict_proba(x)).reshape(-1),
+        rtol=0, atol=1e-6,
+    )
+    assert port.calibration.scale.tobytes() == jm.calibration.scale.tobytes()
+    phi, ev = port.explain_batch(x[:16])
+    jphi, jev = jm.explain_batch(x[:16])
+    np.testing.assert_allclose(phi, jphi, rtol=1e-4, atol=2e-5)
+    assert ev == pytest.approx(jev, abs=1e-6)
+
+    out = str(tmp_path / "port")
+    port.save(out)
+    with np.load(os.path.join(jdir, "model.npz")) as a, np.load(os.path.join(out, "model.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes() and a[k].dtype == b[k].dtype, k
+    back = JaxGBT.load(out)
+    np.testing.assert_allclose(
+        np.asarray(back.scorer.predict_proba(x)).reshape(-1), port.scorer.predict_proba(x),
+        rtol=0, atol=1e-6,
+    )
+    assert sorted(os.listdir(out)) == ["feature_names.json", "model.npz", "quant_calibration.npz"]
+
+
 @pytest.mark.parametrize("wire", ["bfloat16", "int8"])
 def test_narrow_wires_raise_not_implemented(wire):
     params = LogisticParams(torch.zeros(4), torch.tensor(0.0))
     with pytest.raises(NotImplementedError, match="queue 8"):
         BatchScorer(params, io_dtype=wire, device="cpu")
+    from fraud_detection_tpu_torch.ops.gbt import GBTModel
+    from fraud_detection_tpu_torch.ops.scorer import GBTBatchScorer
+
+    forest = GBTModel(torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1), dtype=torch.int32),
+                      torch.zeros((1, 2)), torch.zeros((4, 3)), torch.tensor(0.0))
+    with pytest.raises(NotImplementedError, match="queue 8"):
+        GBTBatchScorer(forest, io_dtype=wire)
 
 
 def test_buckets_and_staging_pool_reuse():

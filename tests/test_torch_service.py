@@ -111,6 +111,64 @@ def test_two_apps_answer_predict_alike(serving_env, tmp_path):
         assert "# TYPE api_inference_duration_seconds histogram" in text
 
 
+@pytest.fixture(scope="module")
+def gbt_dir(tmp_path_factory, model_dir):
+    """A GBT forest fitted by the JAX package on scaled CSV rows (scaler
+    folded, 64-row background) plus a drift baseline beside it."""
+    from fraud_detection_tpu.models.gbt import FraudGBTModel as JaxGBT
+    from fraud_detection_tpu.ops.gbt import GBTConfig, gbt_fit
+    from fraud_detection_tpu.ops.scaler import scaler_fit, scaler_transform
+
+    _, x = model_dir
+    scaler = scaler_fit(x)
+    xs = np.asarray(scaler_transform(scaler, x))
+    w = np.random.default_rng(1).standard_normal(30).astype(np.float32)
+    y = (xs @ w > 1.0).astype(np.int32)
+    names = JaxModel.load(os.path.join(ROOT, "models")).feature_names
+    d = str(tmp_path_factory.mktemp("served_gbt") / "models")
+    m = JaxGBT(gbt_fit(xs, y, GBTConfig(n_trees=10, max_depth=4, n_bins=32)), names,
+               scaler=scaler, background=x[:64])
+    m.save(d)
+    scores = np.asarray(m.scorer.predict_proba(x)).reshape(-1)
+    save_profile(d, build_baseline_profile(x, scores, feature_names=names))
+    return d, x
+
+
+def test_two_apps_answer_predict_alike_on_a_gbt_forest(gbt_dir, tmp_path, monkeypatch):
+    """One GBT directory served by both apps with SCORER_EXPLAIN=topk:
+    scores within 1e-6, equal reason-code features (TreeSHAP; attributions
+    within the kernel tolerance), the fused flush, and the served family."""
+    d, x = gbt_dir
+    monkeypatch.setenv("MODEL_PATH", os.path.join(d, "model.npz"))
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
+    monkeypatch.setenv("SCORER_EXPLAIN", "topk")
+    monkeypatch.setenv("SCORER_MAX_BATCH", "64")
+    monkeypatch.setenv("DEVICE", "cpu")
+    jax_app = jax_create_app(
+        database_url=f"sqlite:///{tmp_path}/fraud.db",
+        broker_url=f"sqlite:///{tmp_path}/taskq.db",
+    )
+    with JaxClient(jax_app) as jc, TestClient(create_app()) as tc:
+        for i in range(N_ROWS):
+            body = {"features": x[100 + i].tolist()}
+            jr, tr = jc.post("/predict", json=body), tc.post("/predict", json=body)
+            assert jr.status_code == tr.status_code == 200
+            jb, tb = jr.json(), tr.json()
+            assert tb["score"] == pytest.approx(jb["score"], abs=1e-6)
+            assert tb["prediction"] == jb["prediction"]
+            assert [r["feature"] for r in tb["reason_codes"]] == [
+                r["feature"] for r in jb["reason_codes"]
+            ]
+            np.testing.assert_allclose(
+                [r["attribution"] for r in tb["reason_codes"]],
+                [r["attribution"] for r in jb["reason_codes"]], rtol=1e-4, atol=2e-5,
+            )
+        assert tc.get("/monitor/status").json()["drift"]["rows_seen"] == N_ROWS
+        text = tc.get("/metrics").text
+        assert 'scorer_served_family{family="gbt"} 1.0' in text
+        assert 'scorer_flushes_total{path="fused",shard="0"}' in text
+
+
 def test_app_without_profile_serves_unmonitored(model_dir, tmp_path, monkeypatch):
     d, x = model_dir
     bare = str(tmp_path / "bare")

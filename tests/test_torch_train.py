@@ -256,6 +256,16 @@ def synth_csv(tmp_path_factory):
     return path
 
 
+@pytest.fixture(scope="module")
+def gbt_csv(tmp_path_factory):
+    """A stronger signal (shift 0.8 σ) for the forests: at 0.35 σ a small
+    forest's test AUC (~0.7) moves by a few hundredths with the SMOTE draws."""
+    path = str(tmp_path_factory.mktemp("synth_gbt") / "synth.csv")
+    generate_synthetic_data(path, n_samples=3000, fraud_ratio=0.03, seed=0,
+                            shift_scale=0.8)
+    return path
+
+
 def _run(fn, tmp, name, monkeypatch, **kw):
     monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp}/{name}/mlruns")
     monkeypatch.setenv("MLFLOW_AUC_THRESHOLD", "0.70")
@@ -345,9 +355,71 @@ def test_train_sgd_with_checkpoints_then_clears(synth_csv, tmp_path, monkeypatch
     assert os.listdir(ck) == []
 
 
+@pytest.mark.parametrize("use_smote, tol", [(True, 0.01), (False, 1e-3)])
+def test_train_gbt_matches_jax_train(gbt_csv, tmp_path, monkeypatch, use_smote, tol):
+    """``train(model_family="gbt")`` with a small GBTConfig against the JAX
+    trainer: test AUC and CV mean within 1e-3 without SMOTE (the JAX fit is
+    sharded over the suite's 8 virtual devices, so its histogram sums
+    reassociate) and within 0.01 with SMOTE (other synthetic rows). The
+    artifacts load across in both directions and score within 1e-6."""
+    from fraud_detection_tpu.models.gbt import FraudGBTModel as JaxGBT
+    from fraud_detection_tpu.ops.gbt import GBTConfig as JaxGBTConfig
+    from fraud_detection_tpu_torch.models import FraudGBTModel
+    from fraud_detection_tpu_torch.ops.gbt import GBTConfig
+
+    kw = dict(n_trees=12, max_depth=4, n_bins=32)
+    got, out = _run(train, tmp_path, "port", monkeypatch, data_csv=gbt_csv,
+                    use_smote=use_smote, device="cpu", model_family="gbt",
+                    gbt_config=GBTConfig(**kw))
+    want, jout = _run(jax_train, tmp_path, "jax", monkeypatch, data_csv=gbt_csv,
+                      use_smote=use_smote, model_family="gbt",
+                      gbt_config=JaxGBTConfig(**kw))
+    print(f"gbt smote={use_smote}: port test {got['test_auc']:.6f} cv "
+          f"{got['cv_auc_mean']:.6f}; jax test {want['test_auc']:.6f} cv "
+          f"{want['cv_auc_mean']:.6f}")
+    assert abs(got["test_auc"] - want["test_auc"]) <= tol
+    assert abs(got["cv_auc_mean"] - want["cv_auc_mean"]) <= tol
+    assert got["registered_version"] == want["registered_version"] == 1
+    assert got["lbfgs_iters"] == []
+    assert {"fold0_fit", "final_fit", "save"} <= set(got["stages"])
+    assert ("final_knn" in got["stages"]) == use_smote
+    assert sorted(os.listdir(out)) == [
+        "feature_names.json", "model.npz", "monitor_profile.npz",
+        "quant_calibration.npz",
+    ]
+    rows = np.random.default_rng(0).standard_normal((64, 30)).astype(np.float32) * 3
+    port_model = load_any_model(out, device="cpu")
+    assert isinstance(port_model, FraudGBTModel)
+    assert port_model.background.shape == (128, 30)
+    np.testing.assert_allclose(
+        np.asarray(JaxGBT.load(out).scorer.predict_proba(rows)).reshape(-1),
+        port_model.scorer.predict_proba(rows), rtol=0, atol=1e-6,
+    )
+    np.testing.assert_allclose(
+        load_any_model(jout, device="cpu").scorer.predict_proba(rows),
+        np.asarray(JaxGBT.load(jout).scorer.predict_proba(rows)).reshape(-1),
+        rtol=0, atol=1e-6,
+    )
+
+
+def test_main_trains_gbt(synth_csv, tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("DEVICE", "cpu")
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
+    monkeypatch.setattr(
+        "fraud_detection_tpu_torch.train.GBTConfig",
+        lambda: __import__("fraud_detection_tpu_torch.ops.gbt", fromlist=["GBTConfig"])
+        .GBTConfig(n_trees=3, max_depth=2, n_bins=16),
+    )
+    main(["--data", synth_csv, "--model", "gbt", "--folds", "2", "--no-register",
+          "--out-dir", str(tmp_path / "m")])
+    assert "test_auc" in capsys.readouterr().out
+    with np.load(tmp_path / "m" / "model.npz") as z:
+        assert z["gbt_split_feature"].shape == (3, 3)
+
+
 def test_main_refuses_unported_families(monkeypatch, capsys):
     for argv, item in (
-        (["--model", "gbt"], "item 7"), (["--ledger"], "item 9"),
+        (["--ledger"], "item 9"),
         (["--wide"], "item 10"), (["--profile-dir", "x"], "item 13"),
     ):
         with pytest.raises(SystemExit):
