@@ -35,12 +35,17 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
 2c. **gbt_hist against its plain version** — the histogram kernel on CUDA
    tensors at the GBT recipe's shapes (31,684 rows × 30 features × 256
    bins, 1 to 16 nodes: every level of the final fit), an odd row count,
-   a 16-bin model and all-zero weight rows, with zero-weight rows and rows
-   outside the level mixed in: two launches bitwise equal, every cell of
+   a 16-bin model, the leaf sums (d = 1, 32 bins), a leaf whose rows all
+   carry the fit's floor h = 1e-16, and all-zero weight rows, with
+   zero-weight rows and rows outside the level mixed in: two launches
+   bitwise equal, bitwise equal to the kernel's fixed-point model
+   (``gbt_hist_fixed_point_reference``, the same quanta), every cell of
    the kernel and of the plain version within 1e-6·Σ|value| of its float64
-   sum. Times the kernel, the plain version, one ``index_put_(...,
-   accumulate=True)`` over precomputed cell ids (the library column; the
-   port never calls it) and the byte bound.
+   sum (the floored leaf's H: > 0 and within rows · quantum). Times the
+   kernel at the five levels and the leaf sums, the plain version, one
+   ``index_put_(..., accumulate=True)`` over precomputed cell ids (the
+   library column; the port never calls it) and the byte bound, and the
+   launch-weighted mean per call over a tree.
 2d. **tree_shap against its plain version** — seeded synthetic forests
    (100 trees of depth 5 over d = 30 at n ∈ {1, 9, 1024}; depths 2 and 3;
    every node on feature 0): within rtol 1e-4 / atol 2e-5, equal top-3
@@ -519,46 +524,73 @@ def check_gbt_hist(seed: int) -> dict:
               ("16 bins n=4099 d=30 nodes=1", 4099, 30, 1, 16),
               ("leaf sums n=31684 d=1 nodes=1 bins=32", 31684, 1, 1, 32),
               ("leaf sums n=25351 d=1 nodes=1 bins=32", 25351, 1, 1, 32)]
+    # and the leaf sums with one leaf whose rows all carry the fit's floor
+    # h = 1e-16 (its H must come out > 0)
+    cases.append(("floored-h leaf sums n=31684 d=1 nodes=1 bins=32", 31684, 1, 1, 32))
     worst = 0.0
     timed = {}
     for label, n, d, nn, nb in cases:
         args = hist_inputs(rng, n, d, nn, nb, dev)
-        a = kernels.gbt_hist(*args, nn, nb)
+        floored = label.startswith("floored")
+        if floored:
+            args[3][args[0][:, 0] == 0] = 1e-16
+        a, quanta = kernels.gbt_hist_and_quanta(*args, nn, nb)
         b = kernels.gbt_hist(*args, nn, nb)
         plain = kernels.gbt_hist_reference(*args, nn, nb)
+        model, model_q = kernels.gbt_hist_fixed_point_reference(*args, nn, nb)
         want, absum = hist_float64(*args, nn, nb)
         torch.cuda.synchronize()
         if not torch.equal(a, b):
             raise AssertionError(f"gbt_hist {label}: two launches differ")
         if a.shape != (d, nn, nb, 2) or not torch.isfinite(a).all():
             raise AssertionError(f"gbt_hist {label}: bad output {tuple(a.shape)}")
-        rel_k = float(((a.double() - want).abs() / absum.clamp_min(1e-300)).max())
-        rel_p = float(((plain.double() - want).abs() / absum.clamp_min(1e-300)).max())
+        quanta = tuple(quanta.cpu().tolist())
+        if quanta != model_q or not torch.equal(a, model):
+            raise AssertionError(f"gbt_hist {label}: not bitwise its fixed-point model "
+                                 f"(quanta {quanta} vs {model_q})")
+        rel = (a.double() - want).abs() / absum.clamp_min(1e-300)
+        rel_p = (plain.double() - want).abs() / absum.clamp_min(1e-300)
         empty = absum == 0
         if bool((a[empty] != 0).any()):
             raise AssertionError(f"gbt_hist {label}: an empty cell is not 0")
         err = float((a - plain).abs().max())
-        print(f"phase2c: gbt_hist {label}: bitwise equal over two launches; max "
-              f"|cell - f64|/sum|v| kernel {rel_k:.3e}, plain {rel_p:.3e}; "
-              f"max |kernel - plain| {err:.3e}")
-        if rel_k > HIST_REL_TOL or rel_p > HIST_REL_TOL:
+        cpu_plain = kernels.gbt_hist_reference(*(t.cpu() for t in args), nn, nb)
+        extra = f"; plain on the card bitwise the CPU's: {torch.equal(plain.cpu(), cpu_plain)}"
+        if floored:
+            # a floored row rounds up to one quantum (q > 1e-16 here): the
+            # floored leaf's H is held to its fixed-point bound, rows · q
+            rows_0 = int((args[0][:, 0] == 0).sum())
+            h0 = float(a[0, 0, 0, 1])
+            if not (h0 > 0.0 and abs(h0 - float(want[0, 0, 0, 1])) <= rows_0 * quanta[1]):
+                raise AssertionError(f"gbt_hist {label}: floored leaf H {h0} "
+                                     f"({rows_0} rows, q {quanta[1]})")
+            extra += f"; floored leaf H {h0:.6e} > 0 ({rows_0} rows at h=1e-16)"
+            rel, rel_p = rel[0, 0, 1:], rel_p[0, 0, 1:]
+        rel_k, rel_p = float(rel.max()), float(rel_p.max())
+        print(f"phase2c: gbt_hist {label}: bitwise equal over two launches and to "
+              f"its fixed-point model (quanta g {quanta[0]:.6e}, h {quanta[1]:.6e}); "
+              f"max |cell - f64|/sum|v| kernel {rel_k:.3e}, plain {rel_p:.3e}; "
+              f"max |kernel - plain| {err:.3e}{extra}")
+        # the floored case gates the kernel; the plain version's float32
+        # row-order sums are gated on every other case
+        if rel_k > HIST_REL_TOL or (rel_p > HIST_REL_TOL and not floored):
             raise AssertionError(
                 f"gbt_hist {label}: off its float64 sum by more than "
                 f"{HIST_REL_TOL} of sum|v| (kernel {rel_k:.3e}, plain {rel_p:.3e})"
             )
         worst = max(worst, err)
-        if n == 31684 and d == 30 and nn in (1, 16):
-            timed[nn] = args
+        if n == 31684 and not floored:
+            timed[nn if d == 30 else "leaf"] = args
     zero = hist_inputs(rng, 1000, 30, 4, 256, dev, zero_every=1)
     if bool(kernels.gbt_hist(*zero, 4, 256).any()):
         raise AssertionError("gbt_hist: all-zero weight rows gave a nonzero cell")
     print("phase2c: gbt_hist all-zero weight rows (n=1000): every cell 0")
 
     rows = {}
-    for nn, args in timed.items():
+    for key, args in timed.items():
         bins, local, g, h = args
         n, d = bins.shape
-        nb = 256
+        nn, nb = (1, 32) if key == "leaf" else (key, 256)
         flat = ((local.long()[:, None] * nb + bins.long())
                 + torch.arange(d, device=dev)[None, :] * (nn * nb))
         keep = (local >= 0)[:, None].expand(-1, d)
@@ -573,15 +605,23 @@ def check_gbt_hist(seed: int) -> dict:
         plain = eager_ms(plain_fn, iters=50, warm=5)
         library = eager_ms(library_fn, iters=50, warm=5)
         bound, by, n_bytes, n_ops = hist_bound(n, d, nn, nb)
-        rows[nn] = {"ms": ms, "plain_ms": plain, "library_ms": library,
-                    "bound_ms": bound, "bound_by": by, "eager_ms": eager}
+        rows[key] = {"ms": ms, "plain_ms": plain, "library_ms": library,
+                     "bound_ms": bound, "bound_by": by, "eager_ms": eager}
         print(f"phase2c: gbt_hist timing n={n} d={d} nodes={nn} bins={nb}: kernel "
               f"{ms:.6f} ms (CUDA events over launches replayed from a CUDA graph; "
               f"eager through the wrapper {eager:.6f} ms), plain {plain:.6f} ms "
               f"(eager), library index_put_(accumulate=True) on precomputed cell "
               f"ids {library:.6f} ms (eager), bound {bound:.6f} ms ({by}: "
               f"{n_bytes} B, {n_ops} ops)")
-    return {"max_abs_err": worst, "timing": rows}
+    # a tree launches each of the six shapes once (5 levels + the leaf sums),
+    # so over 100 trees the launch-weighted mean is the plain mean of six
+    mean = {k: sum(r[k] for r in rows.values()) / len(rows)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    print(f"phase2c: gbt_hist launch-weighted mean per call over one tree of the "
+          f"final fit (100 trees x {len(rows)} shapes): kernel {mean['ms']:.6f} ms, "
+          f"plain {mean['plain_ms']:.6f} ms, library {mean['library_ms']:.6f} ms, "
+          f"bound {mean['bound_ms']:.6f} ms")
+    return {"max_abs_err": worst, "timing": rows, "mean": mean}
 
 
 # ---------------------------------------------------------------------------
@@ -1215,8 +1255,105 @@ def gbt_trained_path(work: Path) -> tuple[dict, str]:
             if any(not np.array_equal(z[f], o[f]) for f in z.files):
                 raise AssertionError("registered forest differs from --out-dir's")
         out = art
+    forest_agreement(card_base / "models", runs["cpu"][1] / "models")
     profile_gbt_fit()
     return launches, str(out)
+
+
+def forest_agreement(card_models: Path, cpu_models: Path) -> None:
+    """Whether the card's forests equal the CPU's: the final fit's, from
+    the two runs' ``model.npz``, then each fold's, refit on both devices
+    from the card's SMOTE'd rows (the trainer's own split, scaler and
+    seeds). The card's histograms are int64 fixed-point sums, the CPU's
+    float32 row-order sums, so a split whose two best candidates lie within
+    float32 rounding may go the other way. For the first such node of a
+    fold: both candidates' gains in float64, from the CPU forest's g and h
+    at that tree. Prints; gates nothing (phase 5's AUC gaps do)."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.data.loader import (
+        load_creditcard_csv,
+        stratified_kfold_indices,
+        stratified_split,
+    )
+    from fraud_detection_tpu_torch.ops.gbt import (
+        GBTConfig,
+        bin_features_host,
+        compute_bin_edges,
+        gbt_fit,
+    )
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit, scaler_transform
+    from fraud_detection_tpu_torch.ops.smote import smote
+
+    with np.load(card_models / "model.npz") as a, np.load(cpu_models / "model.npz") as b:
+        same = all(np.array_equal(a[k], b[k]) for k in ("gbt_split_feature", "gbt_split_bin"))
+        leaf_gap = float(np.abs(a["gbt_leaf_value"] - b["gbt_leaf_value"]).max())
+    print(f"phase5: final forest card vs cpu: splits equal {same}, max |leaf value "
+          f"gap| {leaf_gap:.3e}")
+    cfg = GBTConfig()
+    seed = 42  # train()'s default
+    x, y, _ = load_creditcard_csv(str(ROOT / "data" / "creditcard.csv"))
+    tr_idx, _ = stratified_split(y, 0.2, seed)
+    x_train, y_train = x[tr_idx], y[tr_idx]
+    xs = scaler_transform(scaler_fit(torch.as_tensor(x_train, device="cuda")),
+                          torch.as_tensor(x_train, device="cuda"))
+    for fold, (tr, _) in enumerate(stratified_kfold_indices(y_train, 5, seed)):
+        x_tr, y_tr = smote(xs[torch.as_tensor(tr, device="cuda")], y_train[tr], seed + fold)
+        card = gbt_fit(x_tr, y_tr, cfg)
+        cpu = gbt_fit(x_tr.cpu(), y_tr, cfg)
+        sf_k, sb_k = card.split_feature.cpu().numpy(), card.split_bin.cpu().numpy()
+        sf_c, sb_c = cpu.split_feature.numpy(), cpu.split_bin.numpy()
+        diff = np.argwhere((sf_k != sf_c) | (sb_k != sb_c))
+        if diff.size == 0:
+            print(f"phase5: fold {fold} forest card vs cpu: every split equal")
+            continue
+        t, i = (int(v) for v in diff[0])
+        x_np = x_tr.cpu().numpy()
+        binned = torch.from_numpy(bin_features_host(
+            x_np, compute_bin_edges(x_np, cfg.n_bins), cfg.n_bins)).long()
+        yv = torch.as_tensor(np.asarray(y_tr), dtype=torch.float32)
+        n_internal, depth = sf_c.shape[1], cfg.max_depth
+        logits = cpu.base_logit.expand(len(yv)).clone()
+        rows = torch.arange(len(yv))
+        for tree in range(t):  # the CPU's boosting up to tree t, in its f32 order
+            node = torch.zeros(len(yv), dtype=torch.long)
+            for _ in range(depth):
+                go = binned[rows, cpu.split_feature[tree].long()[node]] > cpu.split_bin[tree][node]
+                node = 2 * node + 1 + go.long()
+            logits = logits + cpu.leaf_value[tree][node - n_internal]
+        p = torch.sigmoid(logits)
+        g = (p - yv).double()
+        h = torch.clamp_min(p * (1.0 - p), 1e-16).double()
+        node = torch.zeros(len(yv), dtype=torch.long)
+        for _ in range((i + 1).bit_length() - 1):  # rows down to node i's level
+            go = binned[rows, cpu.split_feature[t].long()[node]] > cpu.split_bin[t][node]
+            node = 2 * node + 1 + go.long()
+        m = node == i
+        gl = torch.stack([torch.bincount(binned[m, f], g[m], cfg.n_bins)
+                          for f in range(binned.shape[1])]).cumsum(1)
+        hl = torch.stack([torch.bincount(binned[m, f], h[m], cfg.n_bins)
+                          for f in range(binned.shape[1])]).cumsum(1)
+        gt, ht = gl[:, -1:], hl[:, -1:]
+        lam = cfg.reg_lambda
+        gain = 0.5 * (gl**2 / (hl + lam) + (gt - gl)**2 / (ht - hl + lam)
+                      - gt**2 / (ht + lam)) - cfg.gamma
+        valid = (hl >= cfg.min_child_weight) & (ht - hl >= cfg.min_child_weight)
+        valid[:, -1] = False
+        gain = torch.where(valid, gain, -torch.inf)
+
+        def cand(f, b):
+            return f"({f}, {b}) gain " + (f"{float(gain[f, b]):.9e}" if b < cfg.n_bins - 1
+                                          else "none (no split)")
+
+        g_k, g_c = float(gain[sf_k[t, i], sb_k[t, i]]), float(gain[sf_c[t, i], sb_c[t, i]])
+        rel = abs(g_k - g_c) / max(abs(g_k), abs(g_c), 1e-300)
+        best = divmod(int(torch.argmax(gain)), cfg.n_bins)
+        print(f"phase5: fold {fold} forest card vs cpu: first split difference at tree {t} "
+              f"node {i} ({int(m.sum())} rows); float64 from the CPU's g, h: card "
+              f"{cand(sf_k[t, i], sb_k[t, i])}, cpu {cand(sf_c[t, i], sb_c[t, i])}, relative "
+              f"gap {rel:.3e} (float32 eps 5.96e-08); float64 best {best}; "
+              f"{len(diff)} of {sf_c.size} splits differ")
 
 
 def profile_gbt_fit() -> None:
@@ -1239,13 +1376,15 @@ def profile_gbt_fit() -> None:
     wall = time.perf_counter() - t
     acts = profiled_kernels(lambda: gbt_fit(x, y, GBTConfig()))
     busy_us = sum(us for _, us in acts)
+    hist_us = [us for name, us in acts if "gbt_hist" in name]
     by_name: dict[str, list[float]] = {}
     for name, us in acts:
         by_name.setdefault(name[:48], []).append(us)
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
     print(f"phase5: one recipe fit at 31684 x 30 on the card: {wall:.3f} s wall; under "
           f"the profiler {len(acts)} device activities, {busy_us / 1e3:.3f} ms busy "
-          f"({100 * busy_us / 1e6 / wall:.1f}% of the unprofiled wall); top by name: "
+          f"({100 * busy_us / 1e6 / wall:.1f}% of the unprofiled wall); gbt_hist's "
+          f"kernels x{len(hist_us)} {sum(hist_us) / 1e3:.3f} ms; top by name: "
           + "; ".join(f"{n} x{len(v)} {sum(v) / 1e3:.3f} ms" for n, v in top))
 
 
@@ -1478,7 +1617,10 @@ def main() -> int:
         row("gbt_hist", gbt_trained["gbt_hist"], hist, hist["timing"][16],
             hist["timing"][16]["library_ms"], n=31684, nodes=16,
             at_level_0={key: hist["timing"][1][key] for key in
-                        ("ms", "plain_ms", "bound_ms", "library_ms")}),
+                        ("ms", "plain_ms", "bound_ms", "library_ms")},
+            at_leaf_sums={key: hist["timing"]["leaf"][key] for key in
+                          ("ms", "plain_ms", "bound_ms", "library_ms")},
+            mean_per_launch_ms=hist["mean"]["ms"]),
         # no single PyTorch call computes TreeSHAP: the library column is
         # null, the TPU kernel's dense three-product form (torch.matmul)
         # stands beside it as orientation

@@ -16,8 +16,9 @@ The JAX package's ``ops/gbt.py`` — the reference's ``XGBClassifier`` recipe
   children ``2i+1``, ``2i+2``); a node with no positive gain passes all its
   rows left. Gains from cumulative sums of the per-(feature, node, bin)
   gradient/hessian histograms, which the hand-written ``gbt_hist`` CUDA
-  kernel computes on the card (:mod:`.kernels`; its plain version, the
-  JAX package's exact-f32 ``_hist_segment``, on the CPU). ``argmax`` ties
+  kernel computes on the card in int64 fixed point, deterministic whatever
+  the order of its adds (:mod:`.kernels`; its plain version, the JAX
+  package's exact-f32 ``_hist_segment``, on the CPU). ``argmax`` ties
   go to the first index, as in ``jnp.argmax``.
 - **Leaf sums** go through the same histogram kernel over the one column
   of leaf ids (one node, ``n_leaves`` bins): deterministic on the card,

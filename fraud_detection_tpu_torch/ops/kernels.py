@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -63,7 +64,7 @@ _SIGNATURES = {
         "knn_topk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "gbt_hist": {
-        "gbt_hist_scratch_floats": (
+        "gbt_hist_scratch_bytes": (
             [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
             ctypes.c_longlong,
         ),
@@ -359,10 +360,12 @@ def knn_topk(xc: torch.Tensor, sq: torch.Tensor, k: int) -> torch.Tensor:
 # Bound on the H100: bytes, n·d (uint8 bins) + 12·n (node, g, h) read once
 # and 8·d·n_nodes·n_bins written once: ~2.3 MB, ~0.7 µs at 3.35 TB/s at the
 # GBT recipe's last level (n = 31,684, d = 30, 16 nodes, 256 bins), below
-# one launch. The design adds each (row, feature) to one cell in f32 with
-# no float atomics: per-warp shared-memory histograms whose cells each lane
-# owns by bin, summed in warp then chunk order, so two launches on the same
-# inputs give the same bits. See csrc/gbt_hist.cu.
+# one launch. The design is deterministic by integer arithmetic: g and h
+# become int64 multiples of a power-of-two quantum per channel (set on the
+# device from max|g|, max|h| and n, never read back), rounded away from
+# zero, and every thread adds its own (row, feature) with integer atomics,
+# so the bits do not depend on the order of the adds. See csrc/gbt_hist.cu;
+# :func:`gbt_hist_fixed_point_reference` is its arithmetic in PyTorch.
 
 #: the kernel's bounds (csrc/gbt_hist.cu: kMaxBins, kMaxNodes)
 GBT_HIST_MAX_BINS = 256
@@ -378,12 +381,15 @@ def gbt_hist_reference(
     n_bins: int,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, after ``_hist_segment`` of the
-    JAX package (its exact-f32 reference): one ``index_add_`` of every
-    (row, feature)'s ``(g, h)`` into the cell ``(feature, local, bin)``.
-    Rows whose node lies outside ``[0, n_nodes)`` and bins ``>= n_bins``
-    are inert, as in the kernel. Returns (d, n_nodes, n_bins, 2) float32.
-    On the CPU the rows of each cell add in ascending order, the order of
-    the JAX package's ``segment_sum`` there."""
+    JAX package (its exact-f32 reference): every (row, feature)'s ``(g,
+    h)`` added into the cell ``(feature, local, bin)``. Rows whose node
+    lies outside ``[0, n_nodes)`` and bins ``>= n_bins`` are inert, as in
+    the kernel. Returns (d, n_nodes, n_bins, 2) float32. On the CPU one
+    ``index_add_``: the rows of each cell add in ascending order, the order
+    of the JAX package's ``segment_sum`` there. On the card an accumulating
+    ``index_put_``, which sorts the cell ids and adds each cell's rows in
+    turn, so that its bits do not change from run to run as a float-atomic
+    ``index_add_``'s do (on the CPU it is the one that is not serial)."""
     n, d = bins.shape
     b = bins.long()
     loc = local.long()
@@ -396,8 +402,67 @@ def gbt_hist_reference(
     else:
         seg, src = seg[keep], src[keep]
     out = torch.zeros((d * n_nodes * n_bins, 2), dtype=torch.float32, device=b.device)
-    out.index_add_(0, seg, src)
+    if out.device.type == "cpu":
+        out.index_add_(0, seg, src)
+    else:
+        out.index_put_((seg,), src, accumulate=True)
     return out.reshape(d, n_nodes, n_bins, 2)
+
+
+def gbt_hist_quanta(n: int, max_abs: tuple[float, float]) -> tuple[float, float]:
+    """The kernel's quantum per channel for ``n`` rows whose live values
+    are at most ``max_abs`` (g, h) in magnitude: ``q = 2^(e − 62)`` with
+    ``frexp(n · max) = (m, e)``, so that ``n · max / q < 2^62`` and no
+    int64 cell overflows; NaN for a non-finite max."""
+    out = []
+    for m in max_abs:
+        if not math.isfinite(m):
+            out.append(math.nan)
+            continue
+        _, e = math.frexp(float(n) * float(m))
+        out.append(math.ldexp(1.0, e - 62))
+    return out[0], out[1]
+
+
+def gbt_hist_fixed_point_reference(
+    bins: torch.Tensor,
+    local: torch.Tensor,
+    g: torch.Tensor,
+    h: torch.Tensor,
+    n_nodes: int,
+    n_bins: int,
+) -> tuple[torch.Tensor, tuple[float, float]]:
+    """The kernel's arithmetic in plain PyTorch, for the tests and the
+    card's bitwise check (the CPU path keeps :func:`gbt_hist_reference`):
+    the quanta of :func:`gbt_hist_quanta` from max|g| and max|h| over the
+    rows whose node lies in ``[0, n_nodes)``, each row's g and h as int64
+    multiples of them rounded away from zero, int64 sums per cell (in any
+    order: integers), and ``float32(float64(cell) · q)``. A non-finite
+    channel comes out NaN in every cell. Returns the (d, n_nodes, n_bins,
+    2) histogram and the quanta (g, h)."""
+    n, d = bins.shape
+    b = bins.long()
+    loc = local.long()
+    live = (loc >= 0) & (loc < n_nodes)
+    quanta = gbt_hist_quanta(n, tuple(
+        float(v.abs().max()) if bool(live.any()) else 0.0 for v in (g[live], h[live])
+    ))
+    fixed = []
+    for v, q in zip((g, h), quanta):
+        if math.isnan(q):
+            fixed.append(torch.zeros(n, dtype=torch.int64, device=b.device))
+            continue
+        v = torch.where(live, v.double(), 0.0)  # rows outside the level add nothing
+        k = torch.ceil(v.abs() * (1.0 / q)).to(torch.int64)
+        fixed.append(torch.where(v < 0, -k, k))
+    seg = (loc[:, None] * n_bins + b
+           + torch.arange(d, device=b.device)[None, :] * (n_nodes * n_bins))
+    keep = live[:, None] & (b < n_bins)
+    src = torch.stack(fixed, dim=1)[:, None, :].expand(n, d, 2)[keep]
+    acc = torch.zeros((d * n_nodes * n_bins, 2), dtype=torch.int64, device=b.device)
+    acc.index_add_(0, seg[keep], src)
+    q = torch.tensor(quanta, dtype=torch.float64, device=b.device)
+    return (acc.double() * q).float().reshape(d, n_nodes, n_bins, 2), quanta
 
 
 def gbt_hist(
@@ -414,6 +479,36 @@ def gbt_hist(
     hand-written kernel (uint8 bins, n_bins ≤ ``GBT_HIST_MAX_BINS``,
     n_nodes ≤ ``GBT_HIST_MAX_NODES``, contiguous); CPU tensors take
     :func:`gbt_hist_reference`."""
+    return _gbt_hist(bins, local, g, h, n_nodes, n_bins)[0]
+
+
+def gbt_hist_and_quanta(
+    bins: torch.Tensor,
+    local: torch.Tensor,
+    g: torch.Tensor,
+    h: torch.Tensor,
+    n_nodes: int,
+    n_bins: int,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`gbt_hist`, and the two quanta (g, h) the kernel chose as a
+    float64 (2,) tensor on the card (never read back here); ``None`` for
+    CPU tensors, whose plain version has no quanta."""
+    out, scratch = _gbt_hist(bins, local, g, h, n_nodes, n_bins)
+    if scratch is None:
+        return out, None
+    cells = out.numel()
+    return out, scratch[cells:cells + 2].view(torch.float64)
+
+
+def _gbt_hist(
+    bins: torch.Tensor,
+    local: torch.Tensor,
+    g: torch.Tensor,
+    h: torch.Tensor,
+    n_nodes: int,
+    n_bins: int,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`gbt_hist` and the kernel's scratch (``None`` on the CPU)."""
     global GBT_HIST_LAUNCHES
     if bins.dim() != 2 or local.dim() != 1 or g.dim() != 1 or h.dim() != 1:
         raise ValueError(
@@ -436,7 +531,7 @@ def gbt_hist(
         if t.device != bins.device:
             raise ValueError(f"{what} on {t.device}, bins on {bins.device}")
     if bins.device.type == "cpu":
-        return gbt_hist_reference(bins, local, g, h, n_nodes, n_bins)
+        return gbt_hist_reference(bins, local, g, h, n_nodes, n_bins), None
     if bins.device.type != "cuda":
         raise ValueError(f"gbt_hist runs on cuda or cpu, not {bins.device}")
     if bins.dtype != torch.uint8:
@@ -450,15 +545,16 @@ def gbt_hist(
     if not all(t.is_contiguous() for t in (bins, local, g, h)):
         raise ValueError("gbt_hist wants contiguous bins, local, g and h")
     lib = _lib("gbt_hist")
-    scratch_n = lib.gbt_hist_scratch_floats(n, d, n_nodes, n_bins)
-    if scratch_n < 0:
+    scratch_bytes = lib.gbt_hist_scratch_bytes(n, d, n_nodes, n_bins)
+    if scratch_bytes < 0:
         raise ValueError(f"gbt_hist's kernel refuses shape ({n}, {d}, {n_nodes}, {n_bins})")
-    scratch = (torch.empty(scratch_n, dtype=torch.float32, device=bins.device)
-               if scratch_n else None)
+    # int64 accumulator (d, n_nodes, n_bins, 2), the two float64 quanta, the
+    # max pass's partials: the kernel zeroes what it reads
+    scratch = torch.empty(scratch_bytes // 8, dtype=torch.int64, device=bins.device)
     out = torch.empty((d, n_nodes, n_bins, 2), dtype=torch.float32, device=bins.device)
     rc = lib.gbt_hist_launch(
         bins.data_ptr(), local.data_ptr(), g.data_ptr(), h.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(),
         n, d, n_nodes, n_bins, bins.device.index,
         torch.cuda.current_stream(bins.device).cuda_stream,
     )
@@ -468,7 +564,7 @@ def gbt_hist(
         )
     with _lock:
         GBT_HIST_LAUNCHES += 1
-    return out
+    return out, scratch
 
 
 # ---------------------------------------------------------------------------

@@ -213,6 +213,52 @@ def test_gbt_hist_kernel_is_deterministic_and_matches_float64(n, d, n_nodes, n_b
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 100.0])
+@pytest.mark.parametrize("n, d, n_nodes, n_bins", [
+    (31684, 30, 1, 256), (31684, 30, 16, 256), (1031, 30, 4, 16), (5, 3, 2, 256),
+    (31684, 1, 1, 32),
+])
+def test_gbt_hist_kernel_equals_its_fixed_point_model_bitwise(n, d, n_nodes, n_bins, scale):
+    """Integer sums make the kernel exact to its model: the same quanta and
+    the same bits, at unit weights and at g, h scaled by 100 (the order of
+    ``scale_pos_weight`` on the committed CSV)."""
+    dev = _require_card()
+    rng = np.random.default_rng(n + n_nodes + int(scale))
+    bins = rng.integers(0, n_bins, (n, d)).astype(np.uint8)
+    local = rng.integers(-1, n_nodes, n).astype(np.int32)
+    g = (rng.standard_normal(n) * scale).astype(np.float32)
+    h = (rng.random(n) * 0.25 * scale).astype(np.float32)
+    g[::7] = 0.0
+    h[::7] = 0.0
+    args = [torch.from_numpy(a).to(dev) for a in (bins, local, g, h)]
+    got, quanta = kernels.gbt_hist_and_quanta(*args, n_nodes, n_bins)
+    want, want_q = kernels.gbt_hist_fixed_point_reference(*args, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert tuple(quanta.cpu().tolist()) == want_q
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gbt_hist_floored_hessian_leaf_is_positive():
+    """The leaf-sum shape with one leaf whose rows all carry the fit's
+    floor h = 1e-16 beside leaves at h ≈ 0.25: its H comes out > 0 (one
+    quantum a row, rounded away from zero), bitwise the model's."""
+    dev = _require_card()
+    rng = np.random.default_rng(16)
+    n = 31684
+    leaf = rng.integers(0, 32, n).astype(np.uint8)[:, None]
+    h = (0.2 + 0.05 * rng.random(n)).astype(np.float32)
+    h[leaf[:, 0] == 0] = np.float32(1e-16)
+    g = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (leaf, np.zeros(n, np.int32), g, h)]
+    got = kernels.gbt_hist(*args, 1, 32)
+    want, _ = kernels.gbt_hist_fixed_point_reference(*args, 1, 32)
+    torch.cuda.synchronize()
+    assert float(got[0, 0, 0, 1]) > 0.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_gbt_fit_on_the_card_matches_the_cpu_fit():
     """The same forest on both devices (deterministic kernel histograms;
     no near-tie on this fixture), one launch per level and one per tree's
