@@ -47,14 +47,15 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    library column; the port never calls it) and the byte bound, and the
    launch-weighted mean per call over a tree.
 2d. **tree_shap against its plain version** — seeded synthetic forests
-   (100 trees of depth 5 over d = 30 at n ∈ {1, 9, 1024}; depths 2 and 3;
-   every node on feature 0): within rtol 1e-4 / atol 2e-5, equal top-3
-   indices, additivity Σφ + E[f] = f(x); ``bin_features`` on the card
-   equals the host's numpy binning on a NaN/±inf fixture. Times the kernel
-   at n = 1024, the plain version, the bound of the compact form (the
+   (100 trees of depth 5 over d = 30 at n ∈ {1, 8, 9, 64, 1024}; depths 2
+   and 3; every node on feature 0): within rtol 1e-4 / atol 2e-5, equal
+   top-3 indices, additivity Σφ + E[f] = f(x); ``bin_features`` on the
+   card equals the host's numpy binning on a NaN/±inf fixture. Times the
+   kernel at n = 8 (a lone request's bucket), 64 and 1024 (the flush cap),
+   the plain version and the bound of the compact form at each (the
    tables' bytes this run's rows touch, or its operations), and, as
    orientation beside a null library column, the TPU kernel's dense
-   three-product form as ``torch.matmul`` (TF32 off).
+   three-product form as ``torch.matmul`` (TF32 off) at n = 1024.
 3. **the served path** — copies ``models/``, builds the drift baseline
    from the first 20,000 rows of ``data/creditcard.csv`` with the port's
    ``build_baseline_profile``, serves the port's app over HTTP on
@@ -91,8 +92,11 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ``/predict``): scores within 1e-5 of a float64 numpy walk of the forest
    in ``model.npz``; reason codes equal the port's plain TreeSHAP on the
    CPU except across a k-th/(k+1)-th tie within 2e-5 (counted); every
-   flush fused; ``tree_shap`` launched at least once per flush; one 1024-row
-   flush profiled and timed.
+   flush fused; ``tree_shap`` launched at least once per flush; five
+   1024-row flushes profiled (busy as the union of device intervals, so a
+   programmatic dependent launch that overlaps its primary counts once;
+   ``tree_shap`` from its group pass's start to its group sum's end) and
+   30 timed on the host's clock.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -108,6 +112,7 @@ import http.client
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -136,6 +141,8 @@ KNN_LAUNCHES_PER_RUN = 6  # 5 folds + the final fit
 HIST_REL_TOL = 1e-6  # |cell − float64 sum| ≤ this · Σ_rows |value|
 SHAP_RTOL, SHAP_ATOL = 1e-4, 2e-5  # tree_shap against its plain version
 SHAP_TIE = 2e-5  # a reason-code row may differ only across a tie this close
+SHAP_CHECKED_N = (1, 8, 9, 64, 1024)  # tree_shap's recipe rows against plain
+SHAP_TIMED_N = (8, 64, 1024)  # a lone request's bucket, a small flush, the cap
 # card vs CPU GBT training run: the card's histograms sum in another order
 # than the CPU's, so a split whose two best gains lie within float32
 # rounding of each other may go the other way and change the trees after it
@@ -232,8 +239,8 @@ def graph_ms(fn, iters: int = TIMED_LAUNCHES, replays: int = 5) -> float:
     return sorted(times)[replays // 2]
 
 
-def profiled_kernels(fn) -> list[tuple[str, float]]:
-    """(name, device µs) of every device activity ``fn`` ran, from
+def profiled_intervals(fn) -> list[tuple[str, float, float]]:
+    """(name, start µs, end µs) of every device activity ``fn`` ran, from
     ``torch.profiler``; empty when the profiler saw no device work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -248,8 +255,25 @@ def profiled_kernels(fn) -> list[tuple[str, float]]:
             us = getattr(evt, "device_time", None)
             if us is None:
                 us = getattr(evt, "cuda_time", 0.0)
-            out.append((evt.name, float(us)))
+            start = float(evt.time_range.start)
+            out.append((evt.name, start, start + float(us)))
     return out
+
+
+def profiled_kernels(fn) -> list[tuple[str, float]]:
+    """(name, device µs) of every device activity ``fn`` ran."""
+    return [(name, end - start) for name, start, end in profiled_intervals(fn)]
+
+
+def union_us(intervals) -> float:
+    """The time covered by (start, end) intervals: device activities that
+    overlap (a programmatic dependent launch) count once."""
+    total, reach = 0.0, -math.inf
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -650,26 +674,38 @@ def synthetic_forest(rng, trees: int, depth: int, d: int, n_bins: int, dev,
     ).to(dev)
 
 
+def path_tables(tables):
+    """Each leaf's ancestors' split feature and bin, (T, L, D) int64."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops.tree_shap import _tree_static
+
+    D = tables.leaf_sums.shape[2]
+    anc = torch.as_tensor(_tree_static(D)[0], device=tables.split_feature.device).long()
+    return tables.split_feature.long()[:, anc], tables.split_bin.long()[:, anc]
+
+
 def shap_work(tables, binned) -> tuple[int, int]:
     """(operations, bytes) this run's data needs in compact form: per (row,
     tree) L·D compares and L·D adds (each leaf's level values summed to
     its nodes, the nodes to their features); the tables read once, of
-    ``leaf_sums`` only the (tree, leaf, pattern) rows this run's rows hit,
-    the bins read and φ written once."""
+    ``leaf_sums`` only the (tree, leaf, pattern) entries this run's rows
+    hit, the bins read and φ written once."""
     import torch
 
     n, d = binned.shape
-    T, L, D = tables.path_feat.shape
+    T, L, D, _ = tables.leaf_sums.shape
     dev = binned.device
+    path_feat, path_thr = path_tables(tables)
     want = (torch.arange(L, device=dev)[:, None] >> (D - 1 - torch.arange(D, device=dev))[None, :]) & 1
     touched = 0
     for t in range(T):
-        right = (binned.long()[:, tables.path_feat[t].long()] > tables.path_thr[t]).long()
+        right = (binned.long()[:, path_feat[t]] > path_thr[t]).long()
         viol = ((right != want).long() << torch.arange(D, device=dev)).sum(-1)  # (n, L)
         touched += int(torch.unique(viol * L + torch.arange(L, device=dev)).numel())
     n_ops = 2 * n * T * L * D
     n_bytes = 4 * (touched * D + sum(int(getattr(tables, k).numel()) for k in (
-        "path_feat", "path_thr", "node_order", "node_start", "node_count"))) + 4 * n * d * 2
+        "node_key", "group_order", "group_start", "group_count"))) + 4 * n * d * 2
     return n_ops, n_bytes
 
 
@@ -681,15 +717,16 @@ def dense_shap_form(tables, mask_bits, coef, d: int):
     Used only to time torch.matmul beside the kernel."""
     import torch
 
-    T, L, D = tables.path_feat.shape
+    T, L, D, _ = tables.leaf_sums.shape
     M = L
     dev = coef.device
+    path_feat, path_thr = path_tables(tables)
     sgn = (2.0 * ((torch.arange(L, device=dev)[:, None]
                    >> (D - 1 - torch.arange(D, device=dev))[None, :]) & 1) - 1.0).reshape(-1)
-    onehot = (tables.path_feat.reshape(T, -1, 1).long()
+    onehot = (path_feat.reshape(T, -1, 1)
               == torch.arange(d, device=dev)[None, None, :]).float()  # (T, LD, d)
     gmat = (onehot * sgn[None, :, None]).transpose(1, 2).contiguous()  # (T, d, LD)
-    bias = sgn[None, :] * (tables.path_thr.reshape(T, -1).float() + 0.5)  # (T, LD)
+    bias = sgn[None, :] * (path_thr.reshape(T, -1).float() + 0.5)  # (T, LD)
     bits = ((mask_bits[:, :, :, None] >> torch.arange(D, device=dev)) & 1).float()
     bfull = torch.zeros((T, L * D, M * L), device=dev)
     for l in range(L):
@@ -710,12 +747,12 @@ def check_tree_shap(seed: int) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     d = 30
-    cases = [("recipe (100 trees, depth 5)", 100, 5, False, (1, 9, 1024)),
+    cases = [("recipe (100 trees, depth 5)", 100, 5, False, SHAP_CHECKED_N),
              ("depth 2, 16 trees", 16, 2, False, (33,)),
              ("depth 3, 16 trees", 16, 3, False, (33,)),
              ("duplicate feature (every node on feature 0), depth 3", 4, 3, True, (9,))]
     worst = 0.0
-    timed = None
+    timed = {}
     for label, trees, depth, one, sizes in cases:
         model = synthetic_forest(rng, trees, depth, d, 256, dev, one_feature=one)
         e = build_tree_explainer(model, rng.standard_normal((128, d)).astype(np.float32))
@@ -741,8 +778,8 @@ def check_tree_shap(seed: int) -> dict:
             if one and bool((got[:, 1:] != 0).any()):
                 raise AssertionError("tree_shap: attribution off feature 0")
             worst = max(worst, err)
-            if n == 1024:
-                timed = (model, e, binned)
+            if trees == 100 and n in SHAP_TIMED_N:
+                timed[n] = (model, e, binned)
 
     # NaN/±inf binning on the card against the host's numpy binning
     edges = np.sort(rng.standard_normal((d, 255)), axis=1).astype(np.float32)
@@ -756,14 +793,29 @@ def check_tree_shap(seed: int) -> dict:
     print("phase2d: bin_features on the card equals the host's numpy binning on a "
           "NaN/+inf/-inf fixture (NaN -> bin 255)")
 
-    model, e, binned = timed
-    n = binned.shape[0]
-    kernel_fn = lambda: kernels.tree_shap(binned, e.tables)  # noqa: E731
-    plain_fn = lambda: kernels.tree_shap_reference(  # noqa: E731
-        binned, model.split_feature, model.split_bin, model.leaf_value, e.bg_table)
-    ms = graph_ms(kernel_fn, iters=50)
-    eager = eager_ms(kernel_fn, iters=50)
-    plain = eager_ms(plain_fn, iters=3, warm=1)
+    rows = {}
+    for n in SHAP_TIMED_N:
+        model, e, binned = timed[n]
+        kernel_fn = lambda: kernels.tree_shap(binned, e.tables)  # noqa: E731
+        plain_fn = lambda: kernels.tree_shap_reference(  # noqa: E731
+            binned, model.split_feature, model.split_bin, model.leaf_value, e.bg_table)
+        ms = graph_ms(kernel_fn, iters=50)
+        eager = eager_ms(kernel_fn, iters=50)
+        plain = eager_ms(plain_fn, iters=3, warm=1)
+        n_ops, n_bytes = shap_work(e.tables, binned)
+        t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        rows[n] = {"ms": ms, "plain_ms": plain, "eager_ms": eager,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"phase2d: tree_shap timing n={n} (100 trees, depth 5, d=30): kernel "
+              f"{ms:.6f} ms (CUDA events over launches replayed from a CUDA graph; "
+              f"eager through the wrapper {eager:.6f} ms), plain {plain:.6f} ms (eager), "
+              f"bound {rows[n]['bound_ms']:.6f} ms ({rows[n]['bound_by']}: {n_ops} ops in "
+              f"compact form, {n_bytes} B of tables this run's rows touch)")
+
+    # orientation only: the TPU kernel's dense three-product form at 1024
+    model, e, binned = timed[1024]
     gmat, bias, bfull, cmat = dense_shap_form(
         e.tables, *_shapley_coefficients(model, e.bg_table), binned.shape[1])
     bf = binned.float()
@@ -774,23 +826,14 @@ def check_tree_shap(seed: int) -> dict:
         return torch.matmul(ind, cmat).sum(dim=0)
 
     orient = eager_ms(dense_fn, iters=5, warm=2)
-    dense_err = float((dense_fn() - kernel_fn()).abs().max())
+    dense_err = float((dense_fn() - kernels.tree_shap(binned, e.tables)).abs().max())
     del gmat, bfull, cmat
     torch.cuda.empty_cache()
-    n_ops, n_bytes = shap_work(e.tables, binned)
-    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    row = {"ms": ms, "plain_ms": plain, "orientation_ms": orient, "eager_ms": eager,
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    print(f"phase2d: tree_shap timing n={n} (100 trees, depth 5, d=30): kernel "
-          f"{ms:.6f} ms (CUDA events over launches replayed from a CUDA graph; "
-          f"eager through the wrapper {eager:.6f} ms), plain {plain:.6f} ms (eager), "
-          f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}: {n_ops} ops in compact "
-          f"form, {n_bytes} B of tables this run's rows touch); orientation only, the "
-          f"dense three-product form as torch.matmul (TF32 off) {orient:.6f} ms "
-          f"(max |dense - kernel| {dense_err:.3e})")
-    return {"max_abs_err": worst, "timing": row}
+    rows[1024]["orientation_ms"] = orient
+    print(f"phase2d: tree_shap orientation only, the dense three-product form as "
+          f"torch.matmul (TF32 off) at n=1024: {orient:.6f} ms (max |dense - kernel| "
+          f"{dense_err:.3e})")
+    return {"max_abs_err": worst, "timing": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1267,8 +1310,10 @@ def forest_agreement(card_models: Path, cpu_models: Path) -> None:
     seeds). The card's histograms are int64 fixed-point sums, the CPU's
     float32 row-order sums, so a split whose two best candidates lie within
     float32 rounding may go the other way. For the first such node of a
-    fold: both candidates' gains in float64, from the CPU forest's g and h
-    at that tree. Prints; gates nothing (phase 5's AUC gaps do)."""
+    fold: both candidates' gains and the float64 argmax candidate's own, in
+    float64 from the CPU forest's g and h at that tree, so each difference
+    shows as a tie or a near-tie. Prints; gates nothing (phase 5's AUC gaps
+    do)."""
     import numpy as np
     import torch
 
@@ -1352,7 +1397,7 @@ def forest_agreement(card_models: Path, cpu_models: Path) -> None:
         print(f"phase5: fold {fold} forest card vs cpu: first split difference at tree {t} "
               f"node {i} ({int(m.sum())} rows); float64 from the CPU's g, h: card "
               f"{cand(sf_k[t, i], sb_k[t, i])}, cpu {cand(sf_c[t, i], sb_c[t, i])}, relative "
-              f"gap {rel:.3e} (float32 eps 5.96e-08); float64 best {best}; "
+              f"gap {rel:.3e} (float32 eps 5.96e-08); float64 best {cand(*best)}; "
               f"{len(diff)} of {sf_c.size} splits differ")
 
 
@@ -1523,17 +1568,41 @@ def gbt_served_path(work: Path, art_dir: str) -> dict:
         target = batcher._fused_target(scorer)
         rows1024 = np.concatenate([x] * 4)[:1024]
         batch = [(rows1024[i], None) for i in range(1024)]
-        acts = profiled_kernels(lambda: batcher._flush_device(scorer, target, batch))
-        copies = sum(1 for name, _ in acts if "Memcpy" in name or "Memset" in name)
-        busy_us = sum(us for _, us in acts)
+        def flush():
+            scorer.staging.release(batcher._flush_device(scorer, target, batch)[-1])
+
+        reps = 5
+        acts = profiled_intervals(lambda: [flush() for _ in range(reps)])
+        copies = sum(1 for name, _, _ in acts if "Memcpy" in name or "Memset" in name)
+        busy_us = union_us([(a, b) for _, a, b in acts]) / reps
+        summed_us = sum(b - a for _, a, b in acts) / reps
         by_name: dict[str, list[float]] = {}
-        for name, us in acts:
-            by_name.setdefault(name[:48], []).append(us)
+        for name, a, b in acts:
+            by_name.setdefault(name[:48], []).append((b - a) / reps)
         top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
-        print(f"phase6: one 1024-row GBT fused flush with explain: {len(acts) - copies} "
-              f"kernel launches + {copies} copies/memsets on the device, {busy_us:.3f} us "
-              f"of device activity (profiler); top by name: "
+        # tree_shap: the group pass and the group sum, its programmatic
+        # dependent (which starts early and waits): from the first's start to
+        # the second's end, per flush
+        calls: list[list[float]] = []
+        for a, b, name in sorted((a, b, name) for name, a, b in acts if "tree_shap" in name):
+            if "sum_groups" in name and calls:
+                calls[-1][1] = max(calls[-1][1], b)
+            else:
+                calls.append([a, b])
+        spans = sorted(b - a for a, b in calls)
+        shap = {re.search(r"tree_shap_\w+", key).group(): sum(v)
+                for key, v in by_name.items() if "tree_shap" in key}
+        print(f"phase6: 1024-row GBT fused flush with explain, mean of {reps} under the "
+              f"profiler: {(len(acts) - copies) / reps:g} kernel launches + {copies / reps:g} "
+              f"copies/memsets on the device, busy {busy_us:.3f} us (union of device "
+              f"intervals; kernel times summed {summed_us:.3f} us); tree_shap from its group "
+              f"pass's start to its group sum's end p50 {spans[len(spans) // 2]:.3f} us over "
+              f"{len(spans)} (by kernel: "
+              + ", ".join(f"{n} {v:.3f} us" for n, v in shap.items())
+              + "); top by name: "
               + "; ".join(f"{n} x{len(v)} {sum(v):.3f} us" for n, v in top))
+        if len(spans) != reps:
+            raise AssertionError(f"tree_shap ran {len(spans)} times in {reps} flushes")
         times = []
         for _ in range(30):
             t = time.perf_counter()
@@ -1624,8 +1693,11 @@ def main() -> int:
         # no single PyTorch call computes TreeSHAP: the library column is
         # null, the TPU kernel's dense three-product form (torch.matmul)
         # stands beside it as orientation
-        row("tree_shap", gbt_served["tree_shap"], shap, shap["timing"], None,
-            n=1024, trees=100, depth=5, orientation_ms=shap["timing"]["orientation_ms"]),
+        row("tree_shap", gbt_served["tree_shap"], shap, shap["timing"][1024], None,
+            n=1024, trees=100, depth=5,
+            orientation_ms=shap["timing"][1024]["orientation_ms"],
+            **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
+                             ("ms", "plain_ms", "bound_ms")} for n in (8, 64)}),
     ]}
     print(json.dumps(line))
     print(card)  # exactly as nvidia-smi gives it

@@ -80,7 +80,7 @@ _SIGNATURES = {
         "tree_shap_launch": (
             [ctypes.c_void_p] * 8
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p],
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int,
         ),
         "tree_shap_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -572,36 +572,39 @@ def _gbt_hist(
 # ---------------------------------------------------------------------------
 # Bound on the H100: bytes. The subset loop depends on the row only through
 # each leaf's D-bit pattern of failed path conditions, so it is folded into
-# a (T, L, 2^D, D) table when the explainer is built; a (row, tree) then
-# needs L·D compares, L·D table reads and the sums to the 2^D − 1 nodes:
-# ~36 M operations for 1,024 rows × 100 trees at depth 5 (~0.5 µs at the
-# f32 rate) against ~2.5 MB of tables (~0.75 µs at 3.35 TB/s). The TPU
-# kernel's dense three-matmul form would be ~0.4 MFLOP per (row, tree); the
-# port does not carry it over. The design gives each row a block, each
-# eighth of the trees a warp and each leaf a lane (depth ≤ 5), and adds in
-# an order fixed by the forest's shape. See csrc/tree_shap.cu.
+# a (T, L, D, 2^D) table when the explainer is built; a (row, tree) then
+# needs 2^D − 1 compares, L·D table reads and the sums to the nodes: ~33 M
+# operations for 1,024 rows × 100 trees at depth 5 (~0.5 µs at the f32
+# rate) against ~2.1 MB of tables (~0.6 µs at 3.35 TB/s). The TPU kernel's
+# dense three-matmul form would be ~0.4 MFLOP per (row, tree); the port does
+# not carry it over. The design is tree-stationary: a block stages a group
+# of TREE_SHAP_GROUP trees' tables in shared memory (TMA bulk copies) and
+# streams 32-row tiles over them, a warp a tree and a lane a row; groups
+# add in a second small pass, in group order. See csrc/tree_shap.cu.
 
-#: the kernel's bounds (csrc/tree_shap.cu: kMaxDepth, kMaxD)
+#: the kernel's bounds and its trees per block (csrc/tree_shap.cu: kMaxDepth,
+#: kMaxD, kGroup)
 TREE_SHAP_MAX_DEPTH = 5
 TREE_SHAP_MAX_D = 128
+TREE_SHAP_GROUP = 8
 
 
 class TreeShapTables(NamedTuple):
     """A forest and its background table, with the compact per-tree tables
     the kernel reads (built once per explainer by
     ``ops/tree_shap.build_tables``). The plain version reads the first
-    four fields, the kernel the rest."""
+    four fields, the kernel the rest. N = 2^D − 1 internal nodes in heap
+    order, L = 2^D leaves, G = ``TREE_SHAP_GROUP``."""
 
-    split_feature: torch.Tensor  # (T, 2^D − 1) int
-    split_bin: torch.Tensor  # (T, 2^D − 1) int
+    split_feature: torch.Tensor  # (T, N) int
+    split_bin: torch.Tensor  # (T, N) int
     leaf_value: torch.Tensor  # (T, L) float32
     bg_table: torch.Tensor  # (T, L, M) float32
-    path_feat: torch.Tensor  # (T, L, D) int32
-    path_thr: torch.Tensor  # (T, L, D) int32
-    leaf_sums: torch.Tensor  # (T, L, 2^D, D) float32, by failed-level pattern
-    node_order: torch.Tensor  # (T, 2^D − 1) int32, nodes grouped by feature
-    node_start: torch.Tensor  # (T, d) int32
-    node_count: torch.Tensor  # (T, d) int32
+    node_key: torch.Tensor  # (T, 32) int32: split bin << 8 | split feature
+    leaf_sums: torch.Tensor  # (T, L, D, 2^D) float32, by failed-level pattern
+    group_order: torch.Tensor  # (T·N,) int32: each group's nodes by feature
+    group_start: torch.Tensor  # (⌈T/G⌉, d) int32
+    group_count: torch.Tensor  # (⌈T/G⌉, d) int32
 
 
 def tree_shap_reference(
@@ -672,8 +675,8 @@ def tree_shap(binned: torch.Tensor, tables: TreeShapTables) -> torch.Tensor:
     if binned.dim() != 2:
         raise ValueError(f"tree_shap wants binned (n, d), got {tuple(binned.shape)}")
     n, d = binned.shape
-    if tables.node_start.shape[1] != d:
-        raise ValueError(f"tables for {tables.node_start.shape[1]} features, rows have {d}")
+    if tables.group_start.shape[1] != d:
+        raise ValueError(f"tables for {tables.group_start.shape[1]} features, rows have {d}")
     if binned.device.type == "cpu":
         return tree_shap_reference(
             binned, tables.split_feature, tables.split_bin, tables.leaf_value,
@@ -681,25 +684,30 @@ def tree_shap(binned: torch.Tensor, tables: TreeShapTables) -> torch.Tensor:
         )
     if binned.device.type != "cuda":
         raise ValueError(f"tree_shap runs on cuda or cpu, not {binned.device}")
-    n_trees, leaves, depth = tables.path_feat.shape
+    n_trees, _, depth, _ = tables.leaf_sums.shape
     if depth > TREE_SHAP_MAX_DEPTH:
         raise ValueError(f"tree_shap's kernel takes depth <= {TREE_SHAP_MAX_DEPTH}, got {depth}")
     if d > TREE_SHAP_MAX_D:
         raise ValueError(f"tree_shap's kernel takes d <= {TREE_SHAP_MAX_D}, got {d}")
     if binned.dtype != torch.int32:
         raise TypeError(f"tree_shap's kernel reads int32 bins, got {binned.dtype}")
-    kernel_args = (binned, tables.path_feat, tables.path_thr, tables.leaf_sums,
-                   tables.node_order, tables.node_start, tables.node_count)
+    kernel_args = (binned, tables.node_key, tables.leaf_sums, tables.group_order,
+                   tables.group_start, tables.group_count)
     for t in kernel_args:
         if t.device != binned.device or not t.is_contiguous():
             raise ValueError("tree_shap wants contiguous tables on the rows' device")
     if n < 1:
         return torch.zeros((0, d), dtype=torch.float32, device=binned.device)
     lib = _lib("tree_shap")
+    groups = -(-n_trees // TREE_SHAP_GROUP)
     out = torch.empty((n, d), dtype=torch.float32, device=binned.device)
+    # each group's sums (the kernel writes every cell); one group writes φ
+    part = (torch.empty((groups, d, n), dtype=torch.float32, device=binned.device)
+            if groups > 1 else None)
     rc = lib.tree_shap_launch(
-        *(t.data_ptr() for t in kernel_args), out.data_ptr(),
-        n, d, n_trees, depth, binned.device.index,
+        *(t.data_ptr() for t in kernel_args),
+        None if part is None else part.data_ptr(), out.data_ptr(),
+        n, d, n_trees, depth, TREE_SHAP_GROUP, binned.device.index,
         torch.cuda.current_stream(binned.device).cuda_stream,
     )
     if rc != 0:

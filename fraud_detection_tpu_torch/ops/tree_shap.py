@@ -150,25 +150,31 @@ def _shapley_coefficients(model: GBTModel, bg_table: torch.Tensor):
 
 def build_tables(model: GBTModel, bg_table: torch.Tensor) -> kernels.TreeShapTables:
     """The compact per-tree tables the ``tree_shap`` kernel reads, on the
-    model's device:
+    model's device (N = 2^D − 1 internal nodes in heap order, L = 2^D
+    leaves, G = ``kernels.TREE_SHAP_GROUP``):
 
-    - ``path_feat``/``path_thr`` (T, L, D): each leaf's ancestors' split;
-    - ``leaf_sums`` (T, L, V, D), V = 2^D: the subset loop folded over the
+    - ``node_key`` (T, 32): ``split_bin << 8 | split_feature`` of each node,
+      padded to 32 words (one 128-byte bulk copy a tree);
+    - ``leaf_sums`` (T, L, D, V), V = 2^D: the subset loop folded over the
       only thing it reads of the row — the pattern v of leaf l's failed
       levels: ``Σ_m [v & mask_bits[m, l] == 0] · coef[m, k, l]``, added in
-      ascending m (:func:`_shapley_coefficients`);
-    - ``node_order``/``node_start``/``node_count``: the internal nodes
-      grouped by split feature, so each feature sums its nodes' values in a
-      fixed order."""
+      ascending m (:func:`_shapley_coefficients`); v is the fastest axis,
+      so a warp whose lanes (rows) differ only in v reads 32 banks;
+    - ``group_order``/``group_start``/``group_count``: for each group of G
+      consecutive trees, its nodes ``w·N + q`` (tree w of the group, node q)
+      grouped by split feature, ascending (w, q) within one feature, and
+      each feature's run — the fixed order in which the kernel adds them."""
     dev = model.split_feature.device
     depth = model.depth
     d = int(model.bin_edges.shape[0])
-    sf = model.split_feature
+    sf, sb = model.split_feature, model.split_bin
     if sf.numel() and (int(sf.min()) < 0 or int(sf.max()) >= d):
         raise ValueError(f"split_feature outside [0, {d})")
-    anc = torch.as_tensor(_tree_static(depth)[0], device=dev).long()
+    if sb.numel() and (int(sb.min()) < 0 or int(sb.max()) >= 1 << 23):
+        raise ValueError("split_bin outside [0, 2^23)")
     mask_bits, coef = _shapley_coefficients(model, bg_table)
     n_trees, masks, leaves = mask_bits.shape
+    nodes = leaves - 1
     patterns = torch.arange(2**depth, device=dev)
     # holds[t, l, v, m]: with pattern v failing, subset m's fixed levels hold
     holds = (patterns[None, None, :, None] & mask_bits.transpose(1, 2)[:, :, None, :]) == 0
@@ -177,16 +183,27 @@ def build_tables(model: GBTModel, bg_table: torch.Tensor) -> kernels.TreeShapTab
                             dtype=torch.float32, device=dev)
     for m in range(masks):
         leaf_sums += torch.where(holds[:, :, :, m, None], coef_l[:, m, :, None, :], 0.0)
-    counts = (sf.long()[:, :, None] == torch.arange(d, device=dev)).sum(dim=1)  # (T, d)
+    node_key = torch.zeros((n_trees, 32), dtype=torch.int32, device=dev)
+    node_key[:, :nodes] = (sb.to(torch.int32) << 8) | sf.to(torch.int32)
+    # within a group, nodes by (feature, tree, node): a stable sort of the
+    # features over the group's (tree, node) rows, group by group
+    g = kernels.TREE_SHAP_GROUP
+    groups = -(-n_trees // g)
+    order, starts, counts = [], [], []
+    for first in range(0, n_trees, g):
+        feats = sf[first:first + g].long().reshape(-1)
+        order.append(torch.sort(feats, stable=True).indices)
+        cnt = torch.bincount(feats, minlength=d)
+        counts.append(cnt)
+        starts.append(torch.cumsum(cnt, 0) - cnt)
     return kernels.TreeShapTables(
-        split_feature=sf, split_bin=model.split_bin,
+        split_feature=sf, split_bin=sb,
         leaf_value=model.leaf_value, bg_table=bg_table,
-        path_feat=sf.long()[:, anc].to(torch.int32).contiguous(),
-        path_thr=model.split_bin.long()[:, anc].to(torch.int32).contiguous(),
-        leaf_sums=leaf_sums.contiguous(),
-        node_order=torch.sort(sf.long(), dim=1, stable=True).indices.to(torch.int32).contiguous(),
-        node_start=(torch.cumsum(counts, 1) - counts).to(torch.int32).contiguous(),
-        node_count=counts.to(torch.int32).contiguous(),
+        node_key=node_key.contiguous(),
+        leaf_sums=leaf_sums.transpose(2, 3).contiguous(),
+        group_order=torch.cat(order).to(torch.int32).contiguous(),
+        group_start=torch.stack(starts).reshape(groups, d).to(torch.int32).contiguous(),
+        group_count=torch.stack(counts).reshape(groups, d).to(torch.int32).contiguous(),
     )
 
 

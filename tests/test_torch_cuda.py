@@ -284,10 +284,15 @@ def test_gbt_fit_on_the_card_matches_the_cpu_fit():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("depth, trees, n", [(5, 100, 1024), (5, 100, 9), (3, 16, 33), (2, 1, 1)])
+@pytest.mark.parametrize("depth, trees, n", [
+    (5, 100, 1024), (5, 100, 9), (3, 16, 33), (2, 1, 1),
+    (5, 100, 1), (5, 100, 8), (5, 100, 64), (5, 101, 1025), (5, 9, 8), (1, 3, 64),
+])
 def test_tree_shap_kernel_matches_plain_version(depth, trees, n):
     """rtol 1e-4 / atol 2e-5 against the plain body, equal top-3 indices,
-    and additivity Σφ + E[f] = f(x)."""
+    and additivity Σφ + E[f] = f(x) — at the buckets' sizes and past them,
+    with tree counts that are and are not a multiple of the kernel's group
+    of trees."""
     from fraud_detection_tpu_torch.ops import gbt
     from fraud_detection_tpu_torch.ops import tree_shap as ts
     from fraud_detection_tpu_torch.ops.linear_shap import topk_reasons
@@ -314,6 +319,42 @@ def test_tree_shap_kernel_matches_plain_version(depth, trees, n):
     assert torch.equal(topk_reasons(got, 3)[0], topk_reasons(want, 3)[0])
     recon = got.sum(dim=1) + e.expected_value
     torch.testing.assert_close(recon, gbt.gbt_predict_logits(model, rows), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tree_shap_is_bitwise_batch_independent_and_deterministic():
+    """A row's φ is bitwise the same alone, at position 7 of an 8-row batch
+    and at position 1000 of a 1024-row batch (the fused flush pads to its
+    bucket; the standalone explainer does not), and two launches agree
+    bitwise — on a forest whose tree count is not a multiple of the group."""
+    from fraud_detection_tpu_torch.ops import gbt
+    from fraud_detection_tpu_torch.ops import tree_shap as ts
+
+    dev = _require_card()
+    rng = np.random.default_rng(101)
+    x = rng.standard_normal((3000, 30)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] > 0.2).astype(np.int32)
+    trees = 12 * kernels.TREE_SHAP_GROUP + 5
+    model = gbt.gbt_fit(torch.from_numpy(x).to(dev), y,
+                        gbt.GBTConfig(n_trees=trees, max_depth=5, n_bins=256))
+    e = ts.build_tree_explainer(model, x[:128])
+    binned = gbt.bin_features(torch.from_numpy(x[1000:2024]).to(dev), model.bin_edges)
+    full = kernels.tree_shap(binned, e.tables)
+    again = kernels.tree_shap(binned, e.tables)
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    for r in (1000, 3, 511):
+        alone = kernels.tree_shap(binned[r:r + 1].contiguous(), e.tables)
+        batch8 = torch.cat([binned[r + 1:r + 8], binned[r:r + 1]]) if r + 8 <= 1024 else \
+            torch.cat([binned[r - 7:r], binned[r:r + 1]])
+        in8 = kernels.tree_shap(batch8.contiguous(), e.tables)
+        moved = binned.clone()
+        moved[[r, 1000]] = binned[[1000, r]]
+        in1024 = kernels.tree_shap(moved, e.tables)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], full[r])
+        assert torch.equal(in8[7], full[r])
+        assert torch.equal(in1024[1000], full[r])
 
 
 @pytest.mark.cuda

@@ -40,33 +40,56 @@ def _forest(seed: int, depth: int, trees: int, d: int = 5, n: int = 400):
 
 
 def _compact_emulation(model, tables: kernels.TreeShapTables, binned: torch.Tensor) -> np.ndarray:
-    """The kernel's arithmetic from its compact tables, vectorized in numpy:
-    each leaf's pattern of failed levels, the ``leaf_sums`` lookup, the sum
-    over the leaves below each node, and each feature's nodes in
-    ``node_order`` — so the tables the card reads are checked here too.
-    ``leaf_sums`` must equal the subset loop over the Shapley coefficients
-    it folds."""
+    """The kernel's arithmetic from its tables, in numpy float32 and in the
+    kernel's order of adds: per (row, tree) each node's pattern of failed
+    levels from ``node_key``, the ``leaf_sums`` lookup, each node's value
+    summed over its leaves in ascending order; then group by group, each
+    feature's run of ``group_order``; then the groups in order. So the
+    tables the card reads are checked here too: ``leaf_sums`` must equal
+    the subset loop over the Shapley coefficients it folds, and each run
+    must hold its feature's nodes in ascending (tree, node)."""
     b = binned.numpy()
-    pf, pt, ls, no, ns, nc = (np.asarray(getattr(tables, k)) for k in (
-        "path_feat", "path_thr", "leaf_sums", "node_order", "node_start", "node_count"))
+    key, ls, go, gs, gc = (np.asarray(getattr(tables, k)) for k in (
+        "node_key", "leaf_sums", "group_order", "group_start", "group_count"))
     mask_bits, coef = (np.asarray(a) for a in ts._shapley_coefficients(model, tables.bg_table))
-    n_trees, leaves, depth = pf.shape
+    n_trees, leaves, depth, _ = ls.shape
+    nodes = leaves - 1
     n, d = b.shape
-    want_right = (np.arange(leaves)[:, None] >> (depth - 1 - np.arange(depth))[None, :]) & 1
-    phi = np.zeros((n, d), np.float32)
+    g = kernels.TREE_SHAP_GROUP
+    feat, thr = key[:, :nodes] & 0xFF, key[:, :nodes] >> 8
+    assert np.array_equal(feat, model.split_feature.numpy())
+    assert np.array_equal(thr, model.split_bin.numpy())
+    node_val = np.zeros((n_trees, nodes, n), np.float32)
     for t in range(n_trees):
-        right = (b[:, pf[t]] > pt[t]).astype(np.int64)  # (n, L, D)
-        viol = ((right != want_right) << np.arange(depth)).sum(axis=2)  # (n, L)
+        right = (b[:, feat[t]] > thr[t]).astype(np.int64)  # (n, N)
+        pat = np.zeros((n, 2 * leaves - 1), np.int64)
+        for k in range(depth):
+            for q in range(2**k - 1, 2**(k + 1) - 1):
+                pat[:, 2 * q + 1] = pat[:, q] | (right[:, q] << k)
+                pat[:, 2 * q + 2] = pat[:, q] | ((1 - right[:, q]) << k)
+        viol = pat[:, nodes:]  # (n, L)
         ind = (viol[:, None, :] & mask_bits[t][None]) == 0  # (n, M, L)
         s_loop = np.einsum("nml,mkl->nlk", ind.astype(np.float32), coef[t])  # (n, L, D)
-        s = ls[t][np.arange(leaves)[None, :], viol]  # (n, L, D)
+        s = ls[t][np.arange(leaves)[None, :], :, viol]  # (n, L, D)
         np.testing.assert_allclose(s, s_loop, rtol=1e-5, atol=1e-7)
-        node_val = np.zeros((n, leaves - 1), np.float32)
-        for k in range(depth):
-            run = leaves >> k  # leaves below one node at level k
-            node_val[:, 2**k - 1:2**(k + 1) - 1] = s[:, :, k].reshape(n, 2**k, run).sum(axis=2)
+        for leaf in range(leaves):
+            for k in range(depth):
+                node_val[t, 2**k - 1 + (leaf >> (depth - k))] += s[:, leaf, k]
+    assert gs.shape == gc.shape == (-(-n_trees // g), d)
+    phi = None
+    for gi, first in enumerate(range(0, n_trees, g)):
+        nv = node_val[first:first + g].reshape(-1, n)  # row w·N + q
+        run_feat = feat[first:first + g].reshape(-1)
+        assert int(gc[gi].sum()) == nv.shape[0]
+        part = np.zeros((n, d), np.float32)
         for j in range(d):
-            phi[:, j] += node_val[:, no[t, ns[t, j]:ns[t, j] + nc[t, j]]].sum(axis=1)
+            run = go[first * nodes + gs[gi, j]:first * nodes + gs[gi, j] + gc[gi, j]]
+            assert np.all(run_feat[run] == j) and np.all(np.diff(run) > 0)
+            a = np.zeros(n, np.float32)
+            for idx in run:
+                a += nv[idx]
+            part[:, j] = a
+        phi = part if phi is None else phi + part
     return phi
 
 
@@ -74,6 +97,20 @@ def _assert_parity(got, want, k=3):
     np.testing.assert_allclose(got, want, rtol=PHI_RTOL, atol=PHI_ATOL)
     gi, _ = topk_reasons(torch.from_numpy(np.ascontiguousarray(got)), k)
     wi, _ = jax_topk(jnp.asarray(want), k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+def _assert_parity_off_ties(got, want, k=3):
+    """:func:`_assert_parity` for random forests, where a row may hold
+    exact zeros beside cancellations of ~1e-12 (a feature whose nodes
+    cancel for that row): top-k indices are compared on the rows whose k + 1
+    largest values of ``want`` lie more than 2·atol apart from each other
+    (none in a forest over one feature, where the rest are all 0)."""
+    np.testing.assert_allclose(got, want, rtol=PHI_RTOL, atol=PHI_ATOL)
+    srt = -np.sort(-want, axis=1)
+    clear = (srt[:, :k] - srt[:, 1:k + 1] > 2 * PHI_ATOL).all(axis=1)
+    gi, _ = topk_reasons(torch.from_numpy(np.ascontiguousarray(got[clear])), k)
+    wi, _ = jax_topk(jnp.asarray(want[clear]), k)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
 
 
@@ -156,13 +193,66 @@ def test_duplicate_feature_on_every_path():
                                                       use_kernel=True)))
     assert np.all(got[:, 1:] == 0.0)
     tables = ts.build_tables(pm, pe.bg_table)
-    assert tables.node_count[:, 1:].sum() == 0  # one run, feature 0
+    assert tables.group_count[:, 1:].sum() == 0  # one run, feature 0
     binned = gbt.bin_features(torch.from_numpy(rows), pm.bin_edges)
     _assert_parity(_compact_emulation(pm, tables, binned), got)
     recon = got.sum(axis=1) + float(pe.expected_value)
     np.testing.assert_allclose(
         recon, gbt.gbt_predict_logits(pm, torch.from_numpy(rows)).numpy(), rtol=1e-4, atol=1e-5
     )
+
+
+def _random_forest(seed: int, trees: int, depth: int, d: int = 7, one_feature: bool = False):
+    """A forest of random splits (or every node on feature 3) and leaf
+    values over sorted random edges, in both packages."""
+    rng = np.random.default_rng(seed)
+    nodes = 2**depth - 1
+    arrays = dict(
+        split_feature=(np.full((trees, nodes), 3) if one_feature
+                       else rng.integers(0, d, (trees, nodes))).astype(np.int32),
+        split_bin=rng.integers(0, 15, (trees, nodes)).astype(np.int32),
+        leaf_value=(0.3 * rng.standard_normal((trees, 2**depth))).astype(np.float32),
+        bin_edges=np.sort(rng.standard_normal((d, 15)), axis=1).astype(np.float32),
+        base_logit=np.float32(-0.5),
+    )
+    jm = jgbt.GBTModel(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    return rng, jm, convert.gbt_from_arrays(arrays)
+
+
+G = kernels.TREE_SHAP_GROUP
+
+
+@pytest.mark.parametrize("depth, trees, one_feature", [
+    (5, 1, False), (5, G - 1, False), (5, G + 1, False), (5, 101, False),
+    (1, G + 1, False), (1, 1, False), (5, G + 1, True), (3, 2 * G + 3, True),
+])
+def test_grouped_tables_when_trees_are_not_a_multiple_of_the_group(depth, trees, one_feature):
+    """The kernel's grouped arithmetic (:func:`_compact_emulation`) on
+    forests whose tree count leaves a short last group (1, G − 1, G + 1 and
+    101 trees at depth 5), at depth 1, and with every node on one feature:
+    against the port's plain body and JAX's XLA body and Pallas kernel
+    (interpreted) within rtol 1e-4 / atol 2e-5 with equal top-3 indices
+    away from ties, and additive."""
+    rng, jm, pm = _random_forest(depth * 1000 + trees, trees, depth, one_feature=one_feature)
+    d = int(pm.bin_edges.shape[0])
+    bg = rng.standard_normal((16, d)).astype(np.float32)
+    rows = rng.standard_normal((9, d)).astype(np.float32)
+    je, pe = jts.build_tree_explainer(jm, bg), ts.build_tree_explainer(pm, bg)
+    tables = ts.build_tables(pm, pe.bg_table)
+    assert tables.leaf_sums.shape == (trees, 2**depth, depth, 2**depth)
+    assert tables.group_order.shape == (trees * (2**depth - 1),)
+    binned = gbt.bin_features(torch.from_numpy(rows), pm.bin_edges)
+    got = _compact_emulation(pm, tables, binned)
+    plain = ts.tree_shap(pe, torch.from_numpy(rows)).numpy()
+    _assert_parity_off_ties(got, plain)
+    for use_kernel in (False, True):
+        _assert_parity_off_ties(got, np.asarray(jts._raw_tree_shap(jm, je.bg_table, jnp.asarray(rows),
+                                                          use_kernel=use_kernel)))
+    if one_feature:
+        assert np.all(np.delete(got, 3, axis=1) == 0.0)
+    recon = got.sum(axis=1) + float(pe.expected_value)
+    np.testing.assert_allclose(
+        recon, gbt.gbt_predict_logits(pm, torch.from_numpy(rows)).numpy(), rtol=1e-4, atol=1e-4)
 
 
 def test_background_table_on_the_recipe_width_and_carry_over(imbalanced_data):
