@@ -9,7 +9,10 @@ card, ``nvcc`` (``NVCC``/``CUDA_HOME``/``PATH``) and no network. It imports
 nothing of JAX or of the JAX package. Phases, each fatal on failure:
 
 1. **build** — compile every kernel under ``fraud_detection_tpu_torch/
-   csrc/`` (one ``nvcc`` per source, started together) and load it.
+   csrc/`` (one ``nvcc`` per source, started together) and load it; print
+   ``ptxas -v``'s registers, stack frame and spills for every
+   instantiation of ``knn_topk``'s kernels, and fail on a spill or a stack
+   frame there.
 2. **kernels against their plain versions** — each kernel's wrapper on
    CUDA tensors at the serving path's shapes (and a width that is not a
    multiple of 32) against its plain PyTorch version on the same inputs,
@@ -28,10 +31,12 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    the plain version runs on 4,096 sampled query rows against all keys,
    and a mismatched row must be a near-tie (the float64 distances of the
    two selections agree within 1e-5 relative). Times the kernel at
-   m = 158 (the default training run's) and m = 100,000 (the 10M-row
-   configuration's minority set), the plain version, the operations bound,
-   and — as orientation only, since no single PyTorch call has this tie
-   rule — ``torch.topk(torch.cdist(xc, xc), k + 1, largest=False)``.
+   m = 126 (a training fold's), 158 (the default training run's final fit)
+   and 100,000 (the 10M-row configuration's minority set), the plain
+   version, the operations bound, and — as orientation only, since no
+   single PyTorch call has this tie rule — ``torch.topk(torch.cdist(xc,
+   xc), k + 1, largest=False)``; prints the grid and key-split count the
+   kernel chose at each.
 2c. **gbt_hist against its plain version** — the histogram kernel on CUDA
    tensors at the GBT recipe's shapes (31,684 rows × 30 features × 256
    bins, 1 to 16 nodes: every level of the final fit), an odd row count,
@@ -138,6 +143,7 @@ KNN_NEAR_TIE_RTOL = 1e-5
 TRAIN_AUC_TOL = 2e-3  # card vs CPU training run
 TRAIN_SCORED_ROWS = 1024
 KNN_LAUNCHES_PER_RUN = 6  # 5 folds + the final fit
+KNN_TIMED_M = (126, 158, 100000)  # a fold's minority rows, the final fit's, at scale
 HIST_REL_TOL = 1e-6  # |cell − float64 sum| ≤ this · Σ_rows |value|
 SHAP_RTOL, SHAP_ATOL = 1e-4, 2e-5  # tree_shap against its plain version
 SHAP_TIE = 2e-5  # a reason-code row may differ only across a tie this close
@@ -274,6 +280,27 @@ def union_us(intervals) -> float:
             total += end - max(start, reach)
             reach = end
     return total
+
+
+def check_knn_resources(kernels) -> None:
+    """ptxas's registers, stack frame and spills for every instantiation of
+    knn_topk's kernels; a spill or a stack frame fails the phase. The log is
+    the build's own, or a rebuild's when the library was already there."""
+    log = kernels.BUILD_LOGS.get("knn_topk")
+    if log is None:
+        _, log = kernels.build_library(kernels.CSRC_DIR / "knn_topk.cu",
+                                       "knn_topk_resources", {})
+    usage = [u for u in kernels.ptxas_usage(log) if "knn_topk" in u["function"]]
+    if not usage:
+        raise AssertionError("ptxas reported no knn_topk kernel")
+    for u in usage:
+        name = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?_knn_topk_cu_\w+?\d+(knn_topk)", r"\1",
+                      u["function"])
+        print(f"phase1: ptxas knn_topk {name}: {u.get('registers')} registers, "
+              f"{u.get('stack')} bytes stack frame, {u.get('spill_stores')} bytes spill "
+              f"stores, {u.get('spill_loads')} bytes spill loads")
+        if u.get("stack") or u.get("spill_stores") or u.get("spill_loads"):
+            raise AssertionError(f"knn_topk instantiation {name} spills or has a stack frame")
 
 
 # ---------------------------------------------------------------------------
@@ -442,15 +469,16 @@ def check_knn_topk(seed: int) -> dict:
                 f"(relative gap {rel:.3e} > {KNN_NEAR_TIE_RTOL})"
             )
         worst = max(worst, gap)
-        if m in (158, 100000):
+        if m in KNN_TIMED_M and k == 5:
             inputs[m] = (xc, sq, k)
         else:
             del xc, sq, got, want
 
     rows = {}
-    for m in (158, 100000):
+    for m in KNN_TIMED_M:
         xc, sq, k = inputs[m]
         d = xc.shape[1]
+        plan = kernels.knn_topk_plan(m, d, k, xc.device)
         kernel_fn = lambda: kernels.knn_topk(xc, sq, k)  # noqa: E731
         plain_fn = lambda: kernels.knn_topk_reference(xc, sq, k)  # noqa: E731
         big = m > KNN_SAMPLED_FROM
@@ -467,7 +495,13 @@ def check_knn_topk(seed: int) -> dict:
         torch.cuda.empty_cache()
         bound, by, n_ops, n_bytes = knn_bound(m, d, k)
         rows[m] = {"ms": ms, "plain_ms": plain, "orientation_ms": orient,
-                   "bound_ms": bound, "bound_by": by, "eager_ms": eager}
+                   "bound_ms": bound, "bound_by": by, "eager_ms": eager, "plan": plan}
+        print(
+            f"phase2b: knn_topk grid m={m}: {plan['query_tiles']} query tiles x "
+            f"{plan['splits']} key splits of {plan['keys_per_split']} keys, "
+            f"{plan['tile']}-key tiles"
+            + (", a merging second launch" if plan["splits"] > 1 else ", one launch")
+        )
         print(
             f"phase2b: knn_topk timing m={m} d={d} k={k}: kernel {ms:.6f} ms "
             f"(CUDA events over launches replayed from a CUDA graph; eager "
@@ -1648,6 +1682,7 @@ def main() -> int:
           f"(per kernel: {', '.join(f'{k} {v:.3f} s' for k, v in built.items())})")
     if sorted(built) != sorted(KERNELS):
         raise AssertionError(f"csrc kernels {sorted(built)} != {sorted(KERNELS)}")
+    check_knn_resources(kernels)
     print(f"kernels: {json.dumps(sorted(KERNELS))}")
 
     fs = check_fused_score(seed=0)
@@ -1671,6 +1706,7 @@ def main() -> int:
 
     t = fs["timing"][1024]
     k_small, k_big = knn["timing"][158], knn["timing"][100000]
+    k_fold = knn["timing"][126]
     line = {"kernels": [
         row("fused_score", served["fused_score"], fs, t, t["library_ms"]),
         # no single PyTorch call computes k-NN with this tie rule: the
@@ -1679,6 +1715,8 @@ def main() -> int:
         # kernel's and the plain version's picks (0 when the indices agree)
         row("knn_topk", trained["knn_topk"], knn, k_small, None,
             m=158, orientation_ms=k_small["orientation_ms"],
+            at_m_126={key: k_fold[key] for key in
+                      ("ms", "plain_ms", "bound_ms", "orientation_ms")},
             at_m_100000={key: k_big[key] for key in
                          ("ms", "plain_ms", "bound_ms", "orientation_ms")}),
         # at the final fit's last level (16 nodes); max_abs_err is the

@@ -26,6 +26,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,7 +41,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: kernel name → its C functions' argtypes (every pointer and the stream
@@ -55,10 +56,15 @@ _SIGNATURES = {
         "fused_score_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "knn_topk": {
+        "knn_topk_plan": (
+            [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p],
+            ctypes.c_int,
+        ),
         "knn_topk_launch": (
-            [ctypes.c_void_p] * 3
+            [ctypes.c_void_p] * 4
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p],
+               ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int,
         ),
         "knn_topk_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -96,6 +102,9 @@ TREE_SHAP_LAUNCHES = 0
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: nvcc's output (with ``ptxas -v``'s resource lines) of each kernel built
+#: by this process
+BUILD_LOGS: dict[str, str] = {}
 
 
 def kernel_names() -> list[str]:
@@ -168,6 +177,7 @@ def build_kernels(names: list[str] | None = None) -> dict[str, float]:
         for name, (proc, tmp, out, t0) in procs.items():
             log, _ = proc.communicate()
             times[name] = time.perf_counter() - t0
+            BUILD_LOGS[name] = log
             if proc.returncode != 0:
                 failed.append(f"{name}:\n{log}")
                 continue
@@ -180,11 +190,49 @@ def build_kernels(names: list[str] | None = None) -> dict[str, float]:
     return times
 
 
-def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+def _bind(name: str, lib: ctypes.CDLL, signatures: dict | None = None) -> ctypes.CDLL:
+    for fn, (argtypes, restype) in (_SIGNATURES[name] if signatures is None
+                                    else signatures).items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+def build_library(source: Path, name: str, signatures: dict) -> tuple[ctypes.CDLL, str]:
+    """Compile one ``.cu`` outside ``csrc/`` (an earlier design of a kernel,
+    for a comparison in turns) with the port's flags into
+    ``build/lib<name>.so`` and load it with ``signatures`` (function →
+    (argtypes, restype)). Returns the library and nvcc's output; raises with
+    that output when the build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"lib{name}.so"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}")
+    return _bind(name, ctypes.CDLL(str(out)), signatures), proc.stdout
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Each entry function's resources from ``ptxas -v`` lines in nvcc's
+    output: name (mangled), registers, stack frame and spill bytes."""
+    out: dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        hit = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if hit:
+            current = out.setdefault(hit.group(1), {"function": hit.group(1)})
+            continue
+        hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", line)
+        if hit and current is not None:
+            current.update(stack=int(hit.group(1)), spill_stores=int(hit.group(2)),
+                           spill_loads=int(hit.group(3)))
+            continue
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and current is not None:
+            current["registers"] = int(hit.group(1))
+    return list(out.values())
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -265,14 +313,113 @@ def fused_score(
 # ---------------------------------------------------------------------------
 # Bound on the H100: operations, ~2·m²·d + 3·m² flops in float32 outside the
 # tensor cores (67 TFLOP/s): ~9.4 ms at m = 100,000, d = 30; at the default
-# training run's m ≈ 158 the launch dominates. The design gives each query
-# row one thread (query in registers, key tiles broadcast from shared
-# memory, a sorted (d2, index) list in registers), so no (m, m) matrix
-# exists and the ragged edge is masked. See csrc/knn_topk.cu.
+# training run's m ≈ 158 the launch dominates. The design: register-tiled
+# distances (a block stages a tile of queries and of keys in shared memory,
+# a thread runs TM × TN independent fmaf chains, one a pair, in feature
+# order), each query's k best kept as packed 64-bit (d2, index) keys and
+# updated by a warp's rank merge only for candidates under its k-th best,
+# and the keys split over blocks when m is small, with a second small pass
+# merging the splits. Every d2 is the one-chain arithmetic of the earlier
+# one-thread-a-query kernel, so the indices are bitwise its indices. See
+# csrc/knn_topk.cu; :func:`knn_topk_split_reference` is its selection in
+# PyTorch.
 
 #: the kernel's compile-time bounds (csrc/knn_topk.cu: kMaxK, kMaxD)
 KNN_MAX_K = 32
 KNN_MAX_D = 128
+#: keys a tile at m ≤ 4096 or d > 32 (csrc/knn_topk.cu: SmallTile; 128 above)
+KNN_SMALL_TILE = 32
+#: the kernel's empty list slot (+inf, 0x7fffffff) as a :func:`knn_pack_keys` key
+KNN_EMPTY_KEY = (0xFF800000 - 2**31) * 2**32 + 0x7FFFFFFF
+
+
+def knn_select_reference(d2: torch.Tensor, ids: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain version's selection: each row of ``d2`` (queries ``ids``
+    against every row) with its own column set to +inf, stably sorted so
+    that equal distances keep the lowest index first; the first k columns
+    as int32. Writes the +inf into ``d2``."""
+    d2[torch.arange(ids.shape[0], device=d2.device), ids] = float("inf")
+    return torch.sort(d2, dim=1, stable=True).indices[:, :k].to(torch.int32)
+
+
+def knn_pack_keys(d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's packed key of each (d2, index), as int64: the kernel's
+    unsigned 64-bit key minus 2^63, so that a signed sort keeps its order.
+    High word: d2's float32 bits with −0.0 read as +0.0, then negative
+    values complemented and non-negative ones given the top bit (the
+    order-preserving unsigned image, negatives first); low word: the
+    index. So key order is (d2 <, then index <) with −0.0 == +0.0."""
+    u = d2.to(torch.float32).contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, 0, u)
+    u = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    return (u - 2**31) * 2**32 + idx.long()
+
+
+def knn_select_split_reference(
+    d2: torch.Tensor,
+    k: int,
+    splits: int,
+    tile: int = KNN_SMALL_TILE,
+    rows: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The kernel's selection over a distance matrix ``d2`` (queries
+    ``rows``, default all, against all m keys): keys cut into ``splits``
+    runs of ⌈⌈m / tile⌉ / splits⌉ tiles (the last ones short or empty), each
+    run's k smallest packed keys per query (:func:`knn_pack_keys`; a query's
+    own row and NaN distances are never candidates, missing slots are
+    ``KNN_EMPTY_KEY``), then the k smallest of the runs' lists together —
+    the kernel's pass 1 and pass 2. Returns the low words as (rows, k)
+    int32."""
+    n_q, m = d2.shape
+    ids = torch.arange(m, device=d2.device) if rows is None else rows.to(d2.device)
+    keys = knn_pack_keys(d2, torch.arange(m, device=d2.device).expand(n_q, m))
+    keys[torch.arange(n_q, device=d2.device), ids] = KNN_EMPTY_KEY
+    keys[torch.isnan(d2)] = KNN_EMPTY_KEY
+    tiles = -(-m // tile)
+    span = -(-tiles // splits) * tile
+    empty = torch.full((n_q, k), KNN_EMPTY_KEY, dtype=torch.int64, device=d2.device)
+    parts = []
+    for s in range(splits):
+        run = keys[:, min(s * span, m):min((s + 1) * span, m)]
+        best = torch.sort(run, dim=1).values[:, :k]
+        parts.append(torch.cat([best, empty[:, best.shape[1]:]], dim=1))
+    merged = torch.sort(torch.cat(parts, dim=1), dim=1).values[:, :k]
+    return (merged & 0xFFFFFFFF).to(torch.int32)
+
+
+def knn_topk_split_reference(
+    xc: torch.Tensor, sq: torch.Tensor, k: int, splits: int, tile: int = KNN_SMALL_TILE
+) -> torch.Tensor:
+    """:func:`knn_select_split_reference` on the distances the plain version
+    computes (``(|q|² − 2 q·x) + |x|²`` by a matrix product, whose d2 bits
+    are not the kernel's): the kernel's selection, split and merge, in
+    PyTorch, for the CPU tests."""
+    d2 = sq[:, None] - 2.0 * (xc @ xc.T) + sq[None, :]
+    return knn_select_split_reference(d2, k, splits, tile)
+
+
+_KNN_PLANS: dict[tuple[int, int, int, int], dict] = {}
+
+
+def knn_topk_plan(m: int, d: int, k: int, device: torch.device) -> dict:
+    """The kernel's launch shape for (m, d, k) on a CUDA ``device``: key
+    ``splits`` (the grid's y), ``query_tiles`` (its x), ``tile`` (rows a
+    tile) and ``keys_per_split``, from the card's SM count."""
+    index = torch.device(device).index or 0
+    key = (m, d, k, index)
+    plan = _KNN_PLANS.get(key)
+    if plan is None:
+        lib = _lib("knn_topk")
+        got = (ctypes.c_int * 4)()
+        rc = lib.knn_topk_plan(m, d, k, index, ctypes.cast(got, ctypes.c_void_p))
+        if rc != 0:
+            raise ValueError(
+                f"knn_topk refuses (m, d, k) = ({m}, {d}, {k}): "
+                + lib.knn_topk_error_string(rc).decode()
+            )
+        plan = dict(zip(("splits", "query_tiles", "tile", "keys_per_split"), got))
+        _KNN_PLANS[key] = plan
+    return plan
 
 
 def knn_topk_reference(
@@ -284,20 +431,19 @@ def knn_topk_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, after ``ops/smote._knn_indices``
     of the JAX package: blockwise over query rows, ``d2 = (|q|² − 2 q·x) +
-    |x|²`` against every row, self set to +inf, then a *stable* ascending
-    sort so that equal distances keep the lowest index first (the rule of
-    ``lax.top_k``; ``torch.topk`` does not keep it). ``rows`` restricts the
-    queries to those row ids (all rows by default). Returns (len(rows), k)
-    int32. The CPU path and the tests use it; the card's path never does."""
+    |x|²`` against every row, then :func:`knn_select_reference` (self set to
+    +inf, a *stable* ascending sort so that equal distances keep the lowest
+    index first: the rule of ``lax.top_k``; ``torch.topk`` does not keep
+    it). ``rows`` restricts the queries to those row ids (all rows by
+    default). Returns (len(rows), k) int32. The CPU path and the tests use
+    it; the card's path never does."""
     m = xc.shape[0]
     q_ids = torch.arange(m, device=xc.device) if rows is None else rows.to(xc.device)
     out = []
     for lo in range(0, q_ids.shape[0], block):
         ids = q_ids[lo:lo + block]
         d2 = sq[ids][:, None] - 2.0 * (xc[ids] @ xc.T) + sq[None, :]
-        d2[torch.arange(ids.shape[0], device=xc.device), ids] = float("inf")
-        order = torch.sort(d2, dim=1, stable=True).indices[:, :k]
-        out.append(order.to(torch.int32))
+        out.append(knn_select_reference(d2, ids, k))
     if not out:
         return torch.empty((0, k), dtype=torch.int32, device=xc.device)
     return torch.cat(out)
@@ -308,8 +454,9 @@ def knn_topk(xc: torch.Tensor, sq: torch.Tensor, k: int) -> torch.Tensor:
     (squared distance, index). ``xc`` (m, d) contiguous float32, already
     centred; ``sq`` (m,) float32, ``|x|²`` of those rows. CUDA tensors
     launch the hand-written kernel on the current stream (k ≤
-    ``KNN_MAX_K``, d ≤ ``KNN_MAX_D``); CPU tensors take
-    :func:`knn_topk_reference`."""
+    ``KNN_MAX_K``, d ≤ ``KNN_MAX_D``; with more than one key split, a
+    (splits, m, k) int64 scratch from ``torch.empty`` and a second, merging
+    launch); CPU tensors take :func:`knn_topk_reference`."""
     global KNN_TOPK_LAUNCHES
     if xc.dim() != 2 or sq.dim() != 1 or sq.shape[0] != xc.shape[0]:
         raise ValueError(
@@ -340,10 +487,15 @@ def knn_topk(xc: torch.Tensor, sq: torch.Tensor, k: int) -> torch.Tensor:
     if not (xc.is_contiguous() and sq.is_contiguous()):
         raise ValueError("knn_topk wants contiguous xc and sq")
     lib = _lib("knn_topk")
+    splits = knn_topk_plan(m, d, k, xc.device)["splits"]
     out = torch.empty((m, k), dtype=torch.int32, device=xc.device)
+    # each split's k best a query, packed (every slot written by pass 1)
+    scratch = (torch.empty((splits, m, k), dtype=torch.int64, device=xc.device)
+               if splits > 1 else None)
     rc = lib.knn_topk_launch(
-        xc.data_ptr(), sq.data_ptr(), out.data_ptr(), m, d, k,
-        xc.device.index, torch.cuda.current_stream(xc.device).cuda_stream,
+        xc.data_ptr(), sq.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        out.data_ptr(), m, d, k, splits, xc.device.index,
+        torch.cuda.current_stream(xc.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(

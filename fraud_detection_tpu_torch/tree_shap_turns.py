@@ -25,7 +25,6 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -40,18 +39,15 @@ ROOT = kernels.BUILD_DIR.parent.parent
 SIZES = (8, 64, 1024)
 
 
-def _build_earlier(source: Path):
-    out = kernels.BUILD_DIR / "libtree_shap_earlier.so"
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out), str(source)],
-                   check=True)
-    lib = ctypes.CDLL(str(out))
-    lib.tree_shap_launch.argtypes = (
+#: the earlier design's C interface
+EARLIER_SIGNATURES = {
+    "tree_shap_launch": (
         [ctypes.c_void_p] * 8
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
-    lib.tree_shap_launch.restype = ctypes.c_int
-    return lib
+           ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
 
 
 def _earlier_tables(tables):
@@ -84,7 +80,8 @@ def main(argv=None) -> int:
 
     resolve_device("cuda")
     card = card_line()
-    lib = _build_earlier(args.earlier_source)
+    lib, _ = kernels.build_library(args.earlier_source, "tree_shap_earlier",
+                                   EARLIER_SIGNATURES)
     kernels.build_kernels(["tree_shap"])
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)

@@ -124,7 +124,12 @@ def _knn_fixture(name: str) -> tuple[np.ndarray, int]:
 @pytest.mark.parametrize(
     "name",
     ["2x30x1", "6x30x5", "126x30x5", "158x30x5", "1000x37x5", "4096x30x5",
-     "300x128x32", "500x64x9", "duplicated", "lattice"],
+     "300x128x32", "500x64x9", "duplicated", "lattice",
+     # tile and split edges: one key tile and one over (32 rows), one over
+     # 4 tiles, 8 and 32 tiles plus one, the switch to 128-row tiles; k = 32
+     # at d = 128, and d = 1
+     "33x30x5", "129x30x5", "257x30x5", "1025x30x5", "4097x30x5", "5000x30x5",
+     "1025x128x32", "33x128x32", "500x1x5"],
 )
 def test_knn_kernel_matches_plain_version_exactly(name):
     """Exact index equality: at these sizes no two candidate distances of a
@@ -140,6 +145,27 @@ def test_knn_kernel_matches_plain_version_exactly(name):
     assert kernels.KNN_TOPK_LAUNCHES == before + 1
     assert got.dtype == torch.int32 and got.shape == (x.shape[0], k)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["158x30x5", "1025x128x32", "5000x30x5", "lattice"])
+def test_knn_kernel_two_launches_are_bitwise_equal(name):
+    dev = _require_card()
+    x, k = _knn_fixture(name)
+    xc, sq = _knn_inputs(x, dev)
+    first = kernels.knn_topk(xc, sq, k).clone()
+    second = kernels.knn_topk(xc, sq, k)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [126, 158])
+def test_knn_plan_spreads_the_training_sizes_over_tens_of_blocks(m):
+    dev = _require_card()
+    plan = kernels.knn_topk_plan(m, 30, 5, dev)
+    assert plan["splits"] > 1 and plan["splits"] * plan["query_tiles"] >= 10
+    assert plan["splits"] * plan["keys_per_split"] >= m
 
 
 @pytest.mark.cuda
