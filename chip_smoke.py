@@ -428,7 +428,9 @@ def knn_selection_gap(xc, queries, got, want) -> tuple[int, float, float]:
 
 
 def knn_bound(m: int, d: int, k: int) -> tuple[float, str, int, int]:
-    n_ops = 2 * m * m * d + 3 * m * m  # FMAs of the dots + combine/compare
+    # a dot per unordered pair (fmaf's product is the same bits either way
+    # round), then the combine and compare per ordered pair
+    n_ops = m * (m - 1) * d + 3 * m * m
     n_bytes = 4 * (m * d + m + m * k)  # xc, sq read once; indices written
     t_ops = n_ops / F32_FLOPS_PER_S * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3

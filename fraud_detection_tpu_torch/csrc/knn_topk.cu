@@ -29,12 +29,14 @@
 //
 // The design. Pass 1, knn_topk_split, has a grid of (query tiles x key
 // splits); a block owns BM queries and walks the keys of its split in tiles
-// of BN (128 x 128 for d <= 32 above kSmallM rows, else 32 x 32). Both sit
+// of BN (above kSmallM rows 128 x 128 for d <= 32, 64 x 64 for more
+// features; 32 x 32 at kSmallM rows or fewer). Both sit
 // in shared memory feature-major, staged with cp.async; two key buffers, so
 // the next tile loads while this one is used. A thread of the 16 x 16 grid
 // reads its TM query and TN key values of a feature as 16- or 8-byte loads
 // and runs TM x TN independent fmaf chains (8 x 8: four LDS.128 per 64
-// FMAs, against one per four in the earlier kernel). Each d2 is held in
+// FMAs, against one per four in the earlier kernel; 4 x 4 where the 128-row
+// tile's shared memory would not fit d > 32). Each d2 is held in
 // registers against its query's current k-th best; the few that beat it
 // (exact (d2, index) test) go, packed, into the query's 32 candidate slots
 // in shared memory (a shared atomic a thread and row). A warp then merges
@@ -60,12 +62,17 @@
 // empty slot is (+inf, 0x7fffffff), above every real candidate; NaN d2
 // never passes the test, as in the earlier kernel.
 //
-// Bound on the H100: operations. Each (query, key) pair costs d FMAs plus
-// the combine, the compare and the self test: ~2*m^2*d + 3*m^2 flops over
-// 4*(m*d + m + m*k) bytes. At m = 100,000 and d = 30 that is ~6.3e11 flops,
-// ~9.4 ms at 67 TFLOP/s (float32 outside the tensor cores); at the default
-// training run's m = 158 the work is far below one launch, and the design
-// spreads it over tens of blocks so that no chain is longer than a tile.
+// Bound on the H100: operations. fmaf's product does not depend on the
+// order of its operands, so q.x_j and x_j.q are the same bits: the function
+// needs the m(m-1)/2 unordered pairs' d FMAs each, then the combine, the
+// compare and the self test for every ordered pair: m(m-1)*d + 3*m^2 flops
+// over 4*(m*d + m + m*k) bytes. At m = 100,000 and d = 30 that is ~3.3e11
+// flops, ~4.9 ms at 67 TFLOP/s (float32 outside the tensor cores). This
+// kernel runs every ordered pair's chain (a block owns its queries' lists,
+// so a tile's transpose would have to reach another block's), twice the
+// FMAs of that bound. At the default training run's m = 158 the work is far
+// below one launch, and the design spreads it over tens of blocks so that
+// no chain is longer than a tile.
 // At m = 100,000 the 8 x 8 thread tile moves one byte of shared memory per
 // FMA, the shared-memory pipe's 128 bytes a clock against 128 FMAs a clock,
 // so the two pipes pace each other; a larger tile needs more registers
@@ -117,6 +124,7 @@ struct Layout {
 };
 
 using SmallTile = Layout<16, 2, 2>;  // 32 x 32
+using MidTile = Layout<16, 4, 4>;    // 64 x 64
 using LargeTile = Layout<16, 8, 8>;  // 128 x 128
 
 template <class L, int DMAX>
@@ -467,8 +475,6 @@ struct Plan {
   long long span;  // keys a split
 };
 
-bool small_tiles(long long m, int d) { return m <= kSmallM || d > 32; }
-
 // The instantiation that takes (m, d) and its dynamic shared memory.
 struct Kernel {
   const void* fn;
@@ -495,47 +501,54 @@ Kernel kernel_of(int k) {
 }
 
 // The instantiation for (m, d, k), allowed its dynamic shared memory on this
-// device: set once, before any launch a CUDA graph captures.
-cudaError_t kernel_for(long long m, int d, int k, int device, Kernel* kern) {
-  static size_t granted[kMaxDevices][4] = {};
-  int which;
-  if (!small_tiles(m, d)) {
-    *kern = kernel_of<LargeTile, 32, 2>(k);
-    which = 0;
-  } else if (d <= 32) {
-    *kern = kernel_of<SmallTile, 32, 1>(k);
-    which = 1;
-  } else if (d <= 64) {
-    *kern = kernel_of<SmallTile, 64, 1>(k);
-    which = 2;
-  } else {
-    *kern = kernel_of<SmallTile, 128, 1>(k);
-    which = 3;
+// device, and the blocks an SM the card runs of it: both found once, before
+// any launch a CUDA graph captures.
+cudaError_t kernel_for(long long m, int d, int k, int device, Kernel* kern, int* per_sm) {
+  static size_t granted[kMaxDevices][6] = {};
+  static int occupancy[kMaxDevices][6][kMaxK + 1] = {};
+  const bool small = m <= kSmallM;
+  const int which = (small ? 3 : 0) + (d <= 32 ? 0 : d <= 64 ? 1 : 2);
+  switch (which) {
+    case 0: *kern = kernel_of<LargeTile, 32, 2>(k); break;
+    case 1: *kern = kernel_of<MidTile, 64, 2>(k); break;
+    case 2: *kern = kernel_of<MidTile, 128, 1>(k); break;
+    case 3: *kern = kernel_of<SmallTile, 32, 1>(k); break;
+    case 4: *kern = kernel_of<SmallTile, 64, 1>(k); break;
+    default: *kern = kernel_of<SmallTile, 128, 1>(k); break;
   }
+  cudaError_t err;
   if (kern->smem > granted[device][which]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kern->smem);
+    err = cudaFuncSetAttribute(kern->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kern->smem);
     if (err != cudaSuccess) return err;
     granted[device][which] = kern->smem;
   }
+  int& blocks = occupancy[device][which][k];
+  if (blocks == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern->fn, kThreads,
+                                                        kern->smem);
+    if (err != cudaSuccess) return err;
+    if (blocks < 1) blocks = 1;
+  }
+  *per_sm = blocks;
   return cudaSuccess;
 }
 
 // The grid: the split count that minimises waves x (key tiles a split + one
 // tile of set-up), with as many blocks an SM as the card runs at once;
 // fewer splits on a tie.
-cudaError_t plan_for(long long m, int d, int k, int device, Plan* plan) {
-  Kernel kern;
-  cudaError_t err = kernel_for(m, d, k, device, &kern);
+cudaError_t plan_for(long long m, int d, int k, int device, Kernel* kern, Plan* plan) {
+  static int sm_count[kMaxDevices] = {};
+  int per_sm = 0;
+  cudaError_t err = kernel_for(m, d, k, device, kern, &per_sm);
   if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern.fn, kThreads, kern.smem);
-  if (err != cudaSuccess) return err;
-  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const long long qtiles = (m + kern.bm - 1) / kern.bm;
-  const long long ktiles = (m + kern.bn - 1) / kern.bn;
+  if (sm_count[device] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  const long long slots = (long long)sm_count[device] * per_sm;
+  const long long qtiles = (m + kern->bm - 1) / kern->bm;
+  const long long ktiles = (m + kern->bn - 1) / kern->bn;
   long long best = 1, best_cost = -1;
   for (long long s = 1; s <= ktiles && s <= 4 * slots; ++s) {
     const long long per = (ktiles + s - 1) / s;
@@ -546,8 +559,8 @@ cudaError_t plan_for(long long m, int d, int k, int device, Plan* plan) {
       best_cost = cost;
     }
   }
-  *plan = {(int)best, (int)qtiles, (int)ktiles, kern.bn,
-           ((ktiles + best - 1) / best) * kern.bn};
+  *plan = {(int)best, (int)qtiles, (int)ktiles, kern->bn,
+           ((ktiles + best - 1) / best) * kern->bn};
   return cudaSuccess;
 }
 
@@ -583,13 +596,15 @@ cudaError_t set_device(int device) {
 
 }  // namespace
 
-// The launch's shape: plan[0] key splits, [1] query tiles, [2] keys a tile,
-// [3] keys a split. The caller sizes the scratch from plan[0].
+// The launch's shape, as knn_topk_launch chooses it: plan[0] key splits,
+// [1] query tiles, [2] keys a tile, [3] keys a split. With more than one
+// split the launch needs a scratch of plan[0] * m * k * 8 bytes.
 extern "C" int knn_topk_plan(long long m, int d, int k, int device, int* plan) {
   if (!valid_shape(m, d, k)) return (int)cudaErrorInvalidValue;
+  Kernel kern;
   Plan p;
   cudaError_t err = set_device(device);
-  if (err == cudaSuccess) err = plan_for(m, d, k, device, &p);
+  if (err == cudaSuccess) err = plan_for(m, d, k, device, &kern, &p);
   if (err != cudaSuccess) return (int)err;
   plan[0] = p.splits;
   plan[1] = p.qtiles;
@@ -598,29 +613,28 @@ extern "C" int knn_topk_plan(long long m, int d, int k, int device, int* plan) {
   return 0;
 }
 
-// scratch: (splits, m, k) uint64, unused (may be null) when splits == 1.
-// Any 1 <= splits <= the key tiles is taken; a split then covers
-// ceil(key tiles / splits) of them.
+// scratch: scratch_bytes of device memory for the splits' (splits, m, k)
+// packed keys; unused (may be null) when the plan has one split, refused
+// when it is smaller than the plan needs.
 extern "C" int knn_topk_launch(const void* xc, const void* sq, void* scratch,
-                               void* out, long long m, int d, int k, int splits,
-                               int device, void* stream) {
+                               long long scratch_bytes, void* out, long long m, int d,
+                               int k, int device, void* stream) {
   if (!valid_shape(m, d, k)) return (int)cudaErrorInvalidValue;
   Kernel kern;
+  Plan p;
   cudaError_t err = set_device(device);
-  if (err == cudaSuccess) err = kernel_for(m, d, k, device, &kern);
+  if (err == cudaSuccess) err = plan_for(m, d, k, device, &kern, &p);
   if (err != cudaSuccess) return (int)err;
-  const long long qtiles = (m + kern.bm - 1) / kern.bm;
-  const long long ktiles = (m + kern.bn - 1) / kern.bn;
-  if (splits < 1 || splits > ktiles || (splits > 1 && scratch == nullptr)) {
+  const bool split = p.splits > 1;
+  if (split && (scratch == nullptr ||
+                scratch_bytes < (long long)p.splits * m * k * (long long)sizeof(u64))) {
     return (int)cudaErrorInvalidValue;
   }
-  const Plan p = {splits, (int)qtiles, (int)ktiles, kern.bn,
-                  ((ktiles + splits - 1) / splits) * kern.bn};
-  u64* part = splits > 1 ? (u64*)scratch : nullptr;
+  u64* part = split ? (u64*)scratch : nullptr;
   err = kern.launch((const float*)xc, (const float*)sq, part, (int*)out, m, d, k, p,
                     kern.smem, (cudaStream_t)stream);
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)launch_merge(part, (int*)out, m, k, splits, (cudaStream_t)stream);
+  if (err != cudaSuccess || !split) return (int)err;
+  return (int)launch_merge(part, (int*)out, m, k, p.splits, (cudaStream_t)stream);
 }
 
 extern "C" const char* knn_topk_error_string(int code) {

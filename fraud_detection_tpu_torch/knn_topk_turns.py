@@ -7,16 +7,19 @@ phase 2b, then times in turns (earlier, current, current, earlier).
 
 Run from the repository's root (it reuses ``chip_smoke.py``'s fixtures and
 timing helpers). ``--earlier-source`` is a copy of ``csrc/knn_topk.cu``
-with the one-launch interface it had before the split-and-merge design:
-``knn_topk_launch(xc, sq, out, m, d, k, device, stream)``; it is built with
-the port's nvcc flags into the git-ignored ``build/``. Every phase-2b
-fixture (m = 2 … 100,000, the duplicated rows, the lattice) is compared in
-full: the two kernels must return the same int32 indices bit for bit. At m
-= 126, 158, 4096 and 100,000 (d = 30, k = 5) each design is timed as CUDA
-events over launches replayed from one CUDA graph, and the current one's
-kernels one by one under ``torch.profiler``. Prints one line per fixture
-and size and a JSON line, which it also writes to
-``chiprun_out/knn_topk_turns.json``.
+with either the one-launch interface it had before the split-and-merge
+design, ``knn_topk_launch(xc, sq, out, m, d, k, device, stream)``, or the
+current one (a source that defines ``knn_topk_plan``: a variant of this
+design); it is built with the port's nvcc flags into the git-ignored
+``build/``. Every phase-2b
+fixture (m = 2 … 100,000, the duplicated rows, the lattice), and three
+wide ones of this script's own (m = 20,000 at d = 37, 64 and 128), is
+compared in full: the two kernels must return the same int32 indices bit
+for bit. At m = 126, 158, 4096 and 100,000 at d = 30, and at the three
+wide fixtures (k = 5 throughout), each design is timed as CUDA events over
+launches replayed from one CUDA graph, and the current one's kernels one
+by one under ``torch.profiler``. Prints one line per fixture and size and
+a JSON line, which it also writes to ``chiprun_out/knn_topk_turns.json``.
 """
 
 from __future__ import annotations
@@ -27,12 +30,18 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from fraud_detection_tpu_torch.ops import kernels
 
 ROOT = kernels.BUILD_DIR.parent.parent
-SIZES = (126, 158, 4096, 100_000)
+#: timed (m, d), all at k = 5: the training sizes and the scale of phase
+#: 2b at d = 30, and more than 32 features at a size that takes the large
+#: tiles' place
+SIZES = ((126, 30), (158, 30), (4096, 30), (100_000, 30),
+         (20_000, 37), (20_000, 64), (20_000, 128))
+WIDE = tuple((m, d) for m, d in SIZES if d > 32)
 
 #: the earlier design's C interface
 EARLIER_SIGNATURES = {
@@ -60,19 +69,36 @@ def main(argv=None) -> int:
 
     resolve_device("cuda")
     card = card_line()
-    lib, _ = kernels.build_library(args.earlier_source, "knn_topk_earlier",
-                                   EARLIER_SIGNATURES)
+    split = "knn_topk_plan" in args.earlier_source.read_text()
+    lib, _ = kernels.build_library(
+        args.earlier_source, "knn_topk_earlier",
+        kernels._SIGNATURES["knn_topk"] if split else EARLIER_SIGNATURES)
     kernels.build_kernels(["knn_topk"])
     result = {"card": card, "fixtures": {}, "sizes": {}}
     timed = {}
-    for label, x, k in knn_fixtures(args.seed):
+    rng = np.random.default_rng(args.seed + 1)
+    wide = [(f"m={m} d={d} k=5", rng.standard_normal((m, d), dtype=np.float32), 5)
+            for m, d in WIDE]
+    for label, x, k in knn_fixtures(args.seed) + wide:
         xc, sq = knn_inputs(x)
         m, d = xc.shape
         out = torch.empty((m, k), dtype=torch.int32, device=xc.device)
+        scratch = None
+        if split:
+            plan = (ctypes.c_int * 4)()
+            if lib.knn_topk_plan(m, d, k, xc.device.index, ctypes.cast(plan, ctypes.c_void_p)):
+                raise RuntimeError(f"earlier knn_topk refuses (m, d, k) = ({m}, {d}, {k})")
+            scratch = torch.empty((plan[0], m, k), dtype=torch.int64, device=xc.device)
 
-        def earlier(xc=xc, sq=sq, out=out, m=m, d=d, k=k):
-            rc = lib.knn_topk_launch(xc.data_ptr(), sq.data_ptr(), out.data_ptr(), m, d, k,
-                                     xc.device.index, torch.cuda.current_stream().cuda_stream)
+        def earlier(xc=xc, sq=sq, out=out, m=m, d=d, k=k, scratch=scratch):
+            stream = torch.cuda.current_stream().cuda_stream
+            if scratch is None:
+                rc = lib.knn_topk_launch(xc.data_ptr(), sq.data_ptr(), out.data_ptr(), m, d, k,
+                                         xc.device.index, stream)
+            else:
+                rc = lib.knn_topk_launch(xc.data_ptr(), sq.data_ptr(), scratch.data_ptr(),
+                                         scratch.numel() * 8, out.data_ptr(), m, d, k,
+                                         xc.device.index, stream)
             if rc != 0:
                 raise RuntimeError(f"earlier knn_topk launch failed: {rc}")
             return out
@@ -88,13 +114,13 @@ def main(argv=None) -> int:
         result["fixtures"][label] = rows
         if rows:
             raise AssertionError(f"knn_topk {label}: {rows} rows differ from the earlier kernel")
-        if m in SIZES and d == 30 and k == 5:
-            timed[m] = (earlier, current, d, k)
+        if (m, d) in SIZES and k == 5:
+            timed[m, d] = (earlier, current, k)
         else:
-            del xc, sq, out, old, new
-    for m in SIZES:
-        earlier, current, d, k = timed[m]
-        big = m > 20_000
+            del xc, sq, out, old, new, scratch
+    for m, d in SIZES:
+        earlier, current, k = timed[m, d]
+        big = m >= 20_000
         turns = [graph_ms(fn, iters=3 if big else 200, replays=3 if big else 5)
                  for fn in (earlier, current, current, earlier)]
         by_kernel: dict[str, float] = {}
@@ -107,7 +133,7 @@ def main(argv=None) -> int:
         row = {"earlier_ms": (turns[0] + turns[3]) / 2, "current_ms": (turns[1] + turns[2]) / 2,
                "turns_ms": turns, "bound_ms": bound, "bound_by": by, "plan": plan,
                "current_kernels_us": by_kernel}
-        result["sizes"][m] = row
+        result["sizes"][f"m={m} d={d}"] = row
         print(f"knn_topk_turns m={m} d={d} k={k}: earlier {row['earlier_ms']:.6f} ms, current "
               f"{row['current_ms']:.6f} ms (turns earlier, current, current, earlier: "
               + ", ".join(f"{t:.6f}" for t in turns) + f"), bound {bound:.6f} ms ({by}); "

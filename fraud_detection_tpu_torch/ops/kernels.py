@@ -62,9 +62,9 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
         "knn_topk_launch": (
-            [ctypes.c_void_p] * 4
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p],
+               ctypes.c_void_p],
             ctypes.c_int,
         ),
         "knn_topk_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -311,9 +311,10 @@ def fused_score(
 # ---------------------------------------------------------------------------
 # knn_topk — replaces fraud_detection_tpu/ops/pallas_kernels.py::_knn_kernel
 # ---------------------------------------------------------------------------
-# Bound on the H100: operations, ~2·m²·d + 3·m² flops in float32 outside the
-# tensor cores (67 TFLOP/s): ~9.4 ms at m = 100,000, d = 30; at the default
-# training run's m ≈ 158 the launch dominates. The design: register-tiled
+# Bound on the H100: operations, m(m − 1)·d + 3·m² flops in float32 outside
+# the tensor cores (67 TFLOP/s; the dot of an unordered pair once, since
+# fmaf's product is the same bits either way round): ~4.9 ms at m = 100,000,
+# d = 30; at the default training run's m ≈ 158 the launch dominates. The design: register-tiled
 # distances (a block stages a tile of queries and of keys in shared memory,
 # a thread runs TM × TN independent fmaf chains, one a pair, in feature
 # order), each query's k best kept as packed 64-bit (d2, index) keys and
@@ -327,7 +328,8 @@ def fused_score(
 #: the kernel's compile-time bounds (csrc/knn_topk.cu: kMaxK, kMaxD)
 KNN_MAX_K = 32
 KNN_MAX_D = 128
-#: keys a tile at m ≤ 4096 or d > 32 (csrc/knn_topk.cu: SmallTile; 128 above)
+#: keys a tile at m ≤ 4096 (csrc/knn_topk.cu: SmallTile; above, 128 at
+#: d ≤ 32 and 64 at more features)
 KNN_SMALL_TILE = 32
 #: the kernel's empty list slot (+inf, 0x7fffffff) as a :func:`knn_pack_keys` key
 KNN_EMPTY_KEY = (0xFF800000 - 2**31) * 2**32 + 0x7FFFFFFF
@@ -356,28 +358,24 @@ def knn_pack_keys(d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def knn_select_split_reference(
-    d2: torch.Tensor,
-    k: int,
-    splits: int,
-    tile: int = KNN_SMALL_TILE,
-    rows: torch.Tensor | None = None,
+    d2: torch.Tensor, k: int, splits: int, tile: int = KNN_SMALL_TILE
 ) -> torch.Tensor:
-    """The kernel's selection over a distance matrix ``d2`` (queries
-    ``rows``, default all, against all m keys): keys cut into ``splits``
+    """The kernel's selection over a square distance matrix ``d2`` (every
+    row a query against all m keys): keys cut into ``splits``
     runs of ⌈⌈m / tile⌉ / splits⌉ tiles (the last ones short or empty), each
     run's k smallest packed keys per query (:func:`knn_pack_keys`; a query's
     own row and NaN distances are never candidates, missing slots are
     ``KNN_EMPTY_KEY``), then the k smallest of the runs' lists together —
-    the kernel's pass 1 and pass 2. Returns the low words as (rows, k)
+    the kernel's pass 1 and pass 2. Returns the low words as (m, k)
     int32."""
-    n_q, m = d2.shape
-    ids = torch.arange(m, device=d2.device) if rows is None else rows.to(d2.device)
-    keys = knn_pack_keys(d2, torch.arange(m, device=d2.device).expand(n_q, m))
-    keys[torch.arange(n_q, device=d2.device), ids] = KNN_EMPTY_KEY
+    m = d2.shape[0]
+    ids = torch.arange(m, device=d2.device)
+    keys = knn_pack_keys(d2, ids.expand(m, m))
+    keys[ids, ids] = KNN_EMPTY_KEY
     keys[torch.isnan(d2)] = KNN_EMPTY_KEY
     tiles = -(-m // tile)
     span = -(-tiles // splits) * tile
-    empty = torch.full((n_q, k), KNN_EMPTY_KEY, dtype=torch.int64, device=d2.device)
+    empty = torch.full((m, k), KNN_EMPTY_KEY, dtype=torch.int64, device=d2.device)
     parts = []
     for s in range(splits):
         run = keys[:, min(s * span, m):min((s + 1) * span, m)]
@@ -402,9 +400,10 @@ _KNN_PLANS: dict[tuple[int, int, int, int], dict] = {}
 
 
 def knn_topk_plan(m: int, d: int, k: int, device: torch.device) -> dict:
-    """The kernel's launch shape for (m, d, k) on a CUDA ``device``: key
+    """The kernel's launch shape for (m, d, k) on a CUDA ``device``, as its
+    launcher chooses it from the card's SM count and occupancy: key
     ``splits`` (the grid's y), ``query_tiles`` (its x), ``tile`` (rows a
-    tile) and ``keys_per_split``, from the card's SM count."""
+    tile) and ``keys_per_split``."""
     index = torch.device(device).index or 0
     key = (m, d, k, index)
     plan = _KNN_PLANS.get(key)
@@ -493,8 +492,10 @@ def knn_topk(xc: torch.Tensor, sq: torch.Tensor, k: int) -> torch.Tensor:
     scratch = (torch.empty((splits, m, k), dtype=torch.int64, device=xc.device)
                if splits > 1 else None)
     rc = lib.knn_topk_launch(
-        xc.data_ptr(), sq.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        out.data_ptr(), m, d, k, splits, xc.device.index,
+        xc.data_ptr(), sq.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        0 if scratch is None else scratch.numel() * 8,
+        out.data_ptr(), m, d, k, xc.device.index,
         torch.cuda.current_stream(xc.device).cuda_stream,
     )
     if rc != 0:

@@ -129,7 +129,9 @@ def _knn_fixture(name: str) -> tuple[np.ndarray, int]:
      # 4 tiles, 8 and 32 tiles plus one, the switch to 128-row tiles; k = 32
      # at d = 128, and d = 1
      "33x30x5", "129x30x5", "257x30x5", "1025x30x5", "4097x30x5", "5000x30x5",
-     "1025x128x32", "33x128x32", "500x1x5"],
+     "1025x128x32", "33x128x32", "500x1x5",
+     # more than 32 features above 4096 rows
+     "5000x64x5"],
 )
 def test_knn_kernel_matches_plain_version_exactly(name):
     """Exact index equality: at these sizes no two candidate distances of a
@@ -148,7 +150,9 @@ def test_knn_kernel_matches_plain_version_exactly(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["158x30x5", "1025x128x32", "5000x30x5", "lattice"])
+@pytest.mark.parametrize(
+    "name", ["158x30x5", "1025x128x32", "5000x30x5", "5000x128x32", "lattice"]
+)
 def test_knn_kernel_two_launches_are_bitwise_equal(name):
     dev = _require_card()
     x, k = _knn_fixture(name)
@@ -166,6 +170,24 @@ def test_knn_plan_spreads_the_training_sizes_over_tens_of_blocks(m):
     plan = kernels.knn_topk_plan(m, 30, 5, dev)
     assert plan["splits"] > 1 and plan["splits"] * plan["query_tiles"] >= 10
     assert plan["splits"] * plan["keys_per_split"] >= m
+
+
+@pytest.mark.cuda
+def test_knn_launch_refuses_a_scratch_smaller_than_its_plan():
+    dev = _require_card()
+    x, k = _knn_fixture("158x30x5")
+    xc, sq = _knn_inputs(x, dev)
+    m, d = xc.shape
+    splits = kernels.knn_topk_plan(m, d, k, dev)["splits"]
+    assert splits > 1
+    lib = kernels._lib("knn_topk")
+    out = torch.empty((m, k), dtype=torch.int32, device=dev)
+    short = torch.empty((splits - 1, m, k), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for ptr, nbytes in ((None, 0), (short.data_ptr(), short.numel() * 8)):
+        rc = lib.knn_topk_launch(xc.data_ptr(), sq.data_ptr(), ptr, nbytes, out.data_ptr(),
+                                 m, d, k, torch.cuda.current_device(), stream)
+        assert rc != 0
 
 
 @pytest.mark.cuda
