@@ -11,17 +11,25 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
 1. **build** — compile every kernel under ``fraud_detection_tpu_torch/
    csrc/`` (one ``nvcc`` per source, started together) and load it; print
    ``ptxas -v``'s registers, stack frame and spills for every
-   instantiation of ``knn_topk``'s kernels, and fail on a spill or a stack
-   frame there.
-2. **kernels against their plain versions** — each kernel's wrapper on
-   CUDA tensors at the serving path's shapes (and a width that is not a
-   multiple of 32) against its plain PyTorch version on the same inputs,
-   max |kernel − plain| ≤ 1e-6; then times the kernel, the plain version
-   and one library call computing the same function (CUDA events over 200
-   calls replayed from one CUDA graph, so the host's launch cost is out of
-   the number; eager per-call times are printed beside), against the least
-   time the card could take (bytes over 3.35 TB/s, operations over the
-   f32 peak).
+   instantiation of ``fused_score``'s and ``knn_topk``'s kernels, and fail
+   on a spill or a stack frame there.
+2. **fused_score against its plain version** — the wrapper on CUDA
+   tensors at n = 1, 8, 33, 256, 1000, 1024, 4096, 20,000, 32,768 and
+   284,807 (d = 30), n = 33, 1024 and 10,000 at d = 37, n = 10,000 at
+   d = 65, and views whose base is not 16-byte aligned (``x[1:]`` and a
+   flat buffer one element in, n = 1000 and 10,000, d = 30 and 37), so
+   both of the kernel's shapes (a warp a row below 8192 rows or above 64
+   features, a thread a row of a tile otherwise) are held: max |kernel −
+   plain| ≤ 1e-6, on the f32 rows and on the same rows in bf16, whose
+   scores must equal the kernel's on ``x.float()`` bit for bit. Then times
+   the kernel at n = 1024, 4096, 20,000 and 32,768 (f32) and 1024 and
+   20,000 (bf16), the plain version, one library call computing the
+   same function (``sigmoid(addmv)``; bf16 rows are upcast first) and a
+   one-thread empty kernel built with the same flags (the launch floor),
+   all as CUDA events over 200 calls replayed from one CUDA graph, so the
+   host's launch cost is out of the number (eager per-call times are
+   printed beside), against the least time the card could take (bytes over
+   3.35 TB/s, operations over the f32 peak).
 2b. **knn_topk against its plain version** — rows from
    ``np.random.default_rng(seed)`` at (m, d, k) = (2, 30, 1), (6, 30, 5),
    (126, 30, 5), (158, 30, 5), (1000, 37, 5), (4096, 30, 5),
@@ -137,6 +145,13 @@ CLIENTS = 64  # client threads sending them
 N_SEQUENTIAL = 64  # then one client, one request at a time
 PROFILE_ROWS = 20_000
 TIMED_LAUNCHES = 200
+#: phase 2's fused_score fixtures (n, d), besides the offset views
+FUSED_SCORE_SHAPES = ((1, 30), (8, 30), (33, 30), (256, 30), (1000, 30), (1024, 30),
+                      (4096, 30), (20000, 30), (32768, 30), (284807, 30), (33, 37),
+                      (1024, 37), (10000, 37), (10000, 65))
+FUSED_SCORE_VIEW_N = (1000, 10000)  # rows of the offset views: both of the kernel's shapes
+FUSED_SCORE_TIMED_N = (1024, 4096, 20000, 32768)  # f32 rows at d = 30
+FUSED_SCORE_BF16_TIMED_N = (1024, 20000)  # bf16 rows at d = 30
 KNN_SAMPLE_ROWS = 4096  # plain-version queries at m >= KNN_SAMPLED_FROM
 KNN_SAMPLED_FROM = 20_000
 KNN_NEAR_TIE_RTOL = 1e-5
@@ -282,25 +297,26 @@ def union_us(intervals) -> float:
     return total
 
 
-def check_knn_resources(kernels) -> None:
+def check_ptxas_resources(kernels, name: str) -> None:
     """ptxas's registers, stack frame and spills for every instantiation of
-    knn_topk's kernels; a spill or a stack frame fails the phase. The log is
-    the build's own, or a rebuild's when the library was already there."""
-    log = kernels.BUILD_LOGS.get("knn_topk")
+    a kernel's entry functions; a spill or a stack frame fails the phase.
+    The log is the build's own, or a rebuild's when the library was already
+    there."""
+    log = kernels.BUILD_LOGS.get(name)
     if log is None:
-        _, log = kernels.build_library(kernels.CSRC_DIR / "knn_topk.cu",
-                                       "knn_topk_resources", {})
-    usage = [u for u in kernels.ptxas_usage(log) if "knn_topk" in u["function"]]
+        _, log = kernels.build_library(kernels.CSRC_DIR / f"{name}.cu",
+                                       f"{name}_resources", {})
+    usage = [u for u in kernels.ptxas_usage(log) if name in u["function"]]
     if not usage:
-        raise AssertionError("ptxas reported no knn_topk kernel")
+        raise AssertionError(f"ptxas reported no {name} kernel")
     for u in usage:
-        name = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?_knn_topk_cu_\w+?\d+(knn_topk)", r"\1",
-                      u["function"])
-        print(f"phase1: ptxas knn_topk {name}: {u.get('registers')} registers, "
+        short = re.sub(rf"^_ZN\w*?_GLOBAL__N__\w+?_{name}_cu_\w+?\d+({name})", r"\1",
+                       u["function"])
+        print(f"phase1: ptxas {name} {short}: {u.get('registers')} registers, "
               f"{u.get('stack')} bytes stack frame, {u.get('spill_stores')} bytes spill "
               f"stores, {u.get('spill_loads')} bytes spill loads")
         if u.get("stack") or u.get("spill_stores") or u.get("spill_loads"):
-            raise AssertionError(f"knn_topk instantiation {name} spills or has a stack frame")
+            raise AssertionError(f"{name} instantiation {short} spills or has a stack frame")
 
 
 # ---------------------------------------------------------------------------
@@ -308,74 +324,159 @@ def check_knn_resources(kernels) -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_fused_score(seed: int) -> dict:
+def fused_score_fixtures(seed: int) -> list[tuple[str, object, object, object]]:
+    """(label, x, w, b) on the card for phase 2, all from one seed: a lone
+    request's bucket and the ladder's, the committed dataset's 20,000 rows
+    and its padded bucket, the Kaggle file's 284,807, n < 32 and n = 33 past
+    a warp, widths that are not a multiple of 32 (one past the tiles' 64),
+    and contiguous views whose base is not 16-byte aligned — ``x[1:]`` (one
+    row in) and a flat buffer one element (4 bytes) in — at d = 30 and 37,
+    on each side of the kernel's switch to tiles."""
     import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    b = torch.tensor(-0.5, dtype=torch.float32, device=dev)
+
+    def coef(d):
+        return torch.from_numpy((rng.standard_normal(d) / math.sqrt(d)).astype(np.float32)).to(dev)
+
+    out = []
+    for n, d in FUSED_SCORE_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+        out.append((f"n={n} d={d}", x, coef(d), b))
+    for d, n in ((d, n) for d in (30, 37) for n in FUSED_SCORE_VIEW_N):
+        buf = torch.from_numpy(rng.standard_normal((n + 1) * d + 1, dtype=np.float32)).to(dev)
+        w = coef(d)
+        out.append((f"x[1:] n={n} d={d}", buf[: (n + 1) * d].view(n + 1, d)[1:], w, b))
+        out.append((f"flat[1:] n={n} d={d}", buf[1 : 1 + n * d].view(n, d), w, b))
+    return out
+
+
+def fused_score_bound(n: int, d: int, elem_bytes: int = 4) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, bytes, operations): x read once at
+    ``elem_bytes`` an element, w and b read once, one f32 score written;
+    a multiply-add an element, then bias, exp, add and divide a row."""
+    n_bytes = elem_bytes * n * d + 4 * d + 4 + 4 * n
+    n_ops = 2 * n * d + 4 * n
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
+
+
+LAUNCH_FLOOR_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void launch_floor_kernel() {}
+extern "C" int launch_floor(void* stream) {
+  launch_floor_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def launch_floor_fn():
+    """A one-thread empty kernel built with the port's nvcc flags, as a
+    callable on the current stream: the launch floor of this timing
+    harness."""
+    import ctypes
+
     import torch
 
     from fraud_detection_tpu_torch.ops import kernels
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = kernels.BUILD_DIR / "launch_floor.cu"
+    src.write_text(LAUNCH_FLOOR_SOURCE)
+    lib, _ = kernels.build_library(
+        src, "launch_floor", {"launch_floor": ([ctypes.c_void_p], ctypes.c_int)})
+
+    def call():
+        if lib.launch_floor(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the empty kernel did not launch")
+
+    return call
+
+
+def check_fused_score(seed: int) -> dict:
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+
     worst = 0.0
-    shapes = [(1, 30), (8, 30), (256, 30), (1000, 30), (1024, 30), (20000, 30),
-              (1024, 37), (33, 37)]
     inputs = {}
-    for n, d in shapes:
-        x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
-        w = torch.from_numpy(
-            (rng.standard_normal(d) / math.sqrt(d)).astype(np.float32)
-        ).to(dev)
-        b = torch.tensor(-0.5, dtype=torch.float32, device=dev)
+    for label, x, w, b in fused_score_fixtures(seed):
+        n, d = x.shape
         got = kernels.fused_score(w, b, x)
         want = kernels.fused_score_reference(w, b, x)
+        # bf16 rows: bitwise the f32 path on the same values, and the plain
+        # version on the bf16 rows
+        xb = x.bfloat16()
+        got_b = kernels.fused_score(w, b, xb)
+        via_f32 = kernels.fused_score(w, b, xb.float())
+        want_b = kernels.fused_score_reference(w, b, xb)
         torch.cuda.synchronize()
-        if got.shape != (n,) or not torch.isfinite(got).all():
-            raise AssertionError(f"fused_score ({n}, {d}): bad output {got.shape}")
+        for out in (got, got_b):
+            if out.shape != (n,) or out.dtype != torch.float32 or not torch.isfinite(out).all():
+                raise AssertionError(f"fused_score {label}: bad output {out.shape} {out.dtype}")
         err = float((got - want).abs().max())
-        print(f"phase2: fused_score n={n} d={d} max_abs_err={err:.3e}")
-        if err > KERNEL_TOL:
+        err_b = float((got_b - want_b).abs().max())
+        bits = int((got_b.view(torch.int32) != via_f32.view(torch.int32)).sum())
+        print(f"phase2: fused_score {label} max_abs_err={err:.3e}; bf16 rows "
+              f"max_abs_err={err_b:.3e}, {bits} of {n} scores differ in bits from the "
+              f"f32 kernel on x.float()")
+        if max(err, err_b) > KERNEL_TOL:
             raise AssertionError(
-                f"fused_score ({n}, {d}) differs from its plain version by "
-                f"{err:.3e} > {KERNEL_TOL}"
+                f"fused_score {label} differs from its plain version by "
+                f"{max(err, err_b):.3e} > {KERNEL_TOL}"
             )
-        worst = max(worst, err)
-        inputs[(n, d)] = (x, w, b)
+        if bits:
+            raise AssertionError(f"fused_score {label}: bf16 rows are not bitwise the f32 path")
+        worst = max(worst, err, err_b)
+        if label == f"n={n} d=30" and n in FUSED_SCORE_TIMED_N:
+            inputs[n] = (x, w, b)
+        del got, want, xb, got_b, via_f32, want_b
 
+    floor_fn = launch_floor_fn()
+    floor = graph_ms(floor_fn)
+    print(f"phase2: launch floor (a one-thread empty kernel, same flags, CUDA events over "
+          f"{TIMED_LAUNCHES} launches replayed from a CUDA graph): {floor:.6f} ms")
     rows = {}
-    for n in (1024, 20000):
-        x, w, b = inputs[(n, 30)]
-        d = 30
+    timed = [(n, "float32") for n in FUSED_SCORE_TIMED_N]
+    timed += [(n, "bfloat16") for n in FUSED_SCORE_BF16_TIMED_N]
+    for n, dtype in timed:
+        x, w, b = inputs[n]
+        d = x.shape[1]
+        if dtype == "bfloat16":
+            x = x.bfloat16()
         kernel_fn = lambda: kernels.fused_score(w, b, x)  # noqa: E731
         plain_fn = lambda: kernels.fused_score_reference(w, b, x)  # noqa: E731
-        library_fn = lambda: torch.sigmoid(torch.addmv(b, x, w))  # noqa: E731
+        # one PyTorch call for f32 rows; bf16 rows need the upcast first
+        library_fn = lambda: torch.sigmoid(torch.addmv(b, x.float(), w))  # noqa: E731
         ms, plain, library = (graph_ms(f) for f in (kernel_fn, plain_fn, library_fn))
         eager = [eager_ms(f) for f in (kernel_fn, plain_fn, library_fn)]
-        n_bytes = 4 * (n * d + d + 1 + n)  # x, w, b read once; scores written
-        n_ops = 2 * n * d + 4 * n  # multiply-adds + bias, exp, add, divide
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+        bound, by, n_bytes, n_ops = fused_score_bound(n, d, x.element_size())
         prof = [
             us for name, us in profiled_kernels(
                 lambda: [kernels.fused_score(w, b, x) for _ in range(20)]
             ) if "fused_score" in name
         ]
         dev_us = f"{sum(prof) / len(prof):.3f}" if prof else "not measured"
-        rows[n] = {
-            "ms": ms, "plain_ms": plain, "library_ms": library,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        rows[(n, dtype)] = {
+            "ms": ms, "plain_ms": plain, "library_ms": library if dtype == "float32" else None,
+            "bound_ms": bound, "bound_by": by, "launch_floor_ms": floor,
         }
         print(
-            f"phase2: fused_score timing n={n} d={d} (CUDA events over "
+            f"phase2: fused_score timing n={n} d={d} {dtype} (CUDA events over "
             f"{TIMED_LAUNCHES} launches replayed from a CUDA graph): kernel "
-            f"{ms:.6f} ms, plain {plain:.6f} ms, library sigmoid(addmv) "
-            f"{library:.6f} ms, bound {rows[n]['bound_ms']:.6f} ms "
-            f"({rows[n]['bound_by']}: {n_bytes} B, {n_ops} ops); kernel "
-            f"device time {dev_us} us (profiler); eager calls (CUDA events, "
+            f"{ms:.6f} ms, launch floor {floor:.6f} ms, plain {plain:.6f} ms, "
+            f"{'library sigmoid(addmv)' if dtype == 'float32' else 'sigmoid(addmv(x.float()))'} "
+            f"{library:.6f} ms, bound {bound:.6f} ms ({by}: {n_bytes} B, {n_ops} ops); "
+            f"kernel device time {dev_us} us (profiler); eager calls (CUDA events, "
             f"host-bound): kernel {eager[0]:.6f} ms, plain {eager[1]:.6f} ms, "
             f"library {eager[2]:.6f} ms"
         )
-    return {"max_abs_err": worst, "timing": rows}
+    return {"max_abs_err": worst, "timing": rows, "launch_floor_ms": floor}
 
 
 # ---------------------------------------------------------------------------
@@ -1684,7 +1785,8 @@ def main() -> int:
           f"(per kernel: {', '.join(f'{k} {v:.3f} s' for k, v in built.items())})")
     if sorted(built) != sorted(KERNELS):
         raise AssertionError(f"csrc kernels {sorted(built)} != {sorted(KERNELS)}")
-    check_knn_resources(kernels)
+    for name in ("fused_score", "knn_topk"):
+        check_ptxas_resources(kernels, name)
     print(f"kernels: {json.dumps(sorted(KERNELS))}")
 
     fs = check_fused_score(seed=0)
@@ -1706,11 +1808,15 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": library_ms, **extra,
         }
 
-    t = fs["timing"][1024]
+    t = fs["timing"][1024, "float32"]
     k_small, k_big = knn["timing"][158], knn["timing"][100000]
     k_fold = knn["timing"][126]
     line = {"kernels": [
-        row("fused_score", served["fused_score"], fs, t, t["library_ms"]),
+        row("fused_score", served["fused_score"], fs, t, t["library_ms"],
+            n=1024, launch_floor_ms=fs["launch_floor_ms"],
+            **{f"at_n_{n}{'_bf16' if dt == 'bfloat16' else ''}":
+               {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+               for (n, dt), v in fs["timing"].items() if (n, dt) != (1024, "float32")}),
         # no single PyTorch call computes k-NN with this tie rule: the
         # library column is null, the two-call orientation stands beside it;
         # max_abs_err is the largest float64 distance gap between the

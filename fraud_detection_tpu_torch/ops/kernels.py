@@ -50,7 +50,8 @@ _SIGNATURES = {
     "fused_score": {
         "fused_score_launch": (
             [ctypes.c_void_p] * 4
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p],
             ctypes.c_int,
         ),
         "fused_score_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -198,15 +199,17 @@ def _bind(name: str, lib: ctypes.CDLL, signatures: dict | None = None) -> ctypes
     return lib
 
 
-def build_library(source: Path, name: str, signatures: dict) -> tuple[ctypes.CDLL, str]:
-    """Compile one ``.cu`` outside ``csrc/`` (an earlier design of a kernel,
-    for a comparison in turns) with the port's flags into
-    ``build/lib<name>.so`` and load it with ``signatures`` (function →
-    (argtypes, restype)). Returns the library and nvcc's output; raises with
-    that output when the build fails."""
+def build_library(source: Path, name: str, signatures: dict,
+                  flags: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
+    """Compile one ``.cu`` (an earlier design of a kernel, or a source built
+    with extra ``flags`` such as a ``-D`` setting, for a comparison in
+    turns) with the port's flags into ``build/lib<name>.so`` and load it
+    with ``signatures`` (function → (argtypes, restype)). Returns the
+    library and nvcc's output; raises with that output when the build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{name}.so"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-o", str(out), str(source)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}")
@@ -246,29 +249,37 @@ def _lib(name: str) -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 # fused_score — replaces fraud_detection_tpu/ops/pallas_kernels.py::_score_kernel
 # ---------------------------------------------------------------------------
-# Bound on the H100: bytes, 4·n·(d+1) (x read once, one f32 score written).
-# At the 1024-row serving bucket and d = 30 that is ~127 KB — under 0.04 µs
-# at 3.35 TB/s, far under the few µs a launch costs, so at serving sizes
-# the launch dominates. The design does the whole row in one pass (one warp
-# per row, coalesced loads, shuffle reduction, sigmoid in the epilogue):
-# one launch, x read once, no scratch. See csrc/fused_score.cu.
+# Bound on the H100: bytes, (e·d + 4)·n (x read once at e = 4 or 2 bytes an
+# element, one f32 score written). At the 1024-row serving bucket and d = 30
+# that is ~127 KB in f32 — under 0.04 µs at 3.35 TB/s, far under the few µs
+# a launch costs, so at serving sizes the launch dominates. The launcher
+# picks the shape from n and d: a warp a row (one coalesced load, five
+# shuffles) for the ladder's buckets and for rows wider than 64, and from
+# 8192 rows up a thread a row of a 32-row tile staged in shared memory.
+# Both give the same bits: a thread adds its row's 32 partials in the warp
+# shape's order. bf16 elements are upcast exactly as they are read, so bf16
+# rows give the f32 path's bits on ``x.float()``. See csrc/fused_score.cu.
+
+#: the x dtypes the kernel takes, and the launcher's code for each
+FUSED_SCORE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_score_reference(
     coef: torch.Tensor, intercept: torch.Tensor, x: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``sigmoid(x @ coef + b)``. The
-    CPU path and the tests use it; the card never does."""
+    """Plain PyTorch version of the kernel: ``sigmoid(x.float() @ coef + b)``.
+    The CPU path and the tests use it; the card never does."""
     return torch.sigmoid(x.float() @ coef + intercept)
 
 
 def fused_score(
     coef: torch.Tensor, intercept: torch.Tensor, x: torch.Tensor
 ) -> torch.Tensor:
-    """``sigmoid(x @ coef + intercept)`` per row: x (n, d) contiguous f32,
-    coef (d,) f32, intercept () f32, all on one device → (n,) f32. CUDA
-    tensors launch the hand-written kernel on the current stream; CPU
-    tensors take :func:`fused_score_reference`."""
+    """``sigmoid(x @ coef + intercept)`` per row: x (n, d) contiguous f32 or
+    bf16 (upcast exactly, as JAX's ``fused_score`` does), coef (d,) f32,
+    intercept () f32, all on one device → (n,) f32. CUDA tensors launch the
+    hand-written kernel on the current stream; CPU tensors take
+    :func:`fused_score_reference`."""
     global FUSED_SCORE_LAUNCHES
     if x.dim() != 2 or coef.dim() != 1 or intercept.numel() != 1:
         raise ValueError(
@@ -278,7 +289,9 @@ def fused_score(
     n, d = x.shape
     if coef.shape[0] != d:
         raise ValueError(f"coef has {coef.shape[0]} features, x has {d}")
-    for t, what in ((x, "x"), (coef, "coef"), (intercept, "intercept")):
+    if x.dtype not in FUSED_SCORE_DTYPES:
+        raise TypeError(f"fused_score wants a float32 x or a bfloat16 x, got {x.dtype}")
+    for t, what in ((coef, "coef"), (intercept, "intercept")):
         if t.dtype != torch.float32:
             raise TypeError(f"fused_score wants float32 {what}, got {t.dtype}")
         if t.device != x.device:
@@ -295,7 +308,7 @@ def fused_score(
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     rc = lib.fused_score_launch(
         x.data_ptr(), coef.data_ptr(), intercept.data_ptr(), out.data_ptr(),
-        n, d, x.device.index,
+        n, d, FUSED_SCORE_DTYPES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:

@@ -33,7 +33,10 @@ def _require_card() -> torch.device:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, d", [(1, 30), (1024, 30), (20000, 30), (1031, 37)])
+@pytest.mark.parametrize("n, d", [(1, 30), (1024, 30), (20000, 30), (1031, 37), (8, 30),
+                                  (33, 30), (4096, 30), (284807, 30), (5, 1), (300, 65),
+                                  (50, 200), (40, 513), (9, 1025), (3, 3000), (8191, 30),
+                                  (8192, 30), (8193, 1), (10000, 64), (10000, 65)])
 def test_kernel_matches_plain_version(n, d):
     """Within 1e-6: the kernel and cuBLAS sum x·w in different orders."""
     dev = _require_card()
@@ -47,6 +50,75 @@ def test_kernel_matches_plain_version(n, d):
     torch.cuda.synchronize()
     assert kernels.FUSED_SCORE_LAUNCHES == before + 1
     assert got.shape == (n,)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def _score_inputs(n: int, d: int, dev, seed: int = 3):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal(d) / np.sqrt(d)).astype(np.float32)).to(dev)
+    return x, w, torch.tensor(-0.5, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", [(1, 30), (8, 30), (33, 37), (1024, 30), (20000, 30),
+                                  (284807, 30), (77, 64), (40, 513), (8193, 37),
+                                  (10000, 64), (10000, 65)])
+def test_bf16_rows_are_bitwise_the_f32_path_on_their_values(n, d):
+    """bf16 rows are upcast exactly as they are read: the scores equal
+    the kernel's on ``x.float()`` bit for bit, and the plain version on the
+    bf16 rows within 1e-6."""
+    dev = _require_card()
+    x, w, b = _score_inputs(n, d, dev)
+    xb = x.bfloat16()
+    before = kernels.FUSED_SCORE_LAUNCHES
+    got = kernels.fused_score(w, b, xb)
+    via_f32 = kernels.fused_score(w, b, xb.float())
+    want = kernels.fused_score_reference(w, b, xb)
+    torch.cuda.synchronize()
+    assert kernels.FUSED_SCORE_LAUNCHES == before + 2
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert torch.equal(got.view(torch.int32), via_f32.view(torch.int32))
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 30, 37, 64])
+def test_a_row_scores_the_same_bits_in_either_shape(d):
+    """The launcher takes a warp a row for 4096 rows and a thread a row of
+    a tile for 20,000 (d <= 64): the rows the two batches share get the
+    same bits."""
+    dev = _require_card()
+    x, w, b = _score_inputs(20000, d, dev)
+    whole = kernels.fused_score(w, b, x)
+    head = kernels.fused_score(w, b, x[:4096])
+    torch.cuda.synchronize()
+    assert torch.equal(whole[:4096].view(torch.int32), head.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["rows", "flat"])
+@pytest.mark.parametrize("d", [30, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1000, 10000])
+def test_views_off_16_byte_alignment_give_the_same_bits(view, d, dtype, n):
+    """``x[1:]`` (one row in) and a flat buffer one element in start off a
+    16-byte boundary; the kernel takes them as they are, with the bits it
+    gives an aligned copy of the same rows, within 1e-6 of the plain
+    version, at a row count of each of the kernel's shapes."""
+    dev = _require_card()
+    rng = np.random.default_rng(d)
+    buf = torch.from_numpy(rng.standard_normal((n + 1) * d + 1, dtype=np.float32))
+    buf = buf.to(dev).to(dtype)
+    x = buf[: (n + 1) * d].view(n + 1, d)[1:] if view == "rows" else buf[1 : 1 + n * d].view(n, d)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = torch.from_numpy((rng.standard_normal(d) / np.sqrt(d)).astype(np.float32)).to(dev)
+    b = torch.tensor(-0.5, device=dev)
+    got = kernels.fused_score(w, b, x)
+    aligned = kernels.fused_score(w, b, x.clone())
+    want = kernels.fused_score_reference(w, b, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), aligned.view(torch.int32))
     assert float((got - want).abs().max()) <= 1e-6
 
 
