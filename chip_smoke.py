@@ -14,7 +14,7 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    instantiation of ``fused_score``'s and ``knn_topk``'s kernels, and fail
    on a spill or a stack frame there.
 2. **fused_score against its plain version** — the wrapper on CUDA
-   tensors at n = 1, 8, 33, 256, 1000, 1024, 4096, 20,000, 32,768 and
+   tensors at n = 1, 8, 33, 64, 256, 1000, 1024, 4096, 20,000, 32,768 and
    284,807 (d = 30), n = 33, 1024 and 10,000 at d = 37, n = 10,000 at
    d = 65, and views whose base is not 16-byte aligned (``x[1:]`` and a
    flat buffer one element in, n = 1000 and 10,000, d = 30 and 37), so
@@ -22,7 +22,7 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    features, a thread a row of a tile otherwise) are held: max |kernel −
    plain| ≤ 1e-6, on the f32 rows and on the same rows in bf16, whose
    scores must equal the kernel's on ``x.float()`` bit for bit. Then times
-   the kernel at n = 1024, 4096, 20,000 and 32,768 (f32) and 1024 and
+   the kernel at n = 8, 64, 1024, 4096, 20,000 and 32,768 (f32) and 1024 and
    20,000 (bf16), the plain version, one library call computing the
    same function (``sigmoid(addmv)``; bf16 rows are upcast first) and a
    one-thread empty kernel built with the same flags (the launch floor),
@@ -72,7 +72,9 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
 3. **the served path** — copies ``models/``, builds the drift baseline
    from the first 20,000 rows of ``data/creditcard.csv`` with the port's
    ``build_baseline_profile``, serves the port's app over HTTP on
-   localhost with ``SCORER_EXPLAIN=topk`` and the default
+   localhost (its results DB and broker in the run's temp directory:
+   every ``/predict`` persists and enqueues its explanation, which phase 7
+   drains) with ``SCORER_EXPLAIN=topk`` and the default
    ``SCORER_MAX_BATCH``, sends 256 ``/predict`` requests with real rows
    from 64 threads of a separate client process, then 64 one at a time,
    and checks every score against a float64 numpy computation
@@ -110,6 +112,26 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    programmatic dependent launch that overlaps its primary counts once;
    ``tree_shap`` from its group pass's start to its group sum's end) and
    30 timed on the host's clock.
+7. **the explain path** — for phase 3's logistic directory and phase 5's
+   forest: the app with a results DB and a broker (sqlite files in the
+   run's temp directory) answers ``/health`` 200 ``healthy`` and 128
+   ``/predict`` with ``explanation_status: "queued"``; one poison task (a
+   row of the wrong width, no retries) joins the queue; the worker's entry
+   point (``python -m fraud_detection_tpu_torch.service.worker --max-batch
+   64``, its own process, the default device) drains it until every
+   ``/explain/{id}`` reads COMPLETED and the poison FAILED, within 300 s,
+   and exits 0 on SIGTERM; its ``/metrics`` show no explain-consistency
+   failure, 128 successes and 1 failure; the queue is empty. Every stored
+   score is within 1e-5 of float64 numpy (``model.npz``; the float64
+   forest walk), every φ within 1e-5 of the float64 closed form
+   coef·(x − μ) (logistic) or within rtol 1e-4 / atol 2e-5 of the port's
+   CPU plain TreeSHAP (GBT), and Σφ + E[f] within 1e-4 of the score's
+   logit. Then, in process, one ``run_batch`` of 64 tasks under zeroed
+   launch counts must launch ``fused_score`` (logistic) or ``tree_shap``
+   (GBT), three more run under the profiler (device busy a batch) and 20
+   more are timed on the host's clock, by stage (claim, score, explain,
+   upserts, acks); prints the drain's seconds, the ``/explain`` readback
+   latency and ``run_batch``'s p50.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -127,6 +149,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -146,11 +169,13 @@ N_SEQUENTIAL = 64  # then one client, one request at a time
 PROFILE_ROWS = 20_000
 TIMED_LAUNCHES = 200
 #: phase 2's fused_score fixtures (n, d), besides the offset views
-FUSED_SCORE_SHAPES = ((1, 30), (8, 30), (33, 30), (256, 30), (1000, 30), (1024, 30),
+FUSED_SCORE_SHAPES = ((1, 30), (8, 30), (33, 30), (64, 30), (256, 30), (1000, 30), (1024, 30),
                       (4096, 30), (20000, 30), (32768, 30), (284807, 30), (33, 37),
                       (1024, 37), (10000, 37), (10000, 65))
 FUSED_SCORE_VIEW_N = (1000, 10000)  # rows of the offset views: both of the kernel's shapes
-FUSED_SCORE_TIMED_N = (1024, 4096, 20000, 32768)  # f32 rows at d = 30
+#: f32 rows at d = 30: the worker's smallest and largest bucket (8, 64), the
+#: flush cap, the ladder's top, the CSV, the profile's bucket
+FUSED_SCORE_TIMED_N = (8, 64, 1024, 4096, 20000, 32768)
 FUSED_SCORE_BF16_TIMED_N = (1024, 20000)  # bf16 rows at d = 30
 KNN_SAMPLE_ROWS = 4096  # plain-version queries at m >= KNN_SAMPLED_FROM
 KNN_SAMPLED_FROM = 20_000
@@ -171,11 +196,17 @@ GBT_TRAIN_AUC_TOL = 5e-3
 #: 6 fits (5 folds + the final fit) x 100 trees x (5 levels + 1 leaf sum)
 GBT_HIST_LAUNCHES_PER_RUN = 6 * 100 * 6
 
+EXPLAIN_REQUESTS = 128  # phase 7: /predict requests whose explanations the worker drains
+EXPLAIN_DRAIN_TIMEOUT_S = 300  # worker start-up, warm-up and the drain
+EXPLAIN_TIMED_BATCHES = 20  # in-process run_batch(64) calls timed
+
 #: the kernels each path must launch (its counts zeroed just before it)
 SERVED_KERNELS = ("fused_score",)
 TRAINED_KERNELS = ("knn_topk",)
 GBT_TRAINED_KERNELS = ("gbt_hist", "knn_topk")
 GBT_SERVED_KERNELS = ("tree_shap",)
+#: phase 7: the kernel the worker's batch must launch, by family
+EXPLAIN_KERNELS = {"logistic": "fused_score", "gbt": "tree_shap"}
 
 #: every ported kernel: name → (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -1150,7 +1181,8 @@ def served_path(work: Path) -> dict:
     for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
                  "SCORER_RETURN_WIRE"):
         os.environ.pop(knob, None)
-    app = create_app()
+    app = create_app(database_url=f"sqlite:///{work}/served_fraud.db",
+                     broker_url=f"sqlite:///{work}/served_taskq.db")
     port = free_port()
     server = ServerThread(app, port)
     t0 = time.perf_counter()
@@ -1625,7 +1657,8 @@ def gbt_served_path(work: Path, art_dir: str) -> dict:
     for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
                  "SCORER_RETURN_WIRE"):
         os.environ.pop(knob, None)
-    app = create_app()
+    app = create_app(database_url=f"sqlite:///{work}/gbt_served_fraud.db",
+                     broker_url=f"sqlite:///{work}/gbt_served_taskq.db")
     port = free_port()
     server = ServerThread(app, port)
     t0 = time.perf_counter()
@@ -1753,6 +1786,252 @@ def gbt_served_path(work: Path, art_dir: str) -> dict:
         server.stop()
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 7: the explain path
+# ---------------------------------------------------------------------------
+
+
+def drain_worker(env: dict, log_path: Path, metrics_port: int) -> subprocess.Popen:
+    """The SHAP worker through its entry point, as a deployment starts it:
+    its own process, the default device, batches of 64."""
+    with open(log_path, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "fraud_detection_tpu_torch.service.worker",
+             "--max-batch", "64", "--metrics-port", str(metrics_port)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+        )
+
+
+def explain_path(work: Path, family: str, model_dir: Path, card: str) -> dict:
+    """Serve ``model_dir`` with a results DB and a broker, queue
+    ``EXPLAIN_REQUESTS`` explanations through ``/predict`` plus one poison
+    task, drain them with the worker's entry point on the card, check every
+    stored explanation, then count and time ``run_batch`` in process."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.tree_shap import tree_shap
+    from fraud_detection_tpu_torch.service.app import create_app
+    from fraud_detection_tpu_torch.service.worker import XaiWorker
+
+    tag = f"phase7 {family}"
+    stores = work / f"explain_{family}"
+    stores.mkdir()
+    db_url, q_url = f"sqlite:///{stores}/fraud.db", f"sqlite:///{stores}/taskq.db"
+    data = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                      max_rows=EXPLAIN_REQUESTS, dtype=np.float64)
+    x64 = data[:, :30]
+    x = x64.astype(np.float32)
+    os.environ.update(DEVICE="cuda", SCORER_EXPLAIN="topk",
+                      MODEL_PATH=str(model_dir / "model.npz"))
+    app = create_app(database_url=db_url, broker_url=q_url)
+    port = free_port()
+    server = ServerThread(app, port)
+    server.start()
+    worker_proc = None
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"server did not start: {server.error!r}")
+    try:
+        status, body = http_call(port, "GET", "/health")
+        health = json.loads(body)
+        if status != 200 or health["status"] != "healthy":
+            raise AssertionError(f"{tag}: /health {status} {health}")
+        results, wall = drive_clients(port, x, CLIENTS, work)
+        ids = []
+        for i, (status, body, _) in enumerate(results):
+            out = json.loads(body)
+            if status != 200 or out["explanation_status"] != "queued":
+                raise AssertionError(f"{tag}: /predict {i}: HTTP {status} {body[:200]!r}")
+            ids.append(out["transaction_id"])
+        app.state["db"].create_pending("poison", {"wrong": 1.0}, None)
+        app.state["broker"].send_task("xai_tasks.compute_shap",
+                                      ["poison", {"wrong": 1.0}, None], max_retries=0)
+        print(f"{tag}: /health 200 healthy; {len(ids)} /predict answered "
+              f"explanation_status=queued in {wall:.3f} s; queue depth "
+              f"{app.state['broker'].depth()} with the poison task")
+
+        env = {k: v for k, v in os.environ.items() if k != "DEVICE"}  # the default: cuda
+        env.update(DATABASE_URL=db_url, CELERY_BROKER_URL=q_url,
+                   PYTHONPATH=str(ROOT))
+        metrics_port = free_port()
+        t0 = time.perf_counter()
+        worker_proc = drain_worker(env, stores / "worker.log", metrics_port)
+        # the poison task was queued last: it settles (FAILED) in the last batch
+        pending, first = set(ids) | {"poison"}, None
+        while pending:
+            if time.perf_counter() - t0 > EXPLAIN_DRAIN_TIMEOUT_S:
+                raise AssertionError(f"{tag}: {len(pending)} of {len(ids)} rows not "
+                                     f"COMPLETED after {EXPLAIN_DRAIN_TIMEOUT_S} s")
+            if worker_proc.poll() is not None:
+                raise AssertionError(f"{tag}: the worker exited {worker_proc.returncode}: "
+                                     + (stores / "worker.log").read_text()[-3000:])
+            for tx in sorted(pending):
+                status, _ = http_call(port, "GET", f"/explain/{tx}")
+                if status == 200:
+                    pending.discard(tx)
+                    first = first or time.perf_counter()
+            if pending:
+                time.sleep(0.05)
+        drained = time.perf_counter() - t0
+        status, body = http_call(port, "GET", "/explain/poison")
+        poison = json.loads(body)
+        if status != 200 or poison["status"] != "FAILED" or \
+                "missing features" not in (poison["error"] or ""):
+            raise AssertionError(f"{tag}: poison task {status} {poison}")
+        # a row reads COMPLETED before its task is acked and counted
+        while True:
+            _, body = http_call(metrics_port, "GET", "/metrics")
+            wm = body.decode()
+            consistency = metric_value(wm, "xai_explain_consistency_failures_total")
+            success = metric_value(wm, "xai_task_success_total")
+            failures = metric_value(wm, "xai_task_failures_total")
+            if success + failures >= len(ids) + 1 or \
+                    time.perf_counter() - t0 > EXPLAIN_DRAIN_TIMEOUT_S:
+                break
+            time.sleep(0.05)
+        worker_proc.send_signal(signal.SIGTERM)
+        rc = worker_proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"{tag}: the worker exited {rc} on SIGTERM: "
+                                 + (stores / "worker.log").read_text()[-3000:])
+        if consistency != 0 or success != len(ids) or failures != 1:
+            raise AssertionError(f"{tag}: worker counters consistency failures "
+                                 f"{consistency}, successes {success}, failures {failures}")
+        depth = app.state["broker"].depth()
+        if depth != 0:
+            raise AssertionError(f"{tag}: queue depth {depth} after the drain")
+        print(f"{tag}: worker entry point (own process, default device cuda, "
+              f"--max-batch 64) drained {len(ids)} tasks + 1 poison in {drained:.3f} s "
+              f"from its spawn (host clock; first row COMPLETED at "
+              f"{first - t0:.3f} s: start-up, model load and warm-up), then exited "
+              f"{rc} on SIGTERM; poison task FAILED with its error body; "
+              f"xai_explain_consistency_failures {consistency:g}, successes "
+              f"{success:g}, failures {failures:g}; queue depth {depth}; on {card}")
+
+        lat, stored = [], []
+        for tx in ids:
+            t = time.perf_counter()
+            status, body = http_call(port, "GET", f"/explain/{tx}")
+            lat.append(time.perf_counter() - t)
+            out = json.loads(body)
+            if status != 200 or out["status"] != "COMPLETED":
+                raise AssertionError(f"{tag}: /explain/{tx}: {status} {out}")
+            stored.append(out)
+        print(f"{tag}: /explain readback of {len(ids)} COMPLETED rows one at a time: "
+              + latency_line(lat) + f" (client clock, in the server's process); on {card}")
+
+        score = np.array([o["prediction_score"] for o in stored])
+        phi = np.array([list(o["shap_values"].values()) for o in stored])
+        ev = np.array([o["expected_value"] for o in stored])
+        names = load_any_model(str(model_dir), device="cpu").feature_names
+        if any(list(o["shap_values"]) != names for o in stored):
+            raise AssertionError(f"{tag}: stored feature names differ from the model's")
+        if family == "logistic":
+            z = np.load(model_dir / "model.npz")
+            mean, scale = z["scaler_mean"], z["scaler_scale"]
+            logit = ((x64 - mean) / scale) @ z["coef"] + z["intercept"]
+            phi_want = (z["coef"] / scale) * (x.astype(np.float64) - mean)
+            phi_err = float(np.abs(phi - phi_want).max())
+            phi_ok = phi_err <= SCORE_ATOL
+            phi_what = "the float64 closed form coef·(x − μ)"
+        else:
+            logit = forest_logits_f64(model_dir, x)
+            ref = load_any_model(str(model_dir), device="cpu")
+            phi_want = tree_shap(ref.raw_explainer(), torch.from_numpy(x)).double().numpy()
+            phi_err = float(np.abs(phi - phi_want).max())
+            phi_ok = np.allclose(phi, phi_want, rtol=SHAP_RTOL, atol=SHAP_ATOL)
+            phi_what = "the port's CPU plain TreeSHAP"
+        score_err = float(np.abs(score - 1.0 / (1.0 + np.exp(-logit))).max())
+        additivity = float(np.abs(phi.sum(axis=1) + ev - np.log(score / (1.0 - score))).max())
+        if not (score_err <= SCORE_ATOL and phi_ok and additivity <= 1e-4):
+            raise AssertionError(f"{tag}: stored scores {score_err:.3e} from float64, "
+                                 f"φ {phi_err:.3e} from {phi_what}, additivity "
+                                 f"{additivity:.3e}")
+        print(f"{tag}: stored results: max |score - float64| {score_err:.3e}; max |φ - "
+              f"{phi_what}| {phi_err:.3e}; max |Σφ + E[f] - logit(score)| "
+              f"{additivity:.3e}")
+    finally:
+        if worker_proc is not None and worker_proc.poll() is None:
+            worker_proc.kill()
+            worker_proc.wait(timeout=60)
+        server.stop()
+
+    # in process: the worker's launches a batch and run_batch's host time
+    worker = XaiWorker(broker_url=q_url, database_url=db_url, worker_id="phase7")
+    try:
+        worker.warmup()
+
+        def queue(run: str) -> None:
+            for i, row in enumerate(x[:64]):
+                feats = dict(zip(names, row.tolist()))
+                worker.db.create_pending(f"{run}-{i}", feats, None)
+                worker.broker.send_task("xai_tasks.compute_shap", [f"{run}-{i}", feats, None])
+
+        queue("counted")
+        kernels.reset_launch_counts()
+        handled = worker.run_batch(64)
+        launches = kernels.launch_counts()
+        kernel = EXPLAIN_KERNELS[family]
+        if handled != 64 or launches[kernel] < 1:
+            raise AssertionError(f"{tag}: run_batch handled {handled}, launches {launches}")
+        reps = 3
+        for r in range(reps):
+            queue(f"profiled{r}")
+        t = time.perf_counter()
+        acts = profiled_intervals(lambda: [worker.run_batch(64) for _ in range(reps)])
+        profiled_ms = (time.perf_counter() - t) * 1e3 / reps
+        copies = sum(1 for name, _, _ in acts if "Memcpy" in name or "Memset" in name)
+        busy_us = union_us([(a, b) for _, a, b in acts]) / reps
+
+        # host time by stage: each stage's call wrapped on this worker only
+        stages = dict.fromkeys(("claim", "score", "explain", "upserts", "acks"), 0.0)
+
+        def timed_stage(name, fn):
+            def wrapped(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    stages[name] += time.perf_counter() - t
+            return wrapped
+
+        worker.broker.claim_many = timed_stage("claim", worker.broker.claim_many)
+        worker.model.scorer.predict_proba = timed_stage(
+            "score", worker.model.scorer.predict_proba)
+        worker.model.explain_batch = timed_stage("explain", worker.model.explain_batch)
+        worker.db.complete = timed_stage("upserts", worker.db.complete)
+        worker.broker.ack = timed_stage("acks", worker.broker.ack)
+        times = []
+        for r in range(EXPLAIN_TIMED_BATCHES):
+            queue(f"timed{r}")
+            t = time.perf_counter()
+            if worker.run_batch(64) != 64:
+                raise AssertionError(f"{tag}: a timed run_batch handled fewer than 64")
+            times.append(time.perf_counter() - t)
+        mean_ms = {k: v * 1e3 / len(times) for k, v in stages.items()}
+        other_ms = sum(times) * 1e3 / len(times) - sum(mean_ms.values())
+        times.sort()
+        print(f"{tag}: kernel launches in one run_batch of 64 tasks (one dispatch) "
+              f"{launches}; run_batch host time p50 "
+              f"{times[len(times) // 2] * 1e3:.3f} ms, min {times[0] * 1e3:.3f} ms over "
+              f"{len(times)} batches (claim, score, explain, 64 COMPLETED upserts and acks); "
+              "mean a batch by stage: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in mean_ms.items())
+              + f", the rest {other_ms:.3f} ms; on {card}")
+        if acts:
+            print(f"{tag}: run_batch of 64 under the profiler, mean of {reps}: "
+                  f"{(len(acts) - copies) / reps:g} kernel launches + {copies / reps:g} "
+                  f"copies/memsets, device busy {busy_us:.3f} us (union of device "
+                  f"intervals) in {profiled_ms:.3f} ms of host time")
+        else:  # the launch count above shows the device did run
+            print(f"{tag}: run_batch of 64 under the profiler: device busy not measured "
+                  f"(the profiler recorded no device activity over {reps} batches)")
+    finally:
+        worker.close()
+    return launches
+
 
 def main() -> int:
     try:
@@ -1798,6 +2077,8 @@ def main() -> int:
         trained = trained_path(Path(work))
         gbt_trained, gbt_dir = gbt_trained_path(Path(work))
         gbt_served = gbt_served_path(Path(work), gbt_dir)
+        worker_lin = explain_path(Path(work), "logistic", Path(work) / "models", card)
+        worker_gbt = explain_path(Path(work), "gbt", Path(gbt_dir), card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -1814,6 +2095,7 @@ def main() -> int:
     line = {"kernels": [
         row("fused_score", served["fused_score"], fs, t, t["library_ms"],
             n=1024, launch_floor_ms=fs["launch_floor_ms"],
+            worker_launches=worker_lin["fused_score"],
             **{f"at_n_{n}{'_bf16' if dt == 'bfloat16' else ''}":
                {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
                for (n, dt), v in fs["timing"].items() if (n, dt) != (1024, "float32")}),
@@ -1842,6 +2124,7 @@ def main() -> int:
         row("tree_shap", gbt_served["tree_shap"], shap, shap["timing"][1024], None,
             n=1024, trees=100, depth=5,
             orientation_ms=shap["timing"][1024]["orientation_ms"],
+            worker_launches=worker_gbt["tree_shap"],
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64)}),
     ]}

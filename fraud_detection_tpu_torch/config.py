@@ -1,5 +1,5 @@
-"""Environment-variable configuration for the port's serving and training
-slices.
+"""Environment-variable configuration for the port's serving, explain and
+training slices.
 
 Its own copy of only the knobs these slices read, with the defaults of
 ``fraud_detection_tpu/config.py`` — except ``DEVICE``, which defaults to
@@ -131,3 +131,21 @@ def watchtower_halflife_rows() -> float:
 def watchtower_min_rows() -> int:
     """Window row floor below which the watchtower reports ``warming``."""
     return _get_int("WATCHTOWER_MIN_ROWS", 512)
+
+
+def database_url() -> str:
+    """``DATABASE_URL`` — the results DB the API and the SHAP worker share.
+    Only ``sqlite:///`` is served by the port today."""
+    return _get("DATABASE_URL", "sqlite:///fraud.db")
+
+
+def broker_url() -> str:
+    """``CELERY_BROKER_URL`` — the task queue between the API and the SHAP
+    worker. Only ``sqlite:///`` is served by the port today."""
+    return _get("CELERY_BROKER_URL", "sqlite:///taskq.db")
+
+
+def worker_metrics_port() -> int:
+    """``WORKER_METRICS_PORT`` — the SHAP worker's ``/metrics`` port (0
+    serves none)."""
+    return _get_int("WORKER_METRICS_PORT", 8001)

@@ -49,6 +49,12 @@ class FraudModelBase:
         """The family's explainer over *raw* inputs, built once and cached."""
         raise NotImplementedError
 
+    def explain_one(self, row: np.ndarray) -> tuple[np.ndarray, float]:
+        """((d,) φ, expected_value) in margin space — the SHAP worker's
+        surface."""
+        phi, ev = self.explain_batch(np.asarray(row, np.float32)[None, :])
+        return phi[0], ev
+
     def explain_batch(self, x: np.ndarray) -> tuple[np.ndarray, float]:
         """((n, d) φ, expected_value) in margin space."""
         raise NotImplementedError

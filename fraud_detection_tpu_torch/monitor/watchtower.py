@@ -8,8 +8,10 @@ recommendation (``none`` or ``retrain``) and the Prometheus gauges.
 
 On the split flush path :meth:`Watchtower.observe` hands each scored batch
 to one ingest thread (bounded backlog, drop-and-count), so monitoring never
-blocks a request. Shadow scoring and the retrain trigger task are not
-ported yet: ``shadow`` and ``ledger`` read ``None`` in the status body.
+blocks a request; ``/monitor/feedback`` hands labeled rows to the same
+thread, which folds them into the calibration window only. Shadow scoring
+and the retrain trigger task are not ported yet: ``shadow`` and ``ledger``
+read ``None`` in the status body.
 """
 
 from __future__ import annotations
@@ -67,13 +69,23 @@ class Watchtower:
         )
         self._thread.start()
 
-    def observe(self, rows, scores, drift_done=False) -> bool:
-        """Queue one scored batch for the drift fold (the split path) or,
-        with ``drift_done`` (the fused path: the window already folded in
-        the flush), only count it. Non-blocking; returns False when the
-        backlog bound forced a drop (counted)."""
+    def observe(
+        self, rows, scores, labels=None, calibration_only=False,
+        drift_done=False,
+    ) -> bool:
+        """Queue one scored batch for monitoring. Non-blocking; returns
+        False when the backlog bound forced a drop (counted).
+
+        ``labels`` carries delayed fraud labels (``/monitor/feedback``):
+        labeled rows fold into the calibration window. With
+        ``calibration_only`` (a feedback replay: the rows were already
+        observed live) they update only the calibration state, never the
+        drift histograms. With ``drift_done`` (the fused path: the window
+        already folded in the flush) the batch is only counted."""
         try:
-            self._queue.put_nowait((rows, scores, drift_done))
+            self._queue.put_nowait(
+                (rows, scores, labels, calibration_only, drift_done)
+            )
         except queue.Full:
             metrics.watchtower_batches_dropped.inc()
             return False
@@ -85,9 +97,11 @@ class Watchtower:
             try:
                 if item is None or self._stop:
                     return
-                rows, scores, drift_done = item
+                rows, scores, labels, calibration_only, drift_done = item
                 if not drift_done:
-                    self.drift.update(rows, scores)
+                    self.drift.update(
+                        rows, scores, labels, calibration_only=calibration_only
+                    )
                 metrics.watchtower_batches_observed.inc()
             except Exception:
                 log.warning("watchtower ingest failed", exc_info=True)

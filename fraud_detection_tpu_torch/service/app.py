@@ -4,19 +4,20 @@
 - ``GET /health`` — readiness with per-dependency status, 503 when degraded
 - ``POST /predict`` — validate → score through the micro-batcher (the fused
   flush: the family's score body + drift fold + optional reason codes) →
-  respond with the JAX app's response fields
+  persist a PENDING row, enqueue ``xai_tasks.compute_shap`` for the SHAP
+  worker (``service/worker.py``) → respond with the JAX app's response
+  fields
+- ``GET /explain/{transaction_id}`` — the worker's stored explanation
 - ``GET /monitor/status`` — watchtower drift state and recommendation
+- ``POST /monitor/feedback`` — delayed fraud labels into the calibration
+  window
 - ``GET /metrics`` — Prometheus exposition
 
 The model directory holds either family (``load_any_model``): the logistic
 flagship (``fused_score`` kernel) or a GBT forest (TreeSHAP reason codes
-through the ``tree_shap`` kernel).
-
-The results database, the task queue and the SHAP worker are not in this
-slice. ``/health`` therefore reports ``database``/``broker`` as
-``"unavailable"`` (503, ``degraded``) and every ``/predict`` answers
-``explanation_status: "Queue failed"`` — exactly what the JAX app answers
-when those stores are down.
+through the ``tree_shap`` kernel). The results DB (``DATABASE_URL``) and the
+broker (``CELERY_BROKER_URL``) are the JAX package's sqlite schemas, so a
+JAX app or worker can share them.
 
 Run: ``python -m fraud_detection_tpu_torch.service.app --port 8000``
 (``DEVICE=cpu`` serves on the CPU).
@@ -29,33 +30,45 @@ import logging
 import time
 import uuid
 
+import numpy as np
+
 from fraud_detection_tpu_torch.device import resolve_device
 from fraud_detection_tpu_torch.monitor.watchtower import build_watchtower
 from fraud_detection_tpu_torch.service import metrics
+from fraud_detection_tpu_torch.service.db import ResultsDB
 from fraud_detection_tpu_torch.service.http import App, HTTPError, Request, Response
 from fraud_detection_tpu_torch.service.loading import load_production_model
 from fraud_detection_tpu_torch.service.microbatch import AdmissionFull, MicroBatcher
 from fraud_detection_tpu_torch.service.schemas import (
+    ExplanationFailedOut,
+    ExplanationOut,
     HealthOut,
     PredictionOut,
     ReasonCodeOut,
     parse_entity,
     parse_transaction,
 )
+from fraud_detection_tpu_torch.service.taskq import TASK_NAME, Broker
 
 log = logging.getLogger("fraud_detection_tpu_torch.api")
 
 
-def create_app(device=None) -> App:
+def create_app(
+    database_url: str | None = None, broker_url: str | None = None, device=None
+) -> App:
     """The API over the model at ``MODEL_PATH``'s directory, served on
-    ``device`` (default: ``DEVICE``, itself defaulting to ``cuda``). Raises
-    at once when ``cuda`` is asked for and no card is present."""
+    ``device`` (default: ``DEVICE``, itself defaulting to ``cuda``), with
+    the results DB at ``database_url`` (default ``DATABASE_URL``) and the
+    broker at ``broker_url`` (default ``CELERY_BROKER_URL``). Raises at once
+    when ``cuda`` is asked for and no card is present."""
     dev = resolve_device(device)
     app = App(title="fraud-detection-tpu-torch API")
     state: dict = {
         "model": None,
         "model_source": None,
         "batcher": None,
+        "db": None,
+        "broker": None,
         "watchtower": None,
         "started_at": None,
     }
@@ -78,6 +91,8 @@ def create_app(device=None) -> App:
 
     async def startup():
         state["started_at"] = time.time()
+        state["db"] = ResultsDB(database_url)
+        state["broker"] = Broker(broker_url)
         try:
             model, source = load_production_model(device=dev)
             state["model"], state["model_source"] = model, source
@@ -104,6 +119,10 @@ def create_app(device=None) -> App:
             await state["batcher"].stop()
         if state["watchtower"]:
             state["watchtower"].close()
+        if state["db"]:
+            state["db"].close()
+        if state["broker"]:
+            state["broker"].close()
 
     app.on_startup.append(startup)
     app.on_shutdown.append(shutdown)
@@ -114,11 +133,18 @@ def create_app(device=None) -> App:
 
     @app.get("/health")
     async def health(req: Request) -> Response:
+        # both pings run concurrently off the loop: a stalled store slows
+        # this probe, never scoring
+        db_ok, broker_ok = await asyncio.gather(
+            asyncio.to_thread(lambda: bool(state["db"] and state["db"].ping())),
+            asyncio.to_thread(
+                lambda: bool(state["broker"] and state["broker"].ping())
+            ),
+        )
         checks = {
             "model": "ok" if state["model"] is not None else "unavailable",
-            # not in this slice: the results DB and the task broker
-            "database": "unavailable",
-            "broker": "unavailable",
+            "database": "ok" if db_ok else "unavailable",
+            "broker": "ok" if broker_ok else "unavailable",
         }
         healthy = all(v == "ok" for v in checks.values())
         body = HealthOut(
@@ -158,21 +184,81 @@ def create_app(device=None) -> App:
                     headers={"retry-after": str(max(1, round(e.retry_after_s)))},
                 )
         reason_codes = None
+        serve_topk = None
         if reasons is not None:
+            idxs, vals = reasons
             names = model.feature_names
             reason_codes = [
                 ReasonCodeOut(feature=names[int(i)], attribution=float(v))
-                for i, v in zip(*reasons)
+                for i, v in zip(idxs, vals)
             ]
+            # the serve-time top-k rides the task payload so the worker's
+            # full-vector backfill can consistency-check the fused leg
+            serve_topk = {
+                "indices": [int(i) for i in idxs],
+                "values": [float(v) for v in vals],
+            }
+
+        # Persist the PENDING row and enqueue the async explanation, off the
+        # loop (sqlite commits wait on the file lock). The payload is the
+        # JAX app's: 4 arguments (the traceparent None: no tracing yet), a
+        # 5th only when the fused explain leg gave a top-k.
+        feature_dict = dict(zip(model.feature_names, row.tolist()))
+        tx_id = str(uuid.uuid4())
+        explanation_status = "queued"
+        task_args = [tx_id, feature_dict, corr_id, None]
+        if serve_topk is not None:
+            task_args.append(serve_topk)
+
+        def _persist_and_enqueue():
+            with metrics.timed(metrics.db_latency):
+                state["db"].create_pending(tx_id, feature_dict, corr_id)
+            state["broker"].send_task(TASK_NAME, task_args, correlation_id=corr_id)
+
+        try:
+            await asyncio.to_thread(_persist_and_enqueue)
+        except Exception as e:
+            # a queue outage must not fail scoring (api/app.py:248-250)
+            log.error("[%s] enqueue failed: %s", corr_id, e)
+            explanation_status = "Queue failed"
+
         return Response(
             PredictionOut(
                 prediction=int(score >= 0.5),
                 score=score,
-                transaction_id=str(uuid.uuid4()),
+                transaction_id=tx_id,
                 correlation_id=corr_id,
-                # no task queue in this slice: the JAX app's queue-down answer
-                explanation_status="Queue failed",
+                explanation_status=explanation_status,
                 reason_codes=reason_codes,
+            ).to_dict()
+        )
+
+    @app.get("/explain/{transaction_id}")
+    async def explain(req: Request) -> Response:
+        tx_id = req.path_params["transaction_id"]
+        with metrics.timed(metrics.db_latency):
+            row = await asyncio.to_thread(state["db"].get, tx_id)
+        if row is None or row["status"] == "PENDING":
+            raise HTTPError(
+                404,
+                "Explanation not found. The transaction may still be pending.",
+            )
+        if row["status"] == "FAILED":
+            return Response(
+                ExplanationFailedOut(
+                    transaction_id=tx_id,
+                    status="FAILED",
+                    error=(row.get("shap_values") or {}).get("error"),
+                ).to_dict()
+            )
+        return Response(
+            ExplanationOut(
+                transaction_id=tx_id,
+                status=row["status"],
+                shap_values=row["shap_values"],
+                expected_value=row["expected_value"],
+                prediction_score=row["prediction_score"],
+                created_at=row["created_at"],
             ).to_dict()
         )
 
@@ -185,6 +271,90 @@ def create_app(device=None) -> App:
             )
         # status() copies small device arrays to the host: off the loop
         return Response(await asyncio.to_thread(wt.status))
+
+    @app.post("/monitor/feedback")
+    async def monitor_feedback(req: Request) -> Response:
+        """Delayed fraud-label feedback, the calibration (windowed ECE)
+        input: ``{"features": [[...30], ...], "scores": [...], "labels":
+        [0|1, ...]}``. The rows join the watchtower's ingest queue and fold
+        into the calibration window only (they were observed live when
+        scored). ``persisted`` is false: the durable feedback store is the
+        lifecycle tier (ROADMAP item 11)."""
+        wt = state["watchtower"]
+        model = state["model"]
+        if wt is None or model is None:
+            raise HTTPError(
+                409, "watchtower disabled — no baseline profile loaded"
+            )
+        try:
+            payload = req.json()
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object")
+            feats = payload.get("features")
+            scores = payload.get("scores")
+            labels = payload.get("labels")
+            if not isinstance(feats, list) or not feats:
+                raise ValueError("'features' must be a non-empty list of rows")
+            if (
+                not isinstance(scores, list)
+                or not isinstance(labels, list)
+                or len(feats) != len(scores)
+                or len(feats) != len(labels)
+            ):
+                raise ValueError(
+                    "'features', 'scores' and 'labels' must be lists of "
+                    "equal length"
+                )
+            rows = np.stack([model.prepare_row(f) for f in feats])
+            if not np.all(np.isfinite(rows)):
+                raise ValueError("'features' must be finite numbers")
+            scores_arr = np.asarray(scores, np.float32)
+            labels_arr = np.asarray(labels, np.float32)
+            if scores_arr.ndim != 1 or labels_arr.ndim != 1:
+                # nested lists pass the length checks, then would fail on
+                # the ingest thread after the 202
+                raise ValueError("'scores' and 'labels' must be flat lists")
+            if not (
+                np.all(np.isfinite(scores_arr))
+                and np.all((scores_arr >= 0) & (scores_arr <= 1))
+            ):
+                raise ValueError("'scores' must be probabilities in [0, 1]")
+            if not np.all((labels_arr == 0) | (labels_arr == 1)):
+                raise ValueError("'labels' must be 0 or 1")
+            # per-row entity + event time, validated as in the JAX app (the
+            # retrain replay that reads them is ROADMAP item 11)
+            entity_ids = payload.get("entity_ids")
+            timestamps = payload.get("timestamps")
+            if entity_ids is not None and (
+                not isinstance(entity_ids, list)
+                or len(entity_ids) != len(feats)
+            ):
+                raise ValueError(
+                    "'entity_ids' must be a list aligned with 'features'"
+                )
+            if timestamps is not None:
+                if not isinstance(timestamps, list) or len(timestamps) != len(
+                    feats
+                ):
+                    raise ValueError(
+                        "'timestamps' must be a list aligned with 'features'"
+                    )
+                ts_arr = np.asarray(timestamps, np.float64)
+                if ts_arr.ndim != 1 or not np.all(
+                    np.isfinite(ts_arr) & (ts_arr > 0)
+                ):
+                    raise ValueError(
+                        "'timestamps' must be positive finite numbers"
+                    )
+        except (TypeError, ValueError) as e:
+            # TypeError too: prepare_row over a non-iterable row or
+            # np.asarray over nulls are client input errors, not 500s
+            raise HTTPError(422, str(e)) from e
+        queued = wt.observe(rows, scores_arr, labels_arr, calibration_only=True)
+        return Response(
+            {"queued": queued, "rows": int(rows.shape[0]), "persisted": False},
+            status_code=202 if queued else 429,
+        )
 
     @app.get("/metrics")
     async def prom(req: Request) -> Response:

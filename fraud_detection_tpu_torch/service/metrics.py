@@ -1,9 +1,10 @@
 """Prometheus metrics — a small stdlib text exposition.
 
-The series this slice touches, under the JAX package's names, labels and
-buckets (dashboards and alert rules read them): the API counters and
+The series the port's slices touch, under the JAX package's names, labels
+and buckets (dashboards and alert rules read them): the API counters and
 latency histograms, the micro-batcher's flush-path counters and fusion
-gauges, and the watchtower's drift gauges. Counters export ``<name>_total``;
+gauges, the watchtower's drift gauges, and the SHAP worker's and task
+queue's series. Counters export ``<name>_total``;
 histograms export ``_bucket``/``_sum``/``_count``. No ``prometheus_client``:
 the exposition format (text 0.0.4) is written here.
 """
@@ -160,9 +161,41 @@ http_request_duration = Histogram(
     "http_request_duration_seconds", "HTTP request latency",
     ["method", "handler"],
 )
+db_latency = Histogram(
+    "api_db_latency_seconds", "Database call latency"
+)
 model_loaded = Gauge(
     "model_loaded",
     "1 when a servable model is loaded (ModelUnavailable alert signal)",
+)
+
+# Worker-side (xai_tasks.py:48-50)
+xai_task_duration = Histogram(
+    "xai_task_duration_seconds", "XAI task latency"
+)
+xai_task_success = Counter("xai_task_success", "Successful XAI tasks")
+xai_task_failures = Counter("xai_task_failures", "Failed XAI tasks")
+xai_explain_consistency_failures = Counter(
+    "xai_explain_consistency_failures",
+    "Worker full-vector SHAP backfills that disagreed with the serve-time "
+    "top-k reason codes riding the task payload (lantern consistency "
+    "check) — nonzero means the fused explain leg and the async explainer "
+    "have drifted apart (stale swap, wire corruption)",
+)
+queue_depth = Gauge(
+    "xai_queue_depth", "Queued XAI tasks (KEDA scaling signal)"
+)
+# At-least-once delivery: incremented by the broker in the process that
+# made the claim
+taskq_redeliveries = Counter(
+    "taskq_redeliveries",
+    "Task deliveries beyond the first: a visibility-timeout expiry handed "
+    "the task to another worker, or a nacked task was retried",
+)
+taskq_expired_claims = Counter(
+    "taskq_expired_claims",
+    "Claims whose visibility window lapsed before ack/nack (worker death "
+    "or stall mid-task) — the acks-late redelivery trigger",
 )
 
 # Micro-batcher

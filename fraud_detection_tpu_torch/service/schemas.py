@@ -36,6 +36,33 @@ class PredictionOut:
 
 
 @dataclass(frozen=True)
+class ExplanationOut:
+    """A COMPLETED ``GET /explain/{transaction_id}`` body."""
+
+    transaction_id: str
+    status: str
+    shap_values: dict[str, float]
+    expected_value: float
+    prediction_score: float | None = None
+    created_at: float | None = None
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+@dataclass(frozen=True)
+class ExplanationFailedOut:
+    """A FAILED ``GET /explain/{transaction_id}`` body."""
+
+    transaction_id: str
+    status: str
+    error: str | None = None
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+@dataclass(frozen=True)
 class HealthOut:
     status: str
     checks: dict[str, str]

@@ -500,3 +500,84 @@ def test_nan_binning_on_the_card_matches_the_host():
     x = np.array([[np.nan, 0.5], [np.inf, -np.inf], [-np.inf, np.nan], [1.0, 5.0]], np.float32)
     got = gbt.bin_features(torch.from_numpy(x).to(dev), torch.from_numpy(edges).to(dev))
     np.testing.assert_array_equal(got.cpu().numpy(), gbt.bin_features_host(x, edges, 4))
+
+
+def _queue_explain_tasks(broker, db, rows, names, prefix):
+    for i, row in enumerate(rows):
+        feats = {n: float(v) for n, v in zip(names, row)}
+        db.create_pending(f"{prefix}{i}", feats, None)
+        broker.send_task("xai_tasks.compute_shap", [f"{prefix}{i}", feats, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logistic", "gbt"])
+def test_worker_run_batch_on_the_card(family, tmp_path, monkeypatch):
+    """The SHAP worker on the card: ``run_batch`` of 64 tasks in one
+    dispatch launches the family's kernel (``fused_score`` for logistic
+    scoring, ``tree_shap`` for GBT explanations), a second run of the same
+    rows stores bitwise the same values, and a CPU worker agrees within
+    the kernels' tolerances."""
+    from fraud_detection_tpu_torch.models import FraudGBTModel
+    from fraud_detection_tpu_torch.ops.gbt import GBTConfig, gbt_fit
+    from fraud_detection_tpu_torch.service.db import COMPLETED, ResultsDB
+    from fraud_detection_tpu_torch.service.taskq import Broker
+    from fraud_detection_tpu_torch.service.worker import XaiWorker
+
+    _require_card()
+    data = np.loadtxt(os.path.join(ROOT, "data", "creditcard.csv"), delimiter=",",
+                      skiprows=1, max_rows=2000, dtype=np.float32)
+    x, y = data[:, :30], data[:, 30].astype(np.int32)
+    names = FraudLogisticModel.load(os.path.join(ROOT, "models"), device="cpu").feature_names
+    if family == "gbt":
+        model_dir = str(tmp_path / "gbt")
+        forest = gbt_fit(x, y, GBTConfig(n_trees=20, max_depth=5, n_bins=64), device="cuda")
+        FraudGBTModel(forest, names, background=x[:128], device="cuda").save(model_dir)
+        monkeypatch.setenv("MODEL_PATH", os.path.join(model_dir, "model.npz"))
+        counter = "TREE_SHAP_LAUNCHES"
+    else:
+        monkeypatch.setenv("MODEL_PATH", os.path.join(ROOT, "models", "model.npz"))
+        counter = "FUSED_SCORE_LAUNCHES"
+    db_url, q_url = f"sqlite:///{tmp_path}/f.db", f"sqlite:///{tmp_path}/q.db"
+    broker, db = Broker(q_url), ResultsDB(db_url)
+    rows = x[1000:1064]
+    worker = XaiWorker(broker_url=q_url, database_url=db_url, device="cuda")
+    stored = {}
+    for run in ("a", "b"):
+        _queue_explain_tasks(broker, db, rows, names, run)
+        kernels.reset_launch_counts()
+        assert worker.run_batch(64) == 64
+        assert getattr(kernels, counter) >= 1
+        got = [db.get(f"{run}{i}") for i in range(64)]
+        assert all(r["status"] == COMPLETED for r in got)
+        stored[run] = np.array([[r["prediction_score"], r["expected_value"],
+                                 *r["shap_values"].values()] for r in got])
+    np.testing.assert_array_equal(stored["a"], stored["b"])
+    cpu = XaiWorker(broker_url=q_url, database_url=db_url, device="cpu")
+    _queue_explain_tasks(broker, db, rows, names, "c")
+    assert cpu.run_batch(64) == 64
+    want = np.array([[r["prediction_score"], r["expected_value"], *r["shap_values"].values()]
+                     for r in (db.get(f"c{i}") for i in range(64))])
+    np.testing.assert_allclose(stored["a"], want, rtol=1e-4, atol=2e-5)
+    for w in (worker, cpu):
+        w.close()
+
+
+def test_a_cuda_worker_without_a_card_raises(tmp_path, monkeypatch):
+    """No fallback: a worker (or app) asked for ``cuda`` where
+    ``torch.cuda.is_available()`` is False raises. Runs on either machine:
+    the card is hidden from it."""
+    from fraud_detection_tpu_torch.service.app import create_app
+    from fraud_detection_tpu_torch.service.worker import XaiWorker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("MODEL_PATH", os.path.join(ROOT, "models", "model.npz"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        XaiWorker(broker_url=f"sqlite:///{tmp_path}/q.db",
+                  database_url=f"sqlite:///{tmp_path}/f.db", device="cuda")
+    monkeypatch.setenv("DEVICE", "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        XaiWorker(broker_url=f"sqlite:///{tmp_path}/q.db",
+                  database_url=f"sqlite:///{tmp_path}/f.db")
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_app(database_url=f"sqlite:///{tmp_path}/f.db",
+                   broker_url=f"sqlite:///{tmp_path}/q.db")

@@ -64,8 +64,8 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
 
 
 def test_training_modules_are_among_those_imported():
-    """The blocked-import probe walks the package; the training and GBT
-    slices' modules are in it."""
+    """The blocked-import probe walks the package; the training, GBT and
+    explain slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -73,7 +73,8 @@ def test_training_modules_are_among_those_imported():
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
     for mod in ("train", "data.loader", "ops.smote", "ops.metrics", "ops.quant",
                 "ckpt.train_state", "tracking.store", "tracking.registry",
-                "ops.gbt", "ops.tree_shap", "models.gbt"):
+                "ops.gbt", "ops.tree_shap", "models.gbt", "service.db",
+                "service.taskq", "service.worker", "service.errors"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 

@@ -46,6 +46,15 @@ def model_dir(tmp_path_factory):
     return d, x
 
 
+@pytest.fixture(autouse=True)
+def store_urls(tmp_path, monkeypatch):
+    """Every app of this module opens its results DB and broker in
+    ``tmp_path`` (the defaults would create files in the working
+    directory)."""
+    monkeypatch.setenv("DATABASE_URL", f"sqlite:///{tmp_path}/port_fraud.db")
+    monkeypatch.setenv("CELERY_BROKER_URL", f"sqlite:///{tmp_path}/port_taskq.db")
+
+
 @pytest.fixture()
 def serving_env(model_dir, tmp_path, monkeypatch):
     d, x = model_dir
@@ -83,7 +92,7 @@ def test_two_apps_answer_predict_alike(serving_env, tmp_path):
                 [r["attribution"] for r in jb["reason_codes"]],
                 rtol=0, atol=1e-6,
             )
-            assert tb["explanation_status"] == "Queue failed"
+            assert tb["explanation_status"] == jb["explanation_status"] == "queued"
         by_name = dict(zip(JaxModel.load(d).feature_names, x[0].tolist()))
         jr = jc.post("/predict", json={"features": by_name})
         tr = tc.post("/predict", json={"features": by_name})
@@ -99,11 +108,12 @@ def test_two_apps_answer_predict_alike(serving_env, tmp_path):
             jm["drift"]["window_rows"], rel=1e-6
         )
         assert tm["status"] == jm["status"] == "warming"
-        th = tc.get("/health")
-        assert th.status_code == 503
-        assert th.json()["checks"] == {
-            "model": "ok", "database": "unavailable", "broker": "unavailable",
+        th, jh = tc.get("/health"), jc.get("/health")
+        assert th.status_code == jh.status_code == 200
+        assert th.json()["checks"] == jh.json()["checks"] == {
+            "model": "ok", "database": "ok", "broker": "ok",
         }
+        assert th.json()["status"] == "healthy"
         assert tc.get("/status").json() == {"status": "UP"}
         text = tc.get("/metrics").text
         assert 'scorer_flushes_total{path="fused",shard="0"}' in text
