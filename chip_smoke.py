@@ -14,15 +14,17 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    instantiation of ``fused_score``'s and ``knn_topk``'s kernels, and fail
    on a spill or a stack frame there.
 2. **fused_score against its plain version** — the wrapper on CUDA
-   tensors at n = 1, 8, 33, 64, 256, 1000, 1024, 4096, 20,000, 32,768 and
-   284,807 (d = 30), n = 33, 1024 and 10,000 at d = 37, n = 10,000 at
+   tensors at n = 1, 8, 33, 64, 256, 1000, 1024, 4096, 8192, 20,000,
+   32,768, 65,536 and 284,807 (d = 30), n = 33, 1024 and 10,000 at d = 37, n = 10,000 at
    d = 65, and views whose base is not 16-byte aligned (``x[1:]`` and a
    flat buffer one element in, n = 1000 and 10,000, d = 30 and 37), so
    both of the kernel's shapes (a warp a row below 8192 rows or above 64
    features, a thread a row of a tile otherwise) are held: max |kernel −
    plain| ≤ 1e-6, on the f32 rows and on the same rows in bf16, whose
    scores must equal the kernel's on ``x.float()`` bit for bit. Then times
-   the kernel at n = 8, 64, 1024, 4096, 20,000 and 32,768 (f32) and 1024 and
+   the kernel at n = 8, 64, 1024, 4096, 8192, 20,000, 32,768, 65,536 and
+   284,807 (f32; 4096, 8192 and 65,536 are the offline tools' buckets; the
+   Kaggle file's rows stay in the 50 MB L2 across launches) and 1024 and
    20,000 (bf16), the plain version, one library call computing the
    same function (``sigmoid(addmv)``; bf16 rows are upcast first) and a
    one-thread empty kernel built with the same flags (the launch floor),
@@ -32,15 +34,16 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    3.35 TB/s, operations over the f32 peak).
 2b. **knn_topk against its plain version** — rows from
    ``np.random.default_rng(seed)`` at (m, d, k) = (2, 30, 1), (6, 30, 5),
-   (126, 30, 5), (158, 30, 5), (1000, 37, 5), (4096, 30, 5),
+   (126, 30, 5), (158, 30, 5), (394, 30, 5), (1000, 37, 5), (4096, 30, 5),
    (20000, 30, 5) and (100000, 30, 5), a duplicated-rows fixture and a
    lattice fixture (integer points closed under x → −x: every distance
    exact). Exact index equality everywhere below m = 20,000; from there
    the plain version runs on 4,096 sampled query rows against all keys,
    and a mismatched row must be a near-tie (the float64 distances of the
    two selections agree within 1e-5 relative). Times the kernel at
-   m = 126 (a training fold's), 158 (the default training run's final fit)
-   and 100,000 (the 10M-row configuration's minority set), the plain
+   m = 126 (a training fold's), 158 (the default training run's final fit),
+   394 (``preprocess`` on a Kaggle-sized set), 4096, 100,000 (the 10M-row
+   configuration's minority set) and 20,000 at d = 37, 64 and 128, the plain
    version, the operations bound, and — as orientation only, since no
    single PyTorch call has this tie rule — ``torch.topk(torch.cdist(xc,
    xc), k + 1, largest=False)``; prints the grid and key-split count the
@@ -60,11 +63,13 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    library column; the port never calls it) and the byte bound, and the
    launch-weighted mean per call over a tree.
 2d. **tree_shap against its plain version** — seeded synthetic forests
-   (100 trees of depth 5 over d = 30 at n ∈ {1, 8, 9, 64, 1024}; depths 2
-   and 3; every node on feature 0): within rtol 1e-4 / atol 2e-5, equal
-   top-3 indices, additivity Σφ + E[f] = f(x); ``bin_features`` on the
-   card equals the host's numpy binning on a NaN/±inf fixture. Times the
-   kernel at n = 8 (a lone request's bucket), 64 and 1024 (the flush cap),
+   (100 trees of depth 5 over d = 30 at n ∈ {1, 8, 9, 64, 1024, 4000,
+   20,000}; depths 2 and 3; every node on feature 0): within rtol 1e-4 /
+   atol 2e-5, equal top-3 indices (from 4,000 rows a row may differ only
+   across a 3rd/4th tie within 2e-5), additivity Σφ + E[f] = f(x);
+   ``bin_features`` on the card equals the host's numpy binning on a
+   NaN/±inf fixture. Times the kernel at n = 8 (a lone request's bucket), 64,
+   1024 (the flush cap), 4000 and 20,000 (``explain``'s batches),
    the plain version and the bound of the compact form at each (the
    tables' bytes this run's rows touch, or its operations), and, as
    orientation beside a null library column, the TPU kernel's dense
@@ -72,7 +77,9 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
 3. **the served path** — copies ``models/``, builds the drift baseline
    from the first 20,000 rows of ``data/creditcard.csv`` with the port's
    ``build_baseline_profile``, serves the port's app over HTTP on
-   localhost (its results DB and broker in the run's temp directory:
+   localhost from that directory (an empty tracking store, so the loader
+   falls to ``native:<dir>``, which is checked; its results DB and broker
+   in the run's temp directory:
    every ``/predict`` persists and enqueues its explanation, which phase 7
    drains) with ``SCORER_EXPLAIN=topk`` and the default
    ``SCORER_MAX_BATCH``, sends 256 ``/predict`` requests with real rows
@@ -103,7 +110,8 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    CPU test AUC and CV mean within 5e-3 (a near-tie split may go the other
    way), the same gate verdict; stage times.
 6. **the GBT served path** — the card-trained registered artifact served
-   over HTTP with ``SCORER_EXPLAIN=topk`` (256 concurrent and 64 sequential
+   over HTTP from phase 5's registry (the loader's source is checked:
+   ``registry:models:/fraud@prod``) with ``SCORER_EXPLAIN=topk`` (256 concurrent and 64 sequential
    ``/predict``): scores within 1e-5 of a float64 numpy walk of the forest
    in ``model.npz``; reason codes equal the port's plain TreeSHAP on the
    CPU except across a k-th/(k+1)-th tie within 2e-5 (counted); every
@@ -112,8 +120,10 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    programmatic dependent launch that overlaps its primary counts once;
    ``tree_shap`` from its group pass's start to its group sum's end) and
    30 timed on the host's clock.
-7. **the explain path** — for phase 3's logistic directory and phase 5's
-   forest: the app with a results DB and a broker (sqlite files in the
+7. **the explain path** — for phase 3's logistic directory (an empty
+   tracking store: ``native:<dir>``) and phase 5's forest (its registry:
+   ``registry:models:/fraud@prod``), each source checked in the app and in
+   the worker's log: the app with a results DB and a broker (sqlite files in the
    run's temp directory) answers ``/health`` 200 ``healthy`` and 128
    ``/predict`` with ``explanation_status: "queued"``; one poison task (a
    row of the wrong width, no retries) joins the queue; the worker's entry
@@ -132,6 +142,28 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    more are timed on the host's clock, by stage (claim, score, explain,
    upserts, acks); prints the drain's seconds, the ``/explain`` readback
    latency and ``run_batch``'s p50.
+8. **the offline tools** — in the run's temp directory, each tool under
+   zeroed launch counts checked against ``TOOL_LAUNCHES``, its wall time
+   on the host clock with the device synchronised: ``preprocess`` on the
+   committed CSV (``X_test``/``y_test`` bit for bit a CPU run's, SMOTE
+   balanced); ``evaluate`` on phase 4's logistic artifact and phase 5's
+   forest (confusion matrix equal to a CPU run's, AUC within 1e-6, scores
+   within 1e-5 of float64 numpy); ``explain`` on the forest over the 4,000
+   test rows (φ within rtol 1e-4 / atol 2e-5 of the CPU run's plain
+   TreeSHAP on every row, additivity within 1e-4 of the float64 forest
+   walk, the top 10 equal but across a 2e-5 tie); at the Kaggle file's
+   scale (284,807 rows, 492 frauds expected, generated into the temp
+   directory): ``preprocess`` (``knn_topk`` at m ≈ 394), ``evaluate``
+   (56,962 rows, the 65,536 bucket) and ``explain`` at ``max_rows`` =
+   20,000 (``tree_shap`` at n = 20,000; 1,024 sampled rows against the
+   CPU plain TreeSHAP); ``validate_auc`` on phase 4's registry through the
+   file store and through the port's tracking server (its entry point, own
+   process; the artifact unpacked into ``FRAUD_REGISTRY_CACHE``): equal
+   AUCs that pass, the CLI at ``--threshold 1.01`` exits 1, the runs read
+   back over HTTP; ``predict_single`` in process and through its CLI
+   (label and P(fraud) of ``_DEMO_ROW`` within 1e-5 of float64, the log
+   naming ``registry:models:/fraud@prod``); ``eda`` without plots (counts
+   and the processed CSV parsed back).
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -170,12 +202,14 @@ PROFILE_ROWS = 20_000
 TIMED_LAUNCHES = 200
 #: phase 2's fused_score fixtures (n, d), besides the offset views
 FUSED_SCORE_SHAPES = ((1, 30), (8, 30), (33, 30), (64, 30), (256, 30), (1000, 30), (1024, 30),
-                      (4096, 30), (20000, 30), (32768, 30), (284807, 30), (33, 37),
-                      (1024, 37), (10000, 37), (10000, 65))
+                      (4096, 30), (8192, 30), (20000, 30), (32768, 30), (65536, 30),
+                      (284807, 30), (33, 37), (1024, 37), (10000, 37), (10000, 65))
 FUSED_SCORE_VIEW_N = (1000, 10000)  # rows of the offset views: both of the kernel's shapes
 #: f32 rows at d = 30: the worker's smallest and largest bucket (8, 64), the
-#: flush cap, the ladder's top, the CSV, the profile's bucket
-FUSED_SCORE_TIMED_N = (8, 64, 1024, 4096, 20000, 32768)
+#: flush cap, the ladder's top (and evaluate's bucket on the committed CSV),
+#: validate_auc's bucket, the CSV, the profile's bucket, evaluate's bucket
+#: on the Kaggle-sized test split
+FUSED_SCORE_TIMED_N = (8, 64, 1024, 4096, 8192, 20000, 32768, 65536, 284807)
 FUSED_SCORE_BF16_TIMED_N = (1024, 20000)  # bf16 rows at d = 30
 KNN_SAMPLE_ROWS = 4096  # plain-version queries at m >= KNN_SAMPLED_FROM
 KNN_SAMPLED_FROM = 20_000
@@ -183,18 +217,46 @@ KNN_NEAR_TIE_RTOL = 1e-5
 TRAIN_AUC_TOL = 2e-3  # card vs CPU training run
 TRAIN_SCORED_ROWS = 1024
 KNN_LAUNCHES_PER_RUN = 6  # 5 folds + the final fit
-KNN_TIMED_M = (126, 158, 100000)  # a fold's minority rows, the final fit's, at scale
+#: (m, d) timed: a fold's minority rows, the final fit's, preprocess's on
+#: the Kaggle-sized set, m = 4096, the 10M-row configuration's minority set,
+#: and m = 20,000 at three widths (each one of the kernel's tile shapes)
+KNN_TIMED = ((126, 30), (158, 30), (394, 30), (4096, 30), (100000, 30),
+             (20000, 37), (20000, 64), (20000, 128))
 HIST_REL_TOL = 1e-6  # |cell − float64 sum| ≤ this · Σ_rows |value|
 SHAP_RTOL, SHAP_ATOL = 1e-4, 2e-5  # tree_shap against its plain version
 SHAP_TIE = 2e-5  # a reason-code row may differ only across a tie this close
-SHAP_CHECKED_N = (1, 8, 9, 64, 1024)  # tree_shap's recipe rows against plain
-SHAP_TIMED_N = (8, 64, 1024)  # a lone request's bucket, a small flush, the cap
+#: tree_shap's recipe rows against plain, up to explain's batches: the
+#: committed CSV's test split and max_rows on the Kaggle-sized split
+SHAP_CHECKED_N = (1, 8, 9, 64, 1024, 4000, 20000)
+#: a lone request's bucket, a small flush, the cap, explain's two batches
+SHAP_TIMED_N = (8, 64, 1024, 4000, 20000)
+SHAP_TIES_FROM = 4000  # from here a top-3 row may differ only across a tie
 # card vs CPU GBT training run: the card's histograms sum in another order
 # than the CPU's, so a split whose two best gains lie within float32
 # rounding of each other may go the other way and change the trees after it
 GBT_TRAIN_AUC_TOL = 5e-3
 #: 6 fits (5 folds + the final fit) x 100 trees x (5 levels + 1 leaf sum)
 GBT_HIST_LAUNCHES_PER_RUN = 6 * 100 * 6
+
+#: phase 8: each tool's kernel launches (its counts zeroed just before it):
+#: preprocess one SMOTE (one knn_topk); a logistic evaluate or validate_auc
+#: one predict_proba (one fused_score at its bucket); a GBT evaluate scores
+#: by the forest walk (no kernel of the port); explain one explain_batch
+#: (one tree_shap); predict_single's predict and predict_proba one
+#: fused_score each; eda none (two scaler fits)
+TOOL_LAUNCHES = {
+    "preprocess": {"knn_topk": 1},
+    "evaluate_logistic": {"fused_score": 1},
+    "evaluate_gbt": {},
+    "explain_gbt": {"tree_shap": 1},
+    "validate_auc": {"fused_score": 1},
+    "predict_single": {"fused_score": 2},
+    "eda": {},
+}
+KAGGLE_ROWS, KAGGLE_FRAUDS = 284_807, 492  # the Kaggle file's rows and frauds
+TOOL_EXPLAIN_ROWS = 20_000  # explain's max_rows
+TOOL_SAMPLED_ROWS = 1024  # rows of the 20,000 held against the CPU plain TreeSHAP
+TOOL_ADDITIVITY = 1e-4  # |Σφ + E[f] − f(x)|, f(x) the float64 forest walk
 
 EXPLAIN_REQUESTS = 128  # phase 7: /predict requests whose explanations the worker drains
 EXPLAIN_DRAIN_TIMEOUT_S = 300  # worker start-up, warm-up and the drain
@@ -522,8 +584,8 @@ def knn_fixtures(seed: int) -> list[tuple[str, object, int]]:
     rng = np.random.default_rng(seed)
     out = []
     for m, d, k in [(2, 30, 1), (6, 30, 5), (126, 30, 5), (158, 30, 5),
-                    (1000, 37, 5), (4096, 30, 5), (20000, 30, 5),
-                    (100000, 30, 5)]:
+                    (394, 30, 5), (1000, 37, 5), (4096, 30, 5), (20000, 30, 5),
+                    (20000, 37, 5), (20000, 64, 5), (20000, 128, 5), (100000, 30, 5)]:
         out.append((f"m={m} d={d} k={k}", rng.standard_normal((m, d), dtype=np.float32), k))
     base = rng.standard_normal((40, 30), dtype=np.float32)
     out.append(("duplicated rows (109 = 40 x 2 + 29)",
@@ -603,19 +665,18 @@ def check_knn_topk(seed: int) -> dict:
                 f"(relative gap {rel:.3e} > {KNN_NEAR_TIE_RTOL})"
             )
         worst = max(worst, gap)
-        if m in KNN_TIMED_M and k == 5:
-            inputs[m] = (xc, sq, k)
+        if (m, x.shape[1]) in KNN_TIMED and k == 5 and label.startswith("m="):
+            inputs[m, x.shape[1]] = (xc, sq, k)
         else:
             del xc, sq, got, want
 
     rows = {}
-    for m in KNN_TIMED_M:
-        xc, sq, k = inputs[m]
-        d = xc.shape[1]
+    for m, d in KNN_TIMED:
+        xc, sq, k = inputs.pop((m, d))
         plan = kernels.knn_topk_plan(m, d, k, xc.device)
         kernel_fn = lambda: kernels.knn_topk(xc, sq, k)  # noqa: E731
         plain_fn = lambda: kernels.knn_topk_reference(xc, sq, k)  # noqa: E731
-        big = m > KNN_SAMPLED_FROM
+        big = m >= KNN_SAMPLED_FROM
         ms = graph_ms(kernel_fn, iters=3 if big else TIMED_LAUNCHES,
                       replays=3 if big else 5)
         eager = eager_ms(kernel_fn, iters=3 if big else TIMED_LAUNCHES,
@@ -628,10 +689,10 @@ def check_knn_topk(seed: int) -> dict:
         orient = eager_ms(orient_fn, iters=2 if big else 50, warm=1 if big else 5)
         torch.cuda.empty_cache()
         bound, by, n_ops, n_bytes = knn_bound(m, d, k)
-        rows[m] = {"ms": ms, "plain_ms": plain, "orientation_ms": orient,
-                   "bound_ms": bound, "bound_by": by, "eager_ms": eager, "plan": plan}
+        rows[m, d] = {"ms": ms, "plain_ms": plain, "orientation_ms": orient,
+                      "bound_ms": bound, "bound_by": by, "eager_ms": eager, "plan": plan}
         print(
-            f"phase2b: knn_topk grid m={m}: {plan['query_tiles']} query tiles x "
+            f"phase2b: knn_topk grid m={m} d={d}: {plan['query_tiles']} query tiles x "
             f"{plan['splits']} key splits of {plan['keys_per_split']} keys, "
             f"{plan['tile']}-key tiles"
             + (", a merging second launch" if plan["splits"] > 1 else ", one launch")
@@ -934,10 +995,17 @@ def check_tree_shap(seed: int) -> dict:
             err = float((got - want).abs().max())
             over = float(((got - want).abs() - SHAP_RTOL * want.abs()).max())
             k = 3
-            same_topk = torch.equal(topk_reasons(got, k)[0], topk_reasons(want, k)[0])
+            differ = (topk_reasons(got, k)[0] != topk_reasons(want, k)[0]).any(dim=1)
+            srt = want.sort(dim=1, descending=True).values
+            tie = (srt[:, k - 1] - srt[:, k]).abs() <= SHAP_TIE
+            # below SHAP_TIES_FROM rows every row's top-k must be equal; from
+            # there a row may differ only across a k-th/(k+1)-th near-tie
+            same_topk = (not bool(differ.any()) if n < SHAP_TIES_FROM
+                         else bool((~differ | tie).all()))
             add = float((got.sum(1) + e.expected_value - gbt_predict_logits(model, x)).abs().max())
             print(f"phase2d: tree_shap {label} n={n}: max |kernel - plain| {err:.3e}, "
-                  f"top-{k} indices equal {same_topk}, additivity max |sum phi + E[f] "
+                  f"top-{k} indices equal {same_topk} ({int(differ.sum())} rows differ "
+                  f"across a tie within {SHAP_TIE}), additivity max |sum phi + E[f] "
                   f"- f(x)| {add:.3e}")
             if over > SHAP_ATOL or not same_topk or not torch.isfinite(got).all():
                 raise AssertionError(f"tree_shap {label} n={n}: off its plain version")
@@ -969,7 +1037,8 @@ def check_tree_shap(seed: int) -> dict:
             binned, model.split_feature, model.split_bin, model.leaf_value, e.bg_table)
         ms = graph_ms(kernel_fn, iters=50)
         eager = eager_ms(kernel_fn, iters=50)
-        plain = eager_ms(plain_fn, iters=3, warm=1)
+        big = n >= SHAP_TIES_FROM  # the plain version takes seconds a call
+        plain = eager_ms(plain_fn, iters=1 if big else 3, warm=1)
         n_ops, n_bytes = shap_work(e.tables, binned)
         t_ops = n_ops / F32_FLOPS_PER_S * 1e3
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1140,6 +1209,26 @@ def metric_value(text: str, series: str) -> float:
     raise AssertionError(f"{series} missing from /metrics")
 
 
+def pin_tracking_store(store: Path, work: Path) -> str:
+    """Point the loader at ``store`` (an empty one serves ``MODEL_PATH``'s
+    directory; one whose ``@prod`` is the artifact serves that), so a
+    served phase never loads what an earlier phase registered. Child
+    processes inherit it."""
+    uri = f"file:{store}"
+    os.environ.update(MLFLOW_TRACKING_URI=uri,
+                      FRAUD_REGISTRY_CACHE=str(work / "registry_cache"))
+    for knob in ("MLFLOW_MODEL_NAME", "MLFLOW_MODEL_STAGE", "REQUIRE_REGISTRY_MODEL"):
+        os.environ.pop(knob, None)
+    return uri
+
+
+def check_source(tag: str, got: str, want: str) -> None:
+    """The loader's source string: which artifact the phase serves."""
+    print(f"{tag}: the loader served {got}")
+    if got != want:
+        raise AssertionError(f"{tag}: the loader served {got}, not {want}")
+
+
 def served_path(work: Path) -> dict:
     import numpy as np
     import torch
@@ -1181,6 +1270,7 @@ def served_path(work: Path) -> dict:
     for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
                  "SCORER_RETURN_WIRE"):
         os.environ.pop(knob, None)
+    pin_tracking_store(work / "empty_mlruns", work)
     app = create_app(database_url=f"sqlite:///{work}/served_fraud.db",
                      broker_url=f"sqlite:///{work}/served_taskq.db")
     port = free_port()
@@ -1197,6 +1287,7 @@ def served_path(work: Path) -> dict:
             f"phase3: app started (bucket ladder warmed, max_batch "
             f"{batcher.max_batch}) in {time.perf_counter() - t0:.3f} s"
         )
+        check_source("phase3", app.state["model_source"], f"native:{model_dir}")
         n_total = N_REQUESTS + N_SEQUENTIAL
         rows = x[:n_total]
 
@@ -1313,7 +1404,9 @@ def served_path(work: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def trained_path(work: Path) -> dict:
+def trained_path(work: Path) -> tuple[dict, str]:
+    """``train()`` on the card and on the CPU; returns the card run's launch
+    counts and its tracking store's URI (``@prod`` is its artifact)."""
     import numpy as np
     import torch
 
@@ -1403,7 +1496,7 @@ def trained_path(work: Path) -> dict:
         f"phase4: the registered artifact on the card scores {TRAIN_SCORED_ROWS} "
         f"CSV rows within {err:.3e} of float64 numpy; on {torch.cuda.get_device_name(0)}"
     )
-    return launches
+    return launches, card_uri
 
 
 # ---------------------------------------------------------------------------
@@ -1411,10 +1504,10 @@ def trained_path(work: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def gbt_trained_path(work: Path) -> tuple[dict, str]:
+def gbt_trained_path(work: Path) -> tuple[dict, str, str]:
     """``train(model_family="gbt")`` with its defaults on the card and on
-    the CPU; returns the card run's launch counts and its registered
-    artifact directory."""
+    the CPU; returns the card run's launch counts, its registered artifact
+    directory and its tracking store's URI (``@prod`` is that artifact)."""
     import numpy as np
 
     from fraud_detection_tpu_torch.ops import kernels
@@ -1459,17 +1552,16 @@ def gbt_trained_path(work: Path) -> tuple[dict, str]:
     print(f"phase5: card - cpu: test AUC {gaps['test_auc']:+.3e}, CV mean "
           f"{gaps['cv_auc_mean']:+.3e} (tolerance {GBT_TRAIN_AUC_TOL}); the same gate "
           f"verdict on both (registered version {verdicts['cuda']})")
-    out = card_base / "models"
-    if verdicts["cuda"] is not None:
-        reg = TrackingClient(f"file:{card_base / 'mlruns'}").registry
-        art = Path(reg.resolve("models:/fraud@prod"))
-        with np.load(art / "model.npz") as z, np.load(out / "model.npz") as o:
-            if any(not np.array_equal(z[f], o[f]) for f in z.files):
-                raise AssertionError("registered forest differs from --out-dir's")
-        out = art
+    if verdicts["cuda"] is None:
+        raise AssertionError("the GBT run registered nothing: phases 6 and 7 serve @prod")
+    store = f"file:{card_base / 'mlruns'}"
+    art = Path(TrackingClient(store).registry.resolve("models:/fraud@prod"))
+    with np.load(art / "model.npz") as z, np.load(card_base / "models" / "model.npz") as o:
+        if any(not np.array_equal(z[f], o[f]) for f in z.files):
+            raise AssertionError("registered forest differs from --out-dir's")
     forest_agreement(card_base / "models", runs["cpu"][1] / "models")
     profile_gbt_fit()
-    return launches, str(out)
+    return launches, str(art), store
 
 
 def forest_agreement(card_models: Path, cpu_models: Path) -> None:
@@ -1635,7 +1727,10 @@ def forest_logits_f64(directory: Path, x32):
     return logit
 
 
-def gbt_served_path(work: Path, art_dir: str) -> dict:
+def gbt_served_path(work: Path, art_dir: str, store: str) -> dict:
+    """Serve phase 5's registered forest from its registry (``store``'s
+    ``@prod``; ``MODEL_PATH`` names a copy of it, which the loader does not
+    reach)."""
     import numpy as np
     import torch
 
@@ -1657,6 +1752,7 @@ def gbt_served_path(work: Path, art_dir: str) -> dict:
     for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
                  "SCORER_RETURN_WIRE"):
         os.environ.pop(knob, None)
+    pin_tracking_store(Path(store.removeprefix("file:")), work)
     app = create_app(database_url=f"sqlite:///{work}/gbt_served_fraud.db",
                      broker_url=f"sqlite:///{work}/gbt_served_taskq.db")
     port = free_port()
@@ -1671,6 +1767,7 @@ def gbt_served_path(work: Path, art_dir: str) -> dict:
             raise AssertionError("GBT app started degraded (no batcher/watchtower)")
         print(f"phase6: GBT app started (bucket ladder warmed, explainer and its "
               f"kernel tables built) in {time.perf_counter() - t0:.3f} s")
+        check_source("phase6", app.state["model_source"], "registry:models:/fraud@prod")
         _, body = http_call(port, "GET", "/metrics")
         before = {key: metric_value(body.decode(), key) for key in (
             'scorer_flushes_total{path="fused",shard="0"}',
@@ -1802,11 +1899,14 @@ def drain_worker(env: dict, log_path: Path, metrics_port: int) -> subprocess.Pop
         )
 
 
-def explain_path(work: Path, family: str, model_dir: Path, card: str) -> dict:
+def explain_path(work: Path, family: str, model_dir: Path, card: str,
+                 store: Path, source: str) -> dict:
     """Serve ``model_dir`` with a results DB and a broker, queue
     ``EXPLAIN_REQUESTS`` explanations through ``/predict`` plus one poison
     task, drain them with the worker's entry point on the card, check every
-    stored explanation, then count and time ``run_batch`` in process."""
+    stored explanation, then count and time ``run_batch`` in process. The
+    app and the worker load from ``store`` (an empty one, or one whose
+    ``@prod`` is ``model_dir``) and must name ``source``."""
     import numpy as np
     import torch
 
@@ -1826,6 +1926,7 @@ def explain_path(work: Path, family: str, model_dir: Path, card: str) -> dict:
     x = x64.astype(np.float32)
     os.environ.update(DEVICE="cuda", SCORER_EXPLAIN="topk",
                       MODEL_PATH=str(model_dir / "model.npz"))
+    pin_tracking_store(store, work)
     app = create_app(database_url=db_url, broker_url=q_url)
     port = free_port()
     server = ServerThread(app, port)
@@ -1834,6 +1935,7 @@ def explain_path(work: Path, family: str, model_dir: Path, card: str) -> dict:
     if not server.ready.wait(timeout=300) or server.error is not None:
         raise RuntimeError(f"server did not start: {server.error!r}")
     try:
+        check_source(f"{tag} app", app.state["model_source"], source)
         status, body = http_call(port, "GET", "/health")
         health = json.loads(body)
         if status != 200 or health["status"] != "healthy":
@@ -1902,6 +2004,8 @@ def explain_path(work: Path, family: str, model_dir: Path, card: str) -> dict:
         depth = app.state["broker"].depth()
         if depth != 0:
             raise AssertionError(f"{tag}: queue depth {depth} after the drain")
+        up = re.search(r"; model from (\S+)", (stores / "worker.log").read_text())
+        check_source(f"{tag} worker", up.group(1) if up else "(no start-up line)", source)
         print(f"{tag}: worker entry point (own process, default device cuda, "
               f"--max-batch 64) drained {len(ids)} tasks + 1 poison in {drained:.3f} s "
               f"from its spawn (host clock; first row COMPLETED at "
@@ -2033,6 +2137,320 @@ def explain_path(work: Path, family: str, model_dir: Path, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the offline tools
+# ---------------------------------------------------------------------------
+
+
+def sync_wall(fn):
+    """(fn's result, its seconds on the host clock with the device
+    synchronised at both ends)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class ToolRuns:
+    """Runs each tool under zeroed launch counts and checks them against
+    ``TOOL_LAUNCHES``; sums each kernel's launches over the phase."""
+
+    def __init__(self):
+        self.total: dict[str, int] = {}
+
+    def __call__(self, label: str, kind: str, fn):
+        from fraud_detection_tpu_torch.ops import kernels
+
+        kernels.reset_launch_counts()
+        out, wall = sync_wall(fn)
+        got = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = TOOL_LAUNCHES[kind]
+        print(f"phase8: {label}: {wall:.3f} s wall (host clock, device synchronised); "
+              f"kernel launches {got}")
+        if got != want:
+            raise AssertionError(f"phase8 {label}: launched {got}, not {want}")
+        for k, v in got.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return out, wall
+
+
+def logistic_scores_f64(model_dir: Path, x32):
+    import numpy as np
+
+    with np.load(Path(model_dir) / "model.npz") as z:
+        logit = ((x32.astype(np.float64) - z["scaler_mean"]) / z["scaler_scale"]) @ z["coef"] \
+            + z["intercept"]
+    return 1.0 / (1.0 + np.exp(-logit))
+
+
+def tool_split(csv: Path) -> tuple:
+    """(test rows float32, test labels, minority rows of the training
+    split, frauds in the file): the tools' split, seed 42."""
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv, stratified_split
+
+    x, y, _ = load_creditcard_csv(str(csv))
+    train_idx, test_idx = stratified_split(y, 0.2, 42)
+    return x[test_idx], y[test_idx], int(y[train_idx].sum()), int(y.sum())
+
+
+def check_phi(tag: str, phi, ev: float, ref_phi, logits, rows=None) -> tuple[float, float]:
+    """φ against the CPU plain TreeSHAP (``ref_phi``, on ``rows`` of φ when
+    given) within rtol/atol, and additivity Σφ + E[f] = f(x) on every row.
+    Returns (max |card − cpu|, max additivity gap)."""
+    import numpy as np
+
+    got = phi if rows is None else phi[rows]
+    err = float(np.abs(got - ref_phi).max())
+    over = float((np.abs(got - ref_phi) - SHAP_RTOL * np.abs(ref_phi)).max())
+    add = float(np.abs(phi.astype(np.float64).sum(1) + ev - logits).max())
+    if not np.isfinite(phi).all() or over > SHAP_ATOL or add > TOOL_ADDITIVITY:
+        raise AssertionError(f"phase8 {tag}: phi off the CPU plain TreeSHAP by {err:.3e} "
+                             f"or not additive ({add:.3e})")
+    return err, add
+
+
+def top10_agree(tag: str, mean_abs, ref_mean_abs) -> int:
+    """The top-10 features by mean |φ| equal the reference's, except where
+    a swapped pair's reference means lie within ``SHAP_TIE``; returns the
+    positions that differ."""
+    import numpy as np
+
+    got, want = np.argsort(-mean_abs)[:10], np.argsort(-ref_mean_abs)[:10]
+    bad = [i for i in range(10) if got[i] != want[i]
+           and abs(ref_mean_abs[got[i]] - ref_mean_abs[want[i]]) > SHAP_TIE]
+    if bad:
+        raise AssertionError(f"phase8 {tag}: top-10 {got.tolist()} vs the CPU's {want.tolist()}")
+    return int((got != want).sum())
+
+
+def start_tracking_server(root: Path, log_path: Path) -> tuple[subprocess.Popen, str]:
+    """The port's tracking server over ``root``, its own process, through
+    its entry point; returns it and its URI once ``/health`` answers."""
+    port = free_port()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fraud_detection_tpu_torch.tracking.server",
+             "--root", str(root), "--host", "127.0.0.1", "--port", str(port)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=log, stderr=subprocess.STDOUT,
+        )
+    t0 = time.perf_counter()
+    while True:
+        try:
+            status, _ = http_call(port, "GET", "/health")
+            if status == 200:
+                return proc, f"http://127.0.0.1:{port}"
+        except OSError:
+            pass
+        if proc.poll() is not None or time.perf_counter() - t0 > 60:
+            proc.kill()
+            proc.wait(timeout=30)
+            raise RuntimeError("the tracking server did not start: "
+                               + log_path.read_text()[-2000:])
+        time.sleep(0.1)
+
+
+def tool_cli(module: str, args: list[str], work: Path) -> subprocess.CompletedProcess:
+    """A tool through ``python -m``, its own process on the default device."""
+    env = {k: v for k, v in os.environ.items() if k != "DEVICE"}
+    env["PYTHONPATH"] = str(ROOT)
+    return subprocess.run([sys.executable, "-m", f"fraud_detection_tpu_torch.{module}", *args],
+                          cwd=work, env=env, capture_output=True, text=True, timeout=300)
+
+
+def offline_tools(work: Path, lin_store: str, gbt_dir: str) -> dict:
+    """Phase 8: every offline tool on the card, in ``work``: preprocess,
+    evaluate, explain, validate_auc, predict_single and eda, held against
+    CPU runs and float64 numpy, then preprocess, evaluate and explain at the
+    Kaggle file's scale. Returns each kernel's launches over the phase."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.data.synthetic import generate_synthetic_data
+    from fraud_detection_tpu_torch.eda import eda
+    from fraud_detection_tpu_torch.evaluate import evaluate
+    from fraud_detection_tpu_torch.explain import explain
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.ops.tree_shap import tree_shap
+    from fraud_detection_tpu_torch.predict_single import _DEMO_ROW, FraudDetector
+    from fraud_detection_tpu_torch.preprocess import preprocess
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+    from fraud_detection_tpu_torch.validate_auc import validate_auc
+
+    t_phase = time.perf_counter()
+    tools = work / "tools"
+    tools.mkdir()
+    csv = ROOT / "data" / "creditcard.csv"
+    lin_root = Path(lin_store.removeprefix("file:"))
+    lin_dir = Path(TrackingClient(lin_store).registry.resolve("models:/fraud@prod"))
+    gbt_dir = Path(gbt_dir)
+    pin_tracking_store(tools / "empty_mlruns", tools)
+    os.environ["DEVICE"] = "cuda"
+    run = ToolRuns()
+
+    # 1. preprocess on the committed CSV, on the card and on the CPU
+    run("preprocess (committed CSV, 20,000 x 30)", "preprocess",
+        lambda: preprocess(str(csv), str(tools / "pre_card.npz"), str(tools / "pre_card"),
+                           device="cuda"))
+    preprocess(str(csv), str(tools / "pre_cpu.npz"), str(tools / "pre_cpu"), device="cpu")
+    card, cpu = np.load(tools / "pre_card.npz"), np.load(tools / "pre_cpu.npz")
+    same = all(card[k].tobytes() == cpu[k].tobytes() for k in ("X_test", "y_test"))
+    differ = int((card["X_test"] != cpu["X_test"]).sum())
+    counts = np.bincount(card["y_res"])
+    print(f"phase8: preprocess X_test {card['X_test'].shape} and y_test equal the CPU "
+          f"run's bit for bit: {same} ({differ} X_test values differ, max gap "
+          f"{float(np.abs(card['X_test'] - cpu['X_test']).max()):.3e}); SMOTE: "
+          f"{card['X_res'].shape[0]} rows, classes "
+          f"{counts.tolist()}; feature list {(tools / 'pre_card' / 'feature_names.json').exists()}")
+    if not same or counts.size != 2 or counts[0] != counts[1]:
+        raise AssertionError("phase8 preprocess: X_test/y_test differ from the CPU run's "
+                             "or SMOTE did not balance the classes")
+
+    # 2. evaluate both families on the committed CSV, on the card and the CPU
+    x_test, _, _, _ = tool_split(csv)
+    for family, model_dir in (("logistic", lin_dir), ("gbt", gbt_dir)):
+        res, _ = run(f"evaluate {family} (committed CSV, {len(x_test)} test rows)",
+                     f"evaluate_{family}",
+                     lambda: evaluate(str(csv), str(model_dir), None, device="cuda"))
+        ref = evaluate(str(csv), str(model_dir), None, device="cpu")
+        want = (logistic_scores_f64(model_dir, x_test) if family == "logistic"
+                else 1.0 / (1.0 + np.exp(-forest_logits_f64(model_dir, x_test))))
+        err = float(np.abs(res["scores"] - want).max())
+        print(f"phase8: evaluate {family}: confusion matrix {res['confusion_matrix']} "
+              f"(cpu {ref['confusion_matrix']}), AUC {res['auc']:.6f} (card - cpu "
+              f"{res['auc'] - ref['auc']:+.3e}), max |score - f64| {err:.3e}")
+        if res["confusion_matrix"] != ref["confusion_matrix"] or \
+                not abs(res["auc"] - ref["auc"]) <= 1e-6 or not err <= SCORE_ATOL:
+            raise AssertionError(f"phase8 evaluate {family}: off the CPU run or float64")
+
+    # 3. explain the forest over the committed CSV's test split
+    res, _ = run(f"explain gbt (committed CSV, {len(x_test)} rows)", "explain_gbt",
+                 lambda: explain(str(csv), str(gbt_dir), None, device="cuda"))
+    ref, cpu_wall = sync_wall(lambda: explain(str(csv), str(gbt_dir), None, device="cpu"))
+    err, add = check_phi("explain", res["phi"], res["expected_value"], ref["phi"],
+                         forest_logits_f64(gbt_dir, x_test))
+    ties = top10_agree("explain", np.abs(res["phi"]).mean(0), np.abs(ref["phi"]).mean(0))
+    print(f"phase8: explain gbt: phi ({res['n_rows']} x {res['phi'].shape[1]}) within "
+          f"{err:.3e} of the CPU run's plain TreeSHAP on every row ({cpu_wall:.3f} s on "
+          f"the CPU), additivity max |sum phi + E[f] - f(x)| {add:.3e}; top-10 "
+          f"{list(res['mean_abs_shap'])} equal the CPU's ({ties} positions across a tie)")
+
+    # 4. the Kaggle file's scale: 284,807 rows, 492 frauds expected
+    kaggle = tools / "kaggle.csv"
+    _, gen_wall = sync_wall(lambda: generate_synthetic_data(
+        str(kaggle), n_samples=KAGGLE_ROWS, fraud_ratio=KAGGLE_FRAUDS / KAGGLE_ROWS, seed=0))
+    kx, ky, k_min, k_frauds = tool_split(kaggle)
+    print(f"phase8: the Kaggle-sized set generated in {gen_wall:.3f} s: {KAGGLE_ROWS} rows, "
+          f"{k_frauds} frauds; test split {len(ky)} rows")
+    res, _ = run("preprocess (Kaggle-sized)", "preprocess",
+                 lambda: preprocess(str(kaggle), str(tools / "kaggle.npz"),
+                                    str(tools / "kaggle_models"), device="cuda"))
+    print(f"phase8: preprocess (Kaggle-sized): {res['n_resampled']} resampled rows, "
+          f"knn_topk at m = {k_min} minority rows")
+    res, _ = run(f"evaluate logistic (Kaggle-sized, {len(ky)} test rows: the 65,536 bucket)",
+                 "evaluate_logistic",
+                 lambda: evaluate(str(kaggle), str(lin_dir), None, device="cuda"))
+    err = float(np.abs(res["scores"] - logistic_scores_f64(lin_dir, kx)).max())
+    print(f"phase8: evaluate logistic (Kaggle-sized): AUC {res['auc']:.6f}, confusion "
+          f"matrix {res['confusion_matrix']}, max |score - f64| {err:.3e}")
+    if res["scores"].shape != (len(ky),) or not err <= SCORE_ATOL:
+        raise AssertionError(f"phase8 evaluate (Kaggle-sized): scores off by {err:.3e}")
+    res, _ = run(f"explain gbt (Kaggle-sized, max_rows {TOOL_EXPLAIN_ROWS})", "explain_gbt",
+                 lambda: explain(str(kaggle), str(gbt_dir), None, max_rows=TOOL_EXPLAIN_ROWS,
+                                 device="cuda"))
+    xs = kx[:TOOL_EXPLAIN_ROWS]
+    rows = np.sort(np.random.default_rng(0).choice(len(xs), TOOL_SAMPLED_ROWS, replace=False))
+    ref_model = load_any_model(str(gbt_dir), device="cpu")
+    ref_phi, cpu_wall = sync_wall(lambda: tree_shap(
+        ref_model.raw_explainer(), torch.from_numpy(xs[rows])).numpy())
+    err, add = check_phi("explain (Kaggle-sized)", res["phi"], res["expected_value"],
+                         ref_phi, forest_logits_f64(gbt_dir, xs), rows)
+    ties = top10_agree("explain (Kaggle-sized)", np.abs(res["phi"][rows]).mean(0),
+                       np.abs(ref_phi).mean(0))
+    print(f"phase8: explain gbt (Kaggle-sized): tree_shap at n = {res['n_rows']}; phi within "
+          f"{err:.3e} of the CPU plain TreeSHAP on {len(rows)} rows sampled across the "
+          f"batch ({cpu_wall:.3f} s on the CPU), additivity on every row {add:.3e}; the "
+          f"sample's top-10 equal the CPU's ({ties} positions across a tie)")
+
+    # 5. validate_auc against phase 4's registry: the file store, then HTTP
+    pin_tracking_store(lin_root, tools)
+    (auc_file, ok_file), _ = run("validate_auc (file store)", "validate_auc",
+                                 lambda: validate_auc(device="cuda"))
+    server, uri = start_tracking_server(lin_root, tools / "tracking_server.log")
+    try:
+        os.environ["MLFLOW_TRACKING_URI"] = uri
+        (auc_http, ok_http), _ = run(f"validate_auc (tracking server {uri})", "validate_auc",
+                                     lambda: validate_auc(device="cuda"))
+        cached = sorted(str(p.relative_to(tools)) for p in
+                        (tools / "registry_cache").rglob("model.npz"))
+        failed = tool_cli("validate_auc", ["--threshold", "1.01"], tools)
+        client = TrackingClient(uri)
+        logged = [client.get_run("model-validation", r)
+                  for r in client.list_runs("model-validation")]
+        tags = sorted(r.tags["validation_pass"] for r in logged)
+        print(f"phase8: validate_auc: AUC {auc_file:.6f} through the file store, "
+              f"{auc_http:.6f} through the server (artifact unpacked to {cached}); "
+              f"pass {ok_file}/{ok_http}; the CLI with --threshold 1.01 exited "
+              f"{failed.returncode} ({failed.stdout.strip()}); {len(logged)} "
+              f"model-validation runs read back over HTTP, validation_pass {tags}")
+        if auc_file != auc_http or not (ok_file and ok_http) or failed.returncode != 1 \
+                or not cached or tags != ["False", "True", "True"] \
+                or any(r.params != {"model_uri": "models:/fraud@prod"} for r in logged):
+            raise AssertionError("phase8 validate_auc: the two gates or the logged runs "
+                                 "disagree" + failed.stderr[-2000:])
+    finally:
+        server.terminate()
+        server.wait(timeout=60)
+
+    # 6. predict_single on phase 4's registry: in process, then its CLI
+    os.environ["MLFLOW_TRACKING_URI"] = lin_store
+    os.environ["MODEL_PATH"] = str(tools / "absent" / "model.npz")  # the registry or nothing
+    det = FraudDetector(device="cuda")
+    (label, proba), _ = run("predict_single (predict, then predict_proba)", "predict_single",
+                            lambda: (det.predict(_DEMO_ROW), det.predict_proba(_DEMO_ROW)))
+    row = np.asarray([[_DEMO_ROW[n] for n in det.model.feature_names]], np.float32)
+    want = float(logistic_scores_f64(lin_dir, row)[0])
+    cli = tool_cli("predict_single", [], tools)
+    found = re.search(r"prediction: (\d) .*P\(fraud\) = ([0-9.]+)", cli.stdout)
+    print(f"phase8: predict_single: label {label}, P(fraud) {proba:.9f} (f64 {want:.9f}); "
+          f"CLI exited {cli.returncode}: {cli.stdout.strip()}")
+    if found is None or cli.returncode != 0 or "registry:models:/fraud@prod" not in cli.stderr:
+        raise AssertionError(f"phase8 predict_single CLI: {cli.stdout} {cli.stderr[-2000:]}")
+    check_source("phase8 predict_single CLI",
+                 re.search(r"using model from (\S+)", cli.stderr).group(1),
+                 "registry:models:/fraud@prod")
+    if not abs(proba - want) <= SCORE_ATOL or label != int(want >= 0.5) or \
+            int(found.group(1)) != label or not abs(float(found.group(2)) - want) <= SCORE_ATOL:
+        raise AssertionError(f"phase8 predict_single: {label} {proba} vs f64 {want}")
+
+    # 7. eda without plots
+    out_csv = tools / "processed_data.csv"
+    res, _ = run("eda --no-plots (committed CSV)", "eda",
+                 lambda: eda(str(csv), None, str(out_csv), device="cuda"))
+    raw = np.loadtxt(csv, delimiter=",", skiprows=1, dtype=np.float64)
+    back = np.loadtxt(out_csv, delimiter=",", skiprows=1, dtype=np.float64)
+    header = out_csv.read_text().splitlines()[0].split(",")
+    x32 = raw[:, :30].astype(np.float32)
+    scaled = [(x32[:, c].astype(np.float64) - x32[:, c].mean(dtype=np.float64))
+              / x32[:, c].std(dtype=np.float64) for c in (29, 0)]
+    gap = max(float(np.abs(back[:, 28 + i] - scaled[i]).max()) for i in range(2))
+    print(f"phase8: eda: {res['n_rows']} rows, {res['n_fraud']} frauds; processed CSV "
+          f"{back.shape} parses back, header ends {header[-3:]}, scaled columns within "
+          f"{gap:.3e} of float64")
+    if res != {"n_rows": len(raw), "n_fraud": int(raw[:, 30].sum())} or \
+            back.shape != (len(raw), 31) or header[-3:] != ["scaled_amount", "scaled_time",
+                                                             "Class"] or \
+            back[:, :28].astype(np.float32).tobytes() != x32[:, 1:29].tobytes() or \
+            not np.array_equal(back[:, 30], raw[:, 30]) or not gap <= 1e-4:
+        raise AssertionError("phase8 eda: counts or the processed CSV are off")
+    print(f"phase8: offline tools in {time.perf_counter() - t_phase:.3f} s; kernel launches "
+          f"over the phase {run.total}")
+    return run.total
+
+
 def main() -> int:
     try:
         import torch
@@ -2073,12 +2491,17 @@ def main() -> int:
     hist = check_gbt_hist(seed=0)
     shap = check_tree_shap(seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        served = served_path(Path(work))
-        trained = trained_path(Path(work))
-        gbt_trained, gbt_dir = gbt_trained_path(Path(work))
-        gbt_served = gbt_served_path(Path(work), gbt_dir)
-        worker_lin = explain_path(Path(work), "logistic", Path(work) / "models", card)
-        worker_gbt = explain_path(Path(work), "gbt", Path(gbt_dir), card)
+        work = Path(work)
+        served = served_path(work)
+        trained, lin_store = trained_path(work)
+        gbt_trained, gbt_dir, gbt_store = gbt_trained_path(work)
+        gbt_served = gbt_served_path(work, gbt_dir, gbt_store)
+        worker_lin = explain_path(work, "logistic", work / "models", card,
+                                  work / "empty_mlruns", f"native:{work / 'models'}")
+        worker_gbt = explain_path(work, "gbt", Path(gbt_dir), card,
+                                  Path(gbt_store.removeprefix("file:")),
+                                  "registry:models:/fraud@prod")
+        tools = offline_tools(work, lin_store, gbt_dir)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -2090,12 +2513,12 @@ def main() -> int:
         }
 
     t = fs["timing"][1024, "float32"]
-    k_small, k_big = knn["timing"][158], knn["timing"][100000]
-    k_fold = knn["timing"][126]
+    k_small = knn["timing"][158, 30]
     line = {"kernels": [
         row("fused_score", served["fused_score"], fs, t, t["library_ms"],
             n=1024, launch_floor_ms=fs["launch_floor_ms"],
             worker_launches=worker_lin["fused_score"],
+            tools_launches=tools.get("fused_score", 0),
             **{f"at_n_{n}{'_bf16' if dt == 'bfloat16' else ''}":
                {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
                for (n, dt), v in fs["timing"].items() if (n, dt) != (1024, "float32")}),
@@ -2105,10 +2528,10 @@ def main() -> int:
         # kernel's and the plain version's picks (0 when the indices agree)
         row("knn_topk", trained["knn_topk"], knn, k_small, None,
             m=158, orientation_ms=k_small["orientation_ms"],
-            at_m_126={key: k_fold[key] for key in
-                      ("ms", "plain_ms", "bound_ms", "orientation_ms")},
-            at_m_100000={key: k_big[key] for key in
-                         ("ms", "plain_ms", "bound_ms", "orientation_ms")}),
+            tools_launches=tools.get("knn_topk", 0),
+            **{f"at_m_{m}" + (f"_d_{d}" if d != 30 else ""):
+               {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "orientation_ms")}
+               for (m, d), v in knn["timing"].items() if (m, d) != (158, 30)}),
         # at the final fit's last level (16 nodes); max_abs_err is the
         # largest |kernel − plain| cell over every phase-2c case
         row("gbt_hist", gbt_trained["gbt_hist"], hist, hist["timing"][16],
@@ -2125,8 +2548,9 @@ def main() -> int:
             n=1024, trees=100, depth=5,
             orientation_ms=shap["timing"][1024]["orientation_ms"],
             worker_launches=worker_gbt["tree_shap"],
+            tools_launches=tools.get("tree_shap", 0),
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
-                             ("ms", "plain_ms", "bound_ms")} for n in (8, 64)}),
+                             ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}
     print(json.dumps(line))
     print(card)  # exactly as nvidia-smi gives it

@@ -5,8 +5,13 @@ the other's model: ``coef``, ``intercept`` and, with a scaler,
 ``scaler_mean``/``scaler_scale``/``scaler_var``/``scaler_n`` — all float64
 on disk, float32 in memory. A GBT forest uses the same two files with the
 ``gbt_*`` keys (:func:`save_gbt_artifacts`, :func:`load_gbt_artifacts`);
-:func:`artifact_kind` tells the two apart. The joblib interchange is not
-ported.
+:func:`artifact_kind` tells the two apart.
+
+The reference's joblib layout (``logistic_model.joblib``, ``scaler.joblib``,
+``columns.joblib``) is written and read by :func:`export_joblib_artifacts`,
+:func:`export_scaler_artifacts` and :func:`import_joblib_artifacts`, which
+import joblib and sklearn only when called and raise ``RuntimeError`` where
+they are absent.
 """
 
 from __future__ import annotations
@@ -167,3 +172,102 @@ def load_gbt_artifacts(directory: str):
     with open(os.path.join(directory, FEATURES_FILE)) as f:
         feature_names = json.load(f)
     return model, feature_names, background
+
+
+def export_joblib_artifacts(
+    directory: str,
+    params: LogisticParams,
+    scaler: ScalerParams | None,
+    feature_names: list[str],
+    model_filename: str = "logistic_model.joblib",
+) -> None:
+    """Write the reference's artifact layout from native params: real
+    sklearn estimators, loadable by any sklearn client."""
+    try:
+        import joblib
+        from sklearn.linear_model import LogisticRegression
+    except ImportError as e:
+        raise RuntimeError(
+            "joblib/sklearn are required for joblib export; install the "
+            "'tools' extra"
+        ) from e
+
+    os.makedirs(directory, exist_ok=True)
+    model = LogisticRegression()
+    model.classes_ = np.array([0, 1])
+    model.coef_ = _f64(params.coef).reshape(1, -1)
+    model.intercept_ = np.asarray([float(params.intercept)])
+    model.n_features_in_ = len(feature_names)
+    model.n_iter_ = np.array([1])
+    joblib.dump(model, os.path.join(directory, model_filename))
+    export_scaler_artifacts(directory, scaler, feature_names)
+
+
+def export_scaler_artifacts(
+    directory: str,
+    scaler: ScalerParams | None,
+    feature_names: list[str],
+) -> None:
+    """The model-free part of the reference layout: ``scaler.joblib``
+    (with a scaler), ``columns.joblib`` and ``feature_names.json`` — what
+    ``preprocess`` writes before any model exists."""
+    try:
+        import joblib
+        from sklearn.preprocessing import StandardScaler
+    except ImportError as e:
+        raise RuntimeError(
+            "joblib/sklearn are required for joblib export; install the "
+            "'tools' extra"
+        ) from e
+
+    os.makedirs(directory, exist_ok=True)
+    if scaler is not None:
+        sk = StandardScaler()
+        sk.mean_ = _f64(scaler.mean)
+        sk.scale_ = _f64(scaler.scale)
+        sk.var_ = _f64(scaler.var)
+        sk.n_features_in_ = len(feature_names)
+        sk.n_samples_seen_ = int(_f64(scaler.n_samples))
+        sk.with_mean = sk.with_std = True
+        joblib.dump(sk, os.path.join(directory, "scaler.joblib"))
+
+    joblib.dump(list(feature_names), os.path.join(directory, "columns.joblib"))
+    with open(os.path.join(directory, FEATURES_FILE), "w") as f:
+        json.dump(list(feature_names), f)
+
+
+def import_joblib_artifacts(
+    model_path: str,
+    scaler_path: str | None = None,
+    feature_names_path: str | None = None,
+) -> tuple[LogisticParams, ScalerParams | None, list[str] | None]:
+    """Reference-format joblib artifacts → native params on the CPU (the
+    serving loader's last source). A ``scaler_path`` that does not exist
+    raises ``FileNotFoundError``: raw rows scored by coefficients fitted on
+    scaled rows give wrong probabilities without a sign."""
+    try:
+        import joblib
+    except ImportError as e:
+        raise RuntimeError("joblib is required to import joblib artifacts") from e
+
+    model = joblib.load(model_path)
+    params = LogisticParams(
+        coef=_f32(model.coef_).reshape(-1),
+        intercept=_f32(model.intercept_).reshape(()),
+    )
+    scaler = None
+    if scaler_path:
+        if not os.path.exists(scaler_path):
+            raise FileNotFoundError(f"scaler artifact not found: {scaler_path}")
+        sk = joblib.load(scaler_path)
+        scaler = ScalerParams(
+            mean=_f32(sk.mean_),
+            scale=_f32(sk.scale_),
+            var=_f32(sk.var_),
+            n_samples=_f32(getattr(sk, "n_samples_seen_", 0)).reshape(()),
+        )
+    feature_names = None
+    if feature_names_path and os.path.exists(feature_names_path):
+        with open(feature_names_path) as f:
+            feature_names = json.load(f)
+    return params, scaler, feature_names

@@ -1,5 +1,5 @@
-"""Environment-variable configuration for the port's serving, explain and
-training slices.
+"""Environment-variable configuration for the port's serving, explain,
+training and offline-tool slices.
 
 Its own copy of only the knobs these slices read, with the defaults of
 ``fraud_detection_tpu/config.py`` — except ``DEVICE``, which defaults to
@@ -47,8 +47,19 @@ def data_csv() -> str:
 
 def tracking_uri() -> str:
     """``MLFLOW_TRACKING_URI`` — ``file:<dir>`` (or a bare path) selects the
-    file tracking store and registry."""
+    file tracking store and registry, ``http(s)://host:port`` a tracking
+    server."""
     return _get("MLFLOW_TRACKING_URI", "file:./mlruns")
+
+
+def registry_cache() -> str:
+    """``FRAUD_REGISTRY_CACHE`` — where the HTTP registry client unpacks the
+    versions it downloads. Default ``~/.cache/fraud-detection-tpu/registry``
+    (the JAX package's, so both share one cache)."""
+    return _get(
+        "FRAUD_REGISTRY_CACHE",
+        os.path.join(os.path.expanduser("~"), ".cache", "fraud-detection-tpu", "registry"),
+    )
 
 
 def experiment_name() -> str:
@@ -78,8 +89,39 @@ def quant_sigma_range() -> float:
 
 def model_path() -> str:
     """``MODEL_PATH`` — the served artifact; its directory holds
-    ``model.npz`` + ``feature_names.json`` (+ ``monitor_profile.npz``)."""
+    ``model.npz`` + ``feature_names.json`` (+ ``monitor_profile.npz``).
+    Without ``model.npz`` there, the path itself is read as the reference's
+    joblib estimator."""
     return _get("MODEL_PATH", "models/logistic_model.joblib")
+
+
+def feature_names_path() -> str:
+    """``FEATURE_NAMES_PATH`` — the feature order of a joblib artifact."""
+    return _get("FEATURE_NAMES_PATH", "models/feature_names.json")
+
+
+def scaler_path() -> str:
+    """``SCALER_PATH`` — the joblib ``StandardScaler`` of a joblib
+    artifact."""
+    return _get("SCALER_PATH", "models/scaler.joblib")
+
+
+def require_registry_model() -> bool:
+    """``REQUIRE_REGISTRY_MODEL=1`` disables the local-artifact fallback:
+    serving fails loudly (degraded /health) when the registry has no model.
+    Default off: the registry first, then the local artifacts."""
+    return _get("REQUIRE_REGISTRY_MODEL", "0").lower() in ("1", "true", "yes")
+
+
+def synthetic_samples() -> int:
+    """``CI_SYNTHETIC_SAMPLES``, else ``TEST_SYNTHETIC_SAMPLES`` — the row
+    count of a generated synthetic CSV when the caller gives none. Default
+    500."""
+    return int(
+        os.environ.get(
+            "CI_SYNTHETIC_SAMPLES", os.environ.get("TEST_SYNTHETIC_SAMPLES", 500)
+        )
+    )
 
 
 def scorer_max_batch() -> int:

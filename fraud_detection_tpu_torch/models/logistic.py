@@ -9,7 +9,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fraud_detection_tpu_torch.ckpt.checkpoint import load_artifacts, save_artifacts
+from fraud_detection_tpu_torch.ckpt.checkpoint import (
+    export_joblib_artifacts,
+    import_joblib_artifacts,
+    load_artifacts,
+    save_artifacts,
+)
 from fraud_detection_tpu_torch.models.base import FraudModelBase
 from fraud_detection_tpu_torch.ops.linear_shap import (
     LinearShapExplainer,
@@ -62,13 +67,22 @@ class FraudLogisticModel(FraudModelBase):
         phi = linear_shap(explainer, xt).cpu().numpy()
         return phi, float(explainer.expected_value)
 
-    def save(self, directory: str) -> str:
+    def save(self, directory: str, joblib_too: bool = True) -> str:
         """``model.npz`` + ``feature_names.json`` and, with a scaler, the
         int8 wire's ``quant_calibration.npz`` derived from it, so that the
-        model serves that wire on its own training profile."""
+        model serves that wire on its own training profile. With
+        ``joblib_too``, also the reference's joblib layout where joblib and
+        sklearn are installed (the native files alone where not)."""
         save_artifacts(directory, self.params, self.scaler, self.feature_names)
         if self.scaler is not None:
             save_calibration(directory, derive_calibration(self.scaler))
+        if joblib_too:
+            try:
+                export_joblib_artifacts(
+                    directory, self.params, self.scaler, self.feature_names
+                )
+            except RuntimeError:
+                pass  # joblib/sklearn not installed: the native format only
         return directory
 
     @classmethod
@@ -77,3 +91,20 @@ class FraudLogisticModel(FraudModelBase):
     ) -> "FraudLogisticModel":
         params, scaler, feature_names = load_artifacts(directory)
         return cls(params, scaler, feature_names, device=device)
+
+    @classmethod
+    def load_joblib(
+        cls,
+        model_path: str,
+        scaler_path: str | None,
+        feature_names_path: str | None,
+        device: str | torch.device | None = None,
+    ) -> "FraudLogisticModel":
+        """A model from the reference's joblib artifacts; without a feature
+        list the features are named ``f0``, ``f1``, ..."""
+        params, scaler, names = import_joblib_artifacts(
+            model_path, scaler_path, feature_names_path
+        )
+        if names is None:
+            names = [f"f{i}" for i in range(params.coef.shape[0])]
+        return cls(params, scaler, names, device=device)

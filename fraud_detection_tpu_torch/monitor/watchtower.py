@@ -17,6 +17,7 @@ read ``None`` in the status body.
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -182,12 +183,31 @@ class Watchtower:
         self._thread.join(timeout=5.0)
 
 
+def resolve_profile_dir(model_source: str) -> str | None:
+    """The artifact directory that may hold ``monitor_profile.npz`` for a
+    ``load_production_model`` source: the registry version's, the native
+    directory, or the joblib file's directory."""
+    kind, _, rest = model_source.partition(":")
+    if kind == "registry":
+        from fraud_detection_tpu_torch.tracking import TrackingClient
+
+        try:
+            return TrackingClient().registry.resolve(rest)
+        except (FileNotFoundError, ValueError) as e:
+            log.debug("profile dir resolution failed for %s: %s", rest, e)
+            return None
+    if kind == "native":
+        return rest
+    if kind == "joblib":
+        return os.path.dirname(rest) or "."
+    return None
+
+
 def build_watchtower(model, model_source: str, device=None):
     """Serving-side factory: the watchtower over the ``monitor_profile.npz``
-    beside the served model (``native:<dir>`` source), or None when there
-    is no profile or it does not match the model's features."""
-    kind, _, rest = model_source.partition(":")
-    profile_dir = rest if kind == "native" else None
+    beside the served model (:func:`resolve_profile_dir`), or None when
+    there is no profile or it does not match the model's features."""
+    profile_dir = resolve_profile_dir(model_source)
     profile = load_profile(profile_dir) if profile_dir else None
     if profile is None:
         log.info(

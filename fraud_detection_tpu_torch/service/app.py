@@ -56,7 +56,8 @@ log = logging.getLogger("fraud_detection_tpu_torch.api")
 def create_app(
     database_url: str | None = None, broker_url: str | None = None, device=None
 ) -> App:
-    """The API over the model at ``MODEL_PATH``'s directory, served on
+    """The API over the production model (``service.loading``: the registry's
+    ``@prod``, else ``MODEL_PATH``'s directory, else its joblib files), served on
     ``device`` (default: ``DEVICE``, itself defaulting to ``cuda``), with
     the results DB at ``database_url`` (default ``DATABASE_URL``) and the
     broker at ``broker_url`` (default ``CELERY_BROKER_URL``). Raises at once

@@ -67,7 +67,7 @@ class XaiWorker:
         max_batch: int = 64,
         device=None,
     ):
-        """A worker over the model at ``MODEL_PATH``'s directory on
+        """A worker over the production model (``service.loading``) on
         ``device`` (default: ``DEVICE``, itself defaulting to ``cuda``).
         Raises at once when ``cuda`` is asked for and no card is present."""
         dev = resolve_device(device)

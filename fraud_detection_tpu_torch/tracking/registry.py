@@ -89,9 +89,23 @@ class ModelRegistry:
         aliases[alias] = int(version)
         _atomic_write_json(path, aliases)
 
+    def delete_alias(self, name: str, alias: str) -> bool:
+        """Drop an alias; the versions stay. False when it did not exist."""
+        path = self._aliases_path(name)
+        aliases = _read_json(path, {})
+        if alias not in aliases:
+            return False
+        del aliases[alias]
+        _atomic_write_json(path, aliases)
+        return True
+
+    def aliases(self, name: str) -> dict:
+        """The alias → version map ({} for an unknown model)."""
+        return _read_json(self._aliases_path(name), {})
+
     # -- reads -------------------------------------------------------------
     def get_version_by_alias(self, name: str, alias: str) -> int | None:
-        v = _read_json(self._aliases_path(name), {}).get(alias)
+        v = self.aliases(name).get(alias)
         return int(v) if v is not None else None
 
     def latest_version(self, name: str) -> int | None:

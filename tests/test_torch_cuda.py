@@ -26,6 +26,14 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def empty_tracking_store(tmp_path, monkeypatch):
+    """An empty tracking store for every test, so an app or worker serves
+    ``MODEL_PATH``'s directory, never a registered ``@prod``."""
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
+    monkeypatch.setenv("FRAUD_REGISTRY_CACHE", str(tmp_path / "registry_cache"))
+
+
 def _require_card() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
@@ -439,6 +447,69 @@ def test_tree_shap_kernel_matches_plain_version(depth, trees, n):
     assert torch.equal(topk_reasons(got, 3)[0], topk_reasons(want, 3)[0])
     recon = got.sum(dim=1) + e.expected_value
     torch.testing.assert_close(recon, gbt.gbt_predict_logits(model, rows), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tree_shap_at_explains_row_count_matches_plain_on_sampled_rows():
+    """``explain``'s largest batch, n = 20,000 rows, over 100 trees of
+    depth 5 (about 13 groups × 10 row chunks, a (groups, d, n) scratch of
+    31.2 MB): 1,024 rows sampled across the batch within rtol 1e-4 /
+    atol 2e-5 of the plain version on those rows, and additive."""
+    from fraud_detection_tpu_torch.ops import gbt
+    from fraud_detection_tpu_torch.ops import tree_shap as ts
+
+    dev = _require_card()
+    rng = np.random.default_rng(20000)
+    x = rng.standard_normal((22000, 30)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] > 0.2).astype(np.int32)
+    model = gbt.gbt_fit(torch.from_numpy(x[:2000]).to(dev), y[:2000],
+                        gbt.GBTConfig(n_trees=100, max_depth=5, n_bins=256))
+    e = ts.build_tree_explainer(model, x[:128])
+    rows = torch.from_numpy(x[2000:]).to(dev)
+    binned = gbt.bin_features(rows, model.bin_edges)
+    before = kernels.TREE_SHAP_LAUNCHES
+    got = kernels.tree_shap(binned, e.tables)
+    torch.cuda.synchronize()
+    assert kernels.TREE_SHAP_LAUNCHES == before + 1
+    sample = torch.from_numpy(np.sort(rng.choice(20000, 1024, replace=False))).to(dev)
+    want = kernels.tree_shap_reference(binned[sample], model.split_feature, model.split_bin,
+                                       model.leaf_value, e.bg_table)
+    torch.testing.assert_close(got[sample], want, rtol=1e-4, atol=2e-5)
+    assert bool(torch.isfinite(got).all())
+    recon = got.sum(dim=1) + e.expected_value
+    torch.testing.assert_close(recon, gbt.gbt_predict_logits(model, rows), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logistic", "gbt"])
+def test_evaluate_on_the_card_matches_the_cpu(family, tmp_path):
+    """``evaluate`` on the committed CSV's test split (4,000 rows): the
+    same confusion matrix as on the CPU, the AUC within 1e-6, the scores
+    within 1e-5; one ``fused_score`` launch for the logistic model."""
+    from fraud_detection_tpu_torch.evaluate import evaluate
+    from fraud_detection_tpu_torch.models import FraudGBTModel
+    from fraud_detection_tpu_torch.ops.gbt import GBTConfig, gbt_fit
+
+    dev = _require_card()
+    csv = os.path.join(ROOT, "data", "creditcard.csv")
+    model_dir = os.path.join(ROOT, "models")
+    if family == "gbt":
+        data = np.loadtxt(csv, delimiter=",", skiprows=1, max_rows=4000, dtype=np.float32)
+        forest = gbt_fit(data[:, :30], data[:, 30].astype(np.int32),
+                         GBTConfig(n_trees=20, max_depth=4, n_bins=64), device=dev)
+        model_dir = str(tmp_path / "gbt")
+        FraudGBTModel(forest, FraudLogisticModel.load(os.path.join(ROOT, "models"),
+                                                      device="cpu").feature_names,
+                      background=data[:64, :30], device=dev).save(model_dir)
+    kernels.reset_launch_counts()
+    card = evaluate(csv, model_dir, None, device="cuda")
+    launches = kernels.launch_counts()
+    cpu = evaluate(csv, model_dir, None, device="cpu")
+    assert card["confusion_matrix"] == cpu["confusion_matrix"]
+    assert abs(card["auc"] - cpu["auc"]) <= 1e-6
+    np.testing.assert_allclose(card["scores"], cpu["scores"], rtol=0, atol=1e-5)
+    if family == "logistic":
+        assert launches["fused_score"] == 1
 
 
 @pytest.mark.cuda

@@ -2,8 +2,8 @@
 ``chip_smoke.py`` import in a fresh interpreter where ``jax*``, ``optax``,
 the JAX package (``fraud_detection_tpu`` and ``fraud_detection_tpu.*`` —
 the port's own name shares that prefix), ``pydantic``/``prometheus_client``
-and ``pandas``/``joblib``/``sklearn`` (absent on the machine with the card)
-all refuse to import."""
+and ``pandas``/``joblib``/``sklearn``/``matplotlib`` (absent on the machine
+with the card) all refuse to import."""
 
 import os
 import subprocess
@@ -35,7 +35,7 @@ def jax_or_reference(name):
 def service_deps(name):
     return any(name == m or name.startswith(m + ".")
                for m in ("pydantic", "prometheus_client", "pandas", "joblib",
-                         "sklearn"))
+                         "sklearn", "matplotlib"))
 
 sys.meta_path[:0] = [Refuse(jax_or_reference), Refuse(service_deps)]
 import fraud_detection_tpu_torch as pkg
@@ -64,8 +64,8 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
 
 
 def test_training_modules_are_among_those_imported():
-    """The blocked-import probe walks the package; the training, GBT and
-    explain slices' modules are in it."""
+    """The blocked-import probe walks the package; the training, GBT,
+    explain and offline-tool slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -74,7 +74,10 @@ def test_training_modules_are_among_those_imported():
     for mod in ("train", "data.loader", "ops.smote", "ops.metrics", "ops.quant",
                 "ckpt.train_state", "tracking.store", "tracking.registry",
                 "ops.gbt", "ops.tree_shap", "models.gbt", "service.db",
-                "service.taskq", "service.worker", "service.errors"):
+                "service.taskq", "service.worker", "service.errors",
+                "preprocess", "evaluate", "explain", "predict_single", "validate_auc",
+                "eda", "plots", "data.synthetic", "tracking.server",
+                "tracking.http_client", "service.loading"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 

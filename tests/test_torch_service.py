@@ -50,7 +50,9 @@ def model_dir(tmp_path_factory):
 def store_urls(tmp_path, monkeypatch):
     """Every app of this module opens its results DB and broker in
     ``tmp_path`` (the defaults would create files in the working
-    directory)."""
+    directory), and an empty tracking store there, so it serves
+    ``MODEL_PATH``'s directory, never a registered ``@prod``."""
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
     monkeypatch.setenv("DATABASE_URL", f"sqlite:///{tmp_path}/port_fraud.db")
     monkeypatch.setenv("CELERY_BROKER_URL", f"sqlite:///{tmp_path}/port_taskq.db")
 

@@ -117,8 +117,3 @@ def test_model_uri_rejects(bad):
     with pytest.raises(ValueError):
         parse_model_uri(bad)
 
-
-def test_http_tracking_uri_names_the_roadmap(monkeypatch):
-    monkeypatch.setenv("MLFLOW_TRACKING_URI", "http://localhost:5000")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrackingClient()

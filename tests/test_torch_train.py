@@ -3,6 +3,7 @@ inputs: AUC, both solvers, the SGD checkpointer, the int8-calibration
 sidecar, ``train()`` end to end, and artifacts carried across in both
 directions."""
 
+import importlib.util
 import os
 
 import jax
@@ -41,6 +42,14 @@ from fraud_detection_tpu_torch.ops.scaler import scaler_fit
 from fraud_detection_tpu_torch.train import main, train
 
 torch.set_num_threads(1)
+
+#: the reference's joblib layout, which a logistic save adds where joblib and
+#: sklearn are installed (as the JAX package's does)
+JOBLIB_FILES = (
+    ["columns.joblib", "logistic_model.joblib", "scaler.joblib"]
+    if importlib.util.find_spec("sklearn") and importlib.util.find_spec("joblib")
+    else []
+)
 
 
 @pytest.fixture(scope="module")
@@ -231,9 +240,9 @@ def test_model_save_stamps_the_calibration(data, tmp_path):
     FraudLogisticModel(params, scaler, [f"f{i}" for i in range(30)], device="cpu").save(
         str(tmp_path)
     )
-    assert sorted(os.listdir(tmp_path)) == [
-        "feature_names.json", "model.npz", "quant_calibration.npz",
-    ]
+    assert sorted(os.listdir(tmp_path)) == sorted([
+        "feature_names.json", "model.npz", "quant_calibration.npz", *JOBLIB_FILES,
+    ])
     cal = load_calibration(str(tmp_path))
     assert cal.scale.tobytes() == derive_calibration(scaler).scale.tobytes()
     # the JAX model reads it as its own stamped calibration
@@ -291,10 +300,10 @@ def test_train_matches_jax_train(synth_csv, tmp_path, monkeypatch, use_smote, to
     assert len(got["lbfgs_iters"]) == 4
     assert {"load", "scaler", "final_fit", "baseline", "save"} <= set(got["stages"])
     assert ("fold0_knn" in got["stages"]) == use_smote
-    assert sorted(os.listdir(out)) == [
+    assert sorted(os.listdir(out)) == sorted([
         "feature_names.json", "model.npz", "monitor_profile.npz",
-        "quant_calibration.npz",
-    ]
+        "quant_calibration.npz", *JOBLIB_FILES,
+    ])
 
     # the port-trained artifact scores within 1e-6 in the JAX package, and
     # the JAX-trained one within 1e-6 in the port
@@ -330,10 +339,10 @@ def test_train_registry_and_gate(synth_csv, tmp_path, monkeypatch):
     assert art == reg.artifact_dir("fraud", 2)
     assert reg.get_meta("fraud", 2)["lineage"]["parent_version"] == 1
     assert reg.get_meta("fraud", 1)["lineage"]["parent_version"] is None
-    assert sorted(os.listdir(art)) == [
+    assert sorted(os.listdir(art)) == sorted([
         "feature_names.json", "meta.json", "model.npz", "monitor_profile.npz",
-        "quant_calibration.npz",
-    ]
+        "quant_calibration.npz", *JOBLIB_FILES,
+    ])
     served = load_any_model(art, device="cpu")
     x = np.zeros((2, 30), np.float32)
     np.testing.assert_allclose(

@@ -31,8 +31,10 @@ NAMES = FraudLogisticModel.load(os.path.join(ROOT, "models"), device="cpu").feat
 @pytest.fixture()
 def env(tmp_path, monkeypatch):
     """(db_url, broker_url, names): the committed flagship served on the
-    CPU, the results DB and the broker in ``tmp_path``."""
+    CPU (from ``MODEL_PATH``: the tracking store is empty), the results DB
+    and the broker in ``tmp_path``."""
     monkeypatch.setenv("MODEL_PATH", os.path.join(ROOT, "models", "model.npz"))
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
     monkeypatch.setenv("DEVICE", "cpu")
     return f"sqlite:///{tmp_path}/fraud.db", f"sqlite:///{tmp_path}/q.db", NAMES
 
