@@ -31,7 +31,11 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    all as CUDA events over 200 calls replayed from one CUDA graph, so the
    host's launch cost is out of the number (eager per-call times are
    printed beside), against the least time the card could take (bytes over
-   3.35 TB/s, operations over the f32 peak).
+   3.35 TB/s, operations over the f32 peak). The int8 wire's linear score
+   at n = 1024: int8 codes upcast by ``codes.float()`` (exact) into the
+   kernel, held against the plain version; the upcast, the kernel on the
+   upcast rows, the two together and ``sigmoid(addmv(codes.float()))``
+   timed (the bound reads the rows as int8).
 2b. **knn_topk against its plain version** — rows from
    ``np.random.default_rng(seed)`` at (m, d, k) = (2, 30, 1), (6, 30, 5),
    (126, 30, 5), (158, 30, 5), (394, 30, 5), (1000, 37, 5), (4096, 30, 5),
@@ -164,6 +168,35 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    (label and P(fraud) of ``_DEMO_ROW`` within 1e-5 of float64, the log
    naming ``registry:models:/fraud@prod``); ``eda`` without plots (counts
    and the processed CSV parsed back).
+9. **the quantized wires** — ``SCORER_WIRE=int8`` and then ``bfloat16``
+   with ``SCORER_EXPLAIN=topk``, each family served over HTTP (phase 3's
+   logistic directory from an empty store: ``native:<dir>``, with no
+   stamped calibration, so the int8 wire derives one from the scaler;
+   phase 5's forest from its registry, its calibration stamped): 128
+   ``/predict`` from 32 threads, then 32 one at a time, under zeroed
+   launch counts. Every score within 1e-5 of float64 numpy on the values
+   the wire delivers (the dequantized codes or the bf16-rounded rows, from
+   the scorer's own host encode), within JAX's gate of the f32 wire's
+   scores (max 5e-2, mean below 1e-2), reason codes as the
+   numpy ranking or the port's CPU plain TreeSHAP over the same values but
+   across a 2e-5 tie; ``scorer_wire_fused 1`` and ``scorer_explain_fused
+   1`` in ``/metrics``, every flush fused, ``fused_score`` (logistic) or
+   ``tree_shap`` (GBT, once a flush) launched. Then a 1024-row fused flush
+   with explain per wire (f32, bf16, int8) and family: host time (p50 of
+   30), its stream time (CUDA events), device busy and launches
+   (profiler), h2d bytes. Then ``predict_proba_stream`` over the
+   Kaggle-sized set's 284,807 rows (chunk 32,768, 8 in flight): the three
+   h2d wires × the three return wires (logistic) and f32 and int8 (the
+   forest), timed on the host's clock with the device synchronised, nine
+   rounds taking every combination in turn (the flushes too run the wires
+   in turns),
+   each f32 return within 1e-5 of float64 on the wire's values, each
+   narrow return within its step of the f32 return; against the f32
+   wire's logistic scores every stream's mean gap below JAX's 1e-2, the
+   bf16 wire's largest within JAX's 5e-2, and the int8 wire's rows whose
+   codes do not clip within half a lattice step a feature through the
+   weights (JAX's 5e-2 is a gate of its test fixture: the rows above it
+   are counted and printed).
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -211,6 +244,7 @@ FUSED_SCORE_VIEW_N = (1000, 10000)  # rows of the offset views: both of the kern
 #: on the Kaggle-sized test split
 FUSED_SCORE_TIMED_N = (8, 64, 1024, 4096, 8192, 20000, 32768, 65536, 284807)
 FUSED_SCORE_BF16_TIMED_N = (1024, 20000)  # bf16 rows at d = 30
+TIMING_SUFFIX = {"bfloat16": "_bf16", "int8": "_int8_codes"}  # the kernels line's keys
 KNN_SAMPLE_ROWS = 4096  # plain-version queries at m >= KNN_SAMPLED_FROM
 KNN_SAMPLED_FROM = 20_000
 KNN_NEAR_TIE_RTOL = 1e-5
@@ -269,6 +303,18 @@ GBT_TRAINED_KERNELS = ("gbt_hist", "knn_topk")
 GBT_SERVED_KERNELS = ("tree_shap",)
 #: phase 7: the kernel the worker's batch must launch, by family
 EXPLAIN_KERNELS = {"logistic": "fused_score", "gbt": "tree_shap"}
+WIRE_NAMES = ("float32", "bfloat16", "int8")  # the h2d wires
+RETURN_WIRE_NAMES = ("float32", "float16", "uint8")  # the d2h return wires
+#: a narrow return wire's score against the f32 return: half an f16 step
+#: below 1, half a uint8 code
+RETURN_WIRE_TOL = {"float16": 2.5e-4, "uint8": 0.5 / 255 + 1e-6}
+WIRE_GATE_ATOL, WIRE_GATE_MEAN = 5e-2, 1e-2  # JAX's int8-vs-f32 score gate (linear)
+WIRE_REQUESTS = 128  # phase 9: /predict a (family, wire) from WIRE_CLIENTS threads
+WIRE_CLIENTS = 32
+WIRE_SEQUENTIAL = 32  # then one at a time
+WIRE_FLUSH_TIMED = 30  # 1024-row flushes timed a (family, wire)
+STREAM_CHUNK, STREAM_INFLIGHT = 32768, 8  # predict_proba_stream's defaults
+STREAM_ROUNDS = 9  # timed rounds of every stream combination, in turns
 
 #: every ported kernel: name → (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -569,7 +615,48 @@ def check_fused_score(seed: int) -> dict:
             f"host-bound): kernel {eager[0]:.6f} ms, plain {eager[1]:.6f} ms, "
             f"library {eager[2]:.6f} ms"
         )
+    rows[(1024, "int8")] = fused_score_on_codes(floor)
+    worst = max(worst, rows[(1024, "int8")]["max_abs_err"])
     return {"max_abs_err": worst, "timing": rows, "launch_floor_ms": floor}
+
+
+def fused_score_on_codes(floor: float, n: int = 1024, d: int = 30) -> dict:
+    """The int8 wire's linear score at the flush cap: int8 codes upcast by
+    ``codes.float()`` (exact) into the kernel with the dequant-folded
+    weights. Times the upcast launch, the kernel on the upcast rows, the
+    two together, the plain version, and ``sigmoid(addmv(codes.float()))``
+    as the library column; the bound counts int8 rows read once."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+    codes = torch.from_numpy(rng.integers(-127, 128, (n, d), dtype=np.int8)).to(dev)
+    w = torch.from_numpy((rng.standard_normal(d) * 0.01).astype(np.float32)).to(dev)
+    b = torch.tensor(-0.5, dtype=torch.float32, device=dev)
+    xf = codes.float()
+    got = kernels.fused_score(w, b, codes.float())
+    want = kernels.fused_score_reference(w, b, codes)
+    err = float((got - want).abs().max())
+    upcast = graph_ms(lambda: codes.float())
+    kernel = graph_ms(lambda: kernels.fused_score(w, b, xf))
+    both = graph_ms(lambda: kernels.fused_score(w, b, codes.float()))
+    plain = graph_ms(lambda: kernels.fused_score_reference(w, b, codes))
+    library = graph_ms(lambda: torch.sigmoid(torch.addmv(b, codes.float(), w)))
+    bound, by, n_bytes, n_ops = fused_score_bound(n, d, 1)
+    print(f"phase2: fused_score on int8 codes n={n} d={d} (CUDA events over {TIMED_LAUNCHES} "
+          f"launches replayed from a CUDA graph): max_abs_err={err:.3e}; upcast codes.float() "
+          f"{upcast:.6f} ms, kernel on the upcast rows {kernel:.6f} ms, the two {both:.6f} ms, "
+          f"launch floor {floor:.6f} ms, plain {plain:.6f} ms, library "
+          f"sigmoid(addmv(codes.float())) {library:.6f} ms, bound {bound:.6f} ms ({by}: "
+          f"{n_bytes} B, {n_ops} ops)")
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"fused_score on upcast codes differs from its plain version "
+                             f"by {err:.3e}")
+    return {"ms": both, "kernel_ms": kernel, "upcast_ms": upcast, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": by, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -2451,6 +2538,349 @@ def offline_tools(work: Path, lin_store: str, gbt_dir: str) -> dict:
     return run.total
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the quantized h2d wires
+# ---------------------------------------------------------------------------
+
+
+def wire_xf(scorer, rows):
+    """The values a scorer's wire delivers to the model, from its own host
+    encode: the dequantized int8 codes (one float32 multiply, as the flush
+    makes it), the bf16-rounded rows, or the rows."""
+    import numpy as np
+    import torch
+
+    hx = scorer._prepare_host(np.ascontiguousarray(rows, np.float32))
+    if isinstance(hx, torch.Tensor):
+        return hx.float().numpy()
+    if hx.dtype == np.int8:
+        return hx.astype(np.float32) * scorer._quant_scale
+    return hx
+
+
+def wire_references(family: str, model_dir: Path, rows, xf):
+    """(float64 scores on ``xf``, float64 scores on the raw rows, φ on
+    ``xf`` from numpy (logistic) or the port's CPU plain TreeSHAP (GBT),
+    the model's feature names)."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.ops.tree_shap import tree_shap
+
+    if family == "logistic":
+        z = np.load(model_dir / "model.npz")
+        w32 = z["coef"].astype(np.float32) / z["scaler_scale"].astype(np.float32)
+        phi = w32 * (xf - z["scaler_mean"].astype(np.float32))
+        names = load_any_model(str(model_dir), device="cpu").feature_names
+        return logistic_scores_f64(model_dir, xf), logistic_scores_f64(model_dir, rows), phi, names
+    ref = load_any_model(str(model_dir), device="cpu")
+    phi = tree_shap(ref.raw_explainer(), torch.from_numpy(np.ascontiguousarray(xf))).numpy()
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
+    return (sig(forest_logits_f64(model_dir, xf)), sig(forest_logits_f64(model_dir, rows)),
+            phi, ref.feature_names)
+
+
+def wire_served(work: Path, family: str, wire: str, model_dir: Path, store: Path,
+                source: str, x) -> dict:
+    """One family on one narrow wire over HTTP: 128 ``/predict`` from 32
+    threads, then 32 one at a time, under zeroed launch counts; checked
+    against float64 on the wire's values, the f32 wire's scores (JAX's
+    gate) and the reason codes' references."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.service.app import create_app
+
+    tag = f"phase9 {family} {wire}"
+    os.environ.update(DEVICE="cuda", SCORER_EXPLAIN="topk", SCORER_WIRE=wire,
+                      MODEL_PATH=str(model_dir / "model.npz"))
+    for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
+                 "SCORER_RETURN_WIRE"):
+        os.environ.pop(knob, None)
+    pin_tracking_store(store, work)
+    app = create_app(database_url=f"sqlite:///{work}/wire_{family}_{wire}_fraud.db",
+                     broker_url=f"sqlite:///{work}/wire_{family}_{wire}_taskq.db")
+    port = free_port()
+    server = ServerThread(app, port)
+    t0 = time.perf_counter()
+    server.start()
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"{tag}: server did not start: {server.error!r}")
+    try:
+        batcher = app.state["batcher"]
+        if batcher is None or app.state["watchtower"] is None:
+            raise AssertionError(f"{tag}: app started degraded (no batcher/watchtower)")
+        scorer = batcher.scorer
+        print(f"{tag}: app started in {time.perf_counter() - t0:.3f} s, scorer wire "
+              f"{scorer.io_dtype}")
+        check_source(tag, app.state["model_source"], source)
+        if scorer.io_dtype != wire:
+            raise AssertionError(f"{tag}: the app serves the {scorer.io_dtype} wire")
+        _, body = http_call(port, "GET", "/metrics")
+        keys = ('scorer_flushes_total{path="fused",shard="0"}',
+                'scorer_flushes_total{path="split",shard="0"}', "scorer_microbatch_size_count")
+        before = {key: metric_value(body.decode(), key) for key in keys}
+        rows = x[:WIRE_REQUESTS + WIRE_SEQUENTIAL]
+        kernels.reset_launch_counts()
+        concurrent, wall = drive_clients(port, rows[:WIRE_REQUESTS], WIRE_CLIENTS, work)
+        sequential, wall_seq = drive_clients(port, rows[WIRE_REQUESTS:], 1, work)
+        launches = kernels.launch_counts()
+        _, body = http_call(port, "GET", "/metrics")
+        text = body.decode()
+        delta = {key: metric_value(text, key) - v for key, v in before.items()}
+        flushes = delta["scorer_microbatch_size_count"]
+
+        xf = wire_xf(scorer, rows)
+        want, f32, phi, names = wire_references(family, model_dir, rows, xf)
+        k = batcher.explain_k
+        want_idx = topk_total_order(phi, k)
+        srt = -np.sort(-phi, axis=1)
+        rtol, atol = (0.0, 1e-6) if family == "logistic" else (SHAP_RTOL, SHAP_ATOL)
+        scores, tie_rows = [], 0
+        for i, (status, body, _) in enumerate(concurrent + sequential):
+            if status != 200:
+                raise AssertionError(f"{tag} /predict {i}: HTTP {status} {body[:200]!r}")
+            out = json.loads(body)
+            scores.append(out["score"])
+            got = [rc["feature"] for rc in out["reason_codes"] or []]
+            if got != [names[j] for j in want_idx[i]]:
+                if not abs(srt[i, k - 1] - srt[i, k]) <= SHAP_TIE:
+                    raise AssertionError(f"{tag} /predict {i}: reason codes {got}")
+                tie_rows += 1
+            vals = np.array([rc["attribution"] for rc in out["reason_codes"]])
+            if not np.allclose(vals, phi[i, [names.index(f) for f in got]], rtol=rtol, atol=atol):
+                raise AssertionError(f"{tag} /predict {i}: attributions {vals}")
+        scores = np.asarray(scores)
+        err = float(np.abs(scores - want).max())
+        gap = np.abs(scores - f32)
+        print(f"{tag}: {WIRE_REQUESTS} /predict from {WIRE_CLIENTS} client threads in "
+              f"{wall:.3f} s ({WIRE_REQUESTS / wall:.1f} req/s), latency "
+              + latency_line([r[2] for r in concurrent]) + f"; {WIRE_SEQUENTIAL} one at a "
+              f"time, latency " + latency_line([r[2] for r in sequential]) + " (client clock)")
+        print(f"{tag}: max |score - f64 on the wire's values| {err:.3e}; against the f32 "
+              f"wire's f64 scores max {gap.max():.3e}, mean {gap.mean():.3e}; reason codes "
+              f"equal the {'numpy ranking' if family == 'logistic' else 'CPU plain TreeSHAP'} "
+              f"on {len(scores) - tie_rows} rows, {tie_rows} across a tie within {SHAP_TIE}")
+        if not err <= SCORE_ATOL:
+            raise AssertionError(f"{tag}: scores off float64 on the wire's values by {err:.3e}")
+        if not (gap.max() <= WIRE_GATE_ATOL and gap.mean() < WIRE_GATE_MEAN):
+            raise AssertionError(f"{tag}: outside JAX's gate of the f32 wire")
+        wire_fused = metric_value(text, "scorer_wire_fused")
+        explain_fused = metric_value(text, "scorer_explain_fused")
+        print(f"{tag}: scorer_wire_fused {wire_fused:g}, scorer_explain_fused "
+              f"{explain_fused:g}; {flushes:g} flushes, fused "
+              f"{delta[keys[0]]:g}, split {delta[keys[1]]:g}; kernel launches {launches}")
+        if wire_fused != 1 or explain_fused != 1 or flushes < 1 or \
+                delta[keys[0]] != flushes or delta[keys[1]] != 0:
+            raise AssertionError(f"{tag}: not every flush ran fused with reason codes")
+        kernel = EXPLAIN_KERNELS[family]
+        if launches.get(kernel, 0) < (1 if family == "logistic" else flushes):
+            raise AssertionError(f"{tag}: {kernel} launched {launches.get(kernel)} times "
+                                 f"in {flushes:g} flushes")
+    finally:
+        server.stop()
+    return launches
+
+
+def wire_flush_timing(family: str, model_dir: Path, x) -> dict:
+    """One 1024-row fused flush with explain per wire (f32, bf16, int8),
+    through the micro-batcher's ``_flush_device`` (stage, encode, h2d,
+    flush, fetch), the wires in turns: host time (p50 of 30), stream time
+    from CUDA events around each flush, device busy time and launches
+    (profiler, mean of 5) and h2d bytes."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.watchtower import Watchtower
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+
+    rows = np.concatenate([x] * (1024 // len(x) + 1))[:1024]
+    batch = [(rows[i], None) for i in range(1024)]
+    profile = load_profile(str(model_dir))
+    flushes, watchtowers, out = {}, [], {}
+    try:
+        for wire in WIRE_NAMES:
+            os.environ["SCORER_WIRE"] = wire
+            wt = Watchtower(profile, device="cuda")
+            watchtowers.append(wt)
+            b = MicroBatcher(load_any_model(str(model_dir), device="cuda").scorer,
+                             max_batch=1024, watchtower=wt, fused=True, explain=True,
+                             explain_k=3)
+            scorer = b.scorer
+            target = b._fused_target(scorer)
+            slot = scorer.staging.acquire(1024)
+            io = slot.io if isinstance(slot.io, torch.Tensor) else torch.from_numpy(slot.io)
+            h2d = io.numel() * io.element_size() + slot.valid.nbytes
+            scorer.staging.release(slot)
+
+            def flush(b=b, scorer=scorer, target=target):
+                scorer.staging.release(b._flush_device(scorer, target, batch)[-1])
+
+            for _ in range(5):
+                flush()
+            reps = 5
+            acts = profiled_intervals(lambda: [flush() for _ in range(reps)])
+            copies = sum(1 for name, _, _ in acts if "Memcpy" in name or "Memset" in name)
+            flushes[wire] = flush
+            out[wire] = {"busy_us": union_us([(a, c) for _, a, c in acts]) / reps,
+                         "launches": (len(acts) - copies) / reps, "copies": copies / reps,
+                         "h2d_bytes": h2d, "host": [], "stream": []}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(WIRE_FLUSH_TIMED):
+            for wire, flush in flushes.items():
+                t = time.perf_counter()
+                start.record()
+                flush()
+                end.record()
+                end.synchronize()
+                out[wire]["host"].append(time.perf_counter() - t)
+                out[wire]["stream"].append(start.elapsed_time(end))
+    finally:
+        for wt in watchtowers:
+            wt.close()
+    for wire, v in out.items():
+        host, stream = sorted(v.pop("host")), sorted(v.pop("stream"))
+        v.update(host_ms=host[len(host) // 2] * 1e3, stream_ms=stream[len(stream) // 2])
+        print(f"phase9: {family} 1024-row fused flush with explain, {wire} wire (the three "
+              f"wires in turns): host time p50 {v['host_ms']:.3f} ms (min {host[0] * 1e3:.3f}) "
+              f"over {WIRE_FLUSH_TIMED}; stream time p50 {v['stream_ms']:.3f} ms (CUDA events "
+              f"around each flush); device busy {v['busy_us']:.3f} us, {v['launches']:g} kernel "
+              f"launches + {v['copies']:g} copies/memsets (profiler, mean of 5); h2d "
+              f"{v['h2d_bytes']} B")
+    return out
+
+
+def wire_streams(kaggle_csv: Path, lin_dir: Path, gbt_dir: Path) -> dict:
+    """``predict_proba_stream`` over the Kaggle-sized set's rows (chunk
+    32,768, 8 in flight): the three h2d wires × the three return wires for
+    the logistic model, f32 and int8 (f32 return) for the forest. Each is
+    checked, called once to warm, then timed on the host's clock with the
+    device synchronised over ``STREAM_ROUNDS`` rounds that take every
+    combination in turn (median and min)."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+    from fraud_detection_tpu_torch.models import load_any_model
+
+    x, y, _ = load_creditcard_csv(str(kaggle_csv))
+    n = len(x)
+    plans = [("logistic", lin_dir, w, RETURN_WIRE_NAMES) for w in WIRE_NAMES]
+    plans += [("gbt", gbt_dir, w, ("float32",)) for w in ("float32", "int8")]
+    runs, scores = {}, {}
+    for family, d, wire, rets in plans:
+        os.environ["SCORER_WIRE"] = wire
+        scorer = load_any_model(str(d), device="cuda").scorer
+        xf = wire_xf(scorer, x)
+        want = (logistic_scores_f64(d, xf) if family == "logistic"
+                else 1.0 / (1.0 + np.exp(-forest_logits_f64(d, xf))))
+        for ret in rets:
+            def stream(scorer=scorer, ret=ret):
+                return scorer.predict_proba_stream(x, chunk=STREAM_CHUNK,
+                                                   inflight=STREAM_INFLIGHT, out_dtype=ret)
+            got = stream()
+            if ret == "float32":
+                err, tol = float(np.abs(got - want).max()), SCORE_ATOL
+            else:  # against the same wire's f32 return, within the return wire's step
+                err = float(np.abs(got - scores[family, wire, "float32"]).max())
+                tol = RETURN_WIRE_TOL[ret]
+            print(f"phase9: predict_proba_stream {family} {n} rows, {wire} wire, {ret} return: "
+                  f"max |score - {'f64 on the wire values' if ret == 'float32' else 'the f32 return'}| "
+                  f"{err:.3e}")
+            if got.shape != (n,) or not err <= tol:
+                raise AssertionError(f"phase9 stream {family} {wire} {ret}: off by {err:.3e}")
+            scores[family, wire, ret] = got
+            runs[family, wire, ret] = stream
+    walls = {key: [] for key in runs}
+    for _ in range(STREAM_ROUNDS):
+        for key, stream in runs.items():
+            walls[key].append(sync_wall(stream)[1])
+    out = {}
+    for (family, wire, ret), w in walls.items():
+        w.sort()
+        out[family, wire, ret] = w[len(w) // 2]
+        elem = {"float32": 4, "bfloat16": 2, "int8": 1}[wire]
+        print(f"phase9: predict_proba_stream {family} {n} rows, {wire} wire, {ret} return: "
+              f"{w[len(w) // 2]:.6f} s median, {w[0]:.6f} s min of {STREAM_ROUNDS} in turns "
+              f"(host clock, device synchronised); h2d {n * 30 * elem} B of rows")
+    ref = scores["logistic", "float32", "float32"]
+    os.environ["SCORER_WIRE"] = "int8"
+    q8 = load_any_model(str(lin_dir), device="cuda").scorer
+    clipped = (np.abs(q8._prepare_host(x)) == 127).any(axis=1)
+    fraud = y == 1
+    bound = lattice_bound(lin_dir, q8)
+    for (family, wire, ret), got in scores.items():
+        if family != "logistic" or wire == "float32":
+            continue
+        gap = np.abs(got - ref)
+        tol = RETURN_WIRE_TOL.get(ret, 0.0)
+        print(f"phase9: stream logistic {wire} wire, {ret} return against the f32 wire: max "
+              f"{gap.max():.3e}, mean {gap.mean():.3e}, {int((gap > WIRE_GATE_ATOL).sum())} rows "
+              f"above {WIRE_GATE_ATOL}" + (f"; rows inside the lattice max "
+              f"{gap[~clipped].max():.3e} (bound {bound + tol:.3e}); {int(clipped.sum())} rows "
+              f"clip a code, {int((clipped & fraud).sum())} of them frauds (of "
+              f"{int(fraud.sum())}); frauds' gap max {gap[fraud].max():.3e}, mean "
+              f"{gap[fraud].mean():.3e}" if wire == "int8" else ""))
+        if not gap.mean() < WIRE_GATE_MEAN:
+            raise AssertionError(f"phase9 stream {wire} {ret}: mean gap {gap.mean():.3e}")
+        if wire == "int8" and not gap[~clipped].max() <= bound + tol:
+            raise AssertionError(f"phase9 stream int8 {ret}: a row inside the lattice is off "
+                                 f"the f32 wire by more than half a step a feature allows")
+        if wire == "bfloat16" and not gap.max() <= WIRE_GATE_ATOL:
+            raise AssertionError(f"phase9 stream bf16 {ret}: outside JAX's gate")
+    gap = np.abs(scores["gbt", "int8", "float32"] - scores["gbt", "float32", "float32"])
+    print(f"phase9: stream gbt int8 wire against the f32 wire: max {gap.max():.3e}, mean "
+          f"{gap.mean():.3e}, frauds' mean {gap[fraud].mean():.3e} (JAX gates the forest's int8 "
+          f"wire by drift PSI, not by score)")
+    return out
+
+
+def lattice_bound(model_dir: Path, scorer) -> float:
+    """The most a row whose codes do not clip can move in probability on
+    the int8 wire: half a lattice step a feature through the folded
+    weights, a quarter of that in probability (sigmoid's slope), plus
+    float32 rounding."""
+    import numpy as np
+
+    with np.load(model_dir / "model.npz") as z:
+        w = np.abs(z["coef"].astype(np.float64) / z["scaler_scale"])
+    return float((w * scorer._quant_scale.astype(np.float64) / 2).sum() / 4 + 1e-5)
+
+
+def quantized_wires(work: Path, gbt_store: str, kaggle_csv: Path) -> dict:
+    """Phase 9: both families served over HTTP on the int8 and the bf16
+    wire (phase 3's logistic directory from an empty store, phase 5's
+    forest from its registry), a 1024-row flush per wire and family, and
+    the chunked stream at the Kaggle scale. Returns the served requests'
+    kernel launches."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    lin_dir, gbt_dir = work / "models", work / "gbt_served"
+    x = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                   max_rows=WIRE_REQUESTS + WIRE_SEQUENTIAL, dtype=np.float32)[:, :30]
+    launches: dict[str, int] = {}
+    for wire in ("int8", "bfloat16"):
+        for family, d, store, source in (
+            ("logistic", lin_dir, work / "empty_mlruns", f"native:{lin_dir}"),
+            ("gbt", gbt_dir, Path(gbt_store.removeprefix("file:")),
+             "registry:models:/fraud@prod"),
+        ):
+            got = wire_served(work, family, wire, d, store, source, x)
+            for key, v in got.items():
+                launches[key] = launches.get(key, 0) + v
+    for family, d in (("logistic", lin_dir), ("gbt", gbt_dir)):
+        wire_flush_timing(family, d, x)
+    wire_streams(kaggle_csv, lin_dir, gbt_dir)
+    os.environ.pop("SCORER_WIRE", None)
+    print(f"phase9: quantized wires in {time.perf_counter() - t_phase:.3f} s; kernel launches "
+          f"over the served requests {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2502,6 +2932,7 @@ def main() -> int:
                                   Path(gbt_store.removeprefix("file:")),
                                   "registry:models:/fraud@prod")
         tools = offline_tools(work, lin_store, gbt_dir)
+        wires = quantized_wires(work, gbt_store, work / "tools" / "kaggle.csv")
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -2519,8 +2950,10 @@ def main() -> int:
             n=1024, launch_floor_ms=fs["launch_floor_ms"],
             worker_launches=worker_lin["fused_score"],
             tools_launches=tools.get("fused_score", 0),
-            **{f"at_n_{n}{'_bf16' if dt == 'bfloat16' else ''}":
-               {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            wires_launches=wires["fused_score"],
+            **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":
+               {key: v[key] for key in ("ms", "kernel_ms", "upcast_ms", "plain_ms",
+                                        "bound_ms", "library_ms") if key in v}
                for (n, dt), v in fs["timing"].items() if (n, dt) != (1024, "float32")}),
         # no single PyTorch call computes k-NN with this tie rule: the
         # library column is null, the two-call orientation stands beside it;
@@ -2549,6 +2982,7 @@ def main() -> int:
             orientation_ms=shap["timing"][1024]["orientation_ms"],
             worker_launches=worker_gbt["tree_shap"],
             tools_launches=tools.get("tree_shap", 0),
+            wires_launches=wires["tree_shap"],
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}

@@ -139,6 +139,43 @@ def scorer_fused_flush() -> bool:
     return env_flag("SCORER_FUSED_FLUSH") is not False
 
 
+def scorer_max_inflight() -> int:
+    """``SCORER_MAX_INFLIGHT`` — flushes the micro-batcher runs at once.
+    Default 4."""
+    return _get_int("SCORER_MAX_INFLIGHT", 4)
+
+
+def scorer_adaptive_wait() -> bool:
+    """``SCORER_ADAPTIVE_WAIT=1``: scale the micro-batcher's collection
+    deadline with an arrival-rate EWMA (rows, not requests): a lone request
+    flushes at once, traffic that would fill ``SCORER_MAX_BATCH`` within
+    the window waits all of ``SCORER_MAX_WAIT_MS``. Default off: the fixed
+    deadline."""
+    return env_flag("SCORER_ADAPTIVE_WAIT") is True
+
+
+def scorer_admit_max_rows() -> int:
+    """``SCORER_ADMIT_MAX_ROWS`` — rows waiting in the micro-batcher's
+    admission queue, at most; at the bound ``/predict`` answers 429 with
+    ``Retry-After``. 0 disables the bound. Default 65536."""
+    return _get_int("SCORER_ADMIT_MAX_ROWS", 65536)
+
+
+def scorer_admit_retry_after_s() -> float:
+    """``SCORER_ADMIT_RETRY_AFTER_S`` — the retry hint a shed admission
+    carries. Default 1 s."""
+    return _get_float("SCORER_ADMIT_RETRY_AFTER_S", 1.0)
+
+
+def scorer_wire() -> str:
+    """``SCORER_WIRE`` — the h2d wire serving scorers are built with
+    (``float32`` | ``bfloat16`` | ``int8``). ``int8`` ships per-feature
+    quantization codes (30 B a row against 120), calibrated by the stamped
+    ``quant_calibration.npz`` beside the model, else derived from the
+    scaler. Default ``float32``."""
+    return _get("SCORER_WIRE", "float32").lower()
+
+
 def scorer_return_wire() -> str:
     """``SCORER_RETURN_WIRE`` — d2h score wire of the fused flush
     (``float32`` | ``float16`` | ``uint8``). Default ``float32``."""
@@ -163,6 +200,35 @@ def explain_background_seed() -> int:
     background subsample (ops/tree_shap.build_tree_explainer): the same
     model, background and seed give the same ``bg_table``. Default 0."""
     return _get_int("EXPLAIN_BG_SEED", 0)
+
+
+def watchtower_enabled() -> bool | None:
+    """Tri-state ``WATCHTOWER_ENABLED``: unset = monitor when the served
+    model's artifacts carry a baseline profile, 0 = off, 1 = on (a WARNING
+    when no profile is found)."""
+    return env_flag("WATCHTOWER_ENABLED")
+
+
+def watchtower_psi_threshold() -> float:
+    """PSI above this flags drift. Default 0.2."""
+    return _get_float("WATCHTOWER_PSI_THRESHOLD", 0.2)
+
+
+def watchtower_ks_threshold() -> float:
+    """KS above this flags drift. Default 0.15."""
+    return _get_float("WATCHTOWER_KS_THRESHOLD", 0.15)
+
+
+def watchtower_ece_threshold() -> float:
+    """Windowed expected calibration error ceiling, judged once enough
+    labeled feedback rows arrived. Default 0.1."""
+    return _get_float("WATCHTOWER_ECE_THRESHOLD", 0.1)
+
+
+def watchtower_disagree_threshold() -> float:
+    """Champion/challenger decision-disagreement rate above which promotion
+    is advised against. Default 0.05."""
+    return _get_float("WATCHTOWER_DISAGREE_THRESHOLD", 0.05)
 
 
 def watchtower_halflife_rows() -> float:

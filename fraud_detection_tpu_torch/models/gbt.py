@@ -6,10 +6,14 @@ GBTBatchScorer`, on the estimator surface the logistic model shares.
 The scaler folds into the bin edges at construction, so the model scores
 *raw* rows. Because the fold consumes the scaler, the int8 wire's
 calibration is derived here, before the fold, and :meth:`save` stamps
-``quant_calibration.npz`` beside the forest, as the JAX package does.
+``quant_calibration.npz`` beside the forest, as the JAX package does. The
+scorer is built on the h2d wire ``SCORER_WIRE`` names unless the caller
+pins one.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ from fraud_detection_tpu_torch.ops.quant import (
 )
 from fraud_detection_tpu_torch.ops.scorer import GBTBatchScorer
 
+log = logging.getLogger("fraud_detection_tpu_torch.models")
 
 class FraudGBTModel(FraudModelBase):
     #: serve-time vs backfill attribution tolerance of the JAX package's
@@ -40,6 +45,7 @@ class FraudGBTModel(FraudModelBase):
         scaler=None,
         background: np.ndarray | None = None,
         calibration: QuantCalibration | None = None,
+        io_dtype: str | None = None,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
@@ -60,9 +66,26 @@ class FraudGBTModel(FraudModelBase):
         self.background = background  # raw-space sample for TreeSHAP
         self.calibration = calibration
         self._raw_explainer = None
+        # the wire: SCORER_WIRE unless pinned. int8 needs the stamped
+        # calibration; without one it serves f32, loudly
+        if io_dtype is None:
+            from fraud_detection_tpu_torch import config
+
+            io_dtype = config.scorer_wire()
+        if io_dtype == "int8" and calibration is None:
+            log.warning(
+                "SCORER_WIRE=int8 but the GBT model carries no stamped "
+                "quant_calibration.npz (and its scaler is folded into the "
+                "bin edges) — serving on the float32 wire instead"
+            )
+            io_dtype = "float32"
         # the fused explain leg resolves the cached explainer on the first
         # fused_spec() (warm-up), never at load
-        self._scorer = GBTBatchScorer(model, explainer=self.raw_explainer)
+        self._scorer = GBTBatchScorer(
+            model, io_dtype=io_dtype,
+            calibration=calibration if io_dtype == "int8" else None,
+            explainer=self.raw_explainer,
+        )
 
     def raw_explainer(self):
         """Exact interventional TreeSHAP over the forest, taking raw rows:

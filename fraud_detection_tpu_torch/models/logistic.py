@@ -1,10 +1,13 @@
 """Flagship model: scaled logistic regression for fraud scoring.
 
 Bundles :class:`LogisticParams` + :class:`ScalerParams` + the frozen
-feature order behind the scaler-folded :class:`BatchScorer`.
+feature order behind the scaler-folded :class:`BatchScorer`, built on the
+h2d wire ``SCORER_WIRE`` names unless the caller pins one.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -22,9 +25,16 @@ from fraud_detection_tpu_torch.ops.linear_shap import (
     make_explainer,
 )
 from fraud_detection_tpu_torch.ops.logistic import LogisticParams
-from fraud_detection_tpu_torch.ops.quant import derive_calibration, save_calibration
+from fraud_detection_tpu_torch.ops.quant import (
+    QuantCalibration,
+    derive_calibration,
+    load_calibration,
+    save_calibration,
+)
 from fraud_detection_tpu_torch.ops.scaler import ScalerParams
 from fraud_detection_tpu_torch.ops.scorer import BatchScorer, fold_scaler_into_linear
+
+log = logging.getLogger("fraud_detection_tpu_torch.models")
 
 
 class FraudLogisticModel(FraudModelBase):
@@ -33,9 +43,27 @@ class FraudLogisticModel(FraudModelBase):
         params: LogisticParams,
         scaler: ScalerParams | None,
         feature_names: list[str],
+        calibration: QuantCalibration | None = None,
+        io_dtype: str | None = None,
         device: str | torch.device | None = None,
     ):
-        self._scorer = BatchScorer(params, scaler, device=device)
+        # the wire: SCORER_WIRE unless pinned. int8 takes the stamped
+        # calibration (load() passes it), else one derived from the scaler;
+        # with neither it serves f32, loudly, rather than refuse to serve
+        if io_dtype is None:
+            from fraud_detection_tpu_torch import config
+
+            io_dtype = config.scorer_wire()
+        if io_dtype == "int8" and scaler is None and calibration is None:
+            log.warning(
+                "SCORER_WIRE=int8 but the model carries no scaler stats and "
+                "no stamped quant_calibration.npz — serving on the float32 "
+                "wire instead"
+            )
+            io_dtype = "float32"
+        self.calibration = calibration
+        self._scorer = BatchScorer(params, scaler, io_dtype=io_dtype,
+                                   calibration=calibration, device=device)
         self.device = self._scorer.device
         self.params = params.to(self.device)
         self.scaler = scaler.to(self.device) if scaler is not None else None
@@ -90,7 +118,8 @@ class FraudLogisticModel(FraudModelBase):
         cls, directory: str, device: str | torch.device | None = None
     ) -> "FraudLogisticModel":
         params, scaler, feature_names = load_artifacts(directory)
-        return cls(params, scaler, feature_names, device=device)
+        return cls(params, scaler, feature_names,
+                   calibration=load_calibration(directory), device=device)
 
     @classmethod
     def load_joblib(

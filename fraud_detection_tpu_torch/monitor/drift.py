@@ -7,6 +7,10 @@ on the card), optionally take the per-row top-k SHAP reason codes (linear
 SHAP, or TreeSHAP through the ``tree_shap`` kernel), and fold the
 batch into the window — all enqueued on the device stream, with no host
 sync; the caller's one device-to-host copy of the outputs is the only one.
+On the int8 wire both flushes take the codes: ``xf = codes · dequant_scale``
+is the one multiply that the histograms bin, the explain leg attributes
+and, for the forest, the score reads. On the bf16 wire they bin the
+bf16-rounded values, the values the model scored.
 The JAX package runs each as one XLA program per bucket; here they are
 eager PyTorch launches (one CUDA-graph replay per flush is later work).
 
@@ -38,7 +42,7 @@ from fraud_detection_tpu_torch.monitor.baseline import (
     score_histogram,
 )
 from fraud_detection_tpu_torch.ops.linear_shap import _raw_linear_shap, topk_reasons
-from fraud_detection_tpu_torch.ops.scorer import _bucket
+from fraud_detection_tpu_torch.ops.scorer import _bucket, _cast_scores
 from fraud_detection_tpu_torch.ops.tree_shap import TreeShapExplainer, _raw_tree_shap
 
 PSI_EPS = 1e-4
@@ -89,17 +93,6 @@ def init_window(
         calib_label=z(n_calib_bins),
         n_rows=z(),
     )
-
-
-def _narrow_scores(scores: torch.Tensor, out_dtype) -> torch.Tensor:
-    """Cast the score output to the d2h return wire; the drift fold always
-    bins the full-precision f32 scores. ``uint8`` ships ``round(p·255)``
-    (round half to even, like the reference)."""
-    if out_dtype == torch.uint8:
-        return torch.round(scores * 255.0).to(torch.uint8)
-    if out_dtype == torch.float32:
-        return scores
-    return scores.to(out_dtype)
 
 
 def _narrow_reasons(
@@ -154,9 +147,26 @@ def _fold_serving_batch(
     window.n_rows.mul_(decay).add_(valid.sum())
 
 
+def _flush_inputs(
+    x: torch.Tensor, dequant_scale: torch.Tensor | None, score_codes: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(what the score reads, xf)``: ``xf`` is the f32 batch the
+    histograms bin and the explain leg attributes. Without
+    ``dequant_scale`` the score reads the staged rows as they are (f32 or
+    bf16). On the int8 wire ``xf = codes · dequant_scale``, the one
+    multiply the histograms and (``score_codes=False``, the forest) the
+    score share; with ``score_codes`` the score reads the codes upcast
+    once, the scale being folded into its weights."""
+    if dequant_scale is None:
+        return x, x.float()
+    codes = x.float()  # exact: the codes are small integers
+    xf = codes * dequant_scale
+    return (codes if score_codes else xf), xf
+
+
 def _fused_flush(
     window: DriftWindow,
-    x: torch.Tensor,  # (b, d) staged batch on the device
+    x: torch.Tensor,  # (b, d) staged batch on the device (f32, bf16 or int8 codes)
     valid: torch.Tensor,  # (b,) 1.0 for real rows, 0.0 for bucket padding
     decay: float,  # drift forgetting factor (live rows this batch)
     feature_edges: torch.Tensor,
@@ -164,16 +174,18 @@ def _fused_flush(
     score_args,
     *,
     score_fn,
+    dequant_scale: torch.Tensor | None = None,  # (d,) on the int8 wire
+    score_codes: bool = True,  # score_fn takes the codes (True) or xf
     out_dtype=torch.float32,
 ) -> torch.Tensor:
     """Scores **and** the drift-window fold for one staged batch; returns
     the score vector in the ``out_dtype`` return wire."""
-    xf = x.float()
-    scores = score_fn(score_args, x).float()
+    xs, xf = _flush_inputs(x, dequant_scale, score_codes)
+    scores = score_fn(score_args, xs).float()
     _fold_serving_batch(
         window, xf, scores, valid, decay, feature_edges, score_edges
     )
-    return _narrow_scores(scores, out_dtype)
+    return _cast_scores(scores, out_dtype)
 
 
 def _fused_flush_explain(
@@ -184,24 +196,27 @@ def _fused_flush_explain(
     feature_edges: torch.Tensor,
     score_edges: torch.Tensor,
     score_args,
-    explain_args,  # linear-SHAP (coef, background_mean) or a TreeShapExplainer
+    explain_args,  # raw-space linear-SHAP (coef, background_mean) or a TreeShapExplainer
     *,
     score_fn,
     explain_k: int,  # reason codes per row (pre-clamped to d)
+    dequant_scale: torch.Tensor | None = None,
+    score_codes: bool = True,
     out_dtype=torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scores, per-row top-k reason codes AND the drift fold; returns
-    ``(scores, reason_idx, reason_val)``. The window fold is the one
+    ``(scores, reason_idx, reason_val)``. The reason codes attribute the
+    ``xf`` the histograms bin, and the window fold is the one
     :func:`_fused_flush` runs, so enabling explanations cannot move
     monitoring state."""
-    xf = x.float()
-    scores = score_fn(score_args, x).float()
+    xs, xf = _flush_inputs(x, dequant_scale, score_codes)
+    scores = score_fn(score_args, xs).float()
     idx, val = _topk_attributions(xf, explain_args, explain_k)
     idx, val = _narrow_reasons(idx, val, x.shape[1], out_dtype)
     _fold_serving_batch(
         window, xf, scores, valid, decay, feature_edges, score_edges
     )
-    return _narrow_scores(scores, out_dtype), idx, val
+    return _cast_scores(scores, out_dtype), idx, val
 
 
 def _window_update(
@@ -333,31 +348,33 @@ class DriftMonitor:
         n_live: int,
         score_args,
         score_fn,
+        dequant_scale=None,
+        score_codes: bool = True,
         out_dtype=torch.float32,
         explain_args=None,
         explain_k: int = 0,
     ):
         """Score one staged, bucket-padded device batch AND fold it into the
-        window; with ``explain_k > 0`` also the top-k reason codes. Returns
-        the device score vector (return wire ``out_dtype``), or the
-        ``(scores, reason_idx, reason_val)`` triple. Only enqueues device
-        work: the caller's fetch is the flush's one host sync."""
+        window; with ``explain_k > 0`` also the top-k reason codes. With
+        ``dequant_scale`` (the int8 wire) ``x`` holds codes that the flush
+        dequantizes. Returns the device score vector (return wire
+        ``out_dtype``), or the ``(scores, reason_idx, reason_val)`` triple.
+        Only enqueues device work: the caller's fetch is the flush's one
+        host sync."""
         decay = self._decay_for(n_live)
         explain_k = min(int(explain_k), int(x.shape[1]))  # k ≥ d clamps to d
+        fixed = (self.window, x, valid, decay, self._feature_edges,
+                 self._score_edges, score_args)
+        quant = dict(dequant_scale=dequant_scale, score_codes=score_codes)
         with self._lock:
             if explain_k > 0 and explain_args is not None:
                 out = _fused_flush_explain(
-                    self.window, x, valid, decay, self._feature_edges,
-                    self._score_edges, score_args, explain_args,
-                    score_fn=score_fn, explain_k=explain_k,
-                    out_dtype=out_dtype,
+                    *fixed, explain_args, score_fn=score_fn,
+                    explain_k=explain_k, **quant, out_dtype=out_dtype,
                 )
             else:
-                out = _fused_flush(
-                    self.window, x, valid, decay, self._feature_edges,
-                    self._score_edges, score_args, score_fn=score_fn,
-                    out_dtype=out_dtype,
-                )
+                out = _fused_flush(*fixed, score_fn=score_fn, **quant,
+                                   out_dtype=out_dtype)
             self.rows_seen += n_live
         return out
 
@@ -366,16 +383,21 @@ class DriftMonitor:
     ) -> None:
         """Run the fused flush once for ``bucket`` without touching the
         window: an all-padding batch (valid = 0) with decay 1.0 folds exact
-        zeros into every histogram. Builds the kernel on first use and warms
-        the allocator for the bucket's shapes."""
+        zeros into every histogram. It stages through the scorer's wire
+        encode and takes the scorer's fused spec (dequant scale included),
+        so it runs what serving runs: it builds the kernel on first use and
+        warms the allocator for the bucket's shapes."""
         spec = scorer.fused_spec()
         slot = scorer.staging.acquire(bucket)
         try:
             slot.f32[:] = 0.0
+            hx = scorer._encode_slot(slot)
             slot.valid[:] = 0.0
             out = self.fused_flush(
-                scorer.to_device(slot.f32), scorer.to_device(slot.valid), 0,
-                spec.score_args, spec.score_fn, out_dtype=out_dtype,
+                scorer.to_device(hx), scorer.to_device(slot.valid), 0,
+                spec.score_args, spec.score_fn,
+                dequant_scale=spec.dequant_scale, score_codes=spec.score_codes,
+                out_dtype=out_dtype,
                 explain_args=spec.explain_args if explain_k else None,
                 explain_k=explain_k,
             )

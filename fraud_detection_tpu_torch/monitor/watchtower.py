@@ -38,7 +38,8 @@ RECOMMENDATIONS = (
 @dataclass(frozen=True)
 class Thresholds:
     """Drift thresholds: the reference's defaults (PSI 0.2, KS 0.15, ECE
-    0.1, challenger disagreement 0.05); ``min_rows`` from
+    0.1, challenger disagreement 0.05, 512 rows); :meth:`from_config` reads
+    ``WATCHTOWER_{PSI,KS,ECE,DISAGREE}_THRESHOLD`` and
     ``WATCHTOWER_MIN_ROWS``."""
 
     psi: float = 0.2
@@ -49,7 +50,13 @@ class Thresholds:
 
     @classmethod
     def from_config(cls) -> "Thresholds":
-        return cls(min_rows=config.watchtower_min_rows())
+        return cls(
+            psi=config.watchtower_psi_threshold(),
+            ks=config.watchtower_ks_threshold(),
+            ece=config.watchtower_ece_threshold(),
+            disagree=config.watchtower_disagree_threshold(),
+            min_rows=config.watchtower_min_rows(),
+        )
 
 
 class Watchtower:
@@ -206,11 +213,17 @@ def resolve_profile_dir(model_source: str) -> str | None:
 def build_watchtower(model, model_source: str, device=None):
     """Serving-side factory: the watchtower over the ``monitor_profile.npz``
     beside the served model (:func:`resolve_profile_dir`), or None when
-    there is no profile or it does not match the model's features."""
+    ``WATCHTOWER_ENABLED=0``, when there is no profile (logged at WARNING
+    under ``WATCHTOWER_ENABLED=1``, else at INFO) or when it does not match
+    the model's features."""
+    enabled = config.watchtower_enabled()
+    if enabled is False:
+        return None
     profile_dir = resolve_profile_dir(model_source)
     profile = load_profile(profile_dir) if profile_dir else None
     if profile is None:
-        log.info(
+        log.log(
+            logging.WARNING if enabled else logging.INFO,
             "no monitor_profile.npz beside model (%s) — serving unmonitored",
             model_source,
         )

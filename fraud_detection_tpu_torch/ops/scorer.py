@@ -15,9 +15,16 @@ Counterpart of ``fraud_detection_tpu/ops/scorer.py``:
   :class:`GBTBatchScorer` (the forest; its fused explain leg is the cached
   TreeSHAP explainer) share the serving protocol, so the micro-batcher and
   the fused flush do not know which family they serve.
-
-Only the float32 wire is ported; the bf16 and int8 wires raise
-``NotImplementedError`` (ROADMAP queue 1, item 8).
+- **Three h2d wires** (``io_dtype``). ``float32`` ships the rows;
+  ``bfloat16`` halves the bytes (a pinned bf16 staging tensor, rounded to
+  nearest even as ``ml_dtypes`` rounds; the card's kernel reads bf16 rows);
+  ``int8`` ships per-feature quantization codes over a
+  :class:`~fraud_detection_tpu_torch.ops.quant.QuantCalibration`, encoded
+  on the host by the JAX package's numpy steps (so the codes are bitwise
+  its codes). The linear family folds the dequant scale into its weights
+  and scores the codes upcast to f32 (exact: they are small integers); the
+  forest dequantizes explicitly (``codes · scale``), the multiply the drift
+  histograms bin.
 """
 
 from __future__ import annotations
@@ -31,7 +38,11 @@ import torch
 from fraud_detection_tpu_torch.device import resolve_device
 from fraud_detection_tpu_torch.ops import kernels
 from fraud_detection_tpu_torch.ops.logistic import LogisticParams
+from fraud_detection_tpu_torch.ops.quant import QuantCalibration, derive_calibration
 from fraud_detection_tpu_torch.ops.scaler import ScalerParams
+
+#: the h2d wires a scorer can be built with
+WIRES = ("float32", "bfloat16", "int8")
 
 
 def fold_scaler_into_linear(
@@ -57,11 +68,17 @@ class FusedSpec(NamedTuple):
     """What a scorer hands the fused flush (monitor/drift): the score body
     ``score_fn(score_args, x)`` and the reason-code leg's ``explain_args``
     — the raw-space linear-SHAP pair ``(coef, background_mean)``, or the
-    GBT family's ``TreeShapExplainer``."""
+    GBT family's ``TreeShapExplainer``. On the int8 wire ``dequant_scale``
+    is the per-feature (d,) f32 scale the flush multiplies the codes by
+    for the drift histograms, and ``score_codes`` says whether
+    ``score_fn`` takes the codes (linear: the scale folded into the
+    weights) or the dequantized rows (the forest)."""
 
     score_fn: Callable
     score_args: Any
-    explain_args: Any
+    dequant_scale: torch.Tensor | None = None
+    score_codes: bool = True
+    explain_args: Any = None
 
 
 #: d2h score wire formats: name → the dtype the fused flush returns.
@@ -95,11 +112,24 @@ def decode_explain_into(
     return slot.ei, slot.ev
 
 
+def _cast_scores(p: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Cast f32 scores to a d2h return wire. ``uint8`` ships
+    ``round(p·255)`` (round half to even, like the reference)."""
+    if out_dtype == torch.uint8:
+        return torch.round(p * 255.0).to(torch.uint8)
+    if out_dtype == torch.float32:
+        return p
+    return p.to(out_dtype)
+
+
 def _raw_score_linear(score_args, x: torch.Tensor) -> torch.Tensor:
     """``sigmoid(x @ coef + intercept)``; ``score_args = (coef,
     intercept)``. The fused flush's score body: the ``fused_score`` kernel
-    on the card, its plain version on the CPU."""
+    on the card, its plain version on the CPU. The kernel reads f32 or bf16
+    rows; int8 codes go in upcast to f32, which is exact."""
     coef, intercept = score_args
+    if x.dtype == torch.int8:
+        x = x.float()
     return kernels.fused_score(coef, intercept, x)
 
 
@@ -110,14 +140,13 @@ def _raw_score_gbt(model, x: torch.Tensor) -> torch.Tensor:
     return gbt_predict_proba(model, x)
 
 
-def _check_wire(io_dtype: str) -> None:
-    if io_dtype in ("bfloat16", "int8"):
-        raise NotImplementedError(
-            f"the {io_dtype} wire is not ported yet: ROADMAP queue 8 "
-            "(queue 1, item 8 — the quantized wire); serve on float32"
-        )
-    if io_dtype != "float32":
-        raise ValueError(f"io_dtype must be float32|bfloat16|int8, got {io_dtype}")
+def _gbt_score_dequant(model, x: torch.Tensor, scale: torch.Tensor,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """The forest's split int8 path: explicit dequant, then the forest —
+    the same multiply the fused flush shares with the histogram bin."""
+    from fraud_detection_tpu_torch.ops.gbt import gbt_predict_proba
+
+    return _cast_scores(gbt_predict_proba(model, x.float() * scale), out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -125,25 +154,39 @@ def _check_wire(io_dtype: str) -> None:
 # --------------------------------------------------------------------------
 
 
-def _host_zeros(shape, pin: bool) -> np.ndarray:
-    """A zeroed f32 numpy buffer; page-locked when ``pin`` (the h2d copy of
-    a pinned buffer runs asynchronously on the copy engine). The ndarray
+def _host_zeros(shape, pin: bool, dtype=torch.float32) -> np.ndarray:
+    """A zeroed numpy buffer; page-locked when ``pin`` (the h2d copy of a
+    pinned buffer runs asynchronously on the copy engine). The ndarray
     keeps its torch storage alive."""
-    if not pin:
-        return np.zeros(shape, np.float32)
-    return torch.zeros(shape, dtype=torch.float32, pin_memory=True).numpy()
+    return torch.zeros(shape, dtype=dtype, pin_memory=pin).numpy()
 
 
 class _StagingSlot:
-    """One bucket's worth of host staging: the f32 row buffer, the validity
-    mask (1.0 for real rows, 0.0 for bucket padding), the return-wire
-    decode buffer and, on first use, the explain decode buffers."""
+    """One bucket's worth of host staging: the f32 row buffer, the buffer
+    the h2d copy ships (``io``: the f32 buffer itself on the f32 wire, a
+    pinned int8 buffer on the int8 wire, a pinned ``torch.bfloat16``
+    tensor on the bf16 wire — numpy has no bf16), on the int8 wire an f32
+    ``scratch`` to quantize through (the raw rows must survive the encode:
+    the split path's monitoring copy reads them), the validity mask (1.0
+    for real rows, 0.0 for bucket padding), the return-wire decode buffer
+    and, on first use, the explain decode buffers."""
 
-    __slots__ = ("bucket", "f32", "valid", "scores", "ei", "ev", "pool")
+    __slots__ = ("bucket", "f32", "io", "scratch", "valid", "scores", "ei", "ev", "pool")
 
-    def __init__(self, bucket: int, n_features: int, pool=None, pin=False):
+    def __init__(self, bucket: int, n_features: int, pool=None, pin=False,
+                 wire: str = "float32"):
         self.bucket = bucket
         self.f32 = _host_zeros((bucket, n_features), pin)
+        if wire == "bfloat16":
+            self.io = torch.zeros((bucket, n_features), dtype=torch.bfloat16,
+                                  pin_memory=pin)
+        elif wire == "int8":
+            self.io = _host_zeros((bucket, n_features), pin, torch.int8)
+        else:
+            self.io = self.f32
+        self.scratch = (
+            np.zeros((bucket, n_features), np.float32) if wire == "int8" else None
+        )
         self.valid = _host_zeros((bucket,), pin)
         self.scores = np.zeros((bucket,), np.float32)
         self.ei: np.ndarray | None = None  # (bucket, k) int32 reason indices
@@ -166,9 +209,10 @@ class StagingPool:
     """Thread-safe freelist of :class:`_StagingSlot` per shape bucket.
     ``allocations`` counts slot creations; in steady state it is constant."""
 
-    def __init__(self, n_features: int, pin: bool = False):
+    def __init__(self, n_features: int, pin: bool = False, wire: str = "float32"):
         self.n_features = n_features
         self.pin = pin
+        self.wire = wire
         self._free: dict[int, list[_StagingSlot]] = {}
         self._lock = threading.Lock()
         self.allocations = 0
@@ -179,7 +223,8 @@ class StagingPool:
             if free:
                 return free.pop()
             self.allocations += 1
-        return _StagingSlot(bucket, self.n_features, pool=self, pin=self.pin)
+        return _StagingSlot(bucket, self.n_features, pool=self, pin=self.pin,
+                            wire=self.wire)
 
     def release(self, slot: _StagingSlot) -> None:
         with self._lock:
@@ -188,15 +233,41 @@ class StagingPool:
 
 class _BucketedScorer:
     """Shared serving mechanics: pad request batches up to power-of-two
-    buckets and score on ``self.device``. Subclasses provide
-    ``n_features`` and ``_score_padded``."""
+    buckets, encode them on the scorer's wire and score on
+    ``self.device``. Subclasses provide ``n_features``, ``io_dtype`` and
+    ``_score_padded``."""
 
     min_bucket: int
     n_features: int
     device: torch.device
+    io_dtype: str = "float32"
+    #: the int8 wire's per-feature dequant scale (host copy), set by
+    #: :meth:`_bind_calibration`; both families share one host quantizer
+    _quant_scale: np.ndarray | None = None
+    calibration: QuantCalibration | None = None
 
-    def _score_padded(self, x: torch.Tensor) -> torch.Tensor:
+    def _score_padded(self, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
         raise NotImplementedError
+
+    def _bind_calibration(self, calibration: QuantCalibration) -> None:
+        """Adopt a quant calibration as this scorer's int8 wire: the host
+        encoder multiplies by 1/scale, the dequant paths by scale."""
+        self.calibration = calibration
+        self._quant_scale = np.asarray(calibration.scale, np.float32)
+        self._inv_quant_scale = (1.0 / self._quant_scale).astype(np.float32)
+        self._dequant_scale = torch.from_numpy(self._quant_scale.copy()).to(self.device)
+
+    def _prepare_host(self, x: np.ndarray):
+        """Host-side wire encoding of f32 rows: the int8 codes (an ndarray),
+        the bf16 rows (a ``torch.bfloat16`` tensor), or ``x`` itself."""
+        if self._quant_scale is not None:
+            buf = x * self._inv_quant_scale
+            np.rint(buf, out=buf)
+            np.clip(buf, -127.0, 127.0, out=buf)
+            return buf.astype(np.int8)
+        if self.io_dtype == "bfloat16":
+            return torch.from_numpy(x).to(torch.bfloat16)
+        return x
 
     @property
     def staging(self) -> StagingPool:
@@ -204,25 +275,44 @@ class _BucketedScorer:
         pool = getattr(self, "_staging", None)
         if pool is None:
             pool = self._staging = StagingPool(
-                self.n_features, pin=self.device.type == "cuda"
+                self.n_features, pin=self.device.type == "cuda",
+                wire=self.io_dtype,
             )
         return pool
 
-    def stage_rows(self, slot: _StagingSlot, rows: list) -> np.ndarray:
+    def _encode_slot(self, slot: _StagingSlot):
+        """Wire-encode the slot's staged f32 rows into its ``io`` buffer,
+        allocating no buffer: the identity on the f32 wire (``io`` is the
+        f32 buffer), the quantizer through the slot's scratch on the int8
+        wire, a rounding copy on the bf16 wire."""
+        if self._quant_scale is not None:
+            np.multiply(slot.f32, self._inv_quant_scale, out=slot.scratch)
+            np.rint(slot.scratch, out=slot.scratch)
+            np.clip(slot.scratch, -127.0, 127.0, out=slot.scratch)
+            np.copyto(slot.io, slot.scratch, casting="unsafe")
+            return slot.io
+        if slot.io is not slot.f32:
+            slot.io.copy_(torch.from_numpy(slot.f32))
+        return slot.io
+
+    def stage_rows(self, slot: _StagingSlot, rows: list):
         """Stack ``rows`` into the slot's preallocated buffers (no fresh
-        batch array); padding rows are zero with valid 0."""
+        batch array; padding rows are zero with valid 0) and return the
+        encoded ``io`` buffer the h2d copy ships."""
         n = len(rows)
         np.stack(rows, out=slot.f32[:n])
         slot.f32[n:] = 0.0
         slot.valid[:n] = 1.0
         slot.valid[n:] = 0.0
-        return slot.f32
+        return self._encode_slot(slot)
 
-    def to_device(self, host: np.ndarray) -> torch.Tensor:
-        """h2d copy of a staged host buffer on the current stream (async
-        from a pinned buffer; the caller's fetch synchronises before the
-        buffer is reused)."""
-        return torch.from_numpy(host).to(self.device, non_blocking=True)
+    def to_device(self, host) -> torch.Tensor:
+        """h2d copy of a staged host buffer (an ndarray, or the bf16 wire's
+        tensor) on the current stream (async from a pinned buffer; the
+        caller's fetch synchronises before the buffer is reused)."""
+        if not isinstance(host, torch.Tensor):
+            host = torch.from_numpy(host)
+        return host.to(self.device, non_blocking=True)
 
     def warmup(self, max_bucket: int = 4096) -> None:
         """Score one zero batch per bucket of the ladder, so the first
@@ -244,15 +334,70 @@ class _BucketedScorer:
         if x.ndim == 1:
             x = x[None, :]
         n = x.shape[0]
-        hx = np.ascontiguousarray(self._pad(x))
+        hx = self._prepare_host(np.ascontiguousarray(self._pad(x)))
         return self._score_padded(self.to_device(hx)).cpu().numpy()[:n]
+
+    def predict_proba_stream(
+        self,
+        x: np.ndarray,
+        chunk: int = 1 << 15,
+        inflight: int = 8,
+        out_dtype: str = "float32",
+    ) -> np.ndarray:
+        """Streaming scoring: ``inflight`` worker threads each run a chunk's
+        whole pipeline (host wire encode → h2d → score → d2h), so up to
+        ``inflight`` chunks are in flight at once. On a card each worker
+        thread issues its chunks on its own ``torch.cuda.Stream`` and a
+        chunk synchronises only that stream; every chunk has its own host
+        and device buffers. ``out_dtype`` narrows the return wire
+        (``float16``, or ``uint8``: scores in steps of 1/255); the result
+        is decoded to f32 probabilities on the host, in row order."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        x = np.asarray(x, dtype=np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        out_torch = RETURN_WIRES[out_dtype]
+        n = x.shape[0]
+        spans = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+        cuda = self.device.type == "cuda"
+        local = threading.local()
+
+        def one(span: tuple[int, int]) -> np.ndarray:
+            lo, hi = span
+            hx = self._prepare_host(np.ascontiguousarray(self._pad(x[lo:hi])))
+            if not cuda:
+                return self._score_padded(self.to_device(hx), out_torch).numpy()[: hi - lo]
+            stream = getattr(local, "stream", None)
+            if stream is None:
+                stream = local.stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
+                score = self._score_padded(self.to_device(hx), out_torch)
+                host = score.to("cpu", non_blocking=True)
+            stream.synchronize()
+            return host.numpy()[: hi - lo]
+
+        if len(spans) == 1 or inflight <= 1:
+            host = [one(s) for s in spans]
+        else:
+            with ThreadPoolExecutor(max_workers=inflight) as pool:
+                host = list(pool.map(one, spans))  # map keeps the order
+        scores = np.concatenate(host)
+        if out_dtype == "uint8":
+            return scores.astype(np.float32) / 255.0
+        return scores.astype(np.float32)
 
     def predict(self, x: np.ndarray, threshold: float = 0.5) -> np.ndarray:
         return (self.predict_proba(x) >= threshold).astype(np.int64)
 
 
 class BatchScorer(_BucketedScorer):
-    """Scaler-folded linear scorer: one ``fused_score`` launch per bucket."""
+    """Scaler-folded linear scorer: one ``fused_score`` launch per bucket.
+
+    On the int8 wire the dequant scale folds into the weights as well
+    (``codes·(s∘w′) = (codes∘s)·w′``), so the kernel scores the codes
+    upcast to f32 with no extra device work; with no calibration given it
+    is derived from the scaler (``derive_calibration``'s default range)."""
 
     #: served model family — the ``scorer_served_family`` gauge label
     family = "linear"
@@ -263,15 +408,20 @@ class BatchScorer(_BucketedScorer):
         scaler: ScalerParams | None = None,
         min_bucket: int = 8,
         io_dtype: str = "float32",
+        calibration: QuantCalibration | None = None,
         device: str | torch.device | None = None,
     ):
-        _check_wire(io_dtype)
+        if io_dtype not in WIRES:
+            raise ValueError(f"io_dtype must be float32|bfloat16|int8, got {io_dtype}")
         self.device = resolve_device(device)
         params = params.to(self.device)
         if scaler is not None:
             scaler = scaler.to(self.device)
         folded = fold_scaler_into_linear(params, scaler)
         self.coef = folded.coef.contiguous()
+        # the scaler-folded weights before any quant fold: the explain leg
+        # attributes raw-space rows with them
+        self._raw_coef = self.coef
         self.intercept = folded.intercept.reshape(())
         self.n_features = int(self.coef.shape[0])
         # the fused explain leg's raw-space linear-SHAP params: the folded
@@ -284,15 +434,32 @@ class BatchScorer(_BucketedScorer):
         )
         self.min_bucket = min_bucket
         self.io_dtype = io_dtype
+        if io_dtype == "int8":
+            if calibration is None:
+                if scaler is None:
+                    raise ValueError(
+                        "int8 IO needs a stamped QuantCalibration or scaler "
+                        "stats for calibration"
+                    )
+                calibration = derive_calibration(scaler)
+            self._bind_calibration(calibration)
+            self.coef = (self.coef * self._dequant_scale).contiguous()
 
     def fused_spec(self) -> FusedSpec:
+        explain_args = (self._raw_coef, self._explain_mean)
+        if self._quant_scale is not None:
+            return FusedSpec(
+                _raw_score_linear, (self.coef, self.intercept),
+                dequant_scale=self._dequant_scale, score_codes=True,
+                explain_args=explain_args,
+            )
         return FusedSpec(
             _raw_score_linear, (self.coef, self.intercept),
-            explain_args=(self.coef, self._explain_mean),
+            explain_args=explain_args,
         )
 
-    def _score_padded(self, x: torch.Tensor) -> torch.Tensor:
-        return _raw_score_linear((self.coef, self.intercept), x)
+    def _score_padded(self, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+        return _cast_scores(_raw_score_linear((self.coef, self.intercept), x), out_dtype)
 
 
 class GBTBatchScorer(_BucketedScorer):
@@ -301,18 +468,32 @@ class GBTBatchScorer(_BucketedScorer):
     (``fold_scaler_into_gbt``), on the model's device. ``explainer`` is the
     family's ``TreeShapExplainer`` or a callable returning it: the first
     :meth:`fused_spec` resolves and pins it, so constructing the scorer
-    never pays the background-table build."""
+    never pays the background-table build.
+
+    The bf16 wire bins the bf16-rounded values; the int8 wire needs the
+    stamped calibration (the scaler is folded into the bin edges, so there
+    is nothing to derive one from) and dequantizes explicitly."""
 
     family = "gbt"
 
     def __init__(self, model, min_bucket: int = 8, io_dtype: str = "float32",
-                 explainer=None):
-        _check_wire(io_dtype)
+                 calibration: QuantCalibration | None = None, explainer=None):
+        if io_dtype not in WIRES:
+            raise ValueError(f"io_dtype must be float32|bfloat16|int8, got {io_dtype}")
         self._model = model
         self.device = model.bin_edges.device
         self.n_features = int(model.bin_edges.shape[0])
         self.min_bucket = min_bucket
         self.io_dtype = io_dtype
+        if io_dtype == "int8":
+            if calibration is None:
+                raise ValueError(
+                    "int8 IO for the GBT family needs a stamped "
+                    "QuantCalibration (quant_calibration.npz beside the "
+                    "model — the scaler is folded into the bin edges, so "
+                    "there is nothing to re-derive one from at serve time)"
+                )
+            self._bind_calibration(calibration)
         self._explainer = explainer
 
     def _resolve_explainer(self):
@@ -320,9 +501,16 @@ class GBTBatchScorer(_BucketedScorer):
             self._explainer = self._explainer()
         return self._explainer
 
-    def _score_padded(self, x: torch.Tensor) -> torch.Tensor:
-        return _raw_score_gbt(self._model, x)
+    def _score_padded(self, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+        if self._quant_scale is not None and x.dtype == torch.int8:
+            return _gbt_score_dequant(self._model, x, self._dequant_scale, out_dtype)
+        return _cast_scores(_raw_score_gbt(self._model, x), out_dtype)
 
     def fused_spec(self) -> FusedSpec:
+        if self._quant_scale is not None:
+            return FusedSpec(
+                _raw_score_gbt, self._model, dequant_scale=self._dequant_scale,
+                score_codes=False, explain_args=self._resolve_explainer(),
+            )
         return FusedSpec(_raw_score_gbt, self._model,
                          explain_args=self._resolve_explainer())

@@ -216,6 +216,13 @@ scorer_flushes = Counter(
     "score-only (no watchtower)",
     ["path", "shard"],
 )
+scorer_wire_fused = Gauge(
+    "scorer_wire_fused",
+    "1 while the served wire format runs the fused single-dispatch flush; "
+    "0 when the wire format opted out of fusion and flushes silently "
+    "demoted to the split two-dispatch path (WireFormatUnfused alert "
+    "input — a config change must never quietly double device dispatches)",
+)
 scorer_explain_fused = Gauge(
     "scorer_explain_fused",
     "1 while serve-time reason codes (SCORER_EXPLAIN=topk) ride the fused "
@@ -235,6 +242,12 @@ scorer_queue_depth = Gauge(
     "scorer_queue_depth",
     "Queue items waiting in this shard's micro-batcher at the last "
     "collection cycle",
+    ["shard"],
+)
+scorer_effective_wait = Gauge(
+    "scorer_effective_wait_seconds",
+    "Collection deadline this shard's micro-batcher is currently applying "
+    "(= SCORER_MAX_WAIT_MS unless SCORER_ADAPTIVE_WAIT scales it down)",
     ["shard"],
 )
 scorer_admission_queue_rows = Gauge(

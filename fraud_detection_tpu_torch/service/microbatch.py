@@ -4,24 +4,29 @@ Concurrent requests land in an asyncio queue; a collector drains up to
 ``max_batch`` rows or waits at most ``max_wait_ms``, then hands the batch
 to a flush task, which runs the device work in an executor thread (so the
 event loop keeps accepting requests) and resolves each request's future.
+With ``SCORER_ADAPTIVE_WAIT`` the wait scales with an arrival-rate EWMA
+(:meth:`MicroBatcher._effective_wait`): a lone request flushes at once.
 
 A flush stages the rows into a preallocated per-bucket staging slot
 (``ops/scorer.StagingPool``; page-locked on a card, so the h2d copy runs
-asynchronously), then either:
+asynchronously) and encodes them on the scorer's h2d wire (f32, bf16 or
+int8 codes), then either:
 
 - **fused** (a watchtower is attached and ``SCORER_FUSED_FLUSH`` is on):
   scores, optional top-k reason codes and the drift-window fold in one
   flush (``monitor/drift.DriftMonitor.fused_flush``) — on the card the
   linear family scores through the ``fused_score`` CUDA kernel and the GBT
-  family's reason codes come from the ``tree_shap`` CUDA kernel; or
+  family's reason codes come from the ``tree_shap`` CUDA kernel; on the
+  int8 wire the flush dequantizes the codes for the histograms; or
 - **split**: the score alone; the watchtower's ingest thread folds the
   window afterwards.
 
 Either way the flush's one host sync is the device-to-host copy of its
-outputs. Up to ``MAX_INFLIGHT`` flushes run at once, so the fetch of flush
-N overlaps the staging of flush N+1. Admission is bounded
-(``admit_max_rows``): at the bound :class:`AdmissionFull` is raised and the
-HTTP edge sheds with 429 + ``Retry-After``.
+outputs. Up to ``SCORER_MAX_INFLIGHT`` flushes run at once, so the fetch
+of flush N overlaps the staging of flush N+1. Admission is bounded
+(``SCORER_ADMIT_MAX_ROWS``): at the bound :class:`AdmissionFull` is raised
+and the HTTP edge sheds with 429 + ``Retry-After``
+(``SCORER_ADMIT_RETRY_AFTER_S``).
 """
 
 from __future__ import annotations
@@ -44,12 +49,8 @@ from fraud_detection_tpu_torch.service import metrics
 
 log = logging.getLogger("fraud_detection_tpu_torch.microbatch")
 
-#: rows admitted but not yet collected, at most (0 = unbounded)
-ADMIT_MAX_ROWS = 65536
-#: the retry hint a shed admission carries (one flush window drains it)
-ADMIT_RETRY_AFTER_S = 1.0
-#: concurrently running flushes
-MAX_INFLIGHT = 4
+#: EWMA smoothing of the adaptive deadline's arrival rate (rows/s)
+_RATE_ALPHA = 0.3
 
 
 class AdmissionFull(RuntimeError):
@@ -81,12 +82,13 @@ class MicroBatcher:
         scorer: BatchScorer,
         max_batch: int | None = None,
         max_wait_ms: float | None = None,
+        max_inflight: int | None = None,
         watchtower=None,
         fused: bool | None = None,
         return_wire: str | None = None,
         explain: bool | None = None,
         explain_k: int | None = None,
-        admit_max_rows: int = ADMIT_MAX_ROWS,
+        admit_max_rows: int | None = None,
     ):
         self.scorer = scorer
         # on the fused path the drift window folds inside the flush; on the
@@ -102,6 +104,13 @@ class MicroBatcher:
                 f" got {self.return_wire!r}"
             )
         self._out_dtype = scorer_mod.RETURN_WIRES[self.return_wire]
+        # scorer_wire_fused (JAX's WireFormatUnfused alert input) is a
+        # constant 1 here: every wire of both families (f32, bf16, int8) has
+        # a fused flush, so none demotes to the split path
+        metrics.scorer_wire_fused.set(1)
+        if self.fused and self.watchtower is not None:
+            log.info("wire format %s runs the fused single-dispatch flush",
+                     scorer.io_dtype)
         if explain is None:
             mode = config.scorer_explain()
             if mode not in ("off", "topk"):
@@ -118,23 +127,33 @@ class MicroBatcher:
         self._explain_fused: bool | None = None
         metrics.scorer_explain_fused.set(1)
         self._family: str | None = None
+        self.adaptive_wait = config.scorer_adaptive_wait()
         self.max_batch = max_batch or config.scorer_max_batch()
         self.max_wait = (
             max_wait_ms if max_wait_ms is not None else config.scorer_max_wait_ms()
         ) / 1000.0
-        self.admit_max = admit_max_rows
+        self.admit_max = (
+            admit_max_rows if admit_max_rows is not None
+            else config.scorer_admit_max_rows()
+        )
+        self.admit_retry_after = config.scorer_admit_retry_after_s()
         self._queued_rows = 0
+        self._rate = 0.0  # arrival rows/s EWMA, the adaptive deadline's input
+        self._last_cycle: float | None = None
         self._c_flush = {
             path: metrics.scorer_flushes.labels(path, "0")
             for path in ("fused", "split", "solo")
         }
         self._g_queue_depth = metrics.scorer_queue_depth.labels("0")
+        self._g_effective_wait = metrics.scorer_effective_wait.labels("0")
         self._g_device_calls = metrics.scorer_device_calls_per_flush.labels("0")
         self._g_admission_rows = metrics.scorer_admission_queue_rows.labels("0")
         self._queue: asyncio.Queue[tuple] = asyncio.Queue()
         self._collector: asyncio.Task | None = None
         self._starting = False
-        self._inflight = asyncio.Semaphore(MAX_INFLIGHT)
+        self._inflight = asyncio.Semaphore(
+            max_inflight if max_inflight is not None else config.scorer_max_inflight()
+        )
         self._flushes: set[asyncio.Task] = set()
 
     async def start(self) -> None:
@@ -193,7 +212,7 @@ class MicroBatcher:
     def _admit(self, n: int) -> None:
         """Bounded-admission gate (event loop only, so no lock)."""
         if self.admit_max and self._queued_rows + n > self.admit_max:
-            raise AdmissionFull(ADMIT_RETRY_AFTER_S, self._queued_rows)
+            raise AdmissionFull(self.admit_retry_after, self._queued_rows)
         self._queued_rows += n
 
     async def _submit(self, row: np.ndarray):
@@ -217,6 +236,22 @@ class MicroBatcher:
             return res[0], (res[1], res[2])
         return res, None
 
+    def _effective_wait(self) -> float:
+        """This cycle's collection deadline: ``max_wait``, or with the
+        adaptive wait ``max_wait`` scaled by the share of ``max_batch`` the
+        arrival EWMA expects within the window — 0 when it expects at most
+        one row, the whole window when traffic would fill the batch."""
+        if not self.adaptive_wait:
+            w = self.max_wait
+        else:
+            expected_rows = self._rate * self.max_wait
+            if expected_rows <= 1.0:
+                w = 0.0
+            else:
+                w = self.max_wait * min(1.0, expected_rows / self.max_batch)
+        self._g_effective_wait.set(w)
+        return w
+
     async def _run(self) -> None:
         batch: list[tuple] = []
         loop = asyncio.get_running_loop()
@@ -229,7 +264,7 @@ class MicroBatcher:
                 self._g_admission_rows.set(self._queued_rows)
                 # greedy drain first (get_nowait ~1 µs), then wait out the
                 # collection window for more rows
-                deadline = loop.time() + self.max_wait
+                deadline = loop.time() + self._effective_wait()
                 while len(batch) < self.max_batch:
                     try:
                         nxt = self._queue.get_nowait()
@@ -249,7 +284,17 @@ class MicroBatcher:
                 task = asyncio.create_task(self._flush_one(batch))
                 self._flushes.add(task)
                 task.add_done_callback(self._flushes.discard)
+                n_collected = len(batch)
                 batch = []
+                # arrival EWMA over collection cycles, stamped after the
+                # semaphore: time blocked on in-flight flushes is the
+                # device's, not the arrivals'
+                now = loop.time()
+                if self._last_cycle is not None:
+                    dt = now - self._last_cycle
+                    if dt > 0:
+                        self._rate += _RATE_ALPHA * (n_collected / dt - self._rate)
+                self._last_cycle = now
         except asyncio.CancelledError:
             for item in batch:
                 if not item[1].done():
@@ -326,6 +371,8 @@ class MicroBatcher:
                 out = drift.fused_flush(
                     x_dev, scorer.to_device(slot.valid), n,
                     spec.score_args, spec.score_fn,
+                    dequant_scale=spec.dequant_scale,
+                    score_codes=spec.score_codes,
                     out_dtype=self._out_dtype,
                     explain_args=spec.explain_args if explain_k else None,
                     explain_k=explain_k,

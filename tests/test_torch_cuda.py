@@ -633,6 +633,142 @@ def test_worker_run_batch_on_the_card(family, tmp_path, monkeypatch):
         w.close()
 
 
+def _wire_models(wire, monkeypatch, x, y):
+    """(family → {device: model}) on ``wire``: the committed logistic model
+    and a small forest fitted on the CPU, its int8 calibration derived
+    from a scaler of the same rows."""
+    from fraud_detection_tpu_torch.models import FraudGBTModel
+    from fraud_detection_tpu_torch.ops.gbt import GBTConfig, gbt_fit
+    from fraud_detection_tpu_torch.ops.quant import derive_calibration
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit
+
+    monkeypatch.setenv("SCORER_WIRE", wire)
+    names = FraudLogisticModel.load(os.path.join(ROOT, "models"), device="cpu").feature_names
+    forest = gbt_fit(x, y, GBTConfig(n_trees=20, max_depth=5, n_bins=64), device="cpu")
+    cal = derive_calibration(scaler_fit(torch.from_numpy(x)))
+    out = {"logistic": {}, "gbt": {}}
+    for dev in ("cpu", "cuda"):
+        out["logistic"][dev] = FraudLogisticModel.load(os.path.join(ROOT, "models"), device=dev)
+        out["gbt"][dev] = FraudGBTModel(forest, names, background=x[:64], calibration=cal,
+                                        device=dev)
+    return out
+
+
+def _staged_fused_flush(scorer, mon, rows, k):
+    from fraud_detection_tpu_torch.ops.scorer import _bucket
+    from fraud_detection_tpu_torch.service.microbatch import fetch
+
+    n = len(rows)
+    spec = scorer.fused_spec()
+    slot = scorer.staging.acquire(_bucket(n, scorer.min_bucket))
+    try:
+        hx = scorer.stage_rows(slot, list(rows))
+        out = mon.fused_flush(scorer.to_device(hx), scorer.to_device(slot.valid), n,
+                              spec.score_args, spec.score_fn, dequant_scale=spec.dequant_scale,
+                              score_codes=spec.score_codes, explain_args=spec.explain_args,
+                              explain_k=k)
+        return [h[:n].copy() for h in fetch(*out)]
+    finally:
+        scorer.staging.release(slot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["bfloat16", "int8"])
+@pytest.mark.parametrize("family", ["logistic", "gbt"])
+def test_narrow_wire_fused_flush_on_the_card_matches_the_cpu(family, wire, monkeypatch):
+    """The bf16 and int8 fused flushes with explain on the card against the
+    same flushes on the CPU: scores within 1e-6, reason codes equal but
+    across a 2e-5 tie (values within 1e-6, or TreeSHAP's rtol 1e-4 / atol
+    2e-5), feature counts equal (a half-life long enough that the window
+    holds whole counts); the family's kernel launched."""
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+
+    _require_card()
+    data = np.loadtxt(os.path.join(ROOT, "data", "creditcard.csv"), delimiter=",",
+                      skiprows=1, max_rows=2000, dtype=np.float32)
+    x, y = data[:, :30], data[:, 30].astype(np.int32)
+    models = _wire_models(wire, monkeypatch, x, y)[family]
+    cpu = models["cpu"]
+    profile = build_baseline_profile(x, cpu.scorer.predict_proba(x),
+                                     feature_names=cpu.feature_names, device="cpu")
+    out, windows = {}, {}
+    for dev, model in models.items():
+        assert model.scorer.io_dtype == wire
+        mon = DriftMonitor(profile, halflife_rows=1e12, device=dev)
+        kernels.reset_launch_counts()
+        out[dev] = [_staged_fused_flush(model.scorer, mon, x[lo:lo + n], 3)
+                    for lo, n in ((0, 1), (1, 64), (65, 700))]
+        launches = kernels.launch_counts()
+        windows[dev] = mon.window.feature_counts.cpu().numpy()
+    assert launches["fused_score" if family == "logistic" else "tree_shap"] == 3
+    rtol, atol = (0.0, 1e-6) if family == "logistic" else (1e-4, 2e-5)
+    for (lo, n), (sc, ic, vc), (sg, ig, vg) in zip(((0, 1), (1, 64), (65, 700)),
+                                                  out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(vg, vc, rtol=rtol, atol=atol)
+        hx = cpu.scorer._prepare_host(np.ascontiguousarray(x[lo:lo + n]))
+        xf = (hx.float().numpy() if isinstance(hx, torch.Tensor)
+              else hx.astype(np.float32) * cpu.scorer._quant_scale)
+        srt = -np.sort(-cpu.explain_batch(xf)[0], axis=1)
+        for i in np.nonzero((ig != ic).any(axis=1))[0]:
+            assert abs(srt[i, 2] - srt[i, 3]) <= 2e-5, (lo + i, ig[i], ic[i])
+    np.testing.assert_array_equal(windows["cuda"], windows["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["bfloat16", "int8"])
+def test_pinned_io_buffer_is_reused_across_flushes(wire, monkeypatch):
+    """The micro-batcher's flushes on the card ship the slot's pinned
+    ``io`` buffer: the same buffer flush after flush, the pool's
+    ``allocations`` constant after the first, the scores unchanged."""
+    _require_card()
+    monkeypatch.setenv("SCORER_WIRE", wire)
+    data = np.loadtxt(os.path.join(ROOT, "data", "creditcard.csv"), delimiter=",",
+                      skiprows=1, max_rows=1000, dtype=np.float32)
+    x = data[:, :30]
+    model = FraudLogisticModel.load(os.path.join(ROOT, "models"), device="cuda")
+    profile = build_baseline_profile(x, model.scorer.predict_proba(x),
+                                     feature_names=model.feature_names, device="cuda")
+    wt = Watchtower(profile, device="cuda")
+    try:
+        b = MicroBatcher(model.scorer, max_batch=64, watchtower=wt, fused=True,
+                         explain=True, explain_k=3)
+        scorer = b.scorer
+        target = b._fused_target(scorer)
+        batch = [(x[i], None) for i in range(64)]
+        ptrs, scores, allocs = set(), [], []
+        for _ in range(5):
+            res = b._flush_device(scorer, target, batch)
+            slot = res[-1]
+            io = slot.io if isinstance(slot.io, torch.Tensor) else torch.from_numpy(slot.io)
+            assert io.is_pinned() and io.dtype == {"bfloat16": torch.bfloat16,
+                                                    "int8": torch.int8}[wire]
+            ptrs.add(io.data_ptr())
+            scores.append(res[0].copy())
+            scorer.staging.release(slot)
+            allocs.append(scorer.staging.allocations)
+    finally:
+        wt.close()
+    assert len(ptrs) == 1 and len(set(allocs)) == 1
+    for s in scores[1:]:
+        np.testing.assert_array_equal(s, scores[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+def test_predict_proba_stream_on_the_card_matches_the_cpu(wire, monkeypatch):
+    """The chunked stream on the card (a CUDA stream per worker thread)
+    against ``predict_proba`` on the CPU over the same wire: within 1e-6,
+    in row order."""
+    _require_card()
+    monkeypatch.setenv("SCORER_WIRE", wire)
+    x = np.random.default_rng(5).standard_normal((5000, 30)).astype(np.float32)
+    card = FraudLogisticModel.load(os.path.join(ROOT, "models"), device="cuda").scorer
+    cpu = FraudLogisticModel.load(os.path.join(ROOT, "models"), device="cpu").scorer
+    got = card.predict_proba_stream(x, chunk=512, inflight=4)
+    np.testing.assert_allclose(got, cpu.predict_proba(x), rtol=0, atol=1e-6)
+
+
 def test_a_cuda_worker_without_a_card_raises(tmp_path, monkeypatch):
     """No fallback: a worker (or app) asked for ``cuda`` where
     ``torch.cuda.is_available()`` is False raises. Runs on either machine:

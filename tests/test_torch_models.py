@@ -180,17 +180,35 @@ def test_gbt_artifacts_load_across_in_both_directions(gbt_dirs, rows, tmp_path):
 
 
 @pytest.mark.parametrize("wire", ["bfloat16", "int8"])
-def test_narrow_wires_raise_not_implemented(wire):
-    params = LogisticParams(torch.zeros(4), torch.tensor(0.0))
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        BatchScorer(params, io_dtype=wire, device="cpu")
+def test_narrow_wires_build_and_int8_needs_a_calibration(wire):
+    """The narrow wires are served now (no ``NotImplementedError``): bf16
+    builds from the weights alone; int8 needs a calibration or, for the
+    linear family, a scaler to derive one from, and raises ``ValueError``
+    (JAX's message) without; an unknown wire raises ``ValueError``."""
     from fraud_detection_tpu_torch.ops.gbt import GBTModel
+    from fraud_detection_tpu_torch.ops.quant import QuantCalibration
     from fraud_detection_tpu_torch.ops.scorer import GBTBatchScorer
 
+    params = LogisticParams(torch.zeros(4), torch.tensor(0.0))
     forest = GBTModel(torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1), dtype=torch.int32),
                       torch.zeros((1, 2)), torch.zeros((4, 3)), torch.tensor(0.0))
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        GBTBatchScorer(forest, io_dtype=wire)
+    cal = QuantCalibration(scale=np.full(4, 0.5, np.float32))
+    if wire == "int8":
+        with pytest.raises(ValueError, match="stamped QuantCalibration or scaler"):
+            BatchScorer(params, io_dtype=wire, device="cpu")
+        with pytest.raises(ValueError, match="needs a stamped"):
+            GBTBatchScorer(forest, io_dtype=wire)
+    lin = BatchScorer(params, io_dtype=wire, calibration=cal, device="cpu")
+    gbt = GBTBatchScorer(forest, io_dtype=wire, calibration=cal)
+    for scorer in (lin, gbt):
+        assert scorer.io_dtype == wire
+        assert (scorer.fused_spec().dequant_scale is not None) == (wire == "int8")
+        assert scorer.predict_proba(np.ones((3, 4), np.float32)).shape == (3,)
+    for bad in ("float16", "uint8"):
+        with pytest.raises(ValueError, match="float32|bfloat16|int8"):
+            BatchScorer(params, io_dtype=bad, device="cpu")
+        with pytest.raises(ValueError, match="float32|bfloat16|int8"):
+            GBTBatchScorer(forest, io_dtype=bad)
 
 
 def test_buckets_and_staging_pool_reuse():

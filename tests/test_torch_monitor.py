@@ -15,6 +15,7 @@ from fraud_detection_tpu.ops.scorer import _raw_score_linear as jax_score
 from fraud_detection_tpu_torch.convert import profile_from_arrays
 from fraud_detection_tpu_torch.monitor import baseline as tbase
 from fraud_detection_tpu_torch.monitor import drift as tdrift
+from fraud_detection_tpu_torch.ops import scorer as tscorer
 from fraud_detection_tpu_torch.ops.scorer import _raw_score_linear as torch_score
 
 torch.set_num_threads(1)
@@ -172,7 +173,7 @@ def test_narrow_return_wires_match_jax(return_wire):
     td = {"float16": torch.float16, "uint8": torch.uint8}[return_wire]
     s[:4] = [0.5 / 255, 1.5 / 255, 2.5 / 255, 0.5]  # round-half-even cases
     np.testing.assert_array_equal(
-        tdrift._narrow_scores(torch.from_numpy(s), td).numpy(),
+        tscorer._cast_scores(torch.from_numpy(s), td).numpy(),
         np.asarray(jdrift._narrow_scores(jnp.asarray(s), jd)),
     )
 
