@@ -9,7 +9,8 @@ card, ``nvcc`` (``NVCC``/``CUDA_HOME``/``PATH``) and no network. It imports
 nothing of JAX or of the JAX package. Phases, each fatal on failure:
 
 1. **build** — compile every kernel under ``fraud_detection_tpu_torch/
-   csrc/`` (one ``nvcc`` per source, started together) and load it; print
+   csrc/`` (one ``nvcc`` per source, started together, and ``g++`` for the
+   native CSV reader beside them) and load it; print
    ``ptxas -v``'s registers, stack frame and spills for every
    instantiation of ``fused_score``'s and ``knn_topk``'s kernels, and fail
    on a spill or a stack frame there.
@@ -123,7 +124,10 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    1024-row flushes profiled (busy as the union of device intervals, so a
    programmatic dependent launch that overlaps its primary counts once;
    ``tree_shap`` from its group pass's start to its group sum's end) and
-   30 timed on the host's clock.
+   30 timed on the host's clock. The margin's sum over trees, by halving
+   (served) and by one reduction kernel: the rows whose bits change alone
+   or in a bucket of 8 against the 1024-row batch (the served form must
+   change none), and the 1024-row flush with each, in turns.
 7. **the explain path** — for phase 3's logistic directory (an empty
    tracking store: ``native:<dir>``) and phase 5's forest (its registry:
    ``registry:models:/fraud@prod``), each source checked in the app and in
@@ -197,6 +201,34 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    codes do not clip within half a lattice step a feature through the
    weights (JAX's 5e-2 is a gate of its test fixture: the rows above it
    are counted and printed).
+10. **ingest, shadow, spyglass, native CSV** — the native CSV reader
+   (``data/native.py``) on the committed and the Kaggle-sized CSV, bitwise
+   ``np.loadtxt(float64).astype(float32)``, on 20,000 × 31 values of 16-18
+   significant digits within 1 ulp (the values that differ counted), no
+   fall-through (``NATIVE_CSV_FALLBACKS`` 0); the reader and
+   ``np.loadtxt`` timed in turns (median of 5) and the Kaggle-scale
+   ``preprocess``, ``evaluate`` and ``explain`` with ``NATIVE_CSV=0`` and
+   ``=1`` in turns. Then each family (phase 3's logistic directory, phase
+   5's forest from its registry; explain on, f32 wire) served with the
+   binary lane on an ephemeral ``INGEST_PORT``: 8 frames of 1024 rows are
+   8 flushes and 8 ``fused_score`` (or ``tree_shap``) launches; the same
+   1024 rows through the lane in frames of 1, 64 and 1024, through ``POST
+   /ingest/batch`` as one frame and through ``/predict`` score bitwise
+   alike with equal reason codes; an int8-layout frame within JAX's gate
+   of f32 (the forest, with no scaler on the f32 wire, refuses it as the
+   JAX lane does); a NaN frame and a truncated frame refused, the lane
+   still scoring; no staging allocation over 100 frames; the lane's rows/s
+   from 4 connections (a client process) beside ``/predict``'s requests/s,
+   both on the host clock; ``/debug/flightrecorder``'s records with six
+   stages and their p50s over the 1024-row frames; a 1024-row flush's host
+   time with spyglass off and on, in turns. Then phase 4's model at
+   ``@shadow`` beside phase 3's at ``@prod`` (``WATCHTOWER_SHADOW_SAMPLE=1``):
+   8 frames, 8 shadow batches, 8 challenger ``fused_score`` launches, the
+   window's disagreement, mean |Δscore| and score PSI within 1e-6 of a
+   numpy recomputation; a drift episode under
+   ``WATCHTOWER_RETRAIN_TRIGGER=1`` enqueuing one
+   ``watchtower.trigger_retrain``; the legacy app answering ``POST
+   /predict`` with ``/predict``'s probability through ``fused_score``.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -1966,9 +1998,68 @@ def gbt_served_path(work: Path, art_dir: str, store: str) -> dict:
         times.sort()
         print(f"phase6: 1024-row GBT fused flush host time p50 {times[15] * 1e3:.3f} ms, "
               f"min {times[0] * 1e3:.3f} ms over 30 flushes")
+        margin_sum_in_turns(scorer._model, rows1024, flush)
     finally:
         server.stop()
     return launches
+
+def margin_sum_in_turns(model, rows, flush, reps: int = 5, rounds: int = 6) -> None:
+    """The forest's margin on the card summed over trees two ways: by
+    halving (the served form) and by one reduction kernel over (trees,
+    leaves). For each, the rows among the first 64 whose margin bits
+    differ alone or in a bucket of 8 from their bits in the 1024-row
+    batch; the served form must not differ. Then a 1024-row flush with
+    each form, in turns (one, other, other, one): host time p50, device
+    busy and launches under the profiler."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ops import gbt
+
+    def one_reduction(m, x):
+        return m.base_logit + gbt._leaf_contrib(m, x).sum(dim=(1, 2))
+
+    served = gbt._predict_logits_dense
+    forms = {"halving": served, "one reduction": one_reduction}
+    xt = torch.from_numpy(np.ascontiguousarray(rows)).to(model.bin_edges.device)
+    differ = {}
+    for name, fn in forms.items():
+        full = fn(model, xt).view(torch.int32)
+        for n in (1, 8):
+            differ[name, n] = sum(
+                int((fn(model, xt[i:i + n]).view(torch.int32) != full[i:i + n]).sum())
+                for i in range(0, 64, n))
+    print("phase6: margin bits of the first 64 rows alone / in buckets of 8 against the "
+          "1024-row batch, rows that differ: "
+          + "; ".join(f"{name} {differ[name, 1]} / {differ[name, 8]}" for name in forms))
+    if differ["halving", 1] or differ["halving", 8]:
+        raise AssertionError(f"the served margin depends on the batch: {differ}")
+    host: dict[str, list[float]] = {name: [] for name in forms}
+    prof = {}
+    try:
+        for name, fn in forms.items():
+            gbt._predict_logits_dense = fn
+            flush()
+            acts = profiled_intervals(lambda: [flush() for _ in range(reps)])
+            copies = sum(1 for a, _, _ in acts if "Memcpy" in a or "Memset" in a)
+            prof[name] = ((len(acts) - copies) / reps,
+                          union_us([(a, b) for _, a, b in acts]) / reps)
+        order = list(forms)
+        for r in range(rounds):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                gbt._predict_logits_dense = forms[name]
+                for _ in range(reps):
+                    t = time.perf_counter()
+                    flush()
+                    host[name].append(time.perf_counter() - t)
+    finally:
+        gbt._predict_logits_dense = served
+    print("phase6: 1024-row GBT fused flush with each tree sum, in turns: "
+          + "; ".join(
+              f"{name}: host p50 {sorted(v)[len(v) // 2] * 1e3:.3f} ms over {len(v)}, "
+              f"{prof[name][0]:g} launches, busy {prof[name][1]:.3f} us (profiler, mean of "
+              f"{reps})" for name, v in host.items()))
+
 
 # ---------------------------------------------------------------------------
 # phase 7: the explain path
@@ -2881,6 +2972,578 @@ def quantized_wires(work: Path, gbt_store: str, kaggle_csv: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the native CSV reader, the ingest lanes, spyglass, shadow, legacy
+# ---------------------------------------------------------------------------
+
+#: the lanes' frames: the same rows as one frame each of these sizes
+INGEST_ROWS = 1024
+INGEST_FRAME_SIZES = (1, 64, 1024)
+INGEST_COUNTED_FRAMES = 8  # 1024-row frames under the launch counts
+INGEST_ALLOC_FRAMES = 100  # frames over which the staging pool must not grow
+INGEST_CONNECTIONS, INGEST_CONN_FRAMES = 4, 40  # the throughput probe
+INGEST_FLUSH_TIMED = 30  # 1024-row flushes a telemetry setting, in turns
+CSV_TIMED_ROUNDS = 5  # native reader and np.loadtxt, in turns
+DIGITS18_ROWS = 20_000  # the 16-18-digit fixture's rows (31 columns)
+SHADOW_FRAMES = 8  # 1024-row frames the shadow challenger samples
+SHADOW_HALFLIFE_ROWS = 4096
+SHADOW_TOL = 1e-6  # the shadow's window against a numpy recomputation
+INGEST_KERNELS = {"logistic": "fused_score", "gbt": "tree_shap"}
+
+#: the binary lane's throughput client, its own process: sends one prebuilt
+#: frame ``frames`` times on each of ``conns`` connections (stdlib only) and
+#: prints the wall time and the count of non-OK responses
+LANE_CLIENT = r"""
+import socket, struct, sys, threading, time
+port, path, conns, frames = (int(sys.argv[1]), sys.argv[2], int(sys.argv[3]),
+                             int(sys.argv[4]))
+frame = open(path, "rb").read()
+HDR = struct.Struct(">I")
+
+def read_exact(s, n):
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = s.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("lane closed the connection")
+        buf += chunk
+    return bytes(buf)
+
+def read_frame(s):
+    (n,) = HDR.unpack(read_exact(s, 4))
+    return read_exact(s, n)
+
+socks = []
+for _ in range(conns):
+    s = socket.create_connection(("127.0.0.1", port), timeout=120)
+    s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    read_frame(s)  # the HELLO
+    socks.append(s)
+bad = []
+
+def run(s):
+    for _ in range(frames):
+        s.sendall(frame)
+        if read_frame(s)[3] != 0:  # the status byte
+            bad.append(1)
+
+threads = [threading.Thread(target=run, args=(s,)) for s in socks]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+wall = time.perf_counter() - t0
+for s in socks:
+    s.close()
+print(wall, len(bad))
+"""
+
+
+def post_raw(port: int, path: str, body: bytes, ctype: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path, body=body,
+                     headers={"content-type": ctype, "connection": "close"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def f32_ulps(a, b) -> int:
+    """Largest distance of two float32 arrays in units in the last place."""
+    import numpy as np
+
+    ia = np.asarray(a, np.float32).ravel().view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).ravel().view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int(np.abs(ia - ib).max()) if ia.size else 0
+
+
+def digits18_csv(path: Path, rows: int, seed: int = 0) -> None:
+    """Values of 16 to 18 significant digits (the real Kaggle file writes
+    up to 18), the decimal point at a random place."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    digits = rng.integers(16, 19, (rows, 31))
+    mant = rng.integers(10 ** 15, 10 ** 18, (rows, 31), dtype=np.int64)
+    point = rng.integers(1, 16, (rows, 31))
+    sign = rng.random((rows, 31)) < 0.5
+    lines = [",".join(f"c{j}" for j in range(31))]
+    for i in range(rows):
+        fields = []
+        for j in range(31):
+            m = str(int(mant[i, j]))[: int(digits[i, j])]
+            p = int(point[i, j])
+            fields.append(("-" if sign[i, j] else "") + m[:p] + "." + m[p:])
+        lines.append(",".join(fields))
+    path.write_text("\n".join(lines) + "\n")
+
+
+def native_csv_checks(work: Path, kaggle_csv: Path, lin_dir: Path, gbt_dir: Path) -> None:
+    """The native reader: bitwise np.loadtxt(float64).astype(float32) on the
+    committed and the Kaggle-sized CSV, within 1 ulp on 16-18-digit values,
+    no fall-through; timed against np.loadtxt in turns; the Kaggle-scale
+    tools with NATIVE_CSV=0 and =1 in turns."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data import native
+    from fraud_detection_tpu_torch.evaluate import evaluate
+    from fraud_detection_tpu_torch.explain import explain
+    from fraud_detection_tpu_torch.preprocess import preprocess
+
+    fallbacks0 = native.NATIVE_CSV_FALLBACKS
+    plain = {}
+    for tag, csv in (("committed", ROOT / "data" / "creditcard.csv"), ("Kaggle-sized", kaggle_csv)):
+        got, names = native.load_csv_native(str(csv))
+        plain[tag] = want = np.loadtxt(csv, delimiter=",", skiprows=1,
+                                       dtype=np.float64).astype(np.float32)
+        same = got.tobytes() == want.tobytes()
+        print(f"phase10: native CSV reader on the {tag} CSV {got.shape}: bitwise "
+              f"np.loadtxt(float64).astype(float32): {same}; {len(names)} columns")
+        if not same or got.shape != want.shape:
+            raise AssertionError(f"phase10: the native reader differs on the {tag} CSV")
+    d18 = work / "digits18.csv"
+    digits18_csv(d18, DIGITS18_ROWS)
+    got, _ = native.load_csv_native(str(d18))
+    want = np.loadtxt(d18, delimiter=",", skiprows=1, dtype=np.float64).astype(np.float32)
+    differ, ulps = int((got != want).sum()), f32_ulps(got, want)
+    print(f"phase10: native CSV reader on {DIGITS18_ROWS} x 31 values of 16-18 significant "
+          f"digits: {differ} of {got.size} values differ from np.loadtxt, at most {ulps} ulp")
+    if ulps > 1:
+        raise AssertionError(f"phase10: 16-18-digit values {ulps} ulp off np.loadtxt")
+    if native.NATIVE_CSV_FALLBACKS != fallbacks0:
+        raise AssertionError("phase10: the native reader fell through to np.loadtxt")
+    print(f"phase10: NATIVE_CSV_FALLBACKS {native.NATIVE_CSV_FALLBACKS}")
+    t_nat, t_txt = [], []
+    for _ in range(CSV_TIMED_ROUNDS):
+        t = time.perf_counter()
+        native.load_csv_native(str(kaggle_csv))
+        t_nat.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        np.loadtxt(kaggle_csv, delimiter=",", skiprows=1, dtype=np.float64)
+        t_txt.append(time.perf_counter() - t)
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    print(f"phase10: parse of the Kaggle-sized CSV ({KAGGLE_ROWS} x 31), median of "
+          f"{CSV_TIMED_ROUNDS} in turns (host clock): native {med(t_nat) * 1e3:.3f} ms, "
+          f"np.loadtxt {med(t_txt) * 1e3:.3f} ms")
+    out = work / "ingest_tools"
+    out.mkdir()
+    tools = (
+        ("preprocess", lambda: preprocess(str(kaggle_csv), str(out / "k.npz"),
+                                          str(out / "k_models"), device="cuda")),
+        ("evaluate logistic", lambda: evaluate(str(kaggle_csv), str(lin_dir), None,
+                                               device="cuda")),
+        (f"explain gbt (max_rows {TOOL_EXPLAIN_ROWS})",
+         lambda: explain(str(kaggle_csv), str(gbt_dir), None, max_rows=TOOL_EXPLAIN_ROWS,
+                         device="cuda")),
+    )
+    for label, fn in tools:
+        walls = {}
+        for setting in ("0", "1"):
+            os.environ["NATIVE_CSV"] = setting
+            _, walls[setting] = sync_wall(fn)
+        print(f"phase10: {label} (Kaggle-sized) {walls['0']:.3f} s with np.loadtxt, "
+              f"{walls['1']:.3f} s with the native reader (host clock, device "
+              f"synchronised, in turns)")
+    os.environ.pop("NATIVE_CSV", None)
+
+
+def ingest_lanes(work: Path, family: str, model_dir: Path, store: Path, source: str,
+                 x, card: str) -> dict:
+    """One family's app with the binary lane: launches a 1024-row frame,
+    the same rows through the lane (frames of 1, 64, 1024), /ingest/batch
+    and /predict bitwise, the int8 layout, refused frames, staging
+    allocations, the lanes' rates, the flight recorder, the fence's price.
+    Returns the lane traffic's kernel launches and /predict's scores."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.service import binlane, metrics
+    from fraud_detection_tpu_torch.service.app import create_app
+    from fraud_detection_tpu_torch.telemetry import STAGES
+
+    tag = f"phase10 {family}"
+    lane_port = free_port()
+    os.environ.update(DEVICE="cuda", SCORER_EXPLAIN="topk", INGEST_PORT=str(lane_port),
+                      INGEST_HOST="127.0.0.1", MODEL_PATH=str(model_dir / "model.npz"))
+    for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
+                 "SCORER_RETURN_WIRE", "SCORER_WIRE", "SPYGLASS_ENABLED",
+                 "INGEST_MAX_ROWS", "WATCHTOWER_RETRAIN_TRIGGER"):
+        os.environ.pop(knob, None)
+    pin_tracking_store(store, work)
+    app = create_app(database_url=f"sqlite:///{work}/ingest_{family}_fraud.db",
+                     broker_url=f"sqlite:///{work}/ingest_{family}_taskq.db")
+    port = free_port()
+    server = ServerThread(app, port)
+    t0 = time.perf_counter()
+    server.start()
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"{tag}: server did not start: {server.error!r}")
+    try:
+        batcher, lane = app.state["batcher"], app.state["binlane"]
+        if batcher is None or app.state["watchtower"] is None or lane is None:
+            raise AssertionError(f"{tag}: app started degraded (batcher, watchtower, lane)")
+        check_source(tag, app.state["model_source"], source)
+        scorer = batcher.scorer
+        names = app.state["model"].feature_names
+        print(f"{tag}: app and binary lane (port {lane.port}, {lane.max_rows} rows a "
+              f"frame) started in {time.perf_counter() - t0:.3f} s")
+        rows = x[:INGEST_ROWS]
+        hist = metrics.microbatch_size._children[()]
+        kernel = INGEST_KERNELS[family]
+        kernels.reset_launch_counts()
+
+        # a 1024-row frame is one flush and one launch of the family's kernel
+        with binlane.BinLaneClient("127.0.0.1", lane.port) as cli:
+            cli.score_batch(rows)  # settle the pool
+            c0, l0 = hist.count, kernels.launch_counts()[kernel]
+            for _ in range(INGEST_COUNTED_FRAMES):
+                cli.score_batch(rows)
+            flushes, launched = hist.count - c0, kernels.launch_counts()[kernel] - l0
+        print(f"{tag}: {INGEST_COUNTED_FRAMES} frames of {INGEST_ROWS} rows: {flushes} "
+              f"flushes, {kernel} launched {launched} times")
+        if flushes != INGEST_COUNTED_FRAMES or launched != INGEST_COUNTED_FRAMES:
+            raise AssertionError(f"{tag}: a frame is not one flush and one {kernel} launch")
+
+        # the same rows three ways: frames, /ingest/batch, /predict
+        lanes = {}
+        with binlane.BinLaneClient("127.0.0.1", lane.port) as cli:
+            for size in INGEST_FRAME_SIZES:
+                parts = [cli.score_batch(rows[lo:lo + size]) for lo in range(0, INGEST_ROWS, size)]
+                lanes[f"frames of {size}"] = (np.concatenate([p[0] for p in parts]),
+                                              np.concatenate([p[1][0] for p in parts]))
+        status, body = post_raw(port, "/ingest/batch",
+                                binlane.encode_frame(rows, length_prefix=False),
+                                "application/x-fraud-frame")
+        if status != 200:
+            raise AssertionError(f"{tag}: /ingest/batch HTTP {status} {body[:200]!r}")
+        s, (idx, _) = binlane.decode_response_body(body)
+        lanes["/ingest/batch"] = (s, idx)
+        results, wall = drive_clients(port, rows, WIRE_CLIENTS, work)
+        predict = np.asarray([np.float32(json.loads(b)["score"]) if st == 200 else np.nan
+                              for st, b, _ in results], np.float32)
+        predict_idx = [[names.index(c["feature"]) for c in json.loads(b)["reason_codes"]]
+                       for st, b, _ in results if st == 200]
+        if len(predict_idx) != INGEST_ROWS:
+            raise AssertionError(f"{tag}: /predict answered {len(predict_idx)} of {INGEST_ROWS}")
+        for lane_name, (scores, idx) in lanes.items():
+            bitwise = scores.tobytes() == predict.tobytes()
+            same_codes = idx.tolist() == predict_idx
+            print(f"{tag}: {lane_name}: {INGEST_ROWS} scores bitwise /predict's: {bitwise}; "
+                  f"reason codes equal: {same_codes}")
+            if not (bitwise and same_codes):
+                raise AssertionError(f"{tag}: {lane_name} differs from /predict")
+        print(f"{tag}: /predict {INGEST_ROWS} rows from {WIRE_CLIENTS} client threads: "
+              f"{INGEST_ROWS / wall:.1f} requests/s (host clock, not a benchmark)")
+
+        # the int8 layout, a poison frame, a truncated frame
+        with binlane.BinLaneClient("127.0.0.1", lane.port) as cli:
+            if cli.scale is not None:
+                q, _ = cli.score_batch(rows, layout=binlane.LAYOUT_INT8)
+                gap = np.abs(q - predict)
+                print(f"{tag}: int8-layout frame: max |score - f32| {gap.max():.3e}, mean "
+                      f"{gap.mean():.3e} (JAX's gate {WIRE_GATE_ATOL:g} / {WIRE_GATE_MEAN:g})")
+                if not (gap.max() <= WIRE_GATE_ATOL and gap.mean() <= WIRE_GATE_MEAN):
+                    raise AssertionError(f"{tag}: the int8 layout leaves JAX's gate")
+            else:
+                # no scale in the HELLO: the f32-wire forest carries no scaler,
+                # and the JAX lane refuses its int8 frames the same way
+                cli.sock.sendall(binlane.encode_frame(
+                    rows[:8], scale=np.ones(30, np.float32), layout=binlane.LAYOUT_INT8))
+                status, _, _, payload = cli._read_response()
+                print(f"{tag}: int8-layout frame refused (status {status}: "
+                      f"{payload[4:].decode()}), as by the JAX lane for a family "
+                      f"without a scaler on the f32 wire")
+                if status != binlane.ST_BAD_FRAME or b"int8 layout" not in payload:
+                    raise AssertionError(f"{tag}: an int8 frame was served without a scale")
+            bad = rows[:8].copy()
+            bad[3, 5] = np.nan
+            try:
+                cli.score_batch(bad)
+            except binlane.FrameError as e:
+                print(f"{tag}: poison frame refused: {e}")
+            else:
+                raise AssertionError(f"{tag}: a NaN frame was scored")
+        full = binlane.encode_frame(rows[:64])
+        with socket.create_connection(("127.0.0.1", lane.port), timeout=30) as sock:
+            sock.recv(4096)  # the HELLO
+            sock.sendall(full[: len(full) // 2])  # then the peer goes away
+        with binlane.BinLaneClient("127.0.0.1", lane.port) as cli:
+            after, _ = cli.score_batch(rows[:64])
+        if after.tobytes() != predict[:64].tobytes():
+            raise AssertionError(f"{tag}: the lane scores differently after a truncated frame")
+        print(f"{tag}: truncated frame dropped its connection; the lane still scores "
+              f"bitwise (handler threads alive: {len(lane._threads)})")
+
+        # the lane's rate from 4 connections, its own process
+        frame_path = work / f"frame_{family}.bin"
+        frame_path.write_bytes(binlane.encode_frame(rows))
+        out = subprocess.run([sys.executable, "-c", LANE_CLIENT, str(lane.port),
+                              str(frame_path), str(INGEST_CONNECTIONS), str(INGEST_CONN_FRAMES)],
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise RuntimeError(f"{tag}: lane client failed: {out.stderr[-2000:]}")
+        wall, bad = out.stdout.split()
+        n = INGEST_CONNECTIONS * INGEST_CONN_FRAMES * INGEST_ROWS
+        if int(bad):
+            raise AssertionError(f"{tag}: {bad} frames answered with an error")
+        print(f"{tag}: binary lane {INGEST_CONNECTIONS} connections x {INGEST_CONN_FRAMES} "
+              f"frames of {INGEST_ROWS} rows: {n / float(wall):.1f} rows/s (host clock, "
+              f"client in its own process; not a benchmark)")
+
+        # no staging allocation in steady state; the 1024-row frames' stages
+        pool = scorer.staging
+        with binlane.BinLaneClient("127.0.0.1", lane.port) as cli:
+            for _ in range(3):
+                cli.score_batch(rows)
+            before = pool.allocations
+            for _ in range(INGEST_ALLOC_FRAMES):
+                cli.score_batch(rows)
+        print(f"{tag}: staging allocations over {INGEST_ALLOC_FRAMES} frames after warm-up: "
+              f"{before} -> {pool.allocations}")
+        if pool.allocations != before:
+            raise AssertionError(f"{tag}: steady-state frames allocated staging")
+        launches = kernels.launch_counts()
+        _, body = http_call(port, "GET", "/debug/flightrecorder")
+        rec = json.loads(body)
+        frames = [r for r in rec["records"] if r["batch_size"] == INGEST_ROWS]
+        if not rec["enabled"] or not frames or any(
+                set(r["stages"]) != set(STAGES) or min(r["stages"].values()) <= 0
+                for r in frames):
+            raise AssertionError(f"{tag}: flight-recorder records lack a stage")
+        p50 = {st: sorted(r["stages"][st] for r in frames)[len(frames) // 2] for st in STAGES}
+        print(f"{tag}: /debug/flightrecorder {len(rec['records'])} records, six stages each; "
+              f"p50 over {len(frames)} 1024-row frames: "
+              + ", ".join(f"{st} {v * 1e6:.1f} us" for st, v in p50.items()))
+
+        # the fence's price: a 1024-row flush with spyglass off and on, in turns
+        target = batcher._fused_target(scorer)
+        batch = [(x[i], None) for i in range(INGEST_ROWS)]
+        times = {False: [], True: []}
+        for _ in range(INGEST_FLUSH_TIMED):
+            for telemetry in (False, True):
+                t = time.perf_counter()
+                res = batcher._flush_device(scorer, target, batch, telemetry)
+                times[telemetry].append(time.perf_counter() - t)
+                scorer.staging.release(res[-1])
+        med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
+        print(f"{tag}: 1024-row fused flush with explain, host p50 of {INGEST_FLUSH_TIMED} in "
+              f"turns: SPYGLASS_ENABLED=0 {med[False]:.3f} ms, =1 {med[True]:.3f} ms (one "
+              f"CUDA event a flush); {card}")
+    finally:
+        server.stop()
+    os.environ.pop("INGEST_PORT", None)
+    if lane._threads or lane._accept_thread.is_alive():
+        raise AssertionError(f"{tag}: lane threads outlived the app")
+    return {"launches": {kernel: launches[kernel]}, "predict": predict}
+
+
+def serve_lane_app(work: Path, tag: str, store: Path, **env):
+    """An app serving ``store``'s ``@prod`` with the binary lane on an
+    ephemeral port; returns (app, server, http port)."""
+    from fraud_detection_tpu_torch.service.app import create_app
+
+    os.environ.update(DEVICE="cuda", SCORER_EXPLAIN="topk", INGEST_PORT=str(free_port()),
+                      INGEST_HOST="127.0.0.1", MODEL_PATH=str(work / "absent" / "model.npz"),
+                      **env)
+    pin_tracking_store(store, work)
+    name = tag.replace(" ", "_")
+    app = create_app(database_url=f"sqlite:///{work}/{name}_fraud.db",
+                     broker_url=f"sqlite:///{work}/{name}_taskq.db")
+    port = free_port()
+    server = ServerThread(app, port)
+    server.start()
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"{tag}: server did not start: {server.error!r}")
+    check_source(tag, app.state["model_source"], "registry:models:/fraud@prod")
+    if app.state["watchtower"] is None or app.state["binlane"] is None:
+        server.stop()
+        raise AssertionError(f"{tag}: app started without its watchtower or lane")
+    return app, server, port
+
+
+def spread_frames(x, n_frames: int):
+    """``n_frames`` frames of 1024 rows, each strided across all of ``x``
+    (the committed CSV is in ``Time`` order; the baseline spans it all)."""
+    step = len(x) // INGEST_ROWS
+    return [x[f:f + step * INGEST_ROWS:step] for f in range(n_frames)]
+
+
+def shadow_check(work: Path, lin_store: str, x) -> dict:
+    """The phase-4 model at @shadow beside phase 3's at @prod: every lane
+    batch re-scored off the request path, its window against a numpy
+    recomputation. Returns the challenger's fused_score launches."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.drift import PSI_EPS
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.service import binlane, metrics
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+
+    tag = "phase10 shadow"
+    store = work / "shadow_mlruns"
+    reg = TrackingClient(f"file:{store}").registry
+    reg.set_alias("fraud", "prod", reg.register("fraud", str(work / "models")))
+    chal_src = TrackingClient(lin_store).registry.resolve("models:/fraud@prod")
+    reg.set_alias("fraud", "shadow", reg.register("fraud", chal_src))
+    app, server, _ = serve_lane_app(work, tag, store, WATCHTOWER_SHADOW_SAMPLE="1",
+                                    WATCHTOWER_HALFLIFE_ROWS=str(SHADOW_HALFLIFE_ROWS))
+    try:
+        wt, lane = app.state["watchtower"], app.state["binlane"]
+        if wt.shadow is None:
+            raise AssertionError(f"{tag}: no shadow challenger bound")
+        print(f"{tag}: challenger {wt.challenger_source} beside "
+              f"{app.state['model_source']}, sample rate {wt.shadow.sample_rate:g}")
+        frames = spread_frames(x, SHADOW_FRAMES)
+        batches0 = metrics.watchtower_shadow_batches.get()
+        kernels.reset_launch_counts()
+        with binlane.BinLaneClient("127.0.0.1", lane.port) as cli:
+            champion = [cli.score_batch(rows)[0] for rows in frames]
+        if not wt.drain(timeout=120):
+            raise AssertionError(f"{tag}: the watchtower did not drain")
+        launched = kernels.launch_counts()["fused_score"]
+        batches = metrics.watchtower_shadow_batches.get() - batches0
+        st = wt.status()["shadow"]
+        # the window recomputed in numpy, batch by batch
+        ch = load_any_model(chal_src, device="cuda")
+        profile = load_profile(str(work / "models"))
+        edges = np.asarray(profile.score_edges, np.float64)
+        base = np.asarray(profile.score_counts, np.float64)
+        r = dis = delta = 0.0
+        cnt = np.zeros_like(base)
+        for rows, champ in zip(frames, champion):
+            c = ch.scorer.predict_proba(rows).astype(np.float64)
+            s = champ.astype(np.float64)
+            dec = 0.5 ** (len(c) / SHADOW_HALFLIFE_ROWS)
+            r = r * dec + len(c)
+            dis = dis * dec + float(np.sum((c >= 0.5) != (s >= 0.5)))
+            delta = delta * dec + float(np.sum(np.abs(c - s)))
+            cnt = cnt * dec + np.bincount(np.searchsorted(edges, c, side="right"),
+                                          minlength=base.shape[0])
+        p = (cnt + PSI_EPS) / (cnt.sum() + PSI_EPS * len(base))
+        q = (base + PSI_EPS) / (base.sum() + PSI_EPS * len(base))
+        want = {"disagreement": dis / r, "mean_abs_delta": delta / r,
+                "score_psi": float(np.sum((p - q) * np.log(p / q)))}
+        gaps = {k: abs(st[k] - v) for k, v in want.items()}
+        print(f"{tag}: {SHADOW_FRAMES} frames of {INGEST_ROWS}: watchtower_shadow_batches "
+              f"+{batches:g}; fused_score launched {launched} times ({launched - SHADOW_FRAMES} "
+              f"by the challenger on the watchtower thread); disagreement "
+              f"{st['disagreement']:.6f}, mean |delta| {st['mean_abs_delta']:.6f}, score PSI "
+              f"{st['score_psi']:.6f}, reason divergence {st['reason_divergence']}; against "
+              f"numpy: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()))
+        if batches != SHADOW_FRAMES or launched != 2 * SHADOW_FRAMES \
+                or max(gaps.values()) > SHADOW_TOL:
+            raise AssertionError(f"{tag}: the shadow window is off")
+    finally:
+        server.stop()
+    for knob in ("INGEST_PORT", "WATCHTOWER_SHADOW_SAMPLE", "WATCHTOWER_HALFLIFE_ROWS"):
+        os.environ.pop(knob, None)
+    return {"fused_score": launched - SHADOW_FRAMES}
+
+
+def retrain_episode(work: Path, x) -> None:
+    """Phase 3's model alone at @prod with WATCHTOWER_RETRAIN_TRIGGER=1:
+    traffic like the baseline, then a drift episode, which enqueues one
+    retrain task however often the status is read."""
+    from fraud_detection_tpu_torch.monitor.watchtower import RETRAIN_TASK
+    from fraud_detection_tpu_torch.service import binlane
+    from fraud_detection_tpu_torch.service.taskq import Broker
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+
+    tag = "phase10 retrain"
+    store = work / "retrain_mlruns"
+    reg = TrackingClient(f"file:{store}").registry
+    reg.set_alias("fraud", "prod", reg.register("fraud", str(work / "models")))
+    app, server, port = serve_lane_app(work, tag, store, WATCHTOWER_RETRAIN_TRIGGER="1",
+                                       WATCHTOWER_HALFLIFE_ROWS=str(SHADOW_HALFLIFE_ROWS))
+    try:
+        wt, lane = app.state["watchtower"], app.state["binlane"]
+        with binlane.BinLaneClient("127.0.0.1", lane.port) as cli:
+            for rows in spread_frames(x, SHADOW_FRAMES):
+                cli.score_batch(rows)
+            wt.drain(timeout=120)
+            before = json.loads(http_call(port, "GET", "/monitor/status")[1])
+            for rows in spread_frames(x, SHADOW_FRAMES):
+                cli.score_batch(rows * 4.0 + 3.0)
+        wt.drain(timeout=120)
+        statuses = [json.loads(http_call(port, "GET", "/monitor/status")[1]) for _ in range(3)]
+        http_call(port, "GET", "/metrics")
+        broker = Broker(f"sqlite:///{work}/phase10_retrain_taskq.db")
+        try:
+            names = [t.name for t in broker.claim_many("chip_smoke", 10_000)]
+        finally:
+            broker.close()
+        print(f"{tag}: baseline-like traffic: status {before['status']}, recommendation "
+              f"{before['recommendation']}; drift episode: status {statuses[0]['status']}, "
+              f"recommendation {statuses[0]['recommendation']}; {names.count(RETRAIN_TASK)} "
+              f"{RETRAIN_TASK} task(s) on the broker after 4 status reads and a scrape")
+        if before["recommendation"] != "none" or statuses[0]["recommendation"] != "retrain" \
+                or names.count(RETRAIN_TASK) != 1:
+            raise AssertionError(f"{tag}: a drift episode must enqueue one retrain task")
+    finally:
+        server.stop()
+    for knob in ("INGEST_PORT", "WATCHTOWER_RETRAIN_TRIGGER", "WATCHTOWER_HALFLIFE_ROWS"):
+        os.environ.pop(knob, None)
+
+
+def legacy_check(work: Path, x, predict_score: float) -> None:
+    """The legacy app on the card answers one POST /predict with /predict's
+    probability, through fused_score."""
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.service import legacy
+    from fraud_detection_tpu_torch.service.http import TestClient
+
+    os.environ.update(DEVICE="cuda", MODEL_PATH=str(work / "models" / "model.npz"))
+    pin_tracking_store(work / "empty_mlruns", work)
+    with TestClient(legacy.create_app()) as tc:
+        kernels.reset_launch_counts()
+        r = tc.post("/predict", json=dict(zip(["Time"] + [f"V{i}" for i in range(1, 29)]
+                                              + ["Amount"], x[0].tolist())))
+        launched = kernels.launch_counts()["fused_score"]
+        model = tc.app.state["model"]
+    body = r.json()
+    print(f"phase10 legacy: POST /predict {r.status_code} {body} on {model.device}; "
+          f"/predict's score {predict_score:.9f}; fused_score launched {launched}")
+    if r.status_code != 200 or body["fraud_probability"] != round(predict_score, 4) \
+            or body["alert"] != (body["fraud_probability"] > 0.8) or launched != 1:
+        raise AssertionError("phase10 legacy: off /predict's probability or the kernel")
+
+
+def ingest_phase(work: Path, gbt_store: str, lin_store: str, kaggle_csv: Path,
+                 card: str) -> dict:
+    """Phase 10. Returns the lane traffic's launches and the shadow's."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+
+    t_phase = time.perf_counter()
+    lin_dir = Path(TrackingClient(lin_store).registry.resolve("models:/fraud@prod"))
+    native_csv_checks(work, kaggle_csv, lin_dir, work / "gbt_served")
+    x = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                   dtype=np.float32)[:, :30]
+    x = np.ascontiguousarray(x)
+    launches: dict[str, int] = {}
+    lin = ingest_lanes(work, "logistic", work / "models", work / "empty_mlruns",
+                       f"native:{work / 'models'}", x, card)
+    gbt = ingest_lanes(work, "gbt", work / "gbt_served", Path(gbt_store.removeprefix("file:")),
+                       "registry:models:/fraud@prod", x, card)
+    for got in (lin, gbt):
+        launches.update(got["launches"])
+    shadow = shadow_check(work, lin_store, x)
+    retrain_episode(work, x)
+    legacy_check(work, x, float(lin["predict"][0]))
+    print(f"phase10: ingest, shadow, spyglass, native CSV in "
+          f"{time.perf_counter() - t_phase:.3f} s; lane kernel launches {launches}, "
+          f"the challenger's {shadow}")
+    return {"ingest": launches, "shadow": shadow}
+
+
 def main() -> int:
     try:
         import torch
@@ -2906,10 +3569,28 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    from fraud_detection_tpu_torch.data import native
+
     t0 = time.perf_counter()
+    csv_build: dict = {}
+
+    def build_csv_reader() -> None:  # g++ beside the nvcc builds
+        t = time.perf_counter()
+        try:
+            csv_build["path"] = native.build()
+        except BaseException as e:  # raised in the main thread below
+            csv_build["error"] = e
+        csv_build["s"] = time.perf_counter() - t
+
+    csv_thread = threading.Thread(target=build_csv_reader, name="csv-build")
+    csv_thread.start()
     built = kernels.build_kernels()
+    csv_thread.join()
+    if "error" in csv_build:
+        raise csv_build["error"]
     print(f"phase1: built {sorted(built)} in {time.perf_counter() - t0:.3f} s "
-          f"(per kernel: {', '.join(f'{k} {v:.3f} s' for k, v in built.items())})")
+          f"(per kernel: {', '.join(f'{k} {v:.3f} s' for k, v in built.items())}); the "
+          f"native CSV reader {Path(csv_build['path']).name} in {csv_build['s']:.3f} s (g++)")
     if sorted(built) != sorted(KERNELS):
         raise AssertionError(f"csrc kernels {sorted(built)} != {sorted(KERNELS)}")
     for name in ("fused_score", "knn_topk"):
@@ -2933,6 +3614,7 @@ def main() -> int:
                                   "registry:models:/fraud@prod")
         tools = offline_tools(work, lin_store, gbt_dir)
         wires = quantized_wires(work, gbt_store, work / "tools" / "kaggle.csv")
+        ingest = ingest_phase(work, gbt_store, lin_store, work / "tools" / "kaggle.csv", card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -2951,6 +3633,8 @@ def main() -> int:
             worker_launches=worker_lin["fused_score"],
             tools_launches=tools.get("fused_score", 0),
             wires_launches=wires["fused_score"],
+            ingest_launches=ingest["ingest"]["fused_score"],
+            shadow_launches=ingest["shadow"]["fused_score"],
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":
                {key: v[key] for key in ("ms", "kernel_ms", "upcast_ms", "plain_ms",
                                         "bound_ms", "library_ms") if key in v}
@@ -2983,6 +3667,7 @@ def main() -> int:
             worker_launches=worker_gbt["tree_shap"],
             tools_launches=tools.get("tree_shap", 0),
             wires_launches=wires["tree_shap"],
+            ingest_launches=ingest["ingest"]["tree_shap"],
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}

@@ -45,6 +45,12 @@ def data_csv() -> str:
     return _get("DATA_CSV", "data/creditcard.csv")
 
 
+def native_csv() -> bool:
+    """``NATIVE_CSV`` — parse CSVs with the port's C++ reader
+    (``data/native.py``); only ``0`` chooses ``np.loadtxt``. Default on."""
+    return _get("NATIVE_CSV", "1") != "0"
+
+
 def tracking_uri() -> str:
     """``MLFLOW_TRACKING_URI`` — ``file:<dir>`` (or a bare path) selects the
     file tracking store and registry, ``http(s)://host:port`` a tracking
@@ -239,6 +245,68 @@ def watchtower_halflife_rows() -> float:
 def watchtower_min_rows() -> int:
     """Window row floor below which the watchtower reports ``warming``."""
     return _get_int("WATCHTOWER_MIN_ROWS", 512)
+
+
+def shadow_stage() -> str:
+    """``MLFLOW_SHADOW_STAGE`` — the registry alias the shadow challenger
+    resolves from (``models:/{name}@{shadow_stage}``). Default ``shadow``."""
+    return _get("MLFLOW_SHADOW_STAGE", "shadow")
+
+
+def watchtower_shadow_sample() -> float:
+    """``WATCHTOWER_SHADOW_SAMPLE`` — the fraction of scored batches the
+    challenger re-scores (0..1). Default 0.25."""
+    return _get_float("WATCHTOWER_SHADOW_SAMPLE", 0.25)
+
+
+def watchtower_retrain_trigger() -> bool:
+    """``WATCHTOWER_RETRAIN_TRIGGER=1`` lets a drift episode enqueue one
+    ``watchtower.trigger_retrain`` task. Default off."""
+    return env_flag("WATCHTOWER_RETRAIN_TRIGGER") is True
+
+
+def spyglass_enabled() -> bool:
+    """``SPYGLASS_ENABLED=0`` turns off the per-request stage timelines,
+    the flush's one fence and the flight recorder. Default on."""
+    return env_flag("SPYGLASS_ENABLED") is not False
+
+
+def flightrecorder_capacity() -> int:
+    """``FLIGHTRECORDER_CAPACITY`` — requests the flight recorder keeps; 0
+    disables it. Default 512."""
+    return _get_int("FLIGHTRECORDER_CAPACITY", 512)
+
+
+def ingest_port() -> int:
+    """``INGEST_PORT`` — TCP port of the binary ingest lane
+    (``service/binlane.py``); 0 (default) starts none. ``POST
+    /ingest/batch`` serves frames either way."""
+    return _get_int("INGEST_PORT", 0)
+
+
+def ingest_host() -> str:
+    """``INGEST_HOST`` — bind address of the binary ingest lane."""
+    return _get("INGEST_HOST", "0.0.0.0")
+
+
+def ingest_max_rows() -> int:
+    """``INGEST_MAX_ROWS`` — rows a frame may carry; 0 (default) =
+    ``SCORER_MAX_BATCH``. Clamped to the micro-batcher's ``max_batch``."""
+    return _get_int("INGEST_MAX_ROWS", 0)
+
+
+def ingest_max_frame() -> int:
+    """``INGEST_MAX_FRAME_BYTES`` — the largest frame payload a connection
+    may announce; a larger length prefix is answered with an error frame
+    and the connection closed. Default 8 MiB."""
+    return _get_int("INGEST_MAX_FRAME_BYTES", 8 << 20)
+
+
+def ingest_stall_timeout_s() -> float:
+    """``INGEST_STALL_TIMEOUT_S`` — per-receive progress timeout on ingest
+    connections: idle between frames re-arms, a peer stalling inside a
+    frame is dropped. Default 30 s."""
+    return _get_float("INGEST_STALL_TIMEOUT_S", 30.0)
 
 
 def database_url() -> str:

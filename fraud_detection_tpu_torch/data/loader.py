@@ -2,8 +2,10 @@
 
 The on-disk contract is the Kaggle credit-card schema (``Time, V1..V28,
 Amount, Class``); column order follows the file header and ``Class`` is the
-label. Parsing uses the standard library's ``csv`` module for the header
-and numpy for the body (no pandas, no native loader).
+label. Parsing goes through the port's native C++ reader
+(``data/native.py``); ``NATIVE_CSV=0``, or a file the reader rejects, takes
+the plain version: the standard library's ``csv`` module for the header
+and ``np.loadtxt`` for the body (no pandas).
 
 The split and fold index generators are copies of the JAX package's: the
 same numpy RNG calls in the same order, so the same seed gives the same
@@ -16,6 +18,8 @@ import csv
 
 import numpy as np
 
+from fraud_detection_tpu_torch import config
+
 KAGGLE_FEATURES: list[str] = ["Time"] + [f"V{i}" for i in range(1, 29)] + ["Amount"]
 LABEL_COLUMN = "Class"
 
@@ -23,7 +27,22 @@ LABEL_COLUMN = "Class"
 def load_creditcard_csv(path: str) -> tuple[np.ndarray, np.ndarray, list[str]]:
     """Load a Kaggle-schema CSV → (X float32 (n, d), y int32 (n,), names).
 
-    Values are parsed to float64 and rounded once to float32."""
+    The native reader parses each value to float32 as the JAX package's
+    reader does; the plain version parses to float64 and rounds once to
+    float32 (the two agree within 1 ulp)."""
+    if config.native_csv():
+        from fraud_detection_tpu_torch.data.native import load_csv_native
+
+        native = load_csv_native(path)
+        if native is not None:
+            mat, names = native
+            if LABEL_COLUMN not in names:
+                raise ValueError(f"{path} has no '{LABEL_COLUMN}' column")
+            li = names.index(LABEL_COLUMN)
+            feature_names = [c for c in names if c != LABEL_COLUMN]
+            y = mat[:, li].astype(np.int32)
+            x = np.ascontiguousarray(np.delete(mat, li, axis=1))
+            return x, y, feature_names
     with open(path, newline="") as f:
         names = [c.strip() for c in next(csv.reader(f))]
     if LABEL_COLUMN not in names:

@@ -267,6 +267,17 @@ def psi_from_counts(p_counts: torch.Tensor, q_counts: torch.Tensor) -> torch.Ten
     return ((p - q) * torch.log(p / q)).sum(dim=-1)
 
 
+def psi_np(p_counts: np.ndarray, q_counts: np.ndarray) -> float:
+    """Numpy PSI with the same smoothing, in float64 — for host-side
+    consumers (the shadow scorer's challenger histogram)."""
+    p_counts = np.asarray(p_counts, np.float64)
+    q_counts = np.asarray(q_counts, np.float64)
+    n_bins = p_counts.shape[-1]
+    p = (p_counts + PSI_EPS) / (p_counts.sum() + PSI_EPS * n_bins)
+    q = (q_counts + PSI_EPS) / (q_counts.sum() + PSI_EPS * n_bins)
+    return float(np.sum((p - q) * np.log(p / q)))
+
+
 def ks_from_counts(p_counts: torch.Tensor, q_counts: torch.Tensor) -> torch.Tensor:
     """Two-sample KS statistic from histograms along the last axis."""
     p = p_counts / p_counts.sum(dim=-1, keepdim=True).clamp_min(1.0)

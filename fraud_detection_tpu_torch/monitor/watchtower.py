@@ -1,17 +1,25 @@
-"""The watchtower coordinator, lean: drift thresholds and ``/monitor/status``.
+"""The watchtower coordinator: drift, shadow, thresholds and the retrain
+trigger behind ``/monitor/status``.
 
 One instance per serving process. It loads the baseline profile beside the
 served model, owns the :class:`DriftMonitor` (whose window the fused flush
-folds on the device) and evaluates the thresholds into a status
-(``warming`` below ``WATCHTOWER_MIN_ROWS``, else ``ok`` or ``drift``), a
-recommendation (``none`` or ``retrain``) and the Prometheus gauges.
+folds on the device) and, when a challenger is registered at
+``models:/{name}@shadow``, a :class:`~.shadow.ShadowScorer`. It evaluates
+the thresholds into a status (``warming`` below ``WATCHTOWER_MIN_ROWS``,
+else ``ok`` or ``drift``), a recommendation (``none``, ``retrain``,
+``promote_challenger`` or ``rollback_challenger``) and the Prometheus
+gauges. With ``WATCHTOWER_RETRAIN_TRIGGER=1`` a drift episode enqueues one
+``watchtower.trigger_retrain`` task (:data:`RETRAIN_TASK`) through the
+``retrain_sender``; the conductor's promote/rollback sender is ROADMAP item
+11's and stays unset.
 
-On the split flush path :meth:`Watchtower.observe` hands each scored batch
-to one ingest thread (bounded backlog, drop-and-count), so monitoring never
-blocks a request; ``/monitor/feedback`` hands labeled rows to the same
-thread, which folds them into the calibration window only. Shadow scoring
-and the retrain trigger task are not ported yet: ``shadow`` and ``ledger``
-read ``None`` in the status body.
+:meth:`Watchtower.observe` hands each scored batch to one ingest thread
+(bounded backlog, drop-and-count), so monitoring never blocks a request:
+on the split path it folds the drift window there, and the shadow
+challenger re-scores a sample of batches there (its ``fused_score`` or
+forest launches, off the request path); ``/monitor/feedback`` hands
+labeled rows to the same thread, which folds them into the calibration
+window only. ``ledger`` reads ``None`` in the status body (ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -26,13 +34,34 @@ from dataclasses import dataclass
 from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.monitor.baseline import BaselineProfile, load_profile
 from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+from fraud_detection_tpu_torch.monitor.shadow import ShadowScorer
 from fraud_detection_tpu_torch.service import metrics
 
 log = logging.getLogger("fraud_detection_tpu_torch.watchtower")
 
+RETRAIN_TASK = "watchtower.trigger_retrain"
+
 RECOMMENDATIONS = (
     "none", "retrain", "promote_challenger", "rollback_challenger"
 )
+
+
+def _challenger_explainer(challenger):
+    """The challenger's attribution callable ``phi(rows) -> (n, d)`` for
+    the shadow's reason-code comparison: its own ``explain_batch`` (linear
+    SHAP, or the forest's TreeSHAP on the ``tree_shap`` kernel), run on the
+    watchtower's ingest thread. None when it has no ``explain_batch``."""
+    import numpy as np
+
+    if not hasattr(challenger, "explain_batch"):
+        return None
+
+    def phi(rows):
+        return np.asarray(
+            challenger.explain_batch(np.asarray(rows, np.float32))[0], np.float64
+        )
+
+    return phi
 
 
 @dataclass(frozen=True)
@@ -59,17 +88,53 @@ class Thresholds:
         )
 
 
+def _recommend(
+    warming: bool, flags: dict, shadow: dict | None, thr: Thresholds
+) -> str:
+    """The recommendation from the drift flags and the shadow window."""
+    if warming:
+        return "none"
+    drifting = any(flags.values())
+    shadow_ready = shadow is not None and shadow["window_rows"] >= thr.min_rows
+    if drifting:
+        if shadow_ready and flags.get("score_psi") and shadow["score_psi"] <= thr.psi:
+            return "promote_challenger"
+        return "retrain"
+    if shadow_ready and shadow["disagreement"] > thr.disagree:
+        return "rollback_challenger"
+    return "none"
+
+
 class Watchtower:
     def __init__(
         self,
         profile: BaselineProfile,
+        challenger=None,
+        challenger_source: str | None = None,
         thresholds: Thresholds | None = None,
+        sample_rate: float | None = None,
         halflife_rows: float | None = None,
+        retrain_sender=None,
         max_backlog: int = 32,
         device=None,
     ):
         self.thresholds = thresholds or Thresholds.from_config()
         self.drift = DriftMonitor(profile, halflife_rows=halflife_rows, device=device)
+        self.shadow = (
+            ShadowScorer(
+                challenger.scorer, profile, sample_rate=sample_rate,
+                halflife_rows=halflife_rows,
+                explainer=_challenger_explainer(challenger),
+            )
+            if challenger is not None else None
+        )
+        self.challenger_source = challenger_source
+        # retrain_sender(reason) enqueues RETRAIN_TASK, once a drift episode
+        self._retrain_sender = retrain_sender
+        self._retrain_latched = False
+        # a scrape and a /monitor/status call may evaluate status() at once:
+        # the latch's check and set must be atomic
+        self._retrain_lock = threading.Lock()
         self._queue: queue.Queue = queue.Queue(maxsize=max_backlog)
         self._stop = False
         self._thread = threading.Thread(
@@ -77,9 +142,14 @@ class Watchtower:
         )
         self._thread.start()
 
+    def wants_rows(self) -> bool:
+        """True when a fused flush (drift already folded) must still hand
+        over its rows: a shadow challenger is bound."""
+        return self.shadow is not None
+
     def observe(
         self, rows, scores, labels=None, calibration_only=False,
-        drift_done=False,
+        drift_done=False, reasons=None,
     ) -> bool:
         """Queue one scored batch for monitoring. Non-blocking; returns
         False when the backlog bound forced a drop (counted).
@@ -89,10 +159,13 @@ class Watchtower:
         ``calibration_only`` (a feedback replay: the rows were already
         observed live) they update only the calibration state, never the
         drift histograms. With ``drift_done`` (the fused path: the window
-        already folded in the flush) the batch is only counted."""
+        already folded in the flush) the batch is only counted and, with a
+        shadow bound, re-scored by the challenger on a sample. ``reasons``
+        is the champion's serve-time top-k indices for the shadow's
+        reason-divergence window."""
         try:
             self._queue.put_nowait(
-                (rows, scores, labels, calibration_only, drift_done)
+                (rows, scores, labels, calibration_only, drift_done, reasons)
             )
         except queue.Full:
             metrics.watchtower_batches_dropped.inc()
@@ -105,12 +178,20 @@ class Watchtower:
             try:
                 if item is None or self._stop:
                     return
-                rows, scores, labels, calibration_only, drift_done = item
+                (rows, scores, labels, calibration_only, drift_done,
+                 reasons) = item
                 if not drift_done:
                     self.drift.update(
                         rows, scores, labels, calibration_only=calibration_only
                     )
                 metrics.watchtower_batches_observed.inc()
+                if (
+                    self.shadow is not None
+                    and rows is not None
+                    and not calibration_only
+                    and self.shadow.maybe_observe(rows, scores, reasons)
+                ):
+                    metrics.watchtower_shadow_batches.inc()
             except Exception:
                 log.warning("watchtower ingest failed", exc_info=True)
             finally:
@@ -130,6 +211,7 @@ class Watchtower:
         host sync; /monitor/status and scrapes, never per batch)."""
         thr = self.thresholds
         d = self.drift.stats()
+        sh = self.shadow.stats() if self.shadow is not None else None
         warming = d["window_rows"] < thr.min_rows
         flags = {
             "feature_psi": d["feature_psi_max"] > thr.psi,
@@ -142,7 +224,8 @@ class Watchtower:
         if warming:
             flags = {k: False for k in flags}
         drifting = any(flags.values())
-        recommendation = "retrain" if drifting else "none"
+        recommendation = _recommend(warming, flags, sh, thr)
+        self._maybe_trigger_retrain(recommendation, d)
         # a warming window's stats are empty-histogram smoothing noise: the
         # gauges read 0 until min_rows so fresh deploys don't page
         g = dict.fromkeys(
@@ -162,15 +245,28 @@ class Watchtower:
             metrics.watchtower_recommendation.labels(action).set(
                 1 if action == recommendation else 0
             )
+        if sh is not None:
+            # the same warm-up suppression as the drift gauges
+            shadow_warm = sh["window_rows"] >= thr.min_rows
+            metrics.watchtower_shadow_disagreement.set(
+                sh["disagreement"] if shadow_warm else 0.0
+            )
+            metrics.watchtower_shadow_score_psi.set(
+                sh["score_psi"] if shadow_warm else 0.0
+            )
+            rd = sh["reason_divergence"]
+            metrics.watchtower_shadow_reason_divergence.set(
+                rd if rd is not None and shadow_warm else 0.0
+            )
         return {
             "enabled": True,
             "status": "warming" if warming else ("drift" if drifting else "ok"),
             "recommendation": recommendation,
             "flags": flags,
             "drift": d,
-            "shadow": None,
+            "shadow": sh,
             "ledger": None,
-            "challenger_source": None,
+            "challenger_source": self.challenger_source,
             "thresholds": {
                 "psi": thr.psi,
                 "ks": thr.ks,
@@ -179,6 +275,31 @@ class Watchtower:
                 "min_rows": thr.min_rows,
             },
         }
+
+    def _maybe_trigger_retrain(self, recommendation: str, d: dict) -> None:
+        """One ``RETRAIN_TASK`` a drift episode: latched until the
+        recommendation leaves ``retrain``; a failed send re-arms."""
+        with self._retrain_lock:
+            if recommendation != "retrain":
+                self._retrain_latched = False  # episode over; re-arm
+                return
+            if self._retrain_latched or self._retrain_sender is None:
+                return
+            if not config.watchtower_retrain_trigger():
+                return
+            self._retrain_latched = True  # before the send: a racing
+            # status() must not enqueue twice while the broker call runs
+            try:
+                self._retrain_sender(
+                    f"drift detected: "
+                    f"feature_psi_max={d['feature_psi_max']:.4f} "
+                    f"score_psi={d['score_psi']:.4f} ece={d['ece']:.4f}"
+                )
+                metrics.watchtower_retrain_triggers.inc()
+                log.warning("watchtower fired retrain trigger task %s", RETRAIN_TASK)
+            except Exception as e:
+                self._retrain_latched = False  # retry on the next evaluation
+                log.error("retrain trigger enqueue failed: %s", e)
 
     def close(self) -> None:
         """Stop the ingest thread; still-queued batches are discarded."""
@@ -210,12 +331,14 @@ def resolve_profile_dir(model_source: str) -> str | None:
     return None
 
 
-def build_watchtower(model, model_source: str, device=None):
+def build_watchtower(model, model_source: str, device=None, retrain_sender=None):
     """Serving-side factory: the watchtower over the ``monitor_profile.npz``
     beside the served model (:func:`resolve_profile_dir`), or None when
     ``WATCHTOWER_ENABLED=0``, when there is no profile (logged at WARNING
     under ``WATCHTOWER_ENABLED=1``, else at INFO) or when it does not match
-    the model's features."""
+    the model's features. The shadow challenger is the registry's
+    ``@shadow`` model (``service.loading.load_shadow_model``), on the same
+    device, when its features match the champion's."""
     enabled = config.watchtower_enabled()
     if enabled is False:
         return None
@@ -234,7 +357,29 @@ def build_watchtower(model, model_source: str, device=None):
             "serving unmonitored (stale profile beside a newer model?)"
         )
         return None
-    wt = Watchtower(profile, device=device if device is not None else model.device)
-    log.info("watchtower active: baseline over %d rows", profile.n_rows)
+    device = device if device is not None else model.device
+    challenger = challenger_source = None
+    try:
+        from fraud_detection_tpu_torch.service.loading import load_shadow_model
+
+        resolved = load_shadow_model(device=device)
+        if resolved is not None:
+            challenger, challenger_source = resolved
+            if list(challenger.feature_names) != list(model.feature_names):
+                # caught once here; in the ingest loop it would fail on
+                # every sampled batch while the stats never accumulate
+                log.warning(
+                    "shadow challenger %s feature schema does not match the "
+                    "champion — monitoring without it", challenger_source,
+                )
+                challenger = challenger_source = None
+    except Exception as e:
+        log.warning("shadow model load failed (%s); monitoring without one", e)
+    wt = Watchtower(
+        profile, challenger=challenger, challenger_source=challenger_source,
+        retrain_sender=retrain_sender, device=device,
+    )
+    log.info("watchtower active: baseline over %d rows, challenger=%s",
+             profile.n_rows, challenger_source or "none")
     return wt
 

@@ -306,13 +306,10 @@ def _leaf_paths(depth: int) -> tuple[np.ndarray, np.ndarray]:
     return nodes, bits
 
 
-def _predict_logits_dense(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
-    """Margin prediction as dense tensor ops: every internal node's compare
-    for every (row, tree) at once, each leaf selected by AND-ing its path's
-    decisions, then ``Σ leaf_value·indicator``. About 3·depth + 6 kernel
-    launches whatever the forest's size — the card's path, where the
-    walk's ~4·trees·depth small launches would cost milliseconds of host
-    time per batch."""
+def _leaf_contrib(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
+    """(n, trees, leaves): each tree's leaf value where the row lands, 0 at
+    every other leaf. Every internal node's compare for every (row, tree)
+    at once, each leaf selected by AND-ing its path's decisions."""
     binned = bin_features(x, model.bin_edges)
     n = binned.shape[0]
     n_trees, n_internal = model.split_feature.shape
@@ -327,8 +324,21 @@ def _predict_logits_dense(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
         sel = go_right[:, :, torch.as_tensor(nodes[k], device=dev).long()] == \
             torch.as_tensor(bits[k], device=dev)[None, None, :]
         ind = sel if ind is None else ind & sel
-    contrib = torch.where(ind, model.leaf_value[None], 0.0)
-    return model.base_logit + contrib.sum(dim=(1, 2))
+    return torch.where(ind, model.leaf_value[None], 0.0)
+
+
+def _predict_logits_dense(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
+    """Margin prediction as dense tensor ops: :func:`_leaf_contrib`, then
+    ``Σ leaf_value·indicator``. About 3·depth + 6 kernel launches, plus
+    ⌈log2 trees⌉ + 1 for the tree sum's halvings, whatever the forest's
+    size — the card's path, where the walk's ~4·trees·depth small launches
+    would cost milliseconds of host time per batch."""
+    contrib = _leaf_contrib(model, x)
+    # one leaf a tree is non-zero, so the sum over leaves is exact; the sum
+    # over trees halves, so a row's margin does not depend on its batch (one
+    # reduction kernel over (trees, leaves) sums in an order that follows
+    # the batch's shape)
+    return model.base_logit + kernels.halving_sum(contrib.sum(dim=2))
 
 
 def _predict_logits_walk(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
@@ -360,5 +370,6 @@ def gbt_predict_logits(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
 
 
 def gbt_predict_proba(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
-    """P(class = 1), matching ``XGBClassifier.predict_proba[:, 1]``."""
-    return torch.sigmoid(gbt_predict_logits(model, x))
+    """P(class = 1), matching ``XGBClassifier.predict_proba[:, 1]``; the
+    same row gets the same bits in any batch (``kernels.row_sigmoid``)."""
+    return kernels.row_sigmoid(gbt_predict_logits(model, x))

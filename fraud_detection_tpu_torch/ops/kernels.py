@@ -264,11 +264,42 @@ def _lib(name: str) -> ctypes.CDLL:
 FUSED_SCORE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def halving_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis of a 2-D tensor by halving it (zero-padded to a
+    power of two) with elementwise adds: a row's sum takes the same order
+    whatever the other rows, unlike a matmul or a reduction kernel, whose
+    summation order follows the batch's shape."""
+    d = p.shape[1]
+    width = 1 << max(0, (d - 1).bit_length())
+    if width != d:
+        p = torch.nn.functional.pad(p, (0, width - d))
+    while p.shape[1] > 1:
+        half = p.shape[1] // 2
+        p = p[:, :half] + p[:, half:]
+    return p[:, 0]
+
+
+def row_sigmoid(z: torch.Tensor) -> torch.Tensor:
+    """``sigmoid`` of f32 logits whose bits do not depend on a row's
+    position in the batch. The card's elementwise kernel is the same for
+    every element; the CPU's vectorized loop leaves a scalar tail whose
+    ``exp`` rounds differently, so there the sigmoid runs in float64 and
+    rounds once to f32."""
+    if z.device.type == "cpu":
+        return torch.sigmoid(z.double()).float()
+    return torch.sigmoid(z)
+
+
 def fused_score_reference(
     coef: torch.Tensor, intercept: torch.Tensor, x: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``sigmoid(x.float() @ coef + b)``.
-    The CPU path and the tests use it; the card never does."""
+    """Plain PyTorch version of the kernel: ``sigmoid(x.float() · coef + b)``.
+    On the CPU, where it serves, the products are summed by
+    :func:`halving_sum` and the sigmoid taken by :func:`row_sigmoid`, so the
+    same row scores the same bits in any batch. On the card, where only the
+    checks call it, it is the one matmul ``sigmoid(x @ coef + b)``."""
+    if x.device.type == "cpu":
+        return row_sigmoid(halving_sum(x.float() * coef) + intercept)
     return torch.sigmoid(x.float() @ coef + intercept)
 
 

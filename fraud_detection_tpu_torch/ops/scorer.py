@@ -270,6 +270,11 @@ class _BucketedScorer:
         return x
 
     @property
+    def staging_features(self) -> int:
+        """The width of a staged row (the ingest lanes' frame width)."""
+        return self.n_features
+
+    @property
     def staging(self) -> StagingPool:
         """Lazy per-scorer staging pool (pinned host buffers on a card)."""
         pool = getattr(self, "_staging", None)
@@ -295,15 +300,27 @@ class _BucketedScorer:
             slot.io.copy_(torch.from_numpy(slot.f32))
         return slot.io
 
-    def stage_rows(self, slot: _StagingSlot, rows: list):
-        """Stack ``rows`` into the slot's preallocated buffers (no fresh
-        batch array; padding rows are zero with valid 0) and return the
-        encoded ``io`` buffer the h2d copy ships."""
-        n = len(rows)
-        np.stack(rows, out=slot.f32[:n])
-        slot.f32[n:] = 0.0
-        slot.valid[:n] = 1.0
-        slot.valid[n:] = 0.0
+    def stage_items(self, slot: _StagingSlot, items: list):
+        """Stage a micro-batch of queue items — single rows (1-D
+        ``item[0]``) and ingest blocks (2-D ``item[0]``, a view into a
+        pooled ingest slot) — contiguously into the flush slot: one bulk
+        ``np.copyto`` a block, one row assignment a single row, no fresh
+        array; padding rows are zero with valid 0. Returns the encoded
+        ``io`` buffer the h2d copy ships."""
+        off = 0
+        f32 = slot.f32
+        for item in items:
+            rows = item[0]
+            if rows.ndim == 2:
+                k = rows.shape[0]
+                np.copyto(f32[off:off + k], rows, casting="unsafe")
+                off += k
+            else:
+                f32[off] = rows
+                off += 1
+        f32[off:] = 0.0
+        slot.valid[:off] = 1.0
+        slot.valid[off:] = 0.0
         return self._encode_slot(slot)
 
     def to_device(self, host) -> torch.Tensor:

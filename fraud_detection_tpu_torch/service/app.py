@@ -1,17 +1,31 @@
 """The fraud-scoring API on the port.
 
-- ``GET /status`` — liveness
+- ``GET /`` — the dashboard (``frontend/index.html``) when present, else a
+  JSON banner
 - ``GET /health`` — readiness with per-dependency status, 503 when degraded
 - ``POST /predict`` — validate → score through the micro-batcher (the fused
   flush: the family's score body + drift fold + optional reason codes) →
   persist a PENDING row, enqueue ``xai_tasks.compute_shap`` for the SHAP
   worker (``service/worker.py``) → respond with the JAX app's response
   fields
+- ``POST /ingest/batch`` — a block of rows in one request: the binary
+  lane's frame (``application/x-fraud-frame``) or a msgpack body, admitted
+  as one item of the micro-batcher; 429 + ``Retry-After`` at the admission
+  bound
 - ``GET /explain/{transaction_id}`` — the worker's stored explanation
 - ``GET /monitor/status`` — watchtower drift state and recommendation
 - ``POST /monitor/feedback`` — delayed fraud labels into the calibration
   window
+- ``GET /debug/flightrecorder`` — the last scored requests' stage
+  timelines (``SPYGLASS_ENABLED``, ``FLIGHTRECORDER_CAPACITY``)
 - ``GET /metrics`` — Prometheus exposition
+
+With ``INGEST_PORT`` > 0 the binary ingest lane (``service/binlane.py``)
+listens beside the HTTP server and feeds the same micro-batcher, so its
+scores are bitwise ``/predict``'s for the same f32 rows. With a challenger
+registered at ``@shadow`` the watchtower shadow-scores a sample of batches;
+with ``WATCHTOWER_RETRAIN_TRIGGER=1`` a drift episode enqueues one
+``watchtower.trigger_retrain`` task on the broker.
 
 The model directory holds either family (``load_any_model``): the logistic
 flagship (``fused_score`` kernel) or a GBT forest (TreeSHAP reason codes
@@ -27,18 +41,27 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 import uuid
 
 import numpy as np
 
+from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.device import resolve_device
-from fraud_detection_tpu_torch.monitor.watchtower import build_watchtower
-from fraud_detection_tpu_torch.service import metrics
+from fraud_detection_tpu_torch.monitor.watchtower import RETRAIN_TASK, build_watchtower
+from fraud_detection_tpu_torch.service import binlane, metrics
 from fraud_detection_tpu_torch.service.db import ResultsDB
 from fraud_detection_tpu_torch.service.http import App, HTTPError, Request, Response
-from fraud_detection_tpu_torch.service.loading import load_production_model
-from fraud_detection_tpu_torch.service.microbatch import AdmissionFull, MicroBatcher
+from fraud_detection_tpu_torch.service.loading import (
+    load_production_model,
+    resolve_source_version,
+)
+from fraud_detection_tpu_torch.service.microbatch import (
+    AdmissionFull,
+    IngestBlock,
+    MicroBatcher,
+)
 from fraud_detection_tpu_torch.service.schemas import (
     ExplanationFailedOut,
     ExplanationOut,
@@ -49,8 +72,50 @@ from fraud_detection_tpu_torch.service.schemas import (
     parse_transaction,
 )
 from fraud_detection_tpu_torch.service.taskq import TASK_NAME, Broker
+from fraud_detection_tpu_torch.telemetry import FlightRecorder, RequestTimeline
 
 log = logging.getLogger("fraud_detection_tpu_torch.api")
+
+_OBSERVE_PARSE = metrics.request_stage_duration.labels("parse").observe
+_frontend_cache: dict[str | None, bytes] = {}
+
+
+def _admission_shed(e: AdmissionFull, lane_shed) -> Response:
+    """A full admission queue answers 429 + Retry-After."""
+    lane_shed.inc()
+    return Response(
+        {"detail": str(e)},
+        status_code=429,
+        headers={"retry-after": str(max(1, round(e.retry_after_s)))},
+    )
+
+
+def _frontend_index() -> bytes | None:
+    """``frontend/index.html``: under ``FRONTEND_DIR`` when it is set (a
+    missing page there is logged, not replaced), else beside the package,
+    else under the working directory. Cached once found."""
+    explicit = os.environ.get("FRONTEND_DIR")
+    cached = _frontend_cache.get(explicit)
+    if cached is not None:
+        return cached
+    if explicit is not None:
+        dirs = [explicit]
+    else:
+        dirs = [os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
+                             "frontend"), "frontend"]
+    page = None
+    for d in dirs:
+        path = os.path.join(d, "index.html")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                page = f.read()
+            break
+    else:
+        if explicit is not None:
+            log.warning("FRONTEND_DIR=%s has no index.html — UI disabled", explicit)
+    if page is not None:  # a missing page stays re-checkable
+        _frontend_cache[explicit] = page
+    return page
 
 
 def create_app(
@@ -71,6 +136,9 @@ def create_app(
         "db": None,
         "broker": None,
         "watchtower": None,
+        "flightrecorder": None,
+        "binlane": None,
+        "ingest_scale": None,
         "started_at": None,
     }
     app.state = state  # exposed for tests/embedding
@@ -92,20 +160,47 @@ def create_app(
 
     async def startup():
         state["started_at"] = time.time()
+        cap = config.flightrecorder_capacity()
+        if cap > 0 and config.spyglass_enabled():
+            state["flightrecorder"] = FlightRecorder(cap)
         state["db"] = ResultsDB(database_url)
         state["broker"] = Broker(broker_url)
         try:
             model, source = load_production_model(device=dev)
             state["model"], state["model_source"] = model, source
+            # the int8-layout frames' dequant scale (the HELLO's on the lane)
+            state["ingest_scale"] = binlane.ingest_dequant_scale(model)
+
+            def _retrain_sender(reason: str) -> None:
+                state["broker"].send_task(RETRAIN_TASK, [reason])
+
             try:
                 # monitoring must never take serving down
-                state["watchtower"] = build_watchtower(model, source)
+                state["watchtower"] = build_watchtower(
+                    model, source, retrain_sender=_retrain_sender
+                )
             except Exception as e:
                 state["watchtower"] = None
                 log.warning("watchtower startup failed (%s); unmonitored", e)
-            batcher = MicroBatcher(model.scorer, watchtower=state["watchtower"])
+            batcher = MicroBatcher(
+                model.scorer, watchtower=state["watchtower"],
+                recorder=state["flightrecorder"], model_source=source,
+                model_version=resolve_source_version(source),
+            )
             await batcher.start()  # warms the bucket ladder; can raise
             state["batcher"] = batcher
+            if config.ingest_port() > 0:
+                try:
+                    lane = binlane.BinaryIngestServer(
+                        batcher, scorer=model.scorer, model=model
+                    )
+                    lane.start(asyncio.get_running_loop())
+                    state["binlane"] = lane
+                except Exception as e:
+                    # the HTTP lanes keep serving: the binary lane is the
+                    # fast path, never the availability story
+                    state["binlane"] = None
+                    log.error("binary ingest lane failed to start: %s", e)
             metrics.model_loaded.set(1)
         except RuntimeError as e:
             metrics.model_loaded.set(0)
@@ -116,6 +211,9 @@ def create_app(
             log.error("model load/warmup failed at startup: %s", e)
 
     async def shutdown():
+        if state["binlane"]:
+            await asyncio.to_thread(state["binlane"].stop)
+            state["binlane"] = None
         if state["batcher"]:
             await state["batcher"].stop()
         if state["watchtower"]:
@@ -127,6 +225,15 @@ def create_app(
 
     app.on_startup.append(startup)
     app.on_shutdown.append(shutdown)
+
+    @app.get("/")
+    async def index(req: Request) -> Response:
+        """The dashboard page when ``frontend/index.html`` is present, else
+        a JSON banner."""
+        page = _frontend_index()
+        if page is not None:
+            return Response(page, media_type="text/html; charset=utf-8")
+        return Response({"msg": "fraud-detection-tpu API is live", "ui": "unavailable"})
 
     @app.get("/status")
     async def status(req: Request) -> Response:
@@ -164,6 +271,7 @@ def create_app(
         batcher = state["batcher"]
         if model is None or batcher is None:
             raise HTTPError(503, "model not loaded")
+        t_parse = time.perf_counter()
         try:
             payload = req.json()
             features = parse_transaction(payload)
@@ -171,19 +279,21 @@ def create_app(
             parse_entity(payload)
         except ValueError as e:
             raise HTTPError(422, str(e)) from e
+        _OBSERVE_PARSE(time.perf_counter() - t_parse)
+        metrics.ingest_requests.labels("json").inc()
+        timeline = (
+            RequestTimeline(correlation_id=corr_id) if batcher.telemetry else None
+        )
         reasons = None
         with metrics.timed(metrics.inference_duration):
             try:
                 if batcher.explain:
-                    score, reasons = await batcher.score_ex(row)
+                    score, reasons = await batcher.score_ex(row, timeline)
                 else:
-                    score = await batcher.score(row)
+                    score = await batcher.score(row, timeline)
             except AdmissionFull as e:
-                return Response(
-                    {"detail": str(e)},
-                    status_code=429,
-                    headers={"retry-after": str(max(1, round(e.retry_after_s)))},
-                )
+                return _admission_shed(e, metrics.ingest_shed.labels("json"))
+        metrics.ingest_rows.labels("json").inc()
         reason_codes = None
         serve_topk = None
         if reasons is not None:
@@ -233,6 +343,88 @@ def create_app(
                 reason_codes=reason_codes,
             ).to_dict()
         )
+
+    @app.post("/ingest/batch")
+    async def ingest_batch(req: Request) -> Response:
+        """A block of rows in one POST, admitted as ONE micro-batcher item
+        (one future, not one a row), as the binary lane admits a frame:
+
+        - ``application/x-fraud-frame``: the binary lane's frame payload;
+          the response is its response payload (scores f32, optional
+          reason codes);
+        - ``application/msgpack``: ``{"rows": [[...]], "entity_fps":
+          [...], "timestamps": [...]}``; the response is msgpack (415 where
+          msgpack is not installed).
+
+        A full admission queue answers 429 + Retry-After; scores are
+        bitwise ``/predict``'s for the same f32 rows."""
+        model = state["model"]
+        batcher = state["batcher"]
+        if model is None or batcher is None:
+            raise HTTPError(503, "model not loaded")
+        scorer = model.scorer
+        max_rows = min(
+            config.ingest_max_rows() or config.scorer_max_batch(),
+            binlane.batcher_max_batch(batcher),
+        )
+        ctype = req.headers.get("content-type", "").split(";")[0].strip().lower()
+        t_parse = time.perf_counter()
+        if ctype == "application/x-fraud-frame":
+            lane = "binary"
+            try:
+                slot, n, entity, _trace = binlane.decode_frame_body(
+                    scorer, req.body, max_rows, dequant=state["ingest_scale"]
+                )
+            except binlane.FrameError as e:
+                metrics.ingest_frame_errors.labels(e.kind).inc()
+                raise HTTPError(422, str(e)) from e
+        elif ctype == "application/msgpack":
+            lane = "msgpack"
+            try:
+                import msgpack
+            except ImportError as e:
+                raise HTTPError(415, "msgpack not available") from e
+            try:
+                payload = msgpack.unpackb(req.body)
+                slot, n, entity = binlane.block_from_arrays(
+                    scorer, np.asarray(payload["rows"], np.float32),
+                    payload.get("entity_fps"), payload.get("timestamps"), max_rows,
+                )
+            except binlane.FrameError as e:
+                metrics.ingest_frame_errors.labels(e.kind).inc()
+                raise HTTPError(422, str(e)) from e
+            except Exception as e:
+                # unpack errors, ragged rows, non-numeric values: all client
+                # input errors
+                raise HTTPError(422, f"bad msgpack batch: {e}") from e
+        else:
+            raise HTTPError(
+                415, "use application/x-fraud-frame or application/msgpack"
+            )
+        _OBSERVE_PARSE(time.perf_counter() - t_parse)
+        metrics.ingest_requests.labels(lane).inc()
+        try:
+            timeline = (
+                RequestTimeline(correlation_id=req.state["correlation_id"])
+                if batcher.telemetry else None
+            )
+            try:
+                ek = await batcher.score_block(IngestBlock(slot, n, entity), timeline)
+            except AdmissionFull as e:
+                return _admission_shed(e, metrics.ingest_shed.labels(lane))
+            metrics.ingest_rows.labels(lane).inc(n)
+            if lane == "binary":
+                return Response(
+                    binlane.encode_response_body(slot, n, ek),
+                    media_type="application/x-fraud-frame",
+                )
+            out = {"n": n, "scores": slot.scores[:n].tolist()}
+            if ek:
+                out["reason_idx"] = slot.ei[:n, :ek].tolist()
+                out["reason_val"] = slot.ev[:n, :ek].tolist()
+            return Response(msgpack.packb(out), media_type="application/msgpack")
+        finally:
+            scorer.staging.release(slot)
 
     @app.get("/explain/{transaction_id}")
     async def explain(req: Request) -> Response:
@@ -356,6 +548,24 @@ def create_app(
             {"queued": queued, "rows": int(rows.shape[0]), "persisted": False},
             status_code=202 if queued else 429,
         )
+
+    @app.get("/debug/flightrecorder")
+    async def flightrecorder(req: Request) -> Response:
+        """The flight recorder's dump: the last scored requests with their
+        six stage timelines, newest first."""
+        rec = state["flightrecorder"]
+        if rec is None:
+            return Response(
+                {"enabled": False, "records": [],
+                 "hint": "FLIGHTRECORDER_CAPACITY=0 or SPYGLASS_ENABLED=0"}
+            )
+        return Response({
+            "enabled": True,
+            "capacity": rec.capacity,
+            "total_recorded": rec.total_recorded,
+            "shards": 1,
+            "records": rec.dump(),
+        })
 
     @app.get("/metrics")
     async def prom(req: Request) -> Response:

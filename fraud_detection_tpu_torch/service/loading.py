@@ -11,6 +11,9 @@
 nothing is loadable, so the API reports degraded health instead of serving
 garbage. The source strings are the JAX package's:
 ``registry:models:/fraud@prod``, ``native:<dir>``, ``joblib:<path>``.
+
+:func:`load_shadow_model` resolves the watchtower's challenger from the
+registry alone.
 """
 
 from __future__ import annotations
@@ -85,3 +88,19 @@ def resolve_source_version(source: str) -> int | None:
     except (OSError, ValueError) as e:
         log.debug("source version resolution failed for %s: %s", source, e)
         return None
+
+
+def load_shadow_model(device=None):
+    """The shadow challenger ``models:/{MLFLOW_MODEL_NAME}@{MLFLOW_SHADOW_STAGE}``
+    as ``(model, source)`` on ``device``, or None when the alias does not
+    exist. Registry only, no local fallback: a challenger is an explicit
+    registration, never whatever sits on disk."""
+    uri = f"models:/{config.model_name()}@{config.shadow_stage()}"
+    try:
+        art = TrackingClient().registry.resolve(uri)
+    except (FileNotFoundError, ValueError) as e:
+        log.debug("no shadow challenger at %s (%s)", uri, e)
+        return None
+    model = load_any_model(art, device=device)
+    log.info("loaded shadow challenger from %s (%s)", uri, art)
+    return model, f"registry:{uri}"

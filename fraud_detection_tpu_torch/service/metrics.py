@@ -3,10 +3,11 @@
 The series the port's slices touch, under the JAX package's names, labels
 and buckets (dashboards and alert rules read them): the API counters and
 latency histograms, the micro-batcher's flush-path counters and fusion
-gauges, the watchtower's drift gauges, and the SHAP worker's and task
-queue's series. Counters export ``<name>_total``;
-histograms export ``_bucket``/``_sum``/``_count``. No ``prometheus_client``:
-the exposition format (text 0.0.4) is written here.
+gauges, the watchtower's drift and shadow series, the ingest lanes', the
+request stages', and the SHAP worker's and task queue's series. Counters
+export ``<name>_total``; histograms export ``_bucket``/``_sum``/``_count``.
+No ``prometheus_client``: the exposition format (text 0.0.4) is written
+here.
 """
 
 from __future__ import annotations
@@ -294,6 +295,61 @@ watchtower_batches_observed = Counter(
 watchtower_batches_dropped = Counter(
     "watchtower_batches_dropped",
     "Scored batches dropped by the watchtower backlog bound",
+)
+
+watchtower_shadow_disagreement = Gauge(
+    "watchtower_shadow_disagreement",
+    "Champion/challenger decision disagreement rate in the shadow window",
+)
+watchtower_shadow_score_psi = Gauge(
+    "watchtower_shadow_score_psi",
+    "PSI of the challenger score distribution vs the training baseline",
+)
+watchtower_shadow_reason_divergence = Gauge(
+    "watchtower_shadow_reason_divergence",
+    "Mean (1 - Jaccard) between the champion's serve-time top-k reason-code "
+    "indices and the challenger's top-k on sampled batches",
+)
+watchtower_shadow_batches = Counter(
+    "watchtower_shadow_batches", "Batches re-scored by the shadow challenger"
+)
+watchtower_retrain_triggers = Counter(
+    "watchtower_retrain_triggers", "Retrain-trigger tasks enqueued by watchtower"
+)
+
+# the ingest lanes: json (/predict), msgpack and binary (/ingest/batch and
+# the socket lane)
+ingest_requests = Counter(
+    "ingest_requests",
+    "Scoring requests accepted per ingest lane (one /predict call or one "
+    "batch frame each)", ["lane"],
+)
+ingest_rows = Counter(
+    "ingest_rows", "Rows admitted to the scorer per ingest lane", ["lane"]
+)
+ingest_shed = Counter(
+    "ingest_shed",
+    "Requests shed at the admission bound (HTTP 429 + Retry-After, or a "
+    "binary busy frame)", ["lane"],
+)
+ingest_frame_errors = Counter(
+    "ingest_frame_errors",
+    "Malformed binary ingest frames rejected (bad magic/layout, size "
+    "overflow, non-finite features) or connections dropped mid-frame",
+    ["kind"],
+)
+
+# spyglass: a scored request's six stages inside the micro-batcher, and the
+# lanes' parse and admit stages
+request_stage_duration = Histogram(
+    "request_stage_duration_seconds",
+    "Per-stage latency of a scored request inside the micro-batcher "
+    "(enqueue/flush_wait/pad_bucket/device_compute/d2h/respond)",
+    ["stage"],
+    buckets=(
+        5e-05, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+        0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+    ),
 )
 
 

@@ -7,7 +7,18 @@ event loop keeps accepting requests) and resolves each request's future.
 With ``SCORER_ADAPTIVE_WAIT`` the wait scales with an arrival-rate EWMA
 (:meth:`MicroBatcher._effective_wait`): a lone request flushes at once.
 
-A flush stages the rows into a preallocated per-bucket staging slot
+A queue item is either a single row (one ``/predict`` request) or an
+ingest block (:class:`IngestBlock`): a frame's rows, parsed straight into
+a pooled staging slot by the binary lane or ``/ingest/batch``, admitted as
+ONE item with ONE future. The collector counts ROWS, not items: a block
+fills the forming batch like that many requests, weighs that much in the
+arrival EWMA, and a block that would overflow ``max_batch`` is carried to
+the next batch (``max_batch`` stays a hard bound on the bucket).
+Completion fans out by each item's row offset in the flush; a block's
+scores and reason codes are copied back into the slot its frame was parsed
+into.
+
+A flush stages the items into a preallocated per-bucket staging slot
 (``ops/scorer.StagingPool``; page-locked on a card, so the h2d copy runs
 asynchronously) and encodes them on the scorer's h2d wire (f32, bf16 or
 int8 codes), then either:
@@ -21,18 +32,25 @@ int8 codes), then either:
 - **split**: the score alone; the watchtower's ingest thread folds the
   window afterwards.
 
-Either way the flush's one host sync is the device-to-host copy of its
-outputs. Up to ``SCORER_MAX_INFLIGHT`` flushes run at once, so the fetch
-of flush N overlaps the staging of flush N+1. Admission is bounded
+The flush's host sync is the device-to-host copy of its outputs. With
+spyglass on (``SPYGLASS_ENABLED``, the default) every item may carry a
+``RequestTimeline``: the flush stamps its six stages, ``device_compute``
+ending at ONE CUDA event a flush, recorded after the flush's last launch
+and synchronised (:func:`_fence`), then exports each stage to
+``request_stage_duration_seconds`` and the flush to the flight recorder.
+With spyglass off the flush records no event and stamps nothing. Up to
+``SCORER_MAX_INFLIGHT`` flushes run at once, so the fetch of flush N
+overlaps the staging of flush N+1. Admission is bounded
 (``SCORER_ADMIT_MAX_ROWS``): at the bound :class:`AdmissionFull` is raised
-and the HTTP edge sheds with 429 + ``Retry-After``
-(``SCORER_ADMIT_RETRY_AFTER_S``).
+and the edges shed — HTTP 429 + ``Retry-After``
+(``SCORER_ADMIT_RETRY_AFTER_S``), a binary busy frame.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 
 import numpy as np
 import torch
@@ -46,16 +64,25 @@ from fraud_detection_tpu_torch.ops.scorer import (
     decode_scores_into,
 )
 from fraud_detection_tpu_torch.service import metrics
+from fraud_detection_tpu_torch.telemetry.timeline import STAGES, FlushInfo
 
 log = logging.getLogger("fraud_detection_tpu_torch.microbatch")
 
 #: EWMA smoothing of the adaptive deadline's arrival rate (rows/s)
 _RATE_ALPHA = 0.3
 
+# bound stage observers, resolved once (a labels() lookup a flush adds up)
+_OBSERVE_STAGE = {
+    s: metrics.request_stage_duration.labels(s).observe for s in STAGES
+}
+#: admission check + queue put, stamped at submission
+_OBSERVE_ADMIT = metrics.request_stage_duration.labels("admit").observe
+
 
 class AdmissionFull(RuntimeError):
     """The bounded admission queue is at capacity: the caller sheds this
-    request with a retry hint (HTTP 429 + ``Retry-After``)."""
+    request with a retry hint (HTTP 429 + ``Retry-After``, binary busy
+    frame)."""
 
     def __init__(self, retry_after_s: float, queued_rows: int):
         self.retry_after_s = retry_after_s
@@ -66,14 +93,49 @@ class AdmissionFull(RuntimeError):
         )
 
 
+class IngestBlock:
+    """One admitted ingest frame: ``slot.f32[:n]`` holds the staged rows
+    (parsed straight off the wire into the pooled buffer); results decode
+    back into the same slot's ``scores``/``ei``/``ev`` buffers. ``entity``
+    is the ledger's column triple, None while the served family is
+    stateless (the port has no ledger yet, ROADMAP item 9)."""
+
+    __slots__ = ("slot", "n", "entity")
+
+    def __init__(self, slot, n: int, entity=None):
+        self.slot = slot
+        self.n = n
+        self.entity = entity
+
+
+def _item_rows(item) -> int:
+    """Rows one queue item contributes: blocks carry a 2-D view."""
+    rows = item[0]
+    return rows.shape[0] if rows.ndim == 2 else 1
+
+
+def _batch_rows(batch) -> int:
+    return sum(map(_item_rows, batch))
+
+
 def fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
-    """The flush's one host sync: device-to-host copies of its outputs,
+    """The flush's host sync: device-to-host copies of its outputs,
     enqueued together, then one wait on the stream."""
     host = [t.to("cpu", non_blocking=True) for t in tensors]
     dev = tensors[0].device
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
     return [h.numpy() for h in host]
+
+
+def _fence(device: torch.device) -> None:
+    """The flush's one telemetry fence: a CUDA event recorded after the
+    flush's last launch, then waited on — the end of ``device_compute``.
+    Nothing to wait for on the CPU, whose launches run synchronously."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        ev.synchronize()
 
 
 class MicroBatcher:
@@ -84,16 +146,29 @@ class MicroBatcher:
         max_wait_ms: float | None = None,
         max_inflight: int | None = None,
         watchtower=None,
+        recorder=None,
+        telemetry: bool | None = None,
         fused: bool | None = None,
         return_wire: str | None = None,
         explain: bool | None = None,
         explain_k: int | None = None,
         admit_max_rows: int | None = None,
+        model_source: str | None = None,
+        model_version: int | None = None,
     ):
         self.scorer = scorer
         # on the fused path the drift window folds inside the flush; on the
         # split path each scored batch goes to watchtower.observe()
         self.watchtower = watchtower
+        # the flight recorder (telemetry.FlightRecorder) completed request
+        # timelines land in; /debug/flightrecorder reads it
+        self.recorder = recorder
+        self.telemetry = (
+            telemetry if telemetry is not None else config.spyglass_enabled()
+        )
+        # what the flight recorder's records name as the served model
+        self.model_source = model_source
+        self.model_version = model_version
         self.fused = fused if fused is not None else config.scorer_fused_flush()
         self.return_wire = (
             return_wire if return_wire is not None else config.scorer_return_wire()
@@ -138,6 +213,7 @@ class MicroBatcher:
         )
         self.admit_retry_after = config.scorer_admit_retry_after_s()
         self._queued_rows = 0
+        self._carry: tuple | None = None  # a block deferred to the next batch
         self._rate = 0.0  # arrival rows/s EWMA, the adaptive deadline's input
         self._last_cycle: float | None = None
         self._c_flush = {
@@ -203,6 +279,10 @@ class MicroBatcher:
         if self._flushes:
             await asyncio.gather(*self._flushes, return_exceptions=True)
         # fail anything still enqueued so no request awaits forever
+        if self._carry is not None:
+            item, self._carry = self._carry, None
+            if not item[1].done():
+                item[1].set_exception(RuntimeError("scorer shutting down"))
         while not self._queue.empty():
             fut = self._queue.get_nowait()[1]
             if not fut.done():
@@ -215,26 +295,61 @@ class MicroBatcher:
             raise AdmissionFull(self.admit_retry_after, self._queued_rows)
         self._queued_rows += n
 
-    async def _submit(self, row: np.ndarray):
+    async def _submit(self, row: np.ndarray, timeline=None):
+        t0 = time.perf_counter() if timeline is not None else 0.0
         self._admit(1)
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        await self._queue.put((row, fut))
+        await self._queue.put((row, fut, timeline, None))
+        if timeline is not None:
+            _OBSERVE_ADMIT(time.perf_counter() - t0)
         return await fut
 
-    async def score(self, row: np.ndarray) -> float:
-        """Submit one feature row; returns P(fraud)."""
-        res = await self._submit(row)
+    async def score_block(self, block: IngestBlock, timeline=None) -> int:
+        """Admit one pre-staged ingest block: the frame's rows ride ONE
+        queue item with ONE future. On return the block slot's buffers hold
+        the results — ``slot.scores[:n]`` the f32 probabilities and, when
+        the explain leg rode the flush, ``slot.ei/ev[:n]`` the top-k reason
+        codes. Returns the explain ``k`` (0: no reason codes)."""
+        n = block.n
+        if n < 1:
+            raise ValueError("empty ingest block")
+        if n > self.max_batch:
+            raise ValueError(
+                f"ingest block of {n} rows exceeds max_batch="
+                f"{self.max_batch} — split the frame (INGEST_MAX_ROWS)"
+            )
+        t0 = time.perf_counter() if timeline is not None else 0.0
+        self._admit(n)
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        await self._queue.put(
+            (block.slot.f32[:n], fut, timeline, block.entity, block.slot)
+        )
+        if timeline is not None:
+            _OBSERVE_ADMIT(time.perf_counter() - t0)
+        return await fut
+
+    async def score(self, row: np.ndarray, timeline=None) -> float:
+        """Submit one feature row; returns P(fraud). ``timeline`` (a
+        ``RequestTimeline``) is stamped at every stage boundary."""
+        res = await self._submit(row, timeline)
         return res[0] if isinstance(res, tuple) else res
 
-    async def score_ex(self, row: np.ndarray):
+    async def score_ex(self, row: np.ndarray, timeline=None):
         """Submit one feature row; returns ``(P(fraud), reasons)`` where
         ``reasons`` is ``(indices, values)`` — the top-k reason codes from
         the same flush as the score — or None when the flush carried no
         explain leg."""
-        res = await self._submit(row)
+        res = await self._submit(row, timeline)
         if isinstance(res, tuple):
             return res[0], (res[1], res[2])
         return res, None
+
+    @staticmethod
+    def _stamp_collected(item: tuple) -> tuple:
+        tl = item[2]
+        if tl is not None:
+            tl.t_collected = time.perf_counter()
+        return item
 
     def _effective_wait(self) -> float:
         """This cycle's collection deadline: ``max_wait``, or with the
@@ -255,17 +370,23 @@ class MicroBatcher:
     async def _run(self) -> None:
         batch: list[tuple] = []
         loop = asyncio.get_running_loop()
+        stamp = self._stamp_collected
         try:
             while True:
-                item = await self._queue.get()
-                self._queued_rows -= 1
-                batch = [item]
+                if self._carry is not None:
+                    # a block carried over from the last batch opens this one
+                    item, self._carry = self._carry, None
+                else:
+                    item = await self._queue.get()
+                n_rows = _item_rows(item)
+                self._queued_rows -= n_rows
+                batch = [stamp(item)]
                 self._g_queue_depth.set(self._queue.qsize())
                 self._g_admission_rows.set(self._queued_rows)
-                # greedy drain first (get_nowait ~1 µs), then wait out the
-                # collection window for more rows
+                # collect ROWS (a block weighs its rows): greedy drain first
+                # (get_nowait ~1 µs), then wait out the collection window
                 deadline = loop.time() + self._effective_wait()
-                while len(batch) < self.max_batch:
+                while n_rows < self.max_batch:
                     try:
                         nxt = self._queue.get_nowait()
                     except asyncio.QueueEmpty:
@@ -276,15 +397,21 @@ class MicroBatcher:
                             nxt = await asyncio.wait_for(self._queue.get(), timeout)
                         except asyncio.TimeoutError:
                             break
-                    self._queued_rows -= 1
-                    batch.append(nxt)
+                    k = _item_rows(nxt)
+                    if n_rows + k > self.max_batch:
+                        # a block that would overflow the bucket ladder
+                        # closes this batch and opens the next
+                        self._carry = nxt
+                        break
+                    self._queued_rows -= k
+                    batch.append(stamp(nxt))
+                    n_rows += k
                 # bounded pipeline: the semaphore caps in-flight flushes and
                 # applies backpressure when the device can't keep up
                 await self._inflight.acquire()
                 task = asyncio.create_task(self._flush_one(batch))
                 self._flushes.add(task)
                 task.add_done_callback(self._flushes.discard)
-                n_collected = len(batch)
                 batch = []
                 # arrival EWMA over collection cycles, stamped after the
                 # semaphore: time blocked on in-flight flushes is the
@@ -293,9 +420,12 @@ class MicroBatcher:
                 if self._last_cycle is not None:
                     dt = now - self._last_cycle
                     if dt > 0:
-                        self._rate += _RATE_ALPHA * (n_collected / dt - self._rate)
+                        self._rate += _RATE_ALPHA * (n_rows / dt - self._rate)
                 self._last_cycle = now
         except asyncio.CancelledError:
+            if self._carry is not None:
+                batch.append(self._carry)
+                self._carry = None
             for item in batch:
                 if not item[1].done():
                     item[1].set_exception(RuntimeError("scorer shutting down"))
@@ -349,20 +479,26 @@ class MicroBatcher:
             return None
         return self.watchtower.drift, scorer.fused_spec()
 
-    def _flush_device(self, scorer, target, batch: list[tuple]):
-        """The flush's device work, in an executor thread. Stages the rows
-        into a pooled slot, runs the fused or split flush, and fetches the
-        outputs with one host sync. Returns ``(probs, explain_out,
-        device_calls, monitor_rows, monitor_scores, slot)``: ``probs`` and
-        ``explain_out`` are views into the slot's decode buffers, so the
-        caller releases the slot after resolving the waiters."""
-        n = len(batch)
+    def _flush_device(self, scorer, target, batch: list[tuple],
+                      telemetry: bool = False):
+        """The flush's device work, in an executor thread. Stages the
+        items into a pooled slot, runs the fused or split flush, and
+        fetches the outputs with one host sync. Returns ``(probs,
+        explain_out, device_calls, monitor_rows, monitor_scores,
+        monitor_reasons, stamps, slot)``: ``probs`` and ``explain_out`` are
+        views into the slot's decode buffers, so the caller releases the
+        slot after resolving the waiters; ``stamps`` is ``(t_flush_start,
+        t_padded, t_synced, t_fetched)`` with ``telemetry``, else None —
+        the one fence of the flush is recorded only then."""
+        n = _batch_rows(batch)
         self._note_family(scorer)
         staging = scorer.staging
         slot = staging.acquire(_bucket(n, scorer.min_bucket))
         explain_out = None
         try:
-            hx = scorer.stage_rows(slot, [item[0] for item in batch])
+            t_flush_start = time.perf_counter() if telemetry else 0.0
+            hx = scorer.stage_items(slot, batch)
+            t_padded = time.perf_counter() if telemetry else 0.0
             x_dev = scorer.to_device(hx)
             explain_k = 0
             if target is not None:
@@ -378,29 +514,43 @@ class MicroBatcher:
                     explain_k=explain_k,
                 )
                 device_calls = 1
-                need_rows = False  # the window folded inside the flush
+                # the window folded inside the flush: rows only for a shadow
+                need_rows = self.watchtower.wants_rows()
             else:
                 if self.explain:
                     self._note_explain_fused(False, scorer)
                 out = scorer._score_padded(x_dev)
                 device_calls = 2 if self.watchtower is not None else 1
                 need_rows = self.watchtower is not None
-            host = fetch(*(out if isinstance(out, tuple) else (out,)))
-            raw = host[0]
+            outs = out if isinstance(out, tuple) else (out,)
+            if telemetry:
+                _fence(outs[0].device)
+                t_synced = time.perf_counter()
+            host = fetch(*outs)
             # decode into the slot's scores buffer: the waiters read from it
-            probs = decode_scores_into(raw, slot.scores)[:n]
+            probs = decode_scores_into(host[0], slot.scores)[:n]
             if explain_k:
                 ei, ev = decode_explain_into(host[1], host[2], slot)
                 explain_out = (ei[:n], ev[:n])
+            stamps = (
+                (t_flush_start, t_padded, t_synced, time.perf_counter())
+                if telemetry else None
+            )
             monitor_rows = slot.f32[:n].copy() if need_rows else None
             monitor_scores = probs.copy() if need_rows else None
+            # the champion's reason-code indices, for the shadow's divergence
+            monitor_reasons = (
+                np.array(explain_out[0], np.int64)
+                if need_rows and explain_out is not None else None
+            )
         except BaseException:
             staging.release(slot)
             raise
-        return probs, explain_out, device_calls, monitor_rows, monitor_scores, slot
+        return (probs, explain_out, device_calls, monitor_rows, monitor_scores,
+                monitor_reasons, stamps, slot)
 
     async def _flush(self, batch: list[tuple]) -> None:
-        n_rows = len(batch)
+        n_rows = _batch_rows(batch)
         scorer = self.scorer
         fused = False
         try:
@@ -412,9 +562,9 @@ class MicroBatcher:
             loop = asyncio.get_running_loop()
             (
                 probs, explain_out, device_calls, monitor_rows,
-                monitor_scores, slot,
+                monitor_scores, monitor_reasons, stamps, slot,
             ) = await loop.run_in_executor(
-                None, self._flush_device, scorer, target, batch
+                None, self._flush_device, scorer, target, batch, self.telemetry
             )
             if explain_out is not None:
                 metrics.scorer_explained_rows.inc(n_rows)
@@ -428,26 +578,94 @@ class MicroBatcher:
                 if not item[1].done():
                     item[1].set_exception(e)
             return
+        fi = None
+        if stamps is not None:
+            fi = FlushInfo(
+                *stamps, batch_size=n_rows,
+                bucket=_bucket(n_rows, scorer.min_bucket),
+                model_version=self.model_version, model_source=self.model_source,
+                drift=metrics.watchtower_drift_detected.get() != 0,
+            )
+        # fan out by row offset: a single row resolves with its float (or
+        # (score, indices, values) with explain), a block by one bulk copy
+        # into its ingest slot's buffers. Everything is materialized here,
+        # before the flush slot recycles.
+        eidx = evals = None
+        explain_k = 0
+        if explain_out is not None:
+            eidx, evals = explain_out
+            explain_k = int(eidx.shape[1])
         try:
-            for i, item in enumerate(batch):
-                if explain_out is not None:
-                    res = (
-                        float(probs[i]),
-                        explain_out[0][i].tolist(),
-                        explain_out[1][i].tolist(),
-                    )
+            off = 0
+            for item in batch:
+                f = item[1]
+                rows = item[0]
+                if rows.ndim == 2:
+                    k = rows.shape[0]
+                    out = item[4]  # the block's pooled ingest slot
+                    np.copyto(out.scores[:k], probs[off:off + k], casting="unsafe")
+                    if explain_k:
+                        out.ensure_explain(explain_k)
+                        np.copyto(out.ei[:k], eidx[off:off + k], casting="unsafe")
+                        np.copyto(out.ev[:k], evals[off:off + k], casting="unsafe")
+                    if not f.done():
+                        f.set_result(explain_k)
+                    off += k
                 else:
-                    res = float(probs[i])
-                if not item[1].done():
-                    item[1].set_result(res)
+                    if explain_k:
+                        res = (
+                            float(probs[off]),
+                            eidx[off].tolist(),
+                            evals[off].tolist(),
+                        )
+                    else:
+                        res = float(probs[off])
+                    if not f.done():
+                        f.set_result(res)
+                    off += 1
         finally:
-            # the waiters' results are materialized above: recycle the slot
             scorer.staging.release(slot)
+        if fi is not None:
+            fi.t_resolved = time.perf_counter()
+            self._export_flush(fi, batch)
         if self.watchtower is not None:
             # waiters are resolved; a slow monitor never adds latency. Fused:
-            # the window already folded in the flush, observe() only counts.
-            # Split: observe() enqueues the drift update.
+            # the window already folded in the flush, observe() counts and
+            # feeds the shadow. Split: observe() enqueues the drift update.
             try:
-                self.watchtower.observe(monitor_rows, monitor_scores, drift_done=fused)
+                self.watchtower.observe(monitor_rows, monitor_scores,
+                                        drift_done=fused, reasons=monitor_reasons)
             except Exception:
                 log.debug("watchtower observe failed", exc_info=True)
+
+    #: at most this many (+1: the last row) per-row observations a flush for
+    #: the row-level stages (enqueue, flush_wait), sampled evenly across the
+    #: batch; timelines and flight-recorder records stay exact for every row
+    ROW_STAGE_SAMPLES = 8
+
+    def _export_flush(self, fi: FlushInfo, batch) -> None:
+        """Per-flush stage export + flight-recorder append, after the
+        waiters resolved."""
+        obs = _OBSERVE_STAGE
+        # flush-level stages: one observation a flush
+        obs["pad_bucket"](max(0.0, fi.t_padded - fi.t_flush_start))
+        obs["device_compute"](max(0.0, fi.t_synced - fi.t_padded))
+        obs["d2h"](max(0.0, fi.t_fetched - fi.t_synced))
+        obs["respond"](max(0.0, fi.t_resolved - fi.t_fetched))
+        n = len(batch)
+        step = -(-n // self.ROW_STAGE_SAMPLES)
+        last = n - 1
+        picks = list(range(0, n, step))
+        if last % step:
+            picks.append(last)
+        for i in picks:
+            tl = batch[i][2]
+            if tl is not None:
+                obs["enqueue"](max(0.0, tl.t_collected - tl.t_enqueued))
+                obs["flush_wait"](max(0.0, fi.t_flush_start - tl.t_collected))
+        if self.recorder is not None:
+            try:
+                # the batch goes in as it is; timelines are read at dump time
+                self.recorder.record_flush_batch(fi, batch)
+            except Exception:
+                log.debug("flight recorder append failed", exc_info=True)

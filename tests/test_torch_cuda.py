@@ -411,6 +411,36 @@ def test_gbt_fit_on_the_card_matches_the_cpu_fit():
                                gbt.gbt_predict_proba(cpu, xt).numpy(), rtol=0, atol=1e-6)
 
 
+def _random_forest(rng, trees: int, depth: int, d: int, n_bins: int):
+    from fraud_detection_tpu_torch.ops.gbt import GBTModel
+
+    nodes = 2**depth - 1
+    return GBTModel(
+        split_feature=torch.from_numpy(rng.integers(0, d, (trees, nodes)).astype(np.int32)),
+        split_bin=torch.from_numpy(rng.integers(0, n_bins - 1, (trees, nodes)).astype(np.int32)),
+        leaf_value=torch.from_numpy((0.1 * rng.standard_normal((trees, 2**depth))).astype(np.float32)),
+        bin_edges=torch.from_numpy(np.sort(rng.standard_normal((d, n_bins - 1)), axis=1).astype(np.float32)),
+        base_logit=torch.tensor(-1.0),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8, 64])
+def test_gbt_card_score_does_not_depend_on_the_batch(n):
+    """A row's forest score on the card has the same bits alone, in a
+    bucket of 8 and in a batch of 1024 (the recipe's 100 trees of depth
+    5): the lanes' scores are bitwise /predict's only so."""
+    from fraud_detection_tpu_torch.ops import gbt
+
+    dev = _require_card()
+    rng = np.random.default_rng(3)
+    model = _random_forest(rng, 100, 5, 30, 256).to(dev)
+    rows = torch.from_numpy(rng.standard_normal((1024, 30)).astype(np.float32)).to(dev)
+    full = gbt.gbt_predict_proba(model, rows)
+    for i in range(0, 64, n):
+        assert torch.equal(gbt.gbt_predict_proba(model, rows[i:i + n]), full[i:i + n]), i
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth, trees, n", [
     (5, 100, 1024), (5, 100, 9), (3, 16, 33), (2, 1, 1),
@@ -662,7 +692,7 @@ def _staged_fused_flush(scorer, mon, rows, k):
     spec = scorer.fused_spec()
     slot = scorer.staging.acquire(_bucket(n, scorer.min_bucket))
     try:
-        hx = scorer.stage_rows(slot, list(rows))
+        hx = scorer.stage_items(slot, [(r,) for r in rows])
         out = mon.fused_flush(scorer.to_device(hx), scorer.to_device(slot.valid), n,
                               spec.score_args, spec.score_fn, dequant_scale=spec.dequant_scale,
                               score_codes=spec.score_codes, explain_args=spec.explain_args,
@@ -788,3 +818,139 @@ def test_a_cuda_worker_without_a_card_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         create_app(database_url=f"sqlite:///{tmp_path}/f.db",
                    broker_url=f"sqlite:///{tmp_path}/q.db")
+
+
+def _card_served(tmp_path, monkeypatch, family):
+    """models/ (or a card-fitted 20-tree forest) with a drift baseline, an
+    empty tracking store, explain on: the app's settings for the lanes."""
+    import shutil
+
+    from fraud_detection_tpu_torch.monitor.baseline import save_profile
+
+    x = np.loadtxt(os.path.join(ROOT, "data", "creditcard.csv"), delimiter=",",
+                   skiprows=1, max_rows=2048, dtype=np.float32)
+    d = str(tmp_path / "models")
+    if family == "logistic":
+        shutil.copytree(os.path.join(ROOT, "models"), d)
+        model = FraudLogisticModel.load(d, device="cuda")
+    else:
+        from fraud_detection_tpu_torch.models import load_any_model
+        from fraud_detection_tpu_torch.models.gbt import FraudGBTModel
+        from fraud_detection_tpu_torch.ops import gbt
+        from fraud_detection_tpu_torch.ops.scaler import scaler_fit
+
+        scaler = scaler_fit(torch.from_numpy(x[:, :30]).cuda())
+        xs = ((torch.from_numpy(x[:, :30]).cuda() - scaler.mean) / scaler.scale)
+        fit = gbt.gbt_fit(xs, x[:, 30].astype(np.int32),
+                          gbt.GBTConfig(n_trees=20, max_depth=5, n_bins=64))
+        names = FraudLogisticModel.load(os.path.join(ROOT, "models"),
+                                        device="cpu").feature_names
+        FraudGBTModel(fit, names, scaler=scaler, background=x[:64, :30]).save(d)
+        model = load_any_model(d, device="cuda")
+    profile = build_baseline_profile(x[:, :30], model.scorer.predict_proba(x[:, :30]),
+                                     feature_names=model.feature_names, device="cuda")
+    save_profile(d, profile)
+    monkeypatch.setenv("MODEL_PATH", os.path.join(d, "model.npz"))
+    monkeypatch.setenv("SCORER_EXPLAIN", "topk")
+    monkeypatch.setenv("SCORER_MAX_BATCH", "256")
+    monkeypatch.setenv("DATABASE_URL", f"sqlite:///{tmp_path}/f.db")
+    monkeypatch.setenv("CELERY_BROKER_URL", f"sqlite:///{tmp_path}/q.db")
+    monkeypatch.setenv("DEVICE", "cuda")
+    return np.ascontiguousarray(x[:, :30])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logistic", "gbt"])
+def test_socket_lane_scores_bitwise_predict_on_the_card(family, tmp_path, monkeypatch):
+    """Frames of 1, 64 and 256 rows through the binary lane score the bits
+    /predict gives the same rows on the card, with equal reason codes; the
+    staging pool allocates nothing once warm."""
+    import json
+    import socket
+    import threading
+
+    from fraud_detection_tpu_torch.service import binlane
+    from fraud_detection_tpu_torch.service.app import create_app
+    from fraud_detection_tpu_torch.service.http import Request
+
+    _require_card()
+    x = _card_served(tmp_path, monkeypatch, family)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("INGEST_PORT", str(port))
+    monkeypatch.setenv("INGEST_HOST", "127.0.0.1")
+    loop = asyncio.new_event_loop()
+    t = threading.Thread(target=loop.run_forever, daemon=True)
+    t.start()
+
+    def call(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(120)
+
+    app = create_app()
+    try:
+        call(app.startup())
+        rows = x[:256]
+        with binlane.BinLaneClient("127.0.0.1", port) as cli:
+            frames = [cli.score_batch(rows[:1]), cli.score_batch(rows[:64]),
+                      cli.score_batch(rows)]
+            pool = app.state["model"].scorer.staging
+            before = pool.allocations
+            for _ in range(10):
+                cli.score_batch(rows)
+            assert pool.allocations == before
+        names = app.state["model"].feature_names
+        for i in (0, 1, 63, 100, 255):
+            req = Request("POST", "/predict", {"content-type": "application/json"},
+                          json.dumps({"features": rows[i].tolist()}).encode())
+            body = json.loads(call(app.dispatch(req)).body)
+            for scores, (idx, _vals) in frames:
+                if i < len(scores):
+                    assert np.float32(body["score"]).tobytes() == scores[i:i + 1].tobytes()
+                    assert [c["feature"] for c in body["reason_codes"]] == \
+                        [names[j] for j in idx[i]]
+    finally:
+        call(app.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        t.join(30)
+
+
+@pytest.mark.cuda
+def test_one_fence_a_flush_with_spyglass_on(monkeypatch):
+    """With spyglass on, every flush on the card waits on ONE CUDA event
+    and never on torch.cuda.synchronize; with it off, on none."""
+    from fraud_detection_tpu_torch.service import metrics, microbatch
+
+    _require_card()
+    model = FraudLogisticModel.load(os.path.join(ROOT, "models"), device="cuda")
+    fences = []
+    real = microbatch._fence
+    monkeypatch.setattr(microbatch, "_fence", lambda dev: (fences.append(dev), real(dev)))
+
+    def refuse(*a, **k):
+        raise AssertionError("the flush synchronised the whole device")
+
+    x = np.random.default_rng(0).standard_normal((64, 30)).astype(np.float32)
+    hist = metrics.microbatch_size._children[()]
+    for telemetry in (True, False):
+        b = MicroBatcher(model.scorer, max_batch=16, telemetry=telemetry,
+                         fused=False, explain=False)
+
+        async def go():
+            await b.start()  # the warm-up may synchronise; the flushes may not
+            sync = torch.cuda.synchronize
+            torch.cuda.synchronize = refuse
+            try:
+                for lo in range(0, 64, 16):
+                    await asyncio.gather(*(b.score(r) for r in x[lo:lo + 16]))
+            finally:
+                torch.cuda.synchronize = sync
+                await b.stop()
+
+        fences.clear()
+        count0 = hist.count
+        asyncio.run(go())
+        flushes = hist.count - count0
+        assert flushes >= 4
+        assert len(fences) == (flushes if telemetry else 0)
+        assert all(d.type == "cuda" for d in fences)

@@ -220,6 +220,19 @@ def test_dense_and_walk_predictions_reach_the_same_leaves():
     )
 
 
+@pytest.mark.parametrize("n", [1, 8, 64])
+def test_dense_margin_does_not_depend_on_the_batch(n):
+    """The card's margin form gives a row the same bits alone, in a bucket
+    of 8 and in a batch of 512: the sum over leaves is exact and the sum
+    over trees halves in elementwise adds."""
+    x, y = _data(6, n=600)
+    m = gbt.gbt_fit(x, y, gbt.GBTConfig(n_trees=12, max_depth=4, n_bins=32), device="cpu")
+    xt = torch.from_numpy(x[:512])
+    full = gbt._predict_logits_dense(m, xt)
+    for i in range(0, 64, n):
+        assert torch.equal(gbt._predict_logits_dense(m, xt[i:i + n]), full[i:i + n]), i
+
+
 def test_scaler_fold_is_exact():
     """Folding the scaler into the edges scores raw rows exactly as the
     unfolded forest scores the scaled rows (same bins per row), and the

@@ -1,8 +1,9 @@
 """The port stands alone: every module of ``fraud_detection_tpu_torch`` and
 ``chip_smoke.py`` import in a fresh interpreter where ``jax*``, ``optax``,
 the JAX package (``fraud_detection_tpu`` and ``fraud_detection_tpu.*`` —
-the port's own name shares that prefix), ``pydantic``/``prometheus_client``
-and ``pandas``/``joblib``/``sklearn``/``matplotlib`` (absent on the machine
+the port's own name shares that prefix), ``pydantic``/``prometheus_client``,
+``msgpack`` (imported only inside ``/ingest/batch``'s msgpack branch) and
+``pandas``/``joblib``/``sklearn``/``matplotlib`` (absent on the machine
 with the card) all refuse to import."""
 
 import os
@@ -35,7 +36,7 @@ def jax_or_reference(name):
 def service_deps(name):
     return any(name == m or name.startswith(m + ".")
                for m in ("pydantic", "prometheus_client", "pandas", "joblib",
-                         "sklearn", "matplotlib"))
+                         "sklearn", "matplotlib", "msgpack"))
 
 sys.meta_path[:0] = [Refuse(jax_or_reference), Refuse(service_deps)]
 import fraud_detection_tpu_torch as pkg
@@ -65,7 +66,7 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
 
 def test_training_modules_are_among_those_imported():
     """The blocked-import probe walks the package; the training, GBT,
-    explain and offline-tool slices' modules are in it."""
+    explain, offline-tool and ingest slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -77,7 +78,9 @@ def test_training_modules_are_among_those_imported():
                 "service.taskq", "service.worker", "service.errors",
                 "preprocess", "evaluate", "explain", "predict_single", "validate_auc",
                 "eda", "plots", "data.synthetic", "tracking.server",
-                "tracking.http_client", "service.loading"):
+                "tracking.http_client", "service.loading", "data.native",
+                "telemetry", "telemetry.timeline", "telemetry.flightrecorder",
+                "service.binlane", "service.legacy", "monitor.shadow"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 

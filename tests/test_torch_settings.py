@@ -1,9 +1,13 @@
-"""The ten serving settings the port reads as the JAX package does:
+"""The serving settings the port reads as the JAX package does:
 ``SCORER_WIRE``, ``WATCHTOWER_ENABLED``,
 ``WATCHTOWER_{PSI,KS,ECE,DISAGREE}_THRESHOLD``, ``SCORER_ADMIT_MAX_ROWS``,
-``SCORER_ADMIT_RETRY_AFTER_S``, ``SCORER_MAX_INFLIGHT`` and
-``SCORER_ADAPTIVE_WAIT``. Each is set on both packages with
-``monkeypatch`` and the results compared: the readers, the thresholds and
+``SCORER_ADMIT_RETRY_AFTER_S``, ``SCORER_MAX_INFLIGHT``,
+``SCORER_ADAPTIVE_WAIT``, the ingest lane's ``INGEST_*``, the shadow's
+``MLFLOW_SHADOW_STAGE`` and ``WATCHTOWER_SHADOW_SAMPLE``,
+``WATCHTOWER_RETRAIN_TRIGGER``, ``SPYGLASS_ENABLED`` and
+``FLIGHTRECORDER_CAPACITY`` (``NATIVE_CSV``, which JAX reads in its
+loader, is compared in ``test_torch_native_csv.py``). Each is set on both
+packages with ``monkeypatch`` and the results compared: the readers, the thresholds and
 the flags ``/monitor/status`` raises, monitoring off, the admission bound
 and its 429, the in-flight bound and the adaptive deadline."""
 
@@ -49,6 +53,19 @@ SETTINGS = [
     ("SCORER_MAX_INFLIGHT", "9", "scorer_max_inflight"),
     ("SCORER_ADAPTIVE_WAIT", "1", "scorer_adaptive_wait"),
     ("SCORER_ADAPTIVE_WAIT", "off", "scorer_adaptive_wait"),
+    ("INGEST_PORT", "9123", "ingest_port"),
+    ("INGEST_HOST", "127.0.0.1", "ingest_host"),
+    ("INGEST_MAX_ROWS", "256", "ingest_max_rows"),
+    ("INGEST_MAX_FRAME_BYTES", "65536", "ingest_max_frame"),
+    ("INGEST_STALL_TIMEOUT_S", "0.25", "ingest_stall_timeout_s"),
+    ("MLFLOW_SHADOW_STAGE", "canary", "shadow_stage"),
+    ("WATCHTOWER_SHADOW_SAMPLE", "0.6", "watchtower_shadow_sample"),
+    ("WATCHTOWER_RETRAIN_TRIGGER", "1", "watchtower_retrain_trigger"),
+    ("WATCHTOWER_RETRAIN_TRIGGER", "yes", "watchtower_retrain_trigger"),
+    ("WATCHTOWER_RETRAIN_TRIGGER", "0", "watchtower_retrain_trigger"),
+    ("SPYGLASS_ENABLED", "0", "spyglass_enabled"),
+    ("SPYGLASS_ENABLED", "off", "spyglass_enabled"),
+    ("FLIGHTRECORDER_CAPACITY", "7", "flightrecorder_capacity"),
 ]
 
 

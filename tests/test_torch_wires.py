@@ -179,7 +179,7 @@ def _port_flush(scorer, mon, rows, k=0, out_dtype=torch.float32, score_args=None
     spec = scorer.fused_spec()
     slot = scorer.staging.acquire(_bucket(n, scorer.min_bucket))
     try:
-        hx = scorer.stage_rows(slot, list(rows))
+        hx = scorer.stage_items(slot, [(r,) for r in rows])
         out = mon.fused_flush(
             scorer.to_device(hx), scorer.to_device(slot.valid), n,
             spec.score_args if score_args is None else score_args, spec.score_fn,
@@ -239,10 +239,11 @@ def test_int8_codes_are_bitwise_jax(data, jax_scaler):
     for n in (1, 7, 64, 300):
         for scorer in (js, ts):
             slot = scorer.staging.acquire(_bucket(n, scorer.min_bucket))
-            scorer.stage_rows(slot, list(rows[:n]))
             if scorer is js:
+                scorer.stage_rows(slot, list(rows[:n]))
                 jio = slot.io.copy()
             else:
+                scorer.stage_items(slot, [(r,) for r in rows[:n]])
                 tio = slot.io.copy()
                 assert slot.f32[:n].tobytes() == rows[:n].tobytes()  # raw rows survive
             scorer.staging.release(slot)
@@ -267,7 +268,7 @@ def test_bf16_staged_bits_are_jax(data, linear):
     assert got.view(torch.int16).numpy().view(np.uint16).tobytes() == want.tobytes()
     slot = ts.staging.acquire(256)
     io = slot.io
-    staged = ts.stage_rows(slot, list(rows))
+    staged = ts.stage_items(slot, [(r,) for r in rows])
     assert staged is io and staged.view(torch.int16).numpy().view(np.uint16).tobytes() == want.tobytes()
     ts.staging.release(slot)
 
