@@ -230,6 +230,32 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ``watchtower.trigger_retrain``; the legacy app answering ``POST
    /predict`` with ``/predict``'s probability through ``fused_score``.
 
+11. **the ledger** — ``fused_score`` at n = 1024, d = 34 (the ledger
+   flush's width) and ``knn_topk`` at m = 158, d = 34 (the final fit's
+   SMOTE) held against their plain versions and timed as in phases 2 and
+   2b. ``train --ledger`` (``ledger=True``; 8,192 slots, half-life 3,600 s,
+   the Amount column, 50 events a pseudo-entity) on the card and on the CPU
+   over the committed CSV: ``knn_topk`` launches exactly 6 times, card −
+   CPU test AUC within 5e-3. The card's replay of the 20,000 rows twice:
+   bitwise equal, and bitwise the trainer's stamped table; against the
+   CPU's: ``last_ts``, fingerprints and counts equal, the float columns
+   within rtol/atol 1e-5. Then the card run's directory served over HTTP
+   on the f32 and the int8 wire (``SCORER_EXPLAIN=topk``,
+   ``SCORER_MAX_INFLIGHT=1``): the table after start-up bitwise the
+   stamped one; 144 ``/predict`` with ``entity_id`` over 36 entities (most
+   with a ``timestamp``) and 24 without, half from 16 threads of a client
+   process, then one 256-row ``/ingest/batch`` frame with fingerprints and
+   timestamps (every 9th row entity-less); every flush recorded and
+   replayed through the ledger body: the served table bitwise the replay,
+   every score within 1e-5 of float64 numpy on the replayed widened rows,
+   ``fused_score`` launched once a flush, ``ledger_null_entity_rows`` up by
+   the entity-less rows sent, ``ledger_active 1`` in ``/metrics`` and a
+   ``ledger`` body in ``/monitor/status``. Then a 1024-row ledger flush and
+   the stateless flush (phase 3's model), in turns: host p50, stream p50
+   (CUDA events), device busy and launches (profiler); the read-update
+   alone (its launches and device busy); the replay of the Kaggle-sized
+   CSV (284,807 rows), its wall time on the card.
+
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
 (as the tool prints it), and as the last line ``{"ok": true, "device":
@@ -3544,6 +3570,504 @@ def ingest_phase(work: Path, gbt_store: str, lin_store: str, kaggle_csv: Path,
     return {"ingest": launches, "shadow": shadow}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the ledger
+# ---------------------------------------------------------------------------
+
+LEDGER_TRAIN_AUC_TOL = 5e-3  # card vs CPU train --ledger (a SMOTE draw apart)
+LEDGER_RTOL = LEDGER_ATOL = 1e-5  # card vs CPU replay: the float columns
+LEDGER_ENTITIES = 36  # entities of the /predict traffic
+LEDGER_PREDICTS = 144  # /predict with entity_id (most with a timestamp)
+LEDGER_NULL_PREDICTS = 24  # /predict without one
+LEDGER_CLIENTS = 16  # client threads of the concurrent part
+LEDGER_FRAME_ROWS = 256  # the /ingest/batch frame (every 9th row entity-less)
+LEDGER_FLUSH_TIMED = 30  # 1024-row flushes a form (ledger, stateless), in turns
+LEDGER_STEP_TIMED = 100  # eager read-update calls timed
+LEDGER_WIRES = ("float32", "int8")
+LEDGER_EXACT = ("last_ts", "fingerprint", "collisions", "evictions")
+
+#: the phase's HTTP client, its own process: POSTs each JSON body of a file
+#: to /predict from ``clients`` threads; prints (status, body) per body in
+#: order
+BODY_CLIENT = r"""
+import http.client, json, sys
+from concurrent.futures import ThreadPoolExecutor
+port, bodies, clients = int(sys.argv[1]), json.load(open(sys.argv[2])), int(sys.argv[3])
+
+def one(body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/predict", body=json.dumps(body),
+                     headers={"content-type": "application/json", "connection": "close"})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+with ThreadPoolExecutor(max_workers=clients) as pool:
+    print(json.dumps(list(pool.map(one, bodies))))
+"""
+
+
+def post_bodies(port: int, bodies: list, clients: int, work: Path) -> list:
+    path = work / "ledger_bodies.json"
+    path.write_text(json.dumps(bodies))
+    out = subprocess.run([sys.executable, "-c", BODY_CLIENT, str(port), str(path), str(clients)],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"client process failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+def table_gap(tag: str, got, want, exact: bool) -> str:
+    """Bitwise (``exact``) or the tests' tolerance (float columns; last_ts,
+    fingerprints and counts still exact) between two host tables."""
+    import numpy as np
+
+    fields = ("acc", "last_ts", "fingerprint", "collisions", "evictions")
+    for name, a, b in zip(fields, got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{tag}: {name} {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        if exact or name in LEDGER_EXACT:
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"{tag}: {name} differs in bits")
+        elif not np.allclose(a, b, rtol=LEDGER_RTOL, atol=LEDGER_ATOL):
+            raise AssertionError(f"{tag}: {name} off by {np.abs(a - b).max():.3e}")
+    acc_gap = float(np.abs(np.asarray(got[0], np.float64) - want[0]).max())
+    return "bitwise equal" if exact else f"acc max gap {acc_gap:.3e}, the rest bitwise"
+
+
+def ledger_kernels_at_d34(seed: int) -> dict:
+    """``fused_score`` at n = 1024, d = 34 (the ledger flush) and
+    ``knn_topk`` at m = 158, d = 34 (the final fit's SMOTE): held against
+    their plain versions, then timed as phase 2 and 2b time them."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.standard_normal((1024, 34), dtype=np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal(34) / math.sqrt(34)).astype(np.float32)).to(dev)
+    b = torch.tensor(-0.5, dtype=torch.float32, device=dev)
+    err = float((kernels.fused_score(w, b, x) - kernels.fused_score_reference(w, b, x)).abs().max())
+    if err > KERNEL_TOL:
+        raise AssertionError(f"phase11: fused_score n=1024 d=34 off its plain version by {err:.3e}")
+    fs = {key: graph_ms(fn) for key, fn in (
+        ("ms", lambda: kernels.fused_score(w, b, x)),
+        ("plain_ms", lambda: kernels.fused_score_reference(w, b, x)),
+        ("library_ms", lambda: torch.sigmoid(torch.addmv(b, x, w))))}
+    fs["bound_ms"], fs["bound_by"], n_bytes, n_ops = fused_score_bound(1024, 34)
+    fs["max_abs_err"] = err
+    print(f"phase11: fused_score n=1024 d=34 max_abs_err={err:.3e}; kernel {fs['ms']:.6f} ms, "
+          f"plain {fs['plain_ms']:.6f} ms, library sigmoid(addmv) {fs['library_ms']:.6f} ms, "
+          f"bound {fs['bound_ms']:.6f} ms ({fs['bound_by']}: {n_bytes} B, {n_ops} ops) "
+          f"(CUDA events over {TIMED_LAUNCHES} launches replayed from a CUDA graph)")
+    xc, sq = knn_inputs(rng.standard_normal((158, 34), dtype=np.float32))
+    got = kernels.knn_topk(xc, sq, 5)
+    want = kernels.knn_topk_reference(xc, sq, 5)
+    mism, gap, _ = knn_selection_gap(xc, torch.arange(158, device=dev), got, want)
+    if mism:
+        raise AssertionError(f"phase11: knn_topk m=158 d=34: {mism} rows differ from the plain version")
+    kn = {"ms": graph_ms(lambda: kernels.knn_topk(xc, sq, 5)),
+          "plain_ms": eager_ms(lambda: kernels.knn_topk_reference(xc, sq, 5), iters=50, warm=5),
+          "orientation_ms": eager_ms(lambda: torch.topk(torch.cdist(xc, xc), 6, largest=False),
+                                     iters=50, warm=5),
+          "max_abs_err": gap}
+    kn["bound_ms"], kn["bound_by"], n_ops, n_bytes = knn_bound(158, 34, 5)
+    print(f"phase11: knn_topk m=158 d=34 k=5: 0 of 158 rows mismatched; kernel {kn['ms']:.6f} ms "
+          f"(CUDA graph), plain {kn['plain_ms']:.6f} ms, bound {kn['bound_ms']:.6f} ms "
+          f"({kn['bound_by']}: {n_ops} ops, {n_bytes} B); orientation only "
+          f"topk(cdist) {kn['orientation_ms']:.6f} ms")
+    return {"fused_score": fs, "knn_topk": kn}
+
+
+def ledger_train_and_replay(work: Path) -> tuple[Path, dict, object]:
+    """``train --ledger`` on the card and on the CPU over the committed CSV;
+    the card's replay twice (bitwise, and bitwise the trainer's stamped
+    table) and against the CPU's. Returns the card run's model directory,
+    its launch counts and the base rows."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+    from fraud_detection_tpu_torch.ledger import (
+        load_ledger,
+        materialize_features,
+        synthesize_entities,
+    )
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.train import train
+
+    csv = str(ROOT / "data" / "creditcard.csv")
+    runs = {}
+    launches = {}
+    for knob in ("LEDGER_SLOTS", "LEDGER_HALFLIFE_S", "LEDGER_AMOUNT_COL",
+                 "LEDGER_SYNTH_EVENTS", "MLFLOW_AUC_THRESHOLD"):
+        os.environ.pop(knob, None)
+    for dev in ("cuda", "cpu"):
+        os.environ["MLFLOW_TRACKING_URI"] = f"file:{work / 'ledger' / dev / 'mlruns'}"
+        out = work / "ledger" / dev / "models"
+        if dev == "cuda":
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = train(data_csv=csv, out_dir=str(out), device=dev, ledger=True, register=False)
+        wall = time.perf_counter() - t0
+        if dev == "cuda":
+            launches = kernels.launch_counts()
+        runs[dev] = (m, out)
+        print(f"phase11: train --ledger on {dev}: test AUC {m['test_auc']:.6f}, CV mean "
+              f"{m['cv_auc_mean']:.6f}, {wall:.3f} s wall; ledger replay stage "
+              f"{m['stages']['ledger_replay']:.6f} s; stages (s): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in m["stages"].items()))
+    if launches.get("knn_topk") != KNN_LAUNCHES_PER_RUN:
+        raise AssertionError(f"phase11: knn_topk launched {launches} in train --ledger, "
+                             f"not {KNN_LAUNCHES_PER_RUN} times")
+    print(f"phase11: kernel launches in train --ledger on the card {launches}")
+    (card, card_dir), (cpu, cpu_dir) = runs["cuda"], runs["cpu"]
+    gap = card["test_auc"] - cpu["test_auc"]
+    if not abs(gap) <= LEDGER_TRAIN_AUC_TOL:
+        raise AssertionError(f"phase11: card - cpu test AUC {gap:+.3e}")
+    print(f"phase11: card - cpu test AUC {gap:+.3e}, CV mean "
+          f"{card['cv_auc_mean'] - cpu['cv_auc_mean']:+.3e} (within {LEDGER_TRAIN_AUC_TOL})")
+
+    spec, stamped = load_ledger(str(card_dir))
+    if spec.slots != 8192 or spec.halflife_s != 3600.0 or spec.amount_col != -1 or spec.n_base != 30:
+        raise AssertionError(f"phase11: the stamped spec is not the defaults: {spec}")
+    x, _, names = load_creditcard_csv(csv)
+    ents, ts = synthesize_entities(x, names, 42, 50)
+    reps = []
+    for dev in ("cuda", "cuda", "cpu"):
+        t0 = time.perf_counter()
+        reps.append(materialize_features(spec, x, ents, ts, device=dev))
+        print(f"phase11: replay of {x.shape[0]} rows ({len(set(ents))} pseudo-entities, "
+              f"{spec.slots} slots) on {dev}: {time.perf_counter() - t0:.3f} s wall")
+    (f1, s1), (f2, s2), (fc, sc) = reps
+    if f1.tobytes() != f2.tobytes():
+        raise AssertionError("phase11: two card replays differ in the features' bits")
+    print(f"phase11: two card replays: features bitwise equal, table "
+          f"{table_gap('card replays', s1, s2, exact=True)}; the card replay and "
+          f"train --ledger's stamped table: {table_gap('stamped', s1, stamped, exact=True)}")
+    if not np.allclose(f1, fc, rtol=LEDGER_RTOL, atol=LEDGER_ATOL):
+        raise AssertionError(f"phase11: card vs CPU replay features off by {np.abs(f1 - fc).max():.3e}")
+    print(f"phase11: card vs CPU replay: features max gap {np.abs(f1 - fc).max():.3e} "
+          f"(max relative {(np.abs(f1 - fc) / np.maximum(np.abs(fc), 1e-30)).max():.3e}); "
+          f"table {table_gap('card vs cpu', s1, sc, exact=False)}; collisions "
+          f"{float(s1.collisions):g}, evictions {float(s1.evictions):g}")
+    return card_dir, launches, x
+
+
+def widened_scores_f64(model_dir: Path, xw) -> object:
+    """float64 numpy scores of widened rows from ``model.npz``."""
+    import numpy as np
+
+    with np.load(model_dir / "model.npz") as z:
+        logit = ((np.asarray(xw, np.float64) - z["scaler_mean"]) / z["scaler_scale"]) @ z["coef"] \
+            + z["intercept"]
+    return 1.0 / (1.0 + np.exp(-logit))
+
+
+def ledger_served(work: Path, model_dir: Path, x, wire: str) -> dict:
+    """The trained directory served over HTTP on ``wire``: /predict with and
+    without entities (concurrent, then one at a time) and one
+    /ingest/batch frame; every flush recorded (``SCORER_MAX_INFLIGHT=1``:
+    one flush at a time, so the records are in table order) and replayed
+    through the ledger body: the served table bitwise the replay, the
+    scores within 1e-5 of float64 on the replayed widened rows,
+    ``fused_score`` once a flush, the null rows counted."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ledger import _ledger_read_update, entity_fingerprint
+    from fraud_detection_tpu_torch.ledger.state import device_state, host_state
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.service import binlane, metrics
+    from fraud_detection_tpu_torch.service.app import create_app
+
+    tag = f"phase11 {wire}"
+    os.environ.update(DEVICE="cuda", SCORER_EXPLAIN="topk", SCORER_WIRE=wire,
+                      SCORER_MAX_INFLIGHT="1", MODEL_PATH=str(model_dir / "model.npz"))
+    for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
+                 "SCORER_RETURN_WIRE", "INGEST_PORT"):
+        os.environ.pop(knob, None)
+    pin_tracking_store(work / "ledger_empty_mlruns", work)
+    app = create_app(database_url=f"sqlite:///{work}/ledger_{wire}_fraud.db",
+                     broker_url=f"sqlite:///{work}/ledger_{wire}_taskq.db")
+    port = free_port()
+    server = ServerThread(app, port)
+    server.start()
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"{tag}: server did not start: {server.error!r}")
+    try:
+        check_source(tag, app.state["model_source"], f"native:{model_dir}")
+        model, batcher, wt = app.state["model"], app.state["batcher"], app.state["watchtower"]
+        scorer = model.scorer
+        spec = model.ledger_spec
+        target = batcher._fused_target(scorer)
+        if wt is None or wt.drift.ledger is None or target is None or target[1].ledger is None:
+            raise AssertionError(f"{tag}: the app runs no ledger flush")
+        if scorer.io_dtype != wire or scorer.staging_features != 30 or scorer.n_features != 34:
+            raise AssertionError(f"{tag}: scorer {scorer.io_dtype} {scorer.staging_features}/"
+                                 f"{scorer.n_features}")
+        print(f"{tag}: after start-up (warm_fused on every bucket) the table is "
+              f"{table_gap('warm-up', wt.drift.ledger_snapshot(), model.ledger_state, exact=True)}"
+              " to the stamped one")
+        records = []
+        inner = batcher._flush_device
+
+        def recording(scorer_, target_, batch, telemetry=False):
+            out = inner(scorer_, target_, batch, telemetry)
+            slot = out[-1]
+            records.append(tuple(np.array(a) for a in (
+                slot.f32, slot.io, slot.ls, slot.lf, slot.lt, slot.lh)))
+            return out
+
+        batcher._flush_device = recording
+        rng = np.random.default_rng(11)
+        pick = rng.choice(x.shape[0], LEDGER_PREDICTS + LEDGER_NULL_PREDICTS + LEDGER_FRAME_ROWS,
+                          replace=False)
+        rows = x[pick]
+        t_rel = float(np.max(model.ledger_state.last_ts)) + 10.0
+        bodies = []
+        for i in range(LEDGER_PREDICTS + LEDGER_NULL_PREDICTS):
+            body = {"features": rows[i].tolist()}
+            if i < LEDGER_PREDICTS:
+                body["entity_id"] = f"card-{i % LEDGER_ENTITIES}"
+                if i % 12:  # the rest take now, on the table's clock
+                    body["timestamp"] = spec.ts_origin + t_rel + 2.0 * i
+            bodies.append(body)
+        order = rng.permutation(len(bodies))
+        half = len(bodies) // 2
+        null0 = metrics.ledger_null_entity_rows.get()
+        kernels.reset_launch_counts()
+        results = post_bodies(port, [bodies[j] for j in order[:half]], LEDGER_CLIENTS, work)
+        results += post_bodies(port, [bodies[j] for j in order[half:]], 1, work)
+        frame_rows = rows[len(bodies):]
+        fps = np.asarray([0 if i % 9 == 0 else entity_fingerprint(f"card-{i % LEDGER_ENTITIES}")
+                          for i in range(LEDGER_FRAME_ROWS)], np.uint32)
+        frame_ts = spec.ts_origin + t_rel + 1000.0 + np.arange(LEDGER_FRAME_ROWS, dtype=np.float64)
+        status, body = post_raw(port, "/ingest/batch",
+                                binlane.encode_frame(frame_rows, fps, frame_ts, length_prefix=False),
+                                "application/x-fraud-frame")
+        launches = kernels.launch_counts()
+        batcher._flush_device = inner
+        if status != 200:
+            raise AssertionError(f"{tag}: /ingest/batch {status} {body[:200]!r}")
+        frame_scores, _ = binlane.decode_response_body(body)
+        served = {}
+        for j, (st, text) in zip(order, results):
+            if st != 200:
+                raise AssertionError(f"{tag}: /predict {j}: HTTP {st} {text[:200]}")
+            served[rows[j].tobytes()] = json.loads(text)["score"]
+        for i in range(LEDGER_FRAME_ROWS):
+            served[frame_rows[i].tobytes()] = float(frame_scores[i])
+        n_null = LEDGER_NULL_PREDICTS + int((fps == 0).sum())
+        null_delta = metrics.ledger_null_entity_rows.get() - null0
+        if null_delta != n_null:
+            raise AssertionError(f"{tag}: ledger_null_entity_rows +{null_delta}, sent {n_null}")
+        if launches["fused_score"] != len(records):
+            raise AssertionError(f"{tag}: fused_score launched {launches['fused_score']} times "
+                                 f"in {len(records)} flushes")
+
+        # the served table against a replay of the recorded flushes
+        dev = torch.device("cuda")
+        table = device_state(model.ledger_state, spec.slots, dev)
+        null = torch.tensor(spec.null_features, device=dev)
+        hl = torch.tensor(spec.halflife_s, dtype=torch.float32, device=dev)
+        scale = scorer._dequant_scale if wire == "int8" else None
+        worst, checked = 0.0, 0
+        for f32, io, ls, lf, lt, lh in records:
+            xb = torch.from_numpy(io).to(dev).float()
+            if scale is not None:
+                xb = xb * scale
+            feats = _ledger_read_update(
+                table, torch.from_numpy(ls).to(dev), torch.from_numpy(lf).to(dev),
+                torch.from_numpy(lt).to(dev), xb[:, spec.amount_col],
+                torch.from_numpy(lh).to(dev), null, hl)
+            xw = torch.cat([xb, feats], dim=1).cpu().numpy()
+            want = widened_scores_f64(model_dir, xw)
+            for r in range(f32.shape[0]):
+                got = served.get(f32[r].tobytes())
+                if got is not None:
+                    worst = max(worst, abs(got - want[r]))
+                    checked += 1
+        snap = wt.drift.ledger_snapshot()
+        print(f"{tag}: {len(results)} /predict ({LEDGER_PREDICTS} with entity_id over "
+              f"{LEDGER_ENTITIES} entities, {LEDGER_NULL_PREDICTS} without; half from "
+              f"{LEDGER_CLIENTS} threads) and one {LEDGER_FRAME_ROWS}-row /ingest/batch frame in "
+              f"{len(records)} flushes ({sum(int(r[0].any(axis=1).sum()) for r in records)} rows); "
+              f"kernel launches {launches}; the served table against a replay of the "
+              f"recorded flushes: {table_gap(tag, snap, host_state(table), exact=True)}")
+        if checked != len(served) or not worst <= SCORE_ATOL:
+            raise AssertionError(f"{tag}: {checked} of {len(served)} scores checked, "
+                                 f"max |score - f64| {worst:.3e}")
+        print(f"{tag}: max |score - f64 on the replayed widened rows| {worst:.3e} over "
+              f"{checked} rows; ledger_null_entity_rows +{null_delta:g} (sent {n_null})")
+        text = http_call(port, "GET", "/metrics")[1].decode()
+        status_body = json.loads(http_call(port, "GET", "/monitor/status")[1])
+        ledger = status_body.get("ledger")
+        if metric_value(text, "ledger_active") != 1 or not isinstance(ledger, dict):
+            raise AssertionError(f"{tag}: ledger_active / status body {ledger!r}")
+        if metric_value(text, 'scorer_flushes_total{path="split",shard="0"}') != 0:
+            raise AssertionError(f"{tag}: a flush ran split")
+        print(f"{tag}: /metrics ledger_active 1, ledger_slot_occupancy "
+              f"{metric_value(text, 'ledger_slot_occupancy'):g}, ledger_hash_collisions_total "
+              f"{metric_value(text, 'ledger_hash_collisions_total'):g}, "
+              f"ledger_null_entity_rows_total {metric_value(text, 'ledger_null_entity_rows_total'):g}"
+              f"; /monitor/status ledger {json.dumps(ledger)}")
+        return launches
+    finally:
+        server.stop()
+
+
+def by_name(intervals, top: int = 12) -> str:
+    """The profiler's device activities grouped by name (48 characters),
+    the most device time first: count and µs."""
+    groups: dict[str, list[float]] = {}
+    for name, start, end in intervals:
+        groups.setdefault(name[:48], []).append(end - start)
+    ranked = sorted(groups.items(), key=lambda kv: -sum(kv[1]))[:top]
+    return "; ".join(f"{n} x{len(v)} {sum(v):.3f} us" for n, v in ranked)
+
+
+def ledger_timing(work: Path, model_dir: Path, x, kaggle_csv: Path) -> dict:
+    """A 1024-row ledger flush beside the stateless flush (phase 3's
+    model), in turns: host time, stream time (CUDA events around the
+    flush), device busy and launches (profiler); the read-update alone; the
+    replay of the Kaggle-sized CSV."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+    from fraud_detection_tpu_torch.ledger import (
+        _ledger_read_update,
+        materialize_features,
+        synthesize_entities,
+    )
+    from fraud_detection_tpu_torch.ledger.replay import row_keys
+    from fraud_detection_tpu_torch.ledger.state import LedgerState
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.watchtower import Thresholds, Watchtower
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+
+    os.environ["SCORER_WIRE"] = "float32"
+    never = Thresholds(5.0, 5.0, 5.0, 1.0, 10**9)
+    forms = {}
+    towers = []
+    for form, d in (("ledger", model_dir), ("stateless", work / "models")):
+        model = load_any_model(str(d), device="cuda")
+        wt = Watchtower(load_profile(str(d)), thresholds=never, device="cuda")
+        towers.append(wt)
+        if model.ledger_spec is not None:
+            wt.drift.bind_ledger(model.ledger_spec, model.ledger_state)
+        mb = MicroBatcher(model.scorer, watchtower=wt, telemetry=False, explain=True)
+        spec = model.ledger_spec
+        items = []
+        for i in range(1024):
+            ent = None
+            if spec is not None and i % 8:
+                s, fp = spec.row_keys(f"card-{i % 300}")
+                ent = (s, fp, float(np.max(model.ledger_state.last_ts)) + 10.0 + i)
+            items.append((x[i], None, None, ent))
+        forms[form] = (mb, model.scorer, mb._fused_target(model.scorer), items)
+    host = {f: [] for f in forms}
+    stream = {f: [] for f in forms}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for r in range(LEDGER_FLUSH_TIMED + 2):
+        for f in (("ledger", "stateless") if r % 2 else ("stateless", "ledger")):
+            mb, scorer, target, items = forms[f]
+            start.record()
+            t = time.perf_counter()
+            out = mb._flush_device(scorer, target, items)
+            dt = time.perf_counter() - t
+            end.record()
+            end.synchronize()
+            scorer.staging.release(out[-1])
+            if r >= 2:  # two warm rounds
+                host[f].append(dt)
+                stream[f].append(start.elapsed_time(end))
+    res = {}
+    for f, (mb, scorer, target, items) in forms.items():
+        ivs = profiled_intervals(lambda: scorer.staging.release(
+            mb._flush_device(scorer, target, items)[-1]))
+        copies = sum(1 for name, _, _ in ivs if "Memcpy" in name or "Memset" in name)
+        res[f] = {"host_ms": sorted(host[f])[len(host[f]) // 2] * 1e3,
+                  "stream_ms": sorted(stream[f])[len(stream[f]) // 2],
+                  "busy_us": union_us([(s, e) for _, s, e in ivs]),
+                  "launches": len(ivs) - copies, "copies": copies}
+        print(f"phase11: 1024-row {f} flush with explain (f32 wire): host p50 "
+              f"{res[f]['host_ms']:.3f} ms, stream p50 {res[f]['stream_ms']:.3f} ms (CUDA events "
+              f"around the flush), {LEDGER_FLUSH_TIMED} flushes in turns; device busy "
+              f"{res[f]['busy_us']:.3f} us, {res[f]['launches']} kernel launches + "
+              f"{res[f]['copies']} copies/memsets (profiler); by name: " + by_name(ivs))
+    for wt in towers:
+        wt.close()
+
+    # the read-update alone, 1024 rows, on a scratch copy of the table
+    mb, scorer, target, items = forms["ledger"]
+    drift = target[0]
+    spec = drift.ledger_spec
+    table = LedgerState(*(t.clone() for t in drift.ledger))
+    dev = torch.device("cuda")
+    ks = [spec.row_keys(f"card-{i % 300}") for i in range(1024)]
+    cols = (torch.tensor([k[0] for k in ks], device=dev),
+            torch.tensor([k[1] for k in ks], device=dev),
+            torch.full((1024,), float(table.last_ts.max()) + 5.0, device=dev),
+            torch.from_numpy(np.ascontiguousarray(x[:1024, -1])).to(dev),
+            torch.ones(1024, device=dev))
+    step = lambda: _ledger_read_update(table, *cols, drift._ledger_null,  # noqa: E731
+                                       drift._ledger_halflife)
+    per_call = eager_ms(step, iters=LEDGER_STEP_TIMED, warm=5)
+    ivs = profiled_intervals(step)
+    res["read_update"] = {"eager_ms": per_call, "busy_us": union_us([(s, e) for _, s, e in ivs]),
+                          "launches": len(ivs)}
+    print(f"phase11: the read-update alone, 1024 rows: {res['read_update']['launches']} device "
+          f"launches, {res['read_update']['busy_us']:.3f} us device busy (profiler); "
+          f"{per_call:.6f} ms a call eager (CUDA events over {LEDGER_STEP_TIMED} calls, "
+          f"host-bound); by name: " + by_name(ivs))
+
+    # the replay at the Kaggle file's scale
+    kx, _, names = load_creditcard_csv(str(kaggle_csv))
+    t0 = time.perf_counter()
+    ents, ts = synthesize_entities(kx, names, 42, 50)
+    t1 = time.perf_counter()
+    row_keys(spec, ents, kx.shape[0])
+    t2 = time.perf_counter()
+    feats, state = materialize_features(spec, kx, ents, ts, device="cuda")
+    t3 = time.perf_counter()
+    if feats.shape != (kx.shape[0], 4) or not np.isfinite(feats).all():
+        raise AssertionError("phase11: the Kaggle-sized replay's features are not finite")
+    n_batches = -(-kx.shape[0] // 256)
+    res["kaggle_replay_s"] = t3 - t2
+    print(f"phase11: replay of the Kaggle-sized CSV ({kx.shape[0]} rows, {len(set(ents))} "
+          f"pseudo-entities, {n_batches} batches of 256): {t3 - t2:.3f} s wall on the card "
+          f"(synchronised; {kx.shape[0] / (t3 - t2):,.0f} rows/s), of which the host hashing "
+          f"~{t2 - t1:.3f} s; synthesize_entities {t1 - t0:.3f} s; occupied slots "
+          f"{int((state.last_ts > 0).sum())} of {spec.slots}, collisions "
+          f"{float(state.collisions):g}")
+    return res
+
+
+def ledger_phase(work: Path, kaggle_csv: Path) -> dict:
+    """Phase 11. Returns the kernel checks at d = 34, the train run's and
+    the served traffic's launches."""
+    t_phase = time.perf_counter()
+    checks = ledger_kernels_at_d34(seed=11)
+    model_dir, train_launches, x = ledger_train_and_replay(work)
+    served: dict[str, int] = {}
+    for wire in LEDGER_WIRES:
+        for k, v in ledger_served(work, model_dir, x, wire).items():
+            served[k] = served.get(k, 0) + v
+    os.environ.pop("SCORER_MAX_INFLIGHT", None)
+    ledger_timing(work, model_dir, x, kaggle_csv)
+    os.environ.pop("SCORER_WIRE", None)
+    print(f"phase11: the ledger in {time.perf_counter() - t_phase:.3f} s; served launches "
+          f"{served}, train --ledger's {train_launches}")
+    return {"checks": checks, "train": train_launches, "served": served}
+
+
 def main() -> int:
     try:
         import torch
@@ -3615,6 +4139,7 @@ def main() -> int:
         tools = offline_tools(work, lin_store, gbt_dir)
         wires = quantized_wires(work, gbt_store, work / "tools" / "kaggle.csv")
         ingest = ingest_phase(work, gbt_store, lin_store, work / "tools" / "kaggle.csv", card)
+        ledger = ledger_phase(work, work / "tools" / "kaggle.csv")
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -3635,6 +4160,9 @@ def main() -> int:
             wires_launches=wires["fused_score"],
             ingest_launches=ingest["ingest"]["fused_score"],
             shadow_launches=ingest["shadow"]["fused_score"],
+            ledger_launches=ledger["served"]["fused_score"],
+            at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
+                            ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":
                {key: v[key] for key in ("ms", "kernel_ms", "upcast_ms", "plain_ms",
                                         "bound_ms", "library_ms") if key in v}
@@ -3646,6 +4174,9 @@ def main() -> int:
         row("knn_topk", trained["knn_topk"], knn, k_small, None,
             m=158, orientation_ms=k_small["orientation_ms"],
             tools_launches=tools.get("knn_topk", 0),
+            ledger_launches=ledger["train"]["knn_topk"],
+            at_m_158_d_34={key: ledger["checks"]["knn_topk"][key] for key in
+                           ("ms", "plain_ms", "bound_ms", "orientation_ms")},
             **{f"at_m_{m}" + (f"_d_{d}" if d != 30 else ""):
                {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "orientation_ms")}
                for (m, d), v in knn["timing"].items() if (m, d) != (158, 30)}),

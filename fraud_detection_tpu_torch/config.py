@@ -325,3 +325,38 @@ def worker_metrics_port() -> int:
     """``WORKER_METRICS_PORT`` — the SHAP worker's ``/metrics`` port (0
     serves none)."""
     return _get_int("WORKER_METRICS_PORT", 8001)
+
+
+# the ledger: per-entity velocity state on the device (ledger/)
+
+
+def ledger_enabled() -> bool:
+    """``LEDGER_ENABLED=1`` — train-side opt-in: ``train`` replays the
+    rows through the ledger body, fits on base + K velocity features and
+    stamps ``ledger_state.npz`` beside the weights. Serving needs no flag:
+    it widens whenever the loaded artifact carries that sidecar."""
+    return env_flag("LEDGER_ENABLED") is True
+
+
+def ledger_slots() -> int:
+    """``LEDGER_SLOTS`` — entity table size (power-of-two hash buckets);
+    colliding entities share a slot's aggregates. Default 8192."""
+    return _get_int("LEDGER_SLOTS", 8192)
+
+
+def ledger_halflife_s() -> float:
+    """``LEDGER_HALFLIFE_S`` — exponential decay half-life (seconds) of the
+    per-entity aggregates. Default 3600."""
+    return _get_float("LEDGER_HALFLIFE_S", 3600.0)
+
+
+def ledger_amount_col() -> int:
+    """``LEDGER_AMOUNT_COL`` — index of the transaction-amount column in
+    the base row (-1: the Kaggle schema's trailing ``Amount``)."""
+    return _get_int("LEDGER_AMOUNT_COL", -1)
+
+
+def ledger_synth_events_per_entity() -> int:
+    """``LEDGER_SYNTH_EVENTS`` — average events per synthesized pseudo-
+    entity when the training CSV carries no entity ids. Default 50."""
+    return _get_int("LEDGER_SYNTH_EVENTS", 50)

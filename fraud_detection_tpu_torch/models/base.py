@@ -30,19 +30,23 @@ class FraudModelBase:
         p = float(self._scorer.predict_proba(row[None, :])[0])
         return int(p >= 0.5), p
 
+    @property
+    def base_feature_names(self) -> list[str]:
+        """The schema clients send (a widened family computes the rest)."""
+        return self.feature_names
+
     def prepare_row(self, features: dict | list) -> np.ndarray:
-        """Reorder dict input to training feature order; validate arity."""
+        """Reorder dict input to the client schema's order; validate arity."""
+        names = self.base_feature_names
         if isinstance(features, dict):
-            missing = [n for n in self.feature_names if n not in features]
+            missing = [n for n in names if n not in features]
             if missing:
                 raise ValueError(f"missing features: {missing[:5]}")
-            vals = [float(features[n]) for n in self.feature_names]
+            vals = [float(features[n]) for n in names]
         else:
             vals = [float(v) for v in features]
-            if len(vals) != len(self.feature_names):
-                raise ValueError(
-                    f"expected {len(self.feature_names)} features, got {len(vals)}"
-                )
+            if len(vals) != len(names):
+                raise ValueError(f"expected {len(names)} features, got {len(vals)}")
         return np.asarray(vals, dtype=np.float32)
 
     def raw_explainer(self):

@@ -2,7 +2,11 @@
 
 Bundles :class:`LogisticParams` + :class:`ScalerParams` + the frozen
 feature order behind the scaler-folded :class:`BatchScorer`, built on the
-h2d wire ``SCORER_WIRE`` names unless the caller pins one.
+h2d wire ``SCORER_WIRE`` names unless the caller pins one. A
+ledger-widened model also carries its :class:`~fraud_detection_tpu_torch.
+ledger.state.LedgerSpec` and table snapshot (``ledger_state.npz``): its
+feature names span base + K velocity columns, and clients send the base
+schema.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from fraud_detection_tpu_torch.ckpt.checkpoint import (
     load_artifacts,
     save_artifacts,
 )
+from fraud_detection_tpu_torch.ledger.state import init_state, load_ledger, save_ledger
 from fraud_detection_tpu_torch.models.base import FraudModelBase
 from fraud_detection_tpu_torch.ops.linear_shap import (
     LinearShapExplainer,
@@ -46,7 +51,16 @@ class FraudLogisticModel(FraudModelBase):
         calibration: QuantCalibration | None = None,
         io_dtype: str | None = None,
         device: str | torch.device | None = None,
+        ledger_spec=None,
+        ledger_state=None,
     ):
+        self.ledger_spec = ledger_spec
+        self.ledger_state = ledger_state
+        if ledger_spec is not None and len(feature_names) != ledger_spec.n_features:
+            raise ValueError(
+                f"widened model carries {len(feature_names)} names but the "
+                f"ledger spec says {ledger_spec.n_features}"
+            )
         # the wire: SCORER_WIRE unless pinned. int8 takes the stamped
         # calibration (load() passes it), else one derived from the scaler;
         # with neither it serves f32, loudly, rather than refuse to serve
@@ -63,7 +77,8 @@ class FraudLogisticModel(FraudModelBase):
             io_dtype = "float32"
         self.calibration = calibration
         self._scorer = BatchScorer(params, scaler, io_dtype=io_dtype,
-                                   calibration=calibration, device=device)
+                                   calibration=calibration, device=device,
+                                   ledger_spec=ledger_spec)
         self.device = self._scorer.device
         self.params = params.to(self.device)
         self.scaler = scaler.to(self.device) if scaler is not None else None
@@ -74,6 +89,14 @@ class FraudLogisticModel(FraudModelBase):
                 f"{self._scorer.n_features} coefficients"
             )
         self._raw_explainer = None
+
+    @property
+    def base_feature_names(self) -> list[str]:
+        """The schema clients send: the base prefix for a ledger-widened
+        model (its velocity columns are computed on the device)."""
+        if self.ledger_spec is None:
+            return self.feature_names
+        return self.feature_names[: self.ledger_spec.n_base]
 
     def raw_explainer(self) -> LinearShapExplainer:
         """SHAP explainer taking *raw* inputs: scaler folded into the coef,
@@ -90,7 +113,14 @@ class FraudLogisticModel(FraudModelBase):
         return self._raw_explainer
 
     def explain_batch(self, x: np.ndarray) -> tuple[np.ndarray, float]:
+        """Raw-space SHAP. A base-width batch of a widened model (the
+        worker's backfill, the shadow's challenger: the table lives in the
+        serving flush) is explained through the null slot, so the velocity
+        columns' φ is w′·(null − μ); the worker's consistency check skips
+        those columns for this reason."""
         explainer = self.raw_explainer()
+        if self.ledger_spec is not None:
+            x = self.ledger_spec.widen(x)
         xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         phi = linear_shap(explainer, xt).cpu().numpy()
         return phi, float(explainer.expected_value)
@@ -104,6 +134,12 @@ class FraudLogisticModel(FraudModelBase):
         save_artifacts(directory, self.params, self.scaler, self.feature_names)
         if self.scaler is not None:
             save_calibration(directory, derive_calibration(self.scaler))
+        if self.ledger_spec is not None:
+            # the widened weights are meaningless without the spec and the
+            # table they were fitted against
+            state = self.ledger_state
+            save_ledger(directory, self.ledger_spec,
+                        state if state is not None else init_state(self.ledger_spec.slots))
         if joblib_too:
             try:
                 export_joblib_artifacts(
@@ -118,8 +154,10 @@ class FraudLogisticModel(FraudModelBase):
         cls, directory: str, device: str | torch.device | None = None
     ) -> "FraudLogisticModel":
         params, scaler, feature_names = load_artifacts(directory)
+        spec, state = load_ledger(directory) or (None, None)
         return cls(params, scaler, feature_names,
-                   calibration=load_calibration(directory), device=device)
+                   calibration=load_calibration(directory), device=device,
+                   ledger_spec=spec, ledger_state=state)
 
     @classmethod
     def load_joblib(

@@ -11,6 +11,10 @@ On the int8 wire both flushes take the codes: ``xf = codes · dequant_scale``
 is the one multiply that the histograms bin, the explain leg attributes
 and, for the forest, the score reads. On the bf16 wire they bin the
 bf16-rounded values, the values the model scored.
+With a ledger bound (a widened family), :func:`_fused_flush_ledger` runs
+instead: it reads and updates the per-entity table on the device, widens
+the batch with the K velocity features and scores, explains and folds the
+widened rows.
 The JAX package runs each as one XLA program per bucket; here they are
 eager PyTorch launches (one CUDA-graph replay per flush is later work).
 
@@ -36,6 +40,8 @@ import torch
 
 from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.device import resolve_device
+from fraud_detection_tpu_torch.ledger.features import _ledger_read_update, ledger_stats
+from fraud_detection_tpu_torch.ledger.state import LedgerState, device_state, host_state
 from fraud_detection_tpu_torch.monitor.baseline import (
     BaselineProfile,
     feature_histogram,
@@ -219,6 +225,58 @@ def _fused_flush_explain(
     return _cast_scores(scores, out_dtype), idx, val
 
 
+def _fused_flush_ledger(
+    window: DriftWindow,
+    ledger,  # ledger.LedgerState on the device, updated in place
+    x: torch.Tensor,  # (b, d_base) staged batch (f32, bf16 or int8 codes)
+    valid: torch.Tensor,  # (b,) 1.0 for real rows, 0.0 for bucket padding
+    decay: float,
+    feature_edges: torch.Tensor,  # (d_base + K, bins - 1): the widened edges
+    score_edges: torch.Tensor,
+    score_args,  # raw-space (coef, intercept) over the widened block
+    ledger_rows,  # (slot_idx, fp, ts, has_entity) device columns, (b,) each
+    null_features: torch.Tensor,  # (K,) features of entity-less rows
+    halflife_s: torch.Tensor,  # () f32 decay half-life
+    *,
+    score_fn,
+    dequant_scale: torch.Tensor | None = None,  # (d_base,) on the int8 wire
+    explain_args=None,  # raw-space (coef, background_mean) over d_base + K
+    explain_k: int = 0,  # reason codes per row (0: no explain leg)
+    amount_col: int = -1,  # the Amount column of the base row
+    out_dtype=torch.float32,
+):
+    """The ledger flush (the JAX package's ``_fused_flush_ledger`` and its
+    ``_ledger_serving_body``, one function here): the one widening sequence
+    for every wire and both explain settings — dequant (int8 wire) → the
+    amount column → the
+    ledger read-update (``ledger/features._ledger_read_update``, the body
+    the training replay runs) → concat → score through ``score_fn`` (the
+    ``fused_score`` kernel at d_base + K on the card) → the optional top-k
+    reason codes over the widened columns → the drift fold over the
+    widened edges. Entity-less and padding rows read the null features and
+    leave the table bitwise unchanged. Returns the scores (return wire
+    ``out_dtype``), or ``(scores, reason_idx, reason_val)`` with the
+    explain leg."""
+    xb = x.float()
+    if dequant_scale is not None:
+        xb = xb * dequant_scale
+    slot_idx, fp, ts, has_entity = ledger_rows
+    feats = _ledger_read_update(
+        ledger, slot_idx, fp, ts, xb[:, amount_col], has_entity,
+        null_features, halflife_s,
+    )
+    xf = torch.cat([xb, feats], dim=1)
+    scores = score_fn(score_args, xf).float()
+    out = _cast_scores(scores, out_dtype)
+    if explain_k > 0:
+        idx, val = _topk_attributions(xf, explain_args, explain_k)
+        out = (out, *_narrow_reasons(idx, val, xf.shape[1], out_dtype))
+    _fold_serving_batch(
+        window, xf, scores, valid, decay, feature_edges, score_edges
+    )
+    return out
+
+
 def _window_update(
     window: DriftWindow,
     x: torch.Tensor,  # (n, d) padded batch
@@ -342,6 +400,12 @@ class DriftMonitor:
             device=self.device,
         )
         self.rows_seen = 0  # monotonic (not decayed), host-side
+        # the ledger's per-entity table, bound when the served model is
+        # widened: updated in place by the ledger flush, under the same lock
+        self.ledger: LedgerState | None = None
+        self.ledger_spec = None
+        self._ledger_null: torch.Tensor | None = None
+        self._ledger_halflife: torch.Tensor | None = None
         # a flush's fold is several in-place launches: a stats() reader (or
         # a concurrent flush) must not interleave its own launches between
         # them, so each holds this lock while it enqueues
@@ -351,6 +415,42 @@ class DriftMonitor:
         """The forgetting factor for ``n`` live rows, rounded to float32
         (the value the reference's f32 device scalar holds)."""
         return float(np.float32(0.5 ** (n / self.halflife_rows)))
+
+    # -- the ledger: the per-entity velocity table ------------------------
+    def bind_ledger(self, spec, state=None) -> None:
+        """Attach the ledger table: flushes given ``ledger_rows`` then run
+        the widened :func:`_fused_flush_ledger`. ``state`` is a host
+        snapshot (``ledger_state.npz``) or None for a fresh table."""
+        with self._lock:
+            self.ledger_spec = spec
+            self.ledger = device_state(state, spec.slots, self.device)
+            self._ledger_null = torch.tensor(
+                spec.null_features, dtype=torch.float32, device=self.device
+            )
+            self._ledger_halflife = torch.tensor(
+                spec.halflife_s, dtype=torch.float32, device=self.device
+            )
+
+    def ledger_snapshot(self) -> LedgerState | None:
+        """Host copy of the live table (numpy, the file's dtypes); None
+        when no ledger is bound."""
+        with self._lock:
+            if self.ledger is None:
+                return None
+            # a device-side copy in stream order: later flushes cannot
+            # reach it, so the sync runs outside the lock
+            table = LedgerState(*(t.clone() for t in self.ledger))
+        return host_state(table)
+
+    def ledger_stats(self) -> dict | None:
+        """Scrape-time table telemetry (occupancy, collisions, evictions);
+        None when no ledger is bound."""
+        with self._lock:
+            if self.ledger is None:
+                return None
+            table = LedgerState(*(t.clone() for t in self.ledger))
+            halflife = self.ledger_spec.halflife_s
+        return ledger_stats(table, halflife)
 
     def fused_flush(
         self,
@@ -364,15 +464,33 @@ class DriftMonitor:
         out_dtype=torch.float32,
         explain_args=None,
         explain_k: int = 0,
+        ledger_rows=None,
     ):
         """Score one staged, bucket-padded device batch AND fold it into the
         window; with ``explain_k > 0`` also the top-k reason codes. With
         ``dequant_scale`` (the int8 wire) ``x`` holds codes that the flush
-        dequantizes. Returns the device score vector (return wire
-        ``out_dtype``), or the ``(scores, reason_idx, reason_val)`` triple.
-        Only enqueues device work: the caller's fetch is the flush's one
-        host sync."""
+        dequantizes. With a ledger bound and ``ledger_rows`` (the
+        ``(slot_idx, fp, ts, has_entity)`` device columns) it is the
+        widened :func:`_fused_flush_ledger`, which also updates the table.
+        Returns the device score vector (return wire ``out_dtype``), or the
+        ``(scores, reason_idx, reason_val)`` triple. Only enqueues device
+        work: the caller's fetch is the flush's one host sync."""
         decay = self._decay_for(n_live)
+        if ledger_rows is not None and self.ledger is not None:
+            spec = self.ledger_spec
+            # k clamps against the widened width the explain leg attributes
+            k = min(int(explain_k), spec.n_features) if explain_args is not None else 0
+            with self._lock:
+                out = _fused_flush_ledger(
+                    self.window, self.ledger, x, valid, decay,
+                    self._feature_edges, self._score_edges, score_args,
+                    ledger_rows, self._ledger_null, self._ledger_halflife,
+                    score_fn=score_fn, dequant_scale=dequant_scale,
+                    explain_args=explain_args, explain_k=k,
+                    amount_col=spec.amount_col, out_dtype=out_dtype,
+                )
+                self.rows_seen += n_live
+            return out
         explain_k = min(int(explain_k), int(x.shape[1]))  # k ≥ d clamps to d
         fixed = (self.window, x, valid, decay, self._feature_edges,
                  self._score_edges, score_args)
@@ -397,13 +515,23 @@ class DriftMonitor:
         zeros into every histogram. It stages through the scorer's wire
         encode and takes the scorer's fused spec (dequant scale included),
         so it runs what serving runs: it builds the kernel on first use and
-        warms the allocator for the bucket's shapes."""
+        warms the allocator for the bucket's shapes. With a ledger bound it
+        runs the ledger flush, whose all-padding rows leave the table
+        bitwise unchanged."""
         spec = scorer.fused_spec()
         slot = scorer.staging.acquire(bucket)
         try:
             slot.f32[:] = 0.0
             hx = scorer._encode_slot(slot)
             slot.valid[:] = 0.0
+            ledger_rows = None
+            if self.ledger is not None and spec.ledger is not None:
+                # has_entity 0 everywhere: the table is bitwise unchanged
+                slot.ensure_ledger()
+                cols = (slot.ls, slot.lf, slot.lt, slot.lh)
+                for c in cols:
+                    c[:] = 0
+                ledger_rows = tuple(scorer.to_device(c) for c in cols)
             out = self.fused_flush(
                 scorer.to_device(hx), scorer.to_device(slot.valid), 0,
                 spec.score_args, spec.score_fn,
@@ -411,6 +539,7 @@ class DriftMonitor:
                 out_dtype=out_dtype,
                 explain_args=spec.explain_args if explain_k else None,
                 explain_k=explain_k,
+                ledger_rows=ledger_rows,
             )
             for t in out if isinstance(out, tuple) else (out,):
                 t.cpu()
@@ -424,6 +553,10 @@ class DriftMonitor:
         x = np.asarray(x, np.float32)
         if x.ndim == 1:
             x = x[None, :]
+        if self.ledger_spec is not None:
+            # base-width rows into a widened window (the split path,
+            # feedback): the null features, as the null slot scores them
+            x = self.ledger_spec.widen(x)
         scores = np.asarray(scores, np.float32).reshape(-1)
         n = x.shape[0]
         b = _bucket(n, self.min_bucket)

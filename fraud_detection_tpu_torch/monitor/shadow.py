@@ -20,6 +20,11 @@ Tracked, with the same exponential window semantics as :mod:`drift`:
 - **challenger score PSI** against the baseline score histogram — per-model
   score drift, so the promotion recommendation can compare which model's
   output distribution still matches training.
+
+A ledger-widened challenger sees the base-width monitor rows: it scores and
+explains them through its null slot (``BatchScorer``'s null fold,
+``FraudLogisticModel.explain_batch``), since the entity table lives in the
+champion's flush.
 """
 
 from __future__ import annotations

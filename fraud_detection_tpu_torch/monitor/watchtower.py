@@ -19,7 +19,10 @@ on the split path it folds the drift window there, and the shadow
 challenger re-scores a sample of batches there (its ``fused_score`` or
 forest launches, off the request path); ``/monitor/feedback`` hands
 labeled rows to the same thread, which folds them into the calibration
-window only. ``ledger`` reads ``None`` in the status body (ROADMAP item 9).
+window only. With a ledger-widened model, :func:`build_watchtower` binds
+its table to the drift monitor (the flush updates it) and the status body's
+``ledger`` reads the table's occupancy, collisions and evictions, exported
+as the ``ledger_*`` series.
 """
 
 from __future__ import annotations
@@ -132,6 +135,9 @@ class Watchtower:
         # retrain_sender(reason) enqueues RETRAIN_TASK, once a drift episode
         self._retrain_sender = retrain_sender
         self._retrain_latched = False
+        # the table counts cumulative totals; a scrape advances the
+        # Counters by the delta since the last one
+        self._ledger_counts = {"hash_collisions": 0.0, "evictions": 0.0}
         # a scrape and a /monitor/status call may evaluate status() at once:
         # the latch's check and set must be atomic
         self._retrain_lock = threading.Lock()
@@ -265,7 +271,7 @@ class Watchtower:
             "flags": flags,
             "drift": d,
             "shadow": sh,
-            "ledger": None,
+            "ledger": self._refresh_ledger_metrics(),
             "challenger_source": self.challenger_source,
             "thresholds": {
                 "psi": thr.psi,
@@ -275,6 +281,27 @@ class Watchtower:
                 "min_rows": thr.min_rows,
             },
         }
+
+    def _refresh_ledger_metrics(self) -> dict | None:
+        """Export the table's telemetry: the occupancy gauge, and the
+        collision and eviction Counters advanced by the table totals' delta
+        since the last scrape. None when no ledger is bound."""
+        stats = self.drift.ledger_stats()
+        if stats is None:
+            metrics.ledger_active.set(0)
+            return None
+        metrics.ledger_active.set(1)
+        metrics.ledger_slot_occupancy.set(stats["slot_occupancy"])
+        for key, counter in (
+            ("hash_collisions", metrics.ledger_hash_collisions),
+            ("evictions", metrics.ledger_evictions),
+        ):
+            delta = stats[key] - self._ledger_counts[key]
+            if delta > 0:
+                counter.inc(delta)
+            # a negative delta: a rebound table, the baseline restarts
+            self._ledger_counts[key] = stats[key]
+        return stats
 
     def _maybe_trigger_retrain(self, recommendation: str, d: dict) -> None:
         """One ``RETRAIN_TASK`` a drift episode: latched until the
@@ -379,6 +406,16 @@ def build_watchtower(model, model_source: str, device=None, retrain_sender=None)
         profile, challenger=challenger, challenger_source=challenger_source,
         retrain_sender=retrain_sender, device=device,
     )
+    spec = getattr(model, "ledger_spec", None)
+    if spec is not None:
+        # a widened family: the flush runs the ledger program from the
+        # first batch, over the table stamped beside the weights
+        wt.drift.bind_ledger(spec, getattr(model, "ledger_state", None))
+        metrics.ledger_active.set(1)
+        log.info(
+            "ledger bound: %d slots, halflife %.0fs, %d base + %d velocity features",
+            spec.slots, spec.halflife_s, spec.n_base, spec.n_features - spec.n_base,
+        )
     log.info("watchtower active: baseline over %d rows, challenger=%s",
              profile.n_rows, challenger_source or "none")
     return wt

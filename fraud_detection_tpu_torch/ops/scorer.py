@@ -72,13 +72,19 @@ class FusedSpec(NamedTuple):
     is the per-feature (d,) f32 scale the flush multiplies the codes by
     for the drift histograms, and ``score_codes`` says whether
     ``score_fn`` takes the codes (linear: the scale folded into the
-    weights) or the dequantized rows (the forest)."""
+    weights) or the dequantized rows (the forest). ``ledger`` is the
+    scorer's :class:`~fraud_detection_tpu_torch.ledger.state.LedgerSpec`
+    when the family is widened: the flush then runs the ledger program
+    (``monitor/drift._fused_flush_ledger``), which computes the velocity
+    block on the device and scores the widened rows with the raw-space
+    ``score_args``."""
 
     score_fn: Callable
     score_args: Any
     dequant_scale: torch.Tensor | None = None
     score_codes: bool = True
     explain_args: Any = None
+    ledger: Any = None
 
 
 #: d2h score wire formats: name → the dtype the fused flush returns.
@@ -169,9 +175,11 @@ class _StagingSlot:
     ``scratch`` to quantize through (the raw rows must survive the encode:
     the split path's monitoring copy reads them), the validity mask (1.0
     for real rows, 0.0 for bucket padding), the return-wire decode buffer
-    and, on first use, the explain decode buffers."""
+    and, on first use, the explain decode buffers and the ledger's
+    per-row columns."""
 
-    __slots__ = ("bucket", "f32", "io", "scratch", "valid", "scores", "ei", "ev", "pool")
+    __slots__ = ("bucket", "f32", "io", "scratch", "valid", "scores", "ei", "ev",
+                 "ls", "lf", "lt", "lh", "pin", "pool")
 
     def __init__(self, bucket: int, n_features: int, pool=None, pin=False,
                  wire: str = "float32"):
@@ -191,7 +199,25 @@ class _StagingSlot:
         self.scores = np.zeros((bucket,), np.float32)
         self.ei: np.ndarray | None = None  # (bucket, k) int32 reason indices
         self.ev: np.ndarray | None = None  # (bucket, k) f32 reason values
+        # the ledger flush's per-row columns (staged, then copied h2d)
+        self.ls: np.ndarray | None = None  # (bucket,) int64 table slot
+        self.lf: np.ndarray | None = None  # (bucket,) int64 fingerprint
+        self.lt: np.ndarray | None = None  # (bucket,) f32 event time
+        self.lh: np.ndarray | None = None  # (bucket,) f32 has-entity mask
+        self.pin = pin
         self.pool = pool
+
+    def ensure_ledger(self) -> None:
+        """Materialize the ledger's per-row staging columns — first ledger
+        flush of a slot only, counted in the pool's ``allocations``."""
+        if self.ls is None:
+            if self.pool is not None:
+                with self.pool._lock:
+                    self.pool.allocations += 1
+            self.ls = _host_zeros((self.bucket,), self.pin, torch.int64)
+            self.lf = _host_zeros((self.bucket,), self.pin, torch.int64)
+            self.lt = _host_zeros((self.bucket,), self.pin)
+            self.lh = _host_zeros((self.bucket,), self.pin)
 
     def ensure_explain(self, k: int) -> None:
         """Materialize the (bucket, k) explain decode buffers — first
@@ -271,8 +297,10 @@ class _BucketedScorer:
 
     @property
     def staging_features(self) -> int:
-        """The width of a staged row (the ingest lanes' frame width)."""
-        return self.n_features
+        """The width of a staged row (the ingest lanes' frame width): the
+        base schema for a ledger-widened scorer, whose velocity columns
+        are computed on the device and never ride the wire."""
+        return getattr(self, "n_base_features", self.n_features)
 
     @property
     def staging(self) -> StagingPool:
@@ -280,7 +308,7 @@ class _BucketedScorer:
         pool = getattr(self, "_staging", None)
         if pool is None:
             pool = self._staging = StagingPool(
-                self.n_features, pin=self.device.type == "cuda",
+                self.staging_features, pin=self.device.type == "cuda",
                 wire=self.io_dtype,
             )
         return pool
@@ -333,10 +361,14 @@ class _BucketedScorer:
 
     def warmup(self, max_bucket: int = 4096) -> None:
         """Score one zero batch per bucket of the ladder, so the first
-        requests find the kernel built and the allocator's blocks cached."""
+        requests find the kernel built and the allocator's blocks cached.
+        A ledger-widened scorer warms both widths: the base schema (the
+        null-slot fold) and the widened block."""
+        widths = sorted({self.n_features, self.staging_features})
         b = self.min_bucket
         while b <= max_bucket:
-            self.predict_proba(np.zeros((b, self.n_features), np.float32))
+            for d in widths:
+                self.predict_proba(np.zeros((b, d), np.float32))
             b *= 2
 
     def _pad(self, x: np.ndarray) -> np.ndarray:
@@ -414,7 +446,18 @@ class BatchScorer(_BucketedScorer):
     On the int8 wire the dequant scale folds into the weights as well
     (``codes·(s∘w′) = (codes∘s)·w′``), so the kernel scores the codes
     upcast to f32 with no extra device work; with no calibration given it
-    is derived from the scaler (``derive_calibration``'s default range)."""
+    is derived from the scaler (``derive_calibration``'s default range).
+
+    ``ledger_spec`` makes the family ledger-widened: the weights span base
+    + K velocity features, clients send base rows, and the ledger flush
+    computes the velocity block on the device and scores the widened rows
+    with the raw-space weights (on the int8 wire the calibration is sliced
+    to the base columns and NOT folded into the weights: the flush
+    dequantizes the codes explicitly). A base-width batch scored outside
+    the flush (the split path, the worker, ``predict_single``) takes the
+    null slot: the stamped null features folded into the intercept, exact
+    for a linear family. A widened batch (the replay's, an evaluation's)
+    skips the wire encode: its velocity columns are raw f32."""
 
     #: served model family — the ``scorer_served_family`` gauge label
     family = "linear"
@@ -427,6 +470,7 @@ class BatchScorer(_BucketedScorer):
         io_dtype: str = "float32",
         calibration: QuantCalibration | None = None,
         device: str | torch.device | None = None,
+        ledger_spec=None,
     ):
         if io_dtype not in WIRES:
             raise ValueError(f"io_dtype must be float32|bfloat16|int8, got {io_dtype}")
@@ -441,6 +485,16 @@ class BatchScorer(_BucketedScorer):
         self._raw_coef = self.coef
         self.intercept = folded.intercept.reshape(())
         self.n_features = int(self.coef.shape[0])
+        self.ledger_spec = ledger_spec
+        self.n_base_features = (
+            ledger_spec.n_base if ledger_spec is not None else self.n_features
+        )
+        if ledger_spec is not None and ledger_spec.n_features != self.n_features:
+            raise ValueError(
+                f"ledger spec widens {ledger_spec.n_base} → "
+                f"{ledger_spec.n_features} features but the params cover "
+                f"{self.n_features}"
+            )
         # the fused explain leg's raw-space linear-SHAP params: the folded
         # coef over raw inputs with the scaler mean as background
         # (φⱼ = w′ⱼ·(xⱼ − μⱼ)), the same pair models/logistic.raw_explainer
@@ -459,11 +513,42 @@ class BatchScorer(_BucketedScorer):
                         "stats for calibration"
                     )
                 calibration = derive_calibration(scaler)
+            if ledger_spec is not None:
+                # the wire carries the base columns only
+                calibration = QuantCalibration(
+                    scale=np.asarray(
+                        calibration.scale[: self.n_base_features], np.float32
+                    ),
+                    sigma_range=calibration.sigma_range,
+                )
             self._bind_calibration(calibration)
-            self.coef = (self.coef * self._dequant_scale).contiguous()
+            if ledger_spec is None:
+                self.coef = (self.coef * self._dequant_scale).contiguous()
+        if ledger_spec is not None:
+            # the null slot: entity-less rows score with the stamped null
+            # features, which fold exactly into the intercept
+            nf = torch.as_tensor(ledger_spec.null_features, device=self.device)
+            self._null_intercept = self.intercept + torch.dot(
+                nf, self._raw_coef[self.n_base_features:]
+            )
+            base = self._raw_coef[: self.n_base_features]
+            self._null_coef = (
+                base * self._dequant_scale if self._quant_scale is not None else base
+            ).contiguous()
+
+    def _prepare_host(self, x: np.ndarray):
+        if self.ledger_spec is not None and x.shape[1] == self.n_features:
+            return x  # a widened block: raw f32, never wire-encoded
+        return super()._prepare_host(x)
 
     def fused_spec(self) -> FusedSpec:
         explain_args = (self._raw_coef, self._explain_mean)
+        if self.ledger_spec is not None:
+            return FusedSpec(
+                _raw_score_linear, (self._raw_coef, self.intercept),
+                dequant_scale=self._dequant_scale if self._quant_scale is not None else None,
+                score_codes=False, explain_args=explain_args, ledger=self.ledger_spec,
+            )
         if self._quant_scale is not None:
             return FusedSpec(
                 _raw_score_linear, (self.coef, self.intercept),
@@ -476,7 +561,13 @@ class BatchScorer(_BucketedScorer):
         )
 
     def _score_padded(self, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
-        return _cast_scores(_raw_score_linear((self.coef, self.intercept), x), out_dtype)
+        if self.ledger_spec is None:
+            args = (self.coef, self.intercept)
+        elif x.shape[1] == self.n_base_features:
+            args = (self._null_coef, self._null_intercept)
+        else:
+            args = (self._raw_coef, self.intercept)
+        return _cast_scores(_raw_score_linear(args, x), out_dtype)
 
 
 class GBTBatchScorer(_BucketedScorer):

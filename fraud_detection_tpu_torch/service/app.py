@@ -4,7 +4,9 @@
   JSON banner
 - ``GET /health`` — readiness with per-dependency status, 503 when degraded
 - ``POST /predict`` — validate → score through the micro-batcher (the fused
-  flush: the family's score body + drift fold + optional reason codes) →
+  flush: the family's score body + drift fold + optional reason codes; for
+  a ledger-widened model the ledger flush, keyed by the optional
+  ``entity_id`` and ``timestamp``) →
   persist a PENDING row, enqueue ``xai_tasks.compute_shap`` for the SHAP
   worker (``service/worker.py``) → respond with the JAX app's response
   fields
@@ -28,7 +30,8 @@ with ``WATCHTOWER_RETRAIN_TRIGGER=1`` a drift episode enqueues one
 ``watchtower.trigger_retrain`` task on the broker.
 
 The model directory holds either family (``load_any_model``): the logistic
-flagship (``fused_score`` kernel) or a GBT forest (TreeSHAP reason codes
+flagship (``fused_score`` kernel; ledger-widened when the directory holds
+``ledger_state.npz``) or a GBT forest (TreeSHAP reason codes
 through the ``tree_shap`` kernel). The results DB (``DATABASE_URL``) and the
 broker (``CELERY_BROKER_URL``) are the JAX package's sqlite schemas, so a
 JAX app or worker can share them.
@@ -276,11 +279,20 @@ def create_app(
             payload = req.json()
             features = parse_transaction(payload)
             row = model.prepare_row(features)
-            parse_entity(payload)
+            entity_id, event_ts = parse_entity(payload)
         except ValueError as e:
             raise HTTPError(422, str(e)) from e
         _OBSERVE_PARSE(time.perf_counter() - t_parse)
         metrics.ingest_requests.labels("json").inc()
+        # the ledger: hash the entity once at the edge; the (slot,
+        # fingerprint, origin-relative time) triple rides the queue item
+        # into the ledger flush. Entity-less requests (or a stateless
+        # model) pass None and score through the null slot.
+        entity = None
+        ledger_spec = getattr(model, "ledger_spec", None)
+        if ledger_spec is not None and entity_id is not None:
+            slot_idx, fp = ledger_spec.row_keys(entity_id)
+            entity = (slot_idx, fp, ledger_spec.rel_ts(event_ts or time.time()))
         timeline = (
             RequestTimeline(correlation_id=corr_id) if batcher.telemetry else None
         )
@@ -288,9 +300,9 @@ def create_app(
         with metrics.timed(metrics.inference_duration):
             try:
                 if batcher.explain:
-                    score, reasons = await batcher.score_ex(row, timeline)
+                    score, reasons = await batcher.score_ex(row, timeline, entity)
                 else:
-                    score = await batcher.score(row, timeline)
+                    score = await batcher.score(row, timeline, entity)
             except AdmissionFull as e:
                 return _admission_shed(e, metrics.ingest_shed.labels("json"))
         metrics.ingest_rows.labels("json").inc()

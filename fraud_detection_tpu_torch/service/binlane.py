@@ -51,11 +51,12 @@ the int8 dequant scale as payload when the int8 layout is served)::
                   4 internal
 
 The same payload (no length prefix) posts to ``POST /ingest/batch`` as
-``application/x-fraud-frame``. The entity and timestamp columns are
-received and length-checked; the port's families are stateless (the ledger
-is ROADMAP item 9), so they derive no ledger columns, as in the JAX package
-for a family that is not widened. The trace field is parsed and validated,
-and no span is emitted yet (ROADMAP item 13).
+``application/x-fraud-frame``. For a ledger-widened model the entity and
+timestamp columns become the ledger's per-row columns with the JSON
+edge's hash and clock (:meth:`_FrameDecoder.entity_cols`), so a frame feeds
+the ledger flush; a stateless family receives and length-checks them and
+derives nothing, as in the JAX package. The trace field is parsed and
+validated, and no span is emitted yet (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ import time
 import numpy as np
 
 from fraud_detection_tpu_torch import config
+from fraud_detection_tpu_torch.ledger.state import _MULT
 from fraud_detection_tpu_torch.ops.scorer import _bucket
 from fraud_detection_tpu_torch.service import metrics
 from fraud_detection_tpu_torch.service.errors import ProtocolError
@@ -264,13 +266,17 @@ class _FrameDecoder:
         self.max_rows = max_rows
         self.dequant = dequant
         self.d = int(scorer.staging_features)
+        self.spec = getattr(scorer, "ledger_spec", None)
         # reusable scratch (sized at first use): int8 codes, a byte-order
         # staging block for big-endian hosts, the entity and ts columns,
-        # the u8 reason indices, the trace field
+        # the derived ledger columns, the u8 reason indices, the trace field
         self._i8: np.ndarray | None = None
         self._fb: np.ndarray | None = None
         self._ent_raw: np.ndarray | None = None
         self._ts_raw: np.ndarray | None = None
+        self._ls: np.ndarray | None = None
+        self._lf: np.ndarray | None = None
+        self._lt: np.ndarray | None = None
         self._ei8: np.ndarray | None = None
         self._tp = bytearray(TRACE_LEN)
 
@@ -281,6 +287,9 @@ class _FrameDecoder:
             self._fb = np.zeros((cap, self.d), np.float32)
             self._ent_raw = np.zeros(cap, np.uint32)
             self._ts_raw = np.zeros(cap, np.float64)
+            self._ls = np.zeros(cap, np.int64)
+            self._lf = np.zeros(cap, np.int64)
+            self._lt = np.zeros(cap, np.float32)
 
     def features_into(self, slot, n: int, layout: int, buf) -> None:
         """Decode the feature column (a little-endian byte buffer) into the
@@ -293,6 +302,34 @@ class _FrameDecoder:
             rows = np.frombuffer(buf, "<f4", n * self.d).reshape(n, self.d)
             np.copyto(slot.f32[:n], rows, casting="unsafe")
 
+    def entity_cols(self, n: int, ent_buf, ts_buf):
+        """The ledger's ``(slots, fingerprints, timestamps)`` columns from a
+        frame's entity column (u32 fingerprints, little-endian) and
+        optional timestamp column (f64 epochs), by the JSON edge's hash and
+        clock: the slot by multiply-shift (the product's low 32 bits, then
+        the top ``log2_slots``), the time origin-relative in float64, at
+        least 1e-3, then float32; without timestamps, now. None for a
+        stateless family or a frame without entities. Views of reusable
+        scratch: valid until this decoder's next frame."""
+        if ent_buf is None or self.spec is None:
+            return None
+        self._ensure(n)
+        ls, lf, lt = self._ls[:n], self._lf[:n], self._lt[:n]
+        np.copyto(lf, np.frombuffer(ent_buf, "<u4", n))
+        # < 2^64 as an unsigned product; int64 wraps it, and the mask keeps
+        # the low 32 bits either way
+        np.multiply(lf, _MULT, out=ls)
+        np.bitwise_and(ls, 0xFFFFFFFF, out=ls)
+        np.right_shift(ls, 32 - self.spec.log2_slots, out=ls)
+        if ts_buf is not None:
+            rel = self._ts_raw[:n]
+            np.subtract(np.frombuffer(ts_buf, "<f8", n), self.spec.ts_origin, out=rel)
+            np.maximum(rel, 1e-3, out=rel)
+            np.copyto(lt, rel, casting="unsafe")
+        else:
+            lt[:] = self.spec.rel_ts(time.time())
+        return ls, lf, lt
+
     def check_finite(self, slot, n: int) -> None:
         """The edge poison guard: a NaN/Inf feature is a client input error
         answered at the frame, as ``/predict`` answers 422."""
@@ -301,8 +338,8 @@ class _FrameDecoder:
 
     def decode_payload(self, slot, layout: int, flags: int, n: int, payload):
         """Decode one frame payload (length-checked here) into ``slot``.
-        Returns ``(entity_cols, traceparent)``; the entity columns are None
-        for the port's stateless families."""
+        Returns ``(entity_cols, traceparent)``; the entity columns
+        (:meth:`entity_cols`) are None for a stateless family."""
         feat, ent, ts, tp = _payload_sizes(layout, flags, self.d, n)
         if len(payload) != feat + ent + ts + tp:
             raise FrameError(
@@ -313,7 +350,11 @@ class _FrameDecoder:
         self.features_into(slot, n, layout, mv[:feat])
         trace = _parse_trace_field(mv[feat + ent + ts:]) if tp else None
         self.check_finite(slot, n)
-        return None, trace
+        entity = self.entity_cols(
+            n, mv[feat:feat + ent] if ent else None,
+            mv[feat + ent:feat + ent + ts] if ts else None,
+        )
+        return entity, trace
 
     def reasons_u8(self, slot, n: int, k: int) -> np.ndarray:
         """The slot's int32 reason indices narrowed to the wire's u8 (the
@@ -351,8 +392,9 @@ def decode_frame_body(scorer, body, max_rows: int, dequant=None):
 def block_from_arrays(scorer, rows: np.ndarray, entity_fps=None, timestamps=None,
                       max_rows: int | None = None):
     """An admitted block straight from parsed arrays (the msgpack lane):
-    validate, copy once into a freshly acquired staging slot. Returns
-    ``(slot, n, entity_cols)``; the caller releases the slot. Raises
+    validate, copy once into a freshly acquired staging slot, derive the
+    ledger columns. Returns ``(slot, n, entity_cols)``; the caller
+    releases the slot. Raises
     :class:`FrameError` on client input errors (→ 422)."""
     rows = np.ascontiguousarray(rows, np.float32)
     if rows.ndim != 2 or rows.shape[1] != scorer.staging_features:
@@ -368,9 +410,18 @@ def block_from_arrays(scorer, rows: np.ndarray, entity_fps=None, timestamps=None
     for name, col in (("entity_fps", entity_fps), ("timestamps", timestamps)):
         if col is not None and np.shape(col) != (n,):
             raise FrameError(f"{name} must align with rows", "flags")
+    entity = None
+    if entity_fps is not None:
+        ts_buf = (
+            None if timestamps is None
+            else np.ascontiguousarray(timestamps, "<f8").tobytes()
+        )
+        entity = _FrameDecoder(scorer, n, None).entity_cols(
+            n, np.ascontiguousarray(entity_fps, "<u4").tobytes(), ts_buf
+        )
     slot = scorer.staging.acquire(_bucket(n, scorer.min_bucket))
     np.copyto(slot.f32[:n], rows, casting="unsafe")
-    return slot, n, None
+    return slot, n, entity
 
 
 def encode_response_body(slot, n: int, ek: int) -> bytes:
@@ -645,9 +696,11 @@ class BinaryIngestServer:
             consumed += feat
             if ent or ts:
                 dec._ensure(n)
+            cols = []
             for size, buf in ((ent, dec._ent_raw), (ts, dec._ts_raw)):
+                cols.append(memoryview(buf).cast("B")[:size] if size else None)
                 if size:
-                    if not _recv_into_exact(conn, memoryview(buf).cast("B")[:size]):
+                    if not _recv_into_exact(conn, cols[-1]):
                         raise ProtocolError("connection closed mid-frame")
                     consumed += size
             if tp:
@@ -656,6 +709,7 @@ class BinaryIngestServer:
                 consumed += tp
                 _parse_trace_field(dec._tp)  # validated; spans are item 13
             dec.check_finite(slot, n)
+            entity = dec.entity_cols(n, *cols)
         except FrameError as e:
             if slot is not None:
                 scorer.staging.release(slot)
@@ -678,7 +732,7 @@ class BinaryIngestServer:
         timeline = RequestTimeline() if self.batcher.telemetry else None
         try:
             self._c_req.inc()
-            ek = self._admit(slot, n, timeline)
+            ek = self._admit(slot, n, entity, timeline)
         except AdmissionFull as e:
             scorer.staging.release(slot)
             self._c_shed.inc()
@@ -708,11 +762,12 @@ class BinaryIngestServer:
                 raise ProtocolError("connection closed mid-frame")
             k -= len(mv)
 
-    def _admit(self, slot, n: int, timeline=None) -> int:
+    def _admit(self, slot, n: int, entity=None, timeline=None) -> int:
         """One loop hop a frame: schedule score_block on the serving loop
         and wait for the flush to resolve it."""
         fut = asyncio.run_coroutine_threadsafe(
-            self.batcher.score_block(IngestBlock(slot, n), timeline), self._loop
+            self.batcher.score_block(IngestBlock(slot, n, entity), timeline),
+            self._loop,
         )
         return fut.result()
 

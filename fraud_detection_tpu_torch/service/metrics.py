@@ -3,7 +3,8 @@
 The series the port's slices touch, under the JAX package's names, labels
 and buckets (dashboards and alert rules read them): the API counters and
 latency histograms, the micro-batcher's flush-path counters and fusion
-gauges, the watchtower's drift and shadow series, the ingest lanes', the
+gauges, the watchtower's drift and shadow series, the ledger's, the ingest
+lanes', the
 request stages', and the SHAP worker's and task queue's series. Counters
 export ``<name>_total``; histograms export ``_bucket``/``_sum``/``_count``.
 No ``prometheus_client``: the exposition format (text 0.0.4) is written
@@ -315,6 +316,35 @@ watchtower_shadow_batches = Counter(
 )
 watchtower_retrain_triggers = Counter(
     "watchtower_retrain_triggers", "Retrain-trigger tasks enqueued by watchtower"
+)
+
+# the ledger: the per-entity table of a widened family (ledger/)
+ledger_slot_occupancy = Gauge(
+    "ledger_slot_occupancy",
+    "Fraction of entity-table slots holding live (undecayed) evidence; "
+    "raise LEDGER_SLOTS before this saturates",
+)
+ledger_active = Gauge(
+    "ledger_active",
+    "1 while the served model is ledger-widened and the entity table is "
+    "bound to the fused flush; 0 for a stateless family",
+)
+ledger_hash_collisions = Counter(
+    "ledger_hash_collisions",
+    "Rows that wrote into a live slot owned by a different entity "
+    "fingerprint (the aggregates are shared; sustained growth means "
+    "LEDGER_SLOTS is undersized)",
+)
+ledger_evictions = Counter(
+    "ledger_evictions",
+    "Slot takeovers: a new entity claimed a slot whose previous owner's "
+    "evidence had decayed below noise",
+)
+ledger_null_entity_rows = Counter(
+    "ledger_null_entity_rows",
+    "Scored rows that carried no entity_id: they score through the null "
+    "slot (the training rows' mean velocity features folded into the "
+    "intercept)",
 )
 
 # the ingest lanes: json (/predict), msgpack and binary (/ingest/batch and

@@ -32,6 +32,13 @@ int8 codes), then either:
 - **split**: the score alone; the watchtower's ingest thread folds the
   window afterwards.
 
+For a ledger-widened model (the watchtower's drift monitor holds the
+entity table) the fused flush is the ledger flush: :meth:`MicroBatcher.
+_stage_ledger` stages each item's entity columns — a ``/predict`` row's
+``(slot, fingerprint, rel_ts)`` triple from the edge, an ingest block's
+column triple — beside the rows, and entity-less rows take the null slot,
+counted in ``ledger_null_entity_rows``.
+
 The flush's host sync is the device-to-host copy of its outputs. With
 spyglass on (``SPYGLASS_ENABLED``, the default) every item may carry a
 ``RequestTimeline``: the flush stamps its six stages, ``device_compute``
@@ -97,8 +104,8 @@ class IngestBlock:
     """One admitted ingest frame: ``slot.f32[:n]`` holds the staged rows
     (parsed straight off the wire into the pooled buffer); results decode
     back into the same slot's ``scores``/``ei``/``ev`` buffers. ``entity``
-    is the ledger's column triple, None while the served family is
-    stateless (the port has no ledger yet, ROADMAP item 9)."""
+    is the ledger's ``(slots, fingerprints, timestamps)`` column triple
+    (fingerprint 0: an entity-less row), or None: every row entity-less."""
 
     __slots__ = ("slot", "n", "entity")
 
@@ -295,11 +302,11 @@ class MicroBatcher:
             raise AdmissionFull(self.admit_retry_after, self._queued_rows)
         self._queued_rows += n
 
-    async def _submit(self, row: np.ndarray, timeline=None):
+    async def _submit(self, row: np.ndarray, timeline=None, entity=None):
         t0 = time.perf_counter() if timeline is not None else 0.0
         self._admit(1)
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        await self._queue.put((row, fut, timeline, None))
+        await self._queue.put((row, fut, timeline, entity))
         if timeline is not None:
             _OBSERVE_ADMIT(time.perf_counter() - t0)
         return await fut
@@ -328,18 +335,21 @@ class MicroBatcher:
             _OBSERVE_ADMIT(time.perf_counter() - t0)
         return await fut
 
-    async def score(self, row: np.ndarray, timeline=None) -> float:
+    async def score(self, row: np.ndarray, timeline=None, entity=None) -> float:
         """Submit one feature row; returns P(fraud). ``timeline`` (a
-        ``RequestTimeline``) is stamped at every stage boundary."""
-        res = await self._submit(row, timeline)
+        ``RequestTimeline``) is stamped at every stage boundary. ``entity``
+        is the ledger's ``(slot, fingerprint, rel_ts)`` triple from the
+        edge, or None: the row scores through the null slot (counted in
+        ``ledger_null_entity_rows`` when the flush is the ledger's)."""
+        res = await self._submit(row, timeline, entity)
         return res[0] if isinstance(res, tuple) else res
 
-    async def score_ex(self, row: np.ndarray, timeline=None):
+    async def score_ex(self, row: np.ndarray, timeline=None, entity=None):
         """Submit one feature row; returns ``(P(fraud), reasons)`` where
         ``reasons`` is ``(indices, values)`` — the top-k reason codes from
         the same flush as the score — or None when the flush carried no
-        explain leg."""
-        res = await self._submit(row, timeline)
+        explain leg. ``entity`` as in :meth:`score`."""
+        res = await self._submit(row, timeline, entity)
         if isinstance(res, tuple):
             return res[0], (res[1], res[2])
         return res, None
@@ -498,6 +508,11 @@ class MicroBatcher:
         try:
             t_flush_start = time.perf_counter() if telemetry else 0.0
             hx = scorer.stage_items(slot, batch)
+            ledger_rows = None
+            n_null = 0
+            if (target is not None and target[1].ledger is not None
+                    and target[0].ledger is not None):
+                ledger_rows, n_null = self._stage_ledger(scorer, slot, batch)
             t_padded = time.perf_counter() if telemetry else 0.0
             x_dev = scorer.to_device(hx)
             explain_k = 0
@@ -512,7 +527,10 @@ class MicroBatcher:
                     out_dtype=self._out_dtype,
                     explain_args=spec.explain_args if explain_k else None,
                     explain_k=explain_k,
+                    ledger_rows=ledger_rows,
                 )
+                if n_null:
+                    metrics.ledger_null_entity_rows.inc(n_null)
                 device_calls = 1
                 # the window folded inside the flush: rows only for a shadow
                 need_rows = self.watchtower.wants_rows()
@@ -548,6 +566,53 @@ class MicroBatcher:
             raise
         return (probs, explain_out, device_calls, monitor_rows, monitor_scores,
                 monitor_reasons, stamps, slot)
+
+    @staticmethod
+    def _stage_ledger(scorer, slot, batch: list[tuple]):
+        """Fill the slot's ledger columns from the queue items' entity
+        triples — a single row's ``(slot, fingerprint, rel_ts)``, a block's
+        column triple (fingerprint 0 in it: an entity-less row) — and copy
+        them to the device. An entity-less row (None) takes the null path:
+        has_entity 0, counted. A triple whose time is not > 0 takes now on
+        the table's origin-relative clock (``spec.rel_ts``): a raw epoch
+        would anchor the slot ~1.7e9 s ahead and freeze its decay. Returns
+        ``((slot_idx, fp, ts, has_entity) on the device, n_null)``."""
+        slot.ensure_ledger()
+        ls, lf, lt, lh = slot.ls, slot.lf, slot.lt, slot.lh
+        for c in (ls, lf, lt, lh):
+            c[:] = 0
+        now = scorer.ledger_spec.rel_ts(time.time())
+        n_null = 0
+        # single rows collect into lists for one fancy-index assignment a
+        # column; blocks copy their columns in bulk
+        pos: list[int] = []
+        vals: list[tuple] = []
+        off = 0
+        for item in batch:
+            rows, ent = item[0], item[3]
+            if rows.ndim == 2:
+                k = rows.shape[0]
+                if ent is None:
+                    n_null += k
+                else:
+                    sl = slice(off, off + k)
+                    ls[sl], lf[sl], lt[sl] = ent
+                    has = lf[sl] != 0
+                    lh[sl] = has
+                    n_null += k - int(has.sum())
+                off += k
+                continue
+            if ent is None:
+                n_null += 1
+            else:
+                s, fp, ts = ent
+                pos.append(off)
+                vals.append((s, fp, ts if ts and ts > 0 else now))
+            off += 1
+        if pos:
+            s_v, f_v, t_v = zip(*vals)
+            ls[pos], lf[pos], lt[pos], lh[pos] = s_v, f_v, t_v, 1.0
+        return tuple(scorer.to_device(c) for c in (ls, lf, lt, lh)), n_null
 
     async def _flush(self, batch: list[tuple]) -> None:
         n_rows = _batch_rows(batch)

@@ -99,8 +99,9 @@ def parse_transaction(payload) -> list[float] | dict[str, float]:
 
 def parse_entity(payload) -> tuple[str | None, float | None]:
     """Validate the optional entity fields of a /predict body →
-    ``(entity_id, timestamp)``. The stateless logistic family ignores them,
-    but a malformed one answers the same 422 as in the JAX app.
+    ``(entity_id, timestamp)``: the ledger's key and event time for a
+    ledger-widened model (a stateless family ignores them); a malformed one
+    answers the same 422 as in the JAX app.
 
     Raises ValueError with a client-facing message (→ 422)."""
     entity_id = payload.get("entity_id")

@@ -105,7 +105,8 @@ class XaiWorker:
         agree with this full-vector backfill: the serve indices'
         attributions re-derived here within tolerance, and the serve top-1
         within tolerance of the true max (strict index equality would
-        false-alarm on near-ties). A mismatch counts and warns."""
+        false-alarm on near-ties); for a ledger-widened model only the base
+        columns. A mismatch counts and warns."""
         if not isinstance(serve_topk, dict):
             return True
         try:
@@ -117,10 +118,26 @@ class XaiWorker:
         if not idxs or len(idxs) != vals.shape[0] or max(idxs) >= phi.shape[0]:
             return True  # malformed/absent payload: nothing to check
         atol = self._explain_atol
-        ok = bool(
-            np.all(np.abs(phi[idxs] - vals) <= atol)
-            and abs(float(phi.max()) - float(vals[0])) <= atol
-        )
+        spec = getattr(self.model, "ledger_spec", None)
+        if spec is not None:
+            # a widened family: the serve-time attributions of the velocity
+            # columns used the live table, which this backfill cannot see
+            # (it explains through the null slot), so compare the base
+            # columns only, and skip the top-1 check when a velocity column
+            # led the serve ranking
+            keep = [j for j, i in enumerate(idxs) if i < spec.n_base]
+            if not keep:
+                return True
+            ok = bool(
+                np.all(np.abs(phi[[idxs[j] for j in keep]] - vals[keep]) <= atol)
+                and (idxs[0] >= spec.n_base
+                     or abs(float(phi[: spec.n_base].max()) - float(vals[0])) <= atol)
+            )
+        else:
+            ok = bool(
+                np.all(np.abs(phi[idxs] - vals) <= atol)
+                and abs(float(phi.max()) - float(vals[0])) <= atol
+            )
         if not ok:
             metrics.xai_explain_consistency_failures.inc()
             log.warning(
@@ -296,7 +313,7 @@ class XaiWorker:
         ``max_batch``, so the first claimed batch finds the kernels built
         and the allocator's blocks cached (run_forever runs it; tests drive
         run_once/run_batch cold)."""
-        d = len(self.model.feature_names)
+        d = self.model.scorer.staging_features  # the rows tasks carry
         b = self.model.scorer.min_bucket
         top = _bucket(self.max_batch, b)
         while b <= top:

@@ -3,13 +3,18 @@ device.
 
     python -m fraud_detection_tpu_torch.train --data data/creditcard.csv \\
         [--model logistic|gbt --folds 5 --seed 42 --solver auto|lbfgs|sgd \\
-         --no-smote --no-register --out-dir DIR --checkpoint-dir DIR]
+         --no-smote --no-register --ledger --out-dir DIR --checkpoint-dir DIR]
 
 The JAX package's ``train.py`` for ``model_family="logistic"`` and
 ``"gbt"``, on the card unless ``DEVICE=cpu`` (or ``device="cpu"``) is
 given:
 
-1. load the CSV and split it 80/20, stratified;
+1. load the CSV and split it 80/20, stratified; with ``--ledger`` (or
+   ``LEDGER_ENABLED=1``; the logistic family only, a forest warns and goes
+   on without it) replay every row through the ledger body on the device
+   (``ledger.materialize_features``: seeded pseudo-entities, timestamps
+   from the ``Time`` column) and widen the rows with the K velocity
+   features;
 2. fit the scaler on the train split;
 3. k-fold CV with SMOTE inside each fold (no leakage), one AUC per fold;
 4. fit once more on the SMOTE'd full train split (L-BFGS, or SGD above
@@ -21,16 +26,18 @@ given:
 5. the test AUC;
 6. the drift baseline in raw feature space from the test scores;
 7. ``model.npz`` + ``feature_names.json`` + ``quant_calibration.npz`` +
-   ``monitor_profile.npz`` into ``--out-dir`` and the run's artifact dir
+   ``monitor_profile.npz`` (+ ``ledger_state.npz``: the spec, whose null
+   features are the training rows' mean velocity features and whose clock
+   origin continues the replay's, and the replay's final table) into
+   ``--out-dir`` and the run's artifact dir
    (a forest stores the scaler folded into its bin edges and a 128-row
    raw-space TreeSHAP background);
 8. the AUC gate: register the run's artifact under alias ``prod`` when the
    test AUC reaches ``MLFLOW_AUC_THRESHOLD``;
 9. return the metrics.
 
-The ledger-widened and wide families and the device trace of
-``--profile-dir`` are later slices: asking for them raises, naming the
-ROADMAP item that ports them. Besides the JAX package's metrics, the
+The wide family and the device trace of ``--profile-dir`` are later
+slices: asking for them raises, naming the ROADMAP item that ports them. Besides the JAX package's metrics, the
 returned dict holds ``stages`` (seconds per stage, the device synchronised
 at each boundary) and ``lbfgs_iters`` (iterations of each L-BFGS fit).
 """
@@ -53,6 +60,12 @@ from fraud_detection_tpu_torch.data.loader import (
     stratified_split,
 )
 from fraud_detection_tpu_torch.device import resolve_device
+from fraud_detection_tpu_torch.ledger import (
+    LEDGER_FEATURE_NAMES,
+    LedgerSpec,
+    materialize_features,
+    synthesize_entities,
+)
 from fraud_detection_tpu_torch.models.gbt import FraudGBTModel
 from fraud_detection_tpu_torch.models.logistic import FraudLogisticModel
 from fraud_detection_tpu_torch.monitor.baseline import build_baseline_profile, save_profile
@@ -75,7 +88,6 @@ SGD_ROW_THRESHOLD = 2_000_000
 
 #: families and options of the JAX trainer that later slices port
 _UNPORTED = {
-    "ledger": "the ledger-widened family (ROADMAP queue 1, item 9)",
     "wide": "the wide family (ROADMAP queue 1, item 10)",
     "profile_dir": "the device trace of a training run (ROADMAP queue 1, item 13)",
 }
@@ -154,13 +166,18 @@ def train(
     gbt_config: GBTConfig | None = None,
     checkpoint_dir: str | None = None,
     device: str | torch.device | None = None,
+    ledger: bool | None = None,
 ) -> dict:
-    """Run the pipeline; returns a metrics dict."""
+    """Run the pipeline; returns a metrics dict. ``ledger`` None reads
+    ``LEDGER_ENABLED``."""
     if model_family not in ("logistic", "gbt"):
         raise ValueError(f"model family must be logistic|gbt, got {model_family!r}")
-    for flag, key in (("LEDGER_ENABLED", "ledger"), ("WIDE_ENABLED", "wide")):
-        if config.env_flag(flag):
-            raise NotImplementedError(f"{flag}: {_UNPORTED[key]} is not ported yet")
+    if config.env_flag("WIDE_ENABLED"):
+        raise NotImplementedError(f"WIDE_ENABLED: {_UNPORTED['wide']} is not ported yet")
+    use_ledger = ledger if ledger is not None else config.ledger_enabled()
+    if use_ledger and model_family != "logistic":
+        log.warning("ledger widening supports the logistic family only; off")
+        use_ledger = False
     t0 = time.time()
     dev = resolve_device(device)
     stages = _Stages(dev)
@@ -169,9 +186,29 @@ def train(
     log.info("loaded %s: %d rows, %d positives", data_csv, len(y), int(y.sum()))
 
     train_idx, test_idx = stratified_split(y, 0.2, seed)
+    stages.mark("load")
+    ledger_spec = ledger_state = None
+    if use_ledger:
+        spec0 = LedgerSpec.from_config(x.shape[1])
+        ents, ts = synthesize_entities(
+            x, feature_names, seed, config.ledger_synth_events_per_entity()
+        )
+        feats, ledger_state = materialize_features(spec0, x, ents, ts, device=dev)
+        x = np.concatenate([x, feats], axis=1).astype(np.float32)
+        feature_names = list(feature_names) + list(LEDGER_FEATURE_NAMES)
+        ledger_spec = dataclasses.replace(
+            spec0,
+            # entity-less serving rows read the training rows' mean
+            # velocity features (the null slot)
+            null_features=feats[train_idx].mean(axis=0).astype(np.float32),
+            # serve-time wall clocks continue the replay's clock
+            ts_origin=time.time() - (float(ts.max()) + 1.0),
+        )
+        log.info("ledger widening on: %d slots, halflife %.0fs, +%d velocity "
+                 "features", spec0.slots, spec0.halflife_s, len(LEDGER_FEATURE_NAMES))
+        stages.mark("ledger_replay")
     x_train, y_train = x[train_idx], y[train_idx]
     x_test, y_test = x[test_idx], y[test_idx]
-    stages.mark("load")
 
     scaler = scaler_fit(torch.as_tensor(x_train, device=dev))
     # device-resident from here on: fold gathers, SMOTE and the fits read
@@ -308,7 +345,8 @@ def train(
                 device=dev,
             )
         else:
-            model = FraudLogisticModel(params, scaler, feature_names, device=dev)
+            model = FraudLogisticModel(params, scaler, feature_names, device=dev,
+                                       ledger_spec=ledger_spec, ledger_state=ledger_state)
         for directory in (out_dir, model_artifact):
             model.save(directory)
             save_profile(directory, profile)
@@ -369,7 +407,11 @@ def main(argv=None):
     ap.add_argument("--no-smote", action="store_true")
     ap.add_argument("--no-register", action="store_true")
     ap.add_argument("--wide", action="store_true", help="not ported yet")
-    ap.add_argument("--ledger", action="store_true", help="not ported yet")
+    ap.add_argument(
+        "--ledger", action="store_true",
+        help="widen the rows with the ledger's per-entity velocity features "
+        "(replayed through the serving body); also LEDGER_ENABLED=1",
+    )
     ap.add_argument("--out-dir", default="models")
     ap.add_argument("--profile-dir", default=None, help="not ported yet")
     ap.add_argument(
@@ -379,7 +421,6 @@ def main(argv=None):
     )
     args = ap.parse_args(argv)
     for key, asked in (
-        ("ledger", args.ledger),
         ("wide", args.wide), ("profile_dir", args.profile_dir is not None),
     ):
         if asked:
@@ -394,6 +435,7 @@ def main(argv=None):
         out_dir=args.out_dir,
         model_family=args.model,
         checkpoint_dir=args.checkpoint_dir,
+        ledger=True if args.ledger else None,
     )
     print(metrics)
 

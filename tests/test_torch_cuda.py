@@ -954,3 +954,100 @@ def test_one_fence_a_flush_with_spyglass_on(monkeypatch):
         assert flushes >= 4
         assert len(fences) == (flushes if telemetry else 0)
         assert all(d.type == "cuda" for d in fences)
+
+
+def _ledger_rows(n=3000, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 30)).astype(np.float32)
+    x[:, -1] = np.abs(x[:, -1]) * 50.0
+    names = ["Time"] + [f"V{i}" for i in range(1, 29)] + ["Amount"]
+    x[:, 0] = np.sort(rng.uniform(0, 3 * 3600, n))
+    return x, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [64, 8192])
+def test_ledger_replay_is_bitwise_on_the_card(slots):
+    """Two replays on the card are bitwise equal (the accumulating
+    index_put_ sorts; the maxima are order-free), and the card's replay
+    matches the CPU's: last_ts, fingerprints and counts equal, the float
+    columns within rtol/atol 1e-5."""
+    from fraud_detection_tpu_torch.ledger import (
+        LedgerSpec,
+        materialize_features,
+        synthesize_entities,
+    )
+
+    _require_card()
+    x, names = _ledger_rows()
+    spec = LedgerSpec(n_base=30, slots=slots, halflife_s=3600.0, amount_col=-1)
+    ents, ts = synthesize_entities(x, names, 42, 20)
+    (f1, s1), (f2, s2), (fc, sc) = (
+        materialize_features(spec, x, ents, ts, device=d) for d in ("cuda", "cuda", "cpu")
+    )
+    assert f1.tobytes() == f2.tobytes()
+    for a, b, c, name in zip(s1, s2, sc, s1._fields):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), name
+        if name == "acc":
+            np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(a, c, err_msg=name)
+    np.testing.assert_allclose(f1, fc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ledger_flush_on_the_card_is_a_replay(tmp_path):
+    """A widened model served on the card: one fused_score launch a ledger
+    flush (at d = 34), and the served table bitwise a replay of the served
+    rows in the flush partition."""
+    from fraud_detection_tpu_torch.ledger import (
+        LEDGER_FEATURE_NAMES,
+        LedgerSpec,
+        materialize_features,
+    )
+    from fraud_detection_tpu_torch.ledger.state import host_state
+    from fraud_detection_tpu_torch.ops.logistic import LogisticParams
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit
+
+    dev = _require_card()
+    x, names = _ledger_rows()
+    spec = LedgerSpec(n_base=30, slots=8192, halflife_s=3600.0, amount_col=-1)
+    ents = [f"card-{i % 37}" for i in range(len(x))]
+    ts = np.arange(1.0, len(x) + 1.0, dtype=np.float32)
+    feats, state = materialize_features(spec, x, ents, ts, device="cuda")
+    xw = np.concatenate([x, feats], axis=1).astype(np.float32)
+    rng = np.random.default_rng(1)
+    params = LogisticParams(coef=torch.from_numpy(rng.standard_normal(34).astype(np.float32) * 0.2),
+                            intercept=torch.tensor(-0.3))
+    model = FraudLogisticModel(params, scaler_fit(torch.from_numpy(xw)),
+                               names + list(LEDGER_FEATURE_NAMES), io_dtype="float32",
+                               device=dev, ledger_spec=spec, ledger_state=state)
+    scores = model.scorer.predict_proba(xw[:2048])
+    wt = Watchtower(build_baseline_profile(xw[:2048], scores, feature_names=model.feature_names,
+                                           device="cuda"), device=dev)
+    wt.drift.bind_ledger(spec, state)
+    b = MicroBatcher(model.scorer, watchtower=wt, telemetry=False, explain=True)
+    tgt = b._fused_target(model.scorer)
+    rows, batch_ents, batch_ts = x[:320], [f"card-{i % 9}" if i % 7 else None
+                                           for i in range(320)], ts[-1] + 5.0 + np.arange(320.0)
+    try:
+        before = kernels.FUSED_SCORE_LAUNCHES
+        for lo in range(0, 320, 64):
+            items = []
+            for i in range(lo, lo + 64):
+                ent = None
+                if batch_ents[i] is not None:
+                    s, fp = spec.row_keys(batch_ents[i])
+                    ent = (s, fp, float(np.float32(batch_ts[i])))
+                items.append((rows[i], None, None, ent))
+            out = b._flush_device(model.scorer, tgt, items)
+            model.scorer.staging.release(out[-1])
+        assert kernels.FUSED_SCORE_LAUNCHES == before + 5
+        _, replayed = materialize_features(spec, rows, batch_ents,
+                                           batch_ts.astype(np.float32), state=state,
+                                           batch=64, device="cuda")
+        snap = wt.drift.ledger_snapshot()
+        for a, c, name in zip(host_state(snap), replayed, snap._fields):
+            assert a.tobytes() == np.asarray(c).tobytes(), name
+    finally:
+        wt.close()

@@ -66,7 +66,7 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
 
 def test_training_modules_are_among_those_imported():
     """The blocked-import probe walks the package; the training, GBT,
-    explain, offline-tool and ingest slices' modules are in it."""
+    explain, offline-tool, ingest and ledger slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -80,7 +80,8 @@ def test_training_modules_are_among_those_imported():
                 "eda", "plots", "data.synthetic", "tracking.server",
                 "tracking.http_client", "service.loading", "data.native",
                 "telemetry", "telemetry.timeline", "telemetry.flightrecorder",
-                "service.binlane", "service.legacy", "monitor.shadow"):
+                "service.binlane", "service.legacy", "monitor.shadow",
+                "ledger", "ledger.state", "ledger.features", "ledger.replay"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 

@@ -106,21 +106,48 @@ def test_artifacts_interchange(tmp_path, rows):
 
 
 @pytest.mark.parametrize("sidecar", [None, "ledger_state.npz", "wide_params.npz"])
-def test_unported_families_raise(tmp_path, sidecar):
-    """Ledger and wide sidecars raise beside a logistic model and (None)
-    beside a GBT forest, which itself now loads."""
+def test_unported_families_raise(tmp_path, sidecar, rows, request):
+    """Only the wide sidecar still raises (ROADMAP item 10). A ledger
+    sidecar beside a logistic model loads the ledger-widened family, whose
+    base rows score as in the JAX package; (None) a GBT forest carrying a
+    ledger sidecar loads as the forest it is, as the JAX loader does."""
+    from fraud_detection_tpu.ledger.state import LEDGER_FEATURE_NAMES, LedgerSpec, init_state
+    from fraud_detection_tpu.ledger.state import save_ledger as jax_save_ledger
+    from fraud_detection_tpu.models import load_any_model as jax_load_any_model
+    from fraud_detection_tpu.ops.logistic import LogisticParams as JaxParams
+    from fraud_detection_tpu.ops.scaler import scaler_fit as jax_scaler_fit
+
     d = str(tmp_path / "m")
+    spec = LedgerSpec(n_base=30, slots=64, halflife_s=600.0, amount_col=-1,
+                      null_features=np.asarray([1.0, 40.0, 3.0, 0.1], np.float32))
     if sidecar is None:  # a GBT forest carrying a ledger sidecar
-        os.makedirs(d)
-        np.savez(os.path.join(d, "model.npz"), gbt_leaf_value=np.zeros(3, np.float32))
-        with open(os.path.join(d, "feature_names.json"), "w") as f:
-            json.dump(["a"], f)
-        np.savez(os.path.join(d, "ledger_state.npz"), x=np.zeros(1))
+        shutil.copytree(request.getfixturevalue("gbt_dirs"), d)
+        jax_save_ledger(d, spec, init_state(64))
+    elif sidecar == "ledger_state.npz":  # a widened logistic model, by JAX
+        rng = np.random.default_rng(7)
+        xw = np.concatenate([rows[:512], np.abs(rng.standard_normal((512, 4)))], axis=1)
+        names = JaxModel.load(MODELS).feature_names + list(LEDGER_FEATURE_NAMES)
+        params = JaxParams(coef=rng.standard_normal(34).astype(np.float32) * 0.2,
+                           intercept=np.float32(-0.4))
+        JaxModel(params, jax_scaler_fit(xw.astype(np.float32)), names,
+                 ledger_spec=spec).save(d)
     else:
         shutil.copytree(MODELS, d)
         np.savez(os.path.join(d, sidecar), x=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_any_model(d, device="cpu")
+    if sidecar == "wide_params.npz":
+        with pytest.raises(NotImplementedError, match="item 10"):
+            load_any_model(d, device="cpu")
+        return
+    port, jm = load_any_model(d, device="cpu"), jax_load_any_model(d)
+    assert type(port).__name__ == type(jm).__name__
+    if sidecar is None:
+        assert getattr(port, "ledger_spec", None) is None
+    else:
+        assert port.ledger_spec.n_features == 34 and port.scorer.staging_features == 30
+    np.testing.assert_allclose(
+        port.scorer.predict_proba(rows[:64]),
+        np.asarray(jm.scorer.predict_proba(rows[:64])).reshape(-1), rtol=0, atol=1e-6,
+    )
 
 
 @pytest.fixture(scope="module")

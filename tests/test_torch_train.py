@@ -426,11 +426,20 @@ def test_main_trains_gbt(synth_csv, tmp_path, monkeypatch, capsys):
         assert z["gbt_split_feature"].shape == (3, 3)
 
 
-def test_main_refuses_unported_families(monkeypatch, capsys):
-    for argv, item in (
-        (["--ledger"], "item 9"),
-        (["--wide"], "item 10"), (["--profile-dir", "x"], "item 13"),
-    ):
+def test_main_refuses_unported_families(synth_csv, tmp_path, monkeypatch, capsys):
+    """``--ledger`` now trains the ledger-widened family (a run on the
+    synthetic CSV, its sidecar stamped); ``--wide`` and ``--profile-dir``
+    and ``WIDE_ENABLED`` keep refusing, each naming its ROADMAP item."""
+    monkeypatch.setenv("DEVICE", "cpu")
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
+    monkeypatch.setenv("LEDGER_SLOTS", "64")
+    main(["--data", synth_csv, "--ledger", "--folds", "2", "--no-register",
+          "--out-dir", str(tmp_path / "m")])
+    assert "test_auc" in capsys.readouterr().out
+    with np.load(tmp_path / "m" / "ledger_state.npz") as z:
+        assert int(z["slots"]) == 64 and z["acc"].shape == (64, 3)
+    assert len(FraudLogisticModel.load(str(tmp_path / "m"), device="cpu").feature_names) == 34
+    for argv, item in ((["--wide"], "item 10"), (["--profile-dir", "x"], "item 13")):
         with pytest.raises(SystemExit):
             main(argv)
         assert item in capsys.readouterr().err
