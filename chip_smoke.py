@@ -255,6 +255,32 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    (CUDA events), device busy and launches (profiler); the read-update
    alone (its launches and device busy); the replay of the Kaggle-sized
    CSV (284,807 rows), its wall time on the card.
+12. **the wide family** — ``train --wide`` (``wide=True``: 16,384
+   buckets, 4 cross templates, 50 events a pseudo-entity, SMOTE off,
+   class weight balanced, 20 epochs) twice on the card and once on the
+   CPU over the committed CSV: ``wide_params.npz`` stamped, ``knn_topk``
+   never launched, the two card fits' coef, intercept and table bitwise
+   equal, card − CPU test AUC within 1e-3; the fit alone rebuilt from the
+   trainer's inputs (bitwise its table): wall, launches, device busy
+   share. The cross indices of the committed CSV's rows and of the 765
+   float32 neighbours of the amount bucket's edges, hashed on the card, on
+   the CPU and by numpy's uint32 arithmetic: the differing rows counted,
+   each one a ``log1p`` edge case (float64 ``log1p(|a|)·8`` within 2
+   float32 ulps of an integer); the hash and the gather alone at 1024 rows
+   (launches, busy, eager time). Then the card run's directory served over
+   HTTP on the f32 and the int8 wire (``SCORER_EXPLAIN=topk``): 144
+   ``/predict`` with ``entity_id`` over 36 entities and 24 without, half
+   from 16 threads of a client process, one 256-row ``/ingest/batch``
+   frame with fingerprints (every 9th 0) and its rows again through
+   ``/predict``: ``fused_score`` once a flush, the lane bitwise
+   ``/predict``, every score within 1e-5 of float64 numpy on the wire's
+   values widened by numpy's own hash and table gather, reason codes as
+   the numpy ranking of the widened attributions but across a 2e-5 tie,
+   entity-less rows within 1e-6 of the base-only null fold, the int8 wire
+   within JAX's wide gate of the f32 wire (mean 5e-2, median 1e-2),
+   ``scorer_wide_fused 1`` and ``wide_model_shards 1`` in ``/metrics``.
+   Then a 1024-row wide flush and the stateless flush (phase 3's model),
+   in turns: host p50, stream p50, device busy and launches.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -4068,6 +4094,499 @@ def ledger_phase(work: Path, kaggle_csv: Path) -> dict:
     return {"checks": checks, "train": train_launches, "served": served}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the wide family
+# ---------------------------------------------------------------------------
+
+WIDE_TRAIN_AUC_TOL = 1e-3  # card vs CPU train --wide
+WIDE_ENTITIES = 36  # entities of the /predict traffic
+WIDE_PREDICTS = 144  # /predict with entity_id
+WIDE_NULL_PREDICTS = 24  # /predict without one
+WIDE_CLIENTS = 16  # client threads of the concurrent part
+WIDE_FRAME_ROWS = 256  # the /ingest/batch frame (every 9th fingerprint 0)
+WIDE_WIRES = ("float32", "int8")
+#: JAX's wide int8-vs-f32 gate (tests/test_broadside.py:291): mean, median
+WIDE_INT8_MEAN, WIDE_INT8_MEDIAN = 5e-2, 1e-2
+WIDE_NULL_ATOL = 1e-6  # an entity-less row against the base-only null fold
+WIDE_FLUSH_TIMED = 30  # 1024-row flushes a form (wide, stateless), in turns
+WIDE_STEP_TIMED = 100  # eager hash + gather calls timed
+#: a log1p boundary case: float64 log1p(|a|)·8 within this many float32
+#: ulps of an integer (the amount bucket's edge)
+WIDE_BOUNDARY_ULPS = 2
+
+
+def np_cross_indices(x, fps, spec):
+    """The cross indices by numpy's own uint32 arithmetic (which wraps), from
+    the JAX package's constants: independent of the port's int64 hash."""
+    import numpy as np
+
+    u = np.uint32
+    x = np.asarray(x, np.float32)
+    abucket = np.clip(np.floor(np.log1p(np.abs(x[:, spec.amount_col])) * np.float32(8.0)),
+                      0.0, 255.0).astype(u)
+    t = np.maximum(x[:, spec.time_col], np.float32(0.0))
+    hour = np.mod(np.floor(t / np.float32(3600.0)), np.float32(24.0)).astype(u)
+    cols = [j for j in range(spec.n_base) if j not in (spec.time_col, spec.amount_col)][:24]
+    weights = (np.ones(len(cols), u) << np.arange(len(cols), dtype=u)).astype(u)
+    signs = ((x[:, cols] > 0).astype(u) * weights).sum(axis=1, dtype=u)
+    fields = (abucket, hour, signs, abucket * u(24) + hour)[: spec.n_cross]
+    salts = (0x9E3779B1, 0x7F4A7C15, 0x94D049BB, 0xD6E8FEB9)
+    out = []
+    for c, f in enumerate(fields):
+        h = (np.asarray(fps, u) ^ (f * u(2654435761))) + u(salts[c])
+        h ^= h >> u(16)
+        h *= u(0x85EBCA6B)
+        h ^= h >> u(13)
+        h *= u(0xC2B2AE35)
+        h ^= h >> u(16)
+        out.append((h >> u(32 - spec.log2_buckets)).astype(np.int64))
+    return np.stack(out, axis=1)
+
+
+def np_widen(xf, fps, table, spec):
+    """``[xf, table[idx] · has_entity]`` from :func:`np_cross_indices`."""
+    import numpy as np
+
+    contrib = table[np_cross_indices(xf, fps, spec)] * (np.asarray(fps) != 0)[:, None]
+    return np.concatenate([xf, contrib.astype(np.float32)], axis=1).astype(np.float32)
+
+
+def boundary_rows(amounts) -> object:
+    """Rows whose amount bucket sits on a log1p last-ulp edge."""
+    import numpy as np
+
+    v = np.log1p(np.abs(np.asarray(amounts, np.float64))) * 8.0
+    return np.abs(v - np.rint(v)) <= WIDE_BOUNDARY_ULPS * np.spacing(np.abs(v).astype(np.float32))
+
+
+def amount_probes():
+    """The 765 float32 neighbours of the amount bucket's edges expm1(k/8),
+    k = 1..255: below, at and above each."""
+    import numpy as np
+
+    v = np.expm1(np.arange(1, 256) / 8.0).astype(np.float32)
+    a = np.concatenate([np.nextafter(v, np.float32(0)), v, np.nextafter(v, np.float32(np.inf))])
+    x = np.zeros((a.shape[0], 30), np.float32)
+    x[:, -1] = a
+    return x
+
+
+def wide_train(work: Path) -> tuple[Path, dict, dict]:
+    """``train --wide`` twice on the card and once on the CPU over the
+    committed CSV at the defaults (16,384 buckets, 4 templates, 50 events a
+    pseudo-entity): the sidecar stamped, ``knn_topk`` never launched (SMOTE
+    off), the two card fits bitwise equal, card − CPU test AUC within 1e-3.
+    Then the fit alone, rebuilt from the same inputs: bitwise the trained
+    table, its launches and device busy share. Returns the card run's
+    directory, its launches and the fit's profile."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch import config
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv, stratified_split
+    from fraud_detection_tpu_torch.ledger import synthesize_entities
+    from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.crosses import (
+        _raw_cross_indices,
+        entity_fingerprints,
+        load_wide,
+        spec_from_config,
+    )
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit, scaler_transform
+    from fraud_detection_tpu_torch.train import train
+
+    csv = str(ROOT / "data" / "creditcard.csv")
+    for knob in ("WIDE_BUCKETS", "WIDE_ENABLED", "LEDGER_ENABLED", "LEDGER_AMOUNT_COL",
+                 "LEDGER_SYNTH_EVENTS", "MLFLOW_AUC_THRESHOLD"):
+        os.environ.pop(knob, None)
+    runs = {}
+    for tag, dev in (("cuda", "cuda"), ("cuda_again", "cuda"), ("cpu", "cpu")):
+        os.environ["MLFLOW_TRACKING_URI"] = f"file:{work / 'wide' / tag / 'mlruns'}"
+        out = work / "wide" / tag / "models"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = train(data_csv=csv, out_dir=str(out), device=dev, wide=True, register=False)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        runs[tag] = (m, out, launches)
+        if not (out / "wide_params.npz").exists():
+            raise AssertionError(f"phase12: train --wide on {tag} stamped no wide_params.npz")
+        print(f"phase12: train --wide on {dev} ({tag}): test AUC {m['test_auc']:.6f}, "
+              f"{wall:.3f} s wall; stages (s): "
+              + ", ".join(f"{k} {v:.6f}" for k, v in m["stages"].items())
+              + f"; kernel launches {launches}")
+    card, card_dir, card_launches = runs["cuda"]
+    if card_launches.get("knn_topk", 0) != 0 or card_launches.get("fused_score", 0) < 1:
+        raise AssertionError(f"phase12: train --wide launched {card_launches} (SMOTE is off: "
+                             "no knn_topk; the test scores: fused_score)")
+    spec, table = load_wide(str(card_dir))
+    if spec.buckets != 1 << 14 or spec.n_cross != 4 or spec.amount_col != 29 or spec.n_base != 30:
+        raise AssertionError(f"phase12: the stamped spec is not the defaults: {spec}")
+    again_dir = runs["cuda_again"][1]
+    same = [np.load(card_dir / f)[k].tobytes() == np.load(again_dir / f)[k].tobytes()
+            for f, k in (("model.npz", "coef"), ("model.npz", "intercept"),
+                         ("wide_params.npz", "table"))]
+    print(f"phase12: two card fits: coef, intercept, table bitwise equal {same}")
+    if not all(same):
+        raise AssertionError("phase12: two card fits differ in their bits")
+    gap = card["test_auc"] - runs["cpu"][0]["test_auc"]
+    cpu_table = load_wide(str(runs["cpu"][1]))[1]
+    print(f"phase12: card - cpu test AUC {gap:+.3e} (within {WIDE_TRAIN_AUC_TOL}); table max "
+          f"gap {np.abs(table - cpu_table).max():.3e}, occupancy "
+          f"{float(np.mean(np.abs(table) > 1e-12)):.4f}")
+    if not abs(gap) <= WIDE_TRAIN_AUC_TOL:
+        raise AssertionError(f"phase12: card - cpu test AUC {gap:+.3e}")
+
+    # the fit alone, from the trainer's own inputs
+    x, y, names = load_creditcard_csv(csv)
+    tr, _ = stratified_split(y, 0.2, 42)
+    spec0 = spec_from_config(x.shape[1])
+    ents, _ = synthesize_entities(x, names, 42, config.ledger_synth_events_per_entity())
+    fps = entity_fingerprints(ents, x.shape[0])
+    dev = torch.device("cuda")
+    xs = scaler_transform(scaler_fit(torch.as_tensor(x[tr], device=dev)),
+                          torch.as_tensor(x[tr], device=dev))
+    # hashed on the card and fitted where they lie, as train --wide does
+    fp_tr = torch.as_tensor(fps[tr].astype(np.int64), device=dev)
+    idx = _raw_cross_indices(torch.as_tensor(x[tr], device=dev), fp_tr, spec=spec0)
+    has = (fp_tr != 0).to(torch.float32)
+
+    def fit():
+        return wide_sgd_fit(xs, idx, has, y[tr], spec0, epochs=20, seed=42,
+                            class_weight="balanced", device=dev)
+
+    _, t_fit = fit()
+    if t_fit.cpu().numpy().tobytes() != table.tobytes():
+        raise AssertionError("phase12: the fit alone differs from train --wide's table")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ivs = profiled_intervals(fit)
+    copies = sum(1 for name, _, _ in ivs if "Memcpy" in name or "Memset" in name)
+    busy = union_us([(s, e) for _, s, e in ivs])
+    prof = {"wall_ms": wall_ms, "busy_us": busy, "launches": len(ivs) - copies,
+            "copies": copies, "rows": int(len(tr))}
+    print(f"phase12: the fit alone ({len(tr)} rows, 20 epochs, batch "
+          f"{min(4096, len(tr))}): bitwise train --wide's table; {wall_ms:.3f} ms wall (host "
+          f"clock, synchronised); device busy {busy:.3f} us = {busy / 1e3 / wall_ms:.4%} of the "
+          f"wall, {prof['launches']} kernel launches + {copies} copies/memsets (profiler); by "
+          "name: " + by_name(ivs))
+    return card_dir, card_launches, prof
+
+
+def wide_hash_check(model_dir: Path) -> dict:
+    """The crosses hashed on the card, on the CPU (the port's int64 hash)
+    and by numpy's uint32 arithmetic, over the committed CSV's rows (the
+    trainer's fingerprints) and the 765 amount-edge probes: the differing
+    rows counted, each one a log1p boundary case. Then the hash and the
+    gather alone on 1024 rows: launches, device busy, eager time."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+    from fraud_detection_tpu_torch.ledger import synthesize_entities
+    from fraud_detection_tpu_torch.ops.crosses import (
+        _gather_contrib,
+        _raw_cross_indices,
+        cross_indices,
+        entity_fingerprints,
+        load_wide,
+    )
+
+    spec, table = load_wide(str(model_dir))
+    x, _, names = load_creditcard_csv(str(ROOT / "data" / "creditcard.csv"))
+    fps = entity_fingerprints(synthesize_entities(x, names, 42, 50)[0], x.shape[0])
+    probes = amount_probes()
+    out = {}
+    for what, rows, f in (("the committed CSV", x, fps),
+                          ("the amount-edge probes", probes, np.full(len(probes), 12345, np.uint32))):
+        card = cross_indices(rows, f, spec, device="cuda")
+        cpu = cross_indices(rows, f, spec, device="cpu")
+        npy = np_cross_indices(rows, f, spec)
+        edge = boundary_rows(rows[:, spec.amount_col])
+        counts = {}
+        for pair, (a, b) in (("card/cpu", (card, cpu)), ("card/numpy", (card, npy)),
+                             ("cpu/numpy", (cpu, npy))):
+            differ = (a != b).any(axis=1)
+            counts[pair] = int(differ.sum())
+            if (differ & ~edge).any():
+                raise AssertionError(f"phase12: {what}: {pair} differ on "
+                                     f"{int((differ & ~edge).sum())} rows off the log1p edges")
+        out[what] = counts
+        print(f"phase12: cross indices of {what} ({rows.shape[0]} rows, {int(edge.sum())} on a "
+              f"log1p edge within {WIDE_BOUNDARY_ULPS} ulps): rows that differ " +
+              ", ".join(f"{k} {v}" for k, v in counts.items()) + " (every one an edge case)")
+
+    dev = torch.device("cuda")
+    xb = torch.from_numpy(x[:1024]).to(dev)
+    fp = torch.from_numpy(fps[:1024].astype(np.int64)).to(dev)
+    has = (fp != 0).float()
+    tbl = torch.from_numpy(table).to(dev)
+
+    def step():
+        return _gather_contrib(tbl, _raw_cross_indices(xb, fp, spec=spec), has)
+
+    per_call = eager_ms(step, iters=WIDE_STEP_TIMED, warm=5)
+    ivs = profiled_intervals(step)
+    out["hash_gather"] = {"eager_ms": per_call, "launches": len(ivs),
+                          "busy_us": union_us([(s, e) for _, s, e in ivs])}
+    print(f"phase12: the hash and the gather alone, 1024 rows: {len(ivs)} device launches, "
+          f"{out['hash_gather']['busy_us']:.3f} us device busy (profiler); {per_call:.6f} ms a "
+          f"call eager (CUDA events over {WIDE_STEP_TIMED} calls, host-bound); by name: "
+          + by_name(ivs))
+    return out
+
+
+def wide_served(work: Path, model_dir: Path, x, wire: str, f32_scores: dict) -> dict:
+    """The trained wide directory served over HTTP on ``wire`` (explain on):
+    /predict with and without ``entity_id`` (concurrent, then one at a
+    time), one /ingest/batch frame with fingerprints (some 0), and the
+    frame's rows again through /predict. Every score within 1e-5 of float64
+    numpy on the wire's values widened by numpy's own hash and gather;
+    reason codes as the numpy ranking but across a 2e-5 tie; the lane
+    bitwise /predict; entity-less rows the base-only null fold within 1e-6;
+    ``fused_score`` once a flush; ``scorer_wide_fused`` 1; on int8 within
+    JAX's wide gate of the f32 wire (``f32_scores``, filled on the f32
+    wire)."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.ledger.state import entity_fingerprint
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.service import binlane
+    from fraud_detection_tpu_torch.service.app import create_app
+
+    tag = f"phase12 {wire}"
+    os.environ.update(DEVICE="cuda", SCORER_EXPLAIN="topk", SCORER_WIRE=wire,
+                      MODEL_PATH=str(model_dir / "model.npz"))
+    for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
+                 "SCORER_RETURN_WIRE", "INGEST_PORT", "SCORER_MAX_INFLIGHT"):
+        os.environ.pop(knob, None)
+    pin_tracking_store(work / "wide_empty_mlruns", work)
+    app = create_app(database_url=f"sqlite:///{work}/wide_{wire}_fraud.db",
+                     broker_url=f"sqlite:///{work}/wide_{wire}_taskq.db")
+    port = free_port()
+    server = ServerThread(app, port)
+    server.start()
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"{tag}: server did not start: {server.error!r}")
+    try:
+        check_source(tag, app.state["model_source"], f"native:{model_dir}")
+        model, batcher = app.state["model"], app.state["batcher"]
+        scorer = model.scorer
+        target = batcher._fused_target(scorer)
+        if target is None or target[1].wide is None:
+            raise AssertionError(f"{tag}: the app runs no wide flush")
+        if scorer.family != "wide" or scorer.io_dtype != wire or scorer.staging_features != 30 \
+                or scorer.n_features != 34:
+            raise AssertionError(f"{tag}: scorer {scorer.family} {scorer.io_dtype} "
+                                 f"{scorer.staging_features}/{scorer.n_features}")
+        spec = model.wide_spec
+        flushes = [0]
+        inner = batcher._flush_device
+
+        def counting(*args, **kwargs):
+            flushes[0] += 1
+            return inner(*args, **kwargs)
+
+        batcher._flush_device = counting
+        rng = np.random.default_rng(12)
+        n_bodies = WIDE_PREDICTS + WIDE_NULL_PREDICTS
+        rows = x[rng.choice(x.shape[0], n_bodies + WIDE_FRAME_ROWS, replace=False)]
+        ents = [f"card-{i % WIDE_ENTITIES}" if i < WIDE_PREDICTS else None
+                for i in range(n_bodies)]
+        frame_rows = rows[n_bodies:]
+        frame_ents = [None if i % 9 == 0 else f"card-{i % WIDE_ENTITIES}"
+                      for i in range(WIDE_FRAME_ROWS)]
+        bodies = [{"features": rows[i].tolist(), **({"entity_id": e} if e else {})}
+                  for i, e in enumerate(ents)]
+        frame_bodies = [{"features": frame_rows[i].tolist(), **({"entity_id": e} if e else {})}
+                        for i, e in enumerate(frame_ents)]
+        order = rng.permutation(n_bodies)
+        half = n_bodies // 2
+        kernels.reset_launch_counts()
+        results = [None] * n_bodies
+        for part, clients in ((order[:half], WIDE_CLIENTS), (order[half:], 1)):
+            for j, res in zip(part, post_bodies(port, [bodies[j] for j in part], clients, work)):
+                results[j] = res
+        fps = np.asarray([0 if e is None else entity_fingerprint(e) for e in frame_ents],
+                         np.uint32)
+        status, body = post_raw(port, "/ingest/batch",
+                                binlane.encode_frame(frame_rows, fps, None, length_prefix=False),
+                                "application/x-fraud-frame")
+        frame_again = post_bodies(port, frame_bodies, WIDE_CLIENTS, work)
+        launches = kernels.launch_counts()
+        batcher._flush_device = inner
+        if status != 200:
+            raise AssertionError(f"{tag}: /ingest/batch {status} {body[:200]!r}")
+        lane_scores, _ = binlane.decode_response_body(body)
+        if launches.get("fused_score", 0) != flushes[0]:
+            raise AssertionError(f"{tag}: fused_score launched {launches} in {flushes[0]} flushes")
+
+        all_rows = np.concatenate([rows[:n_bodies], frame_rows])
+        all_fps = np.concatenate([
+            np.asarray([0 if e is None else entity_fingerprint(e) for e in ents], np.uint32), fps])
+        served, reasons = [], []
+        for i, (st, text) in enumerate(results + frame_again):
+            if st != 200:
+                raise AssertionError(f"{tag}: /predict {i}: HTTP {st} {text[:200]}")
+            out = json.loads(text)
+            served.append(out["score"])
+            reasons.append(out["reason_codes"] or [])
+        served = np.asarray(served)
+        lane_pred = served[n_bodies:]
+        same = int((np.asarray(lane_scores, np.float32).view(np.uint32)
+                    == lane_pred.astype(np.float32).view(np.uint32)).sum())
+        if same != WIDE_FRAME_ROWS:
+            raise AssertionError(f"{tag}: the lane's scores equal /predict's on {same} of "
+                                 f"{WIDE_FRAME_ROWS} rows")
+
+        # float64 numpy on the wire's values, widened by numpy's hash
+        table = np.load(model_dir / "wide_params.npz")["table"]
+        xw = np_widen(wire_xf(scorer, all_rows), all_fps, table, spec)
+        want = widened_scores_f64(model_dir, xw)
+        err = float(np.abs(served - want).max())
+        z = np.load(model_dir / "model.npz")
+        w32 = z["coef"].astype(np.float32) / z["scaler_scale"].astype(np.float32)
+        phi = w32 * (xw - z["scaler_mean"].astype(np.float32))
+        names = model.feature_names
+        k = batcher.explain_k
+        want_idx = topk_total_order(phi, k)
+        srt = -np.sort(-phi, axis=1)
+        tie_rows = cross_led = 0
+        for i, rc in enumerate(reasons):
+            got = [r["feature"] for r in rc]
+            cross_led += bool(got) and names.index(got[0]) >= spec.n_base
+            if got != [names[j] for j in want_idx[i]]:
+                if not abs(srt[i, k - 1] - srt[i, k]) <= SHAP_TIE:
+                    raise AssertionError(f"{tag} /predict {i}: reason codes {got}")
+                tie_rows += 1
+        null = all_fps == 0
+        null_fold = scorer.predict_proba(all_rows[null])
+        null_gap = float(np.abs(served[null] - null_fold).max())
+        print(f"{tag}: {n_bodies} /predict ({WIDE_PREDICTS} with entity_id over "
+              f"{WIDE_ENTITIES} entities, {WIDE_NULL_PREDICTS} without; half from "
+              f"{WIDE_CLIENTS} threads), one {WIDE_FRAME_ROWS}-row /ingest/batch frame "
+              f"({int((fps == 0).sum())} fingerprints 0) and its rows again through /predict: "
+              f"{flushes[0]} flushes, kernel launches {launches}; the lane's scores bitwise "
+              f"/predict's on {same} of {WIDE_FRAME_ROWS} rows")
+        print(f"{tag}: max |score - f64 on the wire's values widened by numpy's hash| "
+              f"{err:.3e} over {len(served)} rows; reason codes equal the numpy ranking on "
+              f"{len(served) - tie_rows} rows, {tie_rows} across a tie within {SHAP_TIE}; a "
+              f"cross column leads {cross_led} rows; {int(null.sum())} entity-less rows against "
+              f"the base-only null fold: max gap {null_gap:.3e}")
+        if not err <= SCORE_ATOL:
+            raise AssertionError(f"{tag}: scores off float64 by {err:.3e}")
+        if not null_gap <= WIDE_NULL_ATOL:
+            raise AssertionError(f"{tag}: entity-less rows off the null fold by {null_gap:.3e}")
+        keyed = {(all_rows[i].tobytes(), int(all_fps[i])): served[i] for i in range(len(served))}
+        if wire == "float32":
+            f32_scores.update(keyed)
+        else:
+            gap = np.abs(np.asarray([v - f32_scores[key] for key, v in keyed.items()]))
+            print(f"{tag}: against the f32 wire's scores mean {gap.mean():.3e}, median "
+                  f"{np.median(gap):.3e}, max {gap.max():.3e} (JAX's wide gate: mean "
+                  f"{WIDE_INT8_MEAN}, median {WIDE_INT8_MEDIAN})")
+            if not (gap.mean() < WIDE_INT8_MEAN and np.median(gap) < WIDE_INT8_MEDIAN):
+                raise AssertionError(f"{tag}: outside JAX's wide int8 gate of the f32 wire")
+        text = http_call(port, "GET", "/metrics")[1].decode()
+        vals = {s: metric_value(text, s) for s in (
+            "scorer_wide_fused", "wide_model_shards", 'wide_bucket_occupancy{model_shard="0"}',
+            'scorer_served_family{family="wide"}', 'scorer_flushes_total{path="split",shard="0"}')}
+        print(f"{tag}: /metrics " + ", ".join(f"{s} {v:g}" for s, v in vals.items()))
+        if vals["scorer_wide_fused"] != 1 or vals["wide_model_shards"] != 1 or \
+                vals['scorer_flushes_total{path="split",shard="0"}'] != 0:
+            raise AssertionError(f"{tag}: the wide flush did not serve every batch fused")
+        return launches
+    finally:
+        server.stop()
+
+
+def wide_timing(work: Path, model_dir: Path, x) -> dict:
+    """A 1024-row wide flush beside the stateless flush (phase 3's model),
+    explain on, f32 wire, in turns: host time, stream time (CUDA events
+    around the flush), device busy and launches (profiler)."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ledger.state import entity_fingerprint
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.watchtower import Thresholds, Watchtower
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+
+    os.environ["SCORER_WIRE"] = "float32"
+    never = Thresholds(5.0, 5.0, 5.0, 1.0, 10**9)
+    forms, towers = {}, []
+    for form, d in (("wide", model_dir), ("stateless", work / "models")):
+        model = load_any_model(str(d), device="cuda")
+        wt = Watchtower(load_profile(str(d)), thresholds=never, device="cuda")
+        towers.append(wt)
+        mb = MicroBatcher(model.scorer, watchtower=wt, telemetry=False, explain=True)
+        items = [(x[i], None, None,
+                  (0, entity_fingerprint(f"card-{i % 300}"), 0.0)
+                  if form == "wide" and i % 8 else None) for i in range(1024)]
+        forms[form] = (mb, model.scorer, mb._fused_target(model.scorer), items)
+    host = {f: [] for f in forms}
+    stream = {f: [] for f in forms}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for r in range(WIDE_FLUSH_TIMED + 2):
+        for f in (("wide", "stateless") if r % 2 else ("stateless", "wide")):
+            mb, scorer, target, items = forms[f]
+            start.record()
+            t = time.perf_counter()
+            out = mb._flush_device(scorer, target, items)
+            dt = time.perf_counter() - t
+            end.record()
+            end.synchronize()
+            scorer.staging.release(out[-1])
+            if r >= 2:  # two warm rounds
+                host[f].append(dt)
+                stream[f].append(start.elapsed_time(end))
+    res = {}
+    for f, (mb, scorer, target, items) in forms.items():
+        ivs = profiled_intervals(lambda: scorer.staging.release(
+            mb._flush_device(scorer, target, items)[-1]))
+        copies = sum(1 for name, _, _ in ivs if "Memcpy" in name or "Memset" in name)
+        res[f] = {"host_ms": sorted(host[f])[len(host[f]) // 2] * 1e3,
+                  "stream_ms": sorted(stream[f])[len(stream[f]) // 2],
+                  "busy_us": union_us([(s, e) for _, s, e in ivs]),
+                  "launches": len(ivs) - copies, "copies": copies}
+        print(f"phase12: 1024-row {f} flush with explain (f32 wire): host p50 "
+              f"{res[f]['host_ms']:.3f} ms, stream p50 {res[f]['stream_ms']:.3f} ms (CUDA events "
+              f"around the flush), {WIDE_FLUSH_TIMED} flushes in turns; device busy "
+              f"{res[f]['busy_us']:.3f} us, {res[f]['launches']} kernel launches + "
+              f"{res[f]['copies']} copies/memsets (profiler); by name: " + by_name(ivs))
+    for wt in towers:
+        wt.close()
+    return res
+
+
+def wide_phase(work: Path) -> dict:
+    """Phase 12. Returns the train run's and the served traffic's
+    launches."""
+    t_phase = time.perf_counter()
+    model_dir, train_launches, _ = wide_train(work)
+    wide_hash_check(model_dir)
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+
+    x = np.ascontiguousarray(load_creditcard_csv(str(ROOT / "data" / "creditcard.csv"))[0])
+    served: dict[str, int] = {}
+    f32_scores: dict = {}
+    for wire in WIDE_WIRES:
+        for k, v in wide_served(work, model_dir, x, wire, f32_scores).items():
+            served[k] = served.get(k, 0) + v
+    wide_timing(work, model_dir, x)
+    os.environ.pop("SCORER_WIRE", None)
+    print(f"phase12: the wide family in {time.perf_counter() - t_phase:.3f} s; served launches "
+          f"{served}, train --wide's {train_launches}")
+    return {"train": train_launches, "served": served}
+
+
 def main() -> int:
     try:
         import torch
@@ -4140,6 +4659,7 @@ def main() -> int:
         wires = quantized_wires(work, gbt_store, work / "tools" / "kaggle.csv")
         ingest = ingest_phase(work, gbt_store, lin_store, work / "tools" / "kaggle.csv", card)
         ledger = ledger_phase(work, work / "tools" / "kaggle.csv")
+        wide = wide_phase(work)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -4161,6 +4681,7 @@ def main() -> int:
             ingest_launches=ingest["ingest"]["fused_score"],
             shadow_launches=ingest["shadow"]["fused_score"],
             ledger_launches=ledger["served"]["fused_score"],
+            wide_launches=wide["served"]["fused_score"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":

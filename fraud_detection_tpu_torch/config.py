@@ -360,3 +360,24 @@ def ledger_synth_events_per_entity() -> int:
     """``LEDGER_SYNTH_EVENTS`` — average events per synthesized pseudo-
     entity when the training CSV carries no entity ids. Default 50."""
     return _get_int("LEDGER_SYNTH_EVENTS", 50)
+
+
+# the wide family: hashed entity crosses (ops/crosses)
+
+
+def wide_buckets() -> int:
+    """``WIDE_BUCKETS`` — width of the hashed-cross weight table the wide
+    family learns; a power of two (raises otherwise). Default 2¹⁴ =
+    16384."""
+    buckets = _get_int("WIDE_BUCKETS", 1 << 14)
+    if buckets < 2 or buckets & (buckets - 1):
+        raise ValueError(f"WIDE_BUCKETS must be a power of two, got {buckets}")
+    return buckets
+
+
+def wide_enabled() -> bool:
+    """``WIDE_ENABLED=1`` — train-side opt-in: ``train`` fits the wide
+    family (hashed feature crosses over fields the wire already carries)
+    and stamps ``wide_params.npz`` beside the weights. Serving needs no
+    flag: it widens whenever the loaded artifact carries that sidecar."""
+    return env_flag("WIDE_ENABLED") is True

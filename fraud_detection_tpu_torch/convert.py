@@ -43,6 +43,31 @@ def logistic_from_arrays(
     return FraudLogisticModel(params, scaler, list(feature_names), device=device)
 
 
+def wide_logistic_from_arrays(
+    arrays: dict[str, np.ndarray], feature_names, wide_arrays: dict[str, np.ndarray],
+    device=None,
+) -> FraudLogisticModel:
+    """The port's wide :class:`FraudLogisticModel` from the JAX package's
+    widened parameters (``arrays`` as in :func:`logistic_from_arrays`, over
+    base + ``n_cross`` columns) and its wide sidecar's fields
+    (``wide_arrays``: the ``wide_params.npz`` keys ``n_base``,
+    ``log2_buckets``, ``amount_col``, ``time_col``, ``n_cross``, ``table``
+    and, when given, ``hash_version``, which must be the port's)."""
+    from fraud_detection_tpu_torch.ops.crosses import HASH_VERSION, CrossSpec
+
+    if "hash_version" in wide_arrays and int(np.asarray(wide_arrays["hash_version"])) != HASH_VERSION:
+        raise ValueError(
+            f"wide hash_version {int(np.asarray(wide_arrays['hash_version']))} != {HASH_VERSION}"
+        )
+    spec = CrossSpec(*(int(np.asarray(wide_arrays[k])) for k in (
+        "n_base", "log2_buckets", "amount_col", "time_col", "n_cross")))
+    keyed = {_FIELD_ALIASES.get(k, k): np.asarray(v) for k, v in arrays.items()}
+    params, scaler = params_from_arrays(keyed)
+    return FraudLogisticModel(params, scaler, list(feature_names), device=device,
+                              wide_spec=spec,
+                              wide_table=np.asarray(wide_arrays["table"], np.float32))
+
+
 def profile_from_arrays(arrays: dict[str, np.ndarray]) -> BaselineProfile:
     """The port's :class:`BaselineProfile` from the fields of the JAX
     package's ``BaselineProfile`` (or the ``monitor_profile.npz`` keys)."""

@@ -6,7 +6,10 @@ h2d wire ``SCORER_WIRE`` names unless the caller pins one. A
 ledger-widened model also carries its :class:`~fraud_detection_tpu_torch.
 ledger.state.LedgerSpec` and table snapshot (``ledger_state.npz``): its
 feature names span base + K velocity columns, and clients send the base
-schema.
+schema. A wide model carries its :class:`~fraud_detection_tpu_torch.ops.
+crosses.CrossSpec` and learned cross table (``wide_params.npz``): its
+feature names span base + ``n_cross`` hashed-cross columns, and clients
+send the base schema. A model is never both.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from fraud_detection_tpu_torch.ckpt.checkpoint import (
 )
 from fraud_detection_tpu_torch.ledger.state import init_state, load_ledger, save_ledger
 from fraud_detection_tpu_torch.models.base import FraudModelBase
+from fraud_detection_tpu_torch.ops.crosses import load_wide, save_wide
 from fraud_detection_tpu_torch.ops.linear_shap import (
     LinearShapExplainer,
     linear_shap,
@@ -53,9 +57,20 @@ class FraudLogisticModel(FraudModelBase):
         device: str | torch.device | None = None,
         ledger_spec=None,
         ledger_state=None,
+        wide_spec=None,
+        wide_table=None,
     ):
         self.ledger_spec = ledger_spec
         self.ledger_state = ledger_state
+        self.wide_spec = wide_spec
+        self.wide_table = wide_table
+        if wide_spec is not None and ledger_spec is not None:
+            raise ValueError("a model cannot be both ledger- and wide-widened")
+        if wide_spec is not None and len(feature_names) != wide_spec.n_features:
+            raise ValueError(
+                f"wide model carries {len(feature_names)} names but the "
+                f"cross spec says {wide_spec.n_features}"
+            )
         if ledger_spec is not None and len(feature_names) != ledger_spec.n_features:
             raise ValueError(
                 f"widened model carries {len(feature_names)} names but the "
@@ -78,7 +93,8 @@ class FraudLogisticModel(FraudModelBase):
         self.calibration = calibration
         self._scorer = BatchScorer(params, scaler, io_dtype=io_dtype,
                                    calibration=calibration, device=device,
-                                   ledger_spec=ledger_spec)
+                                   ledger_spec=ledger_spec, wide_spec=wide_spec,
+                                   wide_table=wide_table)
         self.device = self._scorer.device
         self.params = params.to(self.device)
         self.scaler = scaler.to(self.device) if scaler is not None else None
@@ -92,11 +108,13 @@ class FraudLogisticModel(FraudModelBase):
 
     @property
     def base_feature_names(self) -> list[str]:
-        """The schema clients send: the base prefix for a ledger-widened
-        model (its velocity columns are computed on the device)."""
-        if self.ledger_spec is None:
+        """The schema clients send: the base prefix for a ledger- or
+        wide-widened model (its widened columns are computed on the
+        device)."""
+        spec = self.ledger_spec if self.ledger_spec is not None else self.wide_spec
+        if spec is None:
             return self.feature_names
-        return self.feature_names[: self.ledger_spec.n_base]
+        return self.feature_names[: spec.n_base]
 
     def raw_explainer(self) -> LinearShapExplainer:
         """SHAP explainer taking *raw* inputs: scaler folded into the coef,
@@ -117,10 +135,16 @@ class FraudLogisticModel(FraudModelBase):
         worker's backfill, the shadow's challenger: the table lives in the
         serving flush) is explained through the null slot, so the velocity
         columns' φ is w′·(null − μ); the worker's consistency check skips
-        those columns for this reason."""
+        those columns for this reason. A base-width batch of a wide model
+        is explained through its null path, a zero cross block."""
         explainer = self.raw_explainer()
         if self.ledger_spec is not None:
             x = self.ledger_spec.widen(x)
+        x = np.asarray(x, np.float32)
+        if self.wide_spec is not None and x.shape[1] == self.wide_spec.n_base:
+            x = np.concatenate(
+                [x, np.zeros((x.shape[0], self.wide_spec.n_cross), np.float32)], axis=1
+            )
         xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         phi = linear_shap(explainer, xt).cpu().numpy()
         return phi, float(explainer.expected_value)
@@ -140,6 +164,9 @@ class FraudLogisticModel(FraudModelBase):
             state = self.ledger_state
             save_ledger(directory, self.ledger_spec,
                         state if state is not None else init_state(self.ledger_spec.slots))
+        if self.wide_spec is not None:
+            # the widened coef is meaningless without the learned table
+            save_wide(directory, self.wide_spec, self.wide_table)
         if joblib_too:
             try:
                 export_joblib_artifacts(
@@ -155,9 +182,11 @@ class FraudLogisticModel(FraudModelBase):
     ) -> "FraudLogisticModel":
         params, scaler, feature_names = load_artifacts(directory)
         spec, state = load_ledger(directory) or (None, None)
+        wide_spec, wide_table = load_wide(directory) or (None, None)
         return cls(params, scaler, feature_names,
                    calibration=load_calibration(directory), device=device,
-                   ledger_spec=spec, ledger_state=state)
+                   ledger_spec=spec, ledger_state=state,
+                   wide_spec=wide_spec, wide_table=wide_table)
 
     @classmethod
     def load_joblib(

@@ -14,7 +14,10 @@ bf16-rounded values, the values the model scored.
 With a ledger bound (a widened family), :func:`_fused_flush_ledger` runs
 instead: it reads and updates the per-entity table on the device, widens
 the batch with the K velocity features and scores, explains and folds the
-widened rows.
+widened rows. With the wide family's ``(CrossSpec, table)`` given,
+:func:`_fused_flush_wide` runs: it hashes each row's entity crosses,
+gathers their learned contributions from the table and scores, explains
+and folds the widened rows.
 The JAX package runs each as one XLA program per bucket; here they are
 eager PyTorch launches (one CUDA-graph replay per flush is later work).
 
@@ -47,8 +50,9 @@ from fraud_detection_tpu_torch.monitor.baseline import (
     feature_histogram,
     score_histogram,
 )
+from fraud_detection_tpu_torch.ops.crosses import _gather_contrib, _raw_cross_indices
 from fraud_detection_tpu_torch.ops.linear_shap import _raw_linear_shap, topk_reasons
-from fraud_detection_tpu_torch.ops.scorer import _bucket, _cast_scores
+from fraud_detection_tpu_torch.ops.scorer import _bucket, _cast_scores, _raw_score_linear
 from fraud_detection_tpu_torch.ops.tree_shap import TreeShapExplainer, _raw_tree_shap
 
 PSI_EPS = 1e-4
@@ -277,6 +281,50 @@ def _fused_flush_ledger(
     return out
 
 
+def _fused_flush_wide(
+    window: DriftWindow,
+    x: torch.Tensor,  # (b, n_base) staged batch (f32, bf16 or int8 codes)
+    valid: torch.Tensor,  # (b,) 1.0 for real rows, 0.0 for bucket padding
+    decay: float,
+    feature_edges: torch.Tensor,  # (n_base + n_cross, bins - 1): the widened edges
+    score_edges: torch.Tensor,
+    score_args,  # raw-space (coef, intercept) over the widened block
+    wide_table: torch.Tensor,  # (buckets,) the learned cross weights
+    wide_rows,  # (fp, has_entity) device columns, (b,) each
+    *,
+    cross_spec,
+    dequant_scale: torch.Tensor | None = None,  # (n_base,) on the int8 wire
+    explain_args=None,  # raw-space (coef, background_mean) over the widened block
+    explain_k: int = 0,  # reason codes per row (0: no explain leg)
+    out_dtype=torch.float32,
+):
+    """The wide flush (the JAX package's single-device ``_fused_flush_wide``
+    and its ``_wide_serving_body``, one function here): dequant (int8 wire)
+    → the hashed cross indices (``ops/crosses._raw_cross_indices``) → the
+    table gather, zeroed for entity-less rows → concat → score through the
+    linear body (the ``fused_score`` kernel at n_base + n_cross on the
+    card) → the optional top-k reason codes over the widened columns → the
+    drift fold over the widened edges. The table is only read. Entity-less
+    rows score base-only, and an all-padding batch folds exact zeros.
+    Returns the scores (return wire ``out_dtype``), or ``(scores,
+    reason_idx, reason_val)`` with the explain leg."""
+    xb = x.float()
+    if dequant_scale is not None:
+        xb = xb * dequant_scale
+    fp, has_entity = wide_rows
+    idx = _raw_cross_indices(xb, fp, spec=cross_spec)
+    xf = torch.cat([xb, _gather_contrib(wide_table, idx, has_entity)], dim=1)
+    scores = _raw_score_linear(score_args, xf).float()
+    out = _cast_scores(scores, out_dtype)
+    if explain_k > 0:
+        ridx, rval = _topk_attributions(xf, explain_args, explain_k)
+        out = (out, *_narrow_reasons(ridx, rval, xf.shape[1], out_dtype))
+    _fold_serving_batch(
+        window, xf, scores, valid, decay, feature_edges, score_edges
+    )
+    return out
+
+
 def _window_update(
     window: DriftWindow,
     x: torch.Tensor,  # (n, d) padded batch
@@ -465,17 +513,36 @@ class DriftMonitor:
         explain_args=None,
         explain_k: int = 0,
         ledger_rows=None,
+        wide_args=None,
+        wide_rows=None,
     ):
         """Score one staged, bucket-padded device batch AND fold it into the
         window; with ``explain_k > 0`` also the top-k reason codes. With
         ``dequant_scale`` (the int8 wire) ``x`` holds codes that the flush
-        dequantizes. With a ledger bound and ``ledger_rows`` (the
-        ``(slot_idx, fp, ts, has_entity)`` device columns) it is the
-        widened :func:`_fused_flush_ledger`, which also updates the table.
-        Returns the device score vector (return wire ``out_dtype``), or the
+        dequantizes. With ``wide_args`` (the scorer's ``(CrossSpec,
+        table)``) and ``wide_rows`` (the ``(fp, has_entity)`` device
+        columns) it is the widened :func:`_fused_flush_wide`; else, with a
+        ledger bound and ``ledger_rows`` (the ``(slot_idx, fp, ts,
+        has_entity)`` device columns), the widened
+        :func:`_fused_flush_ledger`, which also updates the table. Returns
+        the device score vector (return wire ``out_dtype``), or the
         ``(scores, reason_idx, reason_val)`` triple. Only enqueues device
         work: the caller's fetch is the flush's one host sync."""
         decay = self._decay_for(n_live)
+        if wide_args is not None and wide_rows is not None:
+            cross_spec, wide_table = wide_args
+            # k clamps against the widened width the explain leg attributes
+            k = (min(int(explain_k), int(x.shape[1]) + cross_spec.n_cross)
+                 if explain_args is not None else 0)
+            with self._lock:
+                out = _fused_flush_wide(
+                    self.window, x, valid, decay, self._feature_edges,
+                    self._score_edges, score_args, wide_table, wide_rows,
+                    cross_spec=cross_spec, dequant_scale=dequant_scale,
+                    explain_args=explain_args, explain_k=k, out_dtype=out_dtype,
+                )
+                self.rows_seen += n_live
+            return out
         if ledger_rows is not None and self.ledger is not None:
             spec = self.ledger_spec
             # k clamps against the widened width the explain leg attributes
@@ -517,14 +584,20 @@ class DriftMonitor:
         so it runs what serving runs: it builds the kernel on first use and
         warms the allocator for the bucket's shapes. With a ledger bound it
         runs the ledger flush, whose all-padding rows leave the table
-        bitwise unchanged."""
+        bitwise unchanged; for the wide family the wide flush, with
+        fingerprint 0 (a zero cross block) on every row."""
         spec = scorer.fused_spec()
         slot = scorer.staging.acquire(bucket)
         try:
             slot.f32[:] = 0.0
             hx = scorer._encode_slot(slot)
             slot.valid[:] = 0.0
-            ledger_rows = None
+            ledger_rows = wide_rows = None
+            if spec.wide is not None:
+                slot.ensure_ledger()
+                slot.lf[:] = 0
+                slot.lh[:] = 0.0
+                wide_rows = (scorer.to_device(slot.lf), scorer.to_device(slot.lh))
             if self.ledger is not None and spec.ledger is not None:
                 # has_entity 0 everywhere: the table is bitwise unchanged
                 slot.ensure_ledger()
@@ -540,6 +613,8 @@ class DriftMonitor:
                 explain_args=spec.explain_args if explain_k else None,
                 explain_k=explain_k,
                 ledger_rows=ledger_rows,
+                wide_args=spec.wide,
+                wide_rows=wide_rows,
             )
             for t in out if isinstance(out, tuple) else (out,):
                 t.cpu()

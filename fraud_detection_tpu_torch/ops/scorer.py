@@ -11,7 +11,8 @@ Counterpart of ``fraud_detection_tpu/ops/scorer.py``:
 - **The kernel.** On the card the linear score body is the hand-written
   ``fused_score`` CUDA kernel (:mod:`.kernels`); on the CPU its plain
   version.
-- **Two families.** :class:`BatchScorer` (linear) and
+- **Two families.** :class:`BatchScorer` (linear, also widened by the
+  ledger or by the wide family's hashed entity crosses) and
   :class:`GBTBatchScorer` (the forest; its fused explain leg is the cached
   TreeSHAP explainer) share the serving protocol, so the micro-batcher and
   the fused flush do not know which family they serve.
@@ -77,7 +78,10 @@ class FusedSpec(NamedTuple):
     when the family is widened: the flush then runs the ledger program
     (``monitor/drift._fused_flush_ledger``), which computes the velocity
     block on the device and scores the widened rows with the raw-space
-    ``score_args``."""
+    ``score_args``. ``wide`` is the wide family's ``(CrossSpec, table on
+    the device)``: the flush then runs the wide program
+    (``monitor/drift._fused_flush_wide``), which hashes the crosses and
+    gathers their contributions on the device."""
 
     score_fn: Callable
     score_args: Any
@@ -85,6 +89,7 @@ class FusedSpec(NamedTuple):
     score_codes: bool = True
     explain_args: Any = None
     ledger: Any = None
+    wide: Any = None
 
 
 #: d2h score wire formats: name → the dtype the fused flush returns.
@@ -298,8 +303,8 @@ class _BucketedScorer:
     @property
     def staging_features(self) -> int:
         """The width of a staged row (the ingest lanes' frame width): the
-        base schema for a ledger-widened scorer, whose velocity columns
-        are computed on the device and never ride the wire."""
+        base schema for a ledger- or wide-widened scorer, whose widened
+        columns are computed on the device and never ride the wire."""
         return getattr(self, "n_base_features", self.n_features)
 
     @property
@@ -362,8 +367,8 @@ class _BucketedScorer:
     def warmup(self, max_bucket: int = 4096) -> None:
         """Score one zero batch per bucket of the ladder, so the first
         requests find the kernel built and the allocator's blocks cached.
-        A ledger-widened scorer warms both widths: the base schema (the
-        null-slot fold) and the widened block."""
+        A widened scorer (ledger or wide) warms both widths: the base
+        schema (the null fold) and the widened block."""
         widths = sorted({self.n_features, self.staging_features})
         b = self.min_bucket
         while b <= max_bucket:
@@ -448,18 +453,25 @@ class BatchScorer(_BucketedScorer):
     upcast to f32 with no extra device work; with no calibration given it
     is derived from the scaler (``derive_calibration``'s default range).
 
-    ``ledger_spec`` makes the family ledger-widened: the weights span base
-    + K velocity features, clients send base rows, and the ledger flush
-    computes the velocity block on the device and scores the widened rows
-    with the raw-space weights (on the int8 wire the calibration is sliced
-    to the base columns and NOT folded into the weights: the flush
-    dequantizes the codes explicitly). A base-width batch scored outside
-    the flush (the split path, the worker, ``predict_single``) takes the
-    null slot: the stamped null features folded into the intercept, exact
-    for a linear family. A widened batch (the replay's, an evaluation's)
-    skips the wire encode: its velocity columns are raw f32."""
+    A widening spec makes the family widened: the weights span the base
+    columns and the widened ones, clients send base rows, and the fused
+    flush computes the widened block on the device and scores it with the
+    raw-space weights (on the int8 wire the calibration is sliced to the
+    base columns and NOT folded into the weights: the flush dequantizes the
+    codes explicitly). ``ledger_spec`` widens with K velocity features
+    (``monitor/drift._fused_flush_ledger``); ``wide_spec`` with
+    ``wide_table`` is the wide family, ``n_cross`` hashed-cross
+    contribution columns gathered from the table
+    (``monitor/drift._fused_flush_wide``). A base-width batch scored
+    outside the flush (the split path, the worker, ``predict_single``)
+    takes the null fold: the null features folded into the intercept,
+    exact for a linear family (the ledger's stamped null slot; zero for
+    the wide family, whose entity-less rows have no cross block). A
+    widened batch (the replay's, an evaluation's) skips the wire encode:
+    its widened columns are raw f32."""
 
     #: served model family — the ``scorer_served_family`` gauge label
+    #: ("wide" for a wide-widened scorer)
     family = "linear"
 
     def __init__(
@@ -471,6 +483,8 @@ class BatchScorer(_BucketedScorer):
         calibration: QuantCalibration | None = None,
         device: str | torch.device | None = None,
         ledger_spec=None,
+        wide_spec=None,
+        wide_table=None,
     ):
         if io_dtype not in WIRES:
             raise ValueError(f"io_dtype must be float32|bfloat16|int8, got {io_dtype}")
@@ -486,15 +500,29 @@ class BatchScorer(_BucketedScorer):
         self.intercept = folded.intercept.reshape(())
         self.n_features = int(self.coef.shape[0])
         self.ledger_spec = ledger_spec
+        self.wide_spec = wide_spec
+        self.wide_table = None
+        widening = self._widening = ledger_spec if ledger_spec is not None else wide_spec
         self.n_base_features = (
-            ledger_spec.n_base if ledger_spec is not None else self.n_features
+            widening.n_base if widening is not None else self.n_features
         )
-        if ledger_spec is not None and ledger_spec.n_features != self.n_features:
+        if widening is not None and widening.n_features != self.n_features:
             raise ValueError(
-                f"ledger spec widens {ledger_spec.n_base} → "
-                f"{ledger_spec.n_features} features but the params cover "
-                f"{self.n_features}"
+                f"{'wide' if wide_spec is not None else 'ledger'} spec widens "
+                f"{widening.n_base} → {widening.n_features} features but the "
+                f"params cover {self.n_features}"
             )
+        if wide_spec is not None:
+            self.family = "wide"
+            table = (wide_table.detach().cpu().numpy()
+                     if isinstance(wide_table, torch.Tensor) else np.asarray(wide_table))
+            table = np.ascontiguousarray(table, np.float32)
+            if table.shape != (wide_spec.buckets,):
+                raise ValueError(
+                    f"wide table shape {table.shape} != ({wide_spec.buckets},)"
+                )
+            self._wide_table_np = table
+            self.wide_table = torch.from_numpy(table.copy()).to(self.device)
         # the fused explain leg's raw-space linear-SHAP params: the folded
         # coef over raw inputs with the scaler mean as background
         # (φⱼ = w′ⱼ·(xⱼ − μⱼ)), the same pair models/logistic.raw_explainer
@@ -513,7 +541,7 @@ class BatchScorer(_BucketedScorer):
                         "stats for calibration"
                     )
                 calibration = derive_calibration(scaler)
-            if ledger_spec is not None:
+            if widening is not None:
                 # the wire carries the base columns only
                 calibration = QuantCalibration(
                     scale=np.asarray(
@@ -522,32 +550,36 @@ class BatchScorer(_BucketedScorer):
                     sigma_range=calibration.sigma_range,
                 )
             self._bind_calibration(calibration)
-            if ledger_spec is None:
+            if widening is None:
                 self.coef = (self.coef * self._dequant_scale).contiguous()
-        if ledger_spec is not None:
-            # the null slot: entity-less rows score with the stamped null
-            # features, which fold exactly into the intercept
-            nf = torch.as_tensor(ledger_spec.null_features, device=self.device)
-            self._null_intercept = self.intercept + torch.dot(
-                nf, self._raw_coef[self.n_base_features:]
-            )
+        if widening is not None:
+            # the null fold: entity-less rows score with the null features
+            # (the ledger's stamped null slot; a zero cross block for the
+            # wide family), which fold exactly into the intercept
+            self._null_intercept = self.intercept
+            if ledger_spec is not None:
+                nf = torch.as_tensor(ledger_spec.null_features, device=self.device)
+                self._null_intercept = self.intercept + torch.dot(
+                    nf, self._raw_coef[self.n_base_features:]
+                )
             base = self._raw_coef[: self.n_base_features]
             self._null_coef = (
                 base * self._dequant_scale if self._quant_scale is not None else base
             ).contiguous()
 
     def _prepare_host(self, x: np.ndarray):
-        if self.ledger_spec is not None and x.shape[1] == self.n_features:
+        if self._widening is not None and x.shape[1] == self.n_features:
             return x  # a widened block: raw f32, never wire-encoded
         return super()._prepare_host(x)
 
     def fused_spec(self) -> FusedSpec:
         explain_args = (self._raw_coef, self._explain_mean)
-        if self.ledger_spec is not None:
+        if self._widening is not None:
             return FusedSpec(
                 _raw_score_linear, (self._raw_coef, self.intercept),
                 dequant_scale=self._dequant_scale if self._quant_scale is not None else None,
                 score_codes=False, explain_args=explain_args, ledger=self.ledger_spec,
+                wide=(self.wide_spec, self.wide_table) if self.wide_spec is not None else None,
             )
         if self._quant_scale is not None:
             return FusedSpec(
@@ -561,13 +593,19 @@ class BatchScorer(_BucketedScorer):
         )
 
     def _score_padded(self, x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
-        if self.ledger_spec is None:
+        if self._widening is None:
             args = (self.coef, self.intercept)
         elif x.shape[1] == self.n_base_features:
             args = (self._null_coef, self._null_intercept)
         else:
             args = (self._raw_coef, self.intercept)
         return _cast_scores(_raw_score_linear(args, x), out_dtype)
+
+    def table_occupancy(self) -> list[float]:
+        """The wide family's share of non-zero learned weights in the
+        table, one entry a model shard (one here: the
+        ``wide_bucket_occupancy`` gauge), on the host."""
+        return [float(np.mean(np.abs(self._wide_table_np) > 1e-12))]
 
 
 class GBTBatchScorer(_BucketedScorer):

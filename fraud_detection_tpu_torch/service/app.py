@@ -6,7 +6,8 @@
 - ``POST /predict`` — validate → score through the micro-batcher (the fused
   flush: the family's score body + drift fold + optional reason codes; for
   a ledger-widened model the ledger flush, keyed by the optional
-  ``entity_id`` and ``timestamp``) →
+  ``entity_id`` and ``timestamp``; for a wide model the wide flush, keyed
+  by the optional ``entity_id``) →
   persist a PENDING row, enqueue ``xai_tasks.compute_shap`` for the SHAP
   worker (``service/worker.py``) → respond with the JAX app's response
   fields
@@ -31,10 +32,10 @@ with ``WATCHTOWER_RETRAIN_TRIGGER=1`` a drift episode enqueues one
 
 The model directory holds either family (``load_any_model``): the logistic
 flagship (``fused_score`` kernel; ledger-widened when the directory holds
-``ledger_state.npz``) or a GBT forest (TreeSHAP reason codes
-through the ``tree_shap`` kernel). The results DB (``DATABASE_URL``) and the
-broker (``CELERY_BROKER_URL``) are the JAX package's sqlite schemas, so a
-JAX app or worker can share them.
+``ledger_state.npz``, wide when it holds ``wide_params.npz``) or a GBT
+forest (TreeSHAP reason codes through the ``tree_shap`` kernel). The
+results DB (``DATABASE_URL``) and the broker (``CELERY_BROKER_URL``) are
+the JAX package's sqlite schemas, so a JAX app or worker can share them.
 
 Run: ``python -m fraud_detection_tpu_torch.service.app --port 8000``
 (``DEVICE=cpu`` serves on the CPU).
@@ -52,6 +53,7 @@ import numpy as np
 
 from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.device import resolve_device
+from fraud_detection_tpu_torch.ledger.state import entity_fingerprint
 from fraud_detection_tpu_torch.monitor.watchtower import RETRAIN_TASK, build_watchtower
 from fraud_detection_tpu_torch.service import binlane, metrics
 from fraud_detection_tpu_torch.service.db import ResultsDB
@@ -293,6 +295,10 @@ def create_app(
         if ledger_spec is not None and entity_id is not None:
             slot_idx, fp = ledger_spec.row_keys(entity_id)
             entity = (slot_idx, fp, ledger_spec.rel_ts(event_ts or time.time()))
+        elif getattr(model, "wide_spec", None) is not None and entity_id is not None:
+            # the wide family keys its crosses on the fingerprint alone (the
+            # ledger's edge hash: one keyspace)
+            entity = (0, entity_fingerprint(entity_id), 0.0)
         timeline = (
             RequestTimeline(correlation_id=corr_id) if batcher.telemetry else None
         )

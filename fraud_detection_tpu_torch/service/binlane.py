@@ -54,8 +54,9 @@ The same payload (no length prefix) posts to ``POST /ingest/batch`` as
 ``application/x-fraud-frame``. For a ledger-widened model the entity and
 timestamp columns become the ledger's per-row columns with the JSON
 edge's hash and clock (:meth:`_FrameDecoder.entity_cols`), so a frame feeds
-the ledger flush; a stateless family receives and length-checks them and
-derives nothing, as in the JAX package. The trace field is parsed and
+the ledger flush; for a wide model the fingerprints key the wide flush's
+crosses; a stateless family receives and length-checks them and derives
+nothing, as in the JAX package. The trace field is parsed and
 validated, and no span is emitted yet (ROADMAP item 13).
 """
 
@@ -267,6 +268,9 @@ class _FrameDecoder:
         self.dequant = dequant
         self.d = int(scorer.staging_features)
         self.spec = getattr(scorer, "ledger_spec", None)
+        # the wide family keys its crosses on the fingerprint alone: the
+        # entity column still rides, or every lane row would score base-only
+        self.wide = getattr(scorer, "wide_spec", None)
         # reusable scratch (sized at first use): int8 codes, a byte-order
         # staging block for big-endian hosts, the entity and ts columns,
         # the derived ledger columns, the u8 reason indices, the trace field
@@ -309,13 +313,18 @@ class _FrameDecoder:
         clock: the slot by multiply-shift (the product's low 32 bits, then
         the top ``log2_slots``), the time origin-relative in float64, at
         least 1e-3, then float32; without timestamps, now. None for a
-        stateless family or a frame without entities. Views of reusable
-        scratch: valid until this decoder's next frame."""
-        if ent_buf is None or self.spec is None:
+        stateless family or a frame without entities. For the wide family
+        only the fingerprints: the slot and time columns are zero. Views of
+        reusable scratch: valid until this decoder's next frame."""
+        if ent_buf is None or (self.spec is None and self.wide is None):
             return None
         self._ensure(n)
         ls, lf, lt = self._ls[:n], self._lf[:n], self._lt[:n]
         np.copyto(lf, np.frombuffer(ent_buf, "<u4", n))
+        if self.spec is None:
+            ls[:] = 0
+            lt[:] = 0.0
+            return ls, lf, lt
         # < 2^64 as an unsigned product; int64 wraps it, and the mask keeps
         # the low 32 bits either way
         np.multiply(lf, _MULT, out=ls)

@@ -3,9 +3,9 @@
 The series the port's slices touch, under the JAX package's names, labels
 and buckets (dashboards and alert rules read them): the API counters and
 latency histograms, the micro-batcher's flush-path counters and fusion
-gauges, the watchtower's drift and shadow series, the ledger's, the ingest
-lanes', the
-request stages', and the SHAP worker's and task queue's series. Counters
+gauges (the wide family's among them), the watchtower's drift and shadow
+series, the ledger's, the ingest lanes', the request stages', and the SHAP
+worker's and task queue's series. Counters
 export ``<name>_total``; histograms export ``_bucket``/``_sum``/``_count``.
 No ``prometheus_client``: the exposition format (text 0.0.4) is written
 here.
@@ -98,6 +98,12 @@ class _Metric:
 
     def observe(self, value: float) -> None:
         self._children[()].observe(value)
+
+    def clear(self) -> None:
+        """Drop every labelled series (an unlabelled metric keeps its one)."""
+        if self.labelnames:
+            with self._lock:
+                self._children.clear()
 
     def get(self, *values) -> float:
         """Current value of one series (0.0 when never written)."""
@@ -229,6 +235,26 @@ scorer_explain_fused = Gauge(
     "scorer_explain_fused",
     "1 while serve-time reason codes (SCORER_EXPLAIN=topk) ride the fused "
     "flush; 0 when they demoted. Stays 1 when explanation is off",
+)
+scorer_wide_fused = Gauge(
+    "scorer_wide_fused",
+    "1 while the served WIDE family's hashed-cross contributions ride the "
+    "fused flush; 0 when a wide champion serves through the split/solo "
+    "path — its crosses are then dropped and every row scores base-only "
+    "through the null fold (WideFlushUnfused alert input). Stays 1 when "
+    "the served family is not wide",
+)
+wide_model_shards = Gauge(
+    "wide_model_shards",
+    "Model-axis size the wide family's cross-weight table is split over "
+    "(1 = the single-device gather; 0 when the served family is not wide)",
+)
+wide_bucket_occupancy = Gauge(
+    "wide_bucket_occupancy",
+    "Fraction of non-zero learned cross weights in each model-axis column "
+    "slice of the served wide table (refreshed when the served table "
+    "changes; WideShardSkew alert input)",
+    ["model_shard"],
 )
 scorer_explained_rows = Counter(
     "scorer_explained_rows",

@@ -37,7 +37,12 @@ entity table) the fused flush is the ledger flush: :meth:`MicroBatcher.
 _stage_ledger` stages each item's entity columns — a ``/predict`` row's
 ``(slot, fingerprint, rel_ts)`` triple from the edge, an ingest block's
 column triple — beside the rows, and entity-less rows take the null slot,
-counted in ``ledger_null_entity_rows``.
+counted in ``ledger_null_entity_rows``. For the wide family the fused
+flush is the wide flush: :meth:`MicroBatcher._stage_wide` stages each
+item's entity fingerprint (0 for an entity-less row, which scores
+base-only), and the flush hashes the crosses on the device. A wide model
+served without the fused flush drops its crosses; ``scorer_wide_fused``
+latches 0 then, loudly.
 
 The flush's host sync is the device-to-host copy of its outputs. With
 spyglass on (``SPYGLASS_ENABLED``, the default) every item may carry a
@@ -209,6 +214,10 @@ class MicroBatcher:
         self._explain_fused: bool | None = None
         metrics.scorer_explain_fused.set(1)
         self._family: str | None = None
+        # the wide family's fusion latch, keyed on (fused, model version);
+        # ("off",) while the served family is not wide
+        self._wide_state: tuple | None = None
+        metrics.scorer_wide_fused.set(1)
         self.adaptive_wait = config.scorer_adaptive_wait()
         self.max_batch = max_batch or config.scorer_max_batch()
         self.max_wait = (
@@ -339,8 +348,10 @@ class MicroBatcher:
         """Submit one feature row; returns P(fraud). ``timeline`` (a
         ``RequestTimeline``) is stamped at every stage boundary. ``entity``
         is the ledger's ``(slot, fingerprint, rel_ts)`` triple from the
-        edge, or None: the row scores through the null slot (counted in
-        ``ledger_null_entity_rows`` when the flush is the ledger's)."""
+        edge (the wide family's ``(0, fingerprint, 0.0)``), or None: the
+        row scores through the null slot (counted in
+        ``ledger_null_entity_rows`` when the flush is the ledger's) or, for
+        the wide family, base-only."""
         res = await self._submit(row, timeline, entity)
         return res[0] if isinstance(res, tuple) else res
 
@@ -474,6 +485,39 @@ class MicroBatcher:
         if prev is not None:
             metrics.scorer_served_family.labels(prev).set(0)
 
+    def _note_wide_fused(self, fused: bool, scorer) -> None:
+        """Export (and, on a change, log) whether the served wide family's
+        crosses ride the fused flush. Off it, every row scores base-only
+        through the null fold: ``scorer_wide_fused`` latches 0 and a
+        warning says so. On it, the model shards (1: the single-device
+        gather) and the table's occupancy are exported."""
+        state = (fused, self.model_version)
+        if state == self._wide_state:
+            return
+        self._wide_state = state
+        metrics.scorer_wide_fused.set(1 if fused else 0)
+        if not fused:
+            log.warning(
+                "WIDE family served WITHOUT the fused flush: hashed-cross "
+                "contributions are dropped and every row scores base-only "
+                "through the null fold. scorer_wide_fused=0 exported"
+            )
+            return
+        metrics.wide_model_shards.set(1)
+        for s, frac in enumerate(scorer.table_occupancy()):
+            metrics.wide_bucket_occupancy.labels(str(s)).set(frac)
+        log.info("wide family rides the fused flush (1 model shard)")
+
+    def _note_wide_off(self) -> None:
+        """The served family is not wide: ``scorer_wide_fused`` reads 1, no
+        model shards, no occupancy series."""
+        if self._wide_state == ("off",):
+            return
+        self._wide_state = ("off",)
+        metrics.scorer_wide_fused.set(1)
+        metrics.wide_model_shards.set(0)
+        metrics.wide_bucket_occupancy.clear()
+
     def _explain_k_for(self, scorer) -> int:
         """The fused explain leg's k: 0 when explanation is off, else
         SCORER_EXPLAIN_K clamped to the feature count."""
@@ -508,9 +552,11 @@ class MicroBatcher:
         try:
             t_flush_start = time.perf_counter() if telemetry else 0.0
             hx = scorer.stage_items(slot, batch)
-            ledger_rows = None
+            ledger_rows = wide_rows = None
             n_null = 0
-            if (target is not None and target[1].ledger is not None
+            if target is not None and target[1].wide is not None:
+                wide_rows = self._stage_wide(scorer, slot, batch)
+            elif (target is not None and target[1].ledger is not None
                     and target[0].ledger is not None):
                 ledger_rows, n_null = self._stage_ledger(scorer, slot, batch)
             t_padded = time.perf_counter() if telemetry else 0.0
@@ -528,6 +574,8 @@ class MicroBatcher:
                     explain_args=spec.explain_args if explain_k else None,
                     explain_k=explain_k,
                     ledger_rows=ledger_rows,
+                    wide_args=spec.wide if wide_rows is not None else None,
+                    wide_rows=wide_rows,
                 )
                 if n_null:
                     metrics.ledger_null_entity_rows.inc(n_null)
@@ -566,6 +614,39 @@ class MicroBatcher:
             raise
         return (probs, explain_out, device_calls, monitor_rows, monitor_scores,
                 monitor_reasons, stamps, slot)
+
+    @staticmethod
+    def _stage_wide(scorer, slot, batch: list[tuple]):
+        """Fill the slot's fingerprint and has-entity columns for the wide
+        flush from the queue items' entity triples (a single row's
+        ``(0, fingerprint, 0.0)``, a block's column triple; fingerprint 0
+        or None: no entity, a zero cross block) and copy them to the
+        device. Returns the ``(fp, has_entity)`` device pair."""
+        slot.ensure_ledger()
+        lf, lh = slot.lf, slot.lh
+        lf[:] = 0
+        lh[:] = 0.0
+        pos: list[int] = []
+        fvals: list[int] = []
+        off = 0
+        for item in batch:
+            rows, ent = item[0], item[3]
+            if rows.ndim == 2:
+                k = rows.shape[0]
+                if ent is not None:
+                    sl = slice(off, off + k)
+                    lf[sl] = ent[1]
+                    lh[sl] = lf[sl] != 0
+                off += k
+                continue
+            if ent is not None:
+                pos.append(off)
+                fvals.append(ent[1])
+            off += 1
+        if pos:
+            lf[pos] = fvals
+            lh[pos] = 1.0
+        return scorer.to_device(lf), scorer.to_device(lh)
 
     @staticmethod
     def _stage_ledger(scorer, slot, batch: list[tuple]):
@@ -624,6 +705,11 @@ class MicroBatcher:
             metrics.microbatch_size.observe(n_rows)
             target = self._fused_target(scorer)
             fused = target is not None
+            if getattr(scorer, "wide_spec", None) is None:
+                self._note_wide_off()
+            else:
+                # off the fused flush a wide model drops its crosses
+                self._note_wide_fused(fused, scorer)
             loop = asyncio.get_running_loop()
             (
                 probs, explain_out, device_calls, monitor_rows,

@@ -105,8 +105,8 @@ class XaiWorker:
         agree with this full-vector backfill: the serve indices'
         attributions re-derived here within tolerance, and the serve top-1
         within tolerance of the true max (strict index equality would
-        false-alarm on near-ties); for a ledger-widened model only the base
-        columns. A mismatch counts and warns."""
+        false-alarm on near-ties); for a ledger- or wide-widened model only
+        the base columns. A mismatch counts and warns."""
         if not isinstance(serve_topk, dict):
             return True
         try:
@@ -118,13 +118,16 @@ class XaiWorker:
         if not idxs or len(idxs) != vals.shape[0] or max(idxs) >= phi.shape[0]:
             return True  # malformed/absent payload: nothing to check
         atol = self._explain_atol
-        spec = getattr(self.model, "ledger_spec", None)
+        spec = getattr(self.model, "ledger_spec", None) or getattr(
+            self.model, "wide_spec", None
+        )
         if spec is not None:
-            # a widened family: the serve-time attributions of the velocity
-            # columns used the live table, which this backfill cannot see
-            # (it explains through the null slot), so compare the base
-            # columns only, and skip the top-1 check when a velocity column
-            # led the serve ranking
+            # a widened family: the serve-time attributions of the widened
+            # columns used live device state (the ledger's table, the wide
+            # family's entity crosses), which this backfill cannot see (it
+            # explains through the null path), so compare the base columns
+            # only, and skip the top-1 check when a widened column led the
+            # serve ranking
             keep = [j for j, i in enumerate(idxs) if i < spec.n_base]
             if not keep:
                 return True

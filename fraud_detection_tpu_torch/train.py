@@ -3,7 +3,8 @@ device.
 
     python -m fraud_detection_tpu_torch.train --data data/creditcard.csv \\
         [--model logistic|gbt --folds 5 --seed 42 --solver auto|lbfgs|sgd \\
-         --no-smote --no-register --ledger --out-dir DIR --checkpoint-dir DIR]
+         --no-smote --no-register --ledger --wide --out-dir DIR \\
+         --checkpoint-dir DIR]
 
 The JAX package's ``train.py`` for ``model_family="logistic"`` and
 ``"gbt"``, on the card unless ``DEVICE=cpu`` (or ``device="cpu"``) is
@@ -14,21 +15,32 @@ given:
    on without it) replay every row through the ledger body on the device
    (``ledger.materialize_features``: seeded pseudo-entities, timestamps
    from the ``Time`` column) and widen the rows with the K velocity
-   features;
+   features. With ``--wide`` (or ``WIDE_ENABLED=1``; the plain logistic
+   family only: a forest or the ledger warns and goes on without it) the
+   seeded pseudo-entities' fingerprints key the hashed crosses
+   (``ops/crosses``, ``WIDE_BUCKETS``), SMOTE is off and the class weight
+   ``balanced``;
 2. fit the scaler on the train split;
-3. k-fold CV with SMOTE inside each fold (no leakage), one AUC per fold;
+3. k-fold CV with SMOTE inside each fold (no leakage), one AUC per fold
+   (skipped for the wide family, tag ``cv_skipped``: one fit);
 4. fit once more on the SMOTE'd full train split (L-BFGS, or SGD above
    ``SGD_ROW_THRESHOLD`` rows or with ``--solver sgd``; ``--checkpoint-dir``
-   makes the SGD fit resumable per epoch). The GBT family fits the
+   makes the SGD fit resumable per epoch). The wide family hashes the raw
+   training rows' crosses on the device and fits the base coef and the
+   cross table together (``mesh/retrain.wide_sgd_fit``, 20 epochs). The GBT
+   family fits the
    XGBoost recipe (``GBTConfig``: 100 trees, depth 5, 256 bins, lr 0.1)
    through the ``gbt_hist`` kernel, with ``scale_pos_weight`` = n_neg/n_pos
    only without SMOTE (the two are alternative imbalance corrections);
-5. the test AUC;
-6. the drift baseline in raw feature space from the test scores;
+5. the test AUC (the wide family's through its scorer on the widened test
+   rows);
+6. the drift baseline in raw feature space from the test scores (over the
+   widened block for the wide family);
 7. ``model.npz`` + ``feature_names.json`` + ``quant_calibration.npz`` +
    ``monitor_profile.npz`` (+ ``ledger_state.npz``: the spec, whose null
    features are the training rows' mean velocity features and whose clock
-   origin continues the replay's, and the replay's final table) into
+   origin continues the replay's, and the replay's final table; or
+   ``wide_params.npz``: the cross geometry and the learned table) into
    ``--out-dir`` and the run's artifact dir
    (a forest stores the scaler folded into its bin edges and a 128-row
    raw-space TreeSHAP background);
@@ -36,8 +48,9 @@ given:
    test AUC reaches ``MLFLOW_AUC_THRESHOLD``;
 9. return the metrics.
 
-The wide family and the device trace of ``--profile-dir`` are later
-slices: asking for them raises, naming the ROADMAP item that ports them. Besides the JAX package's metrics, the
+The device trace of ``--profile-dir`` is a later slice: asking for it
+raises, naming the ROADMAP item that ports it. Besides the JAX package's
+metrics, the
 returned dict holds ``stages`` (seconds per stage, the device synchronised
 at each boundary) and ``lbfgs_iters`` (iterations of each L-BFGS fit).
 """
@@ -67,8 +80,16 @@ from fraud_detection_tpu_torch.ledger import (
     synthesize_entities,
 )
 from fraud_detection_tpu_torch.models.gbt import FraudGBTModel
+from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
 from fraud_detection_tpu_torch.models.logistic import FraudLogisticModel
 from fraud_detection_tpu_torch.monitor.baseline import build_baseline_profile, save_profile
+from fraud_detection_tpu_torch.ops.crosses import (
+    _raw_cross_indices,
+    entity_fingerprints,
+    spec_from_config,
+    widen_scaler,
+    widen_with_crosses,
+)
 from fraud_detection_tpu_torch.ops.gbt import GBTConfig, gbt_fit, gbt_predict_proba
 from fraud_detection_tpu_torch.ops.logistic import (
     logistic_fit_lbfgs,
@@ -86,9 +107,8 @@ log = logging.getLogger("fraud_detection_tpu_torch.train")
 # SGD (the line search makes several full-data passes per iteration).
 SGD_ROW_THRESHOLD = 2_000_000
 
-#: families and options of the JAX trainer that later slices port
+#: options of the JAX trainer that later slices port
 _UNPORTED = {
-    "wide": "the wide family (ROADMAP queue 1, item 10)",
     "profile_dir": "the device trace of a training run (ROADMAP queue 1, item 13)",
 }
 
@@ -167,13 +187,12 @@ def train(
     checkpoint_dir: str | None = None,
     device: str | torch.device | None = None,
     ledger: bool | None = None,
+    wide: bool | None = None,
 ) -> dict:
     """Run the pipeline; returns a metrics dict. ``ledger`` None reads
-    ``LEDGER_ENABLED``."""
+    ``LEDGER_ENABLED``, ``wide`` None ``WIDE_ENABLED``."""
     if model_family not in ("logistic", "gbt"):
         raise ValueError(f"model family must be logistic|gbt, got {model_family!r}")
-    if config.env_flag("WIDE_ENABLED"):
-        raise NotImplementedError(f"WIDE_ENABLED: {_UNPORTED['wide']} is not ported yet")
     use_ledger = ledger if ledger is not None else config.ledger_enabled()
     if use_ledger and model_family != "logistic":
         log.warning("ledger widening supports the logistic family only; off")
@@ -207,6 +226,29 @@ def train(
         log.info("ledger widening on: %d slots, halflife %.0fs, +%d velocity "
                  "features", spec0.slots, spec0.halflife_s, len(LEDGER_FEATURE_NAMES))
         stages.mark("ledger_replay")
+
+    # the wide family: hashed crosses of the seeded pseudo-entities
+    wide_spec = wide_fps = None
+    use_wide = wide if wide is not None else config.wide_enabled()
+    if use_wide and (use_ledger or model_family != "logistic"):
+        log.warning("wide family requires the plain logistic base; off")
+        use_wide = False
+    if use_wide:
+        wide_spec = spec_from_config(x.shape[1])
+        ents, _ = synthesize_entities(
+            x, feature_names, seed, config.ledger_synth_events_per_entity()
+        )
+        wide_fps = entity_fingerprints(ents, x.shape[0])
+        if use_smote:
+            log.info("wide family: SMOTE off (crosses are discrete), "
+                     "class_weight=balanced instead")
+            use_smote = False
+        # --no-smote must not mean "neither": the ~0.2%-positive CSV
+        # collapses toward the majority class under uniform weights
+        class_weight = class_weight or "balanced"
+        log.info("wide family on: %d hashed-cross buckets, %d templates",
+                 wide_spec.buckets, wide_spec.n_cross)
+        stages.mark("wide_entities")
     x_train, y_train = x[train_idx], y[train_idx]
     x_test, y_test = x[test_idx], y[test_idx]
 
@@ -242,8 +284,10 @@ def train(
 
         # ---- CV with SMOTE inside each fold (no leakage) ----
         cv_aucs = []
+        if use_wide:
+            run.set_tag("cv_skipped", "wide family: a single fit")
         for fold, (tr, va) in enumerate(
-            stratified_kfold_indices(y_train, n_folds, seed)
+            () if use_wide else stratified_kfold_indices(y_train, n_folds, seed)
         ):
             x_tr, y_tr = _rows(xs_train, tr), y_train[tr]
             try:
@@ -287,7 +331,30 @@ def train(
             stages.seconds["final_knn"] = t_smote["knn"]
         else:
             x_fin, y_fin = xs_train, y_train
-        if gbt:
+        model = None
+        if use_wide:
+            # the crosses of the RAW training rows (the values serving
+            # hashes), hashed on the device and fitted where they lie
+            fps_train = torch.as_tensor(wide_fps[train_idx].astype(np.int64), device=dev)
+            idx_train = _raw_cross_indices(torch.as_tensor(x_train, device=dev),
+                                           fps_train, spec=wide_spec)
+            stages.mark("wide_hash")
+            params, wide_table = wide_sgd_fit(
+                xs_train, idx_train, (fps_train != 0).to(torch.float32), y_train,
+                wide_spec, epochs=20, seed=seed, class_weight=class_weight, device=dev,
+            )
+            stages.mark("final_fit")
+            feature_names = list(feature_names) + list(wide_spec.cross_names)
+            # scaled base columns + raw cross contributions through the
+            # widened coef, exactly as serving scores them
+            model = FraudLogisticModel(
+                params, widen_scaler(scaler, wide_spec.n_cross), feature_names,
+                device=dev, wide_spec=wide_spec, wide_table=wide_table,
+            )
+            xw_test = widen_with_crosses(x_test, wide_fps[test_idx], wide_table,
+                                         wide_spec, device=dev)
+            test_scores_t = torch.as_tensor(model.scorer.predict_proba(xw_test), device=dev)
+        elif gbt:
             gmodel, used_cfg = _fit_gbt(x_fin, y_fin, gbt_config=gbt_config, spw=spw)
             run.log_params(
                 {
@@ -324,7 +391,9 @@ def train(
         # the scaler into its weights and reads raw rows), scored by the
         # held-out test scores ----
         profile = build_baseline_profile(
-            x_train, test_scores, feature_names=feature_names, device=dev
+            x_train if not use_wide else widen_with_crosses(
+                x_train, wide_fps[train_idx], wide_table, wide_spec, device=dev),
+            test_scores, feature_names=feature_names, device=dev,
         )
         run.log_metric("monitor_profile_rows", profile.n_rows)
         stages.mark("baseline")
@@ -344,7 +413,7 @@ def train(
                 gmodel, feature_names, scaler=scaler, background=x_train[bg_idx],
                 device=dev,
             )
-        else:
+        elif model is None:
             model = FraudLogisticModel(params, scaler, feature_names, device=dev,
                                        ledger_spec=ledger_spec, ledger_state=ledger_state)
         for directory in (out_dir, model_artifact):
@@ -406,7 +475,11 @@ def main(argv=None):
     ap.add_argument("--model", choices=["logistic", "gbt"], default="logistic")
     ap.add_argument("--no-smote", action="store_true")
     ap.add_argument("--no-register", action="store_true")
-    ap.add_argument("--wide", action="store_true", help="not ported yet")
+    ap.add_argument(
+        "--wide", action="store_true",
+        help="fit the wide family: hashed entity crosses at d=WIDE_BUCKETS "
+        "(fraud_detection_tpu_torch/ops/crosses); also WIDE_ENABLED=1",
+    )
     ap.add_argument(
         "--ledger", action="store_true",
         help="widen the rows with the ledger's per-entity velocity features "
@@ -420,11 +493,8 @@ def main(argv=None):
         "dir resumes an interrupted fit at the next epoch (sgd/auto only)",
     )
     args = ap.parse_args(argv)
-    for key, asked in (
-        ("wide", args.wide), ("profile_dir", args.profile_dir is not None),
-    ):
-        if asked:
-            ap.error(f"{_UNPORTED[key]} is not ported yet")
+    if args.profile_dir is not None:
+        ap.error(f"{_UNPORTED['profile_dir']} is not ported yet")
     metrics = train(
         data_csv=args.data,
         n_folds=args.folds,
@@ -436,6 +506,7 @@ def main(argv=None):
         model_family=args.model,
         checkpoint_dir=args.checkpoint_dir,
         ledger=True if args.ledger else None,
+        wide=True if args.wide else None,
     )
     print(metrics)
 

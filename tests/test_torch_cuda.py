@@ -1051,3 +1051,95 @@ def test_ledger_flush_on_the_card_is_a_replay(tmp_path):
             assert a.tobytes() == np.asarray(c).tobytes(), name
     finally:
         wt.close()
+
+
+def _wide_inputs(n=3000, seed=31):
+    """Entities with a characteristic amount (their crosses recur) and
+    planted cross signal; raw rows, fingerprints, labels."""
+    from fraud_detection_tpu_torch.ops.crosses import CrossSpec, cross_indices
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 30)).astype(np.float32)
+    x[:, 0] = np.abs(x[:, 0]) * 40_000
+    ent = rng.integers(0, 300, n)
+    fps = (ent + 1).astype(np.uint32)
+    fps[::7] = 0
+    x[:, -1] = (np.abs(rng.standard_normal(300)) * 200).astype(np.float32)[ent]
+    spec = CrossSpec(n_base=30, log2_buckets=14, amount_col=29)
+    sig = (rng.random(spec.buckets) < 0.1).astype(np.float32) * 4.0
+    idx = cross_indices(x, fps, spec, device="cpu")
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-(sig[idx[:, 0]] * (fps != 0) - 2.0)))).astype(np.int64)
+    return spec, x, fps, y
+
+
+@pytest.mark.cuda
+def test_wide_fit_on_the_card_is_bitwise_and_matches_the_cpu():
+    """Two card fits of the wide family are bitwise equal (the table's
+    gradient adds up through the sorting index_put_), and the card's fit
+    matches the CPU's within 1e-5; the crosses hash alike on both."""
+    from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
+    from fraud_detection_tpu_torch.ops.crosses import cross_indices
+
+    _require_card()
+    spec, x, fps, y = _wide_inputs()
+    idx = cross_indices(x, fps, spec, device="cuda")
+    np.testing.assert_array_equal(idx, cross_indices(x, fps, spec, device="cpu"))
+    xs = ((x - x.mean(0)) / (x.std(0) + 1e-6)).astype(np.float32)
+    has = (fps != 0).astype(np.float32)
+    kw = dict(epochs=6, batch_size=512, lr=1.0, seed=1, class_weight="balanced")
+    fits = [wide_sgd_fit(xs, idx, has, y, spec, device=d, **kw) for d in ("cuda", "cuda", "cpu")]
+    (p1, t1), (p2, t2), (pc, tc) = fits
+    for a, b in ((p1.coef, p2.coef), (p1.intercept, p2.intercept), (t1, t2)):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    np.testing.assert_allclose(t1.cpu().numpy(), tc.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(p1.coef.cpu().numpy(), pc.coef.numpy(), rtol=0, atol=1e-5)
+    assert np.abs(tc.numpy()).max() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "int8"])
+def test_wide_flush_on_the_card_matches_the_cpu(wire):
+    """A wide model served on the card and on the CPU, explain on: one
+    fused_score launch a wide flush (at d = 34), scores within 1e-6,
+    reason indices equal, the window's whole counts equal at an infinite
+    half-life."""
+    from fraud_detection_tpu_torch.ops.crosses import CROSS_NAMES, widen_scaler, widen_with_crosses
+    from fraud_detection_tpu_torch.ops.logistic import LogisticParams
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit
+
+    _require_card()
+    spec, x, fps, _ = _wide_inputs()
+    rng = np.random.default_rng(2)
+    table = (rng.standard_normal(spec.buckets) * 0.3).astype(np.float32)
+    coef = np.concatenate([rng.standard_normal(30).astype(np.float32) * 0.2, np.ones(4, np.float32)])
+    names = ["Time"] + [f"V{i}" for i in range(1, 29)] + ["Amount"] + list(CROSS_NAMES)
+    xw = widen_with_crosses(x, fps, table, spec, device="cpu")
+    served = {}
+    for dev in ("cuda", "cpu"):
+        params = LogisticParams(coef=torch.from_numpy(coef), intercept=torch.tensor(-0.3))
+        model = FraudLogisticModel(params, widen_scaler(scaler_fit(torch.from_numpy(x)), 4), names,
+                                   io_dtype=wire, device=dev, wide_spec=spec, wide_table=table)
+        prof = build_baseline_profile(xw[:2048], model.scorer.predict_proba(xw[:2048]),
+                                      feature_names=names, device="cpu")
+        wt = Watchtower(prof, halflife_rows=float("inf"), device=dev)
+        b = MicroBatcher(model.scorer, watchtower=wt, telemetry=False, explain=True)
+        tgt = b._fused_target(model.scorer)
+        outs = []
+        try:
+            before = kernels.FUSED_SCORE_LAUNCHES
+            for lo in range(0, 320, 64):
+                items = [(x[i], None, None, (0, int(fps[i]), 0.0) if fps[i] else None)
+                         for i in range(lo, lo + 64)]
+                out = b._flush_device(model.scorer, tgt, items)
+                outs.append((out[0].copy(), out[1][0].copy()))
+                model.scorer.staging.release(out[-1])
+            if dev == "cuda":
+                assert kernels.FUSED_SCORE_LAUNCHES == before + 5
+            served[dev] = (outs, [t.cpu().numpy() for t in wt.drift.window.tensors()])
+        finally:
+            wt.close()
+    for (sg, ig), (sc, ic) in zip(served["cuda"][0], served["cpu"][0]):
+        np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(ig, ic)
+    for a, c in zip(served["cuda"][1][:2], served["cpu"][1][:2]):
+        np.testing.assert_array_equal(a, c)

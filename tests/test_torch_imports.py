@@ -66,7 +66,8 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
 
 def test_training_modules_are_among_those_imported():
     """The blocked-import probe walks the package; the training, GBT,
-    explain, offline-tool, ingest and ledger slices' modules are in it."""
+    explain, offline-tool, ingest, ledger and wide-family slices' modules
+    are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -81,7 +82,8 @@ def test_training_modules_are_among_those_imported():
                 "tracking.http_client", "service.loading", "data.native",
                 "telemetry", "telemetry.timeline", "telemetry.flightrecorder",
                 "service.binlane", "service.legacy", "monitor.shadow",
-                "ledger", "ledger.state", "ledger.features", "ledger.replay"):
+                "ledger", "ledger.state", "ledger.features", "ledger.replay",
+                "ops.crosses", "mesh", "mesh.retrain"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 

@@ -107,10 +107,11 @@ def test_artifacts_interchange(tmp_path, rows):
 
 @pytest.mark.parametrize("sidecar", [None, "ledger_state.npz", "wide_params.npz"])
 def test_unported_families_raise(tmp_path, sidecar, rows, request):
-    """Only the wide sidecar still raises (ROADMAP item 10). A ledger
-    sidecar beside a logistic model loads the ledger-widened family, whose
-    base rows score as in the JAX package; (None) a GBT forest carrying a
-    ledger sidecar loads as the forest it is, as the JAX loader does."""
+    """No sidecar raises any more. A ledger sidecar beside a logistic model
+    loads the ledger-widened family, a wide sidecar the wide family (both
+    written by the JAX package), whose base rows score as in the JAX
+    package; (None) a GBT forest carrying a ledger sidecar loads as the
+    forest it is, as the JAX loader does."""
     from fraud_detection_tpu.ledger.state import LEDGER_FEATURE_NAMES, LedgerSpec, init_state
     from fraud_detection_tpu.ledger.state import save_ledger as jax_save_ledger
     from fraud_detection_tpu.models import load_any_model as jax_load_any_model
@@ -131,17 +132,25 @@ def test_unported_families_raise(tmp_path, sidecar, rows, request):
                            intercept=np.float32(-0.4))
         JaxModel(params, jax_scaler_fit(xw.astype(np.float32)), names,
                  ledger_spec=spec).save(d)
-    else:
-        shutil.copytree(MODELS, d)
-        np.savez(os.path.join(d, sidecar), x=np.zeros(1))
-    if sidecar == "wide_params.npz":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            load_any_model(d, device="cpu")
-        return
+    else:  # a wide logistic model, by JAX
+        from fraud_detection_tpu.ops.crosses import CrossSpec, widen_scaler
+
+        rng = np.random.default_rng(8)
+        cspec = CrossSpec(n_base=30, log2_buckets=10, amount_col=29)
+        names = JaxModel.load(MODELS).feature_names + list(cspec.cross_names)
+        params = JaxParams(coef=np.concatenate([rng.standard_normal(30).astype(np.float32) * 0.2,
+                                                np.ones(4, np.float32)]),
+                           intercept=np.float32(-0.4))
+        JaxModel(params, widen_scaler(jax_scaler_fit(rows[:512]), 4), names, wide_spec=cspec,
+                 wide_table=(rng.standard_normal(1024) * 0.3).astype(np.float32)).save(d)
     port, jm = load_any_model(d, device="cpu"), jax_load_any_model(d)
     assert type(port).__name__ == type(jm).__name__
     if sidecar is None:
         assert getattr(port, "ledger_spec", None) is None
+    elif sidecar == "wide_params.npz":
+        assert port.scorer.family == jm.scorer.family == "wide"
+        assert port.wide_spec == tuple(jm.wide_spec) and port.scorer.staging_features == 30
+        np.testing.assert_array_equal(port.wide_table, jm.wide_table)
     else:
         assert port.ledger_spec.n_features == 34 and port.scorer.staging_features == 30
     np.testing.assert_allclose(

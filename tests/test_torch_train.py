@@ -427,9 +427,10 @@ def test_main_trains_gbt(synth_csv, tmp_path, monkeypatch, capsys):
 
 
 def test_main_refuses_unported_families(synth_csv, tmp_path, monkeypatch, capsys):
-    """``--ledger`` now trains the ledger-widened family (a run on the
-    synthetic CSV, its sidecar stamped); ``--wide`` and ``--profile-dir``
-    and ``WIDE_ENABLED`` keep refusing, each naming its ROADMAP item."""
+    """``--ledger`` trains the ledger-widened family and ``--wide`` the wide
+    family (runs on the synthetic CSV, each sidecar stamped), as does
+    ``WIDE_ENABLED``; ``--profile-dir`` keeps refusing, naming its ROADMAP
+    item."""
     monkeypatch.setenv("DEVICE", "cpu")
     monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
     monkeypatch.setenv("LEDGER_SLOTS", "64")
@@ -439,13 +440,19 @@ def test_main_refuses_unported_families(synth_csv, tmp_path, monkeypatch, capsys
     with np.load(tmp_path / "m" / "ledger_state.npz") as z:
         assert int(z["slots"]) == 64 and z["acc"].shape == (64, 3)
     assert len(FraudLogisticModel.load(str(tmp_path / "m"), device="cpu").feature_names) == 34
-    for argv, item in ((["--wide"], "item 10"), (["--profile-dir", "x"], "item 13")):
-        with pytest.raises(SystemExit):
-            main(argv)
-        assert item in capsys.readouterr().err
+    monkeypatch.setenv("WIDE_BUCKETS", "1024")
+    main(["--data", synth_csv, "--wide", "--no-register", "--out-dir", str(tmp_path / "w")])
+    assert "test_auc" in capsys.readouterr().out
+    with np.load(tmp_path / "w" / "wide_params.npz") as z:
+        assert int(z["log2_buckets"]) == 10 and z["table"].shape == (1024,)
+    wide = load_any_model(str(tmp_path / "w"), device="cpu")
+    assert wide.scorer.family == "wide" and len(wide.feature_names) == 34
+    with pytest.raises(SystemExit):
+        main(["--profile-dir", "x"])
+    assert "item 13" in capsys.readouterr().err
     monkeypatch.setenv("WIDE_ENABLED", "1")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train(device="cpu")
+    m = train(data_csv=synth_csv, register=False, out_dir=str(tmp_path / "e"), device="cpu")
+    assert "cv_auc_mean" not in m and os.path.exists(tmp_path / "e" / "wide_params.npz")
 
 
 def test_predict_helpers_and_convert_round_trip(data):
