@@ -281,6 +281,32 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ``scorer_wide_fused 1`` and ``wide_model_shards 1`` in ``/metrics``.
    Then a 1024-row wide flush and the stateless flush (phase 3's model),
    in turns: host p50, stream p50, device busy and launches.
+13. **the lifecycle loop** — phase 4's model at ``@prod`` of a fresh
+   registry, served over HTTP with ``SCORER_EXPLAIN=topk`` and
+   ``SCORER_MAX_INFLIGHT=1`` beside a lifecycle store: 1,200 labeled rows
+   of the committed CSV (60 frauds) through ``/monitor/feedback``, each
+   ``persisted: true``, the store's counts checked; one
+   ``watchtower.trigger_retrain`` through the worker (``XaiWorker``, in
+   process): ``knn_topk`` launches exactly once (SMOTE), the challenger
+   lands at ``@shadow`` (the gate's bounds set by ``LC_GATE_ENV``), the
+   stages' times printed, the gate's four statistics within 1e-5 of a
+   float64 numpy recomputation on both slices, and a ``DEVICE=cpu``
+   retrain of the same store builds the same fit rows (SMOTE's among
+   them, within 1e-4), holdout AUC within 2e-3 and the same verdict. The
+   promotion under 12 threads of ``/predict``, then ``POST
+   /admin/reload``: every request 200, ``lifecycle_model_swaps`` +1, the
+   slot write's and the reload's times, the first post-swap flush's host
+   time against the steady p50; 64 test rows after the swap bitwise a
+   fresh app's on v2; the rollback, under the same traffic and measured
+   alike, serves v1's scores bitwise again. The
+   forest of phase 5 at ``@shadow``, forced: ``tree_shap`` launches after
+   the cross-family swap, reason codes the CPU plain TreeSHAP's but across
+   a 2e-5 tie. Phase 12's wide model forced (narrow → wide): the wide
+   flush, ``fused_score`` once a flush, scores within 1e-5 of the widened
+   rows'. A ledger challenger retrained from phase 11's model on the same
+   store, forced (wide → ledger): the served table bitwise its stamped
+   table after the swap, and bitwise the stamped table plus a replay of
+   the recorded post-swap flushes after 48 entity-keyed ``/predict``.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -4078,7 +4104,7 @@ def ledger_timing(work: Path, model_dir: Path, x, kaggle_csv: Path) -> dict:
 
 def ledger_phase(work: Path, kaggle_csv: Path) -> dict:
     """Phase 11. Returns the kernel checks at d = 34, the train run's and
-    the served traffic's launches."""
+    the served traffic's launches, and the card run's directory."""
     t_phase = time.perf_counter()
     checks = ledger_kernels_at_d34(seed=11)
     model_dir, train_launches, x = ledger_train_and_replay(work)
@@ -4091,7 +4117,8 @@ def ledger_phase(work: Path, kaggle_csv: Path) -> dict:
     os.environ.pop("SCORER_WIRE", None)
     print(f"phase11: the ledger in {time.perf_counter() - t_phase:.3f} s; served launches "
           f"{served}, train --ledger's {train_launches}")
-    return {"checks": checks, "train": train_launches, "served": served}
+    return {"checks": checks, "train": train_launches, "served": served,
+            "model_dir": model_dir}
 
 
 # ---------------------------------------------------------------------------
@@ -4566,7 +4593,7 @@ def wide_timing(work: Path, model_dir: Path, x) -> dict:
 
 def wide_phase(work: Path) -> dict:
     """Phase 12. Returns the train run's and the served traffic's
-    launches."""
+    launches, and the card run's directory."""
     t_phase = time.perf_counter()
     model_dir, train_launches, _ = wide_train(work)
     wide_hash_check(model_dir)
@@ -4584,7 +4611,524 @@ def wide_phase(work: Path) -> dict:
     os.environ.pop("SCORER_WIRE", None)
     print(f"phase12: the wide family in {time.perf_counter() - t_phase:.3f} s; served launches "
           f"{served}, train --wide's {train_launches}")
-    return {"train": train_launches, "served": served}
+    return {"train": train_launches, "served": served, "model_dir": model_dir}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the lifecycle loop
+# ---------------------------------------------------------------------------
+
+LC_FEEDBACK_ROWS = 1200  # labeled rows posted through /monitor/feedback
+LC_FEEDBACK_POSITIVES = 60  # of them frauds, so the recent slice holds both classes
+LC_FEEDBACK_POSTS = 4
+#: the gate's bounds for the phase (the defaults' AUC margin 0.005 and ECE
+#: 0.1 are the production setting; a SMOTE-fitted challenger's ECE on a
+#: 5%-positive window is above 0.1, and the phase needs a passing challenger
+#: to promote)
+LC_GATE_ENV = {"CONDUCTOR_GATE_AUC_MARGIN": "0.02", "CONDUCTOR_GATE_ECE_BOUND": "0.5",
+               "CONDUCTOR_GATE_PSI_BOUND": "1.0"}
+LC_RETRAIN_AUC_TOL = 2e-3  # card vs CPU retrain: holdout AUC
+LC_FIT_ROWS_ATOL = 1e-4  # card vs CPU retrain: the scaled fit rows, SMOTE's among them
+LC_STAT_ATOL = 1e-5  # the gate's four statistics against float64 numpy
+LC_TRAFFIC_THREADS = 12  # /predict threads across the live promotion
+LC_TRAFFIC_AFTER_S = 1.0  # traffic before the promotion and after the swap
+LC_PROBE_ROWS = 64  # test-split rows scored one at a time around each swap
+LC_FOREST_PREDICTS = 16
+LC_WIDE_PREDICTS, LC_WIDE_NULL = 24, 8  # /predict with and without entity_id
+LC_LEDGER_PREDICTS, LC_LEDGER_ENTITIES = 48, 12
+
+
+def gate_stats_f64(champ, chall, y) -> dict:
+    """The gate's four statistics recomputed in float64 numpy from the two
+    models' float32 scores: AUC by the Mann–Whitney count with half ties,
+    score PSI over 20 bins and the challenger's ECE over 10 (a bin is the
+    number of edges ≤ the score; PSI's smoothing is the drift monitor's)."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.monitor.drift import PSI_EPS
+
+    y = np.asarray(y) > 0
+
+    def auc(s):
+        s = np.asarray(s, np.float64)
+        neg = np.sort(s[~y])
+        pos = s[y]
+        below = np.searchsorted(neg, pos, side="left")
+        tied = np.searchsorted(neg, pos, side="right") - below
+        return float((below + 0.5 * tied).sum() / (len(pos) * len(neg)))
+
+    def bins(s, n):
+        edges = np.linspace(0.0, 1.0, n + 1)[1:-1].astype(np.float32)
+        return np.searchsorted(edges, np.asarray(s, np.float32), side="right")
+
+    def mass(c):
+        return (c + PSI_EPS) / (c.sum() + PSI_EPS * len(c))
+
+    p = mass(np.bincount(bins(chall, 20), minlength=20).astype(np.float64))
+    q = mass(np.bincount(bins(champ, 20), minlength=20).astype(np.float64))
+    idx = bins(chall, 10)
+    c64 = np.asarray(chall, np.float64)
+    ece = sum((idx == b).mean() * abs(c64[idx == b].mean() - y[idx == b].mean())
+              for b in range(10) if (idx == b).any())
+    return {"champion_auc": auc(champ), "challenger_auc": auc(chall),
+            "challenger_ece": float(ece),
+            "score_psi_vs_champion": float(np.sum((p - q) * np.log(p / q)))}
+
+
+def lc_probe(port: int, rows, tag: str, entities=None, timestamps=None) -> list:
+    """``rows`` through /predict one at a time (a lone request a flush);
+    returns the response bodies."""
+    out = []
+    for i, r in enumerate(rows):
+        body = {"features": r.tolist()}
+        if entities is not None and entities[i] is not None:
+            body["entity_id"] = entities[i]
+            if timestamps is not None:
+                body["timestamp"] = float(timestamps[i])
+        st, text = http_call(port, "POST", "/predict", body)
+        if st != 200:
+            raise AssertionError(f"{tag}: /predict {i}: HTTP {st} {text[:200]!r}")
+        out.append(json.loads(text))
+    return out
+
+
+def lc_reload(port: int, tag: str, want: str) -> float:
+    """POST /admin/reload; its ``champion`` must read ``want``. Returns its
+    wall seconds (the load, the warm-up and the swap)."""
+    t = time.perf_counter()
+    st, text = http_call(port, "POST", "/admin/reload")
+    wall = time.perf_counter() - t
+    body = json.loads(text)
+    print(f"{tag}: POST /admin/reload {st} in {wall:.3f} s: {body}")
+    if st != 200 or body["champion"] != want:
+        raise AssertionError(f"{tag}: /admin/reload answered {st} {body}, not {want!r}")
+    return wall
+
+
+def lc_force_promote(worker, reg, art: str, tag: str) -> int:
+    """Register ``art``, alias it @shadow and force the promotion through the
+    worker's conductor (the operator override); returns its version."""
+    version = reg.register("fraud", art)
+    reg.set_alias("fraud", "shadow", version)
+    out = worker._get_conductor().handle_promote(f"{tag}: forced promotion", force=True)
+    print(f"{tag}: v{version} ({art}) at @shadow, forced promotion: {out}")
+    if out.get("outcome") != "promoted" or reg.get_version_by_alias("fraud", "prod") != version:
+        raise AssertionError(f"{tag}: the forced promotion did not land: {out}")
+    return version
+
+
+def lifecycle_phase(work: Path, lin_store: str, gbt_store: str, ledger_dir: Path,
+                    wide_dir: Path, dev: str = "cuda") -> dict:
+    """Phase 13. Returns the lifecycle loop's kernel launches."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv, stratified_split
+    from fraud_detection_tpu_torch.ledger import _ledger_read_update, entity_fingerprint
+    from fraud_detection_tpu_torch.ledger.state import device_state, host_state, load_ledger
+    from fraud_detection_tpu_torch.lifecycle import LifecycleStore, run_retrain
+    from fraud_detection_tpu_torch.lifecycle import conductor as conductor_mod
+    from fraud_detection_tpu_torch.lifecycle.retrain import HOLDOUT_FRACTION, HOLDOUT_SEED
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.watchtower import RETRAIN_TASK
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.crosses import widen_with_crosses
+    from fraud_detection_tpu_torch.ops.tree_shap import tree_shap
+    from fraud_detection_tpu_torch.service import metrics
+    from fraud_detection_tpu_torch.service.app import create_app
+    from fraud_detection_tpu_torch.service.taskq import Broker
+    from fraud_detection_tpu_torch.service.worker import XaiWorker
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+
+    t_phase = time.perf_counter()
+    tag = "phase13"
+    on_card = dev == "cuda"
+    csv = str(ROOT / "data" / "creditcard.csv")
+    x, y, _ = load_creditcard_csv(csv)
+    _, te_idx = stratified_split(y, HOLDOUT_FRACTION, HOLDOUT_SEED)
+    store_dir = work / "lc_mlruns"
+    reg = TrackingClient(f"file:{store_dir}").registry
+    v1_dir = TrackingClient(lin_store).registry.resolve("models:/fraud@prod")
+    v1 = reg.register("fraud", v1_dir)
+    reg.set_alias("fraud", "prod", v1)
+    lc_url = f"sqlite:///{work}/lc_lifecycle.db"
+    db_url, q_url = f"sqlite:///{work}/lc_fraud.db", f"sqlite:///{work}/lc_taskq.db"
+    for knob in ("SCORER_WIRE", "SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
+                 "SCORER_RETURN_WIRE", "INGEST_PORT", "WIDE_ENABLED", "LEDGER_ENABLED",
+                 "MESH_RETRAIN", "WATCHTOWER_SHADOW_SAMPLE", "WATCHTOWER_RETRAIN_TRIGGER",
+                 "WATCHTOWER_HALFLIFE_ROWS", "ADMIN_TOKEN", "CONDUCTOR_AUTO_PROMOTE"):
+        os.environ.pop(knob, None)
+    # one flush at a time (SCORER_MAX_INFLIGHT=1): the ledger leg replays
+    # the recorded flushes in table order, as phase 11 does
+    os.environ.update(DEVICE=dev, SCORER_EXPLAIN="topk", SCORER_MAX_INFLIGHT="1",
+                      LIFECYCLE_DB_URL=lc_url, LIFECYCLE_RELOAD_INTERVAL_S="0", DATA_CSV=csv,
+                      MODEL_PATH=str(work / "absent" / "model.npz"), **LC_GATE_ENV)
+    pin_tracking_store(store_dir, work)
+    app = create_app(database_url=db_url, broker_url=q_url)
+    port = free_port()
+    server = ServerThread(app, port)
+    server.start()
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"{tag}: server did not start: {server.error!r}")
+    worker = None
+    store = LifecycleStore(lc_url)
+    launched = {"knn_topk": 0, "fused_score": 0, "tree_shap": 0}
+
+    def count(launches: dict) -> None:
+        for k in launched:
+            launched[k] += launches.get(k, 0)
+
+    try:
+        check_source(tag, app.state["model_source"], "registry:models:/fraud@prod")
+        slot, batcher, wt = app.state["slot"], app.state["batcher"], app.state["watchtower"]
+        if slot.version != v1 or wt is None or app.state["lifecycle_store"] is None:
+            raise AssertionError(f"{tag}: the app serves v{slot.version}, watchtower {wt}")
+        # instruments: each flush's host time and scorer (and, for the ledger
+        # leg, its staged columns), and the slot write itself
+        flushes: list = []
+        ledger_records: list = []
+        inner_flush = batcher._flush_device
+
+        def timed_flush(scorer_, target_, batch, telemetry=False):
+            t = time.perf_counter()
+            out = inner_flush(scorer_, target_, batch, telemetry)
+            flushes.append((scorer_, time.perf_counter() - t))
+            if target_ is not None and target_[1].ledger is not None:
+                sl = out[-1]
+                ledger_records.append(tuple(np.array(a) for a in (
+                    sl.f32, sl.io, sl.ls, sl.lf, sl.lt, sl.lh)))
+            return out
+
+        batcher._flush_device = timed_flush
+        swap_s: list = []
+        inner_swap = slot.swap
+
+        def timed_swap(*a, **kw):
+            t = time.perf_counter()
+            inner_swap(*a, **kw)
+            swap_s.append(time.perf_counter() - t)
+
+        slot.swap = timed_swap
+
+        # ---- 1. labeled feedback lands in the durable store
+        rng = np.random.default_rng(13)
+        pick = np.concatenate([
+            rng.choice(np.nonzero(y > 0)[0], LC_FEEDBACK_POSITIVES, replace=False),
+            rng.choice(np.nonzero(y <= 0)[0], LC_FEEDBACK_ROWS - LC_FEEDBACK_POSITIVES,
+                       replace=False)])
+        rng.shuffle(pick)
+        fx, fy = x[pick], y[pick].astype(int)
+        v1_model = load_any_model(v1_dir, device=dev)
+        fs = v1_model.scorer.predict_proba(fx)
+        for part in np.array_split(np.arange(LC_FEEDBACK_ROWS), LC_FEEDBACK_POSTS):
+            st, text = http_call(port, "POST", "/monitor/feedback", {
+                "features": fx[part].tolist(), "scores": fs[part].tolist(),
+                "labels": fy[part].tolist()})
+            if st != 202 or json.loads(text)["persisted"] is not True:
+                raise AssertionError(f"{tag}: /monitor/feedback {st} {text[:200]!r}")
+        status = json.loads(http_call(port, "GET", "/lifecycle/status")[1])
+        counts = {"window": LC_FEEDBACK_ROWS, "reservoir": LC_FEEDBACK_ROWS,
+                  "seen": LC_FEEDBACK_ROWS}
+        print(f"{tag}: {LC_FEEDBACK_ROWS} labeled rows ({LC_FEEDBACK_POSITIVES} frauds) in "
+              f"{LC_FEEDBACK_POSTS} POST /monitor/feedback, each persisted: true; "
+              f"/lifecycle/status state {status['state']}, feedback {status['feedback']}, "
+              f"serving v{status['serving_version']}")
+        if status["feedback"] != counts or store.feedback_counts() != counts \
+                or status["state"] != "idle":
+            raise AssertionError(f"{tag}: the store holds {status}")
+
+        # ---- 2. the retrain through the worker, on the card
+        worker = XaiWorker(broker_url=q_url, database_url=db_url, device=dev)
+        recorded: dict = {}
+        real_retrain = conductor_mod.run_retrain
+
+        def keeping(*a, **kw):
+            recorded["card"] = real_retrain(*a, keep_fit_rows=True, **kw)
+            return recorded["card"]
+
+        conductor_mod.run_retrain = keeping
+        broker = Broker(q_url)
+        try:
+            broker.send_task(RETRAIN_TASK, ["phase13: drift episode"])
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            handled = worker.run_once()
+            if on_card:
+                torch.cuda.synchronize()
+            retrain_wall = time.perf_counter() - t
+            retrain_launches = kernels.launch_counts()
+        finally:
+            conductor_mod.run_retrain = real_retrain
+            broker.close()
+        count(retrain_launches)
+        res = recorded.get("card")
+        v2 = reg.get_version_by_alias("fraud", "shadow")
+        status = json.loads(http_call(port, "GET", "/lifecycle/status")[1])
+        print(f"{tag}: watchtower.trigger_retrain through the worker in {retrain_wall:.3f} s "
+              f"(host clock, device synchronised); kernel launches {retrain_launches}; "
+              f"stages (s) " + json.dumps({k: round(v, 6) for k, v in
+                                           (res.metrics["stages"] if res else {}).items()})
+              + f"; gate passed {res.gate.passed if res else None}, reasons "
+              f"{res.gate.reasons if res else None}; challenger v{v2} at @shadow, state "
+              f"{status['state']}")
+        if not handled or res is None or not res.gate.passed or v2 != v1 + 1 \
+                or status["state"] != "shadowing":
+            raise AssertionError(f"{tag}: the retrain did not shadow a challenger")
+        if on_card and (retrain_launches.get("knn_topk") != 1
+                        or retrain_launches.get("fused_score", 0) < 1):
+            raise AssertionError(f"{tag}: the retrain launched {retrain_launches}; "
+                                 "knn_topk must launch once (SMOTE), fused_score (the gate)")
+        # the gate's statistics against float64 numpy, on both slices
+        wx, _, wy = store.window_rows()
+        slices = {"holdout": (x[te_idx], y[te_idx]), "recent": (wx[1::2], wy[1::2])}
+        worst = 0.0
+        for name, (sx, sy) in slices.items():
+            want = gate_stats_f64(v1_model.scorer.predict_proba(sx),
+                                  res.challenger.scorer.predict_proba(sx), sy)
+            gaps = {k: abs(res.gate.metrics[f"{name}_{k}"] - v) for k, v in want.items()}
+            worst = max(worst, max(gaps.values()))
+            print(f"{tag}: gate {name} ({len(sy)} rows): " + ", ".join(
+                f"{k} {res.gate.metrics[f'{name}_{k}']:.6f}" for k in want)
+                + "; against float64 numpy: " + ", ".join(f"{v:.2e}" for v in gaps.values()))
+        if not worst <= LC_STAT_ATOL:
+            raise AssertionError(f"{tag}: the gate's statistics are {worst:.3e} off float64")
+        # the same store retrained on the CPU
+        t = time.perf_counter()
+        cpu = run_retrain(store, load_any_model(v1_dir, device="cpu"), v1, device="cpu",
+                          keep_fit_rows=True,
+                          tracking_client=TrackingClient(f"file:{work}/lc_cpu_mlruns"))
+        cpu_wall = time.perf_counter() - t
+        (xc, yc), (xp, yp) = res.fit_rows, cpu.fit_rows
+        n_syn = res.metrics["n_synthetic_rows"]
+        n_base = xc.shape[0] - n_syn
+        if xc.shape != xp.shape or not np.array_equal(yc, yp) \
+                or cpu.metrics["n_synthetic_rows"] != n_syn:
+            raise AssertionError(f"{tag}: the fit rows differ: {xc.shape} vs {xp.shape}")
+        base_gap = float(np.abs(xc[:n_base] - xp[:n_base]).max())
+        syn_gap = float(np.abs(xc[n_base:] - xp[n_base:]).max()) if n_syn else 0.0
+        auc_gap = abs(res.gate.metrics["holdout_challenger_auc"]
+                      - cpu.gate.metrics["holdout_challenger_auc"])
+        print(f"{tag}: the DEVICE=cpu retrain of the same store in {cpu_wall:.3f} s: "
+              f"{n_syn} SMOTE rows on both; max |card - cpu| over the scaled fit rows "
+              f"{base_gap:.3e}, over the SMOTE rows {syn_gap:.3e}; holdout AUC card "
+              f"{res.gate.metrics['holdout_challenger_auc']:.6f}, cpu "
+              f"{cpu.gate.metrics['holdout_challenger_auc']:.6f} (gap {auc_gap:.2e}); "
+              f"verdict card {res.gate.passed}, cpu {cpu.gate.passed}")
+        if n_syn < 1 or not max(base_gap, syn_gap) <= LC_FIT_ROWS_ATOL \
+                or not auc_gap <= LC_RETRAIN_AUC_TOL or cpu.gate.passed != res.gate.passed:
+            raise AssertionError(f"{tag}: the card's retrain disagrees with the CPU's")
+
+        # ---- 3. promote, then roll back, each under live traffic: the swap
+        # lands between two flushes
+        probe = x[te_idx[:LC_PROBE_ROWS]]
+        scores_v1 = [b["score"] for b in lc_probe(port, probe, tag)]
+
+        def live_swap(step: str, move, version: int) -> None:
+            """``move()`` (the worker's promote or rollback task body), then
+            /admin/reload, while LC_TRAFFIC_THREADS threads send /predict:
+            every request 200, one swap, the swap's times."""
+            old_scorer = slot.model.scorer
+            statuses: list = []
+            stop = threading.Event()
+
+            def traffic(i: int) -> None:
+                j = i
+                while not stop.is_set():
+                    st, _ = http_call(port, "POST", "/predict",
+                                      {"features": x[j % len(x)].tolist()})
+                    statuses.append(st)
+                    j += LC_TRAFFIC_THREADS
+
+            swaps0 = metrics.lifecycle_model_swaps.get()
+            f0 = len(flushes)
+            kernels.reset_launch_counts()
+            threads = [threading.Thread(target=traffic, args=(i,))
+                       for i in range(LC_TRAFFIC_THREADS)]
+            for th in threads:
+                th.start()
+            try:
+                time.sleep(LC_TRAFFIC_AFTER_S)
+                move()
+                if reg.get_version_by_alias("fraud", "prod") != version:
+                    raise AssertionError(f"{tag}: the {step} task did not move @prod")
+                reload_s = lc_reload(port, tag, f"swapped to v{version}")
+                time.sleep(LC_TRAFFIC_AFTER_S)
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(timeout=60)
+            count(kernels.launch_counts())
+            swaps = metrics.lifecycle_model_swaps.get() - swaps0
+            window = flushes[f0:]
+            pre = sorted(dt for sc, dt in window if sc is old_scorer)
+            post = [dt for sc, dt in window if sc is slot.model.scorer]
+            bad = [st for st in statuses if st != 200]
+            print(f"{tag}: {step}: {len(statuses)} /predict from {LC_TRAFFIC_THREADS} threads "
+                  f"across it, {len(bad)} not 200; lifecycle_model_swaps +{swaps:g}; serving "
+                  f"v{slot.version}; {len(pre)} flushes before the swap, {len(post)} after")
+            if bad or not statuses or swaps != 1 or slot.version != version or not pre \
+                    or not post:
+                raise AssertionError(f"{tag}: the live {step} failed requests or swaps")
+            steady = pre[len(pre) // 2]
+            print(f"{tag}: {step}: swap pause (the slot write) {swap_s[-1] * 1e6:.3f} us; "
+                  f"/admin/reload (load + warm-up + swap) {reload_s * 1e3:.3f} ms; first "
+                  f"post-swap flush {post[0] * 1e3:.3f} ms host against the steady p50 "
+                  f"{steady * 1e3:.3f} ms ({post[0] / steady:.2f}x); post-swap p50 "
+                  f"{sorted(post)[len(post) // 2] * 1e3:.3f} ms (host clock, "
+                  f"SCORER_MAX_INFLIGHT=1)")
+
+        live_swap("promotion", lambda: worker.promote_challenger("phase13: promote"), v2)
+        scores_v2 = [b["score"] for b in lc_probe(port, probe, tag)]
+        # a fresh app on v2 scores the same rows bitwise alike
+        fresh = create_app(database_url=f"sqlite:///{work}/lc_fresh_fraud.db",
+                           broker_url=f"sqlite:///{work}/lc_fresh_taskq.db")
+        fport = free_port()
+        fserver = ServerThread(fresh, fport)
+        fserver.start()
+        if not fserver.ready.wait(timeout=300) or fserver.error is not None:
+            raise RuntimeError(f"{tag}: the fresh app did not start: {fserver.error!r}")
+        try:
+            if fresh.state["slot"].version != v2:
+                raise AssertionError(f"{tag}: the fresh app serves v{fresh.state['slot'].version}")
+            scores_fresh = [b["score"] for b in lc_probe(fport, probe, tag)]
+        finally:
+            fserver.stop()
+        differ = sum(a != b for a, b in zip(scores_v2, scores_fresh))
+        moved = sum(a != b for a, b in zip(scores_v2, scores_v1))
+        print(f"{tag}: {LC_PROBE_ROWS} test rows after the swap: {differ} differ in bits from "
+              f"a fresh app on v{v2}; {moved} moved from v{v1}'s scores")
+        if differ or not moved:
+            raise AssertionError(f"{tag}: post-swap scores are not v{v2}'s")
+
+        # ---- 4. roll back (under traffic too): v1 serves again
+        live_swap("rollback", lambda: worker.rollback_challenger("phase13: rollback"), v1)
+        scores_back = [b["score"] for b in lc_probe(port, probe, tag)]
+        back = sum(a != b for a, b in zip(scores_back, scores_v1))
+        print(f"{tag}: rolled back to v{v1}: {back} of {LC_PROBE_ROWS} scores differ in bits "
+              f"from v{v1}'s before the promotion; state {store.get_state('fraud')['state']}")
+        if back:
+            raise AssertionError(f"{tag}: the rollback does not serve v{v1}")
+
+        # ---- 5. the forest at @shadow, forced: a cross-family swap
+        gbt_dir = TrackingClient(gbt_store).registry.resolve("models:/fraud@prod")
+        v3 = lc_force_promote(worker, reg, gbt_dir, f"{tag} forest")
+        lc_reload(port, f"{tag} forest", f"swapped to v{v3}")
+        rows = probe[:LC_FOREST_PREDICTS]
+        kernels.reset_launch_counts()
+        bodies = lc_probe(port, rows, f"{tag} forest")
+        forest_launches = kernels.launch_counts()
+        count(forest_launches)
+        ref = load_any_model(gbt_dir, device="cpu")
+        phi = tree_shap(ref.raw_explainer(), torch.from_numpy(np.ascontiguousarray(rows))).numpy()
+        want = ref.scorer.predict_proba(rows)
+        k = batcher.explain_k
+        want_idx = topk_total_order(phi, k)
+        srt = -np.sort(-phi, axis=1)
+        names = ref.feature_names
+        tie_rows, worst = 0, 0.0
+        for i, b in enumerate(bodies):
+            worst = max(worst, abs(b["score"] - float(want[i])))
+            got = [rc["feature"] for rc in b["reason_codes"] or []]
+            if got != [names[j] for j in want_idx[i]]:
+                if not abs(srt[i, k - 1] - srt[i, k]) <= SHAP_TIE:
+                    raise AssertionError(f"{tag} forest: /predict {i} reason codes {got}")
+                tie_rows += 1
+        print(f"{tag} forest: {len(rows)} /predict after the cross-family swap: kernel "
+              f"launches {forest_launches}; max |score - CPU forest| {worst:.3e}; reason codes "
+              f"equal the CPU plain TreeSHAP's on {len(rows) - tie_rows} rows, {tie_rows} "
+              f"across a tie within {SHAP_TIE}; scorer_served_family gbt "
+              f"{metrics.scorer_served_family.get('gbt'):g}")
+        if (on_card and forest_launches.get("tree_shap", 0) < 1) or not worst <= SCORE_ATOL \
+                or metrics.scorer_served_family.get("gbt") != 1:
+            raise AssertionError(f"{tag} forest: the swap did not serve the forest's flush")
+        out = worker._get_conductor().handle_rollback(f"{tag}: back to the narrow champion")
+        if out.get("restored") != v1:
+            raise AssertionError(f"{tag}: the rollback restored {out}")
+        lc_reload(port, tag, f"swapped to v{v1}")
+
+        # ---- 6. narrow → wide: the wide flush, fused_score once a flush
+        v4 = lc_force_promote(worker, reg, str(wide_dir), f"{tag} wide")
+        lc_reload(port, f"{tag} wide", f"swapped to v{v4}")
+        model = slot.model
+        spec = model.wide_spec
+        target = batcher._fused_target(model.scorer)
+        if spec is None or target is None or target[1].wide is None:
+            raise AssertionError(f"{tag} wide: v{v4} does not run the wide flush")
+        rows = probe[:LC_WIDE_PREDICTS + LC_WIDE_NULL]
+        ents = [f"card-{i % 6}" if i < LC_WIDE_PREDICTS else None for i in range(len(rows))]
+        f0 = len(flushes)
+        kernels.reset_launch_counts()
+        bodies = lc_probe(port, rows, f"{tag} wide", entities=ents)
+        wide_launches = kernels.launch_counts()
+        count(wide_launches)
+        n_flush = len(flushes) - f0
+        fps = np.asarray([0 if e is None else entity_fingerprint(e) for e in ents], np.uint32)
+        want = model.scorer.predict_proba(widen_with_crosses(rows, fps, model.wide_table, spec,
+                                                             device=dev))
+        worst = max(abs(b["score"] - float(w)) for b, w in zip(bodies, want))
+        print(f"{tag} wide: {len(rows)} /predict ({LC_WIDE_PREDICTS} with entity_id) in "
+              f"{n_flush} flushes after the narrow -> wide swap: kernel launches "
+              f"{wide_launches}; max |score - the widened rows' score| {worst:.3e}; "
+              f"scorer_wide_fused {metrics.scorer_wide_fused.get():g}")
+        if (on_card and wide_launches.get("fused_score") != n_flush) or not worst <= SCORE_ATOL \
+                or metrics.scorer_wide_fused.get() != 1:
+            raise AssertionError(f"{tag} wide: the wide flush did not serve")
+
+        # ---- 7. a retrained ledger challenger: its table rebinds with it
+        t = time.perf_counter()
+        lres = run_retrain(store, load_any_model(str(ledger_dir), device=dev), None,
+                           reason="phase13: ledger retrain", device=dev,
+                           tracking_client=TrackingClient(f"file:{store_dir}"))
+        print(f"{tag} ledger: retrained the ledger champion on the store in "
+              f"{time.perf_counter() - t:.3f} s; gate passed {lres.gate.passed}")
+        v5 = lc_force_promote(worker, reg, lres.artifact_dir, f"{tag} ledger")
+        lc_reload(port, f"{tag} ledger", f"swapped to v{v5}")
+        model = slot.model
+        lspec, stamped = load_ledger(lres.artifact_dir)
+        snap0 = wt.drift.ledger_snapshot()
+        print(f"{tag} ledger: after the wide -> ledger swap the served table is "
+              f"{table_gap(tag, snap0, stamped, exact=True)} to the challenger's stamped one")
+        rows = probe[:LC_LEDGER_PREDICTS]
+        ents = [f"card-{i % LC_LEDGER_ENTITIES}" for i in range(len(rows))]
+        t_rel = float(np.max(stamped.last_ts)) + 10.0
+        stamps = [lspec.ts_origin + t_rel + 3.0 * i for i in range(len(rows))]
+        ledger_records.clear()
+        f0 = len(flushes)
+        kernels.reset_launch_counts()
+        lc_probe(port, rows, f"{tag} ledger", entities=ents, timestamps=stamps)
+        ledger_launches = kernels.launch_counts()
+        count(ledger_launches)
+        n_flush = len(flushes) - f0
+        # the served table against the stamped table plus a replay of the
+        # recorded post-swap flushes
+        ddev = torch.device(dev)
+        table = device_state(stamped, lspec.slots, ddev)
+        null = torch.tensor(lspec.null_features, device=ddev)
+        hl = torch.tensor(lspec.halflife_s, dtype=torch.float32, device=ddev)
+        for f32, io, ls, lf, lt, lh in ledger_records:
+            xb = torch.from_numpy(io).to(ddev).float()
+            _ledger_read_update(table, torch.from_numpy(ls).to(ddev), torch.from_numpy(lf).to(ddev),
+                                torch.from_numpy(lt).to(ddev), xb[:, lspec.amount_col],
+                                torch.from_numpy(lh).to(ddev), null, hl)
+        snap = wt.drift.ledger_snapshot()
+        print(f"{tag} ledger: {len(rows)} /predict over {LC_LEDGER_ENTITIES} entities in "
+              f"{n_flush} flushes ({len(ledger_records)} recorded); kernel launches "
+              f"{ledger_launches}; the served table against the stamped table plus a replay "
+              f"of the recorded flushes: {table_gap(tag, snap, host_state(table), exact=True)}")
+        if (on_card and ledger_launches.get("fused_score") != n_flush) \
+                or len(ledger_records) != n_flush or model.ledger_spec is None:
+            raise AssertionError(f"{tag} ledger: the ledger flush did not serve")
+        print(f"{tag}: the lifecycle loop in {time.perf_counter() - t_phase:.3f} s; "
+              f"kernel launches {launched}")
+    finally:
+        server.stop()
+        store.close()
+        if worker is not None:
+            worker.close()
+    for knob in ("SCORER_MAX_INFLIGHT", "LIFECYCLE_DB_URL", "LIFECYCLE_RELOAD_INTERVAL_S",
+                 *LC_GATE_ENV):
+        os.environ.pop(knob, None)
+    return launched
 
 
 def main() -> int:
@@ -4660,6 +5204,8 @@ def main() -> int:
         ingest = ingest_phase(work, gbt_store, lin_store, work / "tools" / "kaggle.csv", card)
         ledger = ledger_phase(work, work / "tools" / "kaggle.csv")
         wide = wide_phase(work)
+        lifecycle = lifecycle_phase(work, lin_store, gbt_store, ledger["model_dir"],
+                                    wide["model_dir"])
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -4682,6 +5228,7 @@ def main() -> int:
             shadow_launches=ingest["shadow"]["fused_score"],
             ledger_launches=ledger["served"]["fused_score"],
             wide_launches=wide["served"]["fused_score"],
+            lifecycle_launches=lifecycle["fused_score"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":
@@ -4696,6 +5243,7 @@ def main() -> int:
             m=158, orientation_ms=k_small["orientation_ms"],
             tools_launches=tools.get("knn_topk", 0),
             ledger_launches=ledger["train"]["knn_topk"],
+            lifecycle_launches=lifecycle["knn_topk"],
             at_m_158_d_34={key: ledger["checks"]["knn_topk"][key] for key in
                            ("ms", "plain_ms", "bound_ms", "orientation_ms")},
             **{f"at_m_{m}" + (f"_d_{d}" if d != 30 else ""):
@@ -4720,6 +5268,7 @@ def main() -> int:
             tools_launches=tools.get("tree_shap", 0),
             wires_launches=wires["tree_shap"],
             ingest_launches=ingest["ingest"]["tree_shap"],
+            lifecycle_launches=lifecycle["tree_shap"],
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}

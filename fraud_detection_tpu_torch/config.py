@@ -381,3 +381,90 @@ def wide_enabled() -> bool:
     and stamps ``wide_params.npz`` beside the weights. Serving needs no
     flag: it widens whenever the loaded artifact carries that sidecar."""
     return env_flag("WIDE_ENABLED") is True
+
+
+# the lifecycle loop: durable feedback, retrain → gate → @shadow, promotion,
+# the hot swap (lifecycle/)
+
+
+def mesh_retrain() -> bool:
+    """``MESH_RETRAIN=1`` — the conductor's retrain refines the fit with the
+    cross-replica-sharded weight update instead of L-BFGS. The port has one
+    device and no sharded update yet (ROADMAP item 12): the retrain raises
+    when this is set. Default off."""
+    return env_flag("MESH_RETRAIN") is True
+
+
+def lifecycle_db_url(broker: str | None = None) -> str:
+    """``LIFECYCLE_DB_URL`` — the database holding the conductor's feedback
+    and state tables; when unset, the broker's database (``broker`` when
+    the caller holds an explicit URL, else ``CELERY_BROKER_URL``), so
+    lifecycle state lives beside the queue. The port's broker is sqlite
+    only, so the default is always a sqlite URL."""
+    return os.environ.get("LIFECYCLE_DB_URL") or broker or broker_url()
+
+
+def conductor_auto_promote() -> bool:
+    """``CONDUCTOR_AUTO_PROMOTE=1`` lets the watchtower's
+    ``promote_challenger`` / ``rollback_challenger`` recommendations enqueue
+    the conductor's tasks (one an episode). Default off: alias flips move
+    real traffic."""
+    return env_flag("CONDUCTOR_AUTO_PROMOTE") is True
+
+
+def conductor_gate_auc_margin() -> float:
+    """``CONDUCTOR_GATE_AUC_MARGIN`` — ε in the gate's ``AUC ≥ champion AUC
+    − ε``. Default 0.005."""
+    return _get_float("CONDUCTOR_GATE_AUC_MARGIN", 0.005)
+
+
+def conductor_gate_ece_bound() -> float:
+    """``CONDUCTOR_GATE_ECE_BOUND`` — the challenger's expected calibration
+    error ceiling on the labeled slices. Default 0.1."""
+    return _get_float("CONDUCTOR_GATE_ECE_BOUND", 0.1)
+
+
+def conductor_gate_psi_bound() -> float:
+    """``CONDUCTOR_GATE_PSI_BOUND`` — ceiling on PSI(challenger scores ‖
+    champion scores) over the holdout. Default 0.25."""
+    return _get_float("CONDUCTOR_GATE_PSI_BOUND", 0.25)
+
+
+def conductor_feedback_window() -> int:
+    """``CONDUCTOR_FEEDBACK_WINDOW`` — rows kept in the recent labeled
+    window. Default 50,000."""
+    return _get_int("CONDUCTOR_FEEDBACK_WINDOW", 50_000)
+
+
+def conductor_reservoir_size() -> int:
+    """``CONDUCTOR_RESERVOIR_SIZE`` — the uniform-over-history reservoir's
+    size. Default 10,000."""
+    return _get_int("CONDUCTOR_RESERVOIR_SIZE", 10_000)
+
+
+def conductor_min_eval_rows() -> int:
+    """``CONDUCTOR_MIN_EVAL_ROWS`` — labeled-window rows below which the gate
+    skips the recent slice. Default 256."""
+    return _get_int("CONDUCTOR_MIN_EVAL_ROWS", 256)
+
+
+def lifecycle_reload_interval() -> float:
+    """``LIFECYCLE_RELOAD_INTERVAL_S`` — seconds between the serving
+    reloader's registry alias polls; 0 disables polling (``POST
+    /admin/reload`` still works). Default 15."""
+    return _get_float("LIFECYCLE_RELOAD_INTERVAL_S", 15.0)
+
+
+def lifecycle_retrain_stale_after() -> float:
+    """``LIFECYCLE_RETRAIN_STALE_AFTER_S`` — seconds without a heartbeat
+    after which a RETRAINING episode counts as a dead worker's and resume()
+    may reclaim it; the owner beats every third of this. Default 900."""
+    return _get_float("LIFECYCLE_RETRAIN_STALE_AFTER_S", 900.0)
+
+
+def admin_token() -> str:
+    """``ADMIN_TOKEN`` — the shared secret of ``POST /admin/reload``: when
+    set, a request carries it as ``Authorization: Bearer <token>`` or
+    ``X-Admin-Token``; empty (the default) leaves the endpoint open
+    (loopback and development only)."""
+    return _get("ADMIN_TOKEN", "")

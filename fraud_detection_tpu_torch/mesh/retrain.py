@@ -1,4 +1,4 @@
-"""The wide family's fit on one device.
+"""The wide family's fit and the feedback pools' summary on one device.
 
 :func:`wide_sgd_fit` is the JAX package's ``mesh/retrain.wide_sgd_fit``
 for a 1×1 (data × model) mesh: the same minibatch momentum SGD over the
@@ -7,6 +7,10 @@ padding, permutation stream, cosine learning rate and manual gradient, run
 as a Python loop over minibatches. The 2-D form, with the table
 column-sharded over the model axis and the gradient reduce-scattered over
 the data axis, is ROADMAP item 12.
+
+:func:`mapreduce_pool_stats` is the JAX package's function of that name on
+a one-shard data mesh: the map side's sums over the replay rows, with no
+reduce across shards to do.
 """
 
 from __future__ import annotations
@@ -131,3 +135,39 @@ def wide_sgd_fit(
             intercept = intercept + vel_b
     widened = torch.cat([coef, torch.ones(cross_spec.n_cross, dtype=torch.float32, device=dev)])
     return LogisticParams(coef=widened, intercept=intercept), table
+
+
+def mapreduce_pool_stats(x, y, scores, device=None) -> dict:
+    """The labeled feedback pools' summary the conductor's retrain logs:
+    rows, positives, label rate, score mean, and each feature's mean and
+    std — one pass of float32 sums on ``device`` (``cuda`` unless the caller
+    asks for the CPU), finished in float64 on the host, as the reference
+    finishes its psum'd sums."""
+    x_np = np.asarray(x, np.float32)
+    if x_np.ndim == 1:
+        x_np = x_np[None, :]
+    n, d = x_np.shape
+    if n == 0:
+        zeros = np.zeros((d,), np.float64)
+        return {
+            "rows": 0, "positives": 0, "label_rate": 0.0,
+            "score_mean": 0.0, "feature_mean": zeros, "feature_std": zeros,
+        }
+    dev = resolve_device(device)
+    xt = torch.as_tensor(x_np, device=dev)
+    yt = torch.as_tensor(np.asarray(y, np.float32).reshape(-1), device=dev)
+    st = torch.as_tensor(np.asarray(scores, np.float32).reshape(-1), device=dev)
+    v = torch.ones((n,), dtype=torch.float32, device=dev)
+    sums = [v.sum(), (v * yt).sum(), (v * st).sum(), v @ xt, v @ (xt * xt)]
+    cnt, n_pos, s_sum, fx, fx2 = (t.cpu().numpy() for t in sums)
+    cnt_f = max(float(cnt), 1.0)
+    mean = np.asarray(fx, np.float64) / cnt_f
+    var = np.maximum(np.asarray(fx2, np.float64) / cnt_f - mean**2, 0.0)
+    return {
+        "rows": int(round(float(cnt))),
+        "positives": int(round(float(n_pos))),
+        "label_rate": float(n_pos) / cnt_f,
+        "score_mean": float(s_sum) / cnt_f,
+        "feature_mean": mean,
+        "feature_std": np.sqrt(var),
+    }

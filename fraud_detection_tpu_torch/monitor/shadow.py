@@ -81,6 +81,19 @@ class ShadowScorer:
         self.batches_seen = 0
         self.batches_sampled = 0
 
+    def swap_scorer(self, scorer, explainer=None) -> None:
+        """Replace the challenger (the conductor's hot swap): one reference
+        store between batches, then a window reset — disagreement and PSI
+        gathered against the OLD challenger would misjudge the new one."""
+        self._scorer = scorer
+        self._explainer = explainer
+        self._score_counts = np.zeros_like(self._base_counts)
+        self._rows = 0.0
+        self._disagree = 0.0
+        self._delta = 0.0
+        self._reason_rows = 0.0
+        self._reason_div = 0.0
+
     def maybe_observe(
         self,
         rows: np.ndarray,

@@ -10,8 +10,12 @@ else ``ok`` or ``drift``), a recommendation (``none``, ``retrain``,
 ``promote_challenger`` or ``rollback_challenger``) and the Prometheus
 gauges. With ``WATCHTOWER_RETRAIN_TRIGGER=1`` a drift episode enqueues one
 ``watchtower.trigger_retrain`` task (:data:`RETRAIN_TASK`) through the
-``retrain_sender``; the conductor's promote/rollback sender is ROADMAP item
-11's and stays unset.
+``retrain_sender``; with ``CONDUCTOR_AUTO_PROMOTE=1`` a ``promote_challenger``
+or ``rollback_challenger`` recommendation enqueues one of the conductor's
+tasks through the ``action_sender``, latched once an episode. A hot swap
+rebinds the monitor to the promoted champion (:meth:`Watchtower.
+rebind_champion`, with its ledger table) and the challenger to the new
+``@shadow`` (:meth:`Watchtower.rebind_challenger`).
 
 :meth:`Watchtower.observe` hands each scored batch to one ingest thread
 (bounded backlog, drop-and-count), so monitoring never blocks a request:
@@ -39,6 +43,7 @@ from fraud_detection_tpu_torch.monitor.baseline import BaselineProfile, load_pro
 from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
 from fraud_detection_tpu_torch.monitor.shadow import ShadowScorer
 from fraud_detection_tpu_torch.service import metrics
+from fraud_detection_tpu_torch.utils import lockdep
 
 log = logging.getLogger("fraud_detection_tpu_torch.watchtower")
 
@@ -118,11 +123,15 @@ class Watchtower:
         sample_rate: float | None = None,
         halflife_rows: float | None = None,
         retrain_sender=None,
+        action_sender=None,
         max_backlog: int = 32,
         device=None,
     ):
         self.thresholds = thresholds or Thresholds.from_config()
-        self.drift = DriftMonitor(profile, halflife_rows=halflife_rows, device=device)
+        self._sample_rate = sample_rate
+        self._halflife_rows = halflife_rows
+        self._device = device
+        self.drift = self._make_drift(profile)
         self.shadow = (
             ShadowScorer(
                 challenger.scorer, profile, sample_rate=sample_rate,
@@ -134,19 +143,29 @@ class Watchtower:
         self.challenger_source = challenger_source
         # retrain_sender(reason) enqueues RETRAIN_TASK, once a drift episode
         self._retrain_sender = retrain_sender
+        # action_sender(task_name, reason) enqueues the conductor's promote
+        # or rollback task under CONDUCTOR_AUTO_PROMOTE=1, latched once a
+        # recommendation episode like the retrain trigger
+        self._action_sender = action_sender
         self._retrain_latched = False
+        self._action_latched: str | None = None
         # the table counts cumulative totals; a scrape advances the
         # Counters by the delta since the last one
         self._ledger_counts = {"hash_collisions": 0.0, "evictions": 0.0}
         # a scrape and a /monitor/status call may evaluate status() at once:
         # the latch's check and set must be atomic
-        self._retrain_lock = threading.Lock()
+        self._retrain_lock = lockdep.lock("watchtower.retrain")
         self._queue: queue.Queue = queue.Queue(maxsize=max_backlog)
         self._stop = False
         self._thread = threading.Thread(
             target=self._ingest_loop, name="watchtower-ingest", daemon=True
         )
         self._thread.start()
+
+    def _make_drift(self, profile) -> DriftMonitor:
+        return DriftMonitor(
+            profile, halflife_rows=self._halflife_rows, device=self._device
+        )
 
     def wants_rows(self) -> bool:
         """True when a fused flush (drift already folded) must still hand
@@ -232,6 +251,7 @@ class Watchtower:
         drifting = any(flags.values())
         recommendation = _recommend(warming, flags, sh, thr)
         self._maybe_trigger_retrain(recommendation, d)
+        self._maybe_send_action(recommendation, d, sh)
         # a warming window's stats are empty-histogram smoothing noise: the
         # gauges read 0 until min_rows so fresh deploys don't page
         g = dict.fromkeys(
@@ -328,6 +348,100 @@ class Watchtower:
                 self._retrain_latched = False  # retry on the next evaluation
                 log.error("retrain trigger enqueue failed: %s", e)
 
+    def _maybe_send_action(
+        self, recommendation: str, d: dict, sh: dict | None
+    ) -> None:
+        """Enqueue the conductor's promote/rollback task for this episode
+        (the ``CONDUCTOR_AUTO_PROMOTE`` opt-in). Latched on the
+        recommendation's value: one task an episode, re-armed when the
+        recommendation changes; a failed send re-arms."""
+        if recommendation not in ("promote_challenger", "rollback_challenger"):
+            with self._retrain_lock:
+                self._action_latched = None  # episode over; re-arm
+            return
+        if self._action_sender is None or not config.conductor_auto_promote():
+            return
+        with self._retrain_lock:
+            if self._action_latched == recommendation:
+                return
+            self._action_latched = recommendation
+        from fraud_detection_tpu_torch.lifecycle.conductor import (
+            PROMOTE_TASK,
+            ROLLBACK_TASK,
+        )
+
+        task = PROMOTE_TASK if recommendation == "promote_challenger" else ROLLBACK_TASK
+        reason = (
+            f"watchtower {recommendation}: score_psi={d['score_psi']:.4f} "
+            f"shadow_psi={(sh or {}).get('score_psi', float('nan')):.4f} "
+            f"disagreement={(sh or {}).get('disagreement', float('nan')):.4f}"
+        )
+        try:
+            self._action_sender(task, reason)
+            log.warning("watchtower enqueued conductor task %s", task)
+        except Exception as e:
+            with self._retrain_lock:
+                self._action_latched = None  # retry on the next evaluation
+            log.error("conductor action enqueue failed: %s", e)
+
+    # -- the hot swap (driven by lifecycle.ModelReloader) -------------------
+    def rebind_champion(self, profile, ledger=None) -> None:
+        """A promotion went live: point drift monitoring at the NEW
+        champion's baseline profile with a fresh window (the old window's
+        evidence was gathered against the old baseline). Without a profile
+        the old baseline keeps serving: stale monitoring beats none.
+
+        ``ledger`` is the promoted artifact's ``(LedgerSpec, state)`` pair
+        when the new champion is ledger-widened: the entity table rebinds
+        WITH the model (its weights were trained against the replayed
+        history that snapshot ends on), bound before the new monitor is
+        published, so a flush that reads the monitor finds the table on
+        it; the collision/eviction counter baselines restart."""
+        if profile is None:
+            log.warning(
+                "promoted model has no baseline profile — drift window "
+                "keeps the previous baseline"
+            )
+        drift = self.drift if profile is None else self._make_drift(profile)
+        if ledger is not None:
+            drift.bind_ledger(*ledger)
+            log.warning(
+                "ledger rebound with the promoted champion "
+                "(%d slots, halflife %.0fs)", ledger[0].slots, ledger[0].halflife_s,
+            )
+        if ledger is not None or profile is not None:
+            self._ledger_counts = {"hash_collisions": 0.0, "evictions": 0.0}
+        if profile is None:
+            return
+        self.drift = drift
+        if self.shadow is not None:
+            # the old challenger IS usually the new champion: comparing a
+            # model with itself reads as perfect agreement. The reloader
+            # rebinds or clears it right after through the @shadow sweep
+            self.shadow = None
+            self.challenger_source = None
+        log.warning("watchtower rebound to the promoted champion's baseline")
+
+    def rebind_challenger(self, challenger, source: str | None) -> None:
+        """The ``@shadow`` alias changed: swap the challenger scorer (fresh
+        shadow window), or drop shadow scoring when the alias went away."""
+        if challenger is None:
+            self.shadow = None
+            self.challenger_source = None
+            log.info("shadow challenger unbound")
+            return
+        explainer = _challenger_explainer(challenger)
+        if self.shadow is None:
+            self.shadow = ShadowScorer(
+                challenger.scorer, self.drift.profile,
+                sample_rate=self._sample_rate, halflife_rows=self._halflife_rows,
+                explainer=explainer,
+            )
+        else:
+            self.shadow.swap_scorer(challenger.scorer, explainer=explainer)
+        self.challenger_source = source
+        log.warning("shadow challenger rebound to %s", source)
+
     def close(self) -> None:
         """Stop the ingest thread; still-queued batches are discarded."""
         self._stop = True
@@ -358,14 +472,17 @@ def resolve_profile_dir(model_source: str) -> str | None:
     return None
 
 
-def build_watchtower(model, model_source: str, device=None, retrain_sender=None):
+def build_watchtower(model, model_source: str, device=None, retrain_sender=None,
+                     action_sender=None):
     """Serving-side factory: the watchtower over the ``monitor_profile.npz``
     beside the served model (:func:`resolve_profile_dir`), or None when
     ``WATCHTOWER_ENABLED=0``, when there is no profile (logged at WARNING
     under ``WATCHTOWER_ENABLED=1``, else at INFO) or when it does not match
     the model's features. The shadow challenger is the registry's
     ``@shadow`` model (``service.loading.load_shadow_model``), on the same
-    device, when its features match the champion's."""
+    device, when its wire schema (the base feature names) matches the
+    champion's: a widened challenger shadows a narrow champion through its
+    null path."""
     enabled = config.watchtower_enabled()
     if enabled is False:
         return None
@@ -392,7 +509,10 @@ def build_watchtower(model, model_source: str, device=None, retrain_sender=None)
         resolved = load_shadow_model(device=device)
         if resolved is not None:
             challenger, challenger_source = resolved
-            if list(challenger.feature_names) != list(model.feature_names):
+            if list(getattr(challenger, "base_feature_names",
+                            challenger.feature_names)) != list(
+                getattr(model, "base_feature_names", model.feature_names)
+            ):
                 # caught once here; in the ingest loop it would fail on
                 # every sampled batch while the stats never accumulate
                 log.warning(
@@ -404,7 +524,7 @@ def build_watchtower(model, model_source: str, device=None, retrain_sender=None)
         log.warning("shadow model load failed (%s); monitoring without one", e)
     wt = Watchtower(
         profile, challenger=challenger, challenger_source=challenger_source,
-        retrain_sender=retrain_sender, device=device,
+        retrain_sender=retrain_sender, action_sender=action_sender, device=device,
     )
     spec = getattr(model, "ledger_spec", None)
     if spec is not None:

@@ -18,7 +18,13 @@
 - ``GET /explain/{transaction_id}`` — the worker's stored explanation
 - ``GET /monitor/status`` — watchtower drift state and recommendation
 - ``POST /monitor/feedback`` — delayed fraud labels into the calibration
-  window
+  window and the durable lifecycle store (``persisted: true``), with
+  optional ``entity_ids`` and ``timestamps`` for the ledger's replay
+- ``GET /lifecycle/status`` — the conductor's state machine, the feedback
+  pools, and the version being served
+- ``POST /admin/reload`` — one registry alias sweep now: a moved ``@prod``
+  or ``@shadow`` is loaded, warmed and hot-swapped before the response
+  (``ADMIN_TOKEN`` gates it when set)
 - ``GET /debug/flightrecorder`` — the last scored requests' stage
   timelines (``SPYGLASS_ENABLED``, ``FLIGHTRECORDER_CAPACITY``)
 - ``GET /metrics`` — Prometheus exposition
@@ -28,7 +34,18 @@ listens beside the HTTP server and feeds the same micro-batcher, so its
 scores are bitwise ``/predict``'s for the same f32 rows. With a challenger
 registered at ``@shadow`` the watchtower shadow-scores a sample of batches;
 with ``WATCHTOWER_RETRAIN_TRIGGER=1`` a drift episode enqueues one
-``watchtower.trigger_retrain`` task on the broker.
+``watchtower.trigger_retrain`` task on the broker, and with
+``CONDUCTOR_AUTO_PROMOTE=1`` a promote/rollback recommendation one of the
+conductor's tasks; the worker (``service/worker.py``) runs them.
+
+The served model lives in a ``ModelSlot`` (``lifecycle/swap.py``): the
+micro-batcher reads it once a flush and the binary lane once a frame, and
+the ``ModelReloader`` (polling every ``LIFECYCLE_RELOAD_INTERVAL_S``, and on
+``POST /admin/reload``) swaps a promoted model in between two flushes,
+rebinding the watchtower to its profile (and a ledger champion's table).
+The lifecycle store (``LIFECYCLE_DB_URL``, default the broker's database)
+opens at start-up; a store that fails to open leaves the API serving, with
+``/monitor/feedback`` answering ``persisted: false``.
 
 The model directory holds either family (``load_any_model``): the logistic
 flagship (``fused_score`` kernel; ledger-widened when the directory holds
@@ -44,8 +61,10 @@ Run: ``python -m fraud_detection_tpu_torch.service.app --port 8000``
 from __future__ import annotations
 
 import asyncio
+import hmac
 import logging
 import os
+import sqlite3
 import time
 import uuid
 
@@ -54,9 +73,15 @@ import numpy as np
 from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.device import resolve_device
 from fraud_detection_tpu_torch.ledger.state import entity_fingerprint
+from fraud_detection_tpu_torch.lifecycle import (
+    ModelReloader,
+    ModelSlot,
+    open_lifecycle_store,
+)
 from fraud_detection_tpu_torch.monitor.watchtower import RETRAIN_TASK, build_watchtower
 from fraud_detection_tpu_torch.service import binlane, metrics
 from fraud_detection_tpu_torch.service.db import ResultsDB
+from fraud_detection_tpu_torch.service.errors import StoreError
 from fraud_detection_tpu_torch.service.http import App, HTTPError, Request, Response
 from fraud_detection_tpu_torch.service.loading import (
     load_production_model,
@@ -83,6 +108,20 @@ log = logging.getLogger("fraud_detection_tpu_torch.api")
 
 _OBSERVE_PARSE = metrics.request_stage_duration.labels("parse").observe
 _frontend_cache: dict[str | None, bytes] = {}
+
+# what a lifecycle-store call raises when the store is down: the endpoints
+# that ride it answer 503 + Retry-After instead of a 500
+_STORE_OUTAGE_ERRORS = (sqlite3.Error, StoreError, OSError)
+STORE_RETRY_AFTER_S = 10
+
+
+def _store_unavailable(what: str, e: Exception) -> Response:
+    log.warning("%s unavailable (store outage): %s", what, e)
+    return Response(
+        {"error": "store_unavailable", "detail": f"{what}: {e}"},
+        status_code=503,
+        headers={"retry-after": str(STORE_RETRY_AFTER_S)},
+    )
 
 
 def _admission_shed(e: AdmissionFull, lane_shed) -> Response:
@@ -141,12 +180,48 @@ def create_app(
         "db": None,
         "broker": None,
         "watchtower": None,
+        "slot": None,
+        "reloader": None,
+        "lifecycle_store": None,
         "flightrecorder": None,
         "binlane": None,
-        "ingest_scale": None,
         "started_at": None,
     }
     app.state = state  # exposed for tests/embedding
+
+    def _require_admin(req: Request) -> None:
+        """The admin gate of ``/admin/reload``: with ``ADMIN_TOKEN`` set, the
+        request carries it (``X-Admin-Token`` or ``Authorization: Bearer``);
+        empty leaves the endpoint open."""
+        token = config.admin_token()
+        if not token:
+            return
+        supplied = req.headers.get("x-admin-token")
+        if supplied is None:
+            auth = req.headers.get("authorization", "")
+            if auth.lower().startswith("bearer "):
+                supplied = auth[7:].strip()
+        # bytes: compare_digest raises on a non-ASCII str
+        if supplied is None or not hmac.compare_digest(
+            supplied.encode(), token.encode()
+        ):
+            raise HTTPError(401, "admin token required")
+
+    def _model():
+        """The served model: the slot's (the one swappable reference);
+        ``state["model"]`` only seeds it at start-up."""
+        slot = state["slot"]
+        return slot.model if slot is not None else state["model"]
+
+    def _ingest_scale(model):
+        """The int8-layout dequant scale of the LIVE model, cached a scorer:
+        it changes only with a hot swap, which changes the scorer."""
+        cached = state.get("_ingest_scale")
+        if cached is not None and cached[0] is model.scorer:
+            return cached[1]
+        scale = binlane.ingest_dequant_scale(model)
+        state["_ingest_scale"] = (model.scorer, scale)
+        return scale
 
     async def correlation_and_metrics(req: Request, nxt):
         corr_id = req.headers.get("x-correlation-id") or str(uuid.uuid4())
@@ -171,33 +246,55 @@ def create_app(
         state["db"] = ResultsDB(database_url)
         state["broker"] = Broker(broker_url)
         try:
+            # durable labeled feedback (the conductor's training replay);
+            # must never take serving down: without it /monitor/feedback
+            # still feeds the calibration window, just not the store
+            state["lifecycle_store"] = open_lifecycle_store(
+                config.lifecycle_db_url(broker_url)
+            )
+        except Exception as e:
+            state["lifecycle_store"] = None
+            log.warning("lifecycle store unavailable (%s)", e)
+        try:
             model, source = load_production_model(device=dev)
             state["model"], state["model_source"] = model, source
-            # the int8-layout frames' dequant scale (the HELLO's on the lane)
-            state["ingest_scale"] = binlane.ingest_dequant_scale(model)
 
             def _retrain_sender(reason: str) -> None:
                 state["broker"].send_task(RETRAIN_TASK, [reason])
 
+            def _action_sender(task: str, reason: str) -> None:
+                state["broker"].send_task(task, [reason])
+
             try:
                 # monitoring must never take serving down
                 state["watchtower"] = build_watchtower(
-                    model, source, retrain_sender=_retrain_sender
+                    model, source, retrain_sender=_retrain_sender,
+                    action_sender=_action_sender,
                 )
             except Exception as e:
                 state["watchtower"] = None
                 log.warning("watchtower startup failed (%s); unmonitored", e)
+            state["slot"] = ModelSlot(model, source, resolve_source_version(source))
+            metrics.lifecycle_active_model_version.set(state["slot"].version or 0)
             batcher = MicroBatcher(
-                model.scorer, watchtower=state["watchtower"],
-                recorder=state["flightrecorder"], model_source=source,
-                model_version=resolve_source_version(source),
+                slot=state["slot"], watchtower=state["watchtower"],
+                recorder=state["flightrecorder"],
             )
             await batcher.start()  # warms the bucket ladder; can raise
             state["batcher"] = batcher
+            # the alias watcher: a promotion reaches this process without a
+            # restart (poll + POST /admin/reload)
+            reloader = ModelReloader(
+                state["slot"], watchtower=state["watchtower"], device=dev
+            )
+            reloader.start()
+            state["reloader"] = reloader
             if config.ingest_port() > 0:
                 try:
                     lane = binlane.BinaryIngestServer(
-                        batcher, scorer=model.scorer, model=model
+                        batcher,
+                        scorer_fn=lambda: state["slot"].model.scorer,
+                        model_fn=lambda: state["slot"].model,
                     )
                     lane.start(asyncio.get_running_loop())
                     state["binlane"] = lane
@@ -209,7 +306,7 @@ def create_app(
             metrics.model_loaded.set(1)
         except RuntimeError as e:
             metrics.model_loaded.set(0)
-            state["model"] = state["batcher"] = None
+            state["model"] = state["batcher"] = state["slot"] = None
             if state["watchtower"]:
                 state["watchtower"].close()
                 state["watchtower"] = None
@@ -219,6 +316,8 @@ def create_app(
         if state["binlane"]:
             await asyncio.to_thread(state["binlane"].stop)
             state["binlane"] = None
+        if state["reloader"]:
+            state["reloader"].stop()
         if state["batcher"]:
             await state["batcher"].stop()
         if state["watchtower"]:
@@ -227,6 +326,8 @@ def create_app(
             state["db"].close()
         if state["broker"]:
             state["broker"].close()
+        if state["lifecycle_store"]:
+            state["lifecycle_store"].close()
 
     app.on_startup.append(startup)
     app.on_shutdown.append(shutdown)
@@ -255,15 +356,16 @@ def create_app(
             ),
         )
         checks = {
-            "model": "ok" if state["model"] is not None else "unavailable",
+            "model": "ok" if _model() is not None else "unavailable",
             "database": "ok" if db_ok else "unavailable",
             "broker": "ok" if broker_ok else "unavailable",
         }
         healthy = all(v == "ok" for v in checks.values())
+        slot = state["slot"]
         body = HealthOut(
             status="healthy" if healthy else "degraded",
             checks=checks,
-            model_source=state["model_source"],
+            model_source=slot.source if slot is not None else state["model_source"],
             uptime_seconds=time.time() - (state["started_at"] or time.time()),
         )
         return Response(body.to_dict(), status_code=200 if healthy else 503)
@@ -272,7 +374,7 @@ def create_app(
     async def predict(req: Request) -> Response:
         metrics.predictions_submitted.inc()
         corr_id = req.state["correlation_id"]
-        model = state["model"]
+        model = _model()
         batcher = state["batcher"]
         if model is None or batcher is None:
             raise HTTPError(503, "model not loaded")
@@ -376,7 +478,7 @@ def create_app(
 
         A full admission queue answers 429 + Retry-After; scores are
         bitwise ``/predict``'s for the same f32 rows."""
-        model = state["model"]
+        model = _model()
         batcher = state["batcher"]
         if model is None or batcher is None:
             raise HTTPError(503, "model not loaded")
@@ -391,7 +493,7 @@ def create_app(
             lane = "binary"
             try:
                 slot, n, entity, _trace = binlane.decode_frame_body(
-                    scorer, req.body, max_rows, dequant=state["ingest_scale"]
+                    scorer, req.body, max_rows, dequant=_ingest_scale(model)
                 )
             except binlane.FrameError as e:
                 metrics.ingest_frame_errors.labels(e.kind).inc()
@@ -485,14 +587,14 @@ def create_app(
 
     @app.post("/monitor/feedback")
     async def monitor_feedback(req: Request) -> Response:
-        """Delayed fraud-label feedback, the calibration (windowed ECE)
-        input: ``{"features": [[...30], ...], "scores": [...], "labels":
-        [0|1, ...]}``. The rows join the watchtower's ingest queue and fold
-        into the calibration window only (they were observed live when
-        scored). ``persisted`` is false: the durable feedback store is the
-        lifecycle tier (ROADMAP item 11)."""
+        """Delayed fraud-label feedback: ``{"features": [[...30], ...],
+        "scores": [...], "labels": [0|1, ...]}`` with optional
+        ``entity_ids`` and ``timestamps`` (epoch s). The rows join the
+        watchtower's ingest queue and fold into the calibration window only
+        (they were observed live when scored), and land in the durable
+        lifecycle store, the conductor's retrain replay (``persisted``)."""
         wt = state["watchtower"]
-        model = state["model"]
+        model = _model()
         if wt is None or model is None:
             raise HTTPError(
                 409, "watchtower disabled — no baseline profile loaded"
@@ -532,8 +634,7 @@ def create_app(
                 raise ValueError("'scores' must be probabilities in [0, 1]")
             if not np.all((labels_arr == 0) | (labels_arr == 1)):
                 raise ValueError("'labels' must be 0 or 1")
-            # per-row entity + event time, validated as in the JAX app (the
-            # retrain replay that reads them is ROADMAP item 11)
+            # per-row entity + event time: the ledger retrain's replay input
             entity_ids = payload.get("entity_ids")
             timestamps = payload.get("timestamps")
             if entity_ids is not None and (
@@ -562,10 +663,70 @@ def create_app(
             # np.asarray over nulls are client input errors, not 500s
             raise HTTPError(422, str(e)) from e
         queued = wt.observe(rows, scores_arr, labels_arr, calibration_only=True)
+        # the durable copy for the conductor's retrain replay, only on the
+        # 202 path: a 429 tells the client to retry, and persisting before
+        # a retry would put the rows in the training window twice. Off the
+        # loop (a sqlite write) and best-effort: the calibration window got
+        # the rows either way.
+        persisted = False
+        store = state["lifecycle_store"]
+        if queued and store is not None:
+            try:
+                await asyncio.to_thread(
+                    store.add_feedback, rows, scores_arr, labels_arr,
+                    entity_ids, timestamps,
+                )
+                persisted = True
+            except _STORE_OUTAGE_ERRORS as e:
+                # the store is down: the client retries later; the durable
+                # pool never got the rows, so a retry cannot duplicate them
+                return _store_unavailable("feedback persistence", e)
+            except Exception:
+                log.warning("feedback persistence failed", exc_info=True)
         return Response(
-            {"queued": queued, "rows": int(rows.shape[0]), "persisted": False},
+            {"queued": queued, "rows": int(rows.shape[0]), "persisted": persisted},
             status_code=202 if queued else 429,
         )
+
+    @app.get("/lifecycle/status")
+    async def lifecycle_status(req: Request) -> Response:
+        """The conductor's state machine and the feedback pools: where the
+        episode stands (idle/retraining/gated/shadowing/promoting/done/
+        rolled_back), the versions involved, the gate's evidence, and the
+        version this process serves."""
+        store = state["lifecycle_store"]
+        if store is None:
+            return Response({"enabled": False, "state": "unavailable"})
+
+        def _read():
+            s = store.get_state(config.model_name())
+            s["feedback"] = store.feedback_counts()
+            slot = state["slot"]
+            s["serving_version"] = slot.version if slot else None
+            s["serving_source"] = slot.source if slot else state["model_source"]
+            s["enabled"] = True
+            return s
+
+        try:
+            return Response(await asyncio.to_thread(_read))
+        except _STORE_OUTAGE_ERRORS as e:
+            return _store_unavailable("lifecycle status", e)
+
+    @app.post("/admin/reload")
+    async def admin_reload(req: Request) -> Response:
+        """One registry alias sweep NOW (the poll-independent half of the
+        hot swap): a moved ``@prod``/``@shadow`` is loaded, warmed and
+        swapped in before the response returns. ``ADMIN_TOKEN`` gates it
+        when set."""
+        _require_admin(req)
+        reloader = state["reloader"]
+        if reloader is None:
+            raise HTTPError(503, "no reloader — model not loaded")
+        result = await asyncio.to_thread(reloader.check_once)
+        slot = state["slot"]
+        result["serving_version"] = slot.version if slot else None
+        result["serving_source"] = slot.source if slot else None
+        return Response(result)
 
     @app.get("/debug/flightrecorder")
     async def flightrecorder(req: Request) -> Response:

@@ -159,6 +159,12 @@ def ingest_dequant_scale(model) -> np.ndarray | None:
     return None
 
 
+def _scales_equal(a: np.ndarray | None, b: np.ndarray | None) -> bool:
+    if a is None or b is None:
+        return a is b
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
 # ---------------------------------------------------------------------------
 # Frame encode/decode (the socket lane, /ingest/batch, and tests)
 # ---------------------------------------------------------------------------
@@ -510,25 +516,32 @@ class BinaryIngestServer:
     """The persistent-connection binary lane: a thread a connection (sync
     sockets: ``recv_into`` straight into the staging slot), each frame
     hopping onto the serving event loop once via
-    ``run_coroutine_threadsafe``. It serves ``scorer``, whose int8 lattice
-    (from ``model``'s scaler when the scorer is not on the int8 wire) each
-    connection's HELLO publishes; a hot swap, and the JAX lane's rebind on
-    it, waits for ``/admin/reload`` (ROADMAP item 11)."""
+    ``run_coroutine_threadsafe``. It serves ``scorer_fn()``, the scorer live
+    at each frame (serving passes the ``ModelSlot``'s), whose int8 lattice
+    (from the live model's scaler, ``model_fn()``, or the fixed ``model``'s,
+    when the scorer is not on the int8 wire) each connection's HELLO
+    publishes. A hot swap rebinds a connection's frame decoder at its next
+    frame; when the swap changed the int8 lattice the HELLO published, that
+    frame is answered UNAVAILABLE and the connection closed, so the client
+    reconnects and learns the new scale instead of quantizing against a
+    dead one."""
 
     def __init__(
         self,
         batcher,
-        scorer,
+        scorer_fn,
         model=None,
         host: str | None = None,
         port: int | None = None,
         max_rows: int | None = None,
         max_frame: int | None = None,
         stall_timeout: float | None = None,
+        model_fn=None,
     ):
         self.batcher = batcher
-        self.scorer = scorer
-        self.dequant = ingest_dequant_scale(model if model is not None else scorer)
+        self.scorer_fn = scorer_fn
+        self.model_fn = model_fn
+        self.model = model
         self.host = host if host is not None else config.ingest_host()
         self.port = port if port is not None else config.ingest_port()
         # clamped to the batcher's flush ceiling: a frame the header check
@@ -553,6 +566,14 @@ class BinaryIngestServer:
         self._c_rows = metrics.ingest_rows.labels("binary")
         self._c_shed = metrics.ingest_shed.labels("binary")
         self._obs_parse = metrics.request_stage_duration.labels("parse").observe
+
+    def _dequant_for(self, scorer) -> np.ndarray | None:
+        """The int8 lattice for ``scorer``: from the live model when
+        ``model_fn`` follows hot swaps, else from the construction-time
+        model, else from the scorer."""
+        if self.model_fn is not None:
+            return ingest_dequant_scale(self.model_fn())
+        return ingest_dequant_scale(self.model if self.model is not None else scorer)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -623,7 +644,8 @@ class BinaryIngestServer:
             t.start()
 
     def _handle(self, conn: socket.socket, addr) -> None:
-        dec = _FrameDecoder(self.scorer, self.max_rows, self.dequant)
+        scorer = self.scorer_fn()
+        dec = _FrameDecoder(scorer, self.max_rows, self._dequant_for(scorer))
         hdr_buf = bytearray(_HDR.size)
         fhdr_buf = bytearray(_FRAME.size)
         resp_buf = bytearray(256)
@@ -644,6 +666,20 @@ class BinaryIngestServer:
                         f"{self.max_frame}]",
                     ))
                     return  # the stream position can't be trusted
+                scorer = self.scorer_fn()
+                if scorer is not dec.scorer:  # a hot swap: rebind the decoder
+                    scale = self._dequant_for(scorer)
+                    if not _scales_equal(scale, dec.dequant):
+                        # the promoted model carries another int8 lattice
+                        # than the one this connection's HELLO published
+                        metrics.ingest_frame_errors.labels("recal").inc()
+                        conn.sendall(error_frame(
+                            ST_UNAVAILABLE,
+                            "quantization calibration changed (hot swap) — "
+                            "reconnect for the new scale", 0.0,
+                        ))
+                        return
+                    dec = _FrameDecoder(scorer, self.max_rows, scale)
                 if not self._frame(conn, dec, length, fhdr_buf, resp_buf):
                     return
         except (StalledPeerError, ProtocolError) as e:

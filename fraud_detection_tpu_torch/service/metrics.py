@@ -4,8 +4,8 @@ The series the port's slices touch, under the JAX package's names, labels
 and buckets (dashboards and alert rules read them): the API counters and
 latency histograms, the micro-batcher's flush-path counters and fusion
 gauges (the wide family's among them), the watchtower's drift and shadow
-series, the ledger's, the ingest lanes', the request stages', and the SHAP
-worker's and task queue's series. Counters
+series, the ledger's, the ingest lanes', the request stages', the lifecycle
+loop's, and the SHAP worker's and task queue's series. Counters
 export ``<name>_total``; histograms export ``_bucket``/``_sum``/``_count``.
 No ``prometheus_client``: the exposition format (text 0.0.4) is written
 here.
@@ -342,6 +342,48 @@ watchtower_shadow_batches = Counter(
 )
 watchtower_retrain_triggers = Counter(
     "watchtower_retrain_triggers", "Retrain-trigger tasks enqueued by watchtower"
+)
+retrain_requests = Counter(
+    "watchtower_retrain_requests", "Retrain-trigger tasks processed by workers"
+)
+
+# the lifecycle loop: retrain → gate → promotion and the hot swap
+# (lifecycle/). These names are the alerting contract.
+lifecycle_model_swaps = Counter(
+    "lifecycle_model_swaps",
+    "Hot model swaps applied by the serving reloader (no restart)",
+)
+lifecycle_active_model_version = Gauge(
+    "lifecycle_active_model_version",
+    "Registry version of the champion currently being served (0 = unversioned)",
+)
+lifecycle_state = Gauge(
+    "lifecycle_state",
+    "1 for the conductor state machine's current state, 0 otherwise",
+    ["state"],
+)
+lifecycle_retrains = Counter(
+    "lifecycle_retrains",
+    "Conductor retrain executions by outcome (gated/gate_failed/failed/skipped)",
+    ["outcome"],
+)
+lifecycle_retrain_duration = Histogram(
+    "lifecycle_retrain_duration_seconds",
+    "Wall time of a conductor retrain (fit + gate evaluation)",
+    buckets=(1, 5, 15, 30, 60, 120, 300, 600, 1800, 3600),
+)
+lifecycle_promotions = Counter(
+    "lifecycle_promotions",
+    "Challenger promotions completed (alias flipped to the challenger)",
+)
+lifecycle_rollbacks = Counter(
+    "lifecycle_rollbacks",
+    "Rollbacks completed (challenger dropped or prior champion restored)",
+)
+lifecycle_feedback_rows = Gauge(
+    "lifecycle_feedback_rows",
+    "Durable labeled-feedback rows by pool (window/reservoir)",
+    ["pool"],
 )
 
 # the ledger: the per-entity table of a widened family (ledger/)

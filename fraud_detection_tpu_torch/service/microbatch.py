@@ -6,6 +6,8 @@ to a flush task, which runs the device work in an executor thread (so the
 event loop keeps accepting requests) and resolves each request's future.
 With ``SCORER_ADAPTIVE_WAIT`` the wait scales with an arrival-rate EWMA
 (:meth:`MicroBatcher._effective_wait`): a lone request flushes at once.
+Serving builds the batcher over the lifecycle's ``ModelSlot``: each flush
+reads the slot once, so a hot swap lands between two flushes.
 
 A queue item is either a single row (one ``/predict`` request) or an
 ingest block (:class:`IngestBlock`): a frame's rows, parsed straight into
@@ -153,7 +155,7 @@ def _fence(device: torch.device) -> None:
 class MicroBatcher:
     def __init__(
         self,
-        scorer: BatchScorer,
+        scorer: BatchScorer | None = None,
         max_batch: int | None = None,
         max_wait_ms: float | None = None,
         max_inflight: int | None = None,
@@ -165,10 +167,16 @@ class MicroBatcher:
         explain: bool | None = None,
         explain_k: int | None = None,
         admit_max_rows: int | None = None,
-        model_source: str | None = None,
-        model_version: int | None = None,
+        slot=None,
     ):
-        self.scorer = scorer
+        # either a fixed scorer (offline tools, tests) or the lifecycle's
+        # ModelSlot (serving): with a slot every flush reads the slot once,
+        # so a hot swap lands between batches — a batch in flight finishes
+        # on the old model, the next scores on the new
+        if scorer is None and slot is None:
+            raise ValueError("MicroBatcher needs a scorer or a model slot")
+        self.slot = slot
+        self._scorer = scorer
         # on the fused path the drift window folds inside the flush; on the
         # split path each scored batch goes to watchtower.observe()
         self.watchtower = watchtower
@@ -178,9 +186,6 @@ class MicroBatcher:
         self.telemetry = (
             telemetry if telemetry is not None else config.spyglass_enabled()
         )
-        # what the flight recorder's records name as the served model
-        self.model_source = model_source
-        self.model_version = model_version
         self.fused = fused if fused is not None else config.scorer_fused_flush()
         self.return_wire = (
             return_wire if return_wire is not None else config.scorer_return_wire()
@@ -197,7 +202,7 @@ class MicroBatcher:
         metrics.scorer_wire_fused.set(1)
         if self.fused and self.watchtower is not None:
             log.info("wire format %s runs the fused single-dispatch flush",
-                     scorer.io_dtype)
+                     self.scorer.io_dtype)
         if explain is None:
             mode = config.scorer_explain()
             if mode not in ("off", "topk"):
@@ -247,6 +252,21 @@ class MicroBatcher:
             max_inflight if max_inflight is not None else config.scorer_max_inflight()
         )
         self._flushes: set[asyncio.Task] = set()
+
+    @property
+    def scorer(self) -> BatchScorer:
+        """The scorer the next flush uses: the slot's model's, or the fixed
+        one."""
+        return self.slot.model.scorer if self.slot is not None else self._scorer
+
+    def _served(self) -> tuple:
+        """ONE read of what a flush serves: ``(scorer, source, version)``,
+        pinned for the whole batch even if a promotion swaps the slot while
+        it is in flight."""
+        if self.slot is None:
+            return self._scorer, None, None
+        model, source, version = self.slot.get()
+        return model.scorer, source, version
 
     async def start(self) -> None:
         """Warm the bucket ladder (off the event loop), then start the
@@ -485,13 +505,13 @@ class MicroBatcher:
         if prev is not None:
             metrics.scorer_served_family.labels(prev).set(0)
 
-    def _note_wide_fused(self, fused: bool, scorer) -> None:
+    def _note_wide_fused(self, fused: bool, scorer, version) -> None:
         """Export (and, on a change, log) whether the served wide family's
         crosses ride the fused flush. Off it, every row scores base-only
         through the null fold: ``scorer_wide_fused`` latches 0 and a
         warning says so. On it, the model shards (1: the single-device
         gather) and the table's occupancy are exported."""
-        state = (fused, self.model_version)
+        state = (fused, version)
         if state == self._wide_state:
             return
         self._wide_state = state
@@ -528,10 +548,21 @@ class MicroBatcher:
 
     def _fused_target(self, scorer):
         """(drift_monitor, fused_spec) when this flush runs fused (a
-        watchtower is attached and SCORER_FUSED_FLUSH is on), else None."""
+        watchtower is attached and SCORER_FUSED_FLUSH is on), else None.
+        Also None while a cross-width hot swap is between its slot write and
+        the watchtower's rebind (the monitor's width is not the scorer's, or
+        a ledger champion's table is not bound yet): that flush scores
+        split, through the scorer's base-width path, rather than failing
+        its requests."""
         if not self.fused or self.watchtower is None:
             return None
-        return self.watchtower.drift, scorer.fused_spec()
+        drift = self.watchtower.drift
+        if drift.profile.n_features != scorer.n_features:
+            return None
+        spec = scorer.fused_spec()
+        if spec.ledger is not None and drift.ledger is None:
+            return None  # a ledger champion before its table is bound
+        return drift, spec
 
     def _flush_device(self, scorer, target, batch: list[tuple],
                       telemetry: bool = False):
@@ -697,7 +728,7 @@ class MicroBatcher:
 
     async def _flush(self, batch: list[tuple]) -> None:
         n_rows = _batch_rows(batch)
-        scorer = self.scorer
+        scorer, source, version = self._served()
         fused = False
         try:
             # everything that can fail stays inside this try: a raise before
@@ -709,7 +740,7 @@ class MicroBatcher:
                 self._note_wide_off()
             else:
                 # off the fused flush a wide model drops its crosses
-                self._note_wide_fused(fused, scorer)
+                self._note_wide_fused(fused, scorer, version)
             loop = asyncio.get_running_loop()
             (
                 probs, explain_out, device_calls, monitor_rows,
@@ -734,7 +765,7 @@ class MicroBatcher:
             fi = FlushInfo(
                 *stamps, batch_size=n_rows,
                 bucket=_bucket(n_rows, scorer.min_bucket),
-                model_version=self.model_version, model_source=self.model_source,
+                model_version=version, model_source=source,
                 drift=metrics.watchtower_drift_detected.get() != 0,
             )
         # fan out by row offset: a single row resolves with its float (or

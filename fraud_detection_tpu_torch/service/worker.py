@@ -18,9 +18,17 @@ Semantics kept from the reference:
   stdlib ``http.server`` thread serving :func:`metrics.render`;
 - the model loaded once at startup, not per task.
 
-Not in this slice: the lifecycle tasks (``watchtower.trigger_retrain`` and
-the conductor's) take the unknown-task path until ROADMAP item 11, and the
-``traceparent`` argument is accepted and ignored until item 13.
+The lifecycle tasks run the conductor (``lifecycle/conductor.py``) on the
+worker's device: ``watchtower.trigger_retrain`` (retrain → gate →
+``@shadow``, SMOTE's k-NN through ``knn_topk`` and the gate's scoring
+through ``fused_score`` on the card), ``lifecycle.promote_challenger``,
+``lifecycle.rollback_challenger`` and ``lifecycle.record_feedback``. The
+conductor's store is ``LIFECYCLE_DB_URL`` (default: the broker's
+database); it opens at the first lifecycle task, so a worker without a
+usable store keeps explaining. :meth:`XaiWorker.run_forever` resumes a dead
+worker's half-done episode before its first claim, and a promotion this
+worker applies hot-reloads its own model. The ``traceparent`` argument is
+accepted and ignored until ROADMAP item 13.
 
 Run: ``python -m fraud_detection_tpu_torch.service.worker`` (on ``cuda``;
 ``DEVICE=cpu`` runs it on the CPU).
@@ -71,12 +79,14 @@ class XaiWorker:
         ``device`` (default: ``DEVICE``, itself defaulting to ``cuda``).
         Raises at once when ``cuda`` is asked for and no card is present."""
         dev = resolve_device(device)
+        self.device = dev
         self.worker_id = worker_id or f"{socket.gethostname()}-{uuid.uuid4().hex[:6]}"
         self.broker = Broker(broker_url)
         self.db = ResultsDB(database_url)
         self.poll_interval = poll_interval
         self.max_batch = max_batch
         self._stop = threading.Event()
+        self._conductor = None  # built at the first lifecycle task
         self.model, source = load_production_model(device=dev)
         self.model.raw_explainer()  # build + cache (tree_shap's tables too)
         metrics.model_loaded.set(1)
@@ -178,10 +188,100 @@ class XaiWorker:
             correlation_id, transaction_id, score,
         )
 
+    # -- the conductor (lifecycle/) -----------------------------------------
+    def _get_conductor(self):
+        """The conductor, built at the first lifecycle task: a worker whose
+        lifecycle store cannot open keeps explaining, and its lifecycle
+        tasks fail into the retry ladder with the real error."""
+        if self._conductor is None:
+            from fraud_detection_tpu_torch.lifecycle import (
+                Conductor,
+                open_lifecycle_store,
+            )
+
+            # lifecycle state lives beside THIS worker's queue
+            # (LIFECYCLE_DB_URL overrides)
+            self._conductor = Conductor(
+                store=open_lifecycle_store(config.lifecycle_db_url(self.broker.url)),
+                on_promote=self._on_promote,
+                device=self.device,
+            )
+        return self._conductor
+
+    def _on_promote(self, version: int) -> None:
+        """A promotion this worker applied: hot-reload its OWN model, so
+        the explanation path matches what serving scores with."""
+        try:
+            # built in full (the explainer cached) BEFORE it is published: if
+            # any step raises, self.model is still the previous champion
+            model, source = load_production_model(device=self.device)
+            model.raw_explainer()
+            self.model = model
+            log.warning(
+                "worker model hot-reloaded after promotion of v%s (%s)",
+                version, source,
+            )
+        except Exception:
+            log.warning(
+                "worker model reload after promotion failed — explaining "
+                "with the previous champion until restart", exc_info=True,
+            )
+
+    def trigger_retrain(self, reason: str = "") -> None:
+        """A watchtower drift episode (one task an episode under
+        ``WATCHTOWER_RETRAIN_TRIGGER=1``): run the conductor's retrain →
+        gate → ``@shadow`` pipeline. The conductor's persisted CAS drops
+        duplicates across API replicas."""
+        metrics.retrain_requests.inc()
+        log.warning(
+            "RETRAIN REQUESTED by watchtower: %s — running the conductor "
+            "pipeline", reason or "(no reason given)",
+        )
+        result = self._get_conductor().handle_retrain(reason)
+        log.warning("conductor retrain finished: %s", result)
+
+    def promote_challenger(self, reason: str = "") -> None:
+        self._get_conductor().handle_promote(reason)
+
+    def rollback_challenger(self, reason: str = "") -> None:
+        self._get_conductor().handle_rollback(reason)
+
+    def record_feedback(self, features, scores, labels) -> None:
+        """Queue-delivered labeled feedback (a label joiner that publishes
+        to the broker instead of POSTing /monitor/feedback)."""
+        n = self._get_conductor().record_feedback(features, scores, labels)
+        log.info("recorded %d feedback rows", n)
+
+    def resume_lifecycle(self) -> None:
+        """Finish any episode a dead worker left mid-step (run_forever
+        calls this before its first claim)."""
+        try:
+            result = self._get_conductor().resume()
+        except Exception:
+            log.warning("lifecycle resume failed", exc_info=True)
+            return
+        if result is not None:
+            log.warning("resumed lifecycle episode: %s", result)
+
     def _execute(self, task: Task) -> None:
-        if task.name != TASK_NAME:
+        from fraud_detection_tpu_torch.lifecycle.conductor import (
+            FEEDBACK_TASK,
+            PROMOTE_TASK,
+            ROLLBACK_TASK,
+        )
+        from fraud_detection_tpu_torch.monitor.watchtower import RETRAIN_TASK
+
+        handlers = {
+            TASK_NAME: self.compute_shap,
+            RETRAIN_TASK: self.trigger_retrain,
+            PROMOTE_TASK: self.promote_challenger,
+            ROLLBACK_TASK: self.rollback_challenger,
+            FEEDBACK_TASK: self.record_feedback,
+        }
+        fn = handlers.get(task.name)
+        if fn is None:
             raise ValueError(f"unknown task {task.name}")
-        self.compute_shap(*task.args)
+        fn(*task.args)
 
     def compute_shap_many(self, tasks: list[Task]) -> dict[str, Exception | None]:
         """Batched form of :meth:`compute_shap`: ONE stacked scoring call and
@@ -307,7 +407,7 @@ class XaiWorker:
                 # observed per task, so rate(count) stays tasks/s
                 metrics.xai_task_duration.observe(per_task)
                 self._settle(t, outcome.get(t.id))
-        for t in other:  # unknown tasks keep the one-by-one path
+        for t in other:  # lifecycle (and unknown) tasks: one by one
             self._run_one(t)
         return len(tasks)
 
@@ -329,6 +429,7 @@ class XaiWorker:
         if max_batch:
             self.max_batch = max_batch
         self.warmup()
+        self.resume_lifecycle()  # crash recovery BEFORE consuming new work
         log.info("worker %s consuming (broker %s)", self.worker_id, self.broker.url)
         outage_backoff = max(5 * self.poll_interval, 1.0)
         while not self._stop.is_set():
@@ -358,6 +459,8 @@ class XaiWorker:
     def close(self) -> None:
         self.broker.close()
         self.db.close()
+        if self._conductor is not None:
+            self._conductor.store.close()
 
 
 def serve_metrics(port: int, host: str = "0.0.0.0"):

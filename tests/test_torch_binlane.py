@@ -93,7 +93,7 @@ def _lane(scorer, model=None, telemetry=False, max_batch=128, **kw):
     mb = MicroBatcher(scorer, max_batch=max_batch, max_wait_ms=1.0,
                       telemetry=telemetry, fused=False, explain=False, **kw)
     lt.call(mb.start())
-    srv = binlane.BinaryIngestServer(mb, scorer=scorer, model=model,
+    srv = binlane.BinaryIngestServer(mb, scorer_fn=lambda: scorer, model=model,
                                      host="127.0.0.1", port=0, max_rows=max_batch,
                                      stall_timeout=0.4)
     srv.start(lt.loop)
@@ -329,7 +329,7 @@ def test_fuzz_truncated_frame_drops_peer_not_worker(lane, scorer, data):
 
 def test_max_rows_clamped_to_flush_ceiling(scorer):
     mb = MicroBatcher(scorer, max_batch=64, max_wait_ms=1.0, telemetry=False)
-    srv = binlane.BinaryIngestServer(mb, scorer=scorer, host="127.0.0.1",
+    srv = binlane.BinaryIngestServer(mb, scorer_fn=lambda: scorer, host="127.0.0.1",
                                      port=0, max_rows=1 << 20)
     assert srv.max_rows == 64 == binlane.batcher_max_batch(mb)
 
@@ -698,7 +698,7 @@ def test_socket_frames_with_reason_codes_bitwise_score_ex(family, model, gbt_mod
     mb = MicroBatcher(sc, max_batch=64, max_wait_ms=1.0, watchtower=wt, fused=True,
                       explain=True, explain_k=3)
     lt.call(mb.start())
-    srv = binlane.BinaryIngestServer(mb, scorer=sc, model=m,
+    srv = binlane.BinaryIngestServer(mb, scorer_fn=lambda: sc, model=m,
                                      host="127.0.0.1", port=0, stall_timeout=0.4)
     srv.start(lt.loop)
     try:

@@ -1,7 +1,8 @@
 """Card-only tests of the port (marker ``cuda``): the hand-written CUDA
 kernels against their plain versions, the served path launching
 ``fused_score``, SMOTE launching ``knn_topk``, the GBT fit launching
-``gbt_hist`` and TreeSHAP launching ``tree_shap``.
+``gbt_hist`` and TreeSHAP launching ``tree_shap``, and the lifecycle loop's
+retrain and hot swap on the card.
 
 They import nothing of JAX, so they run on a machine with the card and no
 JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -1143,3 +1144,119 @@ def test_wide_flush_on_the_card_matches_the_cpu(wire):
         np.testing.assert_array_equal(ig, ic)
     for a, c in zip(served["cuda"][1][:2], served["cpu"][1][:2]):
         np.testing.assert_array_equal(a, c)
+
+
+# ---------------------------------------------------------------------------
+# the lifecycle loop on the card
+# ---------------------------------------------------------------------------
+
+
+def _lifecycle_inputs(tmp_path):
+    """A small synthetic Kaggle-schema CSV, a champion fitted on its frozen
+    split (CPU), and a lifecycle store fed 512 labeled rows."""
+    from fraud_detection_tpu_torch.data.loader import stratified_split
+    from fraud_detection_tpu_torch.lifecycle import LifecycleStore
+    from fraud_detection_tpu_torch.ops.logistic import logistic_fit_lbfgs
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit, scaler_transform
+
+    names = ["Time"] + [f"V{i}" for i in range(1, 29)] + ["Amount"]
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal(30).astype(np.float32)
+
+    def rows(n):
+        x = rng.standard_normal((n, 30)).astype(np.float32)
+        return x, (rng.random(n) < 1 / (1 + np.exp(-(x @ w - 3.0)))).astype(np.int32)
+
+    x, y = rows(2400)
+    csv = str(tmp_path / "base.csv")
+    with open(csv, "w") as f:
+        f.write(",".join(names + ["Class"]) + "\n")
+        for r, label in zip(x, y):
+            f.write(",".join(f"{v:.6f}" for v in r) + f",{int(label)}\n")
+    tr, _ = stratified_split(y, 0.2, 42)
+    scaler = scaler_fit(torch.from_numpy(x[tr]))
+    params = logistic_fit_lbfgs(scaler_transform(scaler, torch.from_numpy(x[tr])), y[tr],
+                                max_iter=100)
+    art = str(tmp_path / "champion")
+    FraudLogisticModel(params, scaler, names, device="cpu").save(art, joblib_too=False)
+    store = LifecycleStore(f"sqlite:///{tmp_path}/lc.db", window_size=600, reservoir_size=200,
+                           seed=3)
+    fx, fy = rows(512)
+    store.add_feedback(fx, np.full(512, 0.3, np.float32), fy)
+    return csv, art, store
+
+
+@pytest.mark.cuda
+def test_retrain_on_the_card_launches_knn_once_and_matches_the_cpu(tmp_path):
+    """run_retrain with SMOTE on the card: knn_topk launches once, the fit
+    rows (SMOTE's among them) within 1e-5 of the CPU retrain's, holdout AUC
+    within 2e-3, the same verdict; the gate's statistics within 1e-5 of the
+    CPU's."""
+    from fraud_detection_tpu_torch.lifecycle import GateThresholds, run_retrain
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+
+    _require_card()
+    csv, art, store = _lifecycle_inputs(tmp_path)
+    thr = GateThresholds(0.05, 0.5, 2.0, 64)
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            kernels.reset_launch_counts()
+            out[dev] = run_retrain(store, load_any_model(art, device=dev), 1, data_csv=csv,
+                                   max_iter=100, thresholds=thr, device=dev, keep_fit_rows=True,
+                                   tracking_client=TrackingClient(f"file:{tmp_path}/{dev}"))
+            if dev == "cuda":
+                assert kernels.launch_counts()["knn_topk"] == 1
+    finally:
+        store.close()
+    (xg, yg), (xc, yc) = out["cuda"].fit_rows, out["cpu"].fit_rows
+    assert xg.shape == xc.shape and np.array_equal(yg, yc)
+    np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-5)
+    assert out["cuda"].gate.passed == out["cpu"].gate.passed
+    for k, v in out["cpu"].gate.metrics.items():
+        tol = 2e-3 if k.endswith("challenger_auc") else 1e-5
+        assert out["cuda"].gate.metrics[k] == pytest.approx(v, abs=tol), k
+
+
+@pytest.mark.cuda
+def test_hot_swap_on_the_card_lands_between_flushes():
+    """A MicroBatcher over a ModelSlot on the card: fused_score once a
+    flush before and after the swap, post-swap scores the new model's."""
+    from fraud_detection_tpu_torch.lifecycle import ModelSlot
+    from fraud_detection_tpu_torch.ops.logistic import LogisticParams
+    from fraud_detection_tpu_torch.ops.scaler import ScalerParams
+
+    _require_card()
+    names = ["Time"] + [f"V{i}" for i in range(1, 29)] + ["Amount"]
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((256, 30)).astype(np.float32)
+    eye = ScalerParams(torch.zeros(30), torch.ones(30), torch.ones(30), torch.tensor(1.0))
+    models = [FraudLogisticModel(
+        LogisticParams(torch.from_numpy(rng.standard_normal(30).astype(np.float32) * 0.3),
+                       torch.tensor(-1.0)), eye, names, device="cuda") for _ in range(2)]
+    prof = build_baseline_profile(x, models[0].scorer.predict_proba(x), feature_names=names,
+                                  device="cpu")
+    wt = Watchtower(prof, device="cuda")
+    slot = ModelSlot(models[0], "test:v1", 1)
+
+    async def run():
+        mb = MicroBatcher(slot=slot, max_batch=64, max_wait_ms=1.0, watchtower=wt,
+                          telemetry=False, fused=True, explain=True)
+        await mb.start()
+        try:
+            kernels.reset_launch_counts()
+            first = [await mb.score(x[i]) for i in range(8)]
+            slot.swap(models[1], "test:v2", 2)
+            second = [await mb.score(x[i]) for i in range(8)]
+            return first, second, kernels.launch_counts()["fused_score"]
+        finally:
+            await mb.stop()
+
+    try:
+        first, second, launched = asyncio.run(run())
+    finally:
+        wt.close()
+    assert launched == 16  # one a flush: each lone request is a flush
+    np.testing.assert_allclose(first, models[0].scorer.predict_proba(x[:8]), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(second, models[1].scorer.predict_proba(x[:8]), rtol=0, atol=1e-6)

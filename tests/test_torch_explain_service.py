@@ -246,9 +246,9 @@ def test_feedback_rejects_what_the_jax_app_rejects(case, feedback_clients):
 
 
 def test_feedback_folds_labels_into_calibration_only(feedback_clients):
-    """202 with ``persisted: false`` (the durable store is the lifecycle
-    tier, not ported); the port's n_labeled and ECE move as the JAX app's,
-    and its drift window (rows seen, window rows) does not move."""
+    """202 with ``persisted: true`` (the rows land in the durable lifecycle
+    store, as in the JAX app); the port's n_labeled and ECE move as the JAX
+    app's, and its drift window (rows seen, window rows) does not move."""
     jc, tc = feedback_clients
     rng = np.random.default_rng(7)
     feats = rng.standard_normal((64, 30)).astype(np.float32)
@@ -258,8 +258,7 @@ def test_feedback_folds_labels_into_calibration_only(feedback_clients):
     before = tc.get("/monitor/status").json()["drift"]
     jr, tr = jc.post("/monitor/feedback", json=body), tc.post("/monitor/feedback", json=body)
     assert jr.status_code == tr.status_code == 202
-    assert tr.json() == {"queued": True, "rows": 64, "persisted": False}
-    assert jr.json()["queued"] is True and jr.json()["rows"] == 64
+    assert tr.json() == jr.json() == {"queued": True, "rows": 64, "persisted": True}
     assert jc.app.state["watchtower"].drain(30.0)
     assert tc.app.state["watchtower"].drain(30.0)
     jd = jc.get("/monitor/status").json()["drift"]

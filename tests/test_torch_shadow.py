@@ -257,8 +257,8 @@ def test_retrain_trigger_off_by_default_and_rearms(dirs, monkeypatch):
 
 
 def test_app_sends_the_retrain_task_to_the_broker(dirs, tmp_path, monkeypatch):
-    """The served app's drift episode puts one RETRAIN_TASK on its broker,
-    which the port's worker sends down the unknown-task path."""
+    """The served app's drift episode puts one RETRAIN_TASK on its broker
+    (the worker runs it through the conductor)."""
     from fraud_detection_tpu_torch.service.app import create_app
     from fraud_detection_tpu_torch.service.http import TestClient
     from fraud_detection_tpu_torch.service.taskq import Broker

@@ -142,6 +142,10 @@ def serving_env(tmp_path, monkeypatch):
     monkeypatch.setenv("CELERY_BROKER_URL", f"sqlite:///{tmp_path}/taskq.db")
     monkeypatch.setenv("SCORER_MAX_BATCH", "16")
     monkeypatch.setenv("DEVICE", "cpu")
+    # the flush records the process-wide drift gauge, which a drift test
+    # run earlier in this process may have left at 1; this app has seen no
+    # drift
+    monkeypatch.setattr(metrics.watchtower_drift_detected._children[()], "value", 0.0)
     return tmp_path
 
 

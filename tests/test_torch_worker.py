@@ -71,11 +71,11 @@ def test_worker_processes_task(env):
 
 
 def test_unknown_task_retries_then_fails(env):
-    """A task name the worker does not serve (the lifecycle tasks until
-    they are ported) takes the retry ladder to FAILED."""
+    """A task name the worker does not serve takes the retry ladder to
+    FAILED (the JAX test's task name)."""
     db_url, broker_url, _ = env
     broker = Broker(broker_url)
-    tid = broker.send_task("watchtower.trigger_retrain", ["txX", {}, None], max_retries=1)
+    tid = broker.send_task("no.such.task", ["txX", {}, None], max_retries=1)
     w = XaiWorker(broker_url=broker_url, database_url=db_url)
     assert w.run_once() is True  # attempt 1 fails -> nack, 10 s countdown
     assert broker.depth() == 0  # backing off
