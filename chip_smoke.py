@@ -307,6 +307,36 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    store, forced (wide → ledger): the served table bitwise its stamped
    table after the swap, and bitwise the stamped table plus a replay of
    the recorded post-swap flushes after 48 entity-keyed ``/predict``.
+14. **the lifeboat** — phase 11's ``train --ledger`` directory served by a
+   child process (``python -m fraud_detection_tpu_torch.service.app``) with
+   ``LIFEBOAT_DIR``, ``LIFEBOAT_FSYNC_S=0``, ``LIFEBOAT_SNAPSHOT_FLUSHES=32``,
+   ``LIFEBOAT_KEEP=2``, ``SCORER_MAX_INFLIGHT=1``, ``SCORER_EXPLAIN=topk``:
+   144 ``/predict`` with ``entity_id`` and ``timestamp`` over 36 entities and
+   24 without, one at a time (a request a flush), then one 256-row
+   ``/ingest/batch`` frame with fingerprints (every 9th 0), pausing after
+   the 40th request until a generation has landed; ``SIGKILL`` after the
+   last response. Generations landed mid-traffic, at most 2 kept; every journal record on disk bitwise the triples the flush
+   consumed. An in-process twin without the lifeboat serves the same
+   requests. An in-process app recovers the killed child's directory while
+   a ``range/faults`` plan stalls ``lifeboat.recover``: ``/health``,
+   ``/predict`` and ``/ingest/batch`` answer 503 with ``retry-after: 5``, a
+   binary-lane frame is refused (status 3) and the connection scores after
+   the release; ``/lifeboat/status`` reports the newest generation and the
+   journal rows after it, no torn rows. The recovered table bitwise the
+   twin's, bitwise an independent ``recover()`` of a copy on the card (no
+   ``fused_score`` launch), and within the ledger's tolerance of a CPU
+   ``recover()``; 48 entity-keyed ``/predict`` to the recovered app and
+   the twin: scores bitwise equal, ``fused_score`` once a flush, the
+   tables bitwise equal. The copy's last record cut short: exactly its rows
+   in ``lifeboat_torn_tail_rows``, the table bitwise the twin's before that
+   flush. A shorter leg on the int8 wire (48 + 8 ``/predict``, a 64-row
+   frame): the journaled amounts the dequantized codes, the recovered table
+   the int8 twin's. Then, with the card's name and power limit: a 1024-row
+   ledger flush's host p50 with the lifeboat off, on at
+   ``LIFEBOAT_FSYNC_S=0.5`` and on at 0 (30 each, in turns),
+   ``journal_staged``'s own time, ``take_snapshot``'s clone, d2h and write
+   at 8,192 slots, and the recovery of the Kaggle-sized CSV's 284,807 rows
+   journaled as 1024-row records.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -3673,9 +3703,13 @@ def post_bodies(port: int, bodies: list, clients: int, work: Path) -> list:
 
 def table_gap(tag: str, got, want, exact: bool) -> str:
     """Bitwise (``exact``) or the tests' tolerance (float columns; last_ts,
-    fingerprints and counts still exact) between two host tables."""
+    fingerprints and counts still exact) between two tables, each on the
+    host or the card (both are compared in the file's dtypes)."""
     import numpy as np
 
+    from fraud_detection_tpu_torch.ledger.state import host_state
+
+    got, want = host_state(got), host_state(want)
     fields = ("acc", "last_ts", "fingerprint", "collisions", "evictions")
     for name, a, b in zip(fields, got, want):
         a, b = np.asarray(a), np.asarray(b)
@@ -5131,6 +5165,510 @@ def lifecycle_phase(work: Path, lin_store: str, gbt_store: str, ledger_dir: Path
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the lifeboat
+# ---------------------------------------------------------------------------
+
+#: the killed server's traffic: entity-keyed /predict (every one with a
+#: timestamp) over LB_ENTITIES entities, one entity-less /predict in seven,
+#: one at a time (a request a flush), then one /ingest/batch frame (every
+#: 9th fingerprint 0)
+LB_ENTITIES = 36
+LB_PREDICTS, LB_NULL_PREDICTS, LB_FRAME_ROWS = 144, 24, 256
+LB_INT8 = (48, 8, 64)  # the int8 leg's entity-keyed, entity-less and frame rows
+LB_AFTER = 48  # entity-keyed /predict to the recovered app and the twin
+#: requests after which the child's traffic pauses until a generation has
+#: landed (≥ LIFEBOAT_SNAPSHOT_FLUSHES flushes): one lands mid-traffic on any host
+LB_FIRST_CUT = 40
+LB_ENV = {"LIFEBOAT_FSYNC_S": "0", "LIFEBOAT_SNAPSHOT_FLUSHES": "32", "LIFEBOAT_KEEP": "2"}
+LB_RETRY_AFTER = "5"  # the app's LIFEBOAT_RETRY_AFTER_S
+LB_TORN_BYTES = 5  # cut off the end of the torn copy's last journal record
+LB_FLUSH_TIMED = 30  # 1024-row ledger flushes a setting (off, fsync 0.5, fsync 0), in turns
+LB_SNAPSHOTS_TIMED = 5
+LB_RECORD_ROWS = 1024  # rows a record of the Kaggle-sized journal tail
+
+
+def lb_traffic(x, spec, n_ent: int, n_null: int, n_frame: int, seed: int, t_rel: float):
+    """The leg's requests in order — /predict bodies, then the frame's rows,
+    fingerprints and epoch timestamps — and the journal they must leave:
+    one ``(fp, ts, row index)`` a flush that carries an entity row, in
+    flush order."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.ledger import entity_fingerprint
+
+    total = n_ent + n_null
+    if total != 7 * n_null:
+        raise ValueError("one entity-less /predict in seven")
+    rng = np.random.default_rng(seed)
+    rows = x[rng.choice(x.shape[0], total + n_frame, replace=False)]
+    bodies, journal = [], []
+    e = 0
+    for i in range(total):
+        body = {"features": rows[i].tolist()}
+        if i % 7 != 3:
+            eid = f"card-{e % LB_ENTITIES}"
+            e += 1
+            stamp = spec.ts_origin + t_rel + 2.0 * i
+            body.update(entity_id=eid, timestamp=stamp)
+            journal.append((np.asarray([entity_fingerprint(eid)], np.uint32),
+                            np.asarray([spec.rel_ts(stamp)], np.float32), np.asarray([i])))
+        bodies.append(body)
+    fps = np.asarray([0 if j % 9 == 0 else entity_fingerprint(f"card-{j % LB_ENTITIES}")
+                      for j in range(n_frame)], np.uint32)
+    stamps = spec.ts_origin + t_rel + 1000.0 + np.arange(n_frame, dtype=np.float64)
+    has = fps != 0
+    journal.append((fps[has], np.maximum(stamps - spec.ts_origin, 1e-3).astype(np.float32)[has],
+                    total + np.flatnonzero(has)))
+    return rows, bodies, (rows[total:], fps, stamps), journal
+
+
+def lb_wire_amounts(scorer, rows, amount_col: int):
+    """The amount each row's flush consumes, by numpy: the f32 value, or on
+    the int8 wire the code (the host quantizer: ×1/scale, round half to
+    even, clip to ±127) times the scale."""
+    import numpy as np
+
+    col = np.asarray(rows, np.float32)[:, amount_col]
+    scale = getattr(scorer, "_quant_scale", None)
+    if scale is None:
+        return col
+    scale = np.asarray(scale, np.float32)
+    inv = (1.0 / scale).astype(np.float32)
+    codes = np.clip(np.rint(col * inv[amount_col]), -127, 127).astype(np.int8)
+    return codes.astype(np.float32) * scale[amount_col]
+
+
+def lb_send(port: int, tag: str, bodies, frame=None) -> list:
+    """The requests one at a time (a request a flush); the scores in order."""
+    from fraud_detection_tpu_torch.service import binlane
+
+    scores = []
+    for i, body in enumerate(bodies):
+        st, raw = http_call(port, "POST", "/predict", body)
+        if st != 200:
+            raise AssertionError(f"{tag}: /predict {i}: HTTP {st} {raw[:200]!r}")
+        scores.append(json.loads(raw)["score"])
+    if frame is not None:
+        rows, fps, stamps = frame
+        st, raw = post_raw(port, "/ingest/batch",
+                           binlane.encode_frame(rows, fps, stamps, length_prefix=False),
+                           "application/x-fraud-frame")
+        if st != 200:
+            raise AssertionError(f"{tag}: /ingest/batch HTTP {st} {raw[:200]!r}")
+        scores.extend(float(s) for s in binlane.decode_response_body(raw)[0])
+    return scores
+
+
+def lb_serve(app, tag: str) -> tuple:
+    port = free_port()
+    server = ServerThread(app, port)
+    server.start()
+    if not server.ready.wait(timeout=300) or server.error is not None:
+        raise RuntimeError(f"{tag}: server did not start: {server.error!r}")
+    return server, port
+
+
+def lb_wait(port: int, tag: str, path: str, ok, timeout: float = 300.0, proc=None):
+    """Poll ``GET path`` until ``ok(status, body)``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"{tag}: the server exited with {proc.returncode}")
+        try:
+            st, raw = http_call(port, "GET", path)
+            if ok(st, raw):
+                return st, raw
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise AssertionError(f"{tag}: GET {path} never became ready")
+
+
+def lb_leg(work: Path, model_dir: Path, x, wire: str, full: bool, dev: str) -> dict:
+    """One kill-and-recover leg on ``wire``: the killed child, the
+    uninterrupted twin, the recovery (with the 503 gate, the torn tail and
+    the post-recovery requests when ``full``)."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.ledger.state import load_ledger
+    from fraud_detection_tpu_torch.lifeboat import (
+        Lifeboat,
+        list_journals,
+        list_snapshots,
+        read_tail,
+        recover,
+    )
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.range import faults
+    from fraud_detection_tpu_torch.service import binlane, metrics
+    from fraud_detection_tpu_torch.service.app import create_app
+
+    tag = f"phase14 {wire}"
+    on_card = dev == "cuda"
+    spec, stamped = load_ledger(str(model_dir))
+    t_rel = float(np.max(stamped.last_ts)) + 10.0
+    n_ent, n_null, n_frame = (LB_PREDICTS, LB_NULL_PREDICTS, LB_FRAME_ROWS) if full else LB_INT8
+    rows, bodies, frame, journal = lb_traffic(x, spec, n_ent, n_null, n_frame, 14, t_rel)
+    lb_dir = work / f"lb_{wire}"
+    for knob in ("SCORER_MAX_BATCH", "SCORER_FUSED_FLUSH", "SCORER_EXPLAIN_K",
+                 "SCORER_RETURN_WIRE", "INGEST_PORT", "LIFEBOAT_DIR", "LIFEBOAT_SNAPSHOT_S"):
+        os.environ.pop(knob, None)
+    os.environ.update(DEVICE=dev, SCORER_EXPLAIN="topk", SCORER_WIRE=wire,
+                      SCORER_MAX_INFLIGHT="1", LIFECYCLE_RELOAD_INTERVAL_S="0",
+                      MODEL_PATH=str(model_dir / "model.npz"), **LB_ENV)
+    pin_tracking_store(work / "lb_empty_mlruns", work)
+    urls = {k: dict(database_url=f"sqlite:///{work}/lb_{wire}_{k}_fraud.db",
+                    broker_url=f"sqlite:///{work}/lb_{wire}_{k}_taskq.db")
+            for k in ("child", "twin", "rec")}
+
+    # the killed server: its own process, served until the last response
+    child_port = free_port()
+    env = dict(os.environ, LIFEBOAT_DIR=str(lb_dir), PYTHONPATH=str(ROOT),
+               DATABASE_URL=urls["child"]["database_url"],
+               CELERY_BROKER_URL=urls["child"]["broker_url"])
+    log_path = work / f"lb_{wire}_child.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fraud_detection_tpu_torch.service.app",
+             "--host", "127.0.0.1", "--port", str(child_port)],
+            cwd=str(ROOT), env=env, stdout=log_f, stderr=subprocess.STDOUT)
+        try:
+            lb_wait(child_port, tag, "/health", lambda st, _: st == 200, proc=proc)
+            t_ready = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            lb_send(child_port, tag, bodies[:LB_FIRST_CUT])
+            t_cut = time.perf_counter()
+            lb_wait(child_port, tag, "/lifeboat/status",
+                    lambda st, raw: bool(json.loads(raw)["generations"]), timeout=60, proc=proc)
+            t_paused = time.perf_counter() - t_cut
+            lb_send(child_port, tag, bodies[LB_FIRST_CUT:], frame)
+            t_traffic = time.perf_counter() - t1 - t_paused
+            status = json.loads(http_call(child_port, "GET", "/lifeboat/status")[1])
+        finally:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=60)
+    gens = [s for s, _ in list_snapshots(str(lb_dir))]
+    landed = open(log_path).read().count("snapshot generation")
+    print(f"{tag}: the child served {len(bodies)} /predict ({n_ent} entity-keyed over "
+          f"{LB_ENTITIES} entities, {n_null} without) one at a time and one {n_frame}-row "
+          f"/ingest/batch frame in {t_traffic:.3f} s (ready {t_ready:.3f} s after its spawn; "
+          f"paused {t_paused:.3f} s after request {LB_FIRST_CUT} for a generation); "
+          f"SIGKILL after the last response (exit {proc.returncode}); journal seq "
+          f"{status['journal_seq']}, {landed} generation(s) landed mid-traffic, kept {gens}, "
+          f"journals {[b for b, _ in list_journals(str(lb_dir))]}")
+    if proc.returncode != -signal.SIGKILL or not 1 <= len(gens) <= int(LB_ENV["LIFEBOAT_KEEP"]) \
+            or landed < len(gens):
+        raise AssertionError(f"{tag}: exit {proc.returncode}, generations {gens}, landed {landed}")
+
+    # the journal on disk against what the flushes consumed: every record
+    # kept, bit for bit
+    if status["journal_seq"] != len(journal):
+        raise AssertionError(f"{tag}: journal seq {status['journal_seq']}, "
+                             f"{len(journal)} flushes carried entities")
+    amounts = lb_wire_amounts(load_any_model(str(model_dir), device="cpu").scorer, rows,
+                              spec.amount_col)
+    records = read_tail(str(lb_dir), 0).records
+    for seq, fp, ts, amt in records:
+        w_fp, w_ts, idx = journal[seq - 1]
+        if fp.tobytes() != w_fp.tobytes() or ts.tobytes() != w_ts.tobytes() \
+                or amt.tobytes() != amounts[idx].tobytes():
+            raise AssertionError(f"{tag}: journal record {seq} is not the flush's triples")
+    print(f"{tag}: {len(records)} journal records on disk (seq {records[0][0]} to "
+          f"{records[-1][0]}): fingerprints (uint32), times and amounts bitwise the triples the "
+          f"flushes consumed ({'the dequantized int8 codes' if wire == 'int8' else 'f32'})")
+    copy = work / f"lb_{wire}_copy"
+    shutil.copytree(lb_dir, copy)
+
+    # the uninterrupted twin: the same requests in process, no lifeboat
+    os.environ.pop("LIFEBOAT_DIR", None)
+    twin_app = create_app(**urls["twin"])
+    twin, twin_port = lb_serve(twin_app, f"{tag} twin")
+    servers = [twin]
+    try:
+        twin_scores = lb_send(twin_port, f"{tag} twin", bodies)
+        twin_drift = twin_app.state["watchtower"].drift
+        before_frame = twin_drift.ledger_snapshot()
+        twin_scores += lb_send(twin_port, f"{tag} twin", [], frame)
+        twin_table = twin_drift.ledger_snapshot()
+
+        # the recovery: an in-process app on the killed child's directory
+        os.environ["LIFEBOAT_DIR"] = str(lb_dir)
+        lane_port = free_port()
+        if full:
+            os.environ.update(INGEST_PORT=str(lane_port), INGEST_HOST="127.0.0.1")
+        gate = threading.Event()
+        plan = faults.FaultPlan().call("lifeboat.recover", lambda **_: gate.wait(300))
+        replayed0 = metrics.lifeboat_replayed_rows.get()
+        rec_app = create_app(**urls["rec"])
+        with plan.armed():
+            rec, rec_port = lb_serve(rec_app, f"{tag} recovery")
+            servers.append(rec)
+            if full:
+                gated = []
+                for method, path, body, ctype in (
+                        ("GET", "/health", None, None),
+                        ("POST", "/predict", json.dumps(bodies[0]).encode(), "application/json"),
+                        ("POST", "/ingest/batch",
+                         binlane.encode_frame(frame[0][:8], frame[1][:8], frame[2][:8],
+                                              length_prefix=False),
+                         "application/x-fraud-frame")):
+                    conn = http.client.HTTPConnection("127.0.0.1", rec_port, timeout=60)
+                    conn.request(method, path, body=body,
+                                 headers={"content-type": ctype or "application/json"})
+                    resp = conn.getresponse()
+                    resp.read()
+                    gated.append((path, resp.status, resp.getheader("retry-after")))
+                    conn.close()
+                if any(st != 503 or ra != LB_RETRY_AFTER for _, st, ra in gated):
+                    raise AssertionError(f"{tag}: while recovering {gated}")
+                lane_rows = rows[:4]
+                with binlane.BinLaneClient("127.0.0.1", lane_port) as cli:
+                    try:
+                        cli.score_batch(lane_rows)
+                        raise AssertionError(f"{tag}: the lane scored while recovering")
+                    except binlane.LaneBusy as e:
+                        refused = (e.status, e.retry_after_s)
+                    if refused != (3, float(LB_RETRY_AFTER)):
+                        raise AssertionError(f"{tag}: the lane answered {refused}")
+                    gate.set()
+                    lb_wait(rec_port, tag, "/lifeboat/status",
+                            lambda st, raw: json.loads(raw)["state"] == "ready")
+                    lane_scores, _ = cli.score_batch(lane_rows)  # entity-less: the table stays
+                print(f"{tag}: while the recovery stalled: "
+                      + ", ".join(f"{p} {st} retry-after {ra}" for p, st, ra in gated)
+                      + f"; a binary-lane frame refused (status {refused[0]}, retry "
+                      f"{refused[1]:g} s) and the same connection scored {len(lane_scores)} rows "
+                      "after the release")
+            else:
+                gate.set()
+            body = json.loads(lb_wait(rec_port, tag, "/lifeboat/status",
+                                      lambda st, raw: json.loads(raw)["state"] == "ready")[1])
+        last = body["last_recovery"]
+        tail = read_tail(str(copy), gens[-1])
+        recovered = rec_app.state["watchtower"].drift.ledger_snapshot()
+        print(f"{tag}: /lifeboat/status after the recovery: {json.dumps(last)}; "
+              f"lifeboat_replayed_rows +{metrics.lifeboat_replayed_rows.get() - replayed0:g}; "
+              f"the recovered table against the twin's: "
+              f"{table_gap(tag, recovered, twin_table, exact=True)}")
+        if not last["restored"] or last["snapshot_seq"] != gens[-1] or last["torn_rows"] != 0 \
+                or last["replayed_rows"] != tail.fp.shape[0]:
+            raise AssertionError(f"{tag}: the recovery {last}, newest generation {gens[-1]}, "
+                                 f"{tail.fp.shape[0]} rows journaled after it")
+
+        # independent recoveries of the copy: on the card, and on the CPU
+        kernels.reset_launch_counts()
+        card = recover(str(copy), spec, device=dev)
+        rec_launches = kernels.launch_counts()
+        cpu = recover(str(copy), spec, device="cpu")
+        print(f"{tag}: an independent recover() of the copy on {dev} in {card.duration_s:.6f} s "
+              f"({card.replayed_rows} rows, {tail.n_records} records after generation "
+              f"{card.snapshot_seq}; kernel launches {rec_launches}): "
+              f"{table_gap(tag, card.state, twin_table, exact=True)} to the twin's table; "
+              f"on the CPU in {cpu.duration_s:.6f} s: {table_gap(tag, cpu.state, twin_table, exact=False)}")
+        if rec_launches["fused_score"]:
+            raise AssertionError(f"{tag}: the recovery launched fused_score")
+        out = {"replayed_rows": card.replayed_rows, "recover_s": card.duration_s}
+        if not full:
+            return out
+
+        # a torn tail: the copy's last record cut short
+        torn = work / f"lb_{wire}_torn"
+        shutil.copytree(copy, torn)
+        last_seq, last_fp = records[-1][0], records[-1][1]
+        for s, p in list_snapshots(str(torn)):
+            if s >= last_seq:  # a generation past the torn record would cover it
+                os.unlink(p)
+        if not list_snapshots(str(torn)):
+            raise AssertionError(f"{tag}: no generation before the last record")
+        # the record lives in the file of the largest base below its seq
+        holder = [p for base, p in list_journals(str(torn)) if base < last_seq][-1]
+        blob = open(holder, "rb").read()
+        open(holder, "wb").write(blob[:-LB_TORN_BYTES])
+        mon = DriftMonitor(load_profile(str(model_dir)), device=dev)
+        mon.bind_ledger(spec, stamped)
+        torn0 = metrics.lifeboat_torn_tail_rows.get()
+        boat = Lifeboat(str(torn), spec, drift=mon, snapshot_s=1e9, fsync_s=0.0)
+        rep = boat.recover()
+        boat.close()
+        torn_rows = metrics.lifeboat_torn_tail_rows.get() - torn0
+        print(f"{tag}: the copy's last record (seq {last_seq}, {last_fp.shape[0]} rows) cut by "
+              f"{LB_TORN_BYTES} bytes: lifeboat_torn_tail_rows +{torn_rows:g}, recovered from "
+              f"generation {rep.snapshot_seq} + {rep.replayed_rows} rows: "
+              f"{table_gap(tag, mon.ledger_snapshot(), before_frame, exact=True)} to the twin's "
+              "table before that flush")
+        if torn_rows != last_fp.shape[0] or rep.torn_rows != last_fp.shape[0]:
+            raise AssertionError(f"{tag}: torn rows {torn_rows}, the record held {last_fp.shape[0]}")
+
+        # after the recovery: the same requests to the recovered app and the twin
+        after = [{"features": rows[i % rows.shape[0]].tolist(),
+                  "entity_id": f"card-{(i * 5) % LB_ENTITIES}",
+                  "timestamp": spec.ts_origin + t_rel + 5000.0 + 3.0 * i} for i in range(LB_AFTER)]
+        got = {}
+        for name, port, app in (("recovered", rec_port, rec_app), ("twin", twin_port, twin_app)):
+            kernels.reset_launch_counts()
+            scores = lb_send(port, f"{tag} {name}", after)
+            got[name] = (scores, kernels.launch_counts(),
+                         app.state["watchtower"].drift.ledger_snapshot())
+        (s_rec, l_rec, t_rec), (s_twin, l_twin, t_twin) = got["recovered"], got["twin"]
+        same = sum(a == b for a, b in zip(s_rec, s_twin))
+        print(f"{tag}: {LB_AFTER} entity-keyed /predict after the recovery: {same} of {LB_AFTER} "
+              f"scores bitwise the twin's; kernel launches recovered {l_rec}, twin {l_twin}; the "
+              f"tables after them: {table_gap(tag, t_rec, t_twin, exact=True)}")
+        if same != LB_AFTER or (on_card and (l_rec["fused_score"] != LB_AFTER
+                                             or l_twin["fused_score"] != LB_AFTER)):
+            raise AssertionError(f"{tag}: after the recovery {same} equal scores, launches "
+                                 f"{l_rec} / {l_twin}")
+        out["fused_score"] = l_rec["fused_score"]
+        return out
+    finally:
+        for server in servers:
+            server.stop()
+        for knob in ("LIFEBOAT_DIR", "INGEST_PORT", "INGEST_HOST"):
+            os.environ.pop(knob, None)
+
+
+def lb_numbers(work: Path, model_dir: Path, x, kaggle_csv: Path, card: str, dev: str) -> dict:
+    """The lifeboat's costs: a 1024-row ledger flush with the lifeboat off,
+    on at LIFEBOAT_FSYNC_S=0.5 and on at 0 (in turns), journal_staged's own
+    time, take_snapshot's phases at 8,192 slots, and the recovery of a
+    Kaggle-sized journal tail."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+    from fraud_detection_tpu_torch.ledger import entity_fingerprint, synthesize_entities
+    from fraud_detection_tpu_torch.lifeboat import Journal, Lifeboat, recover, spec_hash
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.watchtower import Thresholds, Watchtower
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+
+    tag = "phase14"
+    os.environ["SCORER_WIRE"] = "float32"
+    model = load_any_model(str(model_dir), device=dev)
+    spec = model.ledger_spec
+    wt = Watchtower(load_profile(str(model_dir)), thresholds=Thresholds(5.0, 5.0, 5.0, 1.0, 10**9),
+                    device=dev)
+    wt.drift.bind_ledger(spec, model.ledger_state)
+    t_rel = float(np.max(model.ledger_state.last_ts)) + 10.0
+    items = []
+    for i in range(1024):
+        ent = None
+        if i % 8:
+            s, fp = spec.row_keys(f"card-{i % 300}")
+            ent = (s, fp, t_rel + i)
+        items.append((x[i], None, None, ent))
+    boats, forms = [], {}
+    staged = {"fsync 0.5": [], "fsync 0": []}
+    for form, fsync in (("off", None), ("fsync 0.5", 0.5), ("fsync 0", 0.0)):
+        boat = None
+        if fsync is not None:
+            boat = Lifeboat(str(work / f"lb_timing_{fsync}"), spec, drift=wt.drift,
+                            snapshot_s=1e9, snapshot_flushes=0, fsync_s=fsync)
+            boat.recover()
+            boat.start()
+            boats.append(boat)
+            inner, sink = boat.journal_staged, staged[form]
+
+            def journal_staged(*a, inner=inner, sink=sink):
+                t = time.perf_counter()
+                inner(*a)
+                sink.append(time.perf_counter() - t)
+
+            boat.journal_staged = journal_staged
+        mb = MicroBatcher(model.scorer, watchtower=wt, telemetry=False, explain=True,
+                          lifeboat=boat)
+        forms[form] = (mb, mb._fused_target(model.scorer))
+    host = {f: [] for f in forms}
+    order = list(forms)
+    try:
+        for r in range(LB_FLUSH_TIMED + 2):
+            for f in order[r % 3:] + order[:r % 3]:
+                mb, target = forms[f]
+                t = time.perf_counter()
+                out = mb._flush_device(model.scorer, target, items)
+                dt = time.perf_counter() - t
+                model.scorer.staging.release(out[-1])
+                if r >= 2:
+                    host[f].append(dt)
+        quart = {f: [sorted(v)[len(v) * q // 4] * 1e3 for q in (1, 2, 3)] for f, v in host.items()}
+        p50 = {f: q[1] for f, q in quart.items()}
+        js = {f: sorted(v[2:])[len(v[2:]) // 2] * 1e3 for f, v in staged.items()}
+        print(f"{tag}: 1024-row ledger flush with explain (f32 wire, 896 entity rows), host p25 / "
+              f"p50 / p75 of {LB_FLUSH_TIMED} in turns: "
+              + ", ".join(f"{'lifeboat off' if f == 'off' else 'on at LIFEBOAT_FSYNC_S=' + f[6:]} "
+                          + " / ".join(f"{v:.3f}" for v in q) + " ms" for f, q in quart.items())
+              + f"; journal_staged's own host time a flush: {js['fsync 0.5']:.3f} ms (fsync 0.5), "
+              f"{js['fsync 0']:.3f} ms (fsync 0); {card}")
+        phases = {"clone_s": [], "d2h_s": [], "write_s": []}
+        walls = []
+        for _ in range(LB_SNAPSHOTS_TIMED):
+            t = time.perf_counter()
+            boats[-1].take_snapshot()
+            walls.append(time.perf_counter() - t)
+            for k in phases:
+                phases[k].append(boats[-1].last_snapshot_times[k])
+        med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in phases.items()}
+        print(f"{tag}: take_snapshot at {spec.slots} slots, median of {LB_SNAPSHOTS_TIMED}: wall "
+              f"{sorted(walls)[len(walls) // 2] * 1e3:.3f} ms = clone under the flush lock "
+              f"{med['clone_s']:.3f} ms + d2h {med['d2h_s']:.3f} ms + serialize and atomic write "
+              f"{med['write_s']:.3f} ms (host clock)")
+    finally:
+        for boat in boats:
+            boat.close()
+        wt.close()
+
+    # a Kaggle-sized tail: 284,807 rows journaled as 1024-row records
+    kx, _, names = load_creditcard_csv(str(kaggle_csv))
+    ents, ts = synthesize_entities(kx, names, 42, 50)
+    fp_of = {e: entity_fingerprint(e) for e in set(ents)}
+    fps = np.asarray([fp_of[e] for e in ents], np.uint32)
+    amt = np.ascontiguousarray(kx[:, spec.amount_col], np.float32)
+    kdir = work / "lb_kaggle"
+    t = time.perf_counter()
+    j = Journal(str(kdir), spec_hash(spec), base_seq=0, fsync_s=0.5)
+    for lo in range(0, kx.shape[0], LB_RECORD_ROWS):
+        j.append(fps[lo:lo + LB_RECORD_ROWS], ts[lo:lo + LB_RECORD_ROWS],
+                 amt[lo:lo + LB_RECORD_ROWS])
+    j.close()
+    t_write = time.perf_counter() - t
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    rep = recover(str(kdir), spec, device=dev)
+    wall = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    print(f"{tag}: the Kaggle-sized tail ({kx.shape[0]} rows, {j.seq} records of "
+          f"{LB_RECORD_ROWS}, {len(fp_of)} entities) journaled in {t_write:.3f} s; recovered on "
+          f"{dev} in {wall:.3f} s ({rep.replayed_rows / wall:.0f} rows/s; journal-only, onto a "
+          f"fresh table), kernel launches {launches}; {card}")
+    if rep.replayed_rows != kx.shape[0] or not np.isfinite(rep.state.acc).all():
+        raise AssertionError(f"{tag}: the Kaggle-sized recovery replayed {rep.replayed_rows}")
+    return {"flush_p50_ms": p50, "kaggle_recover_s": wall}
+
+
+def lifeboat_phase(work: Path, model_dir: Path, kaggle_csv: Path, card: str,
+                   dev: str = "cuda") -> dict:
+    """Phase 14. Returns the post-recovery fused_score launches."""
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+
+    t_phase = time.perf_counter()
+    x, _, _ = load_creditcard_csv(str(ROOT / "data" / "creditcard.csv"))
+    f32 = lb_leg(work, model_dir, x, "float32", True, dev)
+    int8 = lb_leg(work, model_dir, x, "int8", False, dev)
+    numbers = lb_numbers(work, model_dir, x, kaggle_csv, card, dev)
+    print(f"phase14: the lifeboat in {time.perf_counter() - t_phase:.3f} s; recovery of the "
+          f"phase's tails: f32 {f32['replayed_rows']} rows in {f32['recover_s']:.6f} s, int8 "
+          f"{int8['replayed_rows']} rows in {int8['recover_s']:.6f} s ({dev}); {card}")
+    for knob in ("SCORER_MAX_INFLIGHT", "SCORER_WIRE", "LIFECYCLE_RELOAD_INTERVAL_S", *LB_ENV):
+        os.environ.pop(knob, None)
+    return {"fused_score": f32.get("fused_score", 0), **numbers}
+
+
 def main() -> int:
     try:
         import torch
@@ -5206,6 +5744,8 @@ def main() -> int:
         wide = wide_phase(work)
         lifecycle = lifecycle_phase(work, lin_store, gbt_store, ledger["model_dir"],
                                     wide["model_dir"])
+        lifeboat = lifeboat_phase(work, ledger["model_dir"], work / "tools" / "kaggle.csv",
+                                  card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -5229,6 +5769,7 @@ def main() -> int:
             ledger_launches=ledger["served"]["fused_score"],
             wide_launches=wide["served"]["fused_score"],
             lifecycle_launches=lifecycle["fused_score"],
+            lifeboat_launches=lifeboat["fused_score"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":

@@ -64,6 +64,13 @@ def atomic_write_bytes(path: str, data: bytes) -> str:
 def atomic_savez(path: str, **arrays) -> str:
     """``np.savez`` with the atomic-write discipline (serialized in memory
     first — artifacts here are small)."""
+    return atomic_write_bytes(path, savez_bytes(**arrays))
+
+
+def savez_bytes(**arrays) -> bytes:
+    """An npz archive as bytes: for a caller that embeds the archive in a
+    larger CRC-framed container (the lifeboat snapshot) and lands that
+    through :func:`atomic_write_bytes`."""
     buf = io.BytesIO()
     np.savez(buf, **arrays)
-    return atomic_write_bytes(path, buf.getvalue())
+    return buf.getvalue()

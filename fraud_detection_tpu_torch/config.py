@@ -383,6 +383,44 @@ def wide_enabled() -> bool:
     return env_flag("WIDE_ENABLED") is True
 
 
+# the lifeboat: the ledger's write-ahead journal, snapshots and warm restart
+# (lifeboat/)
+
+
+def lifeboat_dir() -> str:
+    """``LIFEBOAT_DIR`` — the directory of snapshot generations and entity
+    journals. Empty (the default) disables the lifeboat: the ledger's table
+    then lives only on the device, and a crash loses everything folded in
+    since the train-time stamp."""
+    return _get("LIFEBOAT_DIR", "")
+
+
+def lifeboat_snapshot_s() -> float:
+    """``LIFEBOAT_SNAPSHOT_S`` — seconds between snapshot generations
+    (taken off the hot path by the maintenance thread). Default 300."""
+    return _get_float("LIFEBOAT_SNAPSHOT_S", 300.0)
+
+
+def lifeboat_snapshot_flushes() -> int:
+    """``LIFEBOAT_SNAPSHOT_FLUSHES`` — also snapshot after this many
+    journaled flushes (0, the default: by time only). Bounds the journal
+    tail a restart replays."""
+    return _get_int("LIFEBOAT_SNAPSHOT_FLUSHES", 0)
+
+
+def lifeboat_keep() -> int:
+    """``LIFEBOAT_KEEP`` — snapshot generations kept; a torn newest file
+    falls back one generation. At least 1. Default 3."""
+    return max(_get_int("LIFEBOAT_KEEP", 3), 1)
+
+
+def lifeboat_fsync_s() -> float:
+    """``LIFEBOAT_FSYNC_S`` — the journal's fsync cadence: rows appended in
+    this window are what a crash can lose (``lifeboat_journal_lag_rows``).
+    0 fsyncs every append. Default 0.5."""
+    return _get_float("LIFEBOAT_FSYNC_S", 0.5)
+
+
 # the lifecycle loop: durable feedback, retrain → gate → @shadow, promotion,
 # the hot swap (lifecycle/)
 

@@ -27,6 +27,17 @@ Semantics:
   the rows in ascending order, as XLA's CPU scatter does.
 - **padding and entity-less rows** carry weight 0: they add exact zeros
   and push a 0 anchor, leaving every slot bitwise unchanged.
+- **a row's bits do not depend on its position in the batch**, so the
+  lifeboat's replay of a journaled flush (its entity rows alone, in
+  another bucket) lands on the bits serving computed. On the CUDA card
+  every element takes the same code; on the CPU ATen's loop takes a
+  vectorized ``exp2`` over whole vectors and the scalar ``std::exp2`` on
+  the tail, which differ in the last bit, so :func:`_exp2` pads its input
+  to whole vectors there. That holds while ATen runs the op as one chunk,
+  n ≤ ``GRAIN_SIZE`` (32768 elements): above it ``parallel_for`` splits
+  the range at points that need not fall on a vector boundary. A replay
+  batch is 256 rows and a flush at most ``SCORER_MAX_BATCH`` (1024 by
+  default).
 - **poison guard**: the amount is ``nan_to_num``-ed and clipped to
   ``±AMOUNT_CLIP`` before it touches an accumulator, the z-score clipped to
   ``±ZSCORE_CLIP``, the slot index clipped into the table.
@@ -41,6 +52,24 @@ from fraud_detection_tpu_torch.ledger.state import (
     ZSCORE_CLIP,
     LedgerState,
 )
+
+
+#: elements a CPU ``exp2`` is padded to a multiple of: ATen's loop takes
+#: two vectors a step, 32 floats on the widest ISA it dispatches to
+#: (AVX-512: 16 floats a vector); 64 is a multiple of that and of every
+#: narrower ISA's step. Position-independent bits need one chunk too:
+#: n ≤ GRAIN_SIZE (32768), see the module docstring
+_CPU_VECTOR_PAIR = 64
+
+
+def _exp2(x: torch.Tensor) -> torch.Tensor:
+    """``torch.exp2`` of a 1-D tensor whose bits do not depend on an
+    element's position: on the CPU the input is padded to whole vector
+    pairs so that no element falls to the scalar tail loop."""
+    pad = -x.shape[0] % _CPU_VECTOR_PAIR
+    if x.device.type != "cpu" or pad == 0:
+        return torch.exp2(x)
+    return torch.exp2(torch.nn.functional.pad(x, (0, pad)))[: x.shape[0]]
 
 
 def _ledger_read_update(
@@ -71,7 +100,7 @@ def _ledger_read_update(
     prev_fp = state.fingerprint[slot_idx]
     seen = (prev_ts > 0.0).float()
     dt = (ts - prev_ts).clamp_min(0.0)
-    f_row = torch.exp2(-dt * inv_hl) * seen
+    f_row = _exp2(-dt * inv_hl) * seen
     dcnt = prev_cnt * f_row
     dsum = prev_sum * f_row
     dssq = prev_ssq * f_row
@@ -94,10 +123,10 @@ def _ledger_read_update(
     # per-slot factor, so every row of a slot scatters the same value; a
     # slot touched only by weight-0 rows keeps its anchor and is rewritten
     # times exp2(-0) = 1, bitwise unchanged
-    f_anchor = torch.exp2(-(anchor - prev_ts) * inv_hl)
+    f_anchor = _exp2(-(anchor - prev_ts) * inv_hl)
     state.acc.index_put_((slot_idx,), prev_acc * f_anchor[:, None])
     # each row's event decays from its own timestamp to the slot anchor
-    g = torch.exp2(-(anchor - ts).clamp_min(0.0) * inv_hl) * w
+    g = _exp2(-(anchor - ts).clamp_min(0.0) * inv_hl) * w
     ga = g * a
     upd = torch.stack([g, ga, ga * a], dim=1)
     if state.acc.device.type == "cpu":

@@ -34,6 +34,7 @@ exponential (half-life in rows).
 
 from __future__ import annotations
 
+import logging
 import threading
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -44,7 +45,7 @@ import torch
 from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.device import resolve_device
 from fraud_detection_tpu_torch.ledger.features import _ledger_read_update, ledger_stats
-from fraud_detection_tpu_torch.ledger.state import LedgerState, device_state, host_state
+from fraud_detection_tpu_torch.ledger.state import LedgerState, device_state
 from fraud_detection_tpu_torch.monitor.baseline import (
     BaselineProfile,
     feature_histogram,
@@ -59,11 +60,20 @@ PSI_EPS = 1e-4
 N_CALIB_BINS = 10
 
 
+#: the window's fields in the order of the reference's ``DriftWindow``
+#: NamedTuple: the order of :meth:`DriftWindow.tensors` and of a lifeboat
+#: snapshot's ``win_*`` arrays
+WINDOW_FIELDS = (
+    "feature_counts", "score_counts", "calib_count", "calib_conf",
+    "calib_label", "n_rows",
+)
+
+
 @dataclass(frozen=True)
 class DriftWindow:
     """Decayed window state — preallocated device tensors, updated in
     place by every fold (the counterpart of the reference's donated
-    buffers)."""
+    buffers). A snapshot's copy holds numpy arrays in the same fields."""
 
     feature_counts: torch.Tensor  # (d, n_bins)
     score_counts: torch.Tensor  # (s_bins,)
@@ -73,10 +83,14 @@ class DriftWindow:
     n_rows: torch.Tensor  # () decayed row count
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (
-            self.feature_counts, self.score_counts, self.calib_count,
-            self.calib_conf, self.calib_label, self.n_rows,
-        )
+        return tuple(getattr(self, name) for name in WINDOW_FIELDS)
+
+
+def _window_leaves(window) -> tuple:
+    """The six leaves of a window in :data:`WINDOW_FIELDS` order: this
+    package's :class:`DriftWindow` or any sequence in that order (the
+    reference's NamedTuple)."""
+    return window.tensors() if isinstance(window, DriftWindow) else tuple(window)
 
 
 class DriftStats(NamedTuple):
@@ -480,15 +494,54 @@ class DriftMonitor:
             )
 
     def ledger_snapshot(self) -> LedgerState | None:
-        """Host copy of the live table (numpy, the file's dtypes); None
-        when no ledger is bound."""
+        """A copy of the live table on the monitor's device (the fingerprint
+        int64; ``ledger.state.host_state`` gives the file's dtypes); None
+        when no ledger is bound. The clone is enqueued under the lock in
+        stream order, so later flushes cannot reach it; the caller's
+        device-to-host copy, if any, runs outside the lock."""
         with self._lock:
             if self.ledger is None:
                 return None
-            # a device-side copy in stream order: later flushes cannot
-            # reach it, so the sync runs outside the lock
-            table = LedgerState(*(t.clone() for t in self.ledger))
-        return host_state(table)
+            return LedgerState(*(t.clone() for t in self.ledger))
+
+    # -- the lifeboat: the window's snapshot and restore -------------------
+    def window_snapshot(self) -> DriftWindow:
+        """A copy of the live window on the monitor's device (the lifeboat
+        snapshot's input), enqueued under the lock like
+        :meth:`ledger_snapshot`'s."""
+        with self._lock:
+            return DriftWindow(*(t.clone() for t in self.window.tensors()))
+
+    def shard_window_snapshot(self) -> DriftWindow | None:
+        """The per-shard windows: None, there is no mesh on the port yet."""
+        return None
+
+    def restore_window(self, window, shard_window=None, rows_seen=None) -> bool:
+        """Copy a snapshotted window into the live tensors (warm restart).
+        The shapes must be the live window's; a window of another geometry
+        (another baseline profile) is skipped with a WARNING, and
+        ``rows_seen`` then stays as it is."""
+        with self._lock:
+            ok = self._restore_windows_locked(window, shard_window)
+            if ok and rows_seen is not None:
+                self.rows_seen = int(rows_seen)
+        return ok
+
+    def _restore_windows_locked(self, window, shard_window) -> bool:
+        leaves = _window_leaves(window)
+        cur = self.window.tensors()
+        shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+        want = tuple(tuple(t.shape) for t in cur)
+        if shapes != want:
+            logging.getLogger("fraud_detection_tpu_torch.lifeboat").warning(
+                "drift window restore skipped: snapshot shapes %s != live "
+                "%s (profile geometry changed since the snapshot)",
+                shapes, want,
+            )
+            return False
+        for t, leaf in zip(cur, leaves):
+            t.copy_(torch.as_tensor(leaf, dtype=torch.float32))
+        return True
 
     def ledger_stats(self) -> dict | None:
         """Scrape-time table telemetry (occupancy, collisions, evictions);

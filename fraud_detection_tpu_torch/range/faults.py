@@ -1,7 +1,7 @@
 """Control-plane fault injection: the named points the lifecycle fires.
 
 The port's copy of the JAX package's ``range/faults.py``, the part the
-lifecycle loop calls: production code carries *named injection points* —
+lifecycle loop and the lifeboat call: production code carries *named injection points* —
 one :func:`fire` (or :func:`patched`) call at each place a drill needs to
 break things:
 
@@ -12,7 +12,11 @@ break things:
 - ``conductor.rolling_back.pre_alias`` — crash between the rollback intent
   and the alias restore;
 - ``lifecycle.store.add_feedback`` / ``lifecycle.store.get_state`` —
-  poison, stall or error the durable lifecycle store (lifecycle/store.py).
+  poison, stall or error the durable lifecycle store (lifecycle/store.py);
+- ``lifeboat.recover`` — stall a warm restart (the app's 503 "recovering"
+  window), ``lifeboat.journal`` — a journal record written, its flush not
+  launched, ``lifeboat.snapshot`` — a generation cut, not yet landed
+  (lifeboat/).
 
 Faults are **off by default with no hot-path cost**: every hook is a
 module-global ``None`` check. A drill arms a :class:`FaultPlan` via

@@ -25,6 +25,9 @@
 - ``POST /admin/reload`` — one registry alias sweep now: a moved ``@prod``
   or ``@shadow`` is loaded, warmed and hot-swapped before the response
   (``ADMIN_TOKEN`` gates it when set)
+- ``GET /lifeboat/status`` — the lifeboat's state, snapshot generations,
+  journal sequence and fsync lag, and the last recovery's report
+  (``{"enabled": false, "state": "disabled"}`` without a lifeboat)
 - ``GET /debug/flightrecorder`` — the last scored requests' stage
   timelines (``SPYGLASS_ENABLED``, ``FLIGHTRECORDER_CAPACITY``)
 - ``GET /metrics`` — Prometheus exposition
@@ -47,6 +50,14 @@ The lifecycle store (``LIFECYCLE_DB_URL``, default the broker's database)
 opens at start-up; a store that fails to open leaves the API serving, with
 ``/monitor/feedback`` answering ``persisted: false``.
 
+With ``LIFEBOAT_DIR`` set and a ledger model served with a watchtower,
+the lifeboat (``lifeboat/``) journals every ledger flush's entity triples
+ahead of its launches, snapshots the card's table and drift window off the
+hot path, and on start-up replays the newest generation plus the journal
+tail on its own thread: until it binds, ``/health``, ``/predict``,
+``/ingest/batch`` and the binary lane answer 503 (a status-3 frame) with
+``Retry-After``. A failed recovery logs and serves the train-time stamp.
+
 The model directory holds either family (``load_any_model``): the logistic
 flagship (``fused_score`` kernel; ledger-widened when the directory holds
 ``ledger_state.npz``, wide when it holds ``wide_params.npz``) or a GBT
@@ -65,6 +76,7 @@ import hmac
 import logging
 import os
 import sqlite3
+import threading
 import time
 import uuid
 
@@ -113,6 +125,13 @@ _frontend_cache: dict[str | None, bytes] = {}
 # that ride it answer 503 + Retry-After instead of a 500
 _STORE_OUTAGE_ERRORS = (sqlite3.Error, StoreError, OSError)
 STORE_RETRY_AFTER_S = 10
+#: the lifeboat's warm restart: the journal replay takes seconds at any sane
+#: snapshot cadence, one short client backoff covers it
+LIFEBOAT_RETRY_AFTER_S = 5
+_RECOVERING_DETAIL = (
+    "lifeboat warm restart in progress — replaying the entity journal "
+    "through the ledger's read-update"
+)
 
 
 def _store_unavailable(what: str, e: Exception) -> Response:
@@ -185,6 +204,7 @@ def create_app(
         "lifecycle_store": None,
         "flightrecorder": None,
         "binlane": None,
+        "lifeboat": None,
         "started_at": None,
     }
     app.state = state  # exposed for tests/embedding
@@ -212,6 +232,74 @@ def create_app(
         ``state["model"]`` only seeds it at start-up."""
         slot = state["slot"]
         return slot.model if slot is not None else state["model"]
+
+    def _recovering() -> bool:
+        boat = state["lifeboat"]
+        return boat is not None and boat.state == "recovering"
+
+    def _recovering_response() -> Response | None:
+        """The lifeboat's warm-restart gate: while the journal replay
+        rebuilds the entity table, readiness and scoring (rows folded now
+        would land in a table about to be replaced) answer 503 +
+        Retry-After."""
+        if not _recovering():
+            return None
+        return Response(
+            {"error": "recovering", "detail": _RECOVERING_DETAIL},
+            status_code=503,
+            headers={"retry-after": str(LIFEBOAT_RETRY_AFTER_S)},
+        )
+
+    def _lane_unavailable():
+        """The binary lane's twin of :func:`_recovering_response`."""
+        if not _recovering():
+            return None
+        return (
+            "lifeboat warm restart in progress — entity journal replaying; "
+            "retry shortly",
+            float(LIFEBOAT_RETRY_AFTER_S),
+        )
+
+    def _start_lifeboat(model):
+        """The lifeboat, with ``LIFEBOAT_DIR`` set, a ledger model and a
+        watchtower: built on the watchtower's drift monitor, ``recovering``
+        before its recovery thread starts; the thread recovers, then starts
+        the maintenance thread. A failed recovery logs and serves the
+        train-time stamp. Returns the boat or None."""
+        lb_dir = config.lifeboat_dir()
+        if not lb_dir:
+            return None
+        spec = getattr(model, "ledger_spec", None)
+        drift = getattr(state["watchtower"], "drift", None)
+        if spec is None or drift is None:
+            log.warning(
+                "LIFEBOAT_DIR set but the served model carries no ledger (or "
+                "monitoring is down) — durability layer disabled"
+            )
+            return None
+        try:
+            from fraud_detection_tpu_torch.lifeboat import Lifeboat
+
+            boat = Lifeboat(lb_dir, spec, drift=drift, slot=state["slot"])
+            boat.state = "recovering"  # the gate before the thread runs
+            state["lifeboat"] = boat
+
+            def _warm_restart() -> None:
+                try:
+                    boat.recover()
+                except Exception:
+                    log.exception("lifeboat warm restart failed")
+                    boat.state = "ready"  # serve the train-time stamp
+                boat.start()  # a no-op once a shutdown closed the boat
+
+            threading.Thread(
+                target=_warm_restart, name="lifeboat-recover", daemon=True
+            ).start()
+            return boat
+        except Exception as e:
+            state["lifeboat"] = None
+            log.error("lifeboat startup failed: %s", e)
+            return None
 
     def _ingest_scale(model):
         """The int8-layout dequant scale of the LIVE model, cached a scorer:
@@ -276,9 +364,10 @@ def create_app(
                 log.warning("watchtower startup failed (%s); unmonitored", e)
             state["slot"] = ModelSlot(model, source, resolve_source_version(source))
             metrics.lifecycle_active_model_version.set(state["slot"].version or 0)
+            boat = _start_lifeboat(model)
             batcher = MicroBatcher(
                 slot=state["slot"], watchtower=state["watchtower"],
-                recorder=state["flightrecorder"],
+                recorder=state["flightrecorder"], lifeboat=boat,
             )
             await batcher.start()  # warms the bucket ladder; can raise
             state["batcher"] = batcher
@@ -295,6 +384,7 @@ def create_app(
                         batcher,
                         scorer_fn=lambda: state["slot"].model.scorer,
                         model_fn=lambda: state["slot"].model,
+                        unavailable_fn=_lane_unavailable,
                     )
                     lane.start(asyncio.get_running_loop())
                     state["binlane"] = lane
@@ -307,6 +397,9 @@ def create_app(
         except RuntimeError as e:
             metrics.model_loaded.set(0)
             state["model"] = state["batcher"] = state["slot"] = None
+            if state["lifeboat"]:
+                state["lifeboat"].close()
+                state["lifeboat"] = None
             if state["watchtower"]:
                 state["watchtower"].close()
                 state["watchtower"] = None
@@ -320,6 +413,12 @@ def create_app(
             state["reloader"].stop()
         if state["batcher"]:
             await state["batcher"].stop()
+        if state["lifeboat"]:
+            # after the batcher drained: a flush in flight still journals
+            # under the flush lock. No final snapshot, as the reference: the
+            # close syncs the journal, so a clean shutdown loses nothing
+            await asyncio.to_thread(state["lifeboat"].close)
+            state["lifeboat"] = None
         if state["watchtower"]:
             state["watchtower"].close()
         if state["db"]:
@@ -347,6 +446,11 @@ def create_app(
 
     @app.get("/health")
     async def health(req: Request) -> Response:
+        # the lifeboat recovering: readiness is gated, a load balancer must
+        # not admit traffic into a table mid-replay
+        recovering = _recovering_response()
+        if recovering is not None:
+            return recovering
         # both pings run concurrently off the loop: a stalled store slows
         # this probe, never scoring
         db_ok, broker_ok = await asyncio.gather(
@@ -374,6 +478,9 @@ def create_app(
     async def predict(req: Request) -> Response:
         metrics.predictions_submitted.inc()
         corr_id = req.state["correlation_id"]
+        recovering = _recovering_response()
+        if recovering is not None:
+            return recovering
         model = _model()
         batcher = state["batcher"]
         if model is None or batcher is None:
@@ -478,6 +585,9 @@ def create_app(
 
         A full admission queue answers 429 + Retry-After; scores are
         bitwise ``/predict``'s for the same f32 rows."""
+        recovering = _recovering_response()
+        if recovering is not None:
+            return recovering
         model = _model()
         batcher = state["batcher"]
         if model is None or batcher is None:
@@ -727,6 +837,18 @@ def create_app(
         result["serving_version"] = slot.version if slot else None
         result["serving_source"] = slot.source if slot else None
         return Response(result)
+
+    @app.get("/lifeboat/status")
+    async def lifeboat_status(req: Request) -> Response:
+        """The durability layer: the recovery's report, the snapshot
+        generations on disk, the journal's sequence and fsync lag;
+        ``enabled: false`` without ``LIFEBOAT_DIR`` or a ledger model."""
+        boat = state["lifeboat"]
+        if boat is None:
+            return Response({"enabled": False, "state": "disabled"})
+        body = {"enabled": True}
+        body.update(await asyncio.to_thread(boat.status))
+        return Response(body)
 
     @app.get("/debug/flightrecorder")
     async def flightrecorder(req: Request) -> Response:

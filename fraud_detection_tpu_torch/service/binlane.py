@@ -537,11 +537,18 @@ class BinaryIngestServer:
         max_frame: int | None = None,
         stall_timeout: float | None = None,
         model_fn=None,
+        unavailable_fn=None,
     ):
         self.batcher = batcher
         self.scorer_fn = scorer_fn
         self.model_fn = model_fn
         self.model = model
+        # ``unavailable_fn() -> (message, retry_after_s) | None``: the
+        # process-level not-ready gate (the lifeboat's ``recovering`` state).
+        # The HTTP edges answer 503 then; this lane refuses the same window,
+        # since rows folded into a table about to be replaced by the journal
+        # replay would be lost
+        self.unavailable_fn = unavailable_fn
         self.host = host if host is not None else config.ingest_host()
         self.port = port if port is not None else config.ingest_port()
         # clamped to the batcher's flush ceiling: a frame the header check
@@ -666,6 +673,15 @@ class BinaryIngestServer:
                         f"{self.max_frame}]",
                     ))
                     return  # the stream position can't be trusted
+                unavailable = self.unavailable_fn() if self.unavailable_fn else None
+                if unavailable is not None:
+                    # not ready (the lifeboat recovering): drain the frame so
+                    # the stream stays at a boundary, answer UNAVAILABLE with
+                    # the retry time, keep the connection
+                    msg, retry_after = unavailable
+                    self._drain(conn, length)
+                    conn.sendall(error_frame(ST_UNAVAILABLE, msg, retry_after))
+                    continue
                 scorer = self.scorer_fn()
                 if scorer is not dec.scorer:  # a hot swap: rebind the decoder
                     scale = self._dequant_for(scorer)

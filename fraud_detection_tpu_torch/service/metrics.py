@@ -415,6 +415,35 @@ ledger_null_entity_rows = Counter(
     "intercept)",
 )
 
+# the lifeboat (lifeboat/): the series monitoring/prometheus/rules/
+# lifeboat-alerts.yml reads, under the JAX package's names
+lifeboat_snapshot_age = Gauge(
+    "lifeboat_snapshot_age_seconds",
+    "Seconds since the last snapshot generation landed (refreshed by the "
+    "lifeboat's maintenance thread); the SnapshotStale alert input",
+)
+lifeboat_journal_lag_rows = Gauge(
+    "lifeboat_journal_lag_rows",
+    "Entity rows appended to the journal but not yet fsynced: the rows a "
+    "crash now would lose (bounded by LIFEBOAT_FSYNC_S); the "
+    "JournalLagGrowing alert input",
+)
+lifeboat_recovery_duration = Gauge(
+    "lifeboat_recovery_duration_seconds",
+    "Wall time of the last warm restart (snapshot load and journal replay "
+    "through the ledger's read-update body)",
+)
+lifeboat_replayed_rows = Counter(
+    "lifeboat_replayed_rows",
+    "Journal rows replayed through the ledger's read-update body by warm "
+    "restarts",
+)
+lifeboat_torn_tail_rows = Counter(
+    "lifeboat_torn_tail_rows",
+    "Journal rows lost to CRC-failed or truncated records (the torn tail a "
+    "crash leaves, or mid-file damage, logged loudly)",
+)
+
 # the ingest lanes: json (/predict), msgpack and binary (/ingest/batch and
 # the socket lane)
 ingest_requests = Counter(

@@ -44,7 +44,16 @@ flush is the wide flush: :meth:`MicroBatcher._stage_wide` stages each
 item's entity fingerprint (0 for an entity-less row, which scores
 base-only), and the flush hashes the crosses on the device. A wide model
 served without the fused flush drops its crosses; ``scorer_wide_fused``
-latches 0 then, loudly.
+latches 0 then, loudly. A ledger model's flush that runs split (no fused
+target, or a cross-width hot swap caught between its slot write and the
+watchtower's rebind) scores every row through the null slot: its rows are
+counted in ``ledger_null_entity_rows``, with one WARNING a served model.
+
+With a lifeboat (``lifeboat/``, ``LIFEBOAT_DIR``) the ledger flush is
+write-ahead: the flush's entity triples are journaled and the flush's
+launches enqueued under the boat's ``flush_lock``, one atom, so a
+snapshot cut never sees a flush whose record is not in the journal. A
+split flush journals nothing: its rows never reach the table.
 
 The flush's host sync is the device-to-host copy of its outputs. With
 spyglass on (``SPYGLASS_ENABLED``, the default) every item may carry a
@@ -168,6 +177,7 @@ class MicroBatcher:
         explain_k: int | None = None,
         admit_max_rows: int | None = None,
         slot=None,
+        lifeboat=None,
     ):
         # either a fixed scorer (offline tools, tests) or the lifecycle's
         # ModelSlot (serving): with a slot every flush reads the slot once,
@@ -177,6 +187,13 @@ class MicroBatcher:
             raise ValueError("MicroBatcher needs a scorer or a model slot")
         self.slot = slot
         self._scorer = scorer
+        # the lifeboat (lifeboat/boat.Lifeboat): with a ledger model served
+        # fused, each flush's entity triples are journaled under its flush
+        # lock right before the flush's launches
+        self.lifeboat = lifeboat
+        # the scorer whose split ledger flushes were last warned about (one
+        # WARNING a served model, not one a flush)
+        self._split_ledger_scorer = None
         # on the fused path the drift window folds inside the flush; on the
         # split path each scored batch goes to watchtower.observe()
         self.watchtower = watchtower
@@ -596,18 +613,32 @@ class MicroBatcher:
             if target is not None:
                 drift, spec = target
                 explain_k = self._explain_k_for(scorer)
-                out = drift.fused_flush(
-                    x_dev, scorer.to_device(slot.valid), n,
-                    spec.score_args, spec.score_fn,
-                    dequant_scale=spec.dequant_scale,
-                    score_codes=spec.score_codes,
-                    out_dtype=self._out_dtype,
-                    explain_args=spec.explain_args if explain_k else None,
-                    explain_k=explain_k,
-                    ledger_rows=ledger_rows,
-                    wide_args=spec.wide if wide_rows is not None else None,
-                    wide_rows=wide_rows,
-                )
+
+                def _launch():
+                    return drift.fused_flush(
+                        x_dev, scorer.to_device(slot.valid), n,
+                        spec.score_args, spec.score_fn,
+                        dequant_scale=spec.dequant_scale,
+                        score_codes=spec.score_codes,
+                        out_dtype=self._out_dtype,
+                        explain_args=spec.explain_args if explain_k else None,
+                        explain_k=explain_k,
+                        ledger_rows=ledger_rows,
+                        wide_args=spec.wide if wide_rows is not None else None,
+                        wide_rows=wide_rows,
+                    )
+
+                boat = self.lifeboat
+                if ledger_rows is not None and boat is not None:
+                    # the write-ahead: the journal record and the flush's
+                    # launches are one atom under the flush lock, so a
+                    # snapshot cut never sees a flush whose triples are not
+                    # in the journal
+                    with boat.flush_lock:
+                        boat.journal_staged(slot, hx, spec.dequant_scale, n)
+                        out = _launch()
+                else:
+                    out = _launch()
                 if n_null:
                     metrics.ledger_null_entity_rows.inc(n_null)
                 device_calls = 1
@@ -616,6 +647,8 @@ class MicroBatcher:
             else:
                 if self.explain:
                     self._note_explain_fused(False, scorer)
+                if getattr(scorer, "ledger_spec", None) is not None:
+                    self._note_split_ledger(scorer, n)
                 out = scorer._score_padded(x_dev)
                 device_calls = 2 if self.watchtower is not None else 1
                 need_rows = self.watchtower is not None
@@ -645,6 +678,20 @@ class MicroBatcher:
             raise
         return (probs, explain_out, device_calls, monitor_rows, monitor_scores,
                 monitor_reasons, stamps, slot)
+
+    def _note_split_ledger(self, scorer, n: int) -> None:
+        """A ledger model's flush ran split: every row, entity-keyed or not,
+        took the null slot and none reached the table. Count them in
+        ``ledger_null_entity_rows``; WARN once a served model."""
+        metrics.ledger_null_entity_rows.inc(n)
+        if self._split_ledger_scorer is not scorer:
+            self._split_ledger_scorer = scorer
+            log.warning(
+                "a ledger model's flush ran split (no fused ledger flush, or "
+                "a hot swap between its slot write and the watchtower's "
+                "rebind): its entity rows score through the null slot and "
+                "never reach the table; counted in ledger_null_entity_rows"
+            )
 
     @staticmethod
     def _stage_wide(scorer, slot, batch: list[tuple]):

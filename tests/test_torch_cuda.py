@@ -1,8 +1,8 @@
 """Card-only tests of the port (marker ``cuda``): the hand-written CUDA
 kernels against their plain versions, the served path launching
 ``fused_score``, SMOTE launching ``knn_topk``, the GBT fit launching
-``gbt_hist`` and TreeSHAP launching ``tree_shap``, and the lifecycle loop's
-retrain and hot swap on the card.
+``gbt_hist`` and TreeSHAP launching ``tree_shap``, the lifecycle loop's
+retrain and hot swap, and the lifeboat's recovery on the card.
 
 They import nothing of JAX, so they run on a machine with the card and no
 JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -996,21 +996,18 @@ def test_ledger_replay_is_bitwise_on_the_card(slots):
     np.testing.assert_allclose(f1, fc, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.cuda
-def test_ledger_flush_on_the_card_is_a_replay(tmp_path):
-    """A widened model served on the card: one fused_score launch a ledger
-    flush (at d = 34), and the served table bitwise a replay of the served
-    rows in the flush partition."""
+def _card_ledger_model(dev):
+    """A widened model on the card (8,192 slots) whose stamped table is a
+    card replay of the fixture rows, and a watchtower holding that table:
+    ``(x, ts, spec, state, model, wt)``."""
     from fraud_detection_tpu_torch.ledger import (
         LEDGER_FEATURE_NAMES,
         LedgerSpec,
         materialize_features,
     )
-    from fraud_detection_tpu_torch.ledger.state import host_state
     from fraud_detection_tpu_torch.ops.logistic import LogisticParams
     from fraud_detection_tpu_torch.ops.scaler import scaler_fit
 
-    dev = _require_card()
     x, names = _ledger_rows()
     spec = LedgerSpec(n_base=30, slots=8192, halflife_s=3600.0, amount_col=-1)
     ents = [f"card-{i % 37}" for i in range(len(x))]
@@ -1027,6 +1024,30 @@ def test_ledger_flush_on_the_card_is_a_replay(tmp_path):
     wt = Watchtower(build_baseline_profile(xw[:2048], scores, feature_names=model.feature_names,
                                            device="cuda"), device=dev)
     wt.drift.bind_ledger(spec, state)
+    return x, ts, spec, state, model, wt
+
+
+def _ledger_items(spec, rows, ents, ts):
+    items = []
+    for i in range(len(rows)):
+        ent = None
+        if ents[i] is not None:
+            s, fp = spec.row_keys(ents[i])
+            ent = (s, fp, float(np.float32(ts[i])))
+        items.append((rows[i], None, None, ent))
+    return items
+
+
+@pytest.mark.cuda
+def test_ledger_flush_on_the_card_is_a_replay(tmp_path):
+    """A widened model served on the card: one fused_score launch a ledger
+    flush (at d = 34), and the served table bitwise a replay of the served
+    rows in the flush partition."""
+    from fraud_detection_tpu_torch.ledger import materialize_features
+    from fraud_detection_tpu_torch.ledger.state import host_state
+
+    dev = _require_card()
+    x, ts, spec, state, model, wt = _card_ledger_model(dev)
     b = MicroBatcher(model.scorer, watchtower=wt, telemetry=False, explain=True)
     tgt = b._fused_target(model.scorer)
     rows, batch_ents, batch_ts = x[:320], [f"card-{i % 9}" if i % 7 else None
@@ -1034,13 +1055,8 @@ def test_ledger_flush_on_the_card_is_a_replay(tmp_path):
     try:
         before = kernels.FUSED_SCORE_LAUNCHES
         for lo in range(0, 320, 64):
-            items = []
-            for i in range(lo, lo + 64):
-                ent = None
-                if batch_ents[i] is not None:
-                    s, fp = spec.row_keys(batch_ents[i])
-                    ent = (s, fp, float(np.float32(batch_ts[i])))
-                items.append((rows[i], None, None, ent))
+            items = _ledger_items(spec, rows[lo:lo + 64], batch_ents[lo:lo + 64],
+                                  batch_ts[lo:lo + 64])
             out = b._flush_device(model.scorer, tgt, items)
             model.scorer.staging.release(out[-1])
         assert kernels.FUSED_SCORE_LAUNCHES == before + 5
@@ -1050,6 +1066,59 @@ def test_ledger_flush_on_the_card_is_a_replay(tmp_path):
         snap = wt.drift.ledger_snapshot()
         for a, c, name in zip(host_state(snap), replayed, snap._fields):
             assert a.tobytes() == np.asarray(c).tobytes(), name
+    finally:
+        wt.close()
+
+
+@pytest.mark.cuda
+def test_lifeboat_recovery_on_the_card_is_the_served_table(tmp_path):
+    """Ledger flushes of several sizes, entity-less rows interleaved, served
+    on the card with a lifeboat journaling them; a generation cut
+    mid-traffic. A fresh monitor's recovery on the card (the journal's
+    entity rows alone, in the replay's buckets) is bitwise the served
+    table and launches no fused_score; a CPU recovery of the same
+    directory agrees within the ledger's tolerance (last_ts, fingerprints
+    and counts equal)."""
+    from fraud_detection_tpu_torch.ledger.state import host_state
+    from fraud_detection_tpu_torch.lifeboat import Lifeboat, recover
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+
+    dev = _require_card()
+    x, ts, spec, state, model, wt = _card_ledger_model(dev)
+    boat = Lifeboat(str(tmp_path / "lb"), spec, drift=wt.drift, snapshot_s=1e9, fsync_s=0.0)
+    boat.recover()
+    b = MicroBatcher(model.scorer, watchtower=wt, telemetry=False, explain=True, lifeboat=boat)
+    tgt = b._fused_target(model.scorer)
+    t = float(ts[-1]) + 5.0
+    try:
+        for k, size in enumerate((1, 3, 64, 1, 17, 200, 5, 1024, 2)):
+            rows = x[(k * 97) % 2000:][:size]
+            ents = [f"card-{(i * 5 + k) % 23}" if (i + k) % 6 else None for i in range(size)]
+            items = _ledger_items(spec, rows, ents, t + 37.0 * np.arange(size))
+            t += 37.0 * size + 911.0
+            out = b._flush_device(model.scorer, tgt, items)
+            model.scorer.staging.release(out[-1])
+            if k == 3:
+                assert boat.take_snapshot() is not None
+        served = wt.drift.ledger_snapshot()
+        boat.close()
+        mon = DriftMonitor(wt.drift.profile, device=dev)
+        mon.bind_ledger(spec, state)
+        fresh = Lifeboat(str(tmp_path / "lb"), spec, drift=mon, snapshot_s=1e9, fsync_s=0.0)
+        before = kernels.FUSED_SCORE_LAUNCHES
+        rep = fresh.recover()
+        fresh.close()
+        assert kernels.FUSED_SCORE_LAUNCHES == before
+        assert rep.restored and rep.snapshot_seq == 3 and rep.replayed_rows > 1000
+        got = mon.ledger_snapshot()
+        for a, c, name in zip(host_state(got), host_state(served), served._fields):
+            assert a.tobytes() == c.tobytes(), name
+        cpu = recover(str(tmp_path / "lb"), spec, device="cpu").state
+        for a, c, name in zip(host_state(cpu), host_state(served), served._fields):
+            if name == "acc":
+                np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-5)
+            else:
+                assert a.tobytes() == c.tobytes(), name
     finally:
         wt.close()
 

@@ -5,7 +5,9 @@
 ``SCORER_ADAPTIVE_WAIT``, the ingest lane's ``INGEST_*``, the shadow's
 ``MLFLOW_SHADOW_STAGE`` and ``WATCHTOWER_SHADOW_SAMPLE``,
 ``WATCHTOWER_RETRAIN_TRIGGER``, ``SPYGLASS_ENABLED`` and
-``FLIGHTRECORDER_CAPACITY`` (``NATIVE_CSV``, which JAX reads in its
+``FLIGHTRECORDER_CAPACITY``, the lifeboat's ``LIFEBOAT_DIR``,
+``LIFEBOAT_SNAPSHOT_S``, ``LIFEBOAT_SNAPSHOT_FLUSHES``, ``LIFEBOAT_KEEP``
+(at least 1) and ``LIFEBOAT_FSYNC_S`` (``NATIVE_CSV``, which JAX reads in its
 loader, is compared in ``test_torch_native_csv.py``). Each is set on both
 packages with ``monkeypatch`` and the results compared: the readers, the thresholds and
 the flags ``/monitor/status`` raises, monitoring off, the admission bound
@@ -66,6 +68,12 @@ SETTINGS = [
     ("SPYGLASS_ENABLED", "0", "spyglass_enabled"),
     ("SPYGLASS_ENABLED", "off", "spyglass_enabled"),
     ("FLIGHTRECORDER_CAPACITY", "7", "flightrecorder_capacity"),
+    ("LIFEBOAT_DIR", "/srv/lifeboat", "lifeboat_dir"),
+    ("LIFEBOAT_SNAPSHOT_S", "42.5", "lifeboat_snapshot_s"),
+    ("LIFEBOAT_SNAPSHOT_FLUSHES", "32", "lifeboat_snapshot_flushes"),
+    ("LIFEBOAT_KEEP", "2", "lifeboat_keep"),
+    ("LIFEBOAT_KEEP", "0", "lifeboat_keep"),
+    ("LIFEBOAT_FSYNC_S", "0", "lifeboat_fsync_s"),
 ]
 
 

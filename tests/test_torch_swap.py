@@ -48,6 +48,7 @@ from fraud_detection_tpu.service.taskq import Broker as JaxBroker
 from fraud_detection_tpu.service.worker import XaiWorker as JaxWorker
 from fraud_detection_tpu_torch.ledger import LEDGER_FEATURE_NAMES, LedgerSpec
 from fraud_detection_tpu_torch.ledger import materialize_features, synthesize_entities
+from fraud_detection_tpu_torch.ledger.state import host_state
 from fraud_detection_tpu_torch.lifecycle import (
     Conductor,
     GateThresholds,
@@ -390,7 +391,7 @@ def test_ledger_hot_swap_rebinds_the_stamped_table(tmp_path, monkeypatch):
     finally:
         wt.close()
     assert slot.version == v2
-    for a, b in zip(served, state2):
+    for a, b in zip(host_state(served), state2):
         assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
     assert np.asarray(after.last_ts).tobytes() != np.asarray(served.last_ts).tobytes()
 
@@ -450,24 +451,38 @@ def test_cross_width_swap_under_traffic_fails_no_request(tmp_path, monkeypatch):
     assert wt.drift.ledger is not None and wt.drift.profile.n_features == D + len(LEDGER_FEATURE_NAMES)
 
 
-@pytest.mark.parametrize("kind", ["ledger", "wide_monitor"])
-def test_a_flush_between_slot_write_and_rebind_scores_split(kind):
+@pytest.mark.parametrize("kind", ["ledger", "wide_monitor", "ledger_with_lifeboat"])
+def test_a_flush_between_slot_write_and_rebind_scores_split(kind, tmp_path, caplog):
     """The flush a cross-width swap can catch between its slot write and the
     watchtower's rebind: a ledger champion against the narrow monitor (or
     against a monitor of its width with no table bound) scores split,
-    through its base-width null path, instead of failing."""
+    through its base-width null path, instead of failing. Its entity rows
+    took the null slot: they are counted in ``ledger_null_entity_rows``,
+    with one WARNING for the four flushes; with a lifeboat attached such a
+    flush journals nothing (its rows never reach the table)."""
+    from fraud_detection_tpu_torch.lifeboat import Lifeboat, read_tail
+
     spec = LedgerSpec(n_base=D, slots=64, halflife_s=600.0, amount_col=-1,
                       null_features=np.zeros(len(LEDGER_FEATURE_NAMES), np.float32))
-    ledger, prof, _ = _ledger_model(12, spec)
+    ledger, prof, state = _ledger_model(12, spec)
     x = np.random.default_rng(6).standard_normal((64, D)).astype(np.float32)
     narrow = _linear(1)
-    wt = Watchtower(_profile(narrow, x) if kind == "ledger" else prof, thresholds=NEVER,
+    wt = Watchtower(_profile(narrow, x) if kind != "wide_monitor" else prof, thresholds=NEVER,
                     device="cpu")
+    boat = None
+    if kind == "ledger_with_lifeboat":
+        # the start-up monitor held a ledger table: the boat journals onto it
+        drift = wt._make_drift(prof)
+        drift.bind_ledger(spec, state)
+        boat = Lifeboat(str(tmp_path / "lb"), spec, drift=drift, snapshot_s=1e9, fsync_s=0.0)
+        boat.recover()
     slot = ModelSlot(ledger, "test:v2", 2)
     split0 = metrics.scorer_flushes.labels("split", "0").value
+    null0 = metrics.ledger_null_entity_rows.get()
 
     async def run():
-        mb = MicroBatcher(slot=slot, watchtower=wt, telemetry=False, max_batch=16)
+        mb = MicroBatcher(slot=slot, watchtower=wt, telemetry=False, max_batch=16,
+                          lifeboat=boat)
         assert mb._fused_target(ledger.scorer) is None
         await mb.start()
         try:
@@ -483,6 +498,12 @@ def test_a_flush_between_slot_write_and_rebind_scores_split(kind):
         wt.close()
     np.testing.assert_allclose(got, ledger.scorer.predict_proba(x[:4]), rtol=0, atol=SWAP_ATOL)
     assert metrics.scorer_flushes.labels("split", "0").value == split0 + 4
+    assert metrics.ledger_null_entity_rows.get() == null0 + 4
+    assert caplog.text.count("a ledger model's flush ran split") == 1
+    if boat is not None:
+        boat.close()
+        assert boat.journal.seq == 0
+        assert read_tail(str(tmp_path / "lb"), 0).n_records == 0
 
 
 def test_narrow_to_wide_swap_serves_the_wide_flush():
