@@ -310,15 +310,23 @@ def ingest_stall_timeout_s() -> float:
 
 
 def database_url() -> str:
-    """``DATABASE_URL`` — the results DB the API and the SHAP worker share.
-    Only ``sqlite:///`` is served by the port today."""
+    """``DATABASE_URL`` — the results DB the API and the SHAP worker share:
+    ``sqlite:///``, ``fraud://``, ``sentinel://`` or ``postgresql://``."""
     return _get("DATABASE_URL", "sqlite:///fraud.db")
 
 
 def broker_url() -> str:
     """``CELERY_BROKER_URL`` — the task queue between the API and the SHAP
-    worker. Only ``sqlite:///`` is served by the port today."""
+    worker, on the same schemes as ``DATABASE_URL``."""
     return _get("CELERY_BROKER_URL", "sqlite:///taskq.db")
+
+
+def store_token() -> str:
+    """``FRAUD_STORE_TOKEN`` — the shared secret of the network store tier
+    (store servers, sentinels and their clients): when set, every frame
+    carries it and a server rejects a peer without it. Empty (the default)
+    leaves the tier unauthenticated (loopback and development only)."""
+    return _get("FRAUD_STORE_TOKEN", "")
 
 
 def worker_metrics_port() -> int:
@@ -433,13 +441,37 @@ def mesh_retrain() -> bool:
     return env_flag("MESH_RETRAIN") is True
 
 
+_warned_local_lifecycle_db = False
+
+
 def lifecycle_db_url(broker: str | None = None) -> str:
     """``LIFECYCLE_DB_URL`` — the database holding the conductor's feedback
     and state tables; when unset, the broker's database (``broker`` when
-    the caller holds an explicit URL, else ``CELERY_BROKER_URL``), so
-    lifecycle state lives beside the queue. The port's broker is sqlite
-    only, so the default is always a sqlite URL."""
-    return os.environ.get("LIFECYCLE_DB_URL") or broker or broker_url()
+    the caller holds an explicit URL, else ``CELERY_BROKER_URL``) where that
+    is a SQL backend (``sqlite:///``, ``postgresql://``), so lifecycle state
+    lives beside the queue. A ``fraud://``/``sentinel://`` broker has no
+    SQL surface: the store falls back to the process-local
+    ``sqlite:///lifecycle.db``, with a warning once a process, because a
+    local file carries neither feedback nor the retrain/promotion latch
+    across replicas."""
+    global _warned_local_lifecycle_db
+    explicit = os.environ.get("LIFECYCLE_DB_URL")
+    if explicit:
+        return explicit
+    broker = broker or broker_url()
+    if broker.startswith(("sqlite", "postgresql://", "postgres://")):
+        return broker
+    if not _warned_local_lifecycle_db:
+        _warned_local_lifecycle_db = True
+        import logging
+
+        logging.getLogger("fraud_detection_tpu_torch.config").warning(
+            "LIFECYCLE_DB_URL is not set and broker %r has no SQL surface: "
+            "lifecycle state falls back to the PROCESS-LOCAL "
+            "sqlite:///lifecycle.db, which does not span replicas. Set "
+            "LIFECYCLE_DB_URL to a shared database.", broker,
+        )
+    return "sqlite:///lifecycle.db"
 
 
 def conductor_auto_promote() -> bool:

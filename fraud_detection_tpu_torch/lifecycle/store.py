@@ -29,9 +29,8 @@ broker database):
   processes, and a crashed worker resumes mid-step without
   double-promoting.
 
-:func:`open_lifecycle_store` opens ``sqlite:///`` URLs; a PostgreSQL URL
-raises until the network store tier is ported (ROADMAP item 8c, second
-PR).
+:func:`open_lifecycle_store` opens ``sqlite:///`` URLs, and PostgreSQL ones
+over the network store tier's wire client (:class:`PgLifecycleStore`).
 """
 
 from __future__ import annotations
@@ -120,8 +119,8 @@ def _sqlite_path(url: str) -> str:
 
 class LifecycleStore:
     """The sqlite store. Every query is written in the PG/SQLite common
-    dialect (no AUTOINCREMENT, no INSERT OR REPLACE), so the PostgreSQL
-    store of the network tier can inherit them."""
+    dialect (no AUTOINCREMENT, no INSERT OR REPLACE), so
+    :class:`PgLifecycleStore` inherits them."""
 
     def __init__(
         self,
@@ -562,22 +561,30 @@ class LifecycleStore:
 
 
 class PgLifecycleStore(LifecycleStore):
-    """The store over PostgreSQL. Not ported yet: it needs the network
-    store tier's wire client (ROADMAP item 8c, second PR), so constructing
-    it raises rather than quietly opening a local file in its place."""
+    """The same queries over PostgreSQL through the pgwire adapter."""
 
-    def __init__(self, url: str | None = None, **kw):
-        raise NotImplementedError(
-            f"{(url or '').split(':', 1)[0]}:// lifecycle store: the network "
-            "store tier is not ported yet (ROADMAP item 8c, second PR); use "
-            "sqlite:///"
-        )
+    def _connect(self) -> None:
+        from fraud_detection_tpu_torch.service.pgclient import _PgAdapter
+
+        self._conn = _PgAdapter(self.url)
+
+    def _db_now(self) -> float:
+        try:
+            with self._lock:
+                row = self._conn.execute(
+                    "SELECT EXTRACT(EPOCH FROM now()) AS t"
+                ).fetchone()
+            return float(row["t"])
+        except Exception:
+            # a peer without EXTRACT (the protocol emulator): the host clock,
+            # as the sqlite store reads it
+            log.debug("db clock unavailable; using host clock", exc_info=True)
+            return time.time()
 
 
 def open_lifecycle_store(url: str | None = None, **kw) -> LifecycleStore:
-    """Scheme dispatch mirroring the broker's: ``sqlite:///path``, or
-    :class:`PgLifecycleStore` for a PostgreSQL URL (which raises until the
-    network store tier is ported)."""
+    """Scheme dispatch mirroring the broker's: ``sqlite:///path`` or
+    ``postgresql://``."""
     url = url or config.lifecycle_db_url()
     if url.startswith("sqlite"):
         return LifecycleStore(url, **kw)
@@ -585,5 +592,5 @@ def open_lifecycle_store(url: str | None = None, **kw) -> LifecycleStore:
         return PgLifecycleStore(url, **kw)
     raise NotImplementedError(
         f"lifecycle store backend for {url.split(':', 1)[0]} not available; "
-        "use sqlite:/// (set LIFECYCLE_DB_URL)"
+        "use sqlite:/// or postgresql:// (set LIFECYCLE_DB_URL)"
     )

@@ -79,6 +79,7 @@ from fraud_detection_tpu_torch.ops.scorer import _bucket
 from fraud_detection_tpu_torch.service import metrics
 from fraud_detection_tpu_torch.service.errors import ProtocolError
 from fraud_detection_tpu_torch.service.microbatch import AdmissionFull, IngestBlock
+from fraud_detection_tpu_torch.service.wire import _HDR, StalledPeerError
 from fraud_detection_tpu_torch.telemetry.timeline import RequestTimeline
 
 log = logging.getLogger("fraud_detection_tpu_torch.binlane")
@@ -94,7 +95,6 @@ FLAG_TS = 0x02
 FLAG_TRACE = 0x04
 TRACE_LEN = 64
 
-_HDR = struct.Struct(">I")          # the length prefix
 _FRAME = struct.Struct(">HBBHBxI")  # magic, version, layout, d, flags, n
 _RESP = struct.Struct(">HBBBxI")    # magic, version, status, explain_k, n
 _ERRPAY = struct.Struct(">I")       # retry_after_ms
@@ -110,11 +110,6 @@ _LE = sys.byteorder == "little"
 _TRACEPARENT_RE = re.compile(
     r"^[0-9a-f]{2}-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$"
 )
-
-
-class StalledPeerError(ProtocolError, OSError):
-    """The socket timed out inside a frame: the stream position is lost,
-    so the connection is dropped."""
 
 
 class FrameError(Exception):

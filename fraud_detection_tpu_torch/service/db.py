@@ -10,9 +10,11 @@ One table, ``transaction_results`` (db/models.py:16-24), written by the SHAP
 worker and read back by ``GET /explain/{transaction_id}``. Migrations are
 ordered SQL scripts applied under a ``schema_migrations`` version table.
 
-The network schemes (``fraud://``, ``sentinel://``, ``postgresql://``) and
-the replication hooks that serve them come with the network store tier
-(ROADMAP item 8c); until then :func:`ResultsDB` raises for them.
+``DATABASE_URL`` selects the backend (:func:`ResultsDB`): ``sqlite:///``,
+``fraud://`` / ``sentinel://`` (the network store server with replication
+and sentinel failover, ``netserver.py``/``netclient.py``), or
+``postgresql://`` (a PostgreSQL server over the built-in wire client,
+``pgwire.py``).
 """
 
 from __future__ import annotations
@@ -57,9 +59,6 @@ MIGRATIONS: list[tuple[str, str]] = [
     ),
 ]
 
-#: schemes of the network store tier, ported with ROADMAP item 8c
-NETWORK_SCHEMES = ("fraud://", "sentinel://", "postgresql://", "postgres://")
-
 
 def _sqlite_path(url: str) -> str:
     # sqlite:///relative.db | sqlite:////abs/path.db | sqlite:///:memory:
@@ -67,8 +66,56 @@ def _sqlite_path(url: str) -> str:
     return path or ":memory:"
 
 
-class SqliteResultsDB:
+class ReplicatedRows:
+    """The replication hooks a store server (``netserver.py``) calls on a
+    sqlite engine: whole rows of one table, keyed by ``_PK``, as plain
+    dicts (the JSON columns left encoded: they cross the wire verbatim)."""
+
+    _TABLE: str
+    _PK: str
+
+    def fetch_rows(self, ids: list[str]) -> list[dict]:
+        if not ids:
+            return []
+        qs = ",".join("?" * len(ids))
+        with self._lock:
+            rows = self._conn.execute(
+                f"SELECT * FROM {self._TABLE} WHERE {self._PK} IN ({qs})", ids
+            ).fetchall()
+        return [dict(r) for r in rows]
+
+    def dump_rows(self) -> list[dict]:
+        with self._lock:
+            rows = self._conn.execute(f"SELECT * FROM {self._TABLE}").fetchall()
+        return [dict(r) for r in rows]
+
+    def apply_rows(self, rows: list[dict]) -> None:
+        """Replica-side upsert of replicated rows (last writer wins by pk)."""
+        with self._lock, self._conn:
+            self._upsert(rows)
+
+    def replace_rows(self, rows: list[dict]) -> None:
+        """Snapshot application: delete, then upsert, in one transaction, so
+        rows a demoted ex-primary wrote while partitioned don't survive the
+        resync (the split-brain recovery)."""
+        with self._lock, self._conn:
+            self._conn.execute(f"DELETE FROM {self._TABLE}")
+            self._upsert(rows)
+
+    def _upsert(self, rows: list[dict]) -> None:
+        if rows:
+            cols = list(rows[0])
+            self._conn.executemany(
+                f"INSERT OR REPLACE INTO {self._TABLE} ({','.join(cols)}) "
+                f"VALUES ({','.join('?' * len(cols))})",
+                [[r[c] for c in cols] for r in rows],
+            )
+
+
+class SqliteResultsDB(ReplicatedRows):
     """Thread-safe store for transaction scoring/explanation results."""
+
+    _TABLE, _PK = "transaction_results", "transaction_id"
 
     def __init__(self, url: str | None = None):
         self.url = url or config.database_url()
@@ -220,16 +267,26 @@ class SqliteResultsDB:
 
 def ResultsDB(url: str | None = None):  # noqa: N802 — the JAX package's name
     """Open a results DB for ``url`` (default ``DATABASE_URL``):
-    ``sqlite:///path`` (stdlib SQLite in WAL mode). The network schemes
-    raise until ROADMAP item 8c ports the network store tier."""
+
+    - ``sqlite:///path`` — stdlib SQLite in WAL mode (one host);
+    - ``fraud://host:port`` — a store server (``netserver.py``);
+    - ``sentinel://h:p,.../name`` — the primary a sentinel names, with
+      failover (``netclient.py``);
+    - ``postgresql://...`` — a PostgreSQL server over the built-in wire
+      client (``pgwire.py``).
+    """
     url = url or config.database_url()
     if url.startswith("sqlite"):
         return SqliteResultsDB(url)
-    if url.startswith(NETWORK_SCHEMES):
-        raise NotImplementedError(
-            f"{url.split(':', 1)[0]}:// results DB: the network store tier "
-            "is not ported yet (ROADMAP item 8c); use sqlite:///"
-        )
+    if url.startswith(("fraud://", "sentinel://")):
+        from fraud_detection_tpu_torch.service.netclient import NetResultsDB
+
+        return NetResultsDB(url)
+    if url.startswith(("postgresql://", "postgres://")):
+        from fraud_detection_tpu_torch.service.pgclient import PgResultsDB
+
+        return PgResultsDB(url)
     raise NotImplementedError(
-        f"backend for {url.split(':', 1)[0]} not available; use sqlite:///"
+        f"backend for {url.split(':', 1)[0]} not available; use sqlite:///, "
+        "fraud://, sentinel://, or postgresql://"
     )

@@ -1,8 +1,8 @@
 """Shared exception types for the service tier's storage backends.
 
 The port's own copy of the JAX package's ``service/errors.py``. The sqlite
-tier raises ``sqlite3.Error``; the network store tier (not ported yet,
-ROADMAP item 8c) raises these. Call sites that branch on "is this a DB
+tier raises ``sqlite3.Error``; the network store tier (``netclient.py``,
+``pgwire.py``) raises these. Call sites that branch on "is this a DB
 error" (the worker's retry ladder, mirroring the reference's
 ``SQLAlchemyError`` branch at xai_tasks.py:137-141) check
 ``(sqlite3.Error, DatabaseError)``.

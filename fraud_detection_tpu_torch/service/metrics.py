@@ -7,8 +7,10 @@ gauges (the wide family's among them), the watchtower's drift and shadow
 series, the ledger's, the ingest lanes', the request stages', the lifecycle
 loop's, and the SHAP worker's and task queue's series. Counters
 export ``<name>_total``; histograms export ``_bucket``/``_sum``/``_count``.
-No ``prometheus_client``: the exposition format (text 0.0.4) is written
-here.
+No ``prometheus_client``: the exposition format (text 0.0.4) and its HTTP
+endpoint (:func:`start_http_server`) are written here. A store server keeps
+its ``fraud_store_*`` gauges in a registry of its own
+(``netserver.store_metrics``).
 """
 
 from __future__ import annotations
@@ -36,12 +38,15 @@ def _escape(v: str) -> str:
 
 
 class _Child:
-    """One labelled series: a value (counter/gauge) or bucket counts."""
+    """One labelled series: a value (counter/gauge) or bucket counts. A
+    gauge's value may instead be read from a function at scrape time
+    (:meth:`_Metric.set_function`)."""
 
     def __init__(self, metric: "_Metric"):
         self._metric = metric
         self._lock = threading.Lock()
         self.value = 0.0
+        self.fn = None
         if metric.kind == "histogram":
             self.buckets = [0] * len(metric.buckets)
             self.count = 0
@@ -66,7 +71,8 @@ class _Child:
 
 
 class _Metric:
-    def __init__(self, kind, name, documentation, labelnames=(), buckets=None):
+    def __init__(self, kind, name, documentation, labelnames=(), buckets=None,
+                 registry=None):
         self.kind = kind
         self.name = name
         self.documentation = documentation
@@ -77,7 +83,7 @@ class _Metric:
         self._lock = threading.Lock()
         if not self.labelnames:
             self._children[()] = _Child(self)
-        REGISTRY.append(self)
+        (REGISTRY if registry is None else registry).append(self)
 
     def labels(self, *values) -> _Child:
         if len(values) != len(self.labelnames):
@@ -99,6 +105,11 @@ class _Metric:
     def observe(self, value: float) -> None:
         self._children[()].observe(value)
 
+    def set_function(self, fn) -> None:
+        """An unlabelled gauge whose value is ``fn()`` at every read (the
+        prometheus_client idiom for a value another object owns)."""
+        self._children[()].fn = fn
+
     def clear(self) -> None:
         """Drop every labelled series (an unlabelled metric keeps its one)."""
         if self.labelnames:
@@ -108,7 +119,9 @@ class _Metric:
     def get(self, *values) -> float:
         """Current value of one series (0.0 when never written)."""
         child = self._children.get(tuple(str(v) for v in values))
-        return 0.0 if child is None else child.value
+        if child is None:
+            return 0.0
+        return float(child.fn()) if child.fn is not None else child.value
 
     def render(self) -> list[str]:
         lines = [
@@ -136,23 +149,25 @@ class _Metric:
                 elif self.kind == "counter":
                     lines.append(f"{self.name}_total{lbl()} {_fmt(child.value)}")
                 else:
-                    lines.append(f"{self.name}{lbl()} {_fmt(child.value)}")
+                    value = child.value if child.fn is None else float(child.fn())
+                    lines.append(f"{self.name}{lbl()} {_fmt(value)}")
         return lines
 
 
 REGISTRY: list[_Metric] = []
 
 
-def Counter(name, documentation, labelnames=()):  # noqa: N802 — prometheus idiom
-    return _Metric("counter", name, documentation, labelnames)
+def Counter(name, documentation, labelnames=(), registry=None):  # noqa: N802 — prometheus idiom
+    return _Metric("counter", name, documentation, labelnames, registry=registry)
 
 
-def Gauge(name, documentation, labelnames=()):  # noqa: N802
-    return _Metric("gauge", name, documentation, labelnames)
+def Gauge(name, documentation, labelnames=(), registry=None):  # noqa: N802
+    return _Metric("gauge", name, documentation, labelnames, registry=registry)
 
 
-def Histogram(name, documentation, labelnames=(), buckets=None):  # noqa: N802
-    return _Metric("histogram", name, documentation, labelnames, buckets)
+def Histogram(name, documentation, labelnames=(), buckets=None,  # noqa: N802
+              registry=None):
+    return _Metric("histogram", name, documentation, labelnames, buckets, registry)
 
 
 # API-side
@@ -480,11 +495,38 @@ request_stage_duration = Histogram(
 )
 
 
-def render() -> bytes:
+def render(registry: list[_Metric] | None = None) -> bytes:
+    """The text exposition of ``registry`` (default: the process's own
+    :data:`REGISTRY`; a store server keeps its series in a list of its
+    own, apart from the API's)."""
     lines: list[str] = []
-    for metric in REGISTRY:
+    for metric in REGISTRY if registry is None else registry:
         lines.extend(metric.render())
     return ("\n".join(lines) + "\n").encode()
+
+
+def start_http_server(port: int, host: str = "0.0.0.0",
+                      registry: list[_Metric] | None = None, name: str = "metrics"):
+    """Serve ``render(registry)`` on every GET path of ``port`` from a
+    daemon thread; returns the server, whose ``shutdown()`` stops it."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 — http.server's name
+            body = render(registry)
+            self.send_response(200)
+            self.send_header("Content-Type", CONTENT_TYPE_LATEST)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):  # scrapes are not worth a log line
+            pass
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, name=name, daemon=True).start()
+    return server
 
 
 class _Timer:

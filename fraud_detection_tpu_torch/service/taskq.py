@@ -15,9 +15,9 @@ semantics the reference's reliability story depends on
   exhaustion (xai_tasks.py:143-163);
 - **queue depth** observable for autoscaling (the KEDA listLength trigger).
 
-The network schemes (``fraud://``, ``sentinel://``, ``postgresql://``) come
-with the network store tier (ROADMAP item 8c); until then :func:`Broker`
-raises for them.
+``CELERY_BROKER_URL`` selects the backend (:func:`Broker`): ``sqlite:///``,
+``fraud://`` / ``sentinel://`` (the network store server with replication
+and sentinel failover), or ``postgresql://`` (the built-in wire client).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from typing import Any
 
 from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.service import metrics
-from fraud_detection_tpu_torch.service.db import NETWORK_SCHEMES
+from fraud_detection_tpu_torch.service.db import ReplicatedRows
 
 log = logging.getLogger("fraud_detection_tpu_torch.taskq")
 
@@ -62,7 +62,9 @@ def _path(url: str) -> str:
     return url[len("sqlite:///") :] if url.startswith("sqlite:///") else url
 
 
-class SqliteBroker:
+class SqliteBroker(ReplicatedRows):
+    _TABLE, _PK = "tasks", "id"
+
     def __init__(self, url: str | None = None):
         self.url = url or config.broker_url()
         path = _path(self.url)
@@ -295,17 +297,26 @@ class SqliteBroker:
 
 def Broker(url: str | None = None):  # noqa: N802 — the JAX package's name
     """Open a broker for ``url`` (default ``CELERY_BROKER_URL``):
-    ``sqlite:///path`` (stdlib SQLite WAL queue). The network schemes raise
-    until ROADMAP item 8c ports the network store tier."""
+
+    - ``sqlite:///path`` — stdlib SQLite WAL queue (one host);
+    - ``fraud://host:port`` — a store server (``netserver.py``);
+    - ``sentinel://h:p,.../name`` — the primary a sentinel names, with
+      quorum failover (``sentinel.py``);
+    - ``postgresql://...`` — PostgreSQL over the built-in wire client (the
+      claim's guarded UPDATE works there unchanged).
+    """
     url = url or config.broker_url()
     if url.startswith("sqlite"):
         return SqliteBroker(url)
-    if url.startswith(NETWORK_SCHEMES):
-        raise NotImplementedError(
-            f"{url.split(':', 1)[0]}:// broker: the network store tier is "
-            "not ported yet (ROADMAP item 8c); use sqlite:///"
-        )
+    if url.startswith(("fraud://", "sentinel://")):
+        from fraud_detection_tpu_torch.service.netclient import NetBroker
+
+        return NetBroker(url)
+    if url.startswith(("postgresql://", "postgres://")):
+        from fraud_detection_tpu_torch.service.pgclient import PgBroker
+
+        return PgBroker(url)
     raise NotImplementedError(
         f"broker backend for {url.split(':', 1)[0]} not available; use "
-        "sqlite:///"
+        "sqlite:///, fraud://, sentinel://, or postgresql://"
     )

@@ -463,31 +463,6 @@ class XaiWorker:
             self._conductor.store.close()
 
 
-def serve_metrics(port: int, host: str = "0.0.0.0"):
-    """``/metrics`` (any GET path) on ``port`` from a daemon thread; returns
-    the server, whose ``shutdown()`` stops it."""
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-    class Handler(BaseHTTPRequestHandler):
-        def do_GET(self):  # noqa: N802 — http.server's name
-            body = metrics.render()
-            self.send_response(200)
-            self.send_header("Content-Type", metrics.CONTENT_TYPE_LATEST)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def log_message(self, *args):  # scrapes are not worth a log line
-            pass
-
-    server = ThreadingHTTPServer((host, port), Handler)
-    server.daemon_threads = True
-    threading.Thread(
-        target=server.serve_forever, name="worker-metrics", daemon=True
-    ).start()
-    return server
-
-
 def main(argv: list[str] | None = None) -> None:
     import argparse
 
@@ -508,7 +483,7 @@ def main(argv: list[str] | None = None) -> None:
     server = None
     try:
         if args.metrics_port:
-            server = serve_metrics(args.metrics_port)
+            server = metrics.start_http_server(args.metrics_port, name="worker-metrics")
             log.info("worker metrics on :%d", args.metrics_port)
         signal.signal(signal.SIGTERM, lambda *_: worker.stop())
         signal.signal(signal.SIGINT, lambda *_: worker.stop())

@@ -1329,3 +1329,57 @@ def test_hot_swap_on_the_card_lands_between_flushes():
     assert launched == 16  # one a flush: each lone request is a flush
     np.testing.assert_allclose(first, models[0].scorer.predict_proba(x[:8]), rtol=0, atol=1e-6)
     np.testing.assert_allclose(second, models[1].scorer.predict_proba(x[:8]), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_served_path_over_a_network_store_launches_the_kernel(tmp_path, monkeypatch):
+    """The app with its results DB and broker on an in-process store
+    server (``fraud://``): ``/predict`` answers queued, the flush launches
+    ``fused_score``, and the store holds one PENDING row and one task a
+    request; the worker's ``run_batch`` on the card drains them through the
+    same URL."""
+    import json
+    import threading
+
+    from fraud_detection_tpu_torch.service.app import create_app
+    from fraud_detection_tpu_torch.service.http import Request
+    from fraud_detection_tpu_torch.service.netserver import StoreServer
+    from fraud_detection_tpu_torch.service.worker import XaiWorker
+
+    _require_card()
+    x = _card_served(tmp_path, monkeypatch, "logistic")
+    srv = StoreServer(str(tmp_path / "store"), port=0)
+    srv.start()
+    url = f"fraud://127.0.0.1:{srv.port}"
+    monkeypatch.setenv("LIFECYCLE_DB_URL", f"sqlite:///{tmp_path}/lifecycle.db")
+    loop = asyncio.new_event_loop()
+    t = threading.Thread(target=loop.run_forever, daemon=True)
+    t.start()
+
+    def call(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(120)
+
+    app = create_app(database_url=url, broker_url=url)
+    try:
+        call(app.startup())
+        kernels.reset_launch_counts()
+        ids = []
+        for row in x[:16, :30]:
+            req = Request("POST", "/predict", {"content-type": "application/json"},
+                          json.dumps({"features": row.tolist()}).encode())
+            body = json.loads(call(app.dispatch(req)).body)
+            assert body["explanation_status"] == "queued"
+            ids.append(body["transaction_id"])
+        assert kernels.launch_counts()["fused_score"] >= 1
+        assert srv.db.count("PENDING") == 16 and srv.broker.depth() == 16
+        worker = XaiWorker(broker_url=url, database_url=url)
+        kernels.reset_launch_counts()
+        assert worker.run_batch(64) == 16
+        assert kernels.launch_counts()["fused_score"] >= 1
+        assert all(srv.db.get(tx)["status"] == "COMPLETED" for tx in ids)
+        worker.close()
+    finally:
+        call(app.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        t.join(30)
+        srv.stop()

@@ -61,13 +61,13 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 86  # every module of the slices so far, not a stub package
+    assert n >= 94  # every module of the slices so far, not a stub package
 
 
 def test_training_modules_are_among_those_imported():
     """The blocked-import probe walks the package; the training, GBT,
-    explain, offline-tool, ingest, ledger, wide-family, lifecycle and
-    lifeboat slices' modules are in it."""
+    explain, offline-tool, ingest, ledger, wide-family, lifecycle, lifeboat
+    and network-store slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -87,8 +87,32 @@ def test_training_modules_are_among_those_imported():
                 "lifecycle", "lifecycle.store", "lifecycle.gate", "lifecycle.retrain",
                 "lifecycle.swap", "lifecycle.conductor", "range", "range.faults",
                 "utils", "utils.lockdep", "lifeboat", "lifeboat.journal",
-                "lifeboat.snapshot", "lifeboat.recovery", "lifeboat.boat"):
+                "lifeboat.snapshot", "lifeboat.recovery", "lifeboat.boat",
+                "service.wire", "service.netserver", "service.netclient",
+                "service.sentinel", "service.storectl", "service.migrate",
+                "service.pgwire", "service.pgclient"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
+
+
+def test_store_tier_imports_no_torch():
+    """A store server, a sentinel and the network and PostgreSQL clients
+    need no card: importing them (and the factories that reach them) in a
+    fresh interpreter leaves ``torch`` and ``numpy`` unimported."""
+    probe = (
+        "import sys\n"
+        "from fraud_detection_tpu_torch.service import netserver, sentinel, netclient, "
+        "pgclient, storectl, migrate\n"
+        "from fraud_detection_tpu_torch.service.db import ResultsDB\n"
+        "from fraud_detection_tpu_torch.service.taskq import Broker\n"
+        "assert isinstance(Broker('fraud://127.0.0.1:1'), netclient.NetBroker)\n"
+        "assert isinstance(ResultsDB('sentinel://127.0.0.1:1/m'), netclient.NetResultsDB)\n"
+        "print(sorted(m for m in ('torch', 'numpy', 'jax') if m in sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "[]"
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -22,6 +22,7 @@ CPU mesh, its retrain fitting the sharded L-BFGS. Tolerances:
 
 import re
 import threading
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -312,9 +313,40 @@ def test_transition_cas_admits_exactly_one_winner(tmp_path):
         s.close()
 
 
-def test_postgres_store_url_raises_naming_the_network_tier():
-    with pytest.raises(NotImplementedError, match="8c"):
-        open_lifecycle_store("postgresql://user@localhost:5432/fraud")
+def test_postgres_store_url_raises_naming_the_network_tier(monkeypatch):
+    """A PostgreSQL URL opens :class:`PgLifecycleStore` over the network
+    tier's wire client (the protocol emulator here): the feedback pools and
+    the state machine round-trip, and the JAX package's store reads the
+    same pools from the same database; another scheme still raises. The
+    name is kept from when the port raised for a PostgreSQL URL: what it
+    checks now is that the URL opens the PostgreSQL lifecycle store."""
+    from tests.pg_emulator import PgEmulator
+
+    emu = PgEmulator(user="lc", password="pw")
+    emu.start()
+    try:
+        url = f"postgresql://lc:pw@127.0.0.1:{emu.port}/fraud"
+        s = open_lifecycle_store(url, window_size=8, reservoir_size=4)
+        assert isinstance(s, tst.PgLifecycleStore)
+        x, y = _make_rows(6, np.random.default_rng(3))
+        assert s.add_feedback(x, np.full(6, 0.5), y, [f"e{i}" for i in range(6)],
+                              [1.7e9 + i for i in range(6)]) == 6
+        assert s.feedback_counts() == {"window": 6, "reservoir": 4, "seen": 6}
+        assert s.transition("fraud", (tst.IDLE,), tst.RETRAINING, owner="w1")
+        assert not s.transition("fraud", (tst.IDLE,), tst.RETRAINING, owner="w2")
+        assert s.get_state("fraud")["owner"] == "w1"
+        assert abs(s._db_now() - time.time()) < 5.0  # no EXTRACT: the host clock
+        j = jst.PgLifecycleStore(url, window_size=8, reservoir_size=4)
+        wx, ws, wy, we, wt = s.window_rows_meta()
+        jx, js, jy, je, jt = j.window_rows_meta()
+        assert wx.tobytes() == jx.tobytes() and ws.tobytes() == js.tobytes()
+        assert wy.tobytes() == jy.tobytes() and list(we) == list(je)
+        assert wt.tobytes() == jt.tobytes()
+        assert j.feedback_counts() == s.feedback_counts()
+        j.close()
+        s.close()
+    finally:
+        emu.stop()
     with pytest.raises(NotImplementedError):
         open_lifecycle_store("mysql://nowhere/fraud")
 

@@ -7,8 +7,10 @@
 ``WATCHTOWER_RETRAIN_TRIGGER``, ``SPYGLASS_ENABLED`` and
 ``FLIGHTRECORDER_CAPACITY``, the lifeboat's ``LIFEBOAT_DIR``,
 ``LIFEBOAT_SNAPSHOT_S``, ``LIFEBOAT_SNAPSHOT_FLUSHES``, ``LIFEBOAT_KEEP``
-(at least 1) and ``LIFEBOAT_FSYNC_S`` (``NATIVE_CSV``, which JAX reads in its
-loader, is compared in ``test_torch_native_csv.py``). Each is set on both
+(at least 1) and ``LIFEBOAT_FSYNC_S``, the network store tier's
+``FRAUD_STORE_TOKEN``, ``PGUSER`` and ``PGPASSWORD`` and the lifecycle
+store's default beside each broker scheme (``NATIVE_CSV``, which JAX reads
+in its loader, is compared in ``test_torch_native_csv.py``). Each is set on both
 packages with ``monkeypatch`` and the results compared: the readers, the thresholds and
 the flags ``/monitor/status`` raises, monitoring off, the admission bound
 and its 429, the in-flight bound and the adaptive deadline."""
@@ -74,6 +76,9 @@ SETTINGS = [
     ("LIFEBOAT_KEEP", "2", "lifeboat_keep"),
     ("LIFEBOAT_KEEP", "0", "lifeboat_keep"),
     ("LIFEBOAT_FSYNC_S", "0", "lifeboat_fsync_s"),
+    ("FRAUD_STORE_TOKEN", "s3cret", "store_token"),
+    ("CELERY_BROKER_URL", "sentinel://s1:26379,s2:26379/m1", "broker_url"),
+    ("DATABASE_URL", "postgresql://fraud@db:5432/fraud", "database_url"),
 ]
 
 
@@ -85,6 +90,35 @@ def test_readers_match_jax(var, value, reader, monkeypatch):
     got = getattr(config, reader)()
     assert got == getattr(jax_config, reader)()
     assert type(got) is type(getattr(jax_config, reader)())
+
+
+@pytest.mark.parametrize("var, value", [("PGUSER", "env-user"), ("PGPASSWORD", "env pw"),
+                                        ("PGUSER", "")])
+def test_pg_environment_matches_jax(var, value, monkeypatch):
+    """``PGUSER``/``PGPASSWORD`` fill what a PostgreSQL URL leaves out, in
+    both packages' ``parse_dsn``."""
+    from fraud_detection_tpu.service.pgwire import parse_dsn as jax_parse_dsn
+    from fraud_detection_tpu_torch.service.pgwire import parse_dsn
+
+    monkeypatch.delenv(var, raising=False)
+    dsns = ("postgresql://h/d", "postgresql://u@h/d", "postgresql://u:p@h:5433/d")
+    assert [parse_dsn(d) for d in dsns] == [jax_parse_dsn(d) for d in dsns]
+    monkeypatch.setenv(var, value)
+    assert [parse_dsn(d) for d in dsns] == [jax_parse_dsn(d) for d in dsns]
+
+
+@pytest.mark.parametrize("broker", ["sqlite:////tmp/q.db", "postgresql://u@h/d",
+                                    "fraud://h:7600", "sentinel://s:26379/m1"])
+def test_lifecycle_db_url_beside_each_broker_matches_jax(broker, monkeypatch):
+    """Unset ``LIFECYCLE_DB_URL``: a SQL broker holds the lifecycle tables,
+    a store-tier broker falls back to the local file, in both packages."""
+    monkeypatch.delenv("LIFECYCLE_DB_URL", raising=False)
+    monkeypatch.delenv("LONGHAUL_HOSTS", raising=False)
+    assert config.lifecycle_db_url(broker) == jax_config.lifecycle_db_url(broker)
+    monkeypatch.setenv("CELERY_BROKER_URL", broker)
+    assert config.lifecycle_db_url() == jax_config.lifecycle_db_url()
+    monkeypatch.setenv("LIFECYCLE_DB_URL", "postgresql://x@y/z")
+    assert config.lifecycle_db_url(broker) == jax_config.lifecycle_db_url(broker)
 
 
 THRESHOLD_VARS = {

@@ -160,7 +160,40 @@ def test_a_broker_file_written_by_the_jax_package_is_read_by_the_port(tmp_path):
 @pytest.mark.parametrize("url", ["fraud://127.0.0.1:1", "sentinel://h:1/m", "postgresql://u@h/d",
                                  "redis://h:6379/0"])
 def test_unported_schemes_raise(url):
-    with pytest.raises(NotImplementedError):
-        Broker(url)
-    with pytest.raises(NotImplementedError):
-        ResultsDB(url)
+    """The schemes the port once refused: ``fraud://`` and ``sentinel://``
+    reach the network store tier's clients (they connect at the first
+    call), ``postgresql://`` the PostgreSQL engines (on the protocol
+    emulator: they connect at construction), and ``redis://`` still raises
+    with the JAX package's message. The name is kept from when the port
+    raised for all four: what it checks now is the factories' dispatch."""
+    from fraud_detection_tpu.service.taskq import Broker as JaxBroker
+    from fraud_detection_tpu_torch.service.netclient import NetBroker, NetResultsDB
+    from fraud_detection_tpu_torch.service.pgclient import PgBroker, PgResultsDB
+
+    if url.startswith("redis"):
+        with pytest.raises(NotImplementedError) as port_err:
+            Broker(url)
+        with pytest.raises(NotImplementedError) as jax_err:
+            JaxBroker(url)
+        assert str(port_err.value) == str(jax_err.value)
+        with pytest.raises(NotImplementedError, match="fraud://, sentinel://, or postgresql://"):
+            ResultsDB(url)
+        return
+    if url.startswith("postgresql"):
+        from tests.pg_emulator import PgEmulator
+
+        emu = PgEmulator(user="u", password="p")
+        emu.start()
+        try:
+            dsn = f"postgresql://u:p@127.0.0.1:{emu.port}/d"
+            b, db = Broker(dsn), ResultsDB(dsn)
+            assert isinstance(b, PgBroker) and isinstance(db, PgResultsDB)
+            assert b.depth() == 0 and db.count() == 0
+            b.close()
+            db.close()
+        finally:
+            emu.stop()
+        return
+    b, db = Broker(url), ResultsDB(url)
+    assert isinstance(b, NetBroker) and isinstance(db, NetResultsDB)
+    assert (b.url, db.url) == (url, url)

@@ -1,6 +1,7 @@
 """The port's SHAP worker (``fraud_detection_tpu_torch.service.worker``) on
-the CPU with sqlite files: the cases of the JAX package's
-``tests/test_worker.py`` (sqlite backend) — one task, an unknown task and
+the CPU over the three storage backends (sqlite files, ``fraud://`` and
+``postgresql://``): the cases of the JAX package's ``tests/test_worker.py``
+— one task, an unknown task and
 bad input ending FAILED, redelivery after a worker's death, the idempotent
 upsert and ``fail()`` never clobbering COMPLETED, a GBT forest, ``run_batch``
 in one dispatch isolating a bad task, the batch and single paths agreeing,
@@ -28,21 +29,52 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = FraudLogisticModel.load(os.path.join(ROOT, "models"), device="cpu").feature_names
 
 
-@pytest.fixture()
-def env(tmp_path, monkeypatch):
-    """(db_url, broker_url, names): the committed flagship served on the
-    CPU (from ``MODEL_PATH``: the tracking store is empty), the results DB
-    and the broker in ``tmp_path``."""
+_SERVER = None  # the in-process StoreServer while ``env`` runs "net"
+
+
+@pytest.fixture(params=["sqlite", "net", "pg"])
+def env(request, tmp_path, monkeypatch):
+    """(db_url, broker_url, names) over the three storage backends, as the
+    JAX package's ``tests/test_worker.py`` runs them: sqlite files, the
+    port's network store server in process (``fraud://``), and the
+    PostgreSQL wire client against the protocol emulator
+    (``postgresql://``). The committed flagship is served on the CPU (from
+    ``MODEL_PATH``: the tracking store is empty)."""
+    global _SERVER
     monkeypatch.setenv("MODEL_PATH", os.path.join(ROOT, "models", "model.npz"))
     monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
     monkeypatch.setenv("DEVICE", "cpu")
-    return f"sqlite:///{tmp_path}/fraud.db", f"sqlite:///{tmp_path}/q.db", NAMES
+    monkeypatch.setenv("LIFECYCLE_DB_URL", f"sqlite:///{tmp_path}/lifecycle.db")
+    if request.param == "sqlite":
+        yield f"sqlite:///{tmp_path}/fraud.db", f"sqlite:///{tmp_path}/q.db", NAMES
+    elif request.param == "pg":
+        from tests.pg_backend import pg_dsn
+
+        with pg_dsn() as dsn:
+            yield dsn, dsn, NAMES
+    else:
+        from fraud_detection_tpu_torch.service.netserver import StoreServer
+
+        _SERVER = StoreServer(str(tmp_path / "store"), port=0)
+        _SERVER.start()
+        url = f"fraud://127.0.0.1:{_SERVER.port}"
+        try:
+            yield url, url, NAMES
+        finally:
+            _SERVER.stop()
+            _SERVER = None
+
+
+def _engine(broker):
+    """The SQL engine behind ``broker``: the store server's on ``fraud://``."""
+    return _SERVER.broker if _SERVER is not None else broker
 
 
 def _force_all_visible(broker):
     """Zero every task's visible_at so retries don't sleep."""
-    with broker._lock, broker._conn:
-        broker._conn.execute("UPDATE tasks SET visible_at = 0")
+    engine = _engine(broker)
+    with engine._lock, engine._conn:
+        engine._conn.execute("UPDATE tasks SET visible_at = 0")
 
 
 def _random_features(rng, names):
@@ -111,13 +143,15 @@ def test_worker_death_reprocessing(env):
     assert w.run_once() is True
     assert db.get("tx3")["status"] == COMPLETED
     assert broker.get_status(tid) == DONE
-    assert w.broker.expired_claims == 1
+    assert _engine(w.broker).expired_claims == 1
 
 
 def test_results_db_upsert_idempotent_and_fail_never_clobbers_completed(env):
     db_url, *_ = env
     db = ResultsDB(db_url)
-    assert db.applied_at_init == ["0001_transaction_results", "0002_status_index"]
+    # over fraud:// the store server migrated its own file at start-up
+    first = (_SERVER.db if _SERVER is not None else db).applied_at_init
+    assert first == ["0001_transaction_results", "0002_status_index"]
     assert ResultsDB(db_url).applied_at_init == []  # migrations applied once
     db.create_pending("t", {"a": 1}, None)
     db.complete("t", {"a": 0.5}, 0.1, 0.9)
@@ -307,3 +341,71 @@ def test_entry_point_drains_and_stops_on_sigterm(env, monkeypatch):
     assert not t.is_alive()
     assert db.get("etx")["status"] == COMPLETED
     assert broker.depth() == 0
+
+
+def test_predict_stays_up_with_dead_broker(tmp_path, monkeypatch):
+    """The broker wholly down (``fraud://`` with nothing listening):
+    ``/predict`` still answers 200 with ``explanation_status: "Queue
+    failed"`` (the reference's degradation contract, api/app.py:248-250)."""
+    from fraud_detection_tpu_torch.service import netclient
+    from fraud_detection_tpu_torch.service.app import create_app
+    from fraud_detection_tpu_torch.service.http import TestClient
+
+    monkeypatch.setenv("MODEL_PATH", os.path.join(ROOT, "models", "model.npz"))
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
+    monkeypatch.setenv("LIFECYCLE_DB_URL", f"sqlite:///{tmp_path}/lifecycle.db")
+    monkeypatch.setattr(netclient, "RETRIES", 1)  # the degraded answer, at once
+    app = create_app(database_url=f"sqlite:///{tmp_path}/fraud.db",
+                     broker_url="fraud://127.0.0.1:1", device="cpu")
+    with TestClient(app) as client:
+        r = client.post("/predict", json={"features": [0.1] * 30})
+        assert r.status_code == 200
+        assert r.json()["explanation_status"] == "Queue failed"
+        health = client.get("/health")
+        assert health.status_code == 503
+        assert health.json()["checks"]["broker"] != "ok"
+
+
+def test_worker_survives_store_outage_and_resumes(tmp_path, monkeypatch):
+    """A store outage longer than the client's retry budget does not crash
+    ``run_forever``: the worker backs off and consumes again when the store
+    returns on the same port and data directory."""
+    from fraud_detection_tpu_torch.service import netclient
+    from fraud_detection_tpu_torch.service.netserver import StoreServer
+
+    monkeypatch.setenv("MODEL_PATH", os.path.join(ROOT, "models", "model.npz"))
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
+    monkeypatch.setenv("DEVICE", "cpu")
+    monkeypatch.setattr(netclient, "RETRIES", 2)  # the outage outlives it quickly
+    srv = StoreServer(str(tmp_path / "s"), port=0)
+    srv.start()
+    port = srv.port
+    url = f"fraud://127.0.0.1:{port}"
+    w = XaiWorker(broker_url=url, database_url=url, poll_interval=0.05)
+    t = threading.Thread(target=w.run_forever, daemon=True)
+    t.start()
+    try:
+        srv.stop()  # the outage: the client's retries run out
+        time.sleep(1.5)  # several failed poll cycles
+        assert t.is_alive(), "the worker crashed during the store outage"
+        srv2 = StoreServer(str(tmp_path / "s"), host="127.0.0.1", port=port)
+        srv2.start()
+        try:
+            db, q = ResultsDB(url), Broker(url)
+            feats = {n: 0.1 for n in NAMES}
+            db.create_pending("tx-after", feats, None)
+            q.send_task("xai_tasks.compute_shap", ["tx-after", feats, None])
+            deadline = time.monotonic() + 30
+            while (db.get("tx-after") or {}).get("status") != COMPLETED \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert db.get("tx-after")["status"] == COMPLETED, \
+                "the worker did not consume again after the store returned"
+        finally:
+            w.stop()
+            t.join(timeout=10)
+            srv2.stop()
+    finally:
+        if t.is_alive():
+            w.stop()
+            t.join(timeout=10)
