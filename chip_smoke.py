@@ -361,6 +361,33 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ``PgLifecycleStore`` on the same peer; ``tree_shap`` and
    ``fused_score`` launched on that leg. Each number beside the card's
    name and power limit.
+16. **telemetry on the card** — phase 3's directory served by a child
+   process with ``ADMIN_TOKEN``, ``SCORER_EXPLAIN=topk``, the binary lane,
+   the SLO engine and the roofline on and the peaks measured by the
+   child's probes (an 8192 × 8192 f32 matmul, TF32 off, and a 1 GiB
+   stream, CUDA events): ``xla_compiles_total`` at start-up is the one
+   library it loaded (``fused_score``, under the warm-up's expected mark);
+   inside a 1 s ``POST /admin/profile`` capture, one 1024-row
+   ``/ingest/batch`` frame with a ``traceparent`` header, one 64-row
+   binary-lane frame with a trace field and 128 ``/predict`` from 4
+   threads; a second ``POST`` during the capture answers 409, 61 s 422,
+   no token 401; the trace holds ``fused_score`` kernels and
+   ``microbatch-score`` ranges; the worker's entry point drains the
+   queue. Then ``xla_compiles_total`` unmoved and no storm; the probes'
+   peaks within [0.5, 1.05] of 67 TFLOP/s and 3.35 TB/s; every served
+   entrypoint's ``device_utilization_fraction`` in (0, 1.05]; each
+   captured program's flops and bytes (``/slo/status``) the shape count
+   recomputed here, ``device_program_flops`` the top bucket's; memory in
+   use > 0, ≤ the peak ≤ the limit ≤ the card's total; ``/slo/status`` and
+   ``slo_requests_total`` count 128 good ``/predict`` and 2 good binary
+   frames. Phase 5's forest served the same way (32 ``/predict`` inside a
+   capture): ``tree_shap`` kernels in the trace, its explain flush's
+   utilization in range. ``train --profile-dir`` on the committed CSV: a
+   trace holding ``knn_topk`` kernels. Printed, not gated, beside the
+   card's name and power limit: the probes against the data sheet, the
+   utilizations, the memory watermarks, the capture's wall time, and a
+   1024-row fused flush's host p50 with ``SPYGLASS_ENABLED=0
+   ROOFLINE_ENABLED=0 SLO_ENABLED=0`` against all on, 30 each in turns.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -660,9 +687,11 @@ def fused_score_fixtures(seed: int) -> list[tuple[str, object, object, object]]:
 def fused_score_bound(n: int, d: int, elem_bytes: int = 4) -> tuple[float, str, int, int]:
     """(bound ms, what bounds it, bytes, operations): x read once at
     ``elem_bytes`` an element, w and b read once, one f32 score written;
-    a multiply-add an element, then bias, exp, add and divide a row."""
-    n_bytes = elem_bytes * n * d + 4 * d + 4 + 4 * n
-    n_ops = 2 * n * d + 4 * n
+    a multiply-add an element, then bias, exp, add and divide a row — the
+    count the live roofline's flush costs use (``roofline.fused_score_cost``)."""
+    from fraud_detection_tpu_torch.telemetry.roofline import fused_score_cost
+
+    n_ops, n_bytes = fused_score_cost(n, d, elem_bytes)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
@@ -1168,10 +1197,13 @@ def path_tables(tables):
 def shap_work(tables, binned) -> tuple[int, int]:
     """(operations, bytes) this run's data needs in compact form: per (row,
     tree) L·D compares and L·D adds (each leaf's level values summed to
-    its nodes, the nodes to their features); the tables read once, of
+    its nodes, the nodes to their features; ``roofline.tree_shap_ops``, the
+    count the live roofline's flush costs use); the tables read once, of
     ``leaf_sums`` only the (tree, leaf, pattern) entries this run's rows
     hit, the bins read and φ written once."""
     import torch
+
+    from fraud_detection_tpu_torch.telemetry.roofline import tree_shap_ops
 
     n, d = binned.shape
     T, L, D, _ = tables.leaf_sums.shape
@@ -1183,7 +1215,7 @@ def shap_work(tables, binned) -> tuple[int, int]:
         right = (binned.long()[:, path_feat[t]] > path_thr[t]).long()
         viol = ((right != want).long() << torch.arange(D, device=dev)).sum(-1)  # (n, L)
         touched += int(torch.unique(viol * L + torch.arange(L, device=dev)).numel())
-    n_ops = 2 * n * T * L * D
+    n_ops = tree_shap_ops(n, T, D)
     n_bytes = 4 * (touched * D + sum(int(getattr(tables, k).numel()) for k in (
         "node_key", "group_order", "group_start", "group_count"))) + 4 * n * d * 2
     return n_ops, n_bytes
@@ -6218,6 +6250,522 @@ def store_phase(work: Path, lin_dir: Path, lin_store: Path, gbt_dir: Path, gbt_s
             "fused_score": sent["fused_score"] + pg["fused_score"], "tree_shap": pg["tree_shap"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: telemetry on the card
+# ---------------------------------------------------------------------------
+
+TEL_TOKEN = "tel-s3cret"
+TEL_PREDICTS = 128  # /predict to the logistic child, from TEL_CLIENTS threads
+TEL_CLIENTS = 4
+TEL_FOREST_PREDICTS = 32
+TEL_FRAME_ROWS = 1024  # the /ingest/batch frame
+TEL_LANE_ROWS = 64  # the binary-lane frame with a trace field
+TEL_CAPTURE_S = 1.0
+TEL_TURNS = 30  # 1024-row flushes a setting, telemetry off and on in turns
+TEL_TRACEPARENT = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+TEL_PEAK_BAND = (0.5, 1.05)  # a probe's reading against the data sheet
+#: environment knobs earlier phases leave behind that phase 16's children
+#: must not inherit (prefixes and names)
+TEL_CLEAR_PREFIXES = ("SCORER_", "INGEST_", "LIFEBOAT_", "LEDGER_", "WIDE_", "SLO_",
+                      "ROOFLINE_", "DEVICE_PEAK_", "DEVICE_PROFILE_", "SPYGLASS_",
+                      "WATCHTOWER_", "CONDUCTOR_", "LIFECYCLE_", "RECOMPILE_", "OTEL_",
+                      "MLFLOW_", "FRAUD_REGISTRY_", "REQUIRE_REGISTRY", "QUANT_", "MESH_")
+TEL_CLEAR = ("DATABASE_URL", "CELERY_BROKER_URL", "MODEL_PATH", "DEVICE", "ADMIN_TOKEN",
+             "DATA_CSV", "FLIGHTRECORDER_CAPACITY")
+
+
+def tel_call(port: int, method: str, path: str, body=None, headers=None, raw=None,
+             ctype: str = "application/json"):
+    """One HTTP call with extra headers (the admin token, a traceparent)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        hdr = {"content-type": ctype, "connection": "close", **(headers or {})}
+        payload = raw if raw is not None else (None if body is None else json.dumps(body))
+        conn.request(method, path, body=payload, headers=hdr)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def tel_series(port: int) -> dict:
+    """Every sample of a ``/metrics`` scrape: series (name and labels) → value."""
+    status, raw = tel_call(port, "GET", "/metrics")
+    if status != 200:
+        raise AssertionError(f"phase16: /metrics HTTP {status}")
+    out = {}
+    for line in raw.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            out[key] = float(val)
+    return out
+
+
+def tel_labelled(series: dict, name: str, label: str) -> dict:
+    """label value → value of every sample of ``name`` that has one label."""
+    pat = re.compile(rf'^{re.escape(name)}\{{{label}="([^"]*)"\}}$')
+    return {m.group(1): v for k, v in series.items() if (m := pat.match(k))}
+
+
+def tel_env(work: Path, tag: str, model_dir: Path, **extra) -> dict:
+    """A child's environment: the served directory with an empty tracking
+    store, its own results DB and broker, the admin token, explain on, the
+    SLO engine and the roofline on with the peaks measured (not pinned)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(TEL_CLEAR_PREFIXES) and k not in TEL_CLEAR}
+    env.update(
+        PYTHONPATH=str(ROOT), DEVICE="cuda", MODEL_PATH=str(model_dir / "model.npz"),
+        MLFLOW_TRACKING_URI=f"file:{work / f'tel_{tag}_mlruns'}",
+        FRAUD_REGISTRY_CACHE=str(work / f"tel_{tag}_registry_cache"),
+        DATABASE_URL=f"sqlite:///{work}/tel_{tag}_fraud.db",
+        CELERY_BROKER_URL=f"sqlite:///{work}/tel_{tag}_taskq.db",
+        ADMIN_TOKEN=TEL_TOKEN, SCORER_EXPLAIN="topk", SLO_ENABLED="1",
+        ROOFLINE_ENABLED="1", SPYGLASS_ENABLED="1",
+        DEVICE_PROFILE_DIR=str(work / f"tel_{tag}_traces"),
+        LIFECYCLE_RELOAD_INTERVAL_S="0",
+    )
+    env.update(extra)
+    return env
+
+
+def tel_spawn(args: list[str], env: dict, log_path: Path) -> subprocess.Popen:
+    with open(log_path, "w") as log:
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=str(ROOT), env=env,
+                                stdout=log, stderr=subprocess.STDOUT)
+
+
+def tel_stop(proc, timeout: float = 60.0) -> int:
+    """SIGTERM, then SIGKILL past ``timeout``; the exit code."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return proc.returncode
+
+
+def tel_trace(path: str) -> dict:
+    """A Chrome trace's kernels (name → count) and user ranges (name → count)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels_seen, ranges = {}, {}
+    for e in events:
+        bucket = {"kernel": kernels_seen, "user_annotation": ranges}.get(e.get("cat"))
+        if bucket is not None:
+            bucket[e["name"]] = bucket.get(e["name"], 0) + 1
+    return {"kernels": kernels_seen, "ranges": ranges, "events": len(events)}
+
+
+def tel_count(names: dict, part: str) -> int:
+    return sum(n for name, n in names.items() if part in name)
+
+
+def tel_predicts(port: int, rows, clients: int) -> tuple[list, float]:
+    """``/predict`` of each row from ``clients`` threads of this process
+    (they start at once: a client process would start after the capture's
+    window opened); (status, body, seconds) a row and the wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        t = time.perf_counter()
+        st, raw = tel_call(port, "POST", "/predict", {"features": rows[i].tolist()})
+        return st, raw.decode(), time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        results = list(pool.map(one, range(len(rows))))
+    return results, time.perf_counter() - t0
+
+
+def tel_capture(port: int, tag: str, duration: float, out: dict) -> threading.Thread:
+    """``POST /admin/profile`` on a thread (it blocks for the window); its
+    answer lands in ``out``. Returns once the capture is running."""
+    def run():
+        try:
+            out["answer"] = tel_call(port, "POST", "/admin/profile", {"duration_s": duration},
+                                     headers={"x-admin-token": TEL_TOKEN})
+        except BaseException as e:  # re-raised by the caller
+            out["error"] = e
+
+    t = threading.Thread(target=run, name="tel-capture")
+    t.start()
+    deadline = time.monotonic() + 30
+    while tel_series(port).get("device_profile_active", 0.0) != 1.0:
+        if time.monotonic() > deadline or not t.is_alive():
+            raise AssertionError(f"{tag}: the capture never became active: {out}")
+        time.sleep(0.01)
+    return t
+
+
+def tel_served_checks(tag: str, port: int, start: dict, profile_dir: Path, k: int,
+                      band: bool) -> dict:
+    """The sentinel, roofline and memory gates on a child after its traffic:
+    ``xla_compiles_total`` unmoved since ``start`` and no storm; with
+    ``band``, the probes' peaks within ``TEL_PEAK_BAND`` of the data sheet;
+    every served entrypoint's utilization in (0, 1.05];
+    each captured program's costs the shape count recomputed here; the
+    memory watermarks ordered under the card's total."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.telemetry.roofline import flush_cost
+
+    final = tel_series(port)
+    c0 = tel_labelled(start, "xla_compiles_total", "entrypoint")
+    c1 = tel_labelled(final, "xla_compiles_total", "entrypoint")
+    if c1 != c0:
+        raise AssertionError(f"{tag}: xla_compiles_total moved across the traffic: {c0} → {c1}")
+    storms = tel_labelled(final, "xla_recompile_storm", "entrypoint")
+    if any(storms.values()):
+        raise AssertionError(f"{tag}: xla_recompile_storm {storms}")
+    status, raw = tel_call(port, "GET", "/slo/status")
+    if status != 200:
+        raise AssertionError(f"{tag}: /slo/status HTTP {status}")
+    body = json.loads(raw)
+    roof = body["roofline"]
+    peak = final["device_peak_flops_estimate"]
+    lo, hi = TEL_PEAK_BAND
+    for what, got, sheet in (("device_peak_flops_estimate", peak, F32_FLOPS_PER_S),
+                             ("peak_bytes_per_s", roof["peak_bytes_per_s"], HBM_BYTES_PER_S)):
+        if band and not lo * sheet <= got <= hi * sheet:
+            raise AssertionError(f"{tag}: {what} {got:.6g} outside [{lo}, {hi}] x {sheet:.3g}")
+    util = tel_labelled(final, "device_utilization_fraction", "entrypoint")
+    if "lantern.flush" not in util or not all(0.0 < u <= 1.05 for u in util.values()):
+        raise AssertionError(f"{tag}: device_utilization_fraction {util}")
+    prof = load_profile(str(profile_dir))
+    fb, sb = prof.feature_edges.shape[1] + 1, prof.score_edges.shape[0] + 1
+    forest = None
+    with np.load(profile_dir / "model.npz") as z:
+        if "gbt_split_feature" in z:
+            sf = z["gbt_split_feature"]
+            forest = (int(sf.shape[0]), (int(sf.shape[1]) + 1).bit_length() - 1,
+                      int(z["gbt_bin_edges"].shape[1]) + 1)
+    top = 0
+    for key, cost in roof["programs"].items():
+        ep, b = key.rsplit("@", 1)
+        want = flush_cost(int(b), prof.n_features, feature_bins=fb, score_bins=sb,
+                          explain_k=k, forest=forest)
+        if (cost["flops"], cost["bytes"]) != want:
+            raise AssertionError(f"{tag}: {key} costs {cost}, the shape count {want}")
+        top = max(top, int(b))
+    gauge = tel_labelled(final, "device_program_flops", "entrypoint")["lantern.flush"]
+    if gauge != roof["programs"][f"lantern.flush@{top}"]["flops"]:
+        raise AssertionError(f"{tag}: device_program_flops {gauge} is not the top bucket's")
+    mem = {k_: final[f"device_memory_{k_}"] for k_ in ("bytes_in_use", "peak_bytes_in_use",
+                                                       "bytes_limit")}
+    total = torch.cuda.mem_get_info()[1]
+    if not 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"] <= total:
+        raise AssertionError(f"{tag}: device memory {mem}, the card's total {total}")
+    return {"final": final, "slo": body, "util": util, "peak_flops": peak,
+            "peak_bytes_per_s": roof["peak_bytes_per_s"], "memory": mem, "compiles": c0,
+            "programs": len(roof["programs"])}
+
+
+def tel_logistic(work: Path, port: int, lane_port: int, env: dict, worker, wport: int,
+                 t_w: float, card: str) -> dict:
+    """Phase 3's directory served by a child: 128 /predict from 4 threads, a
+    1024-row /ingest/batch frame with a traceparent header and a binary-lane
+    frame with a trace field, inside a 1 s /admin/profile capture; the admin
+    endpoint's 409, 422 and 401; the worker (spawned at ``t_w`` on the
+    child's broker, metrics on ``wport``) drains the queue."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.service import binlane
+    from fraud_detection_tpu_torch.service.taskq import Broker
+
+    tag = "phase16 logistic"
+    x = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                   max_rows=TEL_FRAME_ROWS + TEL_PREDICTS, dtype=np.float32)[:, :30]
+    start = tel_series(port)
+    compiles = tel_labelled(start, "xla_compiles_total", "entrypoint")
+    if sum(compiles.values()) != 1:  # the logistic path's one library: fused_score
+        raise AssertionError(f"{tag}: xla_compiles_total at start-up {compiles}")
+    admin = {"x-admin-token": TEL_TOKEN}
+    out: dict = {}
+    t_cap = time.perf_counter()
+    cap = tel_capture(port, tag, TEL_CAPTURE_S, out)
+    busy = tel_call(port, "POST", "/admin/profile", {"duration_s": 0.5}, headers=admin)[0]
+    # the /predict traffic flows while the frames go in: all inside the window
+    traffic: dict = {}
+    clients = threading.Thread(target=lambda: traffic.update(
+        out=tel_predicts(port, x[TEL_FRAME_ROWS:], TEL_CLIENTS)), name="tel-clients")
+    clients.start()
+    frame = binlane.encode_frame(x[:TEL_FRAME_ROWS], length_prefix=False)
+    st, raw = tel_call(port, "POST", "/ingest/batch", raw=frame,
+                       headers={"traceparent": TEL_TRACEPARENT},
+                       ctype="application/x-fraud-frame")
+    if st != 200:
+        raise AssertionError(f"{tag}: /ingest/batch HTTP {st} {raw[:200]!r}")
+    with binlane.BinLaneClient("127.0.0.1", lane_port) as cli:
+        lane_scores, _ = cli.score_batch(x[:TEL_LANE_ROWS], traceparent=TEL_TRACEPARENT)
+    clients.join(timeout=300)
+    if "out" not in traffic:
+        raise AssertionError(f"{tag}: the /predict clients did not finish")
+    results, wall = traffic["out"]
+    cap.join(timeout=120)
+    if "error" in out:
+        raise out["error"]
+    cap_status, cap_raw = out["answer"]
+    t_cap = time.perf_counter() - t_cap
+    too_long = tel_call(port, "POST", "/admin/profile", {"duration_s": 61.0}, headers=admin)[0]
+    no_token = tel_call(port, "POST", "/admin/profile", {"duration_s": 0.1})[0]
+    if cap_status != 200 or busy != 409 or too_long != 422 or no_token != 401:
+        raise AssertionError(f"{tag}: /admin/profile {cap_status} {cap_raw[:300]!r}, during "
+                             f"it {busy}, 61 s {too_long}, no token {no_token}")
+    capture = json.loads(cap_raw)
+    trace = tel_trace(capture["trace_file"])
+    n_fused = tel_count(trace["kernels"], "fused_score")
+    n_ranges = trace["ranges"].get("microbatch-score", 0)
+    if n_fused < 1 or n_ranges < 1:
+        raise AssertionError(f"{tag}: the trace holds {n_fused} fused_score kernels and "
+                             f"{n_ranges} microbatch-score ranges: {trace}")
+    for i, (status, body, _) in enumerate(results):
+        if status != 200:
+            raise AssertionError(f"{tag}: /predict {i}: HTTP {status} {body[:200]!r}")
+    lat = [r[2] for r in results]
+
+    # the worker drains the queue the /predict left
+    broker = Broker(env["CELERY_BROKER_URL"])
+    try:
+        while True:
+            if worker.poll() is not None:
+                raise AssertionError(f"{tag}: the worker exited {worker.returncode}: "
+                                     + (work / "tel_lin_worker.log").read_text()[-3000:])
+            try:
+                done = tel_series(wport).get("xai_task_success_total", 0.0)
+            except OSError:
+                done = 0.0
+            if done >= TEL_PREDICTS and broker.depth() == 0:
+                break
+            if time.perf_counter() - t_w > EXPLAIN_DRAIN_TIMEOUT_S:
+                raise AssertionError(f"{tag}: the worker drained {done} of {TEL_PREDICTS}")
+            time.sleep(0.05)
+        t_w = time.perf_counter() - t_w
+        wseries = tel_series(wport)
+    finally:
+        rc = tel_stop(worker)
+        broker.close()
+    if rc != 0:
+        raise AssertionError(f"{tag}: the worker exited {rc} on SIGTERM")
+    res = tel_served_checks(tag, port, start, work / "models", 3, band=True)
+    slos = res["slo"]["slos"]
+    final = res["final"]
+    want = {("availability:json", "good"): TEL_PREDICTS, ("availability:json", "bad"): 0,
+            ("availability:binary", "good"): 2, ("availability:binary", "bad"): 0}
+    for (slo_name, verdict), n in want.items():
+        got = final.get(f'slo_requests_total{{slo="{slo_name}",verdict="{verdict}"}}', 0.0)
+        status_n = slos[slo_name]["total_" + verdict]
+        if got != n or status_n != n:
+            raise AssertionError(f"{tag}: slo_requests_total {slo_name} {verdict} {got}, "
+                                 f"/slo/status {status_n}, sent {n}")
+    lat_json = slos["latency:json"]["total_good"] + slos["latency:json"]["total_bad"]
+    if lat_json != TEL_PREDICTS:
+        raise AssertionError(f"{tag}: the latency objective counted {lat_json}")
+    print(f"{tag}: child (own process, ready on {card}) served {TEL_PREDICTS} /predict from "
+          f"{TEL_CLIENTS} threads in {wall:.3f} s ({latency_line(lat)}), one {TEL_FRAME_ROWS}-row "
+          f"/ingest/batch frame with a traceparent header and one {TEL_LANE_ROWS}-row "
+          f"binary-lane frame with a trace field ({lane_scores.shape[0]} scores); the worker "
+          f"(spawned once the child was ready) had drained the queue {t_w:.3f} s after its "
+          f"spawn (its xla_compiles_total "
+          f"{tel_labelled(wseries, 'xla_compiles_total', 'entrypoint')} under the warm-up's "
+          f"expected mark)")
+    print(f"{tag}: xla_compiles_total {res['compiles']} at start-up (the fused_score library "
+          f"loaded under the expected mark), unmoved across the traffic; xla_recompile_storm "
+          f"0 everywhere")
+    print(f"{tag}: probes (printed, the band gated): matmul 8192 f32 (TF32 off) "
+          f"{res['peak_flops']:.6g} FLOP/s = {res['peak_flops'] / F32_FLOPS_PER_S:.4f} of the "
+          f"67 TFLOP/s data sheet; 1 GiB stream {res['peak_bytes_per_s']:.6g} B/s = "
+          f"{res['peak_bytes_per_s'] / HBM_BYTES_PER_S:.4f} of 3.35 TB/s; on {card}")
+    print(f"{tag}: device_utilization_fraction {res['util']} (EWMA over the flushes; the "
+          f"{res['programs']} captured programs' costs equal the shape count)")
+    print(f"{tag}: device memory in use {res['memory']['bytes_in_use']:.0f} B, peak "
+          f"{res['memory']['peak_bytes_in_use']:.0f} B, limit {res['memory']['bytes_limit']:.0f} B")
+    print(f"{tag}: POST /admin/profile {TEL_CAPTURE_S} s during the traffic: 200 in "
+          f"{capture['wall_s']:.3f} s of capture wall ({t_cap:.3f} s with the request), trace "
+          f"{trace['events']} events, {n_fused} fused_score kernels, {n_ranges} microbatch-score "
+          f"ranges; a second POST during it {busy}, 61 s {too_long}, no token {no_token}")
+    print(f"{tag}: SLO availability:json good {TEL_PREDICTS} bad 0, latency:json "
+          f"{slos['latency:json']['total_good']} fast {slos['latency:json']['total_bad']} slow, "
+          f"availability:binary good 2 bad 0; burn 5m json "
+          f"{slos['availability:json']['burn_rate']['5m']}")
+    return {"peak_flops": res["peak_flops"], "peak_bytes_per_s": res["peak_bytes_per_s"],
+            "util": res["util"], "memory": res["memory"], "capture_wall_s": capture["wall_s"],
+            "trace_fused_score": n_fused}
+
+
+def tel_forest(work: Path, port: int, gbt_dir: Path, card: str) -> dict:
+    """Phase 5's forest served by a child: 32 /predict inside a capture;
+    ``tree_shap`` in the trace, the explain flush's utilization in range."""
+    import numpy as np
+
+    tag = "phase16 gbt"
+    x = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                   max_rows=TEL_FOREST_PREDICTS, dtype=np.float32)[:, :30]
+    start = tel_series(port)
+    out: dict = {}
+    cap = tel_capture(port, tag, TEL_CAPTURE_S, out)
+    results, wall = tel_predicts(port, x, TEL_CLIENTS)
+    cap.join(timeout=120)
+    if "error" in out:
+        raise out["error"]
+    st, raw = out["answer"]
+    if st != 200:
+        raise AssertionError(f"{tag}: /admin/profile HTTP {st} {raw[:300]!r}")
+    for i, (status, body, _) in enumerate(results):
+        if status != 200:
+            raise AssertionError(f"{tag}: /predict {i}: HTTP {status} {body[:200]!r}")
+    trace = tel_trace(json.loads(raw)["trace_file"])
+    n_shap = tel_count(trace["kernels"], "tree_shap")
+    if n_shap < 1:
+        raise AssertionError(f"{tag}: no tree_shap kernel in the trace: {trace['kernels']}")
+    # its probes ran while the logistic child served and the trainer ran:
+    # printed, not held to the band
+    res = tel_served_checks(tag, port, start, gbt_dir, 3, band=False)
+    print(f"{tag}: child served {TEL_FOREST_PREDICTS} /predict in {wall:.3f} s inside a "
+          f"{TEL_CAPTURE_S} s capture: {n_shap} tree_shap kernels in the trace; "
+          f"device_utilization_fraction {res['util']}; xla_compiles_total {res['compiles']}; "
+          f"probes {res['peak_flops']:.6g} FLOP/s, {res['peak_bytes_per_s']:.6g} B/s "
+          f"(read while the logistic child served); memory {res['memory']}; on {card}")
+    return {"util": res["util"], "trace_tree_shap": n_shap}
+
+
+def tel_overhead(work: Path, card: str) -> dict:
+    """A 1024-row fused flush with explain, host clock, in process: spyglass,
+    the roofline and the SLO engine off (and the sentinel uninstalled)
+    against all on, ``TEL_TURNS`` each in turns (off, on, on, off, ...).
+    Printed, not gated."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.watchtower import Watchtower
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+    from fraud_detection_tpu_torch.telemetry import compile_sentinel, slo
+
+    knobs = ("SPYGLASS_ENABLED", "ROOFLINE_ENABLED", "SLO_ENABLED")
+    saved = {k_: os.environ.get(k_) for k_ in knobs}
+    model = load_any_model(str(work / "models"), device="cuda")
+    wt = Watchtower(load_profile(str(work / "models")), device="cuda")
+    x = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                   max_rows=1024, dtype=np.float32)[:, :30]
+    batch = [(x[i], None) for i in range(1024)]
+    times = {"off": [], "on": []}
+    try:
+        batchers = {on: MicroBatcher(model.scorer, watchtower=wt, telemetry=on, fused=True,
+                                     explain=True, explain_k=3) for on in (False, True)}
+
+        def flush(setting: str, keep: bool) -> None:
+            on = setting == "on"
+            for k_ in knobs:
+                os.environ[k_] = "1" if on else "0"
+            (compile_sentinel.install if on else compile_sentinel.uninstall)()
+            mb = batchers[on]
+            scorer = mb.scorer
+            t = time.perf_counter()
+            res = mb._flush_device(scorer, mb._fused_target(scorer), batch, on)
+            scorer.staging.release(res[-1])
+            slo.record_lane("binary", True, time.perf_counter() - t)
+            if keep:
+                times[setting].append(time.perf_counter() - t)
+
+        for setting in ("off", "on") * 3:
+            flush(setting, False)  # warm both
+        for r in range(TEL_TURNS // 2):
+            for setting in ("off", "on", "on", "off"):
+                flush(setting, True)
+    finally:
+        for k_, v in saved.items():
+            if v is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v
+        compile_sentinel.install()
+        wt.close()
+    p50 = {k_: sorted(v)[len(v) // 2] * 1e3 for k_, v in times.items()}
+    q = {k_: (sorted(v)[len(v) // 4] * 1e3, sorted(v)[3 * len(v) // 4] * 1e3)
+         for k_, v in times.items()}
+    print(f"phase16: a {len(batch)}-row fused flush with explain, host clock, "
+          f"{len(times['off'])} each in turns: SPYGLASS_ENABLED=0 ROOFLINE_ENABLED=0 "
+          f"SLO_ENABLED=0 (sentinel off) p50 {p50['off']:.3f} ms (quartiles {q['off'][0]:.3f}–"
+          f"{q['off'][1]:.3f}), all on p50 {p50['on']:.3f} ms ({q['on'][0]:.3f}–{q['on'][1]:.3f}): "
+          f"{(p50['on'] / p50['off'] - 1) * 100:+.1f}% (JAX's bench.py claims <= 5%; printed, "
+          f"not gated); on {card}")
+    return {"p50_off_ms": p50["off"], "p50_on_ms": p50["on"]}
+
+
+def telemetry_phase(work: Path, gbt_dir: Path, card: str) -> dict:
+    """Phase 16: telemetry on the card (children and in-process numbers)."""
+    t_phase = time.perf_counter()
+    procs = []
+    try:
+        lin_port, lane_port, gbt_port = free_port(), free_port(), free_port()
+        lin_env = tel_env(work, "lin", work / "models", INGEST_PORT=str(lane_port),
+                          INGEST_HOST="127.0.0.1")
+        t0 = time.perf_counter()
+        lin = tel_spawn(["fraud_detection_tpu_torch.service.app", "--host", "127.0.0.1",
+                         "--port", str(lin_port)], lin_env, work / "tel_lin_app.log")
+        procs.append(lin)
+        lb_wait(lin_port, "phase16 logistic", "/health", lambda st, _: st == 200, proc=lin)
+        t_lin = time.perf_counter() - t0
+        # the forest child and the profiled training run start once the
+        # logistic child's probes are done (its warm-up ran them)
+        gbt = tel_spawn(["fraud_detection_tpu_torch.service.app", "--host", "127.0.0.1",
+                         "--port", str(gbt_port)], tel_env(work, "gbt", gbt_dir),
+                        work / "tel_gbt_app.log")
+        procs.append(gbt)
+        train_env = tel_env(work, "train", work / "models")
+        trace_dir = work / "tel_train_trace"
+        train = tel_spawn(["fraud_detection_tpu_torch.train", "--data",
+                           str(ROOT / "data" / "creditcard.csv"), "--no-register",
+                           "--out-dir", str(work / "tel_train_models"),
+                           "--profile-dir", str(trace_dir)], train_env,
+                          work / "tel_train.log")
+        procs.append(train)
+        # the worker starts with them: it drains the logistic child's queue
+        # as the tasks arrive
+        wport = free_port()
+        t_w = time.perf_counter()
+        worker = tel_spawn(["fraud_detection_tpu_torch.service.worker", "--max-batch", "64",
+                            "--metrics-port", str(wport)], lin_env, work / "tel_lin_worker.log")
+        procs.append(worker)
+        lin_res = tel_logistic(work, lin_port, lane_port, lin_env, worker, wport, t_w, card)
+        lb_wait(gbt_port, "phase16 gbt", "/health", lambda st, _: st == 200, proc=gbt)
+        gbt_res = tel_forest(work, gbt_port, gbt_dir, card)
+        rc = train.wait(timeout=600)
+        if rc != 0:
+            raise AssertionError("phase16: train --profile-dir exited "
+                                 f"{rc}: {(work / 'tel_train.log').read_text()[-3000:]}")
+        trace = tel_trace(str(trace_dir / "trace.json"))
+        n_knn = tel_count(trace["kernels"], "knn_topk")
+        n_fused = tel_count(trace["kernels"], "fused_score")
+        if n_knn < 1:
+            raise AssertionError(f"phase16: train --profile-dir's trace has no knn_topk "
+                                 f"kernel: {sorted(trace['kernels'])[:20]}")
+        print(f"phase16: train --profile-dir on the committed CSV: exit 0, trace.json "
+              f"{trace['events']} events, knn_topk kernels {n_knn}, fused_score kernels "
+              f"{n_fused} (the trainer scores with the plain logistic predict: phase 4 "
+              f"launches no fused_score), {len(trace['kernels'])} kernel names")
+    finally:
+        for p in procs:
+            tel_stop(p)
+    from fraud_detection_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    over = tel_overhead(work, card)
+    over_launches = kernels.launch_counts()
+    if over_launches["fused_score"] < TEL_TURNS * 2:
+        raise AssertionError(f"phase16: the timed flushes launched {over_launches}")
+    print(f"phase16: kernel launches in the in-process flushes (counts zeroed just before): "
+          f"{over_launches}")
+    print(f"phase16: telemetry on the card in {time.perf_counter() - t_phase:.3f} s (the "
+          f"logistic child ready {t_lin:.3f} s after its spawn)")
+    return {"logistic": lin_res, "gbt": gbt_res, "train_knn": n_knn, "overhead": over,
+            "launches": over_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -6297,6 +6845,7 @@ def main() -> int:
                                   card)
         store = store_phase(work, work / "models", work / "empty_mlruns", Path(gbt_dir),
                             Path(gbt_store.removeprefix("file:")), card)
+        telemetry = telemetry_phase(work, Path(gbt_dir), card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -6322,6 +6871,8 @@ def main() -> int:
             lifecycle_launches=lifecycle["fused_score"],
             lifeboat_launches=lifeboat["fused_score"],
             store_launches=store["fused_score"],
+            telemetry_launches=telemetry["launches"]["fused_score"],
+            telemetry_trace_kernels=telemetry["logistic"]["trace_fused_score"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":
@@ -6337,6 +6888,7 @@ def main() -> int:
             tools_launches=tools.get("knn_topk", 0),
             ledger_launches=ledger["train"]["knn_topk"],
             lifecycle_launches=lifecycle["knn_topk"],
+            telemetry_trace_kernels=telemetry["train_knn"],
             at_m_158_d_34={key: ledger["checks"]["knn_topk"][key] for key in
                            ("ms", "plain_ms", "bound_ms", "orientation_ms")},
             **{f"at_m_{m}" + (f"_d_{d}" if d != 30 else ""):
@@ -6363,6 +6915,7 @@ def main() -> int:
             ingest_launches=ingest["ingest"]["tree_shap"],
             lifecycle_launches=lifecycle["tree_shap"],
             store_launches=store["tree_shap"],
+            telemetry_trace_kernels=telemetry["gbt"]["trace_tree_shap"],
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}

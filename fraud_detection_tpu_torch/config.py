@@ -1,5 +1,5 @@
 """Environment-variable configuration for the port's serving, explain,
-training and offline-tool slices.
+training, offline-tool and telemetry slices.
 
 Its own copy of only the knobs these slices read, with the defaults of
 ``fraud_detection_tpu/config.py`` — except ``DEVICE``, which defaults to
@@ -533,8 +533,120 @@ def lifecycle_retrain_stale_after() -> float:
 
 
 def admin_token() -> str:
-    """``ADMIN_TOKEN`` — the shared secret of ``POST /admin/reload``: when
-    set, a request carries it as ``Authorization: Bearer <token>`` or
+    """``ADMIN_TOKEN`` — the shared secret of ``POST /admin/reload`` and
+    ``POST /admin/profile``: when set, a request carries it as ``Authorization: Bearer <token>`` or
     ``X-Admin-Token``; empty (the default) leaves the endpoint open
     (loopback and development only)."""
     return _get("ADMIN_TOKEN", "")
+
+
+# ---------------------------------------------------------------------------
+# telemetry: tracing, the profiler, the compile sentinel, the SLO engine and
+# the roofline (telemetry/, service/tracing.py)
+# ---------------------------------------------------------------------------
+
+def otel_endpoint() -> str:
+    """``OTEL_EXPORTER_OTLP_ENDPOINT`` — the OTLP HTTP collector spans go
+    to; empty (the default) leaves tracing off."""
+    return _get("OTEL_EXPORTER_OTLP_ENDPOINT", "")
+
+
+def otel_service_name() -> str:
+    return _get("OTEL_SERVICE_NAME", "fraud-api")
+
+
+def device_profile_dir() -> str:
+    """Where ``POST /admin/profile`` writes trace captures."""
+    return _get("DEVICE_PROFILE_DIR", "device_traces")
+
+
+def device_profile_default_s() -> float:
+    return _get_float("DEVICE_PROFILE_DEFAULT_S", 5.0)
+
+
+def device_profile_max_s() -> float:
+    """The ceiling of one on-demand capture window: a forgotten profile
+    must not trace the device for hours."""
+    return _get_float("DEVICE_PROFILE_MAX_S", 60.0)
+
+
+def recompile_storm_window_s() -> float:
+    """Sliding window of the compile sentinel's jump detector."""
+    return _get_float("RECOMPILE_STORM_WINDOW_S", 600.0)
+
+
+def recompile_storm_threshold() -> int:
+    """Unexpected compiles (on the port: kernel-library builds and loads)
+    within the window that flag a storm. Default 8."""
+    return _get_int("RECOMPILE_STORM_THRESHOLD", 8)
+
+
+def slo_enabled() -> bool:
+    """``SLO_ENABLED=0`` turns off the host-side SLO engine (per-lane
+    availability and latency objectives over sliding windows,
+    ``slo_burn_rate``/``slo_error_budget_remaining`` and ``/slo/status``).
+    Default on."""
+    return env_flag("SLO_ENABLED") is not False
+
+
+def slo_availability_objective(series: str | None = None) -> float:
+    """``SLO_AVAILABILITY_OBJECTIVE`` — the fraction of requests answered
+    without a shed, outage or internal error; a per-series override wins:
+    ``SLO_AVAILABILITY_OBJECTIVE_JSON``/``_MSGPACK``/``_BINARY``/``_SHARD``
+    (the shard override applies to every shard). Default 0.999."""
+    if series is not None:
+        key = series.upper().rstrip("0123456789")
+        v = os.environ.get(f"SLO_AVAILABILITY_OBJECTIVE_{key}")
+        if v:
+            return float(v)
+    return _get_float("SLO_AVAILABILITY_OBJECTIVE", 0.999)
+
+
+def slo_latency_objective(series: str | None = None) -> float:
+    """``SLO_LATENCY_OBJECTIVE`` — the fraction of requests completing under
+    ``SLO_LATENCY_P99_MS``, with the availability objective's per-series
+    overrides. Default 0.99."""
+    if series is not None:
+        key = series.upper().rstrip("0123456789")
+        v = os.environ.get(f"SLO_LATENCY_OBJECTIVE_{key}")
+        if v:
+            return float(v)
+    return _get_float("SLO_LATENCY_OBJECTIVE", 0.99)
+
+
+def slo_latency_threshold_s() -> float:
+    """``SLO_LATENCY_P99_MS`` — the latency a request must beat to count as
+    good for the latency objective, in seconds. Default 250 ms."""
+    return _get_float("SLO_LATENCY_P99_MS", 250.0) / 1000.0
+
+
+def slo_fast_burn() -> float:
+    """``SLO_FAST_BURN`` — the burn-rate multiple over which the fast-burn
+    alert pages. Default 14.4."""
+    return _get_float("SLO_FAST_BURN", 14.4)
+
+
+def slo_slow_burn() -> float:
+    """``SLO_SLOW_BURN`` — the burn-rate multiple over which the slow-burn
+    alert warns. Default 6."""
+    return _get_float("SLO_SLOW_BURN", 6.0)
+
+
+def roofline_enabled() -> bool:
+    """``ROOFLINE_ENABLED=0`` turns off the live roofline layer: the
+    per-program costs and ``device_utilization_fraction``. Default on."""
+    return env_flag("ROOFLINE_ENABLED") is not False
+
+
+def device_peak_flops() -> float:
+    """``DEVICE_PEAK_FLOPS`` — the peak f32 FLOP/s the utilization gauges
+    divide by. 0 (the default) measures it once at warm-up with a matmul
+    probe on the card (telemetry/roofline ``ensure_peak``)."""
+    return _get_float("DEVICE_PEAK_FLOPS", 0.0)
+
+
+def device_peak_bytes_per_s() -> float:
+    """``DEVICE_PEAK_BYTES_PER_S`` — the device-memory rate (bytes/s) the
+    roofline audit divides by. 0 (the default) measures it once with a
+    streaming probe (telemetry/roofline ``ensure_membw``)."""
+    return _get_float("DEVICE_PEAK_BYTES_PER_S", 0.0)

@@ -22,9 +22,10 @@ feature names) is the condition, and the drift monitor is rebuilt from the
 new champion's profile. ``lifecycle_model_swaps`` counts swaps and
 ``lifecycle_active_model_version`` exports what is serving.
 
-The reference runs its warm-up inside the compile sentinel's
-``expected_compiles`` mark; the port has no compile sentinel yet (ROADMAP
-item 13), so the warm-up runs unmarked.
+Both warm-ups run inside the compile sentinel's ``expected_compiles``
+mark, as the reference's do: the kernel libraries a promotion's warm-up
+builds or loads count in ``xla_compiles_total`` but never feed the
+recompile-storm detector.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.ops import scorer as scorer_mod
 from fraud_detection_tpu_torch.ops.scorer import _bucket
 from fraud_detection_tpu_torch.service import metrics
+from fraud_detection_tpu_torch.telemetry.compile_sentinel import expected_compiles
 from fraud_detection_tpu_torch.utils import lockdep
 
 log = logging.getLogger("fraud_detection_tpu_torch.lifecycle")
@@ -81,8 +83,10 @@ def warm_scorer(scorer) -> None:
     ``SCORER_MAX_BATCH`` for a freshly loaded model (both widths of a
     widened scorer), so the swap pause is a pointer write: the kernel is
     built and the allocator's blocks are cached before the first post-swap
-    flush."""
-    scorer.warmup(_bucket(config.scorer_max_batch(), scorer.min_bucket))
+    flush. Runs under ``expected_compiles``: a reload's ladder is not a
+    recompile storm."""
+    with expected_compiles():
+        scorer.warmup(_bucket(config.scorer_max_batch(), scorer.min_bucket))
 
 
 def warm_fused_ladder(
@@ -102,7 +106,8 @@ def warm_fused_ladder(
     drives: a CROSS-WIDTH promotion (narrow → wide / ledger) changes the
     drift window's width, so the warm runs against a monitor built from
     the NEW champion's profile. The warm folds nothing into the window
-    (all-padding batches)."""
+    (all-padding batches). Runs under ``expected_compiles``: a promotion's
+    ladder is not a recompile storm."""
     if drift is None:
         drift = getattr(watchtower, "drift", None)
     if drift is None or not hasattr(drift, "warm_fused"):
@@ -121,9 +126,10 @@ def warm_fused_ladder(
     max_batch = max_batch or config.scorer_max_batch()
     top = _bucket(max_batch, scorer.min_bucket)
     b = scorer.min_bucket
-    while b <= top:
-        drift.warm_fused(scorer, b, out_dtype=out_dtype, explain_k=explain_k)
-        b *= 2
+    with expected_compiles():
+        while b <= top:
+            drift.warm_fused(scorer, b, out_dtype=out_dtype, explain_k=explain_k)
+            b *= 2
 
 
 class ModelReloader:

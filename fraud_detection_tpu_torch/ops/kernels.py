@@ -106,6 +106,11 @@ _libs: dict[str, ctypes.CDLL] = {}
 #: nvcc's output (with ``ptxas -v``'s resource lines) of each kernel built
 #: by this process
 BUILD_LOGS: dict[str, str] = {}
+#: every kernel library this process built with nvcc and loaded, or loaded
+#: from an up-to-date build: ``(name, seconds, thread id)``, appended in the
+#: calling thread. The compile sentinel reads it before and after a wrapped
+#: call (``telemetry/compile_sentinel``): the port's executable-cache miss
+LOAD_EVENTS: list[tuple[str, float, int]] = []
 
 
 def kernel_names() -> list[str]:
@@ -156,7 +161,8 @@ def build_kernels(names: list[str] | None = None) -> dict[str, float]:
     """Compile every named kernel (default: all of ``csrc/``) that has no
     up-to-date library yet — one ``nvcc`` per source, started together —
     and load them. Returns name → build seconds (0.0 when already built).
-    Raises with nvcc's output when a build fails."""
+    Each library loaded into the process appends one :data:`LOAD_EVENTS`
+    entry. Raises with nvcc's output when a build fails."""
     names = kernel_names() if names is None else names
     with _lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -187,7 +193,10 @@ def build_kernels(names: list[str] | None = None) -> dict[str, float]:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in names:
             if name not in _libs:
+                t0 = time.perf_counter()
                 _libs[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))
+                LOAD_EVENTS.append((name, times[name] + time.perf_counter() - t0,
+                                    threading.get_ident()))
     return times
 
 

@@ -30,7 +30,15 @@
   (``{"enabled": false, "state": "disabled"}`` without a lifeboat)
 - ``GET /debug/flightrecorder`` — the last scored requests' stage
   timelines (``SPYGLASS_ENABLED``, ``FLIGHTRECORDER_CAPACITY``)
-- ``GET /metrics`` — Prometheus exposition
+- ``GET /slo/status`` — the SLO engine's burn rates over the 5m/1h/6h
+  windows, error budgets and objectives by lane, and the roofline's peaks,
+  program costs and per-entrypoint utilization (``SLO_ENABLED``)
+- ``POST /admin/profile`` — a ``torch.profiler`` trace of everything the
+  process runs for ``duration_s`` seconds (at most
+  ``DEVICE_PROFILE_MAX_S``, one capture at a time: 409 while one runs, 422
+  on a bad duration; ``ADMIN_TOKEN`` gates it when set)
+- ``GET /metrics`` — Prometheus exposition; a scrape refreshes the
+  device-memory gauges, the recompile-storm windows and the SLO gauges
 
 With ``INGEST_PORT`` > 0 the binary ingest lane (``service/binlane.py``)
 listens beside the HTTP server and feeds the same micro-batcher, so its
@@ -65,6 +73,15 @@ forest (TreeSHAP reason codes through the ``tree_shap`` kernel). The
 results DB (``DATABASE_URL``) and the broker (``CELERY_BROKER_URL``) are
 the JAX package's sqlite schemas, so a JAX app or worker can share them.
 
+Telemetry (``telemetry/``): start-up sets up tracing (with
+``OTEL_EXPORTER_OTLP_ENDPOINT``), installs the compile sentinel before any
+scorer is built and declares the lanes' SLO objectives. Every ``/predict``,
+``/ingest/batch`` and binary-lane outcome feeds the lane's SLO; a traced
+``/predict`` opens a ``predict`` span with the six stages as child spans,
+and its ``traceparent`` rides the task to the worker's ``compute_shap``
+span; a frame with a trace field, or an ``/ingest/batch`` with a
+``traceparent`` header, opens an ``ingest.frame`` span.
+
 Run: ``python -m fraud_detection_tpu_torch.service.app --port 8000``
 (``DEVICE=cpu`` serves on the CPU).
 """
@@ -91,7 +108,7 @@ from fraud_detection_tpu_torch.lifecycle import (
     open_lifecycle_store,
 )
 from fraud_detection_tpu_torch.monitor.watchtower import RETRAIN_TASK, build_watchtower
-from fraud_detection_tpu_torch.service import binlane, metrics
+from fraud_detection_tpu_torch.service import binlane, metrics, tracing
 from fraud_detection_tpu_torch.service.db import ResultsDB
 from fraud_detection_tpu_torch.service.errors import StoreError
 from fraud_detection_tpu_torch.service.http import App, HTTPError, Request, Response
@@ -114,7 +131,15 @@ from fraud_detection_tpu_torch.service.schemas import (
     parse_transaction,
 )
 from fraud_detection_tpu_torch.service.taskq import TASK_NAME, Broker
-from fraud_detection_tpu_torch.telemetry import FlightRecorder, RequestTimeline
+from fraud_detection_tpu_torch.telemetry import (
+    FlightRecorder,
+    RequestTimeline,
+    compile_sentinel,
+    devicemem,
+    roofline,
+    slo,
+)
+from fraud_detection_tpu_torch.telemetry.profiler import DeviceProfiler, ProfileBusy
 
 log = logging.getLogger("fraud_detection_tpu_torch.api")
 
@@ -205,14 +230,15 @@ def create_app(
         "flightrecorder": None,
         "binlane": None,
         "lifeboat": None,
+        "profiler": None,
         "started_at": None,
     }
     app.state = state  # exposed for tests/embedding
 
     def _require_admin(req: Request) -> None:
-        """The admin gate of ``/admin/reload``: with ``ADMIN_TOKEN`` set, the
-        request carries it (``X-Admin-Token`` or ``Authorization: Bearer``);
-        empty leaves the endpoint open."""
+        """The admin gate of ``/admin/reload`` and ``/admin/profile``: with
+        ``ADMIN_TOKEN`` set, the request carries it (``X-Admin-Token`` or
+        ``Authorization: Bearer``); empty leaves the endpoints open."""
         token = config.admin_token()
         if not token:
             return
@@ -328,6 +354,15 @@ def create_app(
 
     async def startup():
         state["started_at"] = time.time()
+        tracing.setup_tracing()
+        # the compile sentinel wraps the serving entrypoints before any
+        # scorer is built
+        compile_sentinel.install()
+        # the lanes' objectives exist (at 0 burn) from the first scrape
+        slo_engine = slo.engine()
+        if slo_engine is not None:
+            slo_engine.declare_lanes()
+        state["profiler"] = DeviceProfiler(device=dev)
         cap = config.flightrecorder_capacity()
         if cap > 0 and config.spyglass_enabled():
             state["flightrecorder"] = FlightRecorder(cap)
@@ -478,12 +513,16 @@ def create_app(
     async def predict(req: Request) -> Response:
         metrics.predictions_submitted.inc()
         corr_id = req.state["correlation_id"]
+        t_req = time.perf_counter()
         recovering = _recovering_response()
         if recovering is not None:
+            # flow control seconds from ready, not an outage: no SLO burn
             return recovering
         model = _model()
         batcher = state["batcher"]
         if model is None or batcher is None:
+            # an unservable request burns the json lane's availability
+            slo.record_lane("json", False)
             raise HTTPError(503, "model not loaded")
         t_parse = time.perf_counter()
         try:
@@ -512,15 +551,28 @@ def create_app(
             RequestTimeline(correlation_id=corr_id) if batcher.telemetry else None
         )
         reasons = None
-        with metrics.timed(metrics.inference_duration):
-            try:
-                if batcher.explain:
-                    score, reasons = await batcher.score_ex(row, timeline, entity)
-                else:
-                    score = await batcher.score(row, timeline, entity)
-            except AdmissionFull as e:
-                return _admission_shed(e, metrics.ingest_shed.labels("json"))
-        metrics.ingest_rows.labels("json").inc()
+        with tracing.span("predict", correlation_id=corr_id):
+            with metrics.timed(metrics.inference_duration):
+                try:
+                    if batcher.explain:
+                        score, reasons = await batcher.score_ex(row, timeline, entity)
+                    else:
+                        score = await batcher.score(row, timeline, entity)
+                except AdmissionFull as e:
+                    slo.record_lane("json", False)
+                    return _admission_shed(e, metrics.ingest_shed.labels("json"))
+                except Exception:
+                    # an internal scoring failure (a 500) burns availability
+                    slo.record_lane("json", False)
+                    raise
+            metrics.ingest_rows.labels("json").inc()
+            slo.record_lane("json", True, time.perf_counter() - t_req)
+            if timeline is not None:
+                # the stage decomposition as child spans of this span
+                tracing.emit_stage_spans(timeline)
+            # serialized inside the span: it rides the task to the worker's
+            # compute_shap span
+            traceparent = tracing.current_traceparent()
         reason_codes = None
         serve_topk = None
         if reasons is not None:
@@ -539,12 +591,12 @@ def create_app(
 
         # Persist the PENDING row and enqueue the async explanation, off the
         # loop (sqlite commits wait on the file lock). The payload is the
-        # JAX app's: 4 arguments (the traceparent None: no tracing yet), a
+        # JAX app's: 4 arguments (the traceparent None with tracing off), a
         # 5th only when the fused explain leg gave a top-k.
         feature_dict = dict(zip(model.feature_names, row.tolist()))
         tx_id = str(uuid.uuid4())
         explanation_status = "queued"
-        task_args = [tx_id, feature_dict, corr_id, None]
+        task_args = [tx_id, feature_dict, corr_id, traceparent]
         if serve_topk is not None:
             task_args.append(serve_topk)
 
@@ -599,12 +651,18 @@ def create_app(
         )
         ctype = req.headers.get("content-type", "").split(";")[0].strip().lower()
         t_parse = time.perf_counter()
+        # a frame's trace field, else the HTTP traceparent header, links
+        # this lane's ingest.frame span to the client's trace
+        trace = req.headers.get("traceparent")
+        if trace is not None and not tracing.parse_traceparent(trace):
+            trace = None
         if ctype == "application/x-fraud-frame":
             lane = "binary"
             try:
-                slot, n, entity, _trace = binlane.decode_frame_body(
+                slot, n, entity, frame_trace = binlane.decode_frame_body(
                     scorer, req.body, max_rows, dequant=_ingest_scale(model)
                 )
+                trace = frame_trace or trace
             except binlane.FrameError as e:
                 metrics.ingest_frame_errors.labels(e.kind).inc()
                 raise HTTPError(422, str(e)) from e
@@ -641,8 +699,17 @@ def create_app(
             try:
                 ek = await batcher.score_block(IngestBlock(slot, n, entity), timeline)
             except AdmissionFull as e:
+                slo.record_lane(lane, False)
                 return _admission_shed(e, metrics.ingest_shed.labels(lane))
+            except Exception:
+                slo.record_lane(lane, False)
+                raise
             metrics.ingest_rows.labels(lane).inc(n)
+            slo.record_lane(lane, True, time.perf_counter() - t_parse)
+            if trace is not None and tracing._tracer is not None:
+                with tracing.span("ingest.frame", traceparent=trace, lane=lane, rows=n):
+                    if timeline is not None:
+                        tracing.emit_stage_spans(timeline)
             if lane == "binary":
                 return Response(
                     binlane.encode_response_body(slot, n, ek),
@@ -822,6 +889,52 @@ def create_app(
         except _STORE_OUTAGE_ERRORS as e:
             return _store_unavailable("lifecycle status", e)
 
+    @app.get("/slo/status")
+    async def slo_status(req: Request) -> Response:
+        """The SLO engine's live state: each objective's burn rates over the
+        5m/1h/6h windows, its error budget left, the declared objectives,
+        and the roofline's peaks, program costs and utilization;
+        ``enabled: false`` with ``SLO_ENABLED=0``."""
+        eng = slo.engine()
+        if eng is None:
+            return Response({"enabled": False, "slos": {}})
+        snap = await asyncio.to_thread(eng.export_gauges)
+        return Response({
+            "enabled": True,
+            "latency_threshold_s": eng.latency_threshold_s,
+            "windows": eng.windows,
+            "fast_burn_threshold": config.slo_fast_burn(),
+            "slow_burn_threshold": config.slo_slow_burn(),
+            "slos": snap,
+            "roofline": roofline.snapshot(),
+        })
+
+    @app.post("/admin/profile")
+    async def admin_profile(req: Request) -> Response:
+        """A device trace of the live service: everything the process runs
+        for ``duration_s`` seconds (in ``(0, DEVICE_PROFILE_MAX_S]``, one
+        capture at a time), returned as the trace's path. ``ADMIN_TOKEN``
+        gates it when set. A profiler that fails answers 5xx."""
+        _require_admin(req)
+        profiler = state["profiler"]
+        if profiler is None:
+            raise HTTPError(503, "profiler unavailable")
+        body = req.json() if req.body else {}
+        if body is None:
+            body = {}
+        if not isinstance(body, dict):
+            raise HTTPError(422, "body must be a JSON object")
+        duration = body.get("duration_s")
+        try:
+            # the capture blocks for its whole window: off the loop, so the
+            # scoring it records keeps flowing
+            result = await asyncio.to_thread(profiler.capture, duration)
+        except ProfileBusy as e:
+            raise HTTPError(409, str(e)) from e
+        except (TypeError, ValueError) as e:
+            raise HTTPError(422, str(e)) from e
+        return Response(result)
+
     @app.post("/admin/reload")
     async def admin_reload(req: Request) -> Response:
         """One registry alias sweep NOW (the poll-independent half of the
@@ -876,6 +989,21 @@ def create_app(
                 await asyncio.to_thread(state["watchtower"].status)
             except Exception:  # a scrape must not fail on a broken monitor
                 log.debug("watchtower gauge refresh failed", exc_info=True)
+
+        def _telemetry_refresh():
+            # the device-memory watermark, the recompile-storm windows (a
+            # storm clears once its window drains, with no new loads) and
+            # the SLO burn and budget gauges (a burn clears likewise)
+            devicemem.refresh(dev)
+            compile_sentinel.refresh_storm_gauges()
+            eng = slo.engine()
+            if eng is not None:
+                eng.export_gauges()
+
+        try:
+            await asyncio.to_thread(_telemetry_refresh)
+        except Exception:
+            log.debug("telemetry gauge refresh failed", exc_info=True)
         return Response(metrics.render(), media_type=metrics.CONTENT_TYPE_LATEST)
 
     return app

@@ -56,8 +56,12 @@ timestamp columns become the ledger's per-row columns with the JSON
 edge's hash and clock (:meth:`_FrameDecoder.entity_cols`), so a frame feeds
 the ledger flush; for a wide model the fingerprints key the wide flush's
 crosses; a stateless family receives and length-checks them and derives
-nothing, as in the JAX package. The trace field is parsed and
-validated, and no span is emitted yet (ROADMAP item 13).
+nothing, as in the JAX package. A valid trace field links the frame's
+``ingest.frame`` span (with the six stages as child spans, emitted after
+the response is written) to the client's trace; a malformed one is dropped,
+never the frame. Every frame's outcome feeds the ``binary`` lane's SLO
+(``telemetry/slo``): a shed or a failure burns availability, a scored
+frame counts good with its latency.
 """
 
 from __future__ import annotations
@@ -76,10 +80,11 @@ import numpy as np
 from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.ledger.state import _MULT
 from fraud_detection_tpu_torch.ops.scorer import _bucket
-from fraud_detection_tpu_torch.service import metrics
+from fraud_detection_tpu_torch.service import metrics, tracing
 from fraud_detection_tpu_torch.service.errors import ProtocolError
 from fraud_detection_tpu_torch.service.microbatch import AdmissionFull, IngestBlock
 from fraud_detection_tpu_torch.service.wire import _HDR, StalledPeerError
+from fraud_detection_tpu_torch.telemetry import slo
 from fraud_detection_tpu_torch.telemetry.timeline import RequestTimeline
 
 log = logging.getLogger("fraud_detection_tpu_torch.binlane")
@@ -726,6 +731,7 @@ class BinaryIngestServer:
         magic, version, layout, d, flags, n = _FRAME.unpack(fhdr_buf)
         scorer = dec.scorer
         slot = None
+        trace = None
         consumed = 0  # payload bytes read so far (drained on a rejection)
         try:
             _check_header(layout, flags, d, n, version, magic, dec.d,
@@ -763,7 +769,7 @@ class BinaryIngestServer:
                 if not _recv_into_exact(conn, memoryview(dec._tp)):
                     raise ProtocolError("connection closed mid-frame")
                 consumed += tp
-                _parse_trace_field(dec._tp)  # validated; spans are item 13
+                trace = _parse_trace_field(dec._tp)
             dec.check_finite(slot, n)
             entity = dec.entity_cols(n, *cols)
         except FrameError as e:
@@ -792,11 +798,13 @@ class BinaryIngestServer:
         except AdmissionFull as e:
             scorer.staging.release(slot)
             self._c_shed.inc()
+            slo.record_lane("binary", False)
             conn.sendall(error_frame(ST_BUSY, str(e), e.retry_after_s))
             return True
         except Exception as e:
             scorer.staging.release(slot)
             log.error("ingest frame failed: %s", e)
+            slo.record_lane("binary", False)
             conn.sendall(error_frame(ST_ERROR, str(e)))
             return True
         try:
@@ -804,6 +812,13 @@ class BinaryIngestServer:
             self._respond(conn, dec, slot, n, ek, resp_buf)
         finally:
             scorer.staging.release(slot)
+        slo.record_lane("binary", True, time.perf_counter() - t_parse)
+        if trace is not None and tracing._tracer is not None:
+            # the frame's server-side work as a span linked to the client's
+            # trace, off the response path (the client has its scores)
+            with tracing.span("ingest.frame", traceparent=trace, lane="binary", rows=n):
+                if timeline is not None:
+                    tracing.emit_stage_spans(timeline)
         return True
 
     _DRAIN_CHUNK = 1 << 16

@@ -5,7 +5,9 @@ and buckets (dashboards and alert rules read them): the API counters and
 latency histograms, the micro-batcher's flush-path counters and fusion
 gauges (the wide family's among them), the watchtower's drift and shadow
 series, the ledger's, the ingest lanes', the request stages', the lifecycle
-loop's, and the SHAP worker's and task queue's series. Counters
+loop's, the SHAP worker's and task queue's series, and the telemetry
+layer's (the compile sentinel's ``xla_*``, the device-memory, profiler,
+SLO and roofline series). Counters
 export ``<name>_total``; histograms export ``_bucket``/``_sum``/``_count``.
 No ``prometheus_client``: the exposition format (text 0.0.4) and its HTTP
 endpoint (:func:`start_http_server`) are written here. A store server keeps
@@ -492,6 +494,99 @@ request_stage_duration = Histogram(
         5e-05, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
         0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
     ),
+)
+
+# the compile sentinel, device memory and the on-demand profiler
+# (telemetry/): the xla_* and device_* names are the alerting contract of
+# monitoring/prometheus/rules/telemetry-alerts.yml. On the port a "compile"
+# is a kernel library built by nvcc or loaded into the process
+# (telemetry/compile_sentinel)
+xla_compiles = Counter(
+    "xla_compiles",
+    "XLA executable-cache misses per instrumented jitted entrypoint "
+    "(_unattributed = backend compiles outside any instrumented call)",
+    ["entrypoint"],
+)
+xla_compile_duration = Histogram(
+    "xla_compile_duration_seconds",
+    "Backend compile time attributed to the instrumented entrypoint",
+    ["entrypoint"],
+    buckets=(0.01, 0.05, 0.1, 0.5, 1, 5, 15, 30, 60, 120),
+)
+xla_recompile_storm = Gauge(
+    "xla_recompile_storm",
+    "1 while an entrypoint's unexpected-compile rate exceeds the storm "
+    "threshold (RecompileStorm alert input; warmups never count)",
+    ["entrypoint"],
+)
+device_memory_bytes_in_use = Gauge(
+    "device_memory_bytes_in_use",
+    "Accelerator memory in use, summed over local devices (0 when the "
+    "backend reports no memory stats)",
+)
+device_memory_bytes_limit = Gauge(
+    "device_memory_bytes_limit",
+    "Accelerator memory capacity, summed over local devices",
+)
+device_memory_peak_bytes_in_use = Gauge(
+    "device_memory_peak_bytes_in_use",
+    "High-water mark of accelerator memory in use",
+)
+device_profiles = Counter(
+    "device_profiles",
+    "On-demand device trace captures completed (POST /admin/profile)",
+)
+device_profile_active = Gauge(
+    "device_profile_active",
+    "1 while an on-demand device trace capture is running",
+)
+
+# the SLO engine (telemetry/slo) and the live roofline gauges
+# (telemetry/roofline): the slo_* and device_utilization names are the
+# alerting contract of monitoring/prometheus/rules/slo-alerts.yml. The
+# ``slo`` label is "<kind>:<series>", kind availability or latency, series
+# a lane (json, msgpack, binary) or shard<N>
+slo_burn_rate = Gauge(
+    "slo_burn_rate",
+    "Error-budget burn-rate multiple over each sliding window (bad-rate / "
+    "allowed-rate; 1.0 = spending budget exactly at the sustainable pace). "
+    "The multi-window multi-burn-rate alerts AND two windows so a blip "
+    "cannot page and a slow leak cannot hide",
+    ["slo", "window"],
+)
+slo_error_budget_remaining = Gauge(
+    "slo_error_budget_remaining",
+    "Fraction of the error budget left over the longest (6h) window "
+    "(1 = untouched, 0 = spent, negative = overdrawn) — the panopticon "
+    "budget gauge /slo/status reads",
+    ["slo"],
+)
+slo_requests = Counter(
+    "slo_requests",
+    "Requests observed by the SLO engine per series and verdict "
+    "(good|bad for availability; fast|slow for the latency objective)",
+    ["slo", "verdict"],
+)
+device_utilization_fraction = Gauge(
+    "device_utilization_fraction",
+    "Achieved / peak FLOP-rate of each fused serving program over its "
+    "recent flushes (XLA cost_analysis flops for the dispatched bucket ÷ "
+    "measured device_compute stage time ÷ device peak) — the live roofline "
+    "signal; the bench-time CPU-floor constants made continuous. "
+    "DeviceUtilizationCollapse fires when a serving entrypoint's "
+    "utilization collapses under live traffic",
+    ["entrypoint"],
+)
+device_peak_flops_estimate = Gauge(
+    "device_peak_flops_estimate",
+    "Peak f32 FLOP/s the utilization gauges divide by: DEVICE_PEAK_FLOPS "
+    "when pinned, else the warmup matmul probe's achieved rate",
+)
+device_program_flops = Gauge(
+    "device_program_flops",
+    "XLA cost_analysis flops of the LAST bucket each fused entrypoint "
+    "dispatched (the roofline numerator; bytes ride the status endpoint)",
+    ["entrypoint"],
 )
 
 

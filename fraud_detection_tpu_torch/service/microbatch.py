@@ -61,7 +61,12 @@ spyglass on (``SPYGLASS_ENABLED``, the default) every item may carry a
 ending at ONE CUDA event a flush, recorded after the flush's last launch
 and synchronised (:func:`_fence`), then exports each stage to
 ``request_stage_duration_seconds`` and the flush to the flight recorder.
-With spyglass off the flush records no event and stamps nothing. Up to
+With spyglass off the flush records no event and stamps nothing. Right
+after the fence the roofline (``telemetry/roofline``) pairs the fenced
+``device_compute`` time with the flush the compile sentinel noted on the
+same executor thread (``device_utilization_fraction``). The flush's device
+part runs inside ``annotate("microbatch-score")``, a named range in a
+device trace (``POST /admin/profile``). Up to
 ``SCORER_MAX_INFLIGHT`` flushes run at once, so the fetch of flush N
 overlaps the staging of flush N+1. Admission is bounded
 (``SCORER_ADMIT_MAX_ROWS``): at the bound :class:`AdmissionFull` is raised
@@ -86,8 +91,11 @@ from fraud_detection_tpu_torch.ops.scorer import (
     decode_explain_into,
     decode_scores_into,
 )
-from fraud_detection_tpu_torch.service import metrics
+from fraud_detection_tpu_torch.service import metrics, tracing
+from fraud_detection_tpu_torch.telemetry import roofline
+from fraud_detection_tpu_torch.telemetry.compile_sentinel import expected_compiles
 from fraud_detection_tpu_torch.telemetry.timeline import STAGES, FlushInfo
+from fraud_detection_tpu_torch.utils.profiling import annotate
 
 log = logging.getLogger("fraud_detection_tpu_torch.microbatch")
 
@@ -290,7 +298,10 @@ class MicroBatcher:
         collector. Warming runs the flush the serving path will run — fused
         with the serving return wire and explain leg, or the plain score —
         once per bucket, so the kernel is built and the allocator's blocks
-        are cached before the first request."""
+        are cached before the first request. It runs under the compile
+        sentinel's expected mark (a deploy's warm-up must not read as a
+        recompile storm), and with ``ROOFLINE_ENABLED`` it resolves the
+        roofline's peaks first (the probes run here, never on a request)."""
         if self._starting or not (
             self._collector is None or self._collector.done()
         ):
@@ -298,22 +309,27 @@ class MicroBatcher:
         self._starting = True
         try:
             def _warm() -> None:
-                scorer = self.scorer
-                top = _bucket(self.max_batch, scorer.min_bucket)
-                scorer.warmup(top)
-                target = self._fused_target(scorer)
-                if target is None:
-                    if self.explain:
-                        self._note_explain_fused(False, scorer)
-                    return
-                drift, spec = target
-                k = self._explain_k_for(scorer)
-                b = scorer.min_bucket
-                while b <= top:
-                    drift.warm_fused(
-                        scorer, b, out_dtype=self._out_dtype, explain_k=k
-                    )
-                    b *= 2
+                with expected_compiles():
+                    scorer = self.scorer
+                    if config.roofline_enabled():
+                        dev = getattr(scorer, "device", None)
+                        roofline.ensure_peak(dev)
+                        roofline.ensure_membw(dev)
+                    top = _bucket(self.max_batch, scorer.min_bucket)
+                    scorer.warmup(top)
+                    target = self._fused_target(scorer)
+                    if target is None:
+                        if self.explain:
+                            self._note_explain_fused(False, scorer)
+                        return
+                    drift, spec = target
+                    k = self._explain_k_for(scorer)
+                    b = scorer.min_bucket
+                    while b <= top:
+                        drift.warm_fused(
+                            scorer, b, out_dtype=self._out_dtype, explain_k=k
+                        )
+                        b *= 2
 
             await asyncio.get_running_loop().run_in_executor(None, _warm)
             self._collector = asyncio.create_task(self._run())
@@ -598,81 +614,85 @@ class MicroBatcher:
         slot = staging.acquire(_bucket(n, scorer.min_bucket))
         explain_out = None
         try:
-            t_flush_start = time.perf_counter() if telemetry else 0.0
-            hx = scorer.stage_items(slot, batch)
-            ledger_rows = wide_rows = None
-            n_null = 0
-            if target is not None and target[1].wide is not None:
-                wide_rows = self._stage_wide(scorer, slot, batch)
-            elif (target is not None and target[1].ledger is not None
-                    and target[0].ledger is not None):
-                ledger_rows, n_null = self._stage_ledger(scorer, slot, batch)
-            t_padded = time.perf_counter() if telemetry else 0.0
-            x_dev = scorer.to_device(hx)
-            explain_k = 0
-            if target is not None:
-                drift, spec = target
-                explain_k = self._explain_k_for(scorer)
+            with annotate("microbatch-score"):
+                t_flush_start = time.perf_counter() if telemetry else 0.0
+                hx = scorer.stage_items(slot, batch)
+                ledger_rows = wide_rows = None
+                n_null = 0
+                if target is not None and target[1].wide is not None:
+                    wide_rows = self._stage_wide(scorer, slot, batch)
+                elif (target is not None and target[1].ledger is not None
+                        and target[0].ledger is not None):
+                    ledger_rows, n_null = self._stage_ledger(scorer, slot, batch)
+                t_padded = time.perf_counter() if telemetry else 0.0
+                x_dev = scorer.to_device(hx)
+                explain_k = 0
+                if target is not None:
+                    drift, spec = target
+                    explain_k = self._explain_k_for(scorer)
 
-                def _launch():
-                    return drift.fused_flush(
-                        x_dev, scorer.to_device(slot.valid), n,
-                        spec.score_args, spec.score_fn,
-                        dequant_scale=spec.dequant_scale,
-                        score_codes=spec.score_codes,
-                        out_dtype=self._out_dtype,
-                        explain_args=spec.explain_args if explain_k else None,
-                        explain_k=explain_k,
-                        ledger_rows=ledger_rows,
-                        wide_args=spec.wide if wide_rows is not None else None,
-                        wide_rows=wide_rows,
-                    )
+                    def _launch():
+                        return drift.fused_flush(
+                            x_dev, scorer.to_device(slot.valid), n,
+                            spec.score_args, spec.score_fn,
+                            dequant_scale=spec.dequant_scale,
+                            score_codes=spec.score_codes,
+                            out_dtype=self._out_dtype,
+                            explain_args=spec.explain_args if explain_k else None,
+                            explain_k=explain_k,
+                            ledger_rows=ledger_rows,
+                            wide_args=spec.wide if wide_rows is not None else None,
+                            wide_rows=wide_rows,
+                        )
 
-                boat = self.lifeboat
-                if ledger_rows is not None and boat is not None:
-                    # the write-ahead: the journal record and the flush's
-                    # launches are one atom under the flush lock, so a
-                    # snapshot cut never sees a flush whose triples are not
-                    # in the journal
-                    with boat.flush_lock:
-                        boat.journal_staged(slot, hx, spec.dequant_scale, n)
+                    boat = self.lifeboat
+                    if ledger_rows is not None and boat is not None:
+                        # the write-ahead: the journal record and the flush's
+                        # launches are one atom under the flush lock, so a
+                        # snapshot cut never sees a flush whose triples are not
+                        # in the journal
+                        with boat.flush_lock:
+                            boat.journal_staged(slot, hx, spec.dequant_scale, n)
+                            out = _launch()
+                    else:
                         out = _launch()
+                    if n_null:
+                        metrics.ledger_null_entity_rows.inc(n_null)
+                    device_calls = 1
+                    # the window folded inside the flush: rows only for a shadow
+                    need_rows = self.watchtower.wants_rows()
                 else:
-                    out = _launch()
-                if n_null:
-                    metrics.ledger_null_entity_rows.inc(n_null)
-                device_calls = 1
-                # the window folded inside the flush: rows only for a shadow
-                need_rows = self.watchtower.wants_rows()
-            else:
-                if self.explain:
-                    self._note_explain_fused(False, scorer)
-                if getattr(scorer, "ledger_spec", None) is not None:
-                    self._note_split_ledger(scorer, n)
-                out = scorer._score_padded(x_dev)
-                device_calls = 2 if self.watchtower is not None else 1
-                need_rows = self.watchtower is not None
-            outs = out if isinstance(out, tuple) else (out,)
-            if telemetry:
-                _fence(outs[0].device)
-                t_synced = time.perf_counter()
-            host = fetch(*outs)
-            # decode into the slot's scores buffer: the waiters read from it
-            probs = decode_scores_into(host[0], slot.scores)[:n]
-            if explain_k:
-                ei, ev = decode_explain_into(host[1], host[2], slot)
-                explain_out = (ei[:n], ev[:n])
-            stamps = (
-                (t_flush_start, t_padded, t_synced, time.perf_counter())
-                if telemetry else None
-            )
-            monitor_rows = slot.f32[:n].copy() if need_rows else None
-            monitor_scores = probs.copy() if need_rows else None
-            # the champion's reason-code indices, for the shadow's divergence
-            monitor_reasons = (
-                np.array(explain_out[0], np.int64)
-                if need_rows and explain_out is not None else None
-            )
+                    if self.explain:
+                        self._note_explain_fused(False, scorer)
+                    if getattr(scorer, "ledger_spec", None) is not None:
+                        self._note_split_ledger(scorer, n)
+                    out = scorer._score_padded(x_dev)
+                    device_calls = 2 if self.watchtower is not None else 1
+                    need_rows = self.watchtower is not None
+                outs = out if isinstance(out, tuple) else (out,)
+                if telemetry:
+                    _fence(outs[0].device)
+                    t_synced = time.perf_counter()
+                    # pair the fenced device_compute time with the flush the
+                    # compile sentinel noted on this thread
+                    roofline.note_device_time(t_synced - t_padded)
+                host = fetch(*outs)
+                # decode into the slot's scores buffer: the waiters read from it
+                probs = decode_scores_into(host[0], slot.scores)[:n]
+                if explain_k:
+                    ei, ev = decode_explain_into(host[1], host[2], slot)
+                    explain_out = (ei[:n], ev[:n])
+                stamps = (
+                    (t_flush_start, t_padded, t_synced, time.perf_counter())
+                    if telemetry else None
+                )
+                monitor_rows = slot.f32[:n].copy() if need_rows else None
+                monitor_scores = probs.copy() if need_rows else None
+                # the champion's reason-code indices, for the shadow's divergence
+                monitor_reasons = (
+                    np.array(explain_out[0], np.int64)
+                    if need_rows and explain_out is not None else None
+                )
         except BaseException:
             staging.release(slot)
             raise
@@ -821,6 +841,10 @@ class MicroBatcher:
         # before the flush slot recycles.
         eidx = evals = None
         explain_k = 0
+        # link each row's timeline to the flush only when a tracer will read
+        # it back (emit_stage_spans); the flight recorder gets the FlushInfo
+        # through its entry instead
+        link_timelines = fi is not None and tracing._tracer is not None
         if explain_out is not None:
             eidx, evals = explain_out
             explain_k = int(eidx.shape[1])
@@ -852,6 +876,8 @@ class MicroBatcher:
                     if not f.done():
                         f.set_result(res)
                     off += 1
+                if link_timelines and item[2] is not None:
+                    item[2].flush = fi
         finally:
             scorer.staging.release(slot)
         if fi is not None:

@@ -27,8 +27,12 @@ conductor's store is ``LIFECYCLE_DB_URL`` (default: the broker's
 database); it opens at the first lifecycle task, so a worker without a
 usable store keeps explaining. :meth:`XaiWorker.run_forever` resumes a dead
 worker's half-done episode before its first claim, and a promotion this
-worker applies hot-reloads its own model. The ``traceparent`` argument is
-accepted and ignored until ROADMAP item 13.
+worker applies hot-reloads its own model. The ``traceparent`` argument
+links each task's ``compute_shap`` span to the request that queued it
+(``service/tracing``; with ``OTEL_EXPORTER_OTLP_ENDPOINT`` set). The entry
+point installs the compile sentinel before the model loads, warms the
+ladder under its expected mark, and refreshes the device-memory gauges
+every ~30 s of its poll loop.
 
 Run: ``python -m fraud_detection_tpu_torch.service.worker`` (on ``cuda``;
 ``DEVICE=cpu`` runs it on the CPU).
@@ -50,6 +54,7 @@ from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.device import resolve_device
 from fraud_detection_tpu_torch.ops.scorer import _bucket
 from fraud_detection_tpu_torch.service import metrics
+from fraud_detection_tpu_torch.service.tracing import setup_tracing, span
 from fraud_detection_tpu_torch.service.db import ResultsDB
 from fraud_detection_tpu_torch.service.errors import (
     DatabaseError,
@@ -58,6 +63,7 @@ from fraud_detection_tpu_torch.service.errors import (
 )
 from fraud_detection_tpu_torch.service.loading import load_production_model
 from fraud_detection_tpu_torch.service.taskq import TASK_NAME, Broker, Task
+from fraud_detection_tpu_torch.telemetry import compile_sentinel, devicemem
 
 log = logging.getLogger("fraud_detection_tpu_torch.worker")
 
@@ -171,18 +177,20 @@ class XaiWorker:
         traceparent: str | None = None,
         serve_topk: dict | None = None,
     ) -> None:
-        """One task's body. ``traceparent`` (the optional 4th argument) is
-        accepted and ignored; ``serve_topk`` (the optional 5th) is the
-        serve-time top-k, checked against this backfill."""
-        del traceparent  # tracing is ROADMAP item 13
-        row = self.model.prepare_row(input_data)
-        score = float(self.model.scorer.predict_proba(row[None, :])[0])
-        phi, expected_value = self.model.explain_one(row)
-        self._check_explain_consistency(
-            phi, serve_topk, correlation_id, transaction_id
-        )
-        shap_values = dict(zip(self.model.feature_names, phi.astype(float)))
-        self.db.complete(transaction_id, shap_values, expected_value, score)
+        """One task's body. ``traceparent`` (the optional 4th argument, a W3C
+        header captured inside the API's ``predict`` span) links this task's
+        ``compute_shap`` span to the request; ``serve_topk`` (the optional
+        5th) is the serve-time top-k, checked against this backfill."""
+        with span("compute_shap", traceparent=traceparent,
+                  correlation_id=correlation_id or ""):
+            row = self.model.prepare_row(input_data)
+            score = float(self.model.scorer.predict_proba(row[None, :])[0])
+            phi, expected_value = self.model.explain_one(row)
+            self._check_explain_consistency(
+                phi, serve_topk, correlation_id, transaction_id
+            )
+            shap_values = dict(zip(self.model.feature_names, phi.astype(float)))
+            self.db.complete(transaction_id, shap_values, expected_value, score)
         log.info(
             "[%s] explained %s (score %.4f)",
             correlation_id, transaction_id, score,
@@ -319,15 +327,17 @@ class XaiWorker:
             scorer.staging.release(slot)
         names = self.model.feature_names
         for (t, _), score, phi in zip(prepared, scores, phis):
-            tx_id, _, corr_id, _traceparent, serve_topk = (t.args + [None] * 5)[:5]
+            tx_id, _, corr_id, traceparent, serve_topk = (t.args + [None] * 5)[:5]
             try:
-                self._check_explain_consistency(phi, serve_topk, corr_id, tx_id)
-                self.db.complete(
-                    tx_id,
-                    dict(zip(names, phi.astype(float))),
-                    expected_value,
-                    float(score),
-                )
+                with span("compute_shap", traceparent=traceparent,
+                          correlation_id=corr_id or ""):
+                    self._check_explain_consistency(phi, serve_topk, corr_id, tx_id)
+                    self.db.complete(
+                        tx_id,
+                        dict(zip(names, phi.astype(float))),
+                        expected_value,
+                        float(score),
+                    )
                 outcome[t.id] = None
                 log.info("[%s] explained %s (score %.4f)", corr_id, tx_id, score)
             except Exception as e:  # settled and logged by _settle
@@ -415,15 +425,17 @@ class XaiWorker:
         """Score and explain one zero batch per bucket of the ladder up to
         ``max_batch``, so the first claimed batch finds the kernels built
         and the allocator's blocks cached (run_forever runs it; tests drive
-        run_once/run_batch cold)."""
+        run_once/run_batch cold). Runs under the compile sentinel's expected
+        mark: a deploy's warm-up is not a recompile storm."""
         d = self.model.scorer.staging_features  # the rows tasks carry
         b = self.model.scorer.min_bucket
         top = _bucket(self.max_batch, b)
-        while b <= top:
-            zeros = np.zeros((b, d), np.float32)
-            self.model.scorer.predict_proba(zeros)
-            self.model.explain_batch(zeros)
-            b *= 2
+        with compile_sentinel.expected_compiles():
+            while b <= top:
+                zeros = np.zeros((b, d), np.float32)
+                self.model.scorer.predict_proba(zeros)
+                self.model.explain_batch(zeros)
+                b *= 2
 
     def run_forever(self, max_batch: int | None = None) -> None:
         if max_batch:
@@ -438,6 +450,9 @@ class XaiWorker:
             # so the worker backs off and polls again.
             try:
                 metrics.queue_depth.set(self.broker.depth())
+                # the device-memory watermark of the worker's /metrics (the
+                # API refreshes at scrape; the worker has no scrape hook)
+                devicemem.maybe_refresh(device=self.device)
                 handled = self.run_batch(max_batch)
             except StoreAuthError:
                 raise  # misconfigured credentials: crash loudly, don't spin
@@ -479,6 +494,12 @@ def main(argv: list[str] | None = None) -> None:
     )
     args = ap.parse_args(argv)
 
+    # force=True: a setup earlier in this process (before the environment
+    # was ready) must not latch tracing off for the worker's lifetime
+    setup_tracing(service_name="fraud-xai-worker", force=True)
+    # the compile sentinel before the model loads: the kernel libraries the
+    # worker's warm-up and batches load count too
+    compile_sentinel.install()
     worker = XaiWorker(poll_interval=args.poll_interval, max_batch=args.max_batch)
     server = None
     try:

@@ -32,8 +32,9 @@ enough for the hot path:
 
 A wall-clock anchor (``time_ns`` at request creation) lets a tracing
 layer re-emit the stages as child spans with real timestamps
-(:meth:`RequestTimeline.stage_spans_ns`; the port emits none yet, ROADMAP
-item 13).
+(:meth:`RequestTimeline.stage_spans_ns`, which
+``service/tracing.emit_stage_spans`` reads under the ``predict`` and
+``ingest.frame`` spans).
 """
 
 from __future__ import annotations

@@ -48,9 +48,12 @@ given:
    test AUC reaches ``MLFLOW_AUC_THRESHOLD``;
 9. return the metrics.
 
-The device trace of ``--profile-dir`` is a later slice: asking for it
-raises, naming the ROADMAP item that ports it. Besides the JAX package's
-metrics, the
+``--profile-dir DIR`` runs the whole of ``train()`` inside
+``utils/profiling.device_trace``: a ``torch.profiler`` trace of the CPU's
+and the card's activity (every kernel launch, ``knn_topk`` and
+``fused_score`` among them) written to ``DIR/trace.json`` for Perfetto; a
+profiler that fails logs and the run goes on unprofiled, as in the JAX
+package. Besides the JAX package's metrics, the
 returned dict holds ``stages`` (seconds per stage, the device synchronised
 at each boundary) and ``lbfgs_iters`` (iterations of each L-BFGS fit).
 """
@@ -106,12 +109,6 @@ log = logging.getLogger("fraud_detection_tpu_torch.train")
 # Row count above which the full-batch L-BFGS path gives way to minibatch
 # SGD (the line search makes several full-data passes per iteration).
 SGD_ROW_THRESHOLD = 2_000_000
-
-#: options of the JAX trainer that later slices port
-_UNPORTED = {
-    "profile_dir": "the device trace of a training run (ROADMAP queue 1, item 13)",
-}
-
 
 class _Stages:
     """Wall seconds per stage by the host clock, the device synchronised at
@@ -486,28 +483,40 @@ def main(argv=None):
         "(replayed through the serving body); also LEDGER_ENABLED=1",
     )
     ap.add_argument("--out-dir", default="models")
-    ap.add_argument("--profile-dir", default=None, help="not ported yet")
+    ap.add_argument(
+        "--profile-dir", default=None,
+        help="capture a torch.profiler trace of the run to DIR/trace.json "
+        "(open it in Perfetto or chrome://tracing)",
+    )
     ap.add_argument(
         "--checkpoint-dir", default=None,
         help="write per-epoch SGD checkpoints here; re-running with the same "
         "dir resumes an interrupted fit at the next epoch (sgd/auto only)",
     )
     args = ap.parse_args(argv)
-    if args.profile_dir is not None:
-        ap.error(f"{_UNPORTED['profile_dir']} is not ported yet")
-    metrics = train(
-        data_csv=args.data,
-        n_folds=args.folds,
-        seed=args.seed,
-        solver=args.solver,
-        use_smote=not args.no_smote,
-        register=not args.no_register,
-        out_dir=args.out_dir,
-        model_family=args.model,
-        checkpoint_dir=args.checkpoint_dir,
-        ledger=True if args.ledger else None,
-        wide=True if args.wide else None,
-    )
+
+    def go():
+        return train(
+            data_csv=args.data,
+            n_folds=args.folds,
+            seed=args.seed,
+            solver=args.solver,
+            use_smote=not args.no_smote,
+            register=not args.no_register,
+            out_dir=args.out_dir,
+            model_family=args.model,
+            checkpoint_dir=args.checkpoint_dir,
+            ledger=True if args.ledger else None,
+            wide=True if args.wide else None,
+        )
+
+    if args.profile_dir:
+        from fraud_detection_tpu_torch.utils.profiling import device_trace
+
+        with device_trace(args.profile_dir):
+            metrics = go()
+    else:
+        metrics = go()
     print(metrics)
 
 

@@ -1,1 +1,2 @@
-"""Small standard-library utilities (``lockdep``)."""
+"""Small standard-library utilities (``lockdep``, ``jsonlog``) and the
+device trace (``profiling``)."""

@@ -2,7 +2,8 @@
 kernels against their plain versions, the served path launching
 ``fused_score``, SMOTE launching ``knn_topk``, the GBT fit launching
 ``gbt_hist`` and TreeSHAP launching ``tree_shap``, the lifecycle loop's
-retrain and hot swap, and the lifeboat's recovery on the card.
+retrain and hot swap, the lifeboat's recovery on the card, and the
+telemetry layer's probes, memory gauges and device trace.
 
 They import nothing of JAX, so they run on a machine with the card and no
 JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -1383,3 +1384,71 @@ def test_served_path_over_a_network_store_launches_the_kernel(tmp_path, monkeypa
         loop.call_soon_threadsafe(loop.stop)
         t.join(30)
         srv.stop()
+
+
+# -- telemetry on the card ------------------------------------------------------
+
+#: H100 SXM data sheet: f32 outside the tensor cores, HBM3 rate
+H100_F32_FLOPS = 67e12
+H100_HBM_BYTES_PER_S = 3.35e12
+
+
+@pytest.mark.cuda
+def test_the_roofline_probes_read_within_the_data_sheet():
+    """The 8192 matmul probe (TF32 off) and the 1 GiB stream probe, timed
+    by CUDA events: each within [0.5, 1.05] of the H100's data-sheet peak."""
+    _require_card()
+    from fraud_detection_tpu_torch.telemetry import roofline
+
+    flops = roofline.peak_flops_probe("cuda")
+    bw = roofline.membw_probe("cuda")
+    assert 0.5 * H100_F32_FLOPS <= flops <= 1.05 * H100_F32_FLOPS, flops
+    assert 0.5 * H100_HBM_BYTES_PER_S <= bw <= 1.05 * H100_HBM_BYTES_PER_S, bw
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.cuda
+def test_the_memory_gauges_follow_a_live_allocation():
+    dev = _require_card()
+    from fraud_detection_tpu_torch.service import metrics
+    from fraud_detection_tpu_torch.telemetry import devicemem
+
+    before = devicemem.refresh(dev)
+    block = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    during = devicemem.refresh(dev)
+    assert during["bytes_in_use"] >= before["bytes_in_use"] + (64 << 20)
+    assert 0 < during["bytes_in_use"] <= during["peak_bytes_in_use"] <= during["bytes_limit"]
+    assert during["bytes_limit"] <= torch.cuda.mem_get_info(dev)[1]
+    assert metrics.device_memory_bytes_in_use.get() == during["bytes_in_use"]
+    del block
+    after = devicemem.refresh(dev)
+    assert after["bytes_in_use"] < during["bytes_in_use"]
+    assert after["peak_bytes_in_use"] >= during["peak_bytes_in_use"]
+
+
+@pytest.mark.cuda
+def test_a_device_trace_holds_the_kernel_and_the_annotation(tmp_path):
+    dev = _require_card()
+    import json
+    import threading
+
+    from fraud_detection_tpu_torch.utils import profiling
+
+    kernels.build_kernels(["fused_score"])
+    x, w, b = _score_inputs(1024, 30, dev)
+
+    def flush():  # on another thread, as the micro-batcher's executor
+        with profiling.annotate("microbatch-score"):
+            kernels.fused_score(w, b, x)
+        torch.cuda.synchronize()
+
+    with profiling.device_trace(str(tmp_path / "t")):
+        t = threading.Thread(target=flush)
+        t.start()
+        t.join(30)
+    assert not t.is_alive()
+    with open(tmp_path / "t" / profiling.TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "fused_score" in e.get("name", "")
+               for e in events)
+    assert any(e.get("name") == "microbatch-score" for e in events)

@@ -2,9 +2,10 @@
 ``chip_smoke.py`` import in a fresh interpreter where ``jax*``, ``optax``,
 the JAX package (``fraud_detection_tpu`` and ``fraud_detection_tpu.*`` —
 the port's own name shares that prefix), ``pydantic``/``prometheus_client``,
-``msgpack`` (imported only inside ``/ingest/batch``'s msgpack branch) and
-``pandas``/``joblib``/``sklearn``/``matplotlib`` (absent on the machine
-with the card) all refuse to import."""
+``msgpack`` (imported only inside ``/ingest/batch``'s msgpack branch),
+``yaml`` and ``opentelemetry`` (imported only inside ``promlint`` and
+``setup_tracing``) and ``pandas``/``joblib``/``sklearn``/``matplotlib``
+all refuse to import."""
 
 import os
 import subprocess
@@ -36,7 +37,7 @@ def jax_or_reference(name):
 def service_deps(name):
     return any(name == m or name.startswith(m + ".")
                for m in ("pydantic", "prometheus_client", "pandas", "joblib",
-                         "sklearn", "matplotlib", "msgpack"))
+                         "sklearn", "matplotlib", "msgpack", "yaml", "opentelemetry"))
 
 sys.meta_path[:0] = [Refuse(jax_or_reference), Refuse(service_deps)]
 import fraud_detection_tpu_torch as pkg
@@ -61,13 +62,13 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 94  # every module of the slices so far, not a stub package
+    assert n >= 104  # every module of the slices so far, not a stub package
 
 
 def test_training_modules_are_among_those_imported():
     """The blocked-import probe walks the package; the training, GBT,
-    explain, offline-tool, ingest, ledger, wide-family, lifecycle, lifeboat
-    and network-store slices' modules are in it."""
+    explain, offline-tool, ingest, ledger, wide-family, lifecycle, lifeboat,
+    network-store and telemetry slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -90,7 +91,10 @@ def test_training_modules_are_among_those_imported():
                 "lifeboat.snapshot", "lifeboat.recovery", "lifeboat.boat",
                 "service.wire", "service.netserver", "service.netclient",
                 "service.sentinel", "service.storectl", "service.migrate",
-                "service.pgwire", "service.pgclient"):
+                "service.pgwire", "service.pgclient", "service.tracing",
+                "telemetry.slo", "telemetry.roofline", "telemetry.compile_sentinel",
+                "telemetry.devicemem", "telemetry.profiler", "utils.profiling",
+                "utils.jsonlog", "monitor.promlint"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 

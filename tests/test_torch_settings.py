@@ -8,7 +8,10 @@
 ``FLIGHTRECORDER_CAPACITY``, the lifeboat's ``LIFEBOAT_DIR``,
 ``LIFEBOAT_SNAPSHOT_S``, ``LIFEBOAT_SNAPSHOT_FLUSHES``, ``LIFEBOAT_KEEP``
 (at least 1) and ``LIFEBOAT_FSYNC_S``, the network store tier's
-``FRAUD_STORE_TOKEN``, ``PGUSER`` and ``PGPASSWORD`` and the lifecycle
+``FRAUD_STORE_TOKEN``, ``PGUSER`` and ``PGPASSWORD``, the telemetry
+layer's ``OTEL_*``, ``DEVICE_PROFILE_*``, ``RECOMPILE_STORM_*``, ``SLO_*``
+(with the per-series objective overrides), ``ROOFLINE_ENABLED`` and
+``DEVICE_PEAK_*``, ``ADMIN_TOKEN``, and the lifecycle
 store's default beside each broker scheme (``NATIVE_CSV``, which JAX reads
 in its loader, is compared in ``test_torch_native_csv.py``). Each is set on both
 packages with ``monkeypatch`` and the results compared: the readers, the thresholds and
@@ -79,6 +82,25 @@ SETTINGS = [
     ("FRAUD_STORE_TOKEN", "s3cret", "store_token"),
     ("CELERY_BROKER_URL", "sentinel://s1:26379,s2:26379/m1", "broker_url"),
     ("DATABASE_URL", "postgresql://fraud@db:5432/fraud", "database_url"),
+    ("OTEL_EXPORTER_OTLP_ENDPOINT", "http://collector:4318", "otel_endpoint"),
+    ("OTEL_SERVICE_NAME", "fraud-edge", "otel_service_name"),
+    ("DEVICE_PROFILE_DIR", "/srv/traces", "device_profile_dir"),
+    ("DEVICE_PROFILE_DEFAULT_S", "2.5", "device_profile_default_s"),
+    ("DEVICE_PROFILE_MAX_S", "12", "device_profile_max_s"),
+    ("RECOMPILE_STORM_WINDOW_S", "120", "recompile_storm_window_s"),
+    ("RECOMPILE_STORM_THRESHOLD", "4", "recompile_storm_threshold"),
+    ("SLO_ENABLED", "0", "slo_enabled"),
+    ("SLO_ENABLED", "yes", "slo_enabled"),
+    ("SLO_AVAILABILITY_OBJECTIVE", "0.995", "slo_availability_objective"),
+    ("SLO_LATENCY_OBJECTIVE", "0.95", "slo_latency_objective"),
+    ("SLO_LATENCY_P99_MS", "120", "slo_latency_threshold_s"),
+    ("SLO_FAST_BURN", "10", "slo_fast_burn"),
+    ("SLO_SLOW_BURN", "3", "slo_slow_burn"),
+    ("ROOFLINE_ENABLED", "0", "roofline_enabled"),
+    ("ROOFLINE_ENABLED", "on", "roofline_enabled"),
+    ("DEVICE_PEAK_FLOPS", "6.7e13", "device_peak_flops"),
+    ("DEVICE_PEAK_BYTES_PER_S", "3.35e12", "device_peak_bytes_per_s"),
+    ("ADMIN_TOKEN", "s3cret", "admin_token"),
 ]
 
 
@@ -90,6 +112,20 @@ def test_readers_match_jax(var, value, reader, monkeypatch):
     got = getattr(config, reader)()
     assert got == getattr(jax_config, reader)()
     assert type(got) is type(getattr(jax_config, reader)())
+
+
+@pytest.mark.parametrize("var, value", [
+    ("SLO_AVAILABILITY_OBJECTIVE_JSON", "0.9"), ("SLO_AVAILABILITY_OBJECTIVE_SHARD", "0.99"),
+    ("SLO_LATENCY_OBJECTIVE_BINARY", "0.8"), ("SLO_LATENCY_OBJECTIVE_MSGPACK", ""),
+])
+def test_slo_objective_overrides_match_jax(var, value, monkeypatch):
+    """A per-series objective wins over the global one for its lane (every
+    shard for ``_SHARD``), in both packages."""
+    monkeypatch.setenv("SLO_AVAILABILITY_OBJECTIVE", "0.995")
+    monkeypatch.setenv(var, value)
+    for series in (None, "json", "msgpack", "binary", "shard0", "shard12"):
+        for reader in ("slo_availability_objective", "slo_latency_objective"):
+            assert getattr(config, reader)(series) == getattr(jax_config, reader)(series)
 
 
 @pytest.mark.parametrize("var, value", [("PGUSER", "env-user"), ("PGPASSWORD", "env pw"),

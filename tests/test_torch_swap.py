@@ -199,6 +199,52 @@ def test_reloader_swaps_once_per_alias_move(tmp_path, monkeypatch):
         wt.close()
 
 
+def test_a_swaps_warm_up_counts_under_the_expected_mark_and_feeds_no_storm(
+        tmp_path, monkeypatch):
+    """The reloader's warm-ups (``warm_scorer``, ``warm_fused_ladder``) run
+    under the compile sentinel's expected mark: a kernel library loaded
+    there counts in ``xla_compiles_total`` and feeds no storm, while the
+    same loads unmarked do (threshold 2)."""
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.telemetry import compile_sentinel
+
+    monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
+    monkeypatch.setenv("RECOMPILE_STORM_THRESHOLD", "2")
+    monkeypatch.setenv("SCORER_MAX_BATCH", "64")
+    compile_sentinel._reset_for_tests()
+    real = kernels.fused_score
+
+    def loading(*args, **kwargs):  # each call loads a library, as a cold card would
+        kernels.LOAD_EVENTS.append(("fused_score", 0.01, threading.get_ident()))
+        return real(*args, **kwargs)
+
+    x = np.random.default_rng(2).standard_normal((256, D)).astype(np.float32)
+    m1 = _linear(1)
+    reg = TrackingClient().registry
+    v1 = reg.register("fraud", _save(m1, x, str(tmp_path / "a1")))
+    v2 = reg.register("fraud", _save(_linear(2), x, str(tmp_path / "a2")))
+    reg.set_alias("fraud", "prod", v1)
+    wt = Watchtower(_profile(m1, x), thresholds=NEVER, device="cpu")
+    monkeypatch.setattr(kernels, "fused_score", compile_sentinel.instrument("scorer", loading))
+    try:
+        reloader = ModelReloader(ModelSlot(m1, "registry:models:/fraud@prod", v1),
+                                 watchtower=wt, interval=0)
+        before = metrics.xla_compiles.get("scorer")
+        reg.set_alias("fraud", "prod", v2)
+        assert reloader.check_once()["champion"] == f"swapped to v{v2}"
+        # the scorer's ladder (8 … 64) and the fused ladder: one load a call
+        assert metrics.xla_compiles.get("scorer") - before >= 8
+        assert metrics.xla_recompile_storm.get("scorer") == 0
+        assert "scorer" not in compile_sentinel._storm_windows
+        for _ in range(2):
+            m1.scorer.predict_proba(x[:8])  # unmarked
+        assert metrics.xla_recompile_storm.get("scorer") == 1
+    finally:
+        wt.close()
+        compile_sentinel._reset_for_tests()
+        metrics.xla_recompile_storm.labels("scorer").set(0)
+
+
 def test_reloader_refuses_a_wire_schema_change(tmp_path, monkeypatch):
     monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
     x = np.random.default_rng(2).standard_normal((64, D)).astype(np.float32)

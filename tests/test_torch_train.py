@@ -4,6 +4,7 @@ sidecar, ``train()`` end to end, and artifacts carried across in both
 directions."""
 
 import importlib.util
+import json
 import os
 
 import jax
@@ -429,8 +430,8 @@ def test_main_trains_gbt(synth_csv, tmp_path, monkeypatch, capsys):
 def test_main_refuses_unported_families(synth_csv, tmp_path, monkeypatch, capsys):
     """``--ledger`` trains the ledger-widened family and ``--wide`` the wide
     family (runs on the synthetic CSV, each sidecar stamped), as does
-    ``WIDE_ENABLED``; ``--profile-dir`` keeps refusing, naming its ROADMAP
-    item."""
+    ``WIDE_ENABLED``; ``--profile-dir`` (no longer refused) runs the
+    trainer inside a device trace and writes its ``trace.json``."""
     monkeypatch.setenv("DEVICE", "cpu")
     monkeypatch.setenv("MLFLOW_TRACKING_URI", f"file:{tmp_path}/mlruns")
     monkeypatch.setenv("LEDGER_SLOTS", "64")
@@ -447,9 +448,12 @@ def test_main_refuses_unported_families(synth_csv, tmp_path, monkeypatch, capsys
         assert int(z["log2_buckets"]) == 10 and z["table"].shape == (1024,)
     wide = load_any_model(str(tmp_path / "w"), device="cpu")
     assert wide.scorer.family == "wide" and len(wide.feature_names) == 34
-    with pytest.raises(SystemExit):
-        main(["--profile-dir", "x"])
-    assert "item 13" in capsys.readouterr().err
+    main(["--data", synth_csv, "--folds", "2", "--no-register", "--out-dir",
+          str(tmp_path / "p"), "--profile-dir", str(tmp_path / "trace")])
+    assert "test_auc" in capsys.readouterr().out
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
     monkeypatch.setenv("WIDE_ENABLED", "1")
     m = train(data_csv=synth_csv, register=False, out_dir=str(tmp_path / "e"), device="cpu")
     assert "cv_auc_mean" not in m and os.path.exists(tmp_path / "e" / "wide_params.npz")
