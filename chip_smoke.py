@@ -388,6 +388,37 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    utilizations, the memory watermarks, the capture's wall time, and a
    1024-row fused flush's host p50 with ``SPYGLASS_ENABLED=0
    ROOFLINE_ENABLED=0 SLO_ENABLED=0`` against all on, 30 each in turns.
+17. **the serving mesh** — in process on the card: phase 3's directory on
+   the f32, bf16 and int8 wires at N = 1, 2, 4, 8 shards
+   (``mesh/shardflush.MeshDriftMonitor``), explain off and top-3, buckets
+   of 8 and 1024: scores and reason codes bitwise the single window's and
+   the per-shard loop's (``ShardLoopMonitor``: the single-window body a
+   shard), the per-shard windows bitwise the loop's, the merged window
+   bitwise the single one at an infinite half-life and within 1e-5
+   relative at a half-life of 500 rows, ``fused_score`` once a sharded
+   flush; phase 5's forest with TreeSHAP (``tree_shap`` once a flush,
+   codes bitwise the single window's); phase 12's wide directory at N = 4
+   on a model axis of 1; phase 11's ledger directory at N = 4 behind a
+   micro-batcher with ``SCORER_MAX_INFLIGHT=1`` (single rows over 24
+   entities and a skewed ingest block that bumps its bucket): the merged
+   table bitwise a single-device replay of the recorded flushes; 1024
+   rows of one entity at N = 8 (a bucket of 8192) bitwise the per-shard
+   loop; the shard front with ``mesh.shard_flush`` armed on shard 2 (it
+   dies after 3 errors, every row answered) and the half-open probe's
+   revive after ``MESH_SHARD_REOPEN_S`` 0.5; the ledger monitor's
+   snapshot restored at N = 4 (per-shard windows and table bitwise) and
+   N = 2 (the per-shard windows skipped with the WARNING). Then a child
+   app with ``MESH_SHARDS=4 MESH_FLUSH_DEVICES=4``, explain, the binary
+   lane and ``ADMIN_TOKEN``: 256 ``/predict`` from 16 threads bitwise an
+   in-process flush, ``/mesh/status`` 4 healthy with rows on at least 2,
+   ``device_program_flops`` naming a ``mesh.*`` program, a drain of shard
+   1 under traffic (its ``mesh_shard_rows`` unmoved, every answer 200),
+   409 on the last healthy shard, the merged flight recorder and the
+   per-shard SLO series, a 1024-row frame and a 64-row binary-lane frame
+   bitwise ``/predict``. Printed, not gated: a 1024-row explain flush's
+   host p50, stream time and launches at N = 1, 2, 4, 8 and on the single
+   window (30 each in turns), and ``/predict`` requests/s, p50 and p99
+   from 16 threads against ``MESH_SHARDS`` 1 and 4 in turns.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -6766,6 +6797,643 @@ def telemetry_phase(work: Path, gbt_dir: Path, card: str) -> dict:
             "launches": over_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving mesh
+# ---------------------------------------------------------------------------
+
+MESH_NS = (1, 2, 4, 8)  # flush shard counts held in process
+MESH_ROWS = (5, 1000)  # the rows of the buckets of 8 and 1024
+MESH_TOKEN = "mesh-s3cret"
+MESH_PREDICTS = 256  # /predict to the MESH_SHARDS=4 child, from MESH_CLIENTS threads
+MESH_CLIENTS = 16
+MESH_TURNS = 30  # 1024-row explain flushes a shard count, the counts in turns
+MESH_RATE_ROUNDS = 3  # /predict bursts a child, MESH_SHARDS 1 and 4 in turns
+MESH_REOPEN_S = 0.5  # the half-open rest of the in-process front
+MESH_MAX_ERRORS = 3
+MESH_DECAY_RTOL = 1e-5  # the merged window against the single one, decayed
+MESH_LEDGER_SKEW = 96  # rows of one entity in the skewed ingest block
+MESH_HOT_ROWS = 1024  # rows of one entity at N = 8: a bucket bumped to 8192
+
+
+def mesh_flush(mon, scorer, rows, k: int, items=None):
+    """One fused flush of ``rows`` through drift monitor ``mon``, staged as
+    the micro-batcher stages it (with ``items``' entity columns for the
+    wide family). Returns the host outputs (rows of the batch) and the
+    fused_score and tree_shap launches the flush made."""
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.scorer import _bucket
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+
+    n = len(rows)
+    spec = scorer.fused_spec()
+    slot = scorer.staging.acquire(_bucket(n, scorer.min_bucket))
+    try:
+        items = items if items is not None else [(r, None, None, None) for r in rows]
+        hx = scorer.stage_items(slot, items)
+        wide_rows = MicroBatcher._stage_wide(scorer, slot, items) if spec.wide else None
+        x_dev, v_dev = scorer.to_device(hx), scorer.to_device(slot.valid)
+        before = kernels.launch_counts()
+        out = mon.fused_flush(
+            x_dev, v_dev, n, spec.score_args, spec.score_fn,
+            dequant_scale=spec.dequant_scale, score_codes=spec.score_codes,
+            explain_args=spec.explain_args if k else None, explain_k=k,
+            wide_args=spec.wide, wide_rows=wide_rows,
+        )
+        after = kernels.launch_counts()
+        host = [t.cpu().numpy()[:n].copy() for t in (out if isinstance(out, tuple) else (out,))]
+    finally:
+        scorer.staging.release(slot)
+    return host, {name: after[name] - before[name] for name in ("fused_score", "tree_shap")}
+
+
+def mesh_same(tag: str, a, b) -> None:
+    """Bitwise equal host arrays (a flush's outputs, window leaves)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.tobytes() != y.tobytes():
+            raise AssertionError(f"{tag}: output {i} differs in bits")
+
+
+def mesh_windows(mon) -> list:
+    return [t.cpu().numpy() for t in mon.shard_window.tensors()]
+
+
+def mesh_in_process(work: Path, lin_dir: Path, gbt_dir: Path, wide_dir: Path, x) -> dict:
+    """Phase 17a (part): the shard-axis flushes on the card against the
+    per-shard loop and the single window, for the logistic family on every
+    wire at N = 1, 2, 4, 8, the forest with TreeSHAP, and the wide family at
+    N = 4 on a model axis of 1."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ledger import entity_fingerprint
+    from fraud_detection_tpu_torch.mesh.shardflush import MeshDriftMonitor, ShardLoopMonitor
+    from fraud_detection_tpu_torch.mesh.topology import serving_mesh
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+
+    dev = torch.device("cuda")
+    inf = float("inf")
+    launches = {"fused_score": 0, "tree_shap": 0}
+    flushes = 0
+
+    def trio(profile, n_sh, halflife=inf):
+        mesh = serving_mesh(n_sh, devices=[dev])
+        return (MeshDriftMonitor(profile, mesh, halflife_rows=halflife),
+                ShardLoopMonitor(profile, mesh, halflife_rows=halflife),
+                DriftMonitor(profile, halflife_rows=halflife, device=dev))
+
+    def hold(tag, mons, scorer, rows, k, kernel, items=None, loop_gated=True):
+        nonlocal flushes
+        (m, ml), (lo, _), (s, _) = (mesh_flush(mon, scorer, rows, k, items) for mon in mons)
+        if ml[kernel] != 1:
+            raise AssertionError(f"{tag}: the sharded flush launched {kernel} {ml[kernel]} times")
+        for name in launches:
+            launches[name] += ml[name]
+        flushes += 1
+        mesh_same(f"{tag} vs the single window", m, s)
+        same_loop = all(a.tobytes() == b.tobytes() for a, b in zip(m, lo))
+        if loop_gated and not same_loop:
+            raise AssertionError(f"{tag}: differs in bits from the per-shard loop")
+        return same_loop
+
+    t0 = time.perf_counter()
+    profile = load_profile(str(lin_dir))
+    for wire in WIRE_NAMES:
+        os.environ["SCORER_WIRE"] = wire
+        scorer = load_any_model(str(lin_dir), device="cuda").scorer
+        for n_sh in MESH_NS:
+            mons = trio(profile, n_sh)
+            for k in (0, 3):
+                for n in MESH_ROWS:
+                    rows = x[(n_sh * 131 + k * 17) % 512:][:n]
+                    hold(f"phase17 logistic {wire} N={n_sh} k={k} n={n}", mons, scorer, rows,
+                         k, "fused_score")
+            mesh_same(f"phase17 logistic {wire} N={n_sh}: per-shard windows vs the loop",
+                      mesh_windows(mons[0]), mesh_windows(mons[1]))
+            merged = [t.cpu().numpy() for t in mons[0]._window_for_stats().tensors()]
+            mesh_same(f"phase17 logistic {wire} N={n_sh}: merged window vs the single one "
+                      "(infinite half-life)", merged,
+                      [t.cpu().numpy() for t in mons[2].window.tensors()])
+    os.environ.pop("SCORER_WIRE", None)
+    print(f"phase17: logistic, wires {list(WIRE_NAMES)} x N {list(MESH_NS)} x explain off/top-3 "
+          f"x buckets 8 and 1024: the sharded flush's scores and reason codes bitwise the "
+          f"single window's and the per-shard loop's on every flush, the per-shard windows "
+          f"bitwise the loop's, the merged window bitwise the single one at an infinite "
+          f"half-life; fused_score launched once a sharded flush ({flushes} flushes)")
+    # the decayed merge
+    scorer = load_any_model(str(lin_dir), device="cuda").scorer
+    mons = trio(profile, 4, halflife=500.0)
+    for lo_, n in ((0, 200), (200, 1000), (1200, 37)):
+        for mon in (mons[0], mons[2]):
+            mesh_flush(mon, scorer, x[lo_:lo_ + n], 0)
+    gap = 0.0
+    for a, b in zip(mons[0]._window_for_stats().tensors(), mons[2].window.tensors()):
+        a, b = a.cpu().numpy().astype(np.float64), b.cpu().numpy().astype(np.float64)
+        gap = max(gap, float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6))))
+    if not gap <= MESH_DECAY_RTOL:
+        raise AssertionError(f"phase17: decayed merged window {gap:.3e} relative from the single")
+    print(f"phase17: half-life 500 rows, N = 4: the merged window within {gap:.3e} relative of "
+          f"the single window (gate {MESH_DECAY_RTOL:g}; the merge reassociates decayed sums)")
+    # the forest with TreeSHAP
+    gprof = load_profile(str(gbt_dir))
+    gscorer = load_any_model(str(gbt_dir), device="cuda").scorer
+    loop_same = []
+    n0 = flushes
+    for n_sh in (2, 4, 8):
+        mons = trio(gprof, n_sh)
+        for n in MESH_ROWS:
+            loop_same.append(hold(f"phase17 forest N={n_sh} n={n}", mons, gscorer,
+                                  x[n_sh * 7:][:n], 3, "tree_shap", loop_gated=False))
+    print(f"phase17: the forest with top-3 TreeSHAP at N = 2, 4, 8, buckets 8 and 1024: scores "
+          f"and reason codes bitwise the single window's; tree_shap launched once a sharded "
+          f"flush ({flushes - n0} flushes); bitwise the per-shard loop too on "
+          f"{sum(loop_same)} of {len(loop_same)} flushes")
+    # the wide family on a model axis of 1
+    wprof = load_profile(str(wide_dir))
+    wscorer = load_any_model(str(wide_dir), device="cuda").scorer
+    mons = trio(wprof, 4)
+    n0 = flushes
+    for n in MESH_ROWS:
+        rows = x[300:300 + n]
+        items = [(rows[i], None, None,
+                  None if i % 5 == 0 else (0, entity_fingerprint(f"w{i % 37}"), 0.0))
+                 for i in range(n)]
+        hold(f"phase17 wide N=4 n={n}", mons, wscorer, rows, 3, "fused_score", items=items)
+    print(f"phase17: the wide family at N = 4, model axis 1, buckets 8 and 1024 (a fifth of the "
+          f"rows entity-less): scores and reason codes bitwise the single-window wide flush's "
+          f"and the per-shard loop's ({flushes - n0} flushes, fused_score once each)")
+    print(f"phase17: in-process shard-axis flushes in {time.perf_counter() - t0:.3f} s; kernel "
+          f"launches of the sharded flushes {launches} over {flushes} flushes")
+    return {"launches": dict(launches), "flushes": flushes}
+
+
+def mesh_ledger(work: Path, ledger_dir: Path, x) -> dict:
+    """Phase 17a (the ledger) and 17d (the lifeboat's mesh half): the
+    ledger directory at N = 4 behind a micro-batcher (one flush at a time,
+    every flush recorded), single rows over 24 entities and a skewed
+    ingest block that bumps the bucket: the merged table bitwise a
+    single-device replay of the recorded flushes, fused_score once a
+    flush. Then 1024 rows of one entity at N = 8 (a bucket of 8192) against
+    the per-shard loop, and a snapshot restored at N = 4 and N = 2."""
+    import asyncio
+    import logging
+
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ledger import _ledger_read_update, entity_fingerprint
+    from fraud_detection_tpu_torch.ledger.placement import shard_placement
+    from fraud_detection_tpu_torch.ledger.state import device_state, host_state
+    from fraud_detection_tpu_torch.lifeboat import Lifeboat
+    from fraud_detection_tpu_torch.mesh.shardflush import MeshDriftMonitor, ShardLoopMonitor
+    from fraud_detection_tpu_torch.mesh.topology import serving_mesh
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.watchtower import Thresholds, Watchtower
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.service.microbatch import IngestBlock, MicroBatcher
+
+    dev = torch.device("cuda")
+    tag = "phase17 ledger N=4"
+    model = load_any_model(str(ledger_dir), device="cuda")
+    scorer, spec = model.scorer, model.ledger_spec
+    profile = load_profile(str(ledger_dir))
+    wt = Watchtower(profile, thresholds=Thresholds(5.0, 5.0, 5.0, 1.0, 10**9), device=dev,
+                    mesh=serving_mesh(4, devices=[dev]))
+    wt.drift.bind_ledger(spec, model.ledger_state)
+    mb = MicroBatcher(scorer, max_batch=1024, max_wait_ms=2.0, max_inflight=1,
+                      watchtower=wt, fused=True, explain=True, explain_k=3, telemetry=False)
+    records, inner = [], mb._flush_device
+
+    def recording(scorer_, target_, batch, telemetry=False):
+        out = inner(scorer_, target_, batch, telemetry)
+        slot = out[-1]
+        records.append(tuple(np.array(a) for a in (slot.io, slot.ls, slot.lf, slot.lt, slot.lh)))
+        return out
+
+    t_rel = float(np.max(model.ledger_state.last_ts)) + 10.0
+    rows = x[:200]
+    hot = entity_fingerprint("mesh-hot")
+    hot_slot, _ = spec.row_keys("mesh-hot")
+
+    launches = {}
+
+    async def drive():
+        await mb.start()  # the warm-up ladder launches before the counts start
+        mb._flush_device = recording
+        kernels.reset_launch_counts()
+        try:
+            out = []
+            for wave in range(4):  # four waves: several recorded flushes
+                jobs = []
+                for i in range(40 * wave, 40 * wave + 40):
+                    ent = None
+                    if i % 7:
+                        s, fp = spec.row_keys(f"mesh-{i % 24}")
+                        ent = (s, fp, t_rel + 1.5 * i)
+                    jobs.append(mb.score_ex(rows[i], None, ent))
+                out += await asyncio.gather(*jobs)
+            slot = scorer.staging.acquire(MESH_LEDGER_SKEW)
+            try:
+                slot.f32[:MESH_LEDGER_SKEW] = x[200:200 + MESH_LEDGER_SKEW]
+                ts = t_rel + 500.0 + np.arange(MESH_LEDGER_SKEW, dtype=np.float32)
+                cols = (np.full(MESH_LEDGER_SKEW, hot_slot, np.int64),
+                        np.full(MESH_LEDGER_SKEW, hot, np.int64), ts.astype(np.float32))
+                await mb.score_block(IngestBlock(slot, MESH_LEDGER_SKEW, cols))
+            finally:
+                scorer.staging.release(slot)
+            launches.update(kernels.launch_counts())
+            return out
+        finally:
+            mb._flush_device = inner
+            await mb.stop()
+
+    asyncio.run(drive())
+    if launches["fused_score"] != len(records):
+        raise AssertionError(f"{tag}: fused_score {launches['fused_score']} in {len(records)} flushes")
+    buckets = sorted({r[0].shape[0] for r in records})
+    table = device_state(model.ledger_state, spec.slots, dev)
+    null = torch.tensor(spec.null_features, device=dev)
+    hl = torch.tensor(spec.halflife_s, dtype=torch.float32, device=dev)
+    for io, ls, lf, lt, lh in records:
+        xb = torch.from_numpy(io).to(dev).float()
+        _ledger_read_update(table, *(torch.from_numpy(c).to(dev) for c in (ls, lf, lt)),
+                            xb[:, spec.amount_col], torch.from_numpy(lh).to(dev), null, hl)
+    merged = host_state(wt.drift.ledger_snapshot())
+    replay = host_state(table)
+    mesh_same(f"{tag}: the merged table vs a single-device replay", merged, replay)
+    print(f"{tag}: 160 single rows in 4 waves (24 entities, a seventh entity-less) and one "
+          f"{MESH_LEDGER_SKEW}-row ingest block of one entity, SCORER_MAX_INFLIGHT 1: "
+          f"{len(records)} flushes recorded, buckets {buckets} (the skewed block bumped past its "
+          f"rows), fused_score once a flush ({launches['fused_score']}); the merged table "
+          f"bitwise a single-device replay of the recorded flushes")
+    # 1024 rows of one entity at N = 8: a bucket of 8192 against the loop
+    mesh8 = serving_mesh(8, devices=[dev])
+    mons = (MeshDriftMonitor(profile, mesh8), ShardLoopMonitor(profile, mesh8))
+    outs, lcount = [], []
+    n = MESH_HOT_ROWS
+    slots = np.full(n, hot_slot, np.int64)
+    has = np.ones(n, bool)
+    bucket, pos = shard_placement(slots, has, 8, scorer.min_bucket)
+    for mon in mons:
+        mon.bind_ledger(spec, model.ledger_state)
+        st = scorer.staging.acquire(bucket)
+        try:
+            hx = scorer.stage_rows_placed(st, list(x[:n]), pos)
+            st.ensure_ledger()
+            for c in (st.ls, st.lf, st.lt, st.lh):
+                c[:] = 0
+            st.ls[pos], st.lf[pos], st.lh[pos] = hot_slot, hot, 1.0
+            st.lt[pos] = t_rel + 2000.0 + np.arange(n, dtype=np.float32)
+            spec_f = scorer.fused_spec()
+            before = kernels.FUSED_SCORE_LAUNCHES
+            out = mon.fused_flush(
+                scorer.to_device(hx), scorer.to_device(st.valid), n, spec_f.score_args,
+                spec_f.score_fn, dequant_scale=spec_f.dequant_scale,
+                ledger_rows=tuple(scorer.to_device(c) for c in (st.ls, st.lf, st.lt, st.lh)),
+            )
+            outs.append([out.cpu().numpy()])
+            lcount.append(kernels.FUSED_SCORE_LAUNCHES - before)
+        finally:
+            scorer.staging.release(st)
+    mesh_same("phase17 ledger N=8 hot entity: the sharded flush vs the per-shard loop", *outs)
+    if bucket != 8192 or lcount != [1, 8]:
+        raise AssertionError(f"phase17 ledger N=8: bucket {bucket}, launches {lcount}")
+    print(f"phase17 ledger N=8: {n} rows of one entity placed in one segment, the bucket bumped "
+          f"to {bucket}: one fused_score launch over 8192 rows (the kernel's thread-a-row tiles) "
+          f"scores bitwise the per-shard loop's 8 launches over 1024 rows (a warp a row)")
+    # the lifeboat's mesh half
+    lb_dir = work / "mesh_lifeboat"
+    lb_dir.mkdir()
+    boat = Lifeboat(str(lb_dir), spec, drift=wt.drift, snapshot_s=1e9, fsync_s=0.0)
+    boat.recover()
+    if boat.take_snapshot() is None:
+        raise AssertionError("phase17 lifeboat: no snapshot landed")
+    boat.close()
+    src_windows = mesh_windows(wt.drift)
+    src_base = [t.cpu().numpy() for t in wt.drift.window.tensors()]
+    warnings = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    lb_log = logging.getLogger("fraud_detection_tpu_torch.lifeboat")
+    handler = Catch(logging.WARNING)
+    lb_log.addHandler(handler)
+    try:
+        for n_sh in (4, 2):
+            fresh = MeshDriftMonitor(profile, serving_mesh(n_sh, devices=[dev]))
+            fresh.bind_ledger(spec, model.ledger_state)
+            b2 = Lifeboat(str(lb_dir), spec, drift=fresh, snapshot_s=1e9, fsync_s=0.0)
+            rep = b2.recover()
+            b2.close()
+            if not rep.restored:
+                raise AssertionError(f"phase17 lifeboat N={n_sh}: nothing restored")
+            mesh_same(f"phase17 lifeboat N={n_sh}: the table", host_state(fresh.ledger_snapshot()),
+                      merged)
+            mesh_same(f"phase17 lifeboat N={n_sh}: the base window",
+                      [t.cpu().numpy() for t in fresh.window.tensors()], src_base)
+            if n_sh == 4:
+                mesh_same("phase17 lifeboat N=4: the per-shard windows", mesh_windows(fresh),
+                          src_windows)
+            elif not any("per-shard window restore skipped" in w for w in warnings):
+                raise AssertionError(f"phase17 lifeboat N=2: no geometry WARNING: {warnings}")
+    finally:
+        lb_log.removeHandler(handler)
+        wt.close()
+    print("phase17 lifeboat: the N = 4 monitor's snapshot (sw_* per-shard windows, the merged "
+          "table) restored into a fresh N = 4 monitor: per-shard windows, base window and table "
+          "bitwise; into N = 2: the per-shard windows skipped with the WARNING "
+          f"({[w for w in warnings if 'per-shard' in w][0][:80]}...), base window and table "
+          "bitwise")
+    return {"launches": dict(launches), "flushes": len(records)}
+
+
+def mesh_front(lin_dir: Path, x) -> dict:
+    """Phase 17c: the shard front in process on the card: the fault point
+    armed on shard 2 under traffic (every request answered, shard 2 DEAD
+    after MESH_MAX_ERRORS), then disarmed with every other shard set
+    draining: the half-open probe revives it once its rest is over."""
+    import asyncio
+
+    from fraud_detection_tpu_torch.mesh.front import DEAD, DRAINING, HEALTHY, NoHealthyShards
+    from fraud_detection_tpu_torch.mesh.front import ShardFront
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.range import faults
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+
+    scorer = load_any_model(str(lin_dir), device="cuda").scorer
+
+    def boom(shard=None, **_):
+        if shard == 2:
+            raise RuntimeError("phase17 injected shard fault")
+
+    async def run():
+        front = ShardFront(
+            [MicroBatcher(scorer, max_batch=64, max_wait_ms=1.0, telemetry=False)
+             for _ in range(4)],
+            max_consecutive_errors=MESH_MAX_ERRORS, reopen_after=MESH_REOPEN_S,
+        )
+        await front.start()
+        try:
+            with faults.FaultPlan().call("mesh.shard_flush", boom, times=-1).armed():
+                out = await asyncio.gather(*(front.score(x[i]) for i in range(128)))
+            st2 = front.shards[2]
+            if len(out) != 128 or st2.state != DEAD or st2.errors_total < MESH_MAX_ERRORS:
+                raise AssertionError(f"phase17 front: {len(out)} answers, shard 2 "
+                                     f"{front.status()}")
+            want = scorer.predict_proba(x[:128])
+            if out != [float(v) for v in want]:
+                raise AssertionError("phase17 front: the scores differ from the scorer's")
+            for i in (0, 1, 3):
+                front.shards[i].set_state(DRAINING)
+            t_dead = st2.dead_since
+            refused = 0
+            while True:
+                try:
+                    await front.score(x[0])
+                    break
+                except NoHealthyShards:
+                    refused += 1
+                    await asyncio.sleep(0.02)
+                if time.monotonic() - t_dead > 10 * MESH_REOPEN_S:
+                    raise AssertionError("phase17 front: the probe never revived shard 2")
+            revived_after = time.monotonic() - t_dead
+            if st2.state != HEALTHY or not MESH_REOPEN_S <= revived_after <= MESH_REOPEN_S + 0.3:
+                raise AssertionError(f"phase17 front: shard 2 {st2.state} after "
+                                     f"{revived_after:.3f} s")
+            return st2.errors_total, refused, revived_after
+        finally:
+            await front.stop()
+
+    errors, refused, revived_after = asyncio.run(run())
+    print(f"phase17 front: mesh.shard_flush armed on shard 2 under 128 concurrent rows: every "
+          f"row answered (the scorer's bits), shard 2 DEAD after {errors} errors "
+          f"(MESH_SHARD_MAX_ERRORS {MESH_MAX_ERRORS}); disarmed, the other shards draining: "
+          f"{refused} requests refused (NoHealthyShards) during the rest, then the half-open "
+          f"probe revived shard 2 {revived_after:.3f} s after its death "
+          f"(MESH_SHARD_REOPEN_S {MESH_REOPEN_S})")
+    return {"errors": errors, "revived_after_s": revived_after}
+
+
+def mesh_flush_turns(lin_dir: Path, x) -> dict:
+    """A 1024-row explain flush at N = 1, 2, 4, 8 and on the single window,
+    in turns: host p50 and CUDA-event stream time, and launches a flush
+    (profiler). Printed, not gated."""
+    import torch
+
+    from fraud_detection_tpu_torch.mesh.shardflush import MeshDriftMonitor
+    from fraud_detection_tpu_torch.mesh.topology import serving_mesh
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+
+    dev = torch.device("cuda")
+    scorer = load_any_model(str(lin_dir), device="cuda").scorer
+    profile = load_profile(str(lin_dir))
+    rows = x[:1024]
+    mons = {"single": DriftMonitor(profile, device=dev)}
+    for n_sh in MESH_NS:
+        mons[f"N={n_sh}"] = MeshDriftMonitor(profile, serving_mesh(n_sh, devices=[dev]))
+    out = {}
+    for name, mon in mons.items():
+        for _ in range(5):
+            mesh_flush(mon, scorer, rows, 3)
+        acts = profiled_intervals(lambda mon=mon: [mesh_flush(mon, scorer, rows, 3)
+                                                   for _ in range(5)])
+        copies = sum(1 for a, _, _ in acts if "Memcpy" in a or "Memset" in a)
+        out[name] = {"launches": (len(acts) - copies) / 5, "host": [], "stream": []}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(MESH_TURNS):
+        for name, mon in mons.items():
+            t = time.perf_counter()
+            start.record()
+            mesh_flush(mon, scorer, rows, 3)
+            end.record()
+            end.synchronize()
+            out[name]["host"].append(time.perf_counter() - t)
+            out[name]["stream"].append(start.elapsed_time(end))
+    for name, v in out.items():
+        host, stream = sorted(v.pop("host")), sorted(v.pop("stream"))
+        v.update(host_ms=host[len(host) // 2] * 1e3, stream_ms=stream[len(stream) // 2])
+        print(f"phase17: 1024-row flush with top-3 explain, {name} (in turns, {MESH_TURNS} "
+              f"each): host p50 {v['host_ms']:.3f} ms, stream p50 {v['stream_ms']:.3f} ms "
+              f"(CUDA events), {v['launches']:g} kernel launches a flush (profiler, mean of 5)")
+    return out
+
+
+def mesh_child_checks(work: Path, port: int, lane_port: int, lin_dir: Path, x) -> dict:
+    """Phase 17b: the MESH_SHARDS=4 MESH_FLUSH_DEVICES=4 child under
+    traffic."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+    from fraud_detection_tpu_torch.service import binlane
+
+    tag = "phase17 child"
+    hdr = {"x-admin-token": MESH_TOKEN}
+    start = tel_series(port)
+    compiles = tel_labelled(start, "xla_compiles_total", "entrypoint")
+    programs = tel_labelled(start, "device_program_flops", "entrypoint")
+    if not any(ep.startswith("mesh.") for ep in programs):
+        raise AssertionError(f"{tag}: no mesh.* program in device_program_flops: {programs}")
+    rows = x[:1024]
+    scorer = load_any_model(str(lin_dir), device="cuda").scorer
+    ref, _ = mesh_flush(DriftMonitor(load_profile(str(lin_dir)), device="cuda"), scorer, rows, 3)
+    ref = ref[0]
+    results, wall = tel_predicts(port, rows[:MESH_PREDICTS], MESH_CLIENTS)
+    bad = [(i, st) for i, (st, _, _) in enumerate(results) if st != 200]
+    if bad:
+        raise AssertionError(f"{tag}: /predict answers {bad[:5]}")
+    got = np.asarray([json.loads(b)["score"] for _, b, _ in results], np.float32)
+    if got.tobytes() != ref[:MESH_PREDICTS].tobytes():
+        raise AssertionError(f"{tag}: /predict scores differ in bits from the in-process flush")
+    st, raw = tel_call(port, "GET", "/mesh/status")
+    status = json.loads(raw)
+    rows_by = [s["rows_total"] for s in status["per_shard"]]
+    if status.get("healthy") != 4 or sum(1 for r in rows_by if r) < 2:
+        raise AssertionError(f"{tag}: /mesh/status {status}")
+    print(f"{tag}: {MESH_PREDICTS} /predict from {MESH_CLIENTS} threads, every answer 200, scores "
+          f"bitwise an in-process single-window flush of the same rows; /mesh/status "
+          f"{status['healthy']} of {status['shards']} healthy, rows a shard {rows_by}; "
+          f"device_program_flops names {sorted(programs)} (the sharded flush served); "
+          f"xla_compiles_total at start-up {compiles} (a kernel library loads under the "
+          f"scorer's own warm-up, before any flush)")
+    # a drain under traffic
+    from concurrent.futures import ThreadPoolExecutor
+
+    def rows1():
+        return tel_labelled(tel_series(port), "mesh_shard_rows_total", "shard").get("1", 0.0)
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        bg = pool.submit(tel_predicts, port, rows[256:512], 8)
+        st, raw = tel_call(port, "POST", "/admin/shard/drain", {"shard": 1}, headers=hdr)
+        if st != 200 or not json.loads(raw).get("drained"):
+            raise AssertionError(f"{tag}: drain shard 1: {st} {raw[:200]!r}")
+        r1 = rows1()
+        during, _ = tel_predicts(port, rows[512:640], 8)
+        r1_after = rows1()
+        first, _ = bg.result()
+    if r1_after != r1:
+        raise AssertionError(f"{tag}: drained shard 1 scored rows: {r1} -> {r1_after}")
+    st, raw = tel_call(port, "POST", "/admin/shard/drain", {"shard": 1, "action": "revive"},
+                       headers=hdr)
+    after, _ = tel_predicts(port, rows[640:768], 16)
+    if any(s != 200 for s, _, _ in first + during + after) or st != 200:
+        raise AssertionError(f"{tag}: an answer around the drain was not 200")
+    r1_revived = rows1()
+    refused = []
+    for shard in (0, 1, 2, 3):
+        st, raw = tel_call(port, "POST", "/admin/shard/drain", {"shard": shard}, headers=hdr)
+        refused.append(st)
+    st_unauth, _ = tel_call(port, "POST", "/admin/shard/drain", {"shard": 0, "action": "revive"})
+    for shard in (0, 1, 2):
+        tel_call(port, "POST", "/admin/shard/drain", {"shard": shard, "action": "revive"},
+                 headers=hdr)
+    if refused != [200, 200, 200, 409] or st_unauth != 401:
+        raise AssertionError(f"{tag}: drains of 0, 1, 2, 3 answered {refused}, no token "
+                             f"{st_unauth}")
+    print(f"{tag}: POST /admin/shard/drain shard 1 under traffic: drained, "
+          f"mesh_shard_rows{{shard=\"1\"}} {r1:g} unmoved over 128 more rows, "
+          f"{r1_revived:g} after the revive; every answer 200 "
+          f"({len(first) + len(during) + len(after)}); draining 0, 1, 2 then 3 answered {refused} "
+          f"(409: the last healthy shard), 401 without the token")
+    # the merged flight recorder and the per-shard SLO series
+    st, raw = tel_call(port, "GET", "/debug/flightrecorder")
+    fr = json.loads(raw)
+    shards_seen = sorted({r["shard"] for r in fr["records"]})
+    series = tel_series(port)
+    slo_good = {k: v for k, v in series.items()
+                if k.startswith('slo_requests_total{slo="availability:shard')
+                and 'verdict="good"' in k}
+    if fr.get("shards") != 4 or len(shards_seen) < 2 or len(slo_good) < 2:
+        raise AssertionError(f"{tag}: flight recorder shards {fr.get('shards')} "
+                             f"{shards_seen}, SLO {slo_good}")
+    # a 1024-row frame and a 64-row binary-lane frame
+    st, body = post_raw(port, "/ingest/batch", binlane.encode_frame(rows, length_prefix=False),
+                        "application/x-fraud-frame")
+    if st != 200:
+        raise AssertionError(f"{tag}: /ingest/batch {st}")
+    frame, _ = binlane.decode_response_body(body)
+    with binlane.BinLaneClient("127.0.0.1", lane_port) as cli:
+        lane, _ = cli.score_batch(rows[:64])
+    if frame.tobytes() != ref.tobytes() or lane.tobytes() != got[:64].tobytes():
+        raise AssertionError(f"{tag}: the frames' scores differ in bits from /predict's")
+    good = {re.search(r"shard(\d+)", k).group(1): v for k, v in slo_good.items()}
+    print(f"{tag}: /debug/flightrecorder merges {fr['shards']} rings, {len(fr['records'])} "
+          f"records from shards {shards_seen}; slo_requests_total good by shard {good}; a "
+          f"1024-row /ingest/batch frame and a 64-row binary-lane frame bitwise /predict's rows")
+    return {"rows_by_shard": rows_by}
+
+
+def mesh_rates(ports: dict, x) -> dict:
+    """/predict requests/s, p50 and p99 from 16 threads, the MESH_SHARDS=1
+    and =4 children in turns (a host-clock probe, printed, not gated)."""
+    out = {name: {"rps": [], "lat": []} for name in ports}
+    order = list(ports)
+    for r in range(MESH_RATE_ROUNDS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            results, wall = tel_predicts(ports[name], x[:MESH_PREDICTS], MESH_CLIENTS)
+            if any(st != 200 for st, _, _ in results):
+                raise AssertionError(f"phase17 rates {name}: an answer was not 200")
+            out[name]["rps"].append(len(results) / wall)
+            out[name]["lat"] += [s for _, _, s in results]
+    for name, v in out.items():
+        lat = sorted(v["lat"])
+        v.update(rps=sorted(v["rps"]), p50_ms=lat[len(lat) // 2] * 1e3,
+                 p99_ms=lat[int(len(lat) * 0.99)] * 1e3)
+        print(f"phase17 rates: {name}: /predict {v['rps']} requests/s over {MESH_RATE_ROUNDS} "
+              f"bursts of {MESH_PREDICTS} from {MESH_CLIENTS} threads (in turns), p50 "
+              f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms (host clock)")
+    return out
+
+
+def mesh_phase(work: Path, gbt_dir: Path, ledger_dir: Path, wide_dir: Path, card: str) -> dict:
+    """Phase 17: the serving mesh on the card."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    lin_dir = work / "models"
+    # knobs earlier phases left in this process's environment
+    for key in [k for k in os.environ if k.startswith(("SCORER_", "MESH_", "INGEST_"))]:
+        os.environ.pop(key)
+    os.environ["DEVICE"] = "cuda"
+    x = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                   max_rows=2048, dtype=np.float32)[:, :30]
+    procs = []
+    try:
+        ports = {"MESH_SHARDS=4": free_port(), "MESH_SHARDS=1": free_port()}
+        lane_port = free_port()
+        common = dict(MESH_FLUSH_DEVICES="4", ADMIN_TOKEN=MESH_TOKEN)
+        for name, port in ports.items():
+            shards = name.split("=")[1]
+            extra = dict(INGEST_PORT=str(lane_port), INGEST_HOST="127.0.0.1") if shards == "4" else {}
+            env = tel_env(work, f"mesh{shards}", lin_dir, MESH_SHARDS=shards, **common, **extra)
+            procs.append(tel_spawn(["fraud_detection_tpu_torch.service.app", "--host",
+                                    "127.0.0.1", "--port", str(port)], env,
+                                   work / f"mesh{shards}_app.log"))
+        in_proc = mesh_in_process(work, lin_dir, gbt_dir, wide_dir, x)
+        ledger = mesh_ledger(work, ledger_dir, x)
+        front = mesh_front(lin_dir, x)
+        turns = mesh_flush_turns(lin_dir, x)
+        for (name, port), proc in zip(ports.items(), procs):
+            lb_wait(port, f"phase17 {name}", "/health", lambda st, _: st == 200, proc=proc)
+        child = mesh_child_checks(work, ports["MESH_SHARDS=4"], lane_port, lin_dir, x)
+        rates = mesh_rates(ports, x)
+    finally:
+        for p in procs:
+            tel_stop(p)
+    launches = {k: in_proc["launches"][k] + ledger["launches"][k] for k in in_proc["launches"]}
+    print(f"phase17: the serving mesh on the card in {time.perf_counter() - t_phase:.3f} s "
+          f"({card}); kernel launches of the sharded flushes {launches}")
+    return {"launches": launches, "front": front, "turns": turns, "rates": rates,
+            "child": child}
+
+
 def main() -> int:
     try:
         import torch
@@ -6846,6 +7514,7 @@ def main() -> int:
         store = store_phase(work, work / "models", work / "empty_mlruns", Path(gbt_dir),
                             Path(gbt_store.removeprefix("file:")), card)
         telemetry = telemetry_phase(work, Path(gbt_dir), card)
+        mesh = mesh_phase(work, Path(gbt_dir), ledger["model_dir"], wide["model_dir"], card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS[name]
@@ -6873,6 +7542,7 @@ def main() -> int:
             store_launches=store["fused_score"],
             telemetry_launches=telemetry["launches"]["fused_score"],
             telemetry_trace_kernels=telemetry["logistic"]["trace_fused_score"],
+            mesh_launches=mesh["launches"]["fused_score"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":
@@ -6916,6 +7586,7 @@ def main() -> int:
             lifecycle_launches=lifecycle["tree_shap"],
             store_launches=store["tree_shap"],
             telemetry_trace_kernels=telemetry["gbt"]["trace_tree_shap"],
+            mesh_launches=mesh["launches"]["tree_shap"],
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}

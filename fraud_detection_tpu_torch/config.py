@@ -391,6 +391,45 @@ def wide_enabled() -> bool:
     return env_flag("WIDE_ENABLED") is True
 
 
+# the serving mesh: sharded flushes and the shard front (mesh/)
+
+
+def mesh_shards() -> int:
+    """``MESH_SHARDS`` — replica shards behind the shard front (each one
+    micro-batcher; all share the model slot, so a hot swap lands on every
+    shard between flushes). 0/1 (default): one batcher, no front."""
+    return _get_int("MESH_SHARDS", 0)
+
+
+def mesh_flush_devices() -> int:
+    """``MESH_FLUSH_DEVICES`` — the serving mesh's data axis: the fused
+    flush splits its bucket over that many shards, each with its own drift
+    window and ledger sub-table, all on the serving device
+    (``mesh/shardflush``). 0 (default): the single-window flush. Floored
+    to a power of two and clamped to ``MAX_FLUSH_SHARDS`` (8)."""
+    return _get_int("MESH_FLUSH_DEVICES", 0)
+
+
+def mesh_model_devices() -> int:
+    """``MESH_MODEL_DEVICES`` — the serving mesh's model axis. 0/1 (default)
+    is the one the port serves; above 1 (the wide family's column-sharded
+    table) the app refuses to start: ROADMAP item 12b."""
+    return _get_int("MESH_MODEL_DEVICES", 0)
+
+
+def mesh_shard_max_errors() -> int:
+    """``MESH_SHARD_MAX_ERRORS`` — consecutive scoring failures after which
+    the front marks a shard dead and sheds its load. Default 3."""
+    return _get_int("MESH_SHARD_MAX_ERRORS", 3)
+
+
+def mesh_shard_reopen_s() -> float:
+    """``MESH_SHARD_REOPEN_S`` — seconds a dead shard rests before the front
+    may half-open-probe it when no shard is healthy (one request; a failure
+    re-kills it, a success revives it). Default 5.0."""
+    return _get_float("MESH_SHARD_REOPEN_S", 5.0)
+
+
 # the lifeboat: the ledger's write-ahead journal, snapshots and warm restart
 # (lifeboat/)
 
@@ -435,9 +474,9 @@ def lifeboat_fsync_s() -> float:
 
 def mesh_retrain() -> bool:
     """``MESH_RETRAIN=1`` — the conductor's retrain refines the fit with the
-    cross-replica-sharded weight update instead of L-BFGS. The port has one
-    device and no sharded update yet (ROADMAP item 12): the retrain raises
-    when this is set. Default off."""
+    cross-replica-sharded weight update instead of L-BFGS. The port has no
+    sharded update yet (ROADMAP item 12b): the retrain raises when this is
+    set. Default off."""
     return env_flag("MESH_RETRAIN") is True
 
 

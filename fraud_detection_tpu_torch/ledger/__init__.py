@@ -6,8 +6,9 @@ aggregates, derives K velocity features, writes the updated accumulators
 back and scores the widened ``[rows, base + K]`` block through the
 ``fused_score`` kernel. Training replays its rows through the same body in
 timestamp order (:mod:`.replay`), so the features the model fits on are
-the features serving computes. The sharded flush's placement (the JAX
-package's ``ledger/placement.py``) is ROADMAP item 12.
+the features serving computes. Under the serving mesh the batcher places
+each row in the segment of the shard that owns its slot
+(:mod:`.placement`).
 """
 
 from fraud_detection_tpu_torch.ledger.features import (  # noqa: F401

@@ -38,6 +38,13 @@ Semantics:
   the range at points that need not fall on a vector boundary. A replay
   batch is 256 rows and a flush at most ``SCORER_MAX_BATCH`` (1024 by
   default).
+- **the serving mesh's sub-tables**: a table whose leaves carry a leading
+  shard axis (``(N, slots, …)``, ``mesh/shardflush``) is read and updated
+  as one flat table, row segment ``s`` of the batch indexing shard ``s``'s
+  sub-table at ``s·slots + slot``. A slot's rows keep their batch order and
+  every other step is per row or per slot, so this is bitwise one call a
+  shard on its segment; the collision and eviction counts sum a segment's
+  {0, 1} terms into its shard's scalar.
 - **poison guard**: the amount is ``nan_to_num``-ed and clipped to
   ``±AMOUNT_CLIP`` before it touches an accumulator, the z-score clipped to
   ``±ZSCORE_CLIP``, the slot index clipped into the table.
@@ -84,20 +91,30 @@ def _ledger_read_update(
 ) -> torch.Tensor:
     """Read K velocity features per row and fold the batch into ``state``,
     updated in place (the counterpart of the reference's donated table,
-    which it returns beside the features). Returns the (n, K) features."""
+    which it returns beside the features). ``state`` may carry a leading
+    shard axis (the serving mesh's sub-tables; the batch then splits into
+    one equal row segment a shard). Returns the (n, K) features."""
     inv_hl = 1.0 / torch.clamp_min(halflife_s, 1e-6)
     w = has_entity.float()
-    slot_idx = slot_idx.long().clamp(0, state.acc.shape[0] - 1)
+    shards = state.acc.shape[0] if state.acc.dim() == 3 else None
+    slots = state.acc.shape[-2]
+    slot_idx = slot_idx.long().clamp(0, slots - 1)
+    acc, last_ts, fingerprint = state.acc, state.last_ts, state.fingerprint
+    if shards is not None:
+        n = slot_idx.shape[0]
+        seg = torch.arange(n, device=slot_idx.device) // (n // shards)
+        slot_idx = slot_idx + seg * slots
+        acc, last_ts, fingerprint = acc.view(-1, 3), last_ts.view(-1), fingerprint.view(-1)
     a = torch.nan_to_num(
         amount, nan=0.0, posinf=AMOUNT_CLIP, neginf=-AMOUNT_CLIP
     ).clamp(-AMOUNT_CLIP, AMOUNT_CLIP)
     ts = torch.nan_to_num(ts, nan=0.0, posinf=0.0, neginf=0.0).clamp_min(0.0)
 
     # ---- read: the pre-batch table decayed to each row's timestamp ------
-    prev_acc = state.acc[slot_idx]  # (n, 3) one gather for all three
+    prev_acc = acc[slot_idx]  # (n, 3) one gather for all three
     prev_cnt, prev_sum, prev_ssq = prev_acc.unbind(1)
-    prev_ts = state.last_ts[slot_idx]
-    prev_fp = state.fingerprint[slot_idx]
+    prev_ts = last_ts[slot_idx]
+    prev_fp = fingerprint[slot_idx]
     seen = (prev_ts > 0.0).float()
     dt = (ts - prev_ts).clamp_min(0.0)
     f_row = _exp2(-dt * inv_hl) * seen
@@ -117,30 +134,33 @@ def _ledger_read_update(
 
     # ---- write: the deterministic fold ----------------------------------
     # padding and entity-less rows push a 0 anchor (a no-op under max)
-    state.last_ts.scatter_reduce_(0, slot_idx, ts * w, "amax", include_self=True)
-    anchor = state.last_ts[slot_idx]
+    last_ts.scatter_reduce_(0, slot_idx, ts * w, "amax", include_self=True)
+    anchor = last_ts[slot_idx]
     # old accumulators decay from their previous anchor to the new one: a
     # per-slot factor, so every row of a slot scatters the same value; a
     # slot touched only by weight-0 rows keeps its anchor and is rewritten
     # times exp2(-0) = 1, bitwise unchanged
     f_anchor = _exp2(-(anchor - prev_ts) * inv_hl)
-    state.acc.index_put_((slot_idx,), prev_acc * f_anchor[:, None])
+    acc.index_put_((slot_idx,), prev_acc * f_anchor[:, None])
     # each row's event decays from its own timestamp to the slot anchor
     g = _exp2(-(anchor - ts).clamp_min(0.0) * inv_hl) * w
     ga = g * a
     upd = torch.stack([g, ga, ga * a], dim=1)
-    if state.acc.device.type == "cpu":
-        state.acc.index_add_(0, slot_idx, upd)
+    if acc.device.type == "cpu":
+        acc.index_add_(0, slot_idx, upd)
     else:
-        state.acc.index_put_((slot_idx,), upd, accumulate=True)
+        acc.index_put_((slot_idx,), upd, accumulate=True)
     # fingerprint: "latest writer" telemetry, max over a slot's rows; the
     # collision accounting compares against the pre-batch owner
     fp_eff = torch.where(w > 0.0, fp, torch.zeros_like(fp))
-    state.fingerprint.scatter_reduce_(0, slot_idx, fp_eff, "amax", include_self=True)
+    fingerprint.scatter_reduce_(0, slot_idx, fp_eff, "amax", include_self=True)
     mismatch = w * (prev_fp != fp).float() * (prev_fp != 0).float()
     live = (dcnt > 0.5).float()
-    state.collisions.add_((mismatch * live).sum())
-    state.evictions.add_((mismatch * (1.0 - live)).sum())
+    coll, evic = mismatch * live, mismatch * (1.0 - live)
+    if shards is not None:
+        coll, evic = coll.view(shards, -1), evic.view(shards, -1)
+    state.collisions.add_(coll.sum(dim=-1))
+    state.evictions.add_(evic.sum(dim=-1))
     return feats
 
 

@@ -32,7 +32,7 @@ Three branches, chosen by the champion and ``WIDE_ENABLED``:
   one): the hashed crosses of the raw rows fitted with the base slice by
   ``mesh/retrain.wide_sgd_fit`` (the 1×1 mesh's fit).
 
-``MESH_RETRAIN=1`` raises: the sharded weight update is ROADMAP item 12.
+``MESH_RETRAIN=1`` raises: the sharded weight update is ROADMAP item 12b.
 """
 
 from __future__ import annotations
@@ -215,7 +215,7 @@ def run_retrain(
     if wide_spec is None and config.mesh_retrain():
         raise NotImplementedError(
             "MESH_RETRAIN=1: the cross-replica-sharded weight update "
-            "(mesh_sgd_fit) is not ported yet (ROADMAP item 12); unset it "
+            "(mesh_sgd_fit) is not ported yet (ROADMAP item 12b); unset it "
             "to retrain with L-BFGS on one device"
         )
     fps_base = fps_w = fps_r = None

@@ -6,7 +6,7 @@ base coef, the intercept and the hashed-cross table, with the same
 padding, permutation stream, cosine learning rate and manual gradient, run
 as a Python loop over minibatches. The 2-D form, with the table
 column-sharded over the model axis and the gradient reduce-scattered over
-the data axis, is ROADMAP item 12.
+the data axis, is ROADMAP item 12b.
 
 :func:`mapreduce_pool_stats` is the JAX package's function of that name on
 a one-shard data mesh: the map side's sums over the replay rows, with no

@@ -46,35 +46,47 @@ class BaselineProfile:
         return int(self.feature_edges.shape[0])
 
 
+def _segment_sum(t: torch.Tensor, segments: int | None, **kw) -> torch.Tensor:
+    """Sum over the row axis, or, with ``segments``, over each of that many
+    equal row segments (the serving mesh's shards) → a leading shard axis."""
+    if segments is None:
+        return t.sum(dim=0, **kw)
+    return t.view(segments, t.shape[0] // segments, *t.shape[1:]).sum(dim=1, **kw)
+
+
 def feature_histogram(
-    x: torch.Tensor, edges: torch.Tensor, weights: torch.Tensor | None = None
+    x: torch.Tensor, edges: torch.Tensor, weights: torch.Tensor | None = None,
+    segments: int | None = None,
 ) -> torch.Tensor:
     """Per-feature weighted histogram: ``x`` (n, d) against ``edges``
     (d, n_edges) → (d, n_edges + 1) f32 counts. Bin index = number of edges
     ≤ x (``searchsorted side='right'``). A dense one-hot reduction, as in
     the reference: with 0/1 weights every count is an exact integer, so the
-    summation order cannot change it."""
+    summation order cannot change it — nor a split of the rows into
+    ``segments`` equal segments, each counted apart → (segments, d,
+    n_edges + 1)."""
     n_edges = edges.shape[1]
     idx = (x[:, :, None] >= edges[None, :, :]).sum(dim=-1)  # (n, d)
     bins = torch.arange(n_edges + 1, device=x.device)
     onehot = idx[:, :, None] == bins[None, None, :]
     if weights is None:
-        return onehot.sum(dim=0, dtype=torch.float32)
-    return (onehot * weights.float()[:, None, None]).sum(dim=0)
+        return _segment_sum(onehot, segments, dtype=torch.float32)
+    return _segment_sum(onehot * weights.float()[:, None, None], segments)
 
 
 def score_histogram(
-    scores: torch.Tensor, edges: torch.Tensor, weights: torch.Tensor | None = None
+    scores: torch.Tensor, edges: torch.Tensor, weights: torch.Tensor | None = None,
+    segments: int | None = None,
 ) -> torch.Tensor:
     """Weighted histogram of ``scores`` (n,) against interior ``edges``
-    (n_edges,) → (n_edges + 1,) counts; same convention as
-    :func:`feature_histogram`."""
+    (n_edges,) → (n_edges + 1,) counts; same convention (``segments``
+    included) as :func:`feature_histogram`."""
     idx = (scores[:, None] >= edges[None, :]).sum(dim=-1)  # (n,)
     bins = torch.arange(edges.shape[0] + 1, device=scores.device)
     onehot = idx[:, None] == bins[None, :]
     if weights is None:
-        return onehot.sum(dim=0, dtype=torch.float32)
-    return (onehot * weights.float()[:, None]).sum(dim=0)
+        return _segment_sum(onehot, segments, dtype=torch.float32)
+    return _segment_sum(onehot * weights.float()[:, None], segments)
 
 
 def build_baseline_profile(

@@ -161,14 +161,20 @@ def _fold_serving_batch(
     feature_edges: torch.Tensor,
     score_edges: torch.Tensor,
 ) -> None:
-    """The serving-flush window fold shared by both fused flushes: bin the
+    """The serving-flush window fold shared by every fused flush: bin the
     batch the model scored, decay-fold the drift histograms in place, leave
-    calibration state untouched (serving batches carry no labels)."""
-    fc = feature_histogram(xf, feature_edges, weights=valid)
-    sc = score_histogram(scores, score_edges, weights=valid)
+    calibration state untouched (serving batches carry no labels). A
+    window with a leading shard axis (the serving mesh's per-shard windows,
+    ``mesh/shardflush``) splits the batch into one equal row segment a
+    shard, and each shard's window folds its own segment: the counts are
+    sums of {0, 1} weights, so this is bitwise a fold a shard."""
+    segments = window.n_rows.shape[0] if window.n_rows.dim() else None
+    fc = feature_histogram(xf, feature_edges, weights=valid, segments=segments)
+    sc = score_histogram(scores, score_edges, weights=valid, segments=segments)
+    rows = valid.sum() if segments is None else valid.view(segments, -1).sum(dim=1)
     window.feature_counts.mul_(decay).add_(fc)
     window.score_counts.mul_(decay).add_(sc)
-    window.n_rows.mul_(decay).add_(valid.sum())
+    window.n_rows.mul_(decay).add_(rows)
 
 
 def _flush_inputs(
@@ -502,7 +508,18 @@ class DriftMonitor:
         with self._lock:
             if self.ledger is None:
                 return None
-            return LedgerState(*(t.clone() for t in self.ledger))
+            return LedgerState(*(t.clone() for t in self._ledger_for_stats()))
+
+    def _ledger_for_stats(self) -> LedgerState:
+        """The table snapshots and ``ledger_stats`` read: the live one here;
+        the mesh monitor merges its per-shard sub-tables. Under the lock."""
+        return self.ledger
+
+    def _window_for_stats(self) -> DriftWindow:
+        """The window ``stats()`` derives from: the live one here; the mesh
+        monitor merges its per-shard windows with this one. Under the
+        lock."""
+        return self.window
 
     # -- the lifeboat: the window's snapshot and restore -------------------
     def window_snapshot(self) -> DriftWindow:
@@ -513,7 +530,8 @@ class DriftMonitor:
             return DriftWindow(*(t.clone() for t in self.window.tensors()))
 
     def shard_window_snapshot(self) -> DriftWindow | None:
-        """The per-shard windows: None, there is no mesh on the port yet."""
+        """The per-shard windows: None off the serving mesh (the mesh
+        monitor overrides)."""
         return None
 
     def restore_window(self, window, shard_window=None, rows_seen=None) -> bool:
@@ -549,7 +567,7 @@ class DriftMonitor:
         with self._lock:
             if self.ledger is None:
                 return None
-            table = LedgerState(*(t.clone() for t in self.ledger))
+            table = LedgerState(*(t.clone() for t in self._ledger_for_stats()))
             halflife = self.ledger_spec.halflife_s
         return ledger_stats(table, halflife)
 
@@ -582,14 +600,15 @@ class DriftMonitor:
         ``(scores, reason_idx, reason_val)`` triple. Only enqueues device
         work: the caller's fetch is the flush's one host sync."""
         decay = self._decay_for(n_live)
+        flush, flush_explain, flush_ledger, flush_wide = self._flush_bodies()
         if wide_args is not None and wide_rows is not None:
             cross_spec, wide_table = wide_args
             # k clamps against the widened width the explain leg attributes
             k = (min(int(explain_k), int(x.shape[1]) + cross_spec.n_cross)
                  if explain_args is not None else 0)
             with self._lock:
-                out = _fused_flush_wide(
-                    self.window, x, valid, decay, self._feature_edges,
+                out = flush_wide(
+                    self._flush_window(), x, valid, decay, self._feature_edges,
                     self._score_edges, score_args, wide_table, wide_rows,
                     cross_spec=cross_spec, dequant_scale=dequant_scale,
                     explain_args=explain_args, explain_k=k, out_dtype=out_dtype,
@@ -601,8 +620,8 @@ class DriftMonitor:
             # k clamps against the widened width the explain leg attributes
             k = min(int(explain_k), spec.n_features) if explain_args is not None else 0
             with self._lock:
-                out = _fused_flush_ledger(
-                    self.window, self.ledger, x, valid, decay,
+                out = flush_ledger(
+                    self._flush_window(), self.ledger, x, valid, decay,
                     self._feature_edges, self._score_edges, score_args,
                     ledger_rows, self._ledger_null, self._ledger_halflife,
                     score_fn=score_fn, dequant_scale=dequant_scale,
@@ -612,20 +631,31 @@ class DriftMonitor:
                 self.rows_seen += n_live
             return out
         explain_k = min(int(explain_k), int(x.shape[1]))  # k ≥ d clamps to d
-        fixed = (self.window, x, valid, decay, self._feature_edges,
-                 self._score_edges, score_args)
         quant = dict(dequant_scale=dequant_scale, score_codes=score_codes)
         with self._lock:
+            fixed = (self._flush_window(), x, valid, decay, self._feature_edges,
+                     self._score_edges, score_args)
             if explain_k > 0 and explain_args is not None:
-                out = _fused_flush_explain(
+                out = flush_explain(
                     *fixed, explain_args, score_fn=score_fn,
                     explain_k=explain_k, **quant, out_dtype=out_dtype,
                 )
             else:
-                out = _fused_flush(*fixed, score_fn=score_fn, **quant,
-                                   out_dtype=out_dtype)
+                out = flush(*fixed, score_fn=score_fn, **quant, out_dtype=out_dtype)
             self.rows_seen += n_live
         return out
+
+    def _flush_bodies(self) -> tuple:
+        """The plain, explain, ledger and wide flush bodies
+        :meth:`fused_flush` dispatches, read at call time (the compile
+        sentinel wraps the module's bindings in place). The mesh monitor
+        names its shard-axis flushes here."""
+        return _fused_flush, _fused_flush_explain, _fused_flush_ledger, _fused_flush_wide
+
+    def _flush_window(self) -> DriftWindow:
+        """The window a serving flush folds into: the one live window here,
+        the per-shard windows on the mesh monitor. Under the lock."""
+        return self.window
 
     def warm_fused(
         self, scorer, bucket: int, out_dtype=torch.float32, explain_k: int = 0
@@ -720,7 +750,9 @@ class DriftMonitor:
         with self._lock:
             # a device-side copy in stream order: later folds cannot reach
             # it, so the sync below runs outside the lock
-            window = DriftWindow(*(t.clone() for t in self.window.tensors()))
+            window = DriftWindow(
+                *(t.clone() for t in self._window_for_stats().tensors())
+            )
             rows_seen = self.rows_seen
         s = _drift_stats(window, self._base_fc, self._base_sc)
         feature_psi = s.feature_psi.double().cpu().numpy()

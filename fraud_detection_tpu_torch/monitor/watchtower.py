@@ -126,11 +126,15 @@ class Watchtower:
         action_sender=None,
         max_backlog: int = 32,
         device=None,
+        mesh=None,
     ):
         self.thresholds = thresholds or Thresholds.from_config()
         self._sample_rate = sample_rate
         self._halflife_rows = halflife_rows
         self._device = device
+        # the serving mesh (parallel/mesh.Mesh): the drift window and the
+        # ledger table then carry a shard axis (mesh/shardflush)
+        self._mesh = mesh
         self.drift = self._make_drift(profile)
         self.shadow = (
             ShadowScorer(
@@ -163,6 +167,13 @@ class Watchtower:
         self._thread.start()
 
     def _make_drift(self, profile) -> DriftMonitor:
+        """A drift monitor over ``profile``: the serving mesh's
+        ``MeshDriftMonitor`` when the watchtower was built with one (so a
+        hot swap's rebind keeps the shards), else the single-window one."""
+        if self._mesh is not None:
+            from fraud_detection_tpu_torch.mesh.shardflush import MeshDriftMonitor
+
+            return MeshDriftMonitor(profile, self._mesh, halflife_rows=self._halflife_rows)
         return DriftMonitor(
             profile, halflife_rows=self._halflife_rows, device=self._device
         )
@@ -473,7 +484,7 @@ def resolve_profile_dir(model_source: str) -> str | None:
 
 
 def build_watchtower(model, model_source: str, device=None, retrain_sender=None,
-                     action_sender=None):
+                     action_sender=None, mesh=None):
     """Serving-side factory: the watchtower over the ``monitor_profile.npz``
     beside the served model (:func:`resolve_profile_dir`), or None when
     ``WATCHTOWER_ENABLED=0``, when there is no profile (logged at WARNING
@@ -482,7 +493,8 @@ def build_watchtower(model, model_source: str, device=None, retrain_sender=None,
     ``@shadow`` model (``service.loading.load_shadow_model``), on the same
     device, when its wire schema (the base feature names) matches the
     champion's: a widened challenger shadows a narrow champion through its
-    null path."""
+    null path. ``mesh`` (the serving mesh) shards the drift window and the
+    ledger table over its shards (``mesh/shardflush``)."""
     enabled = config.watchtower_enabled()
     if enabled is False:
         return None
@@ -525,6 +537,7 @@ def build_watchtower(model, model_source: str, device=None, retrain_sender=None,
     wt = Watchtower(
         profile, challenger=challenger, challenger_source=challenger_source,
         retrain_sender=retrain_sender, action_sender=action_sender, device=device,
+        mesh=mesh,
     )
     spec = getattr(model, "ledger_spec", None)
     if spec is not None:

@@ -22,7 +22,7 @@ differs between libraries, and so, rarely, does the bucket (ROADMAP queue
 3). The fingerprint is ``int64`` on the device and ``uint32`` in files.
 
 The JAX package's model-axis shard gather (``_gather_contrib_shard``) is
-the sharded flush's, ROADMAP item 12.
+the 2-D sharded flush's, ROADMAP item 12b.
 """
 
 from __future__ import annotations

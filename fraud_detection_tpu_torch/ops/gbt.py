@@ -29,7 +29,7 @@ The JAX package's ``ops/gbt.py`` — the reference's ``XGBClassifier`` recipe
 ``_hist_matmul`` (a TPU MXU idiom) and the ``GBT_HIST``/``GBT_MATMUL_HIST``/
 ``GBT_DENSE_PREDICT`` switches are not ported: the device of the tensors
 decides. The fit is the JAX package's unsharded fit (one device); its
-sharded fit (histogram allreduce) is ROADMAP queue 1, item 12.
+sharded fit (histogram allreduce) is ROADMAP queue 1, item 12b.
 """
 
 from __future__ import annotations

@@ -356,6 +356,39 @@ class _BucketedScorer:
         slot.valid[off:] = 0.0
         return self._encode_slot(slot)
 
+    def stage_items_placed(self, slot: _StagingSlot, items: list, positions):
+        """:meth:`stage_items` for the sharded ledger flush: row ``i``
+        (row-major over the items, blocks expanded) lands at
+        ``positions[i]`` (``ledger/placement.shard_placement``), a block in
+        one fancy-index assignment; every other row is zero padding."""
+        slot.f32[:] = 0.0
+        slot.valid[:] = 0.0
+        i = 0
+        for item in items:
+            rows = item[0]
+            if rows.ndim == 2:
+                k = rows.shape[0]
+                pos = positions[i:i + k]
+                slot.f32[pos] = rows
+                slot.valid[pos] = 1.0
+                i += k
+            else:
+                p = positions[i]
+                slot.f32[p] = rows
+                slot.valid[p] = 1.0
+                i += 1
+        return self._encode_slot(slot)
+
+    def stage_rows_placed(self, slot: _StagingSlot, rows: list, positions):
+        """Single rows at their placement positions (the
+        :meth:`stage_items_placed` of a list of rows)."""
+        slot.f32[:] = 0.0
+        slot.valid[:] = 0.0
+        for r, p in zip(rows, positions):
+            slot.f32[p] = r
+            slot.valid[p] = 1.0
+        return self._encode_slot(slot)
+
     def to_device(self, host) -> torch.Tensor:
         """h2d copy of a staged host buffer (an ndarray, or the bf16 wire's
         tensor) on the current stream (async from a pinned buffer; the

@@ -1,0 +1,76 @@
+"""Shard-axis layouts: row padding and the segments of a staged batch.
+
+The JAX package's ``NamedSharding``s place rows on devices. On the port's
+one-device grid (:mod:`.mesh`) a layout says how a tensor's leading axis
+splits over the shards instead: :func:`batch_sharding` into ``mesh.size``
+equal row segments (segment ``s`` is shard ``s``'s rows, ``[s·b/N,
+(s+1)·b/N)``), :func:`replicated` not at all (every shard reads the whole
+tensor). :func:`pad_to_multiple` and :func:`shard_batch` resolve the even
+row count a split needs on the host first, as in JAX.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from fraud_detection_tpu_torch.parallel.mesh import Mesh, default_mesh
+
+
+@dataclass(frozen=True)
+class ShardLayout:
+    """How a tensor's leading axis lies over a mesh's shards: ``split``
+    into ``mesh.size`` equal segments, or replicated."""
+
+    mesh: Mesh
+    split: bool
+
+    def segments(self, t: torch.Tensor) -> torch.Tensor:
+        """A split tensor as ``(shards, rows a shard, ...)`` (a view); a
+        replicated one as it is."""
+        if not self.split:
+            return t
+        n = self.mesh.size
+        if t.shape[0] % n:
+            raise ValueError(
+                f"{t.shape[0]} rows do not split over {n} shards; pad them first"
+            )
+        return t.view(n, t.shape[0] // n, *t.shape[1:])
+
+
+def batch_sharding(mesh: Mesh | None = None) -> ShardLayout:
+    """Rows split over the flattened grid, features whole."""
+    return ShardLayout(mesh or default_mesh(), split=True)
+
+
+def replicated(mesh: Mesh | None = None) -> ShardLayout:
+    return ShardLayout(mesh or default_mesh(), split=False)
+
+
+def pad_to_multiple(x, multiple: int, axis: int = 0, value: float = 0.0):
+    """Pad ``x`` (a numpy array or a tensor) along ``axis`` to a multiple of
+    ``multiple``. Returns ``(padded, n_valid)``; callers mask the padded
+    rows out of reductions with ``n_valid``."""
+    n = x.shape[axis]
+    rem = (-n) % multiple
+    if rem == 0:
+        return x, n
+    if isinstance(x, torch.Tensor):
+        pad = [0, 0] * (x.dim() - 1 - axis) + [0, rem]
+        return torch.nn.functional.pad(x, pad, value=value), n
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, rem)
+    return np.pad(x, widths, constant_values=value), n
+
+
+def shard_batch(x, mesh: Mesh | None = None, value: float = 0.0):
+    """Pad rows to a multiple of the grid's size and place them on the
+    mesh's device, split into its shards' segments (:func:`batch_sharding`).
+    Returns ``(tensor, n_valid)``."""
+    mesh = mesh or default_mesh()
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    padded, n_valid = pad_to_multiple(x, mesh.size, axis=0, value=value)
+    return padded.to(mesh.device), n_valid

@@ -29,7 +29,13 @@
   journal sequence and fsync lag, and the last recovery's report
   (``{"enabled": false, "state": "disabled"}`` without a lifeboat)
 - ``GET /debug/flightrecorder`` — the last scored requests' stage
-  timelines (``SPYGLASS_ENABLED``, ``FLIGHTRECORDER_CAPACITY``)
+  timelines (``SPYGLASS_ENABLED``, ``FLIGHTRECORDER_CAPACITY``; under the
+  shard front every shard's ring, merged)
+- ``GET /mesh/status`` — the shard front's shards: health, rows in flight,
+  routed rows and errors (``{"enabled": false}`` with one batcher)
+- ``POST /admin/shard/drain`` — drain or revive one shard (409 without a
+  front, for a shard with nothing to drain, or for the last healthy
+  shard; 422 on a bad body; ``ADMIN_TOKEN`` gates it when set)
 - ``GET /slo/status`` — the SLO engine's burn rates over the 5m/1h/6h
   windows, error budgets and objectives by lane, and the roofline's peaks,
   program costs and per-entrypoint utilization (``SLO_ENABLED``)
@@ -65,6 +71,14 @@ hot path, and on start-up replays the newest generation plus the journal
 tail on its own thread: until it binds, ``/health``, ``/predict``,
 ``/ingest/batch`` and the binary lane answer 503 (a status-3 frame) with
 ``Retry-After``. A failed recovery logs and serves the train-time stamp.
+
+The serving mesh: with ``MESH_FLUSH_DEVICES=N`` (N = 2, 4, 8) the fused
+flush runs over N shards of the serving device, each with its own drift
+window and ledger sub-table (``mesh/shardflush``); ``MESH_MODEL_DEVICES >
+1`` fails the start-up (ROADMAP item 12b). With ``MESH_SHARDS=N`` N
+micro-batchers serve behind the shard front (``mesh/front``): a request
+that no shard can take answers 503 + Retry-After (a status-3 frame on the
+binary lane).
 
 The model directory holds either family (``load_any_model``): the logistic
 flagship (``fused_score`` kernel; ledger-widened when the directory holds
@@ -107,6 +121,8 @@ from fraud_detection_tpu_torch.lifecycle import (
     ModelSlot,
     open_lifecycle_store,
 )
+from fraud_detection_tpu_torch.mesh import NoHealthyShards, ShardFront, serving_mesh
+from fraud_detection_tpu_torch.mesh.front import HEALTHY, DRAINING
 from fraud_detection_tpu_torch.monitor.watchtower import RETRAIN_TASK, build_watchtower
 from fraud_detection_tpu_torch.service import binlane, metrics, tracing
 from fraud_detection_tpu_torch.service.db import ResultsDB
@@ -133,6 +149,7 @@ from fraud_detection_tpu_torch.service.schemas import (
 from fraud_detection_tpu_torch.service.taskq import TASK_NAME, Broker
 from fraud_detection_tpu_torch.telemetry import (
     FlightRecorder,
+    RecorderSet,
     RequestTimeline,
     compile_sentinel,
     devicemem,
@@ -165,6 +182,17 @@ def _store_unavailable(what: str, e: Exception) -> Response:
         {"error": "store_unavailable", "detail": f"{what}: {e}"},
         status_code=503,
         headers={"retry-after": str(STORE_RETRY_AFTER_S)},
+    )
+
+
+def _no_healthy_shards(e: NoHealthyShards) -> Response:
+    """Every shard of the front dead or draining: a retryable capacity
+    outage, 503 + Retry-After (the half-open probe re-admits a rested shard
+    within about ``MESH_SHARD_REOPEN_S``)."""
+    return Response(
+        {"error": "no healthy scoring shards", "detail": str(e)},
+        status_code=503,
+        headers={"retry-after": str(max(int(config.mesh_shard_reopen_s()), 1))},
     )
 
 
@@ -236,9 +264,10 @@ def create_app(
     app.state = state  # exposed for tests/embedding
 
     def _require_admin(req: Request) -> None:
-        """The admin gate of ``/admin/reload`` and ``/admin/profile``: with
-        ``ADMIN_TOKEN`` set, the request carries it (``X-Admin-Token`` or
-        ``Authorization: Bearer``); empty leaves the endpoints open."""
+        """The admin gate of ``/admin/reload``, ``/admin/profile`` and
+        ``/admin/shard/drain``: with ``ADMIN_TOKEN`` set, the request
+        carries it (``X-Admin-Token`` or ``Authorization: Bearer``); empty
+        leaves the endpoints open."""
         token = config.admin_token()
         if not token:
             return
@@ -364,8 +393,14 @@ def create_app(
             slo_engine.declare_lanes()
         state["profiler"] = DeviceProfiler(device=dev)
         cap = config.flightrecorder_capacity()
+        n_shards = config.mesh_shards()
+        recorders = []
         if cap > 0 and config.spyglass_enabled():
-            state["flightrecorder"] = FlightRecorder(cap)
+            # under the shard front one ring a shard behind the merged view
+            recorders = [FlightRecorder(cap) for _ in range(max(n_shards, 1))]
+            state["flightrecorder"] = (
+                RecorderSet(recorders) if n_shards > 1 else recorders[0]
+            )
         state["db"] = ResultsDB(database_url)
         state["broker"] = Broker(broker_url)
         try:
@@ -388,11 +423,18 @@ def create_app(
             def _action_sender(task: str, reason: str) -> None:
                 state["broker"].send_task(task, [reason])
 
+            # the serving mesh (MESH_FLUSH_DEVICES): built before the
+            # watchtower's try, so a setting the port cannot serve
+            # (MESH_MODEL_DEVICES > 1) fails the start-up instead of leaving
+            # an unmonitored app
+            mesh = None
+            if config.mesh_flush_devices() > 1 or config.mesh_model_devices() > 1:
+                mesh = serving_mesh(devices=[dev])
             try:
                 # monitoring must never take serving down
                 state["watchtower"] = build_watchtower(
                     model, source, retrain_sender=_retrain_sender,
-                    action_sender=_action_sender,
+                    action_sender=_action_sender, mesh=mesh,
                 )
             except Exception as e:
                 state["watchtower"] = None
@@ -400,10 +442,30 @@ def create_app(
             state["slot"] = ModelSlot(model, source, resolve_source_version(source))
             metrics.lifecycle_active_model_version.set(state["slot"].version or 0)
             boat = _start_lifeboat(model)
-            batcher = MicroBatcher(
-                slot=state["slot"], watchtower=state["watchtower"],
-                recorder=state["flightrecorder"], lifeboat=boat,
-            )
+            if n_shards > 1:
+                # the shard front (MESH_SHARDS): replica batchers behind a
+                # router; they share the slot, so a swap lands on every
+                # shard between flushes, and a revive (after an outage)
+                # asks the lifeboat for a generation now
+                batcher = ShardFront(
+                    [
+                        MicroBatcher(
+                            slot=state["slot"], watchtower=state["watchtower"],
+                            recorder=recorders[i] if recorders else None,
+                            lifeboat=boat, shard_id=i,
+                        )
+                        for i in range(n_shards)
+                    ],
+                    on_revive=(
+                        (lambda _shard: boat.request_snapshot())
+                        if boat is not None else None
+                    ),
+                )
+            else:
+                batcher = MicroBatcher(
+                    slot=state["slot"], watchtower=state["watchtower"],
+                    recorder=state["flightrecorder"], lifeboat=boat,
+                )
             await batcher.start()  # warms the bucket ladder; can raise
             state["batcher"] = batcher
             # the alias watcher: a promotion reaches this process without a
@@ -561,6 +623,10 @@ def create_app(
                 except AdmissionFull as e:
                     slo.record_lane("json", False)
                     return _admission_shed(e, metrics.ingest_shed.labels("json"))
+                except NoHealthyShards as e:
+                    log.error("[%s] no healthy shards: %s", corr_id, e)
+                    slo.record_lane("json", False)
+                    return _no_healthy_shards(e)
                 except Exception:
                     # an internal scoring failure (a 500) burns availability
                     slo.record_lane("json", False)
@@ -701,6 +767,9 @@ def create_app(
             except AdmissionFull as e:
                 slo.record_lane(lane, False)
                 return _admission_shed(e, metrics.ingest_shed.labels(lane))
+            except NoHealthyShards as e:
+                slo.record_lane(lane, False)
+                return _no_healthy_shards(e)
             except Exception:
                 slo.record_lane(lane, False)
                 raise
@@ -761,6 +830,55 @@ def create_app(
             )
         # status() copies small device arrays to the host: off the loop
         return Response(await asyncio.to_thread(wt.status))
+
+    @app.get("/mesh/status")
+    async def mesh_status(req: Request) -> Response:
+        """The shard front's state: each shard's health, rows in flight and
+        routed row and error totals; ``enabled: false`` with one batcher
+        (``MESH_SHARDS`` unset)."""
+        batcher = state["batcher"]
+        if batcher is None or not hasattr(batcher, "shards"):
+            return Response({"enabled": False, "shards": 0})
+        body = {"enabled": True}
+        body.update(batcher.status())
+        return Response(body)
+
+    @app.post("/admin/shard/drain")
+    async def admin_shard_drain(req: Request) -> Response:
+        """Drain or revive one shard: ``{"shard": 0, "action": "drain"}``.
+        A drain stops new routing and waits (10 s at most) for the shard's
+        in-flight rows; 409 without a front, for a shard that is neither
+        healthy nor draining, or for the last healthy shard; 422 on a bad
+        body. ``ADMIN_TOKEN`` gates it when set."""
+        _require_admin(req)
+        batcher = state["batcher"]
+        if batcher is None or not hasattr(batcher, "shards"):
+            raise HTTPError(409, "mesh front not enabled (MESH_SHARDS)")
+        try:
+            payload = req.json()
+            shard = int(payload["shard"])
+            action = payload.get("action", "drain")
+            if not 0 <= shard < len(batcher.shards):
+                raise ValueError(f"shard must be in [0, {len(batcher.shards)})")
+            if action not in ("drain", "revive"):
+                raise ValueError("action must be 'drain' or 'revive'")
+        except (KeyError, TypeError, ValueError) as e:
+            raise HTTPError(422, str(e)) from e
+        if action == "revive":
+            batcher.revive(shard)
+            return Response({"shard": shard, "action": "revive"})
+        state_now = batcher.shards[shard].state
+        if state_now not in (HEALTHY, DRAINING):
+            # drain() would do nothing on a dead or half-open shard
+            raise HTTPError(
+                409, f"shard {shard} is {state_now!r} — nothing to drain (revive it instead)"
+            )
+        try:
+            batcher.drain(shard)
+        except ValueError as e:  # the last healthy shard
+            raise HTTPError(409, str(e)) from e
+        drained = await asyncio.to_thread(batcher.wait_drained, shard, 10.0)
+        return Response({"shard": shard, "action": "drain", "drained": drained})
 
     @app.post("/monitor/feedback")
     async def monitor_feedback(req: Request) -> Response:
@@ -977,7 +1095,9 @@ def create_app(
             "enabled": True,
             "capacity": rec.capacity,
             "total_recorded": rec.total_recorded,
-            "shards": 1,
+            # under the shard front: per-shard rings merged, every record
+            # carrying the shard that ran its flush
+            "shards": len(getattr(rec, "recorders", (rec,))),
             "records": rec.dump(),
         })
 

@@ -47,8 +47,12 @@ the int8 dequant scale as payload when the int8 layout is served)::
     status 0 payload: scores f32[n]
                       [+ reason idx u8[n][k] + reason values f32[n][k]]
     status >0 payload: retry_after_ms u32 + utf-8 message
-    status codes: 1 bad frame, 2 busy (admission shed), 3 unavailable,
-                  4 internal
+    status codes: 1 bad frame, 2 busy (admission shed), 3 unavailable
+                  (lifeboat recovering, or no healthy shard), 4 internal
+
+The lane feeds a micro-batcher or, under ``MESH_SHARDS``, the shard front
+(``mesh/front``): a frame lands whole on one shard, and a front with no
+healthy shard answers status 3 with ``MESH_SHARD_REOPEN_S`` as its retry.
 
 The same payload (no length prefix) posts to ``POST /ingest/batch`` as
 ``application/x-fraud-frame``. For a ledger-widened model the entity and
@@ -79,6 +83,7 @@ import numpy as np
 
 from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.ledger.state import _MULT
+from fraud_detection_tpu_torch.mesh.front import NoHealthyShards
 from fraud_detection_tpu_torch.ops.scorer import _bucket
 from fraud_detection_tpu_torch.service import metrics, tracing
 from fraud_detection_tpu_torch.service.errors import ProtocolError
@@ -138,8 +143,10 @@ class LaneBusy(Exception):
 
 
 def batcher_max_batch(batcher) -> int:
-    """The micro-batcher's flush ceiling: the hard bound on rows a block."""
-    return int(batcher.max_batch)
+    """The flush ceiling of a micro-batcher, or of a shard front's shards
+    (they share it): the hard bound on rows a block."""
+    shards = getattr(batcher, "shards", None)
+    return int((shards[0].batcher if shards else batcher).max_batch)
 
 
 def ingest_dequant_scale(model) -> np.ndarray | None:
@@ -803,9 +810,13 @@ class BinaryIngestServer:
             return True
         except Exception as e:
             scorer.staging.release(slot)
+            status, retry = ST_ERROR, 0.0
+            if isinstance(e, NoHealthyShards):
+                # every shard of the front down: a retryable outage
+                status, retry = ST_UNAVAILABLE, float(config.mesh_shard_reopen_s())
             log.error("ingest frame failed: %s", e)
             slo.record_lane("binary", False)
-            conn.sendall(error_frame(ST_ERROR, str(e)))
+            conn.sendall(error_frame(status, str(e), retry))
             return True
         try:
             self._c_rows.inc(n)

@@ -112,6 +112,12 @@ class _Metric:
         prometheus_client idiom for a value another object owns)."""
         self._children[()].fn = fn
 
+    def remove(self, *values) -> None:
+        """Drop one labelled series (``KeyError`` when it was never
+        written), as prometheus_client's ``remove``."""
+        with self._lock:
+            del self._children[tuple(str(v) for v in values)]
+
     def clear(self) -> None:
         """Drop every labelled series (an unlabelled metric keeps its one)."""
         if self.labelnames:
@@ -298,6 +304,52 @@ scorer_effective_wait = Gauge(
 scorer_admission_queue_rows = Gauge(
     "scorer_admission_queue_rows",
     "Rows admitted but not yet collected into a flush (bounded admission)",
+    ["shard"],
+)
+
+
+def drop_shard_gauges(shard: str) -> None:
+    """Drop one shard's per-shard scorer GAUGE series when it dies or
+    drains: its last queue-depth, wait and dispatch samples must not read
+    as live. Counters stay (their rates go quiet on their own); the shard's
+    micro-batcher rebinds its gauges on revive
+    (``MicroBatcher.rebind_shard_gauges``)."""
+    for g in (scorer_queue_depth, scorer_effective_wait,
+              scorer_device_calls_per_flush, scorer_admission_queue_rows):
+        try:
+            g.remove(shard)
+        except KeyError:
+            pass  # never written for this shard yet
+
+
+# the serving mesh (mesh/): the shard front's routing health, the inputs of
+# monitoring/prometheus/rules/mesh-alerts.yml (ShardDown, ShardLoadSkew)
+mesh_shards = Gauge(
+    "mesh_shards",
+    "Replica shards configured in the serving mesh's shard front",
+)
+mesh_shards_healthy = Gauge(
+    "mesh_shards_healthy",
+    "Shards currently accepting traffic (healthy, not draining/dead)",
+)
+mesh_shard_healthy = Gauge(
+    "mesh_shard_healthy",
+    "1 while this shard accepts traffic (ShardDown alert input)",
+    ["shard"],
+)
+mesh_shard_inflight = Gauge(
+    "mesh_shard_inflight",
+    "Rows currently in flight on this shard's micro-batcher",
+    ["shard"],
+)
+mesh_shard_rows = Counter(
+    "mesh_shard_rows",
+    "Rows scored by this shard (ShardLoadSkew reads the per-shard rates)",
+    ["shard"],
+)
+mesh_shard_errors = Counter(
+    "mesh_shard_errors",
+    "Scoring failures on this shard (consecutive failures mark it dead)",
     ["shard"],
 )
 

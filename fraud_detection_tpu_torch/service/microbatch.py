@@ -49,6 +49,15 @@ target, or a cross-width hot swap caught between its slot write and the
 watchtower's rebind) scores every row through the null slot: its rows are
 counted in ``ledger_null_entity_rows``, with one WARNING a served model.
 
+Under the serving mesh (``MESH_FLUSH_DEVICES``) the watchtower's monitor is
+a ``mesh/shardflush.MeshDriftMonitor``: the same flushes over per-shard
+windows, and for the ledger flush each row staged in the segment of the
+shard that owns its entity's slot (``ledger/placement``; a skewed batch
+may bump its bucket, and the warm ladder extends to cover it). Under
+``MESH_SHARDS`` several batchers sit behind the shard front
+(``mesh/front``), each with its ``shard_id``: the ``shard`` label of its
+scorer series and flight-recorder records.
+
 With a lifeboat (``lifeboat/``, ``LIFEBOAT_DIR``) the ledger flush is
 write-ahead: the flush's entity triples are journaled and the flush's
 launches enqueued under the boat's ``flush_lock``, one atom, so a
@@ -169,6 +178,35 @@ def _fence(device: torch.device) -> None:
         ev.synchronize()
 
 
+def _placement(batch: list[tuple], n_shards: int, min_bucket: int):
+    """``ledger/placement.shard_placement`` of a batch's rows, row-major over
+    the items (a block expanded; fingerprint 0 in a block's columns, or no
+    entity at all: an entity-less row). Returns ``(bucket, positions)``."""
+    from fraud_detection_tpu_torch.ledger.placement import shard_placement
+
+    slots: list = []
+    has: list = []
+    for item in batch:
+        rows, ent = item[0], item[3]
+        if rows.ndim == 2:
+            k = rows.shape[0]
+            if ent is None:
+                slots.extend([0] * k)
+                has.extend([False] * k)
+            else:
+                slots.extend(np.asarray(ent[0]).tolist())
+                has.extend((np.asarray(ent[1]) != 0).tolist())
+        elif ent is None:
+            slots.append(0)
+            has.append(False)
+        else:
+            slots.append(ent[0])
+            has.append(True)
+    return shard_placement(
+        np.asarray(slots, np.int64), np.asarray(has, bool), n_shards, min_bucket
+    )
+
+
 class MicroBatcher:
     def __init__(
         self,
@@ -186,6 +224,7 @@ class MicroBatcher:
         admit_max_rows: int | None = None,
         slot=None,
         lifeboat=None,
+        shard_id: int = 0,
     ):
         # either a fixed scorer (offline tools, tests) or the lifecycle's
         # ModelSlot (serving): with a slot every flush reads the slot once,
@@ -262,14 +301,11 @@ class MicroBatcher:
         self._carry: tuple | None = None  # a block deferred to the next batch
         self._rate = 0.0  # arrival rows/s EWMA, the adaptive deadline's input
         self._last_cycle: float | None = None
-        self._c_flush = {
-            path: metrics.scorer_flushes.labels(path, "0")
-            for path in ("fused", "split", "solo")
-        }
-        self._g_queue_depth = metrics.scorer_queue_depth.labels("0")
-        self._g_effective_wait = metrics.scorer_effective_wait.labels("0")
-        self._g_device_calls = metrics.scorer_device_calls_per_flush.labels("0")
-        self._g_admission_rows = metrics.scorer_admission_queue_rows.labels("0")
+        # the serving mesh's shard this batcher is ("0" without a front):
+        # the shard label of its scorer series and flight-recorder records
+        self.shard_id = int(shard_id)
+        self.rebind_shard_gauges()
+        self._c_flush = self._bind_flush_counters()
         self._queue: asyncio.Queue[tuple] = asyncio.Queue()
         self._collector: asyncio.Task | None = None
         self._starting = False
@@ -277,6 +313,31 @@ class MicroBatcher:
             max_inflight if max_inflight is not None else config.scorer_max_inflight()
         )
         self._flushes: set[asyncio.Task] = set()
+
+    def _bind_flush_counters(self) -> dict:
+        return {
+            path: metrics.scorer_flushes.labels(path, str(self.shard_id))
+            for path in ("fused", "split", "solo")
+        }
+
+    def set_shard_id(self, shard_id: int) -> None:
+        """Take a shard identity (the shard front assigns them by index), so
+        each shard writes its own per-shard series."""
+        if int(shard_id) == self.shard_id:
+            return
+        self.shard_id = int(shard_id)
+        self.rebind_shard_gauges()
+        self._c_flush = self._bind_flush_counters()
+
+    def rebind_shard_gauges(self) -> None:
+        """(Re)bind this shard's per-shard gauge series: at construction and
+        again on a revive, since a death or drain drops them from the
+        registry (``metrics.drop_shard_gauges``)."""
+        label = str(self.shard_id)
+        self._g_queue_depth = metrics.scorer_queue_depth.labels(label)
+        self._g_effective_wait = metrics.scorer_effective_wait.labels(label)
+        self._g_device_calls = metrics.scorer_device_calls_per_flush.labels(label)
+        self._g_admission_rows = metrics.scorer_admission_queue_rows.labels(label)
 
     @property
     def scorer(self) -> BatchScorer:
@@ -293,7 +354,7 @@ class MicroBatcher:
         model, source, version = self.slot.get()
         return model.scorer, source, version
 
-    async def start(self) -> None:
+    async def start(self, warm: bool = True) -> None:
         """Warm the bucket ladder (off the event loop), then start the
         collector. Warming runs the flush the serving path will run — fused
         with the serving return wire and explain leg, or the plain score —
@@ -301,7 +362,11 @@ class MicroBatcher:
         are cached before the first request. It runs under the compile
         sentinel's expected mark (a deploy's warm-up must not read as a
         recompile storm), and with ``ROOFLINE_ENABLED`` it resolves the
-        roofline's peaks first (the probes run here, never on a request)."""
+        roofline's peaks first (the probes run here, never on a request).
+        ``warm=False`` skips the ladder: the shard front passes it for
+        shards 1..N-1, which share shard 0's scorer and monitor. A mesh
+        ledger's ladder extends by the shard factor, the most a skewed
+        batch's placement can bump its bucket (``ledger/placement``)."""
         if self._starting or not (
             self._collector is None or self._collector.done()
         ):
@@ -324,6 +389,8 @@ class MicroBatcher:
                         return
                     drift, spec = target
                     k = self._explain_k_for(scorer)
+                    if spec.ledger is not None and getattr(drift, "n_shards", 1) > 1:
+                        top *= drift.n_shards
                     b = scorer.min_bucket
                     while b <= top:
                         drift.warm_fused(
@@ -331,7 +398,8 @@ class MicroBatcher:
                         )
                         b *= 2
 
-            await asyncio.get_running_loop().run_in_executor(None, _warm)
+            if warm:
+                await asyncio.get_running_loop().run_in_executor(None, _warm)
             self._collector = asyncio.create_task(self._run())
         finally:
             self._starting = False
@@ -611,19 +679,31 @@ class MicroBatcher:
         n = _batch_rows(batch)
         self._note_family(scorer)
         staging = scorer.staging
-        slot = staging.acquire(_bucket(n, scorer.min_bucket))
+        wide_on = target is not None and target[1].wide is not None
+        ledger_on = (not wide_on and target is not None
+                     and target[1].ledger is not None and target[0].ledger is not None)
+        bucket, placement = _bucket(n, scorer.min_bucket), None
+        if ledger_on and getattr(target[0], "n_shards", 1) > 1:
+            # the sharded ledger flush: each row goes to the segment of the
+            # shard that owns its entity's slot (a host-side permutation)
+            bucket, placement = _placement(batch, target[0].n_shards, scorer.min_bucket)
+        slot = staging.acquire(bucket)
+        # the rows of the batch, in order, within the staged bucket
+        rows_of = slice(None, n) if placement is None else placement
         explain_out = None
         try:
             with annotate("microbatch-score"):
                 t_flush_start = time.perf_counter() if telemetry else 0.0
-                hx = scorer.stage_items(slot, batch)
+                if placement is None:
+                    hx = scorer.stage_items(slot, batch)
+                else:
+                    hx = scorer.stage_items_placed(slot, batch, placement)
                 ledger_rows = wide_rows = None
                 n_null = 0
-                if target is not None and target[1].wide is not None:
+                if wide_on:
                     wide_rows = self._stage_wide(scorer, slot, batch)
-                elif (target is not None and target[1].ledger is not None
-                        and target[0].ledger is not None):
-                    ledger_rows, n_null = self._stage_ledger(scorer, slot, batch)
+                elif ledger_on:
+                    ledger_rows, n_null = self._stage_ledger(scorer, slot, batch, placement)
                 t_padded = time.perf_counter() if telemetry else 0.0
                 x_dev = scorer.to_device(hx)
                 explain_k = 0
@@ -678,15 +758,15 @@ class MicroBatcher:
                     roofline.note_device_time(t_synced - t_padded)
                 host = fetch(*outs)
                 # decode into the slot's scores buffer: the waiters read from it
-                probs = decode_scores_into(host[0], slot.scores)[:n]
+                probs = decode_scores_into(host[0], slot.scores)[rows_of]
                 if explain_k:
                     ei, ev = decode_explain_into(host[1], host[2], slot)
-                    explain_out = (ei[:n], ev[:n])
+                    explain_out = (ei[rows_of], ev[rows_of])
                 stamps = (
                     (t_flush_start, t_padded, t_synced, time.perf_counter())
                     if telemetry else None
                 )
-                monitor_rows = slot.f32[:n].copy() if need_rows else None
+                monitor_rows = slot.f32[rows_of].copy() if need_rows else None
                 monitor_scores = probs.copy() if need_rows else None
                 # the champion's reason-code indices, for the shadow's divergence
                 monitor_reasons = (
@@ -747,15 +827,17 @@ class MicroBatcher:
         return scorer.to_device(lf), scorer.to_device(lh)
 
     @staticmethod
-    def _stage_ledger(scorer, slot, batch: list[tuple]):
+    def _stage_ledger(scorer, slot, batch: list[tuple], placement=None):
         """Fill the slot's ledger columns from the queue items' entity
         triples — a single row's ``(slot, fingerprint, rel_ts)``, a block's
         column triple (fingerprint 0 in it: an entity-less row) — and copy
-        them to the device. An entity-less row (None) takes the null path:
-        has_entity 0, counted. A triple whose time is not > 0 takes now on
-        the table's origin-relative clock (``spec.rel_ts``): a raw epoch
-        would anchor the slot ~1.7e9 s ahead and freeze its decay. Returns
-        ``((slot_idx, fp, ts, has_entity) on the device, n_null)``."""
+        them to the device; with ``placement`` (the sharded ledger flush)
+        row ``i``'s columns go to ``placement[i]``. An entity-less row
+        (None) takes the null path: has_entity 0, counted. A triple whose
+        time is not > 0 takes now on the table's origin-relative clock
+        (``spec.rel_ts``): a raw epoch would anchor the slot ~1.7e9 s ahead
+        and freeze its decay. Returns ``((slot_idx, fp, ts, has_entity) on
+        the device, n_null)``."""
         slot.ensure_ledger()
         ls, lf, lt, lh = slot.ls, slot.lf, slot.lt, slot.lh
         for c in (ls, lf, lt, lh):
@@ -774,7 +856,7 @@ class MicroBatcher:
                 if ent is None:
                     n_null += k
                 else:
-                    sl = slice(off, off + k)
+                    sl = slice(off, off + k) if placement is None else placement[off:off + k]
                     ls[sl], lf[sl], lt[sl] = ent
                     has = lf[sl] != 0
                     lh[sl] = has
@@ -785,7 +867,7 @@ class MicroBatcher:
                 n_null += 1
             else:
                 s, fp, ts = ent
-                pos.append(off)
+                pos.append(off if placement is None else placement[off])
                 vals.append((s, fp, ts if ts and ts > 0 else now))
             off += 1
         if pos:
@@ -834,6 +916,7 @@ class MicroBatcher:
                 bucket=_bucket(n_rows, scorer.min_bucket),
                 model_version=version, model_source=source,
                 drift=metrics.watchtower_drift_detected.get() != 0,
+                shard=self.shard_id,
             )
         # fan out by row offset: a single row resolves with its float (or
         # (score, indices, values) with explain), a block by one bulk copy

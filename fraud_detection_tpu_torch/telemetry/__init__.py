@@ -6,7 +6,8 @@
   ``request_stage_duration_seconds{stage}`` and, with tracing on, as child
   spans of the ``predict`` and ``ingest.frame`` spans;
 - :mod:`.flightrecorder` — the ring of the last N request records behind
-  ``GET /debug/flightrecorder``;
+  ``GET /debug/flightrecorder`` (one ring a shard under the mesh's front,
+  merged by ``RecorderSet``);
 - :mod:`.compile_sentinel` — wraps the serving entrypoints, counts the
   kernel libraries their calls build or load
   (``xla_compiles_total{entrypoint}``) and raises ``xla_recompile_storm``
@@ -33,7 +34,10 @@ from fraud_detection_tpu_torch.telemetry.compile_sentinel import (  # noqa: F401
     refresh_storm_gauges,
     uninstall,
 )
-from fraud_detection_tpu_torch.telemetry.flightrecorder import FlightRecorder  # noqa: F401
+from fraud_detection_tpu_torch.telemetry.flightrecorder import (  # noqa: F401
+    FlightRecorder,
+    RecorderSet,
+)
 from fraud_detection_tpu_torch.telemetry.timeline import (  # noqa: F401
     STAGES,
     FlushInfo,

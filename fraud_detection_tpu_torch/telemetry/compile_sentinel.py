@@ -38,10 +38,16 @@ listener.
 :func:`install` wraps the registered bindings in place (:data:`WRAP_TARGETS`:
 the flush bodies, the drift window update, the scorer's score and cast, the
 ``fused_score`` wrapper, the lifecycle gate, linear and tree SHAP, the
-forest's predict). The JAX package's separate quant flush bodies are one
-body on the port that takes its wire as an argument; a call of
-``_fused_flush`` with a ``dequant_scale`` (the int8 wire) counts as
-``quickwire.flush``, as JAX labels it.
+forest's predict, and the serving mesh's shard-axis flushes
+``mesh.sharded_flush``, ``mesh.lantern_flush``, ``mesh.ledger_flush`` and
+``mesh.broadside_flush``). The JAX package's separate quant flush bodies
+are one body on the port that takes its wire as an argument; a call of
+``_fused_flush`` (``_sharded_flush``) with a ``dequant_scale`` (the int8
+wire) counts as ``quickwire.flush`` (``mesh.quickwire_flush``), as JAX
+labels it. A kernel library loads once a process, under the innermost
+wrapped call that reached it: at a serving start-up the scorer's own
+warm-up loads ``fused_score`` first, so the flush entrypoints, the mesh's
+included, show their dispatches in the roofline, not here.
 """
 
 from __future__ import annotations
@@ -81,6 +87,10 @@ WRAP_TARGETS: dict[str, list[tuple[str, str]]] = {
     "lantern.flush": [(f"{_P}.monitor.drift", "_fused_flush_explain")],
     "ledger.flush": [(f"{_P}.monitor.drift", "_fused_flush_ledger")],
     "broadside.flush": [(f"{_P}.monitor.drift", "_fused_flush_wide")],
+    "mesh.sharded_flush": [(f"{_P}.mesh.shardflush", "_sharded_flush")],
+    "mesh.lantern_flush": [(f"{_P}.mesh.shardflush", "_sharded_flush_explain")],
+    "mesh.ledger_flush": [(f"{_P}.mesh.shardflush", "_sharded_flush_ledger")],
+    "mesh.broadside_flush": [(f"{_P}.mesh.shardflush", "_sharded_flush_wide")],
     "gate": [(f"{_P}.lifecycle.gate", "_gate_stats")],
     "linear_shap": [
         (f"{_P}.ops.linear_shap", "linear_shap"),
@@ -91,7 +101,10 @@ WRAP_TARGETS: dict[str, list[tuple[str, str]]] = {
 }
 
 #: an entrypoint whose int8-wire calls JAX counts under another name
-_WIRE_LABELS = {"fastlane.flush": "quickwire.flush"}
+_WIRE_LABELS = {
+    "fastlane.flush": "quickwire.flush",
+    "mesh.sharded_flush": "mesh.quickwire_flush",
+}
 
 
 def _stack() -> list:

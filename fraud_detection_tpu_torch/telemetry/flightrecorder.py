@@ -1,8 +1,8 @@
 """Always-on flight recorder: the last N scored requests, in memory.
 
-The port's own copy of the JAX package's ``telemetry/flightrecorder.py``,
-:class:`FlightRecorder` only (the mesh's per-shard ``RecorderSet`` waits
-for ROADMAP item 12).
+The port's own copy of the JAX package's ``telemetry/flightrecorder.py``:
+:class:`FlightRecorder`, one ring, and :class:`RecorderSet`, the serving
+mesh's per-shard rings behind one merged view.
 
 Post-incident forensics need the requests *around* the incident — by the
 time an alert fires, the interesting traffic is gone from any sampled
@@ -143,3 +143,41 @@ class FlightRecorder:
                     break
                 out.append(tl.to_record(fi))
         return out
+
+
+class RecorderSet:
+    """Per-shard flight-recorder rings behind one merged view.
+
+    Under ``MESH_SHARDS > 1`` each shard's micro-batcher appends to its own
+    ring, so the hot-path append never takes a lock another shard's flush
+    contends on, and a dead shard's record survives however loud the
+    survivors are. ``GET /debug/flightrecorder`` reads this wrapper: the
+    rings' dumps merged newest first, every record carrying the ``shard``
+    that ran its flush. It has the single ring's reading surface
+    (``dump``, ``capacity``, ``total_recorded``)."""
+
+    def __init__(self, recorders: list[FlightRecorder]):
+        if not recorders:
+            raise ValueError("RecorderSet needs at least one recorder")
+        self.recorders = list(recorders)
+
+    @property
+    def capacity(self) -> int:
+        return sum(r.capacity for r in self.recorders)
+
+    @property
+    def total_recorded(self) -> int:
+        return sum(r.total_recorded for r in self.recorders)
+
+    def __len__(self) -> int:
+        return sum(len(r) for r in self.recorders)
+
+    def dump(self, limit: int | None = None) -> list[dict]:
+        """Newest-first merge of every ring (a stable sort by record time;
+        each ring's dump is already newest first)."""
+        count = self.capacity if limit is None else max(0, min(limit, self.capacity))
+        rows: list[dict] = []
+        for r in self.recorders:
+            rows.extend(r.dump(count))
+        rows.sort(key=lambda rec: rec.get("ts", 0.0), reverse=True)
+        return rows[:count]

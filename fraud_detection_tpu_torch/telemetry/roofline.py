@@ -142,6 +142,7 @@ def flush_cost(
     explain_k: int = 0,
     forest: tuple[int, int, int] | None = None,
     dequant: bool = False,
+    shards: int = 1,
 ) -> tuple[float, float]:
     """(flops, bytes) of one fused flush over a bucket of ``n`` rows scored
     at width ``d`` (the ledger and wide flushes' widened width) from rows
@@ -151,7 +152,9 @@ def flush_cost(
     multiply; ``out_bytes`` the score return wire's element size. Bytes: each
     input read once (the rows, the valid mask, the model's parameters, the
     window state and its edges), each output written once (the scores, the
-    window state, the reason codes)."""
+    window state, the reason codes). ``shards`` windows (the serving mesh's
+    per-shard windows) are each read and written once; the fold's work is
+    the same however the rows split."""
     d_in = d if d_in is None else d_in
     ops = 0
     nbytes = elem_bytes * n * d_in + 4 * n
@@ -178,7 +181,7 @@ def flush_cost(
         nbytes += n * explain_k * (idx_bytes + val_bytes)
     ops += drift_fold_ops(n, d, feature_bins, score_bins)
     window = d * feature_bins + score_bins + 1
-    nbytes += 2 * 4 * window + 4 * (d * (feature_bins - 1) + score_bins - 1)
+    nbytes += 2 * 4 * window * shards + 4 * (d * (feature_bins - 1) + score_bins - 1)
     nbytes += out_bytes * n
     return float(ops), float(nbytes)
 
@@ -186,12 +189,14 @@ def flush_cost(
 def program_cost(entrypoint: str, args, kwargs) -> tuple[float, float]:
     """:func:`flush_cost` of one call of a fused flush body
     (``monitor/drift._fused_flush``, ``_fused_flush_explain``,
-    ``_fused_flush_ledger``, ``_fused_flush_wide``), read from its
-    arguments: the window (``args[0]``) gives the scored width and the bins,
+    ``_fused_flush_ledger``, ``_fused_flush_wide``, and the serving mesh's
+    ``mesh/shardflush`` flushes over them), read from its arguments: the
+    window (``args[0]``) gives the scored width, the bins and the shards,
     the staged rows (the first 2-D tensor) the bucket, width and wire, a
     ``GBTModel`` among the arguments the forest."""
     window = args[0]
-    d, feature_bins = (int(s) for s in window.feature_counts.shape)
+    # the serving mesh's per-shard windows carry a leading shard axis
+    *lead, d, feature_bins = (int(s) for s in window.feature_counts.shape)
     score_bins = int(window.score_counts.shape[0])
     x = next(a for a in args if isinstance(a, torch.Tensor) and a.dim() == 2)
     model = next((a for a in args if hasattr(a, "split_feature")), None)
@@ -206,6 +211,7 @@ def program_cost(entrypoint: str, args, kwargs) -> tuple[float, float]:
         out_bytes=torch.empty((), dtype=out_dtype).element_size(),
         explain_k=int(kwargs.get("explain_k", 0)), forest=forest,
         dequant=kwargs.get("dequant_scale") is not None,
+        shards=lead[0] if lead else 1,
     )
 
 

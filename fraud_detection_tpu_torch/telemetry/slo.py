@@ -5,8 +5,8 @@ The JAX package's ``telemetry/slo.py`` on the port, host code, with the
 same arithmetic (the multi-window, multi-burn-rate shape):
 
 - each served series (the ``json``, ``msgpack`` and ``binary`` lanes;
-  ``shard<N>`` once item 12 brings shards) carries two objectives from the
-  ``SLO_*`` settings: availability (requests answered without a shed, an
+  ``shard<N>`` for each shard of the serving mesh's front) carries two
+  objectives from the ``SLO_*`` settings: availability (requests answered without a shed, an
   outage or an internal error) and latency (requests under
   ``SLO_LATENCY_P99_MS``);
 - each series keeps good/bad counts in coarse time buckets (10 s) covering

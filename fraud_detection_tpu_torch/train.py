@@ -162,7 +162,7 @@ def _fit_gbt(x, y, *, gbt_config: GBTConfig | None, spw: float):
     # XLA histograms + psum); the port has one device, so this is the
     # unsharded fit through the gbt_hist kernel. The sharded fit, with its
     # histogram allreduce over this kernel's output, is ROADMAP queue 1,
-    # item 12.
+    # item 12b.
     return gbt_fit(x, y, cfg), cfg
 
 

@@ -1452,3 +1452,55 @@ def test_a_device_trace_holds_the_kernel_and_the_annotation(tmp_path):
     assert any(e.get("cat") == "kernel" and "fused_score" in e.get("name", "")
                for e in events)
     assert any(e.get("name") == "microbatch-score" for e in events)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 8])
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+def test_shard_axis_flush_on_the_card_is_the_shard_loop(n_shards, wire):
+    """The serving mesh on the card: the shard-axis flush (one
+    ``fused_score`` launch over the whole bucket, one batched fold) is
+    bitwise the per-shard loop (a launch a shard on its segment) on scores,
+    reason codes and the per-shard windows, and launches the kernel once a
+    flush."""
+    from fraud_detection_tpu_torch.mesh.shardflush import MeshDriftMonitor, ShardLoopMonitor
+    from fraud_detection_tpu_torch.mesh.topology import serving_mesh
+    from fraud_detection_tpu_torch.ops.logistic import LogisticParams
+    from fraud_detection_tpu_torch.ops.scaler import ScalerParams
+    from fraud_detection_tpu_torch.ops.scorer import BatchScorer, _bucket
+
+    dev = _require_card()
+    rng = np.random.default_rng(n_shards)
+    x = (rng.standard_normal((4096, 30)) * 2.0).astype(np.float32)
+    mean, scale = x.mean(0), x.std(0) + 1e-6
+    scaler = ScalerParams(*(torch.from_numpy(a.astype(np.float32)) for a in
+                            (mean, scale, scale**2)), torch.tensor(float(len(x))))
+    params = LogisticParams(torch.from_numpy(rng.standard_normal(30).astype(np.float32) * 0.3),
+                            torch.tensor(-1.0))
+    scorer = BatchScorer(params, scaler, io_dtype=wire, device=dev)
+    profile = build_baseline_profile(x, scorer.predict_proba(x), device=dev)
+    mesh = serving_mesh(n_shards, devices=[dev])
+    mons = (MeshDriftMonitor(profile, mesh, halflife_rows=float("inf")),
+            ShardLoopMonitor(profile, mesh, halflife_rows=float("inf")))
+    spec = scorer.fused_spec()
+    for lo, n in ((0, 5), (100, 1024), (2000, 300)):
+        outs, launches = [], []
+        for mon in mons:
+            slot = scorer.staging.acquire(_bucket(n, scorer.min_bucket))
+            try:
+                hx = scorer.stage_items(slot, [(r,) for r in x[lo:lo + n]])
+                before = kernels.FUSED_SCORE_LAUNCHES
+                out = mon.fused_flush(
+                    scorer.to_device(hx), scorer.to_device(slot.valid), n, spec.score_args,
+                    spec.score_fn, dequant_scale=spec.dequant_scale,
+                    score_codes=spec.score_codes, explain_args=spec.explain_args, explain_k=3,
+                )
+                outs.append([t.cpu().numpy() for t in out])
+                launches.append(kernels.FUSED_SCORE_LAUNCHES - before)
+            finally:
+                scorer.staging.release(slot)
+        assert launches == [1, n_shards]
+        for a, b in zip(*outs):
+            assert a.tobytes() == b.tobytes()
+    for a, b in zip(mons[0].shard_window.tensors(), mons[1].shard_window.tensors()):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()

@@ -610,6 +610,90 @@ def test_restore_window_roundtrip_and_mismatch_skip(caplog):
     assert dm.rows_seen == 420 and "restore skipped" in caplog.text
 
 
+def _mesh_drift(table, spec, n_shards) -> "MeshDriftMonitor":
+    from fraud_detection_tpu_torch.mesh.shardflush import MeshDriftMonitor
+    from fraud_detection_tpu_torch.mesh.topology import serving_mesh
+
+    rng = np.random.default_rng(0)
+    profile = build_baseline_profile(rng.standard_normal((128, D + 4)).astype(np.float32),
+                                     rng.uniform(0, 1, 128).astype(np.float32), device="cpu")
+    dm = MeshDriftMonitor(profile, serving_mesh(n_shards, devices=["cpu"]),
+                          halflife_rows=100.0)
+    dm.bind_ledger(spec, table)
+    return dm
+
+
+def _mesh_flush(dm, spec, seed):
+    """One placed ledger flush of 24 rows (a third entity-less) into the
+    mesh monitor's per-shard windows and sub-tables."""
+    from fraud_detection_tpu_torch.ledger.placement import shard_placement
+    from fraud_detection_tpu_torch.ops.scorer import _raw_score_linear
+
+    rng = np.random.default_rng(seed)
+    n = 24
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    has = (np.arange(n) % 3 != 0).astype(np.float32)
+    fps = np.where(has > 0, rng.integers(1, 40, n), 0).astype(np.int64)
+    slots = np.asarray([spec.row_keys(f"e{f}")[0] for f in fps], np.int64)
+    ts = np.where(has > 0, rng.uniform(1.0, 50.0, n), 0.0).astype(np.float32)
+    bucket, pos = shard_placement(slots, has, dm.n_shards, min_bucket=8)
+    cols = [np.zeros((bucket, D), np.float32), np.zeros(bucket, np.int64),
+            np.zeros(bucket, np.int64), np.zeros(bucket, np.float32),
+            np.zeros(bucket, np.float32), np.zeros(bucket, np.float32)]
+    for c, v in zip(cols, (x, slots, fps, ts, has, np.ones(n, np.float32))):
+        c[pos] = v
+    xt, sl, fp, tt, hh, vv = (torch.from_numpy(c) for c in cols)
+    coef = torch.from_numpy(rng.standard_normal(D + 4).astype(np.float32) * 0.1)
+    dm.fused_flush(xt, vv, n, (coef, torch.tensor(0.1)), _raw_score_linear,
+                   ledger_rows=(sl, fp, tt, hh))
+
+
+def test_mesh_snapshot_roundtrip_per_shard_windows_and_sub_tables(tmp_path, caplog):
+    """The serving mesh's half of the lifeboat: a snapshot of an N = 4
+    ledger monitor carries the ``sw_*`` per-shard windows and the merged
+    table; recovering into a fresh N = 4 monitor restores the per-shard
+    windows and each shard's slots of the sub-tables bitwise, and the merged
+    table; into N = 2 the per-shard
+    windows are skipped with the geometry WARNING and the base window and
+    the table are restored."""
+    spec = _spec()
+    src = _mesh_drift(_table(21), spec, 4)
+    for seed in range(3):
+        _mesh_flush(src, spec, seed)
+    src.update(np.ones((4, D), np.float32), np.full(4, 0.3, np.float32),
+               labels=np.ones(4, np.float32), calibration_only=True)
+    boat = _boat(tmp_path, spec, src)
+    boat.recover()
+    assert boat.take_snapshot() is not None
+    boat.close()
+    snap = load_snapshot(snapshot_path(str(tmp_path), 0))
+    assert snap.shard_window is not None and snap.shard_window.n_rows.shape == (4,)
+    fresh = _mesh_drift(None, spec, 4)
+    boat4 = _boat(tmp_path, spec, fresh)
+    rep = boat4.recover()
+    boat4.close()
+    assert rep.restored
+    for a, b in zip(src.shard_window.tensors(), fresh.shard_window.tensors()):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    for a, b in zip(src.window.tensors(), fresh.window.tensors()):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    # the slot-owned leaves come back in their shards; the collision and
+    # eviction totals are one merged count in the file, seeded on shard 0
+    for a, b in zip(src.ledger[:3], fresh.ledger[:3]):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    assert _tables_equal(src.ledger_snapshot(), fresh.ledger_snapshot())
+    two = _mesh_drift(None, spec, 2)
+    boat2 = _boat(tmp_path, spec, two)
+    with caplog.at_level("WARNING", logger="fraud_detection_tpu_torch.lifeboat"):
+        rep2 = boat2.recover()
+    boat2.close()
+    assert rep2.restored and "per-shard window restore skipped" in caplog.text
+    assert not any(t.any() for t in two.shard_window.tensors())
+    for a, b in zip(src.window.tensors(), two.window.tensors()):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    assert _tables_equal(src.ledger_snapshot(), two.ledger_snapshot())
+
+
 # -- across the packages ------------------------------------------------------
 
 

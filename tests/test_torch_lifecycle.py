@@ -558,13 +558,13 @@ def test_pool_stats_equal_jax():
 def test_mesh_retrain_raises_naming_item_12(env, monkeypatch):
     monkeypatch.setenv("MESH_RETRAIN", "1")
     e = env["torch"]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         run_retrain(e.store, e.champion, e.v1, data_csv=env["csv"], device="cpu",
                     tracking_client=e.client)
     # through the conductor the episode fails with that reason, never a
     # quiet single-device fit
     out = e.conductor.handle_retrain("mesh retrain asked")
-    assert out["outcome"] == "failed" and "item 12" in out["error"]
+    assert out["outcome"] == "failed" and "item 12b" in out["error"]
 
 
 def _ledger_specs():

@@ -29,10 +29,10 @@ RULES_DIR = os.path.join(MONITORING, "prometheus", "rules")
 PORTED = ["alert_rules.yml", "fraud-detection-alerts.yml", "watchtower-alerts.yml",
           "lifecycle-alerts.yml", "telemetry-alerts.yml", "slo-alerts.yml",
           "ledger-alerts.yml", "wide-alerts.yml", "ingest-alerts.yml",
-          "lifeboat-alerts.yml"]
+          "lifeboat-alerts.yml", "mesh-alerts.yml"]
 #: the rules files of tiers still to be ported, and the ROADMAP item that
 #: ports each
-WAITING = {"mesh-alerts.yml": "item 12", "longhaul-alerts.yml": "item 12"}
+WAITING = {"longhaul-alerts.yml": "item 12c"}
 
 _PROMQL_WORDS = {"and", "or", "unless", "bool", "offset"}
 

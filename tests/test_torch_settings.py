@@ -101,6 +101,13 @@ SETTINGS = [
     ("DEVICE_PEAK_FLOPS", "6.7e13", "device_peak_flops"),
     ("DEVICE_PEAK_BYTES_PER_S", "3.35e12", "device_peak_bytes_per_s"),
     ("ADMIN_TOKEN", "s3cret", "admin_token"),
+    ("MESH_SHARDS", "4", "mesh_shards"),
+    ("MESH_FLUSH_DEVICES", "8", "mesh_flush_devices"),
+    ("MESH_FLUSH_DEVICES", "6", "mesh_flush_devices"),
+    ("MESH_MODEL_DEVICES", "2", "mesh_model_devices"),
+    ("MESH_SHARD_MAX_ERRORS", "5", "mesh_shard_max_errors"),
+    ("MESH_SHARD_REOPEN_S", "0.5", "mesh_shard_reopen_s"),
+    ("MESH_RETRAIN", "1", "mesh_retrain"),
 ]
 
 
