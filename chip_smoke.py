@@ -419,6 +419,31 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    host p50, stream time and launches at N = 1, 2, 4, 8 and on the single
    window (30 each in turns), and ``/predict`` requests/s, p50 and p99
    from 16 threads against ``MESH_SHARDS`` 1 and 4 in turns.
+18. **sharded training over the data axis** — ``gbt_hist``'s split phase
+   (each shard's max pass, ``pmax``, each shard's accumulate in the quanta
+   of the real row count, the int64 ``psum``, one finish) at the recipe's
+   last level (31,684 × 30, 16 nodes, 256 bins) and leaf sums split over
+   N = 2, 4, 8: each shard's max bits and int64 cells bitwise the plain
+   version, the summed cells and the histogram bitwise the unsharded
+   launch's; a shard's accumulate timed at each N beside its bound, the
+   plain version and ``index_put_(accumulate=True)``. The recipe (100
+   trees, depth 5, 256 bins) at phase 5's final-fit shape (31,684 × 30
+   seeded Gaussian rows), unsharded and over one shard three times each in
+   turns, then ``gbt_fit(sharded=True)`` at N = 1, 2, 4, 8: each forest
+   bitwise the unsharded card forest, launches gated (N × 600 max and
+   accumulate, 600 finishes), wall times printed.
+   ``train()`` on the committed CSV through the sharded L-BFGS on the card
+   and the CPU (AUC within 2e-3, ``knn_topk`` 6); the sharded L-BFGS at
+   N = 1 bitwise the unsharded card fit, at N = 8 within rtol 5e-3, atol
+   5e-4 of the CPU's; ``mesh_sgd_fit`` at N = 1, 4, 8 within 1e-4 of the
+   CPU. The lifecycle retrain with ``MESH_RETRAIN=1`` from phase 3's
+   directory over 1,200 labeled CSV rows on the card and the CPU: one
+   ``mesh_sgd_fit`` each, the same verdict, holdout AUC within 2e-3. A
+   ``shardfit`` child at world size 1 under ``nccl`` (its all_reduce
+   probed, its recipe forest bitwise the one-shard fit), then two child
+   ranks sharing the card under ``gloo`` with 4 shards each: the ``psum``
+   of every shard's ``rank + 1`` is 12, and both ranks' forests are the
+   in-process 8-shard forest bit for bit.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -559,6 +584,17 @@ KERNELS = {
         "cuda",
         "fraud_detection_tpu_torch/csrc/tree_shap.cu",
         "fraud_detection_tpu/ops/pallas_kernels.py:544",
+    ),
+}
+
+
+#: entry points of a kernel reported on a row of their own: name → (route,
+#: source, the TPU kernel it replaces)
+ENTRY_POINTS = {
+    "gbt_hist_split": (
+        "cuda",
+        "fraud_detection_tpu_torch/csrc/gbt_hist.cu",
+        "fraud_detection_tpu/ops/gbt.py:275",
     ),
 }
 
@@ -7434,6 +7470,458 @@ def mesh_phase(work: Path, gbt_dir: Path, ledger_dir: Path, wide_dir: Path, card
             "child": child}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: sharded training over the data axis on the card
+# ---------------------------------------------------------------------------
+
+#: the recipe's rows: phase 5's final-fit shape (31,684 × 30), the seeded
+#: Gaussian rows of ``shardfit.synthetic_rows`` (profile_gbt_fit's)
+P18_ROWS, P18_SEED = 31684, 5
+P18_SHARDS = (1, 2, 4, 8)  # the sharded forest fits
+P18_SPLIT_SHARDS = (2, 4, 8)  # the split phase against the unsharded kernel
+P18_SGD_SHARDS = (1, 4, 8)  # mesh_sgd_fit, card against CPU
+MESH_SGD_ATOL = 1e-4  # card vs CPU mesh_sgd_fit: float32 sums in other orders
+LBFGS_RTOL, LBFGS_ATOL = 5e-3, 5e-4  # JAX's sharded-vs-single L-BFGS tolerance
+P18_RANKS, P18_RANK_SHARDS = 2, 4  # two gloo ranks sharing the card
+P18_CHILD_TIMEOUT_S = 240
+P18_HISTS_PER_FIT = 100 * 6  # a recipe fit: 100 trees × (5 levels + the leaf sums)
+P18_FEEDBACK_ROWS = 1200  # the MESH_RETRAIN=1 retrain's labeled pool
+
+
+def split_bound(n: int, d: int, n_nodes: int, n_bins: int) -> tuple[float, str, int, int]:
+    """A shard's accumulate: its bins, node, g, h and the max bits read once,
+    the int64 accumulator read and written once, the quanta written."""
+    cells = d * n_nodes * n_bins
+    n_bytes = n * d + 12 * n + 8 + 2 * 16 * cells + 16
+    n_ops = 2 * n * d
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, n_ops
+
+
+def split_level(args, n_nodes: int, n_bins: int, n_real: int, mesh):
+    """One level through the split phase, step by step: each shard's max
+    pass, pmax, each shard's accumulate, the int64 psum, the finish.
+    Returns (histogram, summed cells, shard accumulators, max bits, quanta)."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.parallel.collectives import pmax, psum
+
+    bins, local, g, h = args
+    rows = bins.shape[0] // mesh.size
+    segs = [slice(s * rows, (s + 1) * rows) for s in range(mesh.size)]
+    parts = torch.stack([kernels.gbt_hist_max(local[r], g[r], h[r], n_nodes) for r in segs])
+    max_bits = pmax(parts, mesh)
+    acc = torch.zeros((mesh.size, bins.shape[1], n_nodes, n_bins, 2), dtype=torch.int64,
+                      device=bins.device)
+    quanta = torch.empty(2, dtype=torch.float64, device=bins.device)
+    for s, r in enumerate(segs):
+        kernels.gbt_hist_accumulate(bins[r], local[r], g[r], h[r], n_nodes, n_bins,
+                                    max_bits, n_real, acc[s], quanta)
+    total = psum(acc, mesh)
+    return kernels.gbt_hist_finish(total, quanta), total, acc, parts, quanta
+
+
+def check_split_phase(seed: int) -> dict:
+    """Phase 18a: the split phase against the unsharded kernel and its plain
+    versions, bitwise, at the recipe's last level and leaf sums split over
+    N = 2, 4, 8; then a shard's accumulate timed at each N."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    shapes = [("n=31684 d=30 nodes=16 bins=256", 31684, 30, 16, 256),
+              ("leaf sums n=31684 d=1 nodes=1 bins=32", 31684, 1, 1, 32)]
+    timed = {}
+    worst = 0.0
+    for label, n, d, nn, nb in shapes:
+        args = hist_inputs(rng, n, d, nn, nb, dev)
+        whole, scratch = kernels._gbt_hist(*args, nn, nb)
+        whole_acc = scratch[:2 * d * nn * nb].view(d, nn, nb, 2)
+        for n_shards in P18_SPLIT_SHARDS:
+            pad = -n % n_shards  # padded rows: bin 0, node 0, g = h = 0
+            padded = tuple(torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+                           for t in args)
+            mesh = create_mesh(MeshSpec(data=n_shards), devices=[dev] * n_shards)
+            out, total, acc, parts, quanta = split_level(padded, nn, nb, n, mesh)
+            torch.cuda.synchronize()
+            q = kernels.gbt_hist_quanta_from_bits(n, parts.amax(0))
+            rows = padded[0].shape[0] // n_shards
+            for s in range(n_shards):
+                r = slice(s * rows, (s + 1) * rows)
+                cpu = [t[r].cpu() for t in padded]
+                want_bits = kernels.gbt_hist_max_reference(cpu[1], cpu[2], cpu[3], nn)
+                want_acc, _ = kernels.gbt_hist_fixed_point_reference(
+                    *cpu, nn, nb, quanta=q, accumulator=True)
+                if not (torch.equal(parts[s].cpu(), want_bits)
+                        and torch.equal(acc[s].cpu(), want_acc)):
+                    raise AssertionError(f"phase18 split {label} N={n_shards}: shard {s}'s "
+                                         "max bits or cells differ from the plain version")
+            if tuple(quanta.cpu().tolist()) != q or not torch.equal(total, whole_acc) \
+                    or not torch.equal(out, whole):
+                raise AssertionError(f"phase18 split {label} N={n_shards}: not bitwise the "
+                                     "unsharded kernel's cells and histogram")
+            plain = kernels.gbt_hist_finish_reference(total.cpu(), q)
+            worst = max(worst, float((out.cpu() - plain).abs().max()))
+            print(f"phase18: gbt_hist split phase {label} over N={n_shards} shards of "
+                  f"{rows} rows: each shard's max bits and int64 cells bitwise the plain "
+                  f"version; the summed cells and the finished histogram bitwise the "
+                  f"unsharded launch's (quanta g {q[0]:.6e}, h {q[1]:.6e})")
+            if d == 30:
+                timed[n_shards] = (padded, quanta, parts.amax(0), rows)
+    out = {}
+    for n_shards, (padded, quanta, max_bits, rows) in timed.items():
+        b, loc, g, h = (t[:rows] for t in padded)
+        n_real = P18_ROWS
+        acc = torch.zeros((30, 16, 256, 2), dtype=torch.int64, device=dev)
+        kernel_fn = lambda: kernels.gbt_hist_accumulate(  # noqa: E731
+            b, loc, g, h, 16, 256, max_bits, n_real, acc, quanta)
+        q = tuple(quanta.cpu().tolist())
+        plain_fn = lambda: kernels.gbt_hist_fixed_point_reference(  # noqa: E731
+            b, loc, g, h, 16, 256, quanta=q, accumulator=True)
+        flat = ((loc.long()[:, None] * 256 + b.long())
+                + torch.arange(30, device=dev)[None, :] * (16 * 256))
+        keep = (loc >= 0)[:, None].expand(-1, 30)
+        idx = torch.stack([flat * 2, flat * 2 + 1], -1)[keep].reshape(-1)
+        vals = torch.stack([g, h], 1)[:, None, :].expand(-1, 30, 2)[keep].reshape(-1)
+        library_fn = lambda: torch.zeros(  # noqa: E731
+            30 * 16 * 256 * 2, device=dev).index_put_((idx,), vals, accumulate=True)
+        max_fn = lambda: kernels.gbt_hist_max(loc, g, h, 16)  # noqa: E731
+        total = acc.clone()
+        finish_fn = lambda: kernels.gbt_hist_finish(total, quanta)  # noqa: E731
+        mesh = create_mesh(MeshSpec(data=n_shards), devices=[dev] * n_shards)
+        level_fn = lambda: split_level(padded, 16, 256, n_real, mesh)  # noqa: E731
+        ms = graph_ms(kernel_fn)
+        bound, by, n_bytes, n_ops = split_bound(rows, 30, 16, 256)
+        row = {"ms": ms, "plain_ms": eager_ms(plain_fn, iters=20, warm=3),
+               "library_ms": eager_ms(library_fn, iters=50, warm=5), "bound_ms": bound,
+               "bound_by": by, "eager_ms": eager_ms(kernel_fn), "max_ms": graph_ms(max_fn),
+               "finish_ms": graph_ms(finish_fn), "level_eager_ms": eager_ms(level_fn, iters=50)}
+        out[n_shards] = row
+        print(f"phase18: gbt_hist split-phase accumulate timing n={rows} (31684 / {n_shards}) "
+              f"d=30 nodes=16 bins=256: kernel {ms:.6f} ms (CUDA events over a CUDA-graph "
+              f"replay; eager {row['eager_ms']:.6f}), plain {row['plain_ms']:.6f} ms, library "
+              f"index_put_(accumulate=True) {row['library_ms']:.6f} ms, bound {bound:.6f} ms "
+              f"({by}: {n_bytes} B, {n_ops} ops); the shard's max pass {row['max_ms']:.6f} ms, "
+              f"the level's finish {row['finish_ms']:.6f} ms; the whole split level ({n_shards} "
+              f"max + pmax + {n_shards} accumulate + psum + finish, eager) "
+              f"{row['level_eager_ms']:.6f} ms")
+    return {"max_abs_err": worst, "timing": out}
+
+
+def sharded_forests(card: str) -> dict:
+    """Phase 18b: the recipe (100 trees, depth 5, 256 bins) at phase 5's
+    final-fit shape, unsharded and sharded at N = 1, 2, 4, 8 on the card:
+    every sharded forest bitwise the unsharded one, its launches gated."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch import shardfit
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.gbt import GBTConfig, gbt_fit, gbt_predict_proba
+    from fraud_detection_tpu_torch.ops.metrics import auc_roc
+    from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    dev = torch.device("cuda")
+    x, y = shardfit.synthetic_rows(P18_ROWS, P18_SEED)
+    xd = torch.from_numpy(x).to(dev)
+    cfg = GBTConfig()
+    one = create_mesh(MeshSpec(data=1), devices=[dev])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the split phase at one shard against the unsharded launch, in turns
+    turns = {"unsharded": [], "N=1": []}
+    for name in ("unsharded", "N=1", "N=1", "unsharded", "unsharded", "N=1"):
+        m, wall = timed((lambda: gbt_fit(xd, y, cfg)) if name == "unsharded"
+                        else (lambda: gbt_fit(x, y, cfg, mesh=one, sharded=True)))
+        turns[name].append(wall)
+        if name == "unsharded":
+            ref = m
+    ref_wall = sorted(turns["unsharded"])[1]
+    auc = float(auc_roc(gbt_predict_proba(ref, xd), torch.from_numpy(y).to(dev)))
+    print(f"phase18: the recipe fit at {P18_ROWS} x 30 on the card, in turns (host clock, "
+          f"device synchronised): unsharded {', '.join(f'{t:.3f}' for t in turns['unsharded'])} s, "
+          f"sharded over one shard (the split phase) {', '.join(f'{t:.3f}' for t in turns['N=1'])} "
+          f"s; medians {ref_wall:.3f} / {sorted(turns['N=1'])[1]:.3f} s; training AUC {auc:.6f}")
+    if not auc > 0.9:
+        raise AssertionError(f"phase18: the unsharded forest's training AUC is {auc}")
+    walls, total = {}, {"gbt_hist": 0, "max": 0, "accumulate": 0, "finish": 0}
+    forests = {}
+    for n_shards in P18_SHARDS:
+        mesh = create_mesh(MeshSpec(data=n_shards), devices=[dev] * n_shards)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = gbt_fit(x, y, cfg, mesh=mesh, sharded=True)
+        torch.cuda.synchronize()
+        walls[n_shards] = time.perf_counter() - t0
+        launches, split = kernels.launch_counts(), kernels.gbt_hist_split_counts()
+        want = {"max": n_shards * P18_HISTS_PER_FIT, "accumulate": n_shards * P18_HISTS_PER_FIT,
+                "finish": P18_HISTS_PER_FIT}
+        same = all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+                   for a, b in zip(ref, m))
+        print(f"phase18: gbt_fit(sharded=True) over N={n_shards} shards: {walls[n_shards]:.3f} s "
+              f"wall ({walls[n_shards] / ref_wall:.2f}x the unsharded fit); gbt_hist launches "
+              f"{launches['gbt_hist']}, split phase {split}; forest (split_feature, split_bin, "
+              f"leaf_value) bitwise the unsharded card forest: {same}")
+        if launches["gbt_hist"] != n_shards * P18_HISTS_PER_FIT or split != want:
+            raise AssertionError(f"phase18 N={n_shards}: launched {launches['gbt_hist']}, "
+                                 f"{split}, not {want}")
+        if not same:
+            raise AssertionError(f"phase18 N={n_shards}: the sharded forest is not the "
+                                 "unsharded forest bit for bit")
+        total["gbt_hist"] += launches["gbt_hist"]
+        for k in split:
+            total[k] += split[k]
+        forests[n_shards] = m
+    print(f"phase18: the sharded fits' launches over N = {P18_SHARDS}: {total} ({card})")
+    return {"walls": walls, "ref_wall": ref_wall, "turns": turns, "launches": total,
+            "forests": forests}
+
+
+def sharded_logistic(work: Path) -> dict:
+    """Phase 18c, d: ``train()`` on the committed CSV (its fits the sharded
+    L-BFGS over the default mesh) on the card and the CPU; the sharded
+    L-BFGS at N = 1 bitwise the unsharded card fit and at N = 8 within
+    JAX's sharded tolerance of the CPU's; ``mesh_sgd_fit`` at N = 1, 4, 8
+    on the card within MESH_SGD_ATOL of the CPU."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch import shardfit
+    from fraud_detection_tpu_torch.mesh.retrain import mesh_sgd_fit
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.logistic import logistic_fit_lbfgs
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit_sharded, scaler_transform
+    from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+    from fraud_detection_tpu_torch.train import train
+
+    csv = str(ROOT / "data" / "creditcard.csv")
+    runs, knn = {}, 0
+    for dev in ("cuda", "cpu"):
+        os.environ["MLFLOW_TRACKING_URI"] = f"file:{work / f'p18_{dev}' / 'mlruns'}"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[dev] = train(data_csv=csv, out_dir=str(work / f"p18_{dev}" / "models"),
+                          device=dev, register=False)
+        wall = time.perf_counter() - t0
+        if dev == "cuda":
+            knn = kernels.launch_counts()["knn_topk"]
+        print(f"phase18: train() through the sharded L-BFGS on {dev}: test AUC "
+              f"{runs[dev]['test_auc']:.6f}, CV mean {runs[dev]['cv_auc_mean']:.6f}, "
+              f"{wall:.3f} s wall; L-BFGS iterations {runs[dev]['lbfgs_iters']}")
+    gaps = {k: runs["cuda"][k] - runs["cpu"][k] for k in ("test_auc", "cv_auc_mean")}
+    if knn != KNN_LAUNCHES_PER_RUN or not all(abs(v) <= TRAIN_AUC_TOL for v in gaps.values()):
+        raise AssertionError(f"phase18 train: knn_topk {knn}, card - cpu {gaps}")
+    print(f"phase18: card - cpu test AUC {gaps['test_auc']:+.3e}, CV mean "
+          f"{gaps['cv_auc_mean']:+.3e} (tolerance {TRAIN_AUC_TOL}); knn_topk launched {knn}")
+
+    dev = torch.device("cuda")
+
+    def mesh(n, where):
+        return create_mesh(MeshSpec(data=n), devices=[where] * n)
+
+    x, y = shardfit.synthetic_rows(P18_ROWS, P18_SEED)
+    xs_cpu = scaler_transform(scaler_fit_sharded(x, mesh(1, "cpu")), torch.from_numpy(x))
+    xs = xs_cpu.to(dev)
+    plain = logistic_fit_lbfgs(xs, y, max_iter=200, class_weight="balanced")
+    one = logistic_fit_lbfgs(xs, y, max_iter=200, class_weight="balanced",
+                             mesh=mesh(1, dev), sharded=True)
+    card8 = logistic_fit_lbfgs(xs, y, max_iter=200, class_weight="balanced",
+                               mesh=mesh(8, dev), sharded=True)
+    cpu8 = logistic_fit_lbfgs(xs_cpu, y, max_iter=200, class_weight="balanced",
+                              mesh=mesh(8, "cpu"), sharded=True)
+    gap8 = np.abs(card8.coef.cpu().numpy() - cpu8.coef.numpy())
+    bit1 = torch.equal(plain.coef, one.coef) and torch.equal(plain.intercept, one.intercept)
+    ok8 = bool((gap8 <= LBFGS_ATOL + LBFGS_RTOL * np.abs(cpu8.coef.numpy())).all())
+    print(f"phase18: sharded L-BFGS on the card: N=1 bitwise the unsharded fit: {bit1}; N=8 "
+          f"against the CPU's N=8: max |coef gap| {gap8.max():.3e} (rtol {LBFGS_RTOL}, atol "
+          f"{LBFGS_ATOL})")
+    if not (bit1 and ok8):
+        raise AssertionError("phase18: the sharded L-BFGS disagrees")
+    sgd = {}
+    for n in P18_SGD_SHARDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = mesh_sgd_fit(xs, y, epochs=8, class_weight="balanced", mesh=mesh(n, dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = mesh_sgd_fit(xs_cpu, y, epochs=8, class_weight="balanced", mesh=mesh(n, "cpu"))
+        gap = float(np.abs(card.coef.cpu().numpy() - cpu.coef.numpy()).max())
+        gap_b = abs(float(card.intercept) - float(cpu.intercept))
+        sgd[n] = {"wall": wall, "gap": max(gap, gap_b)}
+        print(f"phase18: mesh_sgd_fit over N={n} shards (8 epochs, batch 4096) on the card "
+              f"{wall:.3f} s wall; max |card - cpu| coef {gap:.3e}, intercept {gap_b:.3e} "
+              f"(tolerance {MESH_SGD_ATOL})")
+        if not max(gap, gap_b) <= MESH_SGD_ATOL or not torch.isfinite(card.coef).all():
+            raise AssertionError(f"phase18 mesh_sgd_fit N={n}: card and CPU differ")
+    return {"knn_topk": knn, "sgd": sgd}
+
+
+def mesh_retrain_leg(work: Path) -> dict:
+    """Phase 18e: the lifecycle retrain with ``MESH_RETRAIN=1`` on the card
+    and on the CPU, from phase 4's model over one store of labeled rows:
+    ``mesh_sgd_fit`` runs once in each, and the gate's verdict agrees."""
+    import numpy as np
+
+    import fraud_detection_tpu_torch.mesh.retrain as mretrain
+    from fraud_detection_tpu_torch.lifecycle import LifecycleStore, run_retrain
+    from fraud_detection_tpu_torch.lifecycle.gate import GateThresholds
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.tracking import TrackingClient
+
+    csv = ROOT / "data" / "creditcard.csv"
+    data = np.loadtxt(csv, delimiter=",", skiprows=1, dtype=np.float32)
+    x, y = data[-P18_FEEDBACK_ROWS:, :30], data[-P18_FEEDBACK_ROWS:, 30]
+    champ = load_any_model(str(work / "models"), device="cpu")
+    store = LifecycleStore(f"sqlite:///{work}/p18_lifecycle.db")
+    store.add_feedback(x, champ.scorer.predict_proba(x), y)
+    thresholds = GateThresholds(auc_margin=float(LC_GATE_ENV["CONDUCTOR_GATE_AUC_MARGIN"]),
+                                ece_bound=float(LC_GATE_ENV["CONDUCTOR_GATE_ECE_BOUND"]),
+                                psi_bound=float(LC_GATE_ENV["CONDUCTOR_GATE_PSI_BOUND"]),
+                                min_eval_rows=64)
+    calls = []
+    real = mretrain.mesh_sgd_fit
+
+    def spy(*a, **k):
+        calls.append(k["mesh"].global_data)
+        return real(*a, **k)
+
+    mretrain.mesh_sgd_fit = spy
+    os.environ["MESH_RETRAIN"] = "1"
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_retrain(store, load_any_model(str(work / "models"), device=dev), 1,
+                              data_csv=str(csv), device=dev, thresholds=thresholds,
+                              tracking_client=TrackingClient(f"file:{work}/p18_lc_{dev}"))
+            wall = time.perf_counter() - t0
+            out[dev] = (res, wall, kernels.launch_counts())
+    finally:
+        mretrain.mesh_sgd_fit = real
+        os.environ.pop("MESH_RETRAIN", None)
+        store.close()
+    (card, card_wall, launches), (cpu, cpu_wall, _) = out["cuda"], out["cpu"]
+    gap = abs(card.gate.metrics["holdout_challenger_auc"]
+              - cpu.gate.metrics["holdout_challenger_auc"])
+    print(f"phase18: the lifecycle retrain with MESH_RETRAIN=1: card {card_wall:.3f} s, cpu "
+          f"{cpu_wall:.3f} s wall; mesh_sgd_fit calls over {calls} shard(s); holdout AUC "
+          f"card {card.gate.metrics['holdout_challenger_auc']:.6f}, cpu "
+          f"{cpu.gate.metrics['holdout_challenger_auc']:.6f} (gap {gap:.2e}); verdict card "
+          f"{card.gate.passed}, cpu {cpu.gate.passed}; the card's launches {launches}")
+    if calls != [1, 1] or card.gate.passed != cpu.gate.passed or not gap <= LC_RETRAIN_AUC_TOL \
+            or launches["knn_topk"] != 1:
+        raise AssertionError("phase18: the MESH_RETRAIN=1 retrain disagrees card / CPU")
+    return {"fused_score": launches["fused_score"], "knn_topk": launches["knn_topk"]}
+
+
+def shardfit_ranks(work: Path, world: int, shards: int, tag: str, fits: list[str]) -> list[dict]:
+    """``world`` shardfit children on the card (``MASTER_ADDR`` etc. as
+    torchrun sets them); each one's summary line and arrays."""
+    import numpy as np
+
+    port = free_port()
+    out = work / tag
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, DEVICE="cuda", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(rank), PYTHONPATH=str(ROOT))
+        cmd = [sys.executable, "-m", "fraud_detection_tpu_torch.shardfit"]
+        for fit in fits:
+            cmd += ["--fit", fit]
+        cmd += ["--shards", str(shards), "--rows", str(P18_ROWS), "--seed", str(P18_SEED),
+                "--out", str(out)]
+        procs.append(subprocess.Popen(cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=P18_CHILD_TIMEOUT_S)[0])
+    finally:
+        for p in procs[len(texts):]:
+            p.kill()
+            texts.append(p.communicate()[0])
+    results = []
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase18 {tag}: rank {rank} exited {p.returncode}:\n{text}")
+        line = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+        with np.load(out / f"rank{rank}.npz") as z:
+            line["arrays"] = {k: z[k] for k in z.files}
+        results.append(line)
+    return results
+
+
+def sharded_ranks(work: Path, forests: dict) -> dict:
+    """Phase 18f, g: ``initialize_distributed`` at world size 1 under nccl
+    (a child rank with the card to itself: its forest bitwise the
+    one-shard fit, NCCL's all_reduce probed), then two child ranks sharing
+    the card under gloo, 4 shards each: the psum crosses them and both
+    ranks' forests are the one-process 8-shard forest bit for bit."""
+    def forest_same(arrays: dict, model) -> bool:
+        return all(arrays[f"gbt_{k}"].tobytes() == getattr(model, k).cpu().numpy().tobytes()
+                   for k in ("split_feature", "split_bin", "leaf_value"))
+
+    t0 = time.perf_counter()
+    (solo,) = shardfit_ranks(work, 1, 1, "p18_nccl", ["psum", "gbt"])
+    solo_wall = time.perf_counter() - t0
+    ok = (solo["backend"] == "nccl" and solo["world"] == 1
+          and float(solo["arrays"]["psum_all_reduce"][0]) == 1.0
+          and forest_same(solo["arrays"], forests[1]))
+    print(f"phase18: initialize_distributed at world size 1: backend {solo['backend']}, device "
+          f"{solo['device']}, NCCL all_reduce probe {solo['arrays']['psum_all_reduce'].tolist()}; "
+          f"the rank's recipe fit {solo['seconds']['gbt']:.3f} s, its forest bitwise the "
+          f"in-process one-shard forest: {forest_same(solo['arrays'], forests[1])} "
+          f"({solo_wall:.3f} s with the child's start)")
+    if not ok:
+        raise AssertionError(f"phase18: the world-size-1 nccl rank: {solo}")
+    t0 = time.perf_counter()
+    ranks = shardfit_ranks(work, P18_RANKS, P18_RANK_SHARDS, "p18_gloo", ["psum", "gbt"])
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        same = forest_same(r["arrays"], forests[P18_RANKS * P18_RANK_SHARDS])
+        print(f"phase18: rank {r['rank']}/{r['world']} on {r['device']} under {r['backend']}: "
+              f"{r['shards']} of {r['global_shards']} shards, psum of every shard's rank + 1 "
+              f"= {r['psum']}; its recipe fit {r['seconds']['gbt']:.3f} s wall, gbt_hist "
+              f"launches {r['launches']['gbt_hist']}, split phase {r['gbt_hist_split']}; forest "
+              f"bitwise the one-process 8-shard forest: {same}")
+        if r["backend"] != "gloo" or r["psum"] != 12.0 or not same \
+                or r["launches"]["gbt_hist"] != P18_RANK_SHARDS * P18_HISTS_PER_FIT:
+            raise AssertionError(f"phase18: gloo rank {r['rank']} disagrees")
+    print(f"phase18: the two ranks in {wall:.3f} s with their start")
+    return {"gloo_fit_s": [r["seconds"]["gbt"] for r in ranks], "nccl_fit_s": solo["seconds"]["gbt"]}
+
+
+def sharded_training_phase(work: Path, card: str) -> dict:
+    """Phase 18: sharded training over the data axis on the card."""
+    t_phase = time.perf_counter()
+    os.environ["DEVICE"] = "cuda"
+    for key in [k for k in os.environ if k.startswith(("MASTER_", "WORLD_SIZE", "RANK",
+                                                       "LOCAL_RANK", "MESH_"))]:
+        os.environ.pop(key)
+    split = check_split_phase(seed=18)
+    forests = sharded_forests(card)
+    logistic = sharded_logistic(work)
+    retrain = mesh_retrain_leg(work)
+    ranks = sharded_ranks(work, forests["forests"])
+    print(f"phase18: sharded training on the card in {time.perf_counter() - t_phase:.3f} s ({card})")
+    return {"split": split, "forests": forests, "logistic": logistic, "retrain": retrain,
+            "ranks": ranks}
+
+
 def main() -> int:
     try:
         import torch
@@ -7515,9 +8003,10 @@ def main() -> int:
                             Path(gbt_store.removeprefix("file:")), card)
         telemetry = telemetry_phase(work, Path(gbt_dir), card)
         mesh = mesh_phase(work, Path(gbt_dir), ledger["model_dir"], wide["model_dir"], card)
+        sharded = sharded_training_phase(work, card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
-        route, source, replaces = KERNELS[name]
+        route, source, replaces = KERNELS.get(name) or ENTRY_POINTS[name]
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": check["max_abs_err"],
@@ -7543,6 +8032,7 @@ def main() -> int:
             telemetry_launches=telemetry["launches"]["fused_score"],
             telemetry_trace_kernels=telemetry["logistic"]["trace_fused_score"],
             mesh_launches=mesh["launches"]["fused_score"],
+            mesh_retrain_launches=sharded["retrain"]["fused_score"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":
@@ -7559,6 +8049,8 @@ def main() -> int:
             ledger_launches=ledger["train"]["knn_topk"],
             lifecycle_launches=lifecycle["knn_topk"],
             telemetry_trace_kernels=telemetry["train_knn"],
+            sharded_train_launches=sharded["logistic"]["knn_topk"],
+            mesh_retrain_launches=sharded["retrain"]["knn_topk"],
             at_m_158_d_34={key: ledger["checks"]["knn_topk"][key] for key in
                            ("ms", "plain_ms", "bound_ms", "orientation_ms")},
             **{f"at_m_{m}" + (f"_d_{d}" if d != 30 else ""):
@@ -7573,6 +8065,23 @@ def main() -> int:
             at_leaf_sums={key: hist["timing"]["leaf"][key] for key in
                           ("ms", "plain_ms", "bound_ms", "library_ms")},
             mean_per_launch_ms=hist["mean"]["ms"]),
+        # the split phase (a sharded fit's levels): one shard's accumulate at
+        # 31,684 / 8 rows, 16 nodes; launches: the accumulates of phase 18's
+        # sharded recipe fits at N = 1, 2, 4, 8; max_abs_err the largest
+        # |finish - plain| cell over phase 18a (the checks are bitwise)
+        row("gbt_hist_split", sharded["forests"]["launches"]["accumulate"], sharded["split"],
+            sharded["split"]["timing"][8], sharded["split"]["timing"][8]["library_ms"],
+            n=-(-31684 // 8), nodes=16, shards=8,
+            max_launches=sharded["forests"]["launches"]["max"],
+            finish_launches=sharded["forests"]["launches"]["finish"],
+            train_launches=gbt_trained["gbt_hist"],
+            fit_wall_s={str(k): v for k, v in sharded["forests"]["walls"].items()},
+            unsharded_fit_wall_s=sharded["forests"]["ref_wall"],
+            fit_turns_s=sharded["forests"]["turns"],
+            **{f"at_{n}_shards": {key: sharded["split"]["timing"][n][key] for key in
+                                  ("ms", "plain_ms", "bound_ms", "library_ms", "max_ms",
+                                   "finish_ms", "level_eager_ms")}
+               for n in (2, 4)}),
         # no single PyTorch call computes TreeSHAP: the library column is
         # null, the TPU kernel's dense three-product form (torch.matmul)
         # stands beside it as orientation

@@ -9,7 +9,10 @@
 
 The npz keys (``coef``, ``intercept``, ``v_coef``, ``v_intercept``,
 ``epoch``, ``rng_state``, ``fingerprint``) are the JAX package's, so a
-checkpoint written by either package resumes in the other.
+checkpoint written by either package resumes in the other. The
+fingerprint's ``ndev`` is the fit's global data-shard count (the JAX
+package's device count): a checkpoint resumes over as many shards as it
+was written on, and is refused over any other count.
 
 Usage::
 

@@ -417,6 +417,29 @@ def mesh_model_devices() -> int:
     return _get_int("MESH_MODEL_DEVICES", 0)
 
 
+def distributed_env() -> dict | None:
+    """The process group's coordinates, as ``torchrun`` sets them (the
+    port's counterpart of the JAX package's ``JAX_COORDINATOR_ADDRESS``,
+    ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``): ``MASTER_ADDR`` (unset:
+    ``None``, one process), ``MASTER_PORT`` (default 29500), ``WORLD_SIZE``
+    (default 1), ``RANK`` (default 0), ``LOCAL_RANK`` (default ``RANK``) and
+    ``LOCAL_WORLD_SIZE`` (default ``WORLD_SIZE``: every rank on this host).
+    Read by ``parallel.mesh.initialize_distributed``."""
+    addr = os.environ.get("MASTER_ADDR")
+    if not addr:
+        return None
+    world = _get_int("WORLD_SIZE", 1)
+    rank = _get_int("RANK", 0)
+    return {
+        "master_addr": addr,
+        "master_port": _get_int("MASTER_PORT", 29500),
+        "world_size": world,
+        "rank": rank,
+        "local_rank": _get_int("LOCAL_RANK", rank),
+        "local_world_size": _get_int("LOCAL_WORLD_SIZE", world),
+    }
+
+
 def mesh_shard_max_errors() -> int:
     """``MESH_SHARD_MAX_ERRORS`` — consecutive scoring failures after which
     the front marks a shard dead and sheds its load. Default 3."""
@@ -474,9 +497,10 @@ def lifeboat_fsync_s() -> float:
 
 def mesh_retrain() -> bool:
     """``MESH_RETRAIN=1`` — the conductor's retrain refines the fit with the
-    cross-replica-sharded weight update instead of L-BFGS. The port has no
-    sharded update yet (ROADMAP item 12b): the retrain raises when this is
-    set. Default off."""
+    cross-replica-sharded weight update (``mesh/retrain.mesh_sgd_fit``:
+    each data shard owns 1/N of the coefficients and their momentum,
+    warm-started from the champion, ``max(max_iter // 20, 3)`` epochs)
+    instead of L-BFGS. Default off."""
     return env_flag("MESH_RETRAIN") is True
 
 

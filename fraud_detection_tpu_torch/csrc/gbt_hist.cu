@@ -59,8 +59,28 @@
 // Compiled code: see PERF.md, "gbt_hist" under Findings, for what ptxas
 // reports (registers, shared memory, spills) and what the SASS holds.
 //
-// The launcher allocates nothing (the wrapper passes the scratch), does not
-// synchronise, runs on the caller's stream and returns cudaGetLastError().
+// The split phase (a level of the sharded fit, ops/gbt.py; the JAX
+// package's per-device histogram + psum, ops/gbt.py:377): a shard cannot
+// take its quanta from its own rows and max, or the shards' cells would be
+// counted in different units. Three more entry points run the same three
+// kernels one phase at a time over one shard's rows:
+//   gbt_hist_max_launch        kernel 1 folding into two caller-given
+//                              uint32 words (atomicMax of |g| and |h| as
+//                              bits: exact in any order), zeroed first;
+//   gbt_hist_accumulate_launch kernel 2 with the quanta of a caller-given
+//                              global real-row count n_total and max bits
+//                              (the pmax of every shard's words), adding
+//                              into a caller-given int64 accumulator and
+//                              writing the two quanta;
+//   gbt_hist_finish_launch     kernel 3 from a caller-given accumulator
+//                              (the int64 psum of the shards') and quanta.
+// A shard's padded rows carry g = h = 0 and add nothing, and n_total is the
+// unpadded count, so the shards' summed accumulators are the unsharded
+// launch's cells bit for bit, whatever the split. gbt_hist_launch is
+// unchanged: its own n and max give the same quanta.
+//
+// The launchers allocate nothing (the wrapper passes the scratch), do not
+// synchronise, run on the caller's stream and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -149,12 +169,14 @@ __device__ __forceinline__ unsigned abs_bits(float v) {
   return __float_as_uint(fabsf(v));
 }
 
-// max|g| and max|h| over the live rows, one (g, h) pair per block, and the
-// accumulator zeroed
+// max|g| and max|h| over the live rows, one (g, h) pair per block (or, with
+// max_out, folded into max_out[0..1] by atomicMax), and the accumulator
+// zeroed
 __global__ void __launch_bounds__(kPrepThreads) gbt_hist_prepare(
     const int* __restrict__ local, const float* __restrict__ g,
     const float* __restrict__ h, unsigned* __restrict__ partial,
-    longlong2* __restrict__ acc, long long n, int n_nodes, long long cells) {
+    longlong2* __restrict__ acc, long long n, int n_nodes, long long cells,
+    unsigned* __restrict__ max_out) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   unsigned mg = 0, mh = 0;
@@ -181,8 +203,13 @@ __global__ void __launch_bounds__(kPrepThreads) gbt_hist_prepare(
     mg = __reduce_max_sync(0xffffffffu, mg);
     mh = __reduce_max_sync(0xffffffffu, mh);
     if (lane == 0) {
-      partial[2 * blockIdx.x] = mg;
-      partial[2 * blockIdx.x + 1] = mh;
+      if (max_out != nullptr) {
+        atomicMax(max_out, mg);
+        atomicMax(max_out + 1, mh);
+      } else {
+        partial[2 * blockIdx.x] = mg;
+        partial[2 * blockIdx.x + 1] = mh;
+      }
     }
   }
 }
@@ -218,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) gbt_hist_accumulate(
     const float* __restrict__ g, const float* __restrict__ h,
     const unsigned* __restrict__ partial, int partials,
     unsigned long long* __restrict__ acc, double* __restrict__ quanta,
-    long long n, int d, int n_nodes, int n_bins, int feat_tile, int feat_tiles,
+    long long n, long long n_quanta, int d, int n_nodes, int n_bins, int feat_tile, int feat_tiles,
     int node_tile, int copies, int stage_rows, long long rows_per_chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double inv_q[2];
@@ -248,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) gbt_hist_accumulate(
       const unsigned bits[2] = {mg, mh};
       for (int ch = 0; ch < 2; ++ch) {
         int e = 0;
-        live[ch] = quantum_exponent(bits[ch], n, &e);
+        live[ch] = quantum_exponent(bits[ch], n_quanta, &e);
         inv_q[ch] = live[ch] ? ldexp(1.0, 62 - e) : 0.0;
         if (blockIdx.x == 0 && blockIdx.y == 0)
           quanta[ch] = live[ch] ? ldexp(1.0, e - 62) : nan("");
@@ -361,28 +388,59 @@ extern "C" long long gbt_hist_scratch_bytes(long long n, int d, int n_nodes,
   return (long long)d * n_nodes * n_bins * 16 + 16 + kMaxPartials * 8;
 }
 
+namespace {
+
+// select the device and allow kSmemCap once per device (not per launch, so
+// that a launch can be captured in a graph), whatever this launch's size:
+// the kernel's static shared memory counts against the default 48 KB too
+cudaError_t enter(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  static bool allowed[64] = {};
+  if (!(device >= 0 && device < 64 && allowed[device])) {
+    err = cudaFuncSetAttribute(gbt_hist_accumulate,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < 64) allowed[device] = true;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t accumulate(const Grid& p, const void* bins, const void* local,
+                       const void* g, const void* h, const unsigned* partial,
+                       int partials, void* acc, double* quanta, long long n,
+                       long long n_quanta, int d, int n_nodes, int n_bins,
+                       cudaStream_t st) {
+  dim3 grid((unsigned)((long long)p.feat_tiles * p.node_tiles), (unsigned)p.chunks);
+  gbt_hist_accumulate<<<grid, kThreads, p.smem, st>>>(
+      (const uint8_t*)bins, (const int*)local, (const float*)g, (const float*)h,
+      partial, partials, (unsigned long long*)acc, quanta, n, n_quanta, d,
+      n_nodes, n_bins, p.feat_tile, p.feat_tiles, p.node_tile, p.copies,
+      p.stage_rows, p.rows_per_chunk);
+  return cudaGetLastError();
+}
+
+cudaError_t finish(const void* acc, const double* quanta, void* out, long long cells,
+                   cudaStream_t st) {
+  gbt_hist_finish<<<(unsigned)cdiv(cells, 256), 256, 0, st>>>(
+      (const longlong2*)acc, quanta, (float2*)out, cells);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int gbt_hist_launch(const void* bins, const void* local,
                                const void* g, const void* h, void* scratch,
                                void* out, long long n, int d, int n_nodes,
                                int n_bins, int device, void* stream) {
   if (bad_shape(n, d, n_nodes, n_bins) || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  cudaError_t err = enter(device);
   if (err != cudaSuccess) return (int)err;
   const Grid p = make_grid(n, d, n_nodes, n_bins, sm_count(device));
   if (p.smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
-  // allow kSmemCap once per device (not per launch, so that a launch can
-  // be captured in a graph), whatever this launch's size: the kernel's
-  // static shared memory counts against the default 48 KB too
-  static bool allowed[64] = {};
-  if (!(device >= 0 && device < 64 && allowed[device])) {
-    err = cudaFuncSetAttribute(gbt_hist_accumulate,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
-    if (err != cudaSuccess) return (int)err;
-    if (device >= 0 && device < 64) allowed[device] = true;
-  }
   const long long cells = (long long)d * n_nodes * n_bins;
   char* base = (char*)scratch;
   longlong2* acc = (longlong2*)base;
@@ -392,18 +450,65 @@ extern "C" int gbt_hist_launch(const void* bins, const void* local,
 
   gbt_hist_prepare<<<p.partials, kPrepThreads, 0, st>>>(
       (const int*)local, (const float*)g, (const float*)h, partial, acc, n,
-      n_nodes, cells);
+      n_nodes, cells, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((long long)p.feat_tiles * p.node_tiles), (unsigned)p.chunks);
-  gbt_hist_accumulate<<<grid, kThreads, p.smem, st>>>(
-      (const uint8_t*)bins, (const int*)local, (const float*)g, (const float*)h,
-      partial, p.partials, (unsigned long long*)acc, quanta, n, d, n_nodes,
-      n_bins, p.feat_tile, p.feat_tiles, p.node_tile, p.copies, p.stage_rows,
-      p.rows_per_chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  gbt_hist_finish<<<(unsigned)cdiv(cells, 256), 256, 0, st>>>(
-      acc, quanta, (float2*)out, cells);
+  err = accumulate(p, bins, local, g, h, partial, p.partials, acc, quanta, n, n,
+                   d, n_nodes, n_bins, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)finish(acc, quanta, out, cells, st);
+}
+
+// the split phase, 1: one shard's max|g| and max|h| over its live rows into
+// max_bits[0..1] (uint32, |value| as bits), zeroed first
+extern "C" int gbt_hist_max_launch(const void* local, const void* g, const void* h,
+                                   void* max_bits, long long n, int n_nodes,
+                                   int device, void* stream) {
+  if (n < 1 || n_nodes < 1 || n_nodes > kMaxNodes || max_bits == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = enter(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((err = cudaMemsetAsync(max_bits, 0, 2 * sizeof(unsigned), st)) != cudaSuccess)
+    return (int)err;
+  long long parts = cdiv(n, 4LL * kPrepThreads);
+  if (parts > kMaxPartials) parts = kMaxPartials;
+  gbt_hist_prepare<<<(unsigned)parts, kPrepThreads, 0, st>>>(
+      (const int*)local, (const float*)g, (const float*)h, nullptr, nullptr, n,
+      n_nodes, 0, (unsigned*)max_bits);
   return (int)cudaGetLastError();
+}
+
+// the split phase, 2: one shard's n rows added into acc (int64 (d, n_nodes,
+// n_bins, 2), caller-zeroed or holding earlier shards' sums) in the quanta
+// of n_total real rows whose live values are at most max_bits (the pmax of
+// every shard's max), which it writes to quanta[0..1] (float64)
+extern "C" int gbt_hist_accumulate_launch(const void* bins, const void* local,
+                                          const void* g, const void* h,
+                                          const void* max_bits, void* acc,
+                                          void* quanta, long long n,
+                                          long long n_total, int d, int n_nodes,
+                                          int n_bins, int device, void* stream) {
+  if (bad_shape(n, d, n_nodes, n_bins) || n_total < n || max_bits == nullptr ||
+      acc == nullptr || quanta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = enter(device);
+  if (err != cudaSuccess) return (int)err;
+  const Grid p = make_grid(n, d, n_nodes, n_bins, sm_count(device));
+  if (p.smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  return (int)accumulate(p, bins, local, g, h, (const unsigned*)max_bits, 1, acc,
+                         (double*)quanta, n, n_total, d, n_nodes, n_bins,
+                         (cudaStream_t)stream);
+}
+
+// the split phase, 3: out (float32 (d, n_nodes, n_bins, 2)) from an int64
+// accumulator of as many cells and its quanta
+extern "C" int gbt_hist_finish_launch(const void* acc, const void* quanta, void* out,
+                                      long long cells, int device, void* stream) {
+  if (cells < 1 || acc == nullptr || quanta == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = enter(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)finish(acc, (const double*)quanta, out, cells, (cudaStream_t)stream);
 }
 
 extern "C" const char* gbt_hist_error_string(int code) {

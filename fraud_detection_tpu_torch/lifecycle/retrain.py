@@ -1,12 +1,13 @@
 """The retrain executor: what runs when the watchtower says "retrain".
 
-The port's copy of the JAX package's ``lifecycle/retrain.py``, on one
-device (the card unless ``DEVICE=cpu`` or ``device=`` asks for the CPU).
+The port's copy of the JAX package's ``lifecycle/retrain.py``, on the
+default mesh of one device (the card unless ``DEVICE=cpu`` or ``device=``
+asks for the CPU; one shard, or one a process of a group).
 It assembles a training set from the base CSV plus the durable feedback
 replay (recent window + uniform-over-history reservoir, :mod:`.store`),
 warm-starts the solver from the incumbent champion's params, runs the
-offline trainer's L-BFGS fit, and judges the result against the champion
-on the frozen holdout plus the recent-window slice through the gate
+offline trainer's sharded L-BFGS fit, and judges the result against the
+champion on the frozen holdout plus the recent-window slice through the gate
 (:mod:`.gate`). On the card the SMOTE step's k-NN is the ``knn_topk``
 kernel, and the gate's, the holdout's and the profile's scores are the
 ``fused_score`` kernel (the logistic family's ``predict_proba``).
@@ -32,7 +33,11 @@ Three branches, chosen by the champion and ``WIDE_ENABLED``:
   one): the hashed crosses of the raw rows fitted with the base slice by
   ``mesh/retrain.wide_sgd_fit`` (the 1×1 mesh's fit).
 
-``MESH_RETRAIN=1`` raises: the sharded weight update is ROADMAP item 12b.
+``MESH_RETRAIN=1`` fits the logistic and ledger families with the
+cross-replica-sharded weight update in place of L-BFGS
+(``mesh/retrain.mesh_sgd_fit``: ``max(max_iter // 20, 3)`` epochs from
+the champion's warm start). The feedback pools' summary is the
+``mapreduce_pool_stats`` over the same mesh.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from fraud_detection_tpu_torch.ops.logistic import LogisticParams, logistic_fit_
 from fraud_detection_tpu_torch.ops.scaler import scaler_fit, scaler_transform
 from fraud_detection_tpu_torch.ops.scorer import fold_scaler_into_linear
 from fraud_detection_tpu_torch.ops.smote import smote
+from fraud_detection_tpu_torch.parallel.mesh import default_mesh
 
 log = logging.getLogger("fraud_detection_tpu_torch.lifecycle")
 
@@ -181,6 +187,7 @@ def run_retrain(
 
     t0 = time.time()
     dev = resolve_device(device)
+    mesh = default_mesh(dev)
     stages = _Stages(dev)
     client = tracking_client or TrackingClient()
     thresholds = thresholds or GateThresholds.from_config()
@@ -212,12 +219,6 @@ def run_retrain(
             from fraud_detection_tpu_torch.ops.crosses import spec_from_config
 
             wide_spec = spec_from_config(x.shape[1])
-    if wide_spec is None and config.mesh_retrain():
-        raise NotImplementedError(
-            "MESH_RETRAIN=1: the cross-replica-sharded weight update "
-            "(mesh_sgd_fit) is not ported yet (ROADMAP item 12b); unset it "
-            "to retrain with L-BFGS on one device"
-        )
     fps_base = fps_w = fps_r = None
     if wide_spec is not None:
         # the wide challenger retrains on the crosses serving computes:
@@ -292,7 +293,7 @@ def run_retrain(
         try:
             pool_stats = mapreduce_pool_stats(
                 np.concatenate(replay_x), np.concatenate(replay_y), pool_scores,
-                device=dev,
+                mesh=mesh,
             )
         except Exception as e:
             log.warning("feedback pool aggregation failed: %s", e)
@@ -310,7 +311,7 @@ def run_retrain(
                 "use_smote": use_smote,
                 "max_iter": max_iter,
                 "device": dev.type,
-                "n_devices": 1,
+                "n_devices": mesh.global_data,
                 "mesh_retrain": config.mesh_retrain(),
             }
         )
@@ -406,9 +407,21 @@ def run_retrain(
                     fx_eval, fps_eval, wide_table, wide_spec, device=dev
                 )
         else:
-            params = logistic_fit_lbfgs(
-                x_final, y_final, max_iter=max_iter, warm_start=ws,
-            )
+            if config.mesh_retrain():
+                # MESH_RETRAIN=1: the warm-started update itself shards
+                # across the mesh — each shard owns 1/N of the params and
+                # their momentum (2004.13336)
+                from fraud_detection_tpu_torch.mesh.retrain import mesh_sgd_fit
+
+                params = mesh_sgd_fit(
+                    x_final, y_final, epochs=max(max_iter // 20, 3),
+                    warm_start=ws, mesh=mesh,
+                )
+            else:
+                params = logistic_fit_lbfgs(
+                    x_final, y_final, max_iter=max_iter, warm_start=ws,
+                    mesh=mesh, sharded=True,
+                )
             stages.mark("fit")
             challenger = FraudLogisticModel(
                 params, scaler, list(feature_names), device=dev,

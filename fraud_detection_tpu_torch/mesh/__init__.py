@@ -6,10 +6,12 @@
   windows and ledger sub-tables merged at scrape time;
 - :mod:`.front` — the shard front: replica micro-batchers behind a router
   with health tracking, draining and a half-open probe;
-- :mod:`.retrain` — the wide family's fit on a 1×1 mesh.
+- :mod:`.retrain` — the cross-replica-sharded weight update
+  (``mesh_sgd_fit``) and the feedback pools' summary over the data axis,
+  and the wide family's fit on a 1×1 mesh.
 
-The sharded weight update, the collectives and the 2-D wide mesh are
-ROADMAP item 12b."""
+The collectives are ``parallel/collectives``; the 2-D wide mesh (a model
+axis above 1) is ROADMAP item 12b's second PR."""
 
 from fraud_detection_tpu_torch.mesh.front import NoHealthyShards, ShardFront
 from fraud_detection_tpu_torch.mesh.shardflush import (

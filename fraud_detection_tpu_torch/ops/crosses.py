@@ -22,7 +22,7 @@ differs between libraries, and so, rarely, does the bucket (ROADMAP queue
 3). The fingerprint is ``int64`` on the device and ``uint32`` in files.
 
 The JAX package's model-axis shard gather (``_gather_contrib_shard``) is
-the 2-D sharded flush's, ROADMAP item 12b.
+the 2-D sharded flush's, ROADMAP item 12b's second PR (the model axis).
 """
 
 from __future__ import annotations

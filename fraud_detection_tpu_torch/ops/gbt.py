@@ -1,4 +1,5 @@
-"""Histogram gradient-boosted trees on one device.
+"""Histogram gradient-boosted trees, on one device or sharded over a
+mesh's data axis.
 
 The JAX package's ``ops/gbt.py`` — the reference's ``XGBClassifier`` recipe
 (100 trees, depth 5, learning rate 0.1, λ = 1, 256 bins) — in PyTorch:
@@ -26,10 +27,22 @@ The JAX package's ``ops/gbt.py`` — the reference's ``XGBClassifier`` recipe
 - **Boosting** is a Python loop over trees (JAX: ``lax.scan``); the whole
   loop stays on the device with no host sync.
 
+- **The sharded fit** (``gbt_fit(sharded=True)``, the JAX package's
+  ``shard_map`` fit with its histogram and leaf-sum ``psum``): rows padded
+  to the mesh's global shard count (padded rows weigh 0, so g = h = 0),
+  each shard's histogram through ``gbt_hist``'s split phase — each shard's
+  max pass, their ``pmax``, each shard's int64 accumulate in the quanta of
+  the global real-row count, the int64 ``psum``, one finish — so every
+  shard grows the same trees from global sums whose bits do not depend on
+  the split: on the card the forest is bitwise the unsharded fit's at any
+  shard count. On the CPU the sharded fit runs the same fixed-point
+  arithmetic in plain PyTorch (its forest does not depend on the shard
+  count either, and is not the unsharded CPU fit's bits, which keeps the
+  float ``gbt_hist_reference`` for split-for-split parity with JAX).
+
 ``_hist_matmul`` (a TPU MXU idiom) and the ``GBT_HIST``/``GBT_MATMUL_HIST``/
 ``GBT_DENSE_PREDICT`` switches are not ported: the device of the tensors
-decides. The fit is the JAX package's unsharded fit (one device); its
-sharded fit (histogram allreduce) is ROADMAP queue 1, item 12b.
+decides.
 """
 
 from __future__ import annotations
@@ -135,12 +148,14 @@ def bin_features_host(x: np.ndarray, edges: np.ndarray, n_bins: int) -> np.ndarr
 # ---------------------------------------------------------------------------
 
 
-def _grow_tree(binned: torch.Tensor, g: torch.Tensor, h: torch.Tensor, cfg: GBTConfig):
+def _grow_tree(binned: torch.Tensor, g: torch.Tensor, h: torch.Tensor, cfg: GBTConfig,
+               hist=kernels.gbt_hist):
     """Grow one static-depth tree; returns (split_feature, split_bin,
     leaf_value, row_leaf) with ``row_leaf`` the bottom-level leaf index of
     every row. ``binned`` (n, d) uint8 (or int32 above 256 bins); ``g``/``h``
-    (n,) float32 (0 for inert rows). One ``gbt_hist`` launch per level and
-    one for the leaf sums; no host sync."""
+    (n,) float32 (0 for inert rows). One ``hist`` call per level and one
+    for the leaf sums — ``gbt_hist``, or a sharded fit's global histogram
+    of its shards' rows (:func:`_split_hist`); no host sync."""
     dev = binned.device
     n, d = binned.shape
     n_bins = cfg.n_bins
@@ -155,10 +170,10 @@ def _grow_tree(binned: torch.Tensor, g: torch.Tensor, h: torch.Tensor, cfg: GBTC
         level_base = 2**level - 1
         n_nodes = 2**level
         local = node - level_base
-        hist = kernels.gbt_hist(binned, local, g, h, n_nodes, n_bins)
+        level_hist = hist(binned, local, g, h, n_nodes, n_bins)
 
-        gl = torch.cumsum(hist[..., 0], dim=2)  # (d, n_nodes, n_bins)
-        hl = torch.cumsum(hist[..., 1], dim=2)
+        gl = torch.cumsum(level_hist[..., 0], dim=2)  # (d, n_nodes, n_bins)
+        hl = torch.cumsum(level_hist[..., 1], dim=2)
         g_tot = gl[..., -1:]
         h_tot = hl[..., -1:]
         gr = g_tot - gl
@@ -198,7 +213,7 @@ def _grow_tree(binned: torch.Tensor, g: torch.Tensor, h: torch.Tensor, cfg: GBTC
     n_leaves = 2**depth
     row_leaf = node - n_internal
     leaf_ids = row_leaf.to(torch.uint8 if n_leaves <= 256 else torch.int32)[:, None]
-    leaf_gh = kernels.gbt_hist(
+    leaf_gh = hist(
         leaf_ids.contiguous(), torch.zeros_like(row_leaf), g, h, 1, n_leaves
     )[0, 0]  # (n_leaves, 2)
     leaf_value = torch.where(
@@ -209,18 +224,47 @@ def _grow_tree(binned: torch.Tensor, g: torch.Tensor, h: torch.Tensor, cfg: GBTC
     return feat, thresh, leaf_value, row_leaf
 
 
-def _boost(binned, y, w, base_logit: float, cfg: GBTConfig):
+def _split_hist(bins, local, g, h, n_nodes: int, n_bins: int, *, mesh, n_total: int):
+    """The global (d, n_nodes, n_bins, 2) histogram of this process's
+    shards' rows (``bins`` etc. hold ``mesh.size`` equal row segments) and
+    every other process's: ``gbt_hist``'s split phase — the max pass a
+    shard, ``pmax``, the accumulate pass a shard in the quanta of
+    ``n_total`` real rows, the int64 ``psum`` (exact), one finish. The
+    JAX package's per-device histogram and ``psum`` (ops/gbt.py:377, the
+    leaf sums :437)."""
+    from fraud_detection_tpu_torch.parallel.collectives import pmax, psum
+
+    shards = mesh.size
+    rows = bins.shape[0] // shards
+    segs = [slice(s * rows, (s + 1) * rows) for s in range(shards)]
+    max_bits = pmax(torch.stack([
+        kernels.gbt_hist_max(local[r], g[r], h[r], n_nodes) for r in segs
+    ]), mesh)
+    acc = torch.zeros((shards, bins.shape[1], n_nodes, n_bins, 2), dtype=torch.int64,
+                      device=bins.device)
+    quanta = torch.empty(2, dtype=torch.float64, device=bins.device)
+    for s, r in enumerate(segs):
+        kernels.gbt_hist_accumulate(bins[r], local[r], g[r], h[r], n_nodes, n_bins,
+                                    max_bits, n_total, acc[s], quanta)
+    return kernels.gbt_hist_finish(psum(acc, mesh), quanta)
+
+
+def _boost(binned, y, w, base_logit: float, cfg: GBTConfig, hist=kernels.gbt_hist,
+           sigmoid=torch.sigmoid):
     """Loop over boosting rounds; returns the stacked tree arrays. ``w``
-    carries both inert rows (0) and ``scale_pos_weight``."""
+    carries both inert rows (0) and ``scale_pos_weight``. ``hist`` is the
+    level histogram (:func:`_grow_tree`); the sharded fit passes a
+    ``sigmoid`` whose bits do not depend on a row's position
+    (``kernels.row_sigmoid``: the card's ``torch.sigmoid``)."""
     n = binned.shape[0]
     logits = torch.full((n,), base_logit, dtype=torch.float32, device=binned.device)
     feats, threshs, leaves = [], [], []
     sign_w = torch.sign(w)
     for _ in range(cfg.n_trees):
-        p = torch.sigmoid(logits)
+        p = sigmoid(logits)
         g = w * (p - y)
         h = torch.clamp_min(w * p * (1.0 - p), 1e-16) * sign_w
-        feat, thresh, leaf, row_leaf = _grow_tree(binned, g, h, cfg)
+        feat, thresh, leaf, row_leaf = _grow_tree(binned, g, h, cfg, hist)
         logits = logits + leaf[row_leaf.long()]
         feats.append(feat)
         threshs.append(thresh)
@@ -234,13 +278,25 @@ def gbt_fit(
     cfg: GBTConfig = GBTConfig(),
     sample_weight=None,
     device: str | torch.device | None = None,
+    mesh=None,
+    sharded: bool = False,
 ) -> GBTModel:
-    """Fit the forest on one device: ``x``'s device for a tensor, else
-    ``device`` (default ``DEVICE``, itself ``cuda``). The JAX package's
-    unsharded fit: edges and bins on the host, bins (uint8) + labels +
-    weights to the device, the boosting loop there. Returns the model on
-    that device, after the device finished (a synchronous fit)."""
-    if isinstance(x, torch.Tensor):
+    """Fit the forest: ``x``'s device for a tensor, else ``device`` (default
+    ``DEVICE``, itself ``cuda``). Edges and bins on the host, bins (uint8)
+    + labels + weights to the device, the boosting loop there. Returns the
+    model on that device, after the device finished (a synchronous fit).
+
+    With ``sharded=True`` the rows are padded and split over ``mesh``'s
+    data axis (default ``default_mesh()`` on that device: one shard, or one
+    a process of a group; padded rows weigh 0) and every level's histogram
+    and the leaf sums are the shards' global sums (:func:`_split_hist`):
+    every process returns the same forest, on the card bitwise the
+    unsharded fit's (a given ``mesh`` fixes the device)."""
+    if sharded and mesh is not None:
+        dev = mesh.device
+        x_np = (x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x, dtype=np.float32))
+    elif isinstance(x, torch.Tensor):
         dev = x.device if device is None else resolve_device(device)
         x_np = x.detach().float().cpu().numpy()
     else:
@@ -256,11 +312,24 @@ def gbt_fit(
 
     edges = compute_bin_edges(x_np, cfg.n_bins)
     base_logit = float(np.float32(np.log(cfg.base_score / (1.0 - cfg.base_score))))
-    binned = torch.from_numpy(bin_features_host(x_np, edges, cfg.n_bins)).to(dev)
-    feats, threshs, leaves = _boost(
-        binned, torch.from_numpy(y_np).to(dev), torch.from_numpy(w).to(dev),
-        base_logit, cfg,
-    )
+    binned_np = bin_features_host(x_np, edges, cfg.n_bins)
+    if not sharded:
+        feats, threshs, leaves = _boost(
+            torch.from_numpy(binned_np).to(dev), torch.from_numpy(y_np).to(dev),
+            torch.from_numpy(w).to(dev), base_logit, cfg,
+        )
+    else:
+        from fraud_detection_tpu_torch.parallel.mesh import default_mesh
+        from fraud_detection_tpu_torch.parallel.sharding import shard_batch
+
+        mesh = mesh or default_mesh(dev)
+        # padded rows: bin 0, label 0, weight 0 (so g = h = 0: inert)
+        binned, y_dev, w_dev = (shard_batch(a, mesh)[0] for a in (binned_np, y_np, w))
+        feats, threshs, leaves = _boost(
+            binned, y_dev, w_dev, base_logit, cfg,
+            hist=functools.partial(_split_hist, mesh=mesh, n_total=n),
+            sigmoid=kernels.row_sigmoid,
+        )
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return GBTModel(

@@ -81,6 +81,21 @@ _SIGNATURES = {
                ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int,
         ),
+        "gbt_hist_max_launch": (
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "gbt_hist_accumulate_launch": (
+            [ctypes.c_void_p] * 7
+            + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
+        "gbt_hist_finish_launch": (
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int,
+        ),
         "gbt_hist_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "tree_shap": {
@@ -100,6 +115,12 @@ FUSED_SCORE_LAUNCHES = 0
 KNN_TOPK_LAUNCHES = 0
 GBT_HIST_LAUNCHES = 0
 TREE_SHAP_LAUNCHES = 0
+#: the split phase of ``gbt_hist`` (a sharded fit's levels): each shard's
+#: max pass, each shard's accumulate (counted in ``GBT_HIST_LAUNCHES`` too)
+#: and each level's finish
+GBT_HIST_MAX_LAUNCHES = 0
+GBT_HIST_SPLIT_LAUNCHES = 0
+GBT_HIST_FINISH_LAUNCHES = 0
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -120,12 +141,16 @@ def kernel_names() -> list[str]:
 
 def reset_launch_counts() -> None:
     global FUSED_SCORE_LAUNCHES, KNN_TOPK_LAUNCHES, GBT_HIST_LAUNCHES
-    global TREE_SHAP_LAUNCHES
+    global TREE_SHAP_LAUNCHES, GBT_HIST_MAX_LAUNCHES, GBT_HIST_SPLIT_LAUNCHES
+    global GBT_HIST_FINISH_LAUNCHES
     with _lock:
         FUSED_SCORE_LAUNCHES = 0
         KNN_TOPK_LAUNCHES = 0
         GBT_HIST_LAUNCHES = 0
         TREE_SHAP_LAUNCHES = 0
+        GBT_HIST_MAX_LAUNCHES = 0
+        GBT_HIST_SPLIT_LAUNCHES = 0
+        GBT_HIST_FINISH_LAUNCHES = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -135,6 +160,13 @@ def launch_counts() -> dict[str, int]:
         "gbt_hist": GBT_HIST_LAUNCHES,
         "tree_shap": TREE_SHAP_LAUNCHES,
     }
+
+
+def gbt_hist_split_counts() -> dict[str, int]:
+    """Launches of ``gbt_hist``'s split phase by entry point: ``max`` and
+    ``accumulate`` once a shard and a level, ``finish`` once a level."""
+    return {"max": GBT_HIST_MAX_LAUNCHES, "accumulate": GBT_HIST_SPLIT_LAUNCHES,
+            "finish": GBT_HIST_FINISH_LAUNCHES}
 
 
 def _nvcc() -> str:
@@ -637,22 +669,28 @@ def gbt_hist_fixed_point_reference(
     h: torch.Tensor,
     n_nodes: int,
     n_bins: int,
+    quanta: tuple[float, float] | None = None,
+    accumulator: bool = False,
 ) -> tuple[torch.Tensor, tuple[float, float]]:
     """The kernel's arithmetic in plain PyTorch, for the tests and the
     card's bitwise check (the CPU path keeps :func:`gbt_hist_reference`):
     the quanta of :func:`gbt_hist_quanta` from max|g| and max|h| over the
-    rows whose node lies in ``[0, n_nodes)``, each row's g and h as int64
+    rows whose node lies in ``[0, n_nodes)`` (or the given ``quanta``: the
+    split phase's, from every shard's rows), each row's g and h as int64
     multiples of them rounded away from zero, int64 sums per cell (in any
     order: integers), and ``float32(float64(cell) · q)``. A non-finite
     channel comes out NaN in every cell. Returns the (d, n_nodes, n_bins,
-    2) histogram and the quanta (g, h)."""
+    2) histogram — or, with ``accumulator``, the int64 cells before the
+    conversion — and the quanta (g, h)."""
     n, d = bins.shape
     b = bins.long()
     loc = local.long()
     live = (loc >= 0) & (loc < n_nodes)
-    quanta = gbt_hist_quanta(n, tuple(
-        float(v.abs().max()) if bool(live.any()) else 0.0 for v in (g[live], h[live])
-    ))
+    if quanta is None:
+        quanta = gbt_hist_quanta(n, tuple(
+            float(v.abs().max()) if bool(live.any()) else 0.0 for v in (g[live], h[live])
+        ))
+    quanta = (float(quanta[0]), float(quanta[1]))
     fixed = []
     for v, q in zip((g, h), quanta):
         if math.isnan(q):
@@ -667,8 +705,38 @@ def gbt_hist_fixed_point_reference(
     src = torch.stack(fixed, dim=1)[:, None, :].expand(n, d, 2)[keep]
     acc = torch.zeros((d * n_nodes * n_bins, 2), dtype=torch.int64, device=b.device)
     acc.index_add_(0, seg[keep], src)
-    q = torch.tensor(quanta, dtype=torch.float64, device=b.device)
-    return (acc.double() * q).float().reshape(d, n_nodes, n_bins, 2), quanta
+    acc = acc.reshape(d, n_nodes, n_bins, 2)
+    if accumulator:
+        return acc, quanta
+    return gbt_hist_finish_reference(acc, quanta), quanta
+
+
+def gbt_hist_finish_reference(acc: torch.Tensor, quanta) -> torch.Tensor:
+    """The finish pass in plain PyTorch: ``float32(float64(cell) · q)`` per
+    channel; ``quanta`` a (g, h) pair or a float64 (2,) tensor."""
+    q = torch.as_tensor(quanta, dtype=torch.float64).to(acc.device)
+    return (acc.double() * q).float()
+
+
+def gbt_hist_max_reference(local: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                           n_nodes: int) -> torch.Tensor:
+    """The split phase's max pass in plain PyTorch: max |g| and max |h|
+    over the rows whose node lies in ``[0, n_nodes)``, as the bits of the
+    absolute float32 value in an int32 (2,) tensor (the sign bit is clear,
+    so integer order is float order and NaN sorts above +inf); 0 with no
+    live row."""
+    live = (local >= 0) & (local < n_nodes)
+    out = [torch.where(live, v.contiguous().view(torch.int32) & 0x7FFFFFFF, 0).amax()
+           if v.numel() else torch.zeros((), dtype=torch.int32, device=v.device)
+           for v in (g, h)]
+    return torch.stack(out).to(torch.int32)
+
+
+def gbt_hist_quanta_from_bits(n_total: int, max_bits: torch.Tensor) -> tuple[float, float]:
+    """:func:`gbt_hist_quanta` of ``n_total`` rows from a max pass's bits
+    (read back to the host)."""
+    vals = max_bits.detach().cpu().to(torch.int32).view(torch.float32).tolist()
+    return gbt_hist_quanta(n_total, (vals[0], vals[1]))
 
 
 def gbt_hist(
@@ -771,6 +839,166 @@ def _gbt_hist(
     with _lock:
         GBT_HIST_LAUNCHES += 1
     return out, scratch
+
+
+# The split phase: a level of the sharded fit (ops/gbt.py) runs, over the
+# shards of a mesh, the max pass a shard → ``pmax`` → the accumulate pass a
+# shard in the shared quanta of the global real-row count → the int64
+# ``psum`` → one finish. The three entry points are the same three kernels
+# as :func:`gbt_hist`'s (csrc/gbt_hist.cu). Bound on the H100 of a shard's
+# accumulate: bytes, as the whole launch's but over its rows.
+
+
+def _check_split_rows(local, g, h, what: str) -> None:
+    if local.dim() != 1 or g.dim() != 1 or h.dim() != 1 or not (
+            local.shape[0] == g.shape[0] == h.shape[0]):
+        raise ValueError(f"{what} wants local/g/h (n,) of one length; got "
+                         f"{tuple(local.shape)}, {tuple(g.shape)}, {tuple(h.shape)}")
+    if local.dtype != torch.int32:
+        raise TypeError(f"{what} wants int32 local, got {local.dtype}")
+    for t, name in ((g, "g"), (h, "h")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} wants float32 {name}, got {t.dtype}")
+    for t, name in ((g, "g"), (h, "h")):
+        if t.device != local.device:
+            raise ValueError(f"{name} on {t.device}, local on {local.device}")
+    if local.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {local.device}")
+    if local.device.type == "cuda" and not all(
+            t.is_contiguous() for t in (local, g, h)):
+        raise ValueError(f"{what} wants contiguous local, g and h")
+
+
+def gbt_hist_max(local: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                 n_nodes: int) -> torch.Tensor:
+    """The split phase's max pass over one shard's rows: max |g| and |h|
+    over its live rows as int32 (2,) bits (:func:`gbt_hist_max_reference`),
+    left on the device. CUDA tensors launch the kernel's first pass; CPU
+    tensors take the plain version."""
+    global GBT_HIST_MAX_LAUNCHES
+    _check_split_rows(local, g, h, "gbt_hist_max")
+    n_nodes = int(n_nodes)
+    if local.shape[0] < 1 or not 1 <= n_nodes <= GBT_HIST_MAX_NODES:
+        raise ValueError(f"gbt_hist_max wants n >= 1 and 1 <= n_nodes <= "
+                         f"{GBT_HIST_MAX_NODES}, got ({local.shape[0]}, {n_nodes})")
+    if local.device.type == "cpu":
+        return gbt_hist_max_reference(local, g, h, n_nodes)
+    lib = _lib("gbt_hist")
+    out = torch.empty(2, dtype=torch.int32, device=local.device)
+    rc = lib.gbt_hist_max_launch(
+        local.data_ptr(), g.data_ptr(), h.data_ptr(), out.data_ptr(),
+        local.shape[0], n_nodes, local.device.index,
+        torch.cuda.current_stream(local.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError("gbt_hist max launch failed: "
+                           + lib.gbt_hist_error_string(rc).decode())
+    with _lock:
+        GBT_HIST_MAX_LAUNCHES += 1
+    return out
+
+
+def gbt_hist_accumulate(
+    bins: torch.Tensor,
+    local: torch.Tensor,
+    g: torch.Tensor,
+    h: torch.Tensor,
+    n_nodes: int,
+    n_bins: int,
+    max_bits: torch.Tensor,
+    n_total: int,
+    acc: torch.Tensor,
+    quanta: torch.Tensor,
+) -> torch.Tensor:
+    """The split phase's accumulate pass over one shard's rows: adds its
+    cells into ``acc`` (int64 (d, n_nodes, n_bins, 2), in place) in the
+    quanta of ``n_total`` real rows (every shard's, padding excluded) whose
+    live values are at most ``max_bits`` (the ``pmax`` of every shard's
+    :func:`gbt_hist_max`), and writes those quanta to ``quanta`` (float64
+    (2,)). Returns ``acc``. CUDA tensors launch the kernel's second pass
+    (counted in ``GBT_HIST_LAUNCHES``); CPU tensors take
+    :func:`gbt_hist_fixed_point_reference` with the given quanta."""
+    global GBT_HIST_LAUNCHES, GBT_HIST_SPLIT_LAUNCHES
+    _check_split_rows(local, g, h, "gbt_hist_accumulate")
+    if bins.dim() != 2 or bins.shape[0] != local.shape[0]:
+        raise ValueError(f"gbt_hist_accumulate wants bins (n, d) beside local (n,); got "
+                         f"{tuple(bins.shape)}, {tuple(local.shape)}")
+    n, d = bins.shape
+    n_nodes, n_bins, n_total = int(n_nodes), int(n_bins), int(n_total)
+    if n < 1 or n_total < n or n_nodes < 1 or n_bins < 1:
+        raise ValueError(f"gbt_hist_accumulate wants 1 <= n <= n_total, n_nodes, n_bins >= 1; "
+                         f"got n {n}, n_total {n_total}, ({n_nodes}, {n_bins})")
+    if acc.shape != (d, n_nodes, n_bins, 2) or acc.dtype != torch.int64:
+        raise ValueError(f"gbt_hist_accumulate wants an int64 {(d, n_nodes, n_bins, 2)} "
+                         f"accumulator, got {acc.dtype} {tuple(acc.shape)}")
+    if tuple(max_bits.shape) != (2,) or max_bits.dtype != torch.int32:
+        raise ValueError("gbt_hist_accumulate wants int32 (2,) max bits")
+    if tuple(quanta.shape) != (2,) or quanta.dtype != torch.float64:
+        raise ValueError("gbt_hist_accumulate wants a float64 (2,) quanta tensor")
+    for t, name in ((bins, "bins"), (max_bits, "max_bits"), (acc, "acc"), (quanta, "quanta")):
+        if t.device != local.device:
+            raise ValueError(f"{name} on {t.device}, local on {local.device}")
+    if local.device.type == "cpu":
+        q = gbt_hist_quanta_from_bits(n_total, max_bits)
+        cells, _ = gbt_hist_fixed_point_reference(bins, local, g, h, n_nodes, n_bins,
+                                                  quanta=q, accumulator=True)
+        acc += cells
+        quanta.copy_(torch.tensor(q, dtype=torch.float64))
+        return acc
+    if bins.dtype != torch.uint8:
+        raise TypeError(f"gbt_hist's kernel reads uint8 bins, got {bins.dtype}")
+    if n_bins > GBT_HIST_MAX_BINS or n_nodes > GBT_HIST_MAX_NODES:
+        raise ValueError(f"gbt_hist's kernel takes n_bins <= {GBT_HIST_MAX_BINS} and "
+                         f"n_nodes <= {GBT_HIST_MAX_NODES}, got ({n_nodes}, {n_bins})")
+    if not all(t.is_contiguous() for t in (bins, max_bits, acc, quanta)):
+        raise ValueError("gbt_hist_accumulate wants contiguous bins, max_bits, acc, quanta")
+    lib = _lib("gbt_hist")
+    rc = lib.gbt_hist_accumulate_launch(
+        bins.data_ptr(), local.data_ptr(), g.data_ptr(), h.data_ptr(),
+        max_bits.data_ptr(), acc.data_ptr(), quanta.data_ptr(),
+        n, n_total, d, n_nodes, n_bins, local.device.index,
+        torch.cuda.current_stream(local.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError("gbt_hist accumulate launch failed: "
+                           + lib.gbt_hist_error_string(rc).decode())
+    with _lock:
+        GBT_HIST_LAUNCHES += 1
+        GBT_HIST_SPLIT_LAUNCHES += 1
+    return acc
+
+
+def gbt_hist_finish(acc: torch.Tensor, quanta: torch.Tensor) -> torch.Tensor:
+    """The split phase's finish: the float32 histogram (d, n_nodes, n_bins,
+    2) of an int64 accumulator (the shards' ``psum``) and its float64 (2,)
+    quanta. CUDA tensors launch the kernel's third pass; CPU tensors take
+    :func:`gbt_hist_finish_reference`."""
+    global GBT_HIST_FINISH_LAUNCHES
+    if acc.dim() != 4 or acc.shape[-1] != 2 or acc.dtype != torch.int64:
+        raise ValueError(f"gbt_hist_finish wants an int64 (d, n_nodes, n_bins, 2) "
+                         f"accumulator, got {acc.dtype} {tuple(acc.shape)}")
+    if tuple(quanta.shape) != (2,) or quanta.dtype != torch.float64:
+        raise ValueError("gbt_hist_finish wants a float64 (2,) quanta tensor")
+    if quanta.device != acc.device:
+        raise ValueError(f"quanta on {quanta.device}, acc on {acc.device}")
+    if acc.device.type == "cpu":
+        return gbt_hist_finish_reference(acc, quanta)
+    if acc.device.type != "cuda":
+        raise ValueError(f"gbt_hist_finish runs on cuda or cpu, not {acc.device}")
+    if not (acc.is_contiguous() and quanta.is_contiguous()):
+        raise ValueError("gbt_hist_finish wants a contiguous accumulator and quanta")
+    lib = _lib("gbt_hist")
+    out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+    rc = lib.gbt_hist_finish_launch(
+        acc.data_ptr(), quanta.data_ptr(), out.data_ptr(), acc.numel() // 2,
+        acc.device.index, torch.cuda.current_stream(acc.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError("gbt_hist finish launch failed: "
+                           + lib.gbt_hist_error_string(rc).decode())
+    with _lock:
+        GBT_HIST_FINISH_LAUNCHES += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,23 @@
 """L2-regularized logistic regression: parameters, prediction and the two
-solvers of the JAX package, on one device.
+solvers of the JAX package.
 
 - :func:`logistic_fit_lbfgs` — full-batch L-BFGS on sklearn's ``lbfgs``
   objective ``0.5·wᵀw + C·Σᵢ sᵢ·softplus(−ỹᵢ(xᵢᵀw + b))`` (intercept not
   regularized, ỹ ∈ {−1, +1}), by ``torch.optim.LBFGS`` with a strong-Wolfe
   line search. The JAX package runs optax's zoom line search; the objective
   is strictly convex, so the two agree on the optimum, not on iterates.
+  With ``sharded=True`` the rows split over a mesh's data axis and the
+  data term is the ``psum`` of the shards' partial losses, differentiated
+  through the fold (``parallel/collectives``).
 - :func:`logistic_fit_sgd` — minibatch momentum SGD on the 1/n-scaled
   objective with a cosine-decayed learning rate: the JAX package's
-  ``shard_map`` epoch with one device, run as a Python loop over
-  minibatches (padding to the batch multiple, the ``valid`` mask, the
-  per-batch valid count, the host permutation stream). The sharded form is
-  the scale-out slice's.
+  ``shard_map`` epoch as a Python loop over minibatches (padding to the
+  batch multiple, the ``valid`` mask, the per-batch valid count, the host
+  permutation stream), each shard's gradient ``psum``-ed over the mesh's
+  data axis.
+
+At one shard either sharded fit is bitwise the unsharded fit: a one-shard
+``psum`` returns its partial unchanged.
 """
 
 from __future__ import annotations
@@ -80,23 +86,48 @@ def logistic_fit_lbfgs(
     class_weight: dict | str | None = None,
     warm_start: LogisticParams | None = None,
     info: dict | None = None,
+    mesh=None,
+    sharded: bool = False,
 ) -> LogisticParams:
     """Fit with sklearn-equivalent hyperparameters on ``x``'s device (an
-    array is fitted on the CPU); ``warm_start`` seeds the solver with
-    existing params. Stops when max |grad| ≤ ``tol`` (sklearn's
-    criterion), when the loss stops changing in float32, or after
-    ``max_iter`` iterations. ``info``, when given, receives the iteration
-    and function-evaluation counts (``n_iter``, ``n_evals``).
+    array is fitted on the CPU; ``sharded`` fits on the mesh's device);
+    ``warm_start`` seeds the solver with existing params. Stops when max
+    |grad| ≤ ``tol`` (sklearn's criterion), when the loss stops changing in
+    float32, or after ``max_iter`` iterations. ``info``, when given,
+    receives the iteration and function-evaluation counts (``n_iter``,
+    ``n_evals``).
+
+    With ``sharded=True`` the rows are padded and split over ``mesh``'s
+    data axis (default ``default_mesh()``, every process of a group; padded
+    rows carry weight 0): each shard computes its partial loss on its own
+    rows with its copy of the parameters (``replicate``), the data term is
+    their ``psum``, and the gradient reaching the parameters is the fold of
+    the shards' gradients — the same on every process.
 
     ``torch.optim.LBFGS`` reads the loss and the gradient norm on the host
     at every iteration, so on the card each iteration waits for the device.
     """
-    xt = torch.as_tensor(x).float()
     y_np = _host(y)
-    dev = xt.device
-    sw = torch.as_tensor(_resolve_sample_weight(y_np, None, class_weight), device=dev)
-    y_pm = torch.as_tensor(np.where(y_np > 0, 1.0, -1.0).astype(np.float32), device=dev)
-    d = xt.shape[1]
+    sw_np = _resolve_sample_weight(y_np, None, class_weight)
+    y_pm_np = np.where(y_np > 0, 1.0, -1.0).astype(np.float32)
+    if sharded:
+        from fraud_detection_tpu_torch.parallel.collectives import psum, replicate
+        from fraud_detection_tpu_torch.parallel.mesh import default_mesh
+        from fraud_detection_tpu_torch.parallel.sharding import batch_sharding, shard_batch
+
+        mesh = mesh or default_mesh()
+        layout = batch_sharding(mesh)
+        x_in = x.float() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+        xt = layout.segments(shard_batch(x_in, mesh)[0])
+        sw = layout.segments(shard_batch(sw_np, mesh)[0])  # pad weight 0: inert
+        y_pm = layout.segments(shard_batch(y_pm_np, mesh)[0])
+        dev = mesh.device
+    else:
+        xt = torch.as_tensor(x).float()
+        dev = xt.device
+        sw = torch.as_tensor(sw_np, device=dev)
+        y_pm = torch.as_tensor(y_pm_np, device=dev)
+    d = xt.shape[-1]
     if warm_start is None:
         w = torch.zeros(d, dtype=torch.float32, device=dev)
         b = torch.zeros((), dtype=torch.float32, device=dev)
@@ -113,10 +144,21 @@ def logistic_fit_lbfgs(
 
     def closure():
         opt.zero_grad()
-        z = xt @ w + b
-        loss = 0.5 * torch.dot(w, w) + c * torch.sum(
-            sw * torch.nn.functional.softplus(-y_pm * z)
-        )
+        if not sharded:
+            z = xt @ w + b
+            loss = 0.5 * torch.dot(w, w) + c * torch.sum(
+                sw * torch.nn.functional.softplus(-y_pm * z)
+            )
+        else:
+            # each shard's copy of (w, b); the fold of the copies' gradients
+            # reaches w and b, after the regularizer's (the unsharded graph's
+            # order, so one shard gives its bits)
+            w_s, b_s = replicate(w, mesh), replicate(b, mesh)
+            z = [xt[s] @ w_s[s] + b_s[s] for s in range(mesh.size)]
+            loss = 0.5 * torch.dot(w, w) + c * psum(torch.stack([
+                torch.sum(sw[s] * torch.nn.functional.softplus(-y_pm[s] * z[s]))
+                for s in range(mesh.size)
+            ]), mesh)
         loss.backward()
         return loss
 
@@ -155,26 +197,41 @@ def logistic_fit_sgd(
     seed: int = 0,
     epoch_callback=None,
     resume: dict | None = None,
+    mesh=None,
 ) -> LogisticParams:
-    """Minibatch momentum SGD on one device (``x``'s; an array is fitted on
-    the CPU).
+    """Data-parallel minibatch momentum SGD over ``mesh``'s data axis
+    (default: ``default_mesh`` on ``x``'s device — one shard, or one a
+    process of a group; an array is fitted on the CPU).
 
-    Per minibatch of the epoch's permutation: the gradient of
-    ``(C/B_valid)·Σ sw·softplus(−ỹ·z) + (0.5/n)·wᵀw``, where B_valid counts
-    the batch's non-padding rows; ``v ← momentum·v − lr_e·g``, ``p ← p + v``;
-    ``lr_e = lr·½(1 + cos(π·e/epochs))``. The permutation of each epoch is
-    ``np.random.default_rng(seed).permutation`` of the padded row count.
+    Rows are padded to ``ndev · batch`` (``ndev`` the global shard count;
+    padded rows carry weight 0 and validity 0) and split into the shards'
+    equal segments. Per step ``i`` of an epoch every shard takes rows
+    ``perm[i·B:(i+1)·B]`` of its own segment (``perm`` one permutation of
+    the segment length, the same on every shard, as the JAX package's
+    ``_sgd_epoch_fn``) and the gradient of ``(C/B_valid)·Σ sw·softplus(−ỹ·z)
+    + (0.5/(n·ndev))·wᵀw`` there; B_valid is the ``psum`` of the shards'
+    non-padding rows in the step, and the gradient the ``psum`` of the
+    shards'. Then ``v ← momentum·v − lr_e·g``, ``p ← p + v``, ``lr_e =
+    lr·½(1 + cos(π·e/epochs))``; every shard holds the same parameters.
+    The permutation of each epoch is ``np.random.default_rng(seed)
+    .permutation`` of the segment length.
 
     ``epoch_callback(epoch, params, velocity, rng, fingerprint)`` fires
     after each epoch (``ckpt.train_state.SGDCheckpointer.epoch_callback``
     persists it), and ``resume`` is that checkpointer's saved state:
     training continues at the next epoch with the saved velocity and PRNG
     stream, so an interrupted and resumed fit is bitwise equal to one that
-    never stopped. The checkpoint's ``fingerprint`` (with ``ndev: 1``) must
-    match this fit's."""
-    ndev = 1
+    never stopped. The checkpoint's ``fingerprint`` (``ndev`` the global
+    shard count, so a JAX checkpoint saved on 8 devices resumes here at 8
+    shards and is refused at 4) must match this fit's."""
+    from fraud_detection_tpu_torch.parallel.collectives import psum
+    from fraud_detection_tpu_torch.parallel.mesh import default_mesh
+    from fraud_detection_tpu_torch.parallel.sharding import batch_sharding, shard_batch
+
     xt = torch.as_tensor(x).float()
-    dev = xt.device
+    mesh = mesh or default_mesh(xt.device)
+    ndev = mesh.global_data
+    dev = mesh.device
     y_np = _host(y)
     n, d = xt.shape
     sw = _resolve_sample_weight(y_np, None, class_weight)
@@ -191,9 +248,11 @@ def logistic_fit_sgd(
     sw_pad[:n] = sw
     valid = np.zeros((n_pad,), np.float32)
     valid[:n] = 1.0
-    y_dev = torch.as_tensor(y_pm, device=dev)
-    sw_dev = torch.as_tensor(sw_pad, device=dev)
-    valid_dev = torch.as_tensor(valid, device=dev)
+    layout = batch_sharding(mesh)
+    x_dev, y_dev, sw_dev, valid_dev = (
+        layout.segments(shard_batch(a, mesh)[0]) for a in (x_pad, y_pm, sw_pad, valid)
+    )
+    n_local = n_pad // ndev
 
     coef = torch.zeros(d, dtype=torch.float32, device=dev)
     intercept = torch.zeros((), dtype=torch.float32, device=dev)
@@ -236,20 +295,27 @@ def logistic_fit_sgd(
         start_epoch = int(resume["epoch"]) + 1
 
     c = float(c)
-    reg = 1.0 / (n * ndev)  # d/dw of 0.5·wᵀw/(n·ndev)
-    n_batches = n_pad // batch_size
+    reg = 1.0 / (n * ndev)  # d/dw of 0.5·wᵀw/(n·ndev), once a shard
+    n_batches = n_local // batch_size
+    shards = range(mesh.size)
     for e in range(start_epoch, epochs):
         lr_e = float(np.float32(lr * 0.5 * (1.0 + np.cos(np.pi * e / max(epochs, 1)))))
-        perm = torch.as_tensor(rng.permutation(n_pad), device=dev)
+        perm = torch.as_tensor(rng.permutation(n_local), device=dev)
         for i in range(n_batches):
             idx = perm[i * batch_size:(i + 1) * batch_size]
-            xb, yb, swb = x_pad[idx], y_dev[idx], sw_dev[idx]
-            b_valid = torch.clamp(valid_dev[idx].sum(), min=1.0)
-            z = xb @ coef + intercept
-            # d/dz of sw·softplus(−ỹz)·C/B_valid = −ỹ·sw·sigmoid(−ỹz)·C/B_valid
-            dz = -yb * swb * torch.sigmoid(-yb * z) * (c / b_valid)
-            g_coef = xb.T @ dz + reg * coef
-            g_intercept = dz.sum()
+            b_valid = torch.clamp(
+                psum(torch.stack([valid_dev[s][idx].sum() for s in shards]), mesh), min=1.0
+            )
+            g_coef, g_intercept = [], []
+            for s in shards:
+                xb, yb, swb = x_dev[s][idx], y_dev[s][idx], sw_dev[s][idx]
+                z = xb @ coef + intercept
+                # d/dz of sw·softplus(−ỹz)·C/B_valid = −ỹ·sw·sigmoid(−ỹz)·C/B_valid
+                dz = -yb * swb * torch.sigmoid(-yb * z) * (c / b_valid)
+                g_coef.append(xb.T @ dz + reg * coef)
+                g_intercept.append(dz.sum())
+            g_coef = psum(torch.stack(g_coef), mesh)
+            g_intercept = psum(torch.stack(g_intercept), mesh)
             v_coef = momentum * v_coef - lr_e * g_coef
             v_intercept = momentum * v_intercept - lr_e * g_intercept
             coef = coef + v_coef

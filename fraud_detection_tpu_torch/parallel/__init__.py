@@ -1,17 +1,31 @@
-"""The shard grid and its layouts (the JAX package's ``parallel/`` for
-serving): a ``(data, model)`` grid of shards on the serving device
-(:mod:`.mesh`) and how a tensor's leading axis splits over it
-(:mod:`.sharding`). Collectives and multi-process bring-up are ROADMAP
-item 12b."""
+"""The shard grid, its layouts and its collectives (the JAX package's
+``parallel/``): a ``(data, model)`` grid of shards on one device a process
+(:mod:`.mesh`), spanning several processes after
+:func:`initialize_distributed`; how a tensor's leading axis splits over it
+(:mod:`.sharding`); and the reductions over the data axis
+(:mod:`.collectives`)."""
 
+from fraud_detection_tpu_torch.parallel.collectives import (  # noqa: F401
+    all_gather,
+    data_parallel,
+    pmax,
+    pmean,
+    psum,
+    psum_scatter,
+    replicate,
+)
 from fraud_detection_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
     MeshSpec,
+    backend,
     create_mesh,
     default_mesh,
     device_count,
+    initialize_distributed,
+    process_count,
+    process_index,
 )
 from fraud_detection_tpu_torch.parallel.sharding import (  # noqa: F401
     ShardLayout,

@@ -4,26 +4,35 @@ The JAX package lays a ``(data, model)`` mesh over devices (on the CPU,
 the virtual host devices that ``--xla_force_host_platform_device_count``
 makes). PyTorch has no virtual devices, and NCCL does not put two ranks on
 one card, so here a :class:`Mesh` is a ``(data, model)`` grid of *shards
-that all live on one device*: the serving device, ``cuda:0`` on the card
-or the CPU when the caller asks for it. A shard owns a slice of a leading
-shard axis — its drift window, its ledger sub-table, its segment of a
-staged bucket (``parallel/sharding``). The axis names are the JAX
-package's, so the serving mesh's shapes read the same in both.
+that live on one device per process*: the serving device, ``cuda:0`` on
+the card or the CPU when the caller asks for it. A shard owns a slice of a
+leading shard axis — its drift window, its ledger sub-table, its segment of
+a staged bucket or of a training set (``parallel/sharding``). The axis
+names are the JAX package's, so the meshes' shapes read the same in both.
+
+Several processes (:func:`initialize_distributed`, one per card or several
+sharing one) make one data axis of ``processes × data`` global shards:
+global shard ``rank·data + s`` is local shard ``s`` of rank ``rank``, as a
+JAX mesh over ``jax.devices()`` spans every process's devices. The
+collectives over that axis are :mod:`.collectives`.
 
 :func:`create_mesh` takes a device list that repeats one device; a list
-naming two distinct devices raises ``NotImplementedError`` (a shard a card
-waits for a machine with several cards, ROADMAP item 12b). Collectives and
-``initialize_distributed`` are item 12b too: a grid on one device needs
-none.
+naming two distinct devices raises ``NotImplementedError``: a process
+drives one device, and a card a process is :func:`initialize_distributed`.
 """
 
 from __future__ import annotations
 
+import logging
+import sys
 from dataclasses import dataclass
 
 import torch
 
+from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.device import resolve_device
+
+log = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -43,13 +52,18 @@ class MeshSpec:
 
 @dataclass(frozen=True)
 class Mesh:
-    """A ``(data, model)`` grid of shards on one device. ``shape`` maps the
-    axis names to their sizes, as a JAX mesh's does; ``size`` is the
-    flattened grid, the length of every shard axis."""
+    """A ``(data, model)`` grid of shards on one device, in each of
+    ``processes`` processes (this one is ``process``). ``shape`` maps the
+    axis names to their local sizes, ``size`` is the flattened local grid
+    (the length of every local shard axis); ``global_data`` counts the data
+    axis over every process, and this process's shards start at global
+    shard ``shard_offset``."""
 
     device: torch.device
     data: int
     model: int = 1
+    processes: int = 1
+    process: int = 0
 
     @property
     def shape(self) -> dict[str, int]:
@@ -58,6 +72,119 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.data * self.model
+
+    @property
+    def global_data(self) -> int:
+        return self.data * self.processes
+
+    @property
+    def shard_offset(self) -> int:
+        return self.process * self.data
+
+
+# ---------------------------------------------------------------------------
+# processes
+# ---------------------------------------------------------------------------
+
+_backend: str | None = None
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def initialized() -> bool:
+    """Whether a process group is up. A group needs ``torch.distributed``
+    imported, so a process that never imported it answers without paying
+    the import."""
+    if "torch.distributed" not in sys.modules:
+        return False
+    dist = _dist()
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_index() -> int:
+    """This process's rank (0 without a process group)."""
+    return _dist().get_rank() if initialized() else 0
+
+
+def process_count() -> int:
+    """Processes in the group (1 without one)."""
+    return _dist().get_world_size() if initialized() else 1
+
+
+def backend() -> str | None:
+    """The backend :func:`initialize_distributed` chose — ``"nccl"`` or
+    ``"gloo"`` — or ``None`` when no process group is up."""
+    if not initialized():
+        return None
+    return _backend or _dist().get_backend()
+
+
+def choose_backend(device: torch.device, local_world: int) -> str:
+    """The one rule for the collectives' backend: ``nccl`` when every rank
+    of this host has a card of its own (``device`` is CUDA and the host has
+    at least ``local_world`` cards), else ``gloo`` — on the CPU, or when
+    ranks share a card (NCCL refuses two ranks on one card), with the
+    partials moved through the host."""
+    if device.type == "cuda" and torch.cuda.device_count() >= local_world:
+        return "nccl"
+    return "gloo"
+
+
+def initialize_distributed() -> None:
+    """Join a ``torch.distributed`` process group when this process is one
+    rank of several; a no-op otherwise, and when the group is already up.
+
+    Reads PyTorch's launcher variables, as ``torchrun`` sets them
+    (:func:`config.distributed_env`): ``MASTER_ADDR``, ``MASTER_PORT``,
+    ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` — the
+    JAX package reads ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+    ``JAX_PROCESS_ID``. Without ``MASTER_ADDR`` nothing happens, as JAX's
+    does nothing without its coordinator's address. The backend follows
+    :func:`choose_backend` on the serving device (``DEVICE``); under
+    ``nccl`` rank ``LOCAL_RANK`` drives card ``LOCAL_RANK``. The choice is
+    logged and :func:`backend` returns it; a backend that fails to start
+    raises, and is never retried with the other one."""
+    global _backend, _default_meshes
+    env = config.distributed_env()
+    if env is None or initialized():
+        return
+    dist = _dist()
+    dev = resolve_device()
+    be = choose_backend(dev, env["local_world_size"])
+    if be == "nccl":
+        torch.cuda.set_device(env["local_rank"])
+    dist.init_process_group(
+        be, init_method=f"tcp://{env['master_addr']}:{env['master_port']}",
+        world_size=env["world_size"], rank=env["rank"],
+    )
+    _backend = be
+    _default_meshes = {}
+    log.info(
+        "torch.distributed initialized: process %d/%d, backend %s (%s), device %s",
+        dist.get_rank(), dist.get_world_size(), be,
+        "a card a rank" if be == "nccl" else
+        ("ranks share a card; partials through the host" if dev.type == "cuda"
+         else "CPU"),
+        resolve_device(),
+    )
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (a no-op without one)."""
+    global _backend, _default_meshes
+    if initialized():
+        _dist().destroy_process_group()
+    _backend = None
+    _default_meshes = {}
+
+
+# ---------------------------------------------------------------------------
+# meshes
+# ---------------------------------------------------------------------------
 
 
 def device_count(device: str | torch.device | None = None) -> int:
@@ -72,7 +199,8 @@ def create_mesh(spec: MeshSpec | None = None, devices=None) -> Mesh:
     entry the same device (default: the serving device, once a shard of
     ``spec``; ``spec`` None puts every given device on the data axis, as
     JAX does). ``spec.data == 0`` takes the data axis from the list's
-    length, as in JAX."""
+    length, as in JAX. Inside a process group the grid is this process's
+    part of one spanning every process (:attr:`Mesh.global_data`)."""
     if devices is None:
         n = spec.size if spec is not None and spec.data > 0 else 1
         devices = [resolve_device()] * n
@@ -83,8 +211,9 @@ def create_mesh(spec: MeshSpec | None = None, devices=None) -> Mesh:
     if len(distinct) > 1:
         raise NotImplementedError(
             f"a mesh over {len(distinct)} distinct devices ({sorted(map(str, distinct))}): "
-            "every shard of the port's mesh lives on one device; a shard a "
-            "card is ROADMAP item 12b"
+            "every shard of a process lives on one device; run one process a "
+            "card and join them with initialize_distributed() (MASTER_ADDR, "
+            "WORLD_SIZE, RANK, as torchrun sets them)"
         )
     n = len(devices)
     if spec is None:
@@ -93,16 +222,21 @@ def create_mesh(spec: MeshSpec | None = None, devices=None) -> Mesh:
         spec = MeshSpec(data=n // spec.model, model=spec.model)
     if spec.size != n:
         raise ValueError(f"mesh spec {spec} needs {spec.size} devices, have {n}")
-    return Mesh(resolve_device(devices[0]), spec.data, spec.model)
+    return Mesh(resolve_device(devices[0]), spec.data, spec.model,
+                processes=process_count(), process=process_index())
 
 
-_default_mesh: Mesh | None = None
+_default_meshes: dict = {}
 
 
-def default_mesh() -> Mesh:
-    """The process-wide default grid: one shard on the serving device, built
-    lazily so importing the package never touches the device."""
-    global _default_mesh
-    if _default_mesh is None:
-        _default_mesh = create_mesh()
-    return _default_mesh
+def default_mesh(device: str | torch.device | None = None) -> Mesh:
+    """The process-wide default grid: one shard a process on the serving
+    device (or ``device``), spanning every process of the group — the JAX
+    package's mesh over ``jax.devices()``. Built lazily, so importing the
+    package never touches the device."""
+    dev = resolve_device(device)
+    key = (str(dev), process_count(), process_index())
+    mesh = _default_meshes.get(key)
+    if mesh is None:
+        mesh = _default_meshes[key] = create_mesh(devices=[dev])
+    return mesh

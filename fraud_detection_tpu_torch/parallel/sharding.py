@@ -6,7 +6,10 @@ splits over the shards instead: :func:`batch_sharding` into ``mesh.size``
 equal row segments (segment ``s`` is shard ``s``'s rows, ``[s·b/N,
 (s+1)·b/N)``), :func:`replicated` not at all (every shard reads the whole
 tensor). :func:`pad_to_multiple` and :func:`shard_batch` resolve the even
-row count a split needs on the host first, as in JAX.
+row count a split needs on the host first, as in JAX. Inside a process
+group every process is given the same rows and keeps its own shards'
+segments (:func:`shard_batch`), as JAX's ``device_put`` of one global
+array onto a mesh spanning every process does.
 """
 
 from __future__ import annotations
@@ -66,11 +69,19 @@ def pad_to_multiple(x, multiple: int, axis: int = 0, value: float = 0.0):
 
 
 def shard_batch(x, mesh: Mesh | None = None, value: float = 0.0):
-    """Pad rows to a multiple of the grid's size and place them on the
-    mesh's device, split into its shards' segments (:func:`batch_sharding`).
-    Returns ``(tensor, n_valid)``."""
+    """Pad rows to a multiple of the grid's global size (every process's
+    shards) and place this process's part on the mesh's device, split into
+    its shards' segments (:func:`batch_sharding`): rows ``[o·b, (o +
+    mesh.size)·b)`` of the padded rows, ``b`` rows a shard and ``o`` =
+    ``mesh.shard_offset``. Returns ``(tensor, n_valid)``, ``n_valid`` the
+    global count of real rows."""
     mesh = mesh or default_mesh()
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    padded, n_valid = pad_to_multiple(x, mesh.size, axis=0, value=value)
-    return padded.to(mesh.device), n_valid
+    shards = mesh.size * mesh.processes
+    padded, n_valid = pad_to_multiple(x, shards, axis=0, value=value)
+    if mesh.processes > 1:
+        b = padded.shape[0] // shards
+        first = mesh.process * mesh.size * b
+        padded = padded[first:first + mesh.size * b]
+    return padded.to(mesh.device).contiguous(), n_valid

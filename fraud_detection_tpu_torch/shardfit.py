@@ -1,0 +1,166 @@
+"""Sharded fits from the command line, in one process or in each rank of a
+process group.
+
+    python -m fraud_detection_tpu_torch.shardfit --fit gbt --shards 8 \\
+        [--data data/creditcard.csv | --rows 31684 --seed 5] --out DIR
+    torchrun --nproc-per-node 2 -m fraud_detection_tpu_torch.shardfit \\
+        --fit gbt --fit mesh_sgd --shards 4 --rows 31684 --out DIR
+    MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 WORLD_SIZE=2 RANK=0 \\
+        python -m fraud_detection_tpu_torch.shardfit ...   # and RANK=1
+
+Each rank calls ``parallel.initialize_distributed()`` (a no-op without
+``MASTER_ADDR``), lays ``--shards`` data shards on the serving device
+(``DEVICE``, default ``cuda``) — ``WORLD_SIZE × --shards`` global shards —
+and runs each ``--fit`` over them, every rank on the same host rows (its
+own shards' segments kept, as JAX's ``shard_batch`` over a global mesh):
+
+- ``psum``: the collectives' probe — every local shard contributes
+  ``rank + 1``, and the ``psum`` over the data axis is printed (a 2 × 4
+  group gives 12.0); under a group, of any size, the backend's own
+  ``all_reduce`` is probed too;
+- ``scaler``: ``ops/scaler.scaler_fit_sharded``;
+- ``lbfgs`` / ``sgd``: ``ops/logistic`` on the scaled rows (``sharded=True``
+  / ``mesh=``; class weight ``balanced``);
+- ``gbt``: ``ops/gbt.gbt_fit(sharded=True)`` on the raw rows
+  (``--trees``, ``--depth``, ``--bins``; the recipe's by default);
+- ``mesh_sgd``: ``mesh/retrain.mesh_sgd_fit`` on the scaled rows.
+
+The rows are the CSV's (``--data``) or ``--rows`` Gaussian rows × 30 from
+``np.random.default_rng(--seed)`` with labels from a seeded linear model.
+Each rank writes ``DIR/rank<r>.npz`` (every fit's arrays, as
+``<fit>_<field>``) and prints one JSON line: rank, world, backend, device,
+shards, each fit's wall seconds (host clock, the device synchronised) and
+the kernel launches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from fraud_detection_tpu_torch.ops import kernels
+from fraud_detection_tpu_torch.parallel import collectives
+from fraud_detection_tpu_torch.parallel.mesh import (
+    MeshSpec,
+    backend,
+    create_mesh,
+    initialize_distributed,
+    process_index,
+    shutdown_distributed,
+)
+
+FITS = ("psum", "scaler", "lbfgs", "sgd", "gbt", "mesh_sgd")
+
+
+def synthetic_rows(rows: int, seed: int, d: int = 30) -> tuple[np.ndarray, np.ndarray]:
+    """``rows`` Gaussian rows × ``d`` and labels ``x·w > 1`` for a seeded
+    Gaussian ``w`` (the chip smoke's forest-fit shape)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, d), dtype=np.float32)
+    y = (x @ rng.standard_normal(d).astype(np.float32) > 1.0).astype(np.float32)
+    return x, y
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_fit(fit: str, x: np.ndarray, y: np.ndarray, mesh, args) -> dict[str, np.ndarray]:
+    """One ``--fit`` over ``mesh``: its parameters as host arrays."""
+    from fraud_detection_tpu_torch.mesh.retrain import mesh_sgd_fit
+    from fraud_detection_tpu_torch.ops.gbt import GBTConfig, gbt_fit
+    from fraud_detection_tpu_torch.ops.logistic import logistic_fit_lbfgs, logistic_fit_sgd
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit_sharded, scaler_transform
+
+    def host(t) -> np.ndarray:
+        return torch.as_tensor(t).detach().cpu().numpy()
+
+    if fit == "psum":
+        parts = torch.full((mesh.size,), float(process_index() + 1), device=mesh.device)
+        out = {"psum": host(collectives.psum(parts, mesh)),
+               "all_gather": host(collectives.all_gather(parts, mesh))}
+        if backend() is not None:  # the backend's own all_reduce, as a probe
+            import torch.distributed as dist
+
+            probe = torch.ones(1, device=mesh.device if backend() == "nccl" else "cpu")
+            dist.all_reduce(probe)
+            out["all_reduce"] = host(probe)
+        return out
+    if fit == "gbt":
+        cfg = GBTConfig(n_trees=args.trees, max_depth=args.depth, n_bins=args.bins)
+        m = gbt_fit(x, y, cfg, mesh=mesh, sharded=True)
+        return {k: host(getattr(m, k)) for k in ("split_feature", "split_bin", "leaf_value")}
+    scaler = scaler_fit_sharded(x, mesh)
+    if fit == "scaler":
+        return {k: host(getattr(scaler, k)) for k in ("mean", "scale", "var")}
+    xs = scaler_transform(scaler, torch.from_numpy(x).to(mesh.device))
+    if fit == "lbfgs":
+        p = logistic_fit_lbfgs(xs, y, max_iter=200, class_weight="balanced",
+                               mesh=mesh, sharded=True)
+    elif fit == "sgd":
+        p = logistic_fit_sgd(xs, y, epochs=8, batch_size=4096, lr=1.0,
+                             class_weight="balanced", mesh=mesh)
+    else:
+        p = mesh_sgd_fit(xs, y, epochs=8, batch_size=1024, lr=0.5,
+                         class_weight="balanced", mesh=mesh)
+    return {"coef": host(p.coef), "intercept": host(p.intercept)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--fit", action="append", choices=FITS, required=True)
+    ap.add_argument("--shards", type=int, default=1, help="data shards in this process")
+    ap.add_argument("--data", default=None, help="a creditcard-format CSV")
+    ap.add_argument("--rows", type=int, default=31684, help="synthetic rows without --data")
+    ap.add_argument("--seed", type=int, default=5)
+    ap.add_argument("--trees", type=int, default=100)
+    ap.add_argument("--depth", type=int, default=5)
+    ap.add_argument("--bins", type=int, default=256)
+    ap.add_argument("--out", required=True, help="directory for rank<r>.npz")
+    args = ap.parse_args(argv)
+    if args.shards < 1:
+        ap.error(f"--shards must be at least 1, got {args.shards}")
+
+    initialize_distributed()
+    try:
+        mesh = create_mesh(MeshSpec(data=args.shards))
+        if args.data:
+            from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+
+            x, y, _ = load_creditcard_csv(args.data)
+            x, y = np.asarray(x, np.float32), np.asarray(y, np.float32)
+        else:
+            x, y = synthetic_rows(args.rows, args.seed)
+        arrays, seconds = {}, {}
+        kernels.reset_launch_counts()
+        for fit in args.fit:
+            _sync(mesh.device)
+            t0 = time.perf_counter()
+            for k, v in run_fit(fit, x, y, mesh, args).items():
+                arrays[f"{fit}_{k}"] = v
+            _sync(mesh.device)
+            seconds[fit] = time.perf_counter() - t0
+        os.makedirs(args.out, exist_ok=True)
+        np.savez(os.path.join(args.out, f"rank{mesh.process}.npz"), **arrays)
+        print(json.dumps({
+            "rank": mesh.process, "world": mesh.processes, "backend": backend(),
+            "device": str(mesh.device), "shards": mesh.size,
+            "global_shards": mesh.global_data, "seconds": seconds,
+            "launches": kernels.launch_counts(),
+            "gbt_hist_split": kernels.gbt_hist_split_counts(),
+            "psum": arrays.get("psum_psum", np.zeros(())).tolist(),
+        }), flush=True)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

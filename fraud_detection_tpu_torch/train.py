@@ -30,8 +30,11 @@ given:
    cross table together (``mesh/retrain.wide_sgd_fit``, 20 epochs). The GBT
    family fits the
    XGBoost recipe (``GBTConfig``: 100 trees, depth 5, 256 bins, lr 0.1)
-   through the ``gbt_hist`` kernel, with ``scale_pos_weight`` = n_neg/n_pos
-   only without SMOTE (the two are alternative imbalance corrections);
+   through the ``gbt_hist`` kernel's split phase, with ``scale_pos_weight``
+   = n_neg/n_pos only without SMOTE (the two are alternative imbalance
+   corrections). Every fit is sharded over ``parallel.default_mesh()`` on
+   the device, as the JAX trainer's: one shard in one process (bitwise the
+   unsharded fit on the card), one shard a process in a group;
 5. the test AUC (the wide family's through its scorer on the widened test
    rows);
 6. the drift baseline in raw feature space from the test scores (over the
@@ -102,6 +105,7 @@ from fraud_detection_tpu_torch.ops.logistic import (
 from fraud_detection_tpu_torch.ops.metrics import auc_roc
 from fraud_detection_tpu_torch.ops.scaler import scaler_fit, scaler_transform
 from fraud_detection_tpu_torch.ops.smote import smote
+from fraud_detection_tpu_torch.parallel.mesh import default_mesh
 from fraud_detection_tpu_torch.tracking import TrackingClient
 
 log = logging.getLogger("fraud_detection_tpu_torch.train")
@@ -129,10 +133,13 @@ class _Stages:
 
 def _fit(x, y, *, seed: int, solver: str, class_weight, checkpointer=None,
          iters: list | None = None):
+    # sharded over the default mesh on x's device, as the JAX trainer fits
+    # over its: one shard (bitwise the unsharded fit), or one a process
+    mesh = default_mesh(x.device)
     if solver == "sgd" or (solver == "auto" and x.shape[0] > SGD_ROW_THRESHOLD):
         return logistic_fit_sgd(
             x, y, epochs=8, batch_size=65536, lr=1.0, seed=seed,
-            class_weight=class_weight,
+            class_weight=class_weight, mesh=mesh,
             epoch_callback=checkpointer.epoch_callback if checkpointer else None,
             resume=checkpointer.latest() if checkpointer else None,
         )
@@ -140,7 +147,8 @@ def _fit(x, y, *, seed: int, solver: str, class_weight, checkpointer=None,
     # applies to the SGD path only
     info: dict = {}
     params = logistic_fit_lbfgs(
-        x, y, max_iter=200, class_weight=class_weight, info=info
+        x, y, max_iter=200, class_weight=class_weight, info=info, mesh=mesh,
+        sharded=True,
     )
     if iters is not None:
         iters.append(info["n_iter"])
@@ -158,12 +166,7 @@ def _fit_gbt(x, y, *, gbt_config: GBTConfig | None, spw: float):
     cfg = gbt_config or GBTConfig()
     if cfg.scale_pos_weight == 1.0 and spw != 1.0:
         cfg = dataclasses.replace(cfg, scale_pos_weight=spw)
-    # The JAX trainer fits sharded over its mesh (gbt_fit(sharded=True),
-    # XLA histograms + psum); the port has one device, so this is the
-    # unsharded fit through the gbt_hist kernel. The sharded fit, with its
-    # histogram allreduce over this kernel's output, is ROADMAP queue 1,
-    # item 12b.
-    return gbt_fit(x, y, cfg), cfg
+    return gbt_fit(x, y, cfg, mesh=default_mesh(x.device), sharded=True), cfg
 
 
 def _rows(t: torch.Tensor, idx: np.ndarray) -> torch.Tensor:

@@ -1504,3 +1504,156 @@ def test_shard_axis_flush_on_the_card_is_the_shard_loop(n_shards, wire):
             assert a.tobytes() == b.tobytes()
     for a, b in zip(mons[0].shard_window.tensors(), mons[1].shard_window.tensors()):
         assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+# -- sharded training over the data axis (item 12b) --------------------------
+
+
+def _split_level_inputs(n_real: int, d: int, n_nodes: int, n_bins: int, n_shards: int,
+                        seed: int):
+    """A level as the sharded fit gives it: rows padded to the shard count
+    with bin 0, node 0, g = h = 0; every 7th real row inert."""
+    rng = np.random.default_rng(seed)
+    n_pad = -(-n_real // n_shards) * n_shards
+    bins = rng.integers(0, n_bins, (n_pad, d)).astype(np.uint8)
+    local = rng.integers(-1, n_nodes, n_pad).astype(np.int32)
+    p = 1.0 / (1.0 + np.exp(-rng.standard_normal(n_pad)))
+    g = (p - (rng.random(n_pad) < 0.5)).astype(np.float32)
+    h = (p * (1.0 - p)).astype(np.float32)
+    g[::7] = 0.0
+    h[::7] = 0.0
+    bins[n_real:], local[n_real:], g[n_real:], h[n_real:] = 0, 0, 0.0, 0.0
+    return bins, local, g, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("n, d, n_nodes, n_bins", [
+    (31684, 30, 16, 256), (31684, 30, 1, 256), (31684, 1, 1, 32), (1031, 30, 4, 16),
+])
+def test_gbt_hist_split_phase_is_bitwise_the_unsharded_kernel(n, d, n_nodes, n_bins, n_shards):
+    """The split phase over N shards — each shard's max pass, pmax, each
+    shard's accumulate in the quanta of the real row count, the int64 sum,
+    the finish — gives the unsharded launch's accumulator and histogram bit
+    for bit; each pass is bitwise its plain version; the launches count."""
+    from fraud_detection_tpu_torch.parallel.collectives import pmax, psum
+    from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    dev = _require_card()
+    host = _split_level_inputs(n, d, n_nodes, n_bins, n_shards, seed=n + d + n_shards)
+    bins, local, g, h = (torch.from_numpy(a).to(dev) for a in host)
+    whole, scratch = kernels._gbt_hist(bins[:n].contiguous(), local[:n].contiguous(),
+                                       g[:n].contiguous(), h[:n].contiguous(), n_nodes, n_bins)
+    cells = d * n_nodes * n_bins
+    whole_acc = scratch[:2 * cells].view(d, n_nodes, n_bins, 2)
+    mesh = create_mesh(MeshSpec(data=n_shards), devices=[dev] * n_shards)
+    rows = bins.shape[0] // n_shards
+    segs = [slice(s * rows, (s + 1) * rows) for s in range(n_shards)]
+    kernels.reset_launch_counts()
+    parts = torch.stack([kernels.gbt_hist_max(local[r], g[r], h[r], n_nodes) for r in segs])
+    for r, bits in zip(segs, parts):
+        want = kernels.gbt_hist_max_reference(local[r].cpu(), g[r].cpu(), h[r].cpu(), n_nodes)
+        assert torch.equal(bits.cpu(), want)
+    max_bits = pmax(parts, mesh)
+    acc = torch.zeros((n_shards, d, n_nodes, n_bins, 2), dtype=torch.int64, device=dev)
+    quanta = torch.empty(2, dtype=torch.float64, device=dev)
+    for s, r in enumerate(segs):
+        kernels.gbt_hist_accumulate(bins[r], local[r], g[r], h[r], n_nodes, n_bins,
+                                    max_bits, n, acc[s], quanta)
+    total = psum(acc, mesh)
+    out = kernels.gbt_hist_finish(total, quanta)
+    torch.cuda.synchronize()
+    assert kernels.gbt_hist_split_counts() == {"max": n_shards, "accumulate": n_shards,
+                                               "finish": 1}
+    assert kernels.GBT_HIST_LAUNCHES == n_shards
+    assert torch.equal(total, whole_acc) and torch.equal(out, whole)
+    q = kernels.gbt_hist_quanta_from_bits(n, max_bits)
+    assert tuple(quanta.cpu().tolist()) == q
+    for s, r in enumerate(segs):
+        plain, _ = kernels.gbt_hist_fixed_point_reference(
+            bins[r].cpu(), local[r].cpu(), g[r].cpu(), h[r].cpu(), n_nodes, n_bins,
+            quanta=q, accumulator=True)
+        assert torch.equal(acc[s].cpu(), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_sharded_gbt_fit_on_the_card_is_bitwise_the_unsharded_fit(n_shards):
+    """Any shard count grows the unsharded card forest bit for bit (5,003
+    rows: every N above 1 pads); one accumulate a shard, a level and a
+    tree's leaf sums, one finish a histogram."""
+    from fraud_detection_tpu_torch.ops import gbt
+    from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    dev = _require_card()
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((5003, 30)).astype(np.float32)
+    y = (x @ rng.standard_normal(30).astype(np.float32) > 1.0).astype(np.int32)
+    cfg = gbt.GBTConfig(n_trees=8, max_depth=4, n_bins=64, scale_pos_weight=2.0)
+    plain = gbt.gbt_fit(torch.from_numpy(x).to(dev), y, cfg)
+    kernels.reset_launch_counts()
+    mesh = create_mesh(MeshSpec(data=n_shards), devices=[dev] * n_shards)
+    sharded = gbt.gbt_fit(x, y, cfg, mesh=mesh, sharded=True)
+    hists = cfg.n_trees * (cfg.max_depth + 1)
+    assert kernels.GBT_HIST_LAUNCHES == n_shards * hists
+    assert kernels.gbt_hist_split_counts() == {
+        "max": n_shards * hists, "accumulate": n_shards * hists, "finish": hists}
+    for a, b in zip(plain, sharded):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_sharded_logistic_fits_on_the_card():
+    """The sharded L-BFGS over one shard is bitwise the unsharded card fit
+    and over 8 within JAX's sharded tolerance (rtol 5e-3, atol 5e-4) of the
+    CPU's 8-shard fit; ``mesh_sgd_fit`` at N = 1, 4, 8 within 1e-4 of the
+    CPU at the same N (the card's and the CPU's float32 sums differ)."""
+    from fraud_detection_tpu_torch.mesh.retrain import mesh_sgd_fit
+    from fraud_detection_tpu_torch.ops.logistic import logistic_fit_lbfgs
+    from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    dev = _require_card()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4003, 30)).astype(np.float32)
+    y = (rng.random(4003) < 1 / (1 + np.exp(-(x @ rng.standard_normal(30) - 2.0)))).astype(np.int32)
+    xd = torch.from_numpy(x).to(dev)
+
+    def mesh(n, where):
+        return create_mesh(MeshSpec(data=n), devices=[where] * n)
+
+    plain = logistic_fit_lbfgs(xd, y, max_iter=200, class_weight="balanced")
+    one = logistic_fit_lbfgs(xd, y, max_iter=200, class_weight="balanced",
+                             mesh=mesh(1, dev), sharded=True)
+    assert torch.equal(plain.coef, one.coef) and torch.equal(plain.intercept, one.intercept)
+    card8 = logistic_fit_lbfgs(xd, y, max_iter=200, class_weight="balanced",
+                               mesh=mesh(8, dev), sharded=True)
+    cpu8 = logistic_fit_lbfgs(x, y, max_iter=200, class_weight="balanced",
+                              mesh=mesh(8, "cpu"), sharded=True)
+    np.testing.assert_allclose(card8.coef.cpu().numpy(), cpu8.coef.numpy(),
+                               rtol=5e-3, atol=5e-4)
+    for n in (1, 4, 8):
+        card = mesh_sgd_fit(xd, y, epochs=4, batch_size=256, lr=0.5, mesh=mesh(n, dev))
+        cpu = mesh_sgd_fit(x, y, epochs=4, batch_size=256, lr=0.5, mesh=mesh(n, "cpu"))
+        assert card.coef.device.type == "cuda"
+        np.testing.assert_allclose(card.coef.cpu().numpy(), cpu.coef.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_phase_wrappers_raise_on_what_the_kernel_does_not_take():
+    dev = _require_card()
+    bins = torch.zeros((64, 3), dtype=torch.uint8, device=dev)
+    local = torch.zeros(64, dtype=torch.int32, device=dev)
+    g = torch.zeros(64, device=dev)
+    acc = torch.zeros((3, 2, 16, 2), dtype=torch.int64, device=dev)
+    q = torch.empty(2, dtype=torch.float64, device=dev)
+    bits = kernels.gbt_hist_max(local, g, g, 2)
+    with pytest.raises(TypeError, match="uint8"):
+        kernels.gbt_hist_accumulate(bins.int(), local, g, g, 2, 16, bits, 64, acc, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gbt_hist_max(local[::2], g[::2], g[::2], 2)
+    with pytest.raises(ValueError, match="on cpu"):
+        kernels.gbt_hist_accumulate(bins, local, g, g, 2, 16, bits.cpu(), 64, acc, q)
+    with pytest.raises(ValueError, match="kernel takes"):
+        kernels.gbt_hist_accumulate(bins, local, g, g, 2, 300,
+                                    bits, 64, torch.zeros((3, 2, 300, 2), dtype=torch.int64,
+                                                          device=dev), q)

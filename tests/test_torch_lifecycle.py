@@ -556,15 +556,57 @@ def test_pool_stats_equal_jax():
 
 
 def test_mesh_retrain_raises_naming_item_12(env, monkeypatch):
+    """``MESH_RETRAIN=1`` (once a ``NotImplementedError`` naming item 12b,
+    now ported) routes the retrain's fit through ``mesh_sgd_fit`` with the
+    champion's warm start, in both packages: on one data shard each (JAX's
+    default mesh pinned to one device), the challenger's coefficients agree
+    within ``COEF_ATOL``, its holdout AUC within ``AUC_ATOL``, with the same
+    verdict; the port's challenger is bitwise ``mesh_sgd_fit`` on the
+    retrain's own fit rows; and the conductor's episode gates, never a
+    failure."""
+    import jax
+
+    import fraud_detection_tpu.mesh.retrain as jmr
+    import fraud_detection_tpu_torch.mesh.retrain as tmr
+    from fraud_detection_tpu.parallel.mesh import create_mesh as jax_create_mesh
+
     monkeypatch.setenv("MESH_RETRAIN", "1")
+    one = jax_create_mesh(devices=jax.devices()[:1])
+    monkeypatch.setattr(jmr, "default_mesh", lambda: one)
+    calls = []
+    real = tmr.mesh_sgd_fit
+
+    def spy(*a, **k):
+        calls.append(k)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tmr, "mesh_sgd_fit", spy)
+    _feed([env["jax"].store, env["torch"].store], env["rng"], n=512)
     e = env["torch"]
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        run_retrain(e.store, e.champion, e.v1, data_csv=env["csv"], device="cpu",
-                    tracking_client=e.client)
-    # through the conductor the episode fails with that reason, never a
-    # quiet single-device fit
+    got = run_retrain(e.store, e.champion, e.v1, data_csv=env["csv"], max_iter=100,
+                      use_smote=False, tracking_client=e.client, device="cpu",
+                      thresholds=_loose(tlc), keep_fit_rows=True)
+    j = env["jax"]
+    want = jax_run_retrain(j.store, j.champion, j.v1, data_csv=env["csv"], max_iter=100,
+                           use_smote=False, tracking_client=j.client,
+                           thresholds=_loose(jlc))
+    assert len(calls) == 1 and calls[0]["epochs"] == 5
+    assert calls[0]["mesh"].global_data == 1 and calls[0]["warm_start"] is not None
+    np.testing.assert_allclose(got.challenger.params.coef.numpy(),
+                               np.asarray(want.challenger.params.coef), rtol=0, atol=COEF_ATOL)
+    assert got.gate.metrics["holdout_challenger_auc"] == pytest.approx(
+        want.gate.metrics["holdout_challenger_auc"], abs=AUC_ATOL)
+    assert got.gate.passed == want.gate.passed
+    # the challenger is mesh_sgd_fit's, bit for bit, on the (scaled) fit rows
+    ws = warm_start_from(e.champion, got.challenger.scaler)
+    again = real(torch.from_numpy(got.fit_rows[0]), got.fit_rows[1], epochs=5,
+                 warm_start=ws, mesh=calls[0]["mesh"])
+    assert torch.equal(again.coef, got.challenger.params.coef)
+    assert torch.equal(again.intercept, got.challenger.params.intercept)
+    # through the conductor the episode runs the sharded update and gates
     out = e.conductor.handle_retrain("mesh retrain asked")
-    assert out["outcome"] == "failed" and "item 12b" in out["error"]
+    assert out["outcome"] in ("gated", "gate_failed"), out
+    assert len(calls) == 2
 
 
 def _ledger_specs():

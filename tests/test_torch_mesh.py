@@ -228,9 +228,10 @@ def test_serving_mesh_shapes_and_refusals(monkeypatch):
     assert serving_mesh_model_size() == 1
     monkeypatch.setenv("MESH_FLUSH_DEVICES", "6")
     assert _mesh(None).size == 4
-    # one device repeated is a grid; two distinct devices are item 12b
+    # one device repeated is a grid; two distinct devices are a process a
+    # card, joined by initialize_distributed
     assert create_mesh(MeshSpec(data=0), devices=["cpu"] * 4).shape["data"] == 4
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(NotImplementedError, match="initialize_distributed"):
         create_mesh(devices=["cpu", "meta"])
     with pytest.raises(ValueError):
         create_mesh(MeshSpec(data=3), devices=["cpu"] * 4)
