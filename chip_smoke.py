@@ -113,7 +113,8 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    and on the CPU over the committed CSV: ``gbt_hist`` launches exactly
    3,600 times (6 fits × 100 trees × 6) and ``knn_topk`` 6 times; card −
    CPU test AUC and CV mean within 5e-3 (a near-tie split may go the other
-   way), the same gate verdict; stage times.
+   way), the same gate verdict; stage times. The card's fits run over the
+   one-shard default mesh: the whole launch a level, no split phase.
 6. **the GBT served path** — the card-trained registered artifact served
    over HTTP from phase 5's registry (the loader's source is checked:
    ``registry:models:/fraud@prod``) with ``SCORER_EXPLAIN=topk`` (256 concurrent and 64 sequential
@@ -430,8 +431,9 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    trees, depth 5, 256 bins) at phase 5's final-fit shape (31,684 × 30
    seeded Gaussian rows), unsharded and over one shard three times each in
    turns, then ``gbt_fit(sharded=True)`` at N = 1, 2, 4, 8: each forest
-   bitwise the unsharded card forest, launches gated (N × 600 max and
-   accumulate, 600 finishes), wall times printed.
+   bitwise the unsharded card forest, launches gated (above one shard N ×
+   600 max and accumulate, 600 finishes; one shard in one process runs
+   the whole launch a level: 600, no split phase), wall times printed.
    ``train()`` on the committed CSV through the sharded L-BFGS on the card
    and the CPU (AUC within 2e-3, ``knn_topk`` 6); the sharded L-BFGS at
    N = 1 bitwise the unsharded card fit, at N = 8 within rtol 5e-3, atol
@@ -444,6 +446,23 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ranks sharing the card under ``gloo`` with 4 shards each: the ``psum``
    of every shard's ``rank + 1`` is 12, and both ranks' forests are the
    in-process 8-shard forest bit for bit.
+19. **the model axis** — ``train --wide`` on the card with
+   ``MESH_MODEL_DEVICES=2`` (16,384 buckets over a 1×2 grid): bitwise
+   phase 12's 1×1 fit. The 2-D wide flush at 2×2, 4×2 and 2×4 on the f32
+   and int8 wires, top-3, buckets 8 and 1024: bitwise the card's 1×1
+   flush and the per-data-shard loop, ``fused_score`` once a flush (the
+   count zeroed before it), windows the loop's, the model-rank > 0 windows
+   zero, the merge the single window. A 1024-row wide flush at 1×1, 2×2,
+   4×2, 2×4 in turns (host clock, CUDA events; the profiler's launches).
+   The 2-D ``wide_sgd_fit`` on ``train --wide``'s inputs at (1, 1), (1,
+   2), (2, 2), (2, 4): walls, bitwise across the model axis at D = 1 and
+   2, the 2×2 fit twice bitwise and within 1e-4 of the CPU's. Child apps
+   at ``MESH_FLUSH_DEVICES=2 MESH_MODEL_DEVICES=2`` on the f32 and int8
+   wires: 96 ``/predict`` (four in five with an entity) bitwise an
+   in-process 1×1 flush, ``wide_model_shards`` 2. ``train()`` of both
+   families as it fits (one shard) and unsharded, in turns
+   (``train_turns``): the models bitwise equal, the four GBT runs 3,600
+   whole ``gbt_hist`` launches each and no split phase.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -1876,7 +1895,7 @@ def gbt_trained_path(work: Path) -> tuple[dict, str, str]:
         metrics = train(data_csv=csv, out_dir=str(base / "models"), device=dev,
                         model_family="gbt")
         if dev == "cuda":
-            launches = kernels.launch_counts()
+            launches, split = kernels.launch_counts(), kernels.gbt_hist_split_counts()
         wall = time.perf_counter() - t0
         runs[dev] = (metrics, base)
         print(f"phase5: train --model gbt on {dev}: test AUC {metrics['test_auc']:.6f}, "
@@ -1890,7 +1909,10 @@ def gbt_trained_path(work: Path) -> tuple[dict, str, str]:
     if launches["gbt_hist"] != GBT_HIST_LAUNCHES_PER_RUN or launches["knn_topk"] != KNN_LAUNCHES_PER_RUN:
         raise AssertionError(f"GBT trained path launched {launches}, not gbt_hist "
                              f"{GBT_HIST_LAUNCHES_PER_RUN} and knn_topk {KNN_LAUNCHES_PER_RUN}")
-    print(f"phase5: kernel launches on the GBT trained path {launches}")
+    if any(split.values()):
+        raise AssertionError(f"the one-shard GBT train() ran gbt_hist's split phase: {split}")
+    print(f"phase5: kernel launches on the GBT trained path {launches}; split phase {split} "
+          "(one shard: the whole launch a level)")
     (card, card_base), (cpu, _) = runs["cuda"], runs["cpu"]
     gaps = {k: card[k] - cpu[k] for k in ("test_auc", "cv_auc_mean")}
     for key, gap in gaps.items():
@@ -7640,7 +7662,8 @@ def sharded_forests(card: str) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    # the split phase at one shard against the unsharded launch, in turns
+    # one shard (the whole launch a level since the one-shard repair) against
+    # the unsharded fit, in turns
     turns = {"unsharded": [], "N=1": []}
     for name in ("unsharded", "N=1", "N=1", "unsharded", "unsharded", "N=1"):
         m, wall = timed((lambda: gbt_fit(xd, y, cfg)) if name == "unsharded"
@@ -7652,7 +7675,7 @@ def sharded_forests(card: str) -> dict:
     auc = float(auc_roc(gbt_predict_proba(ref, xd), torch.from_numpy(y).to(dev)))
     print(f"phase18: the recipe fit at {P18_ROWS} x 30 on the card, in turns (host clock, "
           f"device synchronised): unsharded {', '.join(f'{t:.3f}' for t in turns['unsharded'])} s, "
-          f"sharded over one shard (the split phase) {', '.join(f'{t:.3f}' for t in turns['N=1'])} "
+          f"sharded over one shard {', '.join(f'{t:.3f}' for t in turns['N=1'])} "
           f"s; medians {ref_wall:.3f} / {sorted(turns['N=1'])[1]:.3f} s; training AUC {auc:.6f}")
     if not auc > 0.9:
         raise AssertionError(f"phase18: the unsharded forest's training AUC is {auc}")
@@ -7666,8 +7689,10 @@ def sharded_forests(card: str) -> dict:
         torch.cuda.synchronize()
         walls[n_shards] = time.perf_counter() - t0
         launches, split = kernels.launch_counts(), kernels.gbt_hist_split_counts()
-        want = {"max": n_shards * P18_HISTS_PER_FIT, "accumulate": n_shards * P18_HISTS_PER_FIT,
-                "finish": P18_HISTS_PER_FIT}
+        # one shard in one process runs the whole launch a level
+        want = ({"max": 0, "accumulate": 0, "finish": 0} if n_shards == 1 else
+                {"max": n_shards * P18_HISTS_PER_FIT,
+                 "accumulate": n_shards * P18_HISTS_PER_FIT, "finish": P18_HISTS_PER_FIT})
         same = all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
                    for a, b in zip(ref, m))
         print(f"phase18: gbt_fit(sharded=True) over N={n_shards} shards: {walls[n_shards]:.3f} s "
@@ -7922,6 +7947,378 @@ def sharded_training_phase(work: Path, card: str) -> dict:
             "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the model axis on the card
+# ---------------------------------------------------------------------------
+
+P19_GRIDS = ((2, 2), (4, 2), (2, 4))  # 2-D flushes held against the card's 1×1 flush
+P19_TIMED_GRIDS = ((1, 1), (2, 2), (4, 2), (2, 4))  # the 1024-row flush, in turns
+P19_FIT_GRIDS = ((1, 1), (1, 2), (2, 2), (2, 4))  # the 2-D fit's wall
+P19_TURNS = 20  # 1024-row explain flushes a grid, the grids in turns
+P19_PREDICTS = 96  # /predict to each child (f32, int8 wire), from P19_CLIENTS threads
+P19_CLIENTS = 8
+P19_FIT_ATOL = 1e-4  # card vs CPU 2-D fit: float32 sums in other orders
+
+
+def p19_items(rows, tag: str):
+    """The batcher's items for ``rows``: a fifth entity-less, the rest over
+    37 entities."""
+    from fraud_detection_tpu_torch.ledger import entity_fingerprint
+
+    return [(rows[i], None, None,
+             None if i % 5 == 0 else (0, entity_fingerprint(f"{tag}{i % 37}"), 0.0))
+            for i in range(len(rows))]
+
+
+def model_axis_train(work: Path, m1_dir: Path) -> Path:
+    """Phase 19a: ``train --wide`` on the card with ``MESH_MODEL_DEVICES=2``
+    (the default 16,384 buckets over a 1×2 grid): the coef, intercept and
+    table bitwise phase 12's card fit at a model axis of 1."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.ops.crosses import load_wide
+    from fraud_detection_tpu_torch.train import train
+
+    out = work / "model_axis" / "models"
+    os.environ.update(MESH_MODEL_DEVICES="2",
+                      MLFLOW_TRACKING_URI=f"file:{work / 'model_axis' / 'mlruns'}")
+    try:
+        t0 = time.perf_counter()
+        m = train(data_csv=str(ROOT / "data" / "creditcard.csv"), out_dir=str(out),
+                  device="cuda", wide=True, register=False)
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MESH_MODEL_DEVICES", None)
+    spec, table = load_wide(str(out))
+    same = [np.load(out / f)[k].tobytes() == np.load(m1_dir / f)[k].tobytes()
+            for f, k in (("model.npz", "coef"), ("model.npz", "intercept"),
+                         ("wide_params.npz", "table"))]
+    print(f"phase19: train --wide on the card with MESH_MODEL_DEVICES=2 ({spec.buckets} buckets "
+          f"over 2 model shards): test AUC {m['test_auc']:.6f}, {wall:.3f} s wall, final fit "
+          f"{m['stages']['final_fit']:.3f} s; coef, intercept, table bitwise phase 12's 1x1 "
+          f"card fit {same}")
+    if spec.buckets != 1 << 14 or not all(same):
+        raise AssertionError(f"phase19: the 1x2 fit differs from the 1x1 fit: {same}")
+    return out
+
+
+def model_axis_flushes(model_dir: Path, x) -> dict:
+    """Phase 19b: the 2-D wide flush at 2×2, 4×2 and 2×4 on the f32 and
+    int8 wires, explain on, buckets 8 and 1024 (a fifth of the rows
+    entity-less): scores, reason indices and values bitwise the card's 1×1
+    flush and the per-data-shard loop; ``fused_score`` once a 2-D flush
+    (the count zeroed just before it); the per-shard windows the loop's,
+    the model-rank ≠ 0 windows zero, the merge the single window."""
+    import torch
+
+    from fraud_detection_tpu_torch.mesh.shardflush import (
+        MeshDriftMonitor,
+        ShardLoopMonitor,
+        merge_window,
+    )
+    from fraud_detection_tpu_torch.mesh.topology import serving_mesh
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+    from fraud_detection_tpu_torch.ops import kernels
+
+    dev, inf = torch.device("cuda"), float("inf")
+    profile = load_profile(str(model_dir))
+    launches, flushes = 0, 0
+    for wire in ("float32", "int8"):
+        os.environ["SCORER_WIRE"] = wire
+        scorer = load_any_model(str(model_dir), device="cuda").scorer
+        for d, m in P19_GRIDS:
+            mesh = serving_mesh(d, devices=[dev], model_devices=m)
+            mon, loop = (cls(profile, mesh, halflife_rows=inf)
+                         for cls in (MeshDriftMonitor, ShardLoopMonitor))
+            one = DriftMonitor(profile, halflife_rows=inf, device=dev)
+            for n in MESH_ROWS:
+                tag = f"phase19 {wire} {d}x{m} n={n}"
+                rows = x[(d * 97 + m * 31) % 512:][:n]
+                items = p19_items(rows, f"m{d}{m}")
+                kernels.reset_launch_counts()
+                got, _ = mesh_flush(mon, scorer, rows, 3, items)
+                count = kernels.launch_counts()["fused_score"]
+                if count != 1:
+                    raise AssertionError(f"{tag}: the 2-D flush launched fused_score {count}")
+                launches += count
+                flushes += 1
+                mesh_same(f"{tag} vs the 1x1 flush", got, mesh_flush(one, scorer, rows, 3, items)[0])
+                mesh_same(f"{tag} vs the per-data-shard loop", got,
+                          mesh_flush(loop, scorer, rows, 3, items)[0])
+            mesh_same(f"phase19 {wire} {d}x{m}: windows vs the loop", mesh_windows(mon),
+                      mesh_windows(loop))
+            if mon.shard_window.n_rows.view(d, m)[:, 1:].any():
+                raise AssertionError(f"phase19 {wire} {d}x{m}: a model-rank > 0 window folded")
+            mesh_same(f"phase19 {wire} {d}x{m}: merged windows vs the single one",
+                      [t.cpu().numpy() for t in merge_window(mon.shard_window).tensors()],
+                      [t.cpu().numpy() for t in one.window.tensors()])
+    os.environ.pop("SCORER_WIRE", None)
+    print(f"phase19: the 2-D wide flush at {list(P19_GRIDS)} on the f32 and int8 wires, top-3, "
+          f"buckets 8 and 1024 (a fifth of the rows entity-less): scores and reason codes bitwise "
+          f"the card's 1x1 flush and the per-data-shard loop, windows bitwise the loop's and "
+          f"merged the single window, model-rank > 0 windows zero; fused_score once a flush "
+          f"({launches} launches, {flushes} flushes, the count zeroed before each)")
+    return {"fused_score": launches, "flushes": flushes}
+
+
+def model_axis_timing(model_dir: Path, x, card: str) -> dict:
+    """Phase 19c: a 1024-row wide explain flush (f32 wire) at 1×1, 2×2, 4×2
+    and 2×4, in turns: host time (the flush and its fetch) and CUDA-event
+    device time (the first to the last of its device work); one flush a
+    grid under the profiler for its launches (attribution only)."""
+    import torch
+
+    from fraud_detection_tpu_torch.mesh.shardflush import MeshDriftMonitor
+    from fraud_detection_tpu_torch.mesh.topology import serving_mesh
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+
+    dev = torch.device("cuda")
+    profile = load_profile(str(model_dir))
+    scorer = load_any_model(str(model_dir), device="cuda").scorer
+    rows = x[:1024]
+    items = p19_items(rows, "t")
+    mons = {}
+    for d, m in P19_TIMED_GRIDS:
+        mons[f"{d}x{m}"] = (DriftMonitor(profile, device=dev) if (d, m) == (1, 1) else
+                            MeshDriftMonitor(profile, serving_mesh(d, devices=[dev],
+                                                                   model_devices=m)))
+    host = {k: [] for k in mons}
+    device = {k: [] for k in mons}
+    for k, mon in mons.items():  # warm
+        mesh_flush(mon, scorer, rows, 3, items)
+    order = list(mons)
+    for r in range(P19_TURNS):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            mesh_flush(mons[k], scorer, rows, 3, items)
+            end.record()
+            host[k].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            device[k].append(start.elapsed_time(end))
+    # the profiler misses part of some captures: two a grid, in turns
+    seen = {k: [] for k in mons}
+    for r in range(2):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            ivs = profiled_intervals(lambda mon=mons[k]: mesh_flush(mon, scorer, rows, 3, items))
+            copies = sum(1 for name, _, _ in ivs if "Memcpy" in name or "Memset" in name)
+            seen[k].append((len(ivs) - copies, copies, union_us([(a, b) for _, a, b in ivs])))
+    out = {}
+    for k in mons:
+        h, dv = sorted(host[k]), sorted(device[k])
+        out[k] = {"host_ms_p50": h[len(h) // 2], "host_ms": [h[0], h[-1]],
+                  "device_ms_p50": dv[len(dv) // 2], "device_ms": [dv[0], dv[-1]],
+                  "launches": [c[0] for c in seen[k]], "copies": [c[1] for c in seen[k]],
+                  "busy_us": [c[2] for c in seen[k]]}
+        print(f"phase19 timing {k}: a 1024-row wide explain flush, {P19_TURNS} in turns: host "
+              f"p50 {out[k]['host_ms_p50']:.3f} ms (min {h[0]:.3f}, max {h[-1]:.3f}); CUDA "
+              f"events p50 {out[k]['device_ms_p50']:.3f} ms (min {dv[0]:.3f}, max {dv[-1]:.3f}); "
+              f"two profiled flushes: {out[k]['launches']} launches + {out[k]['copies']} copies, "
+              f"busy {', '.join(f'{b:.3f}' for b in out[k]['busy_us'])} us ({card})")
+    return out
+
+
+def model_axis_fits(card: str) -> dict:
+    """Phase 19d: the 2-D ``wide_sgd_fit`` on ``train --wide``'s inputs (the
+    committed CSV's training split, the default 16,384 buckets, 20 epochs)
+    at (D, M) = (1, 1), (1, 2), (2, 2), (2, 4) on the card: the wall of
+    each; bitwise across the model axis at D = 1 and at D = 2; the 2×2 fit
+    twice bitwise and within P19_FIT_ATOL of the CPU's."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch import config
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv, stratified_split
+    from fraud_detection_tpu_torch.ledger import synthesize_entities
+    from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
+    from fraud_detection_tpu_torch.ops.crosses import (
+        _raw_cross_indices,
+        entity_fingerprints,
+        spec_from_config,
+    )
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit, scaler_transform
+    from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, global_mesh
+
+    x, y, names = load_creditcard_csv(str(ROOT / "data" / "creditcard.csv"))
+    tr, _ = stratified_split(y, 0.2, 42)
+    spec = spec_from_config(x.shape[1])
+    ents, _ = synthesize_entities(x, names, 42, config.ledger_synth_events_per_entity())
+    fps = entity_fingerprints(ents, x.shape[0])
+
+    def inputs(dev):
+        xt = torch.as_tensor(x[tr], device=dev)
+        fp = torch.as_tensor(fps[tr].astype(np.int64), device=dev)
+        return (scaler_transform(scaler_fit(xt), xt), _raw_cross_indices(xt, fp, spec=spec),
+                (fp != 0).to(torch.float32))
+
+    def fit(d, m, dev, args):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, t = wide_sgd_fit(*args, y[tr], spec, epochs=20, seed=42, class_weight="balanced",
+                            mesh=global_mesh(MeshSpec(d, m), dev))
+        out = [a.cpu().numpy() for a in (p.coef, p.intercept, t)]
+        return out, time.perf_counter() - t0
+
+    card = torch.device("cuda")
+    args = inputs(card)
+    fit(1, 1, card, args)  # warm: the first fit's allocations and launches
+    fits, walls = {}, {f"{d}x{m}": [] for d, m in P19_FIT_GRIDS}
+    for r in range(2):  # the grids in turns
+        for d, m in (P19_FIT_GRIDS if r == 0 else P19_FIT_GRIDS[::-1]):
+            fits[d, m], wall = fit(d, m, card, args)
+            walls[f"{d}x{m}"].append(wall)
+    again, _ = fit(2, 2, card, args)
+    cpu, cpu_wall = fit(2, 2, torch.device("cpu"), inputs(torch.device("cpu")))
+    checks = {"1x2 = 1x1": (fits[1, 2], fits[1, 1]), "2x4 = 2x2": (fits[2, 4], fits[2, 2]),
+              "2x2 twice": (again, fits[2, 2])}
+    for name, (a, b) in checks.items():
+        mesh_same(f"phase19 fit {name}", a, b)
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(fits[2, 2], cpu))
+    print(f"phase19: the 2-D wide fit ({len(tr)} rows, 20 epochs, {spec.buckets} buckets) on the "
+          f"card after a warm fit, in turns (host clock, synchronised) "
+          + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} s" for k, v in walls.items())
+          + f"; bitwise {list(checks)}; the 2x2 fit card - cpu max gap {gap:.3e} (within "
+          f"{P19_FIT_ATOL}; the CPU's {cpu_wall:.3f} s) ({card})")
+    if not gap <= P19_FIT_ATOL:
+        raise AssertionError(f"phase19: the 2x2 fit card - cpu gap {gap:.3e}")
+    return {"walls_s": walls, "cpu_gap": gap}
+
+
+def model_axis_children(work: Path, procs: dict, model_dir: Path, x) -> dict:
+    """Phase 19e: the child apps at ``MESH_FLUSH_DEVICES=2
+    MESH_MODEL_DEVICES=2`` serving the 1×2-trained wide directory on the
+    f32 and int8 wires: every ``/predict`` (four in five with an entity,
+    from P19_CLIENTS threads) answers 200 with the score and reason codes
+    of an in-process 1×1 flush of the same rows, bit for bit;
+    ``scorer_wide_fused`` 1, ``wide_model_shards`` 2, an occupancy series
+    a model shard."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.ledger import entity_fingerprint
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.monitor.baseline import load_profile
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+
+    rows = x[1024:1024 + P19_PREDICTS]
+    eids = [None if i % 5 == 0 else f"p19-{i % 23}" for i in range(len(rows))]
+    items = [(r, None, None, None if e is None else (0, entity_fingerprint(e), 0.0))
+             for r, e in zip(rows, eids)]
+    out = {}
+    for wire, (proc, port) in procs.items():
+        tag = f"phase19 child {wire}"
+        lb_wait(port, tag, "/health", lambda st, _: st == 200, proc=proc)
+        os.environ["SCORER_WIRE"] = wire
+        scorer = load_any_model(str(model_dir), device="cuda").scorer
+        os.environ.pop("SCORER_WIRE", None)
+        ref, _ = mesh_flush(DriftMonitor(load_profile(str(model_dir)), device=torch.device("cuda")),
+                            scorer, rows, 3, items)
+
+        def one(i, port=port):
+            body = {"features": rows[i].tolist()}
+            if eids[i] is not None:
+                body["entity_id"] = eids[i]
+            st, raw = tel_call(port, "POST", "/predict", body)
+            return st, json.loads(raw)
+
+        with ThreadPoolExecutor(max_workers=P19_CLIENTS) as pool:
+            answers = list(pool.map(one, range(len(rows))))
+        if any(st != 200 for st, _ in answers):
+            raise AssertionError(f"{tag}: /predict answers {[st for st, _ in answers][:10]}")
+        got = np.asarray([b["score"] for _, b in answers], np.float32)
+        names = load_any_model(str(model_dir), device="cuda").feature_names
+        same_codes = all(
+            [names.index(r["feature"]) for r in b["reason_codes"]] == ref[1][i].tolist()
+            and np.asarray([r["attribution"] for r in b["reason_codes"]], np.float32).tobytes()
+            == ref[2][i].astype(np.float32).tobytes()
+            for i, (_, b) in enumerate(answers))
+        if got.tobytes() != ref[0].astype(np.float32).tobytes() or not same_codes:
+            raise AssertionError(f"{tag}: /predict differs in bits from the in-process 1x1 flush")
+        series = tel_series(port)
+        occupancy = tel_labelled(series, "wide_bucket_occupancy", "model_shard")
+        shards = series.get("wide_model_shards")
+        if series.get("scorer_wide_fused") != 1.0 or shards != 2.0 or len(occupancy) != 2:
+            raise AssertionError(f"{tag}: scorer_wide_fused {series.get('scorer_wide_fused')}, "
+                                 f"wide_model_shards {shards}, occupancy {occupancy}")
+        out[wire] = {"occupancy": occupancy}
+        print(f"{tag}: {len(rows)} /predict from {P19_CLIENTS} threads ({sum(e is not None for e in eids)} "
+              f"with an entity), every answer 200, scores and reason-code values bitwise an "
+              f"in-process 1x1 flush of the same rows; scorer_wide_fused 1, wide_model_shards 2, "
+              f"wide_bucket_occupancy {occupancy}")
+    return out
+
+
+def model_axis_repair(work: Path, card: str) -> dict:
+    """Phase 19f: ``train()`` of both families on the card as it fits
+    (sharded over the one-shard default mesh) and unsharded, in turns
+    (``train_turns``: sharded, unsharded, unsharded, sharded): the two
+    routes' models bitwise equal; the launches of the four GBT runs."""
+    from fraud_detection_tpu_torch import train_turns
+    from fraud_detection_tpu_torch.ops import kernels
+
+    out = {}
+    kernels.reset_launch_counts()
+    for family in ("logistic", "gbt"):
+        r = train_turns.turns(family, "cuda", 1, False, work / "repair_turns")
+        out[family] = r
+        print(f"phase19: train() {family} on the card in turns (host clock): sharded "
+              f"{', '.join(f'{t:.3f}' for t in r['walls_s']['sharded'])} s, unsharded "
+              f"{', '.join(f'{t:.3f}' for t in r['walls_s']['unsharded'])} s; models bitwise "
+              f"equal {r['models_bitwise_equal']} ({card})")
+        if not r["models_bitwise_equal"]:
+            raise AssertionError(f"phase19: the one-shard {family} train() differs from the "
+                                 "unsharded one")
+    launches, split = kernels.launch_counts(), kernels.gbt_hist_split_counts()
+    if launches["gbt_hist"] != 4 * GBT_HIST_LAUNCHES_PER_RUN or any(split.values()):
+        raise AssertionError(f"phase19: the four GBT train() launched {launches}, split {split}")
+    print(f"phase19: the turns' kernel launches {launches}; split phase {split} (whole "
+          f"launches only)")
+    out["launches"] = launches
+    return out
+
+
+def model_axis_phase(work: Path, wide_dir: Path, card: str) -> dict:
+    """Phase 19: the model axis on the card."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    for key in [k for k in os.environ if k.startswith(("SCORER_", "MESH_", "INGEST_"))]:
+        os.environ.pop(key)
+    os.environ["DEVICE"] = "cuda"
+    x = np.loadtxt(ROOT / "data" / "creditcard.csv", delimiter=",", skiprows=1,
+                   max_rows=2048, dtype=np.float32)[:, :30]
+    model_dir = model_axis_train(work, wide_dir)
+    procs = {}
+    try:
+        for wire in ("float32", "int8"):
+            port = free_port()
+            env = tel_env(work, f"p19_{wire}", model_dir, MESH_FLUSH_DEVICES="2",
+                          MESH_MODEL_DEVICES="2", SCORER_WIRE=wire)
+            procs[wire] = (tel_spawn(["fraud_detection_tpu_torch.service.app", "--host",
+                                      "127.0.0.1", "--port", str(port)], env,
+                                     work / f"p19_{wire}_app.log"), port)
+        flushes = model_axis_flushes(model_dir, x)
+        timing = model_axis_timing(model_dir, x, card)
+        fits = model_axis_fits(card)
+        children = model_axis_children(work, procs, model_dir, x)
+    finally:
+        for proc, _ in procs.values():
+            tel_stop(proc)
+    repair = model_axis_repair(work, card)
+    print(f"phase19: the model axis on the card in {time.perf_counter() - t_phase:.3f} s ({card})")
+    return {"flushes": flushes, "timing": timing, "fits": fits, "children": children,
+            "repair": repair}
+
+
 def main() -> int:
     try:
         import torch
@@ -8004,6 +8401,7 @@ def main() -> int:
         telemetry = telemetry_phase(work, Path(gbt_dir), card)
         mesh = mesh_phase(work, Path(gbt_dir), ledger["model_dir"], wide["model_dir"], card)
         sharded = sharded_training_phase(work, card)
+        model_axis = model_axis_phase(work, wide["model_dir"], card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS.get(name) or ENTRY_POINTS[name]
@@ -8033,6 +8431,9 @@ def main() -> int:
             telemetry_trace_kernels=telemetry["logistic"]["trace_fused_score"],
             mesh_launches=mesh["launches"]["fused_score"],
             mesh_retrain_launches=sharded["retrain"]["fused_score"],
+            model_axis_launches=model_axis["flushes"]["fused_score"],
+            model_axis_flush_1024=model_axis["timing"],
+            model_axis_fit_wall_s=model_axis["fits"]["walls_s"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"at_n_{n}{TIMING_SUFFIX.get(dt, '')}":
@@ -8060,6 +8461,8 @@ def main() -> int:
         # largest |kernel − plain| cell over every phase-2c case
         row("gbt_hist", gbt_trained["gbt_hist"], hist, hist["timing"][16],
             hist["timing"][16]["library_ms"], n=31684, nodes=16,
+            model_axis_launches=model_axis["repair"]["launches"]["gbt_hist"],
+            train_turns_s={f: model_axis["repair"][f]["walls_s"] for f in ("logistic", "gbt")},
             at_level_0={key: hist["timing"][1][key] for key in
                         ("ms", "plain_ms", "bound_ms", "library_ms")},
             at_leaf_sums={key: hist["timing"]["leaf"][key] for key in

@@ -411,9 +411,13 @@ def mesh_flush_devices() -> int:
 
 
 def mesh_model_devices() -> int:
-    """``MESH_MODEL_DEVICES`` — the serving mesh's model axis. 0/1 (default)
-    is the one the port serves; above 1 (the wide family's column-sharded
-    table) the app refuses to start: ROADMAP item 12b."""
+    """``MESH_MODEL_DEVICES`` — the model axis of the serving mesh and of
+    the wide family's training grid (``mesh/retrain.wide_training_mesh``).
+    0/1 (default): none. Above 1, a power of two: the wide family's cross
+    table column-shards over that many model shards of the one device, the
+    narrow and ledger families split their rows over the whole ``data ×
+    model`` grid, and the data axis is clamped so the grid stays within 8
+    shards."""
     return _get_int("MESH_MODEL_DEVICES", 0)
 
 

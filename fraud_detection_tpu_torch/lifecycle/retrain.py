@@ -31,7 +31,8 @@ Three branches, chosen by the champion and ``WIDE_ENABLED``:
   the replay's final table;
 - the wide family (a wide champion, or ``WIDE_ENABLED=1`` under a narrow
   one): the hashed crosses of the raw rows fitted with the base slice by
-  ``mesh/retrain.wide_sgd_fit`` (the 1×1 mesh's fit).
+  ``mesh/retrain.wide_sgd_fit`` over ``wide_training_mesh()``
+  (``MESH_MODEL_DEVICES`` model shards, as ``train()``'s).
 
 ``MESH_RETRAIN=1`` fits the logistic and ledger families with the
 cross-replica-sharded weight update in place of L-BFGS
@@ -344,10 +345,14 @@ def run_retrain(
             stages.mark("smote")
         wide_names = wide_scaler = wide_table = None
         if wide_spec is not None:
-            # the wide family's fit on one device (the 1×1 mesh's): the warm
-            # start crosses scaler spaces on the BASE slice; the champion's
-            # table warm-starts verbatim (contributions are raw-space)
-            from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
+            # the wide family's 2-D (data × model) fit over
+            # wide_training_mesh(), train()'s grid: the warm start crosses
+            # scaler spaces on the BASE slice; the champion's table
+            # warm-starts verbatim (contributions are raw-space)
+            from fraud_detection_tpu_torch.mesh.retrain import (
+                wide_sgd_fit,
+                wide_training_mesh,
+            )
             from fraud_detection_tpu_torch.ops.crosses import (
                 cross_indices,
                 widen_scaler,
@@ -376,7 +381,7 @@ def run_retrain(
                 epochs=max(max_iter // 10, 5), seed=seed,
                 class_weight="balanced",
                 warm_start=(ws_base, getattr(champion, "wide_table", None)),
-                device=dev,
+                mesh=wide_training_mesh(device=dev),
             )
             stages.mark("fit")
             wide_names = list(feature_names) + list(wide_spec.cross_names)

@@ -8,10 +8,13 @@
   with health tracking, draining and a half-open probe;
 - :mod:`.retrain` — the cross-replica-sharded weight update
   (``mesh_sgd_fit``) and the feedback pools' summary over the data axis,
-  and the wide family's fit on a 1×1 mesh.
+  and the wide family's fit over a ``(data × model)`` grid
+  (``wide_training_mesh``, ``wide_sgd_fit``).
 
-The collectives are ``parallel/collectives``; the 2-D wide mesh (a model
-axis above 1) is ROADMAP item 12b's second PR."""
+The collectives are ``parallel/collectives``. The model axis
+(``MESH_MODEL_DEVICES``) column-shards the wide family's cross table, in
+the serving flush and in the fit; it lies inside a process, whose ranks
+split the data axis."""
 
 from fraud_detection_tpu_torch.mesh.front import NoHealthyShards, ShardFront
 from fraud_detection_tpu_torch.mesh.shardflush import (
@@ -19,7 +22,11 @@ from fraud_detection_tpu_torch.mesh.shardflush import (
     init_sharded_window,
     merge_window,
 )
-from fraud_detection_tpu_torch.mesh.topology import serving_mesh, serving_mesh_size
+from fraud_detection_tpu_torch.mesh.topology import (
+    serving_mesh,
+    serving_mesh_model_size,
+    serving_mesh_size,
+)
 
 __all__ = [
     "MeshDriftMonitor",
@@ -28,5 +35,6 @@ __all__ = [
     "init_sharded_window",
     "merge_window",
     "serving_mesh",
+    "serving_mesh_model_size",
     "serving_mesh_size",
 ]

@@ -13,12 +13,14 @@ over minibatches (:func:`_sharded_update_epoch` one epoch); the collectives
 fold in global shard order (``parallel/collectives``), so one process with
 8 shards and two with 4 give the same bits.
 
-:func:`wide_sgd_fit` is the JAX package's ``wide_sgd_fit`` for a 1×1
-(data × model) mesh: the same minibatch momentum SGD over the base coef,
-the intercept and the hashed-cross table, with the same padding,
-permutation stream, cosine learning rate and manual gradient. The 2-D
-form, with the table column-sharded over the model axis and the gradient
-reduce-scattered over the data axis, is ROADMAP item 12b (second PR).
+:func:`wide_sgd_fit` is the JAX package's 2-D ``wide_sgd_fit`` over a
+``(data × model)`` grid (:func:`wide_training_mesh`): the same minibatch
+momentum SGD over the base coef, the intercept and the hashed-cross table,
+with the same padding, permutation stream, cosine learning rate and
+manual gradient; the table column-sharded over the model axis and
+subdivided over the data axis, its gradient reduce-scattered over the data
+axis (:func:`_wide_update_epoch` one epoch). The model axis lies inside a
+process; ranks split the data axis.
 
 :func:`mapreduce_pool_stats` is the JAX package's MapReduce pool summary
 (arxiv 2403.07128): each shard sums its rows (map), a ``psum`` reduces the
@@ -30,7 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fraud_detection_tpu_torch.device import resolve_device
+from fraud_detection_tpu_torch import config
+from fraud_detection_tpu_torch.ops.crosses import _gather_contrib_model
 from fraud_detection_tpu_torch.ops.logistic import (
     LogisticParams,
     _cap_batch_size,
@@ -38,9 +41,15 @@ from fraud_detection_tpu_torch.ops.logistic import (
     _pad_rows,
     _resolve_sample_weight,
 )
-from fraud_detection_tpu_torch.parallel.collectives import all_gather, psum, psum_scatter
-from fraud_detection_tpu_torch.parallel.mesh import default_mesh
-from fraud_detection_tpu_torch.parallel.sharding import batch_sharding, shard_batch
+from fraud_detection_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_gather_blocks,
+    psum,
+    psum_scatter,
+    psum_scatter_blocks,
+)
+from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, default_mesh, global_mesh, process_count
+from fraud_detection_tpu_torch.parallel.sharding import batch_sharding, data_sharding, shard_batch
 
 
 def _pad_features(d: int, ndev: int) -> int:
@@ -178,6 +187,101 @@ def mesh_sgd_fit(
     return LogisticParams(coef=coef.contiguous(), intercept=intercept)
 
 
+def wide_training_mesh(model_devices: int | None = None, data_devices: int | None = None,
+                       device: str | torch.device | None = None):
+    """The wide family's ``(data × model)`` training grid (the JAX package's
+    ``wide_training_mesh``): ``model_devices`` model shards (default
+    ``MESH_MODEL_DEVICES``, 0 and unset meaning 1) and ``data_devices``
+    data shards (default one a process), on the serving device (or
+    ``device``). Ranks split the data axis only: a data axis the processes
+    do not divide raises ``ValueError`` (``parallel.global_mesh``). A model
+    axis of 1 is the 1×1 fit."""
+    m = model_devices if model_devices is not None else (config.mesh_model_devices() or 1)
+    d = data_devices if data_devices is not None else process_count()
+    return global_mesh(MeshSpec(data=int(d), model=max(int(m), 1)), device)
+
+
+def _wide_update_epoch(
+    coef: torch.Tensor,  # (d,) replicated base coef
+    vel: torch.Tensor,  # (d,) its momentum
+    wl: torch.Tensor,  # (data, model, k): the table, shard (d, m) owning k columns
+    wvl: torch.Tensor,  # (data, model, k): its momentum
+    intercept: torch.Tensor,  # () replicated
+    vel_b: torch.Tensor,  # () replicated
+    x: torch.Tensor,  # (data, n_local, d): each data shard's rows
+    idx: torch.Tensor,  # (data, n_local, n_cross) their cross indices
+    has: torch.Tensor,  # (data, n_local) has-entity
+    y_pm: torch.Tensor,  # (data, n_local) ±1 labels
+    sw: torch.Tensor,  # (data, n_local) sample weights (0 on padding)
+    valid: torch.Tensor,  # (data, n_local) row validity
+    perm: torch.Tensor,  # (n_local,) the epoch's permutation, every shard's
+    lr: float,
+    *,
+    mesh,
+    c: float,
+    n_total: int,
+    momentum: float,
+    batch: int,
+):
+    """One epoch of the 2-D wide update (the JAX package's
+    ``_wide_update_body``). Each step: every model group's column block is
+    the ``all_gather`` of its data shards' slices (:func:`~fraud_detection_
+    tpu_torch.parallel.collectives.all_gather_blocks`); a data shard's
+    widened block is every model shard's partial gather summed over the
+    model axis (``ops/crosses._gather_contrib_model``: one real weight and
+    exact zeros a cell, so the block, the logit and every gradient have
+    the same bits at every model axis), masked by has-entity; the base
+    gradient and the intercept's are ``psum``-ed over the data axis; the
+    table's gradient is each data shard's scatter of its rows' ``g·has``
+    onto its model groups' column blocks (one accumulating ``index_put_``
+    over the ``(model, n_col)`` grid: an index names one cell of one group,
+    and a cell sums its rows in batch order, on the card through a sort),
+    ``psum_scatter``-ed over the data axis onto the owning slices — no
+    model-axis gradient collective: a group's columns take gradient only
+    from its own indices. Then ``v ← momentum·v −
+    lr·g``, ``p ← p + v`` on the owned slices, the base coef and the
+    intercept. Returns ``(coef, vel, wl, wvl, intercept, vel_b)``."""
+    n_batches = x.shape[1] // batch
+    n_model = mesh.model
+    n_col = wl.shape[2] * mesh.global_data
+    n_cross = idx.shape[2]
+    for i in range(n_batches):
+        w_col = all_gather_blocks(wl, mesh)  # (model, n_col)
+        sel = perm[i * batch:(i + 1) * batch]
+        b_valid = torch.clamp(
+            psum(torch.stack([valid[s][sel].sum() for s in range(mesh.data)]), mesh), min=1.0
+        )
+        gw, gb, gt = [], [], []
+        for s in range(mesh.data):
+            xb, ib, hb = x[s][sel], idx[s][sel], has[s][sel]
+            yb, swb = y_pm[s][sel], sw[s][sel]
+            z_wide = _gather_contrib_model(w_col, ib, hb).sum(dim=1)
+            z = xb @ coef + z_wide + intercept
+            # d/dz of sw·softplus(−ỹz)·C/B_valid
+            g = swb * (-yb) * torch.sigmoid(-yb * z) * (c / b_valid)
+            gw.append(xb.T @ g)
+            gb.append(g.sum())
+            # every model group's block at once: an entry's cell in the
+            # (model, n_col) grid is its bucket (group ib // n_col, column
+            # ib mod n_col), so one accumulating index_put_ is the groups'
+            # scatters of their own entries, in batch order
+            gt.append(torch.zeros(n_model * n_col, dtype=wl.dtype, device=wl.device)
+                      .index_put_((ib.reshape(-1),),
+                                  (g * hb)[:, None].expand(-1, n_cross).reshape(-1),
+                                  accumulate=True)
+                      .view(n_model, n_col))
+        g_coef = psum(torch.stack(gw), mesh) + coef / n_total
+        g_b = psum(torch.stack(gb), mesh)
+        g_loc = psum_scatter_blocks(torch.stack(gt), mesh) + wl / n_total
+        vel = momentum * vel - lr * g_coef
+        coef = coef + vel
+        wvl = momentum * wvl - lr * g_loc
+        wl = wl + wvl
+        vel_b = momentum * vel_b - lr * g_b
+        intercept = intercept + vel_b
+    return coef, vel, wl, wvl, intercept, vel_b
+
+
 def wide_sgd_fit(
     x,
     idx,
@@ -192,28 +296,41 @@ def wide_sgd_fit(
     class_weight: dict | str | None = None,
     sample_weight=None,
     seed: int = 0,
+    mesh=None,
     warm_start: tuple | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[LogisticParams, torch.Tensor]:
-    """Fit the wide family on ``device`` (resolved as every entry point
+    """Fit the wide family on the ``(data × model)`` grid ``mesh`` (default
+    :func:`wide_training_mesh` on ``device``, resolved as every entry point
     resolves it: ``cuda`` unless the caller asks for the CPU).
 
     ``x`` is the scaled base block, ``idx`` the rows' cross indices
     (``ops/crosses.cross_indices`` of the RAW rows), ``has`` the has-entity
-    mask: arrays, or tensors, which are used where they lie when that is
-    ``device``. ``warm_start`` is a ``(base LogisticParams, table)`` pair.
+    mask: arrays or tensors. ``warm_start`` is a ``(base LogisticParams,
+    table)`` pair. The rows are padded to ``data · batch`` (label 0,
+    weight 0, validity 0, no entity) and split over the data axis; the
+    table and its momentum are owned model-major, data-minor (shard ``(d,
+    m)`` holds columns ``m·buckets/M + d·k``…, ``k = buckets/(D·M)``: JAX's
+    ``WIDE_PARAM_SPEC``); the base coef and the intercept are replicated.
     Each minibatch of the epoch's permutation (``np.random.default_rng(
-    seed)`` over the padded rows) takes the gradient of
+    seed).permutation`` of a data shard's rows) takes the gradient of
     ``(C/B_valid)·Σ sw·softplus(−ỹ·z)`` with ``z = x·w + Σ_c has·T[idx_c] +
-    b``, plus ``w/n`` and ``T/n``; ``v ← momentum·v − lr_e·g``,
-    ``p ← p + v``; ``lr_e = lr·½(1 + cos(π·e/epochs))``. The table's
-    gradient adds up through ``index_put_(accumulate=True)``, which the card
-    sums in a fixed order, so two fits on the card are bitwise equal.
+    b``, plus ``w/n`` and ``T/n`` (:func:`_wide_update_epoch`); ``lr_e =
+    lr·½(1 + cos(π·e/epochs))``. The fit has the same bits at every model
+    axis for a given data axis, the 1×1 grid's being the single-device
+    fit's, and two fits on the card are bitwise equal.
 
-    Returns ``(widened LogisticParams, table)``: the base coef followed by
-    one 1.0 per cross template (the contribution columns enter the logit
-    with unit weight; the learned mass lives in the table)."""
-    dev = resolve_device(device)
+    Returns ``(widened LogisticParams, table)`` on the mesh's device: the
+    base coef followed by one 1.0 per cross template (the contribution
+    columns enter the logit with unit weight; the learned mass lives in
+    the table)."""
+    mesh = mesh or wide_training_mesh(device=device)
+    dev = mesh.device
+    n_data, n_model = mesh.global_data, mesh.model
+    buckets = cross_spec.buckets
+    if buckets % (n_data * n_model):
+        raise ValueError(f"WIDE_BUCKETS={buckets} does not shard over the "
+                         f"{n_data}x{n_model} grid")
 
     def on_dev(a, dtype: torch.dtype) -> torch.Tensor:
         # a tensor already on ``dev`` is used as it is; a host array is
@@ -227,11 +344,10 @@ def wide_sgd_fit(
     has_t = on_dev(has, torch.float32)
     y_np = y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
     n, d = x_t.shape
-    buckets = cross_spec.buckets
     sw = _resolve_sample_weight(y_np, sample_weight, class_weight)
-    batch_size = _cap_batch_size(n, 1, batch_size)
-    x_dev, idx_dev, has_dev = (_pad_rows(t, batch_size) for t in (x_t, idx_t, has_t))
-    n_pad = x_dev.shape[0]
+    batch_size = _cap_batch_size(n, n_data, batch_size)
+    x_pad, idx_pad, has_pad = (_pad_rows(t, n_data * batch_size) for t in (x_t, idx_t, has_t))
+    n_pad = x_pad.shape[0]
     # padding rows: label 0 (ỹ = −1), weight 0, validity 0, no entity
     y_pm = np.full((n_pad,), -1.0, np.float32)
     y_pm[:n] = np.where(y_np > 0, 1.0, -1.0)
@@ -239,7 +355,11 @@ def wide_sgd_fit(
     sw_pad[:n] = sw
     valid = np.zeros((n_pad,), np.float32)
     valid[:n] = 1.0
-    y_dev, sw_dev, valid_dev = (torch.as_tensor(a, device=dev) for a in (y_pm, sw_pad, valid))
+    layout = data_sharding(mesh)
+    x_dev, idx_dev, has_dev, y_dev, sw_dev, valid_dev = (
+        layout.segments(shard_batch(a, mesh, over_model=False)[0])
+        for a in (x_pad, idx_pad, has_pad, y_pm, sw_pad, valid)
+    )
 
     coef = torch.zeros((d,), dtype=torch.float32, device=dev)
     table = torch.zeros((buckets,), dtype=torch.float32, device=dev)
@@ -252,40 +372,24 @@ def wide_sgd_fit(
                                         device=dev).reshape(())
         if warm_table is not None:
             table = torch.as_tensor(warm_table, dtype=torch.float32, device=dev)
-    vel, vel_t = torch.zeros_like(coef), torch.zeros_like(table)
+    k = buckets // (n_data * n_model)
+    own = slice(mesh.shard_offset, mesh.shard_offset + mesh.data)
+    wl = table.reshape(n_model, n_data, k)[:, own].transpose(0, 1).contiguous()
+    vel, wvl = torch.zeros_like(coef), torch.zeros_like(wl)
     vel_b = torch.zeros_like(intercept)
 
-    c = float(c)
-    n_cross = idx_dev.shape[1]
-    n_batches = n_pad // batch_size
+    n_local = n_pad // n_data
     rng = np.random.default_rng(seed)
     for e in range(epochs):
         lr_e = float(np.float32(lr * 0.5 * (1.0 + np.cos(np.pi * e / max(epochs, 1)))))
-        perm = torch.as_tensor(rng.permutation(n_pad), device=dev)
-        for i in range(n_batches):
-            sel = perm[i * batch_size:(i + 1) * batch_size]
-            xb, ib, hb = x_dev[sel], idx_dev[sel], has_dev[sel]
-            yb, swb = y_dev[sel], sw_dev[sel]
-            b_valid = torch.clamp(valid_dev[sel].sum(), min=1.0)
-            z_wide = (table[ib] * hb[:, None]).sum(dim=1)
-            z = xb @ coef + z_wide + intercept
-            # d/dz of sw·softplus(−ỹz)·C/B_valid
-            g = swb * (-yb) * torch.sigmoid(-yb * z) * (c / b_valid)
-            g_coef = xb.T @ g + coef / n
-            g_b = g.sum()
-            # the table's gradient: each row's g on each of its buckets
-            g_tab = torch.zeros_like(table).index_put_(
-                (ib.reshape(-1),), (g * hb)[:, None].expand(-1, n_cross).reshape(-1),
-                accumulate=True,
-            ) + table / n
-            vel = momentum * vel - lr_e * g_coef
-            coef = coef + vel
-            vel_t = momentum * vel_t - lr_e * g_tab
-            table = table + vel_t
-            vel_b = momentum * vel_b - lr_e * g_b
-            intercept = intercept + vel_b
+        coef, vel, wl, wvl, intercept, vel_b = _wide_update_epoch(
+            coef, vel, wl, wvl, intercept, vel_b, x_dev, idx_dev, has_dev, y_dev,
+            sw_dev, valid_dev, torch.as_tensor(rng.permutation(n_local), device=dev), lr_e,
+            mesh=mesh, c=float(c), n_total=int(n), momentum=float(momentum),
+            batch=int(batch_size),
+        )
     widened = torch.cat([coef, torch.ones(cross_spec.n_cross, dtype=torch.float32, device=dev)])
-    return LogisticParams(coef=widened, intercept=intercept), table
+    return LogisticParams(coef=widened, intercept=intercept), all_gather_blocks(wl, mesh).reshape(-1)
 
 
 def mapreduce_pool_stats(x, y, scores, mesh=None, device=None) -> dict:

@@ -26,13 +26,26 @@ state:
   that owns its slot, ``ledger/placement``). A slot's rows keep their
   order, so this is bitwise one call a shard, and the merged table is
   bitwise a single-device replay of the same flushes;
-- **the wide family** runs on a model axis of 1: each shard gathers from
-  the whole cross table, which needs no collective. The column-sharded
-  table (``MESH_MODEL_DEVICES > 1``) is ROADMAP item 12b.
+- **the wide family** on a model axis of 1 gathers from the whole cross
+  table, which needs no collective. On a ``data × model`` grid
+  (``MESH_MODEL_DEVICES > 1``, JAX's broadside flush) the rows split over
+  the data axis only and are replicated over the model axis; the table is
+  column-sharded, model shard ``m`` owning ``buckets/M`` contiguous
+  columns (laid out once a table, :meth:`MeshDriftMonitor.
+  _placed_wide_table`); every model shard's partial gather and the one
+  sum over the model axis assemble the widened block
+  (``ops/crosses._gather_contrib_model``), bitwise the single-device
+  gather; the score and the explain leg run once over the bucket; each
+  data shard's rows fold into its model-rank-0 window only, so the other
+  windows stay zero. The narrow and ledger families split their rows over
+  the flattened grid (shard ``d·M + m``), the ledger's slots by ``slot mod
+  (D·M)``.
 
 :class:`ShardLoopMonitor` is the oracle: the single-device body called
-once a shard on that shard's segment, window and sub-table. The
-shard-axis flush is held bitwise to it on the CPU and on the card.
+once a shard on that shard's segment, window and sub-table (the wide
+family on a 2-D grid: once a data shard, on its segment and its model
+group's windows). The shard-axis flush is held bitwise to it on the CPU
+and on the card.
 
 The four flush entry points (``_sharded_flush``, ``_sharded_flush_explain``,
 ``_sharded_flush_ledger``, ``_sharded_flush_wide``) are what the compile
@@ -184,19 +197,24 @@ def _sharded_flush_ledger(shard_window, shard_ledger, x, valid, *rest, **kw):
 
 
 def _sharded_flush_wide(shard_window, x, valid, *rest, **kw):
-    """The wide flush on a model axis of 1 (``drift._fused_flush_wide``):
-    every shard gathers from the whole table; only the fold is per shard."""
+    """The wide flush over the grid (``drift._fused_flush_wide``): on a
+    model axis of 1 every shard gathers from the whole table and only the
+    fold is per shard; with the table column-sharded ``(M, buckets/M)`` the
+    model shards' partials meet in one model-axis sum and each data
+    shard's rows fold into its model-rank-0 window."""
     return _raw(_drift._fused_flush_wide)(shard_window, x, valid, *rest, **kw)
 
 
 # -- the oracle: the single-device body once a shard -------------------------
 
-def _per_shard(body, window, x, valid, rest, kw, ledger=None, rows_at=None):
+def _per_shard(body, window, x, valid, rest, kw, ledger=None, rows_at=None, group=1):
     """``body`` on each shard's segment of ``x``/``valid`` (and of the row
     columns at ``rest[rows_at]``) with that shard's window and sub-table:
     views of the shard-axis state, so each call updates it in place.
+    ``group`` > 1 takes a segment a data shard and hands the body that
+    shard's ``group`` windows (its model group's, leading axis kept).
     Outputs concatenated in row order."""
-    n = window.n_rows.shape[0]
+    n = window.n_rows.shape[0] // group
     seg = x.shape[0] // n
     outs = []
     for s in range(n):
@@ -204,7 +222,8 @@ def _per_shard(body, window, x, valid, rest, kw, ledger=None, rows_at=None):
         args = list(rest)
         if rows_at is not None:
             args[rows_at] = tuple(c[sl] for c in args[rows_at])
-        lead = [DriftWindow(*(t[s] for t in window.tensors()))]
+        own = s if group == 1 else slice(s * group, (s + 1) * group)
+        lead = [DriftWindow(*(t[own] for t in window.tensors()))]
         if ledger is not None:
             lead.append(LedgerState(*(t[s] for t in ledger)))
         outs.append(body(*lead, x[sl], valid[sl], *args, **kw))
@@ -228,9 +247,11 @@ def _loop_flush_ledger(window, ledger, x, valid, *rest, **kw):
 
 
 def _loop_flush_wide(window, x, valid, *rest, **kw):
-    # rest: decay, edges, score edges, score args, wide_table, wide_rows
+    # rest: decay, edges, score edges, score args, wide_table, wide_rows; a
+    # column-sharded (M, buckets/M) table: once a data shard, its M windows
+    group = rest[4].shape[0] if rest[4].dim() == 2 else 1
     return _per_shard(_raw(_drift._fused_flush_wide), window, x, valid, rest, kw,
-                      rows_at=5)
+                      rows_at=5, group=group)
 
 
 class MeshDriftMonitor(DriftMonitor):
@@ -268,7 +289,12 @@ class MeshDriftMonitor(DriftMonitor):
             device=mesh.device,
         )
         self.mesh = mesh
+        self.n_data = n_data
+        self.n_model = n_model
         self.n_shards = n_shards
+        # the cross table column-sharded over the model axis, laid out once
+        # a table (see _placed_wide_table)
+        self._wide_src = self._wide_placed = None
         self.shard_window = init_sharded_window(
             n_shards, profile.n_features, profile.feature_counts.shape[1],
             profile.score_counts.shape[0], device=self.device,
@@ -279,6 +305,24 @@ class MeshDriftMonitor(DriftMonitor):
 
     def _flush_window(self) -> DriftWindow:
         return self.shard_window
+
+    def _placed_wide_table(self, cross_spec, wide_table: torch.Tensor) -> torch.Tensor:
+        """The cross table column-sharded over the model axis: ``(M,
+        buckets/M)``, model shard ``m``'s contiguous columns in row ``m``,
+        laid out once a table identity (a hot swap brings a new one) — the
+        whole table on a model axis of 1. A table the axis does not divide
+        raises before any layout."""
+        if self.n_model == 1:
+            return wide_table
+        if cross_spec.buckets % self.n_model:
+            raise ValueError(
+                f"wide table of {cross_spec.buckets} buckets does not column-shard "
+                f"over {self.n_model} model shards"
+            )
+        if self._wide_src is not wide_table:
+            self._wide_placed = wide_table.view(self.n_model, -1)
+            self._wide_src = wide_table
+        return self._wide_placed
 
     def _window_for_stats(self) -> DriftWindow:
         return _merge_total(self.shard_window, self.window)

@@ -7,8 +7,10 @@ clamped to a device count. It keeps JAX's other clamps: the data axis is
 floored to a power of two (flush buckets are powers of two and every bucket
 must split evenly) and capped at :data:`MAX_FLUSH_SHARDS`, the smallest
 flush bucket (a lone-request flush pads to 8 rows and must still hand
-every shard one). The model axis is 1: the wide family's column-sharded
-table (``MESH_MODEL_DEVICES > 1``) is ROADMAP item 12b and raises.
+every shard one). The model axis (``MESH_MODEL_DEVICES``, a power of two)
+column-shards the wide family's cross table; the narrow and ledger
+families split their rows over the flattened ``data × model`` grid, so the
+grid as a whole stays within :data:`MAX_FLUSH_SHARDS`.
 """
 
 from __future__ import annotations
@@ -51,27 +53,38 @@ def serving_mesh_size(requested: int | None = None) -> int:
 
 def serving_mesh_model_size(requested: int | None = None) -> int:
     """The serving mesh's model axis (``MESH_MODEL_DEVICES``): 0 and 1
-    resolve to 1. Above 1 raises ``ValueError``: the wide family's
-    column-sharded table and its model-axis sum are ROADMAP item 12b."""
+    resolve to 1; above 1 it must be a power of two (the wide family's
+    power-of-two table column-shards evenly only then), else
+    ``ValueError``."""
     m = config.mesh_model_devices() if requested is None else requested
     if m <= 1:
         return 1
-    raise ValueError(
-        f"MESH_MODEL_DEVICES={m}: the model axis (the wide family's "
-        "column-sharded cross table) is not ported yet (ROADMAP item 12b); "
-        "unset it or set it to 1"
-    )
+    if not _is_pow2(m):
+        raise ValueError(
+            f"MESH_MODEL_DEVICES must be a power of two (the wide bucket "
+            f"table must column-shard evenly), got {m}"
+        )
+    return m
 
 
 def serving_mesh(
     n_shards: int | None = None, devices=None, model_devices: int | None = None
 ) -> Mesh:
-    """The ``(data × 1)`` serving grid on the serving device (``devices``:
-    one repeated device, default ``DEVICE``'s). ``n_shards`` None resolves
-    ``MESH_FLUSH_DEVICES`` through :func:`serving_mesh_size`; an explicit
-    size must be a power of two no larger than :data:`MAX_FLUSH_SHARDS`."""
+    """The ``(data × model)`` serving grid on the serving device
+    (``devices``: one repeated device, default ``DEVICE``'s). ``n_shards``
+    None resolves ``MESH_FLUSH_DEVICES`` through :func:`serving_mesh_size`
+    and, when the grid would exceed :data:`MAX_FLUSH_SHARDS`, clamps the
+    data axis with a warning; an explicit size must be a power of two and
+    the grid no larger than :data:`MAX_FLUSH_SHARDS`. ``model_devices``
+    None reads ``MESH_MODEL_DEVICES``."""
     m = serving_mesh_model_size(model_devices)
     n = serving_mesh_size() if n_shards is None else n_shards
+    if m > 1 and n_shards is None and n * m > MAX_FLUSH_SHARDS:
+        log.warning(
+            "MESH_FLUSH_DEVICES×MESH_MODEL_DEVICES = %d×%d exceeds the smallest "
+            "flush bucket (%d) — clamping the data axis", n, m, MAX_FLUSH_SHARDS,
+        )
+        n = max(MAX_FLUSH_SHARDS // m, 1)
     if not _is_pow2(n):
         raise ValueError(
             f"serving mesh data-axis size must be a power of two (flush "

@@ -51,7 +51,11 @@ from fraud_detection_tpu_torch.monitor.baseline import (
     feature_histogram,
     score_histogram,
 )
-from fraud_detection_tpu_torch.ops.crosses import _gather_contrib, _raw_cross_indices
+from fraud_detection_tpu_torch.ops.crosses import (
+    _gather_contrib,
+    _gather_contrib_model,
+    _raw_cross_indices,
+)
 from fraud_detection_tpu_torch.ops.linear_shap import _raw_linear_shap, topk_reasons
 from fraud_detection_tpu_torch.ops.scorer import _bucket, _cast_scores, _raw_score_linear
 from fraud_detection_tpu_torch.ops.tree_shap import TreeShapExplainer, _raw_tree_shap
@@ -309,7 +313,7 @@ def _fused_flush_wide(
     feature_edges: torch.Tensor,  # (n_base + n_cross, bins - 1): the widened edges
     score_edges: torch.Tensor,
     score_args,  # raw-space (coef, intercept) over the widened block
-    wide_table: torch.Tensor,  # (buckets,) the learned cross weights
+    wide_table: torch.Tensor,  # (buckets,) the learned cross weights, or (M, buckets/M)
     wide_rows,  # (fp, has_entity) device columns, (b,) each
     *,
     cross_spec,
@@ -327,13 +331,29 @@ def _fused_flush_wide(
     drift fold over the widened edges. The table is only read. Entity-less
     rows score base-only, and an all-padding batch folds exact zeros.
     Returns the scores (return wire ``out_dtype``), or ``(scores,
-    reason_idx, reason_val)`` with the explain leg."""
+    reason_idx, reason_val)`` with the explain leg.
+
+    A table column-sharded over a model axis of M (``(M, buckets/M)``, the
+    2-D serving mesh's) gathers through every model shard's partial and
+    one sum over the model axis (``ops/crosses._gather_contrib_model``,
+    bitwise the whole table's gather); the window then has a leading
+    ``(data·M,)`` shard axis, the rows split over the data axis only, and
+    each data shard's rows fold into its model-rank-0 window (rows are
+    replicated over the model axis, so the other windows stay zero and the
+    merge counts every row once, as in JAX)."""
     xb = x.float()
     if dequant_scale is not None:
         xb = xb * dequant_scale
     fp, has_entity = wide_rows
     idx = _raw_cross_indices(xb, fp, spec=cross_spec)
-    xf = torch.cat([xb, _gather_contrib(wide_table, idx, has_entity)], dim=1)
+    if wide_table.dim() == 2:
+        contrib = _gather_contrib_model(wide_table, idx, has_entity)
+        n_model = wide_table.shape[0]
+        window = DriftWindow(*(
+            t.view(-1, n_model, *t.shape[1:])[:, 0] for t in window.tensors()))
+    else:
+        contrib = _gather_contrib(wide_table, idx, has_entity)
+    xf = torch.cat([xb, contrib], dim=1)
     scores = _raw_score_linear(score_args, xf).float()
     out = _cast_scores(scores, out_dtype)
     if explain_k > 0:
@@ -603,6 +623,7 @@ class DriftMonitor:
         flush, flush_explain, flush_ledger, flush_wide = self._flush_bodies()
         if wide_args is not None and wide_rows is not None:
             cross_spec, wide_table = wide_args
+            wide_table = self._placed_wide_table(cross_spec, wide_table)
             # k clamps against the widened width the explain leg attributes
             k = (min(int(explain_k), int(x.shape[1]) + cross_spec.n_cross)
                  if explain_args is not None else 0)
@@ -651,6 +672,11 @@ class DriftMonitor:
         sentinel wraps the module's bindings in place). The mesh monitor
         names its shard-axis flushes here."""
         return _fused_flush, _fused_flush_explain, _fused_flush_ledger, _fused_flush_wide
+
+    def _placed_wide_table(self, cross_spec, wide_table: torch.Tensor) -> torch.Tensor:
+        """The cross table as the wide flush reads it: whole here; the mesh
+        monitor column-shards it over its model axis."""
+        return wide_table
 
     def _flush_window(self) -> DriftWindow:
         """The window a serving flush folds into: the one live window here,

@@ -21,8 +21,12 @@ the JAX package; at exact bucket boundaries the last ulp of ``log1p``
 differs between libraries, and so, rarely, does the bucket (ROADMAP queue
 3). The fingerprint is ``int64`` on the device and ``uint32`` in files.
 
-The JAX package's model-axis shard gather (``_gather_contrib_shard``) is
-the 2-D sharded flush's, ROADMAP item 12b's second PR (the model axis).
+On a model axis of M (``MESH_MODEL_DEVICES``) the table is column-sharded:
+model shard ``m`` owns columns ``[m·S, (m+1)·S)``, ``S = buckets / M``.
+Each shard's partial holds its weights where an index falls in its range
+and an exact zero elsewhere (:func:`_gather_contrib_shard`), and one sum
+over the model axis assembles the block (:func:`_gather_contrib_model`),
+bitwise the single-device gather, zero signs included.
 """
 
 from __future__ import annotations
@@ -168,6 +172,60 @@ def _gather_contrib(wide_table: torch.Tensor, idx: torch.Tensor,
     """The widened block's cross columns: ``table[idx]``, zeroed for
     entity-less rows."""
     return wide_table[idx] * has_entity[:, None]
+
+
+def _gather_contrib_shard(wide_local: torch.Tensor, idx: torch.Tensor, model_index: int,
+                          has_entity: torch.Tensor | None = None) -> torch.Tensor:
+    """One model shard's partial of the cross columns (the JAX package's
+    ``_gather_contrib_shard``): shard ``model_index`` holds the table's
+    columns ``[model_index·S, (model_index+1)·S)`` as ``wide_local`` (its
+    ``S`` weights); an index in that range reads its weight, any other an
+    exact zero.
+
+    With ``has_entity`` this is JAX's partial bit for bit: +0.0 outside,
+    times ``has_entity``. Without it, the form the port sums over the model
+    axis (:func:`_gather_contrib_model`): −0.0 outside and nothing
+    multiplied. −0.0 is the identity of IEEE addition (x + −0.0 is x for
+    every x, −0.0 and +0.0 included), so the sum of one real weight and
+    M − 1 of them is that weight's bits, and the entity mask multiplied
+    after it gives :func:`_gather_contrib`'s bits. JAX's order (+0.0, then
+    the mask, then the sum) turns an entity-less row's −0.0 product over a
+    negative weight into +0.0."""
+    size = wide_local.shape[0]
+    rel = idx - model_index * size
+    inb = (rel >= 0) & (rel < size)
+    w = wide_local[rel.clamp(0, size - 1)]
+    if has_entity is None:
+        return torch.where(inb, w, -0.0)
+    return torch.where(inb, w, 0.0) * has_entity[:, None]
+
+
+def _model_partials(wide_tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Every model shard's partial at once: ``wide_tables`` ``(M, S)``
+    (shard ``m``'s weights in row ``m``) and ``idx`` ``(rows, n_cross)`` →
+    ``(M, rows, n_cross)``, row ``m`` :func:`_gather_contrib_shard` of shard
+    ``m`` without the mask (−0.0 outside its range)."""
+    n_model, size = wide_tables.shape
+    lo = torch.arange(n_model, device=idx.device).view(-1, 1, 1) * size
+    rel = idx.unsqueeze(0) - lo
+    inb = (rel >= 0) & (rel < size)
+    w = wide_tables.gather(1, rel.clamp(0, size - 1).reshape(n_model, -1))
+    return torch.where(inb, w.view(rel.shape), -0.0)
+
+
+def _gather_contrib_model(wide_tables: torch.Tensor, idx: torch.Tensor,
+                          has_entity: torch.Tensor) -> torch.Tensor:
+    """The cross columns from a table column-sharded over a model axis of
+    M (``wide_tables`` ``(M, S)``): every shard's partial
+    (:func:`_model_partials`), the one sum over the model axis in model
+    order (``parallel.collectives.psum_model``: each cell one real weight
+    and M − 1 identities), then the entity mask — bitwise
+    :func:`_gather_contrib` of the whole table. The rows stay whole: a
+    row's block does not depend on the data shard that holds it."""
+    from fraud_detection_tpu_torch.parallel.collectives import psum_model
+
+    block = psum_model(_model_partials(wide_tables, idx).unsqueeze(0))[0]
+    return block * has_entity[:, None]
 
 
 # --------------------------------------------------------------------------

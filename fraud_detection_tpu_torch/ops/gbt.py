@@ -291,7 +291,10 @@ def gbt_fit(
     a process of a group; padded rows weigh 0) and every level's histogram
     and the leaf sums are the shards' global sums (:func:`_split_hist`):
     every process returns the same forest, on the card bitwise the
-    unsharded fit's (a given ``mesh`` fixes the device)."""
+    unsharded fit's (a given ``mesh`` fixes the device). One shard in one
+    process on the card fits unsharded: ``gbt_hist``'s whole launch a
+    level, the same forest; the CPU keeps the split phase there too, so its
+    forest does not depend on the shard count."""
     if sharded and mesh is not None:
         dev = mesh.device
         x_np = (x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor)
@@ -313,16 +316,22 @@ def gbt_fit(
     edges = compute_bin_edges(x_np, cfg.n_bins)
     base_logit = float(np.float32(np.log(cfg.base_score / (1.0 - cfg.base_score))))
     binned_np = bin_features_host(x_np, edges, cfg.n_bins)
+    if sharded:
+        from fraud_detection_tpu_torch.parallel.mesh import default_mesh
+
+        mesh = mesh or default_mesh(dev)
+        # one shard in one process on the card: the whole launch a level is
+        # the split phase's result bit for bit, without its five steps
+        if mesh.size * mesh.processes == 1 and dev.type == "cuda":
+            sharded = False
     if not sharded:
         feats, threshs, leaves = _boost(
             torch.from_numpy(binned_np).to(dev), torch.from_numpy(y_np).to(dev),
             torch.from_numpy(w).to(dev), base_logit, cfg,
         )
     else:
-        from fraud_detection_tpu_torch.parallel.mesh import default_mesh
         from fraud_detection_tpu_torch.parallel.sharding import shard_batch
 
-        mesh = mesh or default_mesh(dev)
         # padded rows: bin 0, label 0, weight 0 (so g = h = 0: inert)
         binned, y_dev, w_dev = (shard_batch(a, mesh)[0] for a in (binned_np, y_np, w))
         feats, threshs, leaves = _boost(

@@ -102,7 +102,8 @@ def logistic_fit_lbfgs(
     rows carry weight 0): each shard computes its partial loss on its own
     rows with its copy of the parameters (``replicate``), the data term is
     their ``psum``, and the gradient reaching the parameters is the fold of
-    the shards' gradients — the same on every process.
+    the shards' gradients — the same on every process. One global shard
+    takes the unsharded graph on the mesh's device.
 
     ``torch.optim.LBFGS`` reads the loss and the gradient norm on the host
     at every iteration, so on the card each iteration waits for the device.
@@ -111,11 +112,18 @@ def logistic_fit_lbfgs(
     sw_np = _resolve_sample_weight(y_np, None, class_weight)
     y_pm_np = np.where(y_np > 0, 1.0, -1.0).astype(np.float32)
     if sharded:
-        from fraud_detection_tpu_torch.parallel.collectives import psum, replicate
         from fraud_detection_tpu_torch.parallel.mesh import default_mesh
-        from fraud_detection_tpu_torch.parallel.sharding import batch_sharding, shard_batch
 
         mesh = mesh or default_mesh()
+        if mesh.size * mesh.processes == 1:
+            # one global shard: the unsharded graph, whose bits the
+            # one-shard fold gives anyway, without its per-shard copies
+            sharded = False
+            x = torch.as_tensor(x).float().to(mesh.device)
+    if sharded:
+        from fraud_detection_tpu_torch.parallel.collectives import psum, replicate
+        from fraud_detection_tpu_torch.parallel.sharding import batch_sharding, shard_batch
+
         layout = batch_sharding(mesh)
         x_in = x.float() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
         xt = layout.segments(shard_batch(x_in, mesh)[0])

@@ -634,11 +634,14 @@ class BatchScorer(_BucketedScorer):
             args = (self._raw_coef, self.intercept)
         return _cast_scores(_raw_score_linear(args, x), out_dtype)
 
-    def table_occupancy(self) -> list[float]:
-        """The wide family's share of non-zero learned weights in the
-        table, one entry a model shard (one here: the
-        ``wide_bucket_occupancy`` gauge), on the host."""
-        return [float(np.mean(np.abs(self._wide_table_np) > 1e-12))]
+    def table_occupancy(self, n_model_shards: int = 1) -> list[float]:
+        """The wide family's share of non-zero learned weights in each
+        model shard's column slice of the table (the
+        ``wide_bucket_occupancy{model_shard}`` gauge), on the host."""
+        t = self._wide_table_np
+        per = t.shape[0] // max(int(n_model_shards), 1)
+        return [float(np.mean(np.abs(t[s * per:(s + 1) * per]) > 1e-12))
+                for s in range(max(int(n_model_shards), 1))]
 
 
 class GBTBatchScorer(_BucketedScorer):

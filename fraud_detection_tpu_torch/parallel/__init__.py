@@ -2,16 +2,19 @@
 ``parallel/``): a ``(data, model)`` grid of shards on one device a process
 (:mod:`.mesh`), spanning several processes after
 :func:`initialize_distributed`; how a tensor's leading axis splits over it
-(:mod:`.sharding`); and the reductions over the data axis
-(:mod:`.collectives`)."""
+(:mod:`.sharding`); and the reductions over the data axis and, inside a
+process, the model axis (:mod:`.collectives`)."""
 
 from fraud_detection_tpu_torch.parallel.collectives import (  # noqa: F401
     all_gather,
+    all_gather_blocks,
     data_parallel,
     pmax,
     pmean,
     psum,
+    psum_model,
     psum_scatter,
+    psum_scatter_blocks,
     replicate,
 )
 from fraud_detection_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -23,6 +26,7 @@ from fraud_detection_tpu_torch.parallel.mesh import (  # noqa: F401
     create_mesh,
     default_mesh,
     device_count,
+    global_mesh,
     initialize_distributed,
     process_count,
     process_index,
@@ -30,6 +34,7 @@ from fraud_detection_tpu_torch.parallel.mesh import (  # noqa: F401
 from fraud_detection_tpu_torch.parallel.sharding import (  # noqa: F401
     ShardLayout,
     batch_sharding,
+    data_sharding,
     pad_to_multiple,
     replicated,
     shard_batch,

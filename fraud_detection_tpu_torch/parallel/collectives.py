@@ -1,6 +1,8 @@
 """Collectives over the data axis: the JAX package's ``parallel/
 collectives.py`` (``psum_data``, ``pmean_data``, ``all_gather_data``,
-``data_parallel``) with ``psum_scatter`` and ``pmax`` beside them.
+``data_parallel``) with ``psum_scatter`` and ``pmax`` beside them, and the
+model axis's (:func:`psum_model`, :func:`all_gather_blocks`,
+:func:`psum_scatter_blocks`).
 
 Inside ``shard_map`` a JAX collective reduces one value a device. Here a
 process holds its shards' values stacked on a leading *local shard axis*
@@ -22,6 +24,14 @@ as ``psum`` and its broadcast are in JAX: the gradient of a ``psum`` reaches
 every local partial unchanged, and the gradient of a replicated tensor is
 the ``psum`` (the same fold) of its shards' gradients, so autograd through
 per-shard partials gives every process the gradient of the global sum.
+
+The model axis. A wide program's state is a local ``(data, model, ...)``
+grid (the second axis the mesh's ``model``), and the model axis lies
+inside a process: ranks split the data axis only. :func:`psum_model`
+folds over it in model order with no backend; :func:`all_gather_blocks`
+and :func:`psum_scatter_blocks` are the data-axis collectives inside each
+model group. At a model axis of 1 each is its data-axis counterpart's
+bits.
 
 Across processes the backend is ``nccl`` (a card a rank: the tensors stay
 on the card) or ``gloo`` (the CPU, or ranks sharing a card: the partials
@@ -176,6 +186,63 @@ def replicate(t: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
     if t.requires_grad and torch.is_grad_enabled():
         return _Replicate.apply(t, mesh)
     return t.unsqueeze(0).expand(mesh.data, *t.shape)
+
+
+def _check_grid(parts: torch.Tensor, mesh: Mesh | None) -> None:
+    if parts.dim() < 2 or (
+            mesh is not None and tuple(parts.shape[:2]) != (mesh.data, mesh.model)):
+        raise ValueError(
+            f"a model-axis collective over a {mesh.data}x{mesh.model} local grid "
+            f"wants leading axes ({mesh.data}, {mesh.model}), got shape "
+            f"{tuple(parts.shape)}"
+        )
+
+
+def psum_model(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+    """Sum over the model axis: ``parts`` ``(mesh.data, mesh.model, ...)``
+    → ``(mesh.data, ...)``, folded left to right in model order (``((m0 +
+    m1) + m2) + …``). A process holds its whole model axis, so nothing
+    crosses processes, and without ``mesh`` the grid's own leading axes
+    are taken as they are; at a model axis of 1 the partial comes back
+    unchanged."""
+    _check_grid(parts, mesh)
+    out = parts[:, 0]
+    for m in range(1, parts.shape[1]):
+        out = out + parts[:, m]
+    return out
+
+
+def all_gather_blocks(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+    """Each model group's column block: ``parts`` ``(mesh.data, mesh.model,
+    k)`` (shard ``(d, m)``'s ``k`` columns) → ``(mesh.model,
+    mesh.global_data·k)``, row ``m`` the group's data shards' pieces in
+    global shard order — JAX's tiled ``all_gather`` over the data axis
+    inside a model group. At a model axis of 1, :func:`all_gather` of the
+    pieces, flattened."""
+    mesh = _mesh(mesh)
+    _check_grid(parts, mesh)
+    g = _gather(parts, mesh)  # (global_data, model, k)
+    return g.transpose(0, 1).reshape(mesh.model, -1)
+
+
+def psum_scatter_blocks(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+    """:func:`psum_scatter` inside each model group: ``parts`` ``(mesh.data,
+    mesh.model, n, ...)`` (every shard's partial over its group's ``n``
+    columns, ``n`` a multiple of the global data count) → ``(mesh.data,
+    mesh.model, n / global_data, ...)``: the group's partials reduced over
+    the data axis in global shard order, data shard ``g`` receiving slice
+    ``g`` of its group's block. No model-axis collective: a group's columns
+    take gradient only from its own partials."""
+    mesh = _mesh(mesh)
+    _check_grid(parts, mesh)
+    n = parts.shape[2]
+    if n % mesh.global_data:
+        raise ValueError(f"psum_scatter_blocks: {n} does not split over "
+                         f"{mesh.global_data} data shards")
+    total = psum(parts, mesh)  # (model, n, ...)
+    k = n // mesh.global_data
+    own = total.reshape(mesh.model, mesh.global_data, k, *total.shape[2:])
+    return own[:, mesh.shard_offset:mesh.shard_offset + mesh.data].transpose(0, 1)
 
 
 # the JAX package's names

@@ -16,6 +16,11 @@ global shard ``rank·data + s`` is local shard ``s`` of rank ``rank``, as a
 JAX mesh over ``jax.devices()`` spans every process's devices. The
 collectives over that axis are :mod:`.collectives`.
 
+The model axis (the wide family's column-sharded table) lies inside a
+process: shard ``(d, m)`` of a process is index :meth:`Mesh.flat_index` of
+its flattened grid, and ranks split the data axis only
+(:func:`global_mesh` refuses a grid whose model groups would span them).
+
 :func:`create_mesh` takes a device list that repeats one device; a list
 naming two distinct devices raises ``NotImplementedError``: a process
 drives one device, and a card a process is :func:`initialize_distributed`.
@@ -80,6 +85,12 @@ class Mesh:
     @property
     def shard_offset(self) -> int:
         return self.process * self.data
+
+    def flat_index(self, d: int, m: int) -> int:
+        """Local shard ``(d, m)``'s index on the flattened grid, data-major
+        (``d·model + m``: JAX's ``P((DATA_AXIS, MODEL_AXIS))``): the leading
+        axis of the per-shard windows and sub-tables."""
+        return d * self.model + m
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +235,24 @@ def create_mesh(spec: MeshSpec | None = None, devices=None) -> Mesh:
         raise ValueError(f"mesh spec {spec} needs {spec.size} devices, have {n}")
     return Mesh(resolve_device(devices[0]), spec.data, spec.model,
                 processes=process_count(), process=process_index())
+
+
+def global_mesh(spec: MeshSpec, device: str | torch.device | None = None) -> Mesh:
+    """A ``(spec.data × spec.model)`` grid over every process of the group
+    (one process without one) on the serving device (or ``device``): the
+    data axis splits evenly over the processes, each holding ``spec.data /
+    processes`` data shards and the whole model axis. The model axis stays
+    inside a process, so a data axis the processes do not divide — a model
+    group that would span processes — raises ``ValueError``."""
+    procs = process_count()
+    if spec.data < 1 or spec.model < 1 or spec.data % procs:
+        raise ValueError(
+            f"a {spec.data}x{spec.model} grid over {procs} processes: ranks split "
+            "the data axis only and the model axis stays inside a process, so the "
+            f"data axis must be a positive multiple of {procs}"
+        )
+    local = MeshSpec(data=spec.data // procs, model=spec.model)
+    return create_mesh(local, devices=[resolve_device(device)] * local.size)
 
 
 _default_meshes: dict = {}

@@ -74,8 +74,11 @@ tail on its own thread: until it binds, ``/health``, ``/predict``,
 
 The serving mesh: with ``MESH_FLUSH_DEVICES=N`` (N = 2, 4, 8) the fused
 flush runs over N shards of the serving device, each with its own drift
-window and ledger sub-table (``mesh/shardflush``); ``MESH_MODEL_DEVICES >
-1`` fails the start-up (ROADMAP item 12b). With ``MESH_SHARDS=N`` N
+window and ledger sub-table (``mesh/shardflush``); ``MESH_MODEL_DEVICES=M``
+(a power of two) adds the model axis: a ``data × M`` grid, on which the
+wide family's cross table is column-sharded over the model shards and
+every other family splits its rows over the whole grid (the model knob
+alone builds a ``1 × M`` grid). With ``MESH_SHARDS=N`` N
 micro-batchers serve behind the shard front (``mesh/front``): a request
 that no shard can take answers 503 + Retry-After (a status-3 frame on the
 binary lane).
@@ -423,10 +426,12 @@ def create_app(
             def _action_sender(task: str, reason: str) -> None:
                 state["broker"].send_task(task, [reason])
 
-            # the serving mesh (MESH_FLUSH_DEVICES): built before the
-            # watchtower's try, so a setting the port cannot serve
-            # (MESH_MODEL_DEVICES > 1) fails the start-up instead of leaving
-            # an unmonitored app
+            # the serving mesh (MESH_FLUSH_DEVICES × MESH_MODEL_DEVICES; the
+            # model knob alone builds a 1 × M grid, so the wide family's
+            # table column-shards without data sharding): built before the
+            # watchtower's try, so a setting the mesh refuses (a model axis
+            # not a power of two, an explicit grid above 8) fails the
+            # start-up instead of leaving an unmonitored app
             mesh = None
             if config.mesh_flush_devices() > 1 or config.mesh_model_devices() > 1:
                 mesh = serving_mesh(devices=[dev])

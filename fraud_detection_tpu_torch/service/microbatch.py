@@ -610,8 +610,9 @@ class MicroBatcher:
         """Export (and, on a change, log) whether the served wide family's
         crosses ride the fused flush. Off it, every row scores base-only
         through the null fold: ``scorer_wide_fused`` latches 0 and a
-        warning says so. On it, the model shards (1: the single-device
-        gather) and the table's occupancy are exported."""
+        warning says so. On it, the model shards (the serving mesh's model
+        axis: 1 for the single-device gather) and the table's occupancy a
+        model shard are exported."""
         state = (fused, version)
         if state == self._wide_state:
             return
@@ -624,10 +625,12 @@ class MicroBatcher:
                 "through the null fold. scorer_wide_fused=0 exported"
             )
             return
-        metrics.wide_model_shards.set(1)
-        for s, frac in enumerate(scorer.table_occupancy()):
+        drift = getattr(self.watchtower, "drift", None)
+        n_model = int(getattr(drift, "n_model", 1) or 1)
+        metrics.wide_model_shards.set(n_model)
+        for s, frac in enumerate(scorer.table_occupancy(n_model)):
             metrics.wide_bucket_occupancy.labels(str(s)).set(frac)
-        log.info("wide family rides the fused flush (1 model shard)")
+        log.info("wide family rides the fused flush (%d model shard(s))", n_model)
 
     def _note_wide_off(self) -> None:
         """The served family is not wide: ``scorer_wide_fused`` reads 1, no

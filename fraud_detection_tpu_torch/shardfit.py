@@ -23,7 +23,11 @@ own shards' segments kept, as JAX's ``shard_batch`` over a global mesh):
   / ``mesh=``; class weight ``balanced``);
 - ``gbt``: ``ops/gbt.gbt_fit(sharded=True)`` on the raw rows
   (``--trees``, ``--depth``, ``--bins``; the recipe's by default);
-- ``mesh_sgd``: ``mesh/retrain.mesh_sgd_fit`` on the scaled rows.
+- ``mesh_sgd``: ``mesh/retrain.mesh_sgd_fit`` on the scaled rows;
+- ``wide_sgd``: ``mesh/retrain.wide_sgd_fit`` on the scaled rows and the
+  hashed crosses of the raw rows (1,024 buckets, seeded fingerprints, every seventh row without an entity) over a ``--shards ×
+  --model`` grid: the table column-sharded over ``--model`` model shards
+  in each process.
 
 The rows are the CSV's (``--data``) or ``--rows`` Gaussian rows × 30 from
 ``np.random.default_rng(--seed)`` with labels from a seeded linear model.
@@ -54,7 +58,7 @@ from fraud_detection_tpu_torch.parallel.mesh import (
     shutdown_distributed,
 )
 
-FITS = ("psum", "scaler", "lbfgs", "sgd", "gbt", "mesh_sgd")
+FITS = ("psum", "scaler", "lbfgs", "sgd", "gbt", "mesh_sgd", "wide_sgd")
 
 
 def synthetic_rows(rows: int, seed: int, d: int = 30) -> tuple[np.ndarray, np.ndarray]:
@@ -100,6 +104,20 @@ def run_fit(fit: str, x: np.ndarray, y: np.ndarray, mesh, args) -> dict[str, np.
     if fit == "scaler":
         return {k: host(getattr(scaler, k)) for k in ("mean", "scale", "var")}
     xs = scaler_transform(scaler, torch.from_numpy(x).to(mesh.device))
+    if fit == "wide_sgd":
+        from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
+        from fraud_detection_tpu_torch.ops.crosses import CrossSpec, cross_indices
+
+        fps = np.random.default_rng(args.seed + 1).integers(1, 400, x.shape[0]).astype(np.uint32)
+        fps[::7] = 0
+        spec = CrossSpec(n_base=x.shape[1], log2_buckets=10, amount_col=x.shape[1] - 1,
+                         time_col=0)
+        grid = create_mesh(MeshSpec(data=args.shards, model=args.model))
+        p, table = wide_sgd_fit(
+            xs, cross_indices(x, fps, spec, device=mesh.device), (fps != 0).astype(np.float32),
+            y, spec, epochs=4, batch_size=256, lr=0.5, class_weight="balanced", mesh=grid,
+        )
+        return {"coef": host(p.coef), "intercept": host(p.intercept), "table": host(table)}
     if fit == "lbfgs":
         p = logistic_fit_lbfgs(xs, y, max_iter=200, class_weight="balanced",
                                mesh=mesh, sharded=True)
@@ -123,10 +141,11 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", type=int, default=100)
     ap.add_argument("--depth", type=int, default=5)
     ap.add_argument("--bins", type=int, default=256)
+    ap.add_argument("--model", type=int, default=1, help="model shards of --fit wide_sgd")
     ap.add_argument("--out", required=True, help="directory for rank<r>.npz")
     args = ap.parse_args(argv)
-    if args.shards < 1:
-        ap.error(f"--shards must be at least 1, got {args.shards}")
+    if args.shards < 1 or args.model < 1:
+        ap.error(f"--shards and --model must be at least 1, got {args.shards}, {args.model}")
 
     initialize_distributed()
     try:

@@ -27,14 +27,17 @@ given:
    ``SGD_ROW_THRESHOLD`` rows or with ``--solver sgd``; ``--checkpoint-dir``
    makes the SGD fit resumable per epoch). The wide family hashes the raw
    training rows' crosses on the device and fits the base coef and the
-   cross table together (``mesh/retrain.wide_sgd_fit``, 20 epochs). The GBT
+   cross table together (``mesh/retrain.wide_sgd_fit``, 20 epochs, over
+   ``wide_training_mesh()``: ``MESH_MODEL_DEVICES`` model shards, the
+   same bits at every model axis). The GBT
    family fits the
    XGBoost recipe (``GBTConfig``: 100 trees, depth 5, 256 bins, lr 0.1)
-   through the ``gbt_hist`` kernel's split phase, with ``scale_pos_weight``
+   through the ``gbt_hist`` kernel (its split phase across shards), with ``scale_pos_weight``
    = n_neg/n_pos only without SMOTE (the two are alternative imbalance
    corrections). Every fit is sharded over ``parallel.default_mesh()`` on
-   the device, as the JAX trainer's: one shard in one process (bitwise the
-   unsharded fit on the card), one shard a process in a group;
+   the device, as the JAX trainer's: one shard in one process (which
+   takes the unsharded fit: the same bits), one shard a process in a
+   group;
 5. the test AUC (the wide family's through its scorer on the widened test
    rows);
 6. the drift baseline in raw feature space from the test scores (over the
@@ -86,7 +89,7 @@ from fraud_detection_tpu_torch.ledger import (
     synthesize_entities,
 )
 from fraud_detection_tpu_torch.models.gbt import FraudGBTModel
-from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
+from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit, wide_training_mesh
 from fraud_detection_tpu_torch.models.logistic import FraudLogisticModel
 from fraud_detection_tpu_torch.monitor.baseline import build_baseline_profile, save_profile
 from fraud_detection_tpu_torch.ops.crosses import (
@@ -339,9 +342,13 @@ def train(
             idx_train = _raw_cross_indices(torch.as_tensor(x_train, device=dev),
                                            fps_train, spec=wide_spec)
             stages.mark("wide_hash")
+            # the 2-D (data × model) fit: MESH_MODEL_DEVICES model shards,
+            # the table column-owned over them (a model axis of 1: the 1×1
+            # fit, and every model axis gives its bits)
             params, wide_table = wide_sgd_fit(
                 xs_train, idx_train, (fps_train != 0).to(torch.float32), y_train,
-                wide_spec, epochs=20, seed=seed, class_weight=class_weight, device=dev,
+                wide_spec, epochs=20, seed=seed, class_weight=class_weight,
+                mesh=wide_training_mesh(device=dev),
             )
             stages.mark("final_fit")
             feature_names = list(feature_names) + list(wide_spec.cross_names)

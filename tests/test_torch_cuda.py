@@ -2,8 +2,9 @@
 kernels against their plain versions, the served path launching
 ``fused_score``, SMOTE launching ``knn_topk``, the GBT fit launching
 ``gbt_hist`` and TreeSHAP launching ``tree_shap``, the lifecycle loop's
-retrain and hot swap, the lifeboat's recovery on the card, and the
-telemetry layer's probes, memory gauges and device trace.
+retrain and hot swap, the lifeboat's recovery on the card, the
+telemetry layer's probes, memory gauges and device trace, the serving
+mesh, sharded training and the model axis.
 
 They import nothing of JAX, so they run on a machine with the card and no
 JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -1580,8 +1581,9 @@ def test_gbt_hist_split_phase_is_bitwise_the_unsharded_kernel(n, d, n_nodes, n_b
 @pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
 def test_sharded_gbt_fit_on_the_card_is_bitwise_the_unsharded_fit(n_shards):
     """Any shard count grows the unsharded card forest bit for bit (5,003
-    rows: every N above 1 pads); one accumulate a shard, a level and a
-    tree's leaf sums, one finish a histogram."""
+    rows: every N above 1 pads); above one shard, one accumulate a shard,
+    a level and a tree's leaf sums, one finish a histogram; one shard in
+    one process runs the whole launch a level and no split phase."""
     from fraud_detection_tpu_torch.ops import gbt
     from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 
@@ -1596,8 +1598,11 @@ def test_sharded_gbt_fit_on_the_card_is_bitwise_the_unsharded_fit(n_shards):
     sharded = gbt.gbt_fit(x, y, cfg, mesh=mesh, sharded=True)
     hists = cfg.n_trees * (cfg.max_depth + 1)
     assert kernels.GBT_HIST_LAUNCHES == n_shards * hists
-    assert kernels.gbt_hist_split_counts() == {
-        "max": n_shards * hists, "accumulate": n_shards * hists, "finish": hists}
+    if n_shards == 1:  # one shard in one process: the whole launch a level
+        assert kernels.gbt_hist_split_counts() == {"max": 0, "accumulate": 0, "finish": 0}
+    else:
+        assert kernels.gbt_hist_split_counts() == {
+            "max": n_shards * hists, "accumulate": n_shards * hists, "finish": hists}
     for a, b in zip(plain, sharded):
         assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
 
@@ -1657,3 +1662,173 @@ def test_split_phase_wrappers_raise_on_what_the_kernel_does_not_take():
         kernels.gbt_hist_accumulate(bins, local, g, g, 2, 300,
                                     bits, 64, torch.zeros((3, 2, 300, 2), dtype=torch.int64,
                                                           device=dev), q)
+
+
+@pytest.mark.cuda
+def test_one_shard_fits_on_the_card_take_the_unsharded_route(monkeypatch):
+    """``train()``'s fits over the default mesh (one shard, one process):
+    the forest runs ``gbt_hist``'s whole launch a level (split counts 0)
+    and grows the unsharded forest bit for bit; the L-BFGS takes the
+    unsharded graph (no per-shard copy, no psum) with its bits."""
+    from fraud_detection_tpu_torch.ops import gbt
+    from fraud_detection_tpu_torch.ops.logistic import logistic_fit_lbfgs
+    from fraud_detection_tpu_torch.parallel import collectives
+    from fraud_detection_tpu_torch.parallel.mesh import default_mesh
+
+    dev = _require_card()
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((4001, 30)).astype(np.float32)
+    y = (x @ rng.standard_normal(30).astype(np.float32) > 1.0).astype(np.int32)
+    xd = torch.from_numpy(x).to(dev)
+    cfg = gbt.GBTConfig(n_trees=6, max_depth=5, n_bins=256)
+    plain = gbt.gbt_fit(xd, y, cfg)
+    kernels.reset_launch_counts()
+    one = gbt.gbt_fit(xd, y, cfg, mesh=default_mesh(dev), sharded=True)
+    assert kernels.GBT_HIST_LAUNCHES == cfg.n_trees * (cfg.max_depth + 1)
+    assert kernels.gbt_hist_split_counts() == {"max": 0, "accumulate": 0, "finish": 0}
+    for a, b in zip(plain, one):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    calls = []
+    for name in ("replicate", "psum"):
+        real = getattr(collectives, name)
+        monkeypatch.setattr(collectives, name, lambda *a, _r=real, _n=name, **kw: (
+            calls.append(_n), _r(*a, **kw))[1])
+    sharded = logistic_fit_lbfgs(xd, y, max_iter=100, class_weight="balanced",
+                                 mesh=default_mesh(dev), sharded=True)
+    assert calls == []
+    unsharded = logistic_fit_lbfgs(xd, y, max_iter=100, class_weight="balanced")
+    assert torch.equal(sharded.coef, unsharded.coef)
+    assert torch.equal(sharded.intercept, unsharded.intercept)
+
+
+# -- the model axis (item 12b, second PR) ------------------------------------
+
+
+def _wide_served_model(dev, wire, spec, x, fps):
+    from fraud_detection_tpu_torch.ops.crosses import CROSS_NAMES, widen_scaler, widen_with_crosses
+    from fraud_detection_tpu_torch.ops.logistic import LogisticParams
+    from fraud_detection_tpu_torch.ops.scaler import scaler_fit
+
+    rng = np.random.default_rng(2)
+    table = (rng.standard_normal(spec.buckets) * 0.3).astype(np.float32)
+    coef = np.concatenate([rng.standard_normal(30).astype(np.float32) * 0.2,
+                           np.ones(4, np.float32)])
+    names = ["Time"] + [f"V{i}" for i in range(1, 29)] + ["Amount"] + list(CROSS_NAMES)
+    model = FraudLogisticModel(
+        LogisticParams(coef=torch.from_numpy(coef), intercept=torch.tensor(-0.3)),
+        widen_scaler(scaler_fit(torch.from_numpy(x)), 4), names, io_dtype=wire, device=dev,
+        wide_spec=spec, wide_table=table)
+    xw = widen_with_crosses(x, fps, table, spec, device="cpu")
+    prof = build_baseline_profile(xw[:2048], model.scorer.predict_proba(xw[:2048]),
+                                  feature_names=names, device="cpu")
+    return model, prof
+
+
+def _wide_flushes(model, mon, x, fps, flushes):
+    """The batcher's wide flushes (explain on) through ``mon``: each one's
+    (scores, reason indices, reason values) on the host and its
+    ``fused_score`` launches."""
+    from fraud_detection_tpu_torch.ops.scorer import _bucket
+
+    scorer = model.scorer
+    spec = scorer.fused_spec()
+    outs, launches = [], []
+    for lo, n in flushes:
+        items = [(x[i], None, None, (0, int(fps[i]), 0.0) if fps[i] else None)
+                 for i in range(lo, lo + n)]
+        slot = scorer.staging.acquire(_bucket(n, scorer.min_bucket))
+        try:
+            hx = scorer.stage_items(slot, items)
+            wrows = MicroBatcher._stage_wide(scorer, slot, items)
+            before = kernels.FUSED_SCORE_LAUNCHES
+            out = mon.fused_flush(
+                scorer.to_device(hx), scorer.to_device(slot.valid), n, spec.score_args,
+                spec.score_fn, dequant_scale=spec.dequant_scale, score_codes=spec.score_codes,
+                explain_args=spec.explain_args, explain_k=3, wide_args=spec.wide,
+                wide_rows=wrows)
+            outs.append([t.cpu().numpy()[:n] for t in out])
+            launches.append(kernels.FUSED_SCORE_LAUNCHES - before)
+        finally:
+            scorer.staging.release(slot)
+    return outs, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(2, 2), (4, 2), (2, 4)])
+@pytest.mark.parametrize("wire", ["float32", "int8"])
+def test_2d_wide_flush_on_the_card_is_the_1x1_flush(grid, wire):
+    """The 2-D wide flush on the card: scores, reason indices and values
+    bitwise the card's 1×1 flush and its per-data-shard loop, one
+    ``fused_score`` launch a flush (the loop: one a data shard), the merged
+    windows the single window; against the same 2-D flush on the CPU,
+    scores within 1e-6, indices equal, the windows' counts equal."""
+    from fraud_detection_tpu_torch.mesh.shardflush import (
+        MeshDriftMonitor,
+        ShardLoopMonitor,
+        merge_window,
+    )
+    from fraud_detection_tpu_torch.mesh.topology import serving_mesh
+    from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+
+    dev = _require_card()
+    spec, x, fps, _ = _wide_inputs()
+    flushes = ((0, 5), (64, 1000), (1200, 300))
+    d, m = grid
+    served = {}
+    for where in (dev, torch.device("cpu")):
+        model, prof = _wide_served_model(where, wire, spec, x, fps)
+        mesh = serving_mesh(d, devices=[where], model_devices=m)
+        mons = (DriftMonitor(prof, halflife_rows=float("inf"), device=where),
+                MeshDriftMonitor(prof, mesh, halflife_rows=float("inf")),
+                ShardLoopMonitor(prof, mesh, halflife_rows=float("inf")))
+        runs = [_wide_flushes(model, mon, x, fps, flushes) for mon in mons]
+        served[where.type] = (runs[1][0], [t.cpu().numpy() for t in mons[1].shard_window.tensors()])
+        if where.type != "cuda":
+            continue
+        assert runs[0][1] == runs[1][1] == [1, 1, 1] and runs[2][1] == [d] * 3
+        for other in (runs[0][0], runs[2][0]):
+            for a, b in zip(runs[1][0], other):
+                for u, v in zip(a, b):
+                    assert u.tobytes() == v.tobytes()
+        for a, b in zip(mons[1].shard_window.tensors(), mons[2].shard_window.tensors()):
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+        for a, b in zip(merge_window(mons[1].shard_window).tensors(), mons[0].window.tensors()):
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    for (sg, ig, _), (sc, ic, _) in zip(served["cuda"][0], served["cpu"][0]):
+        np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(ig, ic)
+    for a, c in zip(served["cuda"][1], served["cpu"][1]):
+        np.testing.assert_array_equal(a, c)
+
+
+@pytest.mark.cuda
+def test_2d_wide_fit_on_the_card_is_bitwise_across_the_model_axis():
+    """The 2-D wide fit on the card: two fits bitwise equal; at a data axis
+    of 1 and of 2 every model axis gives the same bits; the card's 2×2 fit
+    within 1e-5 of the CPU's."""
+    from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
+    from fraud_detection_tpu_torch.ops.crosses import cross_indices
+    from fraud_detection_tpu_torch.parallel.mesh import MeshSpec, global_mesh
+
+    dev = _require_card()
+    spec, x, fps, y = _wide_inputs()
+    idx = cross_indices(x, fps, spec, device="cuda")
+    xs = ((x - x.mean(0)) / (x.std(0) + 1e-6)).astype(np.float32)
+    has = (fps != 0).astype(np.float32)
+    kw = dict(epochs=4, batch_size=512, lr=1.0, seed=1, class_weight="balanced")
+
+    def fit(d, m, where=dev):
+        p, t = wide_sgd_fit(xs, idx, has, y, spec, mesh=global_mesh(MeshSpec(d, m), where), **kw)
+        return [a.cpu().numpy() for a in (p.coef, p.intercept, t)]
+
+    for d, models in ((1, (1, 2, 4)), (2, (1, 2, 4))):
+        ref = fit(d, models[0])
+        for m in models:
+            for a, b in zip(fit(d, m), ref):
+                assert a.tobytes() == b.tobytes(), (d, m)
+    card, again, cpu = fit(2, 2), fit(2, 2), fit(2, 2, "cpu")
+    for a, b in zip(card, again):
+        assert a.tobytes() == b.tobytes()
+    for a, c in zip(card, cpu):
+        np.testing.assert_allclose(a, c, rtol=0, atol=1e-5)
+    assert np.abs(cpu[2]).max() > 0.1

@@ -1,7 +1,8 @@
-"""Multi-process bring-up of the port's sharded training (item 12b, the data
-axis), on the CPU: ``parallel.initialize_distributed`` under ``gloo``, the
-collectives across the process boundary, and sharded fits in two processes
-of 4 shards each held bitwise against one process of 8 shards.
+"""Multi-process bring-up of the port's sharded training (item 12b), on the
+CPU: ``parallel.initialize_distributed`` under ``gloo``, the collectives
+across the process boundary, sharded fits in two processes of 4 shards
+each held bitwise against one process of 8 shards, and the wide family's
+2-D fit in two processes of a 2 × 2 grid against one process of 4 × 2.
 
 The children run ``python -m fraud_detection_tpu_torch.shardfit`` with
 ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK`` as ``torchrun``
@@ -38,7 +39,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _ranks(world: int, shards: int, out: str) -> list[tuple[int, str]]:
+#: the wide family's 2-D fit: a 2 × 2 grid a rank against one process of 4 × 2
+WIDE_ARGS = ["--fit", "wide_sgd", "--model", "2", "--rows", "1200", "--seed", "4"]
+
+
+def _ranks(world: int, shards: int, out: str, fit_args=FIT_ARGS) -> list[tuple[int, str]]:
     """Run ``world`` shardfit ranks; returns each one's (exit code, output)."""
     port = _free_port()
     procs = []
@@ -48,7 +53,7 @@ def _ranks(world: int, shards: int, out: str) -> list[tuple[int, str]]:
                    WORLD_SIZE=str(world), RANK=str(rank), OMP_NUM_THREADS="1",
                    PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "fraud_detection_tpu_torch.shardfit", *FIT_ARGS,
+            [sys.executable, "-m", "fraud_detection_tpu_torch.shardfit", *fit_args,
              "--shards", str(shards), "--out", out],
             env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
@@ -92,6 +97,25 @@ def test_two_gloo_ranks_of_four_shards_are_one_rank_of_eight(tmp_path, monkeypat
         for key in one.files:
             if key.startswith("psum_"):
                 continue
+            assert got[key].tobytes() == one[key].tobytes(), (rank, key)
+
+
+def test_two_gloo_ranks_of_a_2x2_wide_fit_are_one_rank_of_4x2(tmp_path, monkeypatch):
+    """The wide family's 2-D fit in two processes of a 2 × 2 grid each
+    (the model axis inside each rank, the data axis across them) is, on
+    both ranks, bitwise the one-process 4 × 2 fit: coef, intercept and the
+    gathered table."""
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert shardfit.main([*WIDE_ARGS, "--shards", "4", "--out", str(tmp_path / "one")]) == 0
+    one = np.load(tmp_path / "one" / "rank0.npz")
+    assert np.abs(one["wide_sgd_table"]).max() > 0.0
+    for rank, (rc, text) in enumerate(_ranks(2, 2, str(tmp_path / "two"), WIDE_ARGS)):
+        assert rc == 0, f"rank {rank} failed:\n{text}"
+        s = _summary(text)
+        assert (s["rank"], s["world"], s["backend"], s["global_shards"]) == (rank, 2, "gloo", 4)
+        got = np.load(tmp_path / "two" / f"rank{rank}.npz")
+        for key in ("wide_sgd_coef", "wide_sgd_intercept", "wide_sgd_table"):
             assert got[key].tobytes() == one[key].tobytes(), (rank, key)
 
 

@@ -78,6 +78,7 @@ from fraud_detection_tpu_torch.mesh.topology import (
     serving_mesh_size,
 )
 from fraud_detection_tpu_torch.monitor.drift import DriftMonitor
+from fraud_detection_tpu_torch.parallel import mesh as pmesh
 from fraud_detection_tpu_torch.monitor.watchtower import Thresholds, Watchtower
 from fraud_detection_tpu_torch.ops.crosses import CrossSpec
 from fraud_detection_tpu_torch.ops.logistic import LogisticParams
@@ -91,6 +92,7 @@ from fraud_detection_tpu_torch.parallel import (
     MeshSpec,
     batch_sharding,
     create_mesh,
+    global_mesh,
     pad_to_multiple,
     replicated,
     shard_batch,
@@ -219,11 +221,31 @@ def test_serving_mesh_shapes_and_refusals(monkeypatch):
             _mesh(bad)
         with pytest.raises(ValueError):
             jax_serving_mesh(bad)
-    with pytest.raises(ValueError, match="item 12b"):
-        serving_mesh(2, devices=["cpu"], model_devices=2)
-    monkeypatch.setenv("MESH_MODEL_DEVICES", "4")
-    with pytest.raises(ValueError, match="item 12b"):
+    # the accepted 2-D grids, as JAX's
+    for n, m in ((2, 2), (4, 2), (2, 4), (1, 8)):
+        mesh = serving_mesh(n, devices=["cpu"], model_devices=m)
+        assert mesh.shape == {"data": n, "model": m} == dict(jax_serving_mesh(n, model_devices=m).shape)
+        assert [mesh.flat_index(d, k) for d in range(n) for k in range(m)] == list(range(n * m))
+    # the refusals that remain: a model axis not a power of two, an explicit
+    # grid above the smallest bucket, a model axis spanning processes
+    for n, m in ((2, 3), (4, 4), (1, 16)):
+        with pytest.raises(ValueError):
+            serving_mesh(n, devices=["cpu"], model_devices=m)
+        with pytest.raises(ValueError):
+            jax_serving_mesh(n, model_devices=m)
+    monkeypatch.setenv("MESH_MODEL_DEVICES", "6")
+    with pytest.raises(ValueError, match="power of two"):
         serving_mesh_model_size()
+    monkeypatch.setenv("MESH_MODEL_DEVICES", "4")
+    assert serving_mesh_model_size() == 4
+    monkeypatch.setattr(pmesh, "process_count", lambda: 2)
+    with pytest.raises(ValueError, match="model axis stays inside a process"):
+        global_mesh(MeshSpec(data=1, model=2), "cpu")
+    assert global_mesh(MeshSpec(data=4, model=2), "cpu").shape == {"data": 2, "model": 2}
+    monkeypatch.setattr(pmesh, "process_count", lambda: 1)
+    # the knobs' grid clamps its data axis to stay within 8 shards, as JAX's
+    monkeypatch.setenv("MESH_FLUSH_DEVICES", "8")
+    assert _mesh(None).shape == {"data": 2, "model": 4} == dict(jax_serving_mesh().shape)
     monkeypatch.setenv("MESH_MODEL_DEVICES", "1")
     assert serving_mesh_model_size() == 1
     monkeypatch.setenv("MESH_FLUSH_DEVICES", "6")
@@ -1307,12 +1329,29 @@ def test_no_healthy_shards_answers_503_and_status_3(mesh_env, monkeypatch):
         thread.join(timeout=5.0)
 
 
-def test_model_axis_above_1_fails_the_start_up(mesh_env, monkeypatch):
-    """``MESH_MODEL_DEVICES > 1`` raises at start-up, naming item 12b: the
-    app never serves unsharded or unmonitored in its place."""
+def test_model_axis_of_2_serves_on_a_2x2_grid(mesh_env, monkeypatch):
+    """``MESH_FLUSH_DEVICES=2 MESH_MODEL_DEVICES=2`` starts the app on a 2×2
+    grid (as JAX's does): its monitor is the mesh monitor over 4 shards,
+    ``/predict`` answers, the rows fold into the per-shard windows and
+    ``/mesh/status`` stays the shard front's (``MESH_SHARDS=2``), naming
+    no flush axis. A model axis
+    that is not a power of two still fails the start-up."""
+    monkeypatch.setenv("MESH_FLUSH_DEVICES", "2")
     monkeypatch.setenv("MESH_MODEL_DEVICES", "2")
     with TestClient(create_app()) as tc:
-        with pytest.raises(ValueError, match="item 12b"):
+        assert tc.get("/health").status_code == 200
+        drift = tc.app.state["watchtower"].drift
+        assert isinstance(drift, MeshDriftMonitor)
+        assert (drift.n_data, drift.n_model, drift.n_shards) == (2, 2, 4)
+        r = tc.post("/predict", json=_tx(np.linspace(-1.0, 1.0, 30)))
+        assert r.status_code == 200 and 0.0 <= r.json()["score"] <= 1.0
+        assert float(drift.shard_window.n_rows.sum()) == 1.0
+        status = tc.get("/mesh/status").json()
+        assert status["enabled"] is True and status["shards"] == 2
+        assert "model" not in json.dumps(status)
+    monkeypatch.setenv("MESH_MODEL_DEVICES", "3")
+    with TestClient(create_app()) as tc:
+        with pytest.raises(ValueError, match="power of two"):
             tc.get("/health")
         assert tc.app.state["watchtower"] is None and tc.app.state["batcher"] is None
 
