@@ -463,6 +463,24 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    families as it fits (one shard) and unsharded, in turns
    (``train_turns``): the models bitwise equal, the four GBT runs 3,600
    whole ``gbt_hist`` launches each and no split phase.
+20. **the range on the card** — the eleven in-process scenarios of
+   ``range/scenarios.py`` through ``run_scenario`` on ``cuda`` at their
+   default sizes (a private scratch directory for the two that need one):
+   one line a scenario with its wall, every invariant (name, ok, detail),
+   its metrics and its ``fused_score`` / ``tree_shap`` / ``gbt_hist``
+   launches (the counts zeroed before it). Fatal: any invariant false, no
+   ``fused_score`` launch in a scenario that scores a logistic or ledger
+   model (all but the forest's), no ``tree_shap`` launch in
+   ``gbt_explain_under_burst`` (its fused TreeSHAP leg), no ``gbt_hist``
+   launch across it (``build_gbt_model``'s fit), a kernel library loaded
+   after a hot swap. ``num_device_alloc`` across each swap is printed,
+   not gated. Then ``label_delay``, ``control_plane_chaos``,
+   ``poison_entity_state`` and ``drift_onset`` again with
+   ``device="cpu"``: their deterministic metrics equal the card's,
+   ``mule_count`` within 1e-5 relative, the drift detected at the card's
+   sample point or an adjacent one. The phase's wall is printed. The
+   earlier phases' heap is collected and frozen first (``gc.freeze``), so
+   a full collection inside a burst scans only the range's objects.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -8319,6 +8337,143 @@ def model_axis_phase(work: Path, wide_dir: Path, card: str) -> dict:
             "repair": repair}
 
 
+RANGE_NAMES = (
+    "burst", "drift_onset", "fraud_ring", "label_delay", "control_plane_chaos",
+    "hot_swap", "shard_kill_mid_swap", "replica_burst", "explain_under_burst",
+    "gbt_explain_under_burst", "poison_entity_state",
+)
+#: the scenarios that score a logistic or ledger model: every one but the
+#: forest's launches ``fused_score`` (a served flush, or ``predict_proba``)
+RANGE_FUSED = tuple(n for n in RANGE_NAMES if n != "gbt_explain_under_burst")
+#: card against CPU: the metrics each re-run scenario fixes exactly
+RANGE_CPU_EXACT = {
+    "label_delay": ("labels_released", "labels_flipped", "labels_delivered",
+                    "poisoned_batches_rejected", "store_window_rows"),
+    "control_plane_chaos": ("challenger_version", "resume_outcome",
+                            "duplicate_promote_outcome", "redeliveries"),
+    "poison_entity_state": ("poison_fired", "mule_slot"),
+}
+RANGE_MULE_RTOL = 1e-5
+
+
+def range_sample_points(seed: int = 2026, total_rows: int = 6144) -> list:
+    """The rows at which ``drift_onset``'s fold samples the monitor: the end
+    of every 4th batch of its campaign, and the last row."""
+    import numpy as np
+
+    from fraud_detection_tpu_torch.range import traffic
+
+    w_true = np.random.default_rng(seed).standard_normal(30).astype(np.float32)
+    spec = traffic.CampaignSpec(total_rows=total_rows, seed=seed, w_true=w_true,
+                                drift=traffic.DriftCampaign(onset_row=2048, mean_shift=3.0))
+    ends = [b.start_row + b.rows.shape[0]
+            for bi, b in enumerate(traffic.CampaignTraffic(spec).batches()) if bi % 4 == 0]
+    return ends + [total_rows]
+
+
+def range_run(name: str, work: Path, dev: str) -> tuple[dict, dict, float]:
+    """One scenario through ``run_scenario`` on ``dev``, the launch counts
+    zeroed before it: ``(result dict, launches, wall seconds)``."""
+    import torch
+
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.range.scenarios import NEEDS_TMPDIR, run_scenario
+
+    kw = {"device": dev}
+    if name in NEEDS_TMPDIR:
+        tmp = work / f"range_{name}_{dev}"
+        tmp.mkdir()
+        kw["tmpdir"] = str(tmp)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    res = run_scenario(name, **kw)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return res.to_dict(), kernels.launch_counts(), wall
+
+
+def range_phase(work: Path, card: str) -> dict:
+    """Phase 20: the range's eleven in-process scenarios on the card, four
+    again on the CPU."""
+    import gc
+
+    t_phase = time.perf_counter()
+    for key in [k for k in os.environ if k.startswith(TEL_CLEAR_PREFIXES)
+                or k in TEL_CLEAR]:
+        os.environ.pop(key)
+    os.environ["DEVICE"] = "cuda"
+    # the earlier phases' heap is this script's, not the range's serving
+    # process's: collected once and frozen, so a full collection inside a
+    # scenario's burst (its p99 is a closed-loop host-clock probe) scans
+    # only what the range allocates
+    gc.collect()
+    gc.freeze()
+    try:
+        return _range_phase(work, card, t_phase)
+    finally:
+        gc.unfreeze()
+
+
+def _range_phase(work: Path, card: str, t_phase: float) -> dict:
+    totals = {"fused_score": 0, "gbt_hist": 0, "tree_shap": 0}
+    card_runs = {}
+    for name in RANGE_NAMES:
+        d, launches, wall = range_run(name, work, "cuda")
+        card_runs[name] = d
+        for k in totals:
+            totals[k] += launches[k]
+        invs = "; ".join(f"{k} {v['ok']} {v['detail']}" for k, v in d["invariants"].items())
+        print(f"phase20 {name}: {wall:.3f} s wall (host clock, device synchronised); "
+              f"invariants: {invs}; metrics {json.dumps(d['metrics'])}; launches "
+              f"fused_score {launches['fused_score']}, tree_shap {launches['tree_shap']}, "
+              f"gbt_hist {launches['gbt_hist']} ({card})")
+        bad = [k for k, v in d["invariants"].items() if not v["ok"]]
+        if bad:
+            raise AssertionError(f"phase20 {name}: invariants failed {bad}: {d['invariants']}")
+        if name in RANGE_FUSED and launches["fused_score"] == 0:
+            raise AssertionError(f"phase20 {name}: no fused_score launch")
+        if name == "gbt_explain_under_burst" and (
+                launches["tree_shap"] == 0 or launches["gbt_hist"] == 0):
+            raise AssertionError(f"phase20 {name}: launches {launches} (tree_shap in the "
+                                 "explain leg, gbt_hist in build_gbt_model's fit)")
+        if "post_swap_compiles" in d["metrics"]:
+            if d["metrics"]["post_swap_compiles"] != 0:
+                raise AssertionError(f"phase20 {name}: a kernel library loaded after the "
+                                     f"swap: {d['metrics']['post_swap_compiles']}")
+            print(f"phase20 {name}: num_device_alloc across the swap to the end of the "
+                  f"burst +{d['metrics']['post_swap_device_allocs']} (printed, not gated)")
+    cpu = {}
+    for name in ("label_delay", "control_plane_chaos", "poison_entity_state", "drift_onset"):
+        d, _, wall = range_run(name, work, "cpu")
+        cpu[name] = d
+        bad = [k for k, v in d["invariants"].items() if not v["ok"]]
+        if bad:
+            raise AssertionError(f"phase20 {name} on the CPU: invariants failed {bad}")
+        cm, gm = card_runs[name]["metrics"], d["metrics"]
+        for key in RANGE_CPU_EXACT.get(name, ()):
+            if cm[key] != gm[key]:
+                raise AssertionError(f"phase20 {name}: {key} card {cm[key]} != cpu {gm[key]}")
+        agree = {key: cm[key] for key in RANGE_CPU_EXACT.get(name, ())}
+        if name == "poison_entity_state":
+            gap = abs(cm["mule_count"] - gm["mule_count"]) / abs(gm["mule_count"])
+            if gap > RANGE_MULE_RTOL:
+                raise AssertionError(f"phase20 mule_count card {cm['mule_count']} cpu "
+                                     f"{gm['mule_count']}")
+            agree["mule_count_rel_gap"] = gap
+        if name == "drift_onset":
+            points = range_sample_points()
+            a, b = points.index(cm["detected_row"]), points.index(gm["detected_row"])
+            if abs(a - b) > 1:
+                raise AssertionError(f"phase20 drift_onset: detected at row "
+                                     f"{cm['detected_row']} (card), {gm['detected_row']} (cpu)")
+            agree["detected_row"] = (cm["detected_row"], gm["detected_row"])
+        print(f"phase20 {name} card = cpu: {json.dumps(agree)} (cpu run {wall:.3f} s)")
+    wall = time.perf_counter() - t_phase
+    print(f"phase20: the range on the card in {wall:.3f} s, launches {totals} ({card})")
+    return {"launches": totals, "card": card_runs, "cpu": cpu, "wall_s": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -8402,6 +8557,7 @@ def main() -> int:
         mesh = mesh_phase(work, Path(gbt_dir), ledger["model_dir"], wide["model_dir"], card)
         sharded = sharded_training_phase(work, card)
         model_axis = model_axis_phase(work, wide["model_dir"], card)
+        ranged = range_phase(work, card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS.get(name) or ENTRY_POINTS[name]
@@ -8432,6 +8588,7 @@ def main() -> int:
             mesh_launches=mesh["launches"]["fused_score"],
             mesh_retrain_launches=sharded["retrain"]["fused_score"],
             model_axis_launches=model_axis["flushes"]["fused_score"],
+            range_launches=ranged["launches"]["fused_score"],
             model_axis_flush_1024=model_axis["timing"],
             model_axis_fit_wall_s=model_axis["fits"]["walls_s"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
@@ -8462,6 +8619,7 @@ def main() -> int:
         row("gbt_hist", gbt_trained["gbt_hist"], hist, hist["timing"][16],
             hist["timing"][16]["library_ms"], n=31684, nodes=16,
             model_axis_launches=model_axis["repair"]["launches"]["gbt_hist"],
+            range_launches=ranged["launches"]["gbt_hist"],
             train_turns_s={f: model_axis["repair"][f]["walls_s"] for f in ("logistic", "gbt")},
             at_level_0={key: hist["timing"][1][key] for key in
                         ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -8499,6 +8657,7 @@ def main() -> int:
             store_launches=store["tree_shap"],
             telemetry_trace_kernels=telemetry["gbt"]["trace_tree_shap"],
             mesh_launches=mesh["launches"]["tree_shap"],
+            range_launches=ranged["launches"]["tree_shap"],
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}

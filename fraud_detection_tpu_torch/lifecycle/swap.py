@@ -78,15 +78,16 @@ def _base_names(model) -> list:
     return list(getattr(model, "base_feature_names", model.feature_names))
 
 
-def warm_scorer(scorer) -> None:
-    """Score one zero batch per bucket of the ladder up to
-    ``SCORER_MAX_BATCH`` for a freshly loaded model (both widths of a
-    widened scorer), so the swap pause is a pointer write: the kernel is
-    built and the allocator's blocks are cached before the first post-swap
-    flush. Runs under ``expected_compiles``: a reload's ladder is not a
-    recompile storm."""
+def warm_scorer(scorer, max_batch: int | None = None) -> None:
+    """Score one zero batch per bucket of the ladder up to ``max_batch``
+    (default ``SCORER_MAX_BATCH``) for a freshly loaded model (both widths
+    of a widened scorer), so the swap pause is a pointer write: the kernel
+    is built and the allocator's blocks are cached before the first
+    post-swap flush. Runs under ``expected_compiles``: a reload's ladder is
+    not a recompile storm."""
+    max_batch = max_batch or config.scorer_max_batch()
     with expected_compiles():
-        scorer.warmup(_bucket(config.scorer_max_batch(), scorer.min_bucket))
+        scorer.warmup(_bucket(max_batch, scorer.min_bucket))
 
 
 def warm_fused_ladder(

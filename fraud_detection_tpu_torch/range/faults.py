@@ -1,9 +1,8 @@
-"""Control-plane fault injection: the named points the lifecycle fires.
+"""Control-plane fault injection: the chaos half of the fraud range.
 
-The port's copy of the JAX package's ``range/faults.py``, the part the
-lifecycle loop and the lifeboat call: production code carries *named injection points* —
-one :func:`fire` (or :func:`patched`) call at each place a drill needs to
-break things:
+The port's copy of the JAX package's ``range/faults.py``. Production code
+carries *named injection points* — one :func:`fire` (or :func:`patched`)
+call at each place a drill needs to break things:
 
 - ``conductor.promoting.pre_alias`` / ``.mid_alias`` / ``.pre_finalize`` —
   kill a replica mid-promotion (lifecycle/conductor.py);
@@ -13,6 +12,16 @@ break things:
   and the alias restore;
 - ``lifecycle.store.add_feedback`` / ``lifecycle.store.get_state`` —
   poison, stall or error the durable lifecycle store (lifecycle/store.py);
+- ``taskq.claim`` / ``taskq.ack`` / ``taskq.visibility_timeout`` /
+  ``taskq.countdown`` — delay, duplicate, or strand deliveries past the
+  visibility window (service/taskq.py);
+- ``netclient.call`` — stall or error the network store client
+  (service/netclient.py);
+- ``microbatch.flush`` — add device latency to, or fail, a serving flush
+  (service/microbatch.py); ``ledger.update`` — corrupt a ledger flush's
+  staged rows after its entity columns are filled, before they reach the
+  device (the flush re-encodes the rows on the wire while a plan is armed);
+- ``mesh.shard_flush`` — fail a named shard's scoring (mesh/front.py);
 - ``lifeboat.recover`` — stall a warm restart (the app's 503 "recovering"
   window), ``lifeboat.journal`` — a journal record written, its flush not
   launched, ``lifeboat.snapshot`` — a generation cut, not yet landed
@@ -23,7 +32,7 @@ module-global ``None`` check. A drill arms a :class:`FaultPlan` via
 ``with plan.armed(): ...``; arming is process-global (the points fire from
 worker, reloader and executor threads) and re-entrant arming is rejected
 so two drills cannot blur their blast radius. The scenarios that drive
-these points across a fleet (``range/scenarios.py``) are a later slice.
+these points against the in-process stack are ``range/scenarios.py``.
 """
 
 from __future__ import annotations

@@ -180,9 +180,11 @@ _RECOVERING_DETAIL = (
 
 
 def _store_unavailable(what: str, e: Exception) -> Response:
+    """The reference's store-outage body: ``error`` names the outage,
+    ``detail`` carries the store's own message."""
     log.warning("%s unavailable (store outage): %s", what, e)
     return Response(
-        {"error": "store_unavailable", "detail": f"{what}: {e}"},
+        {"error": f"{what} temporarily unavailable — store outage", "detail": str(e)},
         status_code=503,
         headers={"retry-after": str(STORE_RETRY_AFTER_S)},
     )

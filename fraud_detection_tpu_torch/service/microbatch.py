@@ -48,6 +48,11 @@ latches 0 then, loudly. A ledger model's flush that runs split (no fused
 target, or a cross-width hot swap caught between its slot write and the
 watchtower's rebind) scores every row through the null slot: its rows are
 counted in ``ledger_null_entity_rows``, with one WARNING a served model.
+The flush carries two fault points (``range/faults``): ``microbatch.flush``
+at its top, and ``ledger.update`` once a ledger flush's entity columns are
+staged, before they reach the device; while a plan is armed the ledger
+flush re-encodes its staged rows after that point, so a mutation there
+rides the wire.
 
 Under the serving mesh (``MESH_FLUSH_DEVICES``) the watchtower's monitor is
 a ``mesh/shardflush.MeshDriftMonitor``: the same flushes over per-shard
@@ -100,6 +105,7 @@ from fraud_detection_tpu_torch.ops.scorer import (
     decode_explain_into,
     decode_scores_into,
 )
+from fraud_detection_tpu_torch.range.faults import active_plan, fire
 from fraud_detection_tpu_torch.service import metrics, tracing
 from fraud_detection_tpu_torch.telemetry import roofline
 from fraud_detection_tpu_torch.telemetry.compile_sentinel import expected_compiles
@@ -679,6 +685,9 @@ class MicroBatcher:
         slot after resolving the waiters; ``stamps`` is ``(t_flush_start,
         t_padded, t_synced, t_fetched)`` with ``telemetry``, else None —
         the one fence of the flush is recorded only then."""
+        # fraud-range injection point: a chaos plan adds device latency to,
+        # or fails, this flush (disarmed: one global load)
+        fire("microbatch.flush")
         n = _batch_rows(batch)
         self._note_family(scorer)
         staging = scorer.staging
@@ -707,6 +716,11 @@ class MicroBatcher:
                     wide_rows = self._stage_wide(scorer, slot, batch)
                 elif ledger_on:
                     ledger_rows, n_null = self._stage_ledger(scorer, slot, batch, placement)
+                    if active_plan() is not None:
+                        # a plan may have mutated the staged f32 rows at
+                        # ledger.update: re-encode them so the poison rides
+                        # the wire (disarmed, nothing is re-encoded)
+                        hx = scorer._encode_slot(slot)
                 t_padded = time.perf_counter() if telemetry else 0.0
                 x_dev = scorer.to_device(hx)
                 explain_k = 0
@@ -876,6 +890,10 @@ class MicroBatcher:
         if pos:
             s_v, f_v, t_v = zip(*vals)
             ls[pos], lf[pos], lt[pos], lh[pos] = s_v, f_v, t_v, 1.0
+        # fraud-range injection point: the poison_entity_state campaign
+        # corrupts one entity's staged rows here, before the columns reach
+        # the device; the flush's poison clamp is the blast door under test
+        fire("ledger.update", slot=slot, batch=batch, placement=placement)
         return tuple(scorer.to_device(c) for c in (ls, lf, lt, lh)), n_null
 
     async def _flush(self, batch: list[tuple]) -> None:

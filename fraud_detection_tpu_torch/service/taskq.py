@@ -33,6 +33,7 @@ from dataclasses import dataclass
 from typing import Any
 
 from fraud_detection_tpu_torch import config
+from fraud_detection_tpu_torch.range.faults import fire, patched
 from fraud_detection_tpu_torch.service import metrics
 from fraud_detection_tpu_torch.service.db import ReplicatedRows
 
@@ -120,6 +121,9 @@ class SqliteBroker(ReplicatedRows):
         (transaction id, features, correlation id, then the optional W3C
         ``traceparent`` and the optional serve-time top-k)."""
         task_id = task_id or uuid.uuid4().hex
+        # fraud-range injection point: a chaos plan can delay deliveries by
+        # stretching the countdown (disarmed: one global load)
+        countdown = patched("taskq.countdown", countdown)
         now = time.time()
         with self._lock, self._conn:
             self._conn.execute(
@@ -158,6 +162,11 @@ class SqliteBroker(ReplicatedRows):
         row under one transaction. Lets a worker amortize one device
         dispatch over many tasks (the batched-SHAP hot path).
         """
+        # fraud-range injection point: a chaos plan can collapse the window
+        # so a claimed task stays deliverable (the duplicate-delivery drill)
+        visibility_timeout = patched(
+            "taskq.visibility_timeout", visibility_timeout
+        )
         now = time.time()
         claimed: list[Task] = []
         with self._lock, self._conn:
@@ -199,10 +208,18 @@ class SqliteBroker(ReplicatedRows):
                             max_retries=row["max_retries"],
                         )
                     )
+        # outside the transaction: a kill here is a worker dying AFTER the
+        # claim committed but before execution; the visibility window must
+        # redeliver the task, never lose it
+        for t in claimed:
+            fire("taskq.claim", task_id=t.id, name=t.name)
         return claimed
 
     def ack(self, task_id: str) -> None:
         """Acknowledge success — only called AFTER execution (acks_late)."""
+        # a kill here is a worker dying after execution, before the ack: the
+        # task is redelivered and runs again (the duplicate-side-effect drill)
+        fire("taskq.ack", task_id=task_id)
         with self._lock, self._conn:
             self._conn.execute(
                 "UPDATE tasks SET status = ?, updated_at = ? WHERE id = ?",

@@ -62,7 +62,7 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 114  # every module of the slices so far, not a stub package
+    assert n >= 117  # every module of the slices so far, not a stub package
 
 
 def test_training_modules_are_among_those_imported():
@@ -99,8 +99,35 @@ def test_training_modules_are_among_those_imported():
                 "parallel.sharding", "mesh.topology", "mesh.shardflush", "mesh.front",
                 "ledger.placement", "parallel.collectives", "shardfit", "train_turns",
                 "ops.logistic", "ops.scorer", "monitor.drift", "service.microbatch",
-                "service.app", "config"):
+                "service.app", "config", "range.traffic", "range.invariants",
+                "range.scenarios"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
+
+
+def test_range_modules_import_with_jax_and_service_deps_blocked():
+    """The range's traffic, invariants and scenarios import in a fresh
+    interpreter with JAX, the JAX package and the service dependencies
+    blocked; ``range`` and ``range.faults`` (which the serving flush and
+    the task queue import) leave ``torch`` and ``numpy`` unimported, and
+    ``range``'s lazy exports resolve."""
+    probe = _PROBE.split("import fraud_detection_tpu_torch as pkg")[0] + (
+        "import fraud_detection_tpu_torch.range as rng\n"
+        "import fraud_detection_tpu_torch.range.faults\n"
+        "light = sorted(m for m in ('torch', 'numpy') if m in sys.modules)\n"
+        "assert rng.FaultPlan is fraud_detection_tpu_torch.range.faults.FaultPlan\n"
+        "for name in ('traffic', 'invariants', 'scenarios'):\n"
+        "    importlib.import_module('fraud_detection_tpu_torch.range.' + name)\n"
+        "assert len(rng.SCENARIOS) == 11 and callable(rng.run_scenario)\n"
+        "assert rng.ScenarioResult.__module__.endswith('range.invariants')\n"
+        "leaked = sorted(m for m in sys.modules if jax_or_reference(m) or service_deps(m))\n"
+        "assert not leaked, leaked\n"
+        "print('LIGHT', light)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("LIGHT []")
 
 
 def test_store_tier_imports_no_torch():
