@@ -463,9 +463,11 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    families as it fits (one shard) and unsharded, in turns
    (``train_turns``): the models bitwise equal, the four GBT runs 3,600
    whole ``gbt_hist`` launches each and no split phase.
-20. **the range on the card** — the eleven in-process scenarios of
+20. **the range on the card** — the fifteen scenarios of
    ``range/scenarios.py`` through ``run_scenario`` on ``cuda`` at their
-   default sizes (a private scratch directory for the two that need one):
+   default sizes (a private scratch directory for the four that need one;
+   ``ingest_storm`` over localhost sockets, the lifeboat scenarios'
+   restarted app through ``create_app(device="cuda")``):
    one line a scenario with its wall, every invariant (name, ok, detail),
    its metrics and its ``fused_score`` / ``tree_shap`` / ``gbt_hist``
    launches (the counts zeroed before it). Fatal: any invariant false, no
@@ -473,9 +475,12 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    model (all but the forest's), no ``tree_shap`` launch in
    ``gbt_explain_under_burst`` (its fused TreeSHAP leg), no ``gbt_hist``
    launch across it (``build_gbt_model``'s fit), a kernel library loaded
-   after a hot swap. ``num_device_alloc`` across each swap is printed,
-   not gated. Then ``label_delay``, ``control_plane_chaos``,
-   ``poison_entity_state`` and ``drift_onset`` again with
+   after a hot swap or a warm restart, a restarted app off the card, no
+   ``fused_score`` launch by ``slo_burn_under_shed``'s legacy flush past
+   its ``build_model`` (counted alone). ``num_device_alloc`` across each
+   swap and the recovery is printed, not gated. Then ``label_delay``,
+   ``control_plane_chaos``, ``poison_entity_state``, ``drift_onset``,
+   ``crash_warm_restart`` and ``kill_mid_snapshot`` again with
    ``device="cpu"``: their deterministic metrics equal the card's,
    ``mule_count`` within 1e-5 relative, the drift detected at the card's
    sample point or an adjacent one. The phase's wall is printed. The
@@ -8340,7 +8345,8 @@ def model_axis_phase(work: Path, wide_dir: Path, card: str) -> dict:
 RANGE_NAMES = (
     "burst", "drift_onset", "fraud_ring", "label_delay", "control_plane_chaos",
     "hot_swap", "shard_kill_mid_swap", "replica_burst", "explain_under_burst",
-    "gbt_explain_under_burst", "poison_entity_state",
+    "gbt_explain_under_burst", "poison_entity_state", "ingest_storm",
+    "slo_burn_under_shed", "crash_warm_restart", "kill_mid_snapshot",
 )
 #: the scenarios that score a logistic or ledger model: every one but the
 #: forest's launches ``fused_score`` (a served flush, or ``predict_proba``)
@@ -8352,7 +8358,13 @@ RANGE_CPU_EXACT = {
     "control_plane_chaos": ("challenger_version", "resume_outcome",
                             "duplicate_promote_outcome", "redeliveries"),
     "poison_entity_state": ("poison_fired", "mule_slot"),
+    "crash_warm_restart": ("batches", "snapshot_seq", "replayed_rows", "torn_rows"),
+    "kill_mid_snapshot": ("batches", "generation_seq", "generations_skipped",
+                          "replayed_rows_full", "replayed_rows_torn_tail", "torn_tail_rows"),
 }
+#: the scenarios re-run on the CPU
+RANGE_CPU = ("label_delay", "control_plane_chaos", "poison_entity_state", "drift_onset",
+             "crash_warm_restart", "kill_mid_snapshot")
 RANGE_MULE_RTOL = 1e-5
 
 
@@ -8369,6 +8381,17 @@ def range_sample_points(seed: int = 2026, total_rows: int = 6144) -> list:
     ends = [b.start_row + b.rows.shape[0]
             for bi, b in enumerate(traffic.CampaignTraffic(spec).batches()) if bi % 4 == 0]
     return ends + [total_rows]
+
+
+def range_builder_launches(seed: int) -> int:
+    """``fused_score`` launches of ``build_model(seed)`` on the card alone
+    (its profile's scores)."""
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.range.scenarios import build_model
+
+    kernels.reset_launch_counts()
+    build_model(seed=seed, device="cuda")
+    return kernels.launch_counts()["fused_score"]
 
 
 def range_run(name: str, work: Path, dev: str) -> tuple[dict, dict, float]:
@@ -8394,8 +8417,10 @@ def range_run(name: str, work: Path, dev: str) -> tuple[dict, dict, float]:
 
 
 def range_phase(work: Path, card: str) -> dict:
-    """Phase 20: the range's eleven in-process scenarios on the card, four
-    again on the CPU."""
+    """Phase 20: the range's fifteen scenarios on the card (the eleven
+    in-process ones; ``ingest_storm`` over localhost sockets,
+    ``slo_burn_under_shed`` through the legacy flush, the two lifeboat
+    scenarios in a scratch directory each), six again on the CPU."""
     import gc
 
     t_phase = time.perf_counter()
@@ -8443,8 +8468,24 @@ def _range_phase(work: Path, card: str, t_phase: float) -> dict:
                                      f"swap: {d['metrics']['post_swap_compiles']}")
             print(f"phase20 {name}: num_device_alloc across the swap to the end of the "
                   f"burst +{d['metrics']['post_swap_device_allocs']} (printed, not gated)")
+        if name == "crash_warm_restart":
+            m = d["metrics"]
+            if m["post_recovery_compiles"] != 0 or m["app_device"] != "cuda":
+                raise AssertionError(f"phase20 {name}: post_recovery_compiles "
+                                     f"{m['post_recovery_compiles']}, app on {m['app_device']}")
+            print(f"phase20 {name}: the restarted app served on {m['app_device']}; "
+                  f"num_device_alloc across the recovered table's first flushes "
+                  f"+{m['post_recovery_device_allocs']} (printed, not gated)")
+        if name == "slo_burn_under_shed":
+            legacy = launches["fused_score"] - range_builder_launches(2033)
+            print(f"phase20 {name}: the legacy flush path (the slowed scorer's "
+                  f"predict_proba) launched fused_score {legacy} times (the scenario's "
+                  f"{launches['fused_score']} less build_model's; the batcher's warm-up "
+                  f"bucket among them)")
+            if legacy <= 0:
+                raise AssertionError(f"phase20 {name}: no fused_score launch past the builder")
     cpu = {}
-    for name in ("label_delay", "control_plane_chaos", "poison_entity_state", "drift_onset"):
+    for name in RANGE_CPU:
         d, _, wall = range_run(name, work, "cpu")
         cpu[name] = d
         bad = [k for k, v in d["invariants"].items() if not v["ok"]]

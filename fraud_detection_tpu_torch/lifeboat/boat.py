@@ -69,10 +69,13 @@ class Lifeboat:
         snapshot_flushes: int | None = None,
         keep: int | None = None,
         fsync_s: float | None = None,
+        device=None,
     ):
         self.directory = directory
         self.spec = spec
         self.drift = drift
+        # the device a recovery without a drift monitor replays on
+        self.device = device
         self.slot = slot  # the lifecycle ModelSlot (a snapshot's version stamp)
         self.snapshot_s = (
             snapshot_s if snapshot_s is not None else config.lifeboat_snapshot_s()
@@ -114,8 +117,9 @@ class Lifeboat:
     # -- warm restart ------------------------------------------------------
     def _device(self):
         """The device the recovery replays on: the drift monitor's, else
-        the process default (``cuda`` unless ``DEVICE=cpu``)."""
-        return getattr(self.drift, "device", None)
+        ``device``, else the process default (``cuda`` unless
+        ``DEVICE=cpu``)."""
+        return getattr(self.drift, "device", None) or self.device
 
     def recover(self) -> recovery_mod.RecoveryReport:
         """Run the warm restart and bind the result. Flips ``state``

@@ -4,11 +4,18 @@ solvers of the JAX package.
 - :func:`logistic_fit_lbfgs` — full-batch L-BFGS on sklearn's ``lbfgs``
   objective ``0.5·wᵀw + C·Σᵢ sᵢ·softplus(−ỹᵢ(xᵢᵀw + b))`` (intercept not
   regularized, ỹ ∈ {−1, +1}), by ``torch.optim.LBFGS`` with a strong-Wolfe
-  line search. The JAX package runs optax's zoom line search; the objective
-  is strictly convex, so the two agree on the optimum, not on iterates.
-  With ``sharded=True`` the rows split over a mesh's data axis and the
-  data term is the ``psum`` of the shards' partial losses, differentiated
-  through the fold (``parallel/collectives``).
+  line search, stopping on the JAX package's rule alone (max|grad| ≤ tol,
+  or ``max_iter`` iterations). The JAX package runs optax's zoom line
+  search; the objective is strictly convex, so the two agree on the
+  optimum, not on iterates. The loss value the line search reads is the
+  float64 sum of float64 terms over a float64 copy of the rows (the
+  parameters and the gradient stay float32: the gradient is the float32
+  graph's): a float32 sum stops changing long before the gradient is
+  small, and the line search then takes a zero step. With ``sharded=True``
+  the rows split over a mesh's
+  data axis and the data term is the ``psum`` of the shards' float64
+  partial losses, differentiated through the fold
+  (``parallel/collectives``).
 - :func:`logistic_fit_sgd` — minibatch momentum SGD on the 1/n-scaled
   objective with a cosine-decayed learning rate: the JAX package's
   ``shard_map`` epoch as a Python loop over minibatches (padding to the
@@ -91,11 +98,15 @@ def logistic_fit_lbfgs(
 ) -> LogisticParams:
     """Fit with sklearn-equivalent hyperparameters on ``x``'s device (an
     array is fitted on the CPU; ``sharded`` fits on the mesh's device);
-    ``warm_start`` seeds the solver with existing params. Stops when max
-    |grad| ≤ ``tol`` (sklearn's criterion), when the loss stops changing in
-    float32, or after ``max_iter`` iterations. ``info``, when given,
+    ``warm_start`` seeds the solver with existing params. Stops, as the
+    JAX package's ``_run_lbfgs`` does, when max|grad| ≤ ``tol`` (sklearn's
+    criterion) or after ``max_iter`` iterations: no loss-change or
+    function-evaluation stop ends the fit first. ``info``, when given,
     receives the iteration and function-evaluation counts (``n_iter``,
-    ``n_evals``).
+    ``n_evals``), the float32 max|grad| at the last iterate
+    (``max_grad``), the restarts from steepest descent (``restarts``) and
+    what ended the fit (``stop``: ``grad``, ``max_iter`` or
+    ``fixed_point``, below).
 
     With ``sharded=True`` the rows are padded and split over ``mesh``'s
     data axis (default ``default_mesh()``, every process of a group; padded
@@ -144,38 +155,84 @@ def logistic_fit_lbfgs(
         b = warm_start.intercept.detach().to(dev, torch.float32).reshape(()).clone()
     w.requires_grad_(True)
     b.requires_grad_(True)
-    opt = torch.optim.LBFGS(
-        [w, b], lr=1.0, max_iter=int(max_iter), tolerance_grad=float(tol),
-        tolerance_change=1e-9, history_size=10, line_search_fn="strong_wolfe",
-    )
     c = float(c)
+    # the rows once more in float64, for the loss value alone
+    x64 = [xt[s].double() for s in range(mesh.size)] if sharded else xt.double()
+    sw64, y64 = (
+        ([v.double() for v in sw], [v.double() for v in y_pm]) if sharded
+        else (sw.double(), y_pm.double())
+    )
+    softplus = torch.nn.functional.softplus
+
+    def data_term(x64_, sw_, sw64_, y_, y64_, z):
+        """The float32 graph's sum for the gradient, carrying the float64
+        sum of the float64 terms as its value: ``p32 + (p64 − p32)`` is
+        ``p64`` exactly (the two agree well within a factor of 2), and its
+        backward reaches the float32 terms alone."""
+        p32 = torch.sum(sw_ * softplus(-y_ * z)).double()
+        with torch.no_grad():
+            z64 = x64_ @ w.detach().double() + b.detach().double()
+            p64 = torch.sum(sw64_ * softplus(-y64_ * z64))
+        return p32 + (p64 - p32.detach())
 
     def closure():
-        opt.zero_grad()
+        w.grad = b.grad = None
+        w64 = w.double()
         if not sharded:
-            z = xt @ w + b
-            loss = 0.5 * torch.dot(w, w) + c * torch.sum(
-                sw * torch.nn.functional.softplus(-y_pm * z)
-            )
+            loss = 0.5 * torch.dot(w64, w64) + c * data_term(
+                x64, sw, sw64, y_pm, y64, xt @ w + b)
         else:
             # each shard's copy of (w, b); the fold of the copies' gradients
             # reaches w and b, after the regularizer's (the unsharded graph's
             # order, so one shard gives its bits)
             w_s, b_s = replicate(w, mesh), replicate(b, mesh)
-            z = [xt[s] @ w_s[s] + b_s[s] for s in range(mesh.size)]
-            loss = 0.5 * torch.dot(w, w) + c * psum(torch.stack([
-                torch.sum(sw[s] * torch.nn.functional.softplus(-y_pm[s] * z[s]))
+            loss = 0.5 * torch.dot(w64, w64) + c * psum(torch.stack([
+                data_term(x64[s], sw[s], sw64[s], y_pm[s], y64[s], xt[s] @ w_s[s] + b_s[s])
                 for s in range(mesh.size)
             ]), mesh)
         loss.backward()
         return loss
 
+    def max_grad() -> float:
+        closure()
+        return float(torch.maximum(w.grad.abs().max(), b.grad.abs()))
+
+    # JAX's stop: max|grad| ≤ tol or max_iter iterations. tolerance_change 0
+    # leaves LBFGS no loss-change stop, and the evaluation budget never runs
+    # out first. A line search that finds no lower loss still ends
+    # LBFGS.step, with a zero step (optax's zoom steps on where it fails), so
+    # the fit restarts from steepest descent there. A restart that cannot
+    # move either has reached a fixed point: every later restart repeats it
+    # bit for bit (the closure is deterministic), so the fit ends there
+    # ("fixed_point": the float32 parameter lattice next to the optimum
+    # need not hold a point whose float32 gradient is within tol)
+    n_iter = n_evals = restarts = 0
     with torch.enable_grad():
-        opt.step(closure)
+        while True:
+            before = (w.detach().clone(), b.detach().clone())
+            opt = torch.optim.LBFGS(
+                [w, b], lr=1.0, max_iter=int(max_iter) - n_iter,
+                max_eval=2**62, tolerance_grad=float(tol), tolerance_change=0.0,
+                history_size=10, line_search_fn="strong_wolfe",
+            )
+            opt.step(closure)
+            state = opt.state[opt._params[0]]
+            n_iter += int(state.get("n_iter", 0))
+            n_evals += int(state.get("func_evals", 0))
+            g = max_grad()
+            if g <= tol:
+                stop = "grad"
+            elif n_iter >= max_iter:
+                stop = "max_iter"
+            elif torch.equal(w.detach(), before[0]) and torch.equal(b.detach(), before[1]):
+                stop = "fixed_point"
+            else:
+                restarts += 1
+                continue
+            break
     if info is not None:
-        state = opt.state[opt._params[0]]
-        info["n_iter"] = int(state.get("n_iter", 0))
-        info["n_evals"] = int(state.get("func_evals", 0))
+        info.update(n_iter=n_iter, n_evals=n_evals, max_grad=g, restarts=restarts,
+                    stop=stop)
     return LogisticParams(coef=w.detach(), intercept=b.detach())
 
 

@@ -1,10 +1,11 @@
 """The fraud range: named chaos scenarios against the live in-process stack.
 
 The port's counterpart of the JAX package's ``range/scenarios.py``, the
-scenarios that run on one host without sockets. Each scenario builds the
-REAL serving pieces (``BatchScorer`` behind the micro-batcher, the
-watchtower's drift window, the conductor's CAS state machine, the sqlite
-broker, the shard front) on ``device`` — the card unless the caller asks
+scenarios that run on one host. Each scenario builds the REAL serving
+pieces (``BatchScorer`` behind the micro-batcher, the watchtower's drift
+window, the conductor's CAS state machine, the sqlite broker, the shard
+front, the binary lane on localhost sockets, the lifeboat, the app) on
+``device`` — the card unless the caller asks
 for the CPU (``DEVICE=cpu`` or ``device="cpu"``) — replays a seeded
 synthetic campaign (range/traffic.py), optionally arms a
 :class:`~.faults.FaultPlan` (range/faults.py), and asserts the end-to-end
@@ -49,6 +50,22 @@ The suite (``run_scenario(name)``):
                           clamp bounds the victim slot, every other
                           entity's aggregates stay bitwise-unaffected,
                           scores stay finite, p99 holds
+``ingest_storm``          Pareto-sized frames over the binary lane's real
+                          sockets into a 2-shard front, a drain mid-burst;
+                          bounded sheds with Retry-After, every admitted
+                          row answered, the drift window bitwise a
+                          closed-loop replay of the same flush groupings
+``slo_burn_under_shed``   a burst past the admission bound on a slowed
+                          legacy scorer; the SLO engine's fast burn fires
+                          within its window and clears without flapping
+``crash_warm_restart``    killed at ``lifeboat.journal`` mid-flush; the
+                          warm restart bitwise the journal's replay and a
+                          clean drive, the app's 503 gate then ready, no
+                          kernel library loaded after the recovery
+``kill_mid_snapshot``     killed at ``lifeboat.snapshot``, a torn newest
+                          generation and a torn journal tail; the previous
+                          generation loads, nothing lost, the torn flush
+                          counted
 ========================  ==================================================
 
 JAX counts a recompile as a miss of the fused flush's executable cache;
@@ -58,7 +75,8 @@ LOAD_EVENTS``, as in ``telemetry/compile_sentinel``). ``hot_swap`` and
 ``shard_kill_mid_swap`` hold no such load from the swap to the end of the
 burst (vacuous on the CPU, where no kernel library exists); on the card
 they also report the allocator's ``num_device_alloc`` across the same span,
-the other half of what the pre-swap warm-up buys here.
+the other half of what the pre-swap warm-up buys here; ``crash_warm_restart``
+counts both across the recovered table's first flushes.
 """
 
 from __future__ import annotations
@@ -1543,6 +1561,1006 @@ def scenario_poison_entity_state(
     return result
 
 
+def scenario_ingest_storm(
+    seed: int = 2026, n_frames: int = 48, frame_rows: int = 64,
+    admit_max: int = 192, device=None,
+) -> ScenarioResult:
+    """Open-loop Pareto-burst frames on the REAL binary ingest lane
+    (sockets on localhost, not the in-process shortcut) against a 2-shard
+    front, with a mid-burst shard drain. Eight client connections drain
+    the frame queue (the reference's four: a lane connection has one frame
+    in flight, and four frames of 64-128 rows overrun a shard's pipeline
+    of 4 flushes and the 192-row bound only when two large ones meet, so
+    its sheds are a race the host's timing decides). Invariants:
+
+    - **sheds-bounded**: the bounded admission queue sheds with busy
+      frames carrying a Retry-After hint (the binary twin of HTTP 429) and
+      the queued-row count never exceeds the bound — overload backs off,
+      it never grows an unbounded queue;
+    - **all-admitted-answered**: every frame the lane ACCEPTED returned
+      exactly its row count of finite scores, through the drain;
+    - **drain-clean**: the drained shard empties, the survivor keeps
+      scoring;
+    - **p99-holds**: accepted-frame p99 stays within budget of the quiet
+      baseline;
+    - **bitwise-consistent**: a single-shard open-loop socket run's drift
+      window bitwise-matches a closed-loop replay of the same rows in the
+      same flush groupings (continuous batching changes WHEN rows flush,
+      never what the monitor sees). The port's window is updated in place,
+      so each run's window is read as a ``window_snapshot()`` copy.
+    """
+    import asyncio as aio
+    import threading
+
+    from fraud_detection_tpu_torch.device import resolve_device
+    from fraud_detection_tpu_torch.mesh.front import DRAINING, ShardFront
+    from fraud_detection_tpu_torch.service.binlane import (
+        BinaryIngestServer,
+        BinLaneClient,
+        LaneBusy,
+    )
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+
+    dev = resolve_device(device)
+    rm = build_model(seed=seed, device=dev)
+    rng = np.random.default_rng(seed)
+    # Pareto-burst frame sizes: heavy-tailed like ArrivalProcess, clamped
+    # to the frame ceiling
+    sizes = np.clip(
+        (frame_rows * (1.0 + rng.pareto(2.5, n_frames))).astype(int),
+        8, 2 * frame_rows,
+    )
+    frames = [
+        rng.standard_normal((int(k), D)).astype(np.float32) for k in sizes
+    ]
+
+    def loop_thread():
+        loop = aio.new_event_loop()
+        t = threading.Thread(
+            target=lambda: (aio.set_event_loop(loop), loop.run_forever()),
+            daemon=True,
+        )
+        t.start()
+        return loop, t
+
+    def run_on(loop, coro):
+        return aio.run_coroutine_threadsafe(coro, loop).result(60.0)
+
+    result = ScenarioResult("ingest_storm")
+
+    # -- phase A: overload + shed + mid-burst drain on a 2-shard front ----
+    wt = _watchtower(rm.profile, device=dev)
+    batchers = [
+        MicroBatcher(
+            scorer=rm.model.scorer, watchtower=wt, telemetry=False,
+            max_batch=128, max_wait_ms=20.0, admit_max_rows=admit_max,
+        )
+        for _ in range(2)
+    ]
+    front = ShardFront(batchers)
+    loop, _t = loop_thread()
+    srv = None
+    try:
+        run_on(loop, front.start())
+        srv = BinaryIngestServer(
+            front, scorer_fn=lambda: rm.model.scorer,
+            host="127.0.0.1", port=0, max_rows=128,
+        )
+        srv.start(loop)
+
+        # quiet baseline: sequential lone frames
+        base_lat: list[float] = []
+        with BinLaneClient("127.0.0.1", srv.port) as cli:
+            for f in frames[:6]:
+                t0 = time.perf_counter()
+                cli.score_batch(f[:64])
+                base_lat.append(time.perf_counter() - t0)
+        base_p99 = float(np.percentile(np.asarray(base_lat), 99))
+
+        # open-loop burst: the connections drain a shared frame queue at
+        # max rate (no response pacing across the fleet), splitting
+        # oversized frames to the lane ceiling
+        work: list[np.ndarray] = []
+        for f in frames:
+            for lo in range(0, f.shape[0], 128):
+                work.append(f[lo:lo + 128])
+        qlock = threading.Lock()
+        stats = {
+            "answered_rows": 0, "accepted_rows": 0, "accepted": 0,
+            "shed": 0, "retry_hints": [], "errors": 0, "lat": [],
+        }
+        queue_peaks: list[int] = []
+
+        def sample_queues(stop_evt):
+            while not stop_evt.is_set():
+                queue_peaks.append(max(b._queued_rows for b in batchers))
+                time.sleep(0.002)
+
+        def client_worker():
+            with BinLaneClient("127.0.0.1", srv.port) as c:
+                while True:
+                    with qlock:
+                        if not work:
+                            return
+                        f = work.pop()
+                    t0 = time.perf_counter()
+                    try:
+                        scores, _ = c.score_batch(f)
+                        ok = (
+                            scores.shape[0] == f.shape[0]
+                            and bool(np.all(np.isfinite(scores)))
+                        )
+                        with qlock:
+                            stats["accepted"] += 1
+                            stats["accepted_rows"] += f.shape[0]
+                            stats["lat"].append(time.perf_counter() - t0)
+                            if ok:
+                                stats["answered_rows"] += f.shape[0]
+                    except LaneBusy as e:
+                        with qlock:
+                            stats["shed"] += 1
+                            stats["retry_hints"].append(e.retry_after_s)
+                    except Exception:  # counted; the invariant asserts 0
+                        with qlock:
+                            stats["errors"] += 1
+
+        stop_evt = threading.Event()
+        sampler = threading.Thread(
+            target=sample_queues, args=(stop_evt,), daemon=True
+        )
+        sampler.start()
+        threads = [
+            threading.Thread(target=client_worker, daemon=True)
+            for _ in range(8)
+        ]
+        n_before_drain = len(work) // 2
+        for th in threads:
+            th.start()
+        # mid-burst drain: wait until roughly half the work is consumed
+        while True:
+            with qlock:
+                if len(work) <= n_before_drain:
+                    break
+            time.sleep(0.002)
+        rows_at_drain = [h.rows_total for h in front.shards]
+        front.drain(0)
+        drained = front.wait_drained(0, timeout=20.0)
+        for th in threads:
+            th.join(timeout=60.0)
+        stop_evt.set()
+        sampler.join(timeout=5.0)
+    finally:
+        if srv is not None:
+            srv.stop()
+        run_on(loop, front.stop())
+        wt.close()
+        loop.call_soon_threadsafe(loop.stop)
+
+    survivor_delta = front.shards[1].rows_total - rows_at_drain[1]
+    peak = max(queue_peaks) if queue_peaks else 0
+    result.metrics = {
+        "frames_offered": len(stats["lat"]) + stats["shed"] + stats["errors"],
+        "frames_accepted": stats["accepted"],
+        "frames_shed": stats["shed"],
+        "errors": stats["errors"],
+        "answered_rows": stats["answered_rows"],
+        "admit_max_rows": admit_max,
+        "peak_queued_rows": peak,
+        "drained_shard_state": front.shards[0].state,
+        "survivor_rows_post_drain": survivor_delta,
+        "baseline_p99_ms": round(base_p99 * 1e3, 3),
+        "burst_p99_ms": round(
+            float(np.percentile(stats["lat"], 99)) * 1e3, 3
+        ) if stats["lat"] else None,
+    }
+    result.add(
+        InvariantOutcome(
+            "sheds-bounded",
+            stats["shed"] > 0
+            and all(r > 0 for r in stats["retry_hints"])
+            and peak <= admit_max,
+            f"{stats['shed']} frames shed with Retry-After hints "
+            f"{sorted(set(stats['retry_hints']))}, peak queue {peak} ≤ "
+            f"bound {admit_max} — overload backs off, the queue never "
+            "grows unbounded",
+        )
+    )
+    result.add(
+        InvariantOutcome(
+            "all-admitted-answered",
+            stats["errors"] == 0
+            and stats["answered_rows"] > 0
+            and stats["answered_rows"] == stats["accepted_rows"],
+            f"{stats['accepted']} accepted frames returned "
+            f"{stats['answered_rows']}/{stats['accepted_rows']} admitted "
+            f"rows as finite scores; {stats['errors']} hard errors",
+        )
+    )
+    result.add(
+        InvariantOutcome(
+            "drain-clean",
+            drained and front.shards[0].state == DRAINING
+            and front.shards[0].inflight == 0
+            and survivor_delta > 0,
+            f"shard 0 drained to 0 in-flight (state "
+            f"{front.shards[0].state!r}); survivor scored {survivor_delta} "
+            "rows post-drain",
+        )
+    )
+    result.add(
+        p99_within(
+            stats["lat"], base_p99, factor=10.0, absolute_floor_s=0.5
+        )
+    )
+
+    # -- phase B: open-loop socket run vs closed-loop replay, bitwise -----
+    flush_snapshots: list[np.ndarray] = []
+
+    class RecordingBatcher(MicroBatcher):
+        async def _flush(self, batch):
+            rows = np.concatenate(
+                [np.atleast_2d(item[0]) for item in batch]
+            ).copy()
+            flush_snapshots.append(rows)
+            return await super()._flush(batch)
+
+    def window_of(driver):
+        wt2 = _watchtower(rm.profile, halflife=50_000.0, device=dev)
+        loop2, _t2 = loop_thread()
+        try:
+            driver(wt2, loop2)
+            win = wt2.drift.window_snapshot()
+        finally:
+            wt2.close()
+            loop2.call_soon_threadsafe(loop2.stop)
+        return win
+
+    def open_loop(wt2, loop2):
+        # max_inflight=1 serializes the window folds into snapshot order:
+        # the determinism claim under test is about batching GROUPS, not
+        # pipeline overlap
+        mb = RecordingBatcher(
+            scorer=rm.model.scorer, watchtower=wt2, telemetry=False,
+            max_batch=128, max_wait_ms=5.0, max_inflight=1,
+        )
+        run_on(loop2, mb.start())
+        srv2 = BinaryIngestServer(
+            mb, scorer_fn=lambda: rm.model.scorer,
+            host="127.0.0.1", port=0, max_rows=128,
+        )
+        srv2.start(loop2)
+        try:
+            def send(sub):
+                with BinLaneClient("127.0.0.1", srv2.port) as c:
+                    for f in sub:
+                        c.score_batch(f[:128])
+
+            parts = [frames[0::3], frames[1::3], frames[2::3]]
+            ths = [
+                threading.Thread(target=send, args=(p,), daemon=True)
+                for p in parts
+            ]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=60.0)
+        finally:
+            srv2.stop()
+            run_on(loop2, mb.stop())
+
+    win_a = window_of(open_loop)
+
+    def closed_loop(wt2, loop2):
+        from fraud_detection_tpu_torch.ops.scorer import _bucket
+        from fraud_detection_tpu_torch.service.microbatch import IngestBlock
+
+        mb = MicroBatcher(
+            scorer=rm.model.scorer, watchtower=wt2, telemetry=False,
+            max_batch=128, max_wait_ms=0.0,
+        )
+        run_on(loop2, mb.start())
+        scorer = rm.model.scorer
+        try:
+            async def replay(rows):
+                slot = scorer.staging.acquire(
+                    _bucket(rows.shape[0], scorer.min_bucket)
+                )
+                try:
+                    slot.f32[: rows.shape[0]] = rows
+                    await mb.score_block(IngestBlock(slot, rows.shape[0]))
+                finally:
+                    scorer.staging.release(slot)
+
+            for rows in flush_snapshots:
+                run_on(loop2, replay(rows))
+        finally:
+            run_on(loop2, mb.stop())
+
+    win_b = window_of(closed_loop)
+    result.metrics["flushes_replayed"] = len(flush_snapshots)
+    result.add(windows_bitwise_equal(win_a, win_b))
+    return result
+
+
+def scenario_slo_burn_under_shed(seed: int = 2033, device=None) -> ScenarioResult:
+    """A Pareto burst drives the bounded admission queue into sheds; the
+    fleet SLO engine's fast-burn condition fires within its shortest
+    window, the error-budget gauge drops, and — after recovery traffic
+    drains the windows — the condition clears WITHOUT flapping.
+
+    The engine runs with compressed windows (real thresholds, shorter
+    spans) so the whole burn/recover cycle fits a chaos budget; the
+    admission path, shed exceptions, and recording sites are the REAL
+    serving ones (MicroBatcher._admit → AdmissionFull → the lane-edge
+    record), not a simulation of them. The slowed scorer has no staging
+    protocol, so the batcher flushes it through the legacy path (its
+    ``predict_proba``).
+    """
+    from fraud_detection_tpu_torch.device import resolve_device
+    from fraud_detection_tpu_torch.service.microbatch import (
+        AdmissionFull,
+        MicroBatcher,
+    )
+    from fraud_detection_tpu_torch.telemetry.slo import SLOEngine
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    rm = build_model(seed=seed, device=dev)
+    # compressed multi-window ladder: same 1:12:72 shape as 5m/1h/6h
+    windows = {"5m": 0.5, "1h": 2.0, "6h": 6.0}
+    eng = SLOEngine(windows=windows, bucket_s=0.05)
+    eng.declare_lanes(("json",))
+
+    class _SlowScorer:
+        """Legacy-protocol scorer with a per-flush stall: the drain rate
+        the burst must outrun to hit the admission bound (warmup/min_bucket
+        delegate; no staging protocol → the batcher's legacy flush path)."""
+
+        def __init__(self, inner, delay_s: float):
+            self.inner = inner
+            self.delay_s = delay_s
+            self.min_bucket = inner.min_bucket
+
+        def warmup(self, top):
+            self.inner.warmup(top)
+
+        def predict_proba(self, rows):
+            time.sleep(self.delay_s)
+            return self.inner.predict_proba(rows)
+
+    flap = AlertFlapDetector(min_hold_samples=3)
+    arrivals = ArrivalProcess(rate_hz=3000.0, window_s=0.01)
+
+    async def run() -> dict:
+        batcher = MicroBatcher(
+            scorer=_SlowScorer(rm.model.scorer, 0.02),
+            max_batch=8, max_wait_ms=1.0, max_inflight=1,
+            telemetry=False, admit_max_rows=8,
+        )
+        await batcher.start()
+        out: dict = {"sheds": 0, "scored": 0, "non_finite": 0}
+        try:
+            # phase 1 — healthy floor: sequential singles, all good
+            for r in rng.standard_normal((24, D)).astype(np.float32):
+                t0 = time.perf_counter()
+                s = await batcher.score(r)
+                eng.record("json", True, time.perf_counter() - t0)
+                if not np.isfinite(s):
+                    out["non_finite"] += 1
+            out["budget_before"] = eng.snapshot()[
+                "availability:json"]["budget_remaining"]
+            out["fast_before"] = eng.fast_burn("json")
+
+            # phase 2 — ten Pareto-burst waves, each offered concurrently —
+            # far over the 8-row admission bound, so the tail of every wave
+            # sheds exactly as a saturated open-loop client would see
+            first_shed_t: float | None = None
+            first_fast_t: float | None = None
+            waves = [
+                max(24, n) for n in arrivals.batch_sizes(480, rng)
+            ][:10]
+            for wave_n in waves:
+                rows = rng.standard_normal((wave_n, D)).astype(np.float32)
+
+                async def one(r):
+                    t0 = time.perf_counter()
+                    try:
+                        s = await batcher.score(r)
+                    except AdmissionFull:
+                        eng.record("json", False)
+                        return None
+                    eng.record("json", True, time.perf_counter() - t0)
+                    return s
+
+                scores = await asyncio.gather(*(one(r) for r in rows))
+                shed = sum(1 for s in scores if s is None)
+                out["sheds"] += shed
+                out["scored"] += sum(1 for s in scores if s is not None)
+                out["non_finite"] += sum(
+                    1 for s in scores
+                    if s is not None and not np.isfinite(s)
+                )
+                now = time.monotonic()
+                if shed and first_shed_t is None:
+                    first_shed_t = now
+                fast = eng.fast_burn("json")
+                flap.sample(slo_fast_burn=fast)
+                if fast and first_fast_t is None:
+                    first_fast_t = now
+            out["budget_after_burst"] = eng.snapshot()[
+                "availability:json"]["budget_remaining"]
+            out["first_shed_t"] = first_shed_t
+            out["first_fast_t"] = first_fast_t
+
+            # phase 3 — recovery: light good traffic until the longest
+            # window drains; the condition must clear and stay clear
+            t_end = time.monotonic() + windows["6h"] + 1.0
+            cleared_samples = 0
+            while time.monotonic() < t_end:
+                r = rng.standard_normal(D).astype(np.float32)
+                t0 = time.perf_counter()
+                s = await batcher.score(r)
+                eng.record("json", True, time.perf_counter() - t0)
+                if not np.isfinite(s):
+                    out["non_finite"] += 1
+                fast = eng.fast_burn("json")
+                flap.sample(slo_fast_burn=fast)
+                if not fast:
+                    cleared_samples += 1
+                await asyncio.sleep(0.1)
+            out["fast_after_recovery"] = eng.fast_burn("json")
+            out["cleared_samples"] = cleared_samples
+            out["budget_after_recovery"] = eng.snapshot()[
+                "availability:json"]["budget_remaining"]
+            return out
+        finally:
+            await batcher.stop()
+
+    out = asyncio.run(run())
+    result = ScenarioResult("slo_burn_under_shed")
+    result.metrics = {
+        "sheds": out["sheds"],
+        "scored": out["scored"],
+        "budget_before": out["budget_before"],
+        "budget_after_burst": out["budget_after_burst"],
+        "budget_after_recovery": out["budget_after_recovery"],
+    }
+    result.add(InvariantOutcome(
+        "burst-drives-sheds",
+        out["sheds"] > 0 and out["scored"] > 0,
+        f"{out['sheds']} sheds, {out['scored']} scored — the burst must "
+        "genuinely hit the admission bound while traffic still flows",
+    ))
+    result.add(InvariantOutcome(
+        "scores-finite",
+        out["non_finite"] == 0,
+        f"{out['non_finite']} non-finite scores among admitted rows",
+    ))
+    result.add(InvariantOutcome(
+        "fast-burn-fires-within-window",
+        out["first_shed_t"] is not None
+        and out["first_fast_t"] is not None
+        and out["first_fast_t"] - out["first_shed_t"]
+        <= windows["5m"] + 1.0,
+        "fast burn fired "
+        + (
+            f"{out['first_fast_t'] - out['first_shed_t']:.2f}s after the "
+            f"first shed (window {windows['5m']}s)"
+            if out["first_fast_t"] is not None
+            and out["first_shed_t"] is not None
+            else "never"
+        ),
+    ))
+    result.add(InvariantOutcome(
+        "budget-drops-under-burn",
+        out["budget_after_burst"] < out["budget_before"],
+        f"budget {out['budget_before']} -> {out['budget_after_burst']} "
+        "across the burst",
+    ))
+    result.add(InvariantOutcome(
+        "burn-clears-after-recovery",
+        not out["fast_after_recovery"] and out["cleared_samples"] > 0,
+        "fast-burn condition "
+        + ("cleared" if not out["fast_after_recovery"] else "still firing")
+        + f" after recovery ({out['cleared_samples']} clear samples)",
+    ))
+    result.add(flap.check())
+    return result
+
+
+# -- lifeboat scenarios ------------------------------------------------------
+
+def _entity_batches(seed: int, n_batches: int, batch: int, t0: float):
+    """Seeded entity-bearing traffic: rows + entity ids + strictly
+    increasing timestamps, bitwise-identical across drives (the recovery
+    parity invariants compare runs fed from this)."""
+    rng = np.random.default_rng(seed + 77)
+    batches = []
+    t = t0 + 10.0
+    for _b in range(n_batches):
+        rows = rng.standard_normal((batch, D)).astype(np.float32)
+        rows[:, -1] = np.abs(rows[:, -1]) * 40.0
+        ents: list[str | None] = []
+        for i in range(batch):
+            if i % 9 == 0:
+                ents.append(None)  # legacy rows ride the null slot
+            else:
+                ents.append(f"card-{int(rng.integers(0, 60))}")
+        ts = np.asarray([t + i * 0.25 for i in range(batch)], np.float32)
+        t += batch * 0.25
+        batches.append((rows, ents, ts))
+    return batches
+
+
+def _drive_ledger_batches(mb, scorer, spec, batches, tables_out=None):
+    """Push batches synchronously through the REAL flush body
+    (``MicroBatcher._flush_device`` — staging, the lifeboat journal hook,
+    the fused stateful dispatch); optionally capture a copy of the table
+    after every batch. The flush's scores are views into its pooled
+    staging slot: each batch copies them and releases the slot, as the
+    batcher does after resolving its waiters. Returns the scores."""
+    tgt = mb._fused_target(scorer)
+    scores: list[float] = []
+    for rows, ents, ts in batches:
+        items = []
+        for i in range(rows.shape[0]):
+            ent = None
+            if ents[i] is not None:
+                s, fp = spec.row_keys(ents[i])
+                ent = (s, fp, float(ts[i]))
+            items.append((rows[i], None, None, ent))
+        out = mb._flush_device(scorer, tgt, items, False)
+        scores.extend(np.asarray(out[0], np.float64).tolist())
+        scorer.staging.release(out[-1])
+        if tables_out is not None:
+            tables_out.append(mb.watchtower.drift.ledger_snapshot())
+    return scores
+
+
+def _tables_equal(a, b) -> tuple[bool, str]:
+    """Bitwise comparison over every LedgerState leaf, of tables on any
+    device or the host (each read in the file's dtypes)."""
+    from fraud_detection_tpu_torch.ledger.state import host_state
+
+    if a is None or b is None:
+        return False, "missing table"
+    a, b = host_state(a), host_state(b)
+    for name in ("acc", "last_ts", "fingerprint", "collisions", "evictions"):
+        av = np.asarray(getattr(a, name))
+        bv = np.asarray(getattr(b, name))
+        if av.tobytes() != bv.tobytes():
+            n_diff = int(np.sum(av != bv))
+            return False, f"{name}: {n_diff} element(s) differ"
+    return True, "bitwise equal on every leaf"
+
+
+def _ledger_serve(seed: int, batch: int, dev, lbdir: str | None = None):
+    """A ledger champion served by a micro-batcher over its bound table,
+    with a lifeboat on ``lbdir`` (fsync every append, no timed snapshot)
+    when given: ``(rm, spec, state0, wt, mb, boat, t0)``, ``state0`` the
+    train-time stamp on the host."""
+    from fraud_detection_tpu_torch.lifeboat import Lifeboat
+    from fraud_detection_tpu_torch.service.microbatch import MicroBatcher
+
+    rm, spec, state0, t0 = build_ledger_model(seed=seed, device=dev)
+    wt = _watchtower(rm.profile, halflife=50_000.0, device=dev)
+    wt.drift.bind_ledger(spec, state0)
+    boat = None
+    if lbdir is not None:
+        boat = Lifeboat(lbdir, spec, drift=wt.drift, snapshot_s=1e9, fsync_s=0.0)
+    mb = MicroBatcher(
+        scorer=rm.model.scorer, watchtower=wt, telemetry=False,
+        max_batch=batch, lifeboat=boat,
+    )
+    return rm, spec, state0, wt, mb, boat, t0
+
+
+def _clean_tables(seed: int, n_batches: int, batch: int, dev):
+    """The clean reference: the scenario's traffic with no lifeboat and no
+    crash, the table copied after every batch. Returns ``(tables,
+    batches, t0, state0)``."""
+    rm, spec, state0, wt, mb, _, t0 = _ledger_serve(seed, batch, dev)
+    batches = _entity_batches(seed, n_batches, batch, t0)
+    tables: list = []
+    try:
+        _drive_ledger_batches(mb, rm.model.scorer, spec, batches, tables)
+    finally:
+        wt.close()
+    return tables, batches, t0, state0
+
+
+def scenario_crash_warm_restart(
+    tmpdir: str, seed: int = 2026, n_batches: int = 12, batch: int = 64,
+    snapshot_after: int = 6, device=None,
+) -> ScenarioResult:
+    """Kill the serving process mid-flush under live entity-bearing
+    traffic, then warm-restart from the lifeboat's snapshot + journal.
+
+    The kill lands at the ``lifeboat.journal`` injection point — AFTER the
+    flush's entity triples are durably journaled (fsync-per-append here),
+    BEFORE the fused dispatch folds them into the device table — the
+    journal-ahead window a real SIGKILL can always hit. Invariants:
+
+    - **recovery parity (bitwise)**: the warm-restarted table equals an
+      independent replay of the same snapshot + journal bytes AND equals a
+      clean uninterrupted drive over the identical traffic (the journaled
+      kill-flush replays; nothing is lost, nothing is double-folded);
+    - **two restarts agree**: a second, fully independent restart (the
+      REAL service app pointed at the same directory, serving on
+      ``device`` through ``create_app(device=)``) recovers the SAME bytes
+      to the SAME table;
+    - **readiness gate**: while the app's recovery is in flight, /health
+      and /predict answer 503 with Retry-After, then /health flips to 200
+      once the replay binds (``recovering → ready``);
+    - **no recompile storm**: no kernel library is built or loaded while
+      the recovered table serves its first flushes (the port's count of
+      JAX's fused-flush cache misses; vacuous on the CPU); on the card the
+      allocator's ``num_device_alloc`` across the same span is reported
+      beside it, not gated.
+    """
+    import shutil
+    import threading
+
+    from fraud_detection_tpu_torch.device import resolve_device
+    from fraud_detection_tpu_torch.lifeboat import load_latest, read_tail, replay_records
+
+    dev = resolve_device(device)
+    lbdir = os.path.join(tmpdir, "lifeboat")
+    result = ScenarioResult("crash_warm_restart")
+
+    # -- clean reference: the same traffic, no lifeboat, no crash ----------
+    ref_tables, batches, t0, _ = _clean_tables(seed, n_batches, batch, dev)
+
+    # -- the crashing serve ------------------------------------------------
+    rm, spec, _, wt, mb, boat, _ = _ledger_serve(seed, batch, dev, lbdir)
+    boat.recover()  # fresh directory: opens the journal, state -> ready
+    killed = False
+    plan = faults.FaultPlan().kill("lifeboat.journal")
+    try:
+        _drive_ledger_batches(mb, rm.model.scorer, spec, batches[:snapshot_after])
+        boat.take_snapshot()
+        _drive_ledger_batches(mb, rm.model.scorer, spec, batches[snapshot_after:-1])
+        with plan.armed():
+            try:
+                _drive_ledger_batches(mb, rm.model.scorer, spec, batches[-1:])
+            except faults.ReplicaKilled:
+                killed = True  # the crash: nothing closes cleanly
+    finally:
+        wt.close()
+    result.add(
+        InvariantOutcome(
+            "killed-mid-flush",
+            killed and plan.fired("lifeboat.journal") == 1,
+            "ReplicaKilled after the journal append, before the dispatch",
+        )
+    )
+
+    # -- warm restart (library level, on a copy of the bytes) --------------
+    lbdir_b = os.path.join(tmpdir, "lifeboat-restart")
+    shutil.copytree(lbdir, lbdir_b)
+    rm2, spec2, _, wt2, mb2, boat2, _ = _ledger_serve(seed, batch, dev, lbdir_b)
+    try:
+        # startup warmup with the train-time stamp — the flush is warm
+        # BEFORE recovery binds, exactly the app's startup order
+        _drive_ledger_batches(
+            mb2, rm2.model.scorer, spec2,
+            _entity_batches(seed + 1, 1, batch, t0),
+        )
+        compiles_before = _kernel_loads()
+        allocs_before = _device_allocs(dev)
+        rep = boat2.recover()
+        recovered = wt2.drift.ledger_snapshot()
+
+        # independent replay of the same disk bytes — no Lifeboat wiring
+        snap, _skipped = load_latest(lbdir_b)
+        tail = read_tail(lbdir_b, snap.seq if snap else 0)
+        manual = replay_records(
+            spec2, snap.ledger if snap else None, tail.records, device=dev
+        )
+        ok_manual, detail_manual = _tables_equal(rep.state, manual)
+        ok_ref, detail_ref = _tables_equal(recovered, ref_tables[-1])
+
+        # post-recovery serving: finite scores, no kernel library loaded,
+        # journaling resumed past the recovered sequence number
+        seq_at_recovery = boat2.journal.seq
+        post_scores = _drive_ledger_batches(
+            mb2, rm2.model.scorer, spec2,
+            _entity_batches(
+                seed + 2, 2, batch, t0 + (n_batches + 2) * batch * 0.25
+            ),
+        )
+        compiles_delta = _kernel_loads() - compiles_before
+        allocs_after = _device_allocs(dev)
+        journal_resumed = boat2.journal.seq == seq_at_recovery + 2
+    finally:
+        wt2.close()
+        boat2.close()
+
+    result.metrics = {
+        "batches": n_batches,
+        "snapshot_seq": rep.snapshot_seq,
+        "replayed_rows": rep.replayed_rows,
+        "torn_rows": rep.torn_rows,
+        "recovery_duration_s": round(rep.duration_s, 4),
+        "post_recovery_compiles": compiles_delta,
+        "post_recovery_device_allocs": (
+            None if allocs_before is None else allocs_after - allocs_before
+        ),
+    }
+    result.add(
+        InvariantOutcome(
+            "recovery-parity-vs-journal-bytes",
+            rep.restored and ok_manual,
+            "recovered table bitwise-equals an independent replay of the "
+            f"same snapshot+journal bytes ({detail_manual})",
+        )
+    )
+    result.add(
+        InvariantOutcome(
+            "recovery-parity-vs-clean-run",
+            ok_ref,
+            "recovered table bitwise-equals the uninterrupted clean drive "
+            f"over identical traffic ({detail_ref})",
+        )
+    )
+    result.add(
+        InvariantOutcome(
+            "kill-flush-replayed",
+            rep.replayed_rows > 0 and rep.snapshot_seq == snapshot_after,
+            f"{rep.replayed_rows} journaled rows past snapshot seq "
+            f"{rep.snapshot_seq} replayed (incl. the killed flush)",
+        )
+    )
+    result.add(
+        InvariantOutcome(
+            "no-recompile-storm",
+            compiles_delta == 0,
+            f"{compiles_delta} kernel libraries built or loaded after "
+            "recovery bound the restored table (must be 0)",
+        )
+    )
+    result.add(
+        InvariantOutcome(
+            "post-recovery-scores-finite",
+            bool(np.all(np.isfinite(np.asarray(post_scores))))
+            and journal_resumed,
+            f"{len(post_scores)} post-recovery rows scored finite, journal "
+            "sequence resumed past the recovered point",
+        )
+    )
+
+    # -- the REAL service edge: a second independent restart of the same
+    # bytes, with the readiness gate observed through /health + /predict --
+    from fraud_detection_tpu_torch.monitor.baseline import save_profile
+    from fraud_detection_tpu_torch.service.app import create_app
+    from fraud_detection_tpu_torch.service.http import TestClient
+
+    model_dir = os.path.join(tmpdir, "models")
+    rm.model.save(model_dir, joblib_too=False)
+    save_profile(model_dir, rm.profile)
+    env_keys = {
+        # the loader serves the native model.npz beside MODEL_PATH
+        "MODEL_PATH": os.path.join(model_dir, "logistic_model.joblib"),
+        "LIFEBOAT_DIR": lbdir,
+        "MLFLOW_TRACKING_URI": f"file:{os.path.join(tmpdir, 'mlruns')}",
+    }
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    os.environ.update(env_keys)
+    gate = threading.Event()
+    app_plan = faults.FaultPlan().call(
+        "lifeboat.recover", lambda **ctx: gate.wait(timeout=60.0), times=1
+    )
+    client = None
+    try:
+        with app_plan.armed():
+            app = create_app(
+                database_url=f"sqlite:///{tmpdir}/fraud.db",
+                broker_url=f"sqlite:///{tmpdir}/taskq.db",
+                device=dev,
+            )
+            client = TestClient(app)
+            r_health = client.get("/health")
+            r_predict = client.post(
+                "/predict", json={"features": [0.1] * D}
+            )
+            gate.set()
+            deadline = time.time() + 60.0
+            r_ready = r_health
+            while time.time() < deadline:
+                r_ready = client.get("/health")
+                if r_ready.status_code == 200:
+                    break
+                time.sleep(0.05)
+        status = client.get("/lifeboat/status").json()
+        app_table = app.state["watchtower"].drift.ledger_snapshot()
+        result.metrics["app_device"] = app_table.acc.device.type
+    finally:
+        if client is not None:
+            client.close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    retry_after = {k.lower(): v for k, v in r_health.headers.items()}.get(
+        "retry-after"
+    )
+    result.add(
+        InvariantOutcome(
+            "readiness-503-while-recovering",
+            r_health.status_code == 503
+            and retry_after is not None
+            and float(retry_after) > 0
+            and r_predict.status_code == 503
+            and r_health.json().get("error") == "recovering",
+            f"/health={r_health.status_code} (Retry-After={retry_after}), "
+            f"/predict={r_predict.status_code} during replay",
+        )
+    )
+    result.add(
+        InvariantOutcome(
+            "readiness-flips-ready",
+            r_ready.status_code == 200
+            and status.get("state") == "ready"
+            and (status.get("last_recovery") or {}).get("restored") is True,
+            f"/health flipped to {r_ready.status_code}, lifeboat state "
+            f"{status.get('state')} after replaying "
+            f"{(status.get('last_recovery') or {}).get('replayed_rows')} rows",
+        )
+    )
+    ok_app, detail_app = _tables_equal(app_table, rep.state)
+    result.add(
+        InvariantOutcome(
+            "independent-restarts-agree",
+            ok_app,
+            "the app's recovered table bitwise-equals the library "
+            f"restart of the same bytes ({detail_app})",
+        )
+    )
+    return result
+
+
+def scenario_kill_mid_snapshot(
+    tmpdir: str, seed: int = 2027, n_batches: int = 10, batch: int = 64,
+    snapshot_after: int = 4, device=None,
+) -> ScenarioResult:
+    """Kill the snapshotter between the journal rotation and the
+    generation file landing (the ``lifeboat.snapshot`` injection point),
+    then fabricate a TORN newest generation on top — the two disk shapes a
+    crash mid-snapshot can leave. Invariants:
+
+    - **previous generation loads**: recovery skips exactly the torn file
+      (``generations_skipped == 1``) and restores from the last good
+      generation;
+    - **nothing lost**: the journal was rotated AT the captured sequence
+      number and synced before the kill, so replay lands the full table —
+      bitwise equal to a clean uninterrupted drive;
+    - **torn journal tail**: truncating the final journal record drops
+      exactly that flush — CRC-skip, the loss counted on
+      ``lifeboat_torn_tail_rows_total``, and the recovered table bitwise
+      equals the clean drive one flush back (loss is bounded AND
+      accounted, never silent corruption).
+    """
+    from fraud_detection_tpu_torch import lifeboat as lb
+    from fraud_detection_tpu_torch.device import resolve_device
+    from fraud_detection_tpu_torch.service import metrics as svc_metrics
+
+    dev = resolve_device(device)
+    lbdir = os.path.join(tmpdir, "lifeboat")
+    result = ScenarioResult("kill_mid_snapshot")
+
+    # clean reference with the table captured after every batch
+    ref_tables, batches, _, state_ref = _clean_tables(seed, n_batches, batch, dev)
+
+    # serve with the lifeboat; second snapshot dies mid-write
+    rm, spec, _, wt, mb, boat, _ = _ledger_serve(seed, batch, dev, lbdir)
+    boat.recover()
+    killed = False
+    plan = faults.FaultPlan().kill("lifeboat.snapshot")
+    try:
+        _drive_ledger_batches(mb, rm.model.scorer, spec, batches[:snapshot_after])
+        boat.take_snapshot()  # generation 1 lands cleanly
+        _drive_ledger_batches(mb, rm.model.scorer, spec, batches[snapshot_after:])
+        with plan.armed():
+            try:
+                boat.take_snapshot()  # rotated, then killed pre-write
+            except faults.ReplicaKilled:
+                killed = True
+    finally:
+        wt.close()
+    result.add(
+        InvariantOutcome(
+            "killed-mid-snapshot",
+            killed and plan.fired("lifeboat.snapshot") == 1,
+            "ReplicaKilled after the journal rotation, before the "
+            "generation file landed",
+        )
+    )
+
+    # a torn newest generation on top: valid bytes truncated mid-payload
+    # (the shape a crash mid-write leaves on a filesystem without the
+    # atomic-rename guarantee, or plain disk damage)
+    scratch = os.path.join(tmpdir, "scratch")
+    full = lb.write_snapshot(
+        scratch, n_batches, spec, state_ref, rows_seen=0
+    )
+    with open(full, "rb") as f:
+        blob = f.read()
+    torn_path = os.path.join(lbdir, f"lifeboat-{n_batches:012d}.snap")
+    with open(torn_path, "wb") as f:
+        f.write(blob[: int(len(blob) * 0.6)])
+
+    # warm restart: the torn file is skipped, generation 1 + full journal
+    # replay land the complete table
+    _, spec2, _, wt2, _, boat2, _ = _ledger_serve(seed, batch, dev, lbdir)
+    try:
+        rep = boat2.recover()
+        recovered = wt2.drift.ledger_snapshot()
+    finally:
+        wt2.close()
+        boat2.close()
+    ok_full, detail_full = _tables_equal(recovered, ref_tables[-1])
+    result.add(
+        InvariantOutcome(
+            "generation-fallback",
+            rep.generations_skipped == 1
+            and rep.snapshot_seq == snapshot_after,
+            f"torn newest generation skipped ({rep.generations_skipped}), "
+            f"restored from generation seq {rep.snapshot_seq}",
+        )
+    )
+    result.add(
+        InvariantOutcome(
+            "nothing-lost-on-fallback",
+            rep.restored and rep.torn_rows == 0 and ok_full,
+            "rotated+synced journal replays the full table bitwise vs the "
+            f"clean drive ({detail_full})",
+        )
+    )
+
+    # torn journal TAIL: truncate the last record's CRC — the final flush
+    # is lost, counted, and the table lands one flush back
+    journals = lb.list_journals(lbdir)
+    last_rows = int(np.sum([e is not None for e in batches[-1][1]]))
+    # the rotated file carrying records past generation 1 is the one whose
+    # base is the generation's sequence number
+    tail_file = next(
+        path for base, path in journals if base == snapshot_after
+    )
+    with open(tail_file, "rb") as f:
+        jblob = f.read()
+    with open(tail_file, "wb") as f:
+        f.write(jblob[:-6])
+    torn_before = svc_metrics.lifeboat_torn_tail_rows.get()
+    boat3 = lb.Lifeboat(lbdir, spec2, snapshot_s=1e9, fsync_s=0.0, device=dev)
+    try:
+        rep2 = boat3.recover()
+    finally:
+        boat3.close()
+    torn_delta = svc_metrics.lifeboat_torn_tail_rows.get() - torn_before
+    ok_torn, detail_torn = _tables_equal(rep2.state, ref_tables[-2])
+    result.metrics = {
+        "batches": n_batches,
+        "generation_seq": rep.snapshot_seq,
+        "generations_skipped": rep.generations_skipped,
+        "replayed_rows_full": rep.replayed_rows,
+        "replayed_rows_torn_tail": rep2.replayed_rows,
+        "torn_tail_rows": rep2.torn_rows,
+    }
+    result.add(
+        InvariantOutcome(
+            "torn-tail-bounded-loss",
+            rep2.torn_rows == last_rows
+            and torn_delta == last_rows
+            and ok_torn,
+            f"torn tail dropped exactly the final flush ({rep2.torn_rows} "
+            f"rows, counted on lifeboat_torn_tail_rows_total), table lands "
+            f"one flush back bitwise ({detail_torn})",
+        )
+    )
+    return result
+
+
 SCENARIOS = {
     "burst": scenario_burst,
     "drift_onset": scenario_drift_onset,
@@ -1555,12 +2573,18 @@ SCENARIOS = {
     "explain_under_burst": scenario_explain_under_burst,
     "gbt_explain_under_burst": scenario_gbt_explain_under_burst,
     "poison_entity_state": scenario_poison_entity_state,
+    "ingest_storm": scenario_ingest_storm,
+    "slo_burn_under_shed": scenario_slo_burn_under_shed,
+    "crash_warm_restart": scenario_crash_warm_restart,
+    "kill_mid_snapshot": scenario_kill_mid_snapshot,
 }
 
 #: scenarios that need a scratch directory as their first argument
 NEEDS_TMPDIR = (
     "label_delay",
     "control_plane_chaos",
+    "crash_warm_restart",
+    "kill_mid_snapshot",
 )
 
 

@@ -34,6 +34,10 @@ int8 codes), then either:
 - **split**: the score alone; the watchtower's ingest thread folds the
   window afterwards.
 
+A scorer without the staging protocol (a test double, an exotic model)
+flushes through its own ``predict_proba`` over the stacked rows (the
+legacy flush: no staging slot, no fused program, no reason codes).
+
 For a ledger-widened model (the watchtower's drift monitor holds the
 entity table) the fused flush is the ledger flush: :meth:`MicroBatcher.
 _stage_ledger` stages each item's entity columns — a ``/predict`` row's
@@ -93,6 +97,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -604,7 +609,7 @@ class MicroBatcher:
 
     def _note_family(self, scorer) -> None:
         """Latch the served family onto ``scorer_served_family``."""
-        fam = scorer.family
+        fam = getattr(scorer, "family", "linear")
         if fam == self._family:
             return
         prev, self._family = self._family, fam
@@ -896,15 +901,35 @@ class MicroBatcher:
         fire("ledger.update", slot=slot, batch=batch, placement=placement)
         return tuple(scorer.to_device(c) for c in (ls, lf, lt, lh)), n_null
 
+    def _flush_legacy(self, scorer, batch: list[tuple]):
+        """The flush of a scorer without the staging protocol (a test double,
+        an exotic model): its opaque ``predict_proba`` over the stacked rows,
+        no fused program and no decomposition. Returns ``_flush_device``'s
+        tuple, with no slot."""
+        self._note_family(scorer)
+        if self.explain:
+            # no fused program: reason codes cannot ride the flush
+            self._note_explain_fused(False, scorer)
+        if any(item[0].ndim == 2 for item in batch):  # ingest blocks
+            rows = np.concatenate([np.atleast_2d(item[0]) for item in batch])
+        else:
+            rows = np.stack([item[0] for item in batch])
+        with annotate("microbatch-score"):
+            probs = np.asarray(scorer.predict_proba(rows))
+        device_calls = 2 if self.watchtower is not None else 1
+        return probs, None, device_calls, rows, probs, None, None, None
+
     async def _flush(self, batch: list[tuple]) -> None:
         n_rows = _batch_rows(batch)
         scorer, source, version = self._served()
         fused = False
+        slot = None
         try:
             # everything that can fail stays inside this try: a raise before
             # the waiters resolve would leave clients awaiting forever
             metrics.microbatch_size.observe(n_rows)
-            target = self._fused_target(scorer)
+            staged = hasattr(scorer, "stage_items") and hasattr(scorer, "_score_padded")
+            target = self._fused_target(scorer) if staged else None
             fused = target is not None
             if getattr(scorer, "wide_spec", None) is None:
                 self._note_wide_off()
@@ -912,12 +937,14 @@ class MicroBatcher:
                 # off the fused flush a wide model drops its crosses
                 self._note_wide_fused(fused, scorer, version)
             loop = asyncio.get_running_loop()
+            flush = (
+                partial(self._flush_device, scorer, target, batch, self.telemetry)
+                if staged else partial(self._flush_legacy, scorer, batch)
+            )
             (
                 probs, explain_out, device_calls, monitor_rows,
                 monitor_scores, monitor_reasons, stamps, slot,
-            ) = await loop.run_in_executor(
-                None, self._flush_device, scorer, target, batch, self.telemetry
-            )
+            ) = await loop.run_in_executor(None, flush)
             if explain_out is not None:
                 metrics.scorer_explained_rows.inc(n_rows)
             self._g_device_calls.set(device_calls)
@@ -983,7 +1010,8 @@ class MicroBatcher:
                 if link_timelines and item[2] is not None:
                     item[2].flush = fi
         finally:
-            scorer.staging.release(slot)
+            if slot is not None:
+                scorer.staging.release(slot)
         if fi is not None:
             fi.t_resolved = time.perf_counter()
             self._export_flush(fi, batch)

@@ -14,9 +14,19 @@ the rows' device. A round is sharded, unsharded, unsharded, sharded;
 ``--once`` runs each leg once. One logistic ``train()`` first, untimed,
 takes the process's first-call costs out of the turns. The wall is the host clock around the call
 (``train()`` synchronises the device at every stage boundary). Prints one
-line a run and a JSON line with each leg's walls, median and spread, and
-whether the two legs' models are bitwise equal; the JSON also goes to
-``chiprun_out/train_turns_<device>_<families>.json``.
+line a run (its wall, test AUC, final stages and each L-BFGS fit's
+iterations) and a JSON line with each leg's walls, median and spread, the
+L-BFGS iterations, and whether the two legs' models are bitwise equal;
+the JSON also goes to ``chiprun_out/train_turns_<device>_<families>[_<tag>]
+.json``.
+
+To hold another tree's ``train()`` against this one (a parent commit
+unpacked under a git-ignored directory), run this file by its path with
+that tree on ``PYTHONPATH``: the package it imports is that tree's, the
+committed CSV and ``chiprun_out/`` are this one's::
+
+    PYTHONPATH=build/parent python fraud_detection_tpu_torch/train_turns.py \
+        --device cuda --family logistic --once --tag parent
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ def turns(family: str, device: str, rounds: int, once: bool, work: Path) -> dict
     order = list(LEGS) if once else [*LEGS, *reversed(LEGS)] * rounds
     walls: dict = {leg: [] for leg in LEGS}
     fits: dict = {leg: [] for leg in LEGS}
+    iters: dict = {leg: [] for leg in LEGS}
     models: dict = {}
     for leg in order:
         wall, metrics, arrays = run_once(family, leg, device, work)
@@ -87,9 +98,11 @@ def turns(family: str, device: str, rounds: int, once: bool, work: Path) -> dict
         final = {k: v for k, v in metrics["stages"].items() if k.startswith("final")}
         final["fits"] = sum(v for k, v in metrics["stages"].items() if k.endswith("_fit"))
         fits[leg].append(final)
+        iters[leg].append(metrics.get("lbfgs_iters"))
         models.setdefault(leg, arrays)
         print(f"train_turns {device} {family} {leg}: {wall:.3f} s wall, test AUC "
-              f"{metrics['test_auc']:.6f}, final stages {final}", flush=True)
+              f"{metrics['test_auc']:.6f}, final stages {final}, L-BFGS iterations "
+              f"{metrics.get('lbfgs_iters')}", flush=True)
     a, b = models["sharded"], models["unsharded"]
     bitwise = a.keys() == b.keys() and all(a[k].tobytes() == b[k].tobytes() for k in a)
     return {
@@ -97,6 +110,7 @@ def turns(family: str, device: str, rounds: int, once: bool, work: Path) -> dict
         "median_s": {leg: float(np.median(w)) for leg, w in walls.items()},
         "spread_s": {leg: [min(w), max(w)] for leg, w in walls.items()},
         "final_fit_stages_s": fits,
+        "lbfgs_iters": iters,
         "models_bitwise_equal": bool(bitwise),
     }
 
@@ -107,6 +121,7 @@ def main(argv=None) -> int:
     ap.add_argument("--family", action="append", choices=("logistic", "gbt"))
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--once", action="store_true", help="each leg once, not in rounds")
+    ap.add_argument("--tag", default="", help="suffix of the JSON file's name")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
     if args.device == "cuda":
@@ -126,7 +141,9 @@ def main(argv=None) -> int:
                                                args.once, Path(work))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / f"train_turns_{args.device}_{'_'.join(families)}.json").write_text(json.dumps(result, indent=1))
+    tag = f"_{args.tag}" if args.tag else ""
+    (out_dir / f"train_turns_{args.device}_{'_'.join(families)}{tag}.json").write_text(
+        json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 

@@ -6,7 +6,8 @@ same seed, on the CPU, held to the port's contract with the reference (the
   order — with ``latency=False`` every one but ``p99-holds``, a closed-loop
   host-clock probe: the three scenarios whose probe failed in a loaded run
   of these files (:data:`LATENCY_SLOW`) hold it in a ``slow`` test
-  instead;
+  instead; and the port's alone for an invariant the reference's own
+  timing decides (:data:`REFERENCE_RACES`);
 - the deterministic metrics equal (:data:`EXACT`);
 - ``detected_row`` within one sampling interval (the fold samples the
   monitor's status every 4 batches: the two detections are the same
@@ -19,7 +20,7 @@ import numpy as np
 
 from fraud_detection_tpu.range.scenarios import run_scenario as jax_run_scenario
 from fraud_detection_tpu_torch.range import traffic
-from fraud_detection_tpu_torch.range.scenarios import D, SCENARIOS, run_scenario
+from fraud_detection_tpu_torch.range.scenarios import D, NEEDS_TMPDIR, SCENARIOS, run_scenario
 
 #: the metrics a seeded scenario fixes exactly, whatever the timing
 EXACT = (
@@ -29,6 +30,10 @@ EXACT = (
     "store_window_rows", "challenger_version", "resume_outcome",
     "duplicate_promote_outcome", "second_resume", "redeliveries", "poison_fired",
     "mule_slot", "onset_row", "shards", "victim", "drained_shard", "batches",
+    "frames_offered", "errors", "admit_max_rows", "drained_shard_state",
+    "sheds", "scored", "budget_before", "snapshot_seq", "replayed_rows", "torn_rows",
+    "post_recovery_compiles", "generation_seq", "generations_skipped",
+    "replayed_rows_full", "replayed_rows_torn_tail", "torn_tail_rows",
 )
 CLOSE = {"ring_mean_score": 1e-3, "background_mean_score": 1e-3}
 #: scenarios whose parity check failed in a loaded run: the forest's p99 in
@@ -37,6 +42,12 @@ CLOSE = {"ring_mean_score": 1e-3, "background_mean_score": 1e-3}
 #: runs of the three scenario files at ``-n 3`` (a JAX p99 of 320.57 ms
 #: against 250 ms among them)
 LATENCY_SLOW = ("burst", "explain_under_burst", "gbt_explain_under_burst")
+#: invariants whose outcome the reference's own timing decides, held on the
+#: port alone: ``ingest_storm``'s 4 connections shed against the admission
+#: bound only when two large frames meet at one shard (JAX shed in 1 of 3
+#: runs alone on the CPU, 2 of 4 with ``SCORER_MAX_INFLIGHT=1``); the
+#: port's 8 connections shed in every run
+REFERENCE_RACES = {"ingest_storm": ("sheds-bounded",)}
 
 
 def _sample_points(name: str, seed: int = 2026) -> list[int]:
@@ -63,7 +74,7 @@ def compare(name: str, tmp_path, latency: bool = True) -> tuple[dict, dict]:
     ``p99-holds`` outcome only with ``latency``); return both results as
     dicts."""
     assert name in SCENARIOS
-    if name in ("label_delay", "control_plane_chaos"):
+    if name in NEEDS_TMPDIR:
         (tmp_path / "jax").mkdir()
         (tmp_path / "port").mkdir()
         jr = jax_run_scenario(name, tmpdir=str(tmp_path / "jax"))
@@ -74,7 +85,9 @@ def compare(name: str, tmp_path, latency: bool = True) -> tuple[dict, dict]:
     jd, td = jr.to_dict(), tr.to_dict()
     print(name, "port", td, "\njax", jd)
     assert list(td["invariants"]) == list(jd["invariants"])
-    bad = {k: v for k, v in {**{f"jax {k}": v for k, v in jd["invariants"].items()},
+    races = REFERENCE_RACES.get(name, ())
+    bad = {k: v for k, v in {**{f"jax {k}": v for k, v in jd["invariants"].items()
+                                if k not in races},
                              **{f"port {k}": v for k, v in td["invariants"].items()}}.items()
            if not v["ok"] and (latency or not k.endswith("p99-holds"))}
     assert not bad, bad

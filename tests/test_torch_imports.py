@@ -117,7 +117,7 @@ def test_range_modules_import_with_jax_and_service_deps_blocked():
         "assert rng.FaultPlan is fraud_detection_tpu_torch.range.faults.FaultPlan\n"
         "for name in ('traffic', 'invariants', 'scenarios'):\n"
         "    importlib.import_module('fraud_detection_tpu_torch.range.' + name)\n"
-        "assert len(rng.SCENARIOS) == 11 and callable(rng.run_scenario)\n"
+        "assert len(rng.SCENARIOS) == 15 and callable(rng.run_scenario)\n"
         "assert rng.ScenarioResult.__module__.endswith('range.invariants')\n"
         "leaked = sorted(m for m in sys.modules if jax_or_reference(m) or service_deps(m))\n"
         "assert not leaked, leaked\n"
@@ -128,6 +128,31 @@ def test_range_modules_import_with_jax_and_service_deps_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("LIGHT []")
+
+
+def test_lifeboat_scenario_runs_with_jax_and_service_deps_blocked(tmp_path):
+    """The socket and restart scenarios import the binary lane, the front,
+    the SLO engine, the lifeboat and the app inside their bodies, where the
+    module walk above never reaches: ``kill_mid_snapshot`` runs to its end
+    on the CPU in a fresh interpreter with JAX, the JAX package and the
+    service dependencies blocked, and loads none of them. ``torch._dynamo``
+    is imported first: the fit's first ``torch.optim`` step imports it, and
+    it probes optional packages (pandas among them) with ``find_spec``,
+    which the blocker answers with an error where an absent package
+    answers None."""
+    probe = "import torch._dynamo\n" + _PROBE.split("import fraud_detection_tpu_torch as pkg")[0] + (
+        "from fraud_detection_tpu_torch.range import run_scenario\n"
+        f"res = run_scenario('kill_mid_snapshot', tmpdir={str(tmp_path)!r}, device='cpu')\n"
+        "res.raise_if_failed()\n"
+        "leaked = sorted(m for m in sys.modules if jax_or_reference(m) or service_deps(m))\n"
+        "assert not leaked, leaked\n"
+        "print('INVARIANTS', len(res.invariants))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("INVARIANTS 4")
 
 
 def test_store_tier_imports_no_torch():
