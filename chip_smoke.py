@@ -486,6 +486,25 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    sample point or an adjacent one. The phase's wall is printed. The
    earlier phases' heap is collected and frozen first (``gc.freeze``), so
    a full collection inside a burst scans only the range's objects.
+21. **the longhaul fleet** — (a) ``ledger_owner_failover_mid_traffic``,
+   ``host_partition_mid_promotion`` and ``split_brain_scrape`` through
+   ``run_scenario`` on ``cuda`` at their default sizes and seeds (2 hosts
+   and a reference, each a 1,024-slot ledger at d = 34; 8 × 32 and 4 × 32
+   routed rows), the ``fused_score`` count zeroed before each: every
+   invariant, a ``fused_score`` launch in each and more in the two that
+   route traffic than in the one that does not, no kernel library loaded
+   across the inheritance (``num_device_alloc`` across it printed, not
+   gated); the three again on the CPU, their epochs, batches, rows
+   replayed and the merged window's rows the card's. (b) The directory in
+   this process and two ``python -m fraud_detection_tpu_torch.longhaul.host``
+   children on the card (their start-up logs name cuda): 8 batches of 256
+   routed in JSON and binary by turns, bitwise the in-process reference
+   before the kill and after the failover; rank 1's child SIGKILLed after
+   its last answer, every probe on its segment a 503 with Retry-After > 0,
+   ``drive_failover`` restored with rows replayed and none torn, the
+   survivor's ``table`` bitwise the reference's on every leaf; then four
+   children and 4 batches of 256 bitwise a fresh reference. The phase's
+   wall, and the whole run's command time, are printed.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -1961,7 +1980,7 @@ def gbt_trained_path(work: Path) -> tuple[dict, str, str]:
 
 def forest_agreement(card_models: Path, cpu_models: Path) -> None:
     """Whether the card's forests equal the CPU's: the final fit's, from
-    the two runs' ``model.npz``, then each fold's, refit on both devices
+    the two runs' ``model.npz``, then fold 0's, refit on both devices
     from the card's SMOTE'd rows (the trainer's own split, scaler and
     seeds). The card's histograms are int64 fixed-point sums, the CPU's
     float32 row-order sums, so a split whose two best candidates lie within
@@ -1999,7 +2018,9 @@ def forest_agreement(card_models: Path, cpu_models: Path) -> None:
     x_train, y_train = x[tr_idx], y[tr_idx]
     xs = scaler_transform(scaler_fit(torch.as_tensor(x_train, device="cuda")),
                           torch.as_tensor(x_train, device="cuda"))
-    for fold, (tr, _) in enumerate(stratified_kfold_indices(y_train, 5, seed)):
+    # fold 0 alone: a CPU refit takes ~20 s on the card's host, and this gates nothing
+    folds = list(stratified_kfold_indices(y_train, 5, seed))[:1]
+    for fold, (tr, _) in enumerate(folds):
         x_tr, y_tr = smote(xs[torch.as_tensor(tr, device="cuda")], y_train[tr], seed + fold)
         card = gbt_fit(x_tr, y_tr, cfg)
         cpu = gbt_fit(x_tr.cpu(), y_tr, cfg)
@@ -8515,6 +8536,129 @@ def _range_phase(work: Path, card: str, t_phase: float) -> dict:
     return {"launches": totals, "card": card_runs, "cpu": cpu, "wall_s": wall}
 
 
+LONGHAUL_NAMES = ("ledger_owner_failover_mid_traffic", "host_partition_mid_promotion",
+                  "split_brain_scrape")
+#: card against CPU: the metrics each longhaul scenario fixes exactly
+LONGHAUL_CPU_EXACT = {
+    "ledger_owner_failover_mid_traffic": ("batches", "replayed_rows", "mid_handoff_503s",
+                                          "compiles_delta"),
+    "host_partition_mid_promotion": ("epoch_before", "epoch_dead", "epoch_fresh"),
+    "split_brain_scrape": ("epoch_baseline", "epoch_split", "epoch_healed",
+                           "window_rows_baseline"),
+}
+LONGHAUL_BATCHES = 8  # routed batches of LONGHAUL_ROWS through the two-host fleet
+LONGHAUL_ROWS = 256
+LONGHAUL_FOUR_BATCHES = 4  # routed through the four-host fleet, no kill
+
+
+def longhaul_in_process(work: Path, card: str) -> dict:
+    """Phase 21a: the three longhaul scenarios through ``run_scenario`` on the
+    card (the counts zeroed before each), then on the CPU."""
+    card_runs, launches = {}, {}
+    for name in LONGHAUL_NAMES:
+        d, counts, wall = range_run(name, work, "cuda")
+        card_runs[name], launches[name] = d, counts["fused_score"]
+        invs = "; ".join(f"{k} {v['ok']} {v['detail']}" for k, v in d["invariants"].items())
+        print(f"phase21 {name}: {wall:.3f} s wall (host clock, device synchronised); "
+              f"invariants: {invs}; metrics {json.dumps(d['metrics'])}; launches "
+              f"fused_score {counts['fused_score']} ({card})")
+        bad = [k for k, v in d["invariants"].items() if not v["ok"]]
+        if bad:
+            raise AssertionError(f"phase21 {name}: invariants failed {bad}: {d['invariants']}")
+        if counts["fused_score"] == 0:
+            raise AssertionError(f"phase21 {name}: no fused_score launch")
+    m = card_runs["ledger_owner_failover_mid_traffic"]["metrics"]
+    if m["compiles_delta"] != 0:
+        raise AssertionError(f"phase21: {m['compiles_delta']} kernel libraries loaded across "
+                             "the inheritance")
+    # build_ledger_model's profile scores launch in every scenario (three fits); the
+    # two that route traffic launch once more per flush on the hosts and the
+    # reference
+    base = launches["host_partition_mid_promotion"]
+    for name in ("ledger_owner_failover_mid_traffic", "split_brain_scrape"):
+        if launches[name] <= base:
+            raise AssertionError(f"phase21 {name}: fused_score {launches[name]} launches, no "
+                                 f"more than the scenario without traffic ({base})")
+    print(f"phase21 ledger_owner_failover_mid_traffic: detect {m['detect_s']} s, failover "
+          f"{m['failover_s']} s, {m['replayed_rows']} rows replayed at "
+          f"{m['replay_rows_per_sec']} rows/s; kernel libraries loaded across the "
+          f"inheritance and the traffic after it {m['compiles_delta']}; num_device_alloc "
+          f"across them +{m['inherit_device_allocs']} (printed, not gated) ({card})")
+    for name in LONGHAUL_NAMES:
+        d, _, wall = range_run(name, work, "cpu")
+        bad = [k for k, v in d["invariants"].items() if not v["ok"]]
+        if bad:
+            raise AssertionError(f"phase21 {name} on the CPU: invariants failed {bad}")
+        agree = {}
+        for key in LONGHAUL_CPU_EXACT[name]:
+            cm, gm = card_runs[name]["metrics"][key], d["metrics"][key]
+            if cm != gm:
+                raise AssertionError(f"phase21 {name}: {key} card {cm} != cpu {gm}")
+            agree[key] = cm
+        print(f"phase21 {name} card = cpu: {json.dumps(agree)} (cpu run {wall:.3f} s)")
+    return {"card": card_runs, "launches": launches}
+
+
+def longhaul_two_hosts(work: Path, card: str) -> dict:
+    """Phase 21b: the directory in this process, two host children on the
+    card, 8 routed batches of 256 in JSON and binary by turns, a SIGKILL of
+    rank 1's child after its last answer, the 503 on its segment, the
+    failover, the survivor's table bitwise the reference's
+    (``range.scenarios.longhaul_drill``)."""
+    from fraud_detection_tpu_torch.range.scenarios import longhaul_drill
+
+    fmts = ["json" if k % 2 == 0 else "binary" for k in range(LONGHAUL_BATCHES)]
+    (work / "p21").mkdir(exist_ok=True)
+    r = longhaul_drill(str(work / "p21"), 2, LONGHAUL_BATCHES, LONGHAUL_ROWS, "cuda", fmts)
+    print(f"phase21 2 hosts: children ready in {r['ready_s']:.3f} s (both on cuda); "
+          f"{LONGHAUL_BATCHES} batches of {LONGHAUL_ROWS} rows (json, binary by turns) "
+          f"bitwise the in-process reference before the kill and after the failover; "
+          f"{r['routed_rows']} rows routed in {r['routed_s']:.3f} s before the kill "
+          f"({r['routed_rows'] / r['routed_s']:.1f} rows/s), {r['post_rows']} in "
+          f"{r['post_s']:.3f} s after it ({r['post_rows'] / r['post_s']:.1f} rows/s); SIGKILL "
+          f"of {r['dead']} detected in {r['detect_s']:.3f} s; every probe on its segment "
+          f"answered 503 with Retry-After {r['retry_after_s']}; failover "
+          f"{r['failover_s']:.3f} s wall (host clock): restored, {r['replayed_rows']} rows "
+          f"replayed at {r['replay_rows_per_sec']:.1f} rows/s, {r['torn_rows']} torn; the "
+          f"survivor's table bitwise the reference's on every leaf ({card})")
+    return r
+
+
+def longhaul_four_hosts(work: Path, card: str) -> dict:
+    """Phase 21b, four hosts: four children on the card, 4 routed batches of
+    256 bitwise a fresh in-process reference (the two moduli stay
+    independent as the host count grows)."""
+    from fraud_detection_tpu_torch.range.scenarios import longhaul_drill
+
+    fmts = ["json" if k % 2 == 0 else "binary" for k in range(LONGHAUL_FOUR_BATCHES)]
+    (work / "p21x4").mkdir(exist_ok=True)
+    r = longhaul_drill(str(work / "p21x4"), 4, LONGHAUL_FOUR_BATCHES, LONGHAUL_ROWS, "cuda",
+                       fmts, kill=False)
+    print(f"phase21 4 hosts: children ready in {r['ready_s']:.3f} s (all on cuda); "
+          f"{LONGHAUL_FOUR_BATCHES} batches of {LONGHAUL_ROWS} rows bitwise the in-process "
+          f"reference, routed over {r['hosts']} in {r['routed_s']:.3f} s ({card})")
+    return r
+
+
+def longhaul_phase(work: Path, card: str) -> dict:
+    """Phase 21: the longhaul fleet on the card — the three scenarios in
+    process (and again on the CPU), then real host processes."""
+    t_phase = time.perf_counter()
+    for key in [k for k in os.environ if k.startswith(TEL_CLEAR_PREFIXES)
+                or k in TEL_CLEAR or k.startswith("LONGHAUL_")]:
+        os.environ.pop(key)
+    os.environ["DEVICE"] = "cuda"
+    in_process = longhaul_in_process(work, card)
+    two = longhaul_two_hosts(work, card)
+    four = longhaul_four_hosts(work, card)
+    wall = time.perf_counter() - t_phase
+    launches = sum(in_process["launches"].values())
+    print(f"phase21: the longhaul fleet on the card in {wall:.3f} s, fused_score launches "
+          f"in process {launches} ({card})")
+    return {"launches": launches, "in_process": in_process, "two_hosts": two,
+            "four_hosts": four, "wall_s": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -8534,6 +8678,7 @@ def main() -> int:
     from fraud_detection_tpu_torch.device import resolve_device
     from fraud_detection_tpu_torch.ops import kernels
 
+    t_run = time.perf_counter()
     resolve_device("cuda")  # precision policy: no TF32
     card = card_line()
     print(f"card: {card}")
@@ -8599,6 +8744,7 @@ def main() -> int:
         sharded = sharded_training_phase(work, card)
         model_axis = model_axis_phase(work, wide["model_dir"], card)
         ranged = range_phase(work, card)
+        longhaul = longhaul_phase(work, card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS.get(name) or ENTRY_POINTS[name]
@@ -8630,6 +8776,7 @@ def main() -> int:
             mesh_retrain_launches=sharded["retrain"]["fused_score"],
             model_axis_launches=model_axis["flushes"]["fused_score"],
             range_launches=ranged["launches"]["fused_score"],
+            longhaul_launches=longhaul["launches"],
             model_axis_flush_1024=model_axis["timing"],
             model_axis_fit_wall_s=model_axis["fits"]["walls_s"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
@@ -8702,6 +8849,8 @@ def main() -> int:
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_run:.3f} s of command "
+          f"(host clock, from the card check to the kernels line) ({card})")
     print(json.dumps(line))
     print(card)  # exactly as nvidia-smi gives it
     print(json.dumps({"ok": True, "device": {

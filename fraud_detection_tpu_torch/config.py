@@ -520,7 +520,8 @@ def lifecycle_db_url(broker: str | None = None) -> str:
     SQL surface: the store falls back to the process-local
     ``sqlite:///lifecycle.db``, with a warning once a process, because a
     local file carries neither feedback nor the retrain/promotion latch
-    across replicas."""
+    across replicas, and a fleet of ``LONGHAUL_HOSTS > 1`` refuses to start
+    on it."""
     global _warned_local_lifecycle_db
     explicit = os.environ.get("LIFECYCLE_DB_URL")
     if explicit:
@@ -528,6 +529,17 @@ def lifecycle_db_url(broker: str | None = None) -> str:
     broker = broker or broker_url()
     if broker.startswith(("sqlite", "postgresql://", "postgres://")):
         return broker
+    if longhaul_hosts() > 1:
+        # a multi-host fleet splitting its feedback store is an outage,
+        # not a warning: every host would race the retrain/promotion latch
+        # in its own file and the fleet would promote N champions
+        raise RuntimeError(
+            "LONGHAUL_HOSTS>1 but LIFECYCLE_DB_URL is unset and broker "
+            f"{broker!r} has no SQL surface: the process-local "
+            "sqlite:///lifecycle.db fallback cannot carry feedback or the "
+            "retrain/promotion latch across hosts. Set LIFECYCLE_DB_URL "
+            "to a shared database (see README 'longhaul')."
+        )
     if not _warned_local_lifecycle_db:
         _warned_local_lifecycle_db = True
         import logging
@@ -717,3 +729,57 @@ def device_peak_bytes_per_s() -> float:
     roofline audit divides by. 0 (the default) measures it once with a
     streaming probe (telemetry/roofline ``ensure_membw``)."""
     return _get_float("DEVICE_PEAK_BYTES_PER_S", 0.0)
+
+
+# the longhaul fleet: the multi-host serving mesh (longhaul/)
+
+
+def longhaul_hosts() -> int:
+    """``LONGHAUL_HOSTS`` — the fleet's host segments, the outer modulus of
+    the two-level placement (``slot mod LONGHAUL_HOSTS`` names the owning
+    host). 1 (the default) is a single host. Fixed for the life of a fleet:
+    changing it remaps every entity's owner."""
+    return _get_int("LONGHAUL_HOSTS", 1)
+
+
+def longhaul_directory() -> str:
+    """``LONGHAUL_DIRECTORY`` — ``host:port`` of the membership directory
+    every host joins and heartbeats."""
+    return os.environ.get("LONGHAUL_DIRECTORY", "127.0.0.1:7300")
+
+
+def longhaul_host_id() -> str:
+    """``LONGHAUL_HOST_ID`` — this process's member identity (its rank is
+    sticky per host id across rejoins)."""
+    return os.environ.get("LONGHAUL_HOST_ID", "host-0")
+
+
+def longhaul_data_dir() -> str:
+    """``LONGHAUL_DATA_DIR`` — the root under which each host keeps its
+    lifeboat directory, ``<root>/<host_id>``. On a shared filesystem the
+    inheritor replays a dead peer's generation from ``<root>/<peer_id>``."""
+    return os.environ.get("LONGHAUL_DATA_DIR", "longhaul-data")
+
+
+def longhaul_heartbeat_s() -> float:
+    """``LONGHAUL_HEARTBEAT_S`` — seconds between a member's heartbeats."""
+    return _get_float("LONGHAUL_HEARTBEAT_S", 1.0)
+
+
+def longhaul_dead_after_s() -> float:
+    """``LONGHAUL_DEAD_AFTER_S`` — heartbeat silence after which the
+    directory marks a member dead and bumps the epoch. Keep it at least
+    three heartbeats."""
+    return _get_float("LONGHAUL_DEAD_AFTER_S", 3.0)
+
+
+def longhaul_retry_after_s() -> float:
+    """``LONGHAUL_RETRY_AFTER_S`` — the Retry-After (seconds) of the
+    front's 503 while a segment's owner inherits or no host is healthy."""
+    return _get_float("LONGHAUL_RETRY_AFTER_S", 1.0)
+
+
+def longhaul_probation_s() -> float:
+    """``LONGHAUL_PROBATION_S`` — seconds a dead host handle waits before
+    the front risks one probe on it."""
+    return _get_float("LONGHAUL_PROBATION_S", 2.0)

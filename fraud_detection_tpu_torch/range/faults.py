@@ -25,7 +25,10 @@ call at each place a drill needs to break things:
 - ``lifeboat.recover`` — stall a warm restart (the app's 503 "recovering"
   window), ``lifeboat.journal`` — a journal record written, its flush not
   launched, ``lifeboat.snapshot`` — a generation cut, not yet landed
-  (lifeboat/).
+  (lifeboat/);
+- ``longhaul.inherit`` — stall or fail a host's inheritance of a dead
+  peer's segment, before the peer's generation replays (the front answers
+  the segment's 503 meanwhile; longhaul/host.py).
 
 Faults are **off by default with no hot-path cost**: every hook is a
 module-global ``None`` check. A drill arms a :class:`FaultPlan` via

@@ -1,10 +1,11 @@
 """The fraud range: named chaos scenarios against the live in-process stack.
 
-The port's counterpart of the JAX package's ``range/scenarios.py``, the
-scenarios that run on one host. Each scenario builds the REAL serving
+The port's counterpart of the JAX package's ``range/scenarios.py``, all
+eighteen of its scenarios. Each scenario builds the REAL serving
 pieces (``BatchScorer`` behind the micro-batcher, the watchtower's drift
 window, the conductor's CAS state machine, the sqlite broker, the shard
-front, the binary lane on localhost sockets, the lifeboat, the app) on
+front, the binary lane on localhost sockets, the lifeboat, the app, the
+longhaul fleet's directory and hosts on localhost sockets) on
 ``device`` — the card unless the caller asks
 for the CPU (``DEVICE=cpu`` or ``device="cpu"``) — replays a seeded
 synthetic campaign (range/traffic.py), optionally arms a
@@ -66,6 +67,17 @@ The suite (``run_scenario(name)``):
                           generation and a torn journal tail; the previous
                           generation loads, nothing lost, the torn flush
                           counted
+``ledger_owner_failover_mid_traffic``  one host of a 2-host longhaul fleet
+                          killed mid-traffic; routed scores bitwise a single
+                          host's, the dead segment's 503 + Retry-After, the
+                          survivor inherits from the peer's journal and its
+                          table lands bitwise the single host's
+``host_partition_mid_promotion``  a host partitioned from the directory
+                          mid-promotion; every stale-epoch finalize fenced,
+                          the post-rejoin finalize lands
+``split_brain_scrape``    a partitioned host keeps answering scrapes under
+                          its frozen epoch; the fleet merge drops and
+                          counts it, never double-counts its window
 ========================  ==================================================
 
 JAX counts a recompile as a miss of the fused flush's executable cache;
@@ -2561,6 +2573,635 @@ def scenario_kill_mid_snapshot(
     return result
 
 
+# -- longhaul: the multi-host switchyard -------------------------------------
+
+def _keyed_batches(spec, batches):
+    """Entity strings → ``(slot, fp, ts)`` triples, the form the front
+    routes on and the micro-batcher stages."""
+    out = []
+    for rows, ents, ts in batches:
+        ke = [
+            None if e is None else (*spec.row_keys(e), float(ts[i]))
+            for i, e in enumerate(ents)
+        ]
+        out.append((rows, ke))
+    return out
+
+
+def _longhaul_fleet(tmpdir: str, seed: int, dead_after_s: float = 1.0, device=None):
+    """A 2-host localhost fleet on ``device``: directory + two
+    lifeboat-backed hosts + front, plus the single-host parity reference.
+    Returns ``(dirsrv, h_a, h_b, b_ref, front, fleet_dir, t0)``;
+    :func:`_close_fleet` tears it down."""
+    from fraud_detection_tpu_torch.longhaul.front import LonghaulFront
+    from fraud_detection_tpu_torch.longhaul.host import HostServer, build_seeded_backend
+    from fraud_detection_tpu_torch.longhaul.membership import DirectoryServer
+
+    dirsrv = DirectoryServer(
+        os.path.join(tmpdir, "dir"), n_hosts=2, dead_after_s=dead_after_s
+    )
+    dirsrv.start()
+    fleet_dir = os.path.join(tmpdir, "fleet")
+    b_a, t0 = build_seeded_backend(seed, fleet_dir, "host-a", device=device)
+    b_b, _ = build_seeded_backend(seed, fleet_dir, "host-b", device=device)
+    h_a = HostServer(
+        "host-a", b_a, n_hosts=2, directory_addr=dirsrv.addr, heartbeat_s=0.2,
+    )
+    h_b = HostServer(
+        "host-b", b_b, n_hosts=2, directory_addr=dirsrv.addr, heartbeat_s=0.2,
+    )
+    h_a.start()
+    h_b.start()
+    b_ref, _ = build_seeded_backend(seed, "", "ref", device=device)
+    front = LonghaulFront(b_ref.spec, n_hosts=2, directory_addr=dirsrv.addr)
+    # both joins must be visible in every host's serving claim before
+    # traffic flows (host-a momentarily ring-owns both segments)
+    _wait_until(lambda: h_a.owned_segments == {0} and h_b.owned_segments == {1})
+    return dirsrv, h_a, h_b, b_ref, front, fleet_dir, t0
+
+
+def _close_fleet(front, h_a, h_b, b_ref, dirsrv, kill_b: bool) -> None:
+    """Tear a :func:`_longhaul_fleet` down: the front, the hosts (``h_b``
+    killed or closed), the directory, then the three backends' threads."""
+    front.close()
+    h_a.close()
+    if kill_b:
+        h_b.kill()
+    else:
+        h_b.close()
+    dirsrv.close()
+    for backend in (h_a.backend, h_b.backend, b_ref):
+        backend.close()
+
+
+def _wait_until(pred, timeout_s: float = 5.0) -> None:
+    """Poll ``pred`` every 50 ms until it holds or ``timeout_s`` passes."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+
+
+def _wait_dead(dirsrv, rank: int, timeout_s: float = 6.0) -> float:
+    """Block until the failure detector declares ``rank`` dead; returns
+    the detection latency."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        m = dirsrv.view().member_by_rank(rank)
+        if m is not None and not m.alive:
+            return time.monotonic() - t0
+        time.sleep(0.05)
+    raise TimeoutError(f"rank {rank} never declared dead")
+
+
+def _rank_alive(dirsrv, rank: int) -> bool:
+    m = dirsrv.view().member_by_rank(rank)
+    return m is not None and m.alive
+
+
+#: the subprocess drill's seed (JAX's multihost bench), its probes on the
+#: dead segment, and a child's start-up bound (the interpreter, the card,
+#: the seeded fit)
+DRILL_SEED, DRILL_PROBES, DRILL_READY_S = 7, 4, 300.0
+
+
+def longhaul_drill(
+    work: str, n_hosts: int, n_batches: int, rows: int, device: str,
+    fmts, kill: bool = True,
+) -> dict:
+    """The fleet as it deploys: a directory in this process and ``n_hosts``
+    children of ``python -m fraud_detection_tpu_torch.longhaul.host`` on
+    ``device`` (``DEVICE=cpu`` for the CPU, no ``DEVICE`` for the card),
+    spawned together and each past its ``LONGHAUL_READY`` handshake, its
+    start-up log naming ``device``. ``n_batches`` batches of ``rows`` rows
+    are routed through a front, batch ``k`` in ``fmts[k]``, each bitwise
+    the in-process single-host reference's scores.
+
+    With ``kill`` (two hosts), rank 1's child is SIGKILLed after the first half's last
+    answer; ``DRILL_PROBES`` requests on its segment (in ``fmts`` by turns) must
+    each answer the typed 503 with Retry-After > 0; ``drive_failover``
+    must restore the segment from the peer's journal with no torn row; the
+    second half is then routed, and the survivor's ``table`` op must be
+    bitwise the reference's table on every leaf. Raises ``AssertionError``
+    at the first disagreement; returns the readings (host clock)."""
+    import select
+    import signal
+    import subprocess
+    import sys
+
+    import fraud_detection_tpu_torch
+    from fraud_detection_tpu_torch.ledger.state import host_state
+    from fraud_detection_tpu_torch.longhaul import codec
+    from fraud_detection_tpu_torch.longhaul.codec import Unavailable
+    from fraud_detection_tpu_torch.longhaul.front import LonghaulFront
+    from fraud_detection_tpu_torch.longhaul.host import build_seeded_backend
+    from fraud_detection_tpu_torch.longhaul.membership import DirectoryServer
+
+    if kill and n_hosts != 2:
+        raise ValueError("the kill drill runs on two hosts")
+    tag = f"longhaul drill, {n_hosts} hosts"
+    seed = DRILL_SEED
+    root = os.path.dirname(os.path.dirname(os.path.abspath(fraud_detection_tpu_torch.__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "DEVICE"}
+    env.update(PYTHONPATH=root, LONGHAUL_HEARTBEAT_S="0.25", FRAUD_STORE_TOKEN="")
+    if device == "cpu":
+        env.update(DEVICE="cpu", OMP_NUM_THREADS="1")
+    fleet = os.path.join(work, "fleet")
+    dirsrv = DirectoryServer(os.path.join(work, "dir"), n_hosts=n_hosts,
+                             dead_after_s=1.5, token="")
+    dirsrv.start()
+    logs = [os.path.join(work, f"h{i}.log") for i in range(n_hosts)]
+    procs, front, ref = [], None, None
+
+    def route(batch, fmt):
+        b_rows, ents, ts = batch
+        payload = codec.encode_request(b_rows, ents, ts, fmt, spec=ref.spec)
+        return codec.decode_response(front.handle_request(payload, fmt), fmt)
+
+    def same(k, got):
+        if got.tobytes() != want[k].tobytes():
+            raise AssertionError(f"{tag}: batch {k} ({fmts[k]}) differs from the reference "
+                                 f"at {int(np.sum(got != want[k]))} rows")
+
+    try:
+        t = time.perf_counter()
+        for i, log_path in enumerate(logs):
+            with open(log_path, "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "fraud_detection_tpu_torch.longhaul.host",
+                     "--host-id", f"h{i}", "--port", "0", "--directory", dirsrv.addr,
+                     "--n-hosts", str(n_hosts), "--seed", str(seed), "--data-dir", fleet],
+                    cwd=root, env=env, stdout=subprocess.PIPE, stderr=log, text=True))
+        for p, log_path in zip(procs, logs):
+            deadline = time.perf_counter() + DRILL_READY_S
+            while True:
+                if time.perf_counter() > deadline or p.poll() is not None:
+                    with open(log_path) as f:
+                        raise AssertionError(f"{tag}: a host never got ready (rc {p.poll()}): "
+                                             f"{f.read()[-3000:]}")
+                if select.select([p.stdout], [], [], 0.5)[0]:
+                    if p.stdout.readline().startswith("LONGHAUL_READY"):
+                        break
+        ready_s = time.perf_counter() - t
+        for log_path in logs:
+            with open(log_path) as f:
+                text = f.read()
+            if f"serving on {device}" not in text:
+                raise AssertionError(f"{tag}: a child's start-up log names no {device} "
+                                     f"device: {text[-2000:]}")
+
+        ref, t0 = build_seeded_backend(seed, "", "ref", device=device)
+        raw = _entity_batches(seed, n_batches, rows, t0)
+        want = [ref.score_items([(r[i], None, None, ke[i]) for i in range(r.shape[0])])
+                for r, ke in _keyed_batches(ref.spec, raw)]
+        front = LonghaulFront(ref.spec, n_hosts=n_hosts, directory_addr=dirsrv.addr, token="")
+        # every host live and serving exactly its own segment before any
+        # traffic: a request one owner serves and another refuses has
+        # folded the first one's rows, and a retry would fold them twice
+        deadline = time.perf_counter() + 60.0
+        while not (len(front.refresh_view(force=True).live_ranks) == n_hosts and all(
+                front.handles[r].call("status", {})["owned_segments"] == [r]
+                for r in range(n_hosts))):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{tag}: the hosts never settled their claims")
+            time.sleep(0.1)
+        half = n_batches // 2 if kill else n_batches
+        t = time.perf_counter()
+        for k in range(half):
+            same(k, route(raw[k], fmts[k]))
+        readings = {"ready_s": ready_s, "routed_s": time.perf_counter() - t,
+                    "routed_rows": half * rows,
+                    "hosts": sorted(h.host_id for h in front.handles.values())}
+        if not kill:
+            return readings
+
+        dead = dirsrv.view().member_by_rank(1).host_id
+        victim = procs[int(dead[1:])]
+        victim.send_signal(signal.SIGKILL)
+        victim.wait(timeout=60)
+        detect_s = _wait_dead(dirsrv, rank=1)
+        p_rows, ents, ts = raw[half]
+        idx = [i for i, e in enumerate(ents)
+               if e is not None and ref.spec.row_keys(e)[0] % n_hosts == 1]
+        probe = (p_rows[idx], [ents[i] for i in idx], ts[idx])
+        retry = []
+        for k in range(DRILL_PROBES):
+            try:
+                route(probe, fmts[k % len(fmts)])
+            except Unavailable as exc:
+                retry.append(exc.retry_after_s)
+            else:
+                raise AssertionError(f"{tag}: a probe on the dead segment was served")
+        if min(retry) <= 0.0:
+            raise AssertionError(f"{tag}: a 503 without Retry-After: {retry}")
+        t = time.perf_counter()
+        summary = front.drive_failover(1, os.path.join(fleet, dead))
+        failover_s = time.perf_counter() - t
+        if not (summary and summary["restored"] and summary["torn_rows"] == 0
+                and summary["replayed_rows"] > 0):
+            raise AssertionError(f"{tag}: failover {summary}")
+        t = time.perf_counter()
+        for k in range(half, n_batches):
+            same(k, route(raw[k], fmts[k]))
+        post_s = time.perf_counter() - t
+        survivor = front.handles[0]
+        table = codec.unpack_table(survivor.call("table", {}))
+        ref_table = host_state(ref.table())
+        for name, a, b in zip(ref_table._fields, table, ref_table):
+            if np.asarray(a).tobytes() != np.asarray(b).tobytes():
+                raise AssertionError(f"{tag}: the survivor's {name} differs from the "
+                                     "reference's")
+        owned = survivor.call("status", {})["owned_segments"]
+        if owned != [0, 1]:
+            raise AssertionError(f"{tag}: the survivor serves {owned} after the failover")
+        readings.update(
+            dead=dead, detect_s=detect_s, retry_after_s=retry, failover_s=failover_s,
+            replayed_rows=summary["replayed_rows"], torn_rows=summary["torn_rows"],
+            replay_rows_per_sec=summary["replay_rows_per_sec"], post_s=post_s,
+            post_rows=(n_batches - half) * rows,
+        )
+        return readings
+    finally:
+        if front is not None:
+            front.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+            p.stdout.close()
+        dirsrv.close()
+        if ref is not None:
+            ref.close()
+
+
+def scenario_ledger_owner_failover_mid_traffic(
+    tmpdir: str, seed: int = 2027, n_batches: int = 8, batch: int = 32,
+    device=None,
+) -> ScenarioResult:
+    """Kill one host of a 2-host fleet mid-traffic; the survivor inherits
+    the dead peer's ledger segment from its journal generation.
+
+    Invariants:
+
+    - **routed-bitwise**: scores routed through the front (before the kill
+      and after the failover) are bitwise an uninterrupted single-host
+      serve of the same batches;
+    - **degraded-503**: between the kill and the completed inheritance,
+      every request touching the dead owner's segment answers the typed
+      503 with a positive Retry-After — never a silent serve from a table
+      that has not inherited the rows;
+    - **failover-bitwise**: after the inheritance and the remaining
+      traffic, the survivor's whole table (both segments, the scalar
+      counters too) is bitwise the uninterrupted single-host table;
+    - **zero-new-compiles**: the inheritance rebinds the merged table with
+      the live table's device, shapes and dtypes — no kernel library is
+      built or loaded across it and the traffic after it (the port's count
+      of JAX's fused-flush cache misses; vacuous on the CPU). On the card
+      the allocator's ``num_device_alloc`` across the same span is
+      reported beside it, not gated.
+    """
+    from fraud_detection_tpu_torch import config as config_mod
+    from fraud_detection_tpu_torch.device import resolve_device
+    from fraud_detection_tpu_torch.ledger.state import host_state
+    from fraud_detection_tpu_torch.longhaul import placement
+    from fraud_detection_tpu_torch.longhaul.codec import Unavailable
+
+    dev = resolve_device(device)
+    result = ScenarioResult("ledger_owner_failover_mid_traffic")
+    dirsrv, h_a, h_b, b_ref, front, fleet_dir, t0 = _longhaul_fleet(
+        tmpdir, seed, device=dev
+    )
+    spec = b_ref.spec
+    try:
+        batches = _keyed_batches(spec, _entity_batches(seed, n_batches, batch, t0))
+        half = n_batches // 2
+
+        def ref_drive(rows, ke):
+            return b_ref.score_items(
+                [(rows[i], None, None, ke[i]) for i in range(rows.shape[0])]
+            )
+
+        pre_ok = True
+        for rows, ke in batches[:half]:
+            ref = ref_drive(rows, ke)
+            routed = front.score(rows, ke, fmt="json")
+            pre_ok = pre_ok and ref.tobytes() == routed.tobytes()
+        result.add(
+            InvariantOutcome(
+                "routed-bitwise-pre-kill", pre_ok,
+                f"{half} routed batches bitwise equal to the single-host "
+                "serve (per-slot fold independence)",
+            )
+        )
+
+        # -- the kill: abrupt, mid-traffic ---------------------------------
+        h_b.kill()
+        detect_s = _wait_dead(dirsrv, rank=1)
+
+        # a probe carrying ONLY the dead owner's segment: every attempt
+        # during the handoff must surface the typed 503
+        rows_p, ke_p = batches[half]
+        idx = [
+            i for i, e in enumerate(ke_p)
+            if e is not None and placement.host_of(int(e[0]), 2) == 1
+        ]
+        probe_rows = rows_p[idx]
+        probe_ke = [ke_p[i] for i in idx]
+        degraded, attempts = True, 0
+        for _ in range(3):
+            attempts += 1
+            try:
+                front.score(probe_rows, probe_ke, fmt="json")
+                degraded = False
+            except Unavailable as exc:
+                degraded = degraded and exc.retry_after_s > 0.0
+        result.add(
+            InvariantOutcome(
+                "degraded-503-with-retry-after", degraded,
+                f"{attempts} mid-handoff attempts on the dead owner's "
+                "segment all answered 503 + Retry-After "
+                f"(retry_after_s={config_mod.longhaul_retry_after_s()})",
+            )
+        )
+
+        compiles_before = _kernel_loads()
+        allocs_before = _device_allocs(dev)
+        t_fo = time.monotonic()
+        summary = front.drive_failover(1, os.path.join(fleet_dir, "host-b"))
+        failover_s = time.monotonic() - t_fo
+        restored = bool(summary and summary.get("restored"))
+        result.add(
+            InvariantOutcome(
+                "failover-restores-segment",
+                restored and summary["torn_rows"] == 0
+                and summary["replayed_rows"] > 0,
+                f"survivor replayed {summary and summary['replayed_rows']}"
+                f" rows from the peer generation in "
+                f"{summary and round(summary['duration_s'], 3)}s",
+            )
+        )
+
+        # remaining traffic: everything routes to the survivor now
+        post_ok = True
+        for rows, ke in batches[half:]:
+            ref = ref_drive(rows, ke)
+            routed = front.score(rows, ke, fmt="json")
+            post_ok = post_ok and ref.tobytes() == routed.tobytes()
+        result.add(
+            InvariantOutcome(
+                "routed-bitwise-post-failover", post_ok,
+                f"{n_batches - half} batches served by the survivor "
+                "bitwise equal to the uninterrupted serve",
+            )
+        )
+
+        compiles_delta = _kernel_loads() - compiles_before
+        allocs_after = _device_allocs(dev)
+        t_ref = host_state(b_ref.table())
+        t_srv = host_state(h_a.backend.table())
+        eq, detail = placement.segments_equal(t_srv, t_ref, [0, 1], 2)
+        scal_ok = (
+            t_srv.collisions.tobytes() == t_ref.collisions.tobytes()
+            and t_srv.evictions.tobytes() == t_ref.evictions.tobytes()
+        )
+        result.add(
+            InvariantOutcome(
+                "survivor-table-bitwise",
+                eq and scal_ok and h_a.owned_segments == {0, 1},
+                f"survivor owns both segments; full table {detail}; "
+                f"scalar counters {'match' if scal_ok else 'DIFFER'}",
+            )
+        )
+        result.add(
+            InvariantOutcome(
+                "zero-new-compiles", compiles_delta == 0,
+                f"{compiles_delta} kernel libraries built or loaded across "
+                "inherit + post-failover traffic",
+            )
+        )
+        result.metrics = {
+            "batches": n_batches,
+            "detect_s": round(detect_s, 3),
+            "failover_s": round(failover_s, 3),
+            "replayed_rows": summary and summary["replayed_rows"],
+            "replay_rows_per_sec": summary
+            and round(summary["replay_rows_per_sec"], 1),
+            "mid_handoff_503s": attempts,
+            "compiles_delta": compiles_delta,
+            "inherit_device_allocs": (
+                None if allocs_before is None else allocs_after - allocs_before
+            ),
+        }
+        return result
+    finally:
+        _close_fleet(front, h_a, h_b, b_ref, dirsrv, kill_b=True)
+
+
+def scenario_host_partition_mid_promotion(
+    tmpdir: str, seed: int = 2028, device=None,
+) -> ScenarioResult:
+    """Partition a host from the directory mid-promotion: every finalize
+    decided under the pre-partition epoch must die, and exactly the
+    post-rejoin finalize under the fresh epoch lands.
+
+    The epoch is the fence token: the partitioned host cannot REACH the
+    directory (fail-safe — unreachable means un-finalizable), and a
+    reachable host holding the old epoch sees the directory has moved on.
+    """
+    from fraud_detection_tpu_torch.service import metrics as svc_metrics
+
+    fenced = svc_metrics.longhaul_promotion_fenced
+    result = ScenarioResult("host_partition_mid_promotion")
+    dirsrv, h_a, h_b, b_ref, front, _fleet, _t0 = _longhaul_fleet(
+        tmpdir, seed, device=device
+    )
+    try:
+        epoch_before = dirsrv.view().epoch
+        fenced_before = fenced.get("host-b") + fenced.get("host-a")
+
+        # the partition: control-plane packets stop routing for B
+        h_b.partitioned = True
+        detect_s = _wait_dead(dirsrv, rank=1)
+        epoch_dead = dirsrv.view().epoch
+        result.add(
+            InvariantOutcome(
+                "partition-detected",
+                epoch_dead > epoch_before,
+                f"detector declared the partitioned host dead in "
+                f"{detect_s:.2f}s (epoch {epoch_before} -> {epoch_dead})",
+            )
+        )
+
+        # fence 1: the partitioned host itself — directory unreachable
+        res_b = h_b.finalize_promotion("v2", epoch_before)
+        # fence 2: a reachable host holding the stale epoch
+        res_a = h_a.finalize_promotion("v2", epoch_before)
+        result.add(
+            InvariantOutcome(
+                "stale-finalizes-fenced",
+                not res_b["applied"] and res_b.get("fenced")
+                and not res_a["applied"] and res_a.get("fenced"),
+                f"partitioned host: {res_b.get('reason', '')[:60]}; "
+                f"stale-epoch host: {res_a.get('reason', '')[:60]}",
+            )
+        )
+
+        # heal: B rejoins (its next heartbeat learns it was declared dead
+        # and re-registers), the epoch bumps again
+        h_b.partitioned = False
+        _wait_until(lambda: _rank_alive(dirsrv, 1))
+        epoch_fresh = dirsrv.view().epoch
+        res_a2 = h_a.finalize_promotion("v2", epoch_fresh)
+        res_b2 = h_b.finalize_promotion("v2", epoch_fresh)
+        result.add(
+            InvariantOutcome(
+                "fresh-finalize-lands",
+                res_a2["applied"] and res_b2["applied"]
+                and h_a.served_version == "v2"
+                and h_b.served_version == "v2",
+                f"both hosts finalized v2 under fresh epoch {epoch_fresh}",
+            )
+        )
+        fenced_after = fenced.get("host-b") + fenced.get("host-a")
+        result.add(
+            InvariantOutcome(
+                "fences-counted",
+                fenced_after - fenced_before == 2,
+                f"longhaul_promotion_fenced_total grew by "
+                f"{fenced_after - fenced_before} (one per refused "
+                "finalize)",
+            )
+        )
+        result.metrics = {
+            "detect_s": round(detect_s, 3),
+            "epoch_before": epoch_before,
+            "epoch_dead": epoch_dead,
+            "epoch_fresh": epoch_fresh,
+        }
+        return result
+    finally:
+        _close_fleet(front, h_a, h_b, b_ref, dirsrv, kill_b=False)
+
+
+def scenario_split_brain_scrape(
+    tmpdir: str, seed: int = 2029, n_batches: int = 4, batch: int = 32,
+    device=None,
+) -> ScenarioResult:
+    """A partitioned host keeps serving and answering scrapes under its
+    frozen epoch; the fleet merge must never double-count it.
+
+    Invariants: the stale contribution is dropped and counted
+    (``longhaul_scrape_stale_epoch``), the merged drift window equals the
+    live host's window alone (not the sum), and after rejoin the merge
+    re-admits both hosts under the fresh epoch.
+    """
+    from fraud_detection_tpu_torch.longhaul import scrape as scrape_mod
+    from fraud_detection_tpu_torch.longhaul.front import HostHandle
+    from fraud_detection_tpu_torch.monitor.drift import _window_leaves
+    from fraud_detection_tpu_torch.service import metrics as svc_metrics
+
+    stale_epoch = svc_metrics.longhaul_scrape_stale_epoch
+    result = ScenarioResult("split_brain_scrape")
+    dirsrv, h_a, h_b, b_ref, front, _fleet, t0 = _longhaul_fleet(
+        tmpdir, seed, device=device
+    )
+    spec = b_ref.spec
+    clients = [
+        HostHandle("host-a", 0, h_a.addr, h_a.token),
+        HostHandle("host-b", 1, h_b.addr, h_b.token),
+    ]
+    try:
+        batches = _keyed_batches(spec, _entity_batches(seed, n_batches, batch, t0))
+        for rows, ke in batches:
+            front.score(rows, ke, fmt="json")
+
+        epoch0 = dirsrv.view().epoch
+        # both hosts must have learned the current epoch before the
+        # baseline scrape, or their stamps race the sweep
+        _wait_until(lambda: h_a.known_epoch == epoch0 and h_b.known_epoch == epoch0)
+        base = scrape_mod.fleet_scrape(clients, epoch0)
+        both_counted = (
+            sorted(base["accepted"]) == ["host-a", "host-b"]
+            and base["window"] is not None
+        )
+        n_rows_both = float(np.sum(np.asarray(base["window"].n_rows)))
+        result.add(
+            InvariantOutcome(
+                "healthy-scrape-merges-both", both_counted,
+                f"pre-partition scrape merged 2 hosts, window n_rows="
+                f"{n_rows_both:.1f}",
+            )
+        )
+
+        # the partition: B's control plane freezes (its epoch stays stale),
+        # its DATA plane — the scrape op among it — keeps answering
+        h_b.partitioned = True
+        _wait_dead(dirsrv, rank=1)
+        epoch1 = dirsrv.view().epoch
+        # the live host must learn the bumped epoch before the scrape, or
+        # ITS contribution would read stale too
+        _wait_until(lambda: h_a.known_epoch == epoch1)
+        stale_before = stale_epoch.get("host-b")
+        split = scrape_mod.fleet_scrape(clients, epoch1)
+        stale_delta = stale_epoch.get("host-b") - stale_before
+        # the no-double-count pin: the merged window is A's alone —
+        # bitwise — not A + a stale copy of B
+        a_only = scrape_mod.fleet_scrape(clients[:1], epoch1)
+        merged_is_a = (
+            split["window"] is not None
+            and a_only["window"] is not None
+            and all(
+                np.asarray(x).tobytes() == np.asarray(y).tobytes()
+                for x, y in zip(_window_leaves(split["window"]),
+                                _window_leaves(a_only["window"]))
+            )
+        )
+        result.add(
+            InvariantOutcome(
+                "stale-epoch-dropped",
+                split["stale"] == ["host-b"]
+                and split["accepted"] == ["host-a"]
+                and stale_delta == 1,
+                f"split-brain contribution dropped and counted "
+                f"(stale_epoch delta={stale_delta})",
+            )
+        )
+        result.add(
+            InvariantOutcome(
+                "no-double-count", merged_is_a,
+                "merged window under the split is bitwise the live "
+                "host's window alone",
+            )
+        )
+
+        # heal: B rejoins and the next scrape re-admits it
+        h_b.partitioned = False
+        _wait_until(lambda: _rank_alive(dirsrv, 1))
+        epoch2 = dirsrv.view().epoch
+        _wait_until(lambda: h_a.known_epoch == epoch2 and h_b.known_epoch == epoch2)
+        healed = scrape_mod.fleet_scrape(clients, epoch2)
+        result.add(
+            InvariantOutcome(
+                "rejoin-readmits",
+                sorted(healed["accepted"]) == ["host-a", "host-b"],
+                f"post-rejoin scrape merged both hosts under epoch "
+                f"{epoch2}",
+            )
+        )
+        result.metrics = {
+            "epoch_baseline": epoch0,
+            "epoch_split": epoch1,
+            "epoch_healed": epoch2,
+            "window_rows_baseline": round(n_rows_both, 1),
+        }
+        return result
+    finally:
+        for c in clients:
+            c.close()
+        _close_fleet(front, h_a, h_b, b_ref, dirsrv, kill_b=False)
+
+
 SCENARIOS = {
     "burst": scenario_burst,
     "drift_onset": scenario_drift_onset,
@@ -2577,6 +3218,11 @@ SCENARIOS = {
     "slo_burn_under_shed": scenario_slo_burn_under_shed,
     "crash_warm_restart": scenario_crash_warm_restart,
     "kill_mid_snapshot": scenario_kill_mid_snapshot,
+    "ledger_owner_failover_mid_traffic": (
+        scenario_ledger_owner_failover_mid_traffic
+    ),
+    "host_partition_mid_promotion": scenario_host_partition_mid_promotion,
+    "split_brain_scrape": scenario_split_brain_scrape,
 }
 
 #: scenarios that need a scratch directory as their first argument
@@ -2585,6 +3231,9 @@ NEEDS_TMPDIR = (
     "control_plane_chaos",
     "crash_warm_restart",
     "kill_mid_snapshot",
+    "ledger_owner_failover_mid_traffic",
+    "host_partition_mid_promotion",
+    "split_brain_scrape",
 )
 
 

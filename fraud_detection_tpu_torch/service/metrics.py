@@ -7,7 +7,7 @@ gauges (the wide family's among them), the watchtower's drift and shadow
 series, the ledger's, the ingest lanes', the request stages', the lifecycle
 loop's, the SHAP worker's and task queue's series, and the telemetry
 layer's (the compile sentinel's ``xla_*``, the device-memory, profiler,
-SLO and roofline series). Counters
+SLO and roofline series) and the longhaul fleet's ``longhaul_*``. Counters
 export ``<name>_total``; histograms export ``_bucket``/``_sum``/``_count``.
 No ``prometheus_client``: the exposition format (text 0.0.4) and its HTTP
 endpoint (:func:`start_http_server`) are written here. A store server keeps
@@ -640,6 +640,111 @@ device_program_flops = Gauge(
     "dispatched (the roofline numerator; bytes ride the status endpoint)",
     ["entrypoint"],
 )
+
+
+# the longhaul fleet (longhaul/): the inputs of
+# monitoring/prometheus/rules/longhaul-alerts.yml (HostDown,
+# MembershipFlapping, FailoverStuck, FleetBudgetExhausted). Per-host gauges
+# carry the ``host`` label; drop_host_gauges() drops them on leave or death
+# and the directory rebinds ``longhaul_host_up`` on (re)join.
+longhaul_membership_epoch = Gauge(
+    "longhaul_membership_epoch",
+    "Current membership epoch — the fleet's fence token; bumps on every "
+    "join/death/leave/rejoin (MembershipFlapping alert input: a churning "
+    "epoch means a host is oscillating through the failure detector)",
+)
+longhaul_hosts_live = Gauge(
+    "longhaul_hosts_live",
+    "Live members in the current membership view",
+)
+longhaul_host_up = Gauge(
+    "longhaul_host_up",
+    "1 while this member is live in the membership view, 0 once marked "
+    "dead (HostDown alert input)",
+    ["host"],
+)
+longhaul_host_heartbeat_age = Gauge(
+    "longhaul_host_heartbeat_age_seconds",
+    "Seconds since this member's last heartbeat reached the directory",
+    ["host"],
+)
+longhaul_routed_rows = Counter(
+    "longhaul_routed_rows",
+    "Rows the front routed to each owning host, by request format "
+    "(json/msgpack/binary)",
+    ["host", "format"],
+)
+longhaul_route_errors = Counter(
+    "longhaul_route_errors",
+    "Transport/handler failures routing to a host (strikes toward its "
+    "DEAD transition; explicit 503 backpressure is NOT counted here)",
+    ["host"],
+)
+longhaul_unavailable = Counter(
+    "longhaul_unavailable",
+    "Requests the front answered 503 + Retry-After (owner inheriting, or "
+    "no healthy host for the segment) — the degradation contract doing "
+    "its job, never silent data loss",
+)
+longhaul_failovers = Counter(
+    "longhaul_failovers",
+    "Segment inheritances completed, labeled by the INHERITING host",
+    ["host"],
+)
+longhaul_failover_in_progress = Gauge(
+    "longhaul_failover_in_progress",
+    "1 while a host is replaying a dead peer's journal+snapshot "
+    "generation into its live table (FailoverStuck alert input)",
+)
+longhaul_failover_duration = Gauge(
+    "longhaul_failover_duration_seconds",
+    "Wall time of the last completed segment inheritance (peer recovery "
+    "replay + segment merge + rebind)",
+)
+longhaul_inherited_rows = Counter(
+    "longhaul_inherited_rows",
+    "Journal rows replayed from dead peers' generations, labeled by the "
+    "inheriting host",
+    ["host"],
+)
+longhaul_replay_rows_per_sec = Gauge(
+    "longhaul_replay_rows_per_sec",
+    "Replay throughput of the last inheritance (journal rows/s through "
+    "the traced ledger body)",
+)
+longhaul_scrape_stale_epoch = Counter(
+    "longhaul_scrape_stale_epoch",
+    "Host scrape contributions DROPPED from a fleet merge because they "
+    "were reported under a different membership epoch (the split-brain "
+    "double-count guard)",
+    ["host"],
+)
+longhaul_fleet_budget_remaining = Gauge(
+    "longhaul_fleet_budget_remaining",
+    "Fleet-level SLO error budget remaining over the longest window, "
+    "merged from per-host good/bad totals under ONE membership epoch "
+    "(FleetBudgetExhausted alert input)",
+    ["slo"],
+)
+longhaul_promotion_fenced = Counter(
+    "longhaul_promotion_fenced",
+    "Promotion finalizations REFUSED by the membership-epoch fence (the "
+    "flip was decided under a stale epoch — a partitioned host must not "
+    "move traffic)",
+    ["host"],
+)
+
+
+def drop_host_gauges(host: str) -> None:
+    """Drop one member's per-host GAUGE series when it dies or leaves: its
+    last heartbeat-age sample must not read as live. Counters stay (their
+    rates go quiet on their own); the directory rebinds
+    ``longhaul_host_up`` on (re)join."""
+    for g in (longhaul_host_heartbeat_age,):
+        try:
+            g.remove(host)
+        except KeyError:
+            pass  # never written for this host yet
 
 
 def render(registry: list[_Metric] | None = None) -> bytes:

@@ -8,7 +8,9 @@ same seed, on the CPU, held to the port's contract with the reference (the
   of these files (:data:`LATENCY_SLOW`) hold it in a ``slow`` test
   instead; and the port's alone for an invariant the reference's own
   timing decides (:data:`REFERENCE_RACES`);
-- the deterministic metrics equal (:data:`EXACT`);
+- the deterministic metrics equal (:data:`EXACT`; the longhaul scenarios'
+  ``compiles_delta`` is the reference's fused-flush cache growth against
+  the port's kernel libraries loaded, 0 in both);
 - ``detected_row`` within one sampling interval (the fold samples the
   monitor's status every 4 batches: the two detections are the same
   sample point or adjacent ones);
@@ -34,6 +36,8 @@ EXACT = (
     "sheds", "scored", "budget_before", "snapshot_seq", "replayed_rows", "torn_rows",
     "post_recovery_compiles", "generation_seq", "generations_skipped",
     "replayed_rows_full", "replayed_rows_torn_tail", "torn_tail_rows",
+    "mid_handoff_503s", "epoch_before", "epoch_dead", "epoch_fresh", "epoch_baseline",
+    "epoch_split", "epoch_healed", "window_rows_baseline", "compiles_delta",
 )
 CLOSE = {"ring_mean_score": 1e-3, "background_mean_score": 1e-3}
 #: scenarios whose parity check failed in a loaded run: the forest's p99 in

@@ -62,14 +62,14 @@ def test_port_imports_with_jax_reference_and_service_deps_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 117  # every module of the slices so far, not a stub package
+    assert n >= 124  # every module of the slices so far, not a stub package
 
 
 def test_training_modules_are_among_those_imported():
     """The blocked-import probe walks the package; the training, GBT,
     explain, offline-tool, ingest, ledger, wide-family, lifecycle, lifeboat,
-    network-store, telemetry, serving-mesh, sharded-training and model-axis
-    slices' modules are in it."""
+    network-store, telemetry, serving-mesh, sharded-training, model-axis,
+    range and longhaul slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -100,7 +100,9 @@ def test_training_modules_are_among_those_imported():
                 "ledger.placement", "parallel.collectives", "shardfit", "train_turns",
                 "ops.logistic", "ops.scorer", "monitor.drift", "service.microbatch",
                 "service.app", "config", "range.traffic", "range.invariants",
-                "range.scenarios"):
+                "range.scenarios", "longhaul", "longhaul.placement", "longhaul.codec",
+                "longhaul.membership", "longhaul.host", "longhaul.front",
+                "longhaul.scrape"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 
@@ -117,7 +119,7 @@ def test_range_modules_import_with_jax_and_service_deps_blocked():
         "assert rng.FaultPlan is fraud_detection_tpu_torch.range.faults.FaultPlan\n"
         "for name in ('traffic', 'invariants', 'scenarios'):\n"
         "    importlib.import_module('fraud_detection_tpu_torch.range.' + name)\n"
-        "assert len(rng.SCENARIOS) == 15 and callable(rng.run_scenario)\n"
+        "assert len(rng.SCENARIOS) == 18 and callable(rng.run_scenario)\n"
         "assert rng.ScenarioResult.__module__.endswith('range.invariants')\n"
         "leaked = sorted(m for m in sys.modules if jax_or_reference(m) or service_deps(m))\n"
         "assert not leaked, leaked\n"
@@ -128,6 +130,40 @@ def test_range_modules_import_with_jax_and_service_deps_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("LIGHT []")
+
+
+def test_longhaul_modules_import_with_jax_and_service_deps_blocked():
+    """The longhaul package imports in a fresh interpreter with JAX, the JAX
+    package, msgpack and prometheus_client blocked; its JSON and binary
+    codecs and its merge run there, and asking for msgpack raises the
+    ImportError that names it."""
+    probe = _PROBE.split("import fraud_detection_tpu_torch as pkg")[0] + (
+        "import numpy as np\n"
+        "from fraud_detection_tpu_torch.longhaul import (codec, front, host, membership,\n"
+        "    placement, scrape)\n"
+        "from fraud_detection_tpu_torch.ledger.state import LedgerSpec, init_state, device_state\n"
+        "spec = LedgerSpec(n_base=3, slots=8, halflife_s=60.0, amount_col=-1)\n"
+        "rows = np.ones((2, 3), np.float32)\n"
+        "for fmt in ('json', 'binary'):\n"
+        "    p = codec.encode_request(rows, ['a', None], [1.0, 0.0], fmt, spec=spec)\n"
+        "    assert codec.decode_request(p, fmt, spec)[0].tobytes() == rows.tobytes()\n"
+        "try:\n"
+        "    codec.encode_request(rows, ['a', None], [1.0, 0.0], 'msgpack', spec=spec)\n"
+        "    raise SystemExit('msgpack did not refuse')\n"
+        "except ImportError as e:\n"
+        "    assert 'msgpack' in str(e), e\n"
+        "live = device_state(init_state(8), 8, 'cpu')\n"
+        "merged = placement.merge_segment(live, init_state(8), [1], 2)\n"
+        "assert device_state(merged, 8, 'cpu').fingerprint.dtype == live.fingerprint.dtype\n"
+        "leaked = sorted(m for m in sys.modules if jax_or_reference(m) or service_deps(m))\n"
+        "assert not leaked, leaked\n"
+        "print('LONGHAUL OK')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("LONGHAUL OK")
 
 
 def test_lifeboat_scenario_runs_with_jax_and_service_deps_blocked(tmp_path):

@@ -26,10 +26,11 @@ def test_scenario_matches_jax(name, tmp_path):
 
 
 def test_every_ported_scenario_is_registered():
-    """The registry holds the reference's first fifteen scenarios, in its
-    order; the four that need a scratch directory are the reference's."""
+    """The registry holds the reference's eighteen scenarios, in its
+    order; the seven that need a scratch directory are the reference's."""
     from fraud_detection_tpu.range import scenarios as jsc
     from fraud_detection_tpu_torch.range import scenarios as tsc
 
-    assert list(tsc.SCENARIOS) == list(jsc.SCENARIOS)[:15]
-    assert set(tsc.NEEDS_TMPDIR) == set(jsc.NEEDS_TMPDIR) & set(tsc.SCENARIOS)
+    assert list(tsc.SCENARIOS) == list(jsc.SCENARIOS)
+    assert len(tsc.SCENARIOS) == 18
+    assert tuple(tsc.NEEDS_TMPDIR) == tuple(jsc.NEEDS_TMPDIR)

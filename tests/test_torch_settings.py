@@ -108,6 +108,14 @@ SETTINGS = [
     ("MESH_SHARD_MAX_ERRORS", "5", "mesh_shard_max_errors"),
     ("MESH_SHARD_REOPEN_S", "0.5", "mesh_shard_reopen_s"),
     ("MESH_RETRAIN", "1", "mesh_retrain"),
+    ("LONGHAUL_HOSTS", "4", "longhaul_hosts"),
+    ("LONGHAUL_DIRECTORY", "10.0.0.5:7301", "longhaul_directory"),
+    ("LONGHAUL_HOST_ID", "host-7", "longhaul_host_id"),
+    ("LONGHAUL_DATA_DIR", "/srv/longhaul", "longhaul_data_dir"),
+    ("LONGHAUL_HEARTBEAT_S", "0.25", "longhaul_heartbeat_s"),
+    ("LONGHAUL_DEAD_AFTER_S", "1.5", "longhaul_dead_after_s"),
+    ("LONGHAUL_RETRY_AFTER_S", "2.5", "longhaul_retry_after_s"),
+    ("LONGHAUL_PROBATION_S", "0.5", "longhaul_probation_s"),
 ]
 
 
