@@ -504,7 +504,25 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ``drive_failover`` restored with rows replayed and none torn, the
    survivor's ``table`` bitwise the reference's on every leaf; then four
    children and 4 batches of 256 bitwise a fresh reference. The phase's
-   wall, and the whole run's command time, are printed.
+   wall is printed.
+22. **the fleet reduce** — on the Kaggle-sized set (phase 8's 284,807
+   rows) and the committed ``models/``: (a) the pool scored by the model's
+   ``BatchScorer`` (``fused_score`` launched, the count zeroed before) and
+   summarised by ``fleet_pool_stats`` through ``LocalReducer``: rows and
+   positives exact, the means within 1e-5 (relative) of float64 numpy,
+   the stats within 1e-6 (relative) of ``mapreduce_pool_stats`` on the same
+   rows; (b) two ``SocketReducer`` ranks as threads, a half of the rows
+   each: the pool's rows and positives the whole set's, the same bytes on
+   both ranks, then ``fleet_sgd_fit`` at JAX's defaults (34 steps an epoch)
+   on the rows scaled by the model's scaler: the coefficients bitwise
+   across ranks and within 1e-4 · max(1, max|coef|) of the same fleet on
+   the CPU, the fit's AUC on the set printed; (c) two ``shardfit --fit
+   fleet_sgd`` rank processes on the card through ``--reducer socket``
+   (rank 0 first) and ``--reducer mesh`` (gloo, both ranks sharing the
+   card): all four processes' coefficients bitwise (b)'s, a step's and a
+   merge's host time printed; (d) ``analysis.check_budgets(device="cuda",
+   shard_counts=(1, 2))``: no violation. The phase's wall, and the whole
+   run's command time, are printed.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -8659,6 +8677,259 @@ def longhaul_phase(work: Path, card: str) -> dict:
             "four_hosts": four, "wall_s": wall}
 
 
+#: phase 22: two ranks; fleet_sgd_fit runs at the JAX package's defaults (c
+#: 1.0, 5 epochs, batch 4096, lr 0.3, momentum 0.9, seed 0): 34 steps an epoch
+#: at 2 × 4096 rows on the Kaggle-sized set
+FLEET_HOSTS, FLEET_EPOCHS, FLEET_BATCH = 2, 5, 4096
+FLEET_MEAN_RTOL = 1e-5  # the pool's means against a float64 numpy recomputation
+FLEET_REF_RTOL = 1e-6  # the pool against mapreduce_pool_stats on the same rows
+FLEET_CPU_TOL = 1e-4  # card − CPU fit: |Δ| ≤ this · max(1, max|coef|)
+P22_CHILD_TIMEOUT_S = 300
+
+
+def fleet_threads(x, y, scores, xs, dev: str) -> list:
+    """Phase 22b's fleet: two ``SocketReducer`` ranks as threads (rank 0
+    reaches ``allreduce`` while rank 1 connects), each with its half of the
+    rows: ``fleet_pool_stats`` over its pool, then ``fleet_sgd_fit`` at
+    JAX's defaults on ``dev``. Returns each rank's ``(pool, params)``."""
+    from fraud_detection_tpu_torch.longhaul.fleet import (
+        SocketReducer,
+        fleet_pool_stats,
+        fleet_sgd_fit,
+    )
+    from fraud_detection_tpu_torch.shardfit import fleet_slice
+
+    r0 = SocketReducer(0, FLEET_HOSTS, "127.0.0.1:0", token="p22")
+    r1 = SocketReducer(1, FLEET_HOSTS, r0.addr, token="p22", timeout=120.0)
+    results, errs = [None, None], []
+
+    def run(rank, red):
+        try:
+            h = fleet_slice(len(x), rank, FLEET_HOSTS)
+            pool = fleet_pool_stats(x[h], y[h], scores[h], red, device=dev)
+            p = fleet_sgd_fit(xs[h], y[h], red, device=dev)  # JAX's defaults, as shardfit's
+            results[rank] = (pool, p)
+        except BaseException as e:  # raised in the main thread below
+            errs.append(e)
+
+    t = threading.Thread(target=run, args=(1, r1), name="fleet-rank1")
+    t.start()
+    try:
+        run(0, r0)
+        t.join(timeout=600.0)
+    finally:
+        r1.close()
+        r0.close()
+    if errs:
+        raise errs[0]
+    return results
+
+
+def listening_addr(proc, log: Path, timeout: float) -> str | None:
+    """The address of a ``shardfit`` rank 0 once ``log`` holds its whole
+    ``FLEET_LISTENING <addr>`` line; None when it exits first or
+    ``timeout`` seconds pass."""
+    deadline = time.monotonic() + timeout
+    while True:
+        done = proc.poll() is not None
+        for line in log.read_text().splitlines(keepends=True):
+            if line.startswith("FLEET_LISTENING") and line.endswith("\n"):
+                return line.split()[1]
+        if done or time.monotonic() > deadline:
+            return None
+        time.sleep(0.05)
+
+
+def fleet_ranks(work: Path, kaggle_csv: Path, reducer: str) -> list[dict]:
+    """Phase 22c: two ``shardfit --fit fleet_sgd`` rank processes on the
+    card through ``reducer`` (``socket``: rank 0 first, its address handed
+    to rank 1; ``mesh``: two gloo ranks sharing the card). Each one's
+    summary line and arrays."""
+    import numpy as np
+
+    out = work / f"p22_{reducer}"
+    base = [sys.executable, "-m", "fraud_detection_tpu_torch.shardfit", "--fit", "fleet_sgd",
+            "--data", str(kaggle_csv), "--model-dir", str(ROOT / "models"), "--reducer", reducer,
+            "--out", str(out)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    env.update(DEVICE="cuda", PYTHONPATH=str(ROOT))
+    logs = [work / f"p22_{reducer}_rank{r}.out" for r in range(FLEET_HOSTS)]
+
+    def spawn(rank: int, args: list, extra: dict):
+        # each rank's output goes to a file, read whole once it exits
+        with open(logs[rank], "w") as f:
+            return subprocess.Popen(base + args, env=dict(env, **extra), cwd=str(ROOT),
+                                    stdout=f, stderr=subprocess.STDOUT)
+
+    procs = []
+    try:
+        if reducer == "socket":
+            procs.append(spawn(0, ["--rank", "0", "--hosts", str(FLEET_HOSTS)], {}))
+            addr = listening_addr(procs[0], logs[0], P22_CHILD_TIMEOUT_S)
+            if addr is None:  # rank 0 listens before rank 1 connects
+                raise AssertionError(
+                    f"phase22 socket: rank 0 never listened:\n{logs[0].read_text()}")
+            procs.append(spawn(1, ["--rank", "1", "--hosts", str(FLEET_HOSTS),
+                                   "--coordinator", addr], {}))
+        else:
+            port = free_port()
+            for rank in range(FLEET_HOSTS):
+                procs.append(spawn(rank, [], dict(
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                    WORLD_SIZE=str(FLEET_HOSTS), RANK=str(rank))))
+        for p in procs:
+            p.wait(timeout=P22_CHILD_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = [log.read_text() for log in logs]
+    results = []
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase22 {reducer}: rank {rank} exited {p.returncode}:\n{text}")
+        line = json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+        with np.load(out / f"rank{rank}.npz") as z:
+            line["arrays"] = {k: z[k] for k in z.files}
+        results.append(line)
+    return results
+
+
+def fleet_phase(work: Path, card: str) -> dict:
+    """Phase 22: the fleet reduce on the card — (a) the pool through
+    ``LocalReducer`` over the Kaggle-sized set scored by ``BatchScorer``;
+    (b) two ``SocketReducer`` ranks as threads: the pool and
+    ``fleet_sgd_fit``, bitwise across ranks and within ``FLEET_CPU_TOL``
+    of the same fleet on the CPU; (c) two rank processes through
+    ``shardfit`` over the socket and the mesh (gloo) transports, bitwise
+    one another and (b); (d) the collective budgets on the card."""
+    import numpy as np
+    import torch
+
+    from fraud_detection_tpu_torch.analysis import BUDGETS, check_budgets
+    from fraud_detection_tpu_torch.data.loader import load_creditcard_csv
+    from fraud_detection_tpu_torch.longhaul.fleet import LocalReducer, fleet_pool_stats
+    from fraud_detection_tpu_torch.mesh.retrain import mapreduce_pool_stats
+    from fraud_detection_tpu_torch.models import load_any_model
+    from fraud_detection_tpu_torch.ops import kernels
+    from fraud_detection_tpu_torch.ops.metrics import auc_roc
+    from fraud_detection_tpu_torch.shardfit import fleet_inputs, fleet_slice
+
+    t_phase = time.perf_counter()
+    os.environ["DEVICE"] = "cuda"
+    kaggle_csv = work / "tools" / "kaggle.csv"
+    x, y, _ = load_creditcard_csv(str(kaggle_csv))
+    x, y = np.asarray(x, np.float32), np.asarray(y, np.float32)
+    model = load_any_model(str(ROOT / "models"), device="cuda")
+
+    # (a) the pool in process through LocalReducer, scored by the served kernel
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    scores = model.scorer.predict_proba(x)
+    pool = fleet_pool_stats(x, y, scores, LocalReducer(), device="cuda")
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t
+    launches = kernels.launch_counts()["fused_score"]
+    if launches == 0:
+        raise AssertionError("phase22a: the pool's scoring launched no fused_score")
+    if (pool["rows"], pool["positives"]) != (len(x), int(y.sum())):
+        raise AssertionError(f"phase22a: rows/positives {pool['rows']}/{pool['positives']} "
+                             f"!= {len(x)}/{int(y.sum())}")
+    x64 = x.astype(np.float64)
+    want = {"feature_mean": x64.mean(0), "label_rate": y.mean(dtype=np.float64),
+            "score_mean": np.asarray(scores, np.float64).mean()}
+    gaps = {k: float(np.max(np.abs(np.asarray(pool[k]) - v)
+                            / np.maximum(1.0, np.abs(v)))) for k, v in want.items()}
+    if max(gaps.values()) > FLEET_MEAN_RTOL:
+        raise AssertionError(f"phase22a: means against float64 {gaps}")
+    ref = mapreduce_pool_stats(x, y, scores, device="cuda")
+    ref_gap = max(float(np.max(np.abs(np.asarray(pool[k]) - np.asarray(ref[k]))
+                               / np.maximum(1e-30, np.abs(np.asarray(ref[k])))))
+                  for k in ("label_rate", "score_mean", "feature_mean", "feature_std"))
+    if ref_gap > FLEET_REF_RTOL or (ref["rows"], ref["positives"]) != (pool["rows"],
+                                                                       pool["positives"]):
+        raise AssertionError(f"phase22a: against mapreduce_pool_stats, relative gap {ref_gap}")
+    print(f"phase22a: fleet_pool_stats through LocalReducer over {len(x)} rows scored by "
+          f"BatchScorer ({launches} fused_score launches, the count zeroed before): rows "
+          f"{pool['rows']}, positives {pool['positives']} (exact), label rate "
+          f"{pool['label_rate']:.6g}, score mean {pool['score_mean']:.6g}; relative gaps to "
+          f"float64 numpy {json.dumps(gaps)}; largest relative gap to mapreduce_pool_stats "
+          f"{ref_gap:.3g}; {wall_a:.3f} s wall (host clock, device synchronised) ({card})")
+
+    # (b) two socket ranks as threads, on the card and on the CPU
+    xs = fleet_inputs(x, model)
+    halves = [fleet_slice(len(x), r, FLEET_HOSTS) for r in range(FLEET_HOSTS)]
+    steps = len(x) // (FLEET_HOSTS * FLEET_BATCH)
+    t = time.perf_counter()
+    card_runs = fleet_threads(x, y, scores, xs, "cuda")
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t
+    cpu_runs = fleet_threads(x, y, scores, xs, "cpu")
+    (p0, c0), (p1, c1) = card_runs
+    coef = [c.coef.cpu().numpy() for c in (c0, c1)]
+    icpt = [c.intercept.cpu().numpy() for c in (c0, c1)]
+    if coef[0].tobytes() != coef[1].tobytes() or icpt[0].tobytes() != icpt[1].tobytes():
+        raise AssertionError("phase22b: the two ranks' coefficients differ in bits")
+    for pool_r in (p0, p1):
+        if (pool_r["rows"], pool_r["positives"], pool_r["hosts"]) != (
+                len(x), int(y.sum()), FLEET_HOSTS):
+            raise AssertionError(f"phase22b: the two-host pool {pool_r['rows']} rows, "
+                                 f"{pool_r['positives']} positives")
+    if p0["feature_mean"].tobytes() != p1["feature_mean"].tobytes():
+        raise AssertionError("phase22b: the two ranks' pools differ in bits")
+    cpu_coef = cpu_runs[0][1].coef.numpy()
+    cpu_icpt = float(cpu_runs[0][1].intercept)
+    tol = FLEET_CPU_TOL * max(1.0, float(np.abs(coef[0]).max()))
+    cpu_gap = max(float(np.abs(coef[0] - cpu_coef).max()), abs(float(icpt[0]) - cpu_icpt))
+    if cpu_gap > tol:
+        raise AssertionError(f"phase22b: card − CPU fit {cpu_gap} > {tol}")
+    margin = xs.astype(np.float64) @ coef[0].astype(np.float64) + float(icpt[0])
+    auc = float(auc_roc(torch.from_numpy(1.0 / (1.0 + np.exp(-margin))), torch.from_numpy(y)))
+    print(f"phase22b: two SocketReducer ranks as threads on cuda, {len(x[halves[0]])} + "
+          f"{len(x[halves[1]])} rows: the pool {p0['rows']} rows, {p0['positives']} positives, "
+          f"the same bytes on both ranks; fleet_sgd_fit at c 1.0, {FLEET_EPOCHS} epochs, batch "
+          f"{FLEET_BATCH}, lr 0.3, momentum 0.9, seed 0 ({steps} steps an epoch at "
+          f"{FLEET_HOSTS} x {FLEET_BATCH}): the coefficients bitwise across ranks, card − CPU "
+          f"{cpu_gap:.3g} (tolerance {tol:.3g}); AUC on the set {auc:.6f}; {wall_b:.3f} s wall "
+          f"for pool and fit (host clock) ({card})")
+
+    # (c) two rank processes through shardfit, socket then mesh
+    procs = {r: fleet_ranks(work, kaggle_csv, r) for r in ("socket", "mesh")}
+    for reducer, ranks in procs.items():
+        for rank, line in enumerate(ranks):
+            got = (line["arrays"]["fleet_sgd_coef"], line["arrays"]["fleet_sgd_intercept"])
+            if got[0].tobytes() != coef[0].tobytes() or got[1].tobytes() != icpt[0].tobytes():
+                raise AssertionError(f"phase22c {reducer} rank {rank}: the coefficients differ "
+                                     "in bits from the threaded fit's")
+            if line["device"].split(":")[0] != "cuda" or line["world"] != FLEET_HOSTS:
+                raise AssertionError(f"phase22c {reducer} rank {rank}: {line['device']}, "
+                                     f"world {line['world']}")
+        f = ranks[0]["fleet"]["fleet_sgd"]
+        print(f"phase22c {reducer}: 2 shardfit rank processes on the card (backend "
+              f"{ranks[0]['backend']}), the coefficients bitwise one another and the threaded "
+              f"fit's; rank 0: {f['merges']} merges, a step's host time {f['step_s'] * 1e3:.3f} "
+              f"ms (h2d, the map, the d2h, the merge, the update), a merge's p50 "
+              f"{f['merge_s'] * 1e3:.3f} ms, the first merge (the peer's start) "
+              f"{f['first_merge_s']:.3f} s; the fit {ranks[0]['seconds']['fleet_sgd']:.3f} s; "
+              f"collective calls {json.dumps(ranks[0]['collectives'])} ({card})")
+
+    # (d) the collective budgets on the card
+    t = time.perf_counter()
+    found = check_budgets(device="cuda", shard_counts=(1, 2))
+    wall_d = time.perf_counter() - t
+    if found:
+        raise AssertionError(f"phase22d: collective budget violations {found}")
+    print(f"phase22d: check_budgets(device='cuda', shard_counts=(1, 2)): {len(BUDGETS)} "
+          f"programs at 1 and 2 shards or the 1x1, 2x2, 2x4 grids, no violation, in "
+          f"{wall_d:.3f} s ({card})")
+    wall = time.perf_counter() - t_phase
+    print(f"phase22: the fleet reduce on the card in {wall:.3f} s ({card})")
+    return {"launches": launches, "wall_s": wall, "auc": auc, "cpu_gap": cpu_gap,
+            "ranks": {r: [ln["fleet"] for ln in v] for r, v in procs.items()}}
+
+
 def main() -> int:
     try:
         import torch
@@ -8745,6 +9016,7 @@ def main() -> int:
         model_axis = model_axis_phase(work, wide["model_dir"], card)
         ranged = range_phase(work, card)
         longhaul = longhaul_phase(work, card)
+        fleet = fleet_phase(work, card)
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS.get(name) or ENTRY_POINTS[name]
@@ -8777,6 +9049,7 @@ def main() -> int:
             model_axis_launches=model_axis["flushes"]["fused_score"],
             range_launches=ranged["launches"]["fused_score"],
             longhaul_launches=longhaul["launches"],
+            fleet_launches=fleet["launches"],
             model_axis_flush_1024=model_axis["timing"],
             model_axis_fit_wall_s=model_axis["fits"]["walls_s"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
@@ -8849,7 +9122,7 @@ def main() -> int:
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}
-    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_run:.3f} s of command "
+    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_run:.3f} s of command "
           f"(host clock, from the card check to the kernels line) ({card})")
     print(json.dumps(line))
     print(card)  # exactly as nvidia-smi gives it

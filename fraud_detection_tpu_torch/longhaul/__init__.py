@@ -26,9 +26,10 @@ Layers (one module each):
   (``lifeboat/recovery.py``), epoch-fences promotion finalization.
 - :mod:`.scrape` — the fleet's drift-window merge and ``/slo/status``
   aggregation under the epoch fence.
-
-The cross-host training reduce (the reference's ``longhaul/fleet.py``) is
-not in this package yet.
+- :mod:`.fleet` — the cross-host training reduce: per-host partials (map)
+  and one merge through ``LocalReducer``, ``MeshReducer`` (one ``psum`` an
+  array over the process group) or ``SocketReducer`` (the framed wire's
+  rank-order sum), behind ``fleet_pool_stats`` and ``fleet_sgd_fit``.
 """
 
 from fraud_detection_tpu_torch.longhaul.membership import (  # noqa: F401

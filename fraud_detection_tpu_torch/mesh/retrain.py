@@ -226,11 +226,13 @@ def _wide_update_epoch(
     """One epoch of the 2-D wide update (the JAX package's
     ``_wide_update_body``). Each step: every model group's column block is
     the ``all_gather`` of its data shards' slices (:func:`~fraud_detection_
-    tpu_torch.parallel.collectives.all_gather_blocks`); a data shard's
-    widened block is every model shard's partial gather summed over the
-    model axis (``ops/crosses._gather_contrib_model``: one real weight and
-    exact zeros a cell, so the block, the logit and every gradient have
-    the same bits at every model axis), masked by has-entity; the base
+    tpu_torch.parallel.collectives.all_gather_blocks`); the data shards'
+    widened blocks are every model shard's partial gather summed over the
+    model axis in one assembly a step (``ops/crosses._gather_contrib_model``
+    over every data shard's rows at once, a row's block its own: one real
+    weight and exact zeros a cell, so the block, the logit and every
+    gradient have the same bits at every model axis), masked by
+    has-entity; the base
     gradient and the intercept's are ``psum``-ed over the data axis; the
     table's gradient is each data shard's scatter of its rows' ``g·has``
     onto its model groups' column blocks (one accumulating ``index_put_``
@@ -251,12 +253,17 @@ def _wide_update_epoch(
         b_valid = torch.clamp(
             psum(torch.stack([valid[s][sel].sum() for s in range(mesh.data)]), mesh), min=1.0
         )
+        # every data shard's widened block in one model-axis assembly (the
+        # logit's one psum_model a step): a row's block is its own
+        ib_all, hb_all = idx[:, sel], has[:, sel]
+        z_wide_all = _gather_contrib_model(
+            w_col, ib_all.reshape(-1, n_cross), hb_all.reshape(-1)
+        ).sum(dim=1).view(mesh.data, -1)
         gw, gb, gt = [], [], []
         for s in range(mesh.data):
-            xb, ib, hb = x[s][sel], idx[s][sel], has[s][sel]
+            xb, ib, hb = x[s][sel], ib_all[s], hb_all[s]
             yb, swb = y_pm[s][sel], sw[s][sel]
-            z_wide = _gather_contrib_model(w_col, ib, hb).sum(dim=1)
-            z = xb @ coef + z_wide + intercept
+            z = xb @ coef + z_wide_all[s] + intercept
             # d/dz of sw·softplus(−ỹz)·C/B_valid
             g = swb * (-yb) * torch.sigmoid(-yb * z) * (c / b_valid)
             gw.append(xb.T @ g)

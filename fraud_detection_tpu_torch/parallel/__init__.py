@@ -8,6 +8,7 @@ process, the model axis (:mod:`.collectives`)."""
 from fraud_detection_tpu_torch.parallel.collectives import (  # noqa: F401
     all_gather,
     all_gather_blocks,
+    collective_counts,
     data_parallel,
     pmax,
     pmean,
@@ -16,6 +17,7 @@ from fraud_detection_tpu_torch.parallel.collectives import (  # noqa: F401
     psum_scatter,
     psum_scatter_blocks,
     replicate,
+    reset_collective_counts,
 )
 from fraud_detection_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,

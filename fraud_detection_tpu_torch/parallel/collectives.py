@@ -36,13 +36,48 @@ bits.
 Across processes the backend is ``nccl`` (a card a rank: the tensors stay
 on the card) or ``gloo`` (the CPU, or ranks sharing a card: the partials
 go through the host), :func:`.mesh.choose_backend`.
+
+Counts. Every public collective adds one to a module-level count keyed by
+``(kind, axis)`` where it is entered — ``psum``/``pmean`` as ``("psum",
+"data")``, ``all_gather``/``all_gather_blocks`` as ``("all_gather",
+"data")``, ``psum_scatter``/``psum_scatter_blocks`` as ``("psum_scatter",
+"data")``, ``pmax`` as ``("pmax", "data")``, ``psum_model`` as ``("psum",
+"model")`` — once, whatever it calls inside, and at one shard too: the
+count is the program's, not the backend's. :func:`reset_collective_counts`
+and :func:`collective_counts` zero and read them, as ``ops/kernels`` does
+its launch counts; ``analysis/contracts`` holds programs to budgets of
+them.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from fraud_detection_tpu_torch.parallel.mesh import Mesh, backend, default_mesh
+
+
+_count_lock = threading.Lock()
+#: collective calls since the last reset, by ``(kind, axis)``
+COLLECTIVE_CALLS: dict[tuple[str, str], int] = {}
+
+
+def _count(kind: str, axis: str = "data") -> None:
+    with _count_lock:
+        COLLECTIVE_CALLS[kind, axis] = COLLECTIVE_CALLS.get((kind, axis), 0) + 1
+
+
+def reset_collective_counts() -> None:
+    with _count_lock:
+        COLLECTIVE_CALLS.clear()
+
+
+def collective_counts() -> dict[tuple[str, str], int]:
+    """The calls since the last :func:`reset_collective_counts`, by ``(kind,
+    axis)`` (a kind never called is absent)."""
+    with _count_lock:
+        return dict(COLLECTIVE_CALLS)
 
 
 def _mesh(mesh: Mesh | None) -> Mesh:
@@ -125,7 +160,12 @@ def psum(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
     ...)`` → ``(...)``, the same on every process. Floats fold in global
     shard order (differentiable: the gradient reaches every local partial);
     integers and booleans sum exactly in any order."""
-    mesh = _mesh(mesh)
+    _count("psum")
+    return _psum(parts, _mesh(mesh))
+
+
+def _psum(parts: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """:func:`psum` uncounted: the reduction inside another collective."""
     _check(parts, mesh)
     if not (parts.is_floating_point() or parts.is_complex()):
         if mesh.global_data == 1:
@@ -138,12 +178,14 @@ def psum(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
 
 def pmean(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
     """:func:`psum` over the global shard count."""
+    _count("psum")
     mesh = _mesh(mesh)
-    return psum(parts, mesh) / mesh.global_data
+    return _psum(parts, mesh) / mesh.global_data
 
 
 def pmax(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
     """Maximum over every shard of the data axis, exact in any order."""
+    _count("pmax")
     mesh = _mesh(mesh)
     _check(parts, mesh)
     if mesh.global_data == 1:
@@ -155,6 +197,7 @@ def all_gather(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
     """Every shard's piece, in global shard order: ``(mesh.data, ...)`` →
     ``(mesh.global_data, ...)``. ``.reshape(-1)`` of a ``(data, k)`` result
     is JAX's tiled ``all_gather`` of ``k`` elements a shard."""
+    _count("all_gather")
     mesh = _mesh(mesh)
     _check(parts, mesh)
     return _gather(parts, mesh)
@@ -167,12 +210,13 @@ def psum_scatter(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
     slice of the :func:`psum` (global shard ``g`` owns slice ``g``) — JAX's
     tiled ``psum_scatter`` over ``scatter_dimension=0``, with the fold's
     bits."""
+    _count("psum_scatter")
     mesh = _mesh(mesh)
     _check(parts, mesh)
     m = parts.shape[1]
     if m % mesh.global_data:
         raise ValueError(f"psum_scatter: {m} does not split over {mesh.global_data} shards")
-    total = psum(parts, mesh)
+    total = _psum(parts, mesh)
     k = m // mesh.global_data
     own = total.reshape(mesh.global_data, k, *total.shape[1:])
     return own[mesh.shard_offset:mesh.shard_offset + mesh.data]
@@ -205,6 +249,7 @@ def psum_model(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
     crosses processes, and without ``mesh`` the grid's own leading axes
     are taken as they are; at a model axis of 1 the partial comes back
     unchanged."""
+    _count("psum", "model")
     _check_grid(parts, mesh)
     out = parts[:, 0]
     for m in range(1, parts.shape[1]):
@@ -219,6 +264,7 @@ def all_gather_blocks(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.Te
     global shard order — JAX's tiled ``all_gather`` over the data axis
     inside a model group. At a model axis of 1, :func:`all_gather` of the
     pieces, flattened."""
+    _count("all_gather")
     mesh = _mesh(mesh)
     _check_grid(parts, mesh)
     g = _gather(parts, mesh)  # (global_data, model, k)
@@ -233,13 +279,14 @@ def psum_scatter_blocks(parts: torch.Tensor, mesh: Mesh | None = None) -> torch.
     the data axis in global shard order, data shard ``g`` receiving slice
     ``g`` of its group's block. No model-axis collective: a group's columns
     take gradient only from its own partials."""
+    _count("psum_scatter")
     mesh = _mesh(mesh)
     _check_grid(parts, mesh)
     n = parts.shape[2]
     if n % mesh.global_data:
         raise ValueError(f"psum_scatter_blocks: {n} does not split over "
                          f"{mesh.global_data} data shards")
-    total = psum(parts, mesh)  # (model, n, ...)
+    total = _psum(parts, mesh)  # (model, n, ...)
     k = n // mesh.global_data
     own = total.reshape(mesh.model, mesh.global_data, k, *total.shape[2:])
     return own[:, mesh.shard_offset:mesh.shard_offset + mesh.data].transpose(0, 1)

@@ -29,12 +29,36 @@ own shards' segments kept, as JAX's ``shard_batch`` over a global mesh):
   --model`` grid: the table column-sharded over ``--model`` model shards
   in each process.
 
+The fleet fits (``longhaul/fleet``) take the host fleet as their data
+axis: each rank takes its contiguous slice of the rows (:func:`fleet_slice`)
+and merges through ``--reducer``:
+
+- ``fleet_pool``: ``fleet_pool_stats`` over the slice's raw rows and
+  labels, scored through the port's ``BatchScorer`` of ``--model-dir``
+  (the ``fused_score`` kernel on the card);
+- ``fleet_sgd``: ``fleet_sgd_fit`` at the JAX package's defaults (c 1.0,
+  5 epochs, batch 4096, lr 0.3, momentum 0.9, seed 0) over the slice
+  scaled by ``--model-dir``'s scaler (the raw rows without one).
+
+``--reducer mesh`` merges through ``MeshReducer`` under the launcher
+variables above; ``--reducer socket`` through ``SocketReducer`` with
+``--rank`` and ``--hosts`` (default ``RANK`` and ``WORLD_SIZE``) and rank
+0 coordinating at ``--coordinator host:port`` (port 0 picks one): rank 0
+prints ``FLEET_LISTENING <addr>`` once it listens, and a rank > 0 connects
+once, so a launcher starts rank 0 first and hands its address to the rest.
+
+    python -m fraud_detection_tpu_torch.shardfit --fit fleet_sgd \
+        --reducer socket --rank 0 --hosts 2 --coordinator 127.0.0.1:0 \
+        --data data/creditcard.csv --model-dir models --out DIR   # then rank 1
+
 The rows are the CSV's (``--data``) or ``--rows`` Gaussian rows × 30 from
 ``np.random.default_rng(--seed)`` with labels from a seeded linear model.
 Each rank writes ``DIR/rank<r>.npz`` (every fit's arrays, as
 ``<fit>_<field>``) and prints one JSON line: rank, world, backend, device,
-shards, each fit's wall seconds (host clock, the device synchronised) and
-the kernel launches.
+shards, each fit's wall seconds (host clock, the device synchronised), the
+kernel launches and the collective calls (``parallel.collectives``' counts,
+``kind@axis``); a fleet fit adds its mean host time a merge and, for
+``fleet_sgd``, a step.
 """
 
 from __future__ import annotations
@@ -58,7 +82,9 @@ from fraud_detection_tpu_torch.parallel.mesh import (
     shutdown_distributed,
 )
 
-FITS = ("psum", "scaler", "lbfgs", "sgd", "gbt", "mesh_sgd", "wide_sgd")
+FITS = ("psum", "scaler", "lbfgs", "sgd", "gbt", "mesh_sgd", "wide_sgd", "fleet_pool",
+        "fleet_sgd")
+FLEET_FITS = ("fleet_pool", "fleet_sgd")
 
 
 def synthetic_rows(rows: int, seed: int, d: int = 30) -> tuple[np.ndarray, np.ndarray]:
@@ -73,6 +99,69 @@ def synthetic_rows(rows: int, seed: int, d: int = 30) -> tuple[np.ndarray, np.nd
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def fleet_slice(n: int, rank: int, hosts: int) -> slice:
+    """Rank ``rank``'s contiguous share of ``n`` rows over ``hosts``."""
+    return slice(rank * n // hosts, (rank + 1) * n // hosts)
+
+
+def fleet_inputs(x: np.ndarray, model) -> np.ndarray:
+    """The fleet fit's rows: ``x`` scaled by ``model``'s scaler in float32
+    numpy (``x`` itself without a model or a scaler), the same bits on any
+    device."""
+    if model is None or getattr(model, "scaler", None) is None:
+        return np.asarray(x, np.float32)
+    mean, scale = (t.detach().cpu().numpy().astype(np.float32)
+                   for t in (model.scaler.mean, model.scaler.scale))
+    return ((np.asarray(x, np.float32) - mean) / scale).astype(np.float32)
+
+
+class TimedReducer:
+    """A fleet transport with the host time of each merge kept
+    (``seconds``, in call order)."""
+
+    def __init__(self, reducer):
+        self.reducer = reducer
+        self.n_hosts, self.rank = reducer.n_hosts, reducer.rank
+        self.seconds: list[float] = []
+
+    def allreduce(self, arrays):
+        t = time.perf_counter()
+        try:
+            return self.reducer.allreduce(arrays)
+        finally:
+            self.seconds.append(time.perf_counter() - t)
+
+
+def make_fleet_reducer(args, device):
+    """``--reducer``'s transport: ``MeshReducer`` over the process group,
+    or ``SocketReducer`` as ``--rank`` of ``--hosts`` at ``--coordinator``
+    (rank 0 prints ``FLEET_LISTENING <addr>`` once it listens)."""
+    from fraud_detection_tpu_torch.longhaul.fleet import MeshReducer, SocketReducer
+
+    if args.reducer == "mesh":
+        return MeshReducer(device)
+    red = SocketReducer(args.rank, args.hosts, args.coordinator)
+    if red.rank == 0:
+        print(f"FLEET_LISTENING {red.addr}", flush=True)
+    return red
+
+
+def run_fleet_fit(fit: str, x: np.ndarray, y: np.ndarray, reducer, model,
+                  device) -> dict[str, np.ndarray]:
+    """One fleet ``--fit`` over this rank's slice through ``reducer``."""
+    from fraud_detection_tpu_torch.longhaul.fleet import fleet_pool_stats, fleet_sgd_fit
+
+    if fit == "fleet_pool":
+        if model is None:
+            raise SystemExit("--fit fleet_pool scores the pool: it needs --model-dir")
+        scores = model.scorer.predict_proba(x)
+        st = fleet_pool_stats(x, y, scores, reducer, device=device)
+        return {k: np.asarray(st[k]) for k in ("rows", "positives", "label_rate",
+                                               "score_mean", "feature_mean", "feature_std")}
+    p = fleet_sgd_fit(fleet_inputs(x, model), y, reducer, device=device)
+    return {"coef": p.coef.cpu().numpy(), "intercept": p.intercept.cpu().numpy()}
 
 
 def run_fit(fit: str, x: np.ndarray, y: np.ndarray, mesh, args) -> dict[str, np.ndarray]:
@@ -143,11 +232,22 @@ def main(argv=None) -> int:
     ap.add_argument("--bins", type=int, default=256)
     ap.add_argument("--model", type=int, default=1, help="model shards of --fit wide_sgd")
     ap.add_argument("--out", required=True, help="directory for rank<r>.npz")
+    ap.add_argument("--reducer", choices=("socket", "mesh"), default="mesh",
+                    help="the fleet fits' transport")
+    ap.add_argument("--coordinator", default="127.0.0.1:0",
+                    help="rank 0's host:port under --reducer socket")
+    ap.add_argument("--rank", type=int, default=int(os.environ.get("RANK", 0)),
+                    help="this rank under --reducer socket (default RANK)")
+    ap.add_argument("--hosts", type=int, default=int(os.environ.get("WORLD_SIZE", 1)),
+                    help="ranks under --reducer socket (default WORLD_SIZE)")
+    ap.add_argument("--model-dir", default=None,
+                    help="the fleet fits' model: scores the pool, scales the SGD rows")
     args = ap.parse_args(argv)
     if args.shards < 1 or args.model < 1:
         ap.error(f"--shards and --model must be at least 1, got {args.shards}, {args.model}")
 
     initialize_distributed()
+    reducer = None
     try:
         mesh = create_mesh(MeshSpec(data=args.shards))
         if args.data:
@@ -157,26 +257,53 @@ def main(argv=None) -> int:
             x, y = np.asarray(x, np.float32), np.asarray(y, np.float32)
         else:
             x, y = synthetic_rows(args.rows, args.seed)
-        arrays, seconds = {}, {}
+        model = None
+        if args.model_dir:
+            from fraud_detection_tpu_torch.models import load_any_model
+
+            model = load_any_model(args.model_dir, device=mesh.device)
+        if any(fit in FLEET_FITS for fit in args.fit):
+            reducer = TimedReducer(make_fleet_reducer(args, mesh.device))
+            own = fleet_slice(x.shape[0], reducer.rank, reducer.n_hosts)
+        arrays, seconds, fleet = {}, {}, {}
         kernels.reset_launch_counts()
+        collectives.reset_collective_counts()
         for fit in args.fit:
             _sync(mesh.device)
             t0 = time.perf_counter()
-            for k, v in run_fit(fit, x, y, mesh, args).items():
+            if fit in FLEET_FITS:
+                c0 = len(reducer.seconds)
+                out = run_fleet_fit(fit, x[own], y[own], reducer, model, mesh.device)
+                merges = reducer.seconds[c0:]
+            else:
+                out = run_fit(fit, x, y, mesh, args)
+            for k, v in out.items():
                 arrays[f"{fit}_{k}"] = v
             _sync(mesh.device)
             seconds[fit] = time.perf_counter() - t0
+            if fit in FLEET_FITS:
+                # a rank's first merge waits for its peers to start
+                fleet[fit] = {"merges": len(merges), "first_merge_s": merges[0],
+                              "merge_s": float(np.median(merges[1:] or merges))}
+            if fit == "fleet_sgd":  # the geometry reduce, then one merge a step
+                fleet[fit]["step_s"] = (seconds[fit] - merges[0]) / max(len(merges) - 1, 1)
+        rank = reducer.rank if reducer is not None else mesh.process
         os.makedirs(args.out, exist_ok=True)
-        np.savez(os.path.join(args.out, f"rank{mesh.process}.npz"), **arrays)
+        np.savez(os.path.join(args.out, f"rank{rank}.npz"), **arrays)
         print(json.dumps({
-            "rank": mesh.process, "world": mesh.processes, "backend": backend(),
-            "device": str(mesh.device), "shards": mesh.size,
+            "rank": rank, "world": reducer.n_hosts if reducer is not None else mesh.processes,
+            "backend": backend(), "device": str(mesh.device), "shards": mesh.size,
             "global_shards": mesh.global_data, "seconds": seconds,
             "launches": kernels.launch_counts(),
             "gbt_hist_split": kernels.gbt_hist_split_counts(),
+            "collectives": {f"{k}@{a}": n for (k, a), n in
+                            sorted(collectives.collective_counts().items())},
+            "fleet": fleet,
             "psum": arrays.get("psum_psum", np.zeros(())).tolist(),
         }), flush=True)
     finally:
+        if reducer is not None:
+            reducer.reducer.close()
         shutdown_distributed()
     return 0
 

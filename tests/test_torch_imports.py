@@ -69,7 +69,7 @@ def test_training_modules_are_among_those_imported():
     """The blocked-import probe walks the package; the training, GBT,
     explain, offline-tool, ingest, ledger, wide-family, lifecycle, lifeboat,
     network-store, telemetry, serving-mesh, sharded-training, model-axis,
-    range and longhaul slices' modules are in it."""
+    range, longhaul and analysis slices' modules are in it."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -102,7 +102,7 @@ def test_training_modules_are_among_those_imported():
                 "service.app", "config", "range.traffic", "range.invariants",
                 "range.scenarios", "longhaul", "longhaul.placement", "longhaul.codec",
                 "longhaul.membership", "longhaul.host", "longhaul.front",
-                "longhaul.scrape"):
+                "longhaul.scrape", "longhaul.fleet", "analysis", "analysis.contracts"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 
