@@ -523,6 +523,27 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    merge's host time printed; (d) ``analysis.check_budgets(device="cuda",
    shard_counts=(1, 2))``: no violation. The phase's wall, and the whole
    run's command time, are printed.
+23. **the lock discipline and the program contracts** — (a)
+   ``analysis.lockcheck.build_lock_report()`` over the port's tree beside
+   this file (its ``build/`` pruned): ``ok``, exactly the four edges
+   ``lifeboat.flush → drift.window``, ``lifeboat.flush → lifeboat.journal``,
+   ``longhaul.inherit → lifeboat.flush``, ``netstore.pub → taskq.broker``,
+   no cycle, no inventory drift, and no unsanctioned ``blocking-under-lock``
+   or ``lock-in-capture`` finding; (b) the range's ``kill_mid_snapshot`` on
+   the card with ``LOCKDEP=1`` set before it builds its objects (and
+   restored after, so no later work inherits it), the witnessed graph
+   reset before: every invariant holds, no ``LockOrderInversion``, the
+   witnessed edges include ``lifeboat.flush → drift.window`` and
+   ``lifeboat.flush → lifeboat.journal``, and every witnessed edge is an
+   edge of (a)'s static graph; (c)
+   ``analysis.check_programs(device="cuda", shard_counts=(1, 2))``: no
+   violation — each program's kernel launches equal its dispatches equal
+   its declared count a unit, every flush's device part ran under
+   ``torch.cuda.set_sync_debug_mode("error")`` with no sync raised, its
+   output dtypes and its state in place — with one line a program of its
+   launches by kernel, and ``fused_score``, ``tree_shap``, ``knn_topk`` and
+   ``gbt_hist`` each launched by at least one program. The kernels line's
+   rows carry the programs' launches as ``contract_launches``.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -8930,6 +8951,102 @@ def fleet_phase(work: Path, card: str) -> dict:
             "ranks": {r: [ln["fleet"] for ln in v] for r, v in procs.items()}}
 
 
+#: the static lock graph of the port (phase 23a)
+LOCK_EDGES = {("lifeboat.flush", "drift.window"), ("lifeboat.flush", "lifeboat.journal"),
+              ("longhaul.inherit", "lifeboat.flush"), ("netstore.pub", "taskq.broker")}
+
+
+def contracts_phase(work: Path, card: str) -> dict:
+    """Phase 23: the lock discipline and the program contracts on the card —
+    (a) the static lock report, (b) ``kill_mid_snapshot`` witnessed under
+    ``LOCKDEP=1``, (c) every program's contract at 1 and 2 shards."""
+    from fraud_detection_tpu_torch.analysis.contracts import PROGRAMS, check_programs
+    from fraud_detection_tpu_torch.analysis.core import analyze_paths
+    from fraud_detection_tpu_torch.analysis.lockcheck import LOCK_RULES, build_lock_report
+    from fraud_detection_tpu_torch.utils import lockdep
+
+    t_phase = time.perf_counter()
+    # (a) the static lock report over the tree beside this file
+    t = time.perf_counter()
+    report = build_lock_report(root=str(ROOT))
+    edges = {(e["src"], e["dst"]) for e in report["edges"]}
+    findings = analyze_paths([str(ROOT / "fraud_detection_tpu_torch")], root=str(ROOT),
+                             rules=LOCK_RULES)
+    if not report["ok"] or edges != LOCK_EDGES or report["inventory_drift"] or findings:
+        raise AssertionError(f"phase23a: lock report ok={report['ok']} edges {sorted(edges)} "
+                             f"cycles {report['cycles']} drift {report['inventory_drift']} "
+                             f"findings {[f.to_dict() for f in findings]}")
+    print(f"phase23a: build_lock_report over {len(report['locks'])} named locks: ok, edges "
+          f"{' ; '.join(f'{a} -> {b}' for a, b in sorted(edges))}, no cycle, no drift, no "
+          f"unsanctioned finding, in {time.perf_counter() - t:.3f} s")
+
+    # (b) kill_mid_snapshot witnessed on the card (phase 20 ran it in work/)
+    lock_work = work / "phase23"
+    lock_work.mkdir()
+    prior = os.environ.get("LOCKDEP")
+    os.environ["LOCKDEP"] = "1"
+    lockdep.reset()
+    try:
+        res, launches, wall = range_run("kill_mid_snapshot", lock_work, "cuda")
+        witnessed = set(lockdep.edges())
+    finally:
+        if prior is None:
+            os.environ.pop("LOCKDEP", None)
+        else:
+            os.environ["LOCKDEP"] = prior
+        lockdep.reset()
+    bad = [k for k, v in res["invariants"].items() if not v["ok"]]
+    need = {("lifeboat.flush", "drift.window"), ("lifeboat.flush", "lifeboat.journal")}
+    if bad or not need <= witnessed or not witnessed <= edges:
+        raise AssertionError(f"phase23b: invariants failed {bad}; witnessed {sorted(witnessed)} "
+                             f"against the static {sorted(edges)}")
+    print(f"phase23b: kill_mid_snapshot under LOCKDEP=1 on cuda: {len(res['invariants'])} "
+          f"invariants hold, no LockOrderInversion; witnessed "
+          f"{' ; '.join(f'{a} -> {b}' for a, b in sorted(witnessed))}, each in the static "
+          f"graph; fused_score {launches['fused_score']} launches, {wall:.3f} s ({card})")
+
+    # (c) the program contracts on the card
+    t = time.perf_counter()
+    runs: list = []
+    found = check_programs(device="cuda", shard_counts=(1, 2), report=runs)
+    wall_c = time.perf_counter() - t
+    if found:
+        raise AssertionError(f"phase23c: program contract violations {found}")
+    by_program: dict = {}
+    n_runs: dict = {}
+    for r in runs:
+        n_runs[r["entrypoint"]] = n_runs.get(r["entrypoint"], 0) + 1
+        if r["launches"] != r["dispatches"]:
+            raise AssertionError(f"phase23c: {r['entrypoint']} at {r['shards']}: launches "
+                                 f"{r['launches']} != dispatches {r['dispatches']}")
+        mine = by_program.setdefault(r["entrypoint"], {})
+        for k, v in r["launches"].items():
+            if v:
+                mine[k] = mine.get(k, 0) + v
+    for program in PROGRAMS:
+        got = by_program.get(program.entrypoint, {})
+        print(f"phase23c: {program.entrypoint} ({program.program}): launches over its "
+              f"{n_runs.get(program.entrypoint, 0)} runs {json.dumps(got, sort_keys=True)} = "
+              f"dispatches, declared {json.dumps(program.kernels, sort_keys=True)} a "
+              f"{program.unit.removeprefix('a ')}"
+              + (f" (one a shard: {', '.join(program.per_shard)})" if program.per_shard else ""))
+    totals: dict = {}
+    for got in by_program.values():
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+    missing = [k for k in ("fused_score", "tree_shap", "knn_topk", "gbt_hist") if not totals.get(k)]
+    if missing:
+        raise AssertionError(f"phase23c: no program launched {missing}")
+    print(f"phase23c: check_programs(device='cuda', shard_counts=(1, 2)): {len(PROGRAMS)} "
+          f"programs, {len(runs)} runs, no violation (the flushes' device parts under "
+          f"set_sync_debug_mode('error')), launches {json.dumps(totals, sort_keys=True)}, in "
+          f"{wall_c:.3f} s ({card})")
+    wall = time.perf_counter() - t_phase
+    print(f"phase23: the lock discipline and the program contracts on the card in "
+          f"{wall:.3f} s ({card})")
+    return {"launches": totals, "wall_s": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -9017,6 +9134,8 @@ def main() -> int:
         ranged = range_phase(work, card)
         longhaul = longhaul_phase(work, card)
         fleet = fleet_phase(work, card)
+        contracts = contracts_phase(work, card)
+    contract = contracts["launches"]
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
         route, source, replaces = KERNELS.get(name) or ENTRY_POINTS[name]
@@ -9050,6 +9169,7 @@ def main() -> int:
             range_launches=ranged["launches"]["fused_score"],
             longhaul_launches=longhaul["launches"],
             fleet_launches=fleet["launches"],
+            contract_launches=contract.get("fused_score", 0),
             model_axis_flush_1024=model_axis["timing"],
             model_axis_fit_wall_s=model_axis["fits"]["walls_s"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
@@ -9064,6 +9184,7 @@ def main() -> int:
         # kernel's and the plain version's picks (0 when the indices agree)
         row("knn_topk", trained["knn_topk"], knn, k_small, None,
             m=158, orientation_ms=k_small["orientation_ms"],
+            contract_launches=contract.get("knn_topk", 0),
             tools_launches=tools.get("knn_topk", 0),
             ledger_launches=ledger["train"]["knn_topk"],
             lifecycle_launches=lifecycle["knn_topk"],
@@ -9079,6 +9200,7 @@ def main() -> int:
         # largest |kernel − plain| cell over every phase-2c case
         row("gbt_hist", gbt_trained["gbt_hist"], hist, hist["timing"][16],
             hist["timing"][16]["library_ms"], n=31684, nodes=16,
+            contract_launches=contract.get("gbt_hist", 0),
             model_axis_launches=model_axis["repair"]["launches"]["gbt_hist"],
             range_launches=ranged["launches"]["gbt_hist"],
             train_turns_s={f: model_axis["repair"][f]["walls_s"] for f in ("logistic", "gbt")},
@@ -9094,6 +9216,7 @@ def main() -> int:
         row("gbt_hist_split", sharded["forests"]["launches"]["accumulate"], sharded["split"],
             sharded["split"]["timing"][8], sharded["split"]["timing"][8]["library_ms"],
             n=-(-31684 // 8), nodes=16, shards=8,
+            contract_launches=contract.get("gbt_hist_accumulate", 0),
             max_launches=sharded["forests"]["launches"]["max"],
             finish_launches=sharded["forests"]["launches"]["finish"],
             train_launches=gbt_trained["gbt_hist"],
@@ -9109,6 +9232,7 @@ def main() -> int:
         # stands beside it as orientation
         row("tree_shap", gbt_served["tree_shap"], shap, shap["timing"][1024], None,
             n=1024, trees=100, depth=5,
+            contract_launches=contract.get("tree_shap", 0),
             orientation_ms=shap["timing"][1024]["orientation_ms"],
             worker_launches=worker_gbt["tree_shap"],
             tools_launches=tools.get("tree_shap", 0),
@@ -9122,7 +9246,7 @@ def main() -> int:
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}
-    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_run:.3f} s of command "
+    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_run:.3f} s of command "
           f"(host clock, from the card check to the kernels line) ({card})")
     print(json.dumps(line))
     print(card)  # exactly as nvidia-smi gives it

@@ -35,7 +35,6 @@ exponential (half-life in rows).
 from __future__ import annotations
 
 import logging
-import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -59,6 +58,7 @@ from fraud_detection_tpu_torch.ops.crosses import (
 from fraud_detection_tpu_torch.ops.linear_shap import _raw_linear_shap, topk_reasons
 from fraud_detection_tpu_torch.ops.scorer import _bucket, _cast_scores, _raw_score_linear
 from fraud_detection_tpu_torch.ops.tree_shap import TreeShapExplainer, _raw_tree_shap
+from fraud_detection_tpu_torch.utils import lockdep
 
 PSI_EPS = 1e-4
 N_CALIB_BINS = 10
@@ -497,7 +497,7 @@ class DriftMonitor:
         # a flush's fold is several in-place launches: a stats() reader (or
         # a concurrent flush) must not interleave its own launches between
         # them, so each holds this lock while it enqueues
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("drift.window")
 
     def _decay_for(self, n: int) -> float:
         """The forgetting factor for ``n`` live rows, rounded to float32

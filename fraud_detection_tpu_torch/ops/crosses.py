@@ -136,11 +136,11 @@ def _constants(spec: CrossSpec, device: torch.device):
     got = _CONSTANTS.get(key)
     if got is None:
         cols = _sign_cols(spec)
-        got = _CONSTANTS[key] = (
-            torch.tensor(cols, dtype=torch.int64, device=device),
-            torch.tensor([1 << k for k in range(len(cols))], dtype=torch.int64, device=device),
-            torch.tensor(_SALTS[: spec.n_cross], dtype=torch.int64, device=device),
-        )
+        got = _CONSTANTS[key] = tuple(
+            # made once a spec and device, so no flush after the first copies them
+            # lockcheck: ignore[host-sync] (the reason above)
+            torch.tensor(v, dtype=torch.int64, device=device)
+            for v in (cols, [1 << k for k in range(len(cols))], _SALTS[: spec.n_cross]))
     return got
 
 

@@ -384,6 +384,16 @@ def _leaf_paths(depth: int) -> tuple[np.ndarray, np.ndarray]:
     return nodes, bits
 
 
+@functools.lru_cache(maxsize=None)
+def _leaf_path_tensors(depth: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_leaf_paths` on ``device``, made once a depth and device: a
+    flush's prediction then copies nothing from the host (a pageable h2d
+    copy waits for the device)."""
+    nodes, bits = _leaf_paths(depth)
+    return (torch.as_tensor(nodes, device=device).long(),
+            torch.as_tensor(bits, device=device))
+
+
 def _leaf_contrib(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
     """(n, trees, leaves): each tree's leaf value where the row lands, 0 at
     every other leaf. Every internal node's compare for every (row, tree)
@@ -391,16 +401,14 @@ def _leaf_contrib(model: GBTModel, x: torch.Tensor) -> torch.Tensor:
     binned = bin_features(x, model.bin_edges)
     n = binned.shape[0]
     n_trees, n_internal = model.split_feature.shape
-    nodes, bits = _leaf_paths(model.depth)
-    dev = binned.device
+    nodes, bits = _leaf_path_tensors(model.depth, binned.device)
     go_right = (
         binned[:, model.split_feature.reshape(-1).long()]
         > model.split_bin.reshape(-1)[None, :]
     ).reshape(n, n_trees, n_internal)
     ind = None
     for k in range(model.depth):
-        sel = go_right[:, :, torch.as_tensor(nodes[k], device=dev).long()] == \
-            torch.as_tensor(bits[k], device=dev)[None, None, :]
+        sel = go_right[:, :, nodes[k]] == bits[k][None, None, :]
         ind = sel if ind is None else ind & sel
     return torch.where(ind, model.leaf_value[None], 0.0)
 

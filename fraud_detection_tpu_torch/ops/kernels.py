@@ -17,7 +17,12 @@ takes the plain PyTorch version; a CUDA tensor launches the kernel or
 raises — there is no fallback. Each wrapper counts its launches in a
 module-level integer (``FUSED_SCORE_LAUNCHES``, ``KNN_TOPK_LAUNCHES``,
 ``GBT_HIST_LAUNCHES``, ``TREE_SHAP_LAUNCHES``), so a run can show that the
-served and the trained paths went through the kernels.
+served and the trained paths went through the kernels. Each wrapper, and
+each of ``gbt_hist``'s split-phase entry points, also counts every call it
+takes past its checks, on either device (:func:`dispatch_counts`): on the
+CPU that counts the plain versions' calls, so a test can see how many
+kernel calls a program makes; on the card a dispatch that did not launch is
+a fault.
 """
 
 from __future__ import annotations
@@ -122,6 +127,13 @@ GBT_HIST_MAX_LAUNCHES = 0
 GBT_HIST_SPLIT_LAUNCHES = 0
 GBT_HIST_FINISH_LAUNCHES = 0
 
+#: calls of each wrapper past its checks, on either device, keyed as
+#: :func:`launches_by_entry` keys the launches (``gbt_hist`` counts the
+#: whole launches and the split phase's accumulates, as its launch count does)
+DISPATCH_KEYS = ("fused_score", "knn_topk", "gbt_hist", "tree_shap", "gbt_hist_max",
+                 "gbt_hist_accumulate", "gbt_hist_finish")
+_DISPATCHES = dict.fromkeys(DISPATCH_KEYS, 0)
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: nvcc's output (with ``ptxas -v``'s resource lines) of each kernel built
@@ -151,6 +163,32 @@ def reset_launch_counts() -> None:
         GBT_HIST_MAX_LAUNCHES = 0
         GBT_HIST_SPLIT_LAUNCHES = 0
         GBT_HIST_FINISH_LAUNCHES = 0
+
+
+def _dispatch(*names: str) -> None:
+    with _lock:
+        for name in names:
+            _DISPATCHES[name] += 1
+
+
+def dispatch_counts() -> dict[str, int]:
+    """Calls of each wrapper past its checks since the last reset, on either
+    device (:data:`DISPATCH_KEYS`)."""
+    with _lock:
+        return dict(_DISPATCHES)
+
+
+def reset_dispatch_counts() -> None:
+    with _lock:
+        for name in DISPATCH_KEYS:
+            _DISPATCHES[name] = 0
+
+
+def launches_by_entry() -> dict[str, int]:
+    """The launch counts keyed as :func:`dispatch_counts` keys the calls."""
+    split = gbt_hist_split_counts()
+    return {**launch_counts(), "gbt_hist_max": split["max"],
+            "gbt_hist_accumulate": split["accumulate"], "gbt_hist_finish": split["finish"]}
 
 
 def launch_counts() -> dict[str, int]:
@@ -369,6 +407,7 @@ def fused_score(
         if t.device != x.device:
             raise ValueError(f"{what} on {t.device}, x on {x.device}")
     if x.device.type == "cpu":
+        _dispatch("fused_score")
         return fused_score_reference(coef, intercept.reshape(()), x)
     if x.device.type != "cuda":
         raise ValueError(f"fused_score runs on cuda or cpu, not {x.device}")
@@ -378,18 +417,20 @@ def fused_score(
         raise ValueError(f"fused_score wants n >= 1 and d >= 1, got ({n}, {d})")
     lib = _lib("fused_score")
     out = torch.empty(n, dtype=torch.float32, device=x.device)
-    rc = lib.fused_score_launch(
-        x.data_ptr(), coef.data_ptr(), intercept.data_ptr(), out.data_ptr(),
-        n, d, FUSED_SCORE_DTYPES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with _lock:  # the dispatch before its launch, one acquire for both counts
+        _DISPATCHES["fused_score"] += 1
+        rc = lib.fused_score_launch(
+            x.data_ptr(), coef.data_ptr(), intercept.data_ptr(), out.data_ptr(),
+            n, d, FUSED_SCORE_DTYPES[x.dtype], x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        if rc == 0:
+            FUSED_SCORE_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(
             "fused_score launch failed: "
             + lib.fused_score_error_string(rc).decode()
         )
-    with _lock:
-        FUSED_SCORE_LAUNCHES += 1
     return out
 
 
@@ -559,6 +600,7 @@ def knn_topk(xc: torch.Tensor, sq: torch.Tensor, k: int) -> torch.Tensor:
     if not 1 <= k < m:
         raise ValueError(f"knn_topk wants 1 <= k < m, got k={k}, m={m}")
     if xc.device.type == "cpu":
+        _dispatch("knn_topk")
         return knn_topk_reference(xc, sq, k)
     if xc.device.type != "cuda":
         raise ValueError(f"knn_topk runs on cuda or cpu, not {xc.device}")
@@ -576,19 +618,21 @@ def knn_topk(xc: torch.Tensor, sq: torch.Tensor, k: int) -> torch.Tensor:
     # each split's k best a query, packed (every slot written by pass 1)
     scratch = (torch.empty((splits, m, k), dtype=torch.int64, device=xc.device)
                if splits > 1 else None)
-    rc = lib.knn_topk_launch(
-        xc.data_ptr(), sq.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        0 if scratch is None else scratch.numel() * 8,
-        out.data_ptr(), m, d, k, xc.device.index,
-        torch.cuda.current_stream(xc.device).cuda_stream,
-    )
+    with _lock:  # the dispatch before its launch, one acquire for both counts
+        _DISPATCHES["knn_topk"] += 1
+        rc = lib.knn_topk_launch(
+            xc.data_ptr(), sq.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel() * 8,
+            out.data_ptr(), m, d, k, xc.device.index,
+            torch.cuda.current_stream(xc.device).cuda_stream,
+        )
+        if rc == 0:
+            KNN_TOPK_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(
             "knn_topk launch failed: " + lib.knn_topk_error_string(rc).decode()
         )
-    with _lock:
-        KNN_TOPK_LAUNCHES += 1
     return out
 
 
@@ -805,6 +849,7 @@ def _gbt_hist(
         if t.device != bins.device:
             raise ValueError(f"{what} on {t.device}, bins on {bins.device}")
     if bins.device.type == "cpu":
+        _dispatch("gbt_hist")
         return gbt_hist_reference(bins, local, g, h, n_nodes, n_bins), None
     if bins.device.type != "cuda":
         raise ValueError(f"gbt_hist runs on cuda or cpu, not {bins.device}")
@@ -826,18 +871,20 @@ def _gbt_hist(
     # max pass's partials: the kernel zeroes what it reads
     scratch = torch.empty(scratch_bytes // 8, dtype=torch.int64, device=bins.device)
     out = torch.empty((d, n_nodes, n_bins, 2), dtype=torch.float32, device=bins.device)
-    rc = lib.gbt_hist_launch(
-        bins.data_ptr(), local.data_ptr(), g.data_ptr(), h.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(),
-        n, d, n_nodes, n_bins, bins.device.index,
-        torch.cuda.current_stream(bins.device).cuda_stream,
-    )
+    with _lock:  # the dispatch before its launch, one acquire for both counts
+        _DISPATCHES["gbt_hist"] += 1
+        rc = lib.gbt_hist_launch(
+            bins.data_ptr(), local.data_ptr(), g.data_ptr(), h.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(),
+            n, d, n_nodes, n_bins, bins.device.index,
+            torch.cuda.current_stream(bins.device).cuda_stream,
+        )
+        if rc == 0:
+            GBT_HIST_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(
             "gbt_hist launch failed: " + lib.gbt_hist_error_string(rc).decode()
         )
-    with _lock:
-        GBT_HIST_LAUNCHES += 1
     return out, scratch
 
 
@@ -882,19 +929,22 @@ def gbt_hist_max(local: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         raise ValueError(f"gbt_hist_max wants n >= 1 and 1 <= n_nodes <= "
                          f"{GBT_HIST_MAX_NODES}, got ({local.shape[0]}, {n_nodes})")
     if local.device.type == "cpu":
+        _dispatch("gbt_hist_max")
         return gbt_hist_max_reference(local, g, h, n_nodes)
     lib = _lib("gbt_hist")
     out = torch.empty(2, dtype=torch.int32, device=local.device)
-    rc = lib.gbt_hist_max_launch(
-        local.data_ptr(), g.data_ptr(), h.data_ptr(), out.data_ptr(),
-        local.shape[0], n_nodes, local.device.index,
-        torch.cuda.current_stream(local.device).cuda_stream,
-    )
+    with _lock:  # the dispatch before its launch, one acquire for both counts
+        _DISPATCHES["gbt_hist_max"] += 1
+        rc = lib.gbt_hist_max_launch(
+            local.data_ptr(), g.data_ptr(), h.data_ptr(), out.data_ptr(),
+            local.shape[0], n_nodes, local.device.index,
+            torch.cuda.current_stream(local.device).cuda_stream,
+        )
+        if rc == 0:
+            GBT_HIST_MAX_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError("gbt_hist max launch failed: "
                            + lib.gbt_hist_error_string(rc).decode())
-    with _lock:
-        GBT_HIST_MAX_LAUNCHES += 1
     return out
 
 
@@ -939,6 +989,7 @@ def gbt_hist_accumulate(
         if t.device != local.device:
             raise ValueError(f"{name} on {t.device}, local on {local.device}")
     if local.device.type == "cpu":
+        _dispatch("gbt_hist", "gbt_hist_accumulate")
         q = gbt_hist_quanta_from_bits(n_total, max_bits)
         cells, _ = gbt_hist_fixed_point_reference(bins, local, g, h, n_nodes, n_bins,
                                                   quanta=q, accumulator=True)
@@ -953,18 +1004,21 @@ def gbt_hist_accumulate(
     if not all(t.is_contiguous() for t in (bins, max_bits, acc, quanta)):
         raise ValueError("gbt_hist_accumulate wants contiguous bins, max_bits, acc, quanta")
     lib = _lib("gbt_hist")
-    rc = lib.gbt_hist_accumulate_launch(
-        bins.data_ptr(), local.data_ptr(), g.data_ptr(), h.data_ptr(),
-        max_bits.data_ptr(), acc.data_ptr(), quanta.data_ptr(),
-        n, n_total, d, n_nodes, n_bins, local.device.index,
-        torch.cuda.current_stream(local.device).cuda_stream,
-    )
+    with _lock:  # the dispatch before its launch, one acquire for both counts
+        _DISPATCHES["gbt_hist"] += 1
+        _DISPATCHES["gbt_hist_accumulate"] += 1
+        rc = lib.gbt_hist_accumulate_launch(
+            bins.data_ptr(), local.data_ptr(), g.data_ptr(), h.data_ptr(),
+            max_bits.data_ptr(), acc.data_ptr(), quanta.data_ptr(),
+            n, n_total, d, n_nodes, n_bins, local.device.index,
+            torch.cuda.current_stream(local.device).cuda_stream,
+        )
+        if rc == 0:
+            GBT_HIST_LAUNCHES += 1
+        GBT_HIST_SPLIT_LAUNCHES += rc == 0
     if rc != 0:
         raise RuntimeError("gbt_hist accumulate launch failed: "
                            + lib.gbt_hist_error_string(rc).decode())
-    with _lock:
-        GBT_HIST_LAUNCHES += 1
-        GBT_HIST_SPLIT_LAUNCHES += 1
     return acc
 
 
@@ -982,6 +1036,7 @@ def gbt_hist_finish(acc: torch.Tensor, quanta: torch.Tensor) -> torch.Tensor:
     if quanta.device != acc.device:
         raise ValueError(f"quanta on {quanta.device}, acc on {acc.device}")
     if acc.device.type == "cpu":
+        _dispatch("gbt_hist_finish")
         return gbt_hist_finish_reference(acc, quanta)
     if acc.device.type != "cuda":
         raise ValueError(f"gbt_hist_finish runs on cuda or cpu, not {acc.device}")
@@ -989,15 +1044,17 @@ def gbt_hist_finish(acc: torch.Tensor, quanta: torch.Tensor) -> torch.Tensor:
         raise ValueError("gbt_hist_finish wants a contiguous accumulator and quanta")
     lib = _lib("gbt_hist")
     out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
-    rc = lib.gbt_hist_finish_launch(
-        acc.data_ptr(), quanta.data_ptr(), out.data_ptr(), acc.numel() // 2,
-        acc.device.index, torch.cuda.current_stream(acc.device).cuda_stream,
-    )
+    with _lock:  # the dispatch before its launch, one acquire for both counts
+        _DISPATCHES["gbt_hist_finish"] += 1
+        rc = lib.gbt_hist_finish_launch(
+            acc.data_ptr(), quanta.data_ptr(), out.data_ptr(), acc.numel() // 2,
+            acc.device.index, torch.cuda.current_stream(acc.device).cuda_stream,
+        )
+        if rc == 0:
+            GBT_HIST_FINISH_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError("gbt_hist finish launch failed: "
                            + lib.gbt_hist_error_string(rc).decode())
-    with _lock:
-        GBT_HIST_FINISH_LAUNCHES += 1
     return out
 
 
@@ -1058,22 +1115,17 @@ def tree_shap_reference(
     from fraud_detection_tpu_torch.ops.tree_shap import (
         _dup_structure,
         _path_conditions,
-        _shapley_weights,
-        _tree_static,
+        _tree_static_tensors,
     )
 
     dev = binned.device
     n, d = binned.shape
     depth = (int(split_feature.shape[1]) + 1).bit_length() - 1
-    anc, direc, bits_np, pair_np = _tree_static(depth)
-    anc = torch.as_tensor(anc, device=dev).long()
-    direc = torch.as_tensor(direc, device=dev)
-    bits = torch.as_tensor(bits_np, device=dev)  # (masks, depth) bool
+    # bits: (masks, depth) bool
+    anc, direc, bits, wtab, pair_flat = _tree_static_tensors(depth, dev)
     # the full mask (size = depth) includes no level: clamp its size into
     # the weight table, as JAX's indexing does
     size = bits.sum(dim=1).clamp_max(depth - 1)  # (masks,)
-    wtab = torch.as_tensor(_shapley_weights(depth), dtype=torch.float32, device=dev)
-    pair_flat = torch.as_tensor(pair_np.reshape(-1), device=dev).long()
     masks = bits.shape[0]
     feat_ids = torch.arange(d, device=dev)
     binned = binned.long()
@@ -1112,6 +1164,8 @@ def tree_shap(binned: torch.Tensor, tables: TreeShapTables) -> torch.Tensor:
     if tables.group_start.shape[1] != d:
         raise ValueError(f"tables for {tables.group_start.shape[1]} features, rows have {d}")
     if binned.device.type == "cpu":
+        if n > 0:  # an empty batch launches nothing on either device
+            _dispatch("tree_shap")
         return tree_shap_reference(
             binned, tables.split_feature, tables.split_bin, tables.leaf_value,
             tables.bg_table,
@@ -1138,16 +1192,18 @@ def tree_shap(binned: torch.Tensor, tables: TreeShapTables) -> torch.Tensor:
     # each group's sums (the kernel writes every cell); one group writes φ
     part = (torch.empty((groups, d, n), dtype=torch.float32, device=binned.device)
             if groups > 1 else None)
-    rc = lib.tree_shap_launch(
-        *(t.data_ptr() for t in kernel_args),
-        None if part is None else part.data_ptr(), out.data_ptr(),
-        n, d, n_trees, depth, TREE_SHAP_GROUP, binned.device.index,
-        torch.cuda.current_stream(binned.device).cuda_stream,
-    )
+    with _lock:  # the dispatch before its launch, one acquire for both counts
+        _DISPATCHES["tree_shap"] += 1
+        rc = lib.tree_shap_launch(
+            *(t.data_ptr() for t in kernel_args),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            n, d, n_trees, depth, TREE_SHAP_GROUP, binned.device.index,
+            torch.cuda.current_stream(binned.device).cuda_stream,
+        )
+        if rc == 0:
+            TREE_SHAP_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(
             "tree_shap launch failed: " + lib.tree_shap_error_string(rc).decode()
         )
-    with _lock:
-        TREE_SHAP_LAUNCHES += 1
     return out

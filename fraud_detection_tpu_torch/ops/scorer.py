@@ -41,6 +41,7 @@ from fraud_detection_tpu_torch.ops import kernels
 from fraud_detection_tpu_torch.ops.logistic import LogisticParams
 from fraud_detection_tpu_torch.ops.quant import QuantCalibration, derive_calibration
 from fraud_detection_tpu_torch.ops.scaler import ScalerParams
+from fraud_detection_tpu_torch.utils import lockdep
 
 #: the h2d wires a scorer can be built with
 WIRES = ("float32", "bfloat16", "int8")
@@ -245,7 +246,7 @@ class StagingPool:
         self.pin = pin
         self.wire = wire
         self._free: dict[int, list[_StagingSlot]] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("staging.pool")
         self.allocations = 0
 
     def acquire(self, bucket: int) -> _StagingSlot:

@@ -79,6 +79,19 @@ def _shapley_weights(depth: int) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=None)
+def _tree_static_tensors(depth: int, device: torch.device):
+    """``(ancestors, directions, level bits, weight table, flat pair
+    index)`` of :func:`_tree_static` and :func:`_shapley_weights` on
+    ``device``, made once a depth and device: the plain body then copies
+    nothing from the host per call. Read-only: every caller shares them."""
+    anc, direc, bits, pair = _tree_static(depth)
+    return (torch.as_tensor(anc, device=device).long(), torch.as_tensor(direc, device=device),
+            torch.as_tensor(bits, device=device),
+            torch.as_tensor(_shapley_weights(depth), dtype=torch.float32, device=device),
+            torch.as_tensor(pair.reshape(-1), device=device).long())
+
+
 def _path_conditions(binned, feat, thr, direc):
     """Per-(row, leaf, level) truth of the path condition: ``binned``
     (..., d), ``feat``/``thr``/``direc`` (leaves, depth); the right child
@@ -281,9 +294,11 @@ def _raw_tree_shap(
 
     With the explainer's kernel ``tables`` (a model on the card at depth ≤
     the kernel's cap) it goes through ``kernels.tree_shap``; without them
-    the plain body runs — on the CPU, or above the cap on any device
-    (logged once per depth). A card forest within the cap without its
-    tables raises: the card never takes the plain body there."""
+    the plain body runs — on the CPU within the cap counted as the
+    kernel's dispatch, as the wrapper's CPU branch counts it, and above the
+    cap on any device with no dispatch (logged once per depth). A card
+    forest within the cap without its tables raises: the card never takes
+    the plain body there."""
     binned = bin_features(x, model.bin_edges)
     if tables is not None:
         return kernels.tree_shap(binned, tables)
@@ -294,6 +309,8 @@ def _raw_tree_shap(
             "TreeSHAP on the card at depth <= "
             f"{kernels.TREE_SHAP_MAX_DEPTH} needs the explainer's kernel tables"
         )
+    elif binned.shape[0] > 0:
+        kernels._dispatch("tree_shap")
     return kernels.tree_shap_reference(
         binned, model.split_feature, model.split_bin, model.leaf_value, bg_table
     )

@@ -91,6 +91,7 @@ from fraud_detection_tpu_torch.service.microbatch import AdmissionFull, IngestBl
 from fraud_detection_tpu_torch.service.wire import _HDR, StalledPeerError
 from fraud_detection_tpu_torch.telemetry import slo
 from fraud_detection_tpu_torch.telemetry.timeline import RequestTimeline
+from fraud_detection_tpu_torch.utils import lockdep
 
 log = logging.getLogger("fraud_detection_tpu_torch.binlane")
 
@@ -574,7 +575,7 @@ class BinaryIngestServer:
         self._accept_thread: threading.Thread | None = None
         self._conns: set[socket.socket] = set()
         self._threads: set[threading.Thread] = set()
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("binlane.server")
         self._stopping = False
         self._c_req = metrics.ingest_requests.labels("binary")
         self._c_rows = metrics.ingest_rows.labels("binary")

@@ -26,7 +26,6 @@ import json
 import logging
 import os
 import sqlite3
-import threading
 import time
 import uuid
 from dataclasses import dataclass
@@ -36,6 +35,7 @@ from fraud_detection_tpu_torch import config
 from fraud_detection_tpu_torch.range.faults import fire, patched
 from fraud_detection_tpu_torch.service import metrics
 from fraud_detection_tpu_torch.service.db import ReplicatedRows
+from fraud_detection_tpu_torch.utils import lockdep
 
 log = logging.getLogger("fraud_detection_tpu_torch.taskq")
 
@@ -71,7 +71,7 @@ class SqliteBroker(ReplicatedRows):
         path = _path(self.url)
         if path != ":memory:" and os.path.dirname(path):
             os.makedirs(os.path.dirname(path), exist_ok=True)
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("taskq.broker")
         # per-instance delivery-anomaly counts, mirrored into the metrics
         # registry (tests read these without scraping)
         self.redeliveries = 0

@@ -102,7 +102,9 @@ def test_training_modules_are_among_those_imported():
                 "service.app", "config", "range.traffic", "range.invariants",
                 "range.scenarios", "longhaul", "longhaul.placement", "longhaul.codec",
                 "longhaul.membership", "longhaul.host", "longhaul.front",
-                "longhaul.scrape", "longhaul.fleet", "analysis", "analysis.contracts"):
+                "longhaul.scrape", "longhaul.fleet", "analysis", "analysis.contracts",
+                "analysis.core", "analysis.locknames", "analysis.lockcheck",
+                "analysis.hostsync"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 
