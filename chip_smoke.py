@@ -460,9 +460,9 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    at ``MESH_FLUSH_DEVICES=2 MESH_MODEL_DEVICES=2`` on the f32 and int8
    wires: 96 ``/predict`` (four in five with an entity) bitwise an
    in-process 1×1 flush, ``wide_model_shards`` 2. ``train()`` of both
-   families as it fits (one shard) and unsharded, in turns
-   (``train_turns``): the models bitwise equal, the four GBT runs 3,600
-   whole ``gbt_hist`` launches each and no split phase.
+   families as it fits (one shard) and unsharded, each once
+   (``train_turns``, ``once``): the models bitwise equal, the two GBT runs
+   3,600 whole ``gbt_hist`` launches each and no split phase.
 20. **the range on the card** — the fifteen scenarios of
    ``range/scenarios.py`` through ``run_scenario`` on ``cuda`` at their
    default sizes (a private scratch directory for the four that need one;
@@ -523,7 +523,7 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    merge's host time printed; (d) ``analysis.check_budgets(device="cuda",
    shard_counts=(1, 2))``: no violation. The phase's wall, and the whole
    run's command time, are printed.
-23. **the lock discipline and the program contracts** — (a)
+23. **the lock discipline, the program contracts and the analysis CLI** — (a)
    ``analysis.lockcheck.build_lock_report()`` over the port's tree beside
    this file (its ``build/`` pruned): ``ok``, exactly the four edges
    ``lifeboat.flush → drift.window``, ``lifeboat.flush → lifeboat.journal``,
@@ -543,7 +543,15 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    output dtypes and its state in place — with one line a program of its
    launches by kernel, and ``fused_score``, ``tree_shap``, ``knn_topk`` and
    ``gbt_hist`` each launched by at least one program. The kernels line's
-   rows carry the programs' launches as ``contract_launches``.
+   rows carry the programs' launches as ``contract_launches``; (d)
+   ``python3 -m fraud_detection_tpu_torch.analysis --contracts --format
+   json`` as a child process with ``DEVICE`` unset (so on ``cuda``) and
+   JAX and the JAX package refused by a ``sitecustomize`` on its path:
+   rc 0, no finding beyond the empty baseline, no stale entry, no new or
+   stale contract or lock key, exactly the port's fourteen rule ids, and
+   every program run's launches equal to its dispatches with all four
+   kernels launched; it prints the rules, the sanctioned sites by rule id
+   and its seconds.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -8342,18 +8350,19 @@ def model_axis_children(work: Path, procs: dict, model_dir: Path, x) -> dict:
 
 def model_axis_repair(work: Path, card: str) -> dict:
     """Phase 19f: ``train()`` of both families on the card as it fits
-    (sharded over the one-shard default mesh) and unsharded, in turns
-    (``train_turns``: sharded, unsharded, unsharded, sharded): the two
-    routes' models bitwise equal; the launches of the four GBT runs."""
+    (sharded over the one-shard default mesh) and unsharded, each once
+    (``train_turns``: sharded, unsharded; cut from four runs a family to
+    keep the script inside its time line): the two routes'
+    models bitwise equal; the launches of the two GBT runs."""
     from fraud_detection_tpu_torch import train_turns
     from fraud_detection_tpu_torch.ops import kernels
 
     out = {}
     kernels.reset_launch_counts()
     for family in ("logistic", "gbt"):
-        r = train_turns.turns(family, "cuda", 1, False, work / "repair_turns")
+        r = train_turns.turns(family, "cuda", 1, True, work / "repair_turns")
         out[family] = r
-        print(f"phase19: train() {family} on the card in turns (host clock): sharded "
+        print(f"phase19: train() {family} on the card, each leg once (host clock): sharded "
               f"{', '.join(f'{t:.3f}' for t in r['walls_s']['sharded'])} s, unsharded "
               f"{', '.join(f'{t:.3f}' for t in r['walls_s']['unsharded'])} s; models bitwise "
               f"equal {r['models_bitwise_equal']} ({card})")
@@ -8361,8 +8370,8 @@ def model_axis_repair(work: Path, card: str) -> dict:
             raise AssertionError(f"phase19: the one-shard {family} train() differs from the "
                                  "unsharded one")
     launches, split = kernels.launch_counts(), kernels.gbt_hist_split_counts()
-    if launches["gbt_hist"] != 4 * GBT_HIST_LAUNCHES_PER_RUN or any(split.values()):
-        raise AssertionError(f"phase19: the four GBT train() launched {launches}, split {split}")
+    if launches["gbt_hist"] != 2 * GBT_HIST_LAUNCHES_PER_RUN or any(split.values()):
+        raise AssertionError(f"phase19: the two GBT train() launched {launches}, split {split}")
     print(f"phase19: the turns' kernel launches {launches}; split phase {split} (whole "
           f"launches only)")
     out["launches"] = launches
@@ -8957,9 +8966,11 @@ LOCK_EDGES = {("lifeboat.flush", "drift.window"), ("lifeboat.flush", "lifeboat.j
 
 
 def contracts_phase(work: Path, card: str) -> dict:
-    """Phase 23: the lock discipline and the program contracts on the card —
-    (a) the static lock report, (b) ``kill_mid_snapshot`` witnessed under
-    ``LOCKDEP=1``, (c) every program's contract at 1 and 2 shards."""
+    """Phase 23: the lock discipline, the program contracts and the analysis
+    CLI on the card — (a) the static lock report, (b) ``kill_mid_snapshot``
+    witnessed under ``LOCKDEP=1``, (c) every program's contract at 1 and 2
+    shards, (d) ``python3 -m fraud_detection_tpu_torch.analysis
+    --contracts`` as a child (:func:`analysis_cli`)."""
     from fraud_detection_tpu_torch.analysis.contracts import PROGRAMS, check_programs
     from fraud_detection_tpu_torch.analysis.core import analyze_paths
     from fraud_detection_tpu_torch.analysis.lockcheck import LOCK_RULES, build_lock_report
@@ -9041,10 +9052,95 @@ def contracts_phase(work: Path, card: str) -> dict:
           f"programs, {len(runs)} runs, no violation (the flushes' device parts under "
           f"set_sync_debug_mode('error')), launches {json.dumps(totals, sort_keys=True)}, in "
           f"{wall_c:.3f} s ({card})")
+    analysis = analysis_cli(lock_work, card)
     wall = time.perf_counter() - t_phase
-    print(f"phase23: the lock discipline and the program contracts on the card in "
-          f"{wall:.3f} s ({card})")
-    return {"launches": totals, "wall_s": wall}
+    print(f"phase23: the lock discipline, the program contracts and the analysis CLI on the "
+          f"card in {wall:.3f} s ({card})")
+    return {"launches": totals, "wall_s": wall, "analysis": analysis}
+
+
+#: the port's rule ids (phase 23d): the twelve of the static rules and the
+#: two lock rules
+PORT_RULES = frozenset({
+    "socket-no-timeout", "silent-except", "thread-nondaemon-nojoin", "prom-foreign-registry",
+    "retry-no-backoff", "artifact-nonatomic-write", "alert-metric-registered",
+    "hot-path-alloc", "hot-path-json", "capture-host-sync", "capture-scalar-closure",
+    "capture-tensor-global", "blocking-under-lock", "lock-in-capture",
+})
+
+#: installed in the analysis child (phase 23d): JAX and the JAX package
+#: refuse to import there
+_NO_JAX = """import importlib.abc, sys
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if (name.split(".")[0] in ("jax", "jaxlib") or name == "fraud_detection_tpu"
+                or name.startswith("fraud_detection_tpu.")):
+            raise ModuleNotFoundError(f"blocked in the analysis child: {name}", name=name)
+        return None
+
+sys.meta_path.insert(0, _Refuse())
+"""
+
+
+def analysis_cli(work: Path, card: str) -> dict:
+    """Phase 23d: ``python3 -m fraud_detection_tpu_torch.analysis --contracts``
+    as a child on the card (``DEVICE`` unset: ``cuda``), JAX blocked in it
+    by a ``sitecustomize`` on its path. Holds rc 0, no new finding, no
+    stale baseline entry, no new contract or lock key, every port rule
+    registered, and the four kernels launched by ``check_programs``."""
+    from fraud_detection_tpu_torch.analysis.core import ModuleInfo, iter_python_files
+
+    guard = work / "no_jax"
+    guard.mkdir()
+    (guard / "sitecustomize.py").write_text(_NO_JAX)
+    out_path = work / "analysis.json"
+    env = dict(os.environ, PYTHONPATH=f"{guard}{os.pathsep}{ROOT}")
+    env.pop("DEVICE", None)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fraud_detection_tpu_torch.analysis", "--contracts",
+         "--format", "json", "--output", str(out_path)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0 or not out_path.exists():
+        raise AssertionError(f"phase23d: the analysis CLI exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    doc = json.loads(out_path.read_text())
+    summary = doc["summary"]
+    rules = {r["id"] for r in doc["rules"]}
+    totals: dict = {}
+    for r in doc["contracts"]["runs"]:
+        if r["launches"] != r["dispatches"]:
+            raise AssertionError(f"phase23d: {r['entrypoint']} at {r['shards']}: launches "
+                                 f"{r['launches']} != dispatches {r['dispatches']}")
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    missing = [k for k in ("fused_score", "tree_shap", "knn_topk", "gbt_hist") if not totals.get(k)]
+    problems = {key: summary[key] for key in ("new", "stale") if summary[key]}
+    problems.update({key: summary[key] for key in ("contract_new", "contract_stale", "lock_new",
+                                                   "lock_stale") if summary[key]})
+    if (problems or rules != PORT_RULES or missing or not doc["contracts"]["device"].startswith(
+            "cuda") or summary["lock_cycles"] or summary["lock_drift"]):
+        raise AssertionError(f"phase23d: {problems}; rules {sorted(rules ^ PORT_RULES)} off the "
+                             f"port's; kernels never launched {missing}; device "
+                             f"{doc['contracts']['device']}; lock summary {summary}")
+    sanctioned: dict = {}
+    package = ROOT / "fraud_detection_tpu_torch"
+    for path in iter_python_files([str(package)]):
+        with open(path, encoding="utf-8") as f:
+            mod = ModuleInfo(path, path, f.read())
+        for ids in mod.suppressions.values():
+            for rule_id in (ids or {"(every rule)"}):
+                sanctioned[rule_id] = sanctioned.get(rule_id, 0) + 1
+    print(f"phase23d: python3 -m fraud_detection_tpu_torch.analysis --contracts on "
+          f"{doc['contracts']['device']}, JAX blocked in the child: rc 0, {len(rules)} rules, "
+          f"{summary['new']} new findings, {summary['stale']} stale baseline entries, "
+          f"{summary['contract_violations']} contract violations over "
+          f"{len(doc['contracts']['runs'])} program runs (launches = dispatches, "
+          f"{json.dumps(totals, sort_keys=True)}), no new contract or lock key; sanctioned "
+          f"sites {json.dumps(sanctioned, sort_keys=True)}; {wall:.3f} s ({card})")
+    return {"wall_s": wall, "rules": len(rules), "sanctioned": sanctioned, "launches": totals}
 
 
 def main() -> int:

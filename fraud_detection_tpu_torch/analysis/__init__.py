@@ -2,22 +2,34 @@
 
 The port's counterpart of the JAX package's ``analysis/``, by intent and
 not by mechanism: the JAX package proves its contracts on jaxprs, the port
-runs eagerly and counts, and reads its own source. What is here so far:
+runs eagerly and counts, and reads its own source. One CLI,
+``python -m fraud_detection_tpu_torch.analysis`` (:mod:`.__main__`):
 
-- :mod:`.contracts` — every program's contract: the collective budgets
-  (``parallel.collectives``' counts a unit at several shard counts and
-  grids, :func:`~.contracts.check_budgets`) and the program half — kernel
-  calls a unit, no host sync in a flush, output dtypes, state in place
+- **the static rules** — :mod:`.core`, the AST engine (findings, the rule
+  registry, the parsed module with its captured bodies, its ``# lockcheck:
+  ignore[...]`` sanctions and its ``# lockcheck: hot-path`` markers), and
+  the rule modules that fill its registry when imported here:
+  :mod:`.rules_service` (sockets without timeouts, silent handlers,
+  threads never joined, metrics off the shared registry's module, retry
+  loops without backoff), :mod:`.rules_artifacts` (in-place writes of a
+  trusted artifact), :mod:`.rules_monitoring` (alert rules naming a dead
+  series), :mod:`.rules_perf` (allocation and per-row work on the hot
+  paths), :mod:`.rules_capture` (host syncs, closures and escaping stores
+  in a captured body) and :mod:`.lockcheck`'s ``blocking-under-lock`` and
+  ``lock-in-capture``. Findings are gated against
+  ``analysis/baseline.json`` (:mod:`.baseline`) and reported as text or
+  JSON (:mod:`.report`);
+- **the program contracts** (``--contracts``) — :mod:`.contracts`: the
+  collective budgets (``parallel.collectives``' counts a unit at several
+  shard counts and grids, :func:`~.contracts.check_budgets`) and the
+  program half — kernel calls a unit, no host sync in a flush
+  (:mod:`.hostsync` reads the bodies), output dtypes, state in place
   (:func:`~.contracts.check_programs`) — each returning its violations as
   stable strings;
-- :mod:`.core` — the AST engine: findings, the rule registry, the parsed
-  module with its captured bodies and ``# lockcheck: ignore[...]``
-  sanctions;
-- :mod:`.locknames`, :mod:`.lockcheck` — the named-lock inventory, the
-  static acquisition-order graph and its drift, and the
-  ``blocking-under-lock`` and ``lock-in-capture`` rules
-  (:func:`~.lockcheck.build_lock_report`);
-- :mod:`.hostsync` — the static host-sync rule the flush contracts read.
+- **the lock discipline** (``--contracts`` runs it too) —
+  :mod:`.locknames`, :mod:`.lockcheck`: the named-lock inventory, the
+  static acquisition-order graph and its drift
+  (:func:`~.lockcheck.build_lock_report`).
 """
 
 from fraud_detection_tpu_torch.analysis.contracts import (  # noqa: F401
@@ -28,3 +40,22 @@ from fraud_detection_tpu_torch.analysis.contracts import (  # noqa: F401
     check_budgets,
     check_programs,
 )
+from fraud_detection_tpu_torch.analysis.core import (  # noqa: F401
+    Finding,
+    ModuleInfo,
+    Rule,
+    Severity,
+    analyze_file,
+    analyze_paths,
+    get_rule,
+    iter_rules,
+    register_rule,
+)
+
+# Importing the rule modules fills the registry.
+from fraud_detection_tpu_torch.analysis import lockcheck  # noqa: F401,E402
+from fraud_detection_tpu_torch.analysis import rules_artifacts  # noqa: F401,E402
+from fraud_detection_tpu_torch.analysis import rules_capture  # noqa: F401,E402
+from fraud_detection_tpu_torch.analysis import rules_monitoring  # noqa: F401,E402
+from fraud_detection_tpu_torch.analysis import rules_perf  # noqa: F401,E402
+from fraud_detection_tpu_torch.analysis import rules_service  # noqa: F401,E402

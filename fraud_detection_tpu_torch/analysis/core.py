@@ -1,7 +1,7 @@
 """The AST engine the port's static rules run on: findings, severities, the
 rule registry and the parsed-module model.
 
-The port's own copy of what the lock checker needs from the JAX package's
+The port's own copy of what its rules need from the JAX package's
 ``analysis/core.py``. Each file is parsed once into a :class:`ModuleInfo` —
 the AST plus the facts every rule reads (parent links, the captured bodies,
 the comment suppressions) — and handed to each registered :class:`Rule`. A
@@ -18,6 +18,12 @@ Suppression: a finding is dropped when its line, or the line above,
 carries ``# lockcheck: ignore[rule-id]`` (or a bare ``# lockcheck:
 ignore`` for any rule). The reason stands on the same line or the line
 above, so a sanction is a reviewed design point and not a silenced hit.
+
+Hot paths: a ``# lockcheck: hot-path`` comment inside a function marks it
+as a steady-state hot region for the perf rules (:mod:`.rules_perf`).
+Both comments are read from comment tokens, so a ``#`` inside a string
+fakes neither. :func:`Severity.parse` and :func:`get_rule` serve the CLI
+(:mod:`.__main__`).
 """
 
 from __future__ import annotations
@@ -41,6 +47,13 @@ class Severity(enum.IntEnum):
     INFO = 1
     WARNING = 2
     ERROR = 3
+
+    @classmethod
+    def parse(cls, s: str) -> "Severity":
+        try:
+            return cls[s.upper()]
+        except KeyError:
+            raise ValueError(f"severity must be info|warning|error, got {s!r}") from None
 
 
 @dataclass(frozen=True)
@@ -72,6 +85,8 @@ class Finding:
 # -- the module model ---------------------------------------------------------
 
 SUPPRESS_RE = re.compile(r"#\s*lockcheck:\s*ignore(?:\[([A-Za-z0-9_,\- ]*)\])?")
+#: the marker of a steady-state hot function (the perf rules read it)
+HOT_PATH_RE = re.compile(r"#\s*lockcheck:\s*hot-path\b")
 
 _FuncDef = (ast.FunctionDef, ast.AsyncFunctionDef)
 
@@ -130,22 +145,28 @@ class ModuleInfo:
         self.source = source
         self.lines = source.splitlines()
         self.tree = ast.parse(source, filename=path)
+        #: every node, in ``ast.walk`` order: the rules' whole-module walks
+        self.nodes: list[ast.AST] = list(ast.walk(self.tree))
         self.parents: dict[ast.AST, ast.AST] = {}
-        for parent in ast.walk(self.tree):
+        for parent in self.nodes:
             for child in ast.iter_child_nodes(parent):
                 self.parents[child] = parent
-        self._suppressions = self._scan_suppressions()
+        self.suppressions, self.hot_path_lines = self._scan_comments()
         self.captured_functions, self.captured_blocks = self._find_captured()
 
-    # -- suppressions -------------------------------------------------------
-    def _scan_suppressions(self) -> dict[int, set[str] | None]:
-        """line → None (every rule) or the rule ids, read from comment
-        tokens, so a '#' inside a string cannot fake one."""
+    # -- suppressions and markers -------------------------------------------
+    def _scan_comments(self) -> tuple[dict[int, set[str] | None], list[int]]:
+        """The suppressions (line → None for every rule, or the rule ids)
+        and the lines of the hot-path markers, read from comment tokens,
+        so a '#' inside a string cannot fake either."""
         out: dict[int, set[str] | None] = {}
+        hot: list[int] = []
         try:
             for tok in tokenize.generate_tokens(StringIO(self.source).readline):
                 if tok.type != tokenize.COMMENT:
                     continue
+                if HOT_PATH_RE.search(tok.string):
+                    hot.append(tok.start[0])
                 m = SUPPRESS_RE.search(tok.string)
                 if not m:
                     continue
@@ -154,11 +175,11 @@ class ModuleInfo:
                                      else {s.strip() for s in ids.split(",") if s.strip()})
         except tokenize.TokenError:
             pass
-        return out
+        return out, hot
 
     def suppressed(self, line: int, rule_id: str) -> bool:
         for ln in (line, line - 1):
-            ids = self._suppressions.get(ln, "missing")
+            ids = self.suppressions.get(ln, "missing")
             if ids is None or (isinstance(ids, set) and rule_id in ids):
                 return True
         return False
@@ -176,7 +197,7 @@ class ModuleInfo:
     def _find_captured(self) -> tuple[set[ast.AST], set[ast.AST]]:
         by_ref: set[str] = set()
         blocks: set[ast.AST] = set()
-        for node in ast.walk(self.tree):
+        for node in self.nodes:
             if isinstance(node, ast.Call) and dotted_name(node.func) in CAPTURE_CALLS:
                 for arg in list(node.args) + [kw.value for kw in node.keywords]:
                     by_ref.update(sub.id for sub in ast.walk(arg) if isinstance(sub, ast.Name))
@@ -185,7 +206,7 @@ class ModuleInfo:
                     and dotted_name(item.context_expr.func) in CAPTURE_BLOCKS
                     for item in node.items):
                 blocks.add(node)
-        funcs = {node for node in ast.walk(self.tree) if isinstance(node, _FuncDef) and (
+        funcs = {node for node in self.nodes if isinstance(node, _FuncDef) and (
             node.name in by_ref or any(self._decorator_captures(d) for d in node.decorator_list))}
         return funcs, blocks
 
@@ -244,6 +265,10 @@ def register_rule(id: str, severity: Severity, description: str):
 
 def iter_rules() -> list[Rule]:
     return list(_REGISTRY.values())
+
+
+def get_rule(rule_id: str) -> Rule:
+    return _REGISTRY[rule_id]
 
 
 # -- running the rules ---------------------------------------------------------

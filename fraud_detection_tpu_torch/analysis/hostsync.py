@@ -105,7 +105,7 @@ def _imports(mods: _Modules, mod: ModuleInfo):
     port imports inside functions too)."""
     names: dict[str, tuple[str, str]] = {}
     modules: dict[str, str] = {}
-    for node in ast.walk(mod.tree):
+    for node in mod.nodes:
         if isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             rel = _module_rel(mods, node.module)
             for alias in node.names:

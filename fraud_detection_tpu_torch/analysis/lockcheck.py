@@ -219,9 +219,9 @@ def _index_package(package_dir: str, root: str):
         trees.append((rel, tree))
         classes.add_module(tree)
     for rel, tree in trees:
-        parents = {child: parent for parent in ast.walk(tree)
-                   for child in ast.iter_child_nodes(parent)}
-        for node in ast.walk(tree):
+        nodes = list(ast.walk(tree))
+        parents = {child: parent for parent in nodes for child in ast.iter_child_nodes(parent)}
+        for node in nodes:
             if isinstance(node, ast.Call):
                 dn = dotted_name(node.func)
                 if (dn in ("lockdep.lock", "lockdep.rlock") and node.args
@@ -414,7 +414,7 @@ def _directly_blocking_functions(mod: ModuleInfo) -> dict[str, str]:
     closure: ``_sync_locked`` fsyncs, so calling it under a lock is a hit
     at the call)."""
     out: dict[str, str] = {}
-    for node in ast.walk(mod.tree):
+    for node in mod.nodes:
         if isinstance(node, _FuncDef):
             for sub in ast.walk(node):
                 if isinstance(sub, ast.Call) and (op := blocking_call(sub)) is not None:
@@ -433,7 +433,7 @@ def _directly_blocking_functions(mod: ModuleInfo) -> dict[str, str]:
 def check_blocking_under_lock(mod: ModuleInfo):
     classes = _module_classes(mod)
     blocking_fns = _directly_blocking_functions(mod)
-    for node in ast.walk(mod.tree):
+    for node in mod.nodes:
         if not isinstance(node, (ast.With, ast.AsyncWith)):
             continue
         cls = _enclosing_class(node, mod.parents)
@@ -476,8 +476,10 @@ def _parents_upto(mod: ModuleInfo, node: ast.AST, top: ast.AST):
     "a graph replay skips it",
 )
 def check_lock_in_capture(mod: ModuleInfo):
+    if not (mod.captured_functions or mod.captured_blocks):
+        return
     classes = _module_classes(mod)
-    for node in ast.walk(mod.tree):
+    for node in mod.nodes:
         if not mod.in_capture_context(node):
             continue
         if isinstance(node, ast.Call):

@@ -162,6 +162,7 @@ class SocketReducer:
         if self.rank == 0:
             # the coordinator's listener blocks in accept by design (lockstep
             # reduce); close() unblocks it
+            # lockcheck: ignore[socket-no-timeout] (the reason above)
             self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
             self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
             self._listener.bind((self._host, self._port))

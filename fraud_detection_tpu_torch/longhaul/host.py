@@ -160,6 +160,8 @@ class HostServer:
         #: scenario hook: True simulates a network partition (heartbeats
         #: stop reaching the directory; data plane stays up — split brain)
         self.partitioned = False
+        # the listener blocks in accept by design; kill() unblocks it
+        # lockcheck: ignore[socket-no-timeout] (the reason above)
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((bind, port))

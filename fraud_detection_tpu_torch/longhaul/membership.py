@@ -153,6 +153,8 @@ class DirectoryServer:
             # the restart fence must be durable before any view is served
             # lockcheck: ignore[blocking-under-lock] (the reason above)
             self._save_state()
+        # the listener blocks in accept by design; close() unblocks it
+        # lockcheck: ignore[socket-no-timeout] (the reason above)
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))

@@ -170,6 +170,7 @@ def _sharded_flush(shard_window, x, valid, decay, feature_edges, score_edges,
                    score_args, **kw):
     """The plain (f32, bf16 or int8 wire) flush over the shard axis:
     ``drift._fused_flush`` on the whole bucket with the per-shard windows."""
+    # lockcheck: hot-path — the sharded flush, once a flush
     return _raw(_drift._fused_flush)(
         shard_window, x, valid, decay, feature_edges, score_edges, score_args, **kw
     )
@@ -191,6 +192,7 @@ def _sharded_flush_ledger(shard_window, shard_ledger, x, valid, *rest, **kw):
     with the per-shard windows and sub-tables): the rows must be placed
     (``ledger/placement``) so a shard's segment only holds the entities
     whose slots it owns."""
+    # lockcheck: hot-path — the sharded ledger flush, once a flush
     return _raw(_drift._fused_flush_ledger)(
         shard_window, shard_ledger, x, valid, *rest, **kw
     )
@@ -202,6 +204,7 @@ def _sharded_flush_wide(shard_window, x, valid, *rest, **kw):
     fold is per shard; with the table column-sharded ``(M, buckets/M)`` the
     model shards' partials meet in one model-axis sum and each data
     shard's rows fold into its model-rank-0 window."""
+    # lockcheck: hot-path — the sharded wide flush, once a flush
     return _raw(_drift._fused_flush_wide)(shard_window, x, valid, *rest, **kw)
 
 

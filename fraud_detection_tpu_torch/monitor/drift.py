@@ -285,6 +285,7 @@ def _fused_flush_ledger(
     leave the table bitwise unchanged. Returns the scores (return wire
     ``out_dtype``), or ``(scores, reason_idx, reason_val)`` with the
     explain leg."""
+    # lockcheck: hot-path — the ledger flush body, once a flush
     xb = x.float()
     if dequant_scale is not None:
         xb = xb * dequant_scale
@@ -293,7 +294,9 @@ def _fused_flush_ledger(
         ledger, slot_idx, fp, ts, xb[:, amount_col], has_entity,
         null_features, halflife_s,
     )
-    xf = torch.cat([xb, feats], dim=1)
+    # its eager ops (x.float(), the dequant) make fresh tensors anyway: the CUDA-graph
+    # flush (ROADMAP 15b) takes this storage from its pool
+    xf = torch.cat([xb, feats], dim=1)  # lockcheck: ignore[hot-path-alloc] (the reason above)
     scores = score_fn(score_args, xf).float()
     out = _cast_scores(scores, out_dtype)
     if explain_k > 0:
@@ -341,6 +344,7 @@ def _fused_flush_wide(
     each data shard's rows fold into its model-rank-0 window (rows are
     replicated over the model axis, so the other windows stay zero and the
     merge counts every row once, as in JAX)."""
+    # lockcheck: hot-path — the wide flush body, once a flush
     xb = x.float()
     if dequant_scale is not None:
         xb = xb * dequant_scale
@@ -353,7 +357,9 @@ def _fused_flush_wide(
             t.view(-1, n_model, *t.shape[1:])[:, 0] for t in window.tensors()))
     else:
         contrib = _gather_contrib(wide_table, idx, has_entity)
-    xf = torch.cat([xb, contrib], dim=1)
+    # its eager ops (x.float(), the dequant) make fresh tensors anyway: the CUDA-graph
+    # flush (ROADMAP 15b) takes this storage from its pool
+    xf = torch.cat([xb, contrib], dim=1)  # lockcheck: ignore[hot-path-alloc] (the reason above)
     scores = _raw_score_linear(score_args, xf).float()
     out = _cast_scores(scores, out_dtype)
     if explain_k > 0:
@@ -619,6 +625,7 @@ class DriftMonitor:
         the device score vector (return wire ``out_dtype``), or the
         ``(scores, reason_idx, reason_val)`` triple. Only enqueues device
         work: the caller's fetch is the flush's one host sync."""
+        # lockcheck: hot-path — once a micro-batch flush
         decay = self._decay_for(n_live)
         flush, flush_explain, flush_ledger, flush_wide = self._flush_bodies()
         if wide_args is not None and wide_rows is not None:

@@ -106,6 +106,7 @@ RETURN_WIRES = {
 def decode_scores_into(raw: np.ndarray, out: np.ndarray) -> np.ndarray:
     """Decode a fetched score vector (any return wire) into the
     preallocated f32 buffer ``out``."""
+    # lockcheck: hot-path — decode must reuse the slot's scores buffer
     if raw.dtype == np.uint8:
         np.multiply(raw, np.float32(1.0 / 255.0), out=out)
     else:
@@ -118,6 +119,7 @@ def decode_explain_into(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Decode fetched top-k reason codes (uint8/int32 indices, f16/f32
     values) into the slot's preallocated explain buffers."""
+    # lockcheck: hot-path — decode must reuse the slot's explain buffers
     slot.ensure_explain(raw_idx.shape[1])
     np.copyto(slot.ei, raw_idx, casting="unsafe")
     np.copyto(slot.ev, raw_val, casting="unsafe")
@@ -324,6 +326,7 @@ class _BucketedScorer:
         allocating no buffer: the identity on the f32 wire (``io`` is the
         f32 buffer), the quantizer through the slot's scratch on the int8
         wire, a rounding copy on the bf16 wire."""
+        # lockcheck: hot-path — quantize through the slot's preallocated scratch
         if self._quant_scale is not None:
             np.multiply(slot.f32, self._inv_quant_scale, out=slot.scratch)
             np.rint(slot.scratch, out=slot.scratch)
@@ -341,6 +344,7 @@ class _BucketedScorer:
         ``np.copyto`` a block, one row assignment a single row, no fresh
         array; padding rows are zero with valid 0. Returns the encoded
         ``io`` buffer the h2d copy ships."""
+        # lockcheck: hot-path — once a flush (single rows too); every buffer is pool state
         off = 0
         f32 = slot.f32
         for item in items:
@@ -362,6 +366,7 @@ class _BucketedScorer:
         (row-major over the items, blocks expanded) lands at
         ``positions[i]`` (``ledger/placement.shard_placement``), a block in
         one fancy-index assignment; every other row is zero padding."""
+        # lockcheck: hot-path — once a sharded ledger flush; every buffer is pool state
         slot.f32[:] = 0.0
         slot.valid[:] = 0.0
         i = 0
@@ -383,6 +388,7 @@ class _BucketedScorer:
     def stage_rows_placed(self, slot: _StagingSlot, rows: list, positions):
         """Single rows at their placement positions (the
         :meth:`stage_items_placed` of a list of rows)."""
+        # lockcheck: hot-path — once a sharded ledger flush; every buffer is pool state
         slot.f32[:] = 0.0
         slot.valid[:] = 0.0
         for r, p in zip(rows, positions):

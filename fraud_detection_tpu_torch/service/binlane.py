@@ -313,6 +313,7 @@ class _FrameDecoder:
         """Decode the feature column (a little-endian byte buffer) into the
         slot's f32 rows: the int8 codes times the dequant scale, or the f32
         rows. (The socket lane receives f32 rows into the slot directly.)"""
+        # lockcheck: hot-path — decode writes into preallocated staging
         if layout == LAYOUT_INT8:
             codes = np.frombuffer(buf, np.int8, n * self.d).reshape(n, self.d)
             np.multiply(codes, self.dequant, out=slot.f32[:n])
@@ -733,6 +734,7 @@ class BinaryIngestServer:
                fhdr_buf: bytearray, resp_buf: bytearray) -> bool:
         """Read, validate, admit and answer ONE frame. Returns False when
         the connection must close (a fatal frame error)."""
+        # lockcheck: hot-path — the steady-state parse reuses pooled buffers
         t_parse = time.perf_counter()
         if not _recv_into_exact(conn, memoryview(fhdr_buf)):
             raise ProtocolError("connection closed before frame header")
@@ -858,6 +860,7 @@ class BinaryIngestServer:
                  ek: int, resp_buf: bytearray) -> None:
         """Encode scores (+ reason codes) out of the slot into the reusable
         response buffer — one sendall a frame."""
+        # lockcheck: hot-path — response assembly reuses the response buffer
         body = n * 4 + (n * ek * 5 if ek else 0)
         total = _HDR.size + _RESP.size + body
         if len(resp_buf) < total:

@@ -59,7 +59,8 @@ def create_app(model=None, device=None) -> App:
                 payload.get("features", payload) if isinstance(payload, dict) else payload
             )
             label, prob = model.score_one(features)
-        except Exception as e:  # noqa: BLE001 — the contract: any error → 500
+        # lockcheck: ignore[silent-except] — the contract: any error → 500 with the message
+        except Exception as e:  # noqa: BLE001
             return Response({"error": str(e)}, status_code=500)
         return Response({
             "prediction": int(label),

@@ -692,6 +692,7 @@ class MicroBatcher:
         the one fence of the flush is recorded only then."""
         # fraud-range injection point: a chaos plan adds device latency to,
         # or fails, this flush (disarmed: one global load)
+        # lockcheck: hot-path — steady-state flushes must not allocate
         fire("microbatch.flush")
         n = _batch_rows(batch)
         self._note_family(scorer)
@@ -822,6 +823,7 @@ class MicroBatcher:
         ``(0, fingerprint, 0.0)``, a block's column triple; fingerprint 0
         or None: no entity, a zero cross block) and copy them to the
         device. Returns the ``(fp, has_entity)`` device pair."""
+        # lockcheck: hot-path — the wide lanes are preallocated pool state
         slot.ensure_ledger()
         lf, lh = slot.lf, slot.lh
         lf[:] = 0
@@ -860,6 +862,7 @@ class MicroBatcher:
         (``spec.rel_ts``): a raw epoch would anchor the slot ~1.7e9 s ahead
         and freeze its decay. Returns ``((slot_idx, fp, ts, has_entity) on
         the device, n_null)``."""
+        # lockcheck: hot-path — the ledger lanes are preallocated pool state
         slot.ensure_ledger()
         ls, lf, lt, lh = slot.ls, slot.lf, slot.lt, slot.lh
         for c in (ls, lf, lt, lh):

@@ -106,7 +106,8 @@ class Sentinel:
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
-        # no timeout: the listener blocks in accept; stop()'s shutdown() wakes it
+        # the listener blocks in accept by design; stop()'s shutdown() wakes it
+        # lockcheck: ignore[socket-no-timeout] (the reason above)
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._listener.bind((self.host, self.port))

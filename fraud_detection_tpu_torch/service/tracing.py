@@ -125,7 +125,8 @@ def _remote_parent_context(traceparent: str):
                 )
             )
         )
-    except Exception:  # no SDK, or a stub tracer: the span is not linked
+    # no SDK, or a stub tracer: the span is not linked
+    except Exception:  # lockcheck: ignore[silent-except] (the reason above)
         return None
 
 
@@ -181,7 +182,8 @@ def format_traceparent(span_obj) -> str | None:
         trace_id = int(ctx.trace_id)
         span_id = int(ctx.span_id)
         flags = int(getattr(ctx, "trace_flags", 1))
-    except Exception:  # a span without a usable context serializes to None
+    # a span without a usable context serializes to None
+    except Exception:  # lockcheck: ignore[silent-except] (the reason above)
         return None
     if trace_id == 0 or span_id == 0:
         return None

@@ -297,12 +297,16 @@ class XaiWorker:
         outcome (None = success), so delivery stays per task: bad input
         fails only its task, a device failure the whole batch, a DB failure
         only its task."""
+        # lockcheck: hot-path — the claimed-batch explain loop allocates no batch array
         outcome: dict[str, Exception | None] = {}
         prepared: list[tuple[Task, np.ndarray]] = []
+        prepared_rows: list[np.ndarray] = []
         for t in tasks:
             try:
-                prepared.append((t, self.model.prepare_row(t.args[1])))
-            except Exception as e:  # settled and logged by _settle
+                row = self.model.prepare_row(t.args[1])
+                prepared.append((t, row))
+                prepared_rows.append(row)
+            except Exception as e:  # lockcheck: ignore[silent-except] — _settle logs it
                 outcome[t.id] = e
         if not prepared:
             return outcome
@@ -312,12 +316,12 @@ class XaiWorker:
         scorer = self.model.scorer
         slot = scorer.staging.acquire(_bucket(k, scorer.min_bucket))
         try:
-            np.stack([row for _, row in prepared], out=slot.f32[:k])
+            np.stack(prepared_rows, out=slot.f32[:k])
             slot.f32[k:] = 0.0
             scores = scorer.predict_proba(slot.f32)[:k]
             phis, expected_value = self.model.explain_batch(slot.f32)
             phis = phis[:k]
-        except Exception as e:  # settled and logged by _settle
+        except Exception as e:  # lockcheck: ignore[silent-except] — _settle logs it
             for t, _ in prepared:
                 outcome[t.id] = e
             return outcome
@@ -340,7 +344,7 @@ class XaiWorker:
                     )
                 outcome[t.id] = None
                 log.info("[%s] explained %s (score %.4f)", corr_id, tx_id, score)
-            except Exception as e:  # settled and logged by _settle
+            except Exception as e:  # lockcheck: ignore[silent-except] — _settle logs it
                 outcome[t.id] = e
         return outcome
 
@@ -384,7 +388,7 @@ class XaiWorker:
             with metrics.timed(metrics.xai_task_duration):
                 self._execute(task)
             err = None
-        except Exception as e:  # settled (retry ladder + logging) below
+        except Exception as e:  # lockcheck: ignore[silent-except] — settled and logged below
             err = e
         self._settle(task, err)
 

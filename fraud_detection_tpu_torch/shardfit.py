@@ -71,6 +71,7 @@ import time
 import numpy as np
 import torch
 
+from fraud_detection_tpu_torch.ckpt.atomic import atomic_savez
 from fraud_detection_tpu_torch.ops import kernels
 from fraud_detection_tpu_torch.parallel import collectives
 from fraud_detection_tpu_torch.parallel.mesh import (
@@ -289,7 +290,7 @@ def main(argv=None) -> int:
                 fleet[fit]["step_s"] = (seconds[fit] - merges[0]) / max(len(merges) - 1, 1)
         rank = reducer.rank if reducer is not None else mesh.process
         os.makedirs(args.out, exist_ok=True)
-        np.savez(os.path.join(args.out, f"rank{rank}.npz"), **arrays)
+        atomic_savez(os.path.join(args.out, f"rank{rank}.npz"), **arrays)
         print(json.dumps({
             "rank": rank, "world": reducer.n_hosts if reducer is not None else mesh.processes,
             "backend": backend(), "device": str(mesh.device), "shards": mesh.size,

@@ -69,7 +69,8 @@ def test_training_modules_are_among_those_imported():
     """The blocked-import probe walks the package; the training, GBT,
     explain, offline-tool, ingest, ledger, wide-family, lifecycle, lifeboat,
     network-store, telemetry, serving-mesh, sharded-training, model-axis,
-    range, longhaul and analysis slices' modules are in it."""
+    range, longhaul and analysis slices' modules are in it (the static
+    rules, their baseline, report and CLI among them)."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -104,7 +105,9 @@ def test_training_modules_are_among_those_imported():
                 "longhaul.membership", "longhaul.host", "longhaul.front",
                 "longhaul.scrape", "longhaul.fleet", "analysis", "analysis.contracts",
                 "analysis.core", "analysis.locknames", "analysis.lockcheck",
-                "analysis.hostsync"):
+                "analysis.hostsync", "analysis.rules_service", "analysis.rules_monitoring",
+                "analysis.rules_artifacts", "analysis.rules_perf", "analysis.rules_capture",
+                "analysis.baseline", "analysis.report", "analysis.__main__"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 
