@@ -207,7 +207,7 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    ``np.loadtxt(float64).astype(float32)``, on 20,000 × 31 values of 16-18
    significant digits within 1 ulp (the values that differ counted), no
    fall-through (``NATIVE_CSV_FALLBACKS`` 0); the reader and
-   ``np.loadtxt`` timed in turns (median of 5) and the Kaggle-scale
+   ``np.loadtxt`` timed in turns (median of 3) and the Kaggle-scale
    ``preprocess``, ``evaluate`` and ``explain`` with ``NATIVE_CSV=0`` and
    ``=1`` in turns. Then each family (phase 3's logistic directory, phase
    5's forest from its registry; explain on, f32 wire) served with the
@@ -550,8 +550,22 @@ nothing of JAX or of the JAX package. Phases, each fatal on failure:
    rc 0, no finding beyond the empty baseline, no stale entry, no new or
    stale contract or lock key, exactly the port's fourteen rule ids, and
    every program run's launches equal to its dispatches with all four
-   kernels launched; it prints the rules, the sanctioned sites by rule id
-   and its seconds.
+   kernels launched, and the shape pass's 107 rows (every program at 1, 2
+   and 8 shards, the grid programs on 1x1, 2x2, 4x2 and 2x4, at JAX's
+   meshcheck shapes 1024 x 30) all ok; it prints the rules, the
+   sanctioned sites by rule id, its seconds and the shape pass's.
+24. **the mesh probes and the bench trajectory** — (a)
+   ``mesh.bench.run()`` and ``mesh.widebench.run()`` in process at their
+   defaults (65,536 rows at 1, 2, 4, 8 shards, 8 reps; 16,384 rows on the
+   2x2, 4x2, 2x4 grids and the model axis 2 x {1, 2, 4}, 6 reps) on
+   ``cuda``, the kernel counts zeroed before each: every parity,
+   allocation, shard-byte and floor gate holds with every size and grid
+   measured, and ``fused_score`` launched once a scoring call the probe
+   made (its flushes and its profiles' scorings), launches = dispatches;
+   (b) ``python3 -m fraud_detection_tpu_torch.analysis.trajectory`` as a
+   child with JAX refused, over two bench files written in the work
+   directory: the clean one rc 0, the regressed one rc 1, the trajectory
+   2 entries, the second's regressions naming the regressed headline.
 
 Output: the card's ``nvidia-smi`` name and power limit, per-phase lines,
 one ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line again
@@ -649,7 +663,7 @@ TOOL_ADDITIVITY = 1e-4  # |Σφ + E[f] − f(x)|, f(x) the float64 forest walk
 
 EXPLAIN_REQUESTS = 128  # phase 7: /predict requests whose explanations the worker drains
 EXPLAIN_DRAIN_TIMEOUT_S = 300  # worker start-up, warm-up and the drain
-EXPLAIN_TIMED_BATCHES = 20  # in-process run_batch(64) calls timed
+EXPLAIN_TIMED_BATCHES = 10  # in-process run_batch(64) calls timed
 
 #: the kernels each path must launch (its counts zeroed just before it)
 SERVED_KERNELS = ("fused_score",)
@@ -669,7 +683,7 @@ WIRE_CLIENTS = 32
 WIRE_SEQUENTIAL = 32  # then one at a time
 WIRE_FLUSH_TIMED = 30  # 1024-row flushes timed a (family, wire)
 STREAM_CHUNK, STREAM_INFLIGHT = 32768, 8  # predict_proba_stream's defaults
-STREAM_ROUNDS = 9  # timed rounds of every stream combination, in turns
+STREAM_ROUNDS = 5  # timed rounds of every stream combination, in turns
 
 #: every ported kernel: name → (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -3327,7 +3341,7 @@ INGEST_COUNTED_FRAMES = 8  # 1024-row frames under the launch counts
 INGEST_ALLOC_FRAMES = 100  # frames over which the staging pool must not grow
 INGEST_CONNECTIONS, INGEST_CONN_FRAMES = 4, 40  # the throughput probe
 INGEST_FLUSH_TIMED = 30  # 1024-row flushes a telemetry setting, in turns
-CSV_TIMED_ROUNDS = 5  # native reader and np.loadtxt, in turns
+CSV_TIMED_ROUNDS = 3  # native reader and np.loadtxt, in turns
 DIGITS18_ROWS = 20_000  # the 16-18-digit fixture's rows (31 columns)
 SHADOW_FRAMES = 8  # 1024-row frames the shadow challenger samples
 SHADOW_HALFLIFE_ROWS = 4096
@@ -6956,7 +6970,7 @@ MESH_TOKEN = "mesh-s3cret"
 MESH_PREDICTS = 256  # /predict to the MESH_SHARDS=4 child, from MESH_CLIENTS threads
 MESH_CLIENTS = 16
 MESH_TURNS = 30  # 1024-row explain flushes a shard count, the counts in turns
-MESH_RATE_ROUNDS = 3  # /predict bursts a child, MESH_SHARDS 1 and 4 in turns
+MESH_RATE_ROUNDS = 2  # /predict bursts a child, MESH_SHARDS 1 and 4 in turns
 MESH_REOPEN_S = 0.5  # the half-open rest of the in-process front
 MESH_MAX_ERRORS = 3
 MESH_DECAY_RTOL = 1e-5  # the merged window against the single one, decayed
@@ -9059,6 +9073,10 @@ def contracts_phase(work: Path, card: str) -> dict:
     return {"launches": totals, "wall_s": wall, "analysis": analysis}
 
 
+#: the shape pass's rows (phase 23d): 33 programs at 1, 2 and 8 shards, the
+#: two grid programs on four grids
+MESHCHECK_ROWS = 33 * 3 + 2 * 4
+
 #: the port's rule ids (phase 23d): the twelve of the static rules and the
 #: two lock rules
 PORT_RULES = frozenset({
@@ -9088,7 +9106,10 @@ def analysis_cli(work: Path, card: str) -> dict:
     as a child on the card (``DEVICE`` unset: ``cuda``), JAX blocked in it
     by a ``sitecustomize`` on its path. Holds rc 0, no new finding, no
     stale baseline entry, no new contract or lock key, every port rule
-    registered, and the four kernels launched by ``check_programs``."""
+    registered, the four kernels launched by ``check_programs``, and the
+    shape pass (``analysis/meshcheck``: every program at 1, 2 and 8 shards
+    and the grid programs on 1x1, 2x2, 4x2 and 2x4, at 1024 x 30) with its
+    107 rows ok."""
     from fraud_detection_tpu_torch.analysis.core import ModuleInfo, iter_python_files
 
     guard = work / "no_jax"
@@ -9119,7 +9140,15 @@ def analysis_cli(work: Path, card: str) -> dict:
     missing = [k for k in ("fused_score", "tree_shap", "knn_topk", "gbt_hist") if not totals.get(k)]
     problems = {key: summary[key] for key in ("new", "stale") if summary[key]}
     problems.update({key: summary[key] for key in ("contract_new", "contract_stale", "lock_new",
-                                                   "lock_stale") if summary[key]})
+                                                   "lock_stale", "mesh_failures") if summary[key]})
+    mesh_rows = doc["mesh_verification"]
+    grid = {(r["entrypoint"], r["mesh_size"]): r["ok"] for r in mesh_rows
+            if isinstance(r["mesh_size"], str)}
+    want_grid = {(ep, g): True for ep in ("mesh.broadside_flush", "mesh.wide_update")
+                 for g in ("1x1", "2x2", "4x2", "2x4")}
+    if len(mesh_rows) != MESHCHECK_ROWS or grid != want_grid:
+        problems["mesh_verification"] = [r for r in mesh_rows if not r["ok"]] or {
+            "rows": len(mesh_rows), "grid": sorted(grid)}
     if (problems or rules != PORT_RULES or missing or not doc["contracts"]["device"].startswith(
             "cuda") or summary["lock_cycles"] or summary["lock_drift"]):
         raise AssertionError(f"phase23d: {problems}; rules {sorted(rules ^ PORT_RULES)} off the "
@@ -9140,7 +9169,95 @@ def analysis_cli(work: Path, card: str) -> dict:
           f"{len(doc['contracts']['runs'])} program runs (launches = dispatches, "
           f"{json.dumps(totals, sort_keys=True)}), no new contract or lock key; sanctioned "
           f"sites {json.dumps(sanctioned, sort_keys=True)}; {wall:.3f} s ({card})")
-    return {"wall_s": wall, "rules": len(rules), "sanctioned": sanctioned, "launches": totals}
+    print(f"phase23d: the shape pass in the child: {len(mesh_rows)} rows (35 programs at 1, 2 "
+          f"and 8 shards, the two grid programs on 1x1, 2x2, 4x2, 2x4; 1024 x 30), "
+          f"{summary['mesh_failures']} failed, in {summary['mesh_seconds']:.3f} s ({card})")
+    return {"wall_s": wall, "rules": len(rules), "sanctioned": sanctioned, "launches": totals,
+            "mesh_rows": len(mesh_rows), "mesh_s": summary["mesh_seconds"]}
+
+
+def probe_phase(work: Path, card: str) -> dict:
+    """Phase 24: the serving mesh's two probes on the card at their
+    defaults, then the bench trajectory's CLI as a child."""
+    import torch
+
+    from fraud_detection_tpu_torch.mesh import bench, widebench
+    from fraud_detection_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    launches = {}
+    results = {}
+    for name, probe in (("bench", bench), ("widebench", widebench)):
+        probe.COUNTS.update(dict.fromkeys(probe.COUNTS, 0))
+        kernels.reset_dispatch_counts()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        res = probe.run(device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got, dispatched = kernels.launches_by_entry(), kernels.dispatch_counts()
+        scored = sum(probe.COUNTS.values())
+        others = {k: v for k, v in got.items() if v and k != "fused_score"}
+        if got != dispatched or got["fused_score"] != scored or others:
+            raise AssertionError(f"phase24a {name}: launches {got} dispatches {dispatched}, "
+                                 f"scoring calls {probe.COUNTS}")
+        launches[name], results[name] = got["fused_score"], res
+        print(f"phase24a: mesh.{name}.run() on cuda in {wall:.3f} s: fused_score launched "
+              f"{got['fused_score']} = dispatches = the probe's {probe.COUNTS['flushes']} "
+              f"flushes + {probe.COUNTS['profile_scorings']} profile scorings; "
+              f"{json.dumps(res, sort_keys=True)} ({card})")
+    b, w = results["bench"], results["widebench"]
+    bad = [k for k in ("mesh_parity_ok", "mesh_quant_parity_ok") if b[k] is not True]
+    if b["mesh_sizes_measured"] != [1, 2, 4, 8]:
+        bad.append(f"mesh_sizes_measured {b['mesh_sizes_measured']}")
+    bad += [k for k in ("wide_parity_ok", "wide_model_shards_exact", "wide_cost_ok",
+                        "wide_model_ratio_ok") if w[k] is not True]
+    if w["wide_shapes_measured"] != ["2x2", "4x2", "2x4"]:
+        bad.append(f"wide_shapes_measured {w['wide_shapes_measured']}")
+    if w["wide_staging_steady_allocations"] != 0:
+        bad.append(f"wide_staging_steady_allocations {w['wide_staging_steady_allocations']}")
+    if w["wide_model_shard_bytes"] != {"1": 65536, "2": 32768, "4": 16384}:
+        bad.append(f"wide_model_shard_bytes {w['wide_model_shard_bytes']}")
+    if bad:
+        raise AssertionError(f"phase24a: gates failed {bad}")
+    print(f"phase24a: bench parity (f32, int8) at N = 1, 2, 4, 8 bitwise the single window; "
+          f"flushes/s {b['mesh_flushes_per_sec']} at 65,536 rows, top/1 "
+          f"{b['mesh_speedup_top_vs_1']}, monotone {b['mesh_scaling_monotone']} (reported, not "
+          f"gated, as in JAX); widebench parity on 2x2, 4x2, 2x4, 0 steady staging "
+          f"allocations, shard bytes {w['wide_model_shard_bytes']}, cost ratio "
+          f"{w['wide_cost_ratio']} (floor {w['wide_cpu_floor']}), model ratio "
+          f"{w['wide_model_ratio']} (floor {w['wide_model_cpu_floor']}) ({card})")
+
+    # (b) the trajectory CLI as a child, JAX refused in it
+    t = time.perf_counter()
+    traj_work = work / "phase24"
+    guard = traj_work / "no_jax"
+    guard.mkdir(parents=True)
+    (guard / "sitecustomize.py").write_text(_NO_JAX)
+    env = dict(os.environ, PYTHONPATH=f"{guard}{os.pathsep}{ROOT}")
+    trajectory = traj_work / "trajectory.json"
+    rcs = []
+    for tag, speedup in (("clean", 1.5), ("regressed", 1.0)):
+        bench_file = traj_work / f"bench_{tag}.json"
+        bench_file.write_text(json.dumps({"microbatch_flush_speedup": speedup,
+                                          "online_binary_rows_per_sec": 100000.0}))
+        proc = subprocess.run(
+            [sys.executable, "-m", "fraud_detection_tpu_torch.analysis.trajectory",
+             str(bench_file), "--trajectory", str(trajectory), "--note", tag],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+        rcs.append(proc.returncode)
+    entries = json.loads(trajectory.read_text())
+    regressions = entries[-1]["regressions"] if len(entries) == 2 else None
+    if rcs != [0, 1] or not regressions or not all("fused_speedup" in r for r in regressions):
+        raise AssertionError(f"phase24b: rcs {rcs}, trajectory {entries}: {proc.stderr[-2000:]}")
+    print(f"phase24b: python3 -m fraud_detection_tpu_torch.analysis.trajectory, JAX blocked in "
+          f"the child: the clean bench file rc 0, the regressed one rc 1; 2 entries, the "
+          f"second compared to the first and flagging {regressions}; {time.perf_counter() - t:.3f}"
+          f" s ({card})")
+    wall = time.perf_counter() - t_phase
+    print(f"phase24: the mesh probes and the bench trajectory on the card in {wall:.3f} s "
+          f"({card})")
+    return {"launches": launches, "wall_s": wall, "bench": b, "widebench": w}
 
 
 def main() -> int:
@@ -9231,6 +9348,7 @@ def main() -> int:
         longhaul = longhaul_phase(work, card)
         fleet = fleet_phase(work, card)
         contracts = contracts_phase(work, card)
+        probes = probe_phase(work, card)
     contract = contracts["launches"]
 
     def row(name: str, launches: int, check: dict, t: dict, library_ms, **extra):
@@ -9266,6 +9384,7 @@ def main() -> int:
             longhaul_launches=longhaul["launches"],
             fleet_launches=fleet["launches"],
             contract_launches=contract.get("fused_score", 0),
+            probe_launches=probes["launches"],
             model_axis_flush_1024=model_axis["timing"],
             model_axis_fit_wall_s=model_axis["fits"]["walls_s"],
             at_n_1024_d_34={key: ledger["checks"]["fused_score"][key] for key in
@@ -9342,7 +9461,7 @@ def main() -> int:
             **{f"at_n_{n}": {key: shap["timing"][n][key] for key in
                              ("ms", "plain_ms", "bound_ms")} for n in (8, 64, 4000, 20000)}),
     ]}
-    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_run:.3f} s of command "
+    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t_run:.3f} s of command "
           f"(host clock, from the card check to the kernels line) ({card})")
     print(json.dumps(line))
     print(card)  # exactly as nvidia-smi gives it

@@ -29,18 +29,28 @@ runs eagerly and counts, and reads its own source. One CLI,
 - **the lock discipline** (``--contracts`` runs it too) —
   :mod:`.locknames`, :mod:`.lockcheck`: the named-lock inventory, the
   static acquisition-order graph and its drift
-  (:func:`~.lockcheck.build_lock_report`).
+  (:func:`~.lockcheck.build_lock_report`);
+- **the shape pass** (``--contracts``, ``--shape-check-only``) —
+  :mod:`.meshcheck`: every program at every mesh size at JAX's meshcheck
+  shapes, one result row each.
+
+Beside the CLI, :mod:`.trajectory` gates a bench trajectory (standard
+library only). The contracts' names resolve on first use, so the rules,
+the lock pass and the trajectory import no ``torch``.
 """
 
-from fraud_detection_tpu_torch.analysis.contracts import (  # noqa: F401
-    BUDGETS,
-    PROGRAMS,
-    Budget,
-    Program,
-    check_budgets,
-    check_programs,
-)
-from fraud_detection_tpu_torch.analysis.core import (  # noqa: F401
+_CONTRACTS = ("BUDGETS", "PROGRAMS", "Budget", "Program", "check_budgets", "check_programs")
+
+
+def __getattr__(name: str):
+    if name not in _CONTRACTS:
+        raise AttributeError(name)
+    from fraud_detection_tpu_torch.analysis import contracts
+
+    return getattr(contracts, name)
+
+
+from fraud_detection_tpu_torch.analysis.core import (  # noqa: F401,E402
     Finding,
     ModuleInfo,
     Rule,

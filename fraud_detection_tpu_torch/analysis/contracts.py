@@ -15,9 +15,10 @@ fault, not a budget.
 
 Each :class:`Budget` names the JAX entry point, the port's program, the
 unit and the counts a unit (``setup``: what a run spends once outside its
-units, such as a fit's closing gather). Its ``build(mesh)`` lays the
-program out at small shapes on ``mesh`` (as ``meshcheck``'s builders do)
-and returns ``(run, units)``. :func:`check_budgets` runs every program at
+units, such as a fit's closing gather). Its ``build(mesh, shape=SMALL)``
+lays the program out at ``shape`` (:class:`Shape`) on ``mesh`` and returns
+``(run, units)``; the shape pass (:mod:`.meshcheck`) calls the same
+builders at JAX's meshcheck shapes. :func:`check_budgets` runs every program at
 each shard count (or, for a 2-D program, each ``data × model`` grid) of
 virtual shards in one process and returns each violation as a stable
 string, ``entrypoint:kind@axis expected N got M`` (``M`` the count a unit),
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -44,8 +46,23 @@ from fraud_detection_tpu_torch.parallel.collectives import (
 )
 from fraud_detection_tpu_torch.parallel.mesh import Mesh, MeshSpec, create_mesh
 
-ROWS, FEATURES, BATCH = 256, 6, 16  # the programs' shapes
-FLUSH_ROWS = 37  # a flush's live rows (bucket 64)
+
+@dataclass(frozen=True)
+class Shape:
+    """The shapes a builder lays its program out at: ``rows`` × ``features``
+    inputs, a flush's ``flush`` live rows and the ledger flush's ``ledger``
+    rows. The budgets and the program contracts run at :data:`SMALL`, the
+    shape pass (:mod:`.meshcheck`) at JAX's meshcheck shapes."""
+
+    rows: int = 256
+    features: int = 6
+    flush: int = 37  # bucket 64
+    ledger: int = 64
+
+
+SMALL = Shape()
+ROWS, FEATURES, FLUSH_ROWS = SMALL.rows, SMALL.features, SMALL.flush
+BATCH = 16  # the sharded fits' batch
 SHARD_COUNTS = (1, 2, 8)
 GRIDS = ((1, 1), (2, 2), (2, 4))
 PSUM, PSUM_MODEL = ("psum", "data"), ("psum", "model")
@@ -69,8 +86,9 @@ class Budget:
 
 # -- inputs ------------------------------------------------------------------
 
-def _rows(n: int = ROWS, d: int = FEATURES, seed: int = 0):
+def _rows(shape: Shape = SMALL, seed: int = 0):
     rng = np.random.default_rng(seed)
+    n, d = shape.rows, shape.features
     x = rng.standard_normal((n, d)).astype(np.float32)
     w = rng.standard_normal(d).astype(np.float32)
     y = (x @ w + 0.3 * rng.standard_normal(n) > 0.5).astype(np.float32)
@@ -88,10 +106,10 @@ def _steps(n: int, ndev: int, batch: int) -> int:
     return (n_pad // ndev) // b
 
 
-def _cross_spec():
+def _cross_spec(d: int):
     from fraud_detection_tpu_torch.ops.crosses import CrossSpec
 
-    return CrossSpec(n_base=FEATURES, log2_buckets=6, amount_col=FEATURES - 1, time_col=0)
+    return CrossSpec(n_base=d, log2_buckets=6, amount_col=d - 1, time_col=0)
 
 
 def _fingerprints(n: int, seed: int = 4) -> np.ndarray:
@@ -161,29 +179,29 @@ def _flush(mon, scorer, rows, k: int = 0, fps=None, out_dtype=torch.float32):
 
 # -- builders ----------------------------------------------------------------
 
-def _logistic_sgd(mesh):
+def _logistic_sgd(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.logistic import logistic_fit_sgd
 
-    x, y = _rows()
+    x, y = _rows(shape)
     xt = torch.from_numpy(x).to(mesh.device)
     return (lambda: logistic_fit_sgd(xt, y, epochs=1, batch_size=BATCH, mesh=mesh),
-            _steps(ROWS, mesh.global_data, BATCH))
+            _steps(shape.rows, mesh.global_data, BATCH))
 
 
-def _split_level(mesh):
+def _split_level(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.gbt import _split_hist
 
     rng = np.random.default_rng(2)
     n, n_nodes, n_bins = 64 * mesh.size, 4, 16
     p = 1.0 / (1.0 + np.exp(-rng.standard_normal(n)))
     args = [torch.from_numpy(a).to(mesh.device) for a in (
-        rng.integers(0, n_bins, (n, FEATURES)).astype(np.uint8),
+        rng.integers(0, n_bins, (n, shape.features)).astype(np.uint8),
         rng.integers(0, n_nodes, n).astype(np.int32),
         (p - (rng.random(n) < 0.5)).astype(np.float32), (p * (1.0 - p)).astype(np.float32))]
     return lambda: _split_hist(*args, n_nodes, n_bins, mesh=mesh, n_total=n), 1
 
 
-def _linear(dev, wire: str):
+def _linear(dev, wire: str, shape: Shape = SMALL):
     """A logistic scorer on ``wire`` over a scaler fitted on the rows, and
     its drift profile."""
     from fraud_detection_tpu_torch.monitor.baseline import build_baseline_profile
@@ -191,14 +209,14 @@ def _linear(dev, wire: str):
     from fraud_detection_tpu_torch.ops.scaler import scaler_fit
     from fraud_detection_tpu_torch.ops.scorer import BatchScorer
 
-    x, _ = _rows()
-    coef = np.random.default_rng(1).standard_normal(FEATURES).astype(np.float32) * 0.3
+    x, _ = _rows(shape)
+    coef = np.random.default_rng(1).standard_normal(shape.features).astype(np.float32) * 0.3
     scorer = BatchScorer(LogisticParams(torch.from_numpy(coef), torch.tensor(-1.0)),
                          scaler_fit(torch.from_numpy(x)), io_dtype=wire, device=dev)
     return scorer, build_baseline_profile(x, scorer.predict_proba(x), device=dev)
 
 
-def _forest(dev, wire: str):
+def _forest(dev, wire: str, shape: Shape = SMALL):
     """A 4-tree depth-3 forest with TreeSHAP on ``wire`` (int8 with a
     calibration derived from the rows' scaler), and its drift profile."""
     from fraud_detection_tpu_torch.monitor.baseline import build_baseline_profile
@@ -208,7 +226,7 @@ def _forest(dev, wire: str):
     from fraud_detection_tpu_torch.ops.scorer import GBTBatchScorer
     from fraud_detection_tpu_torch.ops.tree_shap import build_tree_explainer
 
-    x, y = _rows()
+    x, y = _rows(shape)
     model = gbt_fit(x, y, GBTConfig(n_trees=4, max_depth=3, n_bins=16), device=dev)
     cal = derive_calibration(scaler_fit(torch.from_numpy(x))) if wire == "int8" else None
     scorer = GBTBatchScorer(model, io_dtype=wire, calibration=cal,
@@ -227,35 +245,44 @@ def _monitor(profile, mesh, sharded: bool):
 
 def _narrow_flush(wire: str, k: int, family=_linear, out_dtype=torch.float32,
                   sharded: bool = True):
-    def build(mesh):
-        scorer, profile = family(mesh.device, wire)
+    def build(mesh, shape: Shape = SMALL):
+        scorer, profile = family(mesh.device, wire, shape)
         mon = _monitor(profile, mesh, sharded)
-        rows = list(_rows()[0][:FLUSH_ROWS])
+        rows = list(_rows(shape)[0][:shape.flush])
         return Run(lambda: _flush(mon, scorer, rows, k, out_dtype=out_dtype),
                    state=lambda: _monitor_state(mon), pool=scorer.staging), 1
 
     return build
 
 
-def _ledger_flush(mesh, sharded: bool = True):
+def _ledger_flush(mesh, shape: Shape = SMALL, sharded: bool = True):
     from fraud_detection_tpu_torch.ledger.placement import shard_placement
     from fraud_detection_tpu_torch.ledger.state import LEDGER_K, LedgerSpec
     from fraud_detection_tpu_torch.monitor.baseline import build_baseline_profile
     from fraud_detection_tpu_torch.ops.scorer import _raw_score_linear
 
-    dev, d, n = mesh.device, FEATURES + LEDGER_K, 64
-    spec = LedgerSpec(n_base=FEATURES, slots=256, halflife_s=500.0, amount_col=-1,
+    dev, d, n = mesh.device, shape.features + LEDGER_K, shape.ledger
+    spec = LedgerSpec(n_base=shape.features, slots=256, halflife_s=500.0, amount_col=-1,
                       null_features=np.zeros(LEDGER_K, np.float32))
     rng = np.random.default_rng(3)
     mon = _monitor(build_baseline_profile(
         rng.standard_normal((512, d)).astype(np.float32), rng.random(512).astype(np.float32),
         device=dev), mesh, sharded)
     mon.bind_ledger(spec)
-    x = rng.standard_normal((n, FEATURES)).astype(np.float32)
+    x = rng.standard_normal((n, shape.features)).astype(np.float32)
     x[:, -1] = np.abs(x[:, -1]) * 50.0
-    keys = np.asarray([spec.row_keys(f"card-{i % 20}") for i in range(n)], np.int64)
+    owners: dict = {}
+    j = 0
+    while len(owners) < 8:  # one entity a residue of its slot mod 8
+        slot, fp = spec.row_keys(f"card-{j}")
+        owners.setdefault(slot % 8, (slot, fp))
+        j += 1
+    # the even rows the 8 entities', the odd rows entity-less: every shard
+    # count up to 8 places the rows evenly, so the bucket is the n rows
+    has = (np.arange(n) % 2 == 0).astype(np.float32)
+    keys = np.asarray([owners[(i // 2) % 8] if has[i] else (0, 0) for i in range(n)], np.int64)
     cols = (x, keys[:, 0], keys[:, 1], 1.0 + 0.5 * np.arange(n, dtype=np.float32),
-            np.ones(n, np.float32), np.ones(n, np.float32))
+            has, np.ones(n, np.float32))
     if sharded and mesh.size > 1:  # each entity's rows in the segment of the shard owning its slot
         bucket, pos = shard_placement(cols[1], cols[4], mesh.size, min_bucket=8)
         placed = []
@@ -276,104 +303,105 @@ def _ledger_flush(mesh, sharded: bool = True):
     return Run(run, state=lambda: _monitor_state(mon)), 1
 
 
-def _wide_flush(mesh, sharded: bool = True):
+def _wide_flush(mesh, shape: Shape = SMALL, sharded: bool = True):
     from fraud_detection_tpu_torch.monitor.baseline import build_baseline_profile
     from fraud_detection_tpu_torch.ops.crosses import widen_scaler, widen_with_crosses
     from fraud_detection_tpu_torch.ops.logistic import LogisticParams
     from fraud_detection_tpu_torch.ops.scaler import scaler_fit
     from fraud_detection_tpu_torch.ops.scorer import BatchScorer
 
-    dev, spec = mesh.device, _cross_spec()
+    dev, spec, n, d = mesh.device, _cross_spec(shape.features), shape.rows, shape.features
     rng = np.random.default_rng(5)
-    x = rng.standard_normal((ROWS, FEATURES)).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
     x[:, 0] = np.abs(x[:, 0]) * 40_000  # Time
     x[:, -1] = np.abs(x[:, -1]) * 150  # Amount
-    fps = _fingerprints(ROWS)
+    fps = _fingerprints(n)
     table = (rng.standard_normal(spec.buckets) * 0.2).astype(np.float32)
-    coef = np.concatenate([rng.standard_normal(FEATURES).astype(np.float32) * 0.3,
+    coef = np.concatenate([rng.standard_normal(d).astype(np.float32) * 0.3,
                            np.ones(spec.n_cross, np.float32)])
     scorer = BatchScorer(LogisticParams(torch.from_numpy(coef), torch.tensor(-1.0)),
                          widen_scaler(scaler_fit(torch.from_numpy(x)), spec.n_cross),
                          device=dev, wide_spec=spec, wide_table=table)
     xw = widen_with_crosses(x, fps, table, spec, device=dev)
-    mon = _monitor(build_baseline_profile(xw, rng.random(ROWS).astype(np.float32), device=dev),
+    mon = _monitor(build_baseline_profile(xw, rng.random(n).astype(np.float32), device=dev),
                    mesh, sharded)
-    rows = list(x[:FLUSH_ROWS])
-    return Run(lambda: _flush(mon, scorer, rows, 3, fps[:FLUSH_ROWS]),
+    rows = list(x[:shape.flush])
+    return Run(lambda: _flush(mon, scorer, rows, 3, fps[:shape.flush]),
                state=lambda: _monitor_state(mon), pool=scorer.staging), 1
 
 
-def _sharded_update(mesh):
+def _sharded_update(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.mesh.retrain import mesh_sgd_fit
 
-    x, y = _rows()
+    x, y = _rows(shape)
     xt = torch.from_numpy(x).to(mesh.device)
     return (lambda: mesh_sgd_fit(xt, y, epochs=1, batch_size=BATCH, mesh=mesh),
-            _steps(ROWS, mesh.global_data, BATCH))
+            _steps(shape.rows, mesh.global_data, BATCH))
 
 
-def _wide_update(mesh):
+def _wide_update(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.mesh.retrain import wide_sgd_fit
     from fraud_detection_tpu_torch.ops.crosses import cross_indices
 
-    spec = _cross_spec()
-    x, y = _rows()
-    fps = _fingerprints(ROWS)
+    spec = _cross_spec(shape.features)
+    x, y = _rows(shape)
+    fps = _fingerprints(shape.rows)
     idx = cross_indices(x, fps, spec, device=mesh.device)
     has = (fps != 0).astype(np.float32)
     return (lambda: wide_sgd_fit(x, idx, has, y, spec, epochs=1, batch_size=BATCH, mesh=mesh),
-            _steps(ROWS, mesh.global_data, BATCH))
+            _steps(shape.rows, mesh.global_data, BATCH))
 
 
-def _scaler(mesh):
+def _scaler(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.scaler import scaler_fit_sharded
 
-    x, _ = _rows()
+    x, _ = _rows(shape)
     return lambda: scaler_fit_sharded(torch.from_numpy(x).to(mesh.device), mesh), 1
 
 
-def _pool_stats(mesh):
+def _pool_stats(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.mesh.retrain import mapreduce_pool_stats
 
-    x, y = _rows()
+    x, y = _rows(shape)
     return lambda: mapreduce_pool_stats(x, y, y * 0.5 + 0.25, mesh=mesh), 1
 
 
-def _host_tensors(dev):
-    x, y = _rows()
-    return [torch.from_numpy(a).to(dev) for a in (x, y, y * 0.5 + 0.25, np.ones(ROWS, np.float32))]
+def _host_tensors(dev, shape: Shape):
+    x, y = _rows(shape)
+    return [torch.from_numpy(a).to(dev)
+            for a in (x, y, y * 0.5 + 0.25, np.ones(shape.rows, np.float32))]
 
 
-def _partial_pool(mesh):
+def _partial_pool(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.longhaul.fleet import _host_partial_pool
 
-    args = _host_tensors(mesh.device)
+    args = _host_tensors(mesh.device, shape)
     return lambda: _host_partial_pool(*args), 1
 
 
-def _fleet_grad(mesh):
+def _fleet_grad(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.longhaul.fleet import _host_grad
 
-    x, y, _, sw = _host_tensors(mesh.device)
-    coef = torch.full((FEATURES,), 0.1, device=mesh.device)
+    x, y, _, sw = _host_tensors(mesh.device, shape)
+    coef = torch.full((shape.features,), 0.1, device=mesh.device)
     return lambda: _host_grad(coef, torch.tensor(0.0, device=mesh.device), x, 2 * y - 1, sw), 1
 
 
-def _pool_merge(mesh):
+def _pool_merge(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.longhaul.fleet import MeshReducer, fleet_pool_stats
 
-    x, y = _rows()
+    x, y = _rows(shape)
     red = MeshReducer(mesh.device)
     return lambda: fleet_pool_stats(x, y, y * 0.5 + 0.25, red, device=mesh.device), 1
 
 
-def _grad_merge(mesh):
+def _grad_merge(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.longhaul.fleet import MeshReducer, fleet_sgd_fit
 
-    x, y = _rows()
+    x, y = _rows(shape)
     red = MeshReducer(mesh.device)
     return (lambda: fleet_sgd_fit(x, y, red, epochs=1, batch_size=BATCH, device=mesh.device),
-            max(1, ROWS // (red.n_hosts * BATCH)))
+            max(1, shape.rows // (red.n_hosts * BATCH)))
 
 
 _NO_DATA_AXIS = ("the rows are row-local (the score, the explain leg) and the drift fold "
@@ -521,68 +549,72 @@ def _on(mesh, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device) for a in arrays]
 
 
-def _linear_args(mesh):
-    coef = np.random.default_rng(1).standard_normal(FEATURES).astype(np.float32) * 0.3
+def _linear_args(mesh, shape: Shape):
+    coef = np.random.default_rng(1).standard_normal(shape.features).astype(np.float32) * 0.3
     return tuple(_on(mesh, coef, np.float32(-1.0)))
 
 
-def _score(mesh):
+def _score(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.scorer import _raw_score_linear
 
-    (xt,) = _on(mesh, _rows()[0])
-    args = _linear_args(mesh)
+    (xt,) = _on(mesh, _rows(shape)[0])
+    args = _linear_args(mesh, shape)
     return Run(lambda: _raw_score_linear(args, xt)), 1
 
 
-def _instrumented_score(mesh):
+def _instrumented_score(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.scorer import _raw_score_linear
     from fraud_detection_tpu_torch.telemetry.compile_sentinel import instrument
 
     wrapped = instrument("contracts.score", _raw_score_linear)
-    (xt,) = _on(mesh, _rows()[0])
-    args = _linear_args(mesh)
+    (xt,) = _on(mesh, _rows(shape)[0])
+    args = _linear_args(mesh, shape)
     return Run(lambda: wrapped(args, xt)), 1
 
 
-def _lbfgs(mesh):
+def _lbfgs(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.logistic import logistic_fit_lbfgs
 
-    x, y = _rows()
+    x, y = _rows(shape)
     (xt,) = _on(mesh, x)
     return Run(lambda: logistic_fit_lbfgs(xt, y, max_iter=5, mesh=mesh, sharded=True)), 1
 
 
-def _gbt_predict(mesh):
+def _gbt_predict(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.gbt import gbt_predict_proba
 
-    scorer, _ = _forest(mesh.device, "float32")
-    (xt,) = _on(mesh, _rows()[0])
+    scorer, _ = _forest(mesh.device, "float32", shape)
+    (xt,) = _on(mesh, _rows(shape)[0])
     return Run(lambda: gbt_predict_proba(scorer._model, xt)), 1
 
 
-def _smote(mesh):
+def _smote(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.smote import smote
 
-    x, y = _rows()
+    x, _ = _rows(shape)
+    # a quarter of the rows the minority class (the top quarter of one
+    # column): SMOTE adds half the rows, JAX's builder's n_synth at 1024
+    y = np.zeros(shape.rows, np.int32)
+    y[np.argsort(x[:, 0], kind="stable")[-(shape.rows // 4):]] = 1
     (xt,) = _on(mesh, x)
-    return Run(lambda: smote(xt, y.astype(np.int32), seed=0)), 1
+    return Run(lambda: smote(xt, y, seed=0)), 1
 
 
-def _linear_shap(mesh):
+def _linear_shap(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.ops.linear_shap import linear_shap, make_explainer
 
-    (xt,) = _on(mesh, _rows()[0])
-    coef, b = _linear_args(mesh)
+    (xt,) = _on(mesh, _rows(shape)[0])
+    coef, b = _linear_args(mesh, shape)
     explainer = make_explainer(coef, b, background_x=xt[:32])
     return Run(lambda: linear_shap(explainer, xt)), 1
 
 
 def _tree_shap(raw: bool):
-    def build(mesh):
+    def build(mesh, shape: Shape = SMALL):
         from fraud_detection_tpu_torch.ops.tree_shap import _raw_tree_shap, tree_shap
 
-        e = _forest(mesh.device, "float32")[0]._resolve_explainer()
-        (xt,) = _on(mesh, _rows()[0])
+        e = _forest(mesh.device, "float32", shape)[0]._resolve_explainer()
+        (xt,) = _on(mesh, _rows(shape)[0])
         if raw:  # the kernel body itself, with the explainer's tables
             return Run(lambda: _raw_tree_shap(e.model, e.bg_table, xt, tables=e.tables)), 1
         return Run(lambda: tree_shap(e, xt)), 1
@@ -590,7 +622,7 @@ def _tree_shap(raw: bool):
     return build
 
 
-def _gate_eval(mesh):
+def _gate_eval(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.lifecycle.gate import (
         N_GATE_CALIB_BINS,
         N_GATE_SCORE_BINS,
@@ -600,27 +632,29 @@ def _gate_eval(mesh):
     rng = np.random.default_rng(6)
     edges = [np.linspace(0.0, 1.0, n + 1)[1:-1].astype(np.float32)
              for n in (N_GATE_SCORE_BINS, N_GATE_CALIB_BINS)]
-    args = _on(mesh, rng.random(ROWS).astype(np.float32), rng.random(ROWS).astype(np.float32),
-               (rng.random(ROWS) < 0.3).astype(np.float32), np.ones(ROWS, np.float32), *edges)
+    n = shape.rows
+    args = _on(mesh, rng.random(n).astype(np.float32), rng.random(n).astype(np.float32),
+               (rng.random(n) < 0.3).astype(np.float32), np.ones(n, np.float32), *edges)
     return Run(lambda: _gate_stats(*args)), 1
 
 
-def _profile(mesh):
+def _profile(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.monitor.baseline import feature_histogram, score_histogram
 
-    _, profile = _linear(mesh.device, "float32")
-    x, y = _rows()
+    _, profile = _linear(mesh.device, "float32", shape)
+    x, y = _rows(shape)
     xt, st, fe, se = _on(mesh, x, y * 0.5 + 0.25, profile.feature_edges, profile.score_edges)
     return Run(lambda: (feature_histogram(xt, fe), score_histogram(st, se))), 1
 
 
-def _window_update(mesh):
+def _window_update(mesh, shape: Shape = SMALL):
     from fraud_detection_tpu_torch.monitor.drift import DriftMonitor, _window_update
 
-    _, profile = _linear(mesh.device, "float32")
+    _, profile = _linear(mesh.device, "float32", shape)
     mon = DriftMonitor(profile, device=mesh.device)
-    x, y = _rows()
-    rows = _on(mesh, x, y * 0.5 + 0.25, y, np.ones(ROWS, np.float32), np.ones(ROWS, np.float32))
+    x, y = _rows(shape)
+    ones = np.ones(shape.rows, np.float32)
+    rows = _on(mesh, x, y * 0.5 + 0.25, y, ones, ones)
 
     def run():
         with _device_part():
@@ -746,12 +780,12 @@ PROGRAMS: tuple[Program, ...] = (
             "a flush", TS, _narrow_flush("int8", 3, _forest, torch.uint8, sharded=False),
             _EVERGREEN, _LANTERN + _FOREST, True, note=f"{_FOREST_NOTE}; {_FOLDED}"),
     Program("ledger.flush", "monitor/drift._fused_flush_ledger", "a flush", FS,
-            lambda mesh: _ledger_flush(mesh, sharded=False), ("float32",), _LEDGER, True,
+            functools.partial(_ledger_flush, sharded=False), ("float32",), _LEDGER, True,
             note=f"{_NO_PALLAS} at d_base + K; {_FOLDED}, and so does the table, whose five "
             "leaves JAX returns: checked in place. The port's table holds the fingerprint "
             "as int64 on the device (JAX declares uint32; the file keeps uint32)"),
     Program("broadside.flush", "monitor/drift._fused_flush_wide (whole table)", "a flush", FS,
-            lambda mesh: _wide_flush(mesh, sharded=False), _EXPLAIN3, _WIDE, True,
+            functools.partial(_wide_flush, sharded=False), _EXPLAIN3, _WIDE, True,
             note=f"{_NO_PALLAS} at n_base + n_cross; {_FOLDED}"),
     # -- the TreeSHAP kernel bodies (JAX's chisel entry points) ----------------
     Program("chisel.tree_shap", "ops/tree_shap._raw_tree_shap (the explainer's tables)",
@@ -825,20 +859,28 @@ PROGRAMS: tuple[Program, ...] = (
 )
 
 
-def _dtypes(out) -> tuple[str, ...]:
-    """The dtypes of a result's tensor and array leaves, in order (tuples,
-    lists, dicts and dataclasses walked; host scalars and strings skipped)."""
-    if isinstance(out, torch.Tensor):
-        return (str(out.dtype).removeprefix("torch."),)
-    if isinstance(out, np.ndarray):
-        return (str(out.dtype),)
+def leaves(out) -> tuple:
+    """A result's tensor and array leaves, in order (tuples, lists, dicts
+    and dataclasses walked; host scalars and strings skipped)."""
+    if isinstance(out, (torch.Tensor, np.ndarray)):
+        return (out,)
     if dataclasses.is_dataclass(out) and not isinstance(out, type):
-        return sum((_dtypes(getattr(out, f.name)) for f in dataclasses.fields(out)), ())
+        return sum((leaves(getattr(out, f.name)) for f in dataclasses.fields(out)), ())
     if isinstance(out, (tuple, list)):
-        return sum((_dtypes(o) for o in out), ())
+        return sum((leaves(o) for o in out), ())
     if isinstance(out, dict):
-        return sum((_dtypes(o) for o in out.values()), ())
+        return sum((leaves(o) for o in out.values()), ())
     return ()
+
+
+def dtype_name(leaf) -> str:
+    """A tensor's or an array's dtype as JAX names it (``float32``)."""
+    return str(leaf.dtype).removeprefix("torch.")
+
+
+def _dtypes(out) -> tuple[str, ...]:
+    """The dtypes of a result's :func:`leaves`, in order."""
+    return tuple(dtype_name(leaf) for leaf in leaves(out))
 
 
 @contextlib.contextmanager

@@ -11,7 +11,12 @@ and, with ``--contracts``, two dicts:
   program run's :func:`~.contracts.run_program` result: its shards, units,
   dispatches and, on the card, launches by kernel);
 - ``locks``: ``report`` (:func:`~.lockcheck.build_lock_report`), ``new``
-  and ``stale`` (against the ``lockcheck`` section).
+  and ``stale`` (against the ``lockcheck`` section);
+
+and, with the shape pass, ``mesh``: the rows of
+:func:`~.meshcheck.verify_all`, in JAX's forms (text ``meshcheck:``
+lines, JSON ``mesh_verification`` and ``summary.mesh_failures``; the
+JSON also gives the pass's wall, ``summary.mesh_seconds``).
 """
 
 from __future__ import annotations
@@ -24,13 +29,20 @@ from fraud_detection_tpu_torch.analysis.core import Severity, iter_rules
 
 
 def render_text(result: BaselineResult, verbose: bool = False, contracts: dict | None = None,
-                locks: dict | None = None) -> str:
+                locks: dict | None = None, mesh: list | None = None) -> str:
     lines: list[str] = []
     for f in result.new:
         lines.append(f"{f.path}:{f.line}:{f.col}: {f.severity.name.lower()} [{f.rule_id}] "
                      f"{f.message}")
         if f.snippet:
             lines.append(f"    {f.snippet}")
+    for r in mesh or []:
+        if not r["ok"]:
+            lines.append(f"meshcheck: error [{r['entrypoint']}] mesh size {r['mesh_size']}: "
+                         f"{r['error']}")
+        elif verbose:
+            lines.append(f"meshcheck: ok [{r['entrypoint']}] mesh size {r['mesh_size']} "
+                         f"({r['out']})")
     if contracts is not None:
         new = set(contracts["new"])
         for key in contracts["violations"]:
@@ -53,6 +65,9 @@ def render_text(result: BaselineResult, verbose: bool = False, contracts: dict |
     summary = f"analysis: {len(result.new)} finding(s), {len(result.suppressed)} baselined"
     if result.stale:
         summary += f", {len(result.stale)} stale baseline entr(y/ies)"
+    if mesh is not None:
+        summary += (f"; mesh verification: {len(mesh) - _failures(mesh)}/{len(mesh)} checks "
+                    "passed")
     if contracts is not None:
         summary += (f"; contracts on {contracts['device']}: {len(contracts['runs'])} program "
                     f"runs, {len(contracts['violations'])} violation(s), "
@@ -69,8 +84,13 @@ def render_text(result: BaselineResult, verbose: bool = False, contracts: dict |
     return "\n".join(lines)
 
 
+def _failures(mesh: list) -> int:
+    return sum(1 for r in mesh if not r["ok"])
+
+
 def render_json(result: BaselineResult, contracts: dict | None = None,
-                locks: dict | None = None) -> str:
+                locks: dict | None = None, mesh: list | None = None,
+                mesh_seconds: float | None = None) -> str:
     doc: dict[str, Any] = {
         "findings": [f.to_dict() for f in result.new],
         "baselined": [f.to_dict() for f in result.suppressed],
@@ -80,6 +100,11 @@ def render_json(result: BaselineResult, contracts: dict | None = None,
         "summary": {"new": len(result.new), "baselined": len(result.suppressed),
                     "stale": len(result.stale)},
     }
+    if mesh is not None:
+        doc["mesh_verification"] = mesh
+        doc["summary"]["mesh_failures"] = _failures(mesh)
+        if mesh_seconds is not None:  # the pass's wall, beside JAX's keys
+            doc["summary"]["mesh_seconds"] = mesh_seconds
     if contracts is not None:
         doc["contracts"] = contracts
         doc["summary"].update(contract_violations=len(contracts["violations"]),
@@ -94,11 +119,14 @@ def render_json(result: BaselineResult, contracts: dict | None = None,
 
 
 def exit_code(result: BaselineResult, fail_on: Severity = Severity.INFO,
-              contracts: dict | None = None, locks: dict | None = None) -> int:
+              contracts: dict | None = None, locks: dict | None = None,
+              mesh: list | None = None) -> int:
     """1 when a finding the baseline does not cover is at or above
-    ``fail_on``, or a contract or lock violation key is new; else 0.
-    Stale entries are reported, never failed on."""
+    ``fail_on``, a shape-pass row failed, or a contract or lock violation
+    key is new; else 0. Stale entries are reported, never failed on."""
     if any(f.severity >= fail_on for f in result.new):
+        return 1
+    if mesh and _failures(mesh):
         return 1
     if (contracts is not None and contracts["new"]) or (locks is not None and locks["new"]):
         return 1

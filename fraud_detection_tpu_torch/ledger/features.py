@@ -59,6 +59,7 @@ from fraud_detection_tpu_torch.ledger.state import (
     ZSCORE_CLIP,
     LedgerState,
 )
+from fraud_detection_tpu_torch.parallel.sharding import split_segments
 
 
 #: elements a CPU ``exp2`` is padded to a multiple of: ATen's loop takes
@@ -102,7 +103,7 @@ def _ledger_read_update(
     acc, last_ts, fingerprint = state.acc, state.last_ts, state.fingerprint
     if shards is not None:
         n = slot_idx.shape[0]
-        seg = torch.arange(n, device=slot_idx.device) // (n // shards)
+        seg = torch.arange(n, device=slot_idx.device) // split_segments(slot_idx, shards).shape[1]
         slot_idx = slot_idx + seg * slots
         acc, last_ts, fingerprint = acc.view(-1, 3), last_ts.view(-1), fingerprint.view(-1)
     a = torch.nan_to_num(

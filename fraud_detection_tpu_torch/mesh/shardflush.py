@@ -67,6 +67,7 @@ from fraud_detection_tpu_torch.monitor import drift as _drift
 from fraud_detection_tpu_torch.monitor.baseline import BaselineProfile
 from fraud_detection_tpu_torch.monitor.drift import N_CALIB_BINS, DriftMonitor, DriftWindow
 from fraud_detection_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from fraud_detection_tpu_torch.parallel.sharding import split_segments
 
 log = logging.getLogger("fraud_detection_tpu_torch.lifeboat")
 
@@ -218,18 +219,18 @@ def _per_shard(body, window, x, valid, rest, kw, ledger=None, rows_at=None, grou
     shard's ``group`` windows (its model group's, leading axis kept).
     Outputs concatenated in row order."""
     n = window.n_rows.shape[0] // group
-    seg = x.shape[0] // n
+    xs, vs = split_segments(x, n), split_segments(valid, n)
+    cols = tuple(split_segments(c, n) for c in rest[rows_at]) if rows_at is not None else ()
     outs = []
     for s in range(n):
-        sl = slice(s * seg, (s + 1) * seg)
         args = list(rest)
         if rows_at is not None:
-            args[rows_at] = tuple(c[sl] for c in args[rows_at])
+            args[rows_at] = tuple(c[s] for c in cols)
         own = s if group == 1 else slice(s * group, (s + 1) * group)
         lead = [DriftWindow(*(t[own] for t in window.tensors()))]
         if ledger is not None:
             lead.append(LedgerState(*(t[s] for t in ledger)))
-        outs.append(body(*lead, x[sl], valid[sl], *args, **kw))
+        outs.append(body(*lead, xs[s], vs[s], *args, **kw))
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts) for parts in zip(*outs))
     return torch.cat(outs)
@@ -320,7 +321,8 @@ class MeshDriftMonitor(DriftMonitor):
         if cross_spec.buckets % self.n_model:
             raise ValueError(
                 f"wide table of {cross_spec.buckets} buckets does not column-shard "
-                f"over {self.n_model} model shards"
+                f"over {self.n_model} model shards: dimension 0 of shape "
+                f"({cross_spec.buckets},) not divisible by {self.n_model} model shards"
             )
         if self._wide_src is not wide_table:
             self._wide_placed = wide_table.view(self.n_model, -1)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from fraud_detection_tpu_torch.device import resolve_device
+from fraud_detection_tpu_torch.parallel.sharding import split_segments
 
 PROFILE_FILE = "monitor_profile.npz"
 
@@ -51,7 +52,7 @@ def _segment_sum(t: torch.Tensor, segments: int | None, **kw) -> torch.Tensor:
     equal row segments (the serving mesh's shards) → a leading shard axis."""
     if segments is None:
         return t.sum(dim=0, **kw)
-    return t.view(segments, t.shape[0] // segments, *t.shape[1:]).sum(dim=1, **kw)
+    return split_segments(t, segments).sum(dim=1, **kw)
 
 
 def feature_histogram(

@@ -57,6 +57,7 @@ from fraud_detection_tpu_torch.ops.crosses import (
 )
 from fraud_detection_tpu_torch.ops.linear_shap import _raw_linear_shap, topk_reasons
 from fraud_detection_tpu_torch.ops.scorer import _bucket, _cast_scores, _raw_score_linear
+from fraud_detection_tpu_torch.parallel.sharding import split_segments
 from fraud_detection_tpu_torch.ops.tree_shap import TreeShapExplainer, _raw_tree_shap
 from fraud_detection_tpu_torch.utils import lockdep
 
@@ -175,7 +176,7 @@ def _fold_serving_batch(
     segments = window.n_rows.shape[0] if window.n_rows.dim() else None
     fc = feature_histogram(xf, feature_edges, weights=valid, segments=segments)
     sc = score_histogram(scores, score_edges, weights=valid, segments=segments)
-    rows = valid.sum() if segments is None else valid.view(segments, -1).sum(dim=1)
+    rows = valid.sum() if segments is None else split_segments(valid, segments).sum(dim=1)
     window.feature_counts.mul_(decay).add_(fc)
     window.score_counts.mul_(decay).add_(sc)
     window.n_rows.mul_(decay).add_(rows)

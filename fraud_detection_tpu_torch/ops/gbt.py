@@ -233,18 +233,18 @@ def _split_hist(bins, local, g, h, n_nodes: int, n_bins: int, *, mesh, n_total: 
     JAX package's per-device histogram and ``psum`` (ops/gbt.py:377, the
     leaf sums :437)."""
     from fraud_detection_tpu_torch.parallel.collectives import pmax, psum
+    from fraud_detection_tpu_torch.parallel.sharding import batch_sharding
 
     shards = mesh.size
-    rows = bins.shape[0] // shards
-    segs = [slice(s * rows, (s + 1) * rows) for s in range(shards)]
+    bins, local, g, h = (batch_sharding(mesh).segments(t) for t in (bins, local, g, h))
     max_bits = pmax(torch.stack([
-        kernels.gbt_hist_max(local[r], g[r], h[r], n_nodes) for r in segs
+        kernels.gbt_hist_max(local[s], g[s], h[s], n_nodes) for s in range(shards)
     ]), mesh)
-    acc = torch.zeros((shards, bins.shape[1], n_nodes, n_bins, 2), dtype=torch.int64,
+    acc = torch.zeros((shards, bins.shape[2], n_nodes, n_bins, 2), dtype=torch.int64,
                       device=bins.device)
     quanta = torch.empty(2, dtype=torch.float64, device=bins.device)
-    for s, r in enumerate(segs):
-        kernels.gbt_hist_accumulate(bins[r], local[r], g[r], h[r], n_nodes, n_bins,
+    for s in range(shards):
+        kernels.gbt_hist_accumulate(bins[s], local[s], g[s], h[s], n_nodes, n_bins,
                                     max_bits, n_total, acc[s], quanta)
     return kernels.gbt_hist_finish(psum(acc, mesh), quanta)
 

@@ -6,8 +6,10 @@ splits over the shards instead: :func:`batch_sharding` into ``mesh.size``
 equal row segments (segment ``s`` is shard ``s``'s rows, ``[s·b/N,
 (s+1)·b/N)``), :func:`data_sharding` into ``mesh.data`` segments each
 replicated over the model axis (the wide program's rows), :func:`replicated`
-not at all (every shard reads the whole tensor). :func:`pad_to_multiple` and :func:`shard_batch` resolve the even
-row count a split needs on the host first, as in JAX. Inside a process
+not at all (every shard reads the whole tensor). :func:`split_segments`
+checks every split (a count that does not divide the rows raises, naming
+the shape and the count); :func:`pad_to_multiple` and :func:`shard_batch`
+resolve the even row count a split needs on the host first, as in JAX. Inside a process
 group every process is given the same rows and keeps its own shards'
 segments (:func:`shard_batch`), as JAX's ``device_put`` of one global
 array onto a mesh spanning every process does.
@@ -41,16 +43,25 @@ class ShardLayout:
         return self.mesh.size if self.over_model else self.mesh.data
 
     def segments(self, t: torch.Tensor) -> torch.Tensor:
-        """A split tensor as ``(shards, rows a shard, ...)`` (a view); a
-        replicated one as it is."""
+        """A split tensor as ``(shards, rows a shard, ...)`` (a view, checked
+        by :func:`split_segments`); a replicated one as it is."""
         if not self.split:
             return t
-        n = self.parts
-        if t.shape[0] % n:
-            raise ValueError(
-                f"{t.shape[0]} rows do not split over {n} shards; pad them first"
-            )
-        return t.view(n, t.shape[0] // n, *t.shape[1:])
+        return split_segments(t, self.parts)
+
+
+def split_segments(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t``'s leading axis as ``n`` equal segments, ``(n, rows a segment,
+    ...)`` (a view): every split of rows over shards goes through here. A
+    count ``n`` does not divide raises ``ValueError`` naming the shape and
+    the count, as JAX's ``meshcheck`` pre-check of a ``NamedSharding``
+    does, before any row is dropped or misplaced."""
+    if t.shape[0] % n:
+        raise ValueError(
+            f"dimension 0 of shape {tuple(t.shape)} not divisible by {n} shards: "
+            f"{t.shape[0]} rows do not split over {n} shards; pad them first"
+        )
+    return t.view(n, t.shape[0] // n, *t.shape[1:])
 
 
 def batch_sharding(mesh: Mesh | None = None) -> ShardLayout:

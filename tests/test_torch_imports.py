@@ -70,7 +70,8 @@ def test_training_modules_are_among_those_imported():
     explain, offline-tool, ingest, ledger, wide-family, lifecycle, lifeboat,
     network-store, telemetry, serving-mesh, sharded-training, model-axis,
     range, longhaul and analysis slices' modules are in it (the static
-    rules, their baseline, report and CLI among them)."""
+    rules, their baseline, report and CLI among them, the shape pass, the
+    bench trajectory and the two mesh probes)."""
     import pkgutil
 
     import fraud_detection_tpu_torch as pkg
@@ -107,7 +108,9 @@ def test_training_modules_are_among_those_imported():
                 "analysis.core", "analysis.locknames", "analysis.lockcheck",
                 "analysis.hostsync", "analysis.rules_service", "analysis.rules_monitoring",
                 "analysis.rules_artifacts", "analysis.rules_perf", "analysis.rules_capture",
-                "analysis.baseline", "analysis.report", "analysis.__main__"):
+                "analysis.baseline", "analysis.report", "analysis.__main__",
+                "analysis.meshcheck", "analysis.trajectory", "mesh.bench",
+                "mesh.widebench"):
         assert f"fraud_detection_tpu_torch.{mod}" in names
 
 

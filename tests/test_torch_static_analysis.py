@@ -44,6 +44,7 @@ JAX = os.path.join(ROOT, "fraud_detection_tpu")
 #: (file, enclosing function, rule) of each port site JAX's rules find: the
 #: thirteen sanctioned where JAX sanctions its own, then the two port-only
 JAX_SITES = [
+    ("analysis/meshcheck.py", "verify_entrypoint", "silent-except"),
     ("longhaul/fleet.py", "__init__", "socket-no-timeout"),
     ("longhaul/host.py", "__init__", "socket-no-timeout"),
     ("longhaul/membership.py", "__init__", "socket-no-timeout"),
